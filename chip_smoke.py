@@ -1,0 +1,462 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA card: build, check, serve.
+
+Run from the root of a checkout, on a machine with a CUDA card and the
+CUDA toolkit (nvcc)::
+
+    python3 chip_smoke.py
+
+Phases (any failure ends the run with a non-zero exit and no result):
+
+1. The card's name and power limit (``nvidia-smi``), and the build of
+   every CUDA kernel of the port from ``sparknet_tpu_torch/ops/csrc``.
+2. Each kernel against its plain PyTorch version on the card, in
+   float32, at the serving path's shapes — flash forward (causal and
+   not, T in 16..256, a ragged T_q, a block of fully-masked rows) and
+   decode attention (8 slots x 256 positions, ragged lengths) — then
+   each kernel's time beside its plain version's, one PyTorch library
+   call's (``scaled_dot_product_attention``, a yardstick the port never
+   calls) and the least time the card could take.
+3. End to end at the CLI's default model (``TransformerLM(dim=256,
+   depth=4, heads=4, seq_len=256)``, seeded weights): the engine is
+   built and warmed as ``cli serve --generate`` does, ``ServeServer``
+   listens on a loopback port, and 4 concurrent ``POST /generate``
+   streams of 32 tokens are read back.  Kernel launch counts are reset
+   just before the requests and read just after.  Every streamed
+   logprob is held against a CPU copy of the same model (plain
+   attention) scoring the same tokens teacher-forced, and every token
+   against the CPU model's argmax except where its top-2 logit margin
+   is a near-tie.
+
+The second-to-last line is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import http.client
+import json
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+
+# float32 on both sides; the kernels sum tile by tile (online softmax)
+# where the plain versions sum densely, so results agree to rounding
+KERNEL_ATOL = 2e-5
+# streamed logprobs vs the CPU model's teacher-forced scores: float32
+# through 4 layers, summed in another order on another device
+LOGPROB_ATOL = 1e-4
+# a token may differ from the CPU argmax only where the CPU's top-2
+# logits are this close (seeded random weights give near-ties)
+TIE_MARGIN = 1e-4
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32
+# operations/s outside the tensor cores (the kernels run fp32 FMA)
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+
+CLI_MODEL = dict(dim=256, depth=4, heads=4, seq_len=256)
+CLI_SERVE = dict(
+    prefill_buckets=(16, 32, 64, 128), max_streams=8, kv_blocks=64,
+    kv_block_size=16,
+)
+PROMPT_LENS = (5, 23, 50, 100)
+MAX_NEW = 32
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def time_ms(fn, iters: int = 50, warm: int = 5) -> float:
+    """Mean device time of one call, CUDA events around ``iters``
+    back-to-back calls after ``warm`` untimed ones."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, n: int = 20):
+    """Device time of one call without the host's launch cost: ``n``
+    calls captured in one CUDA graph, the graph replayed between CUDA
+    events, divided by ``n``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return time_ms(graph.replay, iters=10, warm=2) / n
+
+
+def bound_ms(nbytes: float, ops: float):
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_FP32_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(got, want) -> float:
+    """Max |got - want| over entries finite in ``want``; infinities must
+    match exactly (the (0, -inf) rule of masked rows)."""
+    inf = torch.isinf(want)
+    check(bool(torch.equal(torch.isinf(got), inf)), "infinities differ")
+    check(bool(torch.equal(got[inf], want[inf])), "infinity signs differ")
+    check(not bool(torch.isnan(got).any()), "NaN in kernel output")
+    if bool(inf.all()):
+        return 0.0
+    return float((got[~inf] - want[~inf]).abs().max())
+
+
+# ----------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ----------------------------------------------------------------------
+def check_kernels(dev):
+    """Hold each kernel against its plain version; return the per-kernel
+    records (without launch counts) for the kernels line."""
+    import torch.nn.functional as F
+
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    B, H, D = 1, 4, 64
+    flash_err = 0.0
+    cases = [(t, t, False) for t in (16, 32, 64, 128, 256)]
+    cases += [(t, t, True) for t in (16, 32, 64, 128, 256)]
+    cases += [(37, 37, True), (37, 128, True), (37, 128, False)]
+    for tq, tk, causal in cases:
+        q, k, v = rand(B, tq, H, D), rand(B, tk, H, D), rand(B, tk, H, D)
+        o, lse = ca._flash_core(q, k, v, tk - tq, 0, causal)
+        o_ref, lse_ref = ca._flash_core_reference(q, k, v, tk - tq, 0, causal)
+        e = max(max_err(o, o_ref), max_err(lse, lse_ref))
+        print(f"K1 flash_fwd tq={tq} tk={tk} causal={causal}: "
+              f"max_abs_err {e:.3e}")
+        check(e <= KERNEL_ATOL, f"flash_fwd disagrees at {tq}x{tk}: {e}")
+        flash_err = max(flash_err, e)
+    # absolute offsets: keys start at 64, so query rows 0..63 see nothing
+    q, k, v = rand(B, 128, H, D), rand(B, 128, H, D), rand(B, 128, H, D)
+    o, lse = ca._flash_core(q, k, v, 0, 64, True)
+    o_ref, lse_ref = ca._flash_core_reference(q, k, v, 0, 64, True)
+    check(bool((o[:, :64] == 0).all()), "masked rows must give o = 0")
+    e = max(max_err(o, o_ref), max_err(lse, lse_ref))
+    print(f"K1 flash_fwd offsets (0, 64), 64 fully-masked rows: "
+          f"max_abs_err {e:.3e}")
+    check(e <= KERNEL_ATOL, f"flash_fwd disagrees with offsets: {e}")
+    flash_err = max(flash_err, e)
+
+    # decode attention at the serving decode shape
+    Bd, S = CLI_SERVE["max_streams"], CLI_MODEL["seq_len"]
+    lengths = torch.tensor([1, 17, 256, 100, 200, 64, 128, 255],
+                           dtype=torch.int32, device=dev)
+    qd, kd, vd = rand(Bd, 1, H, D), rand(Bd, S, H, D), rand(Bd, S, H, D)
+    od = ca.decode_attention(qd, kd, vd, lengths)
+    od_ref = ca.decode_attention_reference(qd, kd, vd, lengths)
+    dec_err = max_err(od, od_ref)
+    print(f"K2 decode_attention B={Bd} S={S} lengths "
+          f"{lengths.tolist()}: max_abs_err {dec_err:.3e}")
+    check(dec_err <= KERNEL_ATOL, f"decode_attention disagrees: {dec_err}")
+
+    def timed(record, kernel, plain, library=None):
+        """Per-call times of the kernel, its plain version and the
+        library call: on the device (``ms``, ``plain_ms``,
+        ``library_ms``: CUDA-graph replays, no host launch cost) and as
+        a caller waits (``call_ms`` etc.: CUDA events around
+        back-to-back calls, the host's launch cost included)."""
+        for key, fn in (("", kernel), ("plain_", plain),
+                        ("library_", library)):
+            if fn is not None:
+                record[key + "ms"] = device_ms(fn)
+                record[key + "call_ms"] = time_ms(fn)
+        return record
+
+    # times at every prefill bucket and the scorer's T=256, causal
+    for t in (16, 32, 64, 128, 256):
+        q, k, v = rand(B, t, H, D), rand(B, t, H, D), rand(B, t, H, D)
+        r = timed({}, lambda: ca.flash_attention(q, k, v, True),
+                  lambda: ca.flash_attention_reference(q, k, v, True))
+        print(f"K1 flash_fwd T={t} causal: kernel {r['ms']:.4f} ms on "
+              f"device ({r['call_ms']:.4f} ms per call), plain "
+              f"{r['plain_ms']:.4f} ms ({r['plain_call_ms']:.4f} ms)")
+    T = CLI_SERVE["prefill_buckets"][-1]
+    q, k, v = rand(B, T, H, D), rand(B, T, H, D), rand(B, T, H, D)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = B * H * T * (T + 1) // 2  # visible (query, key) pairs
+    flash_bytes = 4 * (4 * B * T * H * D + B * H * T)  # q,k,v,o + lse
+    fb, fby = bound_ms(flash_bytes, 4 * D * pairs)  # 2 products, 2 ops/MAC
+    flash = timed(
+        dict(
+            name="flash_fwd", route="cuda",
+            source="sparknet_tpu_torch/ops/csrc/flash_fwd.cu",
+            replaces="sparknet_tpu/ops/pallas_attention.py:67",
+            max_abs_err=flash_err, bound_ms=fb, bound_by=fby,
+            shape=f"B={B} T={T} H={H} D={D} causal fp32",
+        ),
+        lambda: ca.flash_attention(q, k, v, True),
+        lambda: ca.flash_attention_reference(q, k, v, True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+    )
+
+    n_valid = int(lengths.sum())
+    dec_bytes = 4 * (2 * Bd * H * D + 2 * n_valid * H * D + Bd)
+    db, dby = bound_ms(dec_bytes, 4 * H * D * n_valid)
+    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])
+    mask = mask[:, None, None, :]
+    qdt, kdt, vdt = (x.transpose(1, 2) for x in (qd, kd, vd))
+    decode = timed(
+        dict(
+            name="decode_attention", route="cuda",
+            source="sparknet_tpu_torch/ops/csrc/decode_attention.cu",
+            replaces="sparknet_tpu/ops/pallas_attention.py:320",
+            max_abs_err=dec_err, bound_ms=db, bound_by=dby,
+            shape=f"B={Bd} S={S} H={H} D={D} sum(lengths)={n_valid} fp32",
+        ),
+        lambda: ca.decode_attention(qd, kd, vd, lengths),
+        lambda: ca.decode_attention_reference(qd, kd, vd, lengths),
+        lambda: F.scaled_dot_product_attention(qdt, kdt, vdt, attn_mask=mask),
+    )
+    for r in (flash, decode):
+        print(f"{r['name']} [{r['shape']}] on device (per call as a caller "
+              f"waits): kernel {r['ms']:.4f} ms ({r['call_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms ({r['plain_call_ms']:.4f}), library "
+              f"{r['library_ms']:.4f} ms ({r['library_call_ms']:.4f}), bound "
+              f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+    return [flash, decode]
+
+
+# ----------------------------------------------------------------------
+# phase 3: the main path — cli serve --generate, 4 concurrent streams
+# ----------------------------------------------------------------------
+def _stream(host, port, prompt, out, i):
+    conn = http.client.HTTPConnection(host, port, timeout=300)
+    t0 = time.perf_counter()
+    conn.request("POST", "/generate",
+                 body=json.dumps({"prompt": prompt, "max_new": MAX_NEW}),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    events, t_first = [], None
+    for line in resp:
+        if not line.strip():
+            continue
+        ev = json.loads(line)
+        if t_first is None:
+            t_first = time.perf_counter() - t0
+        events.append(ev)
+    conn.close()
+    out[i] = dict(status=resp.status, events=events, ttft_s=t_first,
+                  total_s=time.perf_counter() - t0)
+
+
+def serve_end_to_end(dev, card):
+    from sparknet_tpu_torch.models.transformer_lm import TransformerLM
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+    from sparknet_tpu_torch.serve import GenerationEngine, ServeServer
+
+    t0 = time.perf_counter()
+    engine = GenerationEngine(TransformerLM(**CLI_MODEL), device=dev,
+                              **CLI_SERVE)
+    n_shapes = engine.warmup()
+    print(f"engine built and warmed ({n_shapes} shapes, "
+          f"{engine.lm.num_params()} params) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    server = ServeServer(engine, host="127.0.0.1", port=0)
+    server.start()
+    host, port = server.address
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 256, size=n).tolist() for n in PROMPT_LENS]
+    results = [None] * len(prompts)
+    threads = [
+        threading.Thread(target=_stream, args=(host, port, p, results, i),
+                         name=f"client-{i}")
+        for i, p in enumerate(prompts)
+    ]
+    ca.reset_launch_counts()
+    t_start = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t_start
+    torch.cuda.synchronize()
+    launches = dict(ca.LAUNCHES)
+    prefills = server.batcher.m_ttft.count
+    steps = server.batcher.m_occupancy.count
+    server.shutdown()
+    check(all(not t.is_alive() for t in threads), "a stream did not finish")
+
+    depth = CLI_MODEL["depth"]
+    print(f"main path: {prefills} prefills, {steps} decode steps, "
+          f"launches {launches}")
+    check(prefills == len(prompts), f"{prefills} prefills")
+    check(launches["flash_fwd"] >= prefills * depth > 0,
+          "prefill did not run the flash kernel")
+    check(launches["decode_attention"] >= steps * depth > 0,
+          "decode did not run the decode kernel")
+
+    # the CPU reference: the same seeded model, plain attention
+    cpu = GenerationEngine(TransformerLM(**CLI_MODEL), device="cpu",
+                           **CLI_SERVE)
+    for name, p in engine.lm.state_dict().items():
+        check(torch.equal(p.cpu(), cpu.lm.state_dict()[name]),
+              f"weights differ at {name}")
+    worst_lp, worst_gpu_score, ties, n_tok = 0.0, 0.0, 0, 0
+    for prompt, r in zip(prompts, results):
+        check(r is not None and r["status"] == 200, f"stream failed: {r}")
+        evs = r["events"]
+        check(evs[-1]["event"] == "done", f"stream ended {evs[-1]}")
+        toks = [e["token"] for e in evs if e["event"] == "token"]
+        lps = np.array([e["logprob"] for e in evs if e["event"] == "token"])
+        check(len(toks) == MAX_NEW and toks == evs[-1]["tokens"],
+              "token events and the done event disagree")
+        check(bool(np.isfinite(lps).all()), "non-finite logprob")
+        ref_lp = cpu.score_tokens(prompt, toks)
+        worst_lp = max(worst_lp, float(np.abs(lps - ref_lp).max()))
+        gpu_lp = engine.score_tokens(prompt, toks)  # the scorer on the card
+        worst_gpu_score = max(worst_gpu_score,
+                              float(np.abs(gpu_lp - ref_lp).max()))
+        seq = np.zeros((1, CLI_MODEL["seq_len"]), np.int64)
+        seq[0, : len(prompt) + len(toks)] = prompt + toks
+        logits = cpu.lm.forward_logits(torch.from_numpy(seq))[0]
+        for j, tok in enumerate(toks):
+            top2 = torch.topk(logits[len(prompt) - 1 + j], 2)
+            n_tok += 1
+            if tok != int(top2.indices[0]):
+                margin = float(top2.values[0] - top2.values[1])
+                check(margin < TIE_MARGIN,
+                      f"token {j} differs from the CPU argmax "
+                      f"(margin {margin})")
+                ties += 1
+    print(f"vs CPU reference: {n_tok} tokens, max |logprob diff| "
+          f"{worst_lp:.3e} (limit {LOGPROB_ATOL}), scorer on card "
+          f"{worst_gpu_score:.3e}, {ties} tokens differ at near-ties")
+    check(worst_lp <= LOGPROB_ATOL, f"logprobs differ by {worst_lp}")
+    check(worst_gpu_score <= LOGPROB_ATOL,
+          f"card scorer differs by {worst_gpu_score}")
+    ttfts = sorted(r["ttft_s"] for r in results)
+    print(f"[{card}] TTFT over {len(results)} concurrent streams: "
+          f"min {ttfts[0] * 1e3:.2f} ms, max {ttfts[-1] * 1e3:.2f} ms")
+    print(f"[{card}] {n_tok} tokens in {wall:.3f} s wall: "
+          f"{n_tok / wall:.1f} tokens/s across 4 streams; intertoken p50 "
+          f"{server.batcher.m_intertoken.quantile(0.5) * 1e3:.2f} ms")
+    where_time_goes(engine, card)
+    return launches
+
+
+def where_time_goes(engine, card, iters: int = 15):
+    """Wall time of one decode step with all 8 slots live (prompts of
+    16..128 tokens) and of one T=128 prefill, the device's busy share
+    of it, and the kernels that take the device time
+    (``torch.profiler``).  The prefill's pad rows are all dropped, so
+    it writes nothing; the slots are freed at the end."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    T = CLI_SERVE["prefill_buckets"][-1]
+    rs = np.random.RandomState(1)
+    slots = [
+        engine.admit(rs.randint(0, 256, size=16 * (i + 1)).tolist(),
+                     2 * iters + 8)[0]
+        for i in range(engine.max_streams)
+    ]
+    oob = np.full((T,), engine.pool.oob_row, np.int64)
+    programs = (
+        ("decode step, 8 live slots", engine.step),
+        (f"prefill T={T}",
+         lambda: engine._prefill(np.zeros((1, T), np.int64), 0, oob)),
+    )
+    for name, fn in programs:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / iters * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        # device-side events only: a CPU op also reports the device
+        # time of the kernels it launched, which would count them twice
+        rows = sorted(
+            ((e.self_device_time_total / iters / 1e3, e.count // iters, e.key)
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0),
+            reverse=True,
+        )
+        busy = sum(r[0] for r in rows)
+        check(busy > 0, f"{name}: the profiler saw no device time")
+        attn = sum(r[0] for r in rows if "flash_fwd_kernel" in r[2]
+                   or "decode_kernel" in r[2])
+        n_kernels = sum(r[1] for r in rows)
+        print(f"[{card}] {name}: {wall_ms:.3f} ms wall, {busy:.3f} ms "
+              f"device busy ({busy / wall_ms:.1%}), {n_kernels} kernel "
+              f"launches of {len(rows)} kinds; the port's attention "
+              f"kernels {attn:.4f} ms ({attn / busy:.1%} of device)")
+        for ms, count, key in rows[:6]:
+            print(f"    {ms:.4f} ms ({ms / busy:.1%} of device, {count} "
+                  f"launches)  {key[:90]}")
+    for slot in slots:
+        engine.finish(slot)
+    check(engine.pool.used() == 0, "KV blocks leaked")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device — this script runs on the card",
+              file=sys.stderr)
+        return 2
+    from sparknet_tpu_torch.ops import _build
+    from sparknet_tpu_torch.utils.devices import card_name_and_power_limit
+
+    card = card_name_and_power_limit(0)
+    dev = torch.device("cuda", 0)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    print(f"kernels built in {time.perf_counter() - t0:.2f} s: "
+          + ", ".join(p.name for p in libs.values()))
+    for p in libs.values():
+        log = p.with_suffix(".log")
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {p.stem}: {line.strip()}")
+
+    kernels = check_kernels(dev)
+    launches = serve_end_to_end(dev, card)
+    for r in kernels:
+        r["launches"] = launches[r["name"]]
+        check(r["launches"] > 0, f"{r['name']} never ran on the main path")
+    print(card)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,556 @@
+"""Request anatomy: per-request tracing for the serve plane.
+
+The port's own copy of ``sparknet_tpu/obs/reqtrace.py``: the parts the
+batcher and server call (``mint_rid``, ``maybe_rid``,
+``tracing_enabled``, ``note_shed``) and the ``RequestProfiler`` whose
+``state()`` block ``/healthz`` reads.
+
+- **Request IDs.**  ``maybe_rid()`` mints an id at admission (the HTTP
+  handler or ``StreamBatcher.submit_stream``) only while some trace sink
+  is installed.  The id rides every span the request touches:
+  ``queue_wait`` (submit -> decode-slot admit), ``kv_reserve``
+  (worst-case block reservation), the engine's ``gen`` spans
+  (``prefill``, and ``decode_step`` with the active set's ids),
+  ``stream_write`` (one chunked-NDJSON write), and a whole-lifetime
+  ``request`` envelope.
+- **Shed instants.**  Every admission refusal emits a ``shed`` instant
+  tagged with its cause (``queue_full`` | ``kv_reserve`` |
+  ``draining``) via ``note_shed`` — the same causes the 429/503
+  ``X-Shed-Cause`` header and the ``sparknet_gen_streams_shed_total``
+  ``cause`` label carry.
+- **RequestProfiler.**  Installed through ``trace.set_span_observer``
+  (composing with any observer already installed), it folds the span
+  stream live into per-stage p50/p95/p99, TTFT/TPOT decomposition, a
+  queue- vs kv- vs prefill- vs decode- vs write-bound verdict per
+  rolling window, and per-replica skew.  Verdicts feed ``/metrics``
+  (the ``sparknet_req_*`` series), the ``/healthz`` request-profile
+  block (``state()``) and the trace (``trace.instant``).
+
+Cost discipline: with no sink installed the serve plane pays one
+function call and two global reads per hook; with tracing on, a span
+costs two ``perf_counter`` reads and ``on_span`` a few dict ops under a
+lock.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+from collections import deque
+from typing import Dict, List, Optional
+
+from sparknet_tpu_torch.obs import trace as _trace
+from sparknet_tpu_torch.obs.metrics import MetricsRegistry
+
+# the per-request stages the profiler attributes (decode_step/prefill
+# arrive on cat="gen"; the rest on cat="req")
+REQUEST_STAGES = (
+    "queue_wait", "kv_reserve", "prefill", "decode", "stream_write",
+)
+
+SHED_CAUSES = ("queue_full", "kv_reserve", "draining")
+
+# verdict -> the numeric code sparknet_req_bound_stage exports (the
+# sparknet_delivery_phase idiom: gauges carry numbers, docs the legend)
+BOUND_CODE = {
+    "idle": 0, "queue": 1, "kv": 2, "prefill": 3, "decode": 4, "write": 5,
+}
+
+_rid_counter = itertools.count(1)
+_rid_lock = threading.Lock()
+
+
+def mint_rid() -> str:
+    """A process-unique request id."""
+    with _rid_lock:
+        n = next(_rid_counter)
+    return f"req-{n:06d}"
+
+
+def tracing_enabled() -> bool:
+    """True when any span sink is installed (a tracer or a span
+    observer) — the condition under which minting a request id buys
+    anything."""
+    return _trace._tracer is not None or _trace._span_observer is not None
+
+
+def maybe_rid(rid: Optional[str] = None) -> Optional[str]:
+    """Pass an existing id through; mint one only when tracing is on.
+    The disabled path is one function call and two global reads."""
+    if rid is not None:
+        return rid
+    if tracing_enabled():
+        return mint_rid()
+    return None
+
+
+def _pct(sorted_vals: List[float], q: float) -> float:
+    if not sorted_vals:
+        return 0.0
+    i = min(len(sorted_vals) - 1, int(q * len(sorted_vals)))
+    return sorted_vals[i]
+
+
+class RequestProfiler:
+    """Folds the request-span stream into per-stage percentiles,
+    TTFT/TPOT decomposition, bound-stage verdicts, and per-replica skew.
+
+    Parameters
+    ----------
+    window:
+        Completed requests (and recent shed causes) the rolling
+        verdict/percentile window covers.
+    skew_threshold / skew_floor_s:
+        A replica is named slow when its mean request time exceeds the
+        replica median by BOTH the ratio and the absolute gap — the
+        RoundProfiler's two-condition guard against microsecond noise.
+    kv_shed_threshold:
+        Window fraction of arrivals shed for ``kv_reserve`` above which
+        the verdict is ``kv`` regardless of stage shares (a squeezed
+        arena sheds instead of queuing — time-share alone cannot see it).
+    registry:
+        Optional shared MetricsRegistry; the ``sparknet_req_*`` series
+        register on it (the serve plane passes its /metrics registry).
+    export_every:
+        Completions between gauge/instant verdict exports.
+    """
+
+    def __init__(
+        self,
+        *,
+        window: int = 256,
+        skew_threshold: float = 1.5,
+        skew_floor_s: float = 0.02,
+        kv_shed_threshold: float = 0.05,
+        registry: Optional[MetricsRegistry] = None,
+        export_every: int = 8,
+    ):
+        self.skew_threshold = float(skew_threshold)
+        self.skew_floor_s = float(skew_floor_s)
+        self.kv_shed_threshold = float(kv_shed_threshold)
+        self.export_every = max(1, int(export_every))
+        self._lock = threading.Lock()
+        # rid -> accumulating record (bounded: a leaked stream must not
+        # grow this forever — oldest half evicted at the bound)
+        self._live: Dict[str, dict] = {}
+        # rid -> finalized record still accepting late stream_write
+        # folds (the terminal event's write lands after the request
+        # span closes; the deque holds the same dict, so late folds
+        # still show in the table)
+        self._recent: Dict[str, dict] = {}
+        self._done: deque = deque(maxlen=int(window))
+        # per-stage rolling duration windows (seconds, unsorted)
+        self._stage_win: Dict[str, deque] = {
+            s: deque(maxlen=int(window) * 4) for s in REQUEST_STAGES
+        }
+        self._stage_win["request"] = deque(maxlen=int(window) * 4)
+        # recent shed causes (windowed verdict input) + lifetime counts
+        self._shed_win: deque = deque(maxlen=int(window))
+        self.sheds: Dict[str, int] = {}
+        self.requests_profiled = 0
+        self._since_export = 0
+
+        self._m_stage = None
+        self._m_bound = None
+        self._m_skew = None
+        self._m_slow = None
+        self._m_completed = None
+        if registry is not None:
+            m = registry
+            self._m_stage = m.histogram(
+                "sparknet_req_stage_seconds",
+                "per-request stage latency folded live by the request "
+                "profiler (queue_wait/kv_reserve/prefill/decode/"
+                "stream_write)",
+                labels=("stage",),
+            )
+            self._m_bound = m.gauge(
+                "sparknet_req_bound_stage",
+                "the window verdict's binding stage (0 idle, 1 queue, "
+                "2 kv, 3 prefill, 4 decode, 5 write)",
+            )
+            self._m_skew = m.gauge(
+                "sparknet_req_replica_skew",
+                "max/median mean-request-time ratio across replicas in "
+                "the window",
+            )
+            self._m_slow = m.gauge(
+                "sparknet_req_slow_replica",
+                "replica index named slow by the window verdict (-1 "
+                "none)",
+            )
+            self._m_completed = m.counter(
+                "sparknet_req_completed_total",
+                "requests finalized by the request profiler",
+            )
+
+    # ------------------------------------------------------------------
+    # span stream (installed via trace.set_span_observer; the offline
+    # report replays run-log records through this same entry point)
+    def on_span(self, name, cat, t0, t1, thread, args) -> None:
+        if cat == "req":
+            if name == "request":
+                self._finalize(t0, t1, args or {})
+                return
+            if name not in ("queue_wait", "kv_reserve", "stream_write"):
+                return
+            dur = t1 - t0
+            a = args or {}
+            rid = a.get("req")
+            with self._lock:
+                self._stage_win[name].append(dur)
+                if rid is not None:
+                    rec = self._rec(rid)
+                    rec["stages"][name] = (
+                        rec["stages"].get(name, 0.0) + dur
+                    )
+                    if name == "queue_wait":
+                        rec["t_submit"] = t0
+                        if a.get("replica") is not None:
+                            rec["replica"] = int(a["replica"])
+                    elif name == "stream_write":
+                        rec["writes"] += 1
+            if self._m_stage is not None:
+                self._m_stage.labels(name).observe(dur)
+            return
+        if cat != "gen":
+            return
+        dur = t1 - t0
+        a = args or {}
+        if name == "prefill":
+            rid = a.get("req")
+            with self._lock:
+                self._stage_win["prefill"].append(dur)
+                if rid is not None:
+                    rec = self._rec(rid)
+                    rec["stages"]["prefill"] = (
+                        rec["stages"].get("prefill", 0.0) + dur
+                    )
+                    rec["t_first"] = t1
+            if self._m_stage is not None:
+                self._m_stage.labels("prefill").observe(dur)
+        elif name == "decode_step":
+            reqs = a.get("reqs") or ()
+            with self._lock:
+                self._stage_win["decode"].append(dur)
+                for rid in reqs:
+                    rec = self._rec(rid)
+                    rec["stages"]["decode"] = (
+                        rec["stages"].get("decode", 0.0) + dur
+                    )
+                    rec["decode_steps"] += 1
+            if self._m_stage is not None:
+                self._m_stage.labels("decode").observe(dur)
+
+    def on_shed(self, cause: str) -> None:
+        """One admission refusal (the shared folding entry — live via
+        ``note_shed``, offline via the report's instant replay)."""
+        cause = str(cause)
+        with self._lock:
+            self.sheds[cause] = self.sheds.get(cause, 0) + 1
+            self._shed_win.append(cause)
+
+    # ------------------------------------------------------------------
+    def _rec(self, rid) -> dict:
+        """The accumulating record for ``rid`` (caller holds the lock).
+        Late spans for an already-finalized request fold into the SAME
+        dict the done window holds."""
+        rec = self._live.get(rid)
+        if rec is None:
+            rec = self._recent.get(rid)
+        if rec is None:
+            if len(self._live) >= 512:
+                for k in list(self._live)[:256]:
+                    self._live.pop(k, None)
+            rec = self._live[rid] = {
+                "rid": rid, "stages": {}, "replica": None,
+                "t_submit": None, "t_first": None,
+                "decode_steps": 0, "writes": 0, "tokens": None,
+                "total_s": None, "outcome": None,
+            }
+        return rec
+
+    def _finalize(self, t0, t1, args: dict) -> None:
+        rid = args.get("req")
+        if rid is None:
+            return
+        with self._lock:
+            rec = self._live.pop(rid, None)
+            if rec is None:
+                # a resumed stream (re-prefilled elsewhere) closes a SECOND
+                # lifetime span under the same rid: lifetimes add and
+                # the last outcome wins — one request, one row
+                rec = self._recent.get(rid)
+                if rec is None:
+                    return
+                rec["total_s"] += t1 - t0
+                if args.get("tokens") is not None:
+                    rec["tokens"] = int(args["tokens"])
+                if args.get("outcome") is not None:
+                    rec["outcome"] = str(args["outcome"])
+                d = rec["stages"].get("decode", 0.0)
+                toks = rec["tokens"] or 0
+                rec["tpot_s"] = d / (toks - 1) if toks > 1 else None
+                return
+            rec["total_s"] = t1 - t0
+            if rec["t_submit"] is None:
+                rec["t_submit"] = t0
+            if args.get("tokens") is not None:
+                rec["tokens"] = int(args["tokens"])
+            if args.get("outcome") is not None:
+                rec["outcome"] = str(args["outcome"])
+            if args.get("replica") is not None and rec["replica"] is None:
+                rec["replica"] = int(args["replica"])
+            if rec["t_first"] is not None and rec["t_submit"] is not None:
+                rec["ttft_s"] = max(0.0, rec["t_first"] - rec["t_submit"])
+            else:
+                rec["ttft_s"] = None
+            d = rec["stages"].get("decode", 0.0)
+            toks = rec["tokens"] or 0
+            rec["tpot_s"] = d / (toks - 1) if toks > 1 else None
+            self._done.append(rec)
+            if len(self._recent) >= 128:
+                for k in list(self._recent)[:64]:
+                    self._recent.pop(k, None)
+            self._recent[rid] = rec
+            self._stage_win["request"].append(rec["total_s"])
+            self.requests_profiled += 1
+            self._since_export += 1
+            do_export = self._since_export >= self.export_every
+            if do_export:
+                self._since_export = 0
+        if self._m_completed is not None:
+            self._m_completed.inc()
+        if do_export:
+            self._export()
+
+    # ------------------------------------------------------------------
+    # verdicts
+    def _window_verdict(self, recs, shed_win) -> dict:
+        """(caller must NOT hold the lock for the export path) — fold
+        the done window + recent sheds into the binding-stage verdict."""
+        totals = {s: 0.0 for s in REQUEST_STAGES}
+        for r in recs:
+            for s, v in r["stages"].items():
+                if s in totals:
+                    totals[s] += v
+        kv_sheds = sum(1 for c in shed_win if c == "kv_reserve")
+        arrivals = len(recs) + len(shed_win)
+        kv_shed_frac = kv_sheds / arrivals if arrivals else 0.0
+        if kv_shed_frac >= self.kv_shed_threshold:
+            verdict = "kv"
+        elif not recs or sum(totals.values()) <= 0:
+            verdict = "idle"
+        else:
+            shares = {
+                "queue": totals["queue_wait"],
+                "kv": totals["kv_reserve"],
+                "prefill": totals["prefill"],
+                "decode": totals["decode"],
+                "write": totals["stream_write"],
+            }
+            verdict = max(sorted(shares), key=lambda k: shares[k])
+        total = sum(totals.values())
+        return {
+            "verdict": verdict,
+            "kv_shed_frac": round(kv_shed_frac, 4),
+            "stage_shares": {
+                s: round(v / total, 4) if total > 0 else 0.0
+                for s, v in totals.items()
+            },
+        }
+
+    def _replica_verdict(self, recs) -> dict:
+        by_rep: Dict[int, List[float]] = {}
+        for r in recs:
+            if r["replica"] is not None and r["total_s"] is not None:
+                by_rep.setdefault(int(r["replica"]), []).append(
+                    r["total_s"]
+                )
+        if len(by_rep) < 2:
+            return {
+                "replicas": {
+                    str(i): {
+                        "requests": len(v),
+                        "mean_ms": round(
+                            sum(v) / len(v) * 1e3, 3
+                        ) if v else 0.0,
+                    }
+                    for i, v in sorted(by_rep.items())
+                },
+                "skew": None, "slow_replica": None,
+            }
+        means = {i: sum(v) / len(v) for i, v in by_rep.items()}
+        vals = sorted(means.values())
+        # lower median: with an even replica count the upper-median
+        # index would BE the slow replica, reading skew as 1.0
+        med = vals[(len(vals) - 1) // 2]
+        worst = max(means, key=lambda i: means[i])
+        mx = means[worst]
+        skew = mx / med if med > 0 else float("inf") if mx > 0 else 1.0
+        slow = (
+            worst
+            if skew > self.skew_threshold
+            and (mx - med) > self.skew_floor_s
+            else None
+        )
+        return {
+            "replicas": {
+                str(i): {
+                    "requests": len(by_rep[i]),
+                    "mean_ms": round(means[i] * 1e3, 3),
+                }
+                for i in sorted(by_rep)
+            },
+            "skew": round(skew, 3),
+            "slow_replica": slow,
+        }
+
+    # ------------------------------------------------------------------
+    def summary(self) -> dict:
+        """Rolling window percentiles + verdicts."""
+        with self._lock:
+            recs = list(self._done)
+            shed_win = list(self._shed_win)
+            stage_win = {
+                s: sorted(w) for s, w in self._stage_win.items()
+            }
+            sheds = dict(self.sheds)
+            lifetime = self.requests_profiled
+        stages = {}
+        for s, vals in stage_win.items():
+            stages[s] = {
+                "count": len(vals),
+                "p50_ms": round(_pct(vals, 0.50) * 1e3, 3),
+                "p95_ms": round(_pct(vals, 0.95) * 1e3, 3),
+                "p99_ms": round(_pct(vals, 0.99) * 1e3, 3),
+                "max_ms": round(vals[-1] * 1e3, 3) if vals else 0.0,
+            }
+        ttfts = sorted(
+            r["ttft_s"] for r in recs if r.get("ttft_s") is not None
+        )
+        tpots = sorted(
+            r["tpot_s"] for r in recs if r.get("tpot_s") is not None
+        )
+        out = {
+            "requests": len(recs),
+            "requests_profiled": lifetime,
+            "stages": stages,
+            "ttft_ms": {
+                "p50": round(_pct(ttfts, 0.5) * 1e3, 3),
+                "p95": round(_pct(ttfts, 0.95) * 1e3, 3),
+                "p99": round(_pct(ttfts, 0.99) * 1e3, 3),
+            } if ttfts else None,
+            "tpot_ms": {
+                "p50": round(_pct(tpots, 0.5) * 1e3, 3),
+                "p95": round(_pct(tpots, 0.95) * 1e3, 3),
+            } if tpots else None,
+            "sheds": sheds,
+        }
+        out.update(self._window_verdict(recs, shed_win))
+        out.update(self._replica_verdict(recs))
+        return out
+
+    def state_dict(self) -> dict:
+        """The /healthz request-profile block: enough for an
+        orchestrator to see the binding stage and the slow replica
+        without a trace dump."""
+        s = self.summary()
+        return {
+            "requests_profiled": s["requests_profiled"],
+            "window_requests": s["requests"],
+            "verdict": s["verdict"],
+            "kv_shed_frac": s["kv_shed_frac"],
+            "ttft_ms": s["ttft_ms"],
+            "tpot_ms": s["tpot_ms"],
+            "sheds": s["sheds"],
+            "replica_skew": s["skew"],
+            "slow_replica": s["slow_replica"],
+        }
+
+    # ------------------------------------------------------------------
+    def _export(self) -> None:
+        """One verdict to the gauges and the trace."""
+        s = self.summary()
+        if self._m_bound is not None:
+            self._m_bound.set(BOUND_CODE.get(s["verdict"], 0))
+        if self._m_skew is not None and s["skew"] is not None:
+            self._m_skew.set(s["skew"])
+        if self._m_slow is not None:
+            self._m_slow.set(
+                s["slow_replica"] if s["slow_replica"] is not None else -1
+            )
+        _trace.instant(
+            "reqprofile", cat="req",
+            verdict=s["verdict"],
+            kv_shed_frac=s["kv_shed_frac"],
+            requests=s["requests"],
+            skew=s["skew"],
+            slow_replica=s["slow_replica"],
+        )
+
+
+# ----------------------------------------------------------------------
+# module-level install surface (the obs/profile.py pattern: hooks are
+# near-free no-ops until a profiler is installed)
+
+_active: Optional[RequestProfiler] = None
+_prev_observer = None
+
+
+def install(profiler: RequestProfiler) -> RequestProfiler:
+    """Make ``profiler`` the process's request profiler.  The span
+    observer seam holds ONE function, so installing COMPOSES with any
+    observer already there (a --profile training run's RoundProfiler
+    keeps seeing its spans) and ``uninstall`` restores it."""
+    global _active, _prev_observer
+    _active = profiler
+    _prev_observer = _trace._span_observer
+    if _prev_observer is None:
+        _trace.set_span_observer(profiler.on_span)
+    else:
+        prev = _prev_observer
+
+        def _both(name, cat, t0, t1, thread, args):
+            prev(name, cat, t0, t1, thread, args)
+            profiler.on_span(name, cat, t0, t1, thread, args)
+
+        _trace.set_span_observer(_both)
+    return profiler
+
+
+def uninstall(profiler: Optional[RequestProfiler] = None) -> None:
+    global _active, _prev_observer
+    if profiler is not None and profiler is not _active:
+        return
+    _active = None
+    _trace.set_span_observer(_prev_observer)
+    _prev_observer = None
+
+
+def active() -> Optional[RequestProfiler]:
+    return _active
+
+
+def state() -> Optional[dict]:
+    """The active profiler's /healthz block, or None."""
+    p = _active
+    if p is None:
+        return None
+    return p.state_dict()
+
+
+def note_shed(cause: str, rid: Optional[str] = None,
+              replica: Optional[int] = None) -> None:
+    """One admission refusal: a ``shed`` instant tagged with its
+    cause, and the live profiler's window.
+    Near-free when nothing is installed."""
+    p = _active
+    if p is not None:
+        p.on_shed(cause)
+    args = {"cause": cause}
+    if rid is not None:
+        args["req"] = rid
+    if replica is not None:
+        args["replica"] = replica
+    _trace.instant("shed", cat="req", **args)
