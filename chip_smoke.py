@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA card: build, check, serve.
+"""Drive the PyTorch port on one NVIDIA card: build, check, serve, train.
 
 Run from the root of a checkout, on a machine with a CUDA card and the
 CUDA toolkit (nvcc)::
@@ -28,8 +28,28 @@ Phases (any failure ends the run with a non-zero exit and no result):
    against the CPU model's argmax except where its top-2 logit margin
    is a near-tie.
 
-The second-to-last line is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+4. The comm plane's epilogue kernels — K9 encode, K10 barriered apply,
+   K11 overlap correction — against their plain versions on the card,
+   bit for bit, at the three comm chunks of cifar10_full at W=4: fp32,
+   bf16 and int8, the error readout on and off, a masked worker and no
+   survivors for K10, an all-zero leaf.  Then each kernel's time over
+   one round's launches (every chunk) beside its plain version's and the
+   least time the card could take (bytes over 3.35 TB/s); no single
+   PyTorch call computes these functions, so there is no library time.
+5. The training main path: ``apps.cifar_app.main`` in process on
+   synthesized CIFAR (5,000 train / 1,000 test), cifar10_full, 4
+   workers, tau 10, batch 100, in three legs — no compression,
+   ``--compress int8`` and ``--compress bf16 --overlap_avg``.  Launch
+   counts are reset before each leg and read after it, and must match
+   the chunk arithmetic (3 chunks: 3 K9 + 3 K10 per int8 round; 3 K9 per
+   overlapped round and 3 K11 per round landed, the last at finalize).
+   Each compressed leg's final smoothed loss is held within the JAX
+   package's LOSS_BAND (0.08) of the uncompressed leg's, each leg's
+   first round against the same round on the CPU, and one int8 round is
+   profiled (device busy share, top kernels, K9-K11's share).
+
+The second-to-last line is ``{"kernels": [...]}`` (K1, K2, K9, K10,
+K11); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -37,6 +57,7 @@ from __future__ import annotations
 import http.client
 import json
 import sys
+import tempfile
 import threading
 import time
 
@@ -419,6 +440,323 @@ def where_time_goes(engine, card, iters: int = 15):
         engine.finish(slot)
     check(engine.pool.used() == 0, "KV blocks leaked")
 
+# ----------------------------------------------------------------------
+# phase 4: the comm epilogue kernels (K9-K11) against their plain
+# versions, bit for bit, at the cifar10_full chunk shapes
+# ----------------------------------------------------------------------
+CIFAR_W, CIFAR_TAU, CIFAR_BATCH = 4, 10, 100
+TRAIN_ROUNDS = 8  # per training leg of phase 5
+
+
+def _cifar_trainer(dev, compress="int8", overlap=False, metrics=None):
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
+    from sparknet_tpu_torch.solver import Solver
+
+    solver = Solver(models.load_model_solver("cifar10_full"), device=dev)
+    return ParameterAveragingTrainer(solver, CIFAR_W, compress=compress,
+                                     overlap_avg=overlap, metrics=metrics)
+
+
+def _bitwise(got, want, what) -> float:
+    """Check ``got`` equals ``want`` bit for bit (NaNs in the same places;
+    bf16 compared as bits) and return max |got - want| (0.0)."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} "
+          f"{tuple(want.shape)}")
+    if not got.is_floating_point():
+        check(bool(torch.equal(got, want)), f"{what}: payload differs")
+        return float((got.float() - want.float()).abs().max())
+    gn, wn = torch.isnan(got.float()), torch.isnan(want.float())
+    check(bool(torch.equal(gn, wn)), f"{what}: NaNs differ")
+    g, w = got[~gn], want[~wn]
+    if got.dtype == torch.bfloat16:
+        check(bool(torch.equal(g.view(torch.int16), w.view(torch.int16))),
+              f"{what}: bits differ")
+    else:
+        check(bool(torch.equal(g, w)), f"{what}: bits differ")
+    return float((g.float() - w.float()).abs().max()) if g.numel() else 0.0
+
+
+def check_comm_kernels(dev):
+    """K9 encode, K10 barriered apply and K11 overlap correction against
+    their plain versions on the card, at the real comm chunks of
+    cifar10_full at W=4: all three modes, the error readout on and off, a
+    masked worker and no survivors for K10, an all-zero leaf.  Then each
+    kernel's time over one round's launches (3 chunks) beside its plain
+    version's and the bound.  Returns the kernels-line records."""
+    from sparknet_tpu_torch.ops import cuda_comm as cc
+
+    trainer = _cifar_trainer(dev)
+    state = trainer.init_state(0)
+    leaves, chunks = trainer._comm.plan(state)
+    gen = torch.Generator().manual_seed(1)
+
+    def near(xs, s):
+        return [(x + s * torch.randn(x.shape, generator=gen).to(dev)).contiguous()
+                for x in xs]
+
+    a = [x.contiguous() for x in leaves]
+    x = near(a, 1e-3)
+    r = near([torch.zeros_like(t) for t in a], 1e-6)
+    means = [t[0].contiguous() for t in near(a, 1e-3)]
+    # the ip1 bias leaf all zero: amax 0 -> int8 scale 1
+    for t in (a, x, r):
+        t[-1] = torch.zeros_like(t[-1])
+    sizes = [sl.stop - sl.start for sl in chunks]
+    print(f"comm plane: {len(chunks)} chunks of {sizes} leaves, "
+          f"{sum(t[0].numel() for t in a)} floats per worker, W={CIFAR_W}")
+    check(len(chunks) == 3, f"expected 3 comm chunks, got {len(chunks)}")
+    err = {"comm_encode": 0.0, "comm_apply_barriered": 0.0,
+           "comm_apply_correction": 0.0}
+    for mode in ("fp32", "bf16", "int8"):
+        for sl in chunks:
+            modes = (mode,) * (sl.stop - sl.start)
+            for with_err in (False, True):
+                got = cc.encode(x[sl], a[sl], r[sl], modes, with_err)
+                want = cc.encode_reference(x[sl], a[sl], r[sl], modes, with_err)
+                for g, w in zip(got[0] + got[1] + got[2],
+                                want[0] + want[1] + want[2]):
+                    err["comm_encode"] = max(err["comm_encode"],
+                                             _bitwise(g, w, f"K9 {mode}"))
+                if with_err:
+                    check(bool(torch.equal(got[3][:, 0], want[3][:, 0])),
+                          "K9 max|err| differs")
+                    rel = float(((got[3][:, 1:] - want[3][:, 1:]).abs()
+                                 / want[3][:, 1:].abs().clamp_min(1e-30)).max())
+                    check(rel <= 1e-5, f"K9 readout sums differ by {rel}")
+            q, scales = got[0], got[1]
+            got = cc.apply_correction(x[sl], a[sl], q, scales, means[sl], modes)
+            want = cc.apply_correction_reference(x[sl], a[sl], q, scales,
+                                                 means[sl], modes)
+            for g, w in zip(got[0] + got[1], want[0] + want[1]):
+                err["comm_apply_correction"] = max(
+                    err["comm_apply_correction"], _bitwise(g, w, f"K11 {mode}"))
+    for alive in ([1, 1, 1, 1], [1, 0, 1, 1], [0, 0, 0, 0]):
+        al = torch.tensor(alive, dtype=torch.float32, device=dev)
+        d0 = al.sum()
+        for sl in chunks:
+            got = cc.apply_barriered(x[sl], a[sl], means[sl], r[sl], al, d0)
+            want = cc.apply_barriered_reference(x[sl], a[sl], means[sl], r[sl],
+                                                al, d0)
+            for g, w in zip(got[0] + got[1], want[0] + want[1]):
+                err["comm_apply_barriered"] = max(
+                    err["comm_apply_barriered"], _bitwise(g, w, f"K10 {alive}"))
+    torch.cuda.synchronize()
+    print("K9-K11 bitwise equal to their plain versions: 3 modes x "
+          "err on/off, masked worker, no survivors, all-zero leaf")
+
+    # timing: one round's launches (every chunk) per call, at the main
+    # path's modes — K9 int8 with the readout, K10 int8 barriered (all
+    # live), K11 bf16 (the overlap leg)
+    def per_round(fn):
+        return lambda: [fn(sl) for sl in chunks]
+
+    int8 = {sl.start: ("int8",) * (sl.stop - sl.start) for sl in chunks}
+    bf16 = {sl.start: ("bf16",) * (sl.stop - sl.start) for sl in chunks}
+    q16 = {sl.start: cc.encode(x[sl], a[sl], r[sl], bf16[sl.start], False)[:2]
+           for sl in chunks}
+    al = torch.ones(CIFAR_W, device=dev)
+    d0 = al.sum()
+    cases = {
+        "comm_encode": (
+            "K9", "sparknet_tpu/ops/pallas_comm.py:83", "int8, readout on",
+            lambda sl: cc.encode(x[sl], a[sl], r[sl], int8[sl.start], True),
+            lambda sl: cc.encode_reference(x[sl], a[sl], r[sl], int8[sl.start],
+                                           True),
+            sum(cc.chunk_bytes("encode", a[sl], int8[sl.start]) for sl in chunks),
+        ),
+        "comm_apply_barriered": (
+            "K10", "sparknet_tpu/ops/pallas_comm.py:164", "all live",
+            lambda sl: cc.apply_barriered(x[sl], a[sl], means[sl], r[sl], al, d0),
+            lambda sl: cc.apply_barriered_reference(x[sl], a[sl], means[sl],
+                                                    r[sl], al, d0),
+            sum(cc.chunk_bytes("apply_barriered", a[sl], int8[sl.start])
+                for sl in chunks),
+        ),
+        "comm_apply_correction": (
+            "K11", "sparknet_tpu/ops/pallas_comm.py:224", "bf16",
+            lambda sl: cc.apply_correction(x[sl], a[sl], *q16[sl.start],
+                                           means[sl], bf16[sl.start]),
+            lambda sl: cc.apply_correction_reference(
+                x[sl], a[sl], *q16[sl.start], means[sl], bf16[sl.start]),
+            sum(cc.chunk_bytes("apply_correction", a[sl], bf16[sl.start])
+                for sl in chunks),
+        ),
+    }
+    records = []
+    for name, (tag, replaces, what, kern, plain, nbytes) in cases.items():
+        b, by = bound_ms(nbytes, 0.0)
+        rec = dict(
+            name=name, route="cuda",
+            source="sparknet_tpu_torch/ops/csrc/comm_epilogue.cu",
+            replaces=replaces, max_abs_err=err[name], bound_ms=b, bound_by=by,
+            library_ms=None,
+            ms=device_ms(per_round(kern)), call_ms=time_ms(per_round(kern)),
+            plain_ms=device_ms(per_round(plain)),
+            plain_call_ms=time_ms(per_round(plain)),
+        )
+        print(f"{tag} {name} [cifar10_full W={CIFAR_W}, {len(chunks)} chunk "
+              f"launches, {what}, {nbytes} bytes]: kernel {rec['ms']:.4f} ms on "
+              f"device ({rec['call_ms']:.4f} ms per call), plain "
+              f"{rec['plain_ms']:.4f} ms ({rec['plain_call_ms']:.4f}), bound "
+              f"{b * 1e3:.3f} us ({by}), library: none")
+        records.append(rec)
+    return records
+
+
+# ----------------------------------------------------------------------
+# phase 5: the training main path — cifar_app on the card, three legs
+# ----------------------------------------------------------------------
+def _first_round_matches_cpu(dev, compress, overlap):
+    """One round of the W=4 cifar10_full trainer on the card and on the
+    CPU from one carried init and one set of windows: the round's
+    parameter updates agree within ``tol`` of their size."""
+    from sparknet_tpu_torch.data import CifarLoader, MinibatchSampler, stack_windows
+    from sparknet_tpu_torch.utils.tree import tree_leaves
+
+    with tempfile.TemporaryDirectory() as d:
+        CifarLoader.write_synthetic(d, num_train=5000, num_test=100)
+        xs, ys = CifarLoader(d, seed=0).minibatches(CIFAR_BATCH)
+    batches = stack_windows([
+        MinibatchSampler({"data": x, "label": y}, CIFAR_TAU, seed=w).next_window()
+        for w, (x, y) in enumerate(zip(np.array_split(xs, CIFAR_W),
+                                       np.array_split(ys, CIFAR_W)))
+    ])
+    runs = []
+    init = None
+    for d in (dev, torch.device("cpu")):
+        tr = _cifar_trainer(d, compress, overlap)
+        init = init if init is not None else tr.solver.init_state(0)
+        st0 = tr.broadcast_state(init)
+        st, _ = tr.round(st0, {k: torch.from_numpy(v).to(d)
+                               for k, v in batches.items()})
+        st = tr.finalize(st)
+        runs.append([t.cpu() for t in tree_leaves(st.params)])
+    x0 = [t.cpu() for t in tree_leaves(init.params)]
+    # float32 on both sides, but cuDNN and the CPU sum the convolutions in
+    # other orders over 10 momentum steps (~1e-3 of the update, measured);
+    # quantized deltas: a last-bit difference may also move an element
+    # across one step of the bf16/int8 grid
+    tol = 1e-2 if compress == "none" else 3e-2
+    worst = 0.0
+    for g, c, p0 in zip(runs[0], runs[1], x0):
+        size = float((c - p0[None]).abs().max())
+        worst = max(worst, float((g - c).abs().max()) / max(size, 1e-30))
+    check(worst <= tol, f"first round on the card vs the CPU ({compress}): "
+          f"{worst:.3e} of the update (limit {tol})")
+    return worst
+
+
+def train_end_to_end(dev, card):
+    """``cifar_app.main`` in process on synthesized CIFAR (5,000 / 1,000),
+    W=4, tau=10, batch 100, TRAIN_ROUNDS rounds, in three legs: no
+    compression, ``--compress int8`` (K9 + K10) and ``--compress bf16
+    --overlap_avg`` (K9 + K11).  Launch counts are reset before each leg
+    and read after it; each compressed leg's final smoothed loss is held
+    within LOSS_BAND of the uncompressed leg's, and each leg's first round
+    against the same round on the CPU.  Returns the summed launches."""
+    from sparknet_tpu_torch.apps import cifar_app
+    from sparknet_tpu_torch.ops import cuda_comm as cc
+    from sparknet_tpu_torch.parallel import LOSS_BAND
+
+    legs = (("none", []), ("int8", ["--compress", "int8"]),
+            ("bf16+overlap", ["--compress", "bf16", "--overlap_avg"]))
+    argv = ["--device", dev.type, "--workers", str(CIFAR_W), "--tau",
+            str(CIFAR_TAU), "--batch", str(CIFAR_BATCH), "--rounds",
+            str(TRAIN_ROUNDS)]
+    total = dict.fromkeys(cc.LAUNCHES, 0)
+    losses = {}
+    R = TRAIN_ROUNDS
+    expect = {
+        "none": dict(comm_encode=0, comm_apply_barriered=0, comm_apply_correction=0),
+        "int8": dict(comm_encode=3 * R, comm_apply_barriered=3 * R,
+                     comm_apply_correction=0),
+        "bf16+overlap": dict(comm_encode=3 * R, comm_apply_barriered=0,
+                             comm_apply_correction=3 * R),
+    }
+    for leg, extra in legs:
+        result = {}
+        cc.reset_launch_counts()
+        rc = cifar_app.main(argv + extra, result)
+        torch.cuda.synchronize()
+        launches = dict(cc.LAUNCHES)
+        check(rc == 0, f"cifar_app leg {leg} exited {rc}")
+        print(f"train leg {leg}: launches {launches}, final smoothed_loss "
+              f"{result['smoothed_loss']:.6f}, accuracy {result['accuracy']:.4f}")
+        check(launches == expect[leg],
+              f"leg {leg}: launches {launches}, expected {expect[leg]}")
+        for leaf in result["state"].params.values():
+            for t in leaf:
+                check(bool(torch.isfinite(t).all()), f"leg {leg}: non-finite params")
+        losses[leg] = result["smoothed_loss"]
+        check(np.isfinite(losses[leg]), f"leg {leg}: non-finite loss")
+        rs = np.array(result["round_seconds"][1:])  # round 0 warms up
+        imgs = CIFAR_W * CIFAR_TAU * CIFAR_BATCH
+        print(f"[{card}] train leg {leg}: {1.0 / rs.mean():.3f} rounds/s, "
+              f"{imgs / rs.mean():.1f} images/s (mean of rounds 1..{R - 1}: "
+              f"{rs.mean() * 1e3:.2f} ms, min {rs.min() * 1e3:.2f} ms)")
+        worst = _first_round_matches_cpu(
+            dev, "none" if leg == "none" else extra[1], "--overlap_avg" in extra
+        )
+        print(f"train leg {leg}: first round on the card vs the CPU, worst "
+              f"|diff| {worst:.3e} of the update")
+        for k, v in launches.items():
+            total[k] += v
+    for leg in ("int8", "bf16+overlap"):
+        gap = abs(losses[leg] - losses["none"])
+        print(f"loss band: {leg} {losses[leg]:.6f} vs none {losses['none']:.6f}: "
+              f"gap {gap:.6f} (limit {LOSS_BAND})")
+        check(gap <= LOSS_BAND, f"{leg} leaves the loss band: {gap}")
+    where_train_time_goes(dev, card)
+    return total
+
+
+def where_train_time_goes(dev, card):
+    """One int8 round of the W=4 cifar10_full trainer under
+    ``torch.profiler``: wall time, the device's busy share, the kernels
+    that take the device time, and K9-K11's share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = _cifar_trainer(dev, "int8")
+    st = tr.init_state(0)
+    rs = np.random.RandomState(0)
+    batch = {
+        "data": torch.from_numpy(rs.randn(CIFAR_W, CIFAR_TAU, CIFAR_BATCH, 3, 32, 32)
+                                 .astype(np.float32) * 50).to(dev),
+        "label": torch.from_numpy(rs.randint(0, 10, (CIFAR_W, CIFAR_TAU, CIFAR_BATCH))
+                                  .astype(np.float32)).to(dev),
+    }
+    st, _ = tr.round(st, batch)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, _ = tr.round(st, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        st, _ = tr.round(st, batch)
+        torch.cuda.synchronize()
+    rows = sorted(
+        ((e.self_device_time_total / 1e3, e.count, e.key)
+         for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        reverse=True,
+    )
+    busy = sum(r[0] for r in rows)
+    check(busy > 0, "train round: the profiler saw no device time")
+    comm = sum(r[0] for r in rows if "encode_kernel" in r[2]
+               or "apply_barriered_kernel" in r[2]
+               or "apply_correction_kernel" in r[2])
+    n_kernels = sum(r[1] for r in rows)
+    print(f"[{card}] train round (cifar10_full, W={CIFAR_W}, tau={CIFAR_TAU}, "
+          f"int8): {wall_ms:.3f} ms wall, {busy:.3f} ms device busy "
+          f"({busy / wall_ms:.1%}), {n_kernels} kernel launches of {len(rows)} "
+          f"kinds; K9-K11 {comm:.4f} ms ({comm / busy:.2%} of device)")
+    for ms, count, key in rows[:8]:
+        print(f"    {ms:.4f} ms ({ms / busy:.1%} of device, {count} launches)  "
+              f"{key[:90]}")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -443,7 +781,10 @@ def main() -> int:
                 print(f"  {p.stem}: {line.strip()}")
 
     kernels = check_kernels(dev)
+    comm_kernels = check_comm_kernels(dev)
     launches = serve_end_to_end(dev, card)
+    launches.update(train_end_to_end(dev, card))
+    kernels += comm_kernels
     for r in kernels:
         r["launches"] = launches[r["name"]]
         check(r["launches"] > 0, f"{r['name']} never ran on the main path")

@@ -1,6 +1,8 @@
 """Carry weights from the JAX package's layout into the port's modules.
 
-The JAX ``TransformerLM`` keeps its parameters as ``{group: [blob,
+``net_params_from_jax`` carries a prototxt net's ``{layer: [blob,
+...]}`` dicts into the port's ``TorchNet`` layout (the same layouts,
+checked).  The JAX ``TransformerLM`` keeps its parameters as ``{group: [blob,
 ...]}`` in ``_blob_plan`` order (``embed``, ``block{i}_ln1``,
 ``block{i}_attn``, ``block{i}_ln2``, ``block{i}_mlp``, ``ln_f``,
 ``head``); the port keeps them as named submodules.  Both store
@@ -10,7 +12,7 @@ copy — this module is the one place that knows both layouts.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,3 +46,47 @@ def lm_state_from_jax(
                 )
             state[names[id(p)]] = torch.from_numpy(arr.copy())
     return state
+
+
+def net_params_from_jax(
+    params: Mapping[str, Sequence[np.ndarray]],
+    net,
+    stats: Optional[Mapping[str, Sequence[np.ndarray]]] = None,
+    device=None,
+) -> Tuple[Dict[str, List[torch.Tensor]], Dict[str, List[torch.Tensor]]]:
+    """The port's ``(params, stats)`` for a JAX net's parameter dicts.
+
+    The JAX package's prototxt nets keep ``{layer: [blob, ...]}`` in the
+    reference's Caffe layouts — Convolution ``(out, in/group, kh, kw)``,
+    InnerProduct ``(out, in)`` — which are the port's layouts too, so
+    every blob is a copy.  ``net`` is the port's ``TorchNet`` of the same
+    prototxt; the layer names, blob counts and shapes are checked against
+    its layout.  ``stats`` may be omitted for nets without stat blobs."""
+
+    def carry(src, layout, what):
+        src = dict(src or {})
+        if set(src) != set(layout):
+            raise ValueError(
+                f"{what}: layers {sorted(src)}, the net has {sorted(layout)}"
+            )
+        out: Dict[str, List[torch.Tensor]] = {}
+        for layer, shapes in layout.items():
+            blobs = src[layer]
+            if len(blobs) != len(shapes):
+                raise ValueError(
+                    f"{what} {layer!r}: {len(blobs)} blobs, expected "
+                    f"{len(shapes)}"
+                )
+            out[layer] = []
+            for bi, (blob, shape) in enumerate(zip(blobs, shapes)):
+                arr = np.asarray(blob, dtype=np.float32)
+                if arr.shape != tuple(shape):
+                    raise ValueError(
+                        f"{what} {layer}[{bi}]: shape {arr.shape}, "
+                        f"expected {tuple(shape)}"
+                    )
+                out[layer].append(torch.from_numpy(arr.copy()).to(device))
+        return out
+
+    return (carry(params, net.blob_layout("params"), "params"),
+            carry(stats, net.blob_layout("stats"), "stats"))

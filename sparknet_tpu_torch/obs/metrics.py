@@ -1,7 +1,8 @@
 """Counters, gauges and histograms, rendered as Prometheus text.
 
 The port's own copy of ``sparknet_tpu/obs/metrics.py``, cut to what
-the serving slice registers and renders.  Stdlib only: each metric is
+the serving slice registers and renders, plus ``TrainingMetrics``: the
+training series of the averaging trainer.  Stdlib only: each metric is
 a small lock-guarded accumulator, and ``MetricsRegistry.render()``
 emits the Prometheus text exposition format (``# HELP``/``# TYPE`` +
 samples).  Histograms keep cumulative buckets (the ``le`` convention)
@@ -268,3 +269,49 @@ class MetricsRegistry:
             for sample_name, value in m.samples():
                 lines.append(f"{sample_name} {_fmt(value)}")
         return "\n".join(lines) + "\n"
+
+
+class TrainingMetrics:
+    """The training series of the averaging trainer and its comm plane,
+    under the JAX package's names (``sparknet_tpu/obs/__init__.py``),
+    registered on ``registry`` (a fresh one by default).  The trainer
+    and the comm plane record into the object they are handed; there is
+    no process-wide instance."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self.registry = registry if registry is not None else MetricsRegistry()
+        r = self.registry
+        self.rounds = r.counter(
+            "sparknet_rounds_total",
+            "training rounds completed (rate() gives rounds/s)",
+        )
+        self.iters = r.counter(
+            "sparknet_iters_total", "solver iterations completed"
+        )
+        self.collective_bytes = r.counter(
+            "sparknet_collective_bytes_total",
+            "modeled interconnect payload bytes moved by the parameter-"
+            "averaging collective (ring factor x compressed payload), "
+            "by compression mode",
+            labels=("compress",),
+        )
+        self.kernel_fused_chunks = r.counter(
+            "sparknet_kernel_fused_chunks_total",
+            "averaging-epilogue kernel launches by the comm plane (one per "
+            "comm chunk per stage per round; stage=encode|apply — "
+            "ops/cuda_comm.py)",
+            labels=("stage",),
+        )
+        self.quant_error = r.gauge(
+            "sparknet_quant_error_max_abs",
+            "last round's max |delta - dequant(delta)| quantization error "
+            "of the compressed averaging, by compression mode",
+            labels=("compress",),
+        )
+        self.quant_snr_db = r.gauge(
+            "sparknet_quant_snr_db",
+            "last round's delta-vs-quantization-error SNR in dB "
+            "(10*log10(|delta|^2/|err|^2); 300 when the error is 0), by "
+            "compression mode",
+            labels=("compress",),
+        )

@@ -5,8 +5,11 @@ there is no CUDA device.  On a machine with the card and nvcc::
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerance 2e-5 absolute: float32 on both sides, the kernels summing
-tile by tile (online softmax) where the plain versions sum densely.
+Attention: tolerance 2e-5 absolute, float32 on both sides, the kernels
+summing tile by tile (online softmax) where the plain versions sum
+densely.  The comm epilogue kernels (K9-K11) are held to their plain
+versions bit for bit, except the error readout's two sums (rtol 1e-5,
+reduced in another order).
 """
 
 import numpy as np
@@ -15,6 +18,7 @@ import torch
 
 from sparknet_tpu_torch.models.transformer_lm import TransformerLM
 from sparknet_tpu_torch.ops import cuda_attention as tca
+from sparknet_tpu_torch.ops import cuda_comm as tcc
 from sparknet_tpu_torch.serve import GenerationEngine
 
 pytestmark = pytest.mark.cuda
@@ -126,3 +130,164 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev):
         np.testing.assert_allclose(runs[0][1], runs[1][1], atol=1e-4)
     assert tca.LAUNCHES["flash_fwd"] == 2 * geom["depth"]
     assert tca.LAUNCHES["decode_attention"] == 2 * 11 * geom["depth"]
+
+
+# ----------------------------------------------------------------------
+# K9-K11: the comm plane's epilogue kernels, bitwise against their plain
+# versions at the cifar10_full chunk shapes (W=4, sorted leaf order)
+# ----------------------------------------------------------------------
+# tests/test_parallel.py's net (that module imports JAX, which the card's
+# machine does not have)
+TOY_NET = """
+name: "toy"
+layer { name: "data" type: "HostData" top: "x" top: "label"
+  java_data_param { shape { dim: 8 dim: 6 } shape { dim: 8 } } }
+layer { name: "ip1" type: "InnerProduct" bottom: "x" top: "h"
+  inner_product_param { num_output: 16 weight_filler { type: "xavier" } } }
+layer { name: "relu" type: "ReLU" bottom: "h" top: "h" }
+layer { name: "ip2" type: "InnerProduct" bottom: "h" top: "logits"
+  inner_product_param { num_output: 4 weight_filler { type: "xavier" } } }
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "logits" bottom: "label" top: "loss" }
+"""
+CIFAR_CHUNKS = (
+    ((4, 32, 3, 5, 5), (4, 32), (4, 32, 32, 5, 5)),
+    ((4, 32), (4, 64, 32, 5, 5)),
+    ((4, 64), (4, 10, 1024), (4, 10)),
+)
+
+
+def _chunk(dev, shapes, seed, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return tuple((torch.randn(s, generator=g) * scale).to(dev) for s in shapes)
+
+
+def _same_bits(got, want):
+    """Equal bit for bit; NaNs must sit in the same places (their bf16
+    payloads are not compared)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if not got.is_floating_point():
+        assert torch.equal(got, want)
+        return
+    gn, wn = torch.isnan(got.float()), torch.isnan(want.float())
+    assert torch.equal(gn, wn)
+    if got.dtype == torch.bfloat16:
+        got, want = got.view(torch.int16), want.view(torch.int16)
+    assert torch.equal(got[~gn], want[~wn])
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("with_err", [False, True])
+@pytest.mark.parametrize("ci", range(len(CIFAR_CHUNKS)))
+def test_comm_encode_kernel_bitwise(dev, mode, with_err, ci):
+    shapes = CIFAR_CHUNKS[ci]
+    x = _chunk(dev, shapes, 1, 1e-2)
+    a = _chunk(dev, shapes, 2, 1e-2)
+    r = _chunk(dev, shapes, 3, 1e-5)
+    x[0][1].view(-1)[7] = float("nan")  # a poisoned worker
+    a[-1].zero_()
+    x[-1].zero_()
+    r[-1].zero_()  # an all-zero leaf
+    modes = (mode,) * len(shapes)
+    before = tcc.LAUNCHES["comm_encode"]
+    got = tcc.encode(x, a, r, modes, with_err)
+    torch.cuda.synchronize()
+    assert tcc.LAUNCHES["comm_encode"] == before + 1
+    want = tcc.encode_reference(x, a, r, modes, with_err)
+    for g, w in zip(got[0] + got[1] + got[2], want[0] + want[1] + want[2]):
+        _same_bits(g, w)
+    if with_err:
+        assert torch.equal(got[3][:, 0].isnan(), want[3][:, 0].isnan())
+        ok = ~want[3][:, 0].isnan()
+        assert torch.equal(got[3][ok, 0], want[3][ok, 0])
+        torch.testing.assert_close(got[3][ok, 1:], want[3][ok, 1:], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("alive,denom0", [([1, 1, 1, 1], 4.0), ([1, 0, 1, 1], 3.0),
+                                          ([0, 0, 0, 0], 0.0)])
+@pytest.mark.parametrize("ci", range(len(CIFAR_CHUNKS)))
+def test_comm_apply_barriered_kernel_bitwise(dev, alive, denom0, ci):
+    shapes = CIFAR_CHUNKS[ci]
+    x, a, r = _chunk(dev, shapes, 4), _chunk(dev, shapes, 5), _chunk(dev, shapes, 6)
+    means = tuple(m[0].contiguous() for m in _chunk(dev, shapes, 7))
+    alive_t = torch.tensor(alive, dtype=torch.float32, device=dev)
+    d0 = torch.tensor(denom0, device=dev)
+    got = tcc.apply_barriered(x, a, means, r, alive_t, d0)
+    torch.cuda.synchronize()
+    want = tcc.apply_barriered_reference(x, a, means, r, alive_t, d0)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        _same_bits(g, w)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("ci", range(len(CIFAR_CHUNKS)))
+def test_comm_apply_correction_kernel_bitwise(dev, mode, ci):
+    shapes = CIFAR_CHUNKS[ci]
+    modes = (mode,) * len(shapes)
+    q, s, _, _ = tcc.encode_reference(
+        _chunk(dev, shapes, 8, 1e-2), _chunk(dev, shapes, 9, 1e-2),
+        _chunk(dev, shapes, 10, 1e-5), modes, False,
+    )
+    x, a = _chunk(dev, shapes, 11), _chunk(dev, shapes, 12)
+    means = tuple(m[0].contiguous() for m in _chunk(dev, shapes, 13, 1e-2))
+    got = tcc.apply_correction(x, a, q, s, means, modes)
+    torch.cuda.synchronize()
+    want = tcc.apply_correction_reference(x, a, q, s, means, modes)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        _same_bits(g, w)
+
+
+def test_comm_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    x = _chunk(dev, ((4, 8),), 0)
+    with pytest.raises(TypeError, match="float32"):
+        tcc.encode(tuple(t.double() for t in x), x, x, ("int8",), False)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = (torch.randn(8, 4, device=dev).t(),)
+        tcc.encode(t, t, t, ("int8",), False)
+    with pytest.raises(ValueError, match="modes"):
+        tcc.encode(x, x, x, ("int4",), False)
+
+
+@pytest.mark.parametrize("compress,overlap,dead", [
+    ("none", False, False), ("int8", False, False), ("bf16", True, False),
+    ("int8", False, True), ("bf16", True, True)])
+def test_trainer_on_the_card_matches_the_cpu_trainer(dev, compress, overlap, dead):
+    """Two rounds of the averaging trainer on the card against the same
+    trainer on the CPU (plain versions), from one init and one data;
+    ``dead``: worker 1 is masked in the second round (its residual resets,
+    and an overlapped plane falls back to the barriered apply)."""
+    from sparknet_tpu_torch import config as tconfig
+    from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
+    from sparknet_tpu_torch.solver import Solver
+    from sparknet_tpu_torch.utils.tree import tree_leaves
+
+    sp = 'base_lr: 0.05 lr_policy: "fixed" momentum: 0.9'
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        solver = Solver(tconfig.parse_solver_prototxt(sp),
+                        net_param=tconfig.parse_net_prototxt(TOY_NET), device=d)
+        tr = ParameterAveragingTrainer(solver, 4, compress=compress,
+                                       overlap_avg=overlap)
+        st = tr.init_state(0)
+        tcc.reset_launch_counts()
+        for r in range(2):
+            rs = np.random.RandomState(r)
+            data = {"x": torch.from_numpy(rs.randn(4, 3, 8, 6).astype(np.float32)),
+                    "label": torch.from_numpy(
+                        rs.randint(0, 4, (4, 3, 8)).astype(np.float32))}
+            mask = [1, 0, 1, 1] if dead and r == 1 else None
+            st, _ = tr.round(st, {k: v.to(d) for k, v in data.items()},
+                             live_mask=mask)
+        st = tr.finalize(st)
+        runs.append((st, dict(tcc.LAUNCHES), len(tr._comm.chunk_slices)
+                     if tr._comm is not None else 0))
+    (gpu, launches, chunks), (cpu, cpu_launches, _) = runs
+    assert all(v == 0 for v in cpu_launches.values())
+    if compress != "none" or overlap:
+        barriered = 2 if not overlap else (1 if dead else 0)
+        assert launches["comm_encode"] == 2 * chunks
+        assert launches["comm_apply_barriered"] == barriered * chunks
+        assert launches["comm_apply_correction"] == (
+            (1 if dead else 2) * chunks if overlap else 0)
+    tol = dict(rtol=2e-5, atol=1e-6) if compress == "none" else dict(rtol=0, atol=5e-3)
+    for g, c in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
+        torch.testing.assert_close(g.cpu(), c, **tol)

@@ -3,7 +3,9 @@
 - No file of ``sparknet_tpu_torch`` and not ``chip_smoke.py`` imports
   ``jax`` or ``sparknet_tpu`` (an AST scan of every import statement).
 - Entry points run on the card unless the caller asks for the CPU:
-  built without ``device``, they raise where there is no CUDA device.
+  built without ``device``, they raise where there is no CUDA device
+  (the serving CLI, ``apps.cifar_app``, the solver and trainer).
+- What a slice has not ported yet refuses, saying so.
 - The kernel wrappers take the plain version for CPU tensors, and only
   there: no kernel is launched and no library is built.
 - ``chip_smoke.py`` fails, printing no result, without a card and in a
@@ -20,10 +22,16 @@ import numpy as np
 import pytest
 import torch
 
+from sparknet_tpu_torch import config as tconfig
+from sparknet_tpu_torch import models
+from sparknet_tpu_torch.apps import cifar_app
 from sparknet_tpu_torch.models.transformer_lm import TransformerLM
 from sparknet_tpu_torch.ops import _build
 from sparknet_tpu_torch.ops import cuda_attention as tca
+from sparknet_tpu_torch.ops import cuda_comm as tcc
+from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
 from sparknet_tpu_torch.serve import GenerationEngine
+from sparknet_tpu_torch.solver import Solver
 from sparknet_tpu_torch.tools import cli
 from sparknet_tpu_torch.utils.devices import resolve_device
 
@@ -54,7 +62,13 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     bad = []
     files = list(_port_files())
-    assert len(files) > 20
+    assert len(files) > 40
+    # the scan walks the whole package: the training slice is in it
+    rel = {os.path.relpath(p, REPO) for p in files}
+    for mod in ("apps/cifar_app.py", "parallel/comm.py", "parallel/trainers.py",
+                "ops/cuda_comm.py", "solver.py", "net.py", "config/prototext.py",
+                "data/round_feed.py"):
+        assert os.path.join("sparknet_tpu_torch", mod) in rel
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -75,7 +89,16 @@ def test_entry_points_default_to_the_card():
         cli.main(["serve", "--generate", "--lm_dim", "32", "--lm_depth",
                   "1", "--lm_heads", "2", "--lm_seq_len", "16",
                   "--prefill_buckets", "8"])
+    # the training slice: the app, and the solver the trainer runs on
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cifar_app.main(["--workers", "2", "--tau", "2", "--rounds", "1",
+                        "--compress", "int8"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ParameterAveragingTrainer(Solver(models.load_model_solver("cifar10_full")), 4)
     assert resolve_device("cpu").type == "cpu"
+
+
+_CIFAR = ["--device", "cpu", "--workers", "2", "--tau", "2", "--rounds", "1"]
 
 
 @pytest.mark.parametrize(
@@ -85,12 +108,41 @@ def test_entry_points_default_to_the_card():
         (["serve", "--generate", "--weights", "w.caffemodel"], "--weights"),
         (["serve", "--generate", "--replicas", "2"], "--replicas"),
         (["serve", "--generate", "--watch", "/pub"], "--watch"),
+    ] + [
+        (["cifar_app"] + _CIFAR + flag, flag[0])
+        for flag in (["--elastic"], ["--slices", "2"],
+                     ["--cross_slice_every", "2"], ["--stale_bound", "1"],
+                     ["--health"], ["--journal"], ["--obs"], ["--profile"])
     ],
 )
 def test_cli_refuses_what_is_not_yet_ported(argv, what):
+    main = cli.main
+    if argv[0] == "cifar_app":
+        main, argv = cifar_app.main, argv[1:]
     with pytest.raises(SystemExit, match="not yet ported") as e:
-        cli.main(argv)
+        main(argv)
     assert what in str(e.value)
+
+
+@pytest.mark.parametrize(
+    "text",
+    ['layer { name: "d" type: "Dropout" bottom: "x" top: "x" }',
+     'layer { name: "d" type: "Dropout" dropout_param { dropout_ratio: 0.5 } }'],
+    ids=["layer_type", "layer_param"],
+)
+def test_net_refuses_layers_not_yet_ported(text):
+    from sparknet_tpu_torch.net import TorchNet
+
+    head = ('layer { name: "in" type: "HostData" top: "x" '
+            'java_data_param { shape { dim: 2 dim: 3 } } } ')
+    with pytest.raises((NotImplementedError, ValueError), match="not yet ported"):
+        TorchNet(tconfig.parse_net_prototxt(head + text))
+
+
+def test_zoo_refuses_models_not_yet_ported():
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        models.load_model("alexnet")
+    assert models.load_model("cifar10_full").name == "CIFAR10_full"
 
 
 def test_engine_refuses_weights():
@@ -119,6 +171,15 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
         got, tca.decode_attention_reference(q[:, :1], k, v, lengths)
     )
     assert tca.LAUNCHES == before
+    # the comm epilogue: K9, K10, K11
+    comm_before = dict(tcc.LAUNCHES)
+    xs = (q[0], k[0])  # (W=9, 2, 32) leaves
+    qs, scales, _, _ = tcc.encode(xs, xs, xs, ("int8", "bf16"), True)
+    means = tuple(x[0] for x in xs)
+    alive = torch.ones(9)
+    tcc.apply_barriered(xs, xs, means, xs, alive, alive.sum())
+    tcc.apply_correction(xs, xs, qs, scales, means, ("int8", "bf16"))
+    assert tcc.LAUNCHES == comm_before
 
 
 def test_kernel_build_plan_is_keyed_by_source():
@@ -126,7 +187,7 @@ def test_kernel_build_plan_is_keyed_by_source():
     source and flags, in the git-ignored build directory; importing the
     module compiled nothing."""
     srcs = _build.sources()
-    assert set(srcs) == {"flash_fwd", "decode_attention"}
+    assert set(srcs) == {"flash_fwd", "decode_attention", "comm_epilogue"}
     for name in srcs:
         p = _build.library_path(name)
         assert p == _build.library_path(name)
