@@ -48,8 +48,26 @@ Phases (any failure ends the run with a non-zero exit and no result):
    first round against the same round on the CPU, and one int8 round is
    profiled (device busy share, top kernels, K9-K11's share).
 
-The second-to-last line is ``{"kernels": [...]}`` (K1, K2, K9, K10,
-K11); the last line is ``{"ok": true, "device": {...}}``.
+6. The flash backward kernels — K3 (dq) and K4 (dk/dv) — against their
+   plain versions on the card, in float32, with a nonzero ``dlse``: the
+   training shape (B=8, T=256, H=4, D=64, causal), non-causal, a ragged
+   T_q, offsets (0, 64) with fully-masked rows, D=32 and D=128.  Then
+   each kernel's time beside its plain version's and the least time the
+   card could take, and, for K3 and K4 together, the library yardstick
+   ``scaled_dot_product_attention`` forward+backward minus its forward.
+7. The LM training main path: ``apps.lm_app.main`` in process at the
+   CLI's model width (dim 256, depth 4, heads 4, seq_len 256), W=2,
+   tau 4, batch 8, 6 rounds, in two legs — the default (flash: K1, K3,
+   K4) and ``--dense_attention``.  Launch counts are reset before each
+   leg and read after it: the flash leg launches exactly depth x W x
+   tau x rounds = 192 each of K1, K3 and K4, the dense leg none.  Both
+   legs' losses are finite and fall from ~ln 256; the flash leg's
+   per-round losses and final params lie within LM_TOL (5e-4) of the
+   dense leg's; its first round on the card matches the same round on
+   the CPU relative to the update; one flash round is profiled.
+
+The second-to-last line is ``{"kernels": [...]}`` (K1, K2, K3, K4, K9,
+K10, K11); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -73,6 +91,10 @@ LOGPROB_ATOL = 1e-4
 # a token may differ from the CPU argmax only where the CPU's top-2
 # logits are this close (seeded random weights give near-ties)
 TIE_MARGIN = 1e-4
+# the flash backward against its plain version: 2e-5 of the largest
+# magnitude of the plain output (float32 sums of up to T products, in
+# another order)
+BWD_RTOL = 2e-5
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32
 # operations/s outside the tensor cores (the kernels run fp32 FMA)
@@ -758,6 +780,290 @@ def where_train_time_goes(dev, card):
               f"{key[:90]}")
 
 
+# ----------------------------------------------------------------------
+# phase 6: the flash backward kernels (K3, K4) against their plain
+# versions, at the LM training shape and its edges
+# ----------------------------------------------------------------------
+LM_MODEL = dict(CLI_MODEL)  # the LM trains at the width it serves
+LM_W, LM_TAU, LM_BATCH, LM_ROUNDS = 2, 4, 8, 6
+# lm_app's default rate, 0.1 (the JAX package's, tuned at dim 64), diverged
+# at this width on the H100 (per-round loss 4.61 -> 8.16 -> 9.46); 0.05,
+# 0.03 and 0.02 spiked; 0.01 falls from ln 256 to ~2.9 in 6 rounds
+LM_LR = 0.01
+# the JAX package's LM associativity tolerance (bench.py BENCH_LM_TOL)
+LM_TOL = 5e-4
+# first LM round on the card vs the CPU, relative to the round's update:
+# float32 on both sides, summed in other orders over 4 momentum steps
+LM_CPU_TOL = 1e-2
+
+
+def _bwd_case(dev, gen, b, tq, tk, h, d, q_off, k_off, causal):
+    """Seeded inputs of K3/K4: q, k, v, do, dlse and K1's (o, lse)."""
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    q, k, v = rand(b, tq, h, d), rand(b, tk, h, d), rand(b, tk, h, d)
+    do, dlse = rand(b, tq, h, d), rand(b, h, tq)
+    o, lse = ca._flash_core(q, k, v, q_off, k_off, causal)
+    return (q, k, v, do, o, lse, dlse, q_off, k_off, causal)
+
+
+def check_bwd_kernels(dev):
+    """Hold K3 and K4 against their plain versions on the card; return
+    their kernels-line records (without launch counts)."""
+    import torch.nn.functional as F
+
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    B, T, H, D = LM_BATCH, LM_MODEL["seq_len"], LM_MODEL["heads"], \
+        LM_MODEL["dim"] // LM_MODEL["heads"]
+    cases = [
+        ("training shape", B, T, T, H, D, 0, 0, True),
+        ("non-causal", B, T, T, H, D, 0, 0, False),
+        ("ragged T_q", 2, 37, 100, H, D, 63, 0, True),
+        ("offsets (0, 64), 64 fully-masked rows", 2, 128, 128, H, D, 0, 64, True),
+        ("D=32", 2, 70, 70, H, 32, 0, 0, True),
+        ("D=128", 2, 100, 100, H, 128, 0, 0, True),
+    ]
+    err = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for what, *shape in cases:
+        args = _bwd_case(dev, gen, *shape)
+        got = {"flash_bwd_dq": (ca.flash_bwd_dq(*args),),
+               "flash_bwd_dkv": ca.flash_bwd_dkv(*args)}
+        want = {"flash_bwd_dq": (ca._flash_bwd_dq_reference(*args),),
+                "flash_bwd_dkv": ca._flash_bwd_dkv_reference(*args)}
+        torch.cuda.synchronize()
+        for name, outs in (("flash_bwd_dq", ("K3 dq",)),
+                           ("flash_bwd_dkv", ("K4 dk", "K4 dv"))):
+            for g, w, out in zip(got[name], want[name], outs):
+                check(bool(torch.isfinite(g).all()), f"{out} {what}: non-finite")
+                e = float((g - w).abs().max())
+                scale = max(1.0, float(w.abs().max()))
+                print(f"{out} {what} {tuple(g.shape)}: max_abs_err {e:.3e} "
+                      f"(scale {scale:.3g})")
+                check(e <= BWD_RTOL * scale,
+                      f"{name} disagrees ({what}): {e} > {BWD_RTOL} x {scale}")
+                err[name] = max(err[name], e)
+        if shape[6] == 64:  # q_off 0, k_off 64: rows 0..63 see no key
+            check(bool((got["flash_bwd_dq"][0][:, :64] == 0).all()),
+                  "fully-masked rows must give dq = 0")
+
+    # times at the training shape, causal, dlse = 0 (what the LM passes)
+    args = list(_bwd_case(dev, gen, B, T, T, H, D, 0, 0, True))
+    args[6] = torch.zeros_like(args[6])
+    args = tuple(args)
+    q, k, v, do = args[:4]
+    pairs = B * H * T * (T + 1) // 2  # visible (query, key) pairs
+    tensor_bytes = 4 * B * T * H * D
+    row_bytes = 4 * B * H * T
+    # K3 reads q, k, v, o, do, lse, dlse and writes dq: 3 products
+    dq_b, dq_by = bound_ms(6 * tensor_bytes + 2 * row_bytes, 6 * D * pairs)
+    # K4 reads the same and writes dk, dv: 4 products
+    dkv_b, dkv_by = bound_ms(7 * tensor_bytes + 2 * row_bytes, 8 * D * pairs)
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    do_s = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(), (qs, ks, vs), do_s)
+
+    lib_fwd, lib_fwd_bwd = device_ms(sdpa), device_ms(sdpa_fwd_bwd)
+    library = lib_fwd_bwd - lib_fwd
+    shape = f"B={B} T={T} H={H} D={D} causal fp32"
+    records = []
+    for name, tag, line, kernel, plain, b, by in (
+        ("flash_bwd_dq", "K3", 91, lambda: ca.flash_bwd_dq(*args),
+         lambda: ca._flash_bwd_dq_reference(*args), dq_b, dq_by),
+        ("flash_bwd_dkv", "K4", 119, lambda: ca.flash_bwd_dkv(*args),
+         lambda: ca._flash_bwd_dkv_reference(*args), dkv_b, dkv_by),
+    ):
+        rec = dict(
+            name=name, route="cuda",
+            source="sparknet_tpu_torch/ops/csrc/flash_bwd.cu",
+            replaces=f"sparknet_tpu/ops/pallas_attention.py:{line}",
+            max_abs_err=err[name], bound_ms=b, bound_by=by,
+            library_ms=library, shape=shape,
+            ms=device_ms(kernel), call_ms=time_ms(kernel),
+            plain_ms=device_ms(plain), plain_call_ms=time_ms(plain),
+        )
+        print(f"{tag} {name} [{shape}]: kernel {rec['ms']:.4f} ms on device "
+              f"({rec['call_ms']:.4f} ms per call), plain {rec['plain_ms']:.4f} "
+              f"ms ({rec['plain_call_ms']:.4f}), bound {b * 1e3:.3f} us ({by})")
+        records.append(rec)
+    print(f"K3+K4 library yardstick: scaled_dot_product_attention fwd+bwd "
+          f"{lib_fwd_bwd:.4f} ms - fwd {lib_fwd:.4f} ms = {library:.4f} ms on "
+          f"device; K3+K4 {records[0]['ms'] + records[1]['ms']:.4f} ms")
+    return records
+
+
+# ----------------------------------------------------------------------
+# phase 7: the LM training main path — lm_app on the card, two legs
+# ----------------------------------------------------------------------
+def _lm_argv(dev):
+    m = LM_MODEL
+    return ["--device", dev.type, "--workers", str(LM_W), "--tau", str(LM_TAU),
+            "--batch", str(LM_BATCH), "--rounds", str(LM_ROUNDS),
+            "--dim", str(m["dim"]), "--depth", str(m["depth"]),
+            "--heads", str(m["heads"]), "--seq_len", str(m["seq_len"]),
+            "--base_lr", str(LM_LR), "--log_every", "1"]
+
+
+def _lm_trainer(dev):
+    from sparknet_tpu_torch.apps import lm_app
+    from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
+
+    args = lm_app._parser().parse_args(_lm_argv(dev))
+    lm, solver = lm_app.build_lm_solver(args, dev)
+    return lm, ParameterAveragingTrainer(solver, LM_W)
+
+
+def _lm_batch(r: int):
+    """Round ``r``'s (W, tau, B, T) windows, as lm_app draws them."""
+    from sparknet_tpu_torch.data import (
+        TextWindowSampler, load_corpus, stack_windows, write_synthetic_corpus)
+
+    with tempfile.TemporaryDirectory() as d:
+        write_synthetic_corpus(d, seed=0)
+        docs = load_corpus(d)
+    base = TextWindowSampler(docs, LM_MODEL["seq_len"], LM_BATCH, seed=0)
+    return stack_windows([base.for_worker(w).window_for_round(r, LM_TAU)
+                          for w in range(LM_W)])
+
+
+def _lm_first_round_matches_cpu(dev):
+    """Round 0 of the flash leg on the card and on the CPU from one init
+    and one set of windows: the parameter updates agree within
+    LM_CPU_TOL of their size, the losses within LM_TOL."""
+    from sparknet_tpu_torch.utils.tree import tree_leaves
+
+    batch = _lm_batch(0)
+    runs, init = [], None
+    for d in (dev, torch.device("cpu")):
+        _, tr = _lm_trainer(d)
+        init = init if init is not None else tr.solver.init_state(0)
+        st, losses = tr.round(tr.broadcast_state(init),
+                              {k: torch.from_numpy(v).to(d)
+                               for k, v in batch.items()})
+        runs.append(([t.cpu() for t in tree_leaves(st.params)], losses.cpu()))
+    x0 = [t.cpu() for t in tree_leaves(init.params)]
+    worst = 0.0
+    for g, c, p0 in zip(runs[0][0], runs[1][0], x0):
+        size = float((c - p0[None]).abs().max())
+        worst = max(worst, float((g - c).abs().max()) / max(size, 1e-30))
+    loss_gap = float((runs[0][1] - runs[1][1]).abs().max())
+    check(worst <= LM_CPU_TOL, f"LM first round on the card vs the CPU: "
+          f"{worst:.3e} of the update (limit {LM_CPU_TOL})")
+    check(loss_gap <= LM_TOL, f"LM first-round losses differ by {loss_gap}")
+    return worst, loss_gap
+
+
+def lm_train_end_to_end(dev, card):
+    """``lm_app.main`` in process at the CLI model's width, W=2, tau 4,
+    batch 8, LM_ROUNDS rounds, flash and dense legs; returns the flash
+    leg's launches."""
+    from sparknet_tpu_torch.apps import lm_app
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+    from sparknet_tpu_torch.utils.tree import tree_leaves
+
+    n = LM_MODEL["depth"] * LM_W * LM_TAU * LM_ROUNDS
+    expect = {
+        "flash": dict(flash_fwd=n, flash_bwd_dq=n, flash_bwd_dkv=n,
+                      decode_attention=0),
+        "dense": dict(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0,
+                      decode_attention=0),
+    }
+    results, launches = {}, {}
+    for leg, extra in (("flash", []), ("dense", ["--dense_attention"])):
+        result = {}
+        ca.reset_launch_counts()
+        rc = lm_app.main(_lm_argv(dev) + extra, result)
+        torch.cuda.synchronize()
+        launches[leg] = dict(ca.LAUNCHES)
+        check(rc == 0, f"lm_app leg {leg} exited {rc}")
+        losses = result["losses"]  # (rounds, W, tau)
+        per_round = losses.mean(axis=(1, 2))
+        print(f"LM leg {leg}: launches {launches[leg]}, per-round mean loss "
+              + " ".join(f"{x:.4f}" for x in per_round))
+        check(launches[leg] == expect[leg],
+              f"LM leg {leg}: launches {launches[leg]}, expected {expect[leg]}")
+        check(bool(np.isfinite(losses).all()), f"LM leg {leg}: non-finite loss")
+        check(abs(float(losses[0, :, 0].mean()) - np.log(256)) < 0.5,
+              f"LM leg {leg}: first loss {losses[0, :, 0].mean()} not ~ln 256")
+        check(per_round[-1] < per_round[0] - 0.5,
+              f"LM leg {leg}: loss did not fall ({per_round[0]} -> "
+              f"{per_round[-1]})")
+        for t in tree_leaves(result["state"].params):
+            check(bool(torch.isfinite(t).all()), f"LM leg {leg}: non-finite params")
+        rs = np.array(result["round_seconds"][1:])  # round 0 warms up
+        print(f"[{card}] LM leg {leg}: {result['tokens_per_round'] / rs.mean():.1f} "
+              f"tokens/s, {1.0 / rs.mean():.3f} rounds/s (mean of rounds "
+              f"1..{LM_ROUNDS - 1}: {rs.mean() * 1e3:.2f} ms, min "
+              f"{rs.min() * 1e3:.2f} ms)")
+        results[leg] = result
+    loss_gap = float(np.abs(results["flash"]["losses"]
+                            - results["dense"]["losses"]).max())
+    param_gap = max(
+        float((a - b).abs().max())
+        for a, b in zip(tree_leaves(results["flash"]["state"].params),
+                        tree_leaves(results["dense"]["state"].params)))
+    print(f"LM flash vs dense over {LM_ROUNDS} rounds: losses {loss_gap:.3e}, "
+          f"params {param_gap:.3e} (limit {LM_TOL})")
+    check(loss_gap <= LM_TOL, f"flash and dense losses differ by {loss_gap}")
+    check(param_gap <= LM_TOL, f"flash and dense params differ by {param_gap}")
+    worst, first_gap = _lm_first_round_matches_cpu(dev)
+    print(f"LM first round on the card vs the CPU: worst |diff| {worst:.3e} of "
+          f"the update, losses {first_gap:.3e}")
+    where_lm_time_goes(dev, card)
+    return launches["flash"]
+
+
+def where_lm_time_goes(dev, card):
+    """One flash round of the LM trainer under ``torch.profiler``: wall
+    time, the device's busy share, the top kernels and K1/K3/K4's share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, tr = _lm_trainer(dev)
+    st = tr.init_state(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in _lm_batch(0).items()}
+    st, _ = tr.round(st, batch)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, _ = tr.round(st, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        st, _ = tr.round(st, batch)
+        torch.cuda.synchronize()
+    rows = sorted(
+        ((e.self_device_time_total / 1e3, e.count, e.key)
+         for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        reverse=True,
+    )
+    busy = sum(r[0] for r in rows)
+    check(busy > 0, "LM round: the profiler saw no device time")
+    share = {tag: sum(r[0] for r in rows if kern in r[2])
+             for tag, kern in (("K1", "flash_fwd_kernel"),
+                               ("K3", "flash_bwd_dq_kernel"),
+                               ("K4", "flash_bwd_dkv_kernel"))}
+    n_kernels = sum(r[1] for r in rows)
+    print(f"[{card}] LM round (dim {LM_MODEL['dim']}, depth {LM_MODEL['depth']}, "
+          f"W={LM_W}, tau={LM_TAU}, batch {LM_BATCH}, flash): {wall_ms:.3f} ms "
+          f"wall, {busy:.3f} ms device busy ({busy / wall_ms:.1%}), {n_kernels} "
+          f"kernel launches of {len(rows)} kinds; "
+          + ", ".join(f"{t} {ms:.4f} ms ({ms / busy:.1%})" for t, ms in share.items()))
+    for ms, count, key in rows[:8]:
+        print(f"    {ms:.4f} ms ({ms / busy:.1%} of device, {count} launches)  "
+              f"{key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script runs on the card",
@@ -781,8 +1087,11 @@ def main() -> int:
                 print(f"  {p.stem}: {line.strip()}")
 
     kernels = check_kernels(dev)
+    kernels += check_bwd_kernels(dev)
     comm_kernels = check_comm_kernels(dev)
     launches = serve_end_to_end(dev, card)
+    for name, n in lm_train_end_to_end(dev, card).items():
+        launches[name] += n
     launches.update(train_end_to_end(dev, card))
     kernels += comm_kernels
     for r in kernels:

@@ -7,10 +7,11 @@ path with a CUDA kernel written by hand for Hopper (``ops/csrc/``).
 It imports torch, numpy and the standard library only — never JAX and
 never ``sparknet_tpu``.
 
-This slice serves ``cli serve --generate``: ``models.transformer_lm``,
-``serve.generate`` over the paged KV arena, continuous batching and the
-chunked-NDJSON HTTP front end, with the flash-prefill and decode
-attention kernels of ``ops.cuda_attention``.
+Ported so far: LM serving (``cli serve --generate``, with the flash and
+decode attention kernels of ``ops.cuda_attention``), SparkNet's
+tau-averaging loop on cifar10_full (``apps.cifar_app``, with the comm
+epilogue kernels of ``ops.cuda_comm``) and LM training
+(``apps.lm_app``, with the flash backward kernels).
 
 Float32 matrix products stay float32 on the card: TF32 is switched off
 here, for products and for cuDNN, so the card computes what the CPU

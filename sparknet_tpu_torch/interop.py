@@ -5,9 +5,11 @@
 checked).  The JAX ``TransformerLM`` keeps its parameters as ``{group: [blob,
 ...]}`` in ``_blob_plan`` order (``embed``, ``block{i}_ln1``,
 ``block{i}_attn``, ``block{i}_ln2``, ``block{i}_mlp``, ``ln_f``,
-``head``); the port keeps them as named submodules.  Both store
-matrices as (in, out) for ``x @ w``, so carrying a blob across is a
-copy — this module is the one place that knows both layouts.
+``head``); the port's serving module keeps them as named submodules
+(``lm_state_from_jax``) and its training net as the same dict
+(``lm_params_from_jax``).  Both store matrices as (in, out) for
+``x @ w``, so carrying a blob across is a copy — this module is the one
+place that knows both layouts.
 """
 
 from __future__ import annotations
@@ -46,6 +48,36 @@ def lm_state_from_jax(
                 )
             state[names[id(p)]] = torch.from_numpy(arr.copy())
     return state
+
+
+def lm_params_from_jax(
+    params: Mapping[str, Sequence[np.ndarray]], lm, device=None,
+) -> Dict[str, List[torch.Tensor]]:
+    """The port's ``{group: [tensor]}`` solver params for a JAX LM
+    parameter dict, on ``device``.  ``lm`` is a port ``TransformerLMNet``
+    (or ``TransformerLM``) of the same geometry; groups, blob counts and
+    shapes are checked against its plan."""
+    plan = lm._blob_plan()
+    if set(params) != {g for g, _ in plan}:
+        raise ValueError(
+            f"groups {sorted(params)}, the LM has {sorted(g for g, _ in plan)}"
+        )
+    out: Dict[str, List[torch.Tensor]] = {}
+    for group, shapes in plan:
+        blobs = params[group]
+        if len(blobs) != len(shapes):
+            raise ValueError(
+                f"group {group!r}: {len(blobs)} blobs, expected {len(shapes)}"
+            )
+        out[group] = []
+        for bi, (blob, shape) in enumerate(zip(blobs, shapes)):
+            arr = np.asarray(blob, dtype=np.float32)
+            if arr.shape != tuple(shape):
+                raise ValueError(
+                    f"{group}[{bi}]: shape {arr.shape}, expected {shape}"
+                )
+            out[group].append(torch.from_numpy(arr.copy()).to(device))
+    return out
 
 
 def net_params_from_jax(

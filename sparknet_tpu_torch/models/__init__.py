@@ -1,9 +1,10 @@
-"""Models of the port: the prototxt zoo and the serving TransformerLM.
+"""Models of the port: the prototxt zoo and the TransformerLM.
 
 ``zoo/`` holds the port's own copies of the JAX package's zoo configs
 for the ported training path (cifar10_full).  ``load_model(name)``
 returns the NetParameter, ``load_model_solver(name)`` the solver with
-the net embedded.  The other zoo models come with later slices.
+the net embedded; ``build_transformer_lm(**kw)`` the LM as a Solver
+net.  The other zoo models come with later slices.
 """
 
 from __future__ import annotations
@@ -36,6 +37,15 @@ def _check(name: str, table) -> str:
             f"model {name!r} is not yet ported to sparknet_tpu_torch"
         )
     raise KeyError(f"unknown model {name!r}; have {sorted(table)}")
+
+
+def build_transformer_lm(**kwargs):
+    """The zoo's sequence model: the decoder-only transformer LM as a
+    Solver net (``models/transformer_lm.TransformerLMNet``) — not a
+    prototxt net; it plugs into ``Solver(..., net=lm)``."""
+    from sparknet_tpu_torch.models.transformer_lm import TransformerLMNet
+
+    return TransformerLMNet(**kwargs)
 
 
 def load_model(name: str) -> NetParameter:

@@ -308,6 +308,18 @@ class TrainingMetrics:
             "of the compressed averaging, by compression mode",
             labels=("compress",),
         )
+        self.kernel_path = r.gauge(
+            "sparknet_kernel_path",
+            "1 when the op runs the port's hand-written kernel on this "
+            "run, 0 when it runs a plain PyTorch reference, by kernel "
+            "family (kernel=attention: the LM's flash kernels)",
+            labels=("kernel",),
+        )
+        self.lm_tokens = r.counter(
+            "sparknet_lm_tokens_total",
+            "tokens trained by the transformer-LM workload (workers x "
+            "tau x batch x seq_len per round)",
+        )
         self.quant_snr_db = r.gauge(
             "sparknet_quant_snr_db",
             "last round's delta-vs-quantization-error SNR in dB "

@@ -132,13 +132,19 @@ class Solver:
         state = solver.init_state(seed=0)
         state, losses = solver._step_tau(state, stacked_batches)  # tau iters
 
-    ``device`` defaults to the card (``utils.devices.resolve_device``)."""
+    ``device`` defaults to the card (``utils.devices.resolve_device``).
+    ``net`` trains a net object instead of a prototxt net: anything with
+    ``init(seed, device) -> (params, stats)``, ``loss_fn(params, stats,
+    batch, train)``, ``param_multipliers()`` and ``feed_blobs``
+    (``models.transformer_lm.TransformerLMNet`` is one); the update
+    rules and the trainers are generic over its params dict."""
 
     def __init__(
         self,
         param: SolverParameter,
         net_param: Optional[NetParameter] = None,
         device=None,
+        net=None,
     ):
         if param.debug_info:
             raise NotImplementedError(
@@ -147,9 +153,15 @@ class Solver:
         self.device = resolve_device(device)
         self.param = param
         self.method = solver_method(param)
-        netp = net_param if net_param is not None else resolve_solver_net(param)
-        self.net_param = netp
-        self.net = TorchNet(netp, phase="TRAIN")
+        if net is not None:
+            if net_param is not None:
+                raise ValueError("pass net= or net_param=, not both")
+            self.net_param = None
+            self.net = net
+        else:
+            netp = net_param if net_param is not None else resolve_solver_net(param)
+            self.net_param = netp
+            self.net = TorchNet(netp, phase="TRAIN")
         self._test_net: Optional[TorchNet] = None
         self._lr_mults, self._decay_mults = self.net.param_multipliers()
         self._loss_window = collections.deque(maxlen=max(1, param.average_loss))
@@ -162,6 +174,12 @@ class Solver:
     def test_net(self) -> TorchNet:
         """TEST-phase view sharing the train weights, built lazily."""
         if self._test_net is None:
+            if self.net_param is None:
+                raise ValueError(
+                    "this solver wraps a net object (net=...) with no "
+                    "prototxt TEST view — score through the net's own "
+                    "forward/loss_fn instead"
+                )
             self._test_net = TorchNet(self.net_param, phase="TEST")
         return self._test_net
 

@@ -1,15 +1,17 @@
-"""Command-line entry point of the port: ``serve --generate``.
+"""Command-line entry point of the port: ``serve --generate``, ``train --lm``.
 
 The port of the ``serve --generate`` subcommand of
 ``sparknet_tpu/tools/cli.py``, with the same flags and defaults plus
 ``--device`` (default ``cuda``; ``--device=cpu`` runs the plain
-attention versions on the CPU)::
+attention versions on the CPU), and of ``train --lm``, which hands the
+rest of the line to ``apps/lm_app.py``::
 
     python -m sparknet_tpu_torch.tools.cli serve --generate [--port 8361]
+    python -m sparknet_tpu_torch.tools.cli train --lm [--dim 256 ...]
 
-The other subcommands, ``serve`` without ``--generate`` (``/predict``),
-``--weights``, ``--replicas`` and ``--watch`` come with later slices and
-raise "not yet ported" here.
+The other subcommands, ``train`` with a prototxt ``--solver``, ``serve``
+without ``--generate`` (``/predict``), ``--weights``, ``--replicas`` and
+``--watch`` come with later slices and raise "not yet ported" here.
 """
 
 from __future__ import annotations
@@ -75,9 +77,34 @@ def cmd_serve(args) -> int:
     return server.run()
 
 
+def cmd_train(args) -> int:
+    """``train`` without ``--lm``: the prototxt solver path."""
+    raise SystemExit(
+        "train: a prototxt --solver is not yet ported to "
+        "sparknet_tpu_torch (train --lm trains the transformer LM)"
+    )
+
+
 def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    if argv[:1] == ["train"] and "--lm" in argv:
+        # the transformer-LM workload: the rest of the line goes to
+        # apps/lm_app.py, whose parser carries the LM's surface
+        from sparknet_tpu_torch.apps import lm_app
+
+        return lm_app.main([a for a in argv[1:] if a != "--lm"])
     parser = argparse.ArgumentParser(prog="sparknet_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("train")
+    p.add_argument("--lm", action="store_true",
+                   help="train the transformer LM: the rest of the line "
+                   "goes to apps/lm_app.py (--dim/--depth/--heads/--seq_len, "
+                   "--workers, --rounds, --tau, --batch, --corpus DIR, "
+                   "--dense_attention, --compress, --device)")
+    p.add_argument("--solver", default=None,
+                   help="prototxt solver (not yet ported)")
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("serve")
     p.add_argument("--net", default=None,

@@ -7,7 +7,9 @@ there is no CUDA device.  On a machine with the card and nvcc::
 
 Attention: tolerance 2e-5 absolute, float32 on both sides, the kernels
 summing tile by tile (online softmax) where the plain versions sum
-densely.  The comm epilogue kernels (K9-K11) are held to their plain
+densely.  The flash backward (K3, K4): 2e-5 of the largest magnitude of
+the plain version's output (sums of up to T products, in another
+order).  The comm epilogue kernels (K9-K11) are held to their plain
 versions bit for bit, except the error readout's two sums (rtol 1e-5,
 reduced in another order).
 """
@@ -92,6 +94,118 @@ def test_decode_kernel_matches_plain(dev, d):
     )
 
 
+BWD_RTOL = 2e-5
+
+
+def _close_scaled(got, want, what):
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert err <= BWD_RTOL * scale, (what, err, scale)
+
+
+def _bwd_inputs(dev, b, tq, tk, h, d, q_off, k_off, causal, seed=0):
+    q = _rand(dev, b, tq, h, d, seed=seed)
+    k = _rand(dev, b, tk, h, d, seed=seed + 1)
+    v = _rand(dev, b, tk, h, d, seed=seed + 2)
+    do = _rand(dev, b, tq, h, d, seed=seed + 3)
+    dlse = _rand(dev, b, h, tq, seed=seed + 4)
+    o, lse = tca._flash_core_reference(q, k, v, q_off, k_off, causal)
+    return (q, k, v, do, o.contiguous(), lse, dlse, q_off, k_off, causal)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize(
+    "tq,tk,q_off,k_off,causal",
+    [(16, 16, 0, 0, True), (37, 100, 63, 0, True), (70, 70, 0, 0, False),
+     (128, 128, 0, 64, True), (1, 300, 299, 0, True), (256, 256, 0, 0, True)],
+)
+def test_flash_bwd_kernels_match_plain(dev, d, tq, tk, q_off, k_off, causal):
+    """K3 and K4 with a nonzero dlse, ragged tiles and (128, 128, 0, 64)'s
+    64 fully-masked query rows."""
+    args = _bwd_inputs(dev, 2, tq, tk, 3, d, q_off, k_off, causal)
+    before = dict(tca.LAUNCHES)
+    dq = tca.flash_bwd_dq(*args)
+    dk, dv = tca.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert tca.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert tca.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    _close_scaled(dq, tca._flash_bwd_dq_reference(*args), "dq")
+    dk_ref, dv_ref = tca._flash_bwd_dkv_reference(*args)
+    _close_scaled(dk, dk_ref, "dk")
+    _close_scaled(dv, dv_ref, "dv")
+    if (q_off, k_off) == (0, 64):
+        assert bool((dq[:, :64] == 0).all())
+
+
+def test_flash_bwd_kernels_read_strided_inputs(dev):
+    wide = _rand(dev, 2, 40, 10, 64, seed=8)
+    q, k, v, do, o = (wide[:, :, 2 * i:2 * i + 2] for i in range(5))
+    assert not q.is_contiguous()
+    _, lse = tca._flash_core_reference(q, k, v, 0, 0, True)
+    dlse = _rand(dev, 2, 2, 40, seed=9)
+    args = (q, k, v, do, o, lse, dlse, 0, 0, True)
+    _close_scaled(tca.flash_bwd_dq(*args), tca._flash_bwd_dq_reference(*args),
+                  "dq")
+    for g, w in zip(tca.flash_bwd_dkv(*args), tca._flash_bwd_dkv_reference(*args)):
+        _close_scaled(g, w, "dkv")
+
+
+@pytest.mark.parametrize("q_off,k_off,causal", [(0, 0, True), (0, 8, True),
+                                                (0, 0, False)])
+def test_flash_autograd_on_the_card_matches_the_cpu(dev, q_off, k_off, causal):
+    """``flash_attention_step``'s grads through o AND lse: the card's
+    K1/K3/K4 against the CPU's plain versions."""
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        g = torch.Generator().manual_seed(11)
+        q, k, v = (torch.randn(2, 48, 2, 64, generator=g).to(d)
+                   .requires_grad_(True) for _ in range(3))
+        wo = torch.randn(2, 2, 48, 64, generator=g).to(d)
+        wl = torch.randn(2, 2, 48, generator=g).to(d)
+        o, lse = tca.flash_attention_step(q, k, v, q_off, k_off, causal)
+        lse = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+        ((o * wo).sum() + (lse * wl).sum()).backward()
+        grads.append([t.grad.cpu() for t in (q, k, v)])
+    for got, want in zip(*grads):
+        _close_scaled(got, want, "grad")
+
+
+def test_lm_trainer_on_the_card_runs_the_flash_kernels(dev):
+    """Two W=2 rounds of the LM on the card against the same rounds on
+    the CPU: every attention forward and backward launches K1, K3 and
+    K4 once, and the params agree to float32 rounding."""
+    from sparknet_tpu_torch.config import parse_solver_prototxt
+    from sparknet_tpu_torch.models.transformer_lm import TransformerLMNet
+    from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
+    from sparknet_tpu_torch.solver import Solver
+    from sparknet_tpu_torch.utils.tree import tree_leaves
+
+    sp = 'base_lr: 0.1 lr_policy: "fixed" momentum: 0.9 weight_decay: 0.0001'
+    geom = dict(dim=64, depth=2, heads=2, seq_len=64)
+    rs = np.random.RandomState(0)
+    data = [{k: torch.from_numpy(rs.randint(0, 256, (2, 2, 4, 64)).astype(np.int32))
+             for k in ("tokens", "targets")} for _ in range(2)]
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        tr = ParameterAveragingTrainer(
+            Solver(parse_solver_prototxt(sp), net=TransformerLMNet(**geom),
+                   device=d), 2)
+        st = tr.init_state(0)
+        tca.reset_launch_counts()
+        for batch in data:
+            st, losses = tr.round(st, {k: v.to(d) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        runs.append((st, dict(tca.LAUNCHES), losses.cpu()))
+    (gpu, launches, gl), (cpu, cpu_launches, cl) = runs
+    n = geom["depth"] * 2 * 2 * 2  # depth x workers x tau x rounds
+    assert launches == {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+                        "decode_attention": 0}
+    assert all(v == 0 for v in cpu_launches.values())
+    torch.testing.assert_close(gl, cl, rtol=0, atol=5e-5)
+    for g, c in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
+        torch.testing.assert_close(g.cpu(), c, rtol=0, atol=5e-5)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = _rand(dev, 1, 8, 2, 64)
     with pytest.raises(TypeError, match="float32"):
@@ -105,6 +219,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="unit stride"):
         t = q.transpose(-1, -2)
         tca.flash_attention(t, t, t)
+    _, lse = tca._flash_core_reference(q, q, q, 0, 0, True)
+    with pytest.raises(ValueError, match="dlse"):
+        tca.flash_bwd_dq(q, q, q, q, q, lse, lse[:, :, :4], 0, 0, True)
+    with pytest.raises(ValueError, match="lse"):
+        tca.flash_bwd_dkv(q, q, q, q, q, lse.double(), lse, 0, 0, True)
+    with pytest.raises(ValueError, match="line up"):
+        tca.flash_bwd_dq(q, q, q, q[:, :4], q, lse, lse, 0, 0, True)
 
 
 def test_engine_on_the_card_matches_the_cpu_engine(dev):

@@ -4,7 +4,8 @@
   ``jax`` or ``sparknet_tpu`` (an AST scan of every import statement).
 - Entry points run on the card unless the caller asks for the CPU:
   built without ``device``, they raise where there is no CUDA device
-  (the serving CLI, ``apps.cifar_app``, the solver and trainer).
+  (the serving CLI, ``apps.cifar_app``, ``apps.lm_app`` and ``cli
+  train --lm``, the solver and trainer).
 - What a slice has not ported yet refuses, saying so.
 - The kernel wrappers take the plain version for CPU tensors, and only
   there: no kernel is launched and no library is built.
@@ -24,7 +25,7 @@ import torch
 
 from sparknet_tpu_torch import config as tconfig
 from sparknet_tpu_torch import models
-from sparknet_tpu_torch.apps import cifar_app
+from sparknet_tpu_torch.apps import cifar_app, lm_app
 from sparknet_tpu_torch.models.transformer_lm import TransformerLM
 from sparknet_tpu_torch.ops import _build
 from sparknet_tpu_torch.ops import cuda_attention as tca
@@ -67,7 +68,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     rel = {os.path.relpath(p, REPO) for p in files}
     for mod in ("apps/cifar_app.py", "parallel/comm.py", "parallel/trainers.py",
                 "ops/cuda_comm.py", "solver.py", "net.py", "config/prototext.py",
-                "data/round_feed.py"):
+                "data/round_feed.py", "apps/lm_app.py", "data/text.py"):
         assert os.path.join("sparknet_tpu_torch", mod) in rel
     for path in files:
         for mod in _imported_modules(path):
@@ -95,6 +96,16 @@ def test_entry_points_default_to_the_card():
                         "--compress", "int8"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ParameterAveragingTrainer(Solver(models.load_model_solver("cifar10_full")), 4)
+    # the LM training slice: the app, its CLI dispatch and the net solver
+    lm_argv = ["--dim", "32", "--depth", "1", "--heads", "2", "--seq_len",
+               "16", "--rounds", "1", "--workers", "2"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_app.main(lm_argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", "--lm"] + lm_argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Solver(tconfig.parse_solver_prototxt("base_lr: 0.1"),
+               net=models.build_transformer_lm(dim=32, depth=1, heads=2))
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -165,6 +176,13 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     before = dict(tca.LAUNCHES)
     got = tca.flash_attention(q, k, v, causal=True)
     assert torch.equal(got, tca.flash_attention_reference(q, k, v, True))
+    # the flash backward (K3, K4) through the autograd Function
+    qg = q.clone().requires_grad_(True)
+    tca.flash_attention(qg, k, v, causal=True).sum().backward()
+    o, lse = tca._flash_core_reference(q, k, v, 0, 0, True)
+    dq = tca._flash_bwd_dq_reference(q, k, v, torch.ones_like(q), o, lse,
+                                     torch.zeros_like(lse), 0, 0, True)
+    assert torch.equal(qg.grad, dq)
     lengths = torch.tensor([4], dtype=torch.int32)
     got = tca.decode_attention(q[:, :1], k, v, lengths)
     assert torch.equal(
@@ -187,7 +205,8 @@ def test_kernel_build_plan_is_keyed_by_source():
     source and flags, in the git-ignored build directory; importing the
     module compiled nothing."""
     srcs = _build.sources()
-    assert set(srcs) == {"flash_fwd", "decode_attention", "comm_epilogue"}
+    assert set(srcs) == {"flash_fwd", "flash_bwd", "decode_attention",
+                         "comm_epilogue"}
     for name in srcs:
         p = _build.library_path(name)
         assert p == _build.library_path(name)
