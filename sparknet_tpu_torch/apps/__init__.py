@@ -1,1 +1,2 @@
-"""Application drivers of the port (``apps.cifar_app``)."""
+"""Application drivers of the port (``apps.cifar_app``, ``apps.lm_app``,
+``apps.imagenet_app``)."""

@@ -8,9 +8,12 @@ import os
 
 from sparknet_tpu_torch.config.prototext import ParseError, parse, parse_file
 from sparknet_tpu_torch.config.schema import (
+    BlobShape,
+    JavaDataParameter,
     LayerParameter,
     NetParameter,
     NetState,
+    NetStateRule,
     SolverParameter,
 )
 
@@ -24,6 +27,7 @@ __all__ = [
     "load_solver_prototxt",
     "parse_net_prototxt",
     "parse_solver_prototxt",
+    "replace_data_layers",
     "resolve_solver_net",
 ]
 
@@ -70,3 +74,44 @@ def resolve_solver_net(solver: SolverParameter) -> NetParameter:
     if path is None:
         raise ValueError("solver has no net definition")
     return load_net_prototxt(path)
+
+
+# data layer types replace_data_layers swaps for host-fed layers
+_DATA_TYPES = frozenset((
+    "Data", "ImageData", "HDF5Data", "MemoryData", "DummyData", "WindowData",
+    "JavaData", "HostData", "Input",
+))
+
+
+def replace_data_layers(
+    net: NetParameter,
+    train_batch_shapes,
+    test_batch_shapes=None,
+) -> NetParameter:
+    """Swap the net's data layers for host-fed ``HostData`` layers, one
+    per phase, with the given top shapes (reference:
+    ``ProtoLoader.replaceDataLayers``, ProtoLoader.scala:50-57; JAX
+    ``config.replace_data_layers``).  The tops are the first data layer's
+    (default ``data``, ``label``); shapes are lists, one per top, such as
+    ``[(N, C, H, W), (N,)]``."""
+    net = net.copy()
+    kept = [lp for lp in net.layer if lp.type not in _DATA_TYPES]
+    tops = next((list(lp.top) for lp in net.layer if lp.type in _DATA_TYPES),
+                ["data", "label"])
+
+    def host(phase, shapes):
+        return LayerParameter(
+            name=f"{'train' if phase == 'TRAIN' else 'test'}_data",
+            type="HostData",
+            top=list(tops[: len(shapes)]),
+            include=[NetStateRule(phase=phase)],
+            java_data_param=JavaDataParameter(
+                shape=[BlobShape(dim=list(map(int, s))) for s in shapes]
+            ),
+        )
+
+    new_layers = [host("TRAIN", train_batch_shapes)]
+    if test_batch_shapes is not None:
+        new_layers.append(host("TEST", test_batch_shapes))
+    net.layer = new_layers + kept
+    return net

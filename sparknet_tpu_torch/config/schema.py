@@ -1,12 +1,13 @@
 """Typed configuration schema compatible with Caffe's proto2 config language.
 
 The port's own copy of ``sparknet_tpu/config/schema.py``, cut to the
-messages the ported training path reads: the cifar10_full net and
-solver prototxts and the small host-fed nets of the tests (HostData,
-Convolution, Pooling, LRN, InnerProduct, ReLU, SoftmaxWithLoss,
-Accuracy).  Field names, defaults and enum literals match the reference
-schema, so those configs parse unchanged; a layer parameter message
-outside this set is refused by the parser as not yet ported.
+messages the ported training paths read: the cifar10_full and AlexNet
+net and solver prototxts and the small host-fed nets of the tests
+(HostData, Convolution, Pooling, LRN, InnerProduct, ReLU, Dropout,
+SoftmaxWithLoss, Accuracy).  Field names, defaults and enum literals
+match the reference schema, so those configs parse unchanged; a layer
+parameter message outside this set is refused by the parser as not yet
+ported.
 """
 
 from __future__ import annotations
@@ -121,6 +122,11 @@ class ConvolutionParameter(Message):
 
 
 @dataclass
+class DropoutParameter(Message):
+    dropout_ratio: float = 0.5
+
+
+@dataclass
 class InnerProductParameter(Message):
     num_output: int = 0
     bias_term: bool = True
@@ -194,6 +200,7 @@ class LayerParameter(Message):
     loss_param: Optional[LossParameter] = None
     accuracy_param: Optional[AccuracyParameter] = None
     convolution_param: Optional[ConvolutionParameter] = None
+    dropout_param: Optional[DropoutParameter] = None
     inner_product_param: Optional[InnerProductParameter] = None
     java_data_param: Optional[JavaDataParameter] = None
     lrn_param: Optional[LRNParameter] = None

@@ -1,10 +1,12 @@
 """Models of the port: the prototxt zoo and the TransformerLM.
 
 ``zoo/`` holds the port's own copies of the JAX package's zoo configs
-for the ported training path (cifar10_full).  ``load_model(name)``
-returns the NetParameter, ``load_model_solver(name)`` the solver with
-the net embedded; ``build_transformer_lm(**kw)`` the LM as a Solver
-net.  The other zoo models come with later slices.
+for the ported training paths (cifar10_full, AlexNet), and
+``builders.py`` the CaffeNet builder.  ``load_model(name)`` returns the
+NetParameter (a builder model takes ``batch``/``image``/``classes``
+overrides), ``load_model_solver(name)`` the solver with the net
+embedded; ``build_transformer_lm(**kw)`` the LM as a Solver net.  The
+other zoo models come with later slices.
 """
 
 from __future__ import annotations
@@ -20,11 +22,19 @@ from sparknet_tpu_torch.config import (
 
 ZOO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "zoo")
 
-_NET_FILES = {"cifar10_full": "cifar10_full_train_test.prototxt"}
-_SOLVER_FILES = {"cifar10_full": "cifar10_full_solver.prototxt"}
+# prototxt-backed models; caffenet is builder-backed (models/builders.py)
+_NET_FILES = {
+    "cifar10_full": "cifar10_full_train_test.prototxt",
+    "alexnet": "alexnet_train_val.prototxt",
+}
+_SOLVER_FILES = {
+    "cifar10_full": "cifar10_full_solver.prototxt",
+    "alexnet": "alexnet_solver.prototxt",
+    "caffenet": "caffenet_solver.prototxt",
+}
 # zoo models of the JAX package that later slices bring
 _NOT_YET_PORTED = (
-    "lenet", "alexnet", "caffenet", "googlenet", "resnet50",
+    "lenet", "googlenet", "resnet50", "flickr_style", "rcnn_ilsvrc13",
     "mnist_siamese", "cifar10_quick", "mnist_autoencoder",
 )
 
@@ -48,9 +58,21 @@ def build_transformer_lm(**kwargs):
     return TransformerLMNet(**kwargs)
 
 
-def load_model(name: str) -> NetParameter:
-    """Load a zoo model's net by name."""
-    return load_net_prototxt(_check(name, _NET_FILES))
+def load_model(name: str, **builder_kwargs) -> NetParameter:
+    """Load a zoo model's net by name: a builder model (``caffenet``)
+    takes ``batch``/``image``/``classes`` overrides, a prototxt model
+    none (use ``config.replace_data_layers`` for its batch shapes)."""
+    from sparknet_tpu_torch.models.builders import BUILDERS
+
+    if name in BUILDERS:
+        return BUILDERS[name](**builder_kwargs)
+    path = _check(name, _NET_FILES)
+    if builder_kwargs:
+        raise ValueError(
+            f"model {name!r} is prototxt-backed; overrides "
+            f"{sorted(builder_kwargs)} only apply to builder models"
+        )
+    return load_net_prototxt(path)
 
 
 def load_model_solver(name: str) -> SolverParameter:

@@ -444,9 +444,11 @@ class TransformerLMNet:
         attend = _dense_causal if self.attention == "dense" else _flash_causal
         return causal_forward(params, tokens.long(), self.heads, attend)[0]
 
-    def loss_fn(self, params: Params, stats: Params, batch, train: bool = True):
+    def loss_fn(self, params: Params, stats: Params, batch, train: bool = True,
+                rng=None):
         """Next-token cross-entropy averaged over B*T; ``(loss,
-        ({"logits": logits}, stats))`` — the Solver's grad contract."""
+        ({"logits": logits}, stats))`` — the Solver's grad contract (the
+        LM draws nothing: ``rng`` is ignored)."""
         logits = self.forward_logits(params, batch["tokens"])
         tgt = batch["targets"].long()
         logp = torch.log_softmax(logits, dim=-1)

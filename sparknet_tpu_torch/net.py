@@ -8,23 +8,35 @@ gradients come from ``torch.autograd``, nothing is stored on the net.
 
 Parameters keep the JAX package's layout: ``params[layer_name] ==
 [weight, bias, ...]`` ordered like the reference layer's ``blobs_``,
-shared params stored once under the owning layer.  The
-``SPARKNET_FUSION`` LRN+pool planner and the horizontal-conv fusion of
-the JAX net are not ported here (ROADMAP, with the ImageNet slices).
+shared params stored once under the owning layer.  ``apply`` hands
+each layer its own key, ``fold_in(rng, layer index)`` (``utils.rngs``),
+as the JAX net does; layers that draw nothing ignore it.
+
+``SPARKNET_FUSION=1`` plans the JAX net's LRN + max-pool fusion
+(``_plan_fusion``, the same gate): in the TRAIN phase an
+ACROSS_CHANNELS LRN whose only consumer is a ``fusable`` 3x3/2 MAX pool
+runs as ``cuda_plp.lrn_maxpool`` at the LRN's slot (K7 forward, K8
+backward on the card), the pool layer is skipped and the LRN's top is
+absent from the blob map.  The horizontal-conv fusion (``_plan_hconv``)
+is not ported: it fires on groups of three or more sibling convolutions,
+which AlexNet and CaffeNet do not have.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from sparknet_tpu_torch.config.schema import NetParameter, NetState
 from sparknet_tpu_torch.graph import filter_net, toposort_check
+from sparknet_tpu_torch.config.schema import LRNParameter
 from sparknet_tpu_torch.ops import common, data_layers, losses, vision  # noqa: F401
-from sparknet_tpu_torch.ops import fillers
+from sparknet_tpu_torch.ops import cuda_plp, fillers
 from sparknet_tpu_torch.ops.base import BlobDef, Layer, create_layer
+from sparknet_tpu_torch.utils import rngs
 
 Params = Dict[str, List[torch.Tensor]]
 Stats = Dict[str, List[torch.Tensor]]
@@ -144,6 +156,50 @@ class TorchNet:
         self.feed_blobs = [
             b for b in self.feed_blobs if not (b in seen or seen.add(b))
         ]
+        self._plan_fusion()
+
+    def _plan_fusion(self) -> None:
+        """Fuse ``LRN -> Pooling`` pairs into ``cuda_plp.lrn_maxpool``
+        under ``SPARKNET_FUSION=1`` (JAX ``net.py`` ``_plan_fusion``): TRAIN
+        phase only (the TEST net keeps the full blob map), the LRN's top
+        read by the pool alone, no loss weight on either layer, and a
+        geometry ``cuda_plp.fusable`` accepts."""
+        self._plp_fused: Dict[int, Tuple[str, Tuple[int, float, float, float]]] = {}
+        self._plp_skip: set = set()
+        if os.environ.get("SPARKNET_FUSION", "") != "1" or self.phase != "TRAIN":
+            return
+        consumers: Dict[str, int] = {}
+        for layer in self.layers:
+            for b in layer.lp.bottom:
+                consumers[b] = consumers.get(b, 0) + 1
+        for i in range(len(self.layers) - 1):
+            lrn, pool = self.layers[i], self.layers[i + 1]
+            if lrn.lp.type != "LRN" or pool.lp.type != "Pooling":
+                continue
+            mid = lrn.lp.top[0]
+            if list(pool.lp.bottom) != [mid] or consumers.get(mid, 0) != 1:
+                continue
+            if any(self._loss_weights[lrn.name]) or any(
+                self._loss_weights[pool.name]
+            ):
+                continue
+            lp = lrn.lp.lrn_param or LRNParameter()
+            shape = self.blob_shapes[lrn.lp.bottom[0]]
+            pp = pool.lp.pooling_param
+            if len(shape) != 4 or pp.global_pooling:
+                continue
+            h, w = shape[2], shape[3]
+            try:
+                kernel, stride, pad, _ = vision._pool_geometry(pp, h, w)
+            except ValueError:
+                continue
+            if not cuda_plp.fusable(lp.norm_region, lp.local_size, pp.pool,
+                                    kernel, stride, pad, h, w):
+                continue
+            self._plp_fused[i] = (pool.lp.top[0], (
+                int(lp.local_size), float(lp.alpha), float(lp.beta),
+                float(lp.k)))
+            self._plp_skip.add(i + 1)
 
     def param_multipliers(self) -> Tuple[Dict[str, List[float]], Dict[str, List[float]]]:
         """Per-blob (lr_mult, decay_mult) dicts matching ``init()``'s params
@@ -202,9 +258,11 @@ class TorchNet:
         stats: Stats,
         batch: Dict[str, torch.Tensor],
         train: Optional[bool] = None,
+        rng: Optional[int] = None,
     ) -> NetOutputs:
         """Run the net: every named blob (the ``getData`` analog), the
-        weighted total loss, and the updated stats."""
+        weighted total loss, and the updated stats.  ``rng`` is the key
+        the layers' keys are folded from (None: no layer may draw)."""
         train = (self.phase == "TRAIN") if train is None else train
         blobs: Dict[str, torch.Tensor] = {}
         for b in self.feed_blobs:
@@ -213,14 +271,21 @@ class TorchNet:
             blobs[b] = batch[b]
         new_stats: Stats = {k: list(v) for k, v in stats.items()}
         loss = None
-        for layer in self.layers:
+        for li, layer in enumerate(self.layers):
             lp = layer.lp
+            if li in self._plp_skip:
+                continue
+            if li in self._plp_fused:
+                pool_top, hp = self._plp_fused[li]
+                blobs[pool_top] = cuda_plp.lrn_maxpool(blobs[lp.bottom[0]], *hp)
+                continue
             if isinstance(layer, data_layers._HostFed):
                 tops = [blobs[t] for t in lp.top]
             else:
                 lblobs = self._gather_blobs(layer.name, params, new_stats)
+                lrng = rngs.fold_in(rng, li) if rng is not None else None
                 tops, updated = layer.apply(
-                    lblobs, [blobs[b] for b in lp.bottom], train
+                    lblobs, [blobs[b] for b in lp.bottom], lrng, train
                 )
                 if updated is not None:
                     for ref, arr in zip(self._blob_refs[layer.name], updated):
@@ -242,7 +307,8 @@ class TorchNet:
         """Inference forward returning all blobs."""
         return self.apply(params, stats, batch, train=False).blobs
 
-    def loss_fn(self, params, stats, batch, train: bool = True):
+    def loss_fn(self, params, stats, batch, train: bool = True,
+                rng: Optional[int] = None):
         """``(loss, (blobs, stats))`` — the JAX net's ``loss_fn`` contract."""
-        out = self.apply(params, stats, batch, train=train)
+        out = self.apply(params, stats, batch, train=train, rng=rng)
         return out.loss, (out.blobs, out.stats)

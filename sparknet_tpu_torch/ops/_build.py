@@ -4,14 +4,17 @@ Every ``csrc/*.cu`` is one shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds), compiled for ``sm_90a``
 into ``build/sparknet_tpu_torch/`` at the root of the checkout, which
 ``.gitignore`` lists.  A library's file name carries a hash of its
-source and the compiler flags, so an edited kernel is rebuilt at its
+source, the shared ``csrc/*.cuh`` headers and the compiler flags, so
+an edited kernel is rebuilt at its
 next use and an unchanged one is loaded as it is.  The first use builds
 every stale source at once, one ``nvcc`` each, all started together;
 each build's compiler output (``-Xptxas -v``: registers, shared memory,
 spills) is kept beside the library as ``<name>-<hash>.log``.
 
-Nothing is compiled when the module is imported: the CPU tests import
-it on machines that have no CUDA toolkit.
+``kernel(name, symbol, argtypes)`` is a typed C entry of a library (each
+returns the launch's ``cudaError_t``), ``raise_on`` turns that code into
+an exception.  Nothing is compiled when the module is imported: the CPU
+tests import it on machines that have no CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import os
 import shutil
 import subprocess
 import threading
+from functools import lru_cache
 from pathlib import Path
 from typing import Dict
 
@@ -42,10 +46,12 @@ def sources() -> Dict[str, Path]:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives (keyed by
+    the source, the shared ``csrc/*.cuh`` headers and the flags)."""
     src = sources()[name]
+    headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -110,3 +116,20 @@ def load(name: str) -> ctypes.CDLL:
         with _lock:
             lib = _libs.setdefault(name, ctypes.CDLL(str(path)))
     return lib
+
+
+@lru_cache(maxsize=None)
+def kernel(name: str, symbol: str, argtypes: tuple):
+    """The C entry ``symbol`` of ``csrc/<name>.cu``, typed; it returns the
+    launch's ``cudaError_t``."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def raise_on(rc: int, what: str) -> None:
+    """Raise when a kernel entry returned a CUDA error (a refused launch
+    never runs, and no later synchronise reports it)."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed (cudaError {rc})")

@@ -54,9 +54,13 @@ class Layer:
         self,
         blobs: List[torch.Tensor],
         bottoms: List[torch.Tensor],
+        rng: Optional[int],
         train: bool,
     ) -> Tuple[List[torch.Tensor], Optional[List[torch.Tensor]]]:
-        """Return (tops, updated_stat_blobs_or_None)."""
+        """Return (tops, updated_stat_blobs_or_None).  ``rng`` is the
+        layer's own key (``utils.rngs``; the JAX layers' ``rng``), None
+        where the caller gave the net none; layers that draw nothing
+        ignore it."""
         raise NotImplementedError
 
     def loss_weights(self) -> List[float]:
@@ -72,7 +76,7 @@ LAYER_REGISTRY: Dict[str, Type[Layer]] = {}
 # layer types of the JAX package that later slices bring
 _NOT_YET_PORTED = frozenset((
     "AbsVal", "ArgMax", "Attention", "BatchNorm", "Bias", "BNLL", "Concat",
-    "ContrastiveLoss", "Data", "Deconvolution", "Dropout", "DummyData",
+    "ContrastiveLoss", "Data", "Deconvolution", "DummyData",
     "ELU", "Eltwise", "Embed", "EuclideanLoss", "Exp", "Flatten",
     "HDF5Data", "HDF5Output", "HingeLoss", "Im2col", "ImageData",
     "InfogainLoss", "Input", "Log", "MemoryData", "MultinomialLogisticLoss",

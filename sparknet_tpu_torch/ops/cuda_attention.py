@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-from functools import lru_cache
 
 import torch
 
@@ -46,14 +45,6 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-@lru_cache(maxsize=None)
-def _kernel(name: str, symbol: str, argtypes: tuple):
-    fn = getattr(_build.load(name), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _check_cuda(what: str, *tensors) -> None:
@@ -74,11 +65,6 @@ def _check_cuda(what: str, *tensors) -> None:
             f"{what}: head_dim {d} has no kernel build "
             f"(built for {KERNEL_HEAD_DIMS})"
         )
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: kernel launch failed (cudaError {rc})")
 
 
 # ----------------------------------------------------------------------
@@ -133,7 +119,7 @@ def _flash_core(q, k, v, q_offset: int, k_offset: int, causal: bool):
         )
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    fn = _kernel("flash_fwd", "sparknet_flash_fwd_f32", (
+    fn = _build.kernel("flash_fwd", "sparknet_flash_fwd_f32", (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _F, _P,
     ))
@@ -147,7 +133,7 @@ def _flash_core(q, k, v, q_offset: int, k_offset: int, causal: bool):
             int(q_offset), int(k_offset), int(bool(causal)),
             1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(rc, "flash_attention")
+    _build.raise_on(rc, "flash_attention")
     LAUNCHES["flash_fwd"] += 1
     return o, lse
 
@@ -240,7 +226,7 @@ def flash_bwd_dq(q, k, v, do, o, lse, dlse, q_offset: int, k_offset: int,
     ptrs, strides = _bwd_launch_args("flash_bwd_dq", q, k, v, do, o, lse, dlse)
     b, tq, h, d = q.shape
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
-    fn = _kernel("flash_bwd", "sparknet_flash_bwd_dq_f32", (
+    fn = _build.kernel("flash_bwd", "sparknet_flash_bwd_dq_f32", (
         *_BWD_INPUTS, _P, _I, _I, _I, _I, _I, _STRIDES_P, _I, _I, _I, _F, _P,
     ))
     with torch.cuda.device(q.device):
@@ -250,7 +236,7 @@ def flash_bwd_dq(q, k, v, do, o, lse, dlse, q_offset: int, k_offset: int,
             int(q_offset), int(k_offset), int(bool(causal)),
             1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(rc, "flash_bwd_dq")
+    _build.raise_on(rc, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
 
@@ -268,7 +254,7 @@ def flash_bwd_dkv(q, k, v, do, o, lse, dlse, q_offset: int, k_offset: int,
     tk = k.shape[1]
     dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, tk, h, d), dtype=v.dtype, device=q.device)
-    fn = _kernel("flash_bwd", "sparknet_flash_bwd_dkv_f32", (
+    fn = _build.kernel("flash_bwd", "sparknet_flash_bwd_dkv_f32", (
         *_BWD_INPUTS, _P, _P, _I, _I, _I, _I, _I, _STRIDES_P, _I, _I, _I, _F,
         _P,
     ))
@@ -278,7 +264,7 @@ def flash_bwd_dkv(q, k, v, do, o, lse, dlse, q_offset: int, k_offset: int,
             int(q_offset), int(k_offset), int(bool(causal)),
             1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(rc, "flash_bwd_dkv")
+    _build.raise_on(rc, "flash_bwd_dkv")
     LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
 
@@ -385,7 +371,7 @@ def decode_attention(q, k, v, lengths=None):
             f"{tuple(lengths.shape)} on {lengths.device}"
         )
     o = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
-    fn = _kernel("decode_attention", "sparknet_decode_attention_f32", (
+    fn = _build.kernel("decode_attention", "sparknet_decode_attention_f32", (
         _P, _P, _P, _P, _P, _I, _I, _I, _I,
         _L, _L, _L, _L, _L, _L, _L, _L, _F, _P,
     ))
@@ -398,6 +384,6 @@ def decode_attention(q, k, v, lengths=None):
             v.stride(0), v.stride(1), v.stride(2),
             1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(rc, "decode_attention")
+    _build.raise_on(rc, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return o

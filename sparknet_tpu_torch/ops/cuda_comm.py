@@ -35,7 +35,6 @@ float32 of like size.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 from typing import Optional, Sequence
 
 import torch
@@ -66,14 +65,6 @@ class _Leaf(ctypes.Structure):
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-@lru_cache(maxsize=None)
-def _kernel(symbol: str, argtypes: tuple):
-    fn = getattr(_build.load("comm_epilogue"), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _bshape(t: torch.Tensor, ndim: int):
@@ -120,11 +111,6 @@ def _check(what: str, leaves: Sequence[torch.Tensor], *groups) -> int:
                 f"{x.dtype} {tuple(x.shape)}"
             )
     return w
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: kernel launch failed (cudaError {rc})")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -204,10 +190,11 @@ def encode(leaves, anchors, resids, modes, with_err: bool):
         for x, a, r, q, s, nr, m in zip(leaves, anchors, resids, qs, scales,
                                         new_resids, modes)
     ))
-    fn = _kernel("sparknet_comm_encode", (_P, _I, _I, _P, _P))
+    fn = _build.kernel("comm_epilogue", "sparknet_comm_encode",
+                       (_P, _I, _I, _P, _P))
     with torch.cuda.device(dev):
         rc = fn(table, len(leaves), w, _ptr(parts), _stream(leaves[0]))
-    _raise_on(rc, "comm encode")
+    _build.raise_on(rc, "comm encode")
     LAUNCHES["comm_encode"] += 1
     return qs, scales, new_resids, (
         _combine_parts(parts) if with_err else None
@@ -257,11 +244,12 @@ def apply_barriered(leaves, anchors, means, resids, alive, denom0):
                                       new_leaves, new_resids)
     ))
     alive = alive.contiguous()
-    fn = _kernel("sparknet_comm_apply_barriered", (_P, _I, _I, _P, _P, _P))
+    fn = _build.kernel("comm_epilogue", "sparknet_comm_apply_barriered",
+                       (_P, _I, _I, _P, _P, _P))
     with torch.cuda.device(leaves[0].device):
         rc = fn(table, len(leaves), w, alive.data_ptr(), denom0.data_ptr(),
                 _stream(leaves[0]))
-    _raise_on(rc, "comm apply_barriered")
+    _build.raise_on(rc, "comm apply_barriered")
     LAUNCHES["comm_apply_barriered"] += 1
     return new_leaves, new_resids
 
@@ -315,10 +303,11 @@ def apply_correction(leaves, anchors, qs, scales, means, modes):
         for x, a, q, s, m, nx, na, mode in zip(
             leaves, anchors, qs, scales, means, new_leaves, new_anchors, modes)
     ))
-    fn = _kernel("sparknet_comm_apply_correction", (_P, _I, _I, _P))
+    fn = _build.kernel("comm_epilogue", "sparknet_comm_apply_correction",
+                       (_P, _I, _I, _P))
     with torch.cuda.device(leaves[0].device):
         rc = fn(table, len(leaves), w, _stream(leaves[0]))
-    _raise_on(rc, "comm apply_correction")
+    _build.raise_on(rc, "comm apply_correction")
     LAUNCHES["comm_apply_correction"] += 1
     return new_leaves, new_anchors
 

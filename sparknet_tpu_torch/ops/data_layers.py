@@ -30,7 +30,7 @@ class _HostFed(Layer):
             )
         return shapes
 
-    def apply(self, blobs, bottoms, train):
+    def apply(self, blobs, bottoms, rng, train):
         raise RuntimeError(
             f"data layer {self.name!r} tops must be bound from the batch"
         )

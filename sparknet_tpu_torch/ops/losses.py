@@ -47,7 +47,7 @@ class SoftmaxWithLoss(Layer):
             outs.append(bottom_shapes[0])  # optional softmax top
         return outs
 
-    def apply(self, blobs, bottoms, train):
+    def apply(self, blobs, bottoms, rng, train):
         logits, labels = bottoms[0], bottoms[1]
         p = self.lp.loss_param or LossParameter()
         axis = self.lp.softmax_param.axis if self.lp.softmax_param else 1
@@ -86,7 +86,7 @@ class Accuracy(Layer):
     def out_shapes(self, bottom_shapes):
         return [()]
 
-    def apply(self, blobs, bottoms, train):
+    def apply(self, blobs, bottoms, rng, train):
         p = self.lp.accuracy_param or AccuracyParameter()
         x = bottoms[0]
         axis = p.axis % x.dim()

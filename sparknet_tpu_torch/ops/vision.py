@@ -7,10 +7,10 @@ boundary-window clip, AVE-pool divisors that count the padded ring but
 not the ceil extension, and both LRN regions (``pooling_layer.cpp``,
 ``lrn_layer.cpp``).  NCHW activations, OIHW weights — the JAX layout.
 
-The LRN here is the plain form of both regions.  The Pallas LRN of the
-JAX package (``pallas_lrn.py``) is reached only for ACROSS_CHANNELS
-under ``SPARKNET_PALLAS_LRN``; its CUDA port comes with the ImageNet
-slice.
+ACROSS_CHANNELS goes to ``cuda_lrn.lrn_across_channels``: K5 forward
+and K6 backward on a CUDA tensor, their plain version on a CPU tensor
+(``SPARKNET_PALLAS_LRN`` of the JAX package has nothing left to choose
+here).  WITHIN_CHANNEL is plain PyTorch through the AVE-pool path.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from sparknet_tpu_torch.config.schema import FillerParameter, LRNParameter
+from sparknet_tpu_torch.ops import cuda_lrn
 from sparknet_tpu_torch.ops.base import BlobDef, Layer, register
 
 
@@ -93,7 +94,7 @@ class Convolution(Layer):
             )
         return [(n, cp.num_output, oh, ow)]
 
-    def apply(self, blobs, bottoms, train):
+    def apply(self, blobs, bottoms, rng, train):
         cp = self.lp.convolution_param
         _, stride, pad, dil = self._geometry()
         y = F.conv2d(bottoms[0], blobs[0], None, stride, pad, dil,
@@ -175,7 +176,7 @@ class Pooling(Layer):
         _, _, _, (oh, ow) = _pool_geometry(self.lp.pooling_param, h, w)
         return [(n, c, oh, ow)]
 
-    def apply(self, blobs, bottoms, train):
+    def apply(self, blobs, bottoms, rng, train):
         pp = self.lp.pooling_param
         x = bottoms[0]
         geom = _pool_geometry(pp, x.shape[2], x.shape[3])
@@ -189,66 +190,6 @@ class Pooling(Layer):
                 "STOCHASTIC pooling is not yet ported to sparknet_tpu_torch"
             )
         raise ValueError(f"unknown pool method {pp.pool!r}")
-
-
-def _fast_negpow(s, beta: float):
-    """``s ** -beta`` from sqrt/rsqrt/multiplies when 4*beta is a small
-    integer (every zoo LRN uses beta=0.75) — the JAX package's exact
-    composition, so both sides round alike."""
-    q = round(4 * beta)
-    if not math.isclose(4 * beta, q) or not 1 <= q <= 8:
-        return torch.pow(s, -beta)
-    r1 = torch.rsqrt(torch.sqrt(s))
-    out = None
-    p = r1
-    while q:
-        if q & 1:
-            out = p if out is None else out * p
-        q >>= 1
-        if q:
-            p = p * p
-    return out
-
-
-def _lrn_window_sum(v, n: int):
-    """Windowed channel sum, window ``n`` centered with Caffe's pre-pad
-    (n-1)//2, on an NCHW tensor: pad + n shifted channel slices, added
-    in order."""
-    pad = (n - 1) // 2
-    vp = F.pad(v, (0, 0, 0, 0, pad, n - 1 - pad))
-    c = v.shape[1]
-    out = None
-    for d in range(n):
-        s = vp[:, d:d + c]
-        out = s if out is None else out + s
-    return out
-
-
-class _LRNAcross(torch.autograd.Function):
-    """ACROSS_CHANNELS LRN with Caffe's analytic backward
-    (``lrn_layer.cpp`` CrossChannelBackward); only ``x`` is saved, the
-    scale is recomputed in the backward as the JAX custom_vjp does."""
-
-    @staticmethod
-    def forward(ctx, x, n, alpha, beta, k):
-        ctx.save_for_backward(x)
-        ctx.hp = (n, alpha, beta, k)
-        scale = k + (alpha / n) * _lrn_window_sum(x * x, n)
-        return x * _fast_negpow(scale, beta)
-
-    @staticmethod
-    def backward(ctx, dy):
-        (x,) = ctx.saved_tensors
-        n, alpha, beta, k = ctx.hp
-        scale = k + (alpha / n) * _lrn_window_sum(x * x, n)
-        p = _fast_negpow(scale, beta)
-        inner = _lrn_window_sum(dy * x * p / scale, n)
-        dx = p * dy - (2.0 * alpha * beta / n) * x * inner
-        return dx, None, None, None, None
-
-
-def lrn_across_channels(x, n: int, alpha: float, beta: float, k: float):
-    return _LRNAcross.apply(x, int(n), float(alpha), float(beta), float(k))
 
 
 class _PoolGeom:
@@ -273,12 +214,12 @@ class LRN(Layer):
     def out_shapes(self, bottom_shapes):
         return [bottom_shapes[0]]
 
-    def apply(self, blobs, bottoms, train):
+    def apply(self, blobs, bottoms, rng, train):
         p = self.lp.lrn_param or LRNParameter()
         x = bottoms[0]
         n = p.local_size
         if p.norm_region.upper() == "ACROSS_CHANNELS":
-            return [lrn_across_channels(x, n, p.alpha, p.beta, p.k)], None
+            return [cuda_lrn.lrn_across_channels(x, n, p.alpha, p.beta, p.k)], None
         # WITHIN_CHANNEL: average pool of squares over an n x n window,
         # stride 1, Caffe-pad (n-1)/2
         pad = (n - 1) // 2

@@ -28,6 +28,7 @@ import torch
 from sparknet_tpu_torch.obs.metrics import TrainingMetrics
 from sparknet_tpu_torch.obs.trace import span
 from sparknet_tpu_torch.solver import Solver, TrainState
+from sparknet_tpu_torch.utils import rngs
 from sparknet_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -134,12 +135,17 @@ class ParameterAveragingTrainer:
 
     def _local(self, state: TrainState, batches: Dict[str, torch.Tensor]):
         """Every worker's local steps, no averaging: ``batches[blob]`` is
-        (W, steps, ...).  Returns ``(state, losses (W, steps))``."""
+        (W, steps, ...).  Returns ``(state, losses (W, steps))``.  Worker
+        ``w`` steps under ``fold_in(train_key(0), w)``, as the JAX round
+        folds its worker index into ``default_train_key(0)``, so stacked
+        workers draw independently."""
+        root = rngs.train_key(0)
         with span("execute"):
             outs, losses = [], []
             for w in range(self.num_workers):
                 st, l = self.solver._step_tau(
-                    worker_state(state, w), {k: v[w] for k, v in batches.items()}
+                    worker_state(state, w), {k: v[w] for k, v in batches.items()},
+                    rngs.fold_in(root, w),
                 )
                 outs.append(st)
                 losses.append(l)

@@ -11,6 +11,13 @@ this one loops eagerly: gradients from ``torch.autograd``, updates out
 of place (a new tensor per blob), so a state handed in is never
 modified.  The numerics audit and ``debug_info`` are not ported.
 
+Randomness follows the JAX solver's key structure (``utils.rngs``):
+``_step_tau`` takes a key, each iteration folds in its ``iter``, the
+train transform draws from ``fold_in(key, 0x7F)`` and the net's layers
+from the iteration key.  ``train_transform(batch, key)`` and
+``test_transform(batch)`` (``data/transforms.py``) run on the device
+before each micro-batch's forward and each test forward.
+
 Semantics of the reference: momentum ``v = m*v + local_lr*(grad +
 decay*w); w -= v`` (decay inside the gradient, before momentum),
 clip_gradients on the raw accumulated grads before normalization.
@@ -34,6 +41,7 @@ from sparknet_tpu_torch.config.schema import (
     solver_method,
 )
 from sparknet_tpu_torch.net import Params, Stats, TorchNet
+from sparknet_tpu_torch.utils import rngs
 from sparknet_tpu_torch.utils.devices import resolve_device
 from sparknet_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -137,7 +145,9 @@ class Solver:
     ``init(seed, device) -> (params, stats)``, ``loss_fn(params, stats,
     batch, train)``, ``param_multipliers()`` and ``feed_blobs``
     (``models.transformer_lm.TransformerLMNet`` is one); the update
-    rules and the trainers are generic over its params dict."""
+    rules and the trainers are generic over its params dict.
+    ``train_transform`` / ``test_transform`` are the per-phase batch
+    preprocessing of JAX ``Solver`` (``data/transforms.py``)."""
 
     def __init__(
         self,
@@ -145,12 +155,16 @@ class Solver:
         net_param: Optional[NetParameter] = None,
         device=None,
         net=None,
+        train_transform=None,
+        test_transform=None,
     ):
         if param.debug_info:
             raise NotImplementedError(
                 "solver debug_info is not yet ported to sparknet_tpu_torch"
             )
         self.device = resolve_device(device)
+        self.train_transform = train_transform
+        self.test_transform = test_transform
         self.param = param
         self.method = solver_method(param)
         if net is not None:
@@ -197,19 +211,24 @@ class Solver:
     # ------------------------------------------------------------------
     # One iteration: iter_size microbatches -> grads -> update
     # ------------------------------------------------------------------
-    def _grads(self, params, stats, batch):
+    def _grads(self, params, stats, batch, rng: int):
         """``(grads, loss, new_stats)``; with ``iter_size > 1`` every blob
-        of ``batch`` has a leading micro-batch axis and the grads sum."""
+        of ``batch`` has a leading micro-batch axis and the grads sum.
+        ``rng`` is the iteration's key; micro-batch ``i`` of several
+        draws from ``fold_in(rng, i)``, as the JAX scan does."""
         leaves = tree_leaves(params)
         n = self.param.iter_size
-        micro = [batch] if n == 1 else [
-            {k: v[i] for k, v in batch.items()} for i in range(n)
+        micro = [(batch, rng)] if n == 1 else [
+            ({k: v[i] for k, v in batch.items()}, rngs.fold_in(rng, i))
+            for i in range(n)
         ]
         acc, losses = None, []
-        for mb in micro:
+        for mb, mrng in micro:
+            if self.train_transform is not None:
+                mb = self.train_transform(mb, rngs.fold_in(mrng, 0x7F))
             req = [p.detach().requires_grad_(True) for p in leaves]
             loss, (_, stats) = self.net.loss_fn(
-                tree_unflatten(params, req), stats, mb, True
+                tree_unflatten(params, req), stats, mb, True, rng=mrng
             )
             gs = torch.autograd.grad(loss, req, allow_unused=True)
             gs = [torch.zeros_like(p) if g is None else g for p, g in zip(req, gs)]
@@ -259,20 +278,28 @@ class Solver:
                 new_params[key].append(w - update)  # Net::Update
         return new_params, (tuple(new_hist) if two else new_hist[0])
 
-    def _one_iter(self, st: TrainState, batch):
-        grads, loss, new_stats = self._grads(st.params, st.stats, batch)
+    def _one_iter(self, st: TrainState, batch, rng: int):
+        grads, loss, new_stats = self._grads(
+            st.params, st.stats, batch, rngs.fold_in(rng, int(st.iter))
+        )
         new_params, new_history = self._apply_update(
             st.params, st.history, grads, int(st.iter)
         )
         return TrainState(new_params, new_stats, new_history, st.iter + 1), loss
 
-    def _step_tau(self, state: TrainState, batches: Dict[str, torch.Tensor]):
-        """tau iterations over ``batches`` (every blob stacked on axis 0).
-        Returns ``(state, losses (tau,))``; ``losses`` stays on the device."""
+    def _step_tau(self, state: TrainState, batches: Dict[str, torch.Tensor],
+                  rng: Optional[int] = None):
+        """tau iterations over ``batches`` (every blob stacked on axis 0)
+        under the key ``rng`` (default ``rngs.train_key(0)``, as JAX's
+        ``default_train_key(0)``).  Returns ``(state, losses (tau,))``;
+        ``losses`` stays on the device."""
+        rng = rngs.train_key(0) if rng is None else rng
         tau = next(iter(batches.values())).shape[0]
         losses = []
         for t in range(tau):
-            state, loss = self._one_iter(state, {k: v[t] for k, v in batches.items()})
+            state, loss = self._one_iter(
+                state, {k: v[t] for k, v in batches.items()}, rng
+            )
             losses.append(loss)
         return state, torch.stack(losses)
 
@@ -318,9 +345,10 @@ class Solver:
         names = self._test_output_names()
         outs: Dict[str, list] = {k: [] for k in names}
         for i in range(n):
-            blobs = self.test_net.forward(
-                params, stats, {k: v[i] for k, v in batches.items()}
-            )
+            batch = {k: v[i] for k, v in batches.items()}
+            if self.test_transform is not None:
+                batch = self.test_transform(batch)
+            blobs = self.test_net.forward(params, stats, batch)
             for k in names:
                 outs[k].append(blobs[k].sum())
         return {

@@ -11,7 +11,10 @@ densely.  The flash backward (K3, K4): 2e-5 of the largest magnitude of
 the plain version's output (sums of up to T products, in another
 order).  The comm epilogue kernels (K9-K11) are held to their plain
 versions bit for bit, except the error readout's two sums (rtol 1e-5,
-reduced in another order).
+reduced in another order).  The LRN kernels (K5, K6) and the fused LRN +
+max pool (K7, K8): the JAX tests' tolerances (forward rtol 2e-5 / atol
+2e-6, backward 5e-5 / 5e-6), and K8's routing bit for bit (alpha = 0
+makes the LRN the identity, so K8's output is the routed gradient).
 """
 
 import numpy as np
@@ -21,6 +24,8 @@ import torch
 from sparknet_tpu_torch.models.transformer_lm import TransformerLM
 from sparknet_tpu_torch.ops import cuda_attention as tca
 from sparknet_tpu_torch.ops import cuda_comm as tcc
+from sparknet_tpu_torch.ops import cuda_lrn as tcl
+from sparknet_tpu_torch.ops import cuda_plp as tcp
 from sparknet_tpu_torch.serve import GenerationEngine
 
 pytestmark = pytest.mark.cuda
@@ -412,3 +417,80 @@ def test_trainer_on_the_card_matches_the_cpu_trainer(dev, compress, overlap, dea
     tol = dict(rtol=2e-5, atol=1e-6) if compress == "none" else dict(rtol=0, atol=5e-3)
     for g, c in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
         torch.testing.assert_close(g.cpu(), c, **tol)
+
+
+# LRN cases: (shape, local_size, beta) — AlexNet's two LRN inputs at the
+# training batch, a ragged shape, C < n, n = 3 and a beta on the powf path
+LRN_CASES = [((32, 96, 55, 55), 5, 0.75), ((32, 256, 27, 27), 5, 0.75),
+             ((2, 7, 11, 13), 5, 0.75), ((2, 3, 9, 9), 5, 0.75),
+             ((2, 16, 9, 9), 3, 0.75), ((2, 16, 9, 9), 5, 0.6),
+             ((2, 16, 5, 7), 4, 0.75)]
+PLP_SHAPES = [(32, 96, 55, 55), (32, 256, 27, 27), (2, 7, 11, 13),
+              (1, 32, 9, 9), (2, 5, 3, 3), (2, 40, 35, 37)]
+
+
+@pytest.mark.parametrize("shape,n,beta", LRN_CASES)
+def test_lrn_kernels_match_plain(dev, shape, n, beta):
+    x = _rand(dev, *shape, seed=20)
+    dy = _rand(dev, *shape, seed=21)
+    before = dict(tcl.LAUNCHES)
+    y = tcl.lrn_fwd(x, n, 1e-4, beta, 1.0)
+    dx = tcl.lrn_bwd(x, dy, n, 1e-4, beta, 1.0)
+    torch.cuda.synchronize()
+    assert tcl.LAUNCHES["lrn_fwd"] == before["lrn_fwd"] + 1
+    assert tcl.LAUNCHES["lrn_bwd"] == before["lrn_bwd"] + 1
+    torch.testing.assert_close(y, tcl.lrn_across_reference(x, n, 1e-4, beta, 1.0),
+                               rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(
+        dx, tcl.lrn_across_bwd_reference(x, dy, n, 1e-4, beta, 1.0),
+        rtol=5e-5, atol=5e-6)
+
+
+def _tie_input(dev, shape, seed):
+    """x constant along channels over a period-2 spatial pattern of small
+    integers: windows tie between columns 0 and 2, rows 0 and 2, and
+    across the pattern's repeats."""
+    n, c, h, w = shape
+    rs = np.random.RandomState(seed)
+    base = rs.randint(0, 3, (n, 1, 2, 2)).astype(np.float32)
+    plane = np.tile(base, (1, 1, (h + 1) // 2, (w + 1) // 2))[:, :, :h, :w]
+    return torch.from_numpy(np.repeat(plane, c, axis=1).copy()).to(dev)
+
+
+@pytest.mark.parametrize("shape", PLP_SHAPES)
+@pytest.mark.parametrize("ties", [False, True])
+def test_lrn_pool_kernels_match_plain(dev, shape, ties):
+    x = _tie_input(dev, shape, 22) if ties else _rand(dev, *shape, seed=22)
+    ph, pw = tcp.pooled_hw(shape[2], shape[3])
+    dy = _rand(dev, shape[0], shape[1], ph, pw, seed=23)
+    before = dict(tcp.LAUNCHES)
+    y = tcp.lrn_pool_fwd(x, 5, 1e-4, 0.75, 1.0)
+    dx = tcp.lrn_pool_bwd(x, dy, 5, 1e-4, 0.75, 1.0)
+    torch.cuda.synchronize()
+    assert tcp.LAUNCHES["lrn_pool_fwd"] == before["lrn_pool_fwd"] + 1
+    assert tcp.LAUNCHES["lrn_pool_bwd"] == before["lrn_pool_bwd"] + 1
+    torch.testing.assert_close(y, tcp.lrn_maxpool_reference(x, 5, 1e-4, 0.75, 1.0),
+                               rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(
+        dx, tcp.lrn_maxpool_bwd_reference(x, dy, 5, 1e-4, 0.75, 1.0),
+        rtol=5e-5, atol=5e-6)
+    # alpha = 0: the LRN is the identity and K8 returns the routed
+    # gradient itself, which must equal the plain routing bit for bit
+    routed = tcp.lrn_pool_bwd(x, dy, 5, 0.0, 0.75, 1.0)
+    assert torch.equal(routed, tcp.route_reference(x, dy))
+
+
+def test_lrn_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    x = _rand(dev, 2, 8, 9, 9)
+    with pytest.raises(TypeError, match="float32"):
+        tcl.lrn_fwd(x.double(), 5, 1e-4, 0.75, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        tcl.lrn_fwd(x.transpose(2, 3), 5, 1e-4, 0.75, 1.0)
+    with pytest.raises(ValueError, match="NCHW"):
+        tcl.lrn_fwd(x[0], 5, 1e-4, 0.75, 1.0)
+    with pytest.raises(ValueError, match="local_size"):
+        tcl.lrn_fwd(x, 17, 1e-4, 0.75, 1.0)
+    with pytest.raises(ValueError, match="fusable"):
+        tcp.lrn_pool_fwd(_rand(dev, 2, 8, 10, 9), 5, 1e-4, 0.75, 1.0)
+    with pytest.raises(ValueError, match="fusable"):
+        tcp.lrn_pool_fwd(x, 4, 1e-4, 0.75, 1.0)

@@ -5,7 +5,7 @@
 - Entry points run on the card unless the caller asks for the CPU:
   built without ``device``, they raise where there is no CUDA device
   (the serving CLI, ``apps.cifar_app``, ``apps.lm_app`` and ``cli
-  train --lm``, the solver and trainer).
+  train --lm``, ``apps.imagenet_app``, the solver and trainer).
 - What a slice has not ported yet refuses, saying so.
 - The kernel wrappers take the plain version for CPU tensors, and only
   there: no kernel is launched and no library is built.
@@ -25,11 +25,13 @@ import torch
 
 from sparknet_tpu_torch import config as tconfig
 from sparknet_tpu_torch import models
-from sparknet_tpu_torch.apps import cifar_app, lm_app
+from sparknet_tpu_torch.apps import cifar_app, imagenet_app, lm_app
 from sparknet_tpu_torch.models.transformer_lm import TransformerLM
 from sparknet_tpu_torch.ops import _build
 from sparknet_tpu_torch.ops import cuda_attention as tca
 from sparknet_tpu_torch.ops import cuda_comm as tcc
+from sparknet_tpu_torch.ops import cuda_lrn as tcl
+from sparknet_tpu_torch.ops import cuda_plp as tcp
 from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
 from sparknet_tpu_torch.serve import GenerationEngine
 from sparknet_tpu_torch.solver import Solver
@@ -68,7 +70,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     rel = {os.path.relpath(p, REPO) for p in files}
     for mod in ("apps/cifar_app.py", "parallel/comm.py", "parallel/trainers.py",
                 "ops/cuda_comm.py", "solver.py", "net.py", "config/prototext.py",
-                "data/round_feed.py", "apps/lm_app.py", "data/text.py"):
+                "data/round_feed.py", "apps/lm_app.py", "data/text.py",
+                "apps/imagenet_app.py", "ops/cuda_lrn.py", "ops/cuda_plp.py",
+                "data/imagenet.py", "data/transforms.py", "io/caffemodel.py",
+                "models/builders.py", "utils/rngs.py"):
         assert os.path.join("sparknet_tpu_torch", mod) in rel
     for path in files:
         for mod in _imported_modules(path):
@@ -106,6 +111,9 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Solver(tconfig.parse_solver_prototxt("base_lr: 0.1"),
                net=models.build_transformer_lm(dim=32, depth=1, heads=2))
+    # the ImageNet slice: the app, before it writes any data
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        imagenet_app.main(["--workers", "2", "--tau", "2", "--rounds", "1"])
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -124,12 +132,18 @@ _CIFAR = ["--device", "cpu", "--workers", "2", "--tau", "2", "--rounds", "1"]
         for flag in (["--elastic"], ["--slices", "2"],
                      ["--cross_slice_every", "2"], ["--stale_bound", "1"],
                      ["--health"], ["--journal"], ["--obs"], ["--profile"])
+    ] + [
+        (["imagenet_app", "--device", "cpu"] + flag, flag[0])
+        for flag in (["--obs"], ["--profile"], ["--slices", "2"],
+                     ["--cross_slice_every", "2"], ["--cache_bytes", "8G"])
     ],
 )
 def test_cli_refuses_what_is_not_yet_ported(argv, what):
     main = cli.main
     if argv[0] == "cifar_app":
         main, argv = cifar_app.main, argv[1:]
+    elif argv[0] == "imagenet_app":
+        main, argv = imagenet_app.main, argv[1:]
     with pytest.raises(SystemExit, match="not yet ported") as e:
         main(argv)
     assert what in str(e.value)
@@ -137,8 +151,8 @@ def test_cli_refuses_what_is_not_yet_ported(argv, what):
 
 @pytest.mark.parametrize(
     "text",
-    ['layer { name: "d" type: "Dropout" bottom: "x" top: "x" }',
-     'layer { name: "d" type: "Dropout" dropout_param { dropout_ratio: 0.5 } }'],
+    ['layer { name: "c" type: "Concat" bottom: "x" top: "y" }',
+     'layer { name: "b" type: "BatchNorm" batch_norm_param { eps: 0.001 } }'],
     ids=["layer_type", "layer_param"],
 )
 def test_net_refuses_layers_not_yet_ported(text):
@@ -151,9 +165,12 @@ def test_net_refuses_layers_not_yet_ported(text):
 
 
 def test_zoo_refuses_models_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        models.load_model("alexnet")
+    for name in ("googlenet", "resnet50"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            models.load_model(name)
     assert models.load_model("cifar10_full").name == "CIFAR10_full"
+    assert models.load_model("alexnet").name == "AlexNet"
+    assert models.load_model("caffenet", batch=2).name == "CaffeNet"
 
 
 def test_engine_refuses_weights():
@@ -198,6 +215,22 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     tcc.apply_barriered(xs, xs, means, xs, alive, alive.sum())
     tcc.apply_correction(xs, xs, qs, scales, means, ("int8", "bf16"))
     assert tcc.LAUNCHES == comm_before
+    # the LRN (K5, K6) and the fused LRN + max pool (K7, K8)
+    lrn_before, plp_before = dict(tcl.LAUNCHES), dict(tcp.LAUNCHES)
+    x = torch.from_numpy(r.randn(2, 7, 11, 13).astype(np.float32))
+    xg = x.clone().requires_grad_(True)
+    y = tcl.lrn_across_channels(xg, 5, 1e-4, 0.75, 1.0)
+    assert torch.equal(y, tcl.lrn_across_reference(x, 5, 1e-4, 0.75, 1.0))
+    y.sum().backward()
+    assert torch.equal(xg.grad, tcl.lrn_across_bwd_reference(
+        x, torch.ones_like(x), 5, 1e-4, 0.75, 1.0))
+    xg = x.clone().requires_grad_(True)
+    y = tcp.lrn_maxpool(xg, 5, 1e-4, 0.75, 1.0)
+    assert torch.equal(y, tcp.lrn_maxpool_reference(x, 5, 1e-4, 0.75, 1.0))
+    y.sum().backward()
+    assert torch.equal(xg.grad, tcp.lrn_maxpool_bwd_reference(
+        x, torch.ones_like(y), 5, 1e-4, 0.75, 1.0))
+    assert tcl.LAUNCHES == lrn_before and tcp.LAUNCHES == plp_before
 
 
 def test_kernel_build_plan_is_keyed_by_source():
@@ -206,7 +239,7 @@ def test_kernel_build_plan_is_keyed_by_source():
     module compiled nothing."""
     srcs = _build.sources()
     assert set(srcs) == {"flash_fwd", "flash_bwd", "decode_attention",
-                         "comm_epilogue"}
+                         "comm_epilogue", "lrn", "lrn_pool"}
     for name in srcs:
         p = _build.library_path(name)
         assert p == _build.library_path(name)
