@@ -1,4 +1,5 @@
-// Flash-attention backward, float32, for Hopper (sm_90a): dq and dk/dv.
+// Flash-attention backward for Hopper (sm_90a): dq and dk/dv, float32 in
+// and out, the products on the tensor cores in split TF32.
 //
 // Replaces the two Pallas kernels of _flash_core_bwd
 // (sparknet_tpu/ops/pallas_attention.py:188):
@@ -15,63 +16,96 @@
 // Masked entries give p = 0 exactly, so a fully-masked row contributes
 // nothing and never produces NaN.
 //
+// Precision.  Every product runs as mma.sync m16n8k8 with TF32 operands,
+// split three ways ("3xTF32"): each float32 operand x becomes hi =
+// cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and a b is taken as
+// a_lo b_hi + a_hi b_lo + a_hi b_hi (the small terms first) into a fresh
+// float32 accumulator per 8-deep step, which is then added to the
+// running sum.  The dropped a_lo b_lo term is ~2^-22 of the product, so
+// the results keep float32 accuracy: at the training shape they lie
+// ~1e-6 of the output's magnitude from the plain float32 version, where
+// one TF32 pass would lie ~5e-4 away (tests/test_torch_flash_bwd.py
+// emulates both).
+//
 // Design.  On the TPU, the dq kernel is gridded per q-block and the
-// dk/dv kernel per (batch*head) with all of T_q and T_k in VMEM.  A
-// Hopper block has at most 227 KB of shared memory and blocks run in
-// parallel, so both kernels loop over tiles instead, and each output
-// tile is owned by exactly one block: no atomics, so both stay
-// deterministic, as the TPU's split into two kernels is.
-//   K3: one block per (batch*head, 64 query rows), 256 threads.  The
-//       q and do tiles stay in shared memory; the block walks 32-row
-//       K/V tiles up to the causal frontier of its last row.  Each
-//       thread owns 4 query rows x 2 key columns of the score tile and
-//       4 rows x D/16 columns of dq.
-//   K4: one block per (batch*head, 64 key rows), 256 threads.  The k
-//       and v tiles stay in shared memory; the block walks 32-row q/do
-//       tiles from the first row that can see its keys.  Each thread
-//       owns 4 key rows x 2 query columns of the transposed score tile
-//       and 4 key rows x D/16 columns of both dk and dv.
-// delta is computed inside each kernel from do and o (K4 recomputes it
-// once per key block), as the TPU kernels do.  Row reductions run with
-// warp shuffles inside 16-lane (K3) or 8-lane (K4) groups.  Inputs are
-// read through their (B, T, H, D) strides, so no transpose copy is
-// made; rows past T are masked in the kernel, nothing is padded in
-// memory.  Shared rows are padded by one float so column reads hit
-// distinct banks.
+// dk/dv kernel per (batch*head) with all of T_q and T_k in VMEM.  Here
+// both loop over stages of tiles, and each output tile is owned by exactly
+// one block: no atomics, so both stay deterministic, as the TPU's split
+// into two kernels is.  At the training shape there are only 512 warps'
+// worth of 16-row tiles, and under the causal mask the last query tile
+// (K3) or first key tile (K4) walks all 256 keys or queries: one warp per
+// 16 rows leaves ~1 warp per scheduler, each waiting on its own chain of
+// mma.sync (measured slower than float32 on the CUDA cores).  So
+// every group of 16 rows is shared by SPLIT warps, each taking its own
+// SLICE of every stage, and the partial sums are added at the end in
+// split order through shared memory (deterministic):
+//   K3: one block per (batch*head, 16 query rows), 4 warps (128
+//       threads, two blocks a SM), stages of 4 x 8 keys.  The group's q and do
+//       fragments are split once into hi/lo and kept in shared memory;
+//       delta and lse_safe of its rows stay in registers.  K/V stages
+//       stream through two buffers with cp.async (16 bytes a copy), the
+//       next in flight while the current one computes, up to the causal
+//       frontier of the block's last row.  Per slice a warp forms s and
+//       dp (16 x 8) in mma accumulators, turns them into ds in place,
+//       and multiplies ds by the slice of K into its 16 x D dq partial.
+//   K4: one block per (batch*head, 2 x 16 key rows), 4 warps per group
+//       (2 at D = 128, for shared memory), stages of 4 x 16 q/do/o rows
+//       from the first query that sees the block's keys.  The block
+//       computes the stage's delta, then each warp forms s^T and dp^T (16
+//       keys x 16 queries), turns them into p^T and ds^T, and adds p^T do
+//       to its dv partial and ds^T q to its dk partial.  Slices that none
+//       of the group's keys can see are skipped.
+// (sparknet_tpu_torch/tools/flash_bwd_tiles.py times other groups,
+// splits and slices.)
+// No score tile goes through shared memory: the accumulator layout of
+// m16n8k8 (thread (g, t) holds columns 2t, 2t+1 of rows g, g+8) is
+// taken as an A operand whose k slots t and t+4 stand for columns 2t and
+// 2t+1, and the B operand is read with the same permutation.  Shared
+// tiles are unpadded rows of D floats with 16-byte chunks XOR-swizzled
+// by the row (column c of row r at c ^ 4(r mod 8)), so both the
+// row-wise B reads (k^T, v^T, q^T, do^T) and the column-wise ones (k, q,
+// do) hit 32 distinct banks.  Blocks are numbered heaviest first under
+// the causal mask (K3's last query tiles, K4's first key tiles), so the
+// long ones start before the short ones fill the card.  Inputs are read
+// through their (B, T, H, D) strides: every row must start on 16 bytes
+// (the wrapper checks), rows past T load as zeros, nothing is padded
+// in memory.
 //
 // Bound on this card.  At the training shape (B=8, T=256, H=4, D=64,
 // causal) K3 does three causal products (s, do v^T, ds k) and K4 four
-// (s, do v^T, p^T do, ds^T q): ~0.40 and ~0.54 GFLOP, which an H100 SXM
-// does in ~6 and ~8 us in float32 outside the tensor cores (67
-// TFLOP/s); each moves ~13-15 MB (~4 us at 3.35 TB/s).  So both are
-// bound by operations.  The products run on the CUDA cores in full
-// float32, as the port keeps float32 products exact; wgmma/TMA tiles
-// (TF32 or bf16) are later work.
+// (s, do v^T, p^T do, ds^T q): ~0.40 and ~0.54 GFLOP, 1.2 and 1.6 GFLOP
+// of TF32 work as three passes, which the tensor cores do in ~2.4 and
+// ~3.3 us (495 TFLOP/s); each moves ~13-15 MB (~4 us at 3.35 TB/s).  So
+// both are bound by bytes at the card's peaks; in practice by the latency
+// of the longest block's chain of stages and by mma.sync, which issues
+// at well below the rate of Hopper's warpgroup wgmma.
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int NT = 256;  // threads per block
 constexpr unsigned FULL = 0xffffffffu;
 
-// K3 tiling
-constexpr int Q_BQ = 64;                   // query rows per block
-constexpr int Q_BK = 32;                   // key rows per tile
-constexpr int Q_CG = 16;                   // lanes sharing a group of rows
-constexpr int Q_RPT = Q_BQ / (NT / Q_CG);  // query rows per thread (4)
-constexpr int Q_KPT = Q_BK / Q_CG;         // key columns per thread (2)
-constexpr int Q_PS = Q_BK + 1;             // padded row of the ds tile
-
-// K4 tiling
-constexpr int K_BK = 64;                   // key rows per block
-constexpr int K_BQ = 32;                   // query rows per tile
-constexpr int K_CG = 16;
-constexpr int K_RPT = K_BK / (NT / K_CG);  // key rows per thread (4)
-constexpr int K_QPT = K_BQ / K_CG;         // query columns per thread (2)
-constexpr int K_PS = K_BQ + 1;             // padded row of the p^T/ds^T tiles
-constexpr int K_LPR = NT / K_BQ;           // lanes per row for delta (8)
+// K3: a block owns Q_GROUPS x 16 query rows.  Q_SPLIT warps share each
+// group of 16 rows; every stage holds Q_SPLIT x Q_SLICE keys, and each of
+// those warps takes its own Q_SLICE of them.  Their dq partials are summed
+// in a fixed order at the end.  Two blocks a SM (registers held to 255 a
+// thread at 128 threads).
+constexpr int Q_GROUPS = 1;
+constexpr int Q_SPLIT = 4;
+constexpr int Q_SLICE = 8;
+constexpr int Q_ROWS = 16 * Q_GROUPS;
+constexpr int Q_STAGE = Q_SPLIT * Q_SLICE;
+constexpr int Q_NT = 32 * Q_GROUPS * Q_SPLIT;
+// K4: the same over key rows; a stage holds K_SPLIT x K_SLICE queries
+// (two splits at D = 128, so that the stages fit in shared memory).
+constexpr int K_GROUPS = 2;
+constexpr int K_SLICE = 16;
+constexpr int K_ROWS = 16 * K_GROUPS;
+template <int D>
+__host__ __device__ constexpr int k_split() { return D > 64 ? 2 : 4; }
+static_assert(Q_SLICE % 8 == 0 && K_SLICE % 8 == 0, "slices of 8-row tiles");
 
 struct Args {
   const float* q;
@@ -84,7 +118,7 @@ struct Args {
   float* dq;          // (B, Tq, H, D) contiguous
   float* dk;          // (B, Tk, H, D) contiguous
   float* dv;          // (B, Tk, H, D) contiguous
-  int H, Tq, Tk;
+  int BH, H, Tq, Tk;
   // element strides along (b, t, h) of q, k, v, o, do; unit along D
   long long sq[3], sk[3], sv[3], so[3], sd[3];
   int q_offset, k_offset, causal;
@@ -95,40 +129,186 @@ __device__ __forceinline__ float lse_safe(float l) {
   return isfinite(l) ? l : 0.f;
 }
 
+// ---------------------------------------------------------------------
+// split TF32 on mma.sync m16n8k8
+// ---------------------------------------------------------------------
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// an A operand (rows g, g+8 at k slots t, t+4) or B operand (k slots t,
+// t+4 at column g) of one m16n8k8, as hi and lo TF32 parts
+template <int N>
+struct Frag {
+  uint32_t hi[N], lo[N];
+};
+
+template <int N>
+__device__ __forceinline__ Frag<N> split(const float (&x)[N]) {
+  Frag<N> f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    f.hi[i] = to_tf32(x[i]);
+    f.lo[i] = to_tf32(x[i] - __uint_as_float(f.hi[i]));
+  }
+  return f;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2],
+                                         const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// c += a b at float32 accuracy (3xTF32, one fresh accumulator per step)
+__device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a,
+                                     const Frag<2>& b) {
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+  float t[4];
+  mma_tf32(t, a.lo, b.hi, zero);
+  mma_tf32(t, a.hi, b.lo, t);
+  mma_tf32(t, a.hi, b.hi, t);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
+}
+
+// The accumulator (rows g, g+8; columns 2t, 2t+1) as an A operand whose k
+// slots t, t+4 stand for columns 2t, 2t+1: no data moves between lanes.
+__device__ __forceinline__ Frag<4> acc_as_a(const float (&c)[4]) {
+  const float x[4] = {c[0], c[2], c[1], c[3]};
+  return split(x);
+}
+
+// ---------------------------------------------------------------------
+// shared tiles: rows of D floats, 16-byte chunks swizzled by the row
+// ---------------------------------------------------------------------
+template <int D>
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * D + (c ^ ((r & 7) << 2));
+}
+
+// B operand, k along the row: (row n, columns c, c + 4)
+template <int D>
+__device__ __forceinline__ Frag<2> b_rowwise(const float* tile, int n, int c) {
+  const float x[2] = {tile[sw<D>(n, c)], tile[sw<D>(n, c + 4)]};
+  return split(x);
+}
+
+// B operand, k down the column in the permuted slots: rows r, r + 1
+template <int D>
+__device__ __forceinline__ Frag<2> b_colwise(const float* tile, int r, int c) {
+  const float x[2] = {tile[sw<D>(r, c)], tile[sw<D>(r + 1, c)]};
+  return split(x);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// every group but the newest has landed (for this thread's copies)
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// rows [t0, t0 + R) of a (T, D) slice with row stride st, rows past T
+// as zeros
+template <int D, int R, int NT>
+__device__ __forceinline__ void load_tile(float* tile, const float* base,
+                                          long long st, int t0, int T) {
+  constexpr int CH = D / 4;
+  for (int i = threadIdx.x; i < R * CH; i += NT) {
+    const int r = i / CH, c = (i % CH) * 4;
+    const bool in = t0 + r < T;
+    cp_async16(tile + sw<D>(r, c), in ? base + (t0 + r) * st + c : base, in);
+  }
+}
+
+// this thread's A fragments of rows ra, rb of a (T, D) slice
+__device__ __forceinline__ float4 a_from_global(const float* base,
+                                                long long st, int ra, int rb,
+                                                bool ina, bool inb, int c) {
+  float4 x;
+  x.x = ina ? base[ra * st + c] : 0.f;
+  x.y = inb ? base[rb * st + c] : 0.f;
+  x.z = ina ? base[ra * st + c + 4] : 0.f;
+  x.w = inb ? base[rb * st + c + 4] : 0.f;
+  return x;
+}
+
+__device__ __forceinline__ Frag<4> split4(float4 v) {
+  const float x[4] = {v.x, v.y, v.z, v.w};
+  return split(x);
+}
+
+// a presplit A operand in shared memory: hi and lo parts, one uint4 each
+// per lane, [KS][32] for each group of 16 rows
+__device__ __forceinline__ void store_a(uint4* hi, uint4* lo, float4 v) {
+  const Frag<4> f = split4(v);
+  *hi = make_uint4(f.hi[0], f.hi[1], f.hi[2], f.hi[3]);
+  *lo = make_uint4(f.lo[0], f.lo[1], f.lo[2], f.lo[3]);
+}
+
+__device__ __forceinline__ Frag<4> load_a(const uint4* hi, const uint4* lo) {
+  const uint4 h = *hi, l = *lo;
+  return {{h.x, h.y, h.z, h.w}, {l.x, l.y, l.z, l.w}};
+}
+
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (2 * Q_BQ * (D + 1) + 2 * Q_BK * (D + 1) +
-                          Q_BQ * Q_PS);
+  return sizeof(uint4) * 4 * Q_GROUPS * (D / 8) * 32 +
+         sizeof(float) * 4 * Q_STAGE * D;
 }
 
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (2 * K_BK * (D + 1) + 2 * K_BQ * (D + 1) +
-                          2 * K_BK * K_PS + 2 * K_BQ);
+  return sizeof(uint4) * 4 * K_GROUPS * (D / 8) * 32 +
+         sizeof(float) * (6 * k_split<D>() * K_SLICE * D +
+                          2 * k_split<D>() * K_SLICE);
 }
 
 // ---------------------------------------------------------------------
 // K3: dq
 // ---------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Args a) {
-  constexpr int DP = D + 1;      // padded row of the q/do/k/v tiles
-  constexpr int DPT = D / Q_CG;  // dq columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;              // [BQ][DP]
-  float* Gs = Qs + Q_BQ * DP;    // [BQ][DP] do
-  float* Ks = Gs + Q_BQ * DP;    // [BK][DP]
-  float* Vs = Ks + Q_BK * DP;    // [BK][DP]
-  float* Ss = Vs + Q_BK * DP;    // [BQ][PS] ds
+__global__ void __launch_bounds__(Q_NT, 2) flash_bwd_dq_kernel(const Args a) {
+  constexpr int KS = D / 8;        // 8-deep steps over the head dim
+  constexpr int NK = Q_SLICE / 8;  // 8-key column groups of a slice
+  constexpr int TILE = Q_STAGE * D;
+  constexpr int FR = Q_GROUPS * KS * 32;
+  static_assert(KS % Q_SPLIT == 0, "each split sums a share of dq's columns");
+  static_assert(Q_GROUPS * Q_SPLIT * KS * 32 * 4 <= 4 * TILE,
+                "the dq partials fit in the stages");
+  extern __shared__ uint4 smem4[];
+  uint4* Qh = smem4;  // [group][KS][lane] q fragments, hi and lo
+  uint4* Ql = Qh + FR;
+  uint4* Gh = Ql + FR;  // do fragments
+  uint4* Gl = Gh + FR;
+  float* Ks = reinterpret_cast<float*>(Gl + FR);  // [2][TILE]
+  float* Vs = Ks + 2 * TILE;                      // [2][TILE]
 
-  const int tid = threadIdx.x;
-  const int row0 = (tid / Q_CG) * Q_RPT;
-  const int cg = tid % Q_CG;
-  const int bh = blockIdx.y;
-  const int b = bh / a.H;
-  const int h = bh % a.H;
-  const int q0 = blockIdx.x * Q_BQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int group = warp / Q_SPLIT, split_id = warp % Q_SPLIT;
   const int Tq = a.Tq, Tk = a.Tk;
+  const int n_qt = (Tq + Q_ROWS - 1) / Q_ROWS;
+  const int bh = blockIdx.x % a.BH;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / a.BH) * Q_ROWS;
+  const int b = bh / a.H, h = bh % a.H;
 
   const float* qb = a.q + b * a.sq[0] + h * a.sq[2];
   const float* kb = a.k + b * a.sk[0] + h * a.sk[2];
@@ -136,120 +316,143 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Args a) {
   const float* ob = a.o + b * a.so[0] + h * a.so[2];
   const float* gb = a.dout + b * a.sd[0] + h * a.sd[2];
 
-  for (int i = tid; i < Q_BQ * D; i += NT) {
-    const int r = i / D, c = i % D;
-    const int t = q0 + r;
-    const bool in = t < Tq;
-    Qs[r * DP + c] = in ? qb[t * a.sq[1] + c] : 0.f;
-    Gs[r * DP + c] = in ? gb[t * a.sd[1] + c] : 0.f;
-  }
-  __syncthreads();
-
-  // per-row lse_safe and delta = rowsum(do * o) - dlse, in registers
-  float ls[Q_RPT], delta[Q_RPT];
-#pragma unroll
-  for (int i = 0; i < Q_RPT; ++i) {
-    const int t = q0 + row0 + i;
-    float part = 0.f;
-    if (t < Tq) {
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const int c = cg + Q_CG * j;
-        part = fmaf(Gs[(row0 + i) * DP + c], ob[t * a.so[1] + c], part);
-      }
-    }
-#pragma unroll
-    for (int off = Q_CG / 2; off > 0; off >>= 1)
-      part += __shfl_xor_sync(FULL, part, off);
-    const long long li = static_cast<long long>(bh) * Tq + t;
-    ls[i] = (t < Tq) ? lse_safe(a.lse[li]) : 0.f;
-    delta[i] = (t < Tq) ? part - a.dlse[li] : 0.f;
-  }
-
   // keys [0, k_end) are visible to at least one real row of this block
   int k_end = Tk;
   if (a.causal) {
-    const int last = min(q0 + Q_BQ, Tq) - 1;
+    const int last = min(q0 + Q_ROWS, Tq) - 1;
     k_end = max(0, min(Tk, a.q_offset + last - a.k_offset + 1));
   }
+  const int n_st = (k_end + Q_STAGE - 1) / Q_STAGE;
+  if (n_st > 0) {
+    load_tile<D, Q_STAGE, Q_NT>(Ks, kb, a.sk[1], 0, Tk);
+    load_tile<D, Q_STAGE, Q_NT>(Vs, vb, a.sv[1], 0, Tk);
+  }
+  cp_async_commit();
 
-  float acc[Q_RPT][DPT];
+  // this group's rows ra, rb: q and do fragments (written by the group's
+  // first warp), lse_safe and delta (in every warp's registers)
+  const int ra = q0 + group * 16 + g, rb = ra + 8;
+  const bool ina = ra < Tq, inb = rb < Tq;
+  const int f = group * KS * 32 + lane;
+  float dsa = 0.f, dsb = 0.f;
 #pragma unroll
-  for (int i = 0; i < Q_RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
-
-  for (int kt = 0; kt < k_end; kt += Q_BK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < Q_BK * D; i += NT) {
-      const int r = i / D, c = i % D;
-      const int t = kt + r;
-      const bool in = t < Tk;
-      Ks[r * DP + c] = in ? kb[t * a.sk[1] + c] : 0.f;
-      Vs[r * DP + c] = in ? vb[t * a.sv[1] + c] : 0.f;
+  for (int ks = 0; ks < KS; ++ks) {
+    const int c = ks * 8 + t;
+    const float4 gv = a_from_global(gb, a.sd[1], ra, rb, ina, inb, c);
+    const float4 ov = a_from_global(ob, a.so[1], ra, rb, ina, inb, c);
+    if (split_id == 0) {
+      store_a(Qh + f + ks * 32, Ql + f + ks * 32,
+              a_from_global(qb, a.sq[1], ra, rb, ina, inb, c));
+      store_a(Gh + f + ks * 32, Gl + f + ks * 32, gv);
     }
-    __syncthreads();
+    dsa = fmaf(gv.x, ov.x, dsa);
+    dsa = fmaf(gv.z, ov.z, dsa);
+    dsb = fmaf(gv.y, ov.y, dsb);
+    dsb = fmaf(gv.w, ov.w, dsb);
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    dsa += __shfl_xor_sync(FULL, dsa, off);
+    dsb += __shfl_xor_sync(FULL, dsb, off);
+  }
+  const long long li = static_cast<long long>(bh) * Tq;
+  const float ls_a = ina ? lse_safe(a.lse[li + ra]) : 0.f;
+  const float ls_b = inb ? lse_safe(a.lse[li + rb]) : 0.f;
+  const float dl_a = ina ? dsa - a.dlse[li + ra] : 0.f;
+  const float dl_b = inb ? dsb - a.dlse[li + rb] : 0.f;
 
-    float s[Q_RPT][Q_KPT], dp[Q_RPT][Q_KPT];
+  float acc[KS][4];
 #pragma unroll
-    for (int i = 0; i < Q_RPT; ++i)
+  for (int i = 0; i < KS; ++i)
 #pragma unroll
-      for (int j = 0; j < Q_KPT; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float kv[Q_KPT], vv[Q_KPT];
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int j = 0; j < n_st; ++j) {
+    if (j + 1 < n_st) {
+      const int nxt = ((j + 1) & 1) * TILE;
+      load_tile<D, Q_STAGE, Q_NT>(Ks + nxt, kb, a.sk[1], (j + 1) * Q_STAGE, Tk);
+      load_tile<D, Q_STAGE, Q_NT>(Vs + nxt, vb, a.sv[1], (j + 1) * Q_STAGE, Tk);
+    }
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();  // stage j (and the fragments) are in for every thread
+    const int k_lo = j * Q_STAGE + split_id * Q_SLICE;  // this warp's keys
+    if (k_lo < k_end) {
+      // the slice's rows keep their swizzle: Q_SLICE is a multiple of 8
+      const float* K = Ks + (j & 1) * TILE + split_id * Q_SLICE * D;
+      const float* V = Vs + (j & 1) * TILE + split_id * Q_SLICE * D;
+      float s[NK][4], dp[NK][4];
 #pragma unroll
-      for (int j = 0; j < Q_KPT; ++j) {
-        kv[j] = Ks[(cg + Q_CG * j) * DP + c];
-        vv[j] = Vs[(cg + Q_CG * j) * DP + c];
-      }
+      for (int n = 0; n < NK; ++n)
 #pragma unroll
-      for (int i = 0; i < Q_RPT; ++i) {
-        const float qv = Qs[(row0 + i) * DP + c];
-        const float gv = Gs[(row0 + i) * DP + c];
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
-        for (int j = 0; j < Q_KPT; ++j) {
-          s[i][j] = fmaf(qv, kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv, vv[j], dp[i][j]);
+      for (int ks = 0; ks < KS; ++ks) {
+        const Frag<4> qa = load_a(Qh + f + ks * 32, Ql + f + ks * 32);
+        const Frag<4> ga = load_a(Gh + f + ks * 32, Gl + f + ks * 32);
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          mma3(s[n], qa, b_rowwise<D>(K, n * 8 + g, ks * 8 + t));
+          mma3(dp[n], ga, b_rowwise<D>(V, n * 8 + g, ks * 8 + t));
         }
       }
-    }
 
+      // s -> ds in place
 #pragma unroll
-    for (int i = 0; i < Q_RPT; ++i) {
-      const int qpos = a.q_offset + q0 + row0 + i;
+      for (int n = 0; n < NK; ++n)
 #pragma unroll
-      for (int j = 0; j < Q_KPT; ++j) {
-        const int col = kt + cg + Q_CG * j;
-        const bool ok = col < Tk && (!a.causal || a.k_offset + col <= qpos);
-        const float p = ok ? expf(s[i][j] * a.scale - ls[i]) : 0.f;
-        Ss[(row0 + i) * Q_PS + cg + Q_CG * j] =
-            p * (dp[i][j] - delta[i]) * a.scale;
+        for (int e = 0; e < 4; ++e) {
+          const int row = e < 2 ? ra : rb;
+          const int col = k_lo + n * 8 + 2 * t + (e & 1);
+          const bool ok =
+              col < Tk && (!a.causal || a.k_offset + col <= a.q_offset + row);
+          const float p =
+              ok ? expf(s[n][e] * a.scale - (e < 2 ? ls_a : ls_b)) : 0.f;
+          s[n][e] = p * (dp[n][e] - (e < 2 ? dl_a : dl_b)) * a.scale;
+        }
+
+      // dq += ds k
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        const Frag<4> da = acc_as_a(s[kk]);
+#pragma unroll
+        for (int dn = 0; dn < KS; ++dn)
+          mma3(acc[dn], da, b_colwise<D>(K, kk * 8 + 2 * t, dn * 8 + g));
       }
     }
-    __syncthreads();  // the ds tile is complete
-
-#pragma unroll 4
-    for (int kk = 0; kk < Q_BK; ++kk) {
-      float kv[DPT];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) kv[j] = Ks[kk * DP + cg + Q_CG * j];
-#pragma unroll
-      for (int i = 0; i < Q_RPT; ++i) {
-        const float d = Ss[(row0 + i) * Q_PS + kk];
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[i][j] = fmaf(d, kv[j], acc[i][j]);
-      }
-    }
+    __syncthreads();  // stage j & 1 is free for stage j + 2
   }
 
+  // the group's Q_SPLIT partials, summed in split order: each warp sums
+  // and stores KS / Q_SPLIT of the 8-column groups
+  float4* part = reinterpret_cast<float4*>(Ks);  // [group][split][KS][lane]
+  float4* mine = part + (group * Q_SPLIT + split_id) * KS * 32 + lane;
 #pragma unroll
-  for (int i = 0; i < Q_RPT; ++i) {
-    const int row = q0 + row0 + i;
-    if (row >= Tq) continue;
-    float* out = a.dq + ((static_cast<long long>(b) * Tq + row) * a.H + h) * D;
+  for (int dn = 0; dn < KS; ++dn)
+    mine[dn * 32] = make_float4(acc[dn][0], acc[dn][1], acc[dn][2], acc[dn][3]);
+  __syncthreads();
+  const float4* first = part + group * Q_SPLIT * KS * 32 + lane;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) out[cg + Q_CG * j] = acc[i][j];
+  for (int i = 0; i < KS / Q_SPLIT; ++i) {
+    const int dn = split_id * (KS / Q_SPLIT) + i;
+    float4 sum = first[dn * 32];
+#pragma unroll
+    for (int sp = 1; sp < Q_SPLIT; ++sp) {
+      const float4 x = first[(sp * KS + dn) * 32];
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    const int c = dn * 8 + 2 * t;
+    if (ina)
+      *reinterpret_cast<float2*>(
+          a.dq + ((static_cast<long long>(b) * Tq + ra) * a.H + h) * D + c) =
+          make_float2(sum.x, sum.y);
+    if (inb)
+      *reinterpret_cast<float2*>(
+          a.dq + ((static_cast<long long>(b) * Tq + rb) * a.H + h) * D + c) =
+          make_float2(sum.z, sum.w);
   }
 }
 
@@ -257,27 +460,37 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Args a) {
 // K4: dk and dv
 // ---------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Args a) {
-  constexpr int DP = D + 1;
-  constexpr int DPT = D / K_CG;  // dk/dv columns per thread
-  extern __shared__ float smem[];
-  float* Ks = smem;              // [BK][DP]
-  float* Vs = Ks + K_BK * DP;    // [BK][DP]
-  float* Qs = Vs + K_BK * DP;    // [BQ][DP]
-  float* Gs = Qs + K_BQ * DP;    // [BQ][DP] do
-  float* Pt = Gs + K_BQ * DP;    // [BK][PS] p^T
-  float* St = Pt + K_BK * K_PS;  // [BK][PS] ds^T
-  float* Ls = St + K_BK * K_PS;  // [BQ] lse_safe
-  float* Dl = Ls + K_BQ;         // [BQ] delta
+__global__ void __launch_bounds__(32 * K_GROUPS * k_split<D>())
+    flash_bwd_dkv_kernel(const Args a) {
+  constexpr int SPLIT = k_split<D>();
+  constexpr int NT = 32 * K_GROUPS * SPLIT;
+  constexpr int STAGE = SPLIT * K_SLICE;  // queries per stage
+  constexpr int KS = D / 8;               // 8-deep steps over the head dim
+  constexpr int NQ = K_SLICE / 8;         // 8-query column groups of a slice
+  constexpr int TILE = STAGE * D;
+  constexpr int FR = K_GROUPS * KS * 32;
+  constexpr int LPR = NT / STAGE;  // lanes per row for delta
+  static_assert(KS % SPLIT == 0, "each split sums a share of dk/dv's columns");
+  static_assert(2 * K_GROUPS * SPLIT * KS * 32 * 4 <= 6 * TILE,
+                "the dk/dv partials fit in the stages");
+  extern __shared__ uint4 smem4[];
+  uint4* Kh = smem4;  // [group][KS][lane] k fragments, hi and lo
+  uint4* Kl = Kh + FR;
+  uint4* Vh = Kl + FR;  // v fragments
+  uint4* Vl = Vh + FR;
+  float* Qs = reinterpret_cast<float*>(Vl + FR);  // [2][TILE]
+  float* Gs = Qs + 2 * TILE;                      // do
+  float* Os = Gs + 2 * TILE;                      // o
+  float* Ls = Os + 2 * TILE;  // [STAGE] lse_safe of the stage's rows
+  float* Dl = Ls + STAGE;     // [STAGE] delta
 
-  const int tid = threadIdx.x;
-  const int row0 = (tid / K_CG) * K_RPT;  // this thread's key rows
-  const int cg = tid % K_CG;
-  const int bh = blockIdx.y;
-  const int b = bh / a.H;
-  const int h = bh % a.H;
-  const int k0 = blockIdx.x * K_BK;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int group = warp / SPLIT, split_id = warp % SPLIT;
   const int Tq = a.Tq, Tk = a.Tk;
+  const int bh = blockIdx.x % a.BH;
+  const int k0 = static_cast<int>(blockIdx.x) / a.BH * K_ROWS;
+  const int b = bh / a.H, h = bh % a.H;
 
   const float* qb = a.q + b * a.sq[0] + h * a.sq[2];
   const float* kb = a.k + b * a.sk[0] + h * a.sk[2];
@@ -285,161 +498,203 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Args a) {
   const float* ob = a.o + b * a.so[0] + h * a.so[2];
   const float* gb = a.dout + b * a.sd[0] + h * a.sd[2];
 
-  for (int i = tid; i < K_BK * D; i += NT) {
-    const int r = i / D, c = i % D;
-    const int t = k0 + r;
-    const bool in = t < Tk;
-    Ks[r * DP + c] = in ? kb[t * a.sk[1] + c] : 0.f;
-    Vs[r * DP + c] = in ? vb[t * a.sv[1] + c] : 0.f;
-  }
-
   // query rows below q_begin see none of this block's keys
-  int q_begin = 0;
-  if (a.causal) {
-    q_begin = max(0, a.k_offset + k0 - a.q_offset);
-    q_begin = (q_begin / K_BQ) * K_BQ;
+  const int q_begin = a.causal ? max(0, a.k_offset + k0 - a.q_offset) : 0;
+  const int n_st = q_begin < Tq ? (Tq - q_begin + STAGE - 1) / STAGE : 0;
+  if (n_st > 0) {
+    load_tile<D, STAGE, NT>(Qs, qb, a.sq[1], q_begin, Tq);
+    load_tile<D, STAGE, NT>(Gs, gb, a.sd[1], q_begin, Tq);
+    load_tile<D, STAGE, NT>(Os, ob, a.so[1], q_begin, Tq);
   }
+  cp_async_commit();
 
-  float dk[K_RPT][DPT], dv[K_RPT][DPT];
+  // this group's key rows ka, kb8: k and v fragments (the first warp)
+  const int ka = k0 + group * 16 + g, kb8 = ka + 8;
+  const bool ina = ka < Tk, inb = kb8 < Tk;
+  const int f = group * KS * 32 + lane;
+  if (split_id == 0) {
 #pragma unroll
-  for (int i = 0; i < K_RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  for (int qt = q_begin; qt < Tq; qt += K_BQ) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < K_BQ * D; i += NT) {
-      const int r = i / D, c = i % D;
-      const int t = qt + r;
-      const bool in = t < Tq;
-      Qs[r * DP + c] = in ? qb[t * a.sq[1] + c] : 0.f;
-      Gs[r * DP + c] = in ? gb[t * a.sd[1] + c] : 0.f;
+    for (int ks = 0; ks < KS; ++ks) {
+      const int c = ks * 8 + t;
+      store_a(Kh + f + ks * 32, Kl + f + ks * 32,
+              a_from_global(kb, a.sk[1], ka, kb8, ina, inb, c));
+      store_a(Vh + f + ks * 32, Vl + f + ks * 32,
+              a_from_global(vb, a.sv[1], ka, kb8, ina, inb, c));
     }
-    __syncthreads();
+  }
+  // the group's first key, for skipping slices it cannot see
+  const int key_first = a.k_offset + k0 + group * 16;
+
+  float dk[KS][4], dv[KS][4];
+#pragma unroll
+  for (int i = 0; i < KS; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+  const long long li = static_cast<long long>(bh) * Tq;
+  for (int j = 0; j < n_st; ++j) {
+    const int qt = q_begin + j * STAGE;
+    if (j + 1 < n_st) {
+      const int nxt = ((j + 1) & 1) * TILE;
+      load_tile<D, STAGE, NT>(Qs + nxt, qb, a.sq[1], qt + STAGE, Tq);
+      load_tile<D, STAGE, NT>(Gs + nxt, gb, a.sd[1], qt + STAGE, Tq);
+      load_tile<D, STAGE, NT>(Os + nxt, ob, a.so[1], qt + STAGE, Tq);
+    }
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();  // stage j (and the fragments) are in for every thread
+    const float* Qt = Qs + (j & 1) * TILE;
+    const float* Gt = Gs + (j & 1) * TILE;
     {
-      // lse_safe and delta of the tile's rows: K_LPR lanes per row
-      const int r = tid / K_LPR, part = tid % K_LPR;
-      const int t = qt + r;
+      // lse_safe and delta of the stage's rows: LPR lanes per row
+      const float* O = Os + (j & 1) * TILE;
+      const int r = threadIdx.x / LPR, lp = threadIdx.x % LPR;
       float sum = 0.f;
-      if (t < Tq) {
-        for (int c = part; c < D; c += K_LPR)
-          sum = fmaf(Gs[r * DP + c], ob[t * a.so[1] + c], sum);
+      for (int c = lp * 4; c < D; c += LPR * 4) {
+        const float4 gv = *reinterpret_cast<const float4*>(Gt + sw<D>(r, c));
+        const float4 ov = *reinterpret_cast<const float4*>(O + sw<D>(r, c));
+        sum = fmaf(gv.x, ov.x, sum);
+        sum = fmaf(gv.y, ov.y, sum);
+        sum = fmaf(gv.z, ov.z, sum);
+        sum = fmaf(gv.w, ov.w, sum);
       }
 #pragma unroll
-      for (int off = K_LPR / 2; off > 0; off >>= 1)
+      for (int off = LPR / 2; off > 0; off >>= 1)
         sum += __shfl_xor_sync(FULL, sum, off);
-      if (part == 0) {
-        const long long li = static_cast<long long>(bh) * Tq + t;
-        Ls[r] = (t < Tq) ? lse_safe(a.lse[li]) : 0.f;
-        Dl[r] = (t < Tq) ? sum - a.dlse[li] : 0.f;
+      if (lp == 0) {
+        const int row = qt + r;
+        Ls[r] = row < Tq ? lse_safe(a.lse[li + row]) : 0.f;
+        Dl[r] = row < Tq ? sum - a.dlse[li + row] : 0.f;
       }
     }
-    __syncthreads();
+    __syncthreads();  // the stage's lse_safe and delta are in
 
-    float s[K_RPT][K_QPT], dp[K_RPT][K_QPT];
+    const int q_lo = qt + split_id * K_SLICE;  // this warp's queries
+    if (q_lo < Tq &&
+        (!a.causal || a.q_offset + q_lo + K_SLICE - 1 >= key_first)) {
+      // the slice's rows keep their swizzle: K_SLICE is a multiple of 8
+      const float* Q = Qt + split_id * K_SLICE * D;
+      const float* G = Gt + split_id * K_SLICE * D;
+      float st[NQ][4], dpt[NQ][4];
 #pragma unroll
-    for (int i = 0; i < K_RPT; ++i)
+      for (int n = 0; n < NQ; ++n)
 #pragma unroll
-      for (int j = 0; j < K_QPT; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float qv[K_QPT], gv[K_QPT];
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < K_QPT; ++j) {
-        qv[j] = Qs[(cg + K_CG * j) * DP + c];
-        gv[j] = Gs[(cg + K_CG * j) * DP + c];
+      for (int ks = 0; ks < KS; ++ks) {
+        const Frag<4> ka4 = load_a(Kh + f + ks * 32, Kl + f + ks * 32);
+        const Frag<4> va4 = load_a(Vh + f + ks * 32, Vl + f + ks * 32);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          mma3(st[n], ka4, b_rowwise<D>(Q, n * 8 + g, ks * 8 + t));
+          mma3(dpt[n], va4, b_rowwise<D>(G, n * 8 + g, ks * 8 + t));
+        }
       }
+
+      // s^T -> p^T and dp^T -> ds^T in place
 #pragma unroll
-      for (int i = 0; i < K_RPT; ++i) {
-        const float kv = Ks[(row0 + i) * DP + c];
-        const float vv = Vs[(row0 + i) * DP + c];
+      for (int n = 0; n < NQ; ++n)
 #pragma unroll
-        for (int j = 0; j < K_QPT; ++j) {
-          s[i][j] = fmaf(qv[j], kv, s[i][j]);
-          dp[i][j] = fmaf(gv[j], vv, dp[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int key = e < 2 ? ka : kb8;
+          const int ql = split_id * K_SLICE + n * 8 + 2 * t + (e & 1);
+          const int qrow = qt + ql;
+          const bool ok = qrow < Tq &&
+                          (!a.causal || a.k_offset + key <= a.q_offset + qrow);
+          const float p = ok ? expf(st[n][e] * a.scale - Ls[ql]) : 0.f;
+          dpt[n][e] = p * (dpt[n][e] - Dl[ql]) * a.scale;
+          st[n][e] = p;
+        }
+
+      // dv += p^T do, dk += ds^T q
+#pragma unroll
+      for (int kk = 0; kk < NQ; ++kk) {
+        const Frag<4> pa = acc_as_a(st[kk]);
+        const Frag<4> da = acc_as_a(dpt[kk]);
+#pragma unroll
+        for (int dn = 0; dn < KS; ++dn) {
+          mma3(dv[dn], pa, b_colwise<D>(G, kk * 8 + 2 * t, dn * 8 + g));
+          mma3(dk[dn], da, b_colwise<D>(Q, kk * 8 + 2 * t, dn * 8 + g));
         }
       }
     }
-
-#pragma unroll
-    for (int i = 0; i < K_RPT; ++i) {
-      const int krow = k0 + row0 + i;
-#pragma unroll
-      for (int j = 0; j < K_QPT; ++j) {
-        const int qc = cg + K_CG * j;
-        const int qrow = qt + qc;
-        const bool ok = krow < Tk && qrow < Tq &&
-                        (!a.causal || a.k_offset + krow <= a.q_offset + qrow);
-        const float p = ok ? expf(s[i][j] * a.scale - Ls[qc]) : 0.f;
-        Pt[(row0 + i) * K_PS + qc] = p;
-        St[(row0 + i) * K_PS + qc] = p * (dp[i][j] - Dl[qc]) * a.scale;
-      }
-    }
-    __syncthreads();  // the p^T and ds^T tiles are complete
-
-#pragma unroll 4
-    for (int qq = 0; qq < K_BQ; ++qq) {
-      float gv[DPT], qv[DPT];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        gv[j] = Gs[qq * DP + cg + K_CG * j];
-        qv[j] = Qs[qq * DP + cg + K_CG * j];
-      }
-#pragma unroll
-      for (int i = 0; i < K_RPT; ++i) {
-        const float p = Pt[(row0 + i) * K_PS + qq];
-        const float d = St[(row0 + i) * K_PS + qq];
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) {
-          dv[i][j] = fmaf(p, gv[j], dv[i][j]);
-          dk[i][j] = fmaf(d, qv[j], dk[i][j]);
-        }
-      }
-    }
+    __syncthreads();  // stage j & 1, Ls and Dl are free
   }
 
+  // the group's SPLIT partials, summed in split order: each warp sums and
+  // stores KS / SPLIT of the 8-column groups of dk and dv
+  float4* part = reinterpret_cast<float4*>(Qs);  // [group][split][2][KS][lane]
+  float4* mine = part + (group * SPLIT + split_id) * 2 * KS * 32 + lane;
 #pragma unroll
-  for (int i = 0; i < K_RPT; ++i) {
-    const int row = k0 + row0 + i;
-    if (row >= Tk) continue;
-    const long long base = ((static_cast<long long>(b) * Tk + row) * a.H + h) * D;
+  for (int dn = 0; dn < KS; ++dn) {
+    mine[dn * 32] = make_float4(dk[dn][0], dk[dn][1], dk[dn][2], dk[dn][3]);
+    mine[(KS + dn) * 32] =
+        make_float4(dv[dn][0], dv[dn][1], dv[dn][2], dv[dn][3]);
+  }
+  __syncthreads();
+  const float4* first = part + group * SPLIT * 2 * KS * 32 + lane;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      a.dk[base + cg + K_CG * j] = dk[i][j];
-      a.dv[base + cg + K_CG * j] = dv[i][j];
+  for (int out = 0; out < 2; ++out) {
+    float* dst = out ? a.dv : a.dk;
+#pragma unroll
+    for (int i = 0; i < KS / SPLIT; ++i) {
+      const int dn = split_id * (KS / SPLIT) + i;
+      float4 sum = first[(out * KS + dn) * 32];
+#pragma unroll
+      for (int sp = 1; sp < SPLIT; ++sp) {
+        const float4 x = first[((sp * 2 + out) * KS + dn) * 32];
+        sum.x += x.x;
+        sum.y += x.y;
+        sum.z += x.z;
+        sum.w += x.w;
+      }
+      const int c = dn * 8 + 2 * t;
+      if (ina)
+        *reinterpret_cast<float2*>(
+            dst + ((static_cast<long long>(b) * Tk + ka) * a.H + h) * D + c) =
+            make_float2(sum.x, sum.y);
+      if (inb)
+        *reinterpret_cast<float2*>(
+            dst + ((static_cast<long long>(b) * Tk + kb8) * a.H + h) * D + c) =
+            make_float2(sum.z, sum.w);
     }
   }
 }
 
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* configured) {
+  if (*configured) return cudaSuccess;  // above 48 KB a block needs the opt-in
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e == cudaSuccess) *configured = true;
+  return e;
+}
+
 template <int D>
-cudaError_t launch_dq(const Args& a, int B, cudaStream_t stream) {
+cudaError_t launch_dq(Args a, int B, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
   static bool configured = false;
-  if (!configured) {  // above 48 KB a block needs the opt-in
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  dim3 grid((a.Tq + Q_BQ - 1) / Q_BQ, B * a.H);
-  flash_bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(a);
+  cudaError_t e = allow_smem(flash_bwd_dq_kernel<D>, smem, &configured);
+  if (e != cudaSuccess) return e;
+  a.BH = B * a.H;
+  const int blocks = (a.Tq + Q_ROWS - 1) / Q_ROWS * a.BH;
+  if (blocks == 0) return cudaSuccess;
+  flash_bwd_dq_kernel<D><<<blocks, Q_NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dkv(const Args& a, int B, cudaStream_t stream) {
+cudaError_t launch_dkv(Args a, int B, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
   static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  dim3 grid((a.Tk + K_BK - 1) / K_BK, B * a.H);
-  flash_bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(a);
+  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<D>, smem, &configured);
+  if (e != cudaSuccess) return e;
+  a.BH = B * a.H;
+  const int blocks = (a.Tk + K_ROWS - 1) / K_ROWS * a.BH;
+  if (blocks == 0) return cudaSuccess;
+  flash_bwd_dkv_kernel<D>
+      <<<blocks, 32 * K_GROUPS * k_split<D>(), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -459,6 +714,7 @@ Args make_args(const float* q, const float* k, const float* v,
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
+  a.BH = 0;
   a.H = H;
   a.Tq = Tq;
   a.Tk = Tk;
@@ -474,10 +730,11 @@ Args make_args(const float* q, const float* k, const float* v,
 
 }  // namespace
 
-// q, o, do (B, Tq, H, D) and k, v (B, Tk, H, D) with unit stride along D
-// and the element strides given in `strides` (a host array of 15: b, t, h
-// of q, k, v, o, do in that order); lse and dlse (B, H, Tq) contiguous;
-// dq (B, Tq, H, D) contiguous.  Returns the cudaError_t of the launch.
+// q, o, do (B, Tq, H, D) and k, v (B, Tk, H, D) with unit stride along D,
+// 16-byte aligned base pointers and the element strides given in
+// `strides` (a host array of 15: b, t, h of q, k, v, o, do in that order,
+// each a multiple of 4); lse and dlse (B, H, Tq) contiguous; dq (B, Tq,
+// H, D) contiguous.  Returns the cudaError_t of the launch.
 extern "C" int sparknet_flash_bwd_dq_f32(
     const float* q, const float* k, const float* v, const float* o,
     const float* dout, const float* lse, const float* dlse, float* dq, int B,

@@ -209,10 +209,24 @@ def _bwd_launch_args(what, q, k, v, do, o, lse, dlse):
                 f"tensor on {q.device}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}"
             )
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if not _rows_aligned(t):
+            raise ValueError(
+                f"{what}: the kernel loads rows of {name} 16 bytes at a time: "
+                "it needs a 16-byte aligned base and (b, t, h) strides that "
+                f"are multiples of 4, got data_ptr {t.data_ptr()} strides "
+                f"{t.stride()}"
+            )
     ptrs = [t.data_ptr() for t in (q, k, v, o, do, lse, dlse)]
     strides = _STRIDES(*[t.stride(i) for t in (q, k, v, o, do)
                          for i in range(3)])
     return ptrs, strides
+
+
+def _rows_aligned(t) -> bool:
+    """Every (b, t, h) row of ``t`` starts on 16 bytes: K3/K4 copy rows
+    into shared memory with 16-byte ``cp.async``."""
+    return t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:3])
 
 
 def flash_bwd_dq(q, k, v, do, o, lse, dlse, q_offset: int, k_offset: int,
@@ -287,8 +301,8 @@ class _FlashCore(torch.autograd.Function):
     def backward(ctx, do, dlse):
         q, k, v, o, lse = ctx.saved_tensors
         do = torch.zeros_like(o) if do is None else do
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        if do.stride(-1) != 1 or (do.is_cuda and not _rows_aligned(do)):
+            do = do.clone(memory_format=torch.contiguous_format)
         dlse = (torch.zeros_like(lse) if dlse is None
                 else dlse.to(torch.float32).contiguous())
         dq = flash_bwd_dq(q, k, v, do, o, lse, dlse, *ctx.pos)

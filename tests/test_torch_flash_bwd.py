@@ -9,6 +9,13 @@ and K4 on CPU tensors.  The step loss uses both ``o`` and ``lse``, so
 the backward's ``dlse`` term is nonzero.  Tolerance 5e-5 absolute (the
 JAX package's flash gradient tolerance, KERNELS_r21 ``flash_grad_tol``):
 float32 on both sides, summed in different orders.
+
+The precision scheme of the CUDA kernels (``ops/csrc/flash_bwd.cu``):
+every product runs on the tensor cores as three TF32 products of split
+operands.  A numpy emulation of that arithmetic at the LM training shape
+stays within the on-card tolerance (``BWD_RTOL`` of ``chip_smoke.py``) of
+the plain float32 versions, which are held to the JAX kernels there; a
+single TF32 pass does not.
 """
 
 import jax
@@ -136,3 +143,92 @@ def test_plain_backward_terms_match_the_jax_kernels_formulas():
     for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
         np.testing.assert_allclose(got, want[name], atol=1e-5, err_msg=name)
     assert np.all(dq[:, :8] == 0.0)
+
+
+# ----------------------------------------------------------------------
+# the kernels' split-TF32 products, emulated
+# ----------------------------------------------------------------------
+BWD_RTOL = 2e-5  # K3/K4 against their plain versions (chip_smoke.py)
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: float32 rounded to 10 mantissa bits, ties
+    away from zero (the 13 dropped bits cleared)."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """``a @ b`` as K3/K4 form it: 8-deep steps (one m16n8k8 each), each
+    summed into a fresh float32 accumulator and then added to the total.
+    Three passes take ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` with ``hi =
+    tf32(x)``, ``lo = tf32(x - hi)``; one pass takes ``a_hi b_hi``."""
+    total = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+    for c in range(0, a.shape[-1], 8):
+        ac, bc = a[..., c:c + 8], b[..., c:c + 8, :]
+        ah, bh = _tf32(ac), _tf32(bc)
+        step = np.matmul(ah, bh)
+        if passes == 3:
+            step = (np.matmul(_tf32(ac - ah), bh)
+                    + np.matmul(ah, _tf32(bc - bh))) + step
+        total += step
+    return total
+
+
+def _tf32_flash_bwd(q, k, v, do, o, lse, dlse, passes):
+    """(dq, dk, dv) of the causal flash backward, (B, H, T, D) float32
+    arrays, with every product emulated as ``_tf32_matmul``."""
+    t, d = q.shape[2], q.shape[3]
+    scale = np.float32(1.0 / np.sqrt(d))
+    s = _tf32_matmul(q, k.swapaxes(-1, -2), passes) * scale
+    lse_safe = np.where(np.isfinite(lse), lse, np.float32(0))
+    mask = np.tril(np.ones((t, t), bool))
+    p = np.exp(np.where(mask, s - lse_safe[..., None], -np.inf))
+    delta = (do * o).sum(-1, dtype=np.float32) - dlse
+    dp = _tf32_matmul(do, v.swapaxes(-1, -2), passes)
+    ds = p * (dp - delta[..., None]) * scale
+    return (_tf32_matmul(ds, k, passes),
+            _tf32_matmul(ds.swapaxes(-1, -2), q, passes),
+            _tf32_matmul(p.swapaxes(-1, -2), do, passes))
+
+
+def _scaled_err(got, want):
+    return float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_split_tf32_keeps_the_kernel_tolerance_where_one_pass_does_not(passes):
+    """At the LM training shape (B=8, T=256, H=4, D=64, causal, dlse !=
+    0): the plain float32 K3/K4 against the JAX kernels in interpret mode
+    on the same inputs, then the kernels' 3xTF32 arithmetic against the
+    plain versions within BWD_RTOL of each output's magnitude, and one
+    TF32 pass outside it, so the split is what holds the tolerance."""
+    nb, t, h, d = 8, 256, 4, 64
+    r = np.random.RandomState(21)
+    q, k, v, do = (r.randn(nb, t, h, d).astype(np.float32) for _ in range(4))
+    dlse = r.randn(nb, h, t).astype(np.float32)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = tca._flash_core_reference(tq, tk, tv, 0, 0, True)
+    args = (tq, tk, tv, tdo, o, lse, torch.from_numpy(dlse), 0, 0, True)
+    plain = [tca.flash_bwd_dq(*args).numpy(),
+             *(x.numpy() for x in tca.flash_bwd_dkv(*args))]
+
+    def heads(x):  # (B, T, H, D) -> (B, H, T, D)
+        return np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+
+    flat = [heads(x).reshape(nb * h, t, d) for x in (q, k, v, o.numpy(), do)]
+    res = (*flat[:3], jnp.zeros((1, 2), jnp.float32), flat[3],
+           lse.numpy().reshape(nb * h, t))
+    jax_grads = jpa._flash_core_bwd(True, 128, True, res,
+                                    (flat[4], dlse.reshape(nb * h, t)))[:3]
+    for got, want, name in zip(plain, jax_grads, ("dq", "dk", "dv")):
+        want = np.asarray(want).reshape(nb, h, t, d).transpose(0, 2, 1, 3)
+        assert _scaled_err(got, want) <= BWD_RTOL, name
+
+    emulated = _tf32_flash_bwd(*(heads(x) for x in (q, k, v, do, o.numpy())),
+                               lse.numpy(), dlse, passes)
+    errs = [_scaled_err(heads(p_), e) for p_, e in zip(plain, emulated)]
+    if passes == 3:
+        assert max(errs) <= BWD_RTOL, errs
+    else:
+        assert min(errs) > BWD_RTOL, errs
