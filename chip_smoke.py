@@ -12,11 +12,15 @@ Phases (any failure ends the run with a non-zero exit and no result):
    every CUDA kernel of the port from ``sparknet_tpu_torch/ops/csrc``.
 2. Each kernel against its plain PyTorch version on the card, in
    float32, at the serving path's shapes — flash forward (causal and
-   not, T in 16..256, a ragged T_q, a block of fully-masked rows) and
-   decode attention (8 slots x 256 positions, ragged lengths) — then
-   each kernel's time beside its plain version's, one PyTorch library
-   call's (``scaled_dot_product_attention``, a yardstick the port never
-   calls) and the least time the card could take.
+   not, T in 16..256, a ragged T_q, a block of fully-masked rows; also
+   the LM training shape, q, k, v as views of one fused qkv tensor, D=16,
+   32, 48 and 128, and two launches at the LM shape giving the same bits)
+   and decode attention (8 slots x 256 positions, ragged lengths, also at
+   D=16 and 48) — then each kernel's time
+   beside its plain version's, one PyTorch library call's
+   (``scaled_dot_product_attention``, a yardstick the port never calls)
+   and the least time the card could take, the flash forward also at the
+   LM training shape (B=8, T=256, H=4, D=64, causal).
 3. End to end at the CLI's default model (``TransformerLM(dim=256,
    depth=4, heads=4, seq_len=256)``, seeded weights): the engine is
    built and warmed as ``cli serve --generate`` does, ``ServeServer``
@@ -51,7 +55,7 @@ Phases (any failure ends the run with a non-zero exit and no result):
 6. The flash backward kernels — K3 (dq) and K4 (dk/dv) — against their
    plain versions on the card, in float32, with a nonzero ``dlse``: the
    training shape (B=8, T=256, H=4, D=64, causal), non-causal, a ragged
-   T_q, offsets (0, 64) with fully-masked rows, D=32, D=128, q and k
+   T_q, offsets (0, 64) with fully-masked rows, D=16, 32, 48 and 128, q and k
    scaled by 8 at the training shape (held to a float64 evaluation of the
    same formulas, within 2e-5 of the scale or the float32 plain version's
    own gap from it, whichever is larger),
@@ -77,8 +81,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
    55, 55) and (32, 256, 27, 27), ragged and small shapes, C < n, n = 3
    and a beta on the powf path (K5/K6), the JAX tests' shapes and a tie
    case (K7/K8, whose routing must equal the plain version's bit for
-   bit); forward rtol 2e-5 / atol 2e-6, backward 5e-5 / 5e-6.  Then each
-   kernel's time per training step (both sandwiches) beside its plain
+   bit, and K8's dx too); forward rtol 2e-5 / atol 2e-6, backward 5e-5 /
+   5e-6.  Then each kernel's time per training step (both sandwiches,
+   and each sandwich alone with its bound) beside its plain
    version's, the least time the card could take and a library
    yardstick the port never calls (``F.local_response_norm``, then
    ``F.max_pool2d`` for K7/K8; backward: forward+backward minus
@@ -95,7 +100,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
    0 and within 2e-3 in every round (a second run of the default leg
    shows how far two runs of one program drift apart); the default leg's
    first round on the card against the same round on the CPU, after one
-   local step and after tau; one round of each leg profiled.  Where Pillow imports,
+   local step and after tau, and both against the same round on the CPU
+   in float64; one round of each leg profiled.  Where Pillow imports,
    ``imagenet_app.main`` also runs on synthesized JPEG shards at a small
    size, driving the data stage.
 
@@ -130,8 +136,8 @@ TIE_MARGIN = 1e-4
 BWD_RTOL = 2e-5
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32
-# operations/s outside the tensor cores (every kernel but K3/K4 runs
-# fp32 FMA), TF32 operations/s on the tensor cores (K3/K4 run each
+# operations/s outside the tensor cores (every kernel but K1/K3/K4 runs
+# fp32 FMA), TF32 operations/s on the tensor cores (K1/K3/K4 run each
 # product as three TF32 products)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
@@ -230,6 +236,26 @@ def check_kernels(dev):
               f"max_abs_err {e:.3e}")
         check(e <= KERNEL_ATOL, f"flash_fwd disagrees at {tq}x{tk}: {e}")
         flash_err = max(flash_err, e)
+    # the LM training shape, q, k and v apart and as views of one fused
+    # qkv tensor; D = 16, 32, 48 and 128
+    LB, LT = LM_BATCH, LM_MODEL["seq_len"]
+    for what, (q, k, v) in (
+            ("LM shape", (rand(LB, LT, H, D) for _ in range(3))),
+            ("LM shape, fused-qkv views", rand(LB, LT, 3, H, D).unbind(2)),
+            ("D=16", (rand(2, 70, H, 16) for _ in range(3))),
+            ("D=32", (rand(2, 70, H, 32) for _ in range(3))),
+            ("D=48", (rand(2, 100, H, 48) for _ in range(3))),
+            ("D=128", (rand(2, 100, H, 128) for _ in range(3)))):
+        o, lse = ca._flash_core(q, k, v, 0, 0, True)
+        o_ref, lse_ref = ca._flash_core_reference(q, k, v, 0, 0, True)
+        e = max(max_err(o, o_ref), max_err(lse, lse_ref))
+        print(f"K1 flash_fwd {what} {tuple(q.shape)} causal: max_abs_err {e:.3e}")
+        check(e <= KERNEL_ATOL, f"flash_fwd disagrees ({what}): {e}")
+        flash_err = max(flash_err, e)
+        if what == "LM shape":  # the split partials' merge order is fixed
+            again = ca._flash_core(q, k, v, 0, 0, True)
+            check(torch.equal(again[0], o) and torch.equal(again[1], lse),
+                  "flash_fwd: two launches on the same inputs differ")
     # absolute offsets: keys start at 64, so query rows 0..63 see nothing
     q, k, v = rand(B, 128, H, D), rand(B, 128, H, D), rand(B, 128, H, D)
     o, lse = ca._flash_core(q, k, v, 0, 64, True)
@@ -252,6 +278,13 @@ def check_kernels(dev):
     print(f"K2 decode_attention B={Bd} S={S} lengths "
           f"{lengths.tolist()}: max_abs_err {dec_err:.3e}")
     check(dec_err <= KERNEL_ATOL, f"decode_attention disagrees: {dec_err}")
+    for d in (16, 48):
+        qs, ks, vs = rand(Bd, 1, H, d), rand(Bd, S, H, d), rand(Bd, S, H, d)
+        e = max_err(ca.decode_attention(qs, ks, vs, lengths),
+                    ca.decode_attention_reference(qs, ks, vs, lengths))
+        print(f"K2 decode_attention D={d}: max_abs_err {e:.3e}")
+        check(e <= KERNEL_ATOL, f"decode_attention disagrees at D={d}: {e}")
+        dec_err = max(dec_err, e)
 
     def timed(record, kernel, plain, library=None):
         """Per-call times of the kernel, its plain version and the
@@ -279,7 +312,8 @@ def check_kernels(dev):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     pairs = B * H * T * (T + 1) // 2  # visible (query, key) pairs
     flash_bytes = 4 * (4 * B * T * H * D + B * H * T)  # q,k,v,o + lse
-    fb, fby = bound_ms(flash_bytes, 4 * D * pairs)  # 2 products, 2 ops/MAC
+    # 2 products, 2 ops a MAC, each product three TF32 products
+    fb, fby = bound_ms(flash_bytes, 3 * 4 * D * pairs, PEAK_TF32_S)
     flash = timed(
         dict(
             name="flash_fwd", route="cuda",
@@ -311,6 +345,20 @@ def check_kernels(dev):
         lambda: ca.decode_attention_reference(qd, kd, vd, lengths),
         lambda: F.scaled_dot_product_attention(qdt, kdt, vdt, attn_mask=mask),
     )
+    # K1 at the LM training shape, beside its SDPA yardstick and bound
+    q, k, v = (rand(LB, LT, H, D) for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = LB * H * LT * (LT + 1) // 2
+    lb, lby = bound_ms(4 * (4 * LB * LT * H * D + LB * H * LT), 3 * 4 * D * pairs,
+                       PEAK_TF32_S)
+    lm = timed({}, lambda: ca.flash_attention(q, k, v, True),
+               lambda: ca.flash_attention_reference(q, k, v, True),
+               lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    print(f"K1 flash_fwd [B={LB} T={LT} H={H} D={D} causal fp32] on device: "
+          f"kernel {lm['ms']:.4f} ms ({lm['call_ms']:.4f} per call), plain "
+          f"{lm['plain_ms']:.4f} ms, library {lm['library_ms']:.4f} ms, bound "
+          f"{lb * 1e3:.3f} us ({lby}, 3xTF32: {lb / lm['ms']:.1%} of it)")
+    flash["lm_shape"] = dict(lm, bound_ms=lb, bound_by=lby)
     for r in (flash, decode):
         print(f"{r['name']} [{r['shape']}] on device (per call as a caller "
               f"waits): kernel {r['ms']:.4f} ms ({r['call_ms']:.4f}), plain "
@@ -894,7 +942,9 @@ def check_bwd_kernels(dev):
         ("ragged T_q", (2, 37, 100, H, D, 63, 0, True), {}),
         ("offsets (0, 64), 64 fully-masked rows",
          (2, 128, 128, H, D, 0, 64, True), {}),
+        ("D=16", (2, 70, 70, H, 16, 0, 0, True), {}),
         ("D=32", (2, 70, 70, H, 32, 0, 0, True), {}),
+        ("D=48", (2, 100, 100, H, 48, 0, 0, True), {}),
         ("D=128", (2, 100, 100, H, 128, 0, 0, True), {}),
         (f"q, k x{BWD_LARGE:g}", (B, T, T, H, D, 0, 0, True),
          dict(mag=BWD_LARGE)),
@@ -1265,8 +1315,10 @@ def check_lrn_kernels(dev, card):
                     LRN_BWD_TOL, f"K8 {shape}")
         check(bool(torch.equal(routed, cp.route_reference(x, dy))),
               f"K8 {shape}: routed positions differ from the plain version")
+        check(bool(torch.equal(dx, cp.lrn_maxpool_bwd_reference(x, dy, *LRN_HP))),
+              f"K8 {shape}: dx differs from the plain version's bits")
         print(f"K7/K8 lrn_pool {shape}{' ties' if ties else ''}: max_abs_err "
-              f"fwd {ef:.3e}, bwd {eb:.3e}, routing bit-equal")
+              f"fwd {ef:.3e}, bwd {eb:.3e}, routing and K8's dx bit-equal")
         err["lrn_pool_fwd"] = max(err["lrn_pool_fwd"], ef)
         err["lrn_pool_bwd"] = max(err["lrn_pool_bwd"], eb)
 
@@ -1350,7 +1402,13 @@ def check_lrn_kernels(dev, card):
                    "lrn_bwd": lambda: cl.lrn_bwd(xs[i], dys[i], *LRN_HP),
                    "lrn_pool_fwd": lambda: cp.lrn_pool_fwd(xs[i], *LRN_HP),
                    "lrn_pool_bwd": lambda: cp.lrn_pool_bwd(xs[i], dps[i], *LRN_HP)}
-            print(f"    {s}: kernel {device_ms(one[name]):.4f} ms")
+            one_bytes = {"lrn_fwd": 2 * sizes[i], "lrn_bwd": 3 * sizes[i],
+                         "lrn_pool_fwd": sizes[i] + pooled[i],
+                         "lrn_pool_bwd": 2 * sizes[i] + pooled[i]}[name]
+            ms = device_ms(one[name])
+            one_bound = one_bytes / PEAK_BYTES_S * 1e3
+            print(f"    {s}: kernel {ms:.4f} ms, bound {one_bound * 1e3:.3f} us "
+                  f"(bytes) -> {one_bound / ms:.1%} of the bound")
         records.append(rec)
     # the unfused sandwich the fusion replaces: K5 then max_pool2d
     unfused = device_ms(each(lambda i: F.max_pool2d(cl.lrn_fwd(xs[i], *LRN_HP),
@@ -1409,11 +1467,16 @@ def _imnet_first_round_matches_cpu(dev, parts, mean):
     init and one set of windows (the same crops and dropout masks: both
     drawn on the CPU from the same keys), once with one local step and
     once with tau: each parameter blob's difference relative to the
-    largest entry of its update on the CPU.  Returns ``{steps: (worst,
-    the three worst blobs, max |loss diff|)}``."""
+    largest entry of its update on the CPU.  The round also runs on the
+    CPU in float64 (params, momentum and the transformed batch cast), the
+    referee of the card's float32 and the CPU's.  Returns ``{steps:
+    (worst, the three worst blobs, max |loss diff|)}`` and ``{("float64",
+    steps): (card, cpu)}``: each side's worst blob's distance from the
+    float64 run relative to its update, with the other side's there."""
     from sparknet_tpu_torch.apps import imagenet_app
     from sparknet_tpu_torch.data import MinibatchSampler, stack_windows
     from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
+    from sparknet_tpu_torch.utils.tree import tree_map
 
     batch = stack_windows([
         MinibatchSampler({"data": x, "label": y.astype(np.float32)},
@@ -1422,23 +1485,37 @@ def _imnet_first_round_matches_cpu(dev, parts, mean):
     init, out = None, {}
     for steps in (1, IMNET_TAU):
         runs = []
-        for d in (dev, torch.device("cpu")):
+        for d, f64 in ((dev, False), (torch.device("cpu"), False),
+                       (torch.device("cpu"), True)):
             solver = imagenet_app.build_solver(_imnet_args(d), mean, d)
-            tr = ParameterAveragingTrainer(solver, IMNET_W)
             init = init if init is not None else solver.init_state(0)
-            st, losses = tr.round(tr.broadcast_state(init), {
+            start = init
+            if f64:
+                cast = solver.train_transform
+                solver.train_transform = lambda mb, key: {
+                    k: v.double() if v.is_floating_point() else v
+                    for k, v in cast(mb, key).items()}
+                start = init._replace(
+                    params=tree_map(lambda t: t.double(), init.params),
+                    history=tree_map(lambda t: t.double(), init.history))
+            tr = ParameterAveragingTrainer(solver, IMNET_W)
+            st, losses = tr.round(tr.broadcast_state(start), {
                 k: torch.from_numpy(v[:, :steps]).to(d) for k, v in batch.items()})
             runs.append((st.params, losses.cpu()))
-        rel = []
+        rel, vs64 = [], []
         for name, blobs in init.params.items():
             for i, p0 in enumerate(blobs):
                 g, c = runs[0][0][name][i].cpu(), runs[1][0][name][i]
-                size = float((c - p0.cpu()[None]).abs().max())
-                rel.append((float((g - c).abs().max()) / max(size, 1e-30),
-                            f"{name}[{i}]"))
+                size = max(float((c - p0.cpu()[None]).abs().max()), 1e-30)
+                rel.append((float((g - c).abs().max()) / size, f"{name}[{i}]"))
+                x = runs[2][0][name][i]
+                vs64.append((float((g.double() - x).abs().max()) / size,
+                             float((c.double() - x).abs().max()) / size,
+                             f"{name}[{i}]"))
         rel.sort(reverse=True)
         out[steps] = (rel[0][0], rel[:3],
                       float((runs[0][1] - runs[1][1]).abs().max()))
+        out["float64", steps] = (max(vs64), max(vs64, key=lambda r: r[1]))
     return out
 
 
@@ -1531,10 +1608,19 @@ def imagenet_train_end_to_end(dev, card):
         print(f"AlexNet {leg} vs default, per-round losses apart (relative): "
               + " ".join(f"{x:.3e}" for x in g))
     vs_cpu = _imnet_first_round_matches_cpu(dev, train_parts, mean)
-    for steps, (worst, top, gap) in vs_cpu.items():
+    for steps in (1, IMNET_TAU):
+        worst, top, gap = vs_cpu[steps]
         print(f"AlexNet first round ({steps} local step(s)) on the card vs the "
               f"CPU: worst |diff| {worst:.3e} of the update, losses {gap:.3e}; "
               + ", ".join(f"{n} {r:.3e}" for r, n in top))
+    for steps in (1, IMNET_TAU):
+        (card_gap, cpu_at, name), (cpu_card_at, cpu_gap, cpu_name) = \
+            vs_cpu["float64", steps]
+        print(f"AlexNet first round ({steps} local step(s)) against float64 on "
+              f"the CPU, relative to the update: the card lies {card_gap:.3e} "
+              f"away at its worst blob {name} (the CPU's float32 there "
+              f"{cpu_at:.3e}); the CPU's float32 lies {cpu_gap:.3e} away at its "
+              f"worst blob {cpu_name} (the card there {cpu_card_at:.3e})")
     for leg, fusion in (("default", "0"), ("fused", "1")):
         where_imnet_time_goes(dev, card, leg, fusion, train_parts, mean)
     for steps, limit in ((1, IMNET_CPU_TOL), (IMNET_TAU, IMNET_CPU_ROUND_TOL)):

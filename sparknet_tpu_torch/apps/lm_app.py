@@ -161,6 +161,13 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             f"seq_len={args.seq_len} ({lm.num_params()} params), attention "
             f"{lm.attention}; {n_workers} workers on {device}"
         )
+        if not lm.on_kernel:
+            path = "dense mha_reference (--dense_attention)"
+        elif torch.device(device).type == "cuda":
+            path = "flash kernels (K1 forward, K3/K4 backward)"
+        else:
+            path = "plain versions of the flash kernels (CPU tensors)"
+        log.log(f"attention path: {path}")
         metrics = TrainingMetrics()
         metrics.kernel_path.labels("attention").set(1.0 if lm.on_kernel else 0.0)
         trainer = ParameterAveragingTrainer(

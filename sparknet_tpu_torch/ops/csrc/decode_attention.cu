@@ -10,7 +10,9 @@
 // positions (warp w takes positions w, w + 8, ...); a warp reads one
 // key row at a time with its 32 lanes across D (coalesced), reduces the
 // dot product with shuffles, and keeps its own running max, sum and
-// output slice (D/32 values per lane) in registers, in fp32.  Positions
+// output slice (ceil(D/32) values per lane; at D = 16 or 48 the last of
+// them idles on half the lanes) in registers, in fp32.  Built for every
+// head dim of head_dims.cuh.  Positions
 // at or past lengths[b] are never read.  At the end the 8 partial
 // softmax states are merged through shared memory.  The TPU kernel
 // masks a whole static S with a select; here the loop simply stops at
@@ -26,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "head_dims.cuh"
+
 namespace {
 
 constexpr int NW = 8;  // warps per block
@@ -39,7 +43,7 @@ __global__ void __launch_bounds__(NW * 32) decode_kernel(
     long long sqb, long long sqh,
     long long skb, long long sks, long long skh,
     long long svb, long long svs, long long svh, float scale) {
-  constexpr int DPL = D / 32;  // elements of D per lane
+  constexpr int DPL = (D + 31) / 32;  // elements of D per lane
   __shared__ float sm_m[NW];
   __shared__ float sm_l[NW];
   __shared__ float sm_acc[NW][D];
@@ -57,7 +61,7 @@ __global__ void __launch_bounds__(NW * 32) decode_kernel(
   float qv[DPL], acc[DPL];
 #pragma unroll
   for (int e = 0; e < DPL; ++e) {
-    qv[e] = qp[lane + 32 * e];
+    qv[e] = lane + 32 * e < D ? qp[lane + 32 * e] : 0.f;
     acc[e] = 0.f;
   }
   float m = -CUDART_INF_F, l = 0.f;
@@ -66,7 +70,8 @@ __global__ void __launch_bounds__(NW * 32) decode_kernel(
     const float* kp = kb + t * sks;
     float part = 0.f;
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) part = fmaf(qv[e], kp[lane + 32 * e], part);
+    for (int e = 0; e < DPL; ++e)
+      if (lane + 32 * e < D) part = fmaf(qv[e], kp[lane + 32 * e], part);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       part += __shfl_xor_sync(FULL, part, off);
@@ -78,7 +83,7 @@ __global__ void __launch_bounds__(NW * 32) decode_kernel(
     const float* vp = vb + t * svs;
 #pragma unroll
     for (int e = 0; e < DPL; ++e)
-      acc[e] = fmaf(p, vp[lane + 32 * e], acc[e] * alpha);
+      if (lane + 32 * e < D) acc[e] = fmaf(p, vp[lane + 32 * e], acc[e] * alpha);
     m = m_new;
   }
 
@@ -87,7 +92,8 @@ __global__ void __launch_bounds__(NW * 32) decode_kernel(
     sm_l[w] = l;
   }
 #pragma unroll
-  for (int e = 0; e < DPL; ++e) sm_acc[w][lane + 32 * e] = acc[e];
+  for (int e = 0; e < DPL; ++e)
+    if (lane + 32 * e < D) sm_acc[w][lane + 32 * e] = acc[e];
   __syncthreads();
 
   for (int d = threadIdx.x; d < D; d += NW * 32) {
@@ -132,16 +138,12 @@ extern "C" int sparknet_decode_attention_f32(
     long long svb, long long svs, long long svh, float scale,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LAUNCH(d)                                                         \
+  case d:                                                                 \
+    return launch<d>(q, k, v, lengths, o, B, H, S, sqb, sqh, skb, sks, skh, \
+                     svb, svs, svh, scale, s);
   switch (D) {
-    case 32:
-      return launch<32>(q, k, v, lengths, o, B, H, S, sqb, sqh, skb, sks,
-                        skh, svb, svs, svh, scale, s);
-    case 64:
-      return launch<64>(q, k, v, lengths, o, B, H, S, sqb, sqh, skb, sks,
-                        skh, svb, svs, svh, scale, s);
-    case 128:
-      return launch<128>(q, k, v, lengths, o, B, H, S, sqb, sqh, skb, sks,
-                         skh, svb, svs, svh, scale, s);
+    FLASH_HEAD_DIMS(LAUNCH)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

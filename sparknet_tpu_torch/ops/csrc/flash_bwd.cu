@@ -5,7 +5,8 @@
 // (sparknet_tpu/ops/pallas_attention.py:188):
 //   K3 _bwd_dq_kernel  (:91,  pallas_call at :200) -> flash_bwd_dq_kernel
 //   K4 _bwd_dkv_kernel (:119, pallas_call at :218) -> flash_bwd_dkv_kernel
-// with the JAX package's formulas, per (batch*head):
+// with the JAX package's formulas, per (batch*head), for every head dim of
+// head_dims.cuh:
 //   s     = scale * q k^T, causal mask from ABSOLUTE positions (query row
 //           r at q_offset + r, key column c at k_offset + c)
 //   p     = exp(s - lse_safe), lse_safe = 0 on rows whose lse is -inf
@@ -16,16 +17,11 @@
 // Masked entries give p = 0 exactly, so a fully-masked row contributes
 // nothing and never produces NaN.
 //
-// Precision.  Every product runs as mma.sync m16n8k8 with TF32 operands,
-// split three ways ("3xTF32"): each float32 operand x becomes hi =
-// cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and a b is taken as
-// a_lo b_hi + a_hi b_lo + a_hi b_hi (the small terms first) into a fresh
-// float32 accumulator per 8-deep step, which is then added to the
-// running sum.  The dropped a_lo b_lo term is ~2^-22 of the product, so
-// the results keep float32 accuracy: at the training shape they lie
-// ~1e-6 of the output's magnitude from the plain float32 version, where
-// one TF32 pass would lie ~5e-4 away (tests/test_torch_flash_bwd.py
-// emulates both).
+// Precision.  Every product runs as three TF32 mma.sync m16n8k8 products
+// of hi/lo splits (flash_common.cuh), so the results keep float32
+// accuracy: at the training shape they lie ~1e-6 of the output's
+// magnitude from the plain float32 version, where one TF32 pass would lie
+// ~5e-4 away (tests/test_torch_flash_bwd.py emulates both).
 //
 // Design.  On the TPU, the dq kernel is gridded per q-block and the
 // dk/dv kernel per (batch*head) with all of T_q and T_k in VMEM.  Here
@@ -62,9 +58,8 @@
 // taken as an A operand whose k slots t and t+4 stand for columns 2t and
 // 2t+1, and the B operand is read with the same permutation.  Shared
 // tiles are unpadded rows of D floats with 16-byte chunks XOR-swizzled
-// by the row (column c of row r at c ^ 4(r mod 8)), so both the
-// row-wise B reads (k^T, v^T, q^T, do^T) and the column-wise ones (k, q,
-// do) hit 32 distinct banks.  Blocks are numbered heaviest first under
+// by the row (flash_common.cuh), so the row-wise B reads (k^T, v^T, q^T,
+// do^T) and the column-wise ones (k, q, do) spread over the banks.  Blocks are numbered heaviest first under
 // the causal mask (K3's last query tiles, K4's first key tiles), so the
 // long ones start before the short ones fill the card.  Inputs are read
 // through their (B, T, H, D) strides: every row must start on 16 bytes
@@ -83,9 +78,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "flash_common.cuh"
+#include "head_dims.cuh"
 
-constexpr unsigned FULL = 0xffffffffu;
+namespace {
 
 // K3: a block owns Q_GROUPS x 16 query rows.  Q_SPLIT warps share each
 // group of 16 rows; every stage holds Q_SPLIT x Q_SLICE keys, and each of
@@ -129,145 +125,6 @@ __device__ __forceinline__ float lse_safe(float l) {
   return isfinite(l) ? l : 0.f;
 }
 
-// ---------------------------------------------------------------------
-// split TF32 on mma.sync m16n8k8
-// ---------------------------------------------------------------------
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// an A operand (rows g, g+8 at k slots t, t+4) or B operand (k slots t,
-// t+4 at column g) of one m16n8k8, as hi and lo TF32 parts
-template <int N>
-struct Frag {
-  uint32_t hi[N], lo[N];
-};
-
-template <int N>
-__device__ __forceinline__ Frag<N> split(const float (&x)[N]) {
-  Frag<N> f;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    f.hi[i] = to_tf32(x[i]);
-    f.lo[i] = to_tf32(x[i] - __uint_as_float(f.hi[i]));
-  }
-  return f;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2],
-                                         const float (&c)[4]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%10, %11, %12, %13};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
-
-// c += a b at float32 accuracy (3xTF32, one fresh accumulator per step)
-__device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a,
-                                     const Frag<2>& b) {
-  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
-  float t[4];
-  mma_tf32(t, a.lo, b.hi, zero);
-  mma_tf32(t, a.hi, b.lo, t);
-  mma_tf32(t, a.hi, b.hi, t);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) c[i] += t[i];
-}
-
-// The accumulator (rows g, g+8; columns 2t, 2t+1) as an A operand whose k
-// slots t, t+4 stand for columns 2t, 2t+1: no data moves between lanes.
-__device__ __forceinline__ Frag<4> acc_as_a(const float (&c)[4]) {
-  const float x[4] = {c[0], c[2], c[1], c[3]};
-  return split(x);
-}
-
-// ---------------------------------------------------------------------
-// shared tiles: rows of D floats, 16-byte chunks swizzled by the row
-// ---------------------------------------------------------------------
-template <int D>
-__device__ __forceinline__ int sw(int r, int c) {
-  return r * D + (c ^ ((r & 7) << 2));
-}
-
-// B operand, k along the row: (row n, columns c, c + 4)
-template <int D>
-__device__ __forceinline__ Frag<2> b_rowwise(const float* tile, int n, int c) {
-  const float x[2] = {tile[sw<D>(n, c)], tile[sw<D>(n, c + 4)]};
-  return split(x);
-}
-
-// B operand, k down the column in the permuted slots: rows r, r + 1
-template <int D>
-__device__ __forceinline__ Frag<2> b_colwise(const float* tile, int r, int c) {
-  const float x[2] = {tile[sw<D>(r, c)], tile[sw<D>(r + 1, c)]};
-  return split(x);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// every group but the newest has landed (for this thread's copies)
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
-
-// rows [t0, t0 + R) of a (T, D) slice with row stride st, rows past T
-// as zeros
-template <int D, int R, int NT>
-__device__ __forceinline__ void load_tile(float* tile, const float* base,
-                                          long long st, int t0, int T) {
-  constexpr int CH = D / 4;
-  for (int i = threadIdx.x; i < R * CH; i += NT) {
-    const int r = i / CH, c = (i % CH) * 4;
-    const bool in = t0 + r < T;
-    cp_async16(tile + sw<D>(r, c), in ? base + (t0 + r) * st + c : base, in);
-  }
-}
-
-// this thread's A fragments of rows ra, rb of a (T, D) slice
-__device__ __forceinline__ float4 a_from_global(const float* base,
-                                                long long st, int ra, int rb,
-                                                bool ina, bool inb, int c) {
-  float4 x;
-  x.x = ina ? base[ra * st + c] : 0.f;
-  x.y = inb ? base[rb * st + c] : 0.f;
-  x.z = ina ? base[ra * st + c + 4] : 0.f;
-  x.w = inb ? base[rb * st + c + 4] : 0.f;
-  return x;
-}
-
-__device__ __forceinline__ Frag<4> split4(float4 v) {
-  const float x[4] = {v.x, v.y, v.z, v.w};
-  return split(x);
-}
-
-// a presplit A operand in shared memory: hi and lo parts, one uint4 each
-// per lane, [KS][32] for each group of 16 rows
-__device__ __forceinline__ void store_a(uint4* hi, uint4* lo, float4 v) {
-  const Frag<4> f = split4(v);
-  *hi = make_uint4(f.hi[0], f.hi[1], f.hi[2], f.hi[3]);
-  *lo = make_uint4(f.lo[0], f.lo[1], f.lo[2], f.lo[3]);
-}
-
-__device__ __forceinline__ Frag<4> load_a(const uint4* hi, const uint4* lo) {
-  const uint4 h = *hi, l = *lo;
-  return {{h.x, h.y, h.z, h.w}, {l.x, l.y, l.z, l.w}};
-}
-
 template <int D>
 constexpr size_t dq_smem_bytes() {
   return sizeof(uint4) * 4 * Q_GROUPS * (D / 8) * 32 +
@@ -290,7 +147,6 @@ __global__ void __launch_bounds__(Q_NT, 2) flash_bwd_dq_kernel(const Args a) {
   constexpr int NK = Q_SLICE / 8;  // 8-key column groups of a slice
   constexpr int TILE = Q_STAGE * D;
   constexpr int FR = Q_GROUPS * KS * 32;
-  static_assert(KS % Q_SPLIT == 0, "each split sums a share of dq's columns");
   static_assert(Q_GROUPS * Q_SPLIT * KS * 32 * 4 <= 4 * TILE,
                 "the dq partials fit in the stages");
   extern __shared__ uint4 smem4[];
@@ -424,7 +280,7 @@ __global__ void __launch_bounds__(Q_NT, 2) flash_bwd_dq_kernel(const Args a) {
   }
 
   // the group's Q_SPLIT partials, summed in split order: each warp sums
-  // and stores KS / Q_SPLIT of the 8-column groups
+  // and stores up to PER of the 8-column groups
   float4* part = reinterpret_cast<float4*>(Ks);  // [group][split][KS][lane]
   float4* mine = part + (group * Q_SPLIT + split_id) * KS * 32 + lane;
 #pragma unroll
@@ -432,9 +288,11 @@ __global__ void __launch_bounds__(Q_NT, 2) flash_bwd_dq_kernel(const Args a) {
     mine[dn * 32] = make_float4(acc[dn][0], acc[dn][1], acc[dn][2], acc[dn][3]);
   __syncthreads();
   const float4* first = part + group * Q_SPLIT * KS * 32 + lane;
+  constexpr int PER = (KS + Q_SPLIT - 1) / Q_SPLIT;
 #pragma unroll
-  for (int i = 0; i < KS / Q_SPLIT; ++i) {
-    const int dn = split_id * (KS / Q_SPLIT) + i;
+  for (int i = 0; i < PER; ++i) {
+    const int dn = split_id * PER + i;
+    if (dn >= KS) break;
     float4 sum = first[dn * 32];
 #pragma unroll
     for (int sp = 1; sp < Q_SPLIT; ++sp) {
@@ -470,7 +328,6 @@ __global__ void __launch_bounds__(32 * K_GROUPS * k_split<D>())
   constexpr int TILE = STAGE * D;
   constexpr int FR = K_GROUPS * KS * 32;
   constexpr int LPR = NT / STAGE;  // lanes per row for delta
-  static_assert(KS % SPLIT == 0, "each split sums a share of dk/dv's columns");
   static_assert(2 * K_GROUPS * SPLIT * KS * 32 * 4 <= 6 * TILE,
                 "the dk/dv partials fit in the stages");
   extern __shared__ uint4 smem4[];
@@ -622,7 +479,7 @@ __global__ void __launch_bounds__(32 * K_GROUPS * k_split<D>())
   }
 
   // the group's SPLIT partials, summed in split order: each warp sums and
-  // stores KS / SPLIT of the 8-column groups of dk and dv
+  // stores up to PER of the 8-column groups of dk and dv
   float4* part = reinterpret_cast<float4*>(Qs);  // [group][split][2][KS][lane]
   float4* mine = part + (group * SPLIT + split_id) * 2 * KS * 32 + lane;
 #pragma unroll
@@ -633,12 +490,14 @@ __global__ void __launch_bounds__(32 * K_GROUPS * k_split<D>())
   }
   __syncthreads();
   const float4* first = part + group * SPLIT * 2 * KS * 32 + lane;
+  constexpr int PER = (KS + SPLIT - 1) / SPLIT;
 #pragma unroll
   for (int out = 0; out < 2; ++out) {
     float* dst = out ? a.dv : a.dk;
 #pragma unroll
-    for (int i = 0; i < KS / SPLIT; ++i) {
-      const int dn = split_id * (KS / SPLIT) + i;
+    for (int i = 0; i < PER; ++i) {
+      const int dn = split_id * PER + i;
+      if (dn >= KS) break;
       float4 sum = first[(out * KS + dn) * 32];
 #pragma unroll
       for (int sp = 1; sp < SPLIT; ++sp) {
@@ -659,16 +518,6 @@ __global__ void __launch_bounds__(32 * K_GROUPS * k_split<D>())
             make_float2(sum.z, sum.w);
     }
   }
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* configured) {
-  if (*configured) return cudaSuccess;  // above 48 KB a block needs the opt-in
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (e == cudaSuccess) *configured = true;
-  return e;
 }
 
 template <int D>
@@ -744,10 +593,11 @@ extern "C" int sparknet_flash_bwd_dq_f32(
                            H, Tq, Tk, strides, q_offset, k_offset, causal,
                            scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LAUNCH_DQ(d) \
+  case d:             \
+    return launch_dq<d>(a, B, s);
   switch (D) {
-    case 32: return launch_dq<32>(a, B, s);
-    case 64: return launch_dq<64>(a, B, s);
-    case 128: return launch_dq<128>(a, B, s);
+    FLASH_HEAD_DIMS(LAUNCH_DQ)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -761,10 +611,11 @@ extern "C" int sparknet_flash_bwd_dkv_f32(
   const Args a = make_args(q, k, v, o, dout, lse, dlse, nullptr, dk, dv, H, Tq,
                            Tk, strides, q_offset, k_offset, causal, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LAUNCH_DKV(d) \
+  case d:              \
+    return launch_dkv<d>(a, B, s);
   switch (D) {
-    case 32: return launch_dkv<32>(a, B, s);
-    case 64: return launch_dkv<64>(a, B, s);
-    case 128: return launch_dkv<128>(a, B, s);
+    FLASH_HEAD_DIMS(LAUNCH_DKV)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

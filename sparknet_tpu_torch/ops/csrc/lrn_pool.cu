@@ -17,19 +17,27 @@
 //
 // Backward (K8).  Recomputed from x alone (the custom_vjp saves only x,
 // pallas_plp.py:281-307).  One block per (image, channel chunk, tile of
-// 16 x 16 dx positions).  With stride 2 and kernel 3, windows share
-// their border row and column, so a position's routed gradient depends
-// on up to four windows, which reach two rows and columns before the
-// tile and one after: the block computes y on the 19 x 19 positions of
-// the tile plus that halo (the TPU kernel's pre/post halo blocks,
-// :330-345), so no two blocks write one dx and no atomics are needed.
-// Per channel j the block routes in three steps, each on shared memory
-// and each computed once: (1) one thread per window of the tile's 9 x 9
-// windows picks the window's column; (2) one thread per (window-row,
-// tile column) sums the gradients the column receives and picks its
-// row; (3) each tile position reads what its (at most two) window-rows
-// routed to it, forms the LRN backward term g x p / scale, and keeps the
-// last 2D+1 terms in registers; D channels later it writes dx.
+// dx positions shaped to the plane: one shape for narrow planes, one for
+// wide ones, chosen by tools/lrn_pool_tiles.py).  With stride 2 and
+// kernel 3, windows share their border row and column, so a position's
+// routed gradient depends on up to four windows, which reach two rows and
+// columns before the tile and one after: the block computes y on the tile
+// plus that halo (the TPU kernel's pre/post halo blocks, :330-345), so no
+// two blocks write one dx and no atomics are needed.  A tile as wide as a
+// narrow plane, or half a wide one, spends few threads on the halo.  The
+// block routes K8_G channels per group of three barriers, each step on
+// shared memory and each computed once per channel: (1) one thread per
+// (channel, window) picks the window's column; (2) one thread per
+// (channel, window-row, tile column) sums the gradients the column
+// receives and picks its row; (3) each tile position reads what its (at
+// most two) window-rows routed to it, forms the LRN backward term
+// g x p / scale, and keeps the last 2D+1 terms in registers; D channels
+// later it writes dx.  x (by cp.async, into shared memory) and dy (into
+// registers) are loaded a group ahead, so their latency hides behind the
+// group's barriers; the dy values of both candidate windows are loaded
+// and selected after the routing.  The group's p and scale wait in shared
+// memory from the first step to the last, which keeps the registers
+// under the 64 a 992-thread block allows.
 //
 // Routing is the Pallas kernel's, not Caffe's row-major scan.  Stage 1
 // (:192-212): a window sends its gradient to the FIRST COLUMN b = 0, 1, 2
@@ -43,9 +51,9 @@
 //
 // Bound on this card: bytes.  K7 reads x and writes the pooled tensor
 // (|x| + |x|/4 per image); K8 reads x and the pooled dy and writes dx
-// (2|x| + |x|/4).  Both recompute y on a tile's halo (17^2/16^2 and
-// 19^2/16^2 of the tile) and take one barrier (K7) or three (K8) per
-// channel; tensor cores and TMA have no role (no matrix product).  Built
+// (2|x| + |x|/4).  Both recompute y on a tile's halo (K7 17^2/16^2 of
+// the tile) and take one barrier (K7) or three per K8_G channels (K8);
+// tensor cores and TMA have no role (no matrix product).  Built
 // without --use_fast_math; every operation of the LRN is an explicitly
 // rounded intrinsic, as in lrn.cu.
 
@@ -58,10 +66,6 @@ namespace {
 constexpr int TP = 8;                  // K7: pooled rows and columns per tile
 constexpr int FW = 2 * TP + 1;         // K7: input window side (17)
 constexpr int FWD_THREADS = 320;       // >= FW * FW, whole warps
-constexpr int TB = 16;                 // K8: dx rows and columns per tile
-constexpr int BW = TB + 3;             // K8: tile + 2 halo before, 1 after
-constexpr int BWD_THREADS = 384;       // >= BW * BW, whole warps
-constexpr int WN = TB / 2 + 1;         // K8: window rows, columns per tile
 
 // max that keeps a NaN from either side (torch.maximum / jnp.maximum)
 __device__ __forceinline__ float max_nan(float a, float b) {
@@ -117,29 +121,100 @@ __global__ void __launch_bounds__(FWD_THREADS) lrn_pool_fwd_kernel(
   }
 }
 
+// K8's dx tiles (rows, columns) and the blocks an SM should hold: one
+// shape for planes up to K8_NARROW columns wide, one for wider planes
+// (even sides; a tile may reach past the plane, whose positions stay
+// idle).  The block's threads cover the tile and its halo, (rows + 3) x
+// (columns + 3) positions.  These constants were chosen by
+// tools/lrn_pool_tiles.py, which times the alternatives (PERF.md §6).
+constexpr int K8_NARROW = 32;
+constexpr int K8_TH_NARROW = 28, K8_TW_NARROW = 28, K8_MB_NARROW = 1;
+constexpr int K8_TH_WIDE = 14, K8_TW_WIDE = 28, K8_MB_WIDE = 2;
+constexpr int K8_G = 4;    // channels per barrier group
+constexpr int K8_IPT = 2;  // stage-2 items a thread may own
+
+template <int TH_, int TW_>
+struct K8Shape {
+  static constexpr int TH = TH_, TW = TW_;
+  static constexpr int BW = TW + 3, BH = TH + 3;  // the y box: tile + halo
+  static constexpr int WR = (TH - 1) / 2 + 2;     // window rows of the tile
+  static constexpr int WC = (TW - 1) / 2 + 2;     // window columns
+  static constexpr int NT = (BH * BW + 31) / 32 * 32;
+  static constexpr int N_B1 = K8_G * WR * WC;     // stage-1 items
+  static constexpr int N_B2 = K8_G * WR * TW;     // stage-2 items
+  static constexpr size_t SMEM =
+      sizeof(float) * K8_G *
+      (BH * BW + WR * WC + 2 * WR * TW + 3 * NT);
+  static_assert(TH % 2 == 0 && TW % 2 == 0, "K8's tiles have even sides");
+  static_assert(NT <= 1024, "a block holds the tile and its halo");
+  static_assert(N_B2 <= K8_IPT * NT, "stage 2 fits K8_IPT items a thread");
+};
+
+// a 4-byte asynchronous copy into shared memory (zeros when !valid)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
 // stage 1 of the routing: the column b in 0..2 whose 3-row max equals
 // the pooled value, the first that does (3: none, a NaN window); w
-// points at the window's top-left y
-__device__ __forceinline__ int chosen_column(const float* w) {
+// points at the window's top-left y in a plane of row stride bw
+__device__ __forceinline__ int chosen_column(const float* w, int bw) {
   float rm[3];
 #pragma unroll
   for (int b = 0; b < 3; ++b) {
-    rm[b] = max_nan(max_nan(w[b], w[BW + b]), w[2 * BW + b]);
+    rm[b] = max_nan(max_nan(w[b], w[bw + b]), w[2 * bw + b]);
   }
   const float pooled = max_nan(max_nan(rm[0], rm[1]), rm[2]);
   return rm[0] == pooled ? 0 : rm[1] == pooled ? 1 : rm[2] == pooled ? 2 : 3;
 }
 
-template <int D>
-__global__ void __launch_bounds__(BWD_THREADS) lrn_pool_bwd_kernel(
+// One block per (image, channel chunk, tile of TH x TW dx positions).
+// The block walks the chunk's channels, and the D before and after it, in
+// groups of K8_G, with three barriers a group:
+//   A  each position of the tile and its halo shifts in the group's x
+//      (copied a group ahead into shared memory by cp.async), computes
+//      scale, p and y for every channel of the group, writes y into the
+//      group's planes, parks p and scale in shared memory, and issues the
+//      next group's x copies;
+//   B1 one thread per (channel, window) of the tile's windows picks the
+//      window's column;
+//   B2 one thread per (channel, window-row, tile column) sums the
+//      gradients the column receives (its dy values loaded a group ahead
+//      and selected here) and picks its row;
+//   C  each tile position gathers what its (at most two) window-rows
+//      routed to it, for every channel of the group, forms the LRN
+//      backward term g x p / scale, and writes dx D channels later.
+// y, the column choices and the routed sums live in shared memory, one
+// plane per channel of the group.
+template <int D, class S, int MB>
+__global__ void __launch_bounds__(S::NT, MB) lrn_pool_bwd_kernel(
     const float* __restrict__ x, const float* __restrict__ dy,
     float* __restrict__ dx, int C, int H, int W, int PH, int PW, int chunk,
     int nchunks, LrnParams hp) {
-  __shared__ float ys[BW * BW];          // y, origin (h0 - 2, w0 - 2)
-  __shared__ int bsel[WN * WN];          // stage 1: each window's column
-  __shared__ float colg[WN * TB];        // stage 2: a column's gradient
-  __shared__ int rsel[WN * TB];          //          and the row it goes to
-  const int h0 = blockIdx.y * TB, w0 = blockIdx.x * TB;
+  constexpr int G = K8_G, TH = S::TH, TW = S::TW, NT = S::NT;
+  constexpr int BW = S::BW, BHh = S::BH, WR = S::WR, WC = S::WC;
+  extern __shared__ float smem[];
+  float* ys = smem;                                          // [G][BHh*BW]
+  int* bsel = reinterpret_cast<int*>(ys + G * BHh * BW);     // [G][WR*WC]
+  float* colg = reinterpret_cast<float*>(bsel + G * WR * WC);  // [G][WR*TW]
+  int* rsel = reinterpret_cast<int*>(colg + G * WR * TW);      // [G][WR*TW]
+  // this thread's slots: the next group's x, the group's p and scale
+  float* xs = reinterpret_cast<float*>(rsel + G * WR * TW) + threadIdx.x;
+  float* pss = xs + G * NT;  // [p, scale][G], stride NT
+
+  const int h0 = blockIdx.y * TH, w0 = blockIdx.x * TW;
   const int u0 = h0 / 2 - 1, v0 = w0 / 2 - 1;  // the first window row, col
   const int n = blockIdx.z / nchunks;
   const int c0 = (blockIdx.z % nchunks) * chunk;
@@ -147,17 +222,9 @@ __global__ void __launch_bounds__(BWD_THREADS) lrn_pool_bwd_kernel(
   const int t = threadIdx.x;
   const int er = t / BW, ec = t % BW;
   const int h = h0 - 2 + er, w = w0 - 2 + ec;
-  const bool lrn_thread = t < BW * BW && h >= 0 && h < H && w >= 0 && w < W;
-  const bool out_thread = lrn_thread && h >= h0 && h < h0 + TB && w >= w0 &&
-                          w < w0 + TB;
-  // stage 1 threads: window (u0 + wi, v0 + wj)
-  const int wi = t / WN, wj = t % WN;
-  const bool win_thread = t < WN * WN && u0 + wi >= 0 && u0 + wi < PH &&
-                          v0 + wj >= 0 && v0 + wj < PW;
-  // stage 2 threads: window-row u0 + ci, tile column w0 + cj
-  const int ci = t / TB, cj = t % TB;
-  const int cu = u0 + ci, cw = w0 + cj;
-  const bool col_thread = t < WN * TB && cu >= 0 && cu < PH && cw < W;
+  const bool lrn_thread = t < BHh * BW && h >= 0 && h < H && w >= 0 && w < W;
+  const bool out_thread = lrn_thread && h >= h0 && h < h0 + TH && w >= w0 &&
+                          w < w0 + TW;
   const long long plane = static_cast<long long>(H) * W;
   const long long pplane = static_cast<long long>(PH) * PW;
   const long long at =
@@ -171,87 +238,179 @@ __global__ void __launch_bounds__(BWD_THREADS) lrn_pool_bwd_kernel(
   const int ia = h % 2 == 0 ? 0 : 1;
   const int ua = (h % 2 == 0 ? h / 2 : (h - 1) / 2) - u0;
   const int ub = h % 2 == 0 ? h / 2 - 1 - u0 : -1;
+  const bool a_ok = u0 + ua >= 0 && u0 + ua < PH;
+  const bool b_ok = ub >= 0 && u0 + ub >= 0 && u0 + ub < PH;
+  const int col = w - w0;
 
-  float xr[2 * D + 1];  // x at channels j-D .. j+D
-  float tr[2 * D + 1];  // g x p / scale at channels j-2D .. j
-  float pd[D + 1], gd[D + 1], xd[D + 1];  // p, g, x at channels j-D .. j
-#pragma unroll
-  for (int m = 0; m <= 2 * D; ++m) xr[m] = tr[m] = 0.f;
-#pragma unroll
-  for (int m = 0; m <= D; ++m) pd[m] = gd[m] = xd[m] = 0.f;
+  // channel j is computed when it lies in [0, C) and some dx of the chunk
+  // needs it (j < c1 + D); the rest stay zero, as the Pallas kernel pads
   const int j0 = c0 - D;
-  if (lrn_thread) {
-    for (int cc = j0 - D; cc < j0 + D; ++cc) {
-      shift_in<2 * D + 1>(xr, load_channel(xp, cc, C, plane));
-    }
-  }
-  for (int j = j0; j < c1 + D; ++j) {
-    const bool live = j >= 0 && j < C;  // uniform over the block
-    float scale = 1.f, p = 0.f;
-    if (lrn_thread) {
-      shift_in<2 * D + 1>(xr, load_channel(xp, j + D, C, plane));
-      if (live) {
-        scale = lrn_scale<D>(xr, hp);
-        p = negpow(scale, hp);
-        ys[er * BW + ec] = __fmul_rn(xr[D], p);
-      }
-    }
-    __syncthreads();
-    if (live && win_thread) {
-      bsel[t] = chosen_column(ys + (2 * wi) * BW + 2 * wj);
-    }
-    __syncthreads();
-    if (live && col_thread) {
-      // stage 2: the column's gradient, ((0 + from b=0) + from b=1) +
-      // from b=2 (the Pallas sum order), then its first row equal to the
-      // column max
+  const int n_groups = (c1 - c0 + 2 * D + G - 1) / G;
+  auto live = [&](int j) { return j >= 0 && j < C && j < c1 + D; };
+
+  // stage-2 items of this thread: (channel of the group, window-row,
+  // tile column), and their dy values, loaded a group ahead: [0] the
+  // window this column is b = 0 or 1 of, [1] the window it is b = 2 of
+  constexpr int n_b2 = S::N_B2;
+  float dyv[K8_IPT][2];
+  auto load_dy = [&](int g0) {
+#pragma unroll
+    for (int k = 0; k < K8_IPT; ++k) {
+      dyv[k][0] = dyv[k][1] = 0.f;
+      const int i = t + k * NT;
+      if (i >= n_b2) continue;
+      const int s = i / (WR * TW), r = i % (WR * TW);
+      const int cu = u0 + r / TW, cw = w0 + r % TW;
+      const int j = g0 + s;
+      if (!live(j) || cu < 0 || cu >= PH || cw >= W) continue;
       const float* dyc = dyimg + j * pplane + static_cast<long long>(cu) * PW;
-      const int s = cw - (w0 - 2);  // the column in the y plane
-      float placed[3] = {0.f, 0.f, 0.f};
-      if (cw % 2 == 0) {
-        const int v = cw / 2;  // this column is window v's b = 0
-        if (v < PW && bsel[ci * WN + (v - v0)] == 0) placed[0] = __ldg(dyc + v);
-        if (v >= 1 && bsel[ci * WN + (v - 1 - v0)] == 2) {
-          placed[2] = __ldg(dyc + v - 1);
-        }
-      } else {
-        const int v = (cw - 1) / 2;
-        if (bsel[ci * WN + (v - v0)] == 1) placed[1] = __ldg(dyc + v);
+      const int v = cw / 2;  // even cw: window v's b = 0; odd: b = 1
+      if (v < PW) dyv[k][0] = __ldg(dyc + v);
+      if (cw % 2 == 0 && v >= 1) dyv[k][1] = __ldg(dyc + v - 1);
+    }
+  };
+
+  float xr[2 * D + G];  // x at channels j0-D-G .. j0+D-1, then j0-D .. j0+G-1+D
+  float tr[2 * D + 1];  // g x p / scale at channels j-2D .. j
+  float pa[D + 1];      // p g at channels j-D .. j
+#pragma unroll
+  for (int m = 0; m < 2 * D + G; ++m) xr[m] = 0.f;
+#pragma unroll
+  for (int m = 0; m <= 2 * D; ++m) tr[m] = 0.f;
+#pragma unroll
+  for (int m = 0; m <= D; ++m) pa[m] = 0.f;
+  // x of channels c .. c + G - 1 at this position, a group ahead
+  auto fetch_x = [&](int c) {
+    if (!lrn_thread) return;
+#pragma unroll
+    for (int s = 0; s < G; ++s) {
+      const bool in = c + s >= 0 && c + s < C;
+      cp_async4(xs + s * NT, in ? xp + (c + s) * plane : x, in);
+    }
+    cp_async_commit();
+  };
+  if (lrn_thread) {
+#pragma unroll
+    for (int m = 0; m < 2 * D; ++m) xr[G + m] = load_channel(xp, j0 - D + m, C, plane);
+  }
+  fetch_x(j0 + D);
+  load_dy(j0);
+
+  for (int gi = 0; gi < n_groups; ++gi) {
+    const int g0 = j0 + gi * G;  // the group's first channel
+    // A: y of the group's channels at this position
+    if (lrn_thread) {
+      cp_async_wait_all();
+#pragma unroll
+      for (int s = 0; s < G; ++s) shift_in<2 * D + G>(xr, xs[s * NT]);
+    }
+    fetch_x(g0 + G + D);
+#pragma unroll
+    for (int s = 0; s < G; ++s) {
+      float p = 0.f, sc = 1.f;
+      if (lrn_thread && live(g0 + s)) {
+        float win[2 * D + 1];
+#pragma unroll
+        for (int m = 0; m <= 2 * D; ++m) win[m] = xr[s + m];
+        sc = lrn_scale<D>(win, hp);
+        p = negpow(sc, hp);
+        ys[s * BHh * BW + er * BW + ec] = __fmul_rn(xr[s + D], p);
       }
-      colg[t] = __fadd_rn(__fadd_rn(__fadd_rn(0.f, placed[0]), placed[1]),
-                          placed[2]);
-      const float r0 = ys[(2 * ci) * BW + s];
-      const float r1 = ys[(2 * ci + 1) * BW + s];
-      const float r2 = ys[(2 * ci + 2) * BW + s];
-      const float cm = max_nan(max_nan(r0, r1), r2);
-      rsel[t] = r0 == cm ? 0 : r1 == cm ? 1 : r2 == cm ? 2 : 3;
+      if (out_thread) {
+        pss[s * NT] = p;
+        pss[(G + s) * NT] = sc;
+      }
     }
     __syncthreads();
-    if (out_thread) {
-      float g = 0.f, tt = 0.f;
-      if (live) {
-        // what window-row ua (row ia of it) and ub (row 2) routed here;
-        // a window-row outside the pooled rows routes nothing
-        const int col = w - w0;
-        const int ga = ua * TB + col, gb = ub * TB + col;
-        const bool a_ok = u0 + ua >= 0 && u0 + ua < PH;
-        const bool b_ok = ub >= 0 && u0 + ub >= 0 && u0 + ub < PH;
-        const float from_a = a_ok && rsel[ga] == ia ? colg[ga] : 0.f;
-        const float from_b = b_ok && rsel[gb] == 2 ? colg[gb] : 0.f;
-        g = __fadd_rn(from_a, from_b);
-        tt = lrn_term(g, xr[D], p, scale);
+
+    // B1: each window's column
+    for (int i = t; i < S::N_B1; i += NT) {
+      const int s = i / (WR * WC), r = i % (WR * WC);
+      const int wi = r / WC, wj = r % WC;
+      if (live(g0 + s) && u0 + wi >= 0 && u0 + wi < PH && v0 + wj >= 0 &&
+          v0 + wj < PW) {
+        bsel[i] = chosen_column(ys + s * BHh * BW + (2 * wi) * BW + 2 * wj, BW);
       }
-      shift_in<2 * D + 1>(tr, tt);
-      shift_in<D + 1>(pd, p);
-      shift_in<D + 1>(gd, g);
-      shift_in<D + 1>(xd, xr[D]);
-      const int c = j - D;
-      if (c >= c0) {
-        dxp[c * plane] =
-            lrn_dx(pd[0], gd[0], xd[0], window_sum<D>(tr, hp), hp);
+    }
+    __syncthreads();
+
+    // B2: a column's gradient, ((0 + from b=0) + from b=1) + from b=2 (the
+    // Pallas sum order), then its first row equal to the column max
+#pragma unroll
+    for (int k = 0; k < K8_IPT; ++k) {
+      const int i = t + k * NT;
+      if (i >= n_b2) continue;
+      const int s = i / (WR * TW), r = i % (WR * TW);
+      const int ci = r / TW, cj = r % TW;
+      const int cu = u0 + ci, cw = w0 + cj;
+      if (!live(g0 + s) || cu < 0 || cu >= PH || cw >= W) continue;
+      // window (u0 + ci, v)'s column is bs[v - v0]
+      const int* bs = bsel + s * WR * WC + ci * WC;
+      float placed[3] = {0.f, 0.f, 0.f};
+      const int v = cw / 2;
+      if (cw % 2 == 0) {
+        if (v < PW && bs[v - v0] == 0) placed[0] = dyv[k][0];
+        if (v >= 1 && bs[v - 1 - v0] == 2) placed[2] = dyv[k][1];
+      } else if (bs[v - v0] == 1) {
+        placed[1] = dyv[k][0];
+      }
+      colg[i] = __fadd_rn(__fadd_rn(__fadd_rn(0.f, placed[0]), placed[1]),
+                          placed[2]);
+      const float* yc = ys + s * BHh * BW + (2 * ci) * BW + cj + 2;
+      const float r0 = yc[0], r1 = yc[BW], r2 = yc[2 * BW];
+      const float cm = max_nan(max_nan(r0, r1), r2);
+      rsel[i] = r0 == cm ? 0 : r1 == cm ? 1 : r2 == cm ? 2 : 3;
+    }
+    load_dy(g0 + G);
+    __syncthreads();
+
+    // C: the routed gradient, the LRN backward term, dx D channels later
+    if (out_thread) {
+#pragma unroll
+      for (int s = 0; s < G; ++s) {
+        const int j = g0 + s;
+        const float p = pss[s * NT], sc = pss[(G + s) * NT];
+        float g = 0.f, tt = 0.f;
+        if (live(j)) {
+          // what window-row ua (row ia of it) and ub (row 2) routed here;
+          // a window-row outside the pooled rows routes nothing
+          const int base = s * WR * TW + col;
+          const int ga = base + ua * TW, gb = base + ub * TW;
+          const float from_a = a_ok && rsel[ga] == ia ? colg[ga] : 0.f;
+          const float from_b = b_ok && rsel[gb] == 2 ? colg[gb] : 0.f;
+          g = __fadd_rn(from_a, from_b);
+          tt = lrn_term(g, xr[s + D], p, sc);
+        }
+        shift_in<2 * D + 1>(tr, tt);
+        shift_in<D + 1>(pa, __fmul_rn(p, g));
+        const int c = j - D;
+        if (c >= c0 && c < c1) {
+          // lrn_dx(p, g, x, inner) with p g formed D channels ago; x of
+          // channel c is xr[s]
+          dxp[c * plane] = __fsub_rn(
+              pa[0], __fmul_rn(__fmul_rn(hp.coef, xr[s]), window_sum<D>(tr, hp)));
+        }
       }
     }
   }
+}
+
+template <int D, class S, int MB>
+cudaError_t launch_bwd(const float* x, const float* dy, float* dx, int N,
+                       int C, int H, int W, int PH, int PW, int chunk,
+                       int nchunks, const LrnParams& hp, cudaStream_t s) {
+  static bool configured = false;
+  if (!configured && S::SMEM > 48 * 1024) {  // above 48 KB: the opt-in
+    const cudaError_t e = cudaFuncSetAttribute(
+        lrn_pool_bwd_kernel<D, S, MB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(S::SMEM));
+    if (e != cudaSuccess) return e;
+  }
+  configured = true;
+  dim3 grid((W + S::TW - 1) / S::TW, (H + S::TH - 1) / S::TH, N * nchunks);
+  lrn_pool_bwd_kernel<D, S, MB><<<grid, S::NT, S::SMEM, s>>>(
+      x, dy, dx, C, H, W, PH, PW, chunk, nchunks, hp);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -264,10 +423,12 @@ cudaError_t launch(const float* x, const float* dy, float* out, int N, int C,
     dim3 grid((PW + TP - 1) / TP, (PH + TP - 1) / TP, N * nchunks);
     lrn_pool_fwd_kernel<D><<<grid, FWD_THREADS, 0, s>>>(
         x, out, C, H, W, PH, PW, chunk, nchunks, hp);
+  } else if (W <= K8_NARROW) {
+    return launch_bwd<D, K8Shape<K8_TH_NARROW, K8_TW_NARROW>, K8_MB_NARROW>(
+        x, dy, out, N, C, H, W, PH, PW, chunk, nchunks, hp, s);
   } else {
-    dim3 grid((W + TB - 1) / TB, (H + TB - 1) / TB, N * nchunks);
-    lrn_pool_bwd_kernel<D><<<grid, BWD_THREADS, 0, s>>>(
-        x, dy, out, C, H, W, PH, PW, chunk, nchunks, hp);
+    return launch_bwd<D, K8Shape<K8_TH_WIDE, K8_TW_WIDE>, K8_MB_WIDE>(
+        x, dy, out, N, C, H, W, PH, PW, chunk, nchunks, hp, s);
   }
   return cudaGetLastError();
 }

@@ -23,6 +23,15 @@ CUDA tensor the kernel does not take raises; it never falls back.
 ``LAUNCHES`` counts kernel launches (one per wrapper call that
 launched), so a run can show that its main path went through the
 kernels.
+
+The kernels are built for the head dims in ``KERNEL_HEAD_DIMS`` (every
+multiple of 16 up to 128, ``csrc/head_dims.cuh``); on a CUDA tensor any
+other head dim raises, naming them.  K1, K3 and K4 copy (B, T, H, D)
+rows into shared memory 16 bytes at a time, so every row must start on
+16 bytes.  The wrappers raise on what the kernels do not take; the
+autograd path (``flash_attention``, ``flash_attention_step``) hands them
+a contiguous copy of any input or saved tensor whose rows are not
+16-byte aligned, counted in ``ALIGN_COPIES``.
 """
 
 from __future__ import annotations
@@ -37,14 +46,25 @@ from sparknet_tpu_torch.ops import _build
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "decode_attention": 0}
 
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = tuple(range(16, 129, 16))
+
+# contiguous copies the autograd path made of tensors whose rows were not
+# 16-byte aligned, before a launch
+ALIGN_COPIES = 0
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
 def reset_launch_counts() -> None:
+    global ALIGN_COPIES
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ALIGN_COPIES = 0
+
+
+def _on_cpu(t) -> bool:
+    """The wrappers' routing: a CPU tensor takes the plain version."""
+    return t.device.type == "cpu"
 
 
 def _check_cuda(what: str, *tensors) -> None:
@@ -65,6 +85,34 @@ def _check_cuda(what: str, *tensors) -> None:
             f"{what}: head_dim {d} has no kernel build "
             f"(built for {KERNEL_HEAD_DIMS})"
         )
+
+
+def _rows_aligned(t) -> bool:
+    """Every (b, t, h) row of ``t`` starts on 16 bytes: K1, K3 and K4
+    copy rows into shared memory with 16-byte ``cp.async``."""
+    return t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:3])
+
+
+def _check_rows_aligned(what: str, **tensors) -> None:
+    for name, t in tensors.items():
+        if not _rows_aligned(t):
+            raise ValueError(
+                f"{what}: the kernel loads rows of {name} 16 bytes at a time: "
+                "it needs a 16-byte aligned base and (b, t, h) strides that "
+                f"are multiples of 4, got data_ptr {t.data_ptr()} strides "
+                f"{t.stride()}"
+            )
+
+
+def _kernel_rows(t):
+    """``t`` itself when its rows are 16-byte aligned (or it does not lie
+    along D with unit stride, which the wrappers refuse), else a
+    contiguous copy, counted in ``ALIGN_COPIES``."""
+    global ALIGN_COPIES
+    if t.stride(-1) != 1 or _rows_aligned(t):
+        return t
+    ALIGN_COPIES += 1
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 # ----------------------------------------------------------------------
@@ -109,7 +157,7 @@ def _flash_core(q, k, v, q_offset: int, k_offset: int, causal: bool):
             "flash_attention: T_q=0 — an empty query block has no "
             "attention output (check the caller's slicing)"
         )
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         return _flash_core_reference(q, k, v, q_offset, k_offset, causal)
     _check_cuda("flash_attention", q, k, v)
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:]:
@@ -117,6 +165,7 @@ def _flash_core(q, k, v, q_offset: int, k_offset: int, causal: bool):
             f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} "
             f"v {tuple(v.shape)} do not line up"
         )
+    _check_rows_aligned("flash_attention", q=q, k=k, v=v)
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     fn = _build.kernel("flash_fwd", "sparknet_flash_fwd_f32", (
@@ -209,24 +258,11 @@ def _bwd_launch_args(what, q, k, v, do, o, lse, dlse):
                 f"tensor on {q.device}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}"
             )
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-        if not _rows_aligned(t):
-            raise ValueError(
-                f"{what}: the kernel loads rows of {name} 16 bytes at a time: "
-                "it needs a 16-byte aligned base and (b, t, h) strides that "
-                f"are multiples of 4, got data_ptr {t.data_ptr()} strides "
-                f"{t.stride()}"
-            )
+    _check_rows_aligned(what, q=q, k=k, v=v, o=o, do=do)
     ptrs = [t.data_ptr() for t in (q, k, v, o, do, lse, dlse)]
     strides = _STRIDES(*[t.stride(i) for t in (q, k, v, o, do)
                          for i in range(3)])
     return ptrs, strides
-
-
-def _rows_aligned(t) -> bool:
-    """Every (b, t, h) row of ``t`` starts on 16 bytes: K3/K4 copy rows
-    into shared memory with 16-byte ``cp.async``."""
-    return t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:3])
 
 
 def flash_bwd_dq(q, k, v, do, o, lse, dlse, q_offset: int, k_offset: int,
@@ -234,7 +270,7 @@ def flash_bwd_dq(q, k, v, do, o, lse, dlse, q_offset: int, k_offset: int,
     """dq of the flash backward: K3 on CUDA tensors, its plain version
     on CPU tensors.  q, o, do (B, Tq, H, D); k, v (B, Tk, H, D); lse,
     dlse (B, H, Tq)."""
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         return _flash_bwd_dq_reference(q, k, v, do, o, lse, dlse,
                                        q_offset, k_offset, causal)
     ptrs, strides = _bwd_launch_args("flash_bwd_dq", q, k, v, do, o, lse, dlse)
@@ -259,7 +295,7 @@ def flash_bwd_dkv(q, k, v, do, o, lse, dlse, q_offset: int, k_offset: int,
                   causal: bool):
     """``(dk, dv)`` of the flash backward: K4 on CUDA tensors, its plain
     version on CPU tensors.  Shapes as ``flash_bwd_dq``."""
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         return _flash_bwd_dkv_reference(q, k, v, do, o, lse, dlse,
                                         q_offset, k_offset, causal)
     ptrs, strides = _bwd_launch_args("flash_bwd_dkv", q, k, v, do, o, lse,
@@ -287,10 +323,14 @@ class _FlashCore(torch.autograd.Function):
     """``(o, lse)`` of ``_flash_core`` (K1), differentiable in q, k and
     v through K3 and K4 — the port of the JAX package's ``custom_vjp``.
     The lse output is honest: its cotangent feeds the backward's delta
-    term (a ``None`` cotangent counts as zeros)."""
+    term (a ``None`` cotangent counts as zeros).  On the card every tensor
+    a kernel reads has 16-byte aligned rows (``_kernel_rows``), so the
+    backward takes whatever the forward took."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset: int, k_offset: int, causal: bool):
+        if q.is_cuda:
+            q, k, v = (_kernel_rows(t) for t in (q, k, v))
         o, lse = _flash_core(q, k, v, q_offset, k_offset, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.pos = (int(q_offset), int(k_offset), bool(causal))
@@ -301,8 +341,10 @@ class _FlashCore(torch.autograd.Function):
     def backward(ctx, do, dlse):
         q, k, v, o, lse = ctx.saved_tensors
         do = torch.zeros_like(o) if do is None else do
-        if do.stride(-1) != 1 or (do.is_cuda and not _rows_aligned(do)):
+        if do.stride(-1) != 1:
             do = do.clone(memory_format=torch.contiguous_format)
+        if do.is_cuda:
+            q, k, v, o, do = (_kernel_rows(t) for t in (q, k, v, o, do))
         dlse = (torch.zeros_like(lse) if dlse is None
                 else dlse.to(torch.float32).contiguous())
         dq = flash_bwd_dq(q, k, v, do, o, lse, dlse, *ctx.pos)
@@ -367,7 +409,7 @@ def decode_attention(q, k, v, lengths=None):
     if tq != 1:
         raise ValueError(f"decode_attention wants q_len=1, got {tq}")
     s = k.shape[1]
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         return decode_attention_reference(q, k, v, lengths)
     _check_cuda("decode_attention", q, k, v)
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:]:

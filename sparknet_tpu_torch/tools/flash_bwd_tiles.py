@@ -19,7 +19,6 @@ from __future__ import annotations
 import ctypes
 import math
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -27,6 +26,7 @@ import torch
 
 from sparknet_tpu_torch.ops import _build
 from sparknet_tpu_torch.ops import cuda_attention as ca
+from sparknet_tpu_torch.tools import _variants
 
 # (K3 groups, splits, slice), (K4 groups, splits at D <= 64, slice), and
 # the blocks per SM that K3's and K4's ``__launch_bounds__`` ask for (0:
@@ -70,27 +70,8 @@ def _variant_source(q, k, q_blocks, k_blocks) -> str:
 
 
 def build(out_dir):
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for i, variant in enumerate(VARIANTS):
-        cu = out_dir / f"v{i}.cu"
-        cu.write_text(_variant_source(*variant))
-        lib = out_dir / f"libv{i}.so"
-        jobs.append((i, lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = {}
-    for i, lib, proc in jobs:
-        log = proc.communicate()[0]
-        regs = re.findall(r"Used (\d+) registers", log)
-        spills = re.findall(r"(\d+) bytes spill stores", log)
-        print(f"variant {i} {VARIANTS[i]}: rc {proc.returncode}, registers "
-              f"{regs}, spill stores {spills}")
-        if proc.returncode == 0:
-            libs[i] = ctypes.CDLL(str(lib))
-        else:
-            print(log[-3000:])
-    return libs
+    return _variants.build(out_dir, [_variant_source(*v) for v in VARIANTS],
+                           [str(v) for v in VARIANTS])
 
 
 def _launchers(lib, ptrs, strides, shape):

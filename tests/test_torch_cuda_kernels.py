@@ -5,10 +5,11 @@ there is no CUDA device.  On a machine with the card and nvcc::
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
-Attention: tolerance 2e-5 absolute, float32 on both sides, the kernels
-summing tile by tile (online softmax) where the plain versions sum
-densely.  The flash backward (K3, K4): 2e-5 of the largest magnitude of
-the plain version's output (sums of up to T products, in another
+Attention, at every head dim the kernels are built for: tolerance 2e-5
+absolute, float32 on both sides, the kernels summing tile by tile
+(online softmax, K1's products as three TF32 products on the tensor
+cores) where the plain versions sum densely.  The flash backward (K3,
+K4): 2e-5 of the largest magnitude of the plain version's output (sums of up to T products, in another
 order, each product as three TF32 products on the tensor cores); with q
 and k scaled by 8 the float32 plain version itself strays further than
 that from the exact result, so that case is held to a float64
@@ -56,7 +57,7 @@ def _close_with_infs(got, want):
     torch.testing.assert_close(got[~inf], want[~inf], atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", tca.KERNEL_HEAD_DIMS)
 @pytest.mark.parametrize(
     "tq,tk,q_off,k_off,causal",
     [(16, 16, 0, 0, True), (37, 100, 63, 0, True), (70, 70, 0, 0, False),
@@ -85,7 +86,7 @@ def test_flash_kernel_reads_strided_inputs(dev):
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", tca.KERNEL_HEAD_DIMS)
 def test_decode_kernel_matches_plain(dev, d):
     q = _rand(dev, 5, 1, 3, d, seed=5)
     k = _rand(dev, 5, 80, 3, d, seed=6)
@@ -122,7 +123,7 @@ def _bwd_inputs(dev, b, tq, tk, h, d, q_off, k_off, causal, seed=0):
     return (q, k, v, do, o.contiguous(), lse, dlse, q_off, k_off, causal)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", tca.KERNEL_HEAD_DIMS)
 @pytest.mark.parametrize(
     "tq,tk,q_off,k_off,causal",
     [(16, 16, 0, 0, True), (37, 100, 63, 0, True), (70, 70, 0, 0, False),
@@ -277,9 +278,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = _rand(dev, 1, 8, 2, 64)
     with pytest.raises(TypeError, match="float32"):
         tca.flash_attention(q.double(), q.double(), q.double())
-    odd = _rand(dev, 1, 8, 2, 48)
-    with pytest.raises(ValueError, match="head_dim 48"):
+    odd = _rand(dev, 1, 8, 2, 24)
+    with pytest.raises(ValueError, match="head_dim 24 has no kernel build"):
         tca.flash_attention(odd, odd, odd)
+    with pytest.raises(ValueError, match="head_dim 24 has no kernel build"):
+        tca.decode_attention(odd[:, :1], odd, odd)
     with pytest.raises(ValueError, match="lengths"):
         tca.decode_attention(q[:, :1], q, q, torch.ones(1, device=dev,
                                                          dtype=torch.int64))
@@ -300,6 +303,84 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         tca.flash_bwd_dq(off, q, q, q, q, lse, lse, 0, 0, True)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tca.flash_bwd_dkv(q, q, q, off, q, lse, lse, 0, 0, True)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["separate", "fused-qkv"])
+def test_flash_kernel_at_the_lm_training_shape(dev, fused):
+    """B=8 T=256 H=4 D=64 causal, q, k and v apart or as strided views of
+    one fused qkv tensor."""
+    if fused:
+        q, k, v = _rand(dev, 8, 256, 3, 4, 64, seed=40).unbind(2)
+        assert not q.is_contiguous()
+    else:
+        q, k, v = (_rand(dev, 8, 256, 4, 64, seed=41 + i) for i in range(3))
+    o, lse = tca._flash_core(q, k, v, 0, 0, True)
+    o_ref, lse_ref = tca._flash_core_reference(q, k, v, 0, 0, True)
+    torch.testing.assert_close(o, o_ref, atol=ATOL, rtol=0)
+    _close_with_infs(lse, lse_ref)
+
+
+def test_flash_kernel_is_deterministic(dev):
+    """One owner per output row and a fixed merge order: two launches on
+    the same inputs give the same bits."""
+    q, k, v = (_rand(dev, 8, 256, 4, 64, seed=44 + i) for i in range(3))
+    first = tca._flash_core(q, k, v, 0, 0, True)
+    second = tca._flash_core(q, k, v, 0, 0, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_backward_takes_a_view_offset_by_one_float(dev):
+    """The autograd path copies rows the kernels cannot load 16 bytes at a
+    time: forward and backward through a view offset by one float run
+    K1, K3 and K4 and give the CPU's gradients."""
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        g = torch.Generator().manual_seed(45)
+        base = torch.randn(2 * 40 * 2 * 64 + 1, generator=g).to(d)
+        off = base[1:].view(2, 40, 2, 64).requires_grad_(True)
+        k, v = (torch.randn(2, 40, 2, 64, generator=g).to(d).requires_grad_(True)
+                for _ in range(2))
+        if d.type == "cuda":
+            assert off.data_ptr() % 16 == 4
+            tca.reset_launch_counts()
+        tca.flash_attention(off, k, v, causal=True).sum().backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert tca.ALIGN_COPIES == 1  # q in the forward, saved aligned
+            assert tca.LAUNCHES["flash_fwd"] == tca.LAUNCHES["flash_bwd_dq"] \
+                == tca.LAUNCHES["flash_bwd_dkv"] == 1
+        grads.append([t.grad.cpu() for t in (off, k, v)])
+    for got, want in zip(*grads):
+        _close_scaled(got, want, "grad")
+
+
+def test_lm_app_trains_at_head_dim_48(dev):
+    """``lm_app --dim 96 --heads 2`` (head_dim 48, an odd multiple of 16):
+    one round trains on the kernels, the kernel-path gauge reads 1; at
+    head_dim 24, which has no build, training raises on the card."""
+    from sparknet_tpu_torch.apps import lm_app
+    from sparknet_tpu_torch.models.transformer_lm import TransformerLMNet
+
+    result = {}
+    tca.reset_launch_counts()
+    assert lm_app.main(["--device", "cuda", "--dim", "96", "--depth", "2",
+                        "--heads", "2", "--seq_len", "64", "--batch", "4",
+                        "--tau", "2", "--workers", "2", "--rounds", "1",
+                        "--base_lr", "0.01"], result) == 0
+    torch.cuda.synchronize()
+    # two workers x tau 2 steps x depth 2 layers
+    assert tca.LAUNCHES["flash_fwd"] == tca.LAUNCHES["flash_bwd_dq"] \
+        == tca.LAUNCHES["flash_bwd_dkv"] == 2 * 2 * 2
+    assert result["metrics"].kernel_path.labels("attention").value == 1.0
+    assert np.isfinite(result["losses"]).all()
+    for attention in ("auto", "flash"):
+        net = TransformerLMNet(attention=attention, dim=48, depth=1, heads=2,
+                               seq_len=16)
+        params, stats = net.init(0, dev)
+        tokens = torch.zeros((2, 16), dtype=torch.int64, device=dev)
+        with pytest.raises(ValueError, match="head_dim 24 has no kernel build"):
+            net.loss_fn(params, stats, {"tokens": tokens, "targets": tokens})
 
 
 def test_engine_on_the_card_matches_the_cpu_engine(dev):
@@ -547,6 +628,21 @@ def test_lrn_pool_kernels_match_plain(dev, shape, ties):
     # gradient itself, which must equal the plain routing bit for bit
     routed = tcp.lrn_pool_bwd(x, dy, 5, 0.0, 0.75, 1.0)
     assert torch.equal(routed, tcp.route_reference(x, dy))
+
+
+@pytest.mark.parametrize("shape", [(32, 96, 55, 55), (32, 256, 27, 27)],
+                         ids=["conv1", "conv2"])
+@pytest.mark.parametrize("ties", [False, True])
+def test_lrn_pool_bwd_is_bit_equal_to_plain(dev, shape, ties):
+    """K8 at AlexNet's two sandwiches, random and tied inputs: every
+    operation an explicitly rounded intrinsic in the plain version's
+    order, so dx equals the plain version's bit for bit."""
+    x = _tie_input(dev, shape, 24) if ties else _rand(dev, *shape, seed=24)
+    ph, pw = tcp.pooled_hw(shape[2], shape[3])
+    dy = _rand(dev, shape[0], shape[1], ph, pw, seed=25)
+    dx = tcp.lrn_pool_bwd(x, dy, 5, 1e-4, 0.75, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, tcp.lrn_maxpool_bwd_reference(x, dy, 5, 1e-4, 0.75, 1.0))
 
 
 def test_lrn_wrappers_raise_on_what_the_kernels_do_not_take(dev):
