@@ -113,6 +113,7 @@ from __future__ import annotations
 
 import http.client
 import json
+import re
 import sys
 import tempfile
 import threading
@@ -237,7 +238,8 @@ def check_kernels(dev):
         check(e <= KERNEL_ATOL, f"flash_fwd disagrees at {tq}x{tk}: {e}")
         flash_err = max(flash_err, e)
     # the LM training shape, q, k and v apart and as views of one fused
-    # qkv tensor; D = 16, 32, 48 and 128
+    # qkv tensor; D = 16, 32, 48 and 128, and D = 40, which the autograd
+    # path (the LM's) zero-pads to the D = 48 build (PAD_COPIES)
     LB, LT = LM_BATCH, LM_MODEL["seq_len"]
     for what, (q, k, v) in (
             ("LM shape", (rand(LB, LT, H, D) for _ in range(3))),
@@ -245,8 +247,14 @@ def check_kernels(dev):
             ("D=16", (rand(2, 70, H, 16) for _ in range(3))),
             ("D=32", (rand(2, 70, H, 32) for _ in range(3))),
             ("D=48", (rand(2, 100, H, 48) for _ in range(3))),
-            ("D=128", (rand(2, 100, H, 128) for _ in range(3)))):
-        o, lse = ca._flash_core(q, k, v, 0, 0, True)
+            ("D=128", (rand(2, 100, H, 128) for _ in range(3))),
+            ("D=40, padded to 48", (rand(2, 100, H, 40) for _ in range(3)))):
+        ca.reset_launch_counts()
+        o, lse = ca._FlashCore.apply(q, k, v, 0, 0, True)
+        check(ca.LAUNCHES["flash_fwd"] == 1
+              and ca.PAD_COPIES == (3 if q.shape[-1] % 16 else 0),
+              f"flash_fwd {what}: launches {ca.LAUNCHES}, pad copies "
+              f"{ca.PAD_COPIES}")
         o_ref, lse_ref = ca._flash_core_reference(q, k, v, 0, 0, True)
         e = max(max_err(o, o_ref), max_err(lse, lse_ref))
         print(f"K1 flash_fwd {what} {tuple(q.shape)} causal: max_abs_err {e:.3e}")
@@ -278,7 +286,7 @@ def check_kernels(dev):
     print(f"K2 decode_attention B={Bd} S={S} lengths "
           f"{lengths.tolist()}: max_abs_err {dec_err:.3e}")
     check(dec_err <= KERNEL_ATOL, f"decode_attention disagrees: {dec_err}")
-    for d in (16, 48):
+    for d in (16, 48, 40):  # 40: zero-padded to the D = 48 build
         qs, ks, vs = rand(Bd, 1, H, d), rand(Bd, S, H, d), rand(Bd, S, H, d)
         e = max_err(ca.decode_attention(qs, ks, vs, lengths),
                     ca.decode_attention_reference(qs, ks, vs, lengths))
@@ -881,11 +889,24 @@ LM_TOL = 5e-4
 LM_CPU_TOL = 1e-2
 # the large-magnitude case of K3/K4: q and k scaled by this
 BWD_LARGE = 8.0
+# (sum, sum of |w|) in float64 of LM_MODEL's weights from seed 0, drawn with
+# the JAX package's threefry recipe; tests/test_torch_jax_prng.py pins the
+# same value for the port's init and the JAX package's
+LM_INIT_CHECKSUM = (2320.4935653680072, 42125.24800601355)
+LM_INIT_RTOL = 1e-6
+
+
+def lm_init_checksum(params):
+    """(sum, sum of |w|) in float64 over every blob of ``params``."""
+    blobs = [t.detach().double() for bs in params.values() for t in bs]
+    return (sum(float(t.sum()) for t in blobs),
+            sum(float(t.abs().sum()) for t in blobs))
 
 
 def _bwd_case(dev, gen, b, tq, tk, h, d, q_off, k_off, causal, mag=1.0,
               fused=False):
-    """Seeded inputs of K3/K4: q, k, v, do, dlse and K1's (o, lse); q and
+    """Seeded inputs of K3/K4: q, k, v, do, dlse and K1's (o, lse) (through
+    the autograd path, which pads a head dim off the built ones); q and
     k scaled by ``mag``; with ``fused``, q, k and v are strided views of
     one (B, T, 3, H, D) tensor, as a fused qkv projection gives them."""
     from sparknet_tpu_torch.ops import cuda_attention as ca
@@ -900,7 +921,7 @@ def _bwd_case(dev, gen, b, tq, tk, h, d, q_off, k_off, causal, mag=1.0,
     if mag != 1.0:
         q, k = q * mag, k * mag
     do, dlse = rand(b, tq, h, d), rand(b, h, tq)
-    o, lse = ca._flash_core(q, k, v, q_off, k_off, causal)
+    o, lse = ca._FlashCore.apply(q, k, v, q_off, k_off, causal)
     return (q, k, v, do, o, lse, dlse, q_off, k_off, causal)
 
 
@@ -946,6 +967,7 @@ def check_bwd_kernels(dev):
         ("D=32", (2, 70, 70, H, 32, 0, 0, True), {}),
         ("D=48", (2, 100, 100, H, 48, 0, 0, True), {}),
         ("D=128", (2, 100, 100, H, 128, 0, 0, True), {}),
+        ("D=40, padded to 48", (2, 100, 100, H, 40, 0, 0, True), {}),
         (f"q, k x{BWD_LARGE:g}", (B, T, T, H, D, 0, 0, True),
          dict(mag=BWD_LARGE)),
         ("q, k, v views of a fused qkv", (B, T, T, H, D, 0, 0, True),
@@ -954,8 +976,23 @@ def check_bwd_kernels(dev):
     err = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for what, shape, how in cases:
         args = _bwd_case(dev, gen, *shape, **how)
-        got = {"flash_bwd_dq": (ca.flash_bwd_dq(*args),),
-               "flash_bwd_dkv": ca.flash_bwd_dkv(*args)}
+        ca.reset_launch_counts()
+        if shape[4] % 16:
+            # K3/K4 take built head dims: the autograd path pads q, k and
+            # v once in the forward and do in the backward
+            q, k, v = (t.detach().requires_grad_(True) for t in args[:3])
+            o, lse = ca._FlashCore.apply(q, k, v, *args[7:])
+            torch.autograd.backward((o, lse), (args[3], args[6]))
+            got = {"flash_bwd_dq": (q.grad,),
+                   "flash_bwd_dkv": (k.grad, v.grad)}
+            args = (*args[:4], o.detach(), lse.detach(), *args[6:])
+        else:
+            got = {"flash_bwd_dq": (ca.flash_bwd_dq(*args),),
+                   "flash_bwd_dkv": ca.flash_bwd_dkv(*args)}
+        check(ca.LAUNCHES["flash_bwd_dq"] == ca.LAUNCHES["flash_bwd_dkv"] == 1
+              and ca.PAD_COPIES == (4 if shape[4] % 16 else 0),
+              f"K3/K4 {what}: launches {ca.LAUNCHES}, pad copies "
+              f"{ca.PAD_COPIES}")
         want = {"flash_bwd_dq": (ca._flash_bwd_dq_reference(*args),),
                 "flash_bwd_dkv": ca._flash_bwd_dkv_reference(*args)}
         exact = _bwd_float64(*args)
@@ -1127,6 +1164,17 @@ def lm_train_end_to_end(dev, card):
         "dense": dict(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0,
                       decode_attention=0),
     }
+    from sparknet_tpu_torch.models.transformer_lm import TransformerLMNet
+
+    t0 = time.perf_counter()
+    init, _ = TransformerLMNet(**LM_MODEL).init(0, torch.device("cpu"))
+    draw_s = time.perf_counter() - t0
+    got = lm_init_checksum(init)
+    print(f"LM init from seed 0 (the JAX package's threefry recipe, drawn on "
+          f"the host in {draw_s:.3f} s): checksum sum {got[0]!r}, sum|w| "
+          f"{got[1]!r}; pinned {LM_INIT_CHECKSUM}")
+    check(bool(np.allclose(got, LM_INIT_CHECKSUM, rtol=LM_INIT_RTOL, atol=0)),
+          f"LM init checksum {got} is not the pinned {LM_INIT_CHECKSUM}")
     results, launches = {}, {}
     for leg, extra in (("flash", []), ("dense", ["--dense_attention"])):
         result = {}
@@ -1287,38 +1335,60 @@ def check_lrn_kernels(dev, card):
     cases = [(s, 5, 0.75) for s in ALEXNET_LRN] + [
         ((2, 7, 11, 13), 5, 0.75), ((2, 3, 9, 9), 5, 0.75),
         ((2, 16, 9, 9), 3, 0.75), ((2, 16, 9, 9), 5, 0.6)]
-    for shape, n, beta in cases:
+    # K6 at both sandwiches, random and tied, must give the plain
+    # version's bits (every operation an explicitly rounded intrinsic)
+    cases = [(s, 5, 0.75, False) for s in ALEXNET_LRN] + [
+        (s, 5, 0.75, True) for s in ALEXNET_LRN] + [
+        (s, n, beta, False) for s, n, beta in cases[2:]]
+    for shape, n, beta, ties in cases:
         hp = (n, 1e-4, beta, 1.0)
-        x, dy = rand(*shape), rand(*shape)
+        x = _tie_input(dev, shape, 6) if ties else rand(*shape)
+        dy = rand(*shape)
         y, dx = cl.lrn_fwd(x, *hp), cl.lrn_bwd(x, dy, *hp)
         torch.cuda.synchronize()
         ef = _close(y, cl.lrn_across_reference(x, *hp), LRN_FWD_TOL,
                     f"K5 {shape} n={n} beta={beta}")
-        eb = _close(dx, cl.lrn_across_bwd_reference(x, dy, *hp), LRN_BWD_TOL,
-                    f"K6 {shape} n={n} beta={beta}")
-        print(f"K5/K6 lrn {shape} n={n} beta={beta}: max_abs_err fwd "
-              f"{ef:.3e}, bwd {eb:.3e}")
+        want = cl.lrn_across_bwd_reference(x, dy, *hp)
+        eb = _close(dx, want, LRN_BWD_TOL, f"K6 {shape} n={n} beta={beta}")
+        same = bool(torch.equal(dx, want))
+        if shape in ALEXNET_LRN:
+            check(same, f"K6 {shape}{' ties' if ties else ''}: dx differs "
+                  "from the plain version's bits")
+        print(f"K5/K6 lrn {shape}{' ties' if ties else ''} n={n} beta={beta}: "
+              f"max_abs_err fwd {ef:.3e}, bwd {eb:.3e}; K6 bit-equal {same}")
         err["lrn_fwd"] = max(err["lrn_fwd"], ef)
         err["lrn_bwd"] = max(err["lrn_bwd"], eb)
-    plp_cases = [(s, False) for s in ALEXNET_LRN + ((2, 7, 11, 13), (1, 32, 9, 9),
-                                                    (2, 5, 3, 3))]
-    plp_cases += [((IMNET_BATCH, 96, 55, 55), True), ((2, 7, 11, 13), True)]
-    for shape, ties in plp_cases:
+    plp_cases = [(s, False, LRN_HP) for s in ALEXNET_LRN + (
+        (2, 7, 11, 13), (1, 32, 9, 9), (2, 5, 3, 3))]
+    plp_cases += [(s, True, LRN_HP) for s in ALEXNET_LRN + ((2, 7, 11, 13),)]
+    # K7 and K8 at other LRN settings than Caffe's default (the kernels'
+    # general instantiation, not FAST): local_size 3 and 7, beta 0.6 on
+    # the powf path and 0.5 on the square-root path, on a plane of each
+    # of K7's tile kinds (whole planes up to 32 wide, row bands above)
+    plp_cases += [(s, False, (n, 1e-4, beta, 1.0))
+                  for s in ((2, 16, 27, 27), (2, 24, 55, 55))
+                  for n, beta in ((3, 0.75), (7, 0.75), (5, 0.6), (5, 0.5))]
+    for shape, ties, hp in plp_cases:
         x = _tie_input(dev, shape, 5) if ties else rand(*shape)
         dy = rand(shape[0], shape[1], *cp.pooled_hw(*shape[2:]))
-        y, dx = cp.lrn_pool_fwd(x, *LRN_HP), cp.lrn_pool_bwd(x, dy, *LRN_HP)
-        routed = cp.lrn_pool_bwd(x, dy, 5, 0.0, 0.75, 1.0)  # alpha 0: identity LRN
+        y, dx = cp.lrn_pool_fwd(x, *hp), cp.lrn_pool_bwd(x, dy, *hp)
+        routed = cp.lrn_pool_bwd(x, dy, hp[0], 0.0, *hp[2:])  # alpha 0: identity LRN
         torch.cuda.synchronize()
-        ef = _close(y, cp.lrn_maxpool_reference(x, *LRN_HP), LRN_FWD_TOL,
-                    f"K7 {shape}")
-        eb = _close(dx, cp.lrn_maxpool_bwd_reference(x, dy, *LRN_HP),
-                    LRN_BWD_TOL, f"K8 {shape}")
+        what = f"{shape} n={hp[0]} beta={hp[2]}"
+        ef = _close(y, cp.lrn_maxpool_reference(x, *hp), LRN_FWD_TOL,
+                    f"K7 {what}")
+        eb = _close(dx, cp.lrn_maxpool_bwd_reference(x, dy, *hp),
+                    LRN_BWD_TOL, f"K8 {what}")
         check(bool(torch.equal(routed, cp.route_reference(x, dy))),
-              f"K8 {shape}: routed positions differ from the plain version")
-        check(bool(torch.equal(dx, cp.lrn_maxpool_bwd_reference(x, dy, *LRN_HP))),
-              f"K8 {shape}: dx differs from the plain version's bits")
-        print(f"K7/K8 lrn_pool {shape}{' ties' if ties else ''}: max_abs_err "
-              f"fwd {ef:.3e}, bwd {eb:.3e}, routing and K8's dx bit-equal")
+              f"K8 {what}: routed positions differ from the plain version")
+        check(bool(torch.equal(dx, cp.lrn_maxpool_bwd_reference(x, dy, *hp))),
+              f"K8 {what}: dx differs from the plain version's bits")
+        check(bool(torch.equal(y, cp.lrn_maxpool_reference(x, *hp))),
+              f"K7 {what}: the pooled output differs from the plain "
+              "version's bits")
+        print(f"K7/K8 lrn_pool {shape}{' ties' if ties else ''} n={hp[0]} "
+              f"beta={hp[2]}: max_abs_err fwd {ef:.3e}, bwd {eb:.3e}; K7's "
+              "output, the routing and K8's dx bit-equal")
         err["lrn_pool_fwd"] = max(err["lrn_pool_fwd"], ef)
         err["lrn_pool_bwd"] = max(err["lrn_pool_bwd"], eb)
 
@@ -1393,7 +1463,8 @@ def check_lrn_kernels(dev, card):
                    ms=device_ms(kern), call_ms=time_ms(kern),
                    plain_ms=device_ms(plain), plain_call_ms=time_ms(plain))
         print(f"[{card}] {tag} {name} [{shape}, both sandwiches]: kernel "
-              f"{rec['ms']:.4f} ms on device ({rec['call_ms']:.4f} ms per call), "
+              f"{rec['ms']:.4f} ms on device ({rec['call_ms']:.4f} ms "
+              "per call), "
               f"plain {rec['plain_ms']:.4f} ms ({rec['plain_call_ms']:.4f}), "
               f"library {library:.4f} ms, bound {b * 1e3:.3f} us ({by}, "
               f"{nbytes} bytes) -> {b / rec['ms']:.1%} of the bound")
@@ -1545,6 +1616,19 @@ def imagenet_train_end_to_end(dev, card):
               "imagenet_app.main on synthesized JPEG shards failed")
         print(f"imagenet_app.main on JPEG shards (full 72, crop 67, W=2): "
               f"losses {result['losses'].mean(axis=(1, 2)).round(4).tolist()}")
+
+    # the initial weights: the JAX package's threefry recipe, drawn on the host
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.net import TorchNet
+
+    t0 = time.perf_counter()
+    params, _ = TorchNet(models.load_model("alexnet"),
+                         phase="TRAIN").init(0, torch.device("cpu"))
+    n_params = sum(t.numel() for bs in params.values() for t in bs)
+    print(f"AlexNet init from seed 0 (the JAX package's threefry recipe, drawn "
+          f"on the host): {n_params} parameters in "
+          f"{time.perf_counter() - t0:.3f} s")
+    del params
 
     train_parts, test_parts, mean = _imnet_partitions()
     n_test = sum(len(x) for x, _ in test_parts)
@@ -1709,11 +1793,18 @@ def main() -> int:
     libs = _build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s: "
           + ", ".join(p.name for p in libs.values()))
-    for p in libs.values():
-        log = p.with_suffix(".log")
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {p.stem}: {line.strip()}")
+    for p in libs.values():  # ptxas: registers and spills of each kernel
+        entry, spill = "?", ""
+        for line in p.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)"
+                          r"(\w*?)Ev", line)
+            if m:  # the kernel's name and its mangled template arguments
+                entry = f"{m.group(1)} {m.group(2)}"
+            elif "spill stores" in line:
+                spill = line.strip()
+            elif "Used" in line and "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                print(f"  {p.stem}: {entry}: {regs} registers; {spill}")
 
     kernels = check_kernels(dev)
     kernels += check_bwd_kernels(dev)

@@ -39,6 +39,7 @@ from torch import nn
 
 from sparknet_tpu_torch.ops import cuda_attention
 from sparknet_tpu_torch.ops.attention import mha_reference
+from sparknet_tpu_torch.utils import jax_prng
 
 VOCAB = 256  # byte-level: the tokenizer IS the identity over bytes
 
@@ -85,18 +86,19 @@ def blob_plan(vocab: int, dim: int, depth: int, seq_len: int,
 
 
 def init_params(plan: Plan, depth: int, seed: int = 0) -> Params:
-    """Seeded weights with the JAX package's recipe: normal(0, 0.02)
-    matrices, the residual-branch output projections (``wo``, ``w2``)
-    scaled by ``1/sqrt(2*depth)`` (the GPT-2 init), LayerNorm gains 1
-    and every bias 0.  The draws come from one CPU ``torch.Generator``
-    per group, so the weights are the same on every device (they differ
-    from the JAX package's, whose generator is another; tests carry
-    those across with ``interop``)."""
+    """Seeded weights with the JAX package's recipe and key tree
+    (``TransformerLM.init``): normal(0, 0.02) matrices drawn from
+    ``fold_in(fold_in(PRNGKey(seed), group), blob)``, the residual-branch
+    output projections (``wo``, ``w2``) scaled by ``1/sqrt(2*depth)``
+    (the GPT-2 init), LayerNorm gains 1 and every bias 0.  The draws run
+    on the host (``utils/jax_prng.py``), so the weights are the same on
+    every device and the JAX package's within a few ulp."""
     std = 0.02
     res_std = std / math.sqrt(max(1, 2 * depth))
+    key = jax_prng.prng_key(seed)
     params: Params = {}
     for gi, (group, shapes) in enumerate(plan):
-        gen = torch.Generator().manual_seed(int(seed) * 1_000_003 + gi)
+        gkey = jax_prng.fold_in(key, gi)
         is_ln = group.endswith(("ln1", "ln2")) or group == "ln_f"
         blobs = []
         for bi, shape in enumerate(shapes):
@@ -108,8 +110,8 @@ def init_params(plan: Plan, depth: int, seed: int = 0) -> Params:
                 group.endswith("_mlp") and bi == 2
             ):
                 s = res_std
-            blobs.append(torch.randn(shape, generator=gen,
-                                     dtype=torch.float32) * s)
+            drawn = jax_prng.normal(jax_prng.fold_in(gkey, bi), shape)
+            blobs.append(torch.from_numpy(np.float32(s) * drawn))
         params[group] = blobs
     return params
 

@@ -36,7 +36,7 @@ from sparknet_tpu_torch.config.schema import LRNParameter
 from sparknet_tpu_torch.ops import common, data_layers, losses, vision  # noqa: F401
 from sparknet_tpu_torch.ops import cuda_plp, fillers
 from sparknet_tpu_torch.ops.base import BlobDef, Layer, create_layer
-from sparknet_tpu_torch.utils import rngs
+from sparknet_tpu_torch.utils import jax_prng, rngs
 
 Params = Dict[str, List[torch.Tensor]]
 Stats = Dict[str, List[torch.Tensor]]
@@ -217,18 +217,23 @@ class TorchNet:
 
     def init(self, seed: int = 0,
              device: Optional[torch.device] = None) -> Tuple[Params, Stats]:
-        """Fill every blob with its filler (Net::Init's filler pass), drawing
-        from one ``torch.Generator`` seeded with ``seed``, layer by layer."""
-        gen = torch.Generator().manual_seed(int(seed))
+        """Fill every blob with its filler (Net::Init's filler pass), with
+        the JAX package's key tree (``JaxNet.init``): the key of layer
+        ``i`` is ``fold_in(PRNGKey(seed), i)``, split into one key per
+        blob.  The draws run on the host (``utils/jax_prng.py``), so the
+        same seed gives the JAX package's weights on every device."""
+        key = jax_prng.prng_key(seed)
         params: Params = {}
         stats: Stats = {}
-        for layer in self.layers:
-            for d, ref in zip(
-                self._blob_defs[layer.name], self._blob_refs[layer.name]
-            ):
+        for li, layer in enumerate(self.layers):
+            defs = self._blob_defs[layer.name]
+            if not defs:
+                continue
+            keys = jax_prng.split(jax_prng.fold_in(key, li), len(defs))
+            for d, ref, k in zip(defs, self._blob_refs[layer.name], keys):
                 if ref.owner != layer.name:
                     continue  # shared: the owner already initialized it
-                arr = fillers.fill(gen, d.shape, d.filler).to(device)
+                arr = fillers.fill(k, d.shape, d.filler).to(device)
                 coll = params if ref.collection == "params" else stats
                 coll.setdefault(layer.name, []).append(arr)
         return params, stats

@@ -12,19 +12,21 @@
 //
 // Design.  The TPU kernel takes a (C, 1024-lane) block per grid cell and
 // forms the window sum with sublane shifts.  Here consecutive threads
-// own consecutive h*w positions of one image, so every channel's load is
-// coalesced over the NCHW plane, and each thread walks the channels of
-// its position in order, holding the window in registers as a shift
-// register: x[c-D .. c+D] in the forward; in the backward also the
-// terms dy x p / scale of the last 2D+1 channels and, delayed by D
-// channels, the p, dy and x of the channel being written.  D is a
-// template parameter >= max(pre, post) (n up to 15), so every register
-// index is a compile-time constant.  One pass over x (backward: over x
-// and dy), no shared memory.  The channels are cut into chunks of
-// CHUNK, one per grid row, so that the small late planes of AlexNet
-// (256 x 27 x 27) still give the card ~190,000 threads; a chunk
-// re-reads its D (backward 2D) halo channels on each side, mostly from
-// L2.
+// own consecutive positions, so every channel's load is coalesced over
+// the NCHW plane, and each thread walks the channels of its position in
+// order, holding the window in registers as a shift register:
+// x[c-D .. c+D] in the forward; in the backward also the terms
+// dy x p / scale of the last 2D+1 channels and, delayed by D channels,
+// the p, dy and x of the channel being written.  D is a template
+// parameter >= max(pre, post) (n up to 15), so every register index is a
+// compile-time constant.  One pass over x (backward: over x and dy), no
+// shared memory.  The channels are cut into chunks, one per grid row, so
+// that the small late planes of AlexNet (256 x 27 x 27) still give the
+// card enough threads; a chunk re-reads its D (backward 2D) halo
+// channels on each side, mostly from L2.  The forward (K5) takes one
+// image's positions a block, one load in flight a channel.  The backward
+// (K6) takes the positions of all images as one index and loads a group
+// of channels ahead (below).
 //
 // Bound on this card: bytes.  The forward reads x and writes y (8 bytes
 // per element), the backward reads x and dy and writes dx (12 bytes);
@@ -78,48 +80,105 @@ __global__ void __launch_bounds__(THREADS) lrn_fwd_kernel(
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS) lrn_bwd_kernel(
+// K6's launch shape, chosen by tools/lrn_tiles.py, which times the
+// alternatives (PERF.md §6): threads a block, the channels of x and dy a
+// thread loads a group ahead, and the blocks an SM should hold.
+constexpr int K6_THREADS = 384, K6_G = 4, K6_MB = 2;
+
+// Backward (K6).  The positions of all N images are one index (no block
+// of a small plane runs part empty); each thread owns one position
+// (consecutive threads, consecutive positions: each warp's loads stay
+// coalesced) and walks its chunk's channels as the shift registers of
+// lrn_common.cuh.  The loads are a group ahead: at the top of each group
+// of K6_G steps the thread issues the next group's K6_G loads of x and of
+// dy, then computes the current group from registers, so ~2 K6_G loads
+// are in flight across the group's arithmetic (Little's law: the HBM
+// latency times its rate over the threads an SM holds).  FAST fixes
+// Caffe's default window and power at compile time (lrn_common.cuh).
+template <int D, bool FAST>
+__global__ void __launch_bounds__(K6_THREADS, K6_MB) lrn_bwd_kernel(
     const float* __restrict__ x, const float* __restrict__ dy,
-    float* __restrict__ dx, int C, int L, int chunk, LrnParams hp) {
-  const int pos = blockIdx.x * THREADS + threadIdx.x;
-  if (pos >= L) return;
+    float* __restrict__ dx, int C, int L, long long NL, int chunk,
+    LrnParams hp) {
+  constexpr int G = K6_G;
   const int c0 = blockIdx.y * chunk;
   const int c1 = min(C, c0 + chunk);
   const long long plane = static_cast<long long>(L);
-  const long long base = static_cast<long long>(blockIdx.z) * C * plane + pos;
-  const float* xp = x + base;
-  const float* dyp = dy + base;
-  float* dxp = dx + base;
+  const long long q =
+      static_cast<long long>(blockIdx.x) * K6_THREADS + threadIdx.x;
+  const bool ok = q < NL;
+  const long long at = ok ? (q / L) * C * plane + q % L : 0;
+  const float* xp = x + at;
+  const float* dyp = dy + at;
+  float* dxp = dx + at;
 
   float xr[2 * D + 1];  // x at channels j-D .. j+D (j: the term's channel)
+  float sr[2 * D + 1];  // their squares, each formed once
   float tr[2 * D + 1];  // dy x p / scale at channels j-2D .. j
-  float pd[D + 1], gd[D + 1], xd[D + 1];  // p, dy, x at channels j-D .. j
+  float pa[D + 1];      // p dy at channels j-D .. j
+  // step j computes the term of channel j and writes dx at c = j - D,
+  // whose x is then xr[0]
+  const int j0 = c0 - D, j1 = c1 + D;
 #pragma unroll
-  for (int m = 0; m <= 2 * D; ++m) xr[m] = tr[m] = 0.f;
+  for (int m = 0; m <= 2 * D; ++m) xr[m] = sr[m] = tr[m] = 0.f;
 #pragma unroll
-  for (int m = 0; m <= D; ++m) pd[m] = gd[m] = xd[m] = 0.f;
-  // step j computes the term of channel j and writes dx at c = j - D
-  const int j0 = c0 - D;
-  for (int cc = j0 - D; cc < j0 + D; ++cc) {
-    shift_in<2 * D + 1>(xr, load_channel(xp, cc, C, plane));
-  }
-  for (int j = j0; j < c1 + D; ++j) {
-    shift_in<2 * D + 1>(xr, load_channel(xp, j + D, C, plane));
-    float t = 0.f, p = 0.f, g = 0.f;
-    if (j >= 0 && j < C) {
-      const float scale = lrn_scale<D>(xr, hp);
-      p = negpow(scale, hp);
-      g = __ldg(dyp + j * plane);
-      t = lrn_term(g, xr[D], p, scale);
+  for (int m = 0; m <= D; ++m) pa[m] = 0.f;
+  if (ok) {
+    for (int cc = j0 - D; cc < j0 + D; ++cc) {
+      const float v = load_channel(xp, cc, C, plane);
+      shift_in<2 * D + 1>(xr, v);
+      shift_in<2 * D + 1>(sr, __fmul_rn(v, v));
     }
-    shift_in<2 * D + 1>(tr, t);
-    shift_in<D + 1>(pd, p);
-    shift_in<D + 1>(gd, g);
-    shift_in<D + 1>(xd, xr[D]);
-    const int c = j - D;
-    if (c >= c0) {
-      dxp[c * plane] = lrn_dx(pd[0], gd[0], xd[0], window_sum<D>(tr, hp), hp);
+  }
+  // x of channels j + D and dy of channels j, for the steps j of a group;
+  // a group whose channels all lie in [0, C) loads without checks (a
+  // position past NL reads image 0's and writes nothing)
+  float xn[G], gn[G];
+  auto fetch = [&](int jg) {
+    if (jg >= 0 && jg + G + D <= C) {
+      const float* xq = xp + (jg + D) * plane;
+      const float* gq = dyp + jg * plane;
+#pragma unroll
+      for (int s = 0; s < G; ++s) {
+        xn[s] = __ldg(xq + s * plane);
+        gn[s] = __ldg(gq + s * plane);
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < G; ++s) {
+        const int j = jg + s;
+        xn[s] = load_channel(xp, j + D, C, plane);
+        gn[s] = j >= 0 && j < C ? __ldg(dyp + j * plane) : 0.f;
+      }
+    }
+  };
+  fetch(j0);
+  for (int jg = j0; jg < j1; jg += G) {
+    float xc[G], gc[G];
+#pragma unroll
+    for (int s = 0; s < G; ++s) {
+      xc[s] = xn[s];
+      gc[s] = gn[s];
+    }
+    if (jg + G < j1) fetch(jg + G);
+#pragma unroll
+    for (int s = 0; s < G; ++s) {
+      const int j = jg + s, c = j - D;
+      shift_in<2 * D + 1>(xr, xc[s]);
+      shift_in<2 * D + 1>(sr, __fmul_rn(xc[s], xc[s]));
+      float t = 0.f, pw = 0.f, g = 0.f;
+      if (j >= 0 && j < C) {
+        const float scale = lrn_scale_sq_t<D, FAST>(sr, hp);
+        pw = negpow_t<FAST>(scale, hp);
+        g = gc[s];
+        t = lrn_term(g, xr[D], pw, scale);
+      }
+      shift_in<2 * D + 1>(tr, t);
+      shift_in<D + 1>(pa, __fmul_rn(pw, g));
+      if (c >= c0 && c < c1 && ok) {
+        dxp[(jg - D) * plane + s * plane] =
+            lrn_dx(pa[0], xr[0], window_sum_t<D, FAST>(tr, hp), hp);
+      }
     }
   }
 }
@@ -127,11 +186,26 @@ __global__ void __launch_bounds__(THREADS) lrn_bwd_kernel(
 template <int D>
 cudaError_t launch(const float* x, const float* dy, float* out, int N, int C,
                    int L, int chunk, const LrnParams& hp, cudaStream_t s) {
-  dim3 grid((L + THREADS - 1) / THREADS, (C + chunk - 1) / chunk, N);
+  const int nchunks = (C + chunk - 1) / chunk;
   if (dy == nullptr) {
+    dim3 grid((L + THREADS - 1) / THREADS, nchunks, N);
     lrn_fwd_kernel<D><<<grid, THREADS, 0, s>>>(x, out, C, L, chunk, hp);
   } else {
-    lrn_bwd_kernel<D><<<grid, THREADS, 0, s>>>(x, dy, out, C, L, chunk, hp);
+    const long long NL = static_cast<long long>(N) * L;
+    dim3 grid(static_cast<unsigned>((NL + K6_THREADS - 1) / K6_THREADS),
+              nchunks);
+    bool fast = false;
+    if constexpr (D == 2) {  // the FAST kernel exists for D = 2 alone
+      fast = lrn_fast(D, hp);
+      if (fast) {
+        lrn_bwd_kernel<D, true><<<grid, K6_THREADS, 0, s>>>(x, dy, out, C, L,
+                                                            NL, chunk, hp);
+      }
+    }
+    if (!fast) {
+      lrn_bwd_kernel<D, false><<<grid, K6_THREADS, 0, s>>>(x, dy, out, C, L,
+                                                           NL, chunk, hp);
+    }
   }
   return cudaGetLastError();
 }

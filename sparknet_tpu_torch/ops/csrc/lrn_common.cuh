@@ -55,16 +55,6 @@ __device__ __forceinline__ float window_sum(const float (&r)[2 * D + 1],
   return acc;
 }
 
-// scale = k + (alpha/n) S(x^2), the squares formed from the x window
-template <int D>
-__device__ __forceinline__ float lrn_scale(const float (&xr)[2 * D + 1],
-                                           const LrnParams& hp) {
-  float sq[2 * D + 1];
-#pragma unroll
-  for (int m = 0; m <= 2 * D; ++m) sq[m] = __fmul_rn(xr[m], xr[m]);
-  return __fadd_rn(hp.k, __fmul_rn(hp.alpha_n, window_sum<D>(sq, hp)));
-}
-
 // s^-beta: the JAX package's _fast_negpow composition
 __device__ __forceinline__ float negpow(float s, const LrnParams& hp) {
   int q = hp.q;
@@ -89,8 +79,62 @@ __device__ __forceinline__ float lrn_term(float dy, float x, float p,
   return __fdiv_rn(__fmul_rn(__fmul_rn(dy, x), p), scale);
 }
 
-// dx = p dy - (2 alpha beta / n) x inner
-__device__ __forceinline__ float lrn_dx(float p, float dy, float x,
-                                        float inner, const LrnParams& hp) {
-  return __fsub_rn(__fmul_rn(p, dy), __fmul_rn(__fmul_rn(hp.coef, x), inner));
+// dx = p dy - (2 alpha beta / n) x inner, with p dy formed when the term
+// was (D channels before dx is written)
+__device__ __forceinline__ float lrn_dx(float p_dy, float x, float inner,
+                                        const LrnParams& hp) {
+  return __fsub_rn(p_dy, __fmul_rn(__fmul_rn(hp.coef, x), inner));
+}
+
+// Caffe's default LRN (local_size 5, beta 0.75: pre = post = 2, q = 3)
+// with its window and power fixed at compile time: a FAST kernel runs the
+// same operations in the same order as window_sum and negpow, without
+// negpow's runtime loop or window_sum's runtime reach.
+template <int D, bool FAST>
+__device__ __forceinline__ float window_sum_t(const float (&r)[2 * D + 1],
+                                              const LrnParams& hp) {
+  if constexpr (FAST) {
+    float acc = r[D];
+#pragma unroll
+    for (int d = 1; d <= D; ++d) acc = __fadd_rn(acc, r[D + d]);
+#pragma unroll
+    for (int d = 1; d <= D; ++d) acc = __fadd_rn(acc, r[D - d]);
+    return acc;
+  } else {
+    return window_sum<D>(r, hp);
+  }
+}
+
+// scale = k + (alpha/n) S(x^2), from the squares of the window (each
+// formed once, as its channel enters, where the kernel keeps them)
+template <int D, bool FAST>
+__device__ __forceinline__ float lrn_scale_sq_t(const float (&sq)[2 * D + 1],
+                                                const LrnParams& hp) {
+  return __fadd_rn(hp.k, __fmul_rn(hp.alpha_n, window_sum_t<D, FAST>(sq, hp)));
+}
+
+// the same from the x window, the squares formed here
+template <int D, bool FAST = false>
+__device__ __forceinline__ float lrn_scale(const float (&xr)[2 * D + 1],
+                                           const LrnParams& hp) {
+  float sq[2 * D + 1];
+#pragma unroll
+  for (int m = 0; m <= 2 * D; ++m) sq[m] = __fmul_rn(xr[m], xr[m]);
+  return lrn_scale_sq_t<D, FAST>(sq, hp);
+}
+
+template <bool FAST>
+__device__ __forceinline__ float negpow_t(float s, const LrnParams& hp) {
+  if constexpr (FAST) {  // q = 3: r (r r), r = s^-1/4, as negpow forms it
+    const float r = rsqrtf(__fsqrt_rn(s));
+    return __fmul_rn(r, __fmul_rn(r, r));
+  } else {
+    return negpow(s, hp);
+  }
+}
+
+// whether a launch takes the FAST kernel: its reach is the template's
+// D = 2, the window centred, q = 3
+__host__ __device__ __forceinline__ bool lrn_fast(int D, const LrnParams& hp) {
+  return D == 2 && hp.pre == 2 && hp.post == 2 && hp.q == 3;
 }

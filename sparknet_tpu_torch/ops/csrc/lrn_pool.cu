@@ -6,14 +6,15 @@
 //   sparknet_lrn_pool_fwd_f32 <- _fwd_kernel (:148, pallas_call at :288)
 //   sparknet_lrn_pool_bwd_f32 <- _bwd_kernel (:166, pallas_call at :322)
 //
-// Forward (K7).  One block per (image, channel chunk, tile of 8 x 8
-// pooled outputs).  Each of its 17 x 17 input positions is one thread,
-// which walks the chunk's channels holding x[c-D .. c+D] of its position
-// in registers (lrn_common.cuh), computes the LRN output y there and
-// writes it into a shared plane; after one barrier the 64 pool threads
-// take the max of their 3 x 3 windows and write the pooled value.  The
-// plane is double-buffered, so a channel costs one barrier.  y never
-// reaches device memory.
+// Forward (K7).  One block per (tile of pooled outputs, image, channel
+// chunk): whole pooled rows, as many as a block holds (AlexNet's 27-wide
+// plane in one block, its 55-wide plane in bands of 7 pooled rows).  The
+// block walks the chunk's channels in groups with one barrier a group:
+// the next group's x copied into shared memory by cp.async a group ahead,
+// 16 bytes at a time; every thread shifting the group's x of its
+// positions into registers and writing the LRN output y into shared
+// planes; after the barrier, one thread per (channel, pooled position)
+// taking the max of its 3 x 3 window.  y never reaches device memory.
 //
 // Backward (K8).  Recomputed from x alone (the custom_vjp saves only x,
 // pallas_plp.py:281-307).  One block per (image, channel chunk, tile of
@@ -51,9 +52,10 @@
 //
 // Bound on this card: bytes.  K7 reads x and writes the pooled tensor
 // (|x| + |x|/4 per image); K8 reads x and the pooled dy and writes dx
-// (2|x| + |x|/4).  Both recompute y on a tile's halo (K7 17^2/16^2 of
-// the tile) and take one barrier (K7) or three per K8_G channels (K8);
-// tensor cores and TMA have no role (no matrix product).  Built
+// (2|x| + |x|/4).  Both recompute y on a tile's halo (K7 one input row a
+// band, 15/14 at the 55-wide plane) and take one barrier per G channels
+// (K7) or three per K8_G (K8); tensor cores and TMA have no role (no
+// matrix product).  Built
 // without --use_fast_math; every operation of the LRN is an explicitly
 // rounded intrinsic, as in lrn.cu.
 
@@ -63,62 +65,292 @@
 
 namespace {
 
-constexpr int TP = 8;                  // K7: pooled rows and columns per tile
-constexpr int FW = 2 * TP + 1;         // K7: input window side (17)
-constexpr int FWD_THREADS = 320;       // >= FW * FW, whole warps
-
 // max that keeps a NaN from either side (torch.maximum / jnp.maximum)
 __device__ __forceinline__ float max_nan(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-template <int D>
-__global__ void __launch_bounds__(FWD_THREADS) lrn_pool_fwd_kernel(
+// a 4-byte asynchronous copy into shared memory (zeros when !valid)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// a 16-byte asynchronous copy into shared memory, both sides on 16 bytes
+// (zeros when !valid)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// the float offset of p past its 16-byte boundary
+__device__ __forceinline__ int misalign(const float* p) {
+  return static_cast<int>((reinterpret_cast<unsigned long long>(p) >> 2) & 3);
+}
+
+// K7's blocks, one shape for planes up to K7_NARROW columns wide and one
+// for wider planes: the channels per barrier group, the threads, the tile
+// positions a thread may own (a block holds at most threads x that many
+// input positions), the pool items a thread may own per group, and the
+// blocks an SM should hold.  These constants were chosen by
+// tools/lrn_pool_tiles.py --fwd, which times the alternatives (PERF.md §6).
+constexpr int K7_NARROW = 32;
+constexpr int K7_G_NARROW = 8, K7_NT_NARROW = 384, K7_PPT_NARROW = 2;
+constexpr int K7_IPT_NARROW = 4, K7_MB_NARROW = 1;
+constexpr int K7_G_WIDE = 4, K7_NT_WIDE = 288, K7_PPT_WIDE = 3;
+constexpr int K7_IPT_WIDE = 3, K7_MB_WIDE = 3;
+
+template <int G_, int NT_, int PPT_, int IPT_>
+struct K7Shape {
+  static constexpr int G = G_, NT = NT_, PPT = PPT_, IPT = IPT_;
+  static constexpr int NB = NT * PPT;      // tile positions a block holds
+  static constexpr int XS = NB + NB / 4;   // a staged channel, row slack included
+  static constexpr size_t SMEM = sizeof(float) * 2 * G * (XS + NB);
+  static_assert(NT % 32 == 0 && NB % 16 == 0, "whole warps, 16-byte rows");
+};
+
+// a staged row of BW floats: up to 3 of misalignment ahead, a multiple of
+// 4 so that every row starts on 16 bytes
+__host__ __device__ __forceinline__ int staged_row(int bw) {
+  return (bw + 3 + 3) / 4 * 4;
+}
+
+// K7's tile of pooled outputs (rows, columns): whole pooled rows while
+// three input rows fit a block (a narrow plane in one block), else one
+// pooled row cut into column tiles; sizes spread evenly over the tiles.
+// {0, 0} when the pool items would overflow S::IPT a thread.
+template <class S>
+void k7_tile(int PH, int PW, int W, int* tph, int* tpw) {
+  auto fits = [](int th, int tw) {
+    const int bh = 2 * th + 1, bw = 2 * tw + 1;
+    return bh * bw <= S::NB && bh * staged_row(bw) <= S::XS;
+  };
+  auto even = [](int total, int most) {
+    const int tiles = (total + most - 1) / most;
+    return (total + tiles - 1) / tiles;
+  };
+  int th = 0, tw = PW;
+  while (th < PH && fits(th + 1, PW)) ++th;
+  if (th == 0) {
+    th = 1;
+    tw = 0;
+    while (tw < PW && fits(1, tw + 1)) ++tw;
+    tw = even(PW, tw);
+  } else {
+    th = even(PH, th);
+  }
+  const bool ok = tw > 0 && S::G * th * tw <= S::IPT * S::NT;
+  *tph = ok ? th : 0;
+  *tpw = ok ? tw : 0;
+}
+
+// Forward (K7).  One block per (tile of pooled outputs, image, channel
+// chunk); the tile's input box has 2 tph + 1 rows and 2 tpw + 1 columns
+// (whole rows of a plane up to ~340 columns wide).  The block walks the
+// chunk's channels in groups of G with one barrier a group, software-
+// pipelined:
+//   - the x of the next group's channels (the window's leading edge, D
+//     channels ahead) is copied into shared memory by cp.async, row by
+//     row, 16 bytes at a time from the 16-byte boundary below each row
+//     (a row's partial first and last 16 bytes 4 bytes at a time), one
+//     group ahead;
+//   - each thread owns up to S::PPT box positions (strided by S::NT, so
+//     a warp reads and writes consecutive words), shifts the group's x
+//     into its registers (x[c-D .. c+D] of each position, lrn_common.cuh)
+//     and writes the group's LRN outputs y into shared planes, double-
+//     buffered;
+//   - after the next barrier each thread takes up to S::IPT items (a
+//     channel of the group and a pooled position of the tile), the max
+//     of its 3 x 3 window of y, and writes the pooled value, coalesced.
+// So every thread works after every barrier, y never reaches device
+// memory, and a tile recomputes one input row (column) of its
+// neighbour's.  FAST fixes Caffe's default window and power at compile
+// time (lrn_common.cuh).
+template <int D, bool FAST, class S, int MB>
+__global__ void __launch_bounds__(S::NT, MB) lrn_pool_fwd_kernel(
     const float* __restrict__ x, float* __restrict__ out, int C, int H, int W,
-    int PH, int PW, int chunk, int nchunks, LrnParams hp) {
-  __shared__ float ys[2][FW * FW];
-  const int u0 = blockIdx.y * TP, v0 = blockIdx.x * TP;
+    int PH, int PW, int tph, int tpw, int chunk, int nchunks, LrnParams hp) {
+  constexpr int G = S::G, NT = S::NT, PPT = S::PPT, IPT = S::IPT;
+  constexpr int NB = S::NB, XS = S::XS;
+  extern __shared__ float4 k7_smem[];
+  float* xs = reinterpret_cast<float*>(k7_smem);  // [2][G][XS] staged x
+  float* ys = xs + 2 * G * XS;                     // [2][G][NB] y
+  const int t = threadIdx.x;
+  const int u0 = blockIdx.y * tph, v0 = blockIdx.x * tpw;  // first pooled
+  const int bph = min(tph, PH - u0), bpw = min(tpw, PW - v0);
+  const int bh = 2 * bph + 1, bw = 2 * bpw + 1;  // the input box
+  const int rs = staged_row(bw);
   const int n = blockIdx.z / nchunks;
   const int c0 = (blockIdx.z % nchunks) * chunk;
   const int c1 = min(C, c0 + chunk);
-  const int tph = min(TP, PH - u0), tpw = min(TP, PW - v0);
-  const int er = threadIdx.x / FW, ec = threadIdx.x % FW;
-  const bool lrn_thread = er <= 2 * tph && ec <= 2 * tpw;
-  const int pu = threadIdx.x / TP, pv = threadIdx.x % TP;
-  const bool pool_thread = threadIdx.x < TP * TP && pu < tph && pv < tpw;
+  const int n_groups = (c1 - c0 + G - 1) / G;
   const long long plane = static_cast<long long>(H) * W;
   const long long pplane = static_cast<long long>(PH) * PW;
-  const float* xp = x + static_cast<long long>(n) * C * plane +
-                    static_cast<long long>(2 * u0 + er) * W + (2 * v0 + ec);
-  float* op = out + static_cast<long long>(n) * C * pplane +
-              static_cast<long long>(u0 + pu) * PW + (v0 + pv);
+  // the box's top-left x of channel 0; channel c's is c planes on
+  const float* xbox = x + static_cast<long long>(n) * C * plane +
+                      static_cast<long long>(2 * u0) * W + 2 * v0;
+  float* obox = out + static_cast<long long>(n) * C * pplane +
+                static_cast<long long>(u0) * PW + v0;
+  const int mis0 = misalign(xbox);
+  // the float offset past 16 bytes of row r of channel c's box
+  auto row_off = [&](int c, int r) {
+    return static_cast<int>((mis0 + c * plane + static_cast<long long>(r) * W)
+                            & 3);
+  };
 
-  float xr[2 * D + 1];  // x at channels c-D .. c+D of this position
+  // copy channels c .. c + G - 1 of the box into staging buffer buf; a
+  // channel outside [0, C) is zeros, as the Pallas kernel pads.  A
+  // thread copies the same 16-byte chunks of every channel (FPT at
+  // most): their rows, their places in a staged channel, and their rows'
+  // offsets past 16 bytes in channel 0 are worked out once.
+  constexpr int FPT = (XS / 4 + NT - 1) / NT;
+  const int cpr = rs / 4;  // 16-byte chunks a staged row
+  int f_dst[FPT], f_src[FPT], f_k4[FPT], f_off[FPT];
 #pragma unroll
-  for (int m = 0; m <= 2 * D; ++m) xr[m] = 0.f;
-  if (lrn_thread) {
-    for (int cc = c0 - D; cc < c0 + D; ++cc) {
-      shift_in<2 * D + 1>(xr, load_channel(xp, cc, C, plane));
+  for (int m = 0; m < FPT; ++m) {
+    const int i = t + m * NT, r = i / cpr;
+    f_k4[m] = i < bh * cpr ? 4 * (i % cpr) : bw + 4;  // past bw: no chunk
+    f_dst[m] = r * rs + f_k4[m];
+    f_src[m] = r * W + f_k4[m];
+    f_off[m] = row_off(0, r);
+  }
+  // (c * plane) & 3 of each channel: its offset past 16 bytes, less
+  // channel 0's
+  const int plane4 = static_cast<int>(plane & 3);
+  auto fetch = [&](int c, int buf) {
+#pragma unroll
+    for (int s = 0; s < G; ++s) {
+      const int cc = c + s;
+      const bool in = cc >= 0 && cc < C;
+      const int ci = in ? cc : 0;
+      const float* src = xbox + ci * plane;
+      float* dst = xs + (buf * G + s) * XS;
+      const int coff = (ci * plane4) & 3;
+#pragma unroll
+      for (int m = 0; m < FPT; ++m) {
+        const int off = (f_off[m] + coff) & 3;
+        const int e0 = f_k4[m] - off;  // the row index of the chunk's first float
+        if (e0 >= bw) continue;
+        const float* a = src + f_src[m] - off;  // on 16 bytes
+        float* d = dst + f_dst[m];
+        if (e0 >= 0 && e0 + 4 <= bw) {
+          cp_async16(d, a, in);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const bool ok = in && e0 + k >= 0 && e0 + k < bw;
+            cp_async4(d + k, ok ? a + k : x, ok);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // this thread's pool items, the same every group: the channel of the
+  // group, the offset of the window's top-left y in a plane of the box,
+  // the pooled value's offset in a channel's tile (s = G: no item)
+  int it_s[IPT], it_y[IPT], it_o[IPT];
+  const int per_s = bph * bpw;
+#pragma unroll
+  for (int k = 0; k < IPT; ++k) {
+    const int i = t + k * NT;
+    it_s[k] = G;
+    it_y[k] = it_o[k] = 0;
+    if (i < G * per_s) {
+      const int s = i / per_s, r = i % per_s;
+      const int pu = r / bpw, pv = r % bpw;
+      it_s[k] = s;
+      it_y[k] = (2 * pu) * bw + 2 * pv;
+      it_o[k] = pu * PW + pv;
     }
   }
-  for (int c = c0; c < c1; ++c) {
-    float* yb = ys[c & 1];
-    if (lrn_thread) {
-      shift_in<2 * D + 1>(xr, load_channel(xp, c + D, C, plane));
-      yb[er * FW + ec] =
-          __fmul_rn(xr[D], negpow(lrn_scale<D>(xr, hp), hp));
-    }
-    __syncthreads();
-    if (pool_thread) {
-      const float* w = yb + (2 * pu) * FW + 2 * pv;
+  auto pool = [&](int g0, int buf) {
+#pragma unroll
+    for (int k = 0; k < IPT; ++k) {
+      const int s = it_s[k];
+      if (s == G || g0 + s >= c1) continue;
+      const float* w = ys + (buf * G + s) * NB + it_y[k];
       float rm[3];  // the 3-row max of each window column
 #pragma unroll
       for (int b = 0; b < 3; ++b) {
-        rm[b] = max_nan(max_nan(w[b], w[FW + b]), w[2 * FW + b]);
+        rm[b] = max_nan(max_nan(w[b], w[bw + b]), w[2 * bw + b]);
       }
-      op[c * pplane] = max_nan(max_nan(rm[0], rm[1]), rm[2]);
+      obox[(g0 + s) * pplane + it_o[k]] = max_nan(max_nan(rm[0], rm[1]), rm[2]);
+    }
+  };
+
+  // this thread's box positions: index in a staged channel, and the
+  // float offset of its row's start past 16 bytes in channel 0
+  int pst[PPT], prw[PPT];
+  // x at channels g0-D-G .. g0+D-1 of each position, then g0-D .. g0+G-1+D
+  float xr[PPT][2 * D + G];
+#pragma unroll
+  for (int p = 0; p < PPT; ++p) {
+    const int e = t + p * NT, r = e / bw;
+    pst[p] = r * rs + e % bw;
+    prw[p] = row_off(0, r);
+#pragma unroll
+    for (int m = 0; m < 2 * D + G; ++m) xr[p][m] = 0.f;
+    if (e < bh * bw) {
+      const float* xp = xbox + static_cast<long long>(r) * W + e % bw;
+#pragma unroll
+      for (int m = 0; m < 2 * D; ++m) {
+        xr[p][G + m] = load_channel(xp, c0 - D + m, C, plane);
+      }
     }
   }
+  fetch(c0 + D, 0);
+  for (int gi = 0; gi < n_groups; ++gi) {
+    const int g0 = c0 + gi * G, buf = gi & 1;
+    cp_async_wait_all();
+    __syncthreads();  // x of this group landed; y of the last group written
+    if (gi + 1 < n_groups) fetch(g0 + G + D, buf ^ 1);
+    if (gi > 0) pool(g0 - G, buf ^ 1);
+    // each staged channel's offset past 16 bytes, less channel 0's (a
+    // channel outside [0, C) was staged as channel 0)
+    int coff[G];
+#pragma unroll
+    for (int s = 0; s < G; ++s) {
+      const int cc = g0 + D + s;
+      coff[s] = ((cc >= 0 && cc < C ? cc : 0) * plane4) & 3;
+    }
+#pragma unroll
+    for (int p = 0; p < PPT; ++p) {
+      const int e = t + p * NT;
+      if (e >= bh * bw) continue;
+#pragma unroll
+      for (int s = 0; s < G; ++s) {
+        const float* st = xs + (buf * G + s) * XS;
+        shift_in<2 * D + G>(xr[p], st[pst[p] + ((prw[p] + coff[s]) & 3)]);
+      }
+#pragma unroll
+      for (int s = 0; s < G; ++s) {
+        if (g0 + s >= c1) continue;
+        float win[2 * D + 1];
+#pragma unroll
+        for (int m = 0; m <= 2 * D; ++m) win[m] = xr[p][s + m];
+        ys[(buf * G + s) * NB + e] = __fmul_rn(
+            win[D], negpow_t<FAST>(lrn_scale<D, FAST>(win, hp), hp));
+      }
+    }
+  }
+  __syncthreads();
+  pool(c0 + (n_groups - 1) * G, (n_groups - 1) & 1);
 }
 
 // K8's dx tiles (rows, columns) and the blocks an SM should hold: one
@@ -149,23 +381,6 @@ struct K8Shape {
   static_assert(NT <= 1024, "a block holds the tile and its halo");
   static_assert(N_B2 <= K8_IPT * NT, "stage 2 fits K8_IPT items a thread");
 };
-
-// a 4-byte asynchronous copy into shared memory (zeros when !valid)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
 
 // stage 1 of the routing: the column b in 0..2 whose 3-row max equals
 // the pooled value, the first that does (3: none, a NaN window); w
@@ -385,10 +600,8 @@ __global__ void __launch_bounds__(S::NT, MB) lrn_pool_bwd_kernel(
         shift_in<D + 1>(pa, __fmul_rn(p, g));
         const int c = j - D;
         if (c >= c0 && c < c1) {
-          // lrn_dx(p, g, x, inner) with p g formed D channels ago; x of
-          // channel c is xr[s]
-          dxp[c * plane] = __fsub_rn(
-              pa[0], __fmul_rn(__fmul_rn(hp.coef, xr[s]), window_sum<D>(tr, hp)));
+          // x of channel c is xr[s]
+          dxp[c * plane] = lrn_dx(pa[0], xr[s], window_sum<D>(tr, hp), hp);
         }
       }
     }
@@ -413,16 +626,58 @@ cudaError_t launch_bwd(const float* x, const float* dy, float* dx, int N,
   return cudaGetLastError();
 }
 
+template <int D, bool FAST, class S, int MB>
+cudaError_t launch_fwd_as(const float* x, float* out, int N, int C, int H,
+                          int W, int PH, int PW, int chunk, int nchunks,
+                          const LrnParams& hp, cudaStream_t s) {
+  int tph, tpw;
+  k7_tile<S>(PH, PW, W, &tph, &tpw);
+  if (tph == 0) return cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured && S::SMEM > 48 * 1024) {  // above 48 KB: the opt-in
+    const cudaError_t e = cudaFuncSetAttribute(
+        lrn_pool_fwd_kernel<D, FAST, S, MB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(S::SMEM));
+    if (e != cudaSuccess) return e;
+  }
+  configured = true;
+  dim3 grid((PW + tpw - 1) / tpw, (PH + tph - 1) / tph, N * nchunks);
+  lrn_pool_fwd_kernel<D, FAST, S, MB><<<grid, S::NT, S::SMEM, s>>>(
+      x, out, C, H, W, PH, PW, tph, tpw, chunk, nchunks, hp);
+  return cudaGetLastError();
+}
+
+template <int D, class S, int MB>
+cudaError_t launch_fwd(const float* x, float* out, int N, int C, int H, int W,
+                       int PH, int PW, int chunk, int nchunks,
+                       const LrnParams& hp, cudaStream_t s) {
+  if constexpr (D == 2) {  // the FAST kernel exists for D = 2 alone
+    if (lrn_fast(D, hp)) {
+      return launch_fwd_as<D, true, S, MB>(x, out, N, C, H, W, PH, PW, chunk,
+                                           nchunks, hp, s);
+    }
+  }
+  return launch_fwd_as<D, false, S, MB>(x, out, N, C, H, W, PH, PW, chunk,
+                                        nchunks, hp, s);
+}
+
 template <int D>
 cudaError_t launch(const float* x, const float* dy, float* out, int N, int C,
                    int H, int W, int chunk, const LrnParams& hp,
                    cudaStream_t s) {
   const int PH = (H - 3) / 2 + 1, PW = (W - 3) / 2 + 1;
   const int nchunks = (C + chunk - 1) / chunk;
-  if (dy == nullptr) {
-    dim3 grid((PW + TP - 1) / TP, (PH + TP - 1) / TP, N * nchunks);
-    lrn_pool_fwd_kernel<D><<<grid, FWD_THREADS, 0, s>>>(
-        x, out, C, H, W, PH, PW, chunk, nchunks, hp);
+  if (dy == nullptr && W <= K7_NARROW) {
+    return launch_fwd<D,
+                      K7Shape<K7_G_NARROW, K7_NT_NARROW, K7_PPT_NARROW,
+                              K7_IPT_NARROW>,
+                      K7_MB_NARROW>(x, out, N, C, H, W, PH, PW, chunk, nchunks,
+                                    hp, s);
+  } else if (dy == nullptr) {
+    return launch_fwd<D,
+                      K7Shape<K7_G_WIDE, K7_NT_WIDE, K7_PPT_WIDE, K7_IPT_WIDE>,
+                      K7_MB_WIDE>(x, out, N, C, H, W, PH, PW, chunk, nchunks,
+                                  hp, s);
   } else if (W <= K8_NARROW) {
     return launch_bwd<D, K8Shape<K8_TH_NARROW, K8_TW_NARROW>, K8_MB_NARROW>(
         x, dy, out, N, C, H, W, PH, PW, chunk, nchunks, hp, s);
@@ -430,7 +685,6 @@ cudaError_t launch(const float* x, const float* dy, float* out, int N, int C,
     return launch_bwd<D, K8Shape<K8_TH_WIDE, K8_TW_WIDE>, K8_MB_WIDE>(
         x, dy, out, N, C, H, W, PH, PW, chunk, nchunks, hp, s);
   }
-  return cudaGetLastError();
 }
 
 int dispatch(const float* x, const float* dy, float* out, int N, int C, int H,

@@ -25,13 +25,20 @@ launched), so a run can show that its main path went through the
 kernels.
 
 The kernels are built for the head dims in ``KERNEL_HEAD_DIMS`` (every
-multiple of 16 up to 128, ``csrc/head_dims.cuh``); on a CUDA tensor any
-other head dim raises, naming them.  K1, K3 and K4 copy (B, T, H, D)
-rows into shared memory 16 bytes at a time, so every row must start on
-16 bytes.  The wrappers raise on what the kernels do not take; the
-autograd path (``flash_attention``, ``flash_attention_step``) hands them
-a contiguous copy of any input or saved tensor whose rows are not
-16-byte aligned, counted in ``ALIGN_COPIES``.
+multiple of 16 up to 128, ``csrc/head_dims.cuh``).  On CUDA tensors any
+other head dim D <= 128 is zero-padded up to the next built one, once:
+the autograd path (``flash_attention``, ``flash_attention_step``) pads
+q, k and v in the forward and keeps the padded tensors and o for the
+backward, which pads only do; ``decode_attention`` pads q and its
+gathered context.  Each copy is counted in ``PAD_COPIES``.  The kernels
+run with the scale of the true D, and o, dq, dk and dv are sliced back
+to D: zero columns add nothing to q.kT and only give v columns that are
+dropped, so lse is unchanged.  A head dim above 128 raises, naming the
+limit.  K1, K3 and K4 copy (B, T, H, D) rows into shared memory 16
+bytes at a time, so every row must start on 16 bytes.  The wrappers
+raise on what the kernels do not take; the autograd path hands them a
+contiguous copy of any input or cotangent whose rows are not 16-byte
+aligned, counted in ``ALIGN_COPIES``.
 """
 
 from __future__ import annotations
@@ -47,19 +54,23 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "decode_attention": 0}
 
 KERNEL_HEAD_DIMS = tuple(range(16, 129, 16))
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 
 # contiguous copies the autograd path made of tensors whose rows were not
 # 16-byte aligned, before a launch
 ALIGN_COPIES = 0
+# zero-padded copies the autograd path and decode made of tensors whose
+# head dim is not one the kernels are built for, before a launch
+PAD_COPIES = 0
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
 def reset_launch_counts() -> None:
-    global ALIGN_COPIES
+    global ALIGN_COPIES, PAD_COPIES
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-    ALIGN_COPIES = 0
+    ALIGN_COPIES = PAD_COPIES = 0
 
 
 def _on_cpu(t) -> bool:
@@ -79,18 +90,51 @@ def _check_cuda(what: str, *tensors) -> None:
                 f"{what}: expected (B, T, H, D) tensors with unit stride "
                 f"along D, got shape {tuple(t.shape)} strides {t.stride()}"
             )
-    d = tensors[0].shape[-1]
-    if d not in KERNEL_HEAD_DIMS:
+
+
+def _kernel_head_dim(what: str, d: int) -> int:
+    """The built head dim a head dim ``d`` runs at: ``d`` rounded up to
+    a multiple of 16; above ``MAX_HEAD_DIM`` it raises."""
+    if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(
-            f"{what}: head_dim {d} has no kernel build "
-            f"(built for {KERNEL_HEAD_DIMS})"
+            f"{what}: head_dim {d} is above the kernels' limit of "
+            f"{MAX_HEAD_DIM} (built for {KERNEL_HEAD_DIMS}; a smaller head "
+            "dim is zero-padded up to the next of them)"
         )
+    return -(-d // 16) * 16
+
+
+def _check_built_head_dim(what: str, d: int) -> None:
+    """K1, K3 and K4 take a built head dim; the autograd path pads any
+    other up to one."""
+    if _kernel_head_dim(what, d) != d:
+        raise ValueError(
+            f"{what}: head_dim {d} is not one the kernels are built for "
+            f"({KERNEL_HEAD_DIMS}); flash_attention zero-pads it"
+        )
+
+
+def _pad_head(t, dp: int):
+    """``t`` zero-padded along D to ``dp`` (a copy, counted in
+    ``PAD_COPIES``), or ``t`` itself when it is ``dp`` wide."""
+    global PAD_COPIES
+    if t.shape[-1] == dp:
+        return t
+    PAD_COPIES += 1
+    return torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+
+
+def _unpad(t, d: int):
+    """``t`` sliced back to the head dim ``d`` (itself when that wide)."""
+    return t if t.shape[-1] == d else t[..., :d]
 
 
 def _rows_aligned(t) -> bool:
     """Every (b, t, h) row of ``t`` starts on 16 bytes: K1, K3 and K4
-    copy rows into shared memory with 16-byte ``cp.async``."""
-    return t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:3])
+    copy rows into shared memory with 16-byte ``cp.async``.  The stride
+    of a dimension of size 1 is never stepped."""
+    return t.data_ptr() % 16 == 0 and all(
+        s % 4 == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
 
 
 def _check_rows_aligned(what: str, **tensors) -> None:
@@ -115,16 +159,26 @@ def _kernel_rows(t):
     return t.clone(memory_format=torch.contiguous_format)
 
 
+def _kernel_input(t, dp: int):
+    """``t`` as K1, K3 and K4 read it at the built head dim ``dp``: a
+    zero-padded copy when it is narrower and lies along D with unit
+    stride (the wrappers refuse any other), else ``_kernel_rows(t)``."""
+    if t.shape[-1] != dp and t.stride(-1) == 1:
+        return _pad_head(t, dp)
+    return _kernel_rows(t)
+
+
 # ----------------------------------------------------------------------
 # Flash forward (K1)
 # ----------------------------------------------------------------------
 def _flash_core_reference(q, k, v, q_offset: int, k_offset: int,
-                          causal: bool):
+                          causal: bool, scale: float | None = None):
     """Plain version of the flash forward: what ``_fwd_kernel``
     computes, densely.  (B, T, H, D) in; ``(o (B, Tq, H, D), lse (B, H,
-    Tq))`` out, a fully-masked row giving ``(0, -inf)``."""
+    Tq))`` out, a fully-masked row giving ``(0, -inf)``.  ``scale``
+    defaults to ``1/sqrt(D)``."""
     tq, tk, d = q.shape[1], k.shape[1], q.shape[-1]
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     s = torch.einsum(
         "bqhd,bkhd->bhqk", q.float(), k.float()
     ) * scale
@@ -144,12 +198,14 @@ def _flash_core_reference(q, k, v, q_offset: int, k_offset: int,
     return o.permute(0, 2, 1, 3).to(q.dtype), lse
 
 
-def _flash_core(q, k, v, q_offset: int, k_offset: int, causal: bool):
+def _flash_core(q, k, v, q_offset: int, k_offset: int, causal: bool,
+                scale: float | None = None):
     """``(o (B, Tq, H, D), lse (B, H, Tq) float32)`` with the causal
     mask taken from ABSOLUTE positions (query row r at ``q_offset + r``,
     key c at ``k_offset + c``) — the counterpart of
     ``flash_attention_step``'s partial attention, in the port's
-    (B, T, H, D) layout."""
+    (B, T, H, D) layout.  ``scale`` defaults to ``1/sqrt(D)``; the
+    autograd path passes the unpadded D's."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if tq == 0:
@@ -158,13 +214,15 @@ def _flash_core(q, k, v, q_offset: int, k_offset: int, causal: bool):
             "attention output (check the caller's slicing)"
         )
     if _on_cpu(q):
-        return _flash_core_reference(q, k, v, q_offset, k_offset, causal)
+        return _flash_core_reference(q, k, v, q_offset, k_offset, causal,
+                                     scale)
     _check_cuda("flash_attention", q, k, v)
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:]:
         raise ValueError(
             f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} "
             f"v {tuple(v.shape)} do not line up"
         )
+    _check_built_head_dim("flash_attention", d)
     _check_rows_aligned("flash_attention", q=q, k=k, v=v)
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -180,7 +238,8 @@ def _flash_core(q, k, v, q_offset: int, k_offset: int, causal: bool):
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             int(q_offset), int(k_offset), int(bool(causal)),
-            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
+            1.0 / math.sqrt(d) if scale is None else scale,
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.raise_on(rc, "flash_attention")
     LAUNCHES["flash_fwd"] += 1
@@ -198,11 +257,11 @@ def flash_attention_reference(q, k, v, causal: bool = False):
 # Flash backward (K3 dq, K4 dk/dv)
 # ----------------------------------------------------------------------
 def _bwd_terms(q, k, v, do, o, lse, dlse, q_offset: int, k_offset: int,
-               causal: bool):
+               causal: bool, scale: float | None = None):
     """``(p, ds)`` of the flash backward, densely, (B, H, Tq, Tk) float32:
     the formulas of ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``."""
     tq, tk, d = q.shape[1], k.shape[1], q.shape[-1]
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         q_pos = q_offset + torch.arange(tq, device=q.device)[:, None]
@@ -217,17 +276,21 @@ def _bwd_terms(q, k, v, do, o, lse, dlse, q_offset: int, k_offset: int,
 
 
 def _flash_bwd_dq_reference(q, k, v, do, o, lse, dlse, q_offset: int,
-                            k_offset: int, causal: bool):
+                            k_offset: int, causal: bool,
+                            scale: float | None = None):
     """Plain version of K3: ``dq = ds k``, (B, Tq, H, D)."""
-    _, ds = _bwd_terms(q, k, v, do, o, lse, dlse, q_offset, k_offset, causal)
+    _, ds = _bwd_terms(q, k, v, do, o, lse, dlse, q_offset, k_offset, causal,
+                       scale)
     return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
 
 
 def _flash_bwd_dkv_reference(q, k, v, do, o, lse, dlse, q_offset: int,
-                             k_offset: int, causal: bool):
+                             k_offset: int, causal: bool,
+                             scale: float | None = None):
     """Plain version of K4: ``(dk = ds^T q, dv = p^T do)``, each
     (B, Tk, H, D)."""
-    p, ds = _bwd_terms(q, k, v, do, o, lse, dlse, q_offset, k_offset, causal)
+    p, ds = _bwd_terms(q, k, v, do, o, lse, dlse, q_offset, k_offset, causal,
+                       scale)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -238,9 +301,9 @@ _STRIDES = ctypes.c_longlong * 15
 _STRIDES_P = ctypes.POINTER(ctypes.c_longlong)
 
 
-def _bwd_launch_args(what, q, k, v, do, o, lse, dlse):
-    """Check what K3/K4 take and return the leading C arguments: the
-    input pointers, and the (b, t, h) strides of q, k, v, o, do."""
+def _bwd_launch_args(what, q, k, v, do, o, lse, dlse, scale):
+    """Check what K3/K4 take; return the (b, t, h) strides of q, k, v, o,
+    do and the scale (``1/sqrt(D)`` by default)."""
     _check_cuda(what, q, k, v, do, o)
     b, tq, h, _ = q.shape
     if (k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:]
@@ -258,22 +321,24 @@ def _bwd_launch_args(what, q, k, v, do, o, lse, dlse):
                 f"tensor on {q.device}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}"
             )
+    d = q.shape[-1]
+    _check_built_head_dim(what, d)
     _check_rows_aligned(what, q=q, k=k, v=v, o=o, do=do)
-    ptrs = [t.data_ptr() for t in (q, k, v, o, do, lse, dlse)]
     strides = _STRIDES(*[t.stride(i) for t in (q, k, v, o, do)
                          for i in range(3)])
-    return ptrs, strides
+    return strides, 1.0 / math.sqrt(d) if scale is None else scale
 
 
 def flash_bwd_dq(q, k, v, do, o, lse, dlse, q_offset: int, k_offset: int,
-                 causal: bool):
+                 causal: bool, scale: float | None = None):
     """dq of the flash backward: K3 on CUDA tensors, its plain version
     on CPU tensors.  q, o, do (B, Tq, H, D); k, v (B, Tk, H, D); lse,
-    dlse (B, H, Tq)."""
+    dlse (B, H, Tq); ``scale`` as ``_flash_core``'s."""
     if _on_cpu(q):
         return _flash_bwd_dq_reference(q, k, v, do, o, lse, dlse,
-                                       q_offset, k_offset, causal)
-    ptrs, strides = _bwd_launch_args("flash_bwd_dq", q, k, v, do, o, lse, dlse)
+                                       q_offset, k_offset, causal, scale)
+    strides, scale = _bwd_launch_args("flash_bwd_dq", q, k, v, do, o, lse,
+                                      dlse, scale)
     b, tq, h, d = q.shape
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     fn = _build.kernel("flash_bwd", "sparknet_flash_bwd_dq_f32", (
@@ -281,10 +346,10 @@ def flash_bwd_dq(q, k, v, do, o, lse, dlse, q_offset: int, k_offset: int,
     ))
     with torch.cuda.device(q.device):
         rc = fn(
-            *ptrs, dq.data_ptr(),
-            b, h, tq, k.shape[1], d, strides,
+            *[t.data_ptr() for t in (q, k, v, o, do, lse, dlse)],
+            dq.data_ptr(), b, h, tq, k.shape[1], d, strides,
             int(q_offset), int(k_offset), int(bool(causal)),
-            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
+            scale, torch.cuda.current_stream().cuda_stream,
         )
     _build.raise_on(rc, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
@@ -292,14 +357,14 @@ def flash_bwd_dq(q, k, v, do, o, lse, dlse, q_offset: int, k_offset: int,
 
 
 def flash_bwd_dkv(q, k, v, do, o, lse, dlse, q_offset: int, k_offset: int,
-                  causal: bool):
+                  causal: bool, scale: float | None = None):
     """``(dk, dv)`` of the flash backward: K4 on CUDA tensors, its plain
-    version on CPU tensors.  Shapes as ``flash_bwd_dq``."""
+    version on CPU tensors.  Shapes and ``scale`` as ``flash_bwd_dq``."""
     if _on_cpu(q):
         return _flash_bwd_dkv_reference(q, k, v, do, o, lse, dlse,
-                                        q_offset, k_offset, causal)
-    ptrs, strides = _bwd_launch_args("flash_bwd_dkv", q, k, v, do, o, lse,
-                                     dlse)
+                                        q_offset, k_offset, causal, scale)
+    strides, scale = _bwd_launch_args("flash_bwd_dkv", q, k, v, do, o, lse,
+                                      dlse, scale)
     b, tq, h, d = q.shape
     tk = k.shape[1]
     dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=q.device)
@@ -310,9 +375,10 @@ def flash_bwd_dkv(q, k, v, do, o, lse, dlse, q_offset: int, k_offset: int,
     ))
     with torch.cuda.device(q.device):
         rc = fn(
-            *ptrs, dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, d, strides,
+            *[t.data_ptr() for t in (q, k, v, o, do, lse, dlse)],
+            dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, d, strides,
             int(q_offset), int(k_offset), int(bool(causal)),
-            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
+            scale, torch.cuda.current_stream().cuda_stream,
         )
     _build.raise_on(rc, "flash_bwd_dkv")
     LAUNCHES["flash_bwd_dkv"] += 1
@@ -323,33 +389,41 @@ class _FlashCore(torch.autograd.Function):
     """``(o, lse)`` of ``_flash_core`` (K1), differentiable in q, k and
     v through K3 and K4 — the port of the JAX package's ``custom_vjp``.
     The lse output is honest: its cotangent feeds the backward's delta
-    term (a ``None`` cotangent counts as zeros).  On the card every tensor
-    a kernel reads has 16-byte aligned rows (``_kernel_rows``), so the
-    backward takes whatever the forward took."""
+    term (a ``None`` cotangent counts as zeros).  On the card q, k and v
+    are brought to a built head dim with 16-byte aligned rows once
+    (``_kernel_input``) and kept so, with o at that width, for the
+    backward, which brings only do there; the outputs and the gradients
+    are sliced back to the true D."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset: int, k_offset: int, causal: bool):
+        d = q.shape[-1]
         if q.is_cuda:
-            q, k, v = (_kernel_rows(t) for t in (q, k, v))
-        o, lse = _flash_core(q, k, v, q_offset, k_offset, causal)
+            dp = _kernel_head_dim("flash_attention", d)
+            q, k, v = (_kernel_input(t, dp) for t in (q, k, v))
+        scale = 1.0 / math.sqrt(d)
+        o, lse = _flash_core(q, k, v, q_offset, k_offset, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.pos = (int(q_offset), int(k_offset), bool(causal))
+        ctx.args = (int(q_offset), int(k_offset), bool(causal), scale)
+        ctx.d = d
         ctx.set_materialize_grads(False)  # an unused output's cotangent is None
-        return o, lse
+        return _unpad(o, d), lse
 
     @staticmethod
     def backward(ctx, do, dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        do = torch.zeros_like(o) if do is None else do
-        if do.stride(-1) != 1:
-            do = do.clone(memory_format=torch.contiguous_format)
-        if do.is_cuda:
-            q, k, v, o, do = (_kernel_rows(t) for t in (q, k, v, o, do))
+        if do is None:
+            do = torch.zeros_like(o)
+        else:
+            if do.stride(-1) != 1:
+                do = do.clone(memory_format=torch.contiguous_format)
+            if do.is_cuda:
+                do = _kernel_input(do, o.shape[-1])
         dlse = (torch.zeros_like(lse) if dlse is None
                 else dlse.to(torch.float32).contiguous())
-        dq = flash_bwd_dq(q, k, v, do, o, lse, dlse, *ctx.pos)
-        dk, dv = flash_bwd_dkv(q, k, v, do, o, lse, dlse, *ctx.pos)
-        return dq, dk, dv, None, None, None
+        dq = flash_bwd_dq(q, k, v, do, o, lse, dlse, *ctx.args)
+        dk, dv = flash_bwd_dkv(q, k, v, do, o, lse, dlse, *ctx.args)
+        return (*(_unpad(t, ctx.d) for t in (dq, dk, dv)), None, None, None)
 
 
 def flash_attention(q, k, v, causal: bool = False, block_q: int = 128):
@@ -426,7 +500,9 @@ def decode_attention(q, k, v, lengths=None):
             f"tensor on {q.device}, got {lengths.dtype} "
             f"{tuple(lengths.shape)} on {lengths.device}"
         )
-    o = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    dp = _kernel_head_dim("decode_attention", d)
+    q, k, v = (_pad_head(t, dp) for t in (q, k, v))
+    o = torch.empty((b, 1, h, dp), dtype=q.dtype, device=q.device)
     fn = _build.kernel("decode_attention", "sparknet_decode_attention_f32", (
         _P, _P, _P, _P, _P, _I, _I, _I, _I,
         _L, _L, _L, _L, _L, _L, _L, _L, _F, _P,
@@ -434,7 +510,7 @@ def decode_attention(q, k, v, lengths=None):
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            o.data_ptr(), b, s, h, d,
+            o.data_ptr(), b, s, h, dp,
             q.stride(0), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -442,4 +518,4 @@ def decode_attention(q, k, v, lengths=None):
         )
     _build.raise_on(rc, "decode_attention")
     LAUNCHES["decode_attention"] += 1
-    return o
+    return _unpad(o, d)

@@ -1,11 +1,14 @@
 """Weight initializers matching the reference's filler semantics.
 
-The port of the ``gaussian``, ``constant`` and ``xavier`` fillers of
+The port of the ``constant``, ``uniform``, ``gaussian`` (with
+``sparse``), ``positive_unitball``, ``xavier``, ``msra`` and ``bilinear``
+fillers of
 ``sparknet_tpu/ops/fillers.py`` (reference: ``filler.hpp``), with the
 same fan computation (``fan_in = count / shape[0]``, ``fan_out = count /
-shape[1]``).  Random draws come from an explicit ``torch.Generator``:
-the values differ from the JAX package's PRNG for the same seed, so
-parity tests carry weights across instead (``interop.py``).
+shape[1]``).  Each takes a threefry key and draws what the JAX filler
+draws from it (``utils/jax_prng.py``): uniform draws bit for bit,
+normal draws within a few ulp.  The draws run on the host, so a blob
+is the same on every device.
 """
 
 from __future__ import annotations
@@ -13,9 +16,11 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from sparknet_tpu_torch.config.schema import FillerParameter
+from sparknet_tpu_torch.utils import jax_prng
 
 __all__ = ["fill", "FILLERS"]
 
@@ -39,35 +44,76 @@ def _scale_n(p: FillerParameter, shape) -> float:
     raise ValueError(f"unknown variance_norm {p.variance_norm!r}")
 
 
-def _constant(gen, shape, p):
-    return torch.full(shape, p.value, dtype=torch.float32)
+def _constant(key, shape, p):
+    return np.full(shape, p.value, dtype=np.float32)
 
 
-def _gaussian(gen, shape, p):
-    x = p.mean + p.std * torch.randn(shape, generator=gen)
+def _uniform(key, shape, p):
+    return jax_prng.uniform(key, shape, p.min, p.max)
+
+
+def _gaussian(key, shape, p):
+    k1, k2 = jax_prng.split(key)
+    # mean + std * n, rounded once (XLA contracts it into an FMA)
+    x = (jax_prng.normal(k1, shape).astype(np.float64)
+         * np.float64(np.float32(p.std))
+         + np.float64(np.float32(p.mean))).astype(np.float32)
     if p.sparse >= 0:
         # keep ~sparse non-zeros per output unit (filler.hpp:76-86)
         prob = min(1.0, p.sparse / max(1, shape[0]))
-        x = x * (torch.rand(shape, generator=gen) < prob)
+        x = x * jax_prng.bernoulli(k2, prob, shape)
     return x
 
 
-def _xavier(gen, shape, p):
+def _positive_unitball(key, shape, p):
+    # uniform [0, 1), then every shape[0]-slice normalised to sum to 1
+    flat = jax_prng.uniform(key, shape).reshape(shape[0], -1)
+    return (flat / flat.sum(axis=1, keepdims=True)).reshape(shape)
+
+
+def _xavier(key, shape, p):
     scale = math.sqrt(3.0 / _scale_n(p, shape))
-    return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * scale
+    return jax_prng.uniform(key, shape, -scale, scale)
 
 
-FILLERS = {"constant": _constant, "gaussian": _gaussian, "xavier": _xavier}
+def _msra(key, shape, p):
+    std = math.sqrt(2.0 / _scale_n(p, shape))
+    return np.float32(std) * jax_prng.normal(key, shape)
 
 
-def fill(gen: torch.Generator, shape: Sequence[int],
+def _bilinear(key, shape, p):
+    # upsampling kernel for deconvolution (filler.hpp BilinearFiller)
+    if len(shape) != 4 or shape[2] != shape[3]:
+        raise ValueError("bilinear filler expects a square 4-D kernel")
+    k = shape[3]
+    f = math.ceil(k / 2.0)
+    c = (2 * f - 1 - f % 2) / (2.0 * f)
+    w1d = 1 - np.abs(np.arange(k) / f - c)
+    return np.broadcast_to(np.outer(w1d, w1d).astype(np.float32), shape)
+
+
+FILLERS = {
+    "constant": _constant,
+    "uniform": _uniform,
+    "gaussian": _gaussian,
+    "positive_unitball": _positive_unitball,
+    "xavier": _xavier,
+    "msra": _msra,
+    "bilinear": _bilinear,
+}
+
+
+def fill(key: np.ndarray, shape: Sequence[int],
          p: FillerParameter | None) -> torch.Tensor:
     """A float32 CPU tensor of ``shape`` per the filler config (constant
-    0 if no filler is given, the reference default)."""
+    0 if no filler is given, the reference default), drawn from the
+    threefry ``key`` as the JAX package's ``fill`` draws it."""
     p = p or FillerParameter()
     fn = FILLERS.get(p.type)
     if fn is None:
         raise NotImplementedError(
             f"filler type {p.type!r} is not yet ported to sparknet_tpu_torch"
         )
-    return fn(gen, tuple(int(s) for s in shape), p).to(torch.float32)
+    shape = tuple(int(s) for s in shape)
+    return torch.from_numpy(
+        np.ascontiguousarray(fn(key, shape, p), dtype=np.float32))

@@ -2,14 +2,15 @@
 
 The flash kernels (K1 forward, K3/K4 backward) and the decode kernel
 (K2) are built for every multiple of 16 up to 128
-(``csrc/head_dims.cuh``).  On a CUDA tensor any other head dim raises,
-naming the built ones, under ``attention="auto"`` as under ``"flash"``:
-nothing on the card falls back to the plain versions.  On the CPU every
-head dim takes the plain versions through the same wrappers.  The card is
-stood in for by making the wrappers' device check report one
-(``cuda_attention._on_cpu``): every call that reaches a wrapper then
-takes the kernel's route, which raises before anything is built for a
-head dim without a build.
+(``csrc/head_dims.cuh``); on a CUDA tensor the wrappers zero-pad any
+other head dim up to 128 onto them (``tests/test_torch_attention_pad.py``).
+A head dim above 128 raises on the card, naming the limit, under
+``attention="auto"`` as under ``"flash"``: nothing on the card falls
+back to the plain versions.  On the CPU every head dim takes the plain
+versions through the same wrappers.  The card is stood in for by making
+the wrappers' device check report one (``cuda_attention._on_cpu``):
+every call that reaches a wrapper then takes the kernel's route, which
+raises before anything is built for a head dim above the limit.
 """
 
 import re
@@ -24,10 +25,10 @@ from sparknet_tpu_torch.models.transformer_lm import TransformerLM, TransformerL
 from sparknet_tpu_torch.ops import _build
 from sparknet_tpu_torch.ops import cuda_attention as tca
 
-# (dim, heads) -> head_dim 24 and 8: no kernel build
-NO_BUILD = [(48, 2), (32, 4)]
-NO_BUILD_IDS = ["D24", "D8"]
-BUILT_MSG = re.escape(str(tca.KERNEL_HEAD_DIMS))
+# (dim, heads) -> head_dim 144 and 160: above the kernels' limit
+NO_BUILD = [(288, 2), (160, 1)]
+NO_BUILD_IDS = ["D144", "D160"]
+LIMIT_MSG = "is above the kernels' limit of 128"
 
 
 @pytest.fixture
@@ -74,15 +75,14 @@ def test_swizzle_stays_inside_the_row(d):
 @pytest.mark.parametrize("dim,heads", NO_BUILD, ids=NO_BUILD_IDS)
 def test_training_raises_on_the_card_where_no_kernel_is_built(card, attention,
                                                               dim, heads):
-    """No plain fallback on the card: the error names the built head
-    dims, and nothing launched."""
+    """No plain fallback on the card: the error names the limit, and
+    nothing launched."""
     tca.reset_launch_counts()
     net = TransformerLMNet(attention=attention, dim=dim, depth=1, heads=heads,
                            seq_len=16)
     assert net.on_kernel
     params, stats = net.init(0)
-    with pytest.raises(ValueError, match=rf"head_dim {dim // heads} has no "
-                       rf"kernel build \(built for {BUILT_MSG}\)"):
+    with pytest.raises(ValueError, match=rf"head_dim {dim // heads} {LIMIT_MSG}"):
         net.loss_fn(params, stats, _batch(16))
     assert all(v == 0 for v in tca.LAUNCHES.values())
 
@@ -91,13 +91,11 @@ def test_training_raises_on_the_card_where_no_kernel_is_built(card, attention,
 def test_serving_raises_on_the_card_where_no_kernel_is_built(card, dim, heads):
     lm = TransformerLM(dim=dim, depth=1, heads=heads, seq_len=16).init(0)
     tokens = _batch(16)["tokens"][:, :9]
-    with pytest.raises(ValueError, match=rf"head_dim {dim // heads} has no "
-                       "kernel build"):
+    with pytest.raises(ValueError, match=rf"head_dim {dim // heads} {LIMIT_MSG}"):
         lm.prefill_with_kv(tokens)
     q = torch.zeros((2, 1, heads, dim // heads))
     kv = torch.zeros((2, 16, heads, dim // heads))
-    with pytest.raises(ValueError, match=rf"head_dim {dim // heads} has no "
-                       "kernel build"):
+    with pytest.raises(ValueError, match=rf"head_dim {dim // heads} {LIMIT_MSG}"):
         tca.decode_attention(q, kv, kv)
 
 

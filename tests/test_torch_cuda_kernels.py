@@ -5,7 +5,8 @@ there is no CUDA device.  On a machine with the card and nvcc::
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
-Attention, at every head dim the kernels are built for: tolerance 2e-5
+Attention, at every head dim the kernels are built for and at head dims
+the wrappers zero-pad onto them (``PADDED_DIMS``): tolerance 2e-5
 absolute, float32 on both sides, the kernels summing tile by tile
 (online softmax, K1's products as three TF32 products on the tensor
 cores) where the plain versions sum densely.  The flash backward (K3,
@@ -18,8 +19,9 @@ whichever is larger.  The comm epilogue kernels (K9-K11) are held to
 their plain versions bit for bit, except the error readout's two sums
 (rtol 1e-5, reduced in another order).  The LRN kernels (K5, K6) and the fused LRN +
 max pool (K7, K8): the JAX tests' tolerances (forward rtol 2e-5 / atol
-2e-6, backward 5e-5 / 5e-6), and K8's routing bit for bit (alpha = 0
-makes the LRN the identity, so K8's output is the routed gradient).
+2e-6, backward 5e-5 / 5e-6), K8's routing bit for bit (alpha = 0 makes
+the LRN the identity, so K8's output is the routed gradient), and K6,
+K7 and K8 bit for bit at AlexNet's two sandwiches, random and tied.
 """
 
 import numpy as np
@@ -36,6 +38,10 @@ from sparknet_tpu_torch.serve import GenerationEngine
 pytestmark = pytest.mark.cuda
 
 ATOL = 2e-5
+# head dims off the built ones: the autograd path and decode pad them to
+# the next build
+PADDED_DIMS = (1, 24, 40, 100)
+HEAD_DIMS = tca.KERNEL_HEAD_DIMS + PADDED_DIMS
 
 
 @pytest.fixture
@@ -57,7 +63,7 @@ def _close_with_infs(got, want):
     torch.testing.assert_close(got[~inf], want[~inf], atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("d", tca.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize(
     "tq,tk,q_off,k_off,causal",
     [(16, 16, 0, 0, True), (37, 100, 63, 0, True), (70, 70, 0, 0, False),
@@ -67,10 +73,12 @@ def test_flash_kernel_matches_plain(dev, d, tq, tk, q_off, k_off, causal):
     q = _rand(dev, 2, tq, 3, d, seed=1)
     k = _rand(dev, 2, tk, 3, d, seed=2)
     v = _rand(dev, 2, tk, 3, d, seed=3)
-    before = tca.LAUNCHES["flash_fwd"]
-    o, lse = tca._flash_core(q, k, v, q_off, k_off, causal)
+    tca.reset_launch_counts()
+    o, lse = tca._FlashCore.apply(q, k, v, q_off, k_off, causal)
     torch.cuda.synchronize()
-    assert tca.LAUNCHES["flash_fwd"] == before + 1
+    assert tca.LAUNCHES["flash_fwd"] == 1
+    assert tca.PAD_COPIES == (3 if d % 16 else 0)
+    assert o.shape == q.shape
     o_ref, lse_ref = tca._flash_core_reference(q, k, v, q_off, k_off, causal)
     torch.testing.assert_close(o, o_ref, atol=ATOL, rtol=0)
     _close_with_infs(lse, lse_ref)
@@ -86,7 +94,7 @@ def test_flash_kernel_reads_strided_inputs(dev):
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("d", tca.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
 def test_decode_kernel_matches_plain(dev, d):
     q = _rand(dev, 5, 1, 3, d, seed=5)
     k = _rand(dev, 5, 80, 3, d, seed=6)
@@ -123,7 +131,7 @@ def _bwd_inputs(dev, b, tq, tk, h, d, q_off, k_off, causal, seed=0):
     return (q, k, v, do, o.contiguous(), lse, dlse, q_off, k_off, causal)
 
 
-@pytest.mark.parametrize("d", tca.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize(
     "tq,tk,q_off,k_off,causal",
     [(16, 16, 0, 0, True), (37, 100, 63, 0, True), (70, 70, 0, 0, False),
@@ -133,12 +141,24 @@ def test_flash_bwd_kernels_match_plain(dev, d, tq, tk, q_off, k_off, causal):
     """K3 and K4 with a nonzero dlse, ragged tiles and (128, 128, 0, 64)'s
     64 fully-masked query rows."""
     args = _bwd_inputs(dev, 2, tq, tk, 3, d, q_off, k_off, causal)
-    before = dict(tca.LAUNCHES)
-    dq = tca.flash_bwd_dq(*args)
-    dk, dv = tca.flash_bwd_dkv(*args)
+    tca.reset_launch_counts()
+    if d % 16:
+        # K3/K4 take built head dims: the autograd path pads q, k and v
+        # once in the forward and do in the backward, and its o and lse
+        # are what the plain versions are then given
+        q, k, v = (t.clone().requires_grad_(True) for t in args[:3])
+        o, lse = tca._FlashCore.apply(q, k, v, q_off, k_off, causal)
+        torch.autograd.backward((o, lse), (args[3], args[6]))
+        dq, dk, dv = q.grad, k.grad, v.grad
+        args = (*args[:4], o.detach(), lse.detach(), *args[6:])
+    else:
+        dq = tca.flash_bwd_dq(*args)
+        dk, dv = tca.flash_bwd_dkv(*args)
     torch.cuda.synchronize()
-    assert tca.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
-    assert tca.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    assert tca.LAUNCHES["flash_bwd_dq"] == 1
+    assert tca.LAUNCHES["flash_bwd_dkv"] == 1
+    assert tca.PAD_COPIES == (4 if d % 16 else 0)
+    assert dq.shape == args[0].shape and dk.shape == dv.shape == args[1].shape
     _close_scaled(dq, tca._flash_bwd_dq_reference(*args), "dq")
     dk_ref, dv_ref = tca._flash_bwd_dkv_reference(*args)
     _close_scaled(dk, dk_ref, "dk")
@@ -278,11 +298,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = _rand(dev, 1, 8, 2, 64)
     with pytest.raises(TypeError, match="float32"):
         tca.flash_attention(q.double(), q.double(), q.double())
-    odd = _rand(dev, 1, 8, 2, 24)
-    with pytest.raises(ValueError, match="head_dim 24 has no kernel build"):
-        tca.flash_attention(odd, odd, odd)
-    with pytest.raises(ValueError, match="head_dim 24 has no kernel build"):
-        tca.decode_attention(odd[:, :1], odd, odd)
+    wide = _rand(dev, 1, 8, 2, 144)
+    with pytest.raises(ValueError, match="head_dim 144 is above the kernels' "
+                       "limit of 128"):
+        tca.flash_attention(wide, wide, wide)
+    with pytest.raises(ValueError, match="head_dim 144 is above"):
+        tca.decode_attention(wide[:, :1], wide, wide)
     with pytest.raises(ValueError, match="lengths"):
         tca.decode_attention(q[:, :1], q, q, torch.ones(1, device=dev,
                                                          dtype=torch.int64))
@@ -303,6 +324,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         tca.flash_bwd_dq(off, q, q, q, q, lse, lse, 0, 0, True)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tca.flash_bwd_dkv(q, q, q, off, q, lse, lse, 0, 0, True)
+    # the kernel wrappers take built head dims; the autograd path pads
+    odd = q[..., :40]
+    msg = "head_dim 40 is not one the kernels are built for"
+    with pytest.raises(ValueError, match=msg):
+        tca._flash_core(odd, odd, odd, 0, 0, True)
+    with pytest.raises(ValueError, match=msg):
+        tca.flash_bwd_dq(odd, odd, odd, odd, odd, lse, lse, 0, 0, True)
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["separate", "fused-qkv"])
@@ -358,7 +386,7 @@ def test_flash_backward_takes_a_view_offset_by_one_float(dev):
 def test_lm_app_trains_at_head_dim_48(dev):
     """``lm_app --dim 96 --heads 2`` (head_dim 48, an odd multiple of 16):
     one round trains on the kernels, the kernel-path gauge reads 1; at
-    head_dim 24, which has no build, training raises on the card."""
+    head_dim 144, above the kernels' limit, training raises on the card."""
     from sparknet_tpu_torch.apps import lm_app
     from sparknet_tpu_torch.models.transformer_lm import TransformerLMNet
 
@@ -375,12 +403,39 @@ def test_lm_app_trains_at_head_dim_48(dev):
     assert result["metrics"].kernel_path.labels("attention").value == 1.0
     assert np.isfinite(result["losses"]).all()
     for attention in ("auto", "flash"):
-        net = TransformerLMNet(attention=attention, dim=48, depth=1, heads=2,
+        net = TransformerLMNet(attention=attention, dim=288, depth=1, heads=2,
                                seq_len=16)
         params, stats = net.init(0, dev)
         tokens = torch.zeros((2, 16), dtype=torch.int64, device=dev)
-        with pytest.raises(ValueError, match="head_dim 24 has no kernel build"):
+        with pytest.raises(ValueError, match="head_dim 144 is above the "
+                           "kernels' limit of 128"):
             net.loss_fn(params, stats, {"tokens": tokens, "targets": tokens})
+
+
+def test_lm_app_trains_at_head_dim_24(dev):
+    """``lm_app --dim 72 --heads 3`` (head_dim 24, zero-padded to 32):
+    one round trains on K1/K3/K4, the gauge reads 1, the first round's
+    losses agree with the CPU's plain versions."""
+    from sparknet_tpu_torch.apps import lm_app
+
+    argv = ["--dim", "72", "--depth", "2", "--heads", "3", "--seq_len", "64",
+            "--batch", "4", "--tau", "2", "--workers", "2", "--rounds", "1",
+            "--base_lr", "0.01"]
+    runs = {}
+    for d in ("cuda", "cpu"):
+        result = {}
+        tca.reset_launch_counts()
+        assert lm_app.main(["--device", d] + argv, result) == 0
+        torch.cuda.synchronize()
+        runs[d] = (result, dict(tca.LAUNCHES), tca.PAD_COPIES)
+    result, launches, pads = runs["cuda"]
+    n = 2 * 2 * 2  # two workers x tau 2 steps x depth 2 layers
+    assert launches == {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+                        "decode_attention": 0}
+    assert pads > 0 and runs["cpu"][1]["flash_fwd"] == 0
+    assert result["metrics"].kernel_path.labels("attention").value == 1.0
+    np.testing.assert_allclose(result["losses"], runs["cpu"][0]["losses"],
+                               atol=5e-4)
 
 
 def test_engine_on_the_card_matches_the_cpu_engine(dev):
@@ -643,6 +698,57 @@ def test_lrn_pool_bwd_is_bit_equal_to_plain(dev, shape, ties):
     dx = tcp.lrn_pool_bwd(x, dy, 5, 1e-4, 0.75, 1.0)
     torch.cuda.synchronize()
     assert torch.equal(dx, tcp.lrn_maxpool_bwd_reference(x, dy, 5, 1e-4, 0.75, 1.0))
+
+
+@pytest.mark.parametrize("shape", [(32, 96, 55, 55), (32, 256, 27, 27)],
+                         ids=["conv1", "conv2"])
+@pytest.mark.parametrize("ties", [False, True])
+def test_lrn_pool_fwd_and_lrn_bwd_are_bit_equal_to_plain(dev, shape, ties):
+    """K7 and K6 at AlexNet's two sandwiches, random and tied inputs: every
+    LRN operation an explicitly rounded intrinsic in the plain version's
+    order, so both give the plain versions' bits."""
+    x = _tie_input(dev, shape, 26) if ties else _rand(dev, *shape, seed=26)
+    dy = _rand(dev, *shape, seed=27)
+    y = tcp.lrn_pool_fwd(x, 5, 1e-4, 0.75, 1.0)
+    dx = tcl.lrn_bwd(x, dy, 5, 1e-4, 0.75, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(y, tcp.lrn_maxpool_reference(x, 5, 1e-4, 0.75, 1.0))
+    assert torch.equal(dx, tcl.lrn_across_bwd_reference(x, dy, 5, 1e-4, 0.75,
+                                                        1.0))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 27, 27), (2, 24, 55, 55)],
+                         ids=["whole-plane", "row-bands"])
+@pytest.mark.parametrize("n,beta", [(3, 0.75), (7, 0.75), (5, 0.6), (5, 0.5)])
+def test_lrn_pool_kernels_are_bit_equal_at_other_lrn_settings(dev, shape, n,
+                                                              beta):
+    """K7 and K8 in their general instantiation (any LRN setting but
+    Caffe's default, which takes FAST): local_size 3 and 7, beta on the
+    powf path (0.6) and the square-root path (0.5), on a plane of each of
+    K7's tile kinds; both give the plain versions' bits."""
+    hp = (n, 1e-4, beta, 1.0)
+    x = _rand(dev, *shape, seed=30)
+    ph, pw = tcp.pooled_hw(shape[2], shape[3])
+    dy = _rand(dev, shape[0], shape[1], ph, pw, seed=31)
+    before = dict(tcp.LAUNCHES)
+    y = tcp.lrn_pool_fwd(x, *hp)
+    dx = tcp.lrn_pool_bwd(x, dy, *hp)
+    torch.cuda.synchronize()
+    assert tcp.LAUNCHES["lrn_pool_fwd"] == before["lrn_pool_fwd"] + 1
+    assert tcp.LAUNCHES["lrn_pool_bwd"] == before["lrn_pool_bwd"] + 1
+    assert torch.equal(y, tcp.lrn_maxpool_reference(x, *hp))
+    assert torch.equal(dx, tcp.lrn_maxpool_bwd_reference(x, dy, *hp))
+
+
+def test_lrn_pool_fwd_takes_wide_planes_and_misaligned_views(dev):
+    """K7's column tiles (a plane too wide for whole rows in one block)
+    and channel runs that start off 16 bytes."""
+    wide = _rand(dev, 1, 3, 5, 701, seed=28)
+    view = _rand(dev, 2 * 5 * 11 * 13 + 1, seed=29)[1:].view(2, 5, 11, 13)
+    for x in (wide, view):
+        y = tcp.lrn_pool_fwd(x, 5, 1e-4, 0.75, 1.0)
+        torch.cuda.synchronize()
+        assert torch.equal(y, tcp.lrn_maxpool_reference(x, 5, 1e-4, 0.75, 1.0))
 
 
 def test_lrn_wrappers_raise_on_what_the_kernels_do_not_take(dev):
