@@ -14,9 +14,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
    float32, at the serving path's shapes — flash forward (causal and
    not, T in 16..256, a ragged T_q, a block of fully-masked rows; also
    the LM training shape, q, k, v as views of one fused qkv tensor, D=16,
-   32, 48 and 128, and two launches at the LM shape giving the same bits)
-   and decode attention (8 slots x 256 positions, ragged lengths, also at
-   D=16 and 48) — then each kernel's time
+   32, 48, 128 and 256, D=40 and 200 padded, and two launches at the LM
+   shape giving the same bits) and decode attention (8 slots x 256
+   positions, ragged lengths, also at D=16, 48, 256 and 40) — then each
+   kernel's time
    beside its plain version's, one PyTorch library call's
    (``scaled_dot_product_attention``, a yardstick the port never calls)
    and the least time the card could take, the flash forward also at the
@@ -34,12 +35,16 @@ Phases (any failure ends the run with a non-zero exit and no result):
 
 4. The comm plane's epilogue kernels — K9 encode, K10 barriered apply,
    K11 overlap correction — against their plain versions on the card,
-   bit for bit, at the three comm chunks of cifar10_full at W=4: fp32,
-   bf16 and int8, the error readout on and off, a masked worker and no
-   survivors for K10, an all-zero leaf.  Then each kernel's time over
-   one round's launches (every chunk) beside its plain version's and the
-   least time the card could take (bytes over 3.35 TB/s); no single
-   PyTorch call computes these functions, so there is no library time.
+   bit for bit (the readout's sums within 1e-5), at the three comm
+   chunks of cifar10_full at W=4 and of AlexNet at W=2 (its 16
+   parameter leaves, fc6's 37,748,736 floats a worker): fp32, bf16 and
+   int8, the error readout on and off, a masked worker and no survivors
+   for K10, an all-zero leaf.  Then each kernel's time over one round's
+   launches (every chunk) at both widths beside its plain version's and
+   the least time the card could take (bytes over 3.35 TB/s: the
+   function's, and for K9/K10 the design's two-pass and per-worker-mean
+   bytes); no single PyTorch call computes these functions, so there is
+   no library time.
 5. The training main path: ``apps.cifar_app.main`` in process on
    synthesized CIFAR (5,000 train / 1,000 test), cifar10_full, 4
    workers, tau 10, batch 100, in three legs — no compression,
@@ -55,7 +60,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
 6. The flash backward kernels — K3 (dq) and K4 (dk/dv) — against their
    plain versions on the card, in float32, with a nonzero ``dlse``: the
    training shape (B=8, T=256, H=4, D=64, causal), non-causal, a ragged
-   T_q, offsets (0, 64) with fully-masked rows, D=16, 32, 48 and 128, q and k
+   T_q, offsets (0, 64) with fully-masked rows, D=16, 32, 48, 128 and 256
+   (causal and not), D=40 and 200 padded, q and k
    scaled by 8 at the training shape (held to a float64 evaluation of the
    same formulas, within 2e-5 of the scale or the float32 plain version's
    own gap from it, whichever is larger),
@@ -64,6 +70,7 @@ Phases (any failure ends the run with a non-zero exit and no result):
    could take (its three TF32 passes, and the float32 bound of the same
    work), and, for K3 and K4 together, the library yardstick
    ``scaled_dot_product_attention`` forward+backward minus its forward.
+   K1, K3 and K4 are also timed at head dim 256 (B=8, T=256, H=2).
 7. The LM training main path: ``apps.lm_app.main`` in process at the
    CLI's model width (dim 256, depth 4, heads 4, seq_len 256), W=2,
    tau 4, batch 8, 6 rounds, in two legs — the default (flash: K1, K3,
@@ -73,7 +80,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
    legs' losses are finite and fall from ~ln 256; the flash leg's
    per-round losses and final params lie within LM_TOL (5e-4) of the
    dense leg's; its first round on the card matches the same round on
-   the CPU relative to the update; one flash round is profiled.
+   the CPU relative to the update; one flash round is profiled.  Then
+   one round of ``lm_app --dim 512 --heads 2 --depth 2`` (head dim 256)
+   on the kernels: depth x W x tau launches each, the kernel-path gauge
+   1, finite losses.
 
 8. The LRN kernels — K5 (forward) and K6 (backward) — and the fused
    LRN + 3x3/2 max pool — K7 and K8 — against their plain versions on
@@ -92,8 +102,11 @@ Phases (any failure ends the run with a non-zero exit and no result):
    full width (60,965,224 parameters, crop 227 from 256), W=2, tau 4,
    batch 32 (test 16), 4 rounds testing every 2, mirror and dropout on,
    through the app's ``train`` on seeded uint8 partitions made with
-   numpy, in two legs: the default (K5/K6) and ``SPARKNET_FUSION=1``
-   (K7/K8 in training, K5 in the test net).  Launch counts are reset
+   numpy, in three legs: the default (K5/K6), ``SPARKNET_FUSION=1``
+   (K7/K8 in training, K5 in the test net) and ``--compress int8`` for
+   2 rounds (K9 + K10 once per comm chunk a round, 3 chunks; its
+   smoothed losses within LOSS_BAND of the default leg's at the same
+   rounds).  Launch counts are reset
    before each leg and held to the arithmetic; losses finite, the first
    ~ln 1000, the last round's below the first's; the fused leg's
    per-round losses within 1e-4 (relative) of the default leg's in round
@@ -101,7 +114,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
    shows how far two runs of one program drift apart); the default leg's
    first round on the card against the same round on the CPU, after one
    local step and after tau, and both against the same round on the CPU
-   in float64; one round of each leg profiled.  Where Pillow imports,
+   in float64; one round of each leg profiled (the int8 round with
+   K9/K10's share).  Where Pillow imports,
    ``imagenet_app.main`` also runs on synthesized JPEG shards at a small
    size, driving the data stage.
 
@@ -238,8 +252,9 @@ def check_kernels(dev):
         check(e <= KERNEL_ATOL, f"flash_fwd disagrees at {tq}x{tk}: {e}")
         flash_err = max(flash_err, e)
     # the LM training shape, q, k and v apart and as views of one fused
-    # qkv tensor; D = 16, 32, 48 and 128, and D = 40, which the autograd
-    # path (the LM's) zero-pads to the D = 48 build (PAD_COPIES)
+    # qkv tensor; D = 16, 32, 48, 128 and 256 (its output's columns in
+    # halves), and D = 40 and 200, which the autograd path (the LM's)
+    # zero-pads to the D = 48 and 224 builds (PAD_COPIES)
     LB, LT = LM_BATCH, LM_MODEL["seq_len"]
     for what, (q, k, v) in (
             ("LM shape", (rand(LB, LT, H, D) for _ in range(3))),
@@ -248,11 +263,14 @@ def check_kernels(dev):
             ("D=32", (rand(2, 70, H, 32) for _ in range(3))),
             ("D=48", (rand(2, 100, H, 48) for _ in range(3))),
             ("D=128", (rand(2, 100, H, 128) for _ in range(3))),
-            ("D=40, padded to 48", (rand(2, 100, H, 40) for _ in range(3)))):
+            ("D=256", (rand(2, 100, H, 256) for _ in range(3))),
+            ("D=40, padded to 48", (rand(2, 100, H, 40) for _ in range(3))),
+            ("D=200, padded to 224", (rand(2, 100, H, 200) for _ in range(3)))):
         ca.reset_launch_counts()
         o, lse = ca._FlashCore.apply(q, k, v, 0, 0, True)
+        padded = q.shape[-1] not in ca.KERNEL_HEAD_DIMS
         check(ca.LAUNCHES["flash_fwd"] == 1
-              and ca.PAD_COPIES == (3 if q.shape[-1] % 16 else 0),
+              and ca.PAD_COPIES == (3 if padded else 0),
               f"flash_fwd {what}: launches {ca.LAUNCHES}, pad copies "
               f"{ca.PAD_COPIES}")
         o_ref, lse_ref = ca._flash_core_reference(q, k, v, 0, 0, True)
@@ -286,7 +304,7 @@ def check_kernels(dev):
     print(f"K2 decode_attention B={Bd} S={S} lengths "
           f"{lengths.tolist()}: max_abs_err {dec_err:.3e}")
     check(dec_err <= KERNEL_ATOL, f"decode_attention disagrees: {dec_err}")
-    for d in (16, 48, 40):  # 40: zero-padded to the D = 48 build
+    for d in (16, 48, 256, 40):  # 40: zero-padded to the D = 48 build
         qs, ks, vs = rand(Bd, 1, H, d), rand(Bd, S, H, d), rand(Bd, S, H, d)
         e = max_err(ca.decode_attention(qs, ks, vs, lengths),
                     ca.decode_attention_reference(qs, ks, vs, lengths))
@@ -592,77 +610,76 @@ def _bitwise(got, want, what) -> float:
     return float((g.float() - w.float()).abs().max()) if g.numel() else 0.0
 
 
-def check_comm_kernels(dev):
-    """K9 encode, K10 barriered apply and K11 overlap correction against
-    their plain versions on the card, at the real comm chunks of
-    cifar10_full at W=4: all three modes, the error readout on and off, a
-    masked worker and no survivors for K10, an all-zero leaf.  Then each
-    kernel's time over one round's launches (3 chunks) beside its plain
-    version's and the bound.  Returns the kernels-line records."""
-    from sparknet_tpu_torch.ops import cuda_comm as cc
-
-    trainer = _cifar_trainer(dev)
+def _comm_set(dev, trainer, seed):
+    """A trainer's comm leaves near its init, as one round's epilogue sees
+    them: params x, anchors a, residuals r and chunk means, made on the
+    card from ``seed``.  Returns ``(x, a, r, means, chunks)``."""
     state = trainer.init_state(0)
     leaves, chunks = trainer._comm.plan(state)
-    gen = torch.Generator().manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def near(xs, s):
-        return [(x + s * torch.randn(x.shape, generator=gen).to(dev)).contiguous()
-                for x in xs]
+        return [(t + s * torch.randn(t.shape, generator=gen, device=dev))
+                .contiguous() for t in xs]
 
-    a = [x.contiguous() for x in leaves]
+    a = [t.contiguous() for t in leaves]
     x = near(a, 1e-3)
     r = near([torch.zeros_like(t) for t in a], 1e-6)
     means = [t[0].contiguous() for t in near(a, 1e-3)]
-    # the ip1 bias leaf all zero: amax 0 -> int8 scale 1
-    for t in (a, x, r):
-        t[-1] = torch.zeros_like(t[-1])
-    sizes = [sl.stop - sl.start for sl in chunks]
-    print(f"comm plane: {len(chunks)} chunks of {sizes} leaves, "
-          f"{sum(t[0].numel() for t in a)} floats per worker, W={CIFAR_W}")
-    check(len(chunks) == 3, f"expected 3 comm chunks, got {len(chunks)}")
-    err = {"comm_encode": 0.0, "comm_apply_barriered": 0.0,
-           "comm_apply_correction": 0.0}
-    for mode in ("fp32", "bf16", "int8"):
+    return x, a, r, means, chunks
+
+
+def _check_comm_set(cc, x, a, r, means, chunks, w, modes_of, err, what):
+    """K9 in every mode of ``modes_of`` (the readout off and on) and K11
+    after it, K10 with every worker live, one masked and none, each
+    against its plain version bit for bit (the readout's sums within
+    1e-5); the worst |diff| of each kernel goes into ``err``."""
+    dev = x[0].device
+    for mode in modes_of:
         for sl in chunks:
             modes = (mode,) * (sl.stop - sl.start)
             for with_err in (False, True):
                 got = cc.encode(x[sl], a[sl], r[sl], modes, with_err)
                 want = cc.encode_reference(x[sl], a[sl], r[sl], modes, with_err)
-                for g, w in zip(got[0] + got[1] + got[2],
-                                want[0] + want[1] + want[2]):
+                for g, wt in zip(got[0] + got[1] + got[2],
+                                 want[0] + want[1] + want[2]):
                     err["comm_encode"] = max(err["comm_encode"],
-                                             _bitwise(g, w, f"K9 {mode}"))
+                                             _bitwise(g, wt, f"K9 {mode} {what}"))
                 if with_err:
                     check(bool(torch.equal(got[3][:, 0], want[3][:, 0])),
-                          "K9 max|err| differs")
+                          f"K9 max|err| differs ({what})")
                     rel = float(((got[3][:, 1:] - want[3][:, 1:]).abs()
                                  / want[3][:, 1:].abs().clamp_min(1e-30)).max())
-                    check(rel <= 1e-5, f"K9 readout sums differ by {rel}")
+                    check(rel <= 1e-5, f"K9 readout sums differ by {rel} ({what})")
             q, scales = got[0], got[1]
             got = cc.apply_correction(x[sl], a[sl], q, scales, means[sl], modes)
             want = cc.apply_correction_reference(x[sl], a[sl], q, scales,
                                                  means[sl], modes)
-            for g, w in zip(got[0] + got[1], want[0] + want[1]):
+            for g, wt in zip(got[0] + got[1], want[0] + want[1]):
                 err["comm_apply_correction"] = max(
-                    err["comm_apply_correction"], _bitwise(g, w, f"K11 {mode}"))
-    for alive in ([1, 1, 1, 1], [1, 0, 1, 1], [0, 0, 0, 0]):
+                    err["comm_apply_correction"],
+                    _bitwise(g, wt, f"K11 {mode} {what}"))
+    for alive in ([1] * w, [1, 0] + [1] * (w - 2), [0] * w):
         al = torch.tensor(alive, dtype=torch.float32, device=dev)
         d0 = al.sum()
         for sl in chunks:
             got = cc.apply_barriered(x[sl], a[sl], means[sl], r[sl], al, d0)
             want = cc.apply_barriered_reference(x[sl], a[sl], means[sl], r[sl],
                                                 al, d0)
-            for g, w in zip(got[0] + got[1], want[0] + want[1]):
+            for g, wt in zip(got[0] + got[1], want[0] + want[1]):
                 err["comm_apply_barriered"] = max(
-                    err["comm_apply_barriered"], _bitwise(g, w, f"K10 {alive}"))
+                    err["comm_apply_barriered"],
+                    _bitwise(g, wt, f"K10 {alive} {what}"))
     torch.cuda.synchronize()
-    print("K9-K11 bitwise equal to their plain versions: 3 modes x "
-          "err on/off, masked worker, no survivors, all-zero leaf")
 
-    # timing: one round's launches (every chunk) per call, at the main
-    # path's modes — K9 int8 with the readout, K10 int8 barriered (all
-    # live), K11 bf16 (the overlap leg)
+
+def _time_comm_set(cc, x, a, r, means, chunks, w, n):
+    """Each kernel's device time over one round's launches (every chunk)
+    at the main path's modes — K9 int8 with the readout, K10 all live,
+    K11 bf16 (the overlap leg) — beside its plain version's, with the
+    bytes of its bound: what the function must move (each input read
+    once, each output written once) and what the design moves.  ``n``
+    rounds a CUDA graph."""
     def per_round(fn):
         return lambda: [fn(sl) for sl in chunks]
 
@@ -670,52 +687,129 @@ def check_comm_kernels(dev):
     bf16 = {sl.start: ("bf16",) * (sl.stop - sl.start) for sl in chunks}
     q16 = {sl.start: cc.encode(x[sl], a[sl], r[sl], bf16[sl.start], False)[:2]
            for sl in chunks}
-    al = torch.ones(CIFAR_W, device=dev)
+    al = torch.ones(w, device=x[0].device)
     d0 = al.sum()
+    elems = sum(t.numel() for t in x)
     cases = {
         "comm_encode": (
-            "K9", "sparknet_tpu/ops/pallas_comm.py:83", "int8, readout on",
+            "K9", "int8, readout on",
             lambda sl: cc.encode(x[sl], a[sl], r[sl], int8[sl.start], True),
             lambda sl: cc.encode_reference(x[sl], a[sl], r[sl], int8[sl.start],
                                            True),
             sum(cc.chunk_bytes("encode", a[sl], int8[sl.start]) for sl in chunks),
+            # int8: one pass for max |delta| (x, a, r in, delta out), one
+            # to quantize (delta in, q and the residual out)
+            25 * elems,
         ),
         "comm_apply_barriered": (
-            "K10", "sparknet_tpu/ops/pallas_comm.py:164", "all live",
+            "K10", "all live",
             lambda sl: cc.apply_barriered(x[sl], a[sl], means[sl], r[sl], al, d0),
             lambda sl: cc.apply_barriered_reference(x[sl], a[sl], means[sl],
                                                     r[sl], al, d0),
             sum(cc.chunk_bytes("apply_barriered", a[sl], int8[sl.start])
                 for sl in chunks),
+            # a, mean (read by each worker), r in; x, r out
+            20 * elems,
         ),
         "comm_apply_correction": (
-            "K11", "sparknet_tpu/ops/pallas_comm.py:224", "bf16",
+            "K11", "bf16",
             lambda sl: cc.apply_correction(x[sl], a[sl], *q16[sl.start],
                                            means[sl], bf16[sl.start]),
             lambda sl: cc.apply_correction_reference(
                 x[sl], a[sl], *q16[sl.start], means[sl], bf16[sl.start]),
             sum(cc.chunk_bytes("apply_correction", a[sl], bf16[sl.start])
                 for sl in chunks),
+            None,
         ),
     }
-    records = []
-    for name, (tag, replaces, what, kern, plain, nbytes) in cases.items():
+    out = {}
+    for name, (tag, what, kern, plain, nbytes, design) in cases.items():
         b, by = bound_ms(nbytes, 0.0)
-        rec = dict(
+        out[name] = dict(
+            tag=tag, what=what, bytes=nbytes, bound_ms=b, bound_by=by,
+            design_bytes=design,
+            design_bound_ms=None if design is None else design / PEAK_BYTES_S * 1e3,
+            ms=device_ms(per_round(kern), n), call_ms=time_ms(per_round(kern)),
+            plain_ms=device_ms(per_round(plain), n),
+            plain_call_ms=time_ms(per_round(plain), iters=10, warm=2),
+        )
+    return out
+
+
+def check_comm_kernels(dev):
+    """K9 encode, K10 barriered apply and K11 overlap correction against
+    their plain versions on the card, at the real comm chunks of
+    cifar10_full at W=4 (all three modes, the readout on and off, a
+    masked worker and no survivors for K10, an all-zero leaf) and of
+    AlexNet at W=2 (int8, bf16 and fp32 over its 16 parameter leaves).
+    Then each kernel's time over one round's launches at both beside its
+    plain version's and its bound.  Returns the kernels-line records, with
+    AlexNet's times."""
+    from sparknet_tpu_torch.apps import imagenet_app
+    from sparknet_tpu_torch.ops import cuda_comm as cc
+    from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
+
+    err = {"comm_encode": 0.0, "comm_apply_barriered": 0.0,
+           "comm_apply_correction": 0.0}
+    x, a, r, means, chunks = _comm_set(dev, _cifar_trainer(dev), 1)
+    # the ip1 bias leaf all zero: amax 0 -> int8 scale 1
+    for t in (a, x, r):
+        t[-1] = torch.zeros_like(t[-1])
+    sizes = [sl.stop - sl.start for sl in chunks]
+    print(f"comm plane, cifar10_full: {len(chunks)} chunks of {sizes} leaves, "
+          f"{sum(t[0].numel() for t in a)} floats per worker, W={CIFAR_W}")
+    check(len(chunks) == 3, f"expected 3 comm chunks, got {len(chunks)}")
+    _check_comm_set(cc, x, a, r, means, chunks, CIFAR_W, ("fp32", "bf16", "int8"),
+                    err, "cifar10_full")
+    times = {"cifar10_full": _time_comm_set(cc, x, a, r, means, chunks, CIFAR_W,
+                                            20)}
+    del x, a, r, means
+
+    solver = imagenet_app.build_solver(
+        _imnet_args(dev), np.zeros((3, IMNET_FULL, IMNET_FULL), np.float32), dev)
+    x, a, r, means, chunks = _comm_set(
+        dev, ParameterAveragingTrainer(solver, IMNET_W, compress="int8"), 2)
+    del solver
+    sizes = [sl.stop - sl.start for sl in chunks]
+    print(f"comm plane, AlexNet: {len(chunks)} chunks of {sizes} leaves, "
+          f"{sum(t[0].numel() for t in a)} floats per worker, W={IMNET_W}; "
+          "floats per worker of each leaf: "
+          + ", ".join(str(t[0].numel()) for t in a))
+    check(len(a) == 16, f"AlexNet has 16 parameter leaves, got {len(a)}")
+    _check_comm_set(cc, x, a, r, means, chunks, IMNET_W, ("fp32", "bf16", "int8"),
+                    err, "AlexNet")
+    times["AlexNet"] = _time_comm_set(cc, x, a, r, means, chunks, IMNET_W, 5)
+    del x, a, r, means
+    torch.cuda.empty_cache()
+    print("K9-K11 bitwise equal to their plain versions at cifar10_full (W=4) "
+          "and AlexNet (W=2): 3 modes x readout on/off, a masked worker, no "
+          "survivors, an all-zero leaf")
+
+    records = []
+    replaces = {"comm_encode": 83, "comm_apply_barriered": 164,
+                "comm_apply_correction": 224}
+    for name, line in replaces.items():
+        for shape, t in times.items():
+            rec = t[name]
+            design = ("" if rec["design_bytes"] is None else
+                      f"; the design's {rec['design_bytes']} bytes "
+                      f"{rec['design_bound_ms'] * 1e3:.3f} us "
+                      f"({rec['design_bound_ms'] / rec['ms']:.1%} of it)")
+            print(f"{rec['tag']} {name} [{shape}, one round's launches, "
+                  f"{rec['what']}]: kernel {rec['ms']:.4f} ms on device "
+                  f"({rec['call_ms']:.4f} ms per call), plain "
+                  f"{rec['plain_ms']:.4f} ms ({rec['plain_call_ms']:.4f}); "
+                  f"bound {rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}, "
+                  f"{rec['bytes']} bytes: {rec['bound_ms'] / rec['ms']:.1%} of "
+                  f"it){design}; library: none")
+        alex = times["AlexNet"][name]
+        records.append(dict(
             name=name, route="cuda",
             source="sparknet_tpu_torch/ops/csrc/comm_epilogue.cu",
-            replaces=replaces, max_abs_err=err[name], bound_ms=b, bound_by=by,
-            library_ms=None,
-            ms=device_ms(per_round(kern)), call_ms=time_ms(per_round(kern)),
-            plain_ms=device_ms(per_round(plain)),
-            plain_call_ms=time_ms(per_round(plain)),
-        )
-        print(f"{tag} {name} [cifar10_full W={CIFAR_W}, {len(chunks)} chunk "
-              f"launches, {what}, {nbytes} bytes]: kernel {rec['ms']:.4f} ms on "
-              f"device ({rec['call_ms']:.4f} ms per call), plain "
-              f"{rec['plain_ms']:.4f} ms ({rec['plain_call_ms']:.4f}), bound "
-              f"{b * 1e3:.3f} us ({by}), library: none")
-        records.append(rec)
+            replaces=f"sparknet_tpu/ops/pallas_comm.py:{line}",
+            max_abs_err=err[name], library_ms=None,
+            **{k: alex[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        ))
     return records
 
 
@@ -967,7 +1061,10 @@ def check_bwd_kernels(dev):
         ("D=32", (2, 70, 70, H, 32, 0, 0, True), {}),
         ("D=48", (2, 100, 100, H, 48, 0, 0, True), {}),
         ("D=128", (2, 100, 100, H, 128, 0, 0, True), {}),
+        ("D=256", (2, 100, 100, H, 256, 0, 0, True), {}),
+        ("D=256, non-causal", (2, 100, 100, H, 256, 0, 0, False), {}),
         ("D=40, padded to 48", (2, 100, 100, H, 40, 0, 0, True), {}),
+        ("D=200, padded to 224", (2, 100, 100, H, 200, 0, 0, True), {}),
         (f"q, k x{BWD_LARGE:g}", (B, T, T, H, D, 0, 0, True),
          dict(mag=BWD_LARGE)),
         ("q, k, v views of a fused qkv", (B, T, T, H, D, 0, 0, True),
@@ -977,7 +1074,8 @@ def check_bwd_kernels(dev):
     for what, shape, how in cases:
         args = _bwd_case(dev, gen, *shape, **how)
         ca.reset_launch_counts()
-        if shape[4] % 16:
+        padded = shape[4] not in ca.KERNEL_HEAD_DIMS
+        if padded:
             # K3/K4 take built head dims: the autograd path pads q, k and
             # v once in the forward and do in the backward
             q, k, v = (t.detach().requires_grad_(True) for t in args[:3])
@@ -990,7 +1088,7 @@ def check_bwd_kernels(dev):
             got = {"flash_bwd_dq": (ca.flash_bwd_dq(*args),),
                    "flash_bwd_dkv": ca.flash_bwd_dkv(*args)}
         check(ca.LAUNCHES["flash_bwd_dq"] == ca.LAUNCHES["flash_bwd_dkv"] == 1
-              and ca.PAD_COPIES == (4 if shape[4] % 16 else 0),
+              and ca.PAD_COPIES == (4 if padded else 0),
               f"K3/K4 {what}: launches {ca.LAUNCHES}, pad copies "
               f"{ca.PAD_COPIES}")
         want = {"flash_bwd_dq": (ca._flash_bwd_dq_reference(*args),),
@@ -1086,6 +1184,60 @@ def check_bwd_kernels(dev):
           f"{lib_fwd_bwd:.4f} ms - fwd {lib_fwd:.4f} ms = {library:.4f} ms on "
           f"device; K3+K4 {records[0]['ms'] + records[1]['ms']:.4f} ms")
     return records
+
+
+# ``lm_app --dim 512 --heads 2``'s attention: head dim 256, the widest
+# build (K1, K3 and K4 split the output's columns into halves)
+WIDE_LM = dict(dim=512, depth=2, heads=2, seq_len=256)
+
+
+def time_wide_head(dev):
+    """K1, K3 and K4 at B=8, T=256, H=2, D=256, causal, with a nonzero
+    dlse: each held against its plain version on the same inputs (K1 to
+    KERNEL_ATOL, K3/K4 to BWD_RTOL of the plain output's largest
+    magnitude), then its device time beside the plain version's and the
+    bound (bytes, or three TF32 passes of the products)."""
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    b, t, h = LM_BATCH, WIDE_LM["seq_len"], WIDE_LM["heads"]
+    d = WIDE_LM["dim"] // h
+    q, k, v, do = (torch.randn(b, t, h, d, generator=gen).to(dev)
+                   for _ in range(4))
+    dlse = torch.randn(b, h, t, generator=gen).to(dev)
+    o, lse = ca._flash_core(q, k, v, 0, 0, True)
+    want_o, want_lse = ca._flash_core_reference(q, k, v, 0, 0, True)
+    e = max(max_err(o, want_o), max_err(lse, want_lse))
+    print(f"flash_fwd D={d}: max_abs_err {e:.3e} against the plain version")
+    check(e <= KERNEL_ATOL, f"flash_fwd disagrees at D={d}: {e}")
+    args = (q, k, v, do, o, lse, dlse, 0, 0, True)
+    got = (ca.flash_bwd_dq(*args), *ca.flash_bwd_dkv(*args))
+    want = (ca._flash_bwd_dq_reference(*args),
+            *ca._flash_bwd_dkv_reference(*args))
+    for out, g, w in zip(("K3 dq", "K4 dk", "K4 dv"), got, want):
+        e = max_err(g, w)
+        limit = BWD_RTOL * max(1.0, float(w.abs().max()))
+        print(f"{out} D={d}: max_abs_err {e:.3e} against the plain version "
+              f"(limit {limit:.3e})")
+        check(e <= limit, f"{out} disagrees at D={d}: {e} > {limit}")
+    pairs = b * h * t * (t + 1) // 2
+    tensor_bytes, row_bytes = 4 * b * t * h * d, 4 * b * h * t
+    for name, kernel, plain, nbytes, ops in (
+        ("flash_fwd", lambda: ca._flash_core(q, k, v, 0, 0, True),
+         lambda: ca._flash_core_reference(q, k, v, 0, 0, True),
+         4 * tensor_bytes + row_bytes, 4 * d * pairs),
+        ("flash_bwd_dq", lambda: ca.flash_bwd_dq(*args),
+         lambda: ca._flash_bwd_dq_reference(*args),
+         6 * tensor_bytes + 2 * row_bytes, 6 * d * pairs),
+        ("flash_bwd_dkv", lambda: ca.flash_bwd_dkv(*args),
+         lambda: ca._flash_bwd_dkv_reference(*args),
+         7 * tensor_bytes + 2 * row_bytes, 8 * d * pairs),
+    ):
+        bound, by = bound_ms(nbytes, 3 * ops, PEAK_TF32_S)
+        ms = device_ms(kernel)
+        print(f"{name} [B={b} T={t} H={h} D={d} causal fp32]: kernel {ms:.4f} "
+              f"ms on device, plain {device_ms(plain):.4f} ms, bound "
+              f"{bound * 1e3:.3f} us ({by}, 3xTF32: {bound / ms:.1%} of it)")
 
 
 # ----------------------------------------------------------------------
@@ -1217,7 +1369,30 @@ def lm_train_end_to_end(dev, card):
     print(f"LM first round on the card vs the CPU: worst |diff| {worst:.3e} of "
           f"the update, losses {first_gap:.3e}")
     where_lm_time_goes(dev, card)
-    return launches["flash"]
+    # head dim 256 (dim 512, 2 heads): one round on the kernels
+    w = WIDE_LM
+    result = {}
+    ca.reset_launch_counts()
+    rc = lm_app.main(["--device", dev.type, "--workers", str(LM_W), "--tau",
+                      str(LM_TAU), "--batch", str(LM_BATCH), "--rounds", "1",
+                      "--dim", str(w["dim"]), "--depth", str(w["depth"]),
+                      "--heads", str(w["heads"]), "--seq_len", str(w["seq_len"]),
+                      "--base_lr", str(LM_LR), "--log_every", "1"], result)
+    torch.cuda.synchronize()
+    wide = dict(ca.LAUNCHES)
+    n = w["depth"] * LM_W * LM_TAU
+    gauge = result["metrics"].kernel_path.labels("attention").value
+    print(f"LM head dim {w['dim'] // w['heads']} (dim {w['dim']}, heads "
+          f"{w['heads']}, depth {w['depth']}), one round: launches {wide}, "
+          f"kernel-path gauge {gauge}, losses "
+          f"{result['losses'].mean(axis=(1, 2)).round(4).tolist()}")
+    check(rc == 0 and bool(np.isfinite(result["losses"]).all()),
+          "lm_app at head dim 256 failed")
+    check(wide == dict(flash_fwd=n, flash_bwd_dq=n, flash_bwd_dkv=n,
+                       decode_attention=0) and ca.PAD_COPIES == 0,
+          f"lm_app at head dim 256: launches {wide}, pad copies {ca.PAD_COPIES}")
+    check(gauge == 1.0, f"lm_app at head dim 256: kernel-path gauge {gauge}")
+    return {k: launches["flash"][k] + wide[k] for k in wide}
 
 
 def where_lm_time_goes(dev, card):
@@ -1293,6 +1468,8 @@ FUSED_DRIFT_RTOL = 2e-3
 # the default leg on the card drift 2e-4 apart in the loss by round 2)
 IMNET_CPU_TOL = 1e-2
 IMNET_CPU_ROUND_TOL = 5e-2
+# the int8 leg (K9 + K10 each round): cut to 2 rounds, testing at round 0
+IMNET_INT8_ROUNDS = 2
 
 
 def _close(got, want, tol, what) -> float:
@@ -1529,7 +1706,15 @@ def _imnet_partitions():
 
 
 class _Log:
+    """The app's log, printed; keeps each round's smoothed loss."""
+
+    def __init__(self):
+        self.smoothed = []
+
     def log(self, msg, i=-1):
+        m = re.search(r"smoothed_loss (\S+)", msg)
+        if m:
+            self.smoothed.append(float(m.group(1)))
         print(f"    {msg}" if i < 0 else f"    round {i}: {msg}")
 
 
@@ -1591,14 +1776,16 @@ def _imnet_first_round_matches_cpu(dev, parts, mean):
 
 
 def imagenet_train_end_to_end(dev, card):
-    """``imagenet_app.train`` at AlexNet's full width, default and fused
-    legs (see the module doc, phase 9); returns both legs' summed
-    launches of K5-K8."""
+    """``imagenet_app.train`` at AlexNet's full width, default, fused and
+    int8 legs (see the module doc, phase 9); returns the legs' summed
+    launches of K5-K10 (the drift control's left out)."""
     import os
 
     from sparknet_tpu_torch.apps import imagenet_app
+    from sparknet_tpu_torch.ops import cuda_comm as cc
     from sparknet_tpu_torch.ops import cuda_lrn as cl
     from sparknet_tpu_torch.ops import cuda_plp as cp
+    from sparknet_tpu_torch.parallel import LOSS_BAND
 
     try:
         import PIL  # noqa: F401  (the JPEG decode of the data stage)
@@ -1632,30 +1819,45 @@ def imagenet_train_end_to_end(dev, card):
 
     train_parts, test_parts, mean = _imnet_partitions()
     n_test = sum(len(x) for x, _ in test_parts)
-    n_tests = len(range(0, IMNET_ROUNDS, IMNET_TEST_EVERY)) + 1  # + the final
-    steps = IMNET_W * IMNET_TAU * IMNET_ROUNDS
+    no_comm = dict.fromkeys(cc.LAUNCHES, 0)
+
+    def lrn_launches(rounds, fused):
+        n_tests = len(range(0, rounds, IMNET_TEST_EVERY)) + 1  # + the final
+        steps = IMNET_W * IMNET_TAU * rounds
+        if fused:
+            return dict(lrn_fwd=2 * n_tests * n_test, lrn_bwd=0,
+                        lrn_pool_fwd=2 * steps, lrn_pool_bwd=2 * steps)
+        return dict(lrn_fwd=2 * steps + 2 * n_tests * n_test,
+                    lrn_bwd=2 * steps, lrn_pool_fwd=0, lrn_pool_bwd=0)
+
     expect = {
-        "default": dict(lrn_fwd=2 * steps + 2 * n_tests * n_test,
-                        lrn_bwd=2 * steps, lrn_pool_fwd=0, lrn_pool_bwd=0),
-        "fused": dict(lrn_fwd=2 * n_tests * n_test, lrn_bwd=0,
-                      lrn_pool_fwd=2 * steps, lrn_pool_bwd=2 * steps),
+        "default": {**lrn_launches(IMNET_ROUNDS, False), **no_comm},
+        "fused": {**lrn_launches(IMNET_ROUNDS, True), **no_comm},
+        # the comm chunks of AlexNet's parameters (parallel/comm.py): 3,
+        # each one K9 and one K10 launch a round
+        "int8": {**lrn_launches(IMNET_INT8_ROUNDS, False),
+                 **dict(no_comm, comm_encode=3 * IMNET_INT8_ROUNDS,
+                        comm_apply_barriered=3 * IMNET_INT8_ROUNDS)},
     }
     expect["default, again"] = expect["default"]
-    results, total = {}, {}
+    results, total, smoothed = {}, {}, {}
     prior = os.environ.get("SPARKNET_FUSION")
     # the default leg twice: the second run is the control, how far two
     # runs of the same program drift apart on this card
-    for leg, fusion in (("default", "0"), ("default, again", "0"),
-                        ("fused", "1")):
+    for leg, fusion, extra in (
+            ("default", "0", ()), ("default, again", "0", ()),
+            ("fused", "1", ()),
+            ("int8", "0", ("--compress", "int8",
+                           "--rounds", str(IMNET_INT8_ROUNDS)))):
         os.environ["SPARKNET_FUSION"] = fusion
         try:
-            result = {}
-            cl.reset_launch_counts()
-            cp.reset_launch_counts()
-            imagenet_app.train(_imnet_args(dev), train_parts, test_parts, mean,
-                               dev, _Log(), result)
+            result, log = {}, _Log()
+            for mod in (cl, cp, cc):
+                mod.reset_launch_counts()
+            imagenet_app.train(_imnet_args(dev, extra), train_parts, test_parts,
+                               mean, dev, log, result)
             torch.cuda.synchronize()
-            launches = {**cl.LAUNCHES, **cp.LAUNCHES}
+            launches = {**cl.LAUNCHES, **cp.LAUNCHES, **cc.LAUNCHES}
         finally:
             if prior is None:
                 os.environ.pop("SPARKNET_FUSION", None)
@@ -1663,9 +1865,14 @@ def imagenet_train_end_to_end(dev, card):
                 os.environ["SPARKNET_FUSION"] = prior
         losses = result["losses"]  # (rounds, W, tau)
         per_round = losses.mean(axis=(1, 2))
+        smoothed[leg] = np.array(log.smoothed)
         print(f"AlexNet leg {leg}: launches {launches}, per-round mean loss "
               + " ".join(f"{x:.6f}" for x in per_round)
+              + f", smoothed {smoothed[leg].tolist()}"
               + f", accuracies {[round(a, 4) for a in result['accuracies']]}")
+        if leg == "int8":
+            n_chunks = len(result["trainer"]._comm.chunk_slices)
+            check(n_chunks == 3, f"AlexNet int8: {n_chunks} comm chunks, not 3")
         check(launches == expect[leg],
               f"AlexNet leg {leg}: launches {launches}, expected {expect[leg]}")
         check(bool(np.isfinite(losses).all()), f"AlexNet leg {leg}: non-finite loss")
@@ -1679,8 +1886,8 @@ def imagenet_train_end_to_end(dev, card):
         imgs = IMNET_W * IMNET_TAU * IMNET_BATCH
         print(f"[{card}] AlexNet leg {leg}: {1.0 / rs.mean():.3f} rounds/s, "
               f"{imgs / rs.mean():.1f} images/s (mean of rounds 1..."
-              f"{IMNET_ROUNDS - 1}: {rs.mean() * 1e3:.2f} ms, min "
-              f"{rs.min() * 1e3:.2f} ms)")
+              f"{len(result['round_seconds']) - 1}: {rs.mean() * 1e3:.2f} ms, "
+              f"min {rs.min() * 1e3:.2f} ms)")
         results[leg] = result
         if leg != "default, again":
             for name, v in launches.items():
@@ -1691,6 +1898,15 @@ def imagenet_train_end_to_end(dev, card):
     for leg, g in gaps.items():
         print(f"AlexNet {leg} vs default, per-round losses apart (relative): "
               + " ".join(f"{x:.3e}" for x in g))
+    int8_gap = np.abs(smoothed["int8"]
+                      - smoothed["default"][:IMNET_INT8_ROUNDS])
+    print(f"AlexNet int8 vs default, smoothed losses at rounds 0.."
+          f"{IMNET_INT8_ROUNDS - 1}: gaps {int8_gap.tolist()} (limit {LOSS_BAND})")
+    check(len(smoothed["int8"]) == IMNET_INT8_ROUNDS
+          and bool(np.isfinite(smoothed["int8"]).all()),
+          f"AlexNet int8: smoothed losses {smoothed['int8']}")
+    check(float(int8_gap.max()) <= LOSS_BAND,
+          f"AlexNet int8 leaves the loss band: {int8_gap}")
     vs_cpu = _imnet_first_round_matches_cpu(dev, train_parts, mean)
     for steps in (1, IMNET_TAU):
         worst, top, gap = vs_cpu[steps]
@@ -1705,8 +1921,11 @@ def imagenet_train_end_to_end(dev, card):
               f"away at its worst blob {name} (the CPU's float32 there "
               f"{cpu_at:.3e}); the CPU's float32 lies {cpu_gap:.3e} away at its "
               f"worst blob {cpu_name} (the card there {cpu_card_at:.3e})")
-    for leg, fusion in (("default", "0"), ("fused", "1")):
-        where_imnet_time_goes(dev, card, leg, fusion, train_parts, mean)
+    for leg, fusion, compress in (("default", "0", "none"),
+                                  ("fused", "1", "none"),
+                                  ("int8", "0", "int8")):
+        where_imnet_time_goes(dev, card, leg, fusion, compress, train_parts,
+                              mean)
     for steps, limit in ((1, IMNET_CPU_TOL), (IMNET_TAU, IMNET_CPU_ROUND_TOL)):
         check(vs_cpu[steps][0] <= limit,
               f"AlexNet first round ({steps} steps) on the card vs the CPU: "
@@ -1718,9 +1937,10 @@ def imagenet_train_end_to_end(dev, card):
     return total
 
 
-def where_imnet_time_goes(dev, card, leg, fusion, parts, mean):
+def where_imnet_time_goes(dev, card, leg, fusion, compress, parts, mean):
     """One round of an AlexNet leg under ``torch.profiler``: wall time,
-    the device's busy share, the top kernels and K5-K8's share."""
+    the device's busy share, the top kernels and K5-K10's share (the
+    trainer with the app's metrics, so K9 computes its readout)."""
     import os
 
     from torch.autograd import DeviceType
@@ -1728,6 +1948,7 @@ def where_imnet_time_goes(dev, card, leg, fusion, parts, mean):
 
     from sparknet_tpu_torch.apps import imagenet_app
     from sparknet_tpu_torch.data import MinibatchSampler, stack_windows
+    from sparknet_tpu_torch.obs.metrics import TrainingMetrics
     from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
 
     prior = os.environ.get("SPARKNET_FUSION")
@@ -1739,7 +1960,9 @@ def where_imnet_time_goes(dev, card, leg, fusion, parts, mean):
             os.environ.pop("SPARKNET_FUSION", None)
         else:
             os.environ["SPARKNET_FUSION"] = prior
-    tr = ParameterAveragingTrainer(solver, IMNET_W)
+    tr = ParameterAveragingTrainer(
+        solver, IMNET_W, compress=compress,
+        metrics=None if compress == "none" else TrainingMetrics())
     st = tr.init_state(0)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in stack_windows([
         MinibatchSampler({"data": x, "label": y.astype(np.float32)},
@@ -1762,10 +1985,12 @@ def where_imnet_time_goes(dev, card, leg, fusion, parts, mean):
     )
     busy = sum(r[0] for r in rows)
     check(busy > 0, f"AlexNet round ({leg}): the profiler saw no device time")
-    share = {tag: sum(r[0] for r in rows if kern in r[2])
+    share = {tag: sum(r[0] for r in rows if re.search(kern, r[2]))
              for tag, kern in (("K5", "lrn_fwd_kernel"), ("K6", "lrn_bwd_kernel"),
                                ("K7", "lrn_pool_fwd_kernel"),
-                               ("K8", "lrn_pool_bwd_kernel"))}
+                               ("K8", "lrn_pool_bwd_kernel"),
+                               ("K9", r"encode\w*_kernel"),
+                               ("K10", "apply_barriered_kernel"))}
     n_kernels = sum(r[1] for r in rows)
     print(f"[{card}] AlexNet round ({leg}, W={IMNET_W}, tau={IMNET_TAU}, batch "
           f"{IMNET_BATCH}): {wall_ms:.3f} ms wall, {busy:.3f} ms device busy "
@@ -1797,9 +2022,9 @@ def main() -> int:
         entry, spill = "?", ""
         for line in p.with_suffix(".log").read_text().splitlines():
             m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)"
-                          r"(\w*?)Ev", line)
+                          r"(I\w+?EE)?", line)
             if m:  # the kernel's name and its mangled template arguments
-                entry = f"{m.group(1)} {m.group(2)}"
+                entry = f"{m.group(1)} {m.group(2) or ''}"
             elif "spill stores" in line:
                 spill = line.strip()
             elif "Used" in line and "registers" in line:
@@ -1808,13 +2033,14 @@ def main() -> int:
 
     kernels = check_kernels(dev)
     kernels += check_bwd_kernels(dev)
+    time_wide_head(dev)
     comm_kernels = check_comm_kernels(dev)
     lrn_kernels = check_lrn_kernels(dev, card)
     launches = serve_end_to_end(dev, card)
-    for name, n in lm_train_end_to_end(dev, card).items():
-        launches[name] += n
-    launches.update(train_end_to_end(dev, card))
-    launches.update(imagenet_train_end_to_end(dev, card))
+    for leg in (lm_train_end_to_end, train_end_to_end,
+                imagenet_train_end_to_end):
+        for name, n in leg(dev, card).items():
+            launches[name] = launches.get(name, 0) + n
     kernels += comm_kernels + lrn_kernels
     for r in kernels:
         r["launches"] = launches[r["name"]]

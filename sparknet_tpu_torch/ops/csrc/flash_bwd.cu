@@ -53,6 +53,16 @@
 //       of the group's keys can see are skipped.
 // (sparknet_tpu_torch/tools/flash_bwd_tiles.py times other groups,
 // splits and slices.)
+// Above D = 128 (flash_common.cuh out_halves) a block writes one half of
+// the columns of its output: K3 a half of dq, forming s and dp over the
+// full D as above into a 16 x D/2 partial (its stages of K and V full
+// width, 192 KB of shared memory at D = 256, one block a SM); K4 one
+// half of dk and of dv, so that a warp keeps two 16 x D/2 accumulators,
+// as it keeps dk and dv at D = 128, and forms s^T and dp^T over the full
+// D once per half: one group of 16 keys a block, WIDE_K_SPLIT warps of
+// 8-query slices, o's stages in one buffer (224 KB at D = 256).  Every block of a row or key tile
+// forms s (and dp) over the full D in the same order, so the halves
+// agree on p bit for bit.
 // No score tile goes through shared memory: the accumulator layout of
 // m16n8k8 (thread (g, t) holds columns 2t, 2t+1 of rows g, g+8) is
 // taken as an A operand whose k slots t and t+4 stand for columns 2t and
@@ -96,12 +106,46 @@ constexpr int Q_STAGE = Q_SPLIT * Q_SLICE;
 constexpr int Q_NT = 32 * Q_GROUPS * Q_SPLIT;
 // K4: the same over key rows; a stage holds K_SPLIT x K_SLICE queries
 // (two splits at D = 128, so that the stages fit in shared memory).
+// Above D = 128: one group of 16 keys, WIDE_K_SPLIT splits of 8 queries,
+// and a block keeps dk and dv for one half of their columns.
 constexpr int K_GROUPS = 2;
 constexpr int K_SLICE = 16;
-constexpr int K_ROWS = 16 * K_GROUPS;
+constexpr int WIDE_K_SPLIT = 4;
 template <int D>
-__host__ __device__ constexpr int k_split() { return D > 64 ? 2 : 4; }
+__host__ __device__ constexpr int k_split() {
+  if (out_halves<D>() > 1) return WIDE_K_SPLIT;
+  return D > 64 ? 2 : 4;
+}
+template <int D>
+__host__ __device__ constexpr int k_groups() {
+  return out_halves<D>() > 1 ? 1 : K_GROUPS;
+}
+template <int D>
+__host__ __device__ constexpr int k_slice() {
+  return out_halves<D>() > 1 ? 8 : K_SLICE;
+}
+template <int D>
+__host__ __device__ constexpr int k_rows() { return 16 * k_groups<D>(); }
+template <int D>
+__host__ __device__ constexpr int k_nt() { return 32 * k_groups<D>() * k_split<D>(); }
+// o is read only for delta: above D = 128 its stages take one buffer,
+// refilled once the stage's delta is formed, so that 4 warps' stages fit
+template <int D>
+__host__ __device__ constexpr int o_bufs() { return out_halves<D>() > 1 ? 1 : 2; }
 static_assert(Q_SLICE % 8 == 0 && K_SLICE % 8 == 0, "slices of 8-row tiles");
+
+// The loops over the head dim unroll all D / 8 steps up to D = 128;
+// above, Q_WIDE_UNROLL (K3) or K_WIDE_UNROLL (K4's products, beside its
+// dk and dv accumulators' 128 registers) or K_FRAG_UNROLL (K4's k/v
+// fragments) at a time, so that the loads the scheduler hoists fit in
+// 255 registers (fully unrolled, K4 spilled 24 B at D = 224).
+constexpr int Q_WIDE_UNROLL = 4;
+constexpr int K_WIDE_UNROLL = 2;
+constexpr int K_FRAG_UNROLL = 4;
+template <int D, int WIDE>
+__host__ __device__ constexpr int d_unroll() {
+  return out_halves<D>() > 1 ? WIDE : D / 8;
+}
 
 struct Args {
   const float* q;
@@ -131,11 +175,12 @@ constexpr size_t dq_smem_bytes() {
          sizeof(float) * 4 * Q_STAGE * D;
 }
 
+// k/v fragments; q, do and o stages
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(uint4) * 4 * K_GROUPS * (D / 8) * 32 +
-         sizeof(float) * (6 * k_split<D>() * K_SLICE * D +
-                          2 * k_split<D>() * K_SLICE);
+  return sizeof(uint4) * 4 * k_groups<D>() * (D / 8) * 32 +
+         sizeof(float) * ((4 + o_bufs<D>()) * k_split<D>() * k_slice<D>() * D +
+                          2 * k_split<D>() * k_slice<D>());
 }
 
 // ---------------------------------------------------------------------
@@ -143,11 +188,14 @@ constexpr size_t dkv_smem_bytes() {
 // ---------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(Q_NT, 2) flash_bwd_dq_kernel(const Args a) {
+  constexpr int NH = out_halves<D>();
+  constexpr int DH = D / NH;       // dq's columns this block writes
   constexpr int KS = D / 8;        // 8-deep steps over the head dim
+  constexpr int KO = DH / 8;       // 8-column groups of the partial
   constexpr int NK = Q_SLICE / 8;  // 8-key column groups of a slice
   constexpr int TILE = Q_STAGE * D;
   constexpr int FR = Q_GROUPS * KS * 32;
-  static_assert(Q_GROUPS * Q_SPLIT * KS * 32 * 4 <= 4 * TILE,
+  static_assert(Q_GROUPS * Q_SPLIT * KO * 32 * 4 <= 4 * TILE,
                 "the dq partials fit in the stages");
   extern __shared__ uint4 smem4[];
   uint4* Qh = smem4;  // [group][KS][lane] q fragments, hi and lo
@@ -162,8 +210,10 @@ __global__ void __launch_bounds__(Q_NT, 2) flash_bwd_dq_kernel(const Args a) {
   const int group = warp / Q_SPLIT, split_id = warp % Q_SPLIT;
   const int Tq = a.Tq, Tk = a.Tk;
   const int n_qt = (Tq + Q_ROWS - 1) / Q_ROWS;
-  const int bh = blockIdx.x % a.BH;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / a.BH) * Q_ROWS;
+  const int half = static_cast<int>(blockIdx.x) % NH;
+  const int rest = static_cast<int>(blockIdx.x) / NH;
+  const int bh = rest % a.BH;
+  const int q0 = (n_qt - 1 - rest / a.BH) * Q_ROWS;
   const int b = bh / a.H, h = bh % a.H;
 
   const float* qb = a.q + b * a.sq[0] + h * a.sq[2];
@@ -191,7 +241,7 @@ __global__ void __launch_bounds__(Q_NT, 2) flash_bwd_dq_kernel(const Args a) {
   const bool ina = ra < Tq, inb = rb < Tq;
   const int f = group * KS * 32 + lane;
   float dsa = 0.f, dsb = 0.f;
-#pragma unroll
+#pragma unroll (d_unroll<D, Q_WIDE_UNROLL>())
   for (int ks = 0; ks < KS; ++ks) {
     const int c = ks * 8 + t;
     const float4 gv = a_from_global(gb, a.sd[1], ra, rb, ina, inb, c);
@@ -217,9 +267,9 @@ __global__ void __launch_bounds__(Q_NT, 2) flash_bwd_dq_kernel(const Args a) {
   const float dl_a = ina ? dsa - a.dlse[li + ra] : 0.f;
   const float dl_b = inb ? dsb - a.dlse[li + rb] : 0.f;
 
-  float acc[KS][4];
+  float acc[KO][4];
 #pragma unroll
-  for (int i = 0; i < KS; ++i)
+  for (int i = 0; i < KO; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
@@ -242,7 +292,7 @@ __global__ void __launch_bounds__(Q_NT, 2) flash_bwd_dq_kernel(const Args a) {
       for (int n = 0; n < NK; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
+#pragma unroll (d_unroll<D, Q_WIDE_UNROLL>())
       for (int ks = 0; ks < KS; ++ks) {
         const Frag<4> qa = load_a(Qh + f + ks * 32, Ql + f + ks * 32);
         const Frag<4> ga = load_a(Gh + f + ks * 32, Gl + f + ks * 32);
@@ -267,13 +317,14 @@ __global__ void __launch_bounds__(Q_NT, 2) flash_bwd_dq_kernel(const Args a) {
           s[n][e] = p * (dp[n][e] - (e < 2 ? dl_a : dl_b)) * a.scale;
         }
 
-      // dq += ds k
+      // dq += ds k, over this block's half of k's columns
 #pragma unroll
       for (int kk = 0; kk < NK; ++kk) {
         const Frag<4> da = acc_as_a(s[kk]);
 #pragma unroll
-        for (int dn = 0; dn < KS; ++dn)
-          mma3(acc[dn], da, b_colwise<D>(K, kk * 8 + 2 * t, dn * 8 + g));
+        for (int dn = 0; dn < KO; ++dn)
+          mma3(acc[dn], da,
+               b_colwise<D>(K, kk * 8 + 2 * t, half * DH + dn * 8 + g));
       }
     }
     __syncthreads();  // stage j & 1 is free for stage j + 2
@@ -281,28 +332,28 @@ __global__ void __launch_bounds__(Q_NT, 2) flash_bwd_dq_kernel(const Args a) {
 
   // the group's Q_SPLIT partials, summed in split order: each warp sums
   // and stores up to PER of the 8-column groups
-  float4* part = reinterpret_cast<float4*>(Ks);  // [group][split][KS][lane]
-  float4* mine = part + (group * Q_SPLIT + split_id) * KS * 32 + lane;
+  float4* part = reinterpret_cast<float4*>(Ks);  // [group][split][KO][lane]
+  float4* mine = part + (group * Q_SPLIT + split_id) * KO * 32 + lane;
 #pragma unroll
-  for (int dn = 0; dn < KS; ++dn)
+  for (int dn = 0; dn < KO; ++dn)
     mine[dn * 32] = make_float4(acc[dn][0], acc[dn][1], acc[dn][2], acc[dn][3]);
   __syncthreads();
-  const float4* first = part + group * Q_SPLIT * KS * 32 + lane;
-  constexpr int PER = (KS + Q_SPLIT - 1) / Q_SPLIT;
+  const float4* first = part + group * Q_SPLIT * KO * 32 + lane;
+  constexpr int PER = (KO + Q_SPLIT - 1) / Q_SPLIT;
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int dn = split_id * PER + i;
-    if (dn >= KS) break;
+    if (dn >= KO) break;
     float4 sum = first[dn * 32];
 #pragma unroll
     for (int sp = 1; sp < Q_SPLIT; ++sp) {
-      const float4 x = first[(sp * KS + dn) * 32];
+      const float4 x = first[(sp * KO + dn) * 32];
       sum.x += x.x;
       sum.y += x.y;
       sum.z += x.z;
       sum.w += x.w;
     }
-    const int c = dn * 8 + 2 * t;
+    const int c = half * DH + dn * 8 + 2 * t;
     if (ina)
       *reinterpret_cast<float2*>(
           a.dq + ((static_cast<long long>(b) * Tq + ra) * a.H + h) * D + c) =
@@ -318,17 +369,23 @@ __global__ void __launch_bounds__(Q_NT, 2) flash_bwd_dq_kernel(const Args a) {
 // K4: dk and dv
 // ---------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(32 * K_GROUPS * k_split<D>())
-    flash_bwd_dkv_kernel(const Args a) {
+__global__ void __launch_bounds__(k_nt<D>()) flash_bwd_dkv_kernel(const Args a) {
+  constexpr int NH = out_halves<D>();
+  constexpr int DH = D / NH;        // columns of dk and dv this block writes
+  constexpr int GROUPS = k_groups<D>();
+  constexpr int SLICE = k_slice<D>();
+  constexpr int ROWS = k_rows<D>();
   constexpr int SPLIT = k_split<D>();
-  constexpr int NT = 32 * K_GROUPS * SPLIT;
-  constexpr int STAGE = SPLIT * K_SLICE;  // queries per stage
-  constexpr int KS = D / 8;               // 8-deep steps over the head dim
-  constexpr int NQ = K_SLICE / 8;         // 8-query column groups of a slice
+  constexpr int NT = k_nt<D>();
+  constexpr int STAGE = SPLIT * SLICE;  // queries per stage
+  constexpr int KS = D / 8;             // 8-deep steps over the head dim
+  constexpr int KO = DH / 8;            // 8-column groups of a partial
+  constexpr int NQ = SLICE / 8;         // 8-query column groups of a slice
   constexpr int TILE = STAGE * D;
-  constexpr int FR = K_GROUPS * KS * 32;
+  constexpr int FR = GROUPS * KS * 32;
   constexpr int LPR = NT / STAGE;  // lanes per row for delta
-  static_assert(2 * K_GROUPS * SPLIT * KS * 32 * 4 <= 6 * TILE,
+  constexpr int OB = o_bufs<D>();
+  static_assert(2 * GROUPS * SPLIT * KO * 32 * 4 <= (4 + OB) * TILE,
                 "the dk/dv partials fit in the stages");
   extern __shared__ uint4 smem4[];
   uint4* Kh = smem4;  // [group][KS][lane] k fragments, hi and lo
@@ -337,16 +394,18 @@ __global__ void __launch_bounds__(32 * K_GROUPS * k_split<D>())
   uint4* Vl = Vh + FR;
   float* Qs = reinterpret_cast<float*>(Vl + FR);  // [2][TILE]
   float* Gs = Qs + 2 * TILE;                      // do
-  float* Os = Gs + 2 * TILE;                      // o
-  float* Ls = Os + 2 * TILE;  // [STAGE] lse_safe of the stage's rows
+  float* Os = Gs + 2 * TILE;                      // [OB][TILE] o
+  float* Ls = Os + OB * TILE;  // [STAGE] lse_safe of the stage's rows
   float* Dl = Ls + STAGE;     // [STAGE] delta
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int group = warp / SPLIT, split_id = warp % SPLIT;
   const int Tq = a.Tq, Tk = a.Tk;
-  const int bh = blockIdx.x % a.BH;
-  const int k0 = static_cast<int>(blockIdx.x) / a.BH * K_ROWS;
+  const int half = static_cast<int>(blockIdx.x) % NH;
+  const int rest = static_cast<int>(blockIdx.x) / NH;
+  const int bh = rest % a.BH;
+  const int k0 = rest / a.BH * ROWS;
   const int b = bh / a.H, h = bh % a.H;
 
   const float* qb = a.q + b * a.sq[0] + h * a.sq[2];
@@ -370,7 +429,7 @@ __global__ void __launch_bounds__(32 * K_GROUPS * k_split<D>())
   const bool ina = ka < Tk, inb = kb8 < Tk;
   const int f = group * KS * 32 + lane;
   if (split_id == 0) {
-#pragma unroll
+#pragma unroll (d_unroll<D, K_FRAG_UNROLL>())
     for (int ks = 0; ks < KS; ++ks) {
       const int c = ks * 8 + t;
       store_a(Kh + f + ks * 32, Kl + f + ks * 32,
@@ -382,11 +441,14 @@ __global__ void __launch_bounds__(32 * K_GROUPS * k_split<D>())
   // the group's first key, for skipping slices it cannot see
   const int key_first = a.k_offset + k0 + group * 16;
 
-  float dk[KS][4], dv[KS][4];
+  // dk in acc[0] and dv in acc[1]
+  float acc[2][KO][4];
 #pragma unroll
-  for (int i = 0; i < KS; ++i)
+  for (int o = 0; o < 2; ++o)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+    for (int i = 0; i < KO; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[o][i][e] = 0.f;
 
   const long long li = static_cast<long long>(bh) * Tq;
   for (int j = 0; j < n_st; ++j) {
@@ -395,16 +457,17 @@ __global__ void __launch_bounds__(32 * K_GROUPS * k_split<D>())
       const int nxt = ((j + 1) & 1) * TILE;
       load_tile<D, STAGE, NT>(Qs + nxt, qb, a.sq[1], qt + STAGE, Tq);
       load_tile<D, STAGE, NT>(Gs + nxt, gb, a.sd[1], qt + STAGE, Tq);
-      load_tile<D, STAGE, NT>(Os + nxt, ob, a.so[1], qt + STAGE, Tq);
+      if constexpr (OB == 2)
+        load_tile<D, STAGE, NT>(Os + nxt, ob, a.so[1], qt + STAGE, Tq);
     }
     cp_async_commit();
-    cp_async_wait_prev();
+    cp_async_wait_prev();  // all but the group just issued (o's with OB 1)
     __syncthreads();  // stage j (and the fragments) are in for every thread
     const float* Qt = Qs + (j & 1) * TILE;
     const float* Gt = Gs + (j & 1) * TILE;
     {
       // lse_safe and delta of the stage's rows: LPR lanes per row
-      const float* O = Os + (j & 1) * TILE;
+      const float* O = Os + (OB == 2 ? (j & 1) * TILE : 0);
       const int r = threadIdx.x / LPR, lp = threadIdx.x % LPR;
       float sum = 0.f;
       for (int c = lp * 4; c < D; c += LPR * 4) {
@@ -425,19 +488,24 @@ __global__ void __launch_bounds__(32 * K_GROUPS * k_split<D>())
       }
     }
     __syncthreads();  // the stage's lse_safe and delta are in
+    if constexpr (OB == 1) {  // o's one buffer is free: the next stage's
+      if (j + 1 < n_st)       // o, in flight during this stage's products
+        load_tile<D, STAGE, NT>(Os, ob, a.so[1], qt + STAGE, Tq);
+      cp_async_commit();
+    }
 
-    const int q_lo = qt + split_id * K_SLICE;  // this warp's queries
+    const int q_lo = qt + split_id * SLICE;  // this warp's queries
     if (q_lo < Tq &&
-        (!a.causal || a.q_offset + q_lo + K_SLICE - 1 >= key_first)) {
-      // the slice's rows keep their swizzle: K_SLICE is a multiple of 8
-      const float* Q = Qt + split_id * K_SLICE * D;
-      const float* G = Gt + split_id * K_SLICE * D;
+        (!a.causal || a.q_offset + q_lo + SLICE - 1 >= key_first)) {
+      // the slice's rows keep their swizzle: SLICE is a multiple of 8
+      const float* Q = Qt + split_id * SLICE * D;
+      const float* G = Gt + split_id * SLICE * D;
       float st[NQ][4], dpt[NQ][4];
 #pragma unroll
       for (int n = 0; n < NQ; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
+#pragma unroll (d_unroll<D, K_WIDE_UNROLL>())
       for (int ks = 0; ks < KS; ++ks) {
         const Frag<4> ka4 = load_a(Kh + f + ks * 32, Kl + f + ks * 32);
         const Frag<4> va4 = load_a(Vh + f + ks * 32, Vl + f + ks * 32);
@@ -454,7 +522,7 @@ __global__ void __launch_bounds__(32 * K_GROUPS * k_split<D>())
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = e < 2 ? ka : kb8;
-          const int ql = split_id * K_SLICE + n * 8 + 2 * t + (e & 1);
+          const int ql = split_id * SLICE + n * 8 + 2 * t + (e & 1);
           const int qrow = qt + ql;
           const bool ok = qrow < Tq &&
                           (!a.causal || a.k_offset + key <= a.q_offset + qrow);
@@ -463,15 +531,16 @@ __global__ void __launch_bounds__(32 * K_GROUPS * k_split<D>())
           st[n][e] = p;
         }
 
-      // dv += p^T do, dk += ds^T q
+      // dv += p^T do, dk += ds^T q (over this block's columns)
 #pragma unroll
       for (int kk = 0; kk < NQ; ++kk) {
         const Frag<4> pa = acc_as_a(st[kk]);
         const Frag<4> da = acc_as_a(dpt[kk]);
 #pragma unroll
-        for (int dn = 0; dn < KS; ++dn) {
-          mma3(dv[dn], pa, b_colwise<D>(G, kk * 8 + 2 * t, dn * 8 + g));
-          mma3(dk[dn], da, b_colwise<D>(Q, kk * 8 + 2 * t, dn * 8 + g));
+        for (int dn = 0; dn < KO; ++dn) {
+          const int c = half * DH + dn * 8 + g;
+          mma3(acc[1][dn], pa, b_colwise<D>(G, kk * 8 + 2 * t, c));
+          mma3(acc[0][dn], da, b_colwise<D>(Q, kk * 8 + 2 * t, c));
         }
       }
     }
@@ -479,35 +548,35 @@ __global__ void __launch_bounds__(32 * K_GROUPS * k_split<D>())
   }
 
   // the group's SPLIT partials, summed in split order: each warp sums and
-  // stores up to PER of the 8-column groups of dk and dv
-  float4* part = reinterpret_cast<float4*>(Qs);  // [group][split][2][KS][lane]
-  float4* mine = part + (group * SPLIT + split_id) * 2 * KS * 32 + lane;
+  // stores up to PER of the 8-column groups of dk and of dv
+  float4* part = reinterpret_cast<float4*>(Qs);  // [group][split][2][KO][lane]
+  float4* mine = part + (group * SPLIT + split_id) * 2 * KO * 32 + lane;
 #pragma unroll
-  for (int dn = 0; dn < KS; ++dn) {
-    mine[dn * 32] = make_float4(dk[dn][0], dk[dn][1], dk[dn][2], dk[dn][3]);
-    mine[(KS + dn) * 32] =
-        make_float4(dv[dn][0], dv[dn][1], dv[dn][2], dv[dn][3]);
-  }
+  for (int o = 0; o < 2; ++o)
+#pragma unroll
+    for (int dn = 0; dn < KO; ++dn)
+      mine[(o * KO + dn) * 32] =
+          make_float4(acc[o][dn][0], acc[o][dn][1], acc[o][dn][2], acc[o][dn][3]);
   __syncthreads();
-  const float4* first = part + group * SPLIT * 2 * KS * 32 + lane;
-  constexpr int PER = (KS + SPLIT - 1) / SPLIT;
+  const float4* first = part + group * SPLIT * 2 * KO * 32 + lane;
+  constexpr int PER = (KO + SPLIT - 1) / SPLIT;
 #pragma unroll
-  for (int out = 0; out < 2; ++out) {
-    float* dst = out ? a.dv : a.dk;
+  for (int o = 0; o < 2; ++o) {
+    float* dst = o ? a.dv : a.dk;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int dn = split_id * PER + i;
-      if (dn >= KS) break;
-      float4 sum = first[(out * KS + dn) * 32];
+      if (dn >= KO) break;
+      float4 sum = first[(o * KO + dn) * 32];
 #pragma unroll
       for (int sp = 1; sp < SPLIT; ++sp) {
-        const float4 x = first[((sp * 2 + out) * KS + dn) * 32];
+        const float4 x = first[((sp * 2 + o) * KO + dn) * 32];
         sum.x += x.x;
         sum.y += x.y;
         sum.z += x.z;
         sum.w += x.w;
       }
-      const int c = dn * 8 + 2 * t;
+      const int c = half * DH + dn * 8 + 2 * t;
       if (ina)
         *reinterpret_cast<float2*>(
             dst + ((static_cast<long long>(b) * Tk + ka) * a.H + h) * D + c) =
@@ -527,7 +596,7 @@ cudaError_t launch_dq(Args a, int B, cudaStream_t stream) {
   cudaError_t e = allow_smem(flash_bwd_dq_kernel<D>, smem, &configured);
   if (e != cudaSuccess) return e;
   a.BH = B * a.H;
-  const int blocks = (a.Tq + Q_ROWS - 1) / Q_ROWS * a.BH;
+  const int blocks = (a.Tq + Q_ROWS - 1) / Q_ROWS * a.BH * out_halves<D>();
   if (blocks == 0) return cudaSuccess;
   flash_bwd_dq_kernel<D><<<blocks, Q_NT, smem, stream>>>(a);
   return cudaGetLastError();
@@ -540,10 +609,10 @@ cudaError_t launch_dkv(Args a, int B, cudaStream_t stream) {
   cudaError_t e = allow_smem(flash_bwd_dkv_kernel<D>, smem, &configured);
   if (e != cudaSuccess) return e;
   a.BH = B * a.H;
-  const int blocks = (a.Tk + K_ROWS - 1) / K_ROWS * a.BH;
+  const int blocks =
+      (a.Tk + k_rows<D>() - 1) / k_rows<D>() * a.BH * out_halves<D>();
   if (blocks == 0) return cudaSuccess;
-  flash_bwd_dkv_kernel<D>
-      <<<blocks, 32 * K_GROUPS * k_split<D>(), smem, stream>>>(a);
+  flash_bwd_dkv_kernel<D><<<blocks, k_nt<D>(), smem, stream>>>(a);
   return cudaGetLastError();
 }
 

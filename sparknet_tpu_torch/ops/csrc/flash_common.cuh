@@ -88,6 +88,16 @@ __device__ __forceinline__ Frag<4> acc_as_a(const float (&c)[4]) {
   return split(x);
 }
 
+// Above a head dim of 128 a warp cannot keep a 16 x D accumulator in
+// registers: the output's columns are split into halves of D / 2 (80 to
+// 128 wide), one a block, each block recomputing the products over the
+// full D that its half needs (q k^T, do v^T) in the same order, so both
+// halves see the same bits of them.
+template <int D>
+__host__ __device__ constexpr int out_halves() {
+  return D > 128 ? 2 : 1;
+}
+
 // ---------------------------------------------------------------------
 // shared tiles: rows of D floats, 16-byte chunks swizzled by the row
 // ---------------------------------------------------------------------

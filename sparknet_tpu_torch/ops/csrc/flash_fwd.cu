@@ -41,6 +41,12 @@
 // Two groups of 16 rows a block, four warps a group, 16-key slices (64
 // keys a stage) were the fastest at the LM training shape of the shapes
 // sparknet_tpu_torch/tools/flash_fwd_tiles.py times (PERF.md §6).
+// Above D = 128 (flash_common.cuh out_halves) a block writes one half of
+// o's columns: its warps form s over the full D as below but keep a
+// 16 x D/2 partial of p v, from V tiles of that half only; slices of 8
+// keys (32 a stage) keep the q fragments and two stages of K and V
+// inside shared memory (161 KB at D = 256).  Both halves run the same
+// code on the same s, so their m and l agree; half 0 writes lse.
 //
 // Bound on this card.  At the LM training shape (B=8, T=256, H=4, D=64,
 // causal) the two products are ~0.27 GFLOP of float32 work, 0.81 GFLOP of
@@ -65,9 +71,18 @@ constexpr int F_GROUPS = 2;
 constexpr int F_SPLIT = 4;
 constexpr int F_SLICE = 16;
 constexpr int F_ROWS = 16 * F_GROUPS;
-constexpr int F_STAGE = F_SPLIT * F_SLICE;
 constexpr int F_NT = 32 * F_GROUPS * F_SPLIT;
 static_assert(F_SLICE % 8 == 0, "slices of 8-key tiles");
+
+// keys of a warp's slice and of a stage at head dim D
+template <int D>
+__host__ __device__ constexpr int f_slice() {
+  return out_halves<D>() > 1 ? 8 : F_SLICE;
+}
+template <int D>
+__host__ __device__ constexpr int f_stage() {
+  return F_SPLIT * f_slice<D>();
+}
 
 struct Args {
   const float* q;
@@ -85,36 +100,47 @@ struct Args {
 template <int D>
 constexpr size_t fwd_smem_bytes() {
   return sizeof(uint4) * 2 * F_GROUPS * (D / 8) * 32 +
-         sizeof(float) * (4 * F_STAGE * D + F_GROUPS * F_SPLIT * 32);
+         sizeof(float) * (2 * f_stage<D>() * (D + D / out_halves<D>()) +
+                          F_GROUPS * F_SPLIT * 32);
 }
 
 template <int D>
 __global__ void __launch_bounds__(F_NT, 1) flash_fwd_kernel(const Args a) {
+  constexpr int NH = out_halves<D>();
+  constexpr int DH = D / NH;       // o's columns this block writes
   constexpr int KS = D / 8;        // 8-deep steps over the head dim
-  constexpr int NK = F_SLICE / 8;  // 8-key column groups of a slice
-  constexpr int TILE = F_STAGE * D;
+  constexpr int KO = DH / 8;       // 8-column groups of the partial
+  constexpr int SLICE = f_slice<D>();
+  constexpr int STAGE = f_stage<D>();
+  constexpr int NK = SLICE / 8;    // 8-key column groups of a slice
+  constexpr int TILE = STAGE * D;  // a stage of K
+  constexpr int VTILE = STAGE * DH;  // a stage of V's half
   constexpr int FR = F_GROUPS * KS * 32;
-  static_assert(F_GROUPS * F_SPLIT * KS * 32 * 4 <= 4 * TILE,
+  static_assert(F_GROUPS * F_SPLIT * KO * 32 * 4 <= 2 * (TILE + VTILE),
                 "the partials fit in the stages");
   extern __shared__ uint4 smem4[];
   uint4* Qh = smem4;  // [group][KS][lane] q fragments, hi and lo
   uint4* Ql = Qh + FR;
   float* Ks = reinterpret_cast<float*>(Ql + FR);  // [2][TILE]
-  float* Vs = Ks + 2 * TILE;                      // [2][TILE]
-  float* ML = Vs + 2 * TILE;  // [group][split][m of 16 rows, l of 16 rows]
+  float* Vs = Ks + 2 * TILE;                      // [2][VTILE]
+  float* ML = Vs + 2 * VTILE;  // [group][split][m of 16 rows, l of 16 rows]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int group = warp / F_SPLIT, split_id = warp % F_SPLIT;
   const int Tq = a.Tq, Tk = a.Tk;
   const int n_qt = (Tq + F_ROWS - 1) / F_ROWS;
-  const int bh = blockIdx.x % a.BH;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / a.BH) * F_ROWS;
+  const int half = static_cast<int>(blockIdx.x) % NH;
+  const int rest = static_cast<int>(blockIdx.x) / NH;
+  const int bh = rest % a.BH;
+  const int q0 = (n_qt - 1 - rest / a.BH) * F_ROWS;
   const int b = bh / a.H, h = bh % a.H;
 
   const float* qb = a.q + b * a.sq[0] + h * a.sq[2];
   const float* kb = a.k + b * a.sk[0] + h * a.sk[2];
-  const float* vb = a.v + b * a.sv[0] + h * a.sv[2];
+  // this block's half of v's columns (16-byte aligned: DH is a multiple
+  // of 16)
+  const float* vb = a.v + b * a.sv[0] + h * a.sv[2] + half * DH;
 
   // keys [0, k_end) are visible to at least one real row of this block
   int k_end = Tk;
@@ -122,10 +148,10 @@ __global__ void __launch_bounds__(F_NT, 1) flash_fwd_kernel(const Args a) {
     const int last = min(q0 + F_ROWS, Tq) - 1;
     k_end = max(0, min(Tk, a.q_offset + last - a.k_offset + 1));
   }
-  const int n_st = (k_end + F_STAGE - 1) / F_STAGE;
+  const int n_st = (k_end + STAGE - 1) / STAGE;
   if (n_st > 0) {
-    load_tile<D, F_STAGE, F_NT>(Ks, kb, a.sk[1], 0, Tk);
-    load_tile<D, F_STAGE, F_NT>(Vs, vb, a.sv[1], 0, Tk);
+    load_tile<D, STAGE, F_NT>(Ks, kb, a.sk[1], 0, Tk);
+    load_tile<DH, STAGE, F_NT>(Vs, vb, a.sv[1], 0, Tk);
   }
   cp_async_commit();
 
@@ -144,28 +170,29 @@ __global__ void __launch_bounds__(F_NT, 1) flash_fwd_kernel(const Args a) {
   const int pos_a = a.q_offset + ra, pos_b = a.q_offset + rb;
 
   // this warp's online softmax: the running max and (this lane's share
-  // of) the running sum of rows ra, rb, and its 16 x D partial of p v
+  // of) the running sum of rows ra, rb, and its 16 x DH partial of p v
   float m_a = -CUDART_INF_F, m_b = -CUDART_INF_F, l_a = 0.f, l_b = 0.f;
-  float acc[KS][4];
+  float acc[KO][4];
 #pragma unroll
-  for (int i = 0; i < KS; ++i)
+  for (int i = 0; i < KO; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
   for (int j = 0; j < n_st; ++j) {
     if (j + 1 < n_st) {
-      const int nxt = ((j + 1) & 1) * TILE;
-      load_tile<D, F_STAGE, F_NT>(Ks + nxt, kb, a.sk[1], (j + 1) * F_STAGE, Tk);
-      load_tile<D, F_STAGE, F_NT>(Vs + nxt, vb, a.sv[1], (j + 1) * F_STAGE, Tk);
+      const int nxt = (j + 1) & 1;
+      load_tile<D, STAGE, F_NT>(Ks + nxt * TILE, kb, a.sk[1], (j + 1) * STAGE, Tk);
+      load_tile<DH, STAGE, F_NT>(Vs + nxt * VTILE, vb, a.sv[1], (j + 1) * STAGE,
+                                 Tk);
     }
     cp_async_commit();
     cp_async_wait_prev();
     __syncthreads();  // stage j (and the q fragments) are in for every thread
-    const int k_lo = j * F_STAGE + split_id * F_SLICE;  // this warp's keys
+    const int k_lo = j * STAGE + split_id * SLICE;  // this warp's keys
     if (k_lo < k_end) {
-      // the slice's rows keep their swizzle: F_SLICE is a multiple of 8
-      const float* K = Ks + (j & 1) * TILE + split_id * F_SLICE * D;
-      const float* V = Vs + (j & 1) * TILE + split_id * F_SLICE * D;
+      // the slice's rows keep their swizzle: SLICE is a multiple of 8
+      const float* K = Ks + (j & 1) * TILE + split_id * SLICE * D;
+      const float* V = Vs + (j & 1) * VTILE + split_id * SLICE * DH;
       float s[NK][4];
 #pragma unroll
       for (int n = 0; n < NK; ++n)
@@ -222,7 +249,7 @@ __global__ void __launch_bounds__(F_NT, 1) flash_fwd_kernel(const Args a) {
       m_a = mn_a;
       m_b = mn_b;
 #pragma unroll
-      for (int dn = 0; dn < KS; ++dn)
+      for (int dn = 0; dn < KO; ++dn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[dn][e] *= e < 2 ? al_a : al_b;
 
@@ -231,8 +258,8 @@ __global__ void __launch_bounds__(F_NT, 1) flash_fwd_kernel(const Args a) {
       for (int kk = 0; kk < NK; ++kk) {
         const Frag<4> pa = acc_as_a(s[kk]);
 #pragma unroll
-        for (int dn = 0; dn < KS; ++dn)
-          mma3(acc[dn], pa, b_colwise<D>(V, kk * 8 + 2 * t, dn * 8 + g));
+        for (int dn = 0; dn < KO; ++dn)
+          mma3(acc[dn], pa, b_colwise<DH>(V, kk * 8 + 2 * t, dn * 8 + g));
       }
     }
     __syncthreads();  // stage j & 1 is free for stage j + 2
@@ -245,10 +272,10 @@ __global__ void __launch_bounds__(F_NT, 1) flash_fwd_kernel(const Args a) {
 
   // the group's F_SPLIT partials, merged in split order: each warp merges
   // and stores every F_SPLIT-th 8-column group of o
-  float4* part = reinterpret_cast<float4*>(Ks);  // [group][split][KS][lane]
-  float4* mine = part + (group * F_SPLIT + split_id) * KS * 32 + lane;
+  float4* part = reinterpret_cast<float4*>(Ks);  // [group][split][KO][lane]
+  float4* mine = part + (group * F_SPLIT + split_id) * KO * 32 + lane;
 #pragma unroll
-  for (int dn = 0; dn < KS; ++dn)
+  for (int dn = 0; dn < KO; ++dn)
     mine[dn * 32] = make_float4(acc[dn][0], acc[dn][1], acc[dn][2], acc[dn][3]);
   if (t == 0) {
     float* ml = ML + (group * F_SPLIT + split_id) * 32;
@@ -277,18 +304,18 @@ __global__ void __launch_bounds__(F_NT, 1) flash_fwd_kernel(const Args a) {
     L_b += gml[sp * 32 + 16 + g + 8] * w_b[sp];
   }
   const float d_a = fmaxf(L_a, 1e-30f), d_b = fmaxf(L_b, 1e-30f);
-  const float4* first = part + group * F_SPLIT * KS * 32 + lane;
-  for (int dn = split_id; dn < KS; dn += F_SPLIT) {
+  const float4* first = part + group * F_SPLIT * KO * 32 + lane;
+  for (int dn = split_id; dn < KO; dn += F_SPLIT) {
     float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int sp = 0; sp < F_SPLIT; ++sp) {
-      const float4 x = first[(sp * KS + dn) * 32];
+      const float4 x = first[(sp * KO + dn) * 32];
       sum.x = fmaf(x.x, w_a[sp], sum.x);
       sum.y = fmaf(x.y, w_a[sp], sum.y);
       sum.z = fmaf(x.z, w_b[sp], sum.z);
       sum.w = fmaf(x.w, w_b[sp], sum.w);
     }
-    const int c = dn * 8 + 2 * t;
+    const int c = half * DH + dn * 8 + 2 * t;
     if (ina)
       *reinterpret_cast<float2*>(
           a.o + ((static_cast<long long>(b) * Tq + ra) * a.H + h) * D + c) =
@@ -298,7 +325,7 @@ __global__ void __launch_bounds__(F_NT, 1) flash_fwd_kernel(const Args a) {
           a.o + ((static_cast<long long>(b) * Tq + rb) * a.H + h) * D + c) =
           make_float2(sum.z / d_b, sum.w / d_b);
   }
-  if (split_id == 0 && t == 0) {
+  if (half == 0 && split_id == 0 && t == 0) {
     const long long li = static_cast<long long>(bh) * Tq;
     if (ina) a.lse[li + ra] = L_a > 0.f ? Mu_a + logf(L_a) : -CUDART_INF_F;
     if (inb) a.lse[li + rb] = L_b > 0.f ? Mu_b + logf(L_b) : -CUDART_INF_F;
@@ -312,7 +339,7 @@ cudaError_t launch(Args a, int B, cudaStream_t stream) {
   cudaError_t e = allow_smem(flash_fwd_kernel<D>, smem, &configured);
   if (e != cudaSuccess) return e;
   a.BH = B * a.H;
-  const int blocks = (a.Tq + F_ROWS - 1) / F_ROWS * a.BH;
+  const int blocks = (a.Tq + F_ROWS - 1) / F_ROWS * a.BH * out_halves<D>();
   if (blocks == 0) return cudaSuccess;
   flash_fwd_kernel<D><<<blocks, F_NT, smem, stream>>>(a);
   return cudaGetLastError();

@@ -25,15 +25,17 @@ launched), so a run can show that its main path went through the
 kernels.
 
 The kernels are built for the head dims in ``KERNEL_HEAD_DIMS`` (every
-multiple of 16 up to 128, ``csrc/head_dims.cuh``).  On CUDA tensors any
-other head dim D <= 128 is zero-padded up to the next built one, once:
+multiple of 16 up to 128, then every multiple of 32 up to 256,
+``csrc/head_dims.cuh``; above 128 K1, K3 and K4 split the output's
+columns into halves, one a block).  On CUDA tensors any other head dim
+D <= 256 is zero-padded up to the next built one, once:
 the autograd path (``flash_attention``, ``flash_attention_step``) pads
 q, k and v in the forward and keeps the padded tensors and o for the
 backward, which pads only do; ``decode_attention`` pads q and its
 gathered context.  Each copy is counted in ``PAD_COPIES``.  The kernels
 run with the scale of the true D, and o, dq, dk and dv are sliced back
 to D: zero columns add nothing to q.kT and only give v columns that are
-dropped, so lse is unchanged.  A head dim above 128 raises, naming the
+dropped, so lse is unchanged.  A head dim above 256 raises, naming the
 limit.  K1, K3 and K4 copy (B, T, H, D) rows into shared memory 16
 bytes at a time, so every row must start on 16 bytes.  The wrappers
 raise on what the kernels do not take; the autograd path hands them a
@@ -53,7 +55,7 @@ from sparknet_tpu_torch.ops import _build
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "decode_attention": 0}
 
-KERNEL_HEAD_DIMS = tuple(range(16, 129, 16))
+KERNEL_HEAD_DIMS = tuple(range(16, 129, 16)) + tuple(range(160, 257, 32))
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 
 # contiguous copies the autograd path made of tensors whose rows were not
@@ -94,14 +96,16 @@ def _check_cuda(what: str, *tensors) -> None:
 
 def _kernel_head_dim(what: str, d: int) -> int:
     """The built head dim a head dim ``d`` runs at: ``d`` rounded up to
-    a multiple of 16; above ``MAX_HEAD_DIM`` it raises."""
+    a multiple of 16 up to 128, of 32 above; above ``MAX_HEAD_DIM`` it
+    raises."""
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(
             f"{what}: head_dim {d} is above the kernels' limit of "
             f"{MAX_HEAD_DIM} (built for {KERNEL_HEAD_DIMS}; a smaller head "
             "dim is zero-padded up to the next of them)"
         )
-    return -(-d // 16) * 16
+    step = 16 if d <= 128 else 32
+    return -(-d // step) * step
 
 
 def _check_built_head_dim(what: str, d: int) -> None:

@@ -15,11 +15,18 @@ per comm chunk of ``parallel/comm.py``:
 - ``apply_correction`` (K11, ``_apply_correction_kernel``): the overlap
   correction ``mean - dequant(q)`` added to params and anchor.
 
+K9 and K10 split every worker's slice of a leaf into tiles, one block
+each (the tile map of ``csrc/comm_epilogue.cu``): an int8 encode is two
+device launches (the tiles' max |delta|, then the quantize), a bf16 or
+fp32 encode and a barriered apply one; K11 is one.  ``LAUNCHES`` counts
+wrapper calls, one per chunk, whatever the device launches.  The encode
+also takes a scratch array of the tile map's size and per-slice ticket
+counters, zeroed for each call (one fill kernel).
+
 Leaves are worker-stacked ``(W, ...)`` float32 tensors, means unstacked.
 Routing is by the tensors' device and nothing else: CPU tensors take the
 plain version beside each kernel (``*_reference``), CUDA tensors the
 kernel — and a CUDA tensor the kernel does not take raises.
-``LAUNCHES`` counts kernel launches.
 
 The plain versions follow the op order of the JAX package's unfused
 closures (``parallel/comm.py:313-425``) as XLA computes them on the CPU,
@@ -53,12 +60,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 class _Leaf(ctypes.Structure):
-    """``struct Leaf`` of csrc/comm_epilogue.cu."""
+    """``struct Leaf`` of csrc/comm_epilogue.cu (``first`` and ``tiles``
+    are filled by the C side)."""
 
     _fields_ = [
         ("x", _P), ("a", _P), ("r", _P), ("mean", _P), ("q", _P),
         ("scale", _P), ("out0", _P), ("out1", _P),
-        ("n", ctypes.c_longlong), ("mode", ctypes.c_int),
+        ("n", ctypes.c_longlong), ("first", ctypes.c_longlong),
+        ("mode", ctypes.c_int), ("tiles", ctypes.c_int),
     ]
 
 
@@ -167,8 +176,9 @@ def _combine_parts(parts: torch.Tensor) -> torch.Tensor:
 
 
 def encode(leaves, anchors, resids, modes, with_err: bool):
-    """One-pass delta encode of a comm chunk (K9): see ``encode_reference``
-    for the contract.  One kernel launch for the whole chunk."""
+    """Delta encode of a comm chunk (K9): see ``encode_reference`` for
+    the contract.  One wrapper call for the whole chunk: two device
+    launches if a leaf is int8, else one."""
     modes = tuple(modes)
     if leaves[0].device.type == "cpu":
         return encode_reference(leaves, anchors, resids, modes, with_err)
@@ -186,14 +196,21 @@ def encode(leaves, anchors, resids, modes, with_err: bool):
              if with_err else None)
     table = (_Leaf * len(leaves))(*(
         _Leaf(x.data_ptr(), a.data_ptr(), r.data_ptr(), None, q.data_ptr(),
-              s.data_ptr(), nr.data_ptr(), None, x[0].numel(), MODES[m])
+              s.data_ptr(), nr.data_ptr(), None, x[0].numel(), 0, MODES[m])
         for x, a, r, q, s, nr, m in zip(leaves, anchors, resids, qs, scales,
                                         new_resids, modes)
     ))
+    blocks = _build.kernel("comm_epilogue", "sparknet_comm_blocks",
+                           (_P, _I, _I))(table, len(leaves), w)
+    scratch = torch.empty((3 * blocks,), dtype=torch.float32, device=dev)
+    # per (leaf, worker) tickets: launch A's, then the readout's
+    counters = torch.zeros((2 * len(leaves) * w,), dtype=torch.int32,
+                           device=dev)
     fn = _build.kernel("comm_epilogue", "sparknet_comm_encode",
-                       (_P, _I, _I, _P, _P))
+                       (_P, _I, _I, _P, _P, _P, _P))
     with torch.cuda.device(dev):
-        rc = fn(table, len(leaves), w, _ptr(parts), _stream(leaves[0]))
+        rc = fn(table, len(leaves), w, _ptr(parts), scratch.data_ptr(),
+                counters.data_ptr(), _stream(leaves[0]))
     _build.raise_on(rc, "comm encode")
     LAUNCHES["comm_encode"] += 1
     return qs, scales, new_resids, (
@@ -239,7 +256,7 @@ def apply_barriered(leaves, anchors, means, resids, alive, denom0):
     new_resids = tuple(torch.empty_like(r) for r in resids)
     table = (_Leaf * len(leaves))(*(
         _Leaf(x.data_ptr(), a.data_ptr(), r.data_ptr(), m.data_ptr(), None,
-              None, nx.data_ptr(), nr.data_ptr(), x[0].numel(), 0)
+              None, nx.data_ptr(), nr.data_ptr(), x[0].numel(), 0, 0)
         for x, a, m, r, nx, nr in zip(leaves, anchors, means, resids,
                                       new_leaves, new_resids)
     ))
@@ -299,7 +316,7 @@ def apply_correction(leaves, anchors, qs, scales, means, modes):
     table = (_Leaf * len(leaves))(*(
         _Leaf(x.data_ptr(), a.data_ptr(), None, m.data_ptr(), q.data_ptr(),
               s.data_ptr(), nx.data_ptr(), na.data_ptr(),
-              x[0].numel(), MODES[mode])
+              x[0].numel(), 0, MODES[mode])
         for x, a, q, s, m, nx, na, mode in zip(
             leaves, anchors, qs, scales, means, new_leaves, new_anchors, modes)
     ))
@@ -325,7 +342,7 @@ def chunk_bytes(stage: str, leaves: Sequence[torch.Tensor],
         if stage == "encode":  # x, a, r in; q, residual, scale out
             total += n * (12 + qb + 4) + 4 * w
         elif stage == "apply_barriered":  # (x or a, mean), r in; x, r out
-            total += n * (12 if have else 16) + (4 * per if have else 0)
+            total += n * 16 + (4 * per if have else 0)
         elif stage == "apply_correction":  # x, a, q, scale, mean in; x, a out
             total += n * (16 + qb) + 4 * per + 4 * w
         else:

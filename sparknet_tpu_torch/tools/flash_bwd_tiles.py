@@ -6,9 +6,16 @@ replaced (``GROUPS`` rows of 16 per block, ``SPLIT`` warps per group, a
 nvcc flags into ``build/flash_bwd_tiles/`` (all variants at once), held
 against the plain versions at the LM training shape (B=8, T=256, H=4,
 D=64, causal, nonzero dlse) and timed on the device from a CUDA graph of
-20 launches, every variant in turn, twice.  Run from the root of a checkout, on a machine with the card::
+20 launches, every variant in turn, twice.  ``--wide`` takes the shape
+of ``lm_app --dim 512 --heads 2`` instead (B=8, T=256, H=2, D=256, where
+K1-K4 split the output's columns into halves) and varies only K4 there:
+its warps a key tile (``WIDE_K_SPLIT``) and the steps its loop over the
+full head dim unrolls (``K_WIDE_UNROLL``).  ``--baseline FILE`` adds
+another ``flash_bwd.cu`` (an earlier version, unpacked from git) as one
+more variant, timed in the same turns.  Run from the root of a checkout,
+on a machine with the card::
 
-    python -m sparknet_tpu_torch.tools.flash_bwd_tiles
+    python -m sparknet_tpu_torch.tools.flash_bwd_tiles [--wide] [--baseline FILE]
 
 The package's kernels keep the constants of the source; this script only
 measures the alternatives.
@@ -16,6 +23,7 @@ measures the alternatives.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import math
 import re
@@ -47,6 +55,8 @@ VARIANTS = (
     ((2, 4, 16), (2, 4, 16), 0, 0),
     ((1, 4, 8), (2, 4, 16), 2, 0),
 )
+# (WIDE_K_SPLIT, K_WIDE_UNROLL): K4's shapes at D > 128 that --wide times
+WIDE_VARIANTS = ((4, 2), (4, 1), (4, 4), (2, 2))
 BWD_RTOL = 2e-5
 REPEATS = 2
 
@@ -57,8 +67,8 @@ def _variant_source(q, k, q_blocks, k_blocks) -> str:
     k_arg = f", {k_blocks}" if k_blocks else ""
     src = re.sub(r"__launch_bounds__\(Q_NT(, \d+)?\)",
                  f"__launch_bounds__(Q_NT{q_arg})", src)
-    src = re.sub(r"__launch_bounds__\(32 \* K_GROUPS \* k_split<D>\(\)(, \d+)?\)",
-                 f"__launch_bounds__(32 * K_GROUPS * k_split<D>(){k_arg})", src)
+    src = re.sub(r"__launch_bounds__\(k_nt<D>\(\)(, \d+)?\)",
+                 f"__launch_bounds__(k_nt<D>(){k_arg})", src)
     for name, val in zip(("Q_GROUPS", "Q_SPLIT", "Q_SLICE"), q):
         src = re.sub(rf"constexpr int {name} = \d+;",
                      f"constexpr int {name} = {val};", src)
@@ -69,9 +79,12 @@ def _variant_source(q, k, q_blocks, k_blocks) -> str:
                   src)
 
 
-def build(out_dir):
-    return _variants.build(out_dir, [_variant_source(*v) for v in VARIANTS],
-                           [str(v) for v in VARIANTS])
+def _wide_source(split: int, unroll: int) -> str:
+    src = (_build.SRC_DIR / "flash_bwd.cu").read_text()
+    for name, val in (("WIDE_K_SPLIT", split), ("K_WIDE_UNROLL", unroll)):
+        src = _variants.substitute(src, rf"constexpr int {name} = \d+;",
+                                   f"constexpr int {name} = {val};")
+    return src
 
 
 def _launchers(lib, ptrs, strides, shape):
@@ -102,21 +115,43 @@ def _launchers(lib, ptrs, strides, shape):
     return k3, k4, outs
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--wide", action="store_true",
+                        help="B=8, T=256, H=2, D=256; vary K4's shape there")
+    parser.add_argument("--baseline", default=None,
+                        help="another flash_bwd.cu, timed as one more variant")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_bwd_tiles: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
 
     from sparknet_tpu_torch.utils.devices import card_name_and_power_limit
-    libs = build(Path("build") / "flash_bwd_tiles")
+    if opts.wide:
+        sources = [_wide_source(*v) for v in WIDE_VARIANTS]
+        labels = [f"WIDE_K_SPLIT, K_WIDE_UNROLL {v}" for v in WIDE_VARIANTS]
+        h, d = 2, 256
+    else:
+        sources = [_variant_source(*v) for v in VARIANTS]
+        labels = [str(v) for v in VARIANTS]
+        h, d = 4, 64
+    include_dirs = None
+    if opts.baseline:
+        include_dirs = {len(sources): Path(opts.baseline).parent}
+        sources.append(Path(opts.baseline).read_text())
+        labels.append(f"baseline {opts.baseline}")
+    libs = _variants.build(Path("build") / "flash_bwd_tiles", sources, labels,
+                           include_dirs)
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(2)
-    args = cs._bwd_case(dev, gen, 8, 256, 256, 4, 64, 0, 0, True)
+    args = cs._bwd_case(dev, gen, 8, 256, 256, h, d, 0, 0, True)
     want = (ca._flash_bwd_dq_reference(*args),
             *ca._flash_bwd_dkv_reference(*args))
     q = args[0]
-    ptrs, strides = ca._bwd_launch_args("flash_bwd_tiles", *args[:7])
+    strides, _ = ca._bwd_launch_args("flash_bwd_tiles", *args[:7], None)
+    # the C entries take q, k, v, o, do, lse, dlse
+    ptrs = [t.data_ptr() for t in (*args[:3], args[4], args[3], *args[5:7])]
     print(card_name_and_power_limit(0))
     timed = {}
     for i, lib in libs.items():
@@ -126,14 +161,14 @@ def main() -> int:
         torch.cuda.synchronize()
         errs = [float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
                 for g, w in zip((dq, dk, dv), want)]
-        print(f"variant {i} {VARIANTS[i]}: errors "
+        print(f"variant {i} {labels[i]}: errors "
               f"{', '.join(f'{e:.2e}' for e in errs)} ("
               f"{'ok' if max(errs) <= BWD_RTOL else 'OVER BWD_RTOL'})")
         timed[i] = (k3, k4)
     for rep in range(REPEATS):  # every variant in turn, REPEATS times
         for i, (k3, k4) in timed.items():
             t3, t4 = cs.device_ms(k3), cs.device_ms(k4)
-            print(f"pass {rep} variant {i} {VARIANTS[i]}: K3 {t3:.4f} ms, "
+            print(f"pass {rep} variant {i} {labels[i]}: K3 {t3:.4f} ms, "
                   f"K4 {t4:.4f} ms, K3+K4 {t3 + t4:.4f} ms")
     return 0
 

@@ -1,6 +1,8 @@
-"""Head dims that are not a multiple of 16, on the CPU.
+"""Head dims off the kernels' builds, and above 128, on the CPU.
 
-On the card ``ops/cuda_attention.py`` zero-pads q, k and v once (the
+The kernels are built for every multiple of 16 up to 128 and every
+multiple of 32 up to 256.  On the card ``ops/cuda_attention.py``
+zero-pads q, k and v once (the
 autograd path's forward keeps them, and o, padded for its backward, which
 pads do; decode pads q and its context) up to the next built head dim,
 launches the kernels with the scale of the true D, and slices o, dq, dk
@@ -10,11 +12,13 @@ and dv back to D.  Here:
   versions on CPU tensors) against the JAX ``flash_attention`` (Pallas in
   interpret mode) and against ``mha_reference``, forward and gradients,
   and through ``decode_attention`` against the JAX decode kernel;
+- D = 256 (B = 1, T = 16, H = 2) the same way, the widest build, whose
+  kernels split the output's columns into halves;
 - the padding itself: the flash plain versions on the padded tensors
   with the true scale, sliced back, against the same on the unpadded
   tensors (zero columns add nothing to q.kT; lse unchanged), with the
-  copies counted in ``PAD_COPIES``;
-- a head dim above 128 raises on the card, naming the limit.
+  copies counted in ``PAD_COPIES``, up to D = 250 (padded to 256);
+- a head dim above 256 raises on the card, naming the limit.
 
 Tolerances are those of ``tests/test_torch_attention.py`` (1e-5) and
 ``tests/test_torch_flash_bwd.py`` (5e-5): float32 summed in other orders.
@@ -82,12 +86,41 @@ def test_decode_attention_matches_jax(d):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
 
 
-@pytest.mark.parametrize("d", (1, 8) + ODD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_and_decode_match_jax_at_head_dim_256(causal):
+    d = 256
+    q, k, v, w = _rand(d, (1, 16, 2, d), (1, 16, 2, d), (1, 16, 2, d),
+                       (1, 16, 2, d))
+
+    def jloss(q, k, v):
+        o = jpa.flash_attention(q, k, v, causal=causal, block_q=8,
+                                interpret=True)
+        return (o * w).sum(), o
+
+    (_, want_o), want = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(q, k, v)
+    qt, kt, vt = _leaf(q), _leaf(k), _leaf(v)
+    o = tca.flash_attention(qt, kt, vt, causal=causal)
+    (o * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(want_o), atol=ATOL)
+    for t, jg, name in zip((qt, kt, vt), want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg),
+                                   atol=GRAD_TOL, err_msg=name)
+    lengths = np.array([9], np.int32)
+    want_d = np.asarray(jpa.decode_attention(q[:, :1], k, v, lengths,
+                                             interpret=True))
+    got_d = tca.decode_attention(*(torch.from_numpy(a) for a in (q[:, :1], k, v)),
+                                 torch.from_numpy(lengths))
+    np.testing.assert_allclose(got_d.numpy(), want_d, atol=ATOL)
+
+
+@pytest.mark.parametrize("d", (1, 8) + ODD_DIMS + (144, 200, 250))
 def test_padding_leaves_the_plain_versions_unchanged(d):
     """What the wrappers do around a launch, with the plain versions in
     the kernels' place."""
     dp = tca._kernel_head_dim("test", d)
-    assert dp % 16 == 0 and d <= dp < d + 16 and dp in tca.KERNEL_HEAD_DIMS
+    step = 16 if d <= 128 else 32
+    assert dp % step == 0 and d <= dp < d + step and dp in tca.KERNEL_HEAD_DIMS
     q, k, v, do = (torch.from_numpy(a) for a in _rand(
         d + 2, (2, 12, 2, d), (2, 16, 2, d), (2, 16, 2, d), (2, 12, 2, d)))
     scale = 1.0 / math.sqrt(d)
@@ -115,10 +148,12 @@ def test_padding_leaves_the_plain_versions_unchanged(d):
 
 
 def test_head_dims_above_128_raise_naming_the_limit(monkeypatch):
+    """Above the widest build (256; up to 128 until the builds above it)
+    every wrapper raises, naming the limit, and launches nothing."""
     monkeypatch.setattr(tca, "_on_cpu", lambda t: False)  # stand in for a card
-    q = torch.zeros((1, 8, 2, 144))
+    q = torch.zeros((1, 8, 2, 272))
     lse = torch.zeros((1, 2, 8))
-    msg = r"head_dim 144 is above the kernels' limit of 128"
+    msg = r"head_dim 272 is above the kernels' limit of 256"
     with pytest.raises(ValueError, match=msg):
         tca.flash_attention(q, q, q)
     with pytest.raises(ValueError, match=msg):

@@ -1,10 +1,11 @@
 """Which attention path the LM takes, and which head dims the kernels take.
 
 The flash kernels (K1 forward, K3/K4 backward) and the decode kernel
-(K2) are built for every multiple of 16 up to 128
-(``csrc/head_dims.cuh``); on a CUDA tensor the wrappers zero-pad any
-other head dim up to 128 onto them (``tests/test_torch_attention_pad.py``).
-A head dim above 128 raises on the card, naming the limit, under
+(K2) are built for every multiple of 16 up to 128 and every multiple of
+32 up to 256 (``csrc/head_dims.cuh``); on a CUDA tensor the wrappers
+zero-pad any other head dim up to 256 onto them
+(``tests/test_torch_attention_pad.py``).
+A head dim above 256 raises on the card, naming the limit, under
 ``attention="auto"`` as under ``"flash"``: nothing on the card falls
 back to the plain versions.  On the CPU every head dim takes the plain
 versions through the same wrappers.  The card is stood in for by making
@@ -25,10 +26,10 @@ from sparknet_tpu_torch.models.transformer_lm import TransformerLM, TransformerL
 from sparknet_tpu_torch.ops import _build
 from sparknet_tpu_torch.ops import cuda_attention as tca
 
-# (dim, heads) -> head_dim 144 and 160: above the kernels' limit
-NO_BUILD = [(288, 2), (160, 1)]
-NO_BUILD_IDS = ["D144", "D160"]
-LIMIT_MSG = "is above the kernels' limit of 128"
+# (dim, heads) -> head_dim 272 and 288: above the kernels' limit
+NO_BUILD = [(544, 2), (288, 1)]
+NO_BUILD_IDS = ["D272", "D288"]
+LIMIT_MSG = "is above the kernels' limit of 256"
 
 
 @pytest.fixture
@@ -48,7 +49,8 @@ def test_kernel_head_dims_match_the_build():
     built = re.search(r"#define FLASH_HEAD_DIMS\(X\) (.*)", text).group(1)
     assert tuple(int(d) for d in re.findall(r"X\((\d+)\)", built)) == \
         tca.KERNEL_HEAD_DIMS
-    assert tca.KERNEL_HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128)
+    assert tca.KERNEL_HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128,
+                                    160, 192, 224, 256)
 
 
 def _sw(d, r, c):

@@ -169,6 +169,50 @@ def test_apply_correction_matches_pallas_bitwise(modes):
         _bits_equal(got, want)
 
 
+# a leaf set with one slice of 300,001 floats a worker, more than any one
+# tile of the kernels' tile map (csrc/comm_epilogue.cu), and worker slices
+# that start off 16 bytes
+LARGE_SHAPES = ((3, 5), (300_001,), (7,))
+
+
+@pytest.mark.parametrize("modes", [("fp32",) * 3, ("bf16",) * 3, ("int8",) * 3],
+                         ids=["fp32", "bf16", "int8"])
+def test_encode_matches_pallas_bitwise_on_a_large_leaf(modes):
+    x = _leaves(20, LARGE_SHAPES, nan=True)
+    a, r = _leaves(21, LARGE_SHAPES), _leaves(22, LARGE_SHAPES)
+    r = [t * np.float32(1e-3) for t in r]
+    jq, js, jr, jerr = pallas_comm.fused_encode(
+        _j(x), _j(a), _j(r), modes, True, True
+    )
+    tq, ts, tr, terr = cuda_comm.encode(_t(x), _t(a), _t(r), modes, True)
+    for got, want in zip(tq + ts + tr, jq + js + jr):
+        _bits_equal(got, want)
+    jerr = np.asarray(jerr)
+    np.testing.assert_array_equal(terr[:, 0].numpy(), jerr[:, 0])
+    np.testing.assert_allclose(terr[:, 1:].numpy(), jerr[:, 1:], rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "alive,denom0",
+    [([1, 1, 1, 1], 4.0), ([1, 0, 1, 1], 3.0), ([0, 0, 0, 0], 0.0)],
+    ids=["all", "masked", "none_alive"],
+)
+def test_apply_barriered_matches_pallas_bitwise_on_a_large_leaf(alive, denom0):
+    x, a, r = (_leaves(s, LARGE_SHAPES) for s in (23, 24, 25))
+    means = [m[0] for m in _leaves(26, LARGE_SHAPES)]
+    alive_np = np.asarray(alive, np.float32)
+    jx, jr = pallas_comm.fused_apply_barriered(
+        _j(x), _j(a), _j(means), _j(r), jnp.asarray(alive_np),
+        jnp.float32(denom0), True,
+    )
+    tx, tr = cuda_comm.apply_barriered(
+        _t(x), _t(a), _t(means), _t(r), torch.from_numpy(alive_np),
+        torch.tensor(denom0),
+    )
+    for got, want in zip(tx + tr, jx + jr):
+        _bits_equal(got, want)
+
+
 def test_cpu_wrappers_launch_nothing():
     before = dict(cuda_comm.LAUNCHES)
     x = _leaves(0)

@@ -15,9 +15,12 @@ order, each product as three TF32 products on the tensor cores); with q
 and k scaled by 8 the float32 plain version itself strays further than
 that from the exact result, so that case is held to a float64
 evaluation: within 2e-5 of the scale or the plain version's own gap,
-whichever is larger.  The comm epilogue kernels (K9-K11) are held to
-their plain versions bit for bit, except the error readout's two sums
-(rtol 1e-5, reduced in another order).  The LRN kernels (K5, K6) and the fused LRN +
+whichever is larger.  Head dims above 128 (160 to 256, and 144 and 200
+padded) run the same cases.  The comm epilogue kernels (K9-K11) are held
+to their plain versions bit for bit, except the error readout's two sums
+(rtol 1e-5, reduced in another order), at cifar10_full's chunks (W=4),
+AlexNet's (W=2, fc6's 37.7M floats a worker) and edge leaves (one float,
+worker slices off 16 bytes, views off 16 bytes).  The LRN kernels (K5, K6) and the fused LRN +
 max pool (K7, K8): the JAX tests' tolerances (forward rtol 2e-5 / atol
 2e-6, backward 5e-5 / 5e-6), K8's routing bit for bit (alpha = 0 makes
 the LRN the identity, so K8's output is the routed gradient), and K6,
@@ -39,8 +42,8 @@ pytestmark = pytest.mark.cuda
 
 ATOL = 2e-5
 # head dims off the built ones: the autograd path and decode pad them to
-# the next build
-PADDED_DIMS = (1, 24, 40, 100)
+# the next build (144 and 200 to 160 and 224, above 128)
+PADDED_DIMS = (1, 24, 40, 100, 144, 200)
 HEAD_DIMS = tca.KERNEL_HEAD_DIMS + PADDED_DIMS
 
 
@@ -77,7 +80,7 @@ def test_flash_kernel_matches_plain(dev, d, tq, tk, q_off, k_off, causal):
     o, lse = tca._FlashCore.apply(q, k, v, q_off, k_off, causal)
     torch.cuda.synchronize()
     assert tca.LAUNCHES["flash_fwd"] == 1
-    assert tca.PAD_COPIES == (3 if d % 16 else 0)
+    assert tca.PAD_COPIES == (0 if d in tca.KERNEL_HEAD_DIMS else 3)
     assert o.shape == q.shape
     o_ref, lse_ref = tca._flash_core_reference(q, k, v, q_off, k_off, causal)
     torch.testing.assert_close(o, o_ref, atol=ATOL, rtol=0)
@@ -142,7 +145,7 @@ def test_flash_bwd_kernels_match_plain(dev, d, tq, tk, q_off, k_off, causal):
     64 fully-masked query rows."""
     args = _bwd_inputs(dev, 2, tq, tk, 3, d, q_off, k_off, causal)
     tca.reset_launch_counts()
-    if d % 16:
+    if d not in tca.KERNEL_HEAD_DIMS:
         # K3/K4 take built head dims: the autograd path pads q, k and v
         # once in the forward and do in the backward, and its o and lse
         # are what the plain versions are then given
@@ -157,7 +160,7 @@ def test_flash_bwd_kernels_match_plain(dev, d, tq, tk, q_off, k_off, causal):
     torch.cuda.synchronize()
     assert tca.LAUNCHES["flash_bwd_dq"] == 1
     assert tca.LAUNCHES["flash_bwd_dkv"] == 1
-    assert tca.PAD_COPIES == (4 if d % 16 else 0)
+    assert tca.PAD_COPIES == (0 if d in tca.KERNEL_HEAD_DIMS else 4)
     assert dq.shape == args[0].shape and dk.shape == dv.shape == args[1].shape
     _close_scaled(dq, tca._flash_bwd_dq_reference(*args), "dq")
     dk_ref, dv_ref = tca._flash_bwd_dkv_reference(*args)
@@ -298,11 +301,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = _rand(dev, 1, 8, 2, 64)
     with pytest.raises(TypeError, match="float32"):
         tca.flash_attention(q.double(), q.double(), q.double())
-    wide = _rand(dev, 1, 8, 2, 144)
-    with pytest.raises(ValueError, match="head_dim 144 is above the kernels' "
-                       "limit of 128"):
+    wide = _rand(dev, 1, 8, 2, 272)
+    with pytest.raises(ValueError, match="head_dim 272 is above the kernels' "
+                       "limit of 256"):
         tca.flash_attention(wide, wide, wide)
-    with pytest.raises(ValueError, match="head_dim 144 is above"):
+    with pytest.raises(ValueError, match="head_dim 272 is above"):
         tca.decode_attention(wide[:, :1], wide, wide)
     with pytest.raises(ValueError, match="lengths"):
         tca.decode_attention(q[:, :1], q, q, torch.ones(1, device=dev,
@@ -386,7 +389,8 @@ def test_flash_backward_takes_a_view_offset_by_one_float(dev):
 def test_lm_app_trains_at_head_dim_48(dev):
     """``lm_app --dim 96 --heads 2`` (head_dim 48, an odd multiple of 16):
     one round trains on the kernels, the kernel-path gauge reads 1; at
-    head_dim 144, above the kernels' limit, training raises on the card."""
+    head_dim 144 (padded to the 160 build) a step runs on the kernels; at
+    head_dim 272, above the kernels' limit, training raises on the card."""
     from sparknet_tpu_torch.apps import lm_app
     from sparknet_tpu_torch.models.transformer_lm import TransformerLMNet
 
@@ -402,14 +406,24 @@ def test_lm_app_trains_at_head_dim_48(dev):
         == tca.LAUNCHES["flash_bwd_dkv"] == 2 * 2 * 2
     assert result["metrics"].kernel_path.labels("attention").value == 1.0
     assert np.isfinite(result["losses"]).all()
+    tokens = torch.zeros((2, 16), dtype=torch.int64, device=dev)
+    batch = {"tokens": tokens, "targets": tokens}
     for attention in ("auto", "flash"):
         net = TransformerLMNet(attention=attention, dim=288, depth=1, heads=2,
                                seq_len=16)
         params, stats = net.init(0, dev)
-        tokens = torch.zeros((2, 16), dtype=torch.int64, device=dev)
-        with pytest.raises(ValueError, match="head_dim 144 is above the "
-                           "kernels' limit of 128"):
-            net.loss_fn(params, stats, {"tokens": tokens, "targets": tokens})
+        tca.reset_launch_counts()
+        loss = net.loss_fn(params, stats, batch)
+        loss = loss[0] if isinstance(loss, tuple) else loss
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(loss).all())
+        assert tca.LAUNCHES["flash_fwd"] == 1 and tca.PAD_COPIES == 3
+        net = TransformerLMNet(attention=attention, dim=544, depth=1, heads=2,
+                               seq_len=16)
+        params, stats = net.init(0, dev)
+        with pytest.raises(ValueError, match="head_dim 272 is above the "
+                           "kernels' limit of 256"):
+            net.loss_fn(params, stats, batch)
 
 
 def test_lm_app_trains_at_head_dim_24(dev):
@@ -565,6 +579,138 @@ def test_comm_apply_correction_kernel_bitwise(dev, mode, ci):
     want = tcc.apply_correction_reference(x, a, q, s, means, modes)
     for g, w in zip(got[0] + got[1], want[0] + want[1]):
         _same_bits(g, w)
+
+
+# AlexNet's 16 parameter leaves (alexnet_train_val.prototxt) at W=2 in the
+# three byte-balanced chunks parallel/comm.py cuts them into, and a chunk
+# of edge leaves: one float, 10 floats (worker slices off 16 bytes), a
+# slice of 300,001 floats (many tiles, off 16 bytes) and 8,193 (one tile
+# and one more float)
+ALEXNET_SHAPES = ((96, 3, 11, 11), (96,), (256, 48, 5, 5), (256,),
+                  (384, 256, 3, 3), (384,), (384, 192, 3, 3), (384,),
+                  (256, 192, 3, 3), (256,), (4096, 9216), (4096,),
+                  (4096, 4096), (4096,), (1000, 4096), (1000,))
+ALEXNET_CHUNKS = (slice(0, 11), slice(11, 13), slice(13, 16))
+EDGE_SHAPES = ((1,), (10,), (300_001,), (8_193,))
+
+
+def _comm_leaves(dev, shapes, w, seed, scale):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((w,) + s, generator=g, device=dev) * scale
+            for s in shapes]
+
+
+def _edge_cases(x, a, r):
+    """A NaN in worker 1 of the first big leaf, the last leaf all zero."""
+    big = max(range(len(x)), key=lambda i: x[i].numel())
+    x[big][1].view(-1)[12345 % x[big][1].numel()] = float("nan")
+    for t in (x, a, r):
+        t[-1].zero_()
+
+
+def _check_encode(x, a, r, modes):
+    for with_err in (False, True):
+        got = tcc.encode(x, a, r, modes, with_err)
+        want = tcc.encode_reference(x, a, r, modes, with_err)
+        torch.cuda.synchronize()
+        for g, w in zip(got[0] + got[1] + got[2], want[0] + want[1] + want[2]):
+            _same_bits(g, w)
+        if with_err:
+            assert torch.equal(got[3][:, 0].isnan(), want[3][:, 0].isnan())
+            ok = ~want[3][:, 0].isnan()
+            assert torch.equal(got[3][ok, 0], want[3][ok, 0])
+            torch.testing.assert_close(got[3][ok, 1:], want[3][ok, 1:],
+                                       rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("chunk", range(len(ALEXNET_CHUNKS) + 1),
+                         ids=["alexnet0", "alexnet1", "alexnet2", "edges"])
+def test_comm_encode_kernel_bitwise_at_alexnet_width(dev, mode, chunk):
+    """K9 over AlexNet's chunks at W=2 (fc6: 37,748,736 floats a worker)
+    and the edge leaves, with a NaN and an all-zero leaf, the readout off
+    and on."""
+    shapes = (ALEXNET_SHAPES[ALEXNET_CHUNKS[chunk]] if chunk < 3
+              else EDGE_SHAPES)
+    x = _comm_leaves(dev, shapes, 2, 1, 1e-2)
+    a = _comm_leaves(dev, shapes, 2, 2, 1e-2)
+    r = _comm_leaves(dev, shapes, 2, 3, 1e-5)
+    _edge_cases(x, a, r)
+    before = tcc.LAUNCHES["comm_encode"]
+    _check_encode(x, a, r, (mode,) * len(shapes))
+    assert tcc.LAUNCHES["comm_encode"] == before + 2  # one a call
+
+
+@pytest.mark.parametrize("alive,denom0", [([1, 1], 2.0), ([1, 0], 1.0),
+                                          ([0, 0], 0.0)])
+@pytest.mark.parametrize("chunk", range(len(ALEXNET_CHUNKS) + 1),
+                         ids=["alexnet0", "alexnet1", "alexnet2", "edges"])
+def test_comm_apply_barriered_kernel_bitwise_at_alexnet_width(dev, alive,
+                                                              denom0, chunk):
+    shapes = (ALEXNET_SHAPES[ALEXNET_CHUNKS[chunk]] if chunk < 3
+              else EDGE_SHAPES)
+    x, a, r = (_comm_leaves(dev, shapes, 2, s, 1.0) for s in (4, 5, 6))
+    means = [m[0].contiguous() for m in _comm_leaves(dev, shapes, 2, 7, 1.0)]
+    alive_t = torch.tensor(alive, dtype=torch.float32, device=dev)
+    d0 = torch.tensor(denom0, device=dev)
+    got = tcc.apply_barriered(x, a, means, r, alive_t, d0)
+    want = tcc.apply_barriered_reference(x, a, means, r, alive_t, d0)
+    torch.cuda.synchronize()
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        _same_bits(g, w)
+
+
+def test_comm_kernels_take_views_off_16_bytes(dev):
+    """Leaves whose storage starts 4 bytes past 16: taken one float at a
+    time, the same bits."""
+    shapes = ((3, 70), (1001,))
+    views = []
+    for seed in (1, 2, 3, 4):
+        leaves = []
+        for s in shapes:
+            n = 2 * int(np.prod(s))
+            base = _rand(dev, n + 1, seed=seed) * 1e-2
+            leaves.append(base[1:].view((2,) + s))
+        views.append(leaves)
+    x, a, r, m = views
+    assert x[0].data_ptr() % 16 == 4
+    for mode in ("fp32", "bf16", "int8"):
+        _check_encode(x, a, r, (mode,) * len(shapes))
+    means = [t[0] for t in m]
+    for alive in ([1, 1], [0, 1]):
+        al = torch.tensor(alive, dtype=torch.float32, device=dev)
+        got = tcc.apply_barriered(x, a, means, r, al, al.sum())
+        want = tcc.apply_barriered_reference(x, a, means, r, al, al.sum())
+        torch.cuda.synchronize()
+        for g, w in zip(got[0] + got[1], want[0] + want[1]):
+            _same_bits(g, w)
+
+
+def test_comm_encode_calls_agree_and_leave_the_counters_zero(dev):
+    """Two calls on the same inputs give the same bits, readout sums
+    included (a fixed reduction order), and so do two replays of one
+    call captured in a CUDA graph: every call zeroes its own per-slice
+    tickets, so no counter state carries from one call to the next."""
+    shapes = EDGE_SHAPES
+    x, a, r = (_comm_leaves(dev, shapes, 2, s, 1e-2) for s in (8, 9, 10))
+    modes = ("int8",) * len(shapes)
+
+    def flat(out):
+        return out[0] + out[1] + out[2] + (out[3],)
+
+    first = tcc.encode(x, a, r, modes, True)
+    second = tcc.encode(x, a, r, modes, True)
+    torch.cuda.synchronize()
+    for g, w in zip(flat(first), flat(second)):
+        _same_bits(g, w)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tcc.encode(x, a, r, modes, True)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(flat(captured), flat(first)):
+            _same_bits(g, w)
 
 
 def test_comm_wrappers_raise_on_what_the_kernels_do_not_take(dev):
