@@ -42,9 +42,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
    for K10, an all-zero leaf.  Then each kernel's time over one round's
    launches (every chunk) at both widths beside its plain version's and
    the least time the card could take (bytes over 3.35 TB/s: the
-   function's, and for K9/K10 the design's two-pass and per-worker-mean
-   bytes); no single PyTorch call computes these functions, so there is
-   no library time.
+   function's, and the design's: K9's two passes, K10's and K11's mean
+   read by each worker); no single PyTorch call computes these
+   functions, so there is no library time.
 5. The training main path: ``apps.cifar_app.main`` in process on
    synthesized CIFAR (5,000 train / 1,000 test), cifar10_full, 4
    workers, tau 10, batch 100, in three legs — no compression,
@@ -70,7 +70,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
    could take (its three TF32 passes, and the float32 bound of the same
    work), and, for K3 and K4 together, the library yardstick
    ``scaled_dot_product_attention`` forward+backward minus its forward.
-   K1, K3 and K4 are also timed at head dim 256 (B=8, T=256, H=2).
+   K1, K3 and K4 are also timed at head dim 256 (B=8, T=256, H=2),
+   beside ``scaled_dot_product_attention`` there (or its refusal).
 7. The LM training main path: ``apps.lm_app.main`` in process at the
    CLI's model width (dim 256, depth 4, heads 4, seq_len 256), W=2,
    tau 4, batch 8, 6 rounds, in two legs — the default (flash: K1, K3,
@@ -89,11 +90,13 @@ Phases (any failure ends the run with a non-zero exit and no result):
    LRN + 3x3/2 max pool — K7 and K8 — against their plain versions on
    the card: AlexNet's two LRN inputs at the training batch, (32, 96,
    55, 55) and (32, 256, 27, 27), ragged and small shapes, C < n, n = 3
-   and a beta on the powf path (K5/K6), the JAX tests' shapes and a tie
-   case (K7/K8, whose routing must equal the plain version's bit for
-   bit, and K8's dx too); forward rtol 2e-5 / atol 2e-6, backward 5e-5 /
-   5e-6.  Then each kernel's time per training step (both sandwiches,
-   and each sandwich alone with its bound) beside its plain
+   and 4 and a beta on the powf path (K5/K6; K5 also at the test batch
+   16 and at AlexNet's inputs with n = 3 and beta 0.6), the JAX tests'
+   shapes and a tie case (K7/K8, whose routing must equal the plain
+   version's bit for bit, and K8's dx too); forward rtol 2e-5 / atol
+   2e-6, backward 5e-5 / 5e-6, and K5 everywhere, K6-K8 at AlexNet's
+   inputs bit for bit.  Then each kernel's time per training step (both
+   sandwiches, and each sandwich alone with its bound) beside its plain
    version's, the least time the card could take and a library
    yardstick the port never calls (``F.local_response_norm``, then
    ``F.max_pool2d`` for K7/K8; backward: forward+backward minus
@@ -102,11 +105,16 @@ Phases (any failure ends the run with a non-zero exit and no result):
    full width (60,965,224 parameters, crop 227 from 256), W=2, tau 4,
    batch 32 (test 16), 4 rounds testing every 2, mirror and dropout on,
    through the app's ``train`` on seeded uint8 partitions made with
-   numpy, in three legs: the default (K5/K6), ``SPARKNET_FUSION=1``
-   (K7/K8 in training, K5 in the test net) and ``--compress int8`` for
-   2 rounds (K9 + K10 once per comm chunk a round, 3 chunks; its
-   smoothed losses within LOSS_BAND of the default leg's at the same
-   rounds).  Launch counts are reset
+   numpy, in six legs: the default (K5/K6) twice, ``SPARKNET_FUSION=1``
+   (K7/K8 in training, K5 in the test net), ``--compress int8`` for
+   2 rounds (K9 + K10 once per comm chunk a round, 3 chunks), and
+   ``--overlap_avg`` with an fp32 and with a bf16 payload (``--compress
+   bf16``) for 2 rounds each (K9 once per chunk a round, K11 once per
+   chunk for each round's average, the last at finalize, no K10); each
+   compressed leg's smoothed losses within LOSS_BAND of those of the
+   fp32 leg of its averaging schedule (int8: the default leg; bf16: the
+   fp32 overlap leg) at the same rounds, and every comm leg's gap to the
+   default leg printed.  Launch counts are reset
    before each leg and held to the arithmetic; losses finite, the first
    ~ln 1000, the last round's below the first's; the fused leg's
    per-round losses within 1e-4 (relative) of the default leg's in round
@@ -114,8 +122,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
    shows how far two runs of one program drift apart); the default leg's
    first round on the card against the same round on the CPU, after one
    local step and after tau, and both against the same round on the CPU
-   in float64; one round of each leg profiled (the int8 round with
-   K9/K10's share).  Where Pillow imports,
+   in float64; one round of the default, fused, int8 and bf16+overlap
+   legs profiled (the comm rounds with K9-K11's shares).  Where Pillow
+   imports,
    ``imagenet_app.main`` also runs on synthesized JPEG shards at a small
    size, driving the data stage.
 
@@ -719,7 +728,8 @@ def _time_comm_set(cc, x, a, r, means, chunks, w, n):
                 x[sl], a[sl], *q16[sl.start], means[sl], bf16[sl.start]),
             sum(cc.chunk_bytes("apply_correction", a[sl], bf16[sl.start])
                 for sl in chunks),
-            None,
+            # x, a, the payload (2 B), mean (read by each worker) in; x, a out
+            22 * elems,
         ),
     }
     out = {}
@@ -1044,8 +1054,6 @@ def _bwd_float64(q, k, v, do, o, lse, dlse, q_off, k_off, causal):
 def check_bwd_kernels(dev):
     """Hold K3 and K4 against their plain versions on the card; return
     their kernels-line records (without launch counts)."""
-    import torch.nn.functional as F
-
     from sparknet_tpu_torch.ops import cuda_attention as ca
 
     gen = torch.Generator(device="cpu").manual_seed(2)
@@ -1142,17 +1150,7 @@ def check_bwd_kernels(dev):
     dkv_b, dkv_by = bound_ms(dkv_bytes, 3 * dkv_ops, PEAK_TF32_S)
     fp32_bound = {"flash_bwd_dq": bound_ms(dq_bytes, dq_ops),
                   "flash_bwd_dkv": bound_ms(dkv_bytes, dkv_ops)}
-    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_(True)
-                  for x in (q, k, v))
-    do_s = do.transpose(1, 2)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-
-    def sdpa_fwd_bwd():
-        return torch.autograd.grad(sdpa(), (qs, ks, vs), do_s)
-
-    lib_fwd, lib_fwd_bwd = device_ms(sdpa), device_ms(sdpa_fwd_bwd)
+    lib_fwd, lib_fwd_bwd, _ = sdpa_yardstick(q, k, v, do)
     library = lib_fwd_bwd - lib_fwd
     shape = f"B={B} T={T} H={H} D={D} causal fp32"
     records = []
@@ -1186,6 +1184,32 @@ def check_bwd_kernels(dev):
     return records
 
 
+def sdpa_yardstick(q, k, v, do):
+    """``scaled_dot_product_attention`` (causal) on the kernels' (B, T, H,
+    D) inputs, a yardstick the port never calls: its device time forward
+    and forward + backward (cotangent ``do``), and the backend it takes."""
+    import torch.nn.functional as F
+
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    do_s = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(), (qs, ks, vs), do_s)
+
+    try:  # the dispatcher's choice, as an SDPBackend index
+        from torch.nn.attention import SDPBackend
+
+        backend = SDPBackend(torch._fused_sdp_choice(qs, ks, vs,
+                                                     is_causal=True)).name
+    except (AttributeError, ImportError, RuntimeError, ValueError) as e:
+        backend = f"not reported ({type(e).__name__}: {e})"
+    return device_ms(sdpa), device_ms(sdpa_fwd_bwd), backend
+
+
 # ``lm_app --dim 512 --heads 2``'s attention: head dim 256, the widest
 # build (K1, K3 and K4 split the output's columns into halves)
 WIDE_LM = dict(dim=512, depth=2, heads=2, seq_len=256)
@@ -1196,7 +1220,9 @@ def time_wide_head(dev):
     dlse: each held against its plain version on the same inputs (K1 to
     KERNEL_ATOL, K3/K4 to BWD_RTOL of the plain output's largest
     magnitude), then its device time beside the plain version's and the
-    bound (bytes, or three TF32 passes of the products)."""
+    bound (bytes, or three TF32 passes of the products), and the library
+    yardstick ``scaled_dot_product_attention`` at the same shape (K1: its
+    forward; K3+K4: forward + backward minus forward), or its refusal."""
     from sparknet_tpu_torch.ops import cuda_attention as ca
 
     gen = torch.Generator(device="cpu").manual_seed(3)
@@ -1222,6 +1248,7 @@ def time_wide_head(dev):
         check(e <= limit, f"{out} disagrees at D={d}: {e} > {limit}")
     pairs = b * h * t * (t + 1) // 2
     tensor_bytes, row_bytes = 4 * b * t * h * d, 4 * b * h * t
+    kernel_ms = {}
     for name, kernel, plain, nbytes, ops in (
         ("flash_fwd", lambda: ca._flash_core(q, k, v, 0, 0, True),
          lambda: ca._flash_core_reference(q, k, v, 0, 0, True),
@@ -1235,9 +1262,21 @@ def time_wide_head(dev):
     ):
         bound, by = bound_ms(nbytes, 3 * ops, PEAK_TF32_S)
         ms = device_ms(kernel)
+        kernel_ms[name] = ms
         print(f"{name} [B={b} T={t} H={h} D={d} causal fp32]: kernel {ms:.4f} "
               f"ms on device, plain {device_ms(plain):.4f} ms, bound "
               f"{bound * 1e3:.3f} us ({by}, 3xTF32: {bound / ms:.1%} of it)")
+    try:
+        lib_fwd, lib_fwd_bwd, backend = sdpa_yardstick(q, k, v, do)
+    except RuntimeError as e:  # SDPA may refuse fp32 at this head dim
+        print(f"library yardstick at D={d}: scaled_dot_product_attention "
+              f"refused: {e}")
+        return
+    bwd = kernel_ms["flash_bwd_dq"] + kernel_ms["flash_bwd_dkv"]
+    print(f"library yardstick [B={b} T={t} H={h} D={d} causal fp32]: "
+          f"scaled_dot_product_attention ({backend}) fwd {lib_fwd:.4f} ms "
+          f"(K1 {kernel_ms['flash_fwd']:.4f}); fwd+bwd {lib_fwd_bwd:.4f} - fwd "
+          f"= {lib_fwd_bwd - lib_fwd:.4f} ms (K3+K4 {bwd:.4f})")
 
 
 # ----------------------------------------------------------------------
@@ -1468,8 +1507,19 @@ FUSED_DRIFT_RTOL = 2e-3
 # the default leg on the card drift 2e-4 apart in the loss by round 2)
 IMNET_CPU_TOL = 1e-2
 IMNET_CPU_ROUND_TOL = 5e-2
-# the int8 leg (K9 + K10 each round): cut to 2 rounds, testing at round 0
-IMNET_INT8_ROUNDS = 2
+# the comm-plane legs (int8: K9 + K10 each round; the overlapped average
+# with an fp32 and a bf16 payload: K9 + K11): cut to 2 rounds, testing at
+# round 0
+IMNET_COMM_ROUNDS = 2
+COMM_LEGS = ("int8", "fp32+overlap", "bf16+overlap")
+# each compressed leg and the fp32 leg of its averaging schedule, whose
+# smoothed losses it must stay within LOSS_BAND of (the band pins what a
+# compressed payload may cost against the fp32 collective).  The
+# overlapped average lands one local step late, which alone moves
+# round 1's smoothed loss (one iteration: average_loss 1) ~0.08 from the
+# barriered default leg's on the H100 (PERF.md §6); that gap is
+# printed, and held by no band
+LOSS_BAND_PAIRS = (("int8", "default"), ("bf16+overlap", "fp32+overlap"))
 
 
 def _close(got, want, tol, what) -> float:
@@ -1509,30 +1559,37 @@ def check_lrn_kernels(dev, card):
 
     err = dict.fromkeys(("lrn_fwd", "lrn_bwd", "lrn_pool_fwd", "lrn_pool_bwd"),
                         0.0)
-    cases = [(s, 5, 0.75) for s in ALEXNET_LRN] + [
-        ((2, 7, 11, 13), 5, 0.75), ((2, 3, 9, 9), 5, 0.75),
-        ((2, 16, 9, 9), 3, 0.75), ((2, 16, 9, 9), 5, 0.6)]
-    # K6 at both sandwiches, random and tied, must give the plain
-    # version's bits (every operation an explicitly rounded intrinsic)
-    cases = [(s, 5, 0.75, False) for s in ALEXNET_LRN] + [
+    # K5 and K6 at both sandwiches, random and tied, and K5 also at the
+    # test batch and AlexNet's inputs at other LRN settings (its general
+    # kernel), must give the plain versions' bits (every operation an
+    # explicitly rounded intrinsic); K5 everywhere
+    test_lrn = tuple((IMNET_TEST_BATCH,) + s[1:] for s in ALEXNET_LRN)
+    cases = [(s, 5, 0.75, False) for s in ALEXNET_LRN + test_lrn] + [
         (s, 5, 0.75, True) for s in ALEXNET_LRN] + [
-        (s, n, beta, False) for s, n, beta in cases[2:]]
+        (s, n, beta, False) for s in ALEXNET_LRN for n, beta in ((5, 0.6),
+                                                                (3, 0.75))] + [
+        (s, n, beta, False) for s, n, beta in (
+            ((2, 7, 11, 13), 5, 0.75), ((2, 3, 9, 9), 5, 0.75),
+            ((2, 16, 9, 9), 3, 0.75), ((2, 16, 9, 9), 5, 0.6),
+            ((2, 16, 5, 7), 4, 0.75))]
     for shape, n, beta, ties in cases:
         hp = (n, 1e-4, beta, 1.0)
         x = _tie_input(dev, shape, 6) if ties else rand(*shape)
         dy = rand(*shape)
         y, dx = cl.lrn_fwd(x, *hp), cl.lrn_bwd(x, dy, *hp)
         torch.cuda.synchronize()
-        ef = _close(y, cl.lrn_across_reference(x, *hp), LRN_FWD_TOL,
-                    f"K5 {shape} n={n} beta={beta}")
+        what = f"{shape}{' ties' if ties else ''} n={n} beta={beta}"
+        want_y = cl.lrn_across_reference(x, *hp)
+        ef = _close(y, want_y, LRN_FWD_TOL, f"K5 {what}")
+        check(bool(torch.equal(y, want_y)),
+              f"K5 {what}: y differs from the plain version's bits")
         want = cl.lrn_across_bwd_reference(x, dy, *hp)
-        eb = _close(dx, want, LRN_BWD_TOL, f"K6 {shape} n={n} beta={beta}")
+        eb = _close(dx, want, LRN_BWD_TOL, f"K6 {what}")
         same = bool(torch.equal(dx, want))
-        if shape in ALEXNET_LRN:
-            check(same, f"K6 {shape}{' ties' if ties else ''}: dx differs "
-                  "from the plain version's bits")
-        print(f"K5/K6 lrn {shape}{' ties' if ties else ''} n={n} beta={beta}: "
-              f"max_abs_err fwd {ef:.3e}, bwd {eb:.3e}; K6 bit-equal {same}")
+        if shape in ALEXNET_LRN and (n, beta) == (5, 0.75):
+            check(same, f"K6 {what}: dx differs from the plain version's bits")
+        print(f"K5/K6 lrn {what}: max_abs_err fwd {ef:.3e}, bwd {eb:.3e}; K5 "
+              f"bit-equal, K6 bit-equal {same}")
         err["lrn_fwd"] = max(err["lrn_fwd"], ef)
         err["lrn_bwd"] = max(err["lrn_bwd"], eb)
     plp_cases = [(s, False, LRN_HP) for s in ALEXNET_LRN + (
@@ -1776,9 +1833,10 @@ def _imnet_first_round_matches_cpu(dev, parts, mean):
 
 
 def imagenet_train_end_to_end(dev, card):
-    """``imagenet_app.train`` at AlexNet's full width, default, fused and
-    int8 legs (see the module doc, phase 9); returns the legs' summed
-    launches of K5-K10 (the drift control's left out)."""
+    """``imagenet_app.train`` at AlexNet's full width, default, fused,
+    int8, fp32+overlap and bf16+overlap legs (see the module doc, phase
+    9); returns the legs' summed launches of K5-K11 (the drift control's
+    left out)."""
     import os
 
     from sparknet_tpu_torch.apps import imagenet_app
@@ -1835,10 +1893,16 @@ def imagenet_train_end_to_end(dev, card):
         "fused": {**lrn_launches(IMNET_ROUNDS, True), **no_comm},
         # the comm chunks of AlexNet's parameters (parallel/comm.py): 3,
         # each one K9 and one K10 launch a round
-        "int8": {**lrn_launches(IMNET_INT8_ROUNDS, False),
-                 **dict(no_comm, comm_encode=3 * IMNET_INT8_ROUNDS,
-                        comm_apply_barriered=3 * IMNET_INT8_ROUNDS)},
+        "int8": {**lrn_launches(IMNET_COMM_ROUNDS, False),
+                 **dict(no_comm, comm_encode=3 * IMNET_COMM_ROUNDS,
+                        comm_apply_barriered=3 * IMNET_COMM_ROUNDS)},
+        # one K9 a chunk a round; one K11 a chunk for each round's average,
+        # landed at the next round's start or, for the last, at finalize
+        "bf16+overlap": {**lrn_launches(IMNET_COMM_ROUNDS, False),
+                         **dict(no_comm, comm_encode=3 * IMNET_COMM_ROUNDS,
+                                comm_apply_correction=3 * IMNET_COMM_ROUNDS)},
     }
+    expect["fp32+overlap"] = expect["bf16+overlap"]
     expect["default, again"] = expect["default"]
     results, total, smoothed = {}, {}, {}
     prior = os.environ.get("SPARKNET_FUSION")
@@ -1848,7 +1912,11 @@ def imagenet_train_end_to_end(dev, card):
             ("default", "0", ()), ("default, again", "0", ()),
             ("fused", "1", ()),
             ("int8", "0", ("--compress", "int8",
-                           "--rounds", str(IMNET_INT8_ROUNDS)))):
+                           "--rounds", str(IMNET_COMM_ROUNDS))),
+            ("fp32+overlap", "0", ("--overlap_avg",
+                                   "--rounds", str(IMNET_COMM_ROUNDS))),
+            ("bf16+overlap", "0", ("--compress", "bf16", "--overlap_avg",
+                                   "--rounds", str(IMNET_COMM_ROUNDS)))):
         os.environ["SPARKNET_FUSION"] = fusion
         try:
             result, log = {}, _Log()
@@ -1870,9 +1938,9 @@ def imagenet_train_end_to_end(dev, card):
               + " ".join(f"{x:.6f}" for x in per_round)
               + f", smoothed {smoothed[leg].tolist()}"
               + f", accuracies {[round(a, 4) for a in result['accuracies']]}")
-        if leg == "int8":
+        if leg in COMM_LEGS:
             n_chunks = len(result["trainer"]._comm.chunk_slices)
-            check(n_chunks == 3, f"AlexNet int8: {n_chunks} comm chunks, not 3")
+            check(n_chunks == 3, f"AlexNet {leg}: {n_chunks} comm chunks, not 3")
         check(launches == expect[leg],
               f"AlexNet leg {leg}: launches {launches}, expected {expect[leg]}")
         check(bool(np.isfinite(losses).all()), f"AlexNet leg {leg}: non-finite loss")
@@ -1898,15 +1966,19 @@ def imagenet_train_end_to_end(dev, card):
     for leg, g in gaps.items():
         print(f"AlexNet {leg} vs default, per-round losses apart (relative): "
               + " ".join(f"{x:.3e}" for x in g))
-    int8_gap = np.abs(smoothed["int8"]
-                      - smoothed["default"][:IMNET_INT8_ROUNDS])
-    print(f"AlexNet int8 vs default, smoothed losses at rounds 0.."
-          f"{IMNET_INT8_ROUNDS - 1}: gaps {int8_gap.tolist()} (limit {LOSS_BAND})")
-    check(len(smoothed["int8"]) == IMNET_INT8_ROUNDS
-          and bool(np.isfinite(smoothed["int8"]).all()),
-          f"AlexNet int8: smoothed losses {smoothed['int8']}")
-    check(float(int8_gap.max()) <= LOSS_BAND,
-          f"AlexNet int8 leaves the loss band: {int8_gap}")
+    for leg in COMM_LEGS:
+        check(len(smoothed[leg]) == IMNET_COMM_ROUNDS
+              and bool(np.isfinite(smoothed[leg]).all()),
+              f"AlexNet {leg}: smoothed losses {smoothed[leg]}")
+        gap = np.abs(smoothed[leg] - smoothed["default"][:IMNET_COMM_ROUNDS])
+        print(f"AlexNet {leg} vs default, smoothed losses at rounds 0.."
+              f"{IMNET_COMM_ROUNDS - 1}: gaps {gap.tolist()}")
+    for leg, base in LOSS_BAND_PAIRS:
+        gap = np.abs(smoothed[leg] - smoothed[base][:IMNET_COMM_ROUNDS])
+        print(f"AlexNet {leg} vs {base}, smoothed losses at rounds 0.."
+              f"{IMNET_COMM_ROUNDS - 1}: gaps {gap.tolist()} (limit {LOSS_BAND})")
+        check(float(gap.max()) <= LOSS_BAND,
+              f"AlexNet {leg} leaves the loss band of {base}: {gap}")
     vs_cpu = _imnet_first_round_matches_cpu(dev, train_parts, mean)
     for steps in (1, IMNET_TAU):
         worst, top, gap = vs_cpu[steps]
@@ -1921,11 +1993,12 @@ def imagenet_train_end_to_end(dev, card):
               f"away at its worst blob {name} (the CPU's float32 there "
               f"{cpu_at:.3e}); the CPU's float32 lies {cpu_gap:.3e} away at its "
               f"worst blob {cpu_name} (the card there {cpu_card_at:.3e})")
-    for leg, fusion, compress in (("default", "0", "none"),
-                                  ("fused", "1", "none"),
-                                  ("int8", "0", "int8")):
+    for leg, fusion, compress, overlap in (("default", "0", "none", False),
+                                           ("fused", "1", "none", False),
+                                           ("int8", "0", "int8", False),
+                                           ("bf16+overlap", "0", "bf16", True)):
         where_imnet_time_goes(dev, card, leg, fusion, compress, train_parts,
-                              mean)
+                              mean, overlap)
     for steps, limit in ((1, IMNET_CPU_TOL), (IMNET_TAU, IMNET_CPU_ROUND_TOL)):
         check(vs_cpu[steps][0] <= limit,
               f"AlexNet first round ({steps} steps) on the card vs the CPU: "
@@ -1937,10 +2010,13 @@ def imagenet_train_end_to_end(dev, card):
     return total
 
 
-def where_imnet_time_goes(dev, card, leg, fusion, compress, parts, mean):
+def where_imnet_time_goes(dev, card, leg, fusion, compress, parts, mean,
+                          overlap=False):
     """One round of an AlexNet leg under ``torch.profiler``: wall time,
-    the device's busy share, the top kernels and K5-K10's share (the
-    trainer with the app's metrics, so K9 computes its readout)."""
+    the device's busy share, the top kernels and K5-K11's share (the
+    trainer with the app's metrics, so K9 computes its readout).  With
+    ``overlap`` the round is a steady one: the previous round's average
+    lands (K11) after its first local step."""
     import os
 
     from torch.autograd import DeviceType
@@ -1961,7 +2037,7 @@ def where_imnet_time_goes(dev, card, leg, fusion, compress, parts, mean):
         else:
             os.environ["SPARKNET_FUSION"] = prior
     tr = ParameterAveragingTrainer(
-        solver, IMNET_W, compress=compress,
+        solver, IMNET_W, compress=compress, overlap_avg=overlap,
         metrics=None if compress == "none" else TrainingMetrics())
     st = tr.init_state(0)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in stack_windows([
@@ -1977,6 +2053,7 @@ def where_imnet_time_goes(dev, card, leg, fusion, compress, parts, mean):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         st, _ = tr.round(st, batch)
         torch.cuda.synchronize()
+    tr.finalize(st)  # joins an overlapped round's comm thread
     rows = sorted(
         ((e.self_device_time_total / 1e3, e.count, e.key)
          for e in prof.key_averages()
@@ -1990,7 +2067,8 @@ def where_imnet_time_goes(dev, card, leg, fusion, compress, parts, mean):
                                ("K7", "lrn_pool_fwd_kernel"),
                                ("K8", "lrn_pool_bwd_kernel"),
                                ("K9", r"encode\w*_kernel"),
-                               ("K10", "apply_barriered_kernel"))}
+                               ("K10", "apply_barriered_kernel"),
+                               ("K11", "apply_correction_kernel"))}
     n_kernels = sum(r[1] for r in rows)
     print(f"[{card}] AlexNet round ({leg}, W={IMNET_W}, tau={IMNET_TAU}, batch "
           f"{IMNET_BATCH}): {wall_ms:.3f} ms wall, {busy:.3f} ms device busy "

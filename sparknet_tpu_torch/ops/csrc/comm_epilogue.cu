@@ -17,7 +17,7 @@
 // element.  A chunk's leaves range from a few floats to fc6's 37,748,736
 // per worker (AlexNet), so the grid is cut by elements, not by leaves:
 //
-// Tile map (encode, barriered apply).  Each worker's slice of a leaf is
+// Tile map (all three kernels).  Each worker's slice of a leaf is
 // cut into tiles of TILE elements (a slice shorter than that, even an
 // empty one, is one tile), and every (leaf, worker, tile) is one block of
 // THREADS threads: leaf-major, then worker, then tile, so a slice's tiles
@@ -45,9 +45,12 @@
 // encode moves 25 B per element (A: x, a, r in, delta out; B: delta in,
 // q and the residual out), against the function's 17 B.
 //
-// Overlap correction (K11): one block per (leaf, worker), walking the
-// slice with a strided loop (its redesign onto the tile map is later
-// work, ROADMAP).
+// Overlap correction (K11): one pass on the same tile map.  A block
+// reads its worker's scale once; each thread keeps UNROLL 16-byte loads
+// of x, a and the mean and UNROLL 4-element loads of the payload (4 B of
+// int8, 8 of bf16, 16 of fp32) in flight, and writes x' and a'.  No
+// scratch, no counters.  It moves 18 B an element for bf16 (x, a, q in,
+// x', a' out) plus the mean, which each worker's tiles read again: 22 B.
 //
 // Numerics: bit-identical to the plain PyTorch versions in
 // ops/cuda_comm.py, which follow the JAX package's unfused closures
@@ -81,18 +84,17 @@
 
 namespace {
 
-// encode and barriered apply: elements of one worker's slice a block
-// takes, threads a block, 16-byte loads of each array a thread has in
-// flight.  Of the shapes tools/comm_tiles.py times, 8,192-element tiles
-// gave the least K9 + K10 time at AlexNet's leaves but for 16,384 (1%
-// less there, 28% more at cifar10_full's); 4,096 lose 6% at AlexNet,
-// where an int8 encode's launch B reads one array, and gain 0.01 ms a
-// round at cifar10_full's (PERF.md §6).
+// the tile map's kernels: elements of one worker's slice a block takes,
+// threads a block, 16-byte loads of each array a thread has in flight.
+// Of the shapes tools/comm_tiles.py times, 8,192-element tiles gave the
+// least K9 + K10 time at AlexNet's leaves but for 16,384 (1% less there,
+// 28% more at cifar10_full's); 4,096 lose 6% at AlexNet, where an int8
+// encode's launch B reads one array, and gain 0.01 ms a round at
+// cifar10_full's.  K11 takes within 1% of the same time at 4,096-16,384
+// (PERF.md §6).
 constexpr int TILE = 8192;
 constexpr int THREADS = 256;
 constexpr int UNROLL = 4;
-// overlap correction: threads of its one block per (leaf, worker)
-constexpr int CORR_THREADS = 512;
 static_assert(TILE % 4 == 0 && THREADS % 32 == 0, "tiles of 16-byte vectors");
 
 enum { MODE_F32 = 0, MODE_BF16 = 1, MODE_INT8 = 2 };
@@ -528,32 +530,100 @@ apply_barriered_kernel(const __grid_constant__ LeafTable t, int n_leaves,
 }
 
 // ---------------------------------------------------------------------
-// K11: overlap correction, one block per (leaf, worker)
+// K11: overlap correction
 // ---------------------------------------------------------------------
-__global__ void __launch_bounds__(CORR_THREADS)
-apply_correction_kernel(const __grid_constant__ LeafTable t) {
-  const int li = blockIdx.x, w = blockIdx.y;
-  const Leaf L = t.leaf[li];
-  const long long off = (long long)w * L.n;
-  const float s = L.scale[w];
-  const float* x = L.x + off;
-  const float* a = L.a + off;
-  float* nx = L.out0 + off;
-  float* na = L.out1 + off;
-#pragma unroll 4
-  for (long long i = threadIdx.x; i < L.n; i += blockDim.x) {
-    const float m = L.mean[i];
-    float corr;
-    if (L.mode == MODE_INT8) {
-      corr = __fmaf_rn(-(float)static_cast<const int8_t*>(L.q)[off + i], s, m);
-    } else if (L.mode == MODE_BF16) {
-      corr = __fsub_rn(m, __bfloat162float(
-                                static_cast<const __nv_bfloat16*>(L.q)[off + i]));
-    } else {
-      corr = __fsub_rn(m, static_cast<const float*>(L.q)[off + i]);
+__device__ __forceinline__ bool correction_aligned(const Leaf& L) {
+  return al16(L.x) && al16(L.a) && al16(L.q) && al16(L.mean) &&
+         al16(L.out0) && al16(L.out1);
+}
+
+// element gi of the payload as a float (exact: int8 and bf16 values are
+// floats)
+__device__ __forceinline__ float payload_at(const void* q, long long gi,
+                                            int mode) {
+  if (mode == MODE_INT8) return (float)__ldg(static_cast<const int8_t*>(q) + gi);
+  if (mode == MODE_BF16) {
+    return __bfloat162float(__ldg(static_cast<const __nv_bfloat16*>(q) + gi));
+  }
+  return __ldg(static_cast<const float*>(q) + gi);
+}
+
+// elements gi .. gi + 3 of the payload in one 4-, 8- or 16-byte load
+__device__ __forceinline__ float4 payload4_at(const void* q, long long gi,
+                                              int mode) {
+  if (mode == MODE_INT8) {
+    const uint32_t p =
+        __ldg(reinterpret_cast<const unsigned*>(static_cast<const int8_t*>(q) + gi));
+    return make_float4((float)(int8_t)(p & 0xffu), (float)(int8_t)((p >> 8) & 0xffu),
+                       (float)(int8_t)((p >> 16) & 0xffu), (float)(int8_t)(p >> 24));
+  }
+  if (mode == MODE_BF16) {  // a bf16's bits are the top half of its float's
+    const uint2 p = __ldg(reinterpret_cast<const uint2*>(
+        static_cast<const __nv_bfloat16*>(q) + gi));
+    return make_float4(__uint_as_float(p.x << 16), __uint_as_float(p.x & 0xffff0000u),
+                       __uint_as_float(p.y << 16), __uint_as_float(p.y & 0xffff0000u));
+  }
+  return ld4(static_cast<const float*>(q) + gi);
+}
+
+// mean - dequant(q): int8 contracts mean - q * scale into one FMA, as XLA
+__device__ __forceinline__ float correction(float m, float qv, float s,
+                                            int mode) {
+  return mode == MODE_INT8 ? __fmaf_rn(-qv, s, m) : __fsub_rn(m, qv);
+}
+
+__global__ void __launch_bounds__(THREADS)
+apply_correction_kernel(const __grid_constant__ LeafTable t, int n_leaves) {
+  Tile k = locate(t, n_leaves);
+  const Leaf& L = t.leaf[k.li];
+  vectorize(k, correction_aligned(L));
+  const int mode = L.mode;
+  const float s = L.scale[k.w];
+  const float* x = L.x + k.off;
+  const float* a = L.a + k.off;
+  const float* m = L.mean;  // slice coordinates: one mean for every worker
+  float* nx = L.out0 + k.off;
+  float* na = L.out1 + k.off;
+  for (int i = threadIdx.x; i < scalar_count(k); i += THREADS) {
+    const long long e = scalar_at(k, i);
+    const float corr = correction(m[e], payload_at(L.q, k.off + e, mode), s, mode);
+    nx[e] = __fadd_rn(x[e], corr);
+    na[e] = __fadd_rn(a[e], corr);
+  }
+  // the mean's 16-byte vectors are the slice's only where w * n is a
+  // multiple of 4, as in K10
+  const bool mvec = (k.off & 3) == 0;
+  const long long v0 = k.i0 + k.head;
+  for (int base = threadIdx.x; base < k.nvec; base += THREADS * UNROLL) {
+    float4 xv[UNROLL], av[UNROLL], mv[UNROLL], qv[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long e = v0 + 4LL * (base + u * THREADS);
+      if (base + u * THREADS < k.nvec) {
+        xv[u] = ld4(x + e);
+        av[u] = ld4(a + e);
+        mv[u] = mvec ? ld4(m + e)
+                     : make_float4(__ldg(m + e), __ldg(m + e + 1),
+                                   __ldg(m + e + 2), __ldg(m + e + 3));
+        qv[u] = payload4_at(L.q, k.off + e, mode);
+      }
     }
-    nx[i] = __fadd_rn(x[i], corr);
-    na[i] = __fadd_rn(a[i], corr);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (base + u * THREADS < k.nvec) {
+        const long long e = v0 + 4LL * (base + u * THREADS);
+        const float4 c = make_float4(correction(mv[u].x, qv[u].x, s, mode),
+                                     correction(mv[u].y, qv[u].y, s, mode),
+                                     correction(mv[u].z, qv[u].z, s, mode),
+                                     correction(mv[u].w, qv[u].w, s, mode));
+        *reinterpret_cast<float4*>(nx + e) =
+            make_float4(__fadd_rn(xv[u].x, c.x), __fadd_rn(xv[u].y, c.y),
+                        __fadd_rn(xv[u].z, c.z), __fadd_rn(xv[u].w, c.w));
+        *reinterpret_cast<float4*>(na + e) =
+            make_float4(__fadd_rn(av[u].x, c.x), __fadd_rn(av[u].y, c.y),
+                        __fadd_rn(av[u].z, c.z), __fadd_rn(av[u].w, c.w));
+      }
+    }
   }
 }
 
@@ -625,10 +695,10 @@ int sparknet_comm_apply_barriered(const Leaf* leaves, int n_leaves, int workers,
 int sparknet_comm_apply_correction(const Leaf* leaves, int n_leaves, int workers,
                                    void* stream) {
   LeafTable t;
-  if (fill_table(&t, leaves, n_leaves, workers) < 0)
-    return (int)cudaErrorInvalidValue;
-  apply_correction_kernel<<<dim3(n_leaves, workers), CORR_THREADS, 0,
-                            (cudaStream_t)stream>>>(t);
+  const long long blocks = fill_table(&t, leaves, n_leaves, workers);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  apply_correction_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      t, n_leaves);
   return (int)cudaGetLastError();
 }
 

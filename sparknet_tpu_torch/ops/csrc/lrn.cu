@@ -23,10 +23,10 @@
 // shared memory.  The channels are cut into chunks, one per grid row, so
 // that the small late planes of AlexNet (256 x 27 x 27) still give the
 // card enough threads; a chunk re-reads its D (backward 2D) halo
-// channels on each side, mostly from L2.  The forward (K5) takes one
-// image's positions a block, one load in flight a channel.  The backward
-// (K6) takes the positions of all images as one index and loads a group
-// of channels ahead (below).
+// channels on each side, mostly from L2.  Both kernels take the
+// positions of all images as one index and load a group of channels
+// ahead (below); each square of x is formed once, as its channel enters
+// the window.
 //
 // Bound on this card: bytes.  The forward reads x and writes y (8 bytes
 // per element), the backward reads x and dy and writes dx (12 bytes);
@@ -52,31 +52,74 @@
 
 namespace {
 
-constexpr int THREADS = 128;
+// K5's launch shape, chosen by tools/lrn_tiles.py --fwd, which times the
+// alternatives (PERF.md §6): threads a block, the channels of x a thread
+// loads a group ahead, and the blocks an SM should hold.
+constexpr int K5_THREADS = 256, K5_G = 4, K5_MB = 4;
 
-template <int D>
-__global__ void __launch_bounds__(THREADS) lrn_fwd_kernel(
+// Forward (K5).  The positions of all N images are one index, each
+// thread one position (consecutive threads, consecutive positions), as
+// in K6.  At the top of each group of K5_G steps the thread issues the
+// next group's K5_G loads of x, then computes the current group from
+// registers.  Step c shifts x[c + D] into the window: its square into
+// the squares' register (channels c-D .. c+D), x itself into a register
+// of D + 1 (channels c .. c+D), whose bottom is the x of y[c].  FAST
+// fixes Caffe's default window and power at compile time
+// (lrn_common.cuh).
+template <int D, bool FAST>
+__global__ void __launch_bounds__(K5_THREADS, K5_MB) lrn_fwd_kernel(
     const float* __restrict__ x, float* __restrict__ y, int C, int L,
-    int chunk, LrnParams hp) {
-  const int pos = blockIdx.x * THREADS + threadIdx.x;
-  if (pos >= L) return;
+    long long NL, int chunk, LrnParams hp) {
+  constexpr int G = K5_G;
+  const long long q =
+      static_cast<long long>(blockIdx.x) * K5_THREADS + threadIdx.x;
+  if (q >= NL) return;
   const int c0 = blockIdx.y * chunk;
   const int c1 = min(C, c0 + chunk);
   const long long plane = static_cast<long long>(L);
-  const long long base = static_cast<long long>(blockIdx.z) * C * plane + pos;
-  const float* xp = x + base;
-  float* yp = y + base;
+  const long long at = (q / L) * C * plane + q % L;
+  const float* xp = x + at;
+  float* yp = y + at;
 
-  float xr[2 * D + 1];  // x at channels c-D .. c+D
+  float xr[D + 1];      // x at channels c .. c+D
+  float sr[2 * D + 1];  // the squares of x at channels c-D .. c+D
 #pragma unroll
-  for (int m = 0; m <= 2 * D; ++m) xr[m] = 0.f;
+  for (int m = 0; m <= D; ++m) xr[m] = 0.f;
+#pragma unroll
+  for (int m = 0; m <= 2 * D; ++m) sr[m] = 0.f;
   for (int cc = c0 - D; cc < c0 + D; ++cc) {
-    shift_in<2 * D + 1>(xr, load_channel(xp, cc, C, plane));
+    const float v = load_channel(xp, cc, C, plane);
+    shift_in<D + 1>(xr, v);
+    shift_in<2 * D + 1>(sr, __fmul_rn(v, v));
   }
-  for (int c = c0; c < c1; ++c) {
-    shift_in<2 * D + 1>(xr, load_channel(xp, c + D, C, plane));
-    const float scale = lrn_scale<D>(xr, hp);
-    yp[c * plane] = __fmul_rn(xr[D], negpow(scale, hp));
+  // x of channels c + D for the steps c of a group; a group whose
+  // channels all lie in [0, C) loads without checks
+  float xn[G];
+  auto fetch = [&](int cg) {
+    if (cg + G + D <= C) {
+      const float* xq = xp + (cg + D) * plane;
+#pragma unroll
+      for (int s = 0; s < G; ++s) xn[s] = __ldg(xq + s * plane);
+    } else {
+#pragma unroll
+      for (int s = 0; s < G; ++s) xn[s] = load_channel(xp, cg + s + D, C, plane);
+    }
+  };
+  fetch(c0);
+  for (int cg = c0; cg < c1; cg += G) {
+    float xc[G];
+#pragma unroll
+    for (int s = 0; s < G; ++s) xc[s] = xn[s];
+    if (cg + G < c1) fetch(cg + G);
+#pragma unroll
+    for (int s = 0; s < G; ++s) {
+      shift_in<D + 1>(xr, xc[s]);
+      shift_in<2 * D + 1>(sr, __fmul_rn(xc[s], xc[s]));
+      if (cg + s < c1) {
+        const float scale = lrn_scale_sq_t<D, FAST>(sr, hp);
+        yp[(cg + s) * plane] = __fmul_rn(xr[0], negpow_t<FAST>(scale, hp));
+      }
+    }
   }
 }
 
@@ -187,25 +230,24 @@ template <int D>
 cudaError_t launch(const float* x, const float* dy, float* out, int N, int C,
                    int L, int chunk, const LrnParams& hp, cudaStream_t s) {
   const int nchunks = (C + chunk - 1) / chunk;
-  if (dy == nullptr) {
-    dim3 grid((L + THREADS - 1) / THREADS, nchunks, N);
-    lrn_fwd_kernel<D><<<grid, THREADS, 0, s>>>(x, out, C, L, chunk, hp);
-  } else {
-    const long long NL = static_cast<long long>(N) * L;
-    dim3 grid(static_cast<unsigned>((NL + K6_THREADS - 1) / K6_THREADS),
-              nchunks);
-    bool fast = false;
-    if constexpr (D == 2) {  // the FAST kernel exists for D = 2 alone
-      fast = lrn_fast(D, hp);
-      if (fast) {
-        lrn_bwd_kernel<D, true><<<grid, K6_THREADS, 0, s>>>(x, dy, out, C, L,
-                                                            NL, chunk, hp);
-      }
+  const long long NL = static_cast<long long>(N) * L;
+  const int threads = dy == nullptr ? K5_THREADS : K6_THREADS;
+  dim3 grid(static_cast<unsigned>((NL + threads - 1) / threads), nchunks);
+  bool fast = false;
+  if constexpr (D == 2) {  // the FAST kernels exist for D = 2 alone
+    fast = lrn_fast(D, hp);
+    if (fast && dy == nullptr) {
+      lrn_fwd_kernel<D, true><<<grid, threads, 0, s>>>(x, out, C, L, NL, chunk, hp);
+    } else if (fast) {
+      lrn_bwd_kernel<D, true><<<grid, threads, 0, s>>>(x, dy, out, C, L, NL,
+                                                       chunk, hp);
     }
-    if (!fast) {
-      lrn_bwd_kernel<D, false><<<grid, K6_THREADS, 0, s>>>(x, dy, out, C, L,
-                                                           NL, chunk, hp);
-    }
+  }
+  if (!fast && dy == nullptr) {
+    lrn_fwd_kernel<D, false><<<grid, threads, 0, s>>>(x, out, C, L, NL, chunk, hp);
+  } else if (!fast) {
+    lrn_bwd_kernel<D, false><<<grid, threads, 0, s>>>(x, dy, out, C, L, NL,
+                                                      chunk, hp);
   }
   return cudaGetLastError();
 }

@@ -26,9 +26,9 @@ raises; nothing falls back.  ``LAUNCHES`` counts kernel launches.
 The plain version sums each window in the Pallas order (centre, then the
 post side d = 1.., then the pre side d = 1..; ``pallas_lrn.py:50-61``)
 and the kernels add in the same order, one rounding at a time, so the
-two agree bit for bit on the card (``chip_smoke.py`` holds K6 to that
-at AlexNet's two LRN inputs).  K6 takes ``BWD_CHUNK`` channels a grid
-row; K5 and the fused kernels ``CHUNK``.
+two agree bit for bit on the card (``chip_smoke.py`` holds K6
+and K5 to that at AlexNet's two LRN inputs).  K5 takes ``FWD_CHUNK``
+channels a grid row, K6 ``BWD_CHUNK`` and the fused kernels ``CHUNK``.
 """
 
 from __future__ import annotations
@@ -44,8 +44,10 @@ from sparknet_tpu_torch.ops import _build
 LAUNCHES = {"lrn_fwd": 0, "lrn_bwd": 0}
 
 # channels per grid row of the kernels (csrc/lrn.cu, csrc/lrn_pool.cu);
-# K6 takes BWD_CHUNK, chosen with tools/lrn_tiles.py (PERF.md §6)
+# K5 takes FWD_CHUNK and K6 BWD_CHUNK, chosen with tools/lrn_tiles.py
+# (PERF.md §6)
 CHUNK = 32
+FWD_CHUNK = 12
 BWD_CHUNK = 64
 # the widest window the kernels are built for (LRN_MAX_D = 7 each side)
 MAX_LOCAL_SIZE = 15
@@ -169,8 +171,8 @@ def lrn_fwd(x, n: int, alpha: float, beta: float, k: float):
     fn = _build.kernel("lrn", "sparknet_lrn_fwd_f32",
                 (_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _F, _P))
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), y.data_ptr(), N, C, H * W, CHUNK, pre, post, kk,
-                an, q, nb, stream(x))
+        rc = fn(x.data_ptr(), y.data_ptr(), N, C, H * W, FWD_CHUNK, pre, post,
+                kk, an, q, nb, stream(x))
     _build.raise_on(rc, "lrn_fwd")
     LAUNCHES["lrn_fwd"] += 1
     return y

@@ -1,5 +1,5 @@
-"""Time the comm epilogue's encode (K9) and barriered apply (K10) over tile
-shapes, on the card.
+"""Time the comm epilogue's encode (K9), barriered apply (K10) and overlap
+correction (K11) over tile shapes, on the card.
 
 Each variant is ``ops/csrc/comm_epilogue.cu`` with the tile map's
 constants replaced (the elements of a worker's slice a block takes, the
@@ -10,7 +10,8 @@ within 1e-5) at two leaf sets — AlexNet's 16 parameter leaves at W=2 and
 cifar10_full's 8 at W=4, each in the three chunks ``parallel/comm.py``
 cuts them into — and timed on the device per round (every chunk) from a
 CUDA graph of 20 rounds, every variant in turn, twice: K9 int8 with the
-readout, K10 with every worker live.  ``--baseline FILE`` (repeatable)
+readout, K10 with every worker live, K11 bf16 and int8 (its payload and
+scales the plain encode's).  ``--baseline FILE`` (repeatable)
 adds another ``comm_epilogue.cu`` (an earlier version, unpacked from
 git: on the tile map, or one block per leaf and worker, whose leaf table
 lacks the tile map's fields) as one more variant, timed in the same
@@ -62,6 +63,7 @@ LEAF_SETS = {
         ((32,), (64, 32, 5, 5)),
         ((64,), (10, 1024), (10,)))),
 }
+CORR_MODES = ("bf16", "int8")
 REPEATS = 2
 P, I = ctypes.c_void_p, ctypes.c_int
 
@@ -109,9 +111,42 @@ class _Chunk:
                                             True)
         self.want_app = cc.apply_barriered_reference(
             self.x, self.a, self.m, self.r, self.alive, self.d0)
+        # K11 per mode: payload, scales, the plain version's params and
+        # anchors, and outputs every variant writes (each is checked
+        # before the next variant runs)
+        self.corr = {}
+        for mode in CORR_MODES:
+            modes = (mode,) * len(shapes)
+            q, s = cc.encode_reference(self.x, self.a, self.r, modes, False)[:2]
+            want = cc.apply_correction_reference(self.x, self.a, q, s, self.m,
+                                                 modes)
+            self.corr[mode] = (q, s, want, [torch.empty_like(t) for t in self.x],
+                               [torch.empty_like(t) for t in self.x])
+
+    def _correction(self, lib, parent: bool, mode: str):
+        """The K11 launch of one mode for one variant."""
+        n, w = len(self.x), self.w
+        q, s, _, nx, na = self.corr[mode]
+        leaf = _ParentLeaf if parent else cc._Leaf
+        extra = () if parent else (0,)  # the tile map's `first`
+        table = (leaf * n)(*(
+            leaf(x.data_ptr(), a.data_ptr(), None, m.data_ptr(), qq.data_ptr(),
+                 ss.data_ptr(), o.data_ptr(), o2.data_ptr(), x[0].numel(),
+                 *extra, cc.MODES[mode])
+            for x, a, m, qq, ss, o, o2 in zip(self.x, self.a, self.m, q, s,
+                                              nx, na)))
+        fn = lib.sparknet_comm_apply_correction
+        fn.argtypes = [P, I, I, P]
+
+        def correct():
+            rc = fn(table, n, w, torch.cuda.current_stream().cuda_stream)
+            _build.raise_on(rc, "comm_tiles correction")
+
+        return correct
 
     def launches(self, lib, parent: bool):
-        """(encode launch, apply launch, check) for one variant."""
+        """(encode launch, apply launch, one K11 launch per CORR_MODES,
+        check) for one variant."""
         n, w = len(self.x), self.w
         q = [torch.empty_like(t, dtype=torch.int8) for t in self.x]
         scale = [torch.empty(w, device="cuda") for _ in self.x]
@@ -176,11 +211,14 @@ class _Chunk:
 
         def check() -> str:
             wq, ws, wr, werr = self.want_enc
-            bad = [name for name, got, want in (
-                ("q", q, wq), ("scale", scale, ws), ("resid", nr, wr),
-                ("params", nx, self.want_app[0]), ("apply resid", nr2,
-                                                   self.want_app[1]))
-                if not all(torch.equal(g, x) for g, x in zip(got, want))]
+            pairs = [("q", q, wq), ("scale", scale, ws), ("resid", nr, wr),
+                     ("params", nx, self.want_app[0]),
+                     ("apply resid", nr2, self.want_app[1])]
+            for m, (_, _, (wx, wa), cx, ca) in self.corr.items():
+                pairs += [(f"K11 {m} params", cx, wx),
+                          (f"K11 {m} anchor", ca, wa)]
+            bad = [name for name, got, want in pairs
+                   if not all(torch.equal(g, x) for g, x in zip(got, want))]
             got_err = cc._combine_parts(parts)
             if not torch.equal(got_err[:, 0], werr[:, 0]):
                 bad.append("readout max")
@@ -190,7 +228,8 @@ class _Chunk:
                 bad.append(f"readout sums ({rel:.2e})")
             return ", ".join(bad)
 
-        return encode, apply, check
+        corrections = tuple(self._correction(lib, parent, m) for m in CORR_MODES)
+        return (encode, apply, *corrections, check)
 
 
 def main(argv=None) -> int:
@@ -224,11 +263,11 @@ def main(argv=None) -> int:
         per_set = {name: [c.launches(lib, i in parents) for c in chunks]
                    for name, chunks in sets.items()}
         for name, calls in per_set.items():
-            for encode, apply, _ in calls:
-                encode()
-                apply()
+            for *run, _ in calls:
+                for launch in run:
+                    launch()
             torch.cuda.synchronize()
-            bad = [c() for _, _, c in calls]
+            bad = [c[-1]() for c in calls]
             if any(bad):
                 print(f"variant {i} {labels[i]} {name}: NOT equal to the plain "
                       f"versions: {bad}")
@@ -237,7 +276,9 @@ def main(argv=None) -> int:
         for i, per_set in runs.items():
             times = []
             for name, calls in per_set.items():
-                for k, tag in ((0, "K9"), (1, "K10")):
+                for k, tag in ((0, "K9"), (1, "K10"),
+                               *((2 + j, f"K11 {m}")
+                                 for j, m in enumerate(CORR_MODES))):
                     ms = cs.device_ms(lambda c=calls, k=k: [f[k]() for f in c])
                     times.append(f"{name} {tag} {ms:.4f}")
             print(f"pass {rep} variant {i} {labels[i]}: " + ", ".join(times)

@@ -213,6 +213,30 @@ def test_apply_barriered_matches_pallas_bitwise_on_a_large_leaf(alive, denom0):
         _bits_equal(got, want)
 
 
+@pytest.mark.parametrize("modes", [("fp32",) * 3, ("bf16",) * 3, ("int8",) * 3],
+                         ids=["fp32", "bf16", "int8"])
+def test_apply_correction_matches_pallas_bitwise_on_a_large_leaf(modes):
+    x, a = _leaves(27, LARGE_SHAPES), _leaves(28, LARGE_SHAPES)
+    means = [m[0] for m in _leaves(29, LARGE_SHAPES)]
+    jq, js, _, _ = pallas_comm.fused_encode(
+        _j(_leaves(30, LARGE_SHAPES)), _j(_leaves(31, LARGE_SHAPES)),
+        _j(_leaves(32, LARGE_SHAPES)), modes, False, True
+    )
+    jx, ja = pallas_comm.fused_apply_correction(
+        _j(x), _j(a), jq, js, _j(means), modes, True
+    )
+    tq = tuple(
+        torch.from_numpy(np.array(q).view(np.int16)).view(torch.bfloat16)
+        if m == "bf16" else torch.from_numpy(np.array(q))
+        for q, m in zip(jq, modes)
+    )
+    tx, ta = cuda_comm.apply_correction(
+        _t(x), _t(a), tq, _t(js), _t(means), modes
+    )
+    for got, want in zip(tx + ta, jx + ja):
+        _bits_equal(got, want)
+
+
 def test_cpu_wrappers_launch_nothing():
     before = dict(cuda_comm.LAUNCHES)
     x = _leaves(0)

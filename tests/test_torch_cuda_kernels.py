@@ -563,19 +563,61 @@ def test_comm_apply_barriered_kernel_bitwise(dev, alive, denom0, ci):
         _same_bits(g, w)
 
 
+def _payload(dev, shape, mode, seed):
+    """A random payload of ``mode``: int8 in [-127, 127], bf16 or fp32
+    near 1e-2."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if mode == "int8":
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+    v = torch.randn(shape, generator=g, device=dev) * 1e-2
+    return v.to(torch.bfloat16) if mode == "bf16" else v
+
+
+def _off_16_bytes(t):
+    """A contiguous copy of ``t`` whose storage starts 4 bytes past 16."""
+    base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    base[1:].copy_(t.reshape(-1))
+    return base[1:].view(t.shape)
+
+
+# K11's chunks past cifar10_full's three (W=4): at W=2, the edge leaves
+# (EDGE_SHAPES: a slice of 300,001 floats, many tiles, worker slices off
+# 16 bytes), the same with x and the mean 4 bytes past 16, and a chunk
+# with an empty slice
+CORR_EXTRA = ("edges", "x and mean off 16 bytes", "an empty slice")
+
+
 @pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
-@pytest.mark.parametrize("ci", range(len(CIFAR_CHUNKS)))
+@pytest.mark.parametrize("ci", range(len(CIFAR_CHUNKS) + len(CORR_EXTRA)))
 def test_comm_apply_correction_kernel_bitwise(dev, mode, ci):
-    shapes = CIFAR_CHUNKS[ci]
-    modes = (mode,) * len(shapes)
-    q, s, _, _ = tcc.encode_reference(
-        _chunk(dev, shapes, 8, 1e-2), _chunk(dev, shapes, 9, 1e-2),
-        _chunk(dev, shapes, 10, 1e-5), modes, False,
-    )
-    x, a = _chunk(dev, shapes, 11), _chunk(dev, shapes, 12)
-    means = tuple(m[0].contiguous() for m in _chunk(dev, shapes, 13, 1e-2))
+    if ci < len(CIFAR_CHUNKS):
+        shapes = CIFAR_CHUNKS[ci]
+        modes = (mode,) * len(shapes)
+        q, s, _, _ = tcc.encode_reference(
+            _chunk(dev, shapes, 8, 1e-2), _chunk(dev, shapes, 9, 1e-2),
+            _chunk(dev, shapes, 10, 1e-5), modes, False,
+        )
+        x, a = _chunk(dev, shapes, 11), _chunk(dev, shapes, 12)
+        means = tuple(m[0].contiguous() for m in _chunk(dev, shapes, 13, 1e-2))
+    else:
+        case = CORR_EXTRA[ci - len(CIFAR_CHUNKS)]
+        shapes = ((5,), (0,), (8_193,)) if case == "an empty slice" else EDGE_SHAPES
+        modes = (mode,) * len(shapes)
+        x, a = (_comm_leaves(dev, shapes, 2, seed, 1.0) for seed in (11, 12))
+        means = [m[0].contiguous()
+                 for m in _comm_leaves(dev, shapes, 2, 13, 1e-2)]
+        if case == "x and mean off 16 bytes":
+            x, means = [_off_16_bytes(t) for t in x], [_off_16_bytes(t) for t in means]
+            assert x[0].data_ptr() % 16 == 4 and means[0].data_ptr() % 16 == 4
+        q = [_payload(dev, (2,) + sh, mode, 14 + i) for i, sh in enumerate(shapes)]
+        g = torch.Generator(device=dev).manual_seed(15)
+        s = [torch.rand(2, generator=g, device=dev) * 1e-3 + 1e-4
+             for _ in shapes]
+    before = tcc.LAUNCHES["comm_apply_correction"]
     got = tcc.apply_correction(x, a, q, s, means, modes)
     torch.cuda.synchronize()
+    assert tcc.LAUNCHES["comm_apply_correction"] == before + 1
     want = tcc.apply_correction_reference(x, a, q, s, means, modes)
     for g, w in zip(got[0] + got[1], want[0] + want[1]):
         _same_bits(g, w)
@@ -795,6 +837,24 @@ def test_lrn_kernels_match_plain(dev, shape, n, beta):
     torch.testing.assert_close(
         dx, tcl.lrn_across_bwd_reference(x, dy, n, 1e-4, beta, 1.0),
         rtol=5e-5, atol=5e-6)
+
+
+@pytest.mark.parametrize("shape", [(32, 96, 55, 55), (32, 256, 27, 27),
+                                   (16, 96, 55, 55), (16, 256, 27, 27)],
+                         ids=["conv1", "conv2", "conv1-test", "conv2-test"])
+@pytest.mark.parametrize("n,beta", [(5, 0.75), (5, 0.6), (3, 0.75)],
+                         ids=["fast", "powf", "n3"])
+def test_lrn_fwd_is_bit_equal_to_plain(dev, shape, n, beta):
+    """K5 at AlexNet's two LRN inputs, at the training batch 32 and the
+    test batch 16 (N x H x W is no multiple of a block's positions at
+    any of them), with Caffe's default window and power (the FAST
+    kernel) and with two other settings (the general kernel): every
+    operation an explicitly rounded intrinsic in the plain version's
+    order, so y equals the plain version's bits."""
+    x = _rand(dev, *shape, seed=28)
+    y = tcl.lrn_fwd(x, n, 1e-4, beta, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(y, tcl.lrn_across_reference(x, n, 1e-4, beta, 1.0))
 
 
 def _tie_input(dev, shape, seed):

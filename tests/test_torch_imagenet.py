@@ -442,17 +442,78 @@ def test_trainer_round_matches_the_jax_trainer(monkeypatch, fusion):
         np.testing.assert_allclose(tscores[name], jscores[name], rtol=1e-5)
 
 
+def test_overlapped_bf16_rounds_match_the_jax_trainer(monkeypatch):
+    """Two rounds of narrow AlexNet with ``compress="bf16",
+    overlap_avg=True`` and the JAX trainer with the same flags, then
+    ``finalize``: the second round starts from the first's average,
+    landed by the overlap correction (K11's plain version on the CPU),
+    and finalize lands the second's.  Losses within rtol 1e-5, as one
+    round's; each blob within 1e-3 of its move from the init (float32
+    sums in another order over two rounds, and a last-bit difference may
+    move a delta across a step of the bf16 grid; measured ~1e-4).
+    base_lr 0.001: at 0.01 the narrow net's loss on these unscaled
+    images climbs to ~100 in round 0."""
+    monkeypatch.setenv("SPARKNET_FUSION", "0")
+    text = narrow_alexnet(B, dropout=0.0)
+    rs = np.random.RandomState(9)
+    mean = (rs.rand(3, CROP, CROP) * 255).astype(np.float32)
+    rounds = [{"data": rs.randint(0, 256, (W, TAU, B, 3, CROP, CROP)).astype(np.uint8),
+               "label": rs.randint(0, 4, (W, TAU, B)).astype(np.float32)}
+              for _ in range(2)]
+    sp = 'base_lr: 0.001 lr_policy: "fixed" momentum: 0.9 weight_decay: 0.0005'
+    mesh = make_mesh({"dp": W}, devices=jax.devices()[:W])
+    jsolver = JSolver(
+        jconfig.parse_solver_prototxt(sp),
+        net_param=jconfig.parse_net_prototxt(text),
+        train_transform=jtransforms.train_transform(mean, CROP, mirror=False),
+        test_transform=jtransforms.test_transform(mean, CROP),
+    )
+    jt = JTrainer(jsolver, mesh, compress="bf16", overlap_avg=True)
+    tsolver = TSolver(
+        tconfig.parse_solver_prototxt(sp),
+        net_param=tconfig.parse_net_prototxt(text), device="cpu",
+        train_transform=ttransforms.train_transform(mean, CROP, mirror=False),
+        test_transform=ttransforms.test_transform(mean, CROP),
+    )
+    tt = TTrainer(tsolver, W, compress="bf16", overlap_avg=True)
+    jstate = jt.init_state(seed=0)
+    tparams, tstats = interop.net_params_from_jax(
+        {k: [np.asarray(b[0]) for b in v] for k, v in jstate.params.items()},
+        tsolver.net)
+    tstate = tt.broadcast_state(TrainState(
+        tparams, tstats, _init_history(tsolver.method, tparams),
+        torch.tensor(0)))
+    x0 = {k: [t[0].clone() for t in v] for k, v in tstate.params.items()}
+    for data in rounds:
+        jstate, jl = jt.round(jstate, shard_leading(data, mesh))
+        tstate, tl = tt.round(tstate, {k: torch.from_numpy(v)
+                                       for k, v in data.items()})
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5,
+                                   atol=1e-6)
+    assert tt._comm.has_pending
+    jstate, tstate = jt.finalize(jstate), tt.finalize(tstate)
+    assert not tt._comm.has_pending
+    for k, blobs in tstate.params.items():
+        for i, t in enumerate(blobs):
+            want = np.asarray(jstate.params[k][i])
+            step = float(np.abs(want - x0[k][i].numpy()[None]).max())
+            gap = float(np.abs(t.numpy() - want).max())
+            assert gap <= 1e-3 * step, f"{k}[{i}]: {gap} of {step}"
+
+
 # ----------------------------------------------------------------------
 # the app
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("fusion", ["0", "1"])
-def test_imagenet_app_runs_full_alexnet_on_the_cpu(monkeypatch, fusion):
+@pytest.mark.parametrize("fusion,extra", [
+    ("0", []), ("1", []), ("0", ["--compress", "bf16", "--overlap_avg"])],
+    ids=["0", "1", "0-bf16-overlap"])
+def test_imagenet_app_runs_full_alexnet_on_the_cpu(monkeypatch, fusion, extra):
     monkeypatch.setenv("SPARKNET_FUSION", fusion)
     result = {}
     rc = imagenet_app.main(
         ["--device", "cpu", "--workers", "2", "--tau", "2", "--rounds", "2",
          "--full_size", "72", "--crop", "67", "--train_batch", "4",
-         "--test_batch", "4", "--test_every", "1"], result)
+         "--test_batch", "4", "--test_every", "1"] + extra, result)
     assert rc == 0
     losses = result["losses"]
     assert losses.shape == (2, 2, 2) and np.isfinite(losses).all()
@@ -464,6 +525,9 @@ def test_imagenet_app_runs_full_alexnet_on_the_cpu(monkeypatch, fusion):
     assert result["mean"].shape == (3, 72, 72)
     for t in tree_leaves(result["state"].params):
         assert torch.isfinite(t).all()
+    if extra:  # every round's average landed, the last at finalize
+        assert tr._comm.compress == "bf16" and tr._comm.overlap
+        assert not tr._comm.has_pending
 
 
 @pytest.mark.parametrize("flag", [["--cache_dir", "/c"], ["--shuffle_epochs", "2"],
