@@ -15,13 +15,18 @@ Phases (any failure ends the run with a non-zero exit and no result):
    not, T in 16..256, a ragged T_q, a block of fully-masked rows; also
    the LM training shape, q, k, v as views of one fused qkv tensor, D=16,
    32, 48, 128 and 256, D=40 and 200 padded, and two launches at the LM
-   shape giving the same bits) and decode attention (8 slots x 256
-   positions, ragged lengths, also at D=16, 48, 256 and 40) — then each
-   kernel's time
+   shape giving the same bits) and decode attention over the paged KV
+   arena (the serving geometry: 8 slots, 64 blocks of 16 and the trash
+   block, each slot's table drawn shuffled, lengths 1-256; at D=64, 16,
+   48, 256 and 40, the arena kept at the built head dim; two launches
+   giving the same bits, no copy; length 0 giving o = 0; and through the
+   gathered entry point), then 8 decode steps of a head-dim-40 engine
+   that copy nothing — then each kernel's time
    beside its plain version's, one PyTorch library call's
    (``scaled_dot_product_attention``, a yardstick the port never calls)
    and the least time the card could take, the flash forward also at the
-   LM training shape (B=8, T=256, H=4, D=64, causal).
+   LM training shape (B=8, T=256, H=4, D=64, causal), decode attention
+   also at head dim 256 (H=2).
 3. End to end at the CLI's default model (``TransformerLM(dim=256,
    depth=4, heads=4, seq_len=256)``, seeded weights): the engine is
    built and warmed as ``cli serve --generate`` does, ``ServeServer``
@@ -31,7 +36,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
    logprob is held against a CPU copy of the same model (plain
    attention) scoring the same tokens teacher-forced, and every token
    against the CPU model's argmax except where its top-2 logit margin
-   is a near-tie.
+   is a near-tie.  The decode step with 8 live slots is profiled: every
+   device row printed, decode attention once a layer, no context gather
+   and no more launches than the step that gathered (190).
 
 4. The comm plane's epilogue kernels — K9 encode, K10 barriered apply,
    K11 overlap correction — against their plain versions on the card,
@@ -174,6 +181,12 @@ CLI_SERVE = dict(
 )
 PROMPT_LENS = (5, 23, 50, 100)
 MAX_NEW = 32
+# the decode kernel's slots: ragged, a block edge either side, full S
+DECODE_LENGTHS = [1, 17, 256, 100, 200, 64, 128, 255]
+# the decode step's launches (profiler rows, memcopies included) when
+# it still gathered each step's context out of the arena: 190 of 25
+# kinds at the CLI's default model; the paged step launches no more
+GATHERED_STEP_LAUNCHES = 190
 
 
 def check(cond: bool, msg: str) -> None:
@@ -217,6 +230,31 @@ def bound_ms(nbytes: float, ops: float, peak_ops_s: float = PEAK_FP32_S):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / peak_ops_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def paged_decode_case(dev, gen, h, d):
+    """``(q, arena_k, arena_v, block_table)`` at the serving geometry: 8
+    slots, the CLI's 64 KV blocks of 16 and the trash block 0, each
+    row ``arena_head_dim(d)`` wide (pad columns zero).  Each slot holds
+    the blocks its ``DECODE_LENGTHS`` entry needs, drawn shuffled from
+    the free list, and the trash block past them; the lengths need 67
+    blocks, so slots draw independently (the arena is only read)."""
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+
+    bs, nblocks = CLI_SERVE["kv_block_size"], CLI_SERVE["kv_blocks"]
+    b, width = CLI_SERVE["max_streams"], CLI_MODEL["seq_len"] // bs
+    dp = ca.arena_head_dim(d)
+    arenas = []
+    for _ in range(2):
+        a = torch.zeros(((nblocks + 1) * bs, h, dp))
+        a[..., :d] = torch.randn(((nblocks + 1) * bs, h, d), generator=gen)
+        arenas.append(a.to(dev))
+    table = torch.zeros((b, width), dtype=torch.int32)
+    for i, n in enumerate(DECODE_LENGTHS):
+        drawn = torch.randperm(nblocks, generator=gen)[: -(-n // bs)] + 1
+        table[i, : drawn.numel()] = drawn
+    q = torch.randn((b, 1, h, d), generator=gen)
+    return q.to(dev), arenas[0], arenas[1], table.to(dev)
 
 
 def max_err(got, want) -> float:
@@ -302,22 +340,58 @@ def check_kernels(dev):
     check(e <= KERNEL_ATOL, f"flash_fwd disagrees with offsets: {e}")
     flash_err = max(flash_err, e)
 
-    # decode attention at the serving decode shape
+    # decode attention (K2) on a paged arena at the serving geometry, at
+    # D = 64, 16, 48, 256 and 40 (the arena 48 wide, pad columns zero);
+    # two launches give the same bits, and no launch copies anything
     Bd, S = CLI_SERVE["max_streams"], CLI_MODEL["seq_len"]
-    lengths = torch.tensor([1, 17, 256, 100, 200, 64, 128, 255],
-                           dtype=torch.int32, device=dev)
+    bs = CLI_SERVE["kv_block_size"]
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
+    dec_err = 0.0
+    paged = {}
+    for d in (D, 16, 48, 256, 40):
+        case = paged_decode_case(dev, gen, H, d)
+        ca.reset_launch_counts()
+        o = ca.paged_decode_attention(*case, lengths, bs)
+        again = ca.paged_decode_attention(*case, lengths, bs)
+        check(ca.LAUNCHES["decode_attention"] == 2 and ca.PAD_COPIES == 0
+              and ca.ALIGN_COPIES == 0,
+              f"paged decode D={d}: launches {ca.LAUNCHES}, pad copies "
+              f"{ca.PAD_COPIES}, align copies {ca.ALIGN_COPIES}")
+        check(torch.equal(again, o),
+              f"paged decode D={d}: two launches on the same inputs differ")
+        e = max_err(o, ca.paged_decode_attention_reference(*case, lengths, bs))
+        print(f"K2 paged decode B={Bd} H={H} D={d} arena "
+              f"{tuple(case[1].shape)} lengths {DECODE_LENGTHS}: max_abs_err "
+              f"{e:.3e}, two launches bit-identical")
+        check(e <= KERNEL_ATOL, f"paged decode disagrees at D={d}: {e}")
+        dec_err = max(dec_err, e)
+        paged[d] = case
+    # length 0 gives o = 0; the other slots are unchanged by it
+    some_empty = lengths.clone()
+    some_empty[::2] = 0
+    o = ca.paged_decode_attention(*paged[D], some_empty, bs)
+    check(bool((o[::2] == 0).all()), "paged decode: length 0 must give o = 0")
+    e = max_err(o, ca.paged_decode_attention_reference(*paged[D], some_empty,
+                                                       bs))
+    print(f"K2 paged decode, lengths {some_empty.tolist()}: o = 0 at length "
+          f"0, max_abs_err {e:.3e}")
+    check(e <= KERNEL_ATOL, f"paged decode disagrees with empty slots: {e}")
+    dec_err = max(dec_err, e)
+    # the gathered entry point: the same kernel, the identity table
     qd, kd, vd = rand(Bd, 1, H, D), rand(Bd, S, H, D), rand(Bd, S, H, D)
     od = ca.decode_attention(qd, kd, vd, lengths)
-    od_ref = ca.decode_attention_reference(qd, kd, vd, lengths)
-    dec_err = max_err(od, od_ref)
-    print(f"K2 decode_attention B={Bd} S={S} lengths "
-          f"{lengths.tolist()}: max_abs_err {dec_err:.3e}")
-    check(dec_err <= KERNEL_ATOL, f"decode_attention disagrees: {dec_err}")
+    e = max_err(od, ca.decode_attention_reference(qd, kd, vd, lengths))
+    print(f"K2 decode_attention (gathered) B={Bd} S={S} lengths "
+          f"{lengths.tolist()}: max_abs_err {e:.3e}")
+    check(e <= KERNEL_ATOL, f"decode_attention disagrees: {e}")
+    check(torch.equal(ca.decode_attention(qd, kd, vd, lengths), od),
+          "decode_attention: two launches on the same inputs differ")
+    dec_err = max(dec_err, e)
     for d in (16, 48, 256, 40):  # 40: zero-padded to the D = 48 build
         qs, ks, vs = rand(Bd, 1, H, d), rand(Bd, S, H, d), rand(Bd, S, H, d)
         e = max_err(ca.decode_attention(qs, ks, vs, lengths),
                     ca.decode_attention_reference(qs, ks, vs, lengths))
-        print(f"K2 decode_attention D={d}: max_abs_err {e:.3e}")
+        print(f"K2 decode_attention (gathered) D={d}: max_abs_err {e:.3e}")
         check(e <= KERNEL_ATOL, f"decode_attention disagrees at D={d}: {e}")
         dec_err = max(dec_err, e)
 
@@ -362,24 +436,43 @@ def check_kernels(dev):
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
     )
 
+    # K2 timed on the paged arena, beside masked SDPA on the context
+    # gathered from it; the bound counts the valid rows only
     n_valid = int(lengths.sum())
-    dec_bytes = 4 * (2 * Bd * H * D + 2 * n_valid * H * D + Bd)
-    db, dby = bound_ms(dec_bytes, 4 * H * D * n_valid)
     mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])
     mask = mask[:, None, None, :]
-    qdt, kdt, vdt = (x.transpose(1, 2) for x in (qd, kd, vd))
-    decode = timed(
-        dict(
-            name="decode_attention", route="cuda",
-            source="sparknet_tpu_torch/ops/csrc/decode_attention.cu",
-            replaces="sparknet_tpu/ops/pallas_attention.py:320",
-            max_abs_err=dec_err, bound_ms=db, bound_by=dby,
-            shape=f"B={Bd} S={S} H={H} D={D} sum(lengths)={n_valid} fp32",
-        ),
-        lambda: ca.decode_attention(qd, kd, vd, lengths),
-        lambda: ca.decode_attention_reference(qd, kd, vd, lengths),
-        lambda: F.scaled_dot_product_attention(qdt, kdt, vdt, attn_mask=mask),
-    )
+
+    def paged_timed(h, d, record):
+        case = paged[d] if h == H else paged_decode_case(dev, gen, h, d)
+        q, ak, av, table = case
+        db, dby = bound_ms(4 * (2 * Bd * h * d + 2 * n_valid * h * d + Bd),
+                           4 * h * d * n_valid)
+        rows = (table.long()[:, torch.arange(S, device=dev) // bs] * bs
+                + torch.arange(S, device=dev) % bs)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, ak[rows], av[rows]))
+        record.update(bound_ms=db, bound_by=dby, shape=(
+            f"paged: B={Bd} H={h} D={d} {ak.shape[0] // bs} blocks of {bs}, "
+            f"sum(lengths)={n_valid} fp32"))
+        return timed(
+            record,
+            lambda: ca.paged_decode_attention(q, ak, av, table, lengths, bs),
+            lambda: ca.paged_decode_attention_reference(q, ak, av, table,
+                                                        lengths, bs),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+        )
+
+    decode = paged_timed(H, D, dict(
+        name="decode_attention", route="cuda",
+        source="sparknet_tpu_torch/ops/csrc/decode_attention.cu",
+        replaces="sparknet_tpu/ops/pallas_attention.py:320",
+        max_abs_err=dec_err,
+    ))
+    wide = paged_timed(2, 256, {})
+    print(f"K2 paged decode [{wide['shape']}] on device: kernel "
+          f"{wide['ms']:.4f} ms ({wide['call_ms']:.4f} per call), plain "
+          f"{wide['plain_ms']:.4f} ms, library {wide['library_ms']:.4f} ms, "
+          f"bound {wide['bound_ms'] * 1e3:.3f} us ({wide['bound_by']})")
+    decode["d256"] = wide
     # K1 at the LM training shape, beside its SDPA yardstick and bound
     q, k, v = (rand(LB, LT, H, D) for _ in range(3))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -401,6 +494,40 @@ def check_kernels(dev):
               f"{r['library_ms']:.4f} ms ({r['library_call_ms']:.4f}), bound "
               f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
     return [flash, decode]
+
+
+def padded_decode_step(dev):
+    """``cli serve --generate --lm_dim 160 --lm_heads 4`` (head dim 40):
+    the pool keeps its rows 48 wide, so a decode step copies nothing
+    (``PAD_COPIES`` 0) and runs K2 once a layer; the streamed logprobs
+    within ``LOGPROB_ATOL`` of a CPU copy scoring the same tokens."""
+    from sparknet_tpu_torch.models.transformer_lm import TransformerLM
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+    from sparknet_tpu_torch.serve import GenerationEngine
+
+    model, steps = dict(CLI_MODEL, dim=160), 8
+    engine = GenerationEngine(TransformerLM(**model), device=dev, **CLI_SERVE)
+    check(tuple(engine.pool.k.shape[2:]) == (4, 48),
+          f"D=40 pool rows {tuple(engine.pool.k.shape)}")
+    prompt = list(range(1, 30))
+    slot, tok, lp = engine.admit(prompt, steps + 1)
+    ca.reset_launch_counts()
+    toks, lps = [tok], [lp]
+    for _ in range(steps):
+        t, l = engine.step()[slot]
+        toks.append(t)
+        lps.append(l)
+    torch.cuda.synchronize()
+    launches, pads = dict(ca.LAUNCHES), ca.PAD_COPIES
+    engine.finish(slot)
+    cpu = GenerationEngine(TransformerLM(**model), device="cpu", **CLI_SERVE)
+    err = float(np.abs(np.array(lps) - cpu.score_tokens(prompt, toks)).max())
+    print(f"K2 in {steps} decode steps at head dim 40 (rows 48 wide): "
+          f"launches {launches}, pad copies {pads}, max |logprob diff| vs "
+          f"CPU {err:.3e}")
+    check(pads == 0 and launches["decode_attention"] == steps * model["depth"],
+          f"D=40 decode step: launches {launches}, pad copies {pads}")
+    check(err <= LOGPROB_ATOL, f"D=40 decode step: logprobs differ by {err}")
 
 
 # ----------------------------------------------------------------------
@@ -568,15 +695,27 @@ def where_time_goes(engine, card, iters: int = 15):
         busy = sum(r[0] for r in rows)
         check(busy > 0, f"{name}: the profiler saw no device time")
         attn = sum(r[0] for r in rows if "flash_fwd_kernel" in r[2]
-                   or "decode_kernel" in r[2])
+                   or "paged_decode" in r[2])
         n_kernels = sum(r[1] for r in rows)
         print(f"[{card}] {name}: {wall_ms:.3f} ms wall, {busy:.3f} ms "
               f"device busy ({busy / wall_ms:.1%}), {n_kernels} kernel "
               f"launches of {len(rows)} kinds; the port's attention "
               f"kernels {attn:.4f} ms ({attn / busy:.1%} of device)")
-        for ms, count, key in rows[:6]:
+        decode = name.startswith("decode")
+        for ms, count, key in rows if decode else rows[:6]:
             print(f"    {ms:.4f} ms ({ms / busy:.1%} of device, {count} "
                   f"launches)  {key[:90]}")
+        if decode:
+            # K2 reads the arena through the block table: no advanced-index
+            # read (the (L, B, S, H, D) context gather ran as one) and no
+            # more launches than the step that gathered
+            gathers = [r for r in rows if "index_kernel_impl" in r[2]]
+            check(not gathers, f"{name}: a context gather ran: {gathers}")
+            check(n_kernels <= GATHERED_STEP_LAUNCHES,
+                  f"{name}: {n_kernels} launches, more than the "
+                  f"{GATHERED_STEP_LAUNCHES} of the gathering step")
+            check(any("paged_decode_kernel" in r[2] and r[1] == CLI_MODEL[
+                "depth"] for r in rows), f"{name}: K2 not once a layer")
     for slot in slots:
         engine.finish(slot)
     check(engine.pool.used() == 0, "KV blocks leaked")
@@ -2110,6 +2249,7 @@ def main() -> int:
                 print(f"  {p.stem}: {entry}: {regs} registers; {spill}")
 
     kernels = check_kernels(dev)
+    padded_decode_step(dev)
     kernels += check_bwd_kernels(dev)
     time_wide_head(dev)
     comm_kernels = check_comm_kernels(dev)
@@ -2126,7 +2266,9 @@ def main() -> int:
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + (("shape",) if "shape" in r else ())}
+        for r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

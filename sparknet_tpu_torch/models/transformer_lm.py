@@ -12,8 +12,9 @@ Two views of one model, sharing the plan, the seeded init and the
 causal forward body (``causal_forward``):
 
 - ``TransformerLM``, an ``nn.Module`` for serving: ``init(seed)``
-  returns the module, ``prefill_with_kv`` / ``decode_step_with_kv``
-  serve ``cli serve --generate``;
+  returns the module, ``prefill_with_kv`` / ``decode_step_paged``
+  serve ``cli serve --generate`` (``decode_step_with_kv``, over a
+  gathered context, is the JAX model's counterpart);
 - ``TransformerLMNet``, the Solver "net protocol" of the JAX LM
   (``init(seed, device) -> (params, stats)``, ``loss_fn``,
   ``param_multipliers``, ``feed_blobs``) over a ``{group: [blob]}``
@@ -21,7 +22,8 @@ causal forward body (``causal_forward``):
 
 Attention runs through ``ops.cuda_attention``: the flash kernels (K1
 forward, K3/K4 backward) for prefill and every training step, the
-decode kernel for one new position — on CUDA tensors; on CPU tensors
+decode kernel (K2) for one new position, over the paged arena or a
+gathered context — on CUDA tensors; on CPU tensors
 their plain versions.  ``attention="dense"`` trains with
 ``ops.attention.mha_reference`` instead.  The sequence-parallel ring is
 not yet ported: both views refuse ``sp_size > 1``.
@@ -333,41 +335,76 @@ class TransformerLM(nn.Module):
         logits, ks, vs = self._causal_forward(tokens, keep_kv=True)
         return logits, torch.stack(ks), torch.stack(vs)
 
+    def _decode_layers(self, tokens, positions, attend):
+        """The layer loop of one decode position per sequence, shared by
+        both decode steps.  ``tokens`` and ``positions`` (B,) int64;
+        ``attend(i, q, k1, v1)`` stores layer i's new k1/v1 (B, H, D)
+        where its attention reads them and returns the attention of q
+        (B, 1, H, D).  Returns the logits (B, V)."""
+        B = tokens.shape[0]
+        x = self._embed(tokens, positions)[:, None, :]
+        for i, blk in enumerate(self.blocks):
+            q, k1, v1 = self._qkv(blk, blk.ln1(x))
+            out = attend(i, q, k1[:, 0], v1[:, 0])
+            x = x + out.reshape(B, 1, self.dim) @ blk.attn.wo
+            x = x + blk.mlp(blk.ln2(x))
+        return (self.ln_f(x) @ self.head)[:, 0]
+
     @torch.no_grad()
     def decode_step_with_kv(self, tokens, positions, k_ctx, v_ctx):
-        """One decode position per sequence against gathered KV context.
+        """One decode position per sequence against gathered KV context
+        (the JAX model's ``decode_step_with_kv``).
 
         ``tokens`` (B,) — the token to embed at ``positions`` (B,) (the
         number of already-cached positions per sequence); ``k_ctx``/
-        ``v_ctx`` (depth, B, S, H, D) — the paged-cache gather, rows at
+        ``v_ctx`` (depth, B, S, H, D) — a gathered context, rows at
         index >= positions[b] are garbage and masked off.  This step's
-        own K/V are written into ``k_ctx``/``v_ctx`` IN PLACE (the
-        caller's gather is a fresh copy, so this saves a second one) so
+        own K/V are written into ``k_ctx``/``v_ctx`` IN PLACE so
         attention sees them, and returned as ``new_k``/``new_v`` (depth,
-        B, H, D) for the engine to scatter into the arena.  Returns
-        ``(logits (B,V), new_k, new_v)``."""
+        B, H, D).  Returns ``(logits (B,V), new_k, new_v)``."""
         tokens = tokens.long()
         positions = positions.long()
-        B = tokens.shape[0]
-        H, D = self.heads, self.head_dim
-        x = self._embed(tokens, positions)[:, None, :]
-        rows = torch.arange(B, device=tokens.device)
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
         lengths = (positions + 1).to(torch.int32)
         new_ks, new_vs = [], []
-        for i, blk in enumerate(self.blocks):
-            q, k1, v1 = self._qkv(blk, blk.ln1(x))
-            k1, v1 = k1[:, 0], v1[:, 0]
+
+        def attend(i, q, k1, v1):
             new_ks.append(k1)
             new_vs.append(v1)
             k_ctx[i, rows, positions] = k1
             v_ctx[i, rows, positions] = v1
-            out = cuda_attention.decode_attention(
+            return cuda_attention.decode_attention(
                 q, k_ctx[i], v_ctx[i], lengths=lengths
             )
-            x = x + out.reshape(B, 1, self.dim) @ blk.attn.wo
-            x = x + blk.mlp(blk.ln2(x))
-        logits = (self.ln_f(x) @ self.head)[:, 0]
+
+        logits = self._decode_layers(tokens, positions, attend)
         return logits, torch.stack(new_ks), torch.stack(new_vs)
+
+    @torch.no_grad()
+    def decode_step_paged(self, tokens, positions, arena_k, arena_v,
+                          block_table, write_rows, lengths,
+                          block_size: int):
+        """One decode position per sequence against the paged KV arena,
+        read where it lives (the serving engine's decode step).
+
+        ``tokens``/``positions`` (B,) as ``decode_step_with_kv``'s;
+        ``arena_k``/``arena_v`` the pool's (depth, rows, H, Dp) arenas,
+        Dp >= D; ``block_table`` (B, max_blocks) int32 and ``lengths``
+        (B,) int32 (positions + 1) as ``paged_decode_attention`` takes
+        them; ``write_rows`` (B,) the arena row of each sequence's
+        position.  Each layer writes this step's K/V into the first D
+        columns of its arena at ``write_rows`` IN PLACE, then attends
+        through the table.  Returns the logits (B, V)."""
+        d = self.head_dim
+
+        def attend(i, q, k1, v1):
+            arena_k[i, :, :, :d].index_put_((write_rows,), k1)
+            arena_v[i, :, :, :d].index_put_((write_rows,), v1)
+            return cuda_attention.paged_decode_attention(
+                q, arena_k[i], arena_v[i], block_table, lengths, block_size
+            )
+
+        return self._decode_layers(tokens, positions, attend)
 
 
 class TransformerLMNet:

@@ -12,13 +12,16 @@ training run:
   (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``), the backward of the
   ``torch.autograd.Function`` around ``_flash_core`` that makes
   ``flash_attention`` and ``flash_attention_step`` differentiable;
-- ``decode_attention``: one query position over a gathered context
-  (``_decode_kernel``), used by every decode step.
+- ``paged_decode_attention``: one query position over the paged KV
+  arena, read through the block table (``_decode_kernel``), used by
+  every decode step; ``decode_attention``, the JAX function's
+  counterpart over a gathered context, runs the same kernel.
 
 Routing is by the tensors' device and nothing else: a CPU tensor goes
 to the plain version beside each kernel (``_flash_core_reference``,
 ``_flash_bwd_dq_reference``, ``_flash_bwd_dkv_reference``,
-``decode_attention_reference``), a CUDA tensor to the kernel — and a
+``paged_decode_attention_reference``, ``decode_attention_reference``),
+a CUDA tensor to the kernel — and a
 CUDA tensor the kernel does not take raises; it never falls back.
 ``LAUNCHES`` counts kernel launches (one per wrapper call that
 launched), so a run can show that its main path went through the
@@ -28,25 +31,28 @@ The kernels are built for the head dims in ``KERNEL_HEAD_DIMS`` (every
 multiple of 16 up to 128, then every multiple of 32 up to 256,
 ``csrc/head_dims.cuh``; above 128 K1, K3 and K4 split the output's
 columns into halves, one a block).  On CUDA tensors any other head dim
-D <= 256 is zero-padded up to the next built one, once:
-the autograd path (``flash_attention``, ``flash_attention_step``) pads
-q, k and v in the forward and keeps the padded tensors and o for the
-backward, which pads only do; ``decode_attention`` pads q and its
-gathered context.  Each copy is counted in ``PAD_COPIES``.  The kernels
-run with the scale of the true D, and o, dq, dk and dv are sliced back
-to D: zero columns add nothing to q.kT and only give v columns that are
-dropped, so lse is unchanged.  A head dim above 256 raises, naming the
-limit.  K1, K3 and K4 copy (B, T, H, D) rows into shared memory 16
-bytes at a time, so every row must start on 16 bytes.  The wrappers
-raise on what the kernels do not take; the autograd path hands them a
-contiguous copy of any input or cotangent whose rows are not 16-byte
-aligned, counted in ``ALIGN_COPIES``.
+D <= 256 is zero-padded up to the next built one, once: the autograd
+path (``flash_attention``, ``flash_attention_step``) pads q, k and v in
+the forward and keeps the padded tensors and o for the backward, which
+pads only do; ``decode_attention`` pads its gathered k and v.  Each
+copy is counted in ``PAD_COPIES``.  The paged decode pads nothing: the
+pool keeps its rows at ``arena_head_dim(D)`` with the pad columns zero,
+and K2 reads q and writes o at the true D.  The kernels run with the
+scale of the true D, and o, dq, dk and dv are sliced back to D: zero
+columns add nothing to q.kT and only give v columns that are dropped,
+so lse is unchanged.  A head dim above 256 raises, naming the limit.
+K1-K4 read (B, T, H, D) rows 16 bytes at a time, so every row must
+start on 16 bytes.  The wrappers raise on what the kernels do not take;
+the autograd path and the gathered decode hand them a contiguous copy
+of any input or cotangent whose rows are not 16-byte aligned, counted
+in ``ALIGN_COPIES``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from functools import lru_cache
 
 import torch
 
@@ -58,11 +64,12 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
 KERNEL_HEAD_DIMS = tuple(range(16, 129, 16)) + tuple(range(160, 257, 32))
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 
-# contiguous copies the autograd path made of tensors whose rows were not
-# 16-byte aligned, before a launch
+# contiguous copies the autograd path and the gathered decode made of
+# tensors whose rows were not 16-byte aligned, before a launch
 ALIGN_COPIES = 0
-# zero-padded copies the autograd path and decode made of tensors whose
-# head dim is not one the kernels are built for, before a launch
+# zero-padded copies the autograd path and the gathered decode made of
+# tensors whose head dim is not one the kernels are built for, before a
+# launch (the paged decode makes none)
 PAD_COPIES = 0
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -458,6 +465,20 @@ def flash_attention_step(q, k, v, q_offset: int, k_offset: int,
 # ----------------------------------------------------------------------
 # Decode attention (K2)
 # ----------------------------------------------------------------------
+# per-device (B * H) ticket counters of K2's in-kernel merge: zero
+# between launches (the merging CTA resets its own), so launches on one
+# stream share them
+_TICKETS: dict = {}
+
+
+def arena_head_dim(d: int) -> int:
+    """The width a head takes in a row of the paged KV arena: ``d``
+    rounded up to the head dim K2 is built for, whose pad columns stay
+    zero; ``d`` itself above ``MAX_HEAD_DIM``, which only the plain
+    version (CPU tensors) takes."""
+    return d if d > MAX_HEAD_DIM else _kernel_head_dim("decode_attention", d)
+
+
 def decode_attention_reference(q, k, v, lengths=None):
     """Dense masked decode attention — the plain version of the decode
     kernel (``_decode_reference`` of the JAX package)."""
@@ -476,13 +497,146 @@ def decode_attention_reference(q, k, v, lengths=None):
     return out.to(q.dtype)
 
 
+def paged_decode_attention_reference(q, arena_k, arena_v, block_table,
+                                     lengths, block_size: int):
+    """Plain version of the paged decode: the context gathered through
+    the block table (position j of slot b at arena row ``table[b, j //
+    block_size] * block_size + j % block_size``, the first D columns of
+    a head), then ``decode_attention_reference``; a length of 0 gives
+    o = 0, as the kernel does."""
+    d = q.shape[-1]
+    j = torch.arange(block_table.shape[1] * block_size, device=q.device)
+    rows = (block_table.long()[:, j // block_size] * block_size
+            + j % block_size)
+    n = lengths.clamp(0, j.numel())
+    o = decode_attention_reference(q, arena_k[rows, :, :d],
+                                   arena_v[rows, :, :d], n)
+    return o.masked_fill((n == 0)[:, None, None, None], 0.0)
+
+
+@lru_cache(maxsize=None)
+def _workspace_floats(b: int, h: int, dp: int, positions: int) -> int:
+    """Floats of K2's workspace for B slots of H heads at head dim dp and
+    contexts of up to ``positions``: its split partials."""
+    return _build.kernel("decode_attention", "sparknet_paged_decode_workspace",
+                         (_I,) * 4)(b, h, dp, positions)
+
+
+def _paged_decode(what, q, k, v, table, lengths, block_size: int,
+                  block_strides):
+    """Launch K2: q (B, 1, H, D); position j of slot b at ``k + table[b,
+    j // block_size] * sb + (j % block_size) * sr + h * sh``
+    (``block_strides`` (sb, sr, sh) of k and of v), rows of the built
+    head dim ``k.shape[-1]``."""
+    b, _, h, d = q.shape
+    dp = k.shape[-1]
+    floats = _workspace_floats(b, h, dp, table.shape[1] * block_size)
+    work = torch.empty((floats,), dtype=torch.float32, device=q.device)
+    tickets = _TICKETS.get(q.device)
+    if tickets is None or tickets.numel() < b * h:
+        tickets = _TICKETS[q.device] = torch.zeros(
+            (b * h,), dtype=torch.int32, device=q.device)
+    o = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    fn = _build.kernel("decode_attention", "sparknet_paged_decode_f32", (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P,
+    ))
+    (skb, skr, skh), (svb, svr, svh) = block_strides
+    with torch.cuda.device(q.device):
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
+            lengths.data_ptr(), o.data_ptr(), work.data_ptr(),
+            tickets.data_ptr(), b, h, d, dp, table.shape[1], block_size,
+            q.stride(0), q.stride(2), skb, skr, skh, svb, svr, svh,
+            table.stride(0), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.raise_on(rc, what)
+    LAUNCHES["decode_attention"] += 1
+    return o
+
+
+def _check_int32(what, name, t, shape, device):
+    if (t.dtype != torch.int32 or t.device != device
+            or tuple(t.shape) != shape or not t.is_contiguous()):
+        raise ValueError(
+            f"{what}: {name} must be a contiguous {shape} int32 tensor on "
+            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
+def paged_decode_attention(q, arena_k, arena_v, block_table, lengths,
+                           block_size: int):
+    """Single-position attention over the paged KV arena (K2 on CUDA
+    tensors, its plain version on CPU tensors).
+
+    ``q`` (B, 1, H, D); ``arena_k``/``arena_v`` one layer's (rows, H,
+    Dp) view of the pool (``serve/kv_cache.py``), Dp >= D
+    (``arena_head_dim(D)`` on the card); ``block_table`` (B, max_blocks)
+    int32: position j of slot b lives at row ``block_table[b, j //
+    block_size] * block_size + j % block_size``; ``lengths`` (B,) int32:
+    positions at or past ``min(lengths[b], max_blocks * block_size)``
+    are not read, and a length of 0 gives o = 0."""
+    b, tq, h, d = q.shape
+    what = "paged_decode_attention"
+    if tq != 1:
+        raise ValueError(f"{what} wants q_len=1, got {tq}")
+    if block_size < 1:
+        raise ValueError(f"{what}: block_size must be >= 1, got {block_size}")
+    if (block_table.dim() != 2 or block_table.shape[0] != b
+            or block_table.shape[1] < 1):
+        raise ValueError(
+            f"{what}: block_table must be (B={b}, max_blocks >= 1), got "
+            f"{tuple(block_table.shape)}"
+        )
+    _check_int32(what, "block_table", block_table, tuple(block_table.shape),
+                 q.device)
+    _check_int32(what, "lengths", lengths, (b,), q.device)
+    if (arena_k.dim() != 3 or arena_k.shape != arena_v.shape
+            or arena_k.shape[1] != h or arena_k.shape[2] < d):
+        raise ValueError(
+            f"{what}: arenas must be (rows, H={h}, Dp >= {d}), got "
+            f"{tuple(arena_k.shape)} and {tuple(arena_v.shape)}"
+        )
+    if _on_cpu(q):
+        return paged_decode_attention_reference(
+            q, arena_k, arena_v, block_table, lengths, block_size)
+    dp = _kernel_head_dim(what, d)
+    _check_cuda(what, q)
+    for name, t in (("arena_k", arena_k), ("arena_v", arena_v)):
+        if t.device != q.device or t.dtype != torch.float32:
+            raise ValueError(
+                f"{what}: {name} must be float32 on {q.device}, got "
+                f"{t.dtype} on {t.device}"
+            )
+        if t.shape[-1] != dp or t.stride(-1) != 1:
+            raise ValueError(
+                f"{what}: the kernel reads head dim {d} at rows of {dp} "
+                f"(arena_head_dim) with unit stride, got {name} "
+                f"{tuple(t.shape)} strides {t.stride()}"
+            )
+        if t.data_ptr() % 16 or t.stride(0) % 4 or t.stride(1) % 4:
+            raise ValueError(
+                f"{what}: the kernel loads rows of {name} 16 bytes at a "
+                "time: it needs a 16-byte aligned base and row and head "
+                f"strides that are multiples of 4, got data_ptr "
+                f"{t.data_ptr()} strides {t.stride()}"
+            )
+    strides = [(block_size * t.stride(0), t.stride(0), t.stride(1))
+               for t in (arena_k, arena_v)]
+    return _paged_decode(what, q, arena_k, arena_v, block_table, lengths,
+                         block_size, strides)
+
+
 def decode_attention(q, k, v, lengths=None):
     """Single-position attention for autoregressive decode.
 
     ``q`` is (B, 1, H, D); ``k``/``v`` are (B, S, H, D) gathered context
-    where only the first ``lengths[b]`` rows of sequence b are valid
-    (the paged-KV gather over-allocates to the static S); ``lengths``
-    None means the whole context is valid."""
+    where only the first ``lengths[b]`` rows of sequence b are valid;
+    ``lengths`` None means the whole context is valid.  The counterpart
+    of the JAX ``decode_attention``: on CUDA tensors it runs K2 on the
+    context seen as B blocks of S rows with the identity table (k and v
+    zero-padded to a built head dim first, counted in ``PAD_COPIES``)."""
     b, tq, h, d = q.shape
     if tq != 1:
         raise ValueError(f"decode_attention wants q_len=1, got {tq}")
@@ -497,29 +651,9 @@ def decode_attention(q, k, v, lengths=None):
         )
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
-    if (lengths.dtype != torch.int32 or lengths.device != q.device
-            or tuple(lengths.shape) != (b,) or not lengths.is_contiguous()):
-        raise ValueError(
-            "decode_attention: lengths must be a contiguous (B,) int32 "
-            f"tensor on {q.device}, got {lengths.dtype} "
-            f"{tuple(lengths.shape)} on {lengths.device}"
-        )
+    _check_int32("decode_attention", "lengths", lengths, (b,), q.device)
     dp = _kernel_head_dim("decode_attention", d)
-    q, k, v = (_pad_head(t, dp) for t in (q, k, v))
-    o = torch.empty((b, 1, h, dp), dtype=q.dtype, device=q.device)
-    fn = _build.kernel("decode_attention", "sparknet_decode_attention_f32", (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I,
-        _L, _L, _L, _L, _L, _L, _L, _L, _F, _P,
-    ))
-    with torch.cuda.device(q.device):
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            o.data_ptr(), b, s, h, dp,
-            q.stride(0), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.raise_on(rc, "decode_attention")
-    LAUNCHES["decode_attention"] += 1
-    return _unpad(o, d)
+    k, v = (_kernel_rows(_pad_head(t, dp)) for t in (k, v))
+    table = torch.arange(b, dtype=torch.int32, device=q.device)[:, None]
+    return _paged_decode("decode_attention", q, k, v, table, lengths, s,
+                         [t.stride()[:3] for t in (k, v)])

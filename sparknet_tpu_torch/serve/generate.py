@@ -10,9 +10,10 @@ The port of ``sparknet_tpu/serve/generate.py``, with the same surface
   arena.  Decode is ONE fixed-shape step over all ``max_streams`` slots,
   active or not; inactive slots compute into the trash block.
 - **Paged KV cache.**  ``serve/kv_cache.py`` owns the arena; the engine
-  keeps per-slot block tables as a host index map (slot, position) ->
-  arena row, gathers each step's context from it and scatters the new
-  position back.  The scatters update the arena in place.
+  keeps the per-slot block tables on the host and sends them to the
+  device once a decode step.  Each layer of the step writes its new
+  position's K/V into the arena in place and the decode kernel reads
+  the context through the table, where it lies: no gathered copy.
 - **Greedy decode, logprob out.**  Each admitted stream gets its first
   generated token from the prefill itself (the TTFT token), and greedy
   decode is deterministic, so re-prefilling prompt + tokens-so-far
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from sparknet_tpu_torch.obs.trace import span
+from sparknet_tpu_torch.ops.cuda_attention import arena_head_dim
 from sparknet_tpu_torch.serve.kv_cache import KVBlockPool
 from sparknet_tpu_torch.utils.devices import resolve_device
 
@@ -93,18 +95,21 @@ class GenerationEngine:
         self.max_prompt = self.buckets[-1]
         self.lm = lm.init(seed).to(self.device).eval()
 
+        # a head's rows at the decode kernel's built head dim, so that a
+        # decode step reads the arena as it lies at any model head dim
         self.pool = KVBlockPool(
             lm.depth,
             lm.heads,
-            lm.head_dim,
+            arena_head_dim(lm.head_dim),
             num_blocks=kv_blocks,
             block_size=kv_block_size,
             device=self.device,
         )
 
         # host-side slot state (the decode step's fixed-shape inputs)
-        S = lm.seq_len
-        self._index_map = np.zeros((self.max_streams, S), np.int64)
+        self._block_table = np.zeros(
+            (self.max_streams, self.pool.blocks_for(lm.seq_len)), np.int32
+        )
         self._positions = np.zeros((self.max_streams,), np.int64)
         self._last = np.zeros((self.max_streams,), np.int64)
         self._slot_blocks: List[List[int]] = [
@@ -134,8 +139,9 @@ class GenerationEngine:
         if keep.any():
             rows = self._to_dev(idx[keep])
             src = self._to_dev(np.flatnonzero(keep))
-            self.pool.k[:, rows] = k[:, 0, src]
-            self.pool.v[:, rows] = v[:, 0, src]
+            d = self.lm.head_dim
+            self.pool.k[:, rows, :, :d] = k[:, 0, src]
+            self.pool.v[:, rows, :, :d] = v[:, 0, src]
         lp = torch.log_softmax(logits[0, last], dim=-1)
         tok = torch.argmax(lp)
         # the first generated token IS the response — TTFT materializes here
@@ -143,19 +149,25 @@ class GenerationEngine:
 
     def _decode(self) -> Tuple[np.ndarray, np.ndarray]:
         self._shapes.add(("decode",))
-        index_map = self._to_dev(self._index_map)
-        positions = self._to_dev(self._positions)
-        kc = self.pool.k[:, index_map]  # (L, B, S, H, D) gathered context
-        vc = self.pool.v[:, index_map]
-        logits, nk, nv = self.lm.decode_step_with_kv(
-            self._to_dev(self._last), positions, kc, vc
+        B, bs = self.max_streams, self.pool.block_size
+        pos = self._positions
+        # each slot's new position lands in its block; inactive slots all
+        # write trash row 0: duplicate indices there are harmless whichever
+        # write lands
+        write = self._block_table[np.arange(B), pos // bs] * bs + pos % bs
+        # two copies to the device a step: the block table and the
+        # lengths (int32, as K2 reads them), then each slot's last token,
+        # position and write row
+        nb = self._block_table.shape[1]
+        paging = self._to_dev(np.concatenate(
+            [self._block_table.ravel(), pos + 1]).astype(np.int32))
+        table, lengths = paging[: B * nb].view(B, nb), paging[B * nb:]
+        last, positions, write_rows = self._to_dev(
+            np.stack([self._last, pos, write])).unbind(0)
+        logits = self.lm.decode_step_paged(
+            last, positions, self.pool.k, self.pool.v, table, write_rows,
+            lengths, bs,
         )
-        rows = torch.arange(self.max_streams, device=self.device)
-        write = index_map[rows, positions]
-        # inactive slots all write trash row 0: duplicate indices there
-        # are harmless whichever write lands
-        self.pool.k[:, write] = nk
-        self.pool.v[:, write] = nv
         lp = torch.log_softmax(logits, dim=-1)
         nxt = torch.argmax(lp, dim=-1)
         chosen = lp.gather(1, nxt[:, None])[:, 0]
@@ -282,7 +294,8 @@ class GenerationEngine:
                 if allocated_here:
                     self.pool.free(blocks)
                 raise
-            self._index_map[slot] = row
+            self._block_table[slot] = self.pool.table_row(
+                blocks, self._block_table.shape[1])
             self._positions[slot] = n
             self._last[slot] = tok
             self._slot_blocks[slot] = list(blocks)
@@ -320,7 +333,7 @@ class GenerationEngine:
             self._slot_rids[slot] = None
             self._positions[slot] = 0
             self._last[slot] = 0
-            self._index_map[slot, :] = 0
+            self._block_table[slot, :] = 0
         self.pool.free(blocks)
 
     def evict(self, slot: int) -> None:

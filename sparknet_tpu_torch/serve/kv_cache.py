@@ -6,7 +6,10 @@ allocated ONCE at engine build as device tensors of shape
 flat over positions, so a per-sequence block table maps logical
 position j to arena row ``table[j // block_size] * block_size + j %
 block_size`` — and every sequence borrows whole blocks from a
-host-side free list.
+host-side free list.  The decode kernel reads the arena in place
+through the block table.  The engine sizes a head's columns at the
+kernel's built head dim (the model's rounded up), writes K and V into
+the first ones and leaves the rest zero.
 
 Admission control: a stream reserves its WORST-CASE block count at
 submit time, so "out of KV memory" is a synchronous
@@ -15,8 +18,8 @@ mid-stream failure, and ``allocated_total == freed_total`` whenever the
 engine is drained.
 
 Block 0 is the TRASH block: it is never handed to a sequence, and every
-inactive decode slot's index row points at it, so the fixed-shape decode
-step's scatter lands somewhere harmless.  The
+inactive decode slot's block table points at it, so the fixed-shape
+decode step's write lands somewhere harmless.  The
 ``sparknet_kv_blocks_{used,total}`` gauges count allocatable blocks only.
 """
 
@@ -151,6 +154,15 @@ class KVBlockPool:
         cover = min(row_len, len(blocks) * bs)
         j = np.arange(cover)
         row[:cover] = np.asarray(blocks, np.int64)[j // bs] * bs + j % bs
+        return row
+
+    def table_row(self, blocks: List[int], n_blocks: int) -> np.ndarray:
+        """One sequence's block table, ``n_blocks`` int32 entries: its
+        blocks, then the trash block 0 past the reservation (never read
+        — lengths stop short of it — and never written)."""
+        row = np.zeros((n_blocks,), np.int32)
+        cover = min(n_blocks, len(blocks))
+        row[:cover] = blocks[:cover]
         return row
 
     @property

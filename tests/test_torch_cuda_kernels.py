@@ -6,7 +6,8 @@ there is no CUDA device.  On a machine with the card and nvcc::
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
 Attention, at every head dim the kernels are built for and at head dims
-the wrappers zero-pad onto them (``PADDED_DIMS``): tolerance 2e-5
+the wrappers zero-pad onto them (``PADDED_DIMS``; the paged decode reads
+them from an arena kept at the built head dim): tolerance 2e-5
 absolute, float32 on both sides, the kernels summing tile by tile
 (online softmax, K1's products as three TF32 products on the tensor
 cores) where the plain versions sum densely.  The flash backward (K3,
@@ -113,6 +114,64 @@ def test_decode_kernel_matches_plain(dev, d):
         tca.decode_attention(q, k, v),
         tca.decode_attention_reference(q, k, v), atol=ATOL, rtol=0,
     )
+
+
+def _paged_case(dev, h, d, lengths, bs, nblocks=40, seed=0):
+    """q, a paged arena of ``nblocks`` + 1 blocks of ``bs`` rows
+    ``arena_head_dim(d)`` wide (pad columns zero), and a block table of
+    shuffled, non-contiguous blocks covering each slot's length (the
+    trash block 0 past it), 80 positions wide."""
+    g = torch.Generator().manual_seed(seed)
+    dp, rows, width = tca.arena_head_dim(d), (nblocks + 1) * bs, -(-80 // bs)
+    arenas = []
+    for _ in range(2):
+        a = torch.zeros(rows, h, dp)
+        a[..., :d] = torch.randn(rows, h, d, generator=g)
+        arenas.append(a.to(dev))
+    table = torch.zeros(len(lengths), width, dtype=torch.int32)
+    for i, n in enumerate(lengths):
+        drawn = torch.randperm(nblocks, generator=g)[: min(-(-n // bs), width)]
+        table[i, : drawn.numel()] = drawn + 1
+    q = torch.randn(len(lengths), 1, h, d, generator=g).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return (q, arenas[0], arenas[1], table.to(dev)), lens
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("bs", [16, 5])
+def test_paged_decode_kernel_matches_plain(dev, d, bs):
+    """Lengths at a block edge and either side of it, 0 (o = 0), and past
+    the table's width (read up to the width); two launches give the same
+    bits; nothing is copied."""
+    lengths = [1, bs - 1, bs, bs + 1, 0, 77, 80, 1000]
+    case, lens = _paged_case(dev, 3, d, lengths, bs, seed=d)
+    tca.reset_launch_counts()
+    got = tca.paged_decode_attention(*case, lens, bs)
+    again = tca.paged_decode_attention(*case, lens, bs)
+    torch.cuda.synchronize()
+    assert tca.LAUNCHES["decode_attention"] == 2
+    assert tca.PAD_COPIES == 0 and tca.ALIGN_COPIES == 0
+    assert torch.equal(got, again)
+    assert got.shape == case[0].shape and bool((got[4] == 0).all())
+    want = tca.paged_decode_attention_reference(*case, lens, bs)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+def test_paged_decode_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    case, lens = _paged_case(dev, 2, 40, [3, 20], 16)
+    q, ak, av, table = case
+    with pytest.raises(ValueError, match="rows of 48"):
+        tca.paged_decode_attention(q, ak[..., :40], av[..., :40], table, lens,
+                                   16)
+    with pytest.raises(ValueError, match="block_table"):
+        tca.paged_decode_attention(q, ak, av, table.long(), lens, 16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        off = torch.zeros(ak.numel() + 1, device=dev)[1:].view(ak.shape)
+        tca.paged_decode_attention(q, off, av, table, lens, 16)
+    wide = torch.zeros(2, 1, 2, 272, device=dev)
+    arena = torch.zeros(32, 2, 272, device=dev)
+    with pytest.raises(ValueError, match="head_dim 272 is above"):
+        tca.paged_decode_attention(wide, arena, arena, table, lens, 16)
 
 
 BWD_RTOL = 2e-5
@@ -475,6 +534,34 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev):
         np.testing.assert_allclose(runs[0][1], runs[1][1], atol=1e-4)
     assert tca.LAUNCHES["flash_fwd"] == 2 * geom["depth"]
     assert tca.LAUNCHES["decode_attention"] == 2 * 11 * geom["depth"]
+
+
+def test_engine_decode_step_at_head_dim_40_copies_nothing(dev):
+    """``--lm_dim 160 --lm_heads 4``: the pool's rows are 48 wide, each
+    decode step runs K2 once a layer and pads nothing; tokens and
+    logprobs match the CPU engine's."""
+    geom = dict(dim=160, depth=2, heads=4, seq_len=64, vocab=64)
+    serve = dict(prefill_buckets=(8, 32), max_streams=3, kv_blocks=16,
+                 kv_block_size=16)
+    runs = []
+    for d in (dev, "cpu"):
+        eng = GenerationEngine(TransformerLM(**geom), device=d, **serve)
+        assert tuple(eng.pool.k.shape[2:]) == (4, 48)
+        slot, tok, lp = eng.admit(list(range(1, 20)), 10)
+        tca.reset_launch_counts()
+        toks, lps = [tok], [lp]
+        while len(toks) < 10:
+            t, l = eng.step()[slot]
+            toks.append(t)
+            lps.append(l)
+        torch.cuda.synchronize()
+        runs.append((toks, lps, tca.LAUNCHES["decode_attention"],
+                     tca.PAD_COPIES))
+        assert not eng.pool.k[..., 40:].any() and not eng.pool.v[..., 40:].any()
+    (gt, gl, launches, pads), (ct, cl, _, _) = runs
+    assert launches == 9 * geom["depth"] and pads == 0
+    assert gt == ct
+    np.testing.assert_allclose(gl, cl, atol=1e-4)
 
 
 # ----------------------------------------------------------------------

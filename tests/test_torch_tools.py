@@ -8,7 +8,7 @@ import re
 import pytest
 
 from sparknet_tpu_torch.ops import _build
-from sparknet_tpu_torch.tools import comm_tiles, lrn_tiles
+from sparknet_tpu_torch.tools import comm_tiles, decode_tiles, lrn_tiles
 
 
 @pytest.mark.parametrize("kernel,variant", [
@@ -31,3 +31,15 @@ def test_comm_tiles_variants_replace_the_tile_map_constants(variant):
     src = comm_tiles._variant_source(*variant)
     for name, val in (("TILE", tile), ("THREADS", threads), ("UNROLL", unroll)):
         assert f"constexpr int {name} = {val};" in src
+
+
+@pytest.mark.parametrize("variant", decode_tiles.VARIANTS)
+def test_decode_tiles_variants_replace_the_kernels_constants(variant):
+    split, threads, merge = variant
+    src = decode_tiles._variant_source(*variant)
+    for name, val in (("SPLIT", split), ("NT", threads),
+                      ("MERGE_IN_KERNEL", merge)):
+        assert f"constexpr int {name} = {val};" in src
+    # built only for the timed head dims
+    assert "FLASH_HEAD_DIMS(LAUNCH)" not in src
+    assert "LAUNCH(64) LAUNCH(256)" in src
