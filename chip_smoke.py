@@ -135,6 +135,28 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ``imagenet_app.main`` also runs on synthesized JPEG shards at a small
    size, driving the data stage.
 
+10. Weights and snapshots.  ``apps.lm_app`` at the serving width (W=2,
+   tau 4, batch 8, lr 0.01), in two legs — no compression and
+   ``--compress int8`` — each run 4 rounds straight through with
+   ``--snapshot_every 2``, then 2 rounds and a ``--resume`` run to round
+   4: the final params, the momentum stacks, the comm residuals and
+   every smoothed loss equal bit for bit, and the resumed run launches
+   K1, K3 and K4 (and K9/K10 once per comm chunk a round in the int8
+   leg; counts reset just before it and read just after).  The
+   uninterrupted leg's last snapshot, restored by a CPU solver, equals
+   the card's worker-0 state bit for bit.  ``cli serve --generate
+   --weights`` on that snapshot's ``.caffemodel``: phase 3's 4 streams
+   and checks against a CPU engine loaded from the same file, K1 and K2
+   launched, the tokens unlike the seeded engine's.  ``cli train
+   --solver`` on cifar10_full (batch 100, tau 10) and synthesized CIFAR
+   binaries: 40 iterations straight through vs 20 and ``--resume``,
+   bit-identical.  Then one LM round and one ``cli train`` window with
+   deterministic algorithms on and off (toggled here through
+   ``utils.devices.deterministic_algorithms``, the block the apps train
+   in), twice each: wall and device-busy time.  The phases before 10
+   run with torch's default settings: each app call puts them back on
+   its way out.
+
 The second-to-last line is ``{"kernels": [...]}`` (K1-K11); the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -143,14 +165,23 @@ from __future__ import annotations
 
 import http.client
 import json
+import os
 import re
+import shutil
 import sys
 import tempfile
 import threading
 import time
 
 import numpy as np
-import torch
+
+# cuBLAS reads its workspace setting when it first runs: the setting
+# under which it repeats itself bit for bit, before anything touches CUDA
+# (lm_app and cli train run deterministic algorithms, which need it)
+if os.environ.get("CUBLAS_WORKSPACE_CONFIG") not in (":4096:8", ":16:8"):
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+
+import torch  # noqa: E402
 
 # float32 on both sides; the kernels sum tile by tile (online softmax)
 # where the plain versions sum densely, so results agree to rounding
@@ -553,14 +584,16 @@ def _stream(host, port, prompt, out, i):
                   total_s=time.perf_counter() - t0)
 
 
-def serve_end_to_end(dev, card):
+def serve_end_to_end(dev, card, weights=None, out=None):
+    """Phase 3, and phase 10's ``--weights`` run (``weights``: a model
+    file both engines load); ``out`` receives each stream's tokens."""
     from sparknet_tpu_torch.models.transformer_lm import TransformerLM
     from sparknet_tpu_torch.ops import cuda_attention as ca
     from sparknet_tpu_torch.serve import GenerationEngine, ServeServer
 
     t0 = time.perf_counter()
-    engine = GenerationEngine(TransformerLM(**CLI_MODEL), device=dev,
-                              **CLI_SERVE)
+    engine = GenerationEngine(TransformerLM(**CLI_MODEL), weights=weights,
+                              device=dev, **CLI_SERVE)
     n_shapes = engine.warmup()
     print(f"engine built and warmed ({n_shapes} shapes, "
           f"{engine.lm.num_params()} params) in "
@@ -600,12 +633,13 @@ def serve_end_to_end(dev, card):
           "decode did not run the decode kernel")
 
     # the CPU reference: the same seeded model, plain attention
-    cpu = GenerationEngine(TransformerLM(**CLI_MODEL), device="cpu",
-                           **CLI_SERVE)
+    cpu = GenerationEngine(TransformerLM(**CLI_MODEL), weights=weights,
+                           device="cpu", **CLI_SERVE)
     for name, p in engine.lm.state_dict().items():
         check(torch.equal(p.cpu(), cpu.lm.state_dict()[name]),
               f"weights differ at {name}")
     worst_lp, worst_gpu_score, ties, n_tok = 0.0, 0.0, 0, 0
+    streamed = []
     for prompt, r in zip(prompts, results):
         check(r is not None and r["status"] == 200, f"stream failed: {r}")
         evs = r["events"]
@@ -614,6 +648,7 @@ def serve_end_to_end(dev, card):
         lps = np.array([e["logprob"] for e in evs if e["event"] == "token"])
         check(len(toks) == MAX_NEW and toks == evs[-1]["tokens"],
               "token events and the done event disagree")
+        streamed.append(toks)
         check(bool(np.isfinite(lps).all()), "non-finite logprob")
         ref_lp = cpu.score_tokens(prompt, toks)
         worst_lp = max(worst_lp, float(np.abs(lps - ref_lp).max()))
@@ -644,7 +679,10 @@ def serve_end_to_end(dev, card):
     print(f"[{card}] {n_tok} tokens in {wall:.3f} s wall: "
           f"{n_tok / wall:.1f} tokens/s across 4 streams; intertoken p50 "
           f"{server.batcher.m_intertoken.quantile(0.5) * 1e3:.2f} ms")
-    where_time_goes(engine, card)
+    if out is not None:
+        out["tokens"] = streamed
+    if weights is None:
+        where_time_goes(engine, card)
     return launches
 
 
@@ -1554,8 +1592,9 @@ def lm_train_end_to_end(dev, card):
     rc = lm_app.main(["--device", dev.type, "--workers", str(LM_W), "--tau",
                       str(LM_TAU), "--batch", str(LM_BATCH), "--rounds", "1",
                       "--dim", str(w["dim"]), "--depth", str(w["depth"]),
-                      "--heads", str(w["heads"]), "--seq_len", str(w["seq_len"]),
-                      "--base_lr", str(LM_LR), "--log_every", "1"], result)
+                      "--heads", str(w["heads"]), "--seq_len",
+                      str(w["seq_len"]), "--base_lr", str(LM_LR),
+                      "--log_every", "1"], result)
     torch.cuda.synchronize()
     wide = dict(ca.LAUNCHES)
     n = w["depth"] * LM_W * LM_TAU
@@ -2219,6 +2258,253 @@ def where_imnet_time_goes(dev, card, leg, fusion, compress, parts, mean,
               f"{key[:90]}")
 
 
+# ----------------------------------------------------------------------
+# phase 10: weights and snapshots on the card — lm_app resume to the bit,
+# the snapshot read on the CPU, serve --weights, cli train --resume, and
+# what deterministic algorithms cost
+# ----------------------------------------------------------------------
+SNAP_ROUNDS, SNAP_EVERY = 4, 2  # lm_app legs: 4 rounds, a snapshot every 2
+CLI_TRAIN_TAU, CLI_TRAIN_ITERS, CLI_TRAIN_SNAPSHOT = 10, 40, 20
+
+
+def _same_bits(a, b, what) -> None:
+    from sparknet_tpu_torch.utils.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    check(len(la) == len(lb), f"{what}: {len(la)} vs {len(lb)} leaves")
+    for x, y in zip(la, lb):
+        check(x.shape == y.shape and x.dtype == y.dtype
+              and torch.equal(x.cpu(), y.cpu()), f"{what}: a leaf differs")
+
+
+def _lm_snapshot_leg(dev, compress, root):
+    """One lm_app leg: SNAP_ROUNDS rounds straight through, then the same
+    run stopped after SNAP_EVERY rounds and resumed.  Returns the three
+    runs' results (uninterrupted, stopped, resumed) and the resumed
+    run's launches."""
+    from sparknet_tpu_torch.apps import lm_app
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+    from sparknet_tpu_torch.ops import cuda_comm as cc
+
+    argv = list(_lm_argv(dev))
+    argv[argv.index("--rounds") + 1] = str(SNAP_ROUNDS)
+    argv += ["--compress", compress, "--snapshot_every", str(SNAP_EVERY)]
+    pa, pb = f"{root}/{compress}/a/lm", f"{root}/{compress}/b/lm"
+    ra, rb, rc = {}, {}, {}
+    check(lm_app.main(argv + ["--snapshot_prefix", pa], ra) == 0,
+          f"lm_app {compress}: the uninterrupted run failed")
+    stop = list(argv)
+    stop[stop.index("--rounds") + 1] = str(SNAP_EVERY)
+    check(lm_app.main(stop + ["--snapshot_prefix", pb], rb) == 0,
+          f"lm_app {compress}: the stopped run failed")
+    ca.reset_launch_counts()
+    cc.reset_launch_counts()
+    check(lm_app.main(argv + ["--snapshot_prefix", pb, "--resume"], rc) == 0,
+          f"lm_app {compress}: the resumed run failed")
+    torch.cuda.synchronize()
+    launches = {**ca.LAUNCHES, **cc.LAUNCHES}
+    return ra, rb, rc, launches
+
+
+def lm_snapshot_end_to_end(dev, card, root):
+    """lm_app at the serving width, W=2, tau 4, batch 8: per leg (no
+    compression, ``--compress int8``) SNAP_ROUNDS rounds straight through
+    vs SNAP_EVERY rounds, then ``--resume`` to SNAP_ROUNDS — params,
+    momentum stacks, comm residuals and every smoothed loss equal bit
+    for bit, K1/K3/K4 (and K9/K10 in the int8 leg) launched in the
+    resumed run.  Then the uninterrupted leg's last snapshot, restored
+    by a CPU solver, equals the card's state bit for bit.  Returns the
+    resumed runs' launches and the snapshot's model file."""
+    from sparknet_tpu_torch.apps import lm_app
+    from sparknet_tpu_torch.io import checkpoint
+    from sparknet_tpu_torch.parallel import first_worker
+
+    n = LM_MODEL["depth"] * LM_W * LM_TAU * (SNAP_ROUNDS - SNAP_EVERY)
+    total, model_path = {}, None
+    for compress in ("none", "int8"):
+        t0 = time.perf_counter()
+        ra, rb, rc, launches = _lm_snapshot_leg(dev, compress, root)
+        wall = time.perf_counter() - t0
+        check(rc["start_round"] == SNAP_EVERY,
+              f"lm_app {compress}: resumed at round {rc['start_round']}")
+        _same_bits(ra["state"], rc["state"], f"lm_app {compress}: final state")
+        smoothed = rb["smoothed"] + rc["smoothed"]
+        check(ra["smoothed"] == smoothed,
+              f"lm_app {compress}: smoothed losses {ra['smoothed']} vs {smoothed}")
+        check(np.array_equal(ra["losses"],
+                             np.concatenate([rb["losses"], rc["losses"]])),
+              f"lm_app {compress}: per-iteration losses differ")
+        ea = ra["trainer"].export_comm_state()
+        ec = rc["trainer"].export_comm_state()
+        check((ea is None) == (ec is None) == (compress == "none"),
+              f"lm_app {compress}: comm state {ea is None} / {ec is None}")
+        if ea is not None:
+            check(all(np.array_equal(ea["resid"][k], ec["resid"][k])
+                      for k in ea["resid"]),
+                  f"lm_app {compress}: comm residuals differ")
+        chunks = len(rc["trainer"]._comm.chunk_slices) if ea is not None else 0
+        k9 = chunks * (SNAP_ROUNDS - SNAP_EVERY)
+        want = dict(flash_fwd=n, flash_bwd_dq=n, flash_bwd_dkv=n,
+                    comm_encode=k9, comm_apply_barriered=k9)
+        got = {k: launches[k] for k in want}
+        print(f"lm_app resume leg {compress} ({SNAP_ROUNDS} rounds vs "
+              f"{SNAP_EVERY} + --resume, snapshots every {SNAP_EVERY}; "
+              f"{wall:.2f} s for the three runs): final params, momentum "
+              f"stacks{', comm residuals' if ea else ''} and the smoothed "
+              f"losses {[round(x, 6) for x in smoothed]} equal bit for bit; "
+              f"resumed run's launches {got}")
+        check(got == want, f"lm_app {compress}: resumed launches {got}, "
+              f"expected {want}")
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "comm_encode",
+                  "comm_apply_barriered"):
+            total[k] = total.get(k, 0) + launches[k]
+        if compress == "none":
+            # the card's snapshot, read by a CPU solver
+            snap = ra["snapshots"][-1]
+            model_path = snap.replace(".solverstate.npz", ".caffemodel")
+            args = lm_app._parser().parse_args(_lm_argv(torch.device("cpu")))
+            _, cpu_solver = lm_app.build_lm_solver(args, torch.device("cpu"))
+            restored = checkpoint.restore(cpu_solver, snap)
+            card_state = first_worker(ra["state"])
+            _same_bits(restored, card_state, "card snapshot restored on the CPU")
+            print(f"{snap.rsplit('/', 1)[-1]}: restored by a CPU solver, equal "
+                  f"bit for bit to the card's worker-0 state "
+                  f"(iter {int(restored.iter)})")
+    return total, model_path
+
+
+def serve_weights_end_to_end(dev, card, model_path, seeded_tokens):
+    """``cli serve --generate --weights`` at the CLI model on the lm_app
+    snapshot's model file: phase 3's 4 streams and checks against a CPU
+    engine loaded from the same file, the tokens unlike the seeded
+    engine's.  Returns the launches."""
+    out = {}
+    launches = serve_end_to_end(dev, card, weights=model_path, out=out)
+    check(out["tokens"] != seeded_tokens,
+          "serve --weights streamed the seeded init's tokens")
+    check(launches["flash_fwd"] > 0 and launches["decode_attention"] > 0,
+          f"serve --weights: launches {launches}")
+    print(f"serve --weights {model_path.rsplit('/', 1)[-1]}: tokens differ from "
+          f"the seeded engine's in {sum(a != b for a, b in zip(out['tokens'], seeded_tokens))}"
+          f" of {len(seeded_tokens)} streams")
+    return launches
+
+
+def _cifar_solver_file(root, cifar_dir):
+    from sparknet_tpu_torch.models import ZOO_DIR
+
+    path = f"{root}/cifar10_full_solver.prototxt"
+    net = os.path.join(ZOO_DIR, "cifar10_full_train_test.prototxt")
+    with open(path, "w") as f:
+        f.write(f'net: "{net}"\nbase_lr: 0.001\n'
+                'momentum: 0.9\nweight_decay: 0.004\nlr_policy: "fixed"\n'
+                f'display: {CLI_TRAIN_TAU}\nsnapshot: {CLI_TRAIN_SNAPSHOT}\n'
+                f'snapshot_prefix: "{root}/cli/cifar10_full"\n')
+    return path
+
+
+def cli_train_end_to_end(dev, card, root):
+    """``cli train --solver`` on cifar10_full (batch 100) and synthesized
+    CIFAR binaries, tau 10: CLI_TRAIN_ITERS iterations straight through
+    vs CLI_TRAIN_SNAPSHOT, then ``--resume`` — the final states equal
+    bit for bit."""
+    from sparknet_tpu_torch.data import CifarLoader
+    from sparknet_tpu_torch.tools import cli
+
+    cifar = f"{root}/cifar"
+    CifarLoader.write_synthetic(cifar, num_train=5000, num_test=1000)
+    solver = _cifar_solver_file(root, cifar)
+    base = ["train", f"--solver={solver}", f"--data={cifar}",
+            f"--tau={CLI_TRAIN_TAU}", f"--device={dev.type}"]
+    ra, rc = {}, {}
+    t0 = time.perf_counter()
+    check(cli.main(base + [f"--max_iter={CLI_TRAIN_ITERS}"], ra) == 0,
+          "cli train: the uninterrupted run failed")
+    wall = time.perf_counter() - t0
+    shutil.rmtree(f"{root}/cli")
+    check(cli.main(base + [f"--max_iter={CLI_TRAIN_SNAPSHOT}"]) == 0,
+          "cli train: the stopped run failed")
+    check(cli.main(base + [f"--max_iter={CLI_TRAIN_ITERS}", "--resume"],
+                   rc) == 0, "cli train: the resumed run failed")
+    _same_bits(ra["state"], rc["state"], "cli train --resume: final state")
+    check(ra["smoothed_loss"] == rc["smoothed_loss"]
+          and np.isfinite(ra["smoothed_loss"]),
+          f"cli train smoothed loss {ra['smoothed_loss']} vs {rc['smoothed_loss']}")
+    print(f"[{card}] cli train --solver cifar10_full (batch 100, tau "
+          f"{CLI_TRAIN_TAU}): {CLI_TRAIN_ITERS} iterations in {wall:.2f} s "
+          f"straight through; {CLI_TRAIN_SNAPSHOT} + --resume to "
+          f"{CLI_TRAIN_ITERS} ends bit-identical (smoothed loss "
+          f"{ra['smoothed_loss']:.6f})")
+
+
+def _timed(fn, card, what):
+    """(wall ms, device-busy ms, {kernel: device ms}) of one call: a warm
+    call, a timed call, a profiled call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    busy = sum(rows.values())
+    check(busy > 0, f"{what}: the profiler saw no device time")
+    return wall, busy, rows
+
+
+def determinism_cost(dev, card, root):
+    """One LM round (the lm_app legs' trainer) and one cli train window
+    (cifar10_full, tau 10, batch 100) with deterministic algorithms on
+    and off, alternated twice: wall and device-busy time."""
+    from sparknet_tpu_torch import config
+    from sparknet_tpu_torch.data import CifarLoader
+    from sparknet_tpu_torch.solver import Solver
+    from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+
+    _, tr = _lm_trainer(dev)
+    lm_state = [tr.init_state(0)]
+    lm_batch = {k: torch.from_numpy(v).to(dev) for k, v in _lm_batch(0).items()}
+
+    def lm_round():
+        lm_state[0], _ = tr.round(lm_state[0], lm_batch)
+
+    solver = Solver(config.load_solver_prototxt(
+        _cifar_solver_file(root, f"{root}/cifar")), device=dev)
+    x, y = CifarLoader(f"{root}/cifar").minibatches(100)
+    window = {"data": torch.from_numpy(x[:CLI_TRAIN_TAU]).to(dev),
+              "label": torch.from_numpy(y[:CLI_TRAIN_TAU]).to(dev)}
+    cifar_state = [solver.init_state(0)]
+
+    def cli_window():
+        cifar_state[0], _ = solver.step(cifar_state[0], window)
+
+    rows = {}
+    for on in (True, False, True, False):
+        with deterministic_algorithms(on):
+            for what, fn in (("LM round", lm_round), ("cli train window", cli_window)):
+                rows.setdefault((what, on), []).append(_timed(fn, card, what))
+    print(card)
+    for what in ("LM round", "cli train window"):
+        det, nondet = rows[(what, True)], rows[(what, False)]
+        fmt = lambda r: ", ".join(f"{w:.3f} ms wall / {b:.3f} ms device"
+                                  for w, b, _ in r)
+        print(f"[{card}] determinism cost, {what}: deterministic {fmt(det)}; "
+              f"default {fmt(nondet)}")
+        on, off = det[-1][2], nondet[-1][2]  # the second of each
+        grew = sorted(((on.get(k, 0.0) - off.get(k, 0.0), k)
+                       for k in set(on) | set(off)), reverse=True)
+        for d, k in grew[:4]:
+            print(f"    {d:+.4f} ms deterministic ({on.get(k, 0.0):.4f} vs "
+                  f"{off.get(k, 0.0):.4f})  {k[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script runs on the card",
@@ -2254,11 +2540,21 @@ def main() -> int:
     time_wide_head(dev)
     comm_kernels = check_comm_kernels(dev)
     lrn_kernels = check_lrn_kernels(dev, card)
-    launches = serve_end_to_end(dev, card)
+    seeded = {}
+    launches = serve_end_to_end(dev, card, out=seeded)
     for leg in (lm_train_end_to_end, train_end_to_end,
                 imagenet_train_end_to_end):
         for name, n in leg(dev, card).items():
             launches[name] = launches.get(name, 0) + n
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_snap_") as root:
+        resumed, model_path = lm_snapshot_end_to_end(dev, card, root)
+        served = serve_weights_end_to_end(dev, card, model_path,
+                                          seeded["tokens"])
+        for got in (resumed, served):
+            for name, n in got.items():
+                launches[name] = launches.get(name, 0) + n
+        cli_train_end_to_end(dev, card, root)
+        determinism_cost(dev, card, root)
     kernels += comm_kernels + lrn_kernels
     for r in kernels:
         r["launches"] = launches[r["name"]]

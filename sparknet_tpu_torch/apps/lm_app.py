@@ -14,10 +14,22 @@ Run (on the card; ``--device cpu`` runs the plain versions on the CPU)::
         --heads 4 --seq_len 256 [--corpus DIR] [--rounds 40]
 
 A seeded synthetic corpus is written to a temporary directory when
-``--corpus`` is omitted.  ``--sp`` > 1, ``--snapshot_prefix``,
-``--snapshot_every``, ``--resume``, ``--cache_dir``, ``--cache_bytes``,
-``--elastic``, ``--slices``, ``--health``, ``--journal``, ``--obs`` and
-``--profile`` are not yet ported and exit saying so.
+``--corpus`` is omitted.
+
+Snapshots: with ``--snapshot_prefix P --snapshot_every k`` every k-th
+round boundary publishes worker 0's consensus params and momentum
+(``P_iter_N.caffemodel`` / ``.solverstate.npz``, the JAX package's
+files) and a ``.jobstate.npz`` with every worker's momentum, the comm
+plane's residuals, the loss window and the text cursor, under one CRC
+manifest (``io/checkpoint.py``).  ``--resume`` restarts from the newest
+snapshot that verifies at round ``iter // tau`` and continues bit for
+bit.  Every run trains inside ``utils.devices.deterministic_algorithms``,
+so an uninterrupted and a resumed run on the card take the same
+algorithms; torch's flags come back when ``main`` returns.
+
+``--sp`` > 1, ``--cache_dir``, ``--cache_bytes``, ``--elastic``,
+``--slices``, ``--health``, ``--journal``, ``--obs`` and ``--profile``
+are not yet ported and exit saying so.
 """
 
 from __future__ import annotations
@@ -34,11 +46,15 @@ TAU = 4
 
 # flags of the JAX app that later slices bring: (flag, takes a value)
 _NOT_YET_PORTED = (
-    ("--snapshot_prefix", True), ("--snapshot_every", True),
-    ("--resume", False), ("--cache_dir", True), ("--cache_bytes", True),
+    ("--cache_dir", True), ("--cache_bytes", True),
     ("--elastic", False), ("--slices", True), ("--health", False),
     ("--journal", False), ("--obs", False), ("--profile", False),
 )
+_REFUSAL_DETAIL = {
+    "--journal": (" (the run ledger that guides --resume and commits each "
+                  "--snapshot_prefix/--snapshot_every boundary; they work "
+                  "without it)"),
+}
 
 
 def add_lm_model_args(parser) -> None:
@@ -100,6 +116,16 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) or "
                    "cpu (the kernels' plain versions)")
+    p.add_argument("--snapshot_prefix", default=None,
+                   help="snapshot path prefix; with --snapshot_every, every "
+                   "k-th round boundary publishes a full-job-state snapshot "
+                   "(worker 0's params and momentum, every worker's momentum, "
+                   "the comm residuals, the loss window and the text cursor)")
+    p.add_argument("--snapshot_every", type=int, default=0)
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the newest valid snapshot under "
+                   "--snapshot_prefix and continue bit for bit (windows "
+                   "never skip or replay)")
     add_lm_model_args(p)
     comm.add_cli_args(p)  # --compress / --overlap_avg
     for flag, takes_value in _NOT_YET_PORTED:
@@ -110,12 +136,49 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
+def resume_lm_job(solver, trainer, prefix: str, sampler=None, tau: int = TAU,
+                  metrics=None):
+    """Resume from the newest valid snapshot under ``prefix`` (the JAX
+    app's ``restore_newest_valid`` branch): broadcast the consensus
+    params, put back the per-worker momentum stacks, the comm residuals
+    and the loss window from ``.jobstate.npz``, and check the text
+    cursor's corpus geometry.  Returns ``(state, start_round, state_path)``;
+    state None means there is no snapshot (start fresh at round 0)."""
+    from sparknet_tpu_torch.io import checkpoint
+    from sparknet_tpu_torch.parallel import restore_worker_history
+
+    try:
+        st, used = checkpoint.restore_newest_valid(solver, prefix,
+                                                   metrics=metrics)
+    except FileNotFoundError:
+        return None, 0, None
+    state = trainer.broadcast_state(st)  # resets the comm plane
+    start_round = int(st.iter) // max(1, tau)
+    js = checkpoint.load_job_state(used)
+    if js:
+        if "comm" in js:
+            trainer.restore_comm_state(js["comm"])
+        if "workers" in js:
+            # the consensus snapshot carries worker 0's history only;
+            # the true stacks ride in the jobstate
+            state = restore_worker_history(state, js["workers"])
+        if "solver" in js and "loss_window" in js["solver"]:
+            solver.restore_loss_window(js["solver"]["loss_window"])
+        cursor = js.get("cursor")
+        if sampler is not None and isinstance(cursor, dict) \
+                and "text_iter" in cursor:
+            sampler.verify_cursor(cursor)
+    return state, start_round, used
+
+
 def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int:
     """Train; returns the exit code.  ``result``, when given, receives the
     LM, the final state, the trainer, the metrics, the smoothed loss,
-    each round's per-worker losses (``losses``: (rounds, W, tau)) and each
-    round's wall seconds (from the round's start to its losses on the
-    host)."""
+    the first round this run trained (``start_round``), each of its
+    rounds' per-worker losses (``losses``: (rounds, W, tau)), smoothed
+    loss after the round (``smoothed``) and wall seconds (from the
+    round's start to its losses on the host), and the snapshots it wrote
+    (``snapshots``, solverstate paths)."""
     args = _parser().parse_args(argv)
     if args.sp > 1:
         raise SystemExit(
@@ -124,9 +187,24 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         )
     for flag, _ in _NOT_YET_PORTED:
         if getattr(args, flag.lstrip("-")) not in (None, False):
+            what = _REFUSAL_DETAIL.get(flag, "")
             raise SystemExit(
-                f"lm_app: {flag} is not yet ported to sparknet_tpu_torch"
+                f"lm_app: {flag}{what} is not yet ported to sparknet_tpu_torch"
             )
+    if args.resume and not args.snapshot_prefix:
+        raise SystemExit("lm_app: --resume needs --snapshot_prefix")
+    if args.overlap_avg and args.snapshot_prefix and args.snapshot_every:
+        raise SystemExit(
+            "lm_app: --overlap_avg with --snapshot_every: a snapshot needs a "
+            "round boundary with no average in flight"
+        )
+
+    from sparknet_tpu_torch.utils.devices import (
+        deterministic_algorithms,
+        resolve_device,
+    )
+
+    device = resolve_device(args.device)
 
     from sparknet_tpu_torch.data import (
         RoundFeed,
@@ -135,17 +213,27 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         stack_windows,
         write_synthetic_corpus,
     )
+    from sparknet_tpu_torch.io import checkpoint
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
     from sparknet_tpu_torch.obs.trace import span
-    from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
-    from sparknet_tpu_torch.utils.devices import resolve_device
+    from sparknet_tpu_torch.parallel import (
+        ParameterAveragingTrainer,
+        export_worker_history,
+        first_worker,
+    )
     from sparknet_tpu_torch.utils.trainlog import TrainingLog
 
-    device = resolve_device(args.device)
     n_workers = args.workers or (
         torch.cuda.device_count() if device.type == "cuda" else 1
     )
-    with tempfile.TemporaryDirectory(prefix="lm_synth_corpus_") as synth, \
+    prefix = args.snapshot_prefix
+    if args.resume and not checkpoint.find_snapshots(prefix):
+        # a typo'd prefix must not silently retrain the whole run
+        raise SystemExit(f"lm_app: --resume found no snapshots under {prefix!r}")
+    # on every run, before the first CUDA op: an uninterrupted and a
+    # resumed run take the same (deterministic) algorithms
+    with deterministic_algorithms(), \
+            tempfile.TemporaryDirectory(prefix="lm_synth_corpus_") as synth, \
             TrainingLog(tag="lm") as log:
         corpus = args.corpus
         if corpus is None:
@@ -174,7 +262,6 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             solver, n_workers, compress=args.compress,
             overlap_avg=args.overlap_avg, metrics=metrics,
         )
-        state = trainer.init_state(seed=args.seed)
 
         # one joined corpus stream, one cursor per dp worker
         base = TextWindowSampler(docs, args.seq_len, args.batch,
@@ -182,34 +269,73 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         samplers = [base.for_worker(w) for w in range(n_workers)]
         tokens_per_round = n_workers * args.tau * args.batch * args.seq_len
 
+        state, start_round = None, 0
+        if args.resume:
+            state, start_round, used = resume_lm_job(
+                solver, trainer, prefix, sampler=samplers[0], tau=args.tau,
+                metrics=metrics,
+            )
+            log.log(f"resumed from {used} at round {start_round} "
+                    f"(iter {start_round * args.tau})")
+        if state is None:
+            state = trainer.init_state(seed=args.seed)
+
         def assemble(r):
             with span("sample_text", cat="data", round=r):
                 windows = [s.window_for_round(r, args.tau) for s in samplers]
             return stack_windows(windows)
 
+        def snapshot(r):
+            """Publish the round-``r`` boundary: worker 0's consensus plus
+            the job state a resume puts back."""
+            extra = {
+                "cursor": samplers[0].cursor_for_iter((r + 1) * args.tau),
+                "workers": export_worker_history(state),
+                "solver": {"loss_window": solver.export_loss_window()},
+            }
+            comm_state = trainer.export_comm_state()
+            if comm_state is not None:
+                extra["comm"] = comm_state
+            _, state_path = checkpoint.snapshot(
+                solver, first_worker(state), prefix, fmt="BINARYPROTO",
+                extra_state=extra, metrics=metrics,
+            )
+            snapshots.append(state_path)
+            log.log(f"snapshotted round {r} to {state_path}")
+
+        n_rounds = max(0, args.rounds - start_round)
         feed = RoundFeed(assemble, device, pipelined=not args.serial_feed,
-                         num_rounds=args.rounds)
-        round_seconds, round_losses = [], []
+                         num_rounds=n_rounds, start_round=start_round)
+        round_seconds, round_losses, smoothed, snapshots = [], [], [], []
         try:
-            for r in range(args.rounds):
+            for r in range(start_round, args.rounds):
                 t0 = time.perf_counter()
                 state, losses = trainer.round(state, feed.next_round(r),
                                               round_index=r)
                 round_losses.append(losses.detach().cpu().numpy())
                 round_seconds.append(time.perf_counter() - t0)
                 metrics.lm_tokens.inc(tokens_per_round)
+                smoothed.append(solver.smoothed_loss)
                 if r % max(1, args.log_every) == 0 or r == args.rounds - 1:
-                    log.log(f"round {r} smoothed_loss {solver.smoothed_loss:.4f}")
+                    log.log(f"round {r} smoothed_loss {smoothed[-1]:.4f}")
+                if prefix and args.snapshot_every and \
+                        (r + 1) % args.snapshot_every == 0:
+                    snapshot(r)
             state = trainer.finalize(state)  # the last round's average lands
             loss = solver.smoothed_loss
             log.log(f"final smoothed_loss {loss:.4f}")
         finally:
             feed.stop()
         if result is not None:
-            result.update(lm=lm, state=state, trainer=trainer, metrics=metrics,
-                          smoothed_loss=loss, losses=np.stack(round_losses),
-                          round_seconds=round_seconds,
-                          tokens_per_round=tokens_per_round)
+            W = n_workers
+            result.update(
+                lm=lm, state=state, trainer=trainer, metrics=metrics,
+                smoothed_loss=loss, start_round=start_round,
+                losses=(np.stack(round_losses) if round_losses
+                        else np.zeros((0, W, args.tau), np.float32)),
+                smoothed=smoothed, round_seconds=round_seconds,
+                tokens_per_round=tokens_per_round, snapshots=snapshots,
+            )
         return 0
 
 

@@ -44,8 +44,9 @@ class RoundFeed:
 
     ``assemble(r)`` builds round ``r``'s host batch dict (numpy);
     ``next_round(r)`` returns it as tensors on ``device``.  Rounds are
-    consumed consecutively from 0; ``stop()`` ends the producer
-    (idempotent)."""
+    consumed consecutively from ``start_round`` (a resumed run's first
+    absolute round), ``num_rounds`` of them; ``stop()`` ends the
+    producer (idempotent)."""
 
     def __init__(
         self,
@@ -53,12 +54,13 @@ class RoundFeed:
         device: torch.device,
         pipelined: bool = True,
         num_rounds: Optional[int] = None,
+        start_round: int = 0,
     ):
         self._assemble = assemble
         self._device = torch.device(device)
         self._pipelined = bool(pipelined)
-        self._next_r = 0
-        self._end = num_rounds
+        self._next_r = int(start_round)
+        self._end = None if num_rounds is None else self._next_r + int(num_rounds)
         # two rounds in flight ahead of the consumer (PREFETCH_COUNT - 1
         # of the JAX feed)
         self._q: "queue.Queue" = queue.Queue(maxsize=2)

@@ -1,8 +1,17 @@
-"""Binary I/O of the port: the mean image (``mean.binaryproto``).
+"""Binary I/O of the port: the wire codec, ``.caffemodel`` weights and
+the mean image, HDF5 snapshots and the checkpoint layer (snapshot,
+verify, restore, quarantine, job state).
 
-The rest of the JAX package's ``io/`` (``.caffemodel`` weights,
-checkpoints, the journal) is not yet ported."""
+The JAX package's run journal (``io/journal.py``), its record stores
+(``io/lmdb.py``, ``io/leveldb.py``) and the prototxt binary codec
+(``io/protobin.py``, ``io/proto_fields.py``) are not yet ported."""
 
-from sparknet_tpu_torch.io.caffemodel import load_mean_image, save_mean_image
+from sparknet_tpu_torch.io.caffemodel import (
+    load_mean_image,
+    load_weights,
+    save_mean_image,
+    save_weights,
+)
 
-__all__ = ["load_mean_image", "save_mean_image"]
+__all__ = ["load_mean_image", "load_weights", "save_mean_image",
+           "save_weights"]

@@ -87,6 +87,36 @@ def blob_plan(vocab: int, dim: int, depth: int, seq_len: int,
     return plan
 
 
+class _Ref:
+    """Checkpoint blob reference (``io/caffemodel.py`` protocol): every
+    blob of the LM is a learnable param owned by its own group."""
+
+    __slots__ = ("collection", "owner", "index")
+
+    def __init__(self, owner: str, index: int):
+        self.collection = "params"
+        self.owner = owner
+        self.index = index
+
+
+class _Group:
+    """Layer stand-in for the checkpoint walkers (they read ``.name``)."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+
+def checkpoint_protocol(plan: Plan):
+    """``(layers, _blob_refs)`` of the JAX LM's checkpoint interface: one
+    group per param-dict key, blobs in plan order — what
+    ``io/caffemodel.net_blobs`` / ``apply_blobs`` walk, so an LM
+    ``.caffemodel`` holds one layer per group, as the JAX LM's does."""
+    return ([_Group(g) for g, _ in plan],
+            {g: [_Ref(g, i) for i in range(len(shapes))] for g, shapes in plan})
+
+
 def init_params(plan: Plan, depth: int, seed: int = 0) -> Params:
     """Seeded weights with the JAX package's recipe and key tree
     (``TransformerLM.init``): normal(0, 0.02) matrices drawn from
@@ -250,6 +280,7 @@ class TransformerLM(nn.Module):
         self.ln_f = _LayerNorm(E)
         self.head = nn.Parameter(torch.zeros(E, self.vocab))
         self._group_blobs = self._blob_plan()
+        self.layers, self._blob_refs = checkpoint_protocol(self._group_blobs)
 
     # ------------------------------------------------------------------
     def _blob_plan(self) -> Plan:
@@ -450,6 +481,7 @@ class TransformerLMNet:
         self.feed_blobs = ("tokens", "targets")
         self._group_blobs = blob_plan(self.vocab, self.dim, self.depth,
                                       self.seq_len, self.mlp_ratio)
+        self.layers, self._blob_refs = checkpoint_protocol(self._group_blobs)
 
     @property
     def on_kernel(self) -> bool:

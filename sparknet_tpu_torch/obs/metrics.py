@@ -272,8 +272,9 @@ class MetricsRegistry:
 
 
 class TrainingMetrics:
-    """The training series of the averaging trainer and its comm plane,
-    under the JAX package's names (``sparknet_tpu/obs/__init__.py``),
+    """The training series of the averaging trainer, its comm plane and
+    the checkpoint layer (``io/checkpoint.py``), under the JAX package's
+    names (``sparknet_tpu/obs/__init__.py``),
     registered on ``registry`` (a fresh one by default).  The trainer
     and the comm plane record into the object they are handed; there is
     no process-wide instance."""
@@ -326,4 +327,14 @@ class TrainingMetrics:
             "(10*log10(|delta|^2/|err|^2); 300 when the error is 0), by "
             "compression mode",
             labels=("compress",),
+        )
+        self.snapshots = r.counter(
+            "sparknet_snapshots_total", "checkpoints written"
+        )
+        self.restores = r.counter(
+            "sparknet_restores_total", "checkpoints restored"
+        )
+        self.quarantined = r.counter(
+            "sparknet_snapshots_quarantined_total",
+            "corrupt snapshots renamed *.corrupt by restore_newest_valid",
         )

@@ -75,9 +75,10 @@ LAYER_REGISTRY: Dict[str, Type[Layer]] = {}
 
 # layer types of the JAX package that later slices bring
 _NOT_YET_PORTED = frozenset((
-    "AbsVal", "ArgMax", "Attention", "BatchNorm", "Bias", "BNLL", "Concat",
+    "AbsVal", "ArgMax", "Attention", "BatchNorm", "BatchReindex", "Bias",
+    "BNLL", "Concat",
     "ContrastiveLoss", "Data", "Deconvolution", "DummyData",
-    "ELU", "Eltwise", "Embed", "EuclideanLoss", "Exp", "Flatten",
+    "ELU", "Eltwise", "Embed", "EuclideanLoss", "Exp", "Filter", "Flatten",
     "HDF5Data", "HDF5Output", "HingeLoss", "Im2col", "ImageData",
     "InfogainLoss", "Input", "Log", "MemoryData", "MultinomialLogisticLoss",
     "MVN", "Power", "PReLU", "Python", "Reduction", "Reshape", "Scale",

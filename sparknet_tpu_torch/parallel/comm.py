@@ -163,6 +163,9 @@ class CommPlane:
         self._payload_bytes_per_round = 0
         self._pending: Optional[dict] = None  # in-flight overlapped round
         self._pending_err = None  # last round's quant-error readout
+        # residuals of a restored job state, consumed by _setup when the
+        # first round has not run yet (restore_state)
+        self._resid_restore: Optional[list] = None
 
     # ------------------------------------------------------------------
     def _setup(self, state: TrainState) -> None:
@@ -187,6 +190,9 @@ class CommPlane:
         self._chunk_slices = [s for s in slices if s.stop > s.start]
         self._payload_bytes_per_round = _RING_FACTOR * total
         self._resid = [torch.zeros_like(x) for x in leaves]
+        if self._resid_restore is not None:
+            restored, self._resid_restore = self._resid_restore, None
+            self._load_resid(restored)
 
     @property
     def chunk_slices(self) -> List[slice]:
@@ -281,8 +287,61 @@ class CommPlane:
         self._pending = None
         self._pending_err = None
         self._anchor = None
+        self._resid_restore = None  # a stale pre-broadcast restore dies too
         if self._resid is not None:
             self._resid = [torch.zeros_like(r) for r in self._resid]
+
+    def export_state(self) -> Optional[dict]:
+        """Host copy of the carried error-feedback residuals — the
+        comm-plane half of a full-job-state snapshot (``io/checkpoint``
+        ``extra_state``); None before the first round.  A resumed run
+        that does not restore them resets the EF bias correction and
+        leaves the uninterrupted trajectory.  Call at a round boundary
+        with no overlapped average in flight (``finalize()`` first)."""
+        if self._resid is None:
+            return None
+        if self._pending is not None:
+            raise RuntimeError(
+                "export_state with an overlapped average in flight — "
+                "finalize() the round first"
+            )
+        return {
+            "compress": self.compress,
+            "resid": {str(i): r.detach().cpu().numpy()
+                      for i, r in enumerate(self._resid)},
+        }
+
+    def restore_state(self, exported: dict) -> None:
+        """Load residuals exported by ``export_state``.  Call AFTER the
+        restore path's ``reset()`` (``broadcast_state`` triggers it): place
+        the snapshot params, then put the residuals back.  A compress-mode
+        or shape mismatch fails loudly."""
+        if exported.get("compress") != self.compress:
+            raise ValueError(
+                "jobstate residuals were recorded under compress=%r, "
+                "this plane runs %r" % (exported.get("compress"), self.compress)
+            )
+        resid = exported["resid"]
+        leaves = [np.asarray(resid[str(i)]) for i in range(len(resid))]
+        if self._resid is not None:
+            self._load_resid(leaves)
+        else:
+            # the first round has not run: _setup loads these instead of
+            # zeros, shape-checked against the real comm leaves there
+            self._resid_restore = leaves
+
+    def _load_resid(self, leaves) -> None:
+        if len(leaves) != len(self._resid):
+            raise ValueError(
+                f"jobstate has {len(leaves)} residual leaves, plane "
+                f"carries {len(self._resid)}"
+            )
+        for got, want in zip(leaves, self._resid):
+            if tuple(got.shape) != tuple(want.shape):
+                raise ValueError(f"residual shape {got.shape} != "
+                                 f"{tuple(want.shape)}")
+        self._resid = [torch.from_numpy(np.array(l, np.float32)).to(w.device)
+                       for l, w in zip(leaves, self._resid)]
 
     def _join_pending(self) -> dict:
         """Wait for the paced chunk means; re-raise comm-thread errors."""

@@ -44,6 +44,40 @@ def stack_states(states: List[TrainState]) -> TrainState:
     return tree_unflatten(states[0], stacked)
 
 
+def first_worker(stacked_tree):
+    """Worker 0's slice of a worker-stacked tree (a ``TrainState`` or any
+    container of stacked leaves) — the consensus a snapshot keeps."""
+    return tree_map(lambda x: x[0], stacked_tree)
+
+
+def export_worker_history(state: TrainState) -> Dict:
+    """Per-worker momentum stacks as a ``.jobstate.npz`` fragment (the
+    ``workers`` key): the consensus snapshot keeps worker 0's history
+    only, so the true (W, ...) stacks ride beside it."""
+    return {"history": {str(i): l.detach().cpu().numpy()
+                        for i, l in enumerate(tree_leaves(state.history))}}
+
+
+def restore_worker_history(state: TrainState, workers_fragment) -> TrainState:
+    """Put the per-worker momentum stacks of ``export_worker_history``
+    back onto a broadcast-restored state, each on its leaf's device; a
+    shape mismatch fails loudly (the jobstate belongs to another trainer
+    geometry)."""
+    hd = workers_fragment["history"]
+    cur = tree_leaves(state.history)
+    leaves = [np.asarray(hd[str(i)]) for i in range(len(cur))]
+    if len(hd) != len(cur) or any(
+        tuple(l.shape) != tuple(c.shape) for l, c in zip(leaves, cur)
+    ):
+        raise ValueError(
+            "jobstate worker history does not match this trainer's shapes"
+        )
+    return state._replace(history=tree_unflatten(state.history, [
+        torch.from_numpy(np.array(l, np.float32)).to(c.device)
+        for l, c in zip(leaves, cur)
+    ]))
+
+
 def _bshape(t: torch.Tensor, ndim: int) -> torch.Tensor:
     return t.reshape((-1,) + (1,) * (ndim - 1))
 
@@ -113,6 +147,26 @@ class ParameterAveragingTrainer:
             return x.to(dev).unsqueeze(0).repeat((n,) + (1,) * x.dim())
 
         return TrainState(*(tree_map(rep, f) for f in st))
+
+    # --- full job state (io/checkpoint extra_state) ----------------------
+    def export_comm_state(self):
+        """The comm plane's error-feedback residuals as a host jobstate
+        fragment, or None on the fused round (no carried state)."""
+        if self._comm is None:
+            return None
+        return self._comm.export_state()
+
+    def restore_comm_state(self, exported) -> None:
+        """Load residuals of ``export_comm_state`` — call AFTER
+        ``broadcast_state`` (which resets the plane)."""
+        if exported is None:
+            return
+        if self._comm is None:
+            raise ValueError(
+                "jobstate carries comm residuals but this trainer runs "
+                "the fused round (compress/overlap off)"
+            )
+        self._comm.restore_state(exported)
 
     def _place_live(self, live_mask) -> torch.Tensor:
         """The (W,) float32 live mask on the device, cached per value."""

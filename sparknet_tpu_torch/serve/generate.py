@@ -43,6 +43,23 @@ from sparknet_tpu_torch.utils.devices import resolve_device
 DEFAULT_PREFILL_BUCKETS = (16, 32, 64, 128)
 
 
+def _load_weights(lm, path: str) -> None:
+    """Load a weight file into the serving module ``lm`` (on the CPU):
+    the file's blobs are the JAX group dict, laid over the module's own
+    groups by ``apply_blobs`` and carried in by ``lm_state_from_jax``."""
+    from sparknet_tpu_torch.interop import lm_state_from_jax
+    from sparknet_tpu_torch.io import caffemodel, checkpoint
+
+    current = {g: [p.detach().cpu() for p in ps]
+               for g, ps in lm.group_params().items()}
+    params, _ = caffemodel.apply_blobs(
+        lm, current, {}, checkpoint._load_model_blobs(path), strict=True
+    )
+    lm.load_state_dict(lm_state_from_jax(
+        {g: [b.numpy() for b in bs] for g, bs in params.items()}, lm
+    ))
+
+
 class GenerationEngine:
     """Serves greedy autoregressive decode for one ``TransformerLM``.
 
@@ -53,8 +70,10 @@ class GenerationEngine:
         engine draws its seeded weights (``lm.init(seed)``) and moves it
         to ``device``; the module is the engine's from then on.
     weights:
-        A ``.caffemodel`` / snapshot path in the JAX package; not yet
-        ported here (raises).  None serves the seeded init.
+        A ``.caffemodel`` or ``.caffemodel.h5`` (an ``lm_app`` snapshot's
+        model file, the JAX package's or the port's): its groups replace
+        the seeded init's by name, as ``CopyTrainedLayersFrom`` does;
+        a shape that does not fit raises.  None serves the seeded init.
     prefill_buckets:
         Ascending prompt-length buckets; longer prompts are refused.
     max_streams:
@@ -77,12 +96,6 @@ class GenerationEngine:
         seed: int = 0,
         device=None,
     ):
-        if weights:
-            raise NotImplementedError(
-                "serving --weights (.caffemodel / snapshot I/O) is not yet "
-                "ported to sparknet_tpu_torch; omit it to serve the seeded "
-                "init"
-            )
         self.device = resolve_device(device)
         self.max_streams = int(max_streams)
         if self.max_streams < 1:
@@ -93,7 +106,10 @@ class GenerationEngine:
         if not self.buckets:
             raise ValueError(f"no usable prefill buckets in {prefill_buckets}")
         self.max_prompt = self.buckets[-1]
-        self.lm = lm.init(seed).to(self.device).eval()
+        lm = lm.init(seed)
+        if weights:
+            _load_weights(lm, weights)
+        self.lm = lm.to(self.device).eval()
 
         # a head's rows at the decode kernel's built head dim, so that a
         # decode step reads the arena as it lies at any model head dim

@@ -5,11 +5,11 @@ The port of ``sparknet_tpu/solver.py`` (reference: ``sgd_solver.cpp``,
 (``learning_rate``), the 6 update rules (``_compute_update``) and
 ``Solver`` — ``_apply_update`` with weight decay (L1/L2),
 ``lr_mult``/``decay_mult``, ``iter_size`` and ``clip_gradients``,
-``_step_tau`` (tau iterations), the smoothed loss and
-``test_and_store_result``.  Where the JAX solver scans a jitted step,
-this one loops eagerly: gradients from ``torch.autograd``, updates out
-of place (a new tensor per blob), so a state handed in is never
-modified.  The numerics audit and ``debug_info`` are not ported.
+``_step_tau`` (tau iterations) under ``step`` and ``step_repeat``, the
+smoothed loss and ``test_and_store_result``.  Where the JAX solver
+scans a jitted step, this one loops eagerly: gradients from
+``torch.autograd``, updates out of place (a new tensor per blob), so a
+state handed in is never modified.  The numerics audit and ``debug_info`` are not ported.
 
 Randomness follows the JAX solver's key structure (``utils.rngs``):
 ``_step_tau`` takes a key, each iteration folds in its ``iter``, the
@@ -41,6 +41,7 @@ from sparknet_tpu_torch.config.schema import (
     solver_method,
 )
 from sparknet_tpu_torch.net import Params, Stats, TorchNet
+from sparknet_tpu_torch.obs.trace import span
 from sparknet_tpu_torch.utils import rngs
 from sparknet_tpu_torch.utils.devices import resolve_device
 from sparknet_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
@@ -138,7 +139,7 @@ class Solver:
 
         solver = Solver(solver_param, device="cpu")
         state = solver.init_state(seed=0)
-        state, losses = solver._step_tau(state, stacked_batches)  # tau iters
+        state, losses = solver.step(state, stacked_batches)  # tau iters
 
     ``device`` defaults to the card (``utils.devices.resolve_device``).
     ``net`` trains a net object instead of a prototxt net: anything with
@@ -303,6 +304,35 @@ class Solver:
             losses.append(loss)
         return state, torch.stack(losses)
 
+    def _to_device(self, batches) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(self.device) for k, v in batches.items()}
+
+    def step(self, state: TrainState, batches, rng: Optional[int] = None):
+        """Run tau iterations, tau being the leading axis of every entry
+        of ``batches`` (numpy arrays or tensors; the ``solver_step(state,
+        tau)`` analog, ccaffe.cpp:230-233).  Returns ``(state, per-iter
+        losses (tau,))``; the losses feed ``smoothed_loss``."""
+        with span("execute"):
+            state, losses = self._step_tau(state, self._to_device(batches), rng)
+        self.note_losses(losses)
+        return state, losses
+
+    def step_repeat(self, state: TrainState, batch, tau: int,
+                    rng: Optional[int] = None):
+        """Run ``tau`` iterations on the SAME batch (every blob without a
+        tau axis) — the throughput and single-batch overfit path.
+        Returns ``(state, losses (tau,))``."""
+        rng = rngs.train_key(0) if rng is None else rng
+        batch = self._to_device(batch)
+        losses = []
+        with span("execute"):
+            for _ in range(int(tau)):
+                state, loss = self._one_iter(state, batch, rng)
+                losses.append(loss)
+        losses = torch.stack(losses)
+        self.note_losses(losses)
+        return state, losses
+
     # ------------------------------------------------------------------
     # Smoothed loss (solver.cpp:225-234)
     # ------------------------------------------------------------------
@@ -322,6 +352,19 @@ class Solver:
                 vals = np.mean(vals, axis=0)
             for v in vals.reshape(-1):
                 self._loss_window.append(float(v))
+
+    def export_loss_window(self) -> np.ndarray:
+        """The ``average_loss`` window as float64 values (oldest first),
+        for a job-state snapshot: a resumed run that loads it logs the
+        uninterrupted run's smoothed losses."""
+        self._drain_losses()
+        return np.asarray(self._loss_window, np.float64)
+
+    def restore_loss_window(self, values) -> None:
+        """Replace the window with ``export_loss_window``'s values."""
+        self._pending_losses = []
+        self._loss_window.clear()
+        self._loss_window.extend(float(v) for v in np.asarray(values).reshape(-1))
 
     @property
     def smoothed_loss(self) -> float:

@@ -1,24 +1,36 @@
-"""Command-line entry point of the port: ``serve --generate``, ``train --lm``.
+"""Command-line entry point of the port: ``serve --generate``, ``train``.
 
-The port of the ``serve --generate`` subcommand of
+The port of the ``serve --generate`` and ``train`` subcommands of
 ``sparknet_tpu/tools/cli.py``, with the same flags and defaults plus
 ``--device`` (default ``cuda``; ``--device=cpu`` runs the plain
-attention versions on the CPU), and of ``train --lm``, which hands the
-rest of the line to ``apps/lm_app.py``::
+versions of the kernels on the CPU)::
 
-    python -m sparknet_tpu_torch.tools.cli serve --generate [--port 8361]
+    python -m sparknet_tpu_torch.tools.cli serve --generate [--port 8361] \
+        [--weights LM.caffemodel]
+    python -m sparknet_tpu_torch.tools.cli train --solver S.prototxt \
+        [--data CIFAR_DIR] [--snapshot F.solverstate.npz | --resume | \
+         --weights F.caffemodel] [--tau 10] [--max_iter N]
     python -m sparknet_tpu_torch.tools.cli train --lm [--dim 256 ...]
 
-The other subcommands, ``train`` with a prototxt ``--solver``, ``serve``
-without ``--generate`` (``/predict``), ``--weights``, ``--replicas`` and
-``--watch`` come with later slices and raise "not yet ported" here.
+``train --lm`` hands the rest of the line to ``apps/lm_app.py``.
+``train --solver`` snapshots every ``snapshot`` iterations of the
+solver (``{snapshot_prefix}_iter_N.*``, ``io/checkpoint.py``), on
+SIGHUP and on SIGINT (then stops), and runs deterministic algorithms
+so that a resumed run repeats the uninterrupted one bit for bit.
+``serve`` without ``--generate`` (``/predict``), ``--replicas``,
+``--watch``, and ``train``'s ``--devices`` > 1, ``--journal``,
+``--health``, ``--publish_to``, ``--obs``, the chunk cache,
+``--shuffle_epochs`` > 1 and an object-store ``--data`` come with
+later slices and raise "not yet ported" here.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-from typing import List, Optional
+from typing import Dict, List, Optional
+
+import numpy as np
 
 
 def _not_yet_ported(what: str):
@@ -31,9 +43,7 @@ def cmd_serve(args) -> int:
     and chunked-NDJSON ``POST /generate``, on the card unless
     ``--device=cpu``."""
     if not args.generate:
-        _not_yet_ported("serve without --generate (/predict)")
-    if args.weights:
-        _not_yet_ported("--weights (.caffemodel / snapshot I/O)")
+        _not_yet_ported("serve without --generate (/predict, --net/--weights)")
     if args.replicas > 1:
         _not_yet_ported("--replicas (the serving fleet)")
     if args.watch:
@@ -51,6 +61,7 @@ def cmd_serve(args) -> int:
     ]
     engine = GenerationEngine(
         lm,
+        weights=args.weights,
         prefill_buckets=gen_buckets,
         max_streams=args.max_streams,
         kv_blocks=args.kv_blocks,
@@ -77,15 +88,209 @@ def cmd_serve(args) -> int:
     return server.run()
 
 
+def _synthetic_batches(net, tau: int, seed: int = 0) -> Dict[str, np.ndarray]:
+    """Random batches matching the net's feed shapes (labels in [0, 10)) —
+    the JAX package's ``data/source.synthetic_batches``."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for blob in net.feed_blobs:
+        shape = net.blob_shapes[blob]
+        if "label" in blob:
+            out[blob] = rng.randint(0, 10, (tau,) + tuple(shape)).astype(
+                np.float32)
+        else:
+            out[blob] = rng.randn(tau, *shape).astype(np.float32)
+    return out
+
+
+# train flags of the JAX CLI that later slices bring: (flag, refused when)
+_TRAIN_NOT_YET_PORTED = (
+    ("--devices", lambda a: a.devices > 1, " > 1 (allreduce data parallelism)"),
+    ("--journal", lambda a: a.journal, ""),
+    ("--health", lambda a: a.health, ""),
+    ("--publish_to", lambda a: a.publish_to, ""),
+    ("--obs", lambda a: a.obs, ""),
+    ("--cache_dir", lambda a: a.cache_dir or a.cache_bytes != "0",
+     " / --cache_bytes (the chunk cache)"),
+    ("--shuffle_epochs", lambda a: a.shuffle_epochs > 1, " > 1"),
+    ("--data", lambda a: a.data and "://" in a.data, " from an object store"),
+)
+
+
 def cmd_train(args) -> int:
-    """``train`` without ``--lm``: the prototxt solver path."""
-    raise SystemExit(
-        "train: a prototxt --solver is not yet ported to "
-        "sparknet_tpu_torch (train --lm trains the transformer LM)"
+    """``train --solver``: one solver steps tau iterations a window,
+    with snapshots every ``solver_param.snapshot`` iterations, on SIGHUP
+    and on a STOP signal (the JAX ``cli train``, one device)."""
+    if args.solver is None:
+        raise SystemExit("train: --solver is required without --lm")
+    for flag, refused, what in _TRAIN_NOT_YET_PORTED:
+        if refused(args):
+            raise SystemExit(
+                f"train: {flag}{what} is not yet ported to sparknet_tpu_torch"
+            )
+    # pure argument conflicts fail BEFORE any model/device setup
+    if args.resume and (args.snapshot or args.weights):
+        print(
+            "train: --resume scans the solver's snapshot_prefix and "
+            "conflicts with --snapshot/--weights — pass one or the other",
+            file=sys.stderr,
+        )
+        return 1
+    if args.compress != "none" or args.overlap_avg:
+        print(
+            "train: --compress/--overlap_avg apply to tau-round parameter "
+            "averaging — use the averaging apps (apps.cifar_app, "
+            "apps.imagenet_app, apps.lm_app)",
+            file=sys.stderr,
+        )
+        return 1
+
+    from sparknet_tpu_torch.utils.devices import (
+        deterministic_algorithms,
+        resolve_device,
     )
 
+    device = resolve_device(args.device)
+    # on every run, resumed or not, before the first CUDA op: both take
+    # the same algorithms
+    with deterministic_algorithms():
+        return _train_solver(args, device)
 
-def main(argv: Optional[List[str]] = None) -> int:
+
+def _train_solver(args, device) -> int:
+    from sparknet_tpu_torch import config
+    from sparknet_tpu_torch.data import CifarLoader, MinibatchSampler, RoundFeed
+    from sparknet_tpu_torch.io import checkpoint
+    from sparknet_tpu_torch.obs.metrics import TrainingMetrics
+    from sparknet_tpu_torch.solver import Solver
+    from sparknet_tpu_torch.utils.signals import SignalHandler, SolverAction
+    from sparknet_tpu_torch.utils.trainlog import TrainingLog
+
+    solver_param = config.load_solver_prototxt(args.solver)
+    solver = Solver(solver_param, device=device)
+    metrics = TrainingMetrics()
+    # one prefix rule for writing snapshots and for --resume's scan
+    prefix = solver_param.snapshot_prefix or "snapshot"
+    job_state = None
+    if args.resume:
+        # newest CRC-valid snapshot; corrupt ones are quarantined and the
+        # scan falls back (io/checkpoint.restore_newest_valid)
+        try:
+            state, used = checkpoint.restore_newest_valid(
+                solver, prefix, metrics=metrics)
+        except (FileNotFoundError, checkpoint.SnapshotCorrupt) as e:
+            print(f"train: --resume: {e}", file=sys.stderr)
+            return 1
+        job_state = checkpoint.load_job_state(used)
+        print(f"resumed from {used} at iter {int(state.iter)}")
+    elif args.snapshot:
+        state = checkpoint.restore(solver, args.snapshot, metrics=metrics)
+        job_state = checkpoint.load_job_state(args.snapshot)
+        print(f"resumed from {args.snapshot} at iter {int(state.iter)}")
+    else:
+        state = solver.init_state(seed=args.seed)
+        if args.weights:
+            state = checkpoint.load_weights_into_state(solver, state,
+                                                       args.weights)
+            print(f"warm-started weights from {args.weights}")
+    if job_state and "loss_window" in job_state.get("solver", {}):
+        solver.restore_loss_window(job_state["solver"]["loss_window"])
+
+    it = int(state.iter)
+    # the windows a run drew before its snapshot: a resumed run draws
+    # the uninterrupted run's next window, not the seed's first
+    rounds_done = it // args.tau
+    cursor = (job_state or {}).get("cursor")
+    if cursor is not None:
+        rounds_done = int(cursor["round"])
+        if int(cursor["iter"]) != it or rounds_done * args.tau != it:
+            print(
+                f"train: the snapshot ends window {rounds_done} at iter "
+                f"{int(cursor['iter'])}; --tau {args.tau} would draw windows "
+                "the uninterrupted run never drew — resume with its --tau",
+                file=sys.stderr,
+            )
+            return 1
+    sampler = None
+    if args.data:
+        loader = CifarLoader(args.data)
+        x, y = loader.minibatches(
+            solver.net.blob_shapes[solver.net.feed_blobs[0]][0]
+        )
+        sampler = MinibatchSampler({"data": x, "label": y},
+                                   num_sampled_batches=args.tau, seed=args.seed)
+        for _ in range(rounds_done):
+            sampler.next_window()
+
+    effects = {"stop": SolverAction.STOP, "snapshot": SolverAction.SNAPSHOT,
+               "none": SolverAction.NONE}
+    max_iter = args.max_iter or solver_param.max_iter or 1000
+    snap_every = solver_param.snapshot
+    ckpt = (checkpoint.AsyncCheckpointer(metrics=metrics)
+            if args.async_snapshot else None)
+
+    def assemble(r):
+        return (sampler.next_window() if sampler
+                else _synthetic_batches(solver.net, args.tau))
+
+    def job_extra():
+        # loop state a TrainState restore would reset
+        return {"cursor": {"iter": it, "round": it // args.tau},
+                "solver": {"loss_window": solver.export_loss_window()}}
+
+    def snapshot():
+        if ckpt is not None:
+            ckpt.save(solver, state, prefix, extra_state=job_extra())
+            log.log(f"async snapshot started at iter {it}")
+        else:
+            paths = checkpoint.snapshot(solver, state, prefix,
+                                        extra_state=job_extra(),
+                                        metrics=metrics)
+            log.log(f"snapshotted to {paths[0]}")
+
+    feed = RoundFeed(assemble, solver.device, pipelined=not args.serial_feed,
+                     num_rounds=max(0, -(-(max_iter - it) // args.tau)))
+    r = 0
+    with TrainingLog(tag="train") as log, SignalHandler(
+        sigint_effect=effects[args.sigint_effect],
+        sighup_effect=effects[args.sighup_effect],
+    ) as handler:
+        try:
+            while it < max_iter:
+                state, _ = solver.step(state, feed.next_round(r))
+                r += 1
+                it += args.tau
+                # SolverParameter.display: reading smoothed_loss waits for
+                # the card, so once per display interval
+                disp = solver_param.display or args.tau
+                if it % disp < args.tau:
+                    log.log(f"iter {it} smoothed_loss {solver.smoothed_loss:.4f}")
+                action = handler.get_action()
+                if action == SolverAction.SNAPSHOT or (
+                    snap_every and it % snap_every < args.tau
+                    and it >= snap_every
+                ):
+                    snapshot()
+                if action == SolverAction.STOP:
+                    log.log("stop requested; snapshotting and exiting")
+                    snapshot()
+                    break
+        finally:
+            feed.stop()
+            if ckpt is not None:
+                paths = ckpt.wait()
+                ckpt.close()
+                if paths:
+                    log.log(f"final async snapshot: {paths[0]}")
+    if args.result is not None:
+        args.result.update(state=state, solver=solver, metrics=metrics,
+                           smoothed_loss=solver.smoothed_loss)
+    return 0
+
+
+def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int:
+    """Run one subcommand; returns its exit code.  ``result``, when given,
+    receives ``train --solver``'s final state, solver and metrics."""
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     if argv[:1] == ["train"] and "--lm" in argv:
         # the transformer-LM workload: the rest of the line goes to
@@ -103,15 +308,52 @@ def main(argv: Optional[List[str]] = None) -> int:
                    "--workers, --rounds, --tau, --batch, --corpus DIR, "
                    "--dense_attention, --compress, --device)")
     p.add_argument("--solver", default=None,
-                   help="prototxt solver (not yet ported)")
-    p.set_defaults(fn=cmd_train)
+                   help="prototxt solver: one solver trains tau iterations "
+                   "a window on --data (or seeded random batches)")
+    p.add_argument("--snapshot", default=None,
+                   help="continue from this .solverstate.npz / .h5")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the newest CRC-valid snapshot under "
+                   "the solver's snapshot_prefix (corrupt ones are "
+                   "quarantined and skipped)")
+    p.add_argument("--weights", default=None,
+                   help="warm start from a .caffemodel / .caffemodel.h5")
+    p.add_argument("--data", default=None, help="CIFAR binary directory")
+    p.add_argument("--tau", type=int, default=10)
+    p.add_argument("--max_iter", type=int, default=0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--async_snapshot", action="store_true",
+                   help="write snapshots on a background thread")
+    p.add_argument("--serial_feed", action="store_true",
+                   help="assemble and copy each window on the training "
+                   "thread instead of the producer thread")
+    p.add_argument("--sigint_effect", choices=["stop", "snapshot", "none"],
+                   default="stop")
+    p.add_argument("--sighup_effect", choices=["stop", "snapshot", "none"],
+                   default="snapshot")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a CUDA device) or cpu")
+    from sparknet_tpu_torch.parallel import comm as _comm
+
+    _comm.add_cli_args(p)  # --compress / --overlap_avg (refused here)
+    p.add_argument("--devices", type=int, default=1, help="not yet ported")
+    p.add_argument("--cache_dir", default=None, help="not yet ported")
+    p.add_argument("--cache_bytes", default="0", help="not yet ported")
+    p.add_argument("--shuffle_epochs", type=int, default=0,
+                   help="not yet ported")
+    p.add_argument("--publish_to", default=None, help="not yet ported")
+    for flag in ("--journal", "--health", "--obs"):
+        p.add_argument(flag, action="store_true", help="not yet ported")
+    p.set_defaults(fn=cmd_train, result=None)
 
     p = sub.add_parser("serve")
     p.add_argument("--net", default=None,
                    help="deploy prototxt or zoo model name (the /predict "
                    "engine; not yet ported)")
     p.add_argument("--weights", default=None,
-                   help=".caffemodel / .caffemodel.h5 (not yet ported)")
+                   help="--generate: the LM's .caffemodel / .caffemodel.h5 "
+                   "(an lm_app snapshot's model file); omitted = the "
+                   "seeded init")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8361)
     p.add_argument("--queue", type=int, default=256,
@@ -151,6 +393,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.set_defaults(fn=cmd_serve)
 
     args = parser.parse_args(argv)
+    if result is not None:
+        args.result = result
     return args.fn(args)
 
 

@@ -1,10 +1,14 @@
-"""Signal-driven stop: the poll-a-flag discipline of the serving front end.
+"""Signal-driven stop/snapshot: the poll-a-flag discipline.
 
-The port's own copy of ``sparknet_tpu/utils/signals.py``, cut to what
-``serve/server.py`` uses: handlers only set a flag, and the serve loop
-polls it (SIGTERM is the orchestrator's shutdown signal, and the server
-drains on it).  The flight-recorder dump and the preemption hooks of
-the JAX package belong to the training slices and are not here.
+The port's own copy of ``sparknet_tpu/utils/signals.py`` (reference:
+``caffe/src/caffe/util/signal_handler.cpp:9-60``, the solver's
+per-iteration action poll, ``solver.cpp:267-280``, and the CLI flags
+``--sigint_effect/--sighup_effect``, tools/caffe.cpp:43-46).  Handlers
+only set flags; the training loop polls between rounds.  ``cli train``
+polls for STOP and SNAPSHOT, the serving front end
+(``serve/server.py``) stops on SIGTERM and drains.  The JAX package's
+SIGTERM hooks (for its membership and chaos runtimes) and its
+flight-recorder dump are not ported.
 """
 
 from __future__ import annotations
@@ -20,6 +24,10 @@ class SolverAction(enum.Enum):
 
 
 class SignalHandler:
+    """Installs a handler for each signal whose effect is not NONE.  Use
+    as a context manager so the previous handlers come back on any
+    exit."""
+
     def __init__(
         self,
         sigint_effect: SolverAction = SolverAction.STOP,
@@ -59,3 +67,9 @@ class SignalHandler:
         prev, self._prev = self._prev, {}
         for sig, handler in prev.items():
             signal.signal(sig, handler)
+
+    def __enter__(self) -> "SignalHandler":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.restore()

@@ -249,8 +249,9 @@ def test_lm_app_end_to_end_on_the_cpu():
 
 @pytest.mark.parametrize(
     "flag",
-    [["--sp", "2"], ["--snapshot_prefix", "/tmp/x"], ["--snapshot_every", "2"],
-     ["--resume"], ["--cache_dir", "/tmp/c"], ["--cache_bytes", "1G"],
+    [["--sp", "2"], ["--snapshot_prefix", "/tmp/x", "--journal"],
+     ["--snapshot_every", "2", "--journal"], ["--resume", "--journal"],
+     ["--cache_dir", "/tmp/c"], ["--cache_bytes", "1G"],
      ["--elastic"], ["--slices", "2"], ["--health"], ["--journal"], ["--obs"],
      ["--profile"]],
 )
@@ -266,7 +267,7 @@ def test_cli_train_lm_dispatch(tmp_path):
     assert cli.main(["train", "--lm", "--rounds", "1", "--corpus", str(corpus)]
                     + APP) == 0
     with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["train", "--solver", "solver.prototxt"])
+        cli.main(["train", "--solver", "solver.prototxt", "--devices", "2"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["train", "--lm", "--rounds", "1", "--corpus",
                   "file://" + str(corpus)] + APP)

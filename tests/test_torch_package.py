@@ -73,7 +73,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "data/round_feed.py", "apps/lm_app.py", "data/text.py",
                 "apps/imagenet_app.py", "ops/cuda_lrn.py", "ops/cuda_plp.py",
                 "data/imagenet.py", "data/transforms.py", "io/caffemodel.py",
-                "models/builders.py", "utils/rngs.py"):
+                "models/builders.py", "utils/rngs.py", "io/wire.py",
+                "io/checkpoint.py", "io/hdf5.py", "tools/cli.py"):
         assert os.path.join("sparknet_tpu_torch", mod) in rel
     for path in files:
         for mod in _imported_modules(path):
@@ -124,7 +125,7 @@ _CIFAR = ["--device", "cpu", "--workers", "2", "--tau", "2", "--rounds", "1"]
     "argv,what",
     [
         (["serve"], "/predict"),
-        (["serve", "--generate", "--weights", "w.caffemodel"], "--weights"),
+        (["serve", "--weights", "w.caffemodel"], "--weights"),
         (["serve", "--generate", "--replicas", "2"], "--replicas"),
         (["serve", "--generate", "--watch", "/pub"], "--watch"),
     ] + [
@@ -173,10 +174,22 @@ def test_zoo_refuses_models_not_yet_ported():
     assert models.load_model("caffenet", batch=2).name == "CaffeNet"
 
 
-def test_engine_refuses_weights():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        GenerationEngine(TransformerLM(**GEOM), weights="w.caffemodel",
-                         device="cpu")
+def test_engine_refuses_weights(tmp_path):
+    """Weights load now; a file whose groups do not fit the model (or
+    that fits none of them) is refused, never served half-loaded."""
+    from sparknet_tpu_torch.io import caffemodel
+
+    lm = TransformerLM(**GEOM)
+    wide = TransformerLM(**dict(GEOM, dim=64))
+    path = str(tmp_path / "w.caffemodel")
+    caffemodel.save_weights(
+        {g: [np.zeros(s, np.float32) for s in shapes]
+         for g, shapes in wide._blob_plan()}, path)
+    with pytest.raises(ValueError, match="blob shape"):
+        GenerationEngine(lm, weights=path, prefill_buckets=(8,), device="cpu")
+    caffemodel.save_weights({"conv1": [np.zeros(3, np.float32)]}, path)
+    with pytest.raises(ValueError, match="no layers matched"):
+        GenerationEngine(lm, weights=path, prefill_buckets=(8,), device="cpu")
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
