@@ -153,9 +153,30 @@ Phases (any failure ends the run with a non-zero exit and no result):
    bit-identical.  Then one LM round and one ``cli train`` window with
    deterministic algorithms on and off (toggled here through
    ``utils.devices.deterministic_algorithms``, the block the apps train
-   in), twice each: wall and device-busy time.  The phases before 10
-   run with torch's default settings: each app call puts them back on
-   its way out.
+   in), twice each: wall and device-busy time (after phase 11, with its
+   CaffeNet round).  The phases before 10 run with torch's default
+   settings: each app call puts them back on its way out.
+
+11. The two-phase ImageNet DB path.  Where Pillow imports,
+   ``imagenet_create_db_app.main`` on synthesized JPEG shards; then the
+   files it writes, through its ``write_dbs``, from seeded uint8 arrays:
+   W=2, full size 256, 1,000 classes (2-byte labels), 10 train batches
+   of 32 a worker (4 rounds read 16: the shards wrap), val shards of 2
+   and 1 batches of 16 (padded and masked).  ``imagenet_run_db_app``
+   with CaffeNet at full width (crop 227), tau 4, testing every 2
+   rounds, mirror and dropout on, warm-started from a seeded CaffeNet's
+   ``.caffemodel``, in two resume pairs — no compression and ``--compress
+   int8`` — each 4 rounds straight through with ``--snapshot_every 2``
+   vs 2 rounds and a ``--resume`` run to round 4: final params, momentum
+   stacks, the int8 residuals, every loss and the final accuracy equal
+   bit for bit; the resumed runs launch K5 and K6 (and K9/K10 once per
+   comm chunk a round) in the counts the arithmetic gives.  The last
+   snapshot, restored by a CPU solver, equals the card's worker-0 state
+   bit for bit.  ``cli test`` with the zoo AlexNet prototxt, that
+   snapshot's ``.caffemodel`` and an LMDB of 100 records at 227 written
+   by the port: scores within 1e-4 of ``--device cpu``, K5 launched.
+   Then the readers' records/s (native, Python) over one round's records
+   beside what a round consumes, and one CaffeNet DB round profiled.
 
 The second-to-last line is ``{"kernels": [...]}`` (K1-K11); the last
 line is ``{"ok": true, "device": {...}}``.
@@ -2459,10 +2480,11 @@ def _timed(fn, card, what):
     return wall, busy, rows
 
 
-def determinism_cost(dev, card, root):
-    """One LM round (the lm_app legs' trainer) and one cli train window
-    (cifar10_full, tau 10, batch 100) with deterministic algorithms on
-    and off, alternated twice: wall and device-busy time."""
+def determinism_cost(dev, card, root, db_round=None):
+    """One LM round (the lm_app legs' trainer), one cli train window
+    (cifar10_full, tau 10, batch 100) and, given ``db_round``, one
+    CaffeNet DB round (phase 11) with deterministic algorithms on and
+    off, alternated twice: wall and device-busy time."""
     from sparknet_tpu_torch import config
     from sparknet_tpu_torch.data import CifarLoader
     from sparknet_tpu_torch.solver import Solver
@@ -2485,13 +2507,16 @@ def determinism_cost(dev, card, root):
     def cli_window():
         cifar_state[0], _ = solver.step(cifar_state[0], window)
 
+    programs = [("LM round", lm_round), ("cli train window", cli_window)]
+    if db_round is not None:
+        programs.append(("CaffeNet DB round", db_round))
     rows = {}
     for on in (True, False, True, False):
         with deterministic_algorithms(on):
-            for what, fn in (("LM round", lm_round), ("cli train window", cli_window)):
+            for what, fn in programs:
                 rows.setdefault((what, on), []).append(_timed(fn, card, what))
     print(card)
-    for what in ("LM round", "cli train window"):
+    for what, _ in programs:
         det, nondet = rows[(what, True)], rows[(what, False)]
         fmt = lambda r: ", ".join(f"{w:.3f} ms wall / {b:.3f} ms device"
                                   for w, b, _ in r)
@@ -2503,6 +2528,365 @@ def determinism_cost(dev, card, root):
         for d, k in grew[:4]:
             print(f"    {d:+.4f} ms deterministic ({on.get(k, 0.0):.4f} vs "
                   f"{off.get(k, 0.0):.4f})  {k[:90]}")
+
+
+# ----------------------------------------------------------------------
+# phase 11: the two-phase ImageNet DB path — CaffeNet from record DBs,
+# warm-started and resumed to the bit, the snapshot read on the CPU,
+# cli test on an LMDB, and where a DB round's time goes
+# ----------------------------------------------------------------------
+DB_W, DB_TAU, DB_BATCH, DB_TEST_BATCH = 2, 4, 32, 16
+DB_FULL, DB_CROP, DB_CLASSES = 256, 227, 1000
+DB_ROUNDS, DB_SNAP_EVERY, DB_TEST_EVERY = 4, 2, 2
+# train batches a worker's shard holds: 4 rounds read 16, so each
+# shard wraps; the val shards hold 2 and 1 batches (padded and masked)
+DB_TRAIN_BATCHES, DB_VAL_BATCHES = 10, (2, 1)
+# cli test on the card vs the CPU, relative: float32 through AlexNet's
+# eight layers, summed in other orders
+CLI_TEST_RTOL = 1e-4
+CLI_TEST_BATCH, CLI_TEST_ITERS = 50, 2  # the zoo AlexNet's TEST batch
+
+
+def _write_db_dir(root):
+    """The files ``imagenet_create_db_app`` writes, from seeded uint8
+    arrays made with numpy (JPEG shards need Pillow): per-worker train
+    and val record DBs with 2-byte labels (1,000 classes), the infoFile
+    and the mean image, through the app's own ``write_dbs``."""
+    from sparknet_tpu_torch.apps import imagenet_create_db_app
+
+    rs = np.random.RandomState(1)
+
+    def part(nb, batch):
+        y = rs.randint(0, DB_CLASSES, (nb, batch)).astype(np.int32)
+        x = rs.randint(0, 100, (nb, batch, 3, DB_FULL, DB_FULL)).astype(np.uint8)
+        for c in range(3):  # a class-dependent channel shift, learnable
+            x[:, :, c] += np.uint8(60) * (y % 3 == c)[..., None, None].astype(np.uint8)
+        return x, y
+
+    train = [part(DB_TRAIN_BATCHES, DB_BATCH) for _ in range(DB_W)]
+    val = [part(nb, DB_TEST_BATCH) for nb in DB_VAL_BATCHES]
+    os.makedirs(root, exist_ok=True)
+    imagenet_create_db_app.write_dbs(root, train, val, {
+        "workers": DB_W, "full_size": DB_FULL, "classes": DB_CLASSES,
+        "train_batch": DB_BATCH, "test_batch": DB_TEST_BATCH}, _Log())
+
+
+def _db_argv(dev, db_dir, prefix, rounds, *extra):
+    return ["--db_dir", db_dir, "--model", "caffenet", "--device", dev.type,
+            "--tau", str(DB_TAU), "--rounds", str(rounds), "--test_every",
+            str(DB_TEST_EVERY), "--snapshot_every", str(DB_SNAP_EVERY),
+            "--snapshot_prefix", prefix, "--seed", "0", *extra]
+
+
+def _db_leg(dev, db_dir, root, compress, warm):
+    """One resume pair: DB_ROUNDS rounds straight through, then the same
+    run stopped after DB_SNAP_EVERY and resumed to DB_ROUNDS.  Returns
+    the three runs' results, the resumed run's launches and the three
+    runs' wall seconds."""
+    from sparknet_tpu_torch.apps import imagenet_run_db_app
+    from sparknet_tpu_torch.ops import cuda_comm as cc
+    from sparknet_tpu_torch.ops import cuda_lrn as cl
+    from sparknet_tpu_torch.ops import cuda_plp as cp
+
+    c = ("--compress", compress)
+    pa, pb = f"{root}/{compress}/a/caffenet", f"{root}/{compress}/b/caffenet"
+    ra, rb, rc = {}, {}, {}
+    t0 = time.perf_counter()
+    check(imagenet_run_db_app.main(_db_argv(dev, db_dir, pa, DB_ROUNDS, *c,
+                                            "--warm_start", warm), ra) == 0,
+          f"imagenet_run_db {compress}: the uninterrupted run failed")
+    check(imagenet_run_db_app.main(_db_argv(dev, db_dir, pb, DB_SNAP_EVERY, *c,
+                                            "--warm_start", warm), rb) == 0,
+          f"imagenet_run_db {compress}: the stopped run failed")
+    for mod in (cl, cp, cc):
+        mod.reset_launch_counts()
+    check(imagenet_run_db_app.main(_db_argv(
+        dev, db_dir, pb, DB_ROUNDS - DB_SNAP_EVERY, *c, "--resume"), rc) == 0,
+          f"imagenet_run_db {compress}: the resumed run failed")
+    torch.cuda.synchronize()
+    launches = {**cl.LAUNCHES, **cp.LAUNCHES, **cc.LAUNCHES}
+    return ra, rb, rc, launches, time.perf_counter() - t0
+
+
+def _reader_rates(db_dir, card, round_s):
+    """Records/s of the native reader (default thread count) and the
+    Python reader over one round's records, from opening the app's W
+    pipes to their tau-th batch (pulled in turn, as the feed pulls them),
+    beside what a round consumes."""
+    import json as _json
+
+    from sparknet_tpu_torch.apps import imagenet_run_db_app
+
+    with open(f"{db_dir}/imagenet_db_info.json") as f:
+        info = _json.load(f)
+    n = DB_W * DB_TAU * DB_BATCH
+    rates = {}
+    for native in (True, False):
+        pipes, tests = imagenet_run_db_app.open_pipes(
+            db_dir, info, DB_CROP, True, 0, native=native)
+        try:
+            for p in tests:
+                p.close()
+            t0 = time.perf_counter()
+            for p in pipes:
+                for _ in range(DB_TAU):
+                    p.next()
+            rates["native" if native else "python"] = \
+                n / (time.perf_counter() - t0)
+        finally:
+            for p in pipes + tests:
+                p.close()
+    need = n / round_s
+    print(f"[{card}] the reader over one round ({n} records of 3x{DB_FULL}"
+          f"x{DB_FULL} cropped to {DB_CROP}, float, mirror, full mean): native "
+          f"({os.cpu_count()} cores, {max(1, (os.cpu_count() or 2) - 1)} "
+          f"transform threads) {rates['native']:.1f} records/s, Python "
+          f"{rates['python']:.1f} records/s; a round consumes {need:.1f} "
+          f"records/s ({round_s * 1e3:.2f} ms a round)")
+
+
+def db_round_program(dev, db_dir):
+    """One CaffeNet DB round as a repeatable call: the app's solver and
+    trainer (W workers, no compression) on one round's batch from the
+    app's own pipes.  Returns the round function."""
+    import json as _json
+
+    from sparknet_tpu_torch.apps import imagenet_run_db_app
+    from sparknet_tpu_torch.data import stack_windows
+    from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
+
+    with open(f"{db_dir}/imagenet_db_info.json") as f:
+        info = _json.load(f)
+    solver = imagenet_run_db_app.build_solver("caffenet", info, DB_CROP, dev)
+    tr = ParameterAveragingTrainer(solver, DB_W)
+    pipes, tests = imagenet_run_db_app.open_pipes(db_dir, info, DB_CROP, True, 0)
+    try:
+        windows = []
+        for p in pipes:
+            bs = [p.next() for _ in range(DB_TAU)]
+            windows.append({"data": np.stack([b[0] for b in bs]),
+                            "label": np.stack([b[1] for b in bs])})
+    finally:
+        for p in pipes + tests:
+            p.close()
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in stack_windows(windows).items()}
+    state = [tr.init_state(0)]
+
+    def run():
+        state[0], _ = tr.round(state[0], batch)
+
+    return run
+
+
+def where_db_time_goes(dev, card, run):
+    """One CaffeNet DB round under ``torch.profiler``, with deterministic
+    algorithms as the app trains: wall, device busy share, launches, K5
+    and K6's share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+
+    with deterministic_algorithms():
+        run()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    rows = sorted(
+        ((e.self_device_time_total / 1e3, e.count, e.key)
+         for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        reverse=True,
+    )
+    busy = sum(r[0] for r in rows)
+    check(busy > 0, "CaffeNet DB round: the profiler saw no device time")
+    share = {tag: sum(r[0] for r in rows if re.search(kern, r[2]))
+             for tag, kern in (("K5", "lrn_fwd_kernel"),
+                               ("K6", "lrn_bwd_kernel"))}
+    n_kernels = sum(r[1] for r in rows)
+    print(f"[{card}] CaffeNet DB round (W={DB_W}, tau={DB_TAU}, batch "
+          f"{DB_BATCH}, deterministic): {wall_ms:.3f} ms wall, {busy:.3f} ms "
+          f"device busy ({busy / wall_ms:.1%}), {n_kernels} kernel launches of "
+          f"{len(rows)} kinds; " + ", ".join(
+              f"{t} {ms:.4f} ms ({ms / busy:.1%})" for t, ms in share.items()))
+    for ms, count, key in rows[:10]:
+        print(f"    {ms:.4f} ms ({ms / busy:.1%} of device, {count} launches)  "
+              f"{key[:90]}")
+
+
+def cli_test_end_to_end(dev, card, root, weights):
+    """``cli test`` with the zoo AlexNet prototxt (its TEST batch 50) on
+    an LMDB written by the port at the net's input size, with CaffeNet's
+    snapshot as weights (the same parameter shapes): on the card and with
+    ``--device cpu``, scores within CLI_TEST_RTOL; K5 launched twice a
+    batch on the card.  Returns the card run's launches."""
+    from sparknet_tpu_torch.io import lmdb
+    from sparknet_tpu_torch.models import ZOO_DIR
+    from sparknet_tpu_torch.ops import cuda_lrn as cl
+    from sparknet_tpu_torch.tools import cli
+
+    n = CLI_TEST_BATCH * CLI_TEST_ITERS
+    rs = np.random.RandomState(2)
+    src = f"{root}/val_lmdb"
+    lmdb.write_datum_lmdb(
+        src, rs.randint(0, 256, (n, 3, DB_CROP, DB_CROP)).astype(np.uint8),
+        rs.randint(0, DB_CLASSES, n))
+    argv = ["test", "--model", os.path.join(ZOO_DIR, "alexnet_train_val.prototxt"),
+            "--weights", weights, "--data", src, "--iterations",
+            str(CLI_TEST_ITERS)]
+    cpu, card_res = {}, {}
+    check(cli.main(argv + ["--device", "cpu"], cpu) == 0, "cli test on the CPU")
+    cl.reset_launch_counts()
+    t0 = time.perf_counter()
+    check(cli.main(argv + ["--device", dev.type], card_res) == 0,
+          "cli test on the card")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cl.LAUNCHES)
+    gaps = {k: abs(card_res["scores"][k] - cpu["scores"][k])
+            / max(abs(cpu["scores"][k]), 1e-12) for k in cpu["scores"]}
+    print(f"[{card}] cli test (zoo AlexNet, CaffeNet's snapshot, {n} LMDB "
+          f"records): {wall:.2f} s on the card; scores card "
+          f"{card_res['scores']} vs CPU {cpu['scores']}, relative gaps {gaps}; "
+          f"launches {launches}")
+    check(set(cpu["scores"]) == {"accuracy", "loss"}
+          and max(gaps.values()) <= CLI_TEST_RTOL,
+          f"cli test: the card's scores leave {CLI_TEST_RTOL} of the CPU's: {gaps}")
+    check(launches["lrn_fwd"] == 2 * CLI_TEST_ITERS and launches["lrn_bwd"] == 0,
+          f"cli test: launches {launches}")
+    return launches
+
+
+def db_end_to_end(dev, card, root):
+    """Phase 11 (see the module doc).  Returns the launches of the
+    resumed runs and of cli test, and the CaffeNet round for
+    ``determinism_cost``."""
+    import json as _json
+
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.apps import imagenet_create_db_app
+    from sparknet_tpu_torch.io import caffemodel, checkpoint
+    from sparknet_tpu_torch.net import TorchNet
+    from sparknet_tpu_torch.parallel import first_worker
+    from sparknet_tpu_torch.utils.devices import resolve_device
+
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    if have_pil:  # the create-DB app on synthesized JPEG shards
+        small = f"{root}/db_small"
+        check(imagenet_create_db_app.main(["--out", small, "--workers", "2"])
+              == 0, "imagenet_create_db_app.main failed")
+        with open(f"{small}/imagenet_db_info.json") as f:
+            info = _json.load(f)
+        print(f"imagenet_create_db_app.main on JPEG shards: {info}")
+    t0 = time.perf_counter()
+    db_dir = f"{root}/db"
+    _write_db_dir(db_dir)
+    print(f"record DBs written in {time.perf_counter() - t0:.2f} s: "
+          + ", ".join(f"{n} {os.path.getsize(f'{db_dir}/{n}')} B"
+                      for n in sorted(os.listdir(db_dir))))
+    # the warm start: a seeded CaffeNet's .caffemodel
+    cpu = resolve_device("cpu")
+    net = TorchNet(models.load_model("caffenet", classes=DB_CLASSES,
+                                     image=DB_CROP), "TRAIN")
+    params, stats = net.init(1, cpu)
+    warm = f"{root}/caffenet_seed1.caffemodel"
+    caffemodel.save_weights(caffemodel.net_blobs(net, params, stats), warm)
+    del params, stats
+
+    # the comm chunks of CaffeNet's parameters: 3, each one K9 and one
+    # K10 launch a round; the resumed runs train rounds 2 and 3 and test
+    # at round 2 and at the end (3 test batches each time, both LRNs)
+    resumed_rounds = DB_ROUNDS - DB_SNAP_EVERY
+    steps = DB_W * DB_TAU * resumed_rounds
+    n_tests = len([r for r in range(DB_SNAP_EVERY, DB_ROUNDS)
+                   if r % DB_TEST_EVERY == 0]) + 1
+    lrn = dict(lrn_fwd=2 * steps + 2 * n_tests * sum(DB_VAL_BATCHES),
+               lrn_bwd=2 * steps, lrn_pool_fwd=0, lrn_pool_bwd=0)
+    total, walls = {}, {}
+    for compress in ("none", "int8"):
+        ra, rb, rc, launches, wall = _db_leg(dev, db_dir, root, compress, warm)
+        check(rc["start_round"] == DB_SNAP_EVERY,
+              f"imagenet_run_db {compress}: resumed at round {rc['start_round']}")
+        _same_bits(ra["state"], rc["state"],
+                   f"imagenet_run_db {compress}: final state")
+        smoothed = rb["smoothed"] + rc["smoothed"]
+        check(ra["smoothed"] == smoothed,
+              f"imagenet_run_db {compress}: smoothed {ra['smoothed']} vs "
+              f"{smoothed}")
+        check(np.array_equal(ra["losses"],
+                             np.concatenate([rb["losses"], rc["losses"]])),
+              f"imagenet_run_db {compress}: per-iteration losses differ")
+        check(ra["accuracies"][-1] == rc["accuracies"][-1],
+              f"imagenet_run_db {compress}: final accuracy "
+              f"{ra['accuracies'][-1]} vs {rc['accuracies'][-1]}")
+        ea = ra["trainer"].export_comm_state()
+        ec = rc["trainer"].export_comm_state()
+        check((ea is None) == (ec is None) == (compress == "none"),
+              f"imagenet_run_db {compress}: comm state")
+        if ea is not None:
+            check(all(np.array_equal(ea["resid"][k], ec["resid"][k])
+                      for k in ea["resid"]),
+                  f"imagenet_run_db {compress}: comm residuals differ")
+        chunks = len(rc["trainer"]._comm.chunk_slices) if ea is not None else 0
+        check(compress == "none" or chunks == 3,
+              f"imagenet_run_db {compress}: {chunks} comm chunks, not 3")
+        want = dict(lrn, comm_encode=chunks * resumed_rounds,
+                    comm_apply_barriered=chunks * resumed_rounds,
+                    comm_apply_correction=0)
+        losses = ra["losses"].mean(axis=(1, 2))
+        rs_ = np.array(ra["round_seconds"][1:])
+        walls[compress] = float(rs_.mean())
+        print(f"[{card}] imagenet_run_db CaffeNet leg {compress} ({DB_ROUNDS} "
+              f"rounds vs {DB_SNAP_EVERY} + --resume, warm start, snapshots "
+              f"every {DB_SNAP_EVERY}; {wall:.2f} s for the three runs): final "
+              f"params, momentum stacks{', comm residuals' if ea else ''}, "
+              f"every loss and the final accuracy "
+              f"({ra['accuracies'][-1] * 100:.2f}%) equal bit for bit; smoothed "
+              f"{[round(x, 6) for x in smoothed]}; per-round mean loss "
+              + " ".join(f"{x:.6f}" for x in losses)
+              + f"; rounds 1..{DB_ROUNDS - 1} {rs_.mean() * 1e3:.2f} ms each; "
+              f"resumed run's launches {launches}")
+        check(launches == want,
+              f"imagenet_run_db {compress}: resumed launches {launches}, "
+              f"expected {want}")
+        check(bool(np.isfinite(ra["losses"]).all()),
+              f"imagenet_run_db {compress}: non-finite loss")
+        for name, v in launches.items():
+            total[name] = total.get(name, 0) + v
+        if compress == "none":
+            # the card's last snapshot, read by a CPU solver
+            from sparknet_tpu_torch.apps import imagenet_run_db_app
+
+            snap = ra["snapshots"][-1]
+            model_path = snap.replace(".solverstate.npz", ".caffemodel")
+            with open(f"{db_dir}/imagenet_db_info.json") as f:
+                info = _json.load(f)
+            cpu_solver = imagenet_run_db_app.build_solver("caffenet", info,
+                                                          DB_CROP, cpu)
+            restored = checkpoint.restore(cpu_solver, snap)
+            _same_bits(restored, first_worker(ra["state"]),
+                       "CaffeNet snapshot restored on the CPU")
+            print(f"{snap.rsplit('/', 1)[-1]}: restored by a CPU solver, equal "
+                  f"bit for bit to the card's worker-0 state (iter "
+                  f"{int(restored.iter)})")
+            del cpu_solver, restored
+    for name, v in cli_test_end_to_end(dev, card, root, model_path).items():
+        total[name] = total.get(name, 0) + v
+    _reader_rates(db_dir, card, walls["none"])
+    run = db_round_program(dev, db_dir)
+    where_db_time_goes(dev, card, run)
+    return total, run
 
 
 def main() -> int:
@@ -2554,7 +2938,10 @@ def main() -> int:
             for name, n in got.items():
                 launches[name] = launches.get(name, 0) + n
         cli_train_end_to_end(dev, card, root)
-        determinism_cost(dev, card, root)
+        db_launches, db_round = db_end_to_end(dev, card, root)
+        for name, n in db_launches.items():
+            launches[name] = launches.get(name, 0) + n
+        determinism_cost(dev, card, root, db_round)
     kernels += comm_kernels + lrn_kernels
     for r in kernels:
         r["launches"] = launches[r["name"]]

@@ -1,0 +1,353 @@
+"""ImageNetRunDBApp — phase 2 of the two-phase ImageNet DB path.
+
+The port of ``sparknet_tpu/apps/imagenet_run_db_app.py`` (reference:
+``ImageNetRunDBApp.scala:40-117``): read the infoFile and the mean image
+that ``imagenet_create_db_app`` wrote, feed each worker from its record
+DB through ``runtime.DataPipeline`` (random crop + mirror and the mean
+subtracted on the host for training, centre crop for testing), optionally
+warm-start from a ``.caffemodel`` (``net.loadWeightsFromFile``,
+``:72-77``), then the tau-averaging loop with the W workers stacked on
+one device, testing every ``--test_every`` rounds on the padded and
+masked test partitions.  On the card every LRN forward runs K5 and
+every LRN backward K6 (``ops/cuda_lrn.py``); ``--compress`` routes the
+average through K9/K10 (``ops/cuda_comm.py``).
+
+Snapshots: ``--snapshot_every k`` publishes worker 0's consensus every
+k rounds (``{prefix}_iter_N.caffemodel`` / ``.solverstate.npz``, the
+JAX package's files) with a ``.jobstate.npz`` (every worker's momentum,
+the comm residuals, the loss window and the cursor ``{"round": r}``).
+``--resume`` restarts from the newest snapshot that verifies (corrupt
+ones are quarantined) at round ``iter // tau`` and continues bit for
+bit (``--overlap_avg`` is refused with snapshots: it leaves the workers'
+params apart, where the JAX app snapshots worker 0's all the same): each train pipeline opens at the record the uninterrupted run
+would read next (``start = round * tau * train_batch``), where the JAX
+app reopens them at record 0.  Every run trains inside
+``utils.devices.deterministic_algorithms``, so an uninterrupted and a
+resumed run on the card take the same algorithms.  ``--rounds`` is the
+number of rounds this invocation runs, as in the JAX app.
+
+Run (on the card; ``--device cpu`` runs the kernels' plain versions)::
+
+    python -m sparknet_tpu_torch.apps.imagenet_run_db_app --db_dir DB_DIR \\
+        --rounds 20 [--warm_start weights.caffemodel]
+
+An object-store ``--db_dir``, ``--cache_dir``/``--cache_bytes``,
+``--shuffle_epochs`` > 1, ``--health``, ``--journal``, ``--obs``,
+``--profile``, ``--slices``, ``--cross_slice_every`` and ``--elastic``
+are not yet ported and exit saying so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+TAU = 50  # syncInterval, ImageNetRunDBApp.scala:104
+_MODELS = ("caffenet", "alexnet")
+
+# flags of the JAX app that later slices bring: (flag, takes a value)
+_NOT_YET_PORTED = (
+    ("--cache_dir", True), ("--cache_bytes", True), ("--health", False),
+    ("--journal", False), ("--obs", False), ("--profile", False),
+    ("--slices", True), ("--cross_slice_every", True), ("--elastic", False),
+)
+
+
+def _parser() -> argparse.ArgumentParser:
+    from sparknet_tpu_torch.parallel import comm
+
+    p = argparse.ArgumentParser(
+        prog="sparknet_tpu_torch.apps.imagenet_run_db_app")
+    p.add_argument("--db_dir", required=True,
+                   help="the directory imagenet_create_db_app wrote")
+    p.add_argument("--model", default="caffenet", help="caffenet | alexnet")
+    p.add_argument("--rounds", type=int, default=10,
+                   help="rounds this invocation runs")
+    p.add_argument("--tau", type=int, default=0, help="0 = reference (50)")
+    p.add_argument("--test_every", type=int, default=10)
+    p.add_argument("--crop", type=int, default=0,
+                   help="0 = 227 from 256, else 7/8 of the full size")
+    p.add_argument("--no_mirror", action="store_true")
+    p.add_argument("--warm_start", default=None,
+                   help=".caffemodel[.h5] to load weights from")
+    p.add_argument("--snapshot_every", type=int, default=0,
+                   help="snapshot every N rounds")
+    p.add_argument("--snapshot_prefix", default=None,
+                   help="default: DB_DIR/imagenet_db")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the newest valid snapshot")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--shuffle_epochs", type=int, default=0,
+                   help="not yet ported above 1")
+    p.add_argument("--serial_feed", action="store_true",
+                   help="assemble and copy each round's batch on the "
+                   "training thread instead of the producer thread")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a CUDA device) or "
+                   "cpu (the kernels' plain versions)")
+    comm.add_cli_args(p)  # --compress / --overlap_avg
+    for flag, takes_value in _NOT_YET_PORTED:
+        if takes_value:
+            p.add_argument(flag, default=None, help="not yet ported")
+        else:
+            p.add_argument(flag, action="store_true", help="not yet ported")
+    return p
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    """The app's arguments, refusing what is not yet ported."""
+    args = _parser().parse_args(argv)
+    for flag, _ in _NOT_YET_PORTED:
+        if getattr(args, flag.lstrip("-")) not in (None, False):
+            raise SystemExit(
+                f"imagenet_run_db: {flag} is not yet ported to "
+                "sparknet_tpu_torch"
+            )
+    if args.shuffle_epochs > 1:
+        raise SystemExit("imagenet_run_db: --shuffle_epochs > 1 is not yet "
+                         "ported to sparknet_tpu_torch")
+    if "://" in args.db_dir:
+        raise SystemExit(
+            "imagenet_run_db: an object-store --db_dir is not yet ported to "
+            "sparknet_tpu_torch; give a local directory"
+        )
+    if args.model not in _MODELS:
+        raise SystemExit(
+            f"imagenet_run_db: --model {args.model} is not yet ported to "
+            f"sparknet_tpu_torch (have {', '.join(_MODELS)})"
+        )
+    if args.overlap_avg and (args.snapshot_every or args.resume):
+        # after an overlapped average the workers' params are not one
+        # consensus, and a snapshot keeps worker 0's (as lm_app refuses)
+        raise SystemExit(
+            "imagenet_run_db: --overlap_avg with --snapshot_every/--resume: "
+            "a snapshot keeps worker 0's params, and an overlapped average "
+            "leaves the workers apart, so a resumed run could not repeat "
+            "the uninterrupted one"
+        )
+    args.tau = args.tau or TAU
+    return args
+
+
+def build_solver(model: str, info: dict, crop: int, device):
+    """The model's solver at the DB's batch shapes, cropped
+    (``replaceDataLayers``); the host pipelines transform the batches."""
+    from sparknet_tpu_torch import config, models
+    from sparknet_tpu_torch.solver import Solver
+
+    netp = (models.load_model(model, classes=int(info["classes"]))
+            if model == "caffenet" else models.load_model(model))
+    tb, vb = int(info["train_batch"]), int(info["test_batch"])
+    netp = config.replace_data_layers(
+        netp, [(tb, 3, crop, crop), (tb,)], [(vb, 3, crop, crop), (vb,)])
+    return Solver(models.load_model_solver(model), net_param=netp,
+                  device=device)
+
+
+def open_pipes(db_dir: str, info: dict, crop: int, mirror: bool, seed: int,
+               start: int = 0, native: bool = True):
+    """Per-worker train pipelines (random crop + mirror, seeded
+    ``seed + w``, opened at record sequence ``start``) and test pipelines
+    (centre crop, seeded ``seed``) over the DB directory."""
+    from sparknet_tpu_torch import runtime
+    from sparknet_tpu_torch.io import load_mean_image
+
+    full = int(info["full_size"])
+    mean = load_mean_image(os.path.join(db_dir, "imagenet_mean.binaryproto"))
+    common = dict(shape=(3, full, full), crop=crop, mean=mean, native=native)
+    pipes, test_pipes = [], []
+    try:
+        for w in range(int(info["workers"])):
+            pipes.append(runtime.DataPipeline(
+                os.path.join(db_dir, f"ilsvrc12_train_db_{w}.sndb"),
+                batch_size=int(info["train_batch"]), mirror=mirror,
+                train=True, seed=seed + w, start=start, **common))
+            test_pipes.append(runtime.DataPipeline(
+                os.path.join(db_dir, f"ilsvrc12_val_db_{w}.sndb"),
+                batch_size=int(info["test_batch"]), train=False, seed=seed,
+                **common))
+    except BaseException:
+        for p in pipes + test_pipes:
+            p.close()
+        raise
+    return pipes, test_pipes
+
+
+def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int:
+    """Train; returns the exit code.  ``result``, when given, receives the
+    final state, the trainer, the metrics, the first round this run
+    trained (``start_round``), each round's per-worker losses
+    (``losses``: (rounds, W, tau)), smoothed loss (``smoothed``) and wall
+    seconds, the accuracies (``accuracies``, the final last), the
+    snapshot a resumed run started from (``resumed_from``) and the
+    snapshots written (solverstate paths)."""
+    args = parse_args(argv)
+    prefix = args.snapshot_prefix or os.path.join(args.db_dir, "imagenet_db")
+    from sparknet_tpu_torch.io import checkpoint
+
+    if args.resume and not checkpoint.find_snapshots(prefix):
+        raise SystemExit(f"--resume: no {prefix}_iter_*.solverstate*")
+
+    from sparknet_tpu_torch.utils.devices import (
+        deterministic_algorithms,
+        resolve_device,
+    )
+
+    device = resolve_device(args.device)
+    with open(os.path.join(args.db_dir, "imagenet_db_info.json")) as f:
+        info = json.load(f)
+    # on every run, before the first CUDA op: an uninterrupted and a
+    # resumed run take the same (deterministic) algorithms
+    with deterministic_algorithms():
+        return _train(args, info, prefix, device, result)
+
+
+def _train(args, info, prefix, device, result) -> int:
+    from sparknet_tpu_torch.apps.scores import primary_accuracy
+    from sparknet_tpu_torch.data import RoundFeed, stack_windows
+    from sparknet_tpu_torch.io import checkpoint
+    from sparknet_tpu_torch.obs.metrics import TrainingMetrics
+    from sparknet_tpu_torch.parallel import (
+        ParameterAveragingTrainer,
+        first_worker,
+    )
+    from sparknet_tpu_torch.utils.trainlog import TrainingLog
+
+    n_workers = int(info["workers"])
+    full = int(info["full_size"])
+    crop = args.crop or (227 if full >= 256 else (full * 7) // 8)
+    train_batch = int(info["train_batch"])
+    counts = np.asarray(info["test_batches"], np.int32)
+    num_test_mbs = int(counts.sum())
+    with TrainingLog(tag="imagenet_run_db") as log:
+        log.log(f"testPartitionSizes = {info['test_batches']}")
+        solver = build_solver(args.model, info, crop, device)
+        metrics = TrainingMetrics()
+        trainer = ParameterAveragingTrainer(
+            solver, n_workers, compress=args.compress,
+            overlap_avg=args.overlap_avg, metrics=metrics,
+        )
+        state, start_round, used = None, 0, None
+        if args.resume:
+            # CRC-verified, newest-valid-wins: a corrupt newest snapshot
+            # is quarantined and the scan falls back to an older one
+            try:
+                state, start_round, used, js = trainer.resume_newest(
+                    prefix, args.tau, metrics=metrics)
+            except checkpoint.SnapshotCorrupt as e:
+                raise SystemExit(f"--resume: {e}")
+            cursor = js.get("cursor") or {}
+            if "round" in cursor and (
+                    int(cursor["round"]) != start_round
+                    or start_round * args.tau != int(state.iter[0])):
+                raise SystemExit(
+                    f"imagenet_run_db: the snapshot ends round "
+                    f"{int(cursor['round'])} at iter {int(state.iter[0])}; "
+                    f"--tau {args.tau} would draw rounds the uninterrupted "
+                    "run never drew — resume with its --tau"
+                )
+            log.log(f"resumed from {used} at round {start_round}")
+        else:
+            state = trainer.init_state(seed=args.seed)
+            if args.warm_start:
+                # ImageNetRunDBApp.scala:75 loadWeightsFromFile
+                state = trainer.broadcast_state(
+                    checkpoint.load_weights_into_state(
+                        solver, first_worker(state), args.warm_start))
+                log.log(f"warm start from {args.warm_start}")
+        log.log(f"initialize nets on {n_workers} workers on {device}")
+
+        # every train pipe opens at the record the uninterrupted run reads
+        # next: the rounds before start_round consumed tau batches each
+        pipes, test_pipes = open_pipes(
+            args.db_dir, info, crop, not args.no_mirror, args.seed,
+            start=start_round * args.tau * train_batch)
+        feed = None
+        try:
+            # pad-and-mask the heterogeneous test partitions (infoFile)
+            nb_max = int(counts.max())
+            tb = int(info["test_batch"])
+            test = {"data": np.zeros((n_workers, nb_max, tb, 3, crop, crop),
+                                     np.float32),
+                    "label": np.zeros((n_workers, nb_max, tb), np.float32)}
+            for w, pipe in enumerate(test_pipes):
+                for b in range(int(counts[w])):
+                    test["data"][w, b], test["label"][w, b] = pipe.next()
+            for p in test_pipes:
+                p.close()
+            test_on_dev = {k: torch.from_numpy(v).to(device)
+                           for k, v in test.items()}
+            del test
+
+            def evaluate() -> float:
+                scores = trainer.test_and_store_result(state, test_on_dev,
+                                                       counts=counts)
+                return primary_accuracy(scores) / max(1, num_test_mbs)
+
+            def assemble(r):
+                windows = []
+                for pipe in pipes:
+                    batches = [pipe.next() for _ in range(args.tau)]
+                    windows.append({
+                        "data": np.stack([b[0] for b in batches]),
+                        "label": np.stack([b[1] for b in batches]),
+                    })
+                return stack_windows(windows)
+
+            feed = RoundFeed(assemble, device, pipelined=not args.serial_feed,
+                             num_rounds=args.rounds, start_round=start_round)
+            round_seconds, round_losses, smoothed = [], [], []
+            accuracies, snapshots = [], []
+            for r in range(start_round, start_round + args.rounds):
+                if r % args.test_every == 0:
+                    # land any in-flight overlapped average before scoring
+                    state = trainer.finalize(state)
+                    accuracies.append(evaluate())
+                    log.log(f"{accuracies[-1] * 100:.2f}% accuracy", i=r)
+                log.log("training", i=r)
+                t0 = time.perf_counter()
+                state, losses = trainer.round(state, feed.next_round(r),
+                                              round_index=r)
+                round_losses.append(losses.detach().cpu().numpy())
+                round_seconds.append(time.perf_counter() - t0)
+                smoothed.append(solver.smoothed_loss)
+                log.log(f"trained, smoothed_loss {smoothed[-1]:.4f}", i=r)
+                if args.snapshot_every and (r + 1) % args.snapshot_every == 0:
+                    model_path, state_path = checkpoint.snapshot(
+                        solver, first_worker(state), prefix,
+                        fmt="BINARYPROTO", metrics=metrics,
+                        extra_state=trainer.export_job_state(
+                            state, {"round": r + 1}),
+                    )
+                    snapshots.append(state_path)
+                    log.log(f"snapshot -> {model_path}", i=r)
+            state = trainer.finalize(state)  # the last round's average lands
+            acc = evaluate()
+            accuracies.append(acc)
+            log.log(f"final accuracy {acc * 100:.2f}%")
+            print(f"final accuracy {acc * 100:.2f}%")
+        finally:
+            if feed is not None:
+                feed.stop()
+            for p in pipes + test_pipes:
+                p.close()
+    if result is not None:
+        result.update(
+            state=state, trainer=trainer, metrics=metrics,
+            start_round=start_round, resumed_from=used, smoothed=smoothed,
+            losses=(np.stack(round_losses) if round_losses
+                    else np.zeros((0, n_workers, args.tau), np.float32)),
+            round_seconds=round_seconds, accuracies=accuracies,
+            snapshots=snapshots,
+        )
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -136,41 +136,6 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def resume_lm_job(solver, trainer, prefix: str, sampler=None, tau: int = TAU,
-                  metrics=None):
-    """Resume from the newest valid snapshot under ``prefix`` (the JAX
-    app's ``restore_newest_valid`` branch): broadcast the consensus
-    params, put back the per-worker momentum stacks, the comm residuals
-    and the loss window from ``.jobstate.npz``, and check the text
-    cursor's corpus geometry.  Returns ``(state, start_round, state_path)``;
-    state None means there is no snapshot (start fresh at round 0)."""
-    from sparknet_tpu_torch.io import checkpoint
-    from sparknet_tpu_torch.parallel import restore_worker_history
-
-    try:
-        st, used = checkpoint.restore_newest_valid(solver, prefix,
-                                                   metrics=metrics)
-    except FileNotFoundError:
-        return None, 0, None
-    state = trainer.broadcast_state(st)  # resets the comm plane
-    start_round = int(st.iter) // max(1, tau)
-    js = checkpoint.load_job_state(used)
-    if js:
-        if "comm" in js:
-            trainer.restore_comm_state(js["comm"])
-        if "workers" in js:
-            # the consensus snapshot carries worker 0's history only;
-            # the true stacks ride in the jobstate
-            state = restore_worker_history(state, js["workers"])
-        if "solver" in js and "loss_window" in js["solver"]:
-            solver.restore_loss_window(js["solver"]["loss_window"])
-        cursor = js.get("cursor")
-        if sampler is not None and isinstance(cursor, dict) \
-                and "text_iter" in cursor:
-            sampler.verify_cursor(cursor)
-    return state, start_round, used
-
-
 def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int:
     """Train; returns the exit code.  ``result``, when given, receives the
     LM, the final state, the trainer, the metrics, the smoothed loss,
@@ -218,7 +183,6 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     from sparknet_tpu_torch.obs.trace import span
     from sparknet_tpu_torch.parallel import (
         ParameterAveragingTrainer,
-        export_worker_history,
         first_worker,
     )
     from sparknet_tpu_torch.utils.trainlog import TrainingLog
@@ -271,10 +235,13 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
 
         state, start_round = None, 0
         if args.resume:
-            state, start_round, used = resume_lm_job(
-                solver, trainer, prefix, sampler=samplers[0], tau=args.tau,
-                metrics=metrics,
-            )
+            # the newest snapshot that verifies, with its job state put
+            # back; the text cursor must fit this corpus
+            state, start_round, used, js = trainer.resume_newest(
+                prefix, args.tau, metrics=metrics)
+            cursor = js.get("cursor")
+            if isinstance(cursor, dict) and "text_iter" in cursor:
+                samplers[0].verify_cursor(cursor)
             log.log(f"resumed from {used} at round {start_round} "
                     f"(iter {start_round * args.tau})")
         if state is None:
@@ -288,14 +255,8 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         def snapshot(r):
             """Publish the round-``r`` boundary: worker 0's consensus plus
             the job state a resume puts back."""
-            extra = {
-                "cursor": samplers[0].cursor_for_iter((r + 1) * args.tau),
-                "workers": export_worker_history(state),
-                "solver": {"loss_window": solver.export_loss_window()},
-            }
-            comm_state = trainer.export_comm_state()
-            if comm_state is not None:
-                extra["comm"] = comm_state
+            extra = trainer.export_job_state(
+                state, samplers[0].cursor_for_iter((r + 1) * args.tau))
             _, state_path = checkpoint.snapshot(
                 solver, first_worker(state), prefix, fmt="BINARYPROTO",
                 extra_state=extra, metrics=metrics,

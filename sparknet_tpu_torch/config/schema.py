@@ -3,8 +3,9 @@
 The port's own copy of ``sparknet_tpu/config/schema.py``, cut to the
 messages the ported training paths read: the cifar10_full and AlexNet
 net and solver prototxts and the small host-fed nets of the tests
-(HostData, Convolution, Pooling, LRN, InnerProduct, ReLU, Dropout,
-SoftmaxWithLoss, Accuracy).  Field names, defaults and enum literals
+(HostData, Data with its ``data_param`` and ``transform_param``,
+Convolution, Pooling, LRN, InnerProduct, ReLU, Dropout, SoftmaxWithLoss,
+Accuracy).  Field names, defaults and enum literals
 match the reference schema, so those configs parse unchanged; a layer
 parameter message outside this set is refused by the parser as not yet
 ported.
@@ -122,6 +123,31 @@ class ConvolutionParameter(Message):
 
 
 @dataclass
+class TransformationParameter(Message):
+    scale: float = 1.0
+    mirror: bool = False
+    crop_size: int = 0
+    mean_file: Optional[str] = None
+    mean_value: List[float] = field(default_factory=list)
+    force_color: bool = False
+    force_gray: bool = False
+
+
+@dataclass
+class DataParameter(Message):
+    source: Optional[str] = None
+    batch_size: int = 0
+    rand_skip: int = 0
+    backend: str = "LEVELDB"  # LEVELDB | LMDB (both read into the record DB)
+    scale: float = 1.0
+    mean_file: Optional[str] = None
+    crop_size: int = 0
+    mirror: bool = False
+    force_encoded_color: bool = False
+    prefetch: int = 4
+
+
+@dataclass
 class DropoutParameter(Message):
     dropout_ratio: float = 0.5
 
@@ -200,6 +226,7 @@ class LayerParameter(Message):
     loss_param: Optional[LossParameter] = None
     accuracy_param: Optional[AccuracyParameter] = None
     convolution_param: Optional[ConvolutionParameter] = None
+    data_param: Optional[DataParameter] = None
     dropout_param: Optional[DropoutParameter] = None
     inner_product_param: Optional[InnerProductParameter] = None
     java_data_param: Optional[JavaDataParameter] = None
@@ -207,6 +234,7 @@ class LayerParameter(Message):
     pooling_param: Optional[PoolingParameter] = None
     relu_param: Optional[ReLUParameter] = None
     softmax_param: Optional[SoftmaxParameter] = None
+    transform_param: Optional[TransformationParameter] = None
 
 
 @dataclass

@@ -1,10 +1,12 @@
 """Binary I/O of the port: the wire codec, ``.caffemodel`` weights and
-the mean image, HDF5 snapshots and the checkpoint layer (snapshot,
-verify, restore, quarantine, job state).
+the mean image, HDF5 snapshots, the checkpoint layer (snapshot, verify,
+restore, quarantine, job state) and Caffe's dataset stores with the
+Datum codec (``io/lmdb.py``, ``io/leveldb.py``: pure-Python readers and
+writers, and one-time importers into the runtime's record DB).
 
-The JAX package's run journal (``io/journal.py``), its record stores
-(``io/lmdb.py``, ``io/leveldb.py``) and the prototxt binary codec
-(``io/protobin.py``, ``io/proto_fields.py``) are not yet ported."""
+The JAX package's run journal (``io/journal.py``) and the prototxt
+binary codec (``io/protobin.py``, ``io/proto_fields.py``) are not yet
+ported."""
 
 from sparknet_tpu_torch.io.caffemodel import (
     load_mean_image,

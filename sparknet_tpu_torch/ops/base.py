@@ -77,7 +77,7 @@ LAYER_REGISTRY: Dict[str, Type[Layer]] = {}
 _NOT_YET_PORTED = frozenset((
     "AbsVal", "ArgMax", "Attention", "BatchNorm", "BatchReindex", "Bias",
     "BNLL", "Concat",
-    "ContrastiveLoss", "Data", "Deconvolution", "DummyData",
+    "ContrastiveLoss", "Deconvolution", "DummyData",
     "ELU", "Eltwise", "Embed", "EuclideanLoss", "Exp", "Filter", "Flatten",
     "HDF5Data", "HDF5Output", "HingeLoss", "Im2col", "ImageData",
     "InfogainLoss", "Input", "Log", "MemoryData", "MultinomialLogisticLoss",

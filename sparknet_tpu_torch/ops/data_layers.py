@@ -1,9 +1,12 @@
-"""Host-fed data layers: ``HostData`` and its ``JavaData`` alias.
+"""Host-fed data layers: ``HostData``, its ``JavaData`` alias and ``Data``.
 
 The port of those layers of ``sparknet_tpu/ops/data_layers.py``: the
 host input pipeline pushes ready batches and a data layer binds them to
 its top names (the reference's JavaData/RDDLayer, inverted from pull to
-push).  The DB- and file-backed data layers come with later slices.
+push).  ``Data`` is fed from its DB by the host (``runtime.DataPipeline``,
+``data/source.py``).  The file-backed data layers (``ImageData``,
+``WindowData``, ``HDF5Data``, ``MemoryData``, ``DummyData``) and
+``HDF5Output`` come with later slices.
 """
 
 from __future__ import annotations
@@ -55,3 +58,12 @@ class JavaData(HostData):
     """Alias so reference configs naming JavaData load unchanged."""
 
     TYPE = "JavaData"
+
+
+@register
+class Data(_HostFed):
+    """DB-backed data layer (reference: ``data_layer.cpp``): its DB read
+    and transform run on the host (``runtime.DataPipeline``, through
+    ``data/source.py``); its shapes come from the net's ``feed_shapes``."""
+
+    TYPE = "Data"

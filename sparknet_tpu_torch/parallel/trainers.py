@@ -168,6 +168,46 @@ class ParameterAveragingTrainer:
             )
         self._comm.restore_state(exported)
 
+    def export_job_state(self, state: TrainState, cursor) -> Dict:
+        """The ``.jobstate.npz`` fragment a snapshot of ``state`` carries
+        beside worker 0's consensus (``io/checkpoint.snapshot``'s
+        ``extra_state``): the data ``cursor``, every worker's momentum,
+        the loss window and, on the comm plane, its residuals."""
+        extra = {
+            "cursor": cursor,
+            "workers": export_worker_history(state),
+            "solver": {"loss_window": self.solver.export_loss_window()},
+        }
+        comm_state = self.export_comm_state()
+        if comm_state is not None:
+            extra["comm"] = comm_state
+        return extra
+
+    def resume_newest(self, prefix: str, tau: int, metrics=None):
+        """Resume from the newest snapshot under ``prefix`` that verifies
+        (``io/checkpoint.restore_newest_valid``: corrupt ones are
+        quarantined): broadcast its consensus, then put back what
+        ``export_job_state`` saved.  Returns ``(state, start_round,
+        state_path, job_state)``, start_round being ``iter // tau``;
+        state None when there is no snapshot."""
+        from sparknet_tpu_torch.io import checkpoint
+
+        try:
+            st, used = checkpoint.restore_newest_valid(
+                self.solver, prefix, metrics=metrics)
+        except FileNotFoundError:
+            return None, 0, None, {}
+        state = self.broadcast_state(st)  # resets the comm plane
+        js = checkpoint.load_job_state(used) or {}
+        if "comm" in js:
+            self.restore_comm_state(js["comm"])
+        if "workers" in js:
+            # the consensus snapshot carries worker 0's history only
+            state = restore_worker_history(state, js["workers"])
+        if "loss_window" in js.get("solver", {}):
+            self.solver.restore_loss_window(js["solver"]["loss_window"])
+        return state, int(st.iter) // max(1, tau), used, js
+
     def _place_live(self, live_mask) -> torch.Tensor:
         """The (W,) float32 live mask on the device, cached per value."""
         live = np.asarray(live_mask, np.float32).reshape(-1)

@@ -1,9 +1,10 @@
-"""Command-line entry point of the port: ``serve --generate``, ``train``.
+"""Command-line entry point of the port: ``serve --generate``, ``train``,
+``test``.
 
-The port of the ``serve --generate`` and ``train`` subcommands of
-``sparknet_tpu/tools/cli.py``, with the same flags and defaults plus
-``--device`` (default ``cuda``; ``--device=cpu`` runs the plain
-versions of the kernels on the CPU)::
+The port of the ``serve --generate``, ``train`` and ``test``
+subcommands of ``sparknet_tpu/tools/cli.py``, with the same flags and
+defaults plus ``--device`` (default ``cuda``; ``--device=cpu`` runs the
+plain versions of the kernels on the CPU)::
 
     python -m sparknet_tpu_torch.tools.cli serve --generate [--port 8361] \
         [--weights LM.caffemodel]
@@ -11,8 +12,15 @@ versions of the kernels on the CPU)::
         [--data CIFAR_DIR] [--snapshot F.solverstate.npz | --resume | \
          --weights F.caffemodel] [--tau 10] [--max_iter N]
     python -m sparknet_tpu_torch.tools.cli train --lm [--dim 256 ...]
+    python -m sparknet_tpu_torch.tools.cli test --model NET.prototxt \
+        [--weights F.caffemodel] [--data DIR|LMDB|LEVELDB|DB] [--iterations 50]
 
 ``train --lm`` hands the rest of the line to ``apps/lm_app.py``.
+``test`` is ``caffe test``: a zero-rate solver over the prototxt, the
+weights loaded, the TEST net scored over ``--iterations`` batches that
+``data/source.py`` resolves (a CIFAR directory, an LMDB, a LevelDB, a
+record DB or the net's ``Data`` source), one ``name = value`` line an
+output.
 ``train --solver`` snapshots every ``snapshot`` iterations of the
 solver (``{snapshot_prefix}_iter_N.*``, ``io/checkpoint.py``), on
 SIGHUP and on SIGINT (then stops), and runs deterministic algorithms
@@ -20,15 +28,16 @@ so that a resumed run repeats the uninterrupted one bit for bit.
 ``serve`` without ``--generate`` (``/predict``), ``--replicas``,
 ``--watch``, and ``train``'s ``--devices`` > 1, ``--journal``,
 ``--health``, ``--publish_to``, ``--obs``, the chunk cache,
-``--shuffle_epochs`` > 1 and an object-store ``--data`` come with
-later slices and raise "not yet ported" here.
+``--shuffle_epochs`` > 1 and an object-store ``--data``, and the other
+subcommands (``time``, ``device_query``, the converters), come with
+later slices; the flags raise "not yet ported" here.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-from typing import Dict, List, Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -88,21 +97,6 @@ def cmd_serve(args) -> int:
     return server.run()
 
 
-def _synthetic_batches(net, tau: int, seed: int = 0) -> Dict[str, np.ndarray]:
-    """Random batches matching the net's feed shapes (labels in [0, 10)) —
-    the JAX package's ``data/source.synthetic_batches``."""
-    rng = np.random.RandomState(seed)
-    out = {}
-    for blob in net.feed_blobs:
-        shape = net.blob_shapes[blob]
-        if "label" in blob:
-            out[blob] = rng.randint(0, 10, (tau,) + tuple(shape)).astype(
-                np.float32)
-        else:
-            out[blob] = rng.randn(tau, *shape).astype(np.float32)
-    return out
-
-
 # train flags of the JAX CLI that later slices bring: (flag, refused when)
 _TRAIN_NOT_YET_PORTED = (
     ("--devices", lambda a: a.devices > 1, " > 1 (allreduce data parallelism)"),
@@ -160,6 +154,7 @@ def cmd_train(args) -> int:
 def _train_solver(args, device) -> int:
     from sparknet_tpu_torch import config
     from sparknet_tpu_torch.data import CifarLoader, MinibatchSampler, RoundFeed
+    from sparknet_tpu_torch.data.source import synthetic_batches
     from sparknet_tpu_torch.io import checkpoint
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
     from sparknet_tpu_torch.solver import Solver
@@ -231,7 +226,7 @@ def _train_solver(args, device) -> int:
 
     def assemble(r):
         return (sampler.next_window() if sampler
-                else _synthetic_batches(solver.net, args.tau))
+                else synthetic_batches(solver.net, args.tau))
 
     def job_extra():
         # loop state a TrainState restore would reset
@@ -285,6 +280,43 @@ def _train_solver(args, device) -> int:
     if args.result is not None:
         args.result.update(state=state, solver=solver, metrics=metrics,
                            smoothed_loss=solver.smoothed_loss)
+    return 0
+
+
+def cmd_test(args) -> int:
+    """``test``: score the TEST net of ``--model`` (a prototxt) with
+    ``--weights`` over ``--iterations`` real batches, on the card unless
+    ``--device=cpu``; prints each output's mean over the batches."""
+    import torch
+
+    from sparknet_tpu_torch import config
+    from sparknet_tpu_torch.data.source import resolve_batches
+    from sparknet_tpu_torch.io import checkpoint
+    from sparknet_tpu_torch.solver import Solver
+    from sparknet_tpu_torch.utils.devices import resolve_device
+
+    device = resolve_device(args.device)
+    netp = config.load_net_prototxt(args.model)
+    solver = Solver(
+        config.parse_solver_prototxt('base_lr: 0.0 lr_policy: "fixed"'),
+        net_param=netp, device=device,
+    )
+    state = solver.init_state(0)
+    if args.weights:
+        state = checkpoint.load_weights_into_state(solver, state, args.weights)
+    # real data: --data or the net's own Data layer source;
+    # --allow_synthetic is an explicit smoke-test escape
+    batches = resolve_batches(
+        solver.test_net, netp, args.data, args.iterations, phase="TEST",
+        allow_synthetic=args.allow_synthetic,
+    )
+    scores = solver.test_and_store_result(state, {
+        k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        for k, v in batches.items()})
+    for name, total in scores.items():
+        print(f"{name} = {total / args.iterations:.4f}")
+    if args.result is not None:
+        args.result.update(scores=scores, iterations=args.iterations)
     return 0
 
 
@@ -345,6 +377,21 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     for flag in ("--journal", "--health", "--obs"):
         p.add_argument(flag, action="store_true", help="not yet ported")
     p.set_defaults(fn=cmd_train, result=None)
+
+    p = sub.add_parser("test")
+    p.add_argument("--model", required=True, help="net prototxt")
+    p.add_argument("--weights", default=None,
+                   help=".caffemodel / .caffemodel.h5 (omitted: the seeded "
+                   "init)")
+    p.add_argument("--data", default=None,
+                   help="CIFAR binary dir, Caffe LMDB or LevelDB, or record-DB "
+                   "file (omitted: the net's Data layer source)")
+    p.add_argument("--allow_synthetic", action="store_true",
+                   help="smoke-test only: score random batches")
+    p.add_argument("--iterations", type=int, default=50)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a CUDA device) or cpu")
+    p.set_defaults(fn=cmd_test, result=None)
 
     p = sub.add_parser("serve")
     p.add_argument("--net", default=None,

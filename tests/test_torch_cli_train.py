@@ -122,9 +122,11 @@ def test_synthetic_batches_match_jax():
     from sparknet_tpu.data.source import synthetic_batches
     from sparknet_tpu.net import JaxNet
     from sparknet_tpu_torch import config as tconfig
+    from sparknet_tpu_torch.data.source import synthetic_batches as tsynthetic
     from sparknet_tpu_torch.net import TorchNet
 
-    got = cli._synthetic_batches(TorchNet(tconfig.parse_net_prototxt(TOY_NET)), 3)
+    # cli train's generator, shared with cli test (data/source.py)
+    got = tsynthetic(TorchNet(tconfig.parse_net_prototxt(TOY_NET)), 3)
     want = synthetic_batches(JaxNet(jconfig.parse_net_prototxt(TOY_NET)), 3)
     assert sorted(got) == sorted(want)
     for k in got:

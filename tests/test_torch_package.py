@@ -5,7 +5,9 @@
 - Entry points run on the card unless the caller asks for the CPU:
   built without ``device``, they raise where there is no CUDA device
   (the serving CLI, ``apps.cifar_app``, ``apps.lm_app`` and ``cli
-  train --lm``, ``apps.imagenet_app``, the solver and trainer).
+  train --lm``, ``apps.imagenet_app``, the DB apps
+  ``apps.imagenet_run_db_app`` and ``apps.cifar_db_app``, ``cli test``,
+  the solver and trainer).
 - What a slice has not ported yet refuses, saying so.
 - The kernel wrappers take the plain version for CPU tensors, and only
   there: no kernel is launched and no library is built.
@@ -25,7 +27,13 @@ import torch
 
 from sparknet_tpu_torch import config as tconfig
 from sparknet_tpu_torch import models
-from sparknet_tpu_torch.apps import cifar_app, imagenet_app, lm_app
+from sparknet_tpu_torch.apps import (
+    cifar_app,
+    cifar_db_app,
+    imagenet_app,
+    imagenet_run_db_app,
+    lm_app,
+)
 from sparknet_tpu_torch.models.transformer_lm import TransformerLM
 from sparknet_tpu_torch.ops import _build
 from sparknet_tpu_torch.ops import cuda_attention as tca
@@ -74,7 +82,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "apps/imagenet_app.py", "ops/cuda_lrn.py", "ops/cuda_plp.py",
                 "data/imagenet.py", "data/transforms.py", "io/caffemodel.py",
                 "models/builders.py", "utils/rngs.py", "io/wire.py",
-                "io/checkpoint.py", "io/hdf5.py", "tools/cli.py"):
+                "io/checkpoint.py", "io/hdf5.py", "tools/cli.py",
+                "runtime/__init__.py", "runtime/_build.py", "io/lmdb.py",
+                "io/leveldb.py", "data/source.py", "ops/data_layers.py",
+                "apps/imagenet_create_db_app.py",
+                "apps/imagenet_run_db_app.py", "apps/cifar_db_app.py"):
         assert os.path.join("sparknet_tpu_torch", mod) in rel
     for path in files:
         for mod in _imported_modules(path):
@@ -115,6 +127,14 @@ def test_entry_points_default_to_the_card():
     # the ImageNet slice: the app, before it writes any data
     with pytest.raises(RuntimeError, match="no CUDA device"):
         imagenet_app.main(["--workers", "2", "--tau", "2", "--rounds", "1"])
+    # the DB slice: both training apps before they read or write a DB,
+    # and cli test before it reads the net
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        imagenet_run_db_app.main(["--db_dir", "/nonexistent", "--rounds", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cifar_db_app.main(["--rounds", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["test", "--model", "/nonexistent.prototxt"])
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -137,14 +157,23 @@ _CIFAR = ["--device", "cpu", "--workers", "2", "--tau", "2", "--rounds", "1"]
         (["imagenet_app", "--device", "cpu"] + flag, flag[0])
         for flag in (["--obs"], ["--profile"], ["--slices", "2"],
                      ["--cross_slice_every", "2"], ["--cache_bytes", "8G"])
+    ] + [
+        (["imagenet_run_db_app", "--device", "cpu", "--db_dir", "/d"] + flag,
+         flag[0])
+        for flag in (["--journal"], ["--health"], ["--elastic"],
+                     ["--cache_dir", "/c"], ["--shuffle_epochs", "3"])
+    ] + [
+        (["cifar_db_app", "--device", "cpu"] + flag, flag[0])
+        for flag in (["--journal"], ["--obs"], ["--slices", "2"])
     ],
 )
 def test_cli_refuses_what_is_not_yet_ported(argv, what):
     main = cli.main
-    if argv[0] == "cifar_app":
-        main, argv = cifar_app.main, argv[1:]
-    elif argv[0] == "imagenet_app":
-        main, argv = imagenet_app.main, argv[1:]
+    apps = {"cifar_app": cifar_app, "imagenet_app": imagenet_app,
+            "imagenet_run_db_app": imagenet_run_db_app,
+            "cifar_db_app": cifar_db_app}
+    if argv[0] in apps:
+        main, argv = apps[argv[0]].main, argv[1:]
     with pytest.raises(SystemExit, match="not yet ported") as e:
         main(argv)
     assert what in str(e.value)
