@@ -44,10 +44,14 @@ Phases (any failure ends the run with a non-zero exit and no result):
    K11 overlap correction — against their plain versions on the card,
    bit for bit (the readout's sums within 1e-5), at the three comm
    chunks of cifar10_full at W=4 and of AlexNet at W=2 (its 16
-   parameter leaves, fc6's 37,748,736 floats a worker): fp32, bf16 and
-   int8, the error readout on and off, a masked worker and no survivors
-   for K10, an all-zero leaf.  Then each kernel's time over one round's
-   launches (every chunk) at both widths beside its plain version's and
+   parameter leaves, fc6's 37,748,736 floats a worker), and at the four
+   of ResNet-50 at W=2 (320 leaves: 161 parameters, then 159 BatchNorm
+   stat blobs, so a chunk holds over 100; one launch a group of at most
+   32 leaves, the launches counted against that arithmetic): fp32, bf16
+   and int8, the error readout on and off, a masked worker and no
+   survivors for K10, an all-zero leaf.  Then each kernel's time over one
+   round's launches (every chunk) at the three widths beside its plain
+   version's and
    the least time the card could take (bytes over 3.35 TB/s: the
    function's, and the design's: K9's two passes, K10's and K11's mean
    read by each worker); no single PyTorch call computes these
@@ -96,13 +100,15 @@ Phases (any failure ends the run with a non-zero exit and no result):
 8. The LRN kernels — K5 (forward) and K6 (backward) — and the fused
    LRN + 3x3/2 max pool — K7 and K8 — against their plain versions on
    the card: AlexNet's two LRN inputs at the training batch, (32, 96,
-   55, 55) and (32, 256, 27, 27), ragged and small shapes, C < n, n = 3
-   and 4 and a beta on the powf path (K5/K6; K5 also at the test batch
-   16 and at AlexNet's inputs with n = 3 and beta 0.6), the JAX tests'
-   shapes and a tie case (K7/K8, whose routing must equal the plain
-   version's bit for bit, and K8's dx too); forward rtol 2e-5 / atol
-   2e-6, backward 5e-5 / 5e-6, and K5 everywhere, K6-K8 at AlexNet's
-   inputs bit for bit.  Then each kernel's time per training step (both
+   55, 55) and (32, 256, 27, 27), and GoogLeNet's (phase 12), (32, 64,
+   57, 57) and (32, 192, 57, 57), each also at the test batch 16 and
+   tied (K5/K6), ragged and small shapes, C < n, n = 3 and 4 and a beta
+   on the powf path (K5/K6; K5 also at AlexNet's inputs with n = 3 and
+   beta 0.6); AlexNet's two sandwiches and GoogLeNet's conv2/norm2 ->
+   pool2 (57x57, odd), the JAX tests' shapes and a tie case (K7/K8,
+   whose routing must equal the plain version's bit for bit, and K8's
+   dx too); forward rtol 2e-5 / atol 2e-6, backward 5e-5 / 5e-6, and K5
+   everywhere, K6-K8 at both nets' inputs bit for bit.  Then each kernel's time per training step (both
    sandwiches, and each sandwich alone with its bound) beside its plain
    version's, the least time the card could take and a library
    yardstick the port never calls (``F.local_response_norm``, then
@@ -178,8 +184,38 @@ Phases (any failure ends the run with a non-zero exit and no result):
    Then the readers' records/s (native, Python) over one round's records
    beside what a round consumes, and one CaffeNet DB round profiled.
 
-The second-to-last line is ``{"kernels": [...]}`` (K1-K11); the last
-line is ``{"ok": true, "device": {...}}``.
+12. The deep nets on the main loop: ``apps.imagenet_app``'s ``train``
+   at full width — GoogLeNet (Inception-v1 with its two aux heads at
+   loss weight 0.3) and ResNet-50, 1,000 classes, crop 227 from 256,
+   mirror and dropout on, their zoo solvers (poly; multistep), W=2, tau
+   4, batch 32 (test 16), 3 rounds testing at rounds 0 and 2, phase 9's
+   seeded partitions, ResNet-50 at lr 0.002 (its recipe's 0.1 is for
+   batch 256; see DEEP_LR), the first eight legs under
+   ``deterministic_algorithms()``: GoogLeNet default (9
+   hconv groups; K5/K6 for both LRNs), ``SPARKNET_FUSION=1``
+   (conv2/norm2 -> pool2 at 57x57 runs K7/K8, norm1 K5/K6) and
+   ``SPARKNET_HFUSE=0`` (1 round: its round-0 loss within 1e-4 of the
+   default's); ResNet-50 default twice (the runs equal bit for bit),
+   ``--compress int8`` (K9 + K10 once a leaf group of each of the 4
+   chunks a round) and ``--overlap_avg`` with an fp32 and a bf16 payload
+   (2 rounds each: K9 and K11); then ResNet-50's default and int8 legs
+   under the app's own settings (torch's defaults), their gap printed.
+   Launch counts reset before each leg and held to the arithmetic;
+   losses finite and falling; GoogLeNet's first loss within 15% of its
+   value at init on the CPU; the fused leg's round-0 loss within 1e-4 of
+   the default's; each deterministic compressed leg within LOSS_BAND of
+   its fp32 schedule's leg; the averaged BatchNorm stats equal on every
+   worker and equal to the workers' mean; the first local step of each
+   net on the card against the CPU at batch 8 (losses within 1e-5):
+   GoogLeNet in float32 within 1% of the update, ResNet-50 in float64
+   within 1e-6 (in float32 its BatchNorm puts the CPU's run as far from
+   float64 as the card's); GoogLeNet's round profiled with hconv on and off, and
+   ResNet-50's default and int8 rounds (wall, device busy share,
+   launches, peak memory, top kernels, K5-K11's share).
+
+The second-to-last line is ``{"kernels": [...]}`` (K1-K11, with
+launches summed over every phase's main-path runs); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -988,10 +1024,40 @@ def check_comm_kernels(dev):
                     err, "AlexNet")
     times["AlexNet"] = _time_comm_set(cc, x, a, r, means, chunks, IMNET_W, 5)
     del x, a, r, means
+
+    # ResNet-50's 320 comm leaves (161 learnable, then 159 BatchNorm stat
+    # blobs), cut into the plane's 4 byte-balanced chunks: a chunk of more
+    # than MAX_LEAVES leaves runs one launch a group of at most 32 of them
+    solver = imagenet_app.build_solver(
+        _imnet_args(dev, model="resnet50"),
+        np.zeros((3, IMNET_FULL, IMNET_FULL), np.float32), dev)
+    x, a, r, means, chunks = _comm_set(
+        dev, ParameterAveragingTrainer(solver, IMNET_W, compress="int8"), 3)
+    del solver
+    sizes = [sl.stop - sl.start for sl in chunks]
+    groups = sum(-(-n // cc.MAX_LEAVES) for n in sizes)
+    print(f"comm plane, ResNet-50: {len(chunks)} chunks of {sizes} leaves "
+          f"({groups} launches of at most {cc.MAX_LEAVES} leaves a round), "
+          f"{sum(t[0].numel() for t in a)} floats per worker, W={IMNET_W}")
+    check(len(a) == 320 and len(chunks) == 4 and max(sizes) > cc.MAX_LEAVES,
+          f"ResNet-50: {len(a)} comm leaves in chunks of {sizes}")
+    cc.reset_launch_counts()
+    _check_comm_set(cc, x, a, r, means, chunks, IMNET_W, ("fp32", "bf16", "int8"),
+                    err, "ResNet-50")
+    # per mode: K9 with the readout off and on, K11 once; K10 for three
+    # masks; each wrapper call launches once a group
+    want = {"comm_encode": 3 * 2 * groups, "comm_apply_correction": 3 * groups,
+            "comm_apply_barriered": 3 * groups}
+    check(cc.LAUNCHES == want,
+          f"ResNet-50 comm launches {cc.LAUNCHES}, expected {want}")
+    cc.reset_launch_counts()
+    times["ResNet-50"] = _time_comm_set(cc, x, a, r, means, chunks, IMNET_W, 5)
+    del x, a, r, means
     torch.cuda.empty_cache()
-    print("K9-K11 bitwise equal to their plain versions at cifar10_full (W=4) "
-          "and AlexNet (W=2): 3 modes x readout on/off, a masked worker, no "
-          "survivors, an all-zero leaf")
+    print("K9-K11 bitwise equal to their plain versions at cifar10_full (W=4), "
+          "AlexNet (W=2) and ResNet-50 (W=2, chunks of up to "
+          f"{max(sizes)} leaves): 3 modes x readout on/off, a masked worker, "
+          "no survivors, an all-zero leaf")
 
     records = []
     replaces = {"comm_encode": 83, "comm_apply_barriered": 164,
@@ -1683,6 +1749,10 @@ IMNET_FULL, IMNET_CROP, IMNET_ROUNDS, IMNET_TEST_EVERY = 256, 227, 4, 2
 # AlexNet's LRN inputs at the training batch: norm1 over conv1, norm2
 # over conv2 (alexnet_train_val.prototxt, crop 227)
 ALEXNET_LRN = ((IMNET_BATCH, 96, 55, 55), (IMNET_BATCH, 256, 27, 27))
+# GoogLeNet's LRN inputs at crop 227 (phase 12): norm1 after pool1 and
+# norm2 after conv2, both 57x57 (odd: under SPARKNET_FUSION=1 the
+# training net's conv2/norm2 -> pool2 runs K7/K8)
+GOOGLENET_LRN = ((IMNET_BATCH, 64, 57, 57), (IMNET_BATCH, 192, 57, 57))
 LRN_HP = (5, 1e-4, 0.75, 1.0)
 LRN_FWD_TOL = dict(rtol=2e-5, atol=2e-6)  # the JAX tests' (test_pallas_plp.py)
 LRN_BWD_TOL = dict(rtol=5e-5, atol=5e-6)
@@ -1745,7 +1815,8 @@ def _tie_input(dev, shape, seed):
 def check_lrn_kernels(dev, card):
     """Hold K5-K8 against their plain versions on the card; return their
     kernels-line records (without launch counts), timed per training
-    step: both AlexNet sandwiches."""
+    step: both AlexNet sandwiches.  The cases also take GoogLeNet's
+    shapes (phase 12)."""
     import torch.nn.functional as F
 
     from sparknet_tpu_torch.ops import cuda_lrn as cl
@@ -1758,13 +1829,15 @@ def check_lrn_kernels(dev, card):
 
     err = dict.fromkeys(("lrn_fwd", "lrn_bwd", "lrn_pool_fwd", "lrn_pool_bwd"),
                         0.0)
-    # K5 and K6 at both sandwiches, random and tied, and K5 also at the
-    # test batch and AlexNet's inputs at other LRN settings (its general
-    # kernel), must give the plain versions' bits (every operation an
-    # explicitly rounded intrinsic); K5 everywhere
-    test_lrn = tuple((IMNET_TEST_BATCH,) + s[1:] for s in ALEXNET_LRN)
-    cases = [(s, 5, 0.75, False) for s in ALEXNET_LRN + test_lrn] + [
-        (s, 5, 0.75, True) for s in ALEXNET_LRN] + [
+    # K5 and K6 at AlexNet's and GoogLeNet's LRN inputs (train and test
+    # batch), random and tied, and K5 also at AlexNet's inputs at other
+    # LRN settings (its general kernel), must give the plain versions'
+    # bits (every operation an explicitly rounded intrinsic); K5
+    # everywhere
+    net_lrn = ALEXNET_LRN + GOOGLENET_LRN
+    test_lrn = tuple((IMNET_TEST_BATCH,) + s[1:] for s in net_lrn)
+    cases = [(s, 5, 0.75, False) for s in net_lrn + test_lrn] + [
+        (s, 5, 0.75, True) for s in net_lrn + test_lrn] + [
         (s, n, beta, False) for s in ALEXNET_LRN for n, beta in ((5, 0.6),
                                                                 (3, 0.75))] + [
         (s, n, beta, False) for s, n, beta in (
@@ -1785,15 +1858,18 @@ def check_lrn_kernels(dev, card):
         want = cl.lrn_across_bwd_reference(x, dy, *hp)
         eb = _close(dx, want, LRN_BWD_TOL, f"K6 {what}")
         same = bool(torch.equal(dx, want))
-        if shape in ALEXNET_LRN and (n, beta) == (5, 0.75):
+        if shape in net_lrn + test_lrn and (n, beta) == (5, 0.75):
             check(same, f"K6 {what}: dx differs from the plain version's bits")
         print(f"K5/K6 lrn {what}: max_abs_err fwd {ef:.3e}, bwd {eb:.3e}; K5 "
               f"bit-equal, K6 bit-equal {same}")
         err["lrn_fwd"] = max(err["lrn_fwd"], ef)
         err["lrn_bwd"] = max(err["lrn_bwd"], eb)
-    plp_cases = [(s, False, LRN_HP) for s in ALEXNET_LRN + (
+    # K7 and K8 at both AlexNet sandwiches and GoogLeNet's conv2/norm2 ->
+    # pool2 (57x57 -> 28x28: K7's row-band tiles on an odd plane)
+    plp_net = ALEXNET_LRN + GOOGLENET_LRN[1:]
+    plp_cases = [(s, False, LRN_HP) for s in plp_net + (
         (2, 7, 11, 13), (1, 32, 9, 9), (2, 5, 3, 3))]
-    plp_cases += [(s, True, LRN_HP) for s in ALEXNET_LRN + ((2, 7, 11, 13),)]
+    plp_cases += [(s, True, LRN_HP) for s in plp_net + ((2, 7, 11, 13),)]
     # K7 and K8 at other LRN settings than Caffe's default (the kernels'
     # general instantiation, not FAST): local_size 3 and 7, beta 0.6 on
     # the powf path and 0.5 on the square-root path, on a plane of each
@@ -1926,16 +2002,22 @@ def check_lrn_kernels(dev, card):
 # phase 9: the ImageNet training main path — imagenet_app's training
 # function at AlexNet's full width, two legs
 # ----------------------------------------------------------------------
-def _imnet_args(dev, extra=()):
+def _imnet_args(dev, extra=(), model="alexnet"):
+    """The app's arguments at phase 9's (and phase 12's) sizes.  Without
+    ``--data`` the app caps a builder model's classes at 4 (its
+    synthesized demo); the phases train on their own partitions at
+    1,000."""
     from sparknet_tpu_torch.apps import imagenet_app
 
-    return imagenet_app.parse_args([
-        "--model", "alexnet", "--device", dev.type,
+    args = imagenet_app.parse_args([
+        "--model", model, "--device", dev.type,
         "--workers", str(IMNET_W), "--tau", str(IMNET_TAU),
         "--train_batch", str(IMNET_BATCH), "--test_batch", str(IMNET_TEST_BATCH),
         "--full_size", str(IMNET_FULL), "--crop", str(IMNET_CROP),
         "--rounds", str(IMNET_ROUNDS), "--test_every", str(IMNET_TEST_EVERY),
         *extra])
+    args.classes = 1000
+    return args
 
 
 def _imnet_partitions():
@@ -1959,6 +2041,24 @@ def _imnet_partitions():
     mean = reduce_mean_sums([compute_mean(zip(x, y), return_sum=True)
                              for x, y in train])
     return train, test, mean
+
+
+class _env:
+    """Set environment variables for a block; put the old values back."""
+
+    def __init__(self, env):
+        self.env = env
+
+    def __enter__(self):
+        self.prior = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 class _Log:
@@ -2036,8 +2136,6 @@ def imagenet_train_end_to_end(dev, card):
     int8, fp32+overlap and bf16+overlap legs (see the module doc, phase
     9); returns the legs' summed launches of K5-K11 (the drift control's
     left out)."""
-    import os
-
     from sparknet_tpu_torch.apps import imagenet_app
     from sparknet_tpu_torch.ops import cuda_comm as cc
     from sparknet_tpu_torch.ops import cuda_lrn as cl
@@ -2104,7 +2202,6 @@ def imagenet_train_end_to_end(dev, card):
     expect["fp32+overlap"] = expect["bf16+overlap"]
     expect["default, again"] = expect["default"]
     results, total, smoothed = {}, {}, {}
-    prior = os.environ.get("SPARKNET_FUSION")
     # the default leg twice: the second run is the control, how far two
     # runs of the same program drift apart on this card
     for leg, fusion, extra in (
@@ -2116,8 +2213,7 @@ def imagenet_train_end_to_end(dev, card):
                                    "--rounds", str(IMNET_COMM_ROUNDS))),
             ("bf16+overlap", "0", ("--compress", "bf16", "--overlap_avg",
                                    "--rounds", str(IMNET_COMM_ROUNDS)))):
-        os.environ["SPARKNET_FUSION"] = fusion
-        try:
+        with _env({"SPARKNET_FUSION": fusion}):
             result, log = {}, _Log()
             for mod in (cl, cp, cc):
                 mod.reset_launch_counts()
@@ -2125,11 +2221,6 @@ def imagenet_train_end_to_end(dev, card):
                                mean, dev, log, result)
             torch.cuda.synchronize()
             launches = {**cl.LAUNCHES, **cp.LAUNCHES, **cc.LAUNCHES}
-        finally:
-            if prior is None:
-                os.environ.pop("SPARKNET_FUSION", None)
-            else:
-                os.environ["SPARKNET_FUSION"] = prior
         losses = result["losses"]  # (rounds, W, tau)
         per_round = losses.mean(axis=(1, 2))
         smoothed[leg] = np.array(log.smoothed)
@@ -2210,14 +2301,16 @@ def imagenet_train_end_to_end(dev, card):
 
 
 def where_imnet_time_goes(dev, card, leg, fusion, compress, parts, mean,
-                          overlap=False):
-    """One round of an AlexNet leg under ``torch.profiler``: wall time,
+                          overlap=False, model="alexnet", env=None):
+    """One round of an ImageNet leg under ``torch.profiler``: wall time,
     the device's busy share, the top kernels and K5-K11's share (the
-    trainer with the app's metrics, so K9 computes its readout).  With
-    ``overlap`` the round is a steady one: the previous round's average
-    lands (K11) after its first local step."""
-    import os
-
+    trainer with the app's metrics, so K9 computes its readout), and the
+    round's peak device memory above what the process held before the
+    solver was built (earlier legs' tensors still alive).  With
+    ``overlap`` the round is a steady
+    one: the previous round's average lands (K11) after its first local
+    step.  ``env`` is set while the net is built (``SPARKNET_FUSION`` is
+    ``fusion``).  Returns ``(wall ms, device busy ms, launches)``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2226,15 +2319,10 @@ def where_imnet_time_goes(dev, card, leg, fusion, compress, parts, mean,
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
     from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
 
-    prior = os.environ.get("SPARKNET_FUSION")
-    os.environ["SPARKNET_FUSION"] = fusion
-    try:
-        solver = imagenet_app.build_solver(_imnet_args(dev), mean, dev)
-    finally:
-        if prior is None:
-            os.environ.pop("SPARKNET_FUSION", None)
-        else:
-            os.environ["SPARKNET_FUSION"] = prior
+    held = torch.cuda.memory_allocated(dev)
+    with _env(dict(env or {}, SPARKNET_FUSION=fusion)):
+        solver = imagenet_app.build_solver(
+            _imnet_args(dev, model=model), mean, dev, _deep_solver(model))
     tr = ParameterAveragingTrainer(
         solver, IMNET_W, compress=compress, overlap_avg=overlap,
         metrics=None if compress == "none" else TrainingMetrics())
@@ -2245,10 +2333,12 @@ def where_imnet_time_goes(dev, card, leg, fusion, compress, parts, mean,
         for w, (x, y) in enumerate(parts)]).items()}
     st, _ = tr.round(st, batch)  # warm
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     st, _ = tr.round(st, batch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) - held
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         st, _ = tr.round(st, batch)
         torch.cuda.synchronize()
@@ -2260,7 +2350,7 @@ def where_imnet_time_goes(dev, card, leg, fusion, compress, parts, mean,
         reverse=True,
     )
     busy = sum(r[0] for r in rows)
-    check(busy > 0, f"AlexNet round ({leg}): the profiler saw no device time")
+    check(busy > 0, f"{model} round ({leg}): the profiler saw no device time")
     share = {tag: sum(r[0] for r in rows if re.search(kern, r[2]))
              for tag, kern in (("K5", "lrn_fwd_kernel"), ("K6", "lrn_bwd_kernel"),
                                ("K7", "lrn_pool_fwd_kernel"),
@@ -2269,14 +2359,17 @@ def where_imnet_time_goes(dev, card, leg, fusion, compress, parts, mean,
                                ("K10", "apply_barriered_kernel"),
                                ("K11", "apply_correction_kernel"))}
     n_kernels = sum(r[1] for r in rows)
-    print(f"[{card}] AlexNet round ({leg}, W={IMNET_W}, tau={IMNET_TAU}, batch "
+    print(f"[{card}] {model} round ({leg}, W={IMNET_W}, tau={IMNET_TAU}, batch "
           f"{IMNET_BATCH}): {wall_ms:.3f} ms wall, {busy:.3f} ms device busy "
           f"({busy / wall_ms:.1%}), {n_kernels} kernel launches of {len(rows)} "
-          "kinds; " + ", ".join(f"{t} {ms:.4f} ms ({ms / busy:.1%})"
-                                for t, ms in share.items()))
+          f"kinds, peak memory {peak / 2**30:.3f} GiB (above the "
+          f"{held / 2**30:.3f} GiB held before); "
+          + ", ".join(f"{t} {ms:.4f} ms ({ms / busy:.1%})"
+                      for t, ms in share.items()))
     for ms, count, key in rows[:10]:
         print(f"    {ms:.4f} ms ({ms / busy:.1%} of device, {count} launches)  "
               f"{key[:90]}")
+    return wall_ms, busy, n_kernels
 
 
 # ----------------------------------------------------------------------
@@ -2889,6 +2982,351 @@ def db_end_to_end(dev, card, root):
     return total, run
 
 
+# ----------------------------------------------------------------------
+# phase 12: the deep nets on the main loop — GoogLeNet and ResNet-50
+# through imagenet_app's training function at full width
+# ----------------------------------------------------------------------
+DEEP_ROUNDS = 3  # testing at rounds 0 and 2 and after the last
+DEEP_COMM_ROUNDS = 2  # the overlapped legs
+DEEP_CPU_BATCH = 8  # the first local step on the card vs the CPU
+# GoogLeNet's first step in float32 on the card vs the CPU, of each
+# blob's update (2.7e-3 measured on the H100)
+DEEP_CPU_TOL = 1e-2
+# ResNet-50's first step in float64 on the card vs the CPU, of each
+# blob's update: in float32 BatchNorm over 8 x 7 x 7 values a channel at
+# res5 (its biased E[x^2] - mean^2) puts any float32 run, the CPU's too,
+# ~0.16 of an update from float64, so the card is held in float64
+DEEP_F64_TOL = 1e-6
+# the first step's losses on the card vs the CPU, relative: float32
+# measured 9.1e-7 (ResNet-50) and 6.5e-8 (GoogLeNet) on the H100, ten
+# times that as the limit; float64 to its own rounding
+DEEP_LOSS_RTOL = 1e-5
+DEEP_F64_LOSS_RTOL = 1e-12
+# GoogLeNet's first loss at init, from the CPU's: loss3 7.19 plus 0.3 x
+# the aux heads' 15.6 and 7.85 (the xavier-filled heads start far from
+# ln 1000), within 15% (the card measured 14.79 with dropout on)
+GOOGLENET_FIRST_LOSS = 7.19 + 0.3 * (15.6 + 7.85)
+GOOGLENET_FIRST_LOSS_RTOL = 0.15
+HFUSE_LOSS_RTOL = 1e-4
+# ResNet-50's zoo solver starts at lr 0.1, its recipe's rate for batch
+# 256 (GoogLeNet's recipe batch is 32, as here).  At the cut batch of 32,
+# from scratch and without warm-up, the card measured (4 rounds, the
+# worker-mean loss of each iteration): 0.1 climbs to ~100 in round 0;
+# 0.0125 (0.1 scaled by 32/256) falls to 3.3 by the third iteration, then
+# climbs to 12-19; 0.005 falls to ~2.0, but the int8 leg's round-end loss
+# lies 0.11-0.44 from the fp32 leg's after round 1 (LOSS_BAND 0.08);
+# 0.002 falls 7.53 -> ~2.4, int8 within 0.03-0.05 of fp32 through
+# round 2 (PERF.md §6).
+DEEP_LR = {"resnet50": 0.002}
+# (model, leg, environment, extra app flags, rounds, deterministic
+# algorithms).  Every leg but the last two trains under
+# deterministic_algorithms(): with cuDNN's defaults two runs of
+# ResNet-50's default leg drift ~0.1 apart in loss by round 2 on the card
+# (BatchNorm over a batch of 32 amplifies rounding), so a compressed
+# leg's gap would measure that drift.  The last two are the int8 /
+# default pair under the app's own settings (torch's defaults): their gap
+# is printed, not banded.
+DEEP_LEGS = (
+    ("googlenet", "default", {"SPARKNET_FUSION": "0"}, (), DEEP_ROUNDS, True),
+    ("googlenet", "fused", {"SPARKNET_FUSION": "1"}, (), DEEP_ROUNDS, True),
+    ("googlenet", "hconv off", {"SPARKNET_FUSION": "0", "SPARKNET_HFUSE": "0"},
+     (), 1, True),
+    ("resnet50", "default", {}, (), DEEP_ROUNDS, True),
+    ("resnet50", "default, again", {}, (), DEEP_ROUNDS, True),
+    ("resnet50", "int8", {}, ("--compress", "int8"), DEEP_ROUNDS, True),
+    ("resnet50", "fp32+overlap", {}, ("--overlap_avg",), DEEP_COMM_ROUNDS,
+     True),
+    ("resnet50", "bf16+overlap", {}, ("--compress", "bf16", "--overlap_avg"),
+     DEEP_COMM_ROUNDS, True),
+    ("resnet50", "default, app settings", {}, (), DEEP_ROUNDS, False),
+    ("resnet50", "int8, app settings", {}, ("--compress", "int8"),
+     DEEP_ROUNDS, False),
+)
+
+
+def _deep_solver(model):
+    """The model's zoo solver, at DEEP_LR's rate where it names one."""
+    from sparknet_tpu_torch import models
+
+    param = models.load_model_solver(model)
+    if model in DEEP_LR:
+        param.base_lr = DEEP_LR[model]
+    return param
+
+
+def _deep_launches(model, leg, rounds, n_test, groups):
+    """The K5-K11 launches of one phase-12 leg: GoogLeNet's two LRNs run
+    K5/K6 on every training step and K5 on every test batch (the TEST net
+    is never fused); under SPARKNET_FUSION=1 conv2/norm2 -> pool2 (57x57,
+    odd) runs K7/K8 instead.  ResNet-50 has no LRN; its comm legs launch
+    K9 and K10 (int8) or K9 and K11 (the overlapped legs, the last K11 at
+    finalize) once per leaf group of at most 32 a round."""
+    launches = dict.fromkeys(("lrn_fwd", "lrn_bwd", "lrn_pool_fwd",
+                              "lrn_pool_bwd", "comm_encode",
+                              "comm_apply_barriered", "comm_apply_correction"),
+                             0)
+    steps = IMNET_W * IMNET_TAU * rounds
+    n_tests = len(range(0, rounds, IMNET_TEST_EVERY)) + 1
+    if model == "googlenet":
+        fused = steps if leg == "fused" else 0
+        launches.update(lrn_fwd=2 * steps - fused + 2 * n_tests * n_test,
+                        lrn_bwd=2 * steps - fused, lrn_pool_fwd=fused,
+                        lrn_pool_bwd=fused)
+    elif leg.startswith("int8"):
+        launches.update(comm_encode=groups * rounds,
+                        comm_apply_barriered=groups * rounds)
+    elif "overlap" in leg:
+        launches.update(comm_encode=groups * rounds,
+                        comm_apply_correction=groups * rounds)
+    return launches
+
+
+def _deep_first_step_matches_cpu(dev, model, parts, mean):
+    """One local step of round 0 at batch DEEP_CPU_BATCH (the first
+    images of each partition) on the card, on the CPU, and on the CPU in
+    float64 (params, stats, momentum and the transformed batch cast), from
+    one init and the same crops, mirrors and dropout masks; ResNet-50
+    (no LRN, whose kernels take float32 only) also on the card in
+    float64.  Each parameter blob's difference is taken relative to the
+    largest entry of its update on the CPU.  Returns ``{"card_cpu":
+    (worst, the three worst), "card_f64": (worst, blob), "cpu_f64":
+    (worst, blob), "loss": max |loss diff| relative}``, and for ResNet-50
+    ``"f64": (worst, the three worst)`` and ``"loss_f64"``: the card's
+    float64 run against the CPU's."""
+    from sparknet_tpu_torch.apps import imagenet_app
+    from sparknet_tpu_torch.data import MinibatchSampler, stack_windows
+    from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
+    from sparknet_tpu_torch.utils.tree import tree_map
+
+    b = DEEP_CPU_BATCH
+    batch = stack_windows([
+        MinibatchSampler({"data": x[:, :b], "label": y[:, :b].astype(np.float32)},
+                         1, seed=w).next_window()
+        for w, (x, y) in enumerate(parts)])
+    runs, init = [], None
+    legs = [(dev, False), (torch.device("cpu"), False),
+            (torch.device("cpu"), True)]
+    if model == "resnet50":
+        legs.append((dev, True))
+    for d, f64 in legs:
+        solver = imagenet_app.build_solver(_imnet_args(
+            d, ("--train_batch", str(b)), model=model), mean, d,
+            _deep_solver(model))
+        init = init if init is not None else solver.init_state(0)
+        start = init
+        if f64:
+            cast = solver.train_transform
+            solver.train_transform = lambda mb, key: {
+                k: v.double() if v.is_floating_point() else v
+                for k, v in cast(mb, key).items()}
+            start = init._replace(**{f: tree_map(lambda t: t.double(),
+                                                 getattr(init, f))
+                                     for f in ("params", "stats", "history")})
+        tr = ParameterAveragingTrainer(solver, IMNET_W)
+        st, losses = tr.round(tr.broadcast_state(start), {
+            k: torch.from_numpy(v).to(d) for k, v in batch.items()})
+        runs.append((st.params, losses.cpu().double()))
+    rel = {"card_cpu": [], "card_f64": [], "cpu_f64": [], "f64": []}
+    pairs = (("card_cpu", 0, 1), ("card_f64", 0, 2), ("cpu_f64", 1, 2),
+             ("f64", 3, 2))[:len(runs)]
+    for name, blobs in init.params.items():
+        for i, p0 in enumerate(blobs):
+            got = [r[0][name][i].cpu().double() for r in runs]
+            size = max(float((got[1] - p0.cpu().double()[None]).abs().max()),
+                       1e-30)
+            for key, a, bb in pairs:
+                rel[key].append((float((got[a] - got[bb]).abs().max()) / size,
+                                 f"{name}[{i}]"))
+    for v in rel.values():
+        v.sort(reverse=True)
+
+    def loss_rel(a, bb):
+        return float(((runs[a][1] - runs[bb][1]).abs()
+                      / runs[bb][1].abs()).max())
+
+    out = {"card_cpu": (rel["card_cpu"][0][0], rel["card_cpu"][:3]),
+           "card_f64": rel["card_f64"][0], "cpu_f64": rel["cpu_f64"][0],
+           "loss": loss_rel(0, 1)}
+    if len(runs) == 4:
+        out.update(f64=(rel["f64"][0][0], rel["f64"][:3]),
+                   loss_f64=loss_rel(3, 2))
+    return out
+
+
+def deep_nets_end_to_end(dev, card):
+    """Phase 12 (see the module doc): GoogLeNet and ResNet-50 through
+    ``imagenet_app.train`` at full width; returns the legs' summed
+    launches of K5-K11."""
+    from sparknet_tpu_torch.apps import imagenet_app
+    from sparknet_tpu_torch.ops import cuda_comm as cc
+    from sparknet_tpu_torch.ops import cuda_lrn as cl
+    from sparknet_tpu_torch.ops import cuda_plp as cp
+    from sparknet_tpu_torch.parallel import LOSS_BAND
+
+    from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+
+    train_parts, test_parts, mean = _imnet_partitions()
+    n_test = sum(len(x) for x, _ in test_parts)
+    results, smoothed, total = {}, {}, {}
+    for model, leg, env, extra, rounds, det in DEEP_LEGS:
+        with _env(env), deterministic_algorithms(det):
+            result, log = {}, _Log()
+            for mod in (cl, cp, cc):
+                mod.reset_launch_counts()
+            t0 = time.perf_counter()
+            imagenet_app.train(_imnet_args(dev, extra + ("--rounds", str(rounds)),
+                                           model=model),
+                               train_parts, test_parts, mean, dev, log, result,
+                               _deep_solver(model))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {**cl.LAUNCHES, **cp.LAUNCHES, **cc.LAUNCHES}
+        tr = result["trainer"]
+        groups = 0
+        if tr._comm is not None:
+            groups = sum(-(-(sl.stop - sl.start) // cc.MAX_LEAVES)
+                         for sl in tr._comm.chunk_slices)
+        net = tr.solver.net
+        losses = result["losses"]  # (rounds, W, tau)
+        per_round = losses.mean(axis=(1, 2))
+        smoothed[model, leg] = np.array(log.smoothed)
+        print(f"{model} leg {leg}: {len(net.hconv_groups)} hconv groups, "
+              f"{len(net._plp_fused)} fused LRN + pool, launches {launches}, "
+              "per-round mean loss " + " ".join(f"{v:.6f}" for v in per_round)
+              + f", smoothed {smoothed[model, leg].tolist()}, accuracies "
+              f"{[round(a, 4) for a in result['accuracies']]}, {wall:.2f} s "
+              "with the tests")
+        want = _deep_launches(model, leg, rounds, n_test, groups)
+        check(launches == want,
+              f"{model} leg {leg}: launches {launches}, expected {want}")
+        check(bool(np.isfinite(losses).all()), f"{model} {leg}: non-finite loss")
+        if model == "googlenet":
+            check(len(net.hconv_groups) == (0 if "off" in leg else 9),
+                  f"googlenet {leg}: {len(net.hconv_groups)} hconv groups")
+            check(len(net._plp_fused) == (1 if leg == "fused" else 0),
+                  f"googlenet {leg}: {len(net._plp_fused)} fused sandwiches")
+        if rounds > 1:
+            check(per_round[-1] < per_round[0],
+                  f"{model} {leg}: loss did not fall ({per_round[0]} -> "
+                  f"{per_round[-1]})")
+        rs = np.array(result["round_seconds"][1:])
+        if len(rs):
+            imgs = IMNET_W * IMNET_TAU * IMNET_BATCH
+            print(f"[{card}] {model} leg {leg}: {1.0 / rs.mean():.3f} rounds/s, "
+                  f"{imgs / rs.mean():.1f} images/s (rounds 1..{len(rs)}: "
+                  f"{rs.mean() * 1e3:.2f} ms)")
+        results[model, leg] = result
+        if leg == "default, again":
+            check(np.array_equal(losses, results[model, "default"]["losses"]),
+                  f"{model}: two runs of the default leg differ")
+            print(f"{model} default leg, run twice: every loss equal bit for "
+                  "bit")
+            continue  # the control: its launches join nothing
+        for name, v in launches.items():
+            total[name] = total.get(name, 0) + v
+    ln = float(np.log(1000))
+    first = {m: float(results[m, "default"]["losses"][0, :, 0].mean())
+             for m in ("googlenet", "resnet50")}
+    print(f"first losses: googlenet {first['googlenet']:.4f} (loss3 + 0.3 x two "
+          f"aux heads; at init on the CPU {GOOGLENET_FIRST_LOSS:.4f}, 1.6 ln "
+          f"1000 = {1.6 * ln:.4f}), resnet50 "
+          f"{first['resnet50']:.4f} (ln 1000 = {ln:.4f})")
+    check(abs(first["googlenet"] - GOOGLENET_FIRST_LOSS)
+          <= GOOGLENET_FIRST_LOSS_RTOL * GOOGLENET_FIRST_LOSS,
+          f"googlenet's first loss {first['googlenet']} not within "
+          f"{GOOGLENET_FIRST_LOSS_RTOL:.0%} of {GOOGLENET_FIRST_LOSS:.4f}")
+    check(abs(first["resnet50"] - ln) < 1.5, "resnet50's first loss not ~ln 1000")
+    gap = np.abs(results["googlenet", "hconv off"]["losses"][0].mean()
+                 - results["googlenet", "default"]["losses"][0].mean()) / abs(
+        results["googlenet", "default"]["losses"][0].mean())
+    print(f"googlenet round 0, hconv off vs on: mean losses {gap:.3e} apart "
+          f"(relative; limit {HFUSE_LOSS_RTOL})")
+    check(gap <= HFUSE_LOSS_RTOL, f"hconv changes round 0's loss by {gap}")
+    default = results["googlenet", "default"]["losses"].mean(axis=(1, 2))
+    fgap = np.abs(results["googlenet", "fused"]["losses"].mean(axis=(1, 2))
+                  - default) / np.abs(default)
+    print("googlenet fused vs default, per-round losses apart (relative): "
+          + " ".join(f"{v:.3e}" for v in fgap) + f" (round 0's limit "
+          f"{FUSED_LOSS_RTOL})")
+    check(fgap[0] <= FUSED_LOSS_RTOL,
+          f"googlenet fused and default round-0 losses differ by {fgap[0]}")
+    for leg, base, n in (("int8", "default", DEEP_ROUNDS),
+                         ("bf16+overlap", "fp32+overlap", DEEP_COMM_ROUNDS)):
+        g = np.abs(smoothed["resnet50", leg] - smoothed["resnet50", base][:n])
+        print(f"resnet50 {leg} vs {base}, smoothed losses: gaps {g.tolist()} "
+              f"(limit {LOSS_BAND})")
+        check(len(g) == n and float(g.max()) <= LOSS_BAND,
+              f"resnet50 {leg} leaves the loss band of {base}: {g}")
+    g = np.abs(smoothed["resnet50", "int8, app settings"]
+               - smoothed["resnet50", "default, app settings"])
+    print(f"resnet50 int8 vs default under the app's own settings (torch's "
+          f"defaults), smoothed losses: gaps {g.tolist()} (not banded: "
+          f"ROADMAP C.4)")
+    # the averaged BatchNorm stats: every worker holds the same, the mean
+    # of what the workers' local steps left
+    tr = results["resnet50", "default"]["trainer"]
+    st = results["resnet50", "default"]["state"]
+    from sparknet_tpu_torch.data import MinibatchSampler, stack_windows
+
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in stack_windows([
+        MinibatchSampler({"data": x, "label": y.astype(np.float32)},
+                         IMNET_TAU, seed=w).next_window()
+        for w, (x, y) in enumerate(train_parts)]).items()}
+    local, _ = tr._local(st, batch)
+    avg = tr._average(local, torch.ones(IMNET_W, device=dev))
+    n_stats = 0
+    for k, blobs in avg.stats.items():
+        for i, s in enumerate(blobs):
+            mean_w = local.stats[k][i].sum(dim=0) / IMNET_W
+            check(all(torch.equal(s[w], mean_w) for w in range(IMNET_W)),
+                  f"BN stats {k}[{i}] after the average are not the workers' "
+                  "mean on every worker")
+            n_stats += 1
+    print(f"resnet50: {n_stats} BatchNorm stat blobs after a round equal on "
+          "every worker and equal to the workers' mean")
+    for model in ("googlenet", "resnet50"):
+        vs = _deep_first_step_matches_cpu(dev, model, train_parts, mean)
+        worst, top = vs["card_cpu"]
+        print(f"{model} first local step (batch {DEEP_CPU_BATCH}) on the card "
+              f"vs the CPU: worst |diff| {worst:.3e} of the update, losses "
+              f"{vs['loss']:.3e} apart; "
+              + ", ".join(f"{n} {r:.3e}" for r, n in top)
+              + f"; against float64 on the CPU the card lies {vs['card_f64'][0]:.3e}"
+              f" away (worst blob {vs['card_f64'][1]}), the CPU's float32 "
+              f"{vs['cpu_f64'][0]:.3e} ({vs['cpu_f64'][1]})")
+        check(vs["loss"] <= DEEP_LOSS_RTOL,
+              f"{model} first step's losses on the card vs the CPU: "
+              f"{vs['loss']:.3e} (limit {DEEP_LOSS_RTOL})")
+        if "f64" in vs:
+            worst, top = vs["f64"]
+            print(f"{model} first local step in float64, the card vs the CPU: "
+                  f"worst |diff| {worst:.3e} of the update, losses "
+                  f"{vs['loss_f64']:.3e} apart; "
+                  + ", ".join(f"{n} {r:.3e}" for r, n in top))
+            check(worst <= DEEP_F64_TOL and vs["loss_f64"] <= DEEP_F64_LOSS_RTOL,
+                  f"{model} first step in float64 on the card vs the CPU: "
+                  f"{worst:.3e} of the update (limit {DEEP_F64_TOL}), losses "
+                  f"{vs['loss_f64']:.3e} (limit {DEEP_F64_LOSS_RTOL})")
+        else:
+            check(worst <= DEEP_CPU_TOL,
+                  f"{model} first step on the card vs the CPU: {worst:.3e} of "
+                  f"the update (limit {DEEP_CPU_TOL})")
+    walls = {}
+    for hf in ("1", "0"):
+        walls[hf] = where_imnet_time_goes(
+            dev, card, f"hconv {'on' if hf == '1' else 'off'}", "0", "none",
+            train_parts, mean, model="googlenet", env={"SPARKNET_HFUSE": hf})
+    print(f"[{card}] googlenet round, hconv on vs off: {walls['1'][0]:.3f} vs "
+          f"{walls['0'][0]:.3f} ms wall, {walls['1'][1]:.3f} vs "
+          f"{walls['0'][1]:.3f} ms device busy ("
+          f"{walls['0'][1] / walls['1'][1] - 1:+.2%} off vs on), "
+          f"{walls['1'][2]} vs {walls['0'][2]} launches")
+    for leg, compress in (("default", "none"), ("int8", "int8")):
+        where_imnet_time_goes(dev, card, leg, "0", compress, train_parts, mean,
+                              model="resnet50")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script runs on the card",
@@ -2942,6 +3380,8 @@ def main() -> int:
         for name, n in db_launches.items():
             launches[name] = launches.get(name, 0) + n
         determinism_cost(dev, card, root, db_round)
+    for name, n in deep_nets_end_to_end(dev, card).items():
+        launches[name] = launches.get(name, 0) + n
     kernels += comm_kernels + lrn_kernels
     for r in kernels:
         r["launches"] = launches[r["name"]]

@@ -1,4 +1,4 @@
-"""ImageNetApp — the distributed ImageNet training driver (AlexNet).
+"""ImageNetApp — the distributed ImageNet training driver.
 
 The port of ``sparknet_tpu/apps/imagenet_app.py`` (reference:
 ``ImageNetApp.scala``): load tar shards, force-resize to the full size,
@@ -8,11 +8,20 @@ per-image random crop + mirror (train) and centre crop (test) and the
 mean subtraction run on the device (``data/transforms.py``).  The W
 workers are stacked on one device (``parallel/trainers.py``).
 
+``--model`` is any zoo or builder name (``models.available_models()``):
+AlexNet and CaffeNet, GoogLeNet and ResNet-50 (the builders take
+``--classes``; each model trains under its zoo solver, poly for
+GoogLeNet, multistep from lr 0.1 for ResNet-50; ``train`` also takes
+another ``SolverParameter``, e.g. one whose rate suits a batch cut from
+the recipe's).
 On the card every ACROSS_CHANNELS LRN forward runs K5 and every LRN
-backward K6 (``ops/cuda_lrn.py``); with ``SPARKNET_FUSION=1`` the
-training net's two ``LRN -> Pooling`` sandwiches run the fused K7/K8
-instead (``ops/cuda_plp.py``; at crop 227 the LRN inputs are 55x55 and
-27x27, odd and fusable).
+backward K6 (``ops/cuda_lrn.py``); with ``SPARKNET_FUSION=1`` a training net's
+``LRN -> Pooling`` sandwiches on odd inputs run the fused K7/K8 instead
+(``ops/cuda_plp.py``; at crop 227 AlexNet's LRN inputs are 55x55 and
+27x27, GoogLeNet's ``conv2/norm2`` input 57x57).  GoogLeNet's Inception
+branches run through the horizontal-conv fusion (``net.py``, off under
+``SPARKNET_HFUSE=0``); ResNet-50's BatchNorm stat blobs are averaged
+with the parameters every round.
 
 Run (on the card; ``--device cpu`` runs the kernels' plain versions)::
 
@@ -27,8 +36,8 @@ defaults (full 64, crop 56, at most 4 classes unless given).
 which ``main`` calls after the data stage.  Object-store data,
 ``--cache_dir``/``--cache_bytes``, ``--shuffle_epochs``, multi-host,
 ``--health``, ``--journal``, ``--obs``/``--profile``,
-``--slices``/``--cross_slice_every``/``--elastic`` and the GoogLeNet and
-ResNet-50 models are not yet ported and exit saying so.
+``--slices``/``--cross_slice_every``/``--elastic`` are not yet ported
+and exit saying so.
 """
 
 from __future__ import annotations
@@ -53,7 +62,6 @@ _NOT_YET_PORTED = (
     ("--profile", False), ("--slices", True), ("--cross_slice_every", True),
     ("--elastic", False),
 )
-_MODELS = ("alexnet", "caffenet")
 
 # one worker's partition: (images (nb, B, 3, H, W) uint8, labels (nb, B))
 Partition = Tuple[np.ndarray, np.ndarray]
@@ -70,8 +78,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--train_labels", default="train.txt")
     p.add_argument("--test_labels", default="val.txt")
     p.add_argument("--model", default="alexnet",
-                   help="alexnet | caffenet (googlenet, resnet50: not yet "
-                   "ported)")
+                   help="alexnet | caffenet | googlenet | resnet50 (any "
+                   "models.available_models() name)")
     p.add_argument("--workers", type=int, default=0,
                    help="0 = the device count")
     p.add_argument("--rounds", type=int, default=10)
@@ -109,10 +117,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             raise SystemExit(
                 f"imagenet_app: {flag} is not yet ported to sparknet_tpu_torch"
             )
-    if args.model not in _MODELS:
+    from sparknet_tpu_torch.models import available_models
+
+    if args.model not in available_models():
         raise SystemExit(
-            f"imagenet_app: --model {args.model} is not yet ported to "
-            f"sparknet_tpu_torch (have {', '.join(_MODELS)})"
+            f"imagenet_app: unknown --model {args.model} (have "
+            f"{', '.join(available_models())})"
         )
     if args.data is not None and "://" in args.data:
         raise SystemExit(
@@ -184,23 +194,28 @@ def data_stage(args, n_workers: int, log, data_dir: str):
     return train_parts, test_parts, mean
 
 
-def build_solver(args, mean: np.ndarray, device):
+def build_solver(args, mean: np.ndarray, device, solver_param=None):
     """The model's solver at the cropped batch shapes
     (``replaceDataLayers``, ImageNetApp.scala:103-104), with the train and
-    test transforms on ``device``."""
+    test transforms on ``device``; ``solver_param`` (default: the model's
+    zoo solver) sets the schedule."""
     from sparknet_tpu_torch import config, models
     from sparknet_tpu_torch.data import transforms
+    from sparknet_tpu_torch.models.builders import BUILDERS
     from sparknet_tpu_torch.solver import Solver
 
     netp = (models.load_model(args.model, classes=args.classes)
-            if args.model == "caffenet" else models.load_model(args.model))
+            if args.model in BUILDERS  # prototxt models take no overrides
+            else models.load_model(args.model))
     netp = config.replace_data_layers(
         netp,
         [(args.train_batch, 3, args.crop, args.crop), (args.train_batch,)],
         [(args.test_batch, 3, args.crop, args.crop), (args.test_batch,)],
     )
+    if solver_param is None:
+        solver_param = models.load_model_solver(args.model)
     return Solver(
-        models.load_model_solver(args.model), net_param=netp, device=device,
+        solver_param, net_param=netp, device=device,
         train_transform=transforms.train_transform(
             mean, args.crop, mirror=not args.no_mirror),
         test_transform=transforms.test_transform(mean, args.crop),
@@ -209,11 +224,12 @@ def build_solver(args, mean: np.ndarray, device):
 
 def train(args, train_parts: Sequence[Partition],
           test_parts: Sequence[Partition], mean: np.ndarray, device, log,
-          result: Optional[dict] = None) -> float:
+          result: Optional[dict] = None, solver_param=None) -> float:
     """The averaging loop on in-memory uint8 partitions (one per worker):
     test-then-train every ``--test_every`` rounds (ImageNetApp.scala:118),
     ``--rounds`` rounds of tau local steps and an average, then the final
-    test.  Returns the final accuracy.  ``result``
+    test, under ``solver_param`` (default: the model's zoo solver).
+    Returns the final accuracy.  ``result``
     receives the state, the trainer, the metrics, the per-round losses
     (``losses``: (rounds, W, tau)), each round's wall seconds and the
     accuracies."""
@@ -244,7 +260,7 @@ def train(args, train_parts: Sequence[Partition],
         [{"data": x, "label": y.astype(np.float32)} for x, y in test_parts]
     )
     num_test = int(np.asarray(test_counts).sum())
-    solver = build_solver(args, mean, device)
+    solver = build_solver(args, mean, device, solver_param)
     metrics = TrainingMetrics()
     trainer = ParameterAveragingTrainer(
         solver, n_workers, compress=args.compress,
@@ -254,7 +270,8 @@ def train(args, train_parts: Sequence[Partition],
     test_on_dev = {k: torch.from_numpy(v).to(device)
                    for k, v in test_batches.items()}
     log.log(f"finished setting up nets and weights ({args.model}, "
-            f"{n_workers} workers on {device})")
+            f"{n_workers} workers on {device}, "
+            f"{len(solver.net.hconv_groups)} hconv groups)")
 
     def evaluate(r=-1) -> float:
         scores = trainer.test_and_store_result(state, test_on_dev,

@@ -9,9 +9,8 @@ proto2 text format the reference's configs use::
     scalar    := number | 'true' | 'false' | quoted-string | ENUM_IDENT
 
 Repeated fields accumulate across occurrences.  Unknown fields raise
-(catches typos) unless ``permissive=True``; a layer parameter message
-this port has no layer for raises as not yet ported.  The V0/V1 legacy
-upgrades and the printer are not ported.
+(catches typos) unless ``permissive=True``.  The V0/V1 legacy upgrades
+and the printer are not ported.
 """
 
 from __future__ import annotations
@@ -20,7 +19,6 @@ import dataclasses
 import typing
 from typing import Any, Dict, List, Tuple, Type
 
-from sparknet_tpu_torch.config import schema
 from sparknet_tpu_torch.config.schema import Message
 
 __all__ = ["parse", "parse_file", "ParseError"]
@@ -184,11 +182,6 @@ def _bind(cls: Type[Message], d: Dict[str, List[Any]], permissive: bool) -> Mess
         if name not in ftypes:
             if permissive:
                 continue
-            if cls is schema.LayerParameter and name.endswith("_param"):
-                raise ParseError(
-                    f"LayerParameter.{name} is not yet ported to "
-                    "sparknet_tpu_torch"
-                )
             raise ParseError(f"unknown field '{name}' in {cls.__name__}")
         kind, inner = ftypes[name]
         where = f"{cls.__name__}.{name}"

@@ -1,14 +1,13 @@
 """Typed configuration schema compatible with Caffe's proto2 config language.
 
-The port's own copy of ``sparknet_tpu/config/schema.py``, cut to the
-messages the ported training paths read: the cifar10_full and AlexNet
-net and solver prototxts and the small host-fed nets of the tests
-(HostData, Data with its ``data_param`` and ``transform_param``,
-Convolution, Pooling, LRN, InnerProduct, ReLU, Dropout, SoftmaxWithLoss,
-Accuracy).  Field names, defaults and enum literals
-match the reference schema, so those configs parse unchanged; a layer
-parameter message outside this set is refused by the parser as not yet
-ported.
+The port's own copy of ``sparknet_tpu/config/schema.py``: every layer
+parameter message of the JAX package's schema (50), the net, solver and
+net-state messages.  Field names, defaults and enum literals match the
+reference schema, so its configs parse unchanged.  Not copied: the
+``BlobProto`` message and the V1 legacy fields (``LayerParameter.blobs``,
+``blobs_lr``, ``weight_decay``, ``NetParameter.layers``), which the port's
+parser does not upgrade — weights travel in ``.caffemodel`` files
+(``io/caffemodel.py``), never inside a prototxt.
 """
 
 from __future__ import annotations
@@ -134,6 +133,84 @@ class TransformationParameter(Message):
 
 
 @dataclass
+class LossParameter(Message):
+    ignore_label: Optional[int] = None
+    normalization: str = "VALID"  # FULL | VALID | BATCH_SIZE | NONE
+    normalize: Optional[bool] = None  # deprecated alias
+
+
+@dataclass
+class AccuracyParameter(Message):
+    top_k: int = 1
+    axis: int = 1
+    ignore_label: Optional[int] = None
+
+
+@dataclass
+class ArgMaxParameter(Message):
+    out_max_val: bool = False
+    top_k: int = 1
+    axis: Optional[int] = None
+
+
+@dataclass
+class ConcatParameter(Message):
+    axis: int = 1
+    concat_dim: Optional[int] = None  # legacy
+
+
+@dataclass
+class BatchNormParameter(Message):
+    use_global_stats: Optional[bool] = None
+    moving_average_fraction: float = 0.999
+    eps: float = 1e-5
+
+
+@dataclass
+class BiasParameter(Message):
+    axis: int = 1
+    num_axes: int = 1
+    filler: Optional[FillerParameter] = None
+
+
+@dataclass
+class ScaleParameter(Message):
+    axis: int = 1
+    num_axes: int = 1
+    filler: Optional[FillerParameter] = None
+    bias_term: bool = False
+    bias_filler: Optional[FillerParameter] = None
+
+
+@dataclass
+class ContrastiveLossParameter(Message):
+    margin: float = 1.0
+    legacy_version: bool = False
+
+
+@dataclass
+class ConvolutionParameter(Message):
+    num_output: int = 0
+    bias_term: bool = True
+    pad: List[int] = field(default_factory=list)
+    kernel_size: List[int] = field(default_factory=list)
+    stride: List[int] = field(default_factory=list)
+    dilation: List[int] = field(default_factory=list)
+    pad_h: int = 0
+    pad_w: int = 0
+    kernel_h: int = 0
+    kernel_w: int = 0
+    stride_h: int = 0
+    stride_w: int = 0
+    group: int = 1
+    weight_filler: Optional[FillerParameter] = None
+    bias_filler: Optional[FillerParameter] = None
+    axis: int = 1
+    force_nd_im2col: bool = False
+    engine: Optional[str] = None  # DEFAULT | CAFFE | CUDNN (ignored)
+
+
+@dataclass
 class DataParameter(Message):
     source: Optional[str] = None
     batch_size: int = 0
@@ -150,6 +227,88 @@ class DataParameter(Message):
 @dataclass
 class DropoutParameter(Message):
     dropout_ratio: float = 0.5
+
+
+@dataclass
+class DummyDataParameter(Message):
+    data_filler: List[FillerParameter] = field(default_factory=list)
+    shape: List[BlobShape] = field(default_factory=list)
+    num: List[int] = field(default_factory=list)
+    channels: List[int] = field(default_factory=list)
+    height: List[int] = field(default_factory=list)
+    width: List[int] = field(default_factory=list)
+
+
+@dataclass
+class ELUParameter(Message):
+    alpha: float = 1.0
+
+
+@dataclass
+class EltwiseParameter(Message):
+    operation: str = "SUM"  # PROD | SUM | MAX
+    coeff: List[float] = field(default_factory=list)
+    stable_prod_grad: bool = True
+
+
+@dataclass
+class EmbedParameter(Message):
+    num_output: int = 0
+    input_dim: int = 0
+    bias_term: bool = True
+    weight_filler: Optional[FillerParameter] = None
+    bias_filler: Optional[FillerParameter] = None
+
+
+@dataclass
+class ExpParameter(Message):
+    base: float = -1.0
+    scale: float = 1.0
+    shift: float = 0.0
+
+
+@dataclass
+class FlattenParameter(Message):
+    axis: int = 1
+    end_axis: int = -1
+
+
+@dataclass
+class HDF5DataParameter(Message):
+    source: Optional[str] = None
+    batch_size: int = 0
+    shuffle: bool = False
+
+
+@dataclass
+class HDF5OutputParameter(Message):
+    file_name: Optional[str] = None
+
+
+@dataclass
+class HingeLossParameter(Message):
+    norm: str = "L1"  # L1 | L2
+
+
+@dataclass
+class ImageDataParameter(Message):
+    source: Optional[str] = None
+    batch_size: int = 1
+    rand_skip: int = 0
+    shuffle: bool = False
+    new_height: int = 0
+    new_width: int = 0
+    is_color: bool = True
+    scale: float = 1.0
+    mean_file: Optional[str] = None
+    crop_size: int = 0
+    mirror: bool = False
+    root_folder: str = ""
+
+
+@dataclass
+class InfogainLossParameter(Message):
+    source: Optional[str] = None
 
 
 @dataclass
@@ -171,6 +330,13 @@ class JavaDataParameter(Message):
 
 
 @dataclass
+class LogParameter(Message):
+    base: float = -1.0
+    scale: float = 1.0
+    shift: float = 0.0
+
+
+@dataclass
 class LRNParameter(Message):
     local_size: int = 5
     alpha: float = 1.0
@@ -178,6 +344,21 @@ class LRNParameter(Message):
     norm_region: str = "ACROSS_CHANNELS"  # ACROSS_CHANNELS | WITHIN_CHANNEL
     k: float = 1.0
     engine: Optional[str] = None
+
+
+@dataclass
+class MemoryDataParameter(Message):
+    batch_size: int = 0
+    channels: int = 0
+    height: int = 0
+    width: int = 0
+
+
+@dataclass
+class MVNParameter(Message):
+    normalize_variance: bool = True
+    across_channels: bool = False
+    eps: float = 1e-9
 
 
 @dataclass
@@ -197,9 +378,56 @@ class PoolingParameter(Message):
 
 
 @dataclass
+class PowerParameter(Message):
+    power: float = 1.0
+    scale: float = 1.0
+    shift: float = 0.0
+
+
+@dataclass
+class PReLUParameter(Message):
+    filler: Optional[FillerParameter] = None
+    channel_shared: bool = False
+
+
+@dataclass
+class PythonParameter(Message):
+    module: Optional[str] = None
+    layer: Optional[str] = None
+    param_str: str = ""
+    share_in_parallel: bool = False
+
+
+@dataclass
+class ReductionParameter(Message):
+    operation: str = "SUM"  # SUM | ASUM | SUMSQ | MEAN
+    axis: int = 0
+    coeff: float = 1.0
+
+
+@dataclass
 class ReLUParameter(Message):
     negative_slope: float = 0.0
     engine: Optional[str] = None
+
+
+@dataclass
+class ReshapeParameter(Message):
+    shape: Optional[BlobShape] = None
+    axis: int = 0
+    num_axes: int = -1
+
+
+@dataclass
+class SigmoidParameter(Message):
+    engine: Optional[str] = None
+
+
+@dataclass
+class SliceParameter(Message):
+    axis: int = 1
+    slice_point: List[int] = field(default_factory=list)
+    slice_dim: Optional[int] = None  # legacy
 
 
 @dataclass
@@ -209,9 +437,68 @@ class SoftmaxParameter(Message):
 
 
 @dataclass
+class SPPParameter(Message):
+    pyramid_height: int = 0
+    pool: str = "MAX"
+    engine: Optional[str] = None
+
+
+@dataclass
+class TanHParameter(Message):
+    engine: Optional[str] = None
+
+
+@dataclass
+class ThresholdParameter(Message):
+    threshold: float = 0.0
+
+
+@dataclass
+class TileParameter(Message):
+    axis: int = 1
+    tiles: int = 0
+
+
+@dataclass
+class WindowDataParameter(Message):
+    source: Optional[str] = None
+    scale: float = 1.0
+    mean_file: Optional[str] = None
+    batch_size: int = 0
+    crop_size: int = 0
+    mirror: bool = False
+    fg_threshold: float = 0.5
+    bg_threshold: float = 0.5
+    fg_fraction: float = 0.25
+    context_pad: int = 0
+    crop_mode: str = "warp"
+    cache_images: bool = False
+    root_folder: str = ""
+
+
+@dataclass
+class InputParameter(Message):
+    shape: List[BlobShape] = field(default_factory=list)
+
+
+@dataclass
+class AttentionParameter(Message):
+    """Multi-head attention config (an extension with no reference
+    equivalent; its layer is not yet ported)."""
+
+    num_heads: int = 1
+    head_dim: int = 0
+    causal: bool = False
+    dropout_ratio: float = 0.0
+    weight_filler: Optional[FillerParameter] = None
+    bias_term: bool = True
+    block_size: int = 512  # blockwise/ring attention chunk along sequence
+
+
+@dataclass
 class LayerParameter(Message):
-    """One layer of a net (reference: caffe.proto:310-430), with the
-    parameter messages of the ported layers."""
+    """One layer of a net (reference: caffe.proto:310-430), with every
+    layer parameter message of the JAX package's schema."""
 
     name: Optional[str] = None
     type: Optional[str] = None
@@ -223,18 +510,52 @@ class LayerParameter(Message):
     propagate_down: List[bool] = field(default_factory=list)
     include: List[NetStateRule] = field(default_factory=list)
     exclude: List[NetStateRule] = field(default_factory=list)
+    transform_param: Optional[TransformationParameter] = None
     loss_param: Optional[LossParameter] = None
     accuracy_param: Optional[AccuracyParameter] = None
+    argmax_param: Optional[ArgMaxParameter] = None
+    attention_param: Optional[AttentionParameter] = None
+    batch_norm_param: Optional[BatchNormParameter] = None
+    bias_param: Optional[BiasParameter] = None
+    concat_param: Optional[ConcatParameter] = None
+    contrastive_loss_param: Optional[ContrastiveLossParameter] = None
     convolution_param: Optional[ConvolutionParameter] = None
     data_param: Optional[DataParameter] = None
     dropout_param: Optional[DropoutParameter] = None
+    dummy_data_param: Optional[DummyDataParameter] = None
+    eltwise_param: Optional[EltwiseParameter] = None
+    elu_param: Optional[ELUParameter] = None
+    embed_param: Optional[EmbedParameter] = None
+    exp_param: Optional[ExpParameter] = None
+    flatten_param: Optional[FlattenParameter] = None
+    hdf5_data_param: Optional[HDF5DataParameter] = None
+    hdf5_output_param: Optional[HDF5OutputParameter] = None
+    hinge_loss_param: Optional[HingeLossParameter] = None
+    image_data_param: Optional[ImageDataParameter] = None
+    infogain_loss_param: Optional[InfogainLossParameter] = None
     inner_product_param: Optional[InnerProductParameter] = None
+    input_param: Optional[InputParameter] = None
     java_data_param: Optional[JavaDataParameter] = None
+    log_param: Optional[LogParameter] = None
     lrn_param: Optional[LRNParameter] = None
+    memory_data_param: Optional[MemoryDataParameter] = None
+    mvn_param: Optional[MVNParameter] = None
     pooling_param: Optional[PoolingParameter] = None
+    power_param: Optional[PowerParameter] = None
+    prelu_param: Optional[PReLUParameter] = None
+    python_param: Optional[PythonParameter] = None
+    reduction_param: Optional[ReductionParameter] = None
     relu_param: Optional[ReLUParameter] = None
+    reshape_param: Optional[ReshapeParameter] = None
+    scale_param: Optional[ScaleParameter] = None
+    sigmoid_param: Optional[SigmoidParameter] = None
+    slice_param: Optional[SliceParameter] = None
     softmax_param: Optional[SoftmaxParameter] = None
-    transform_param: Optional[TransformationParameter] = None
+    spp_param: Optional[SPPParameter] = None
+    tanh_param: Optional[TanHParameter] = None
+    threshold_param: Optional[ThresholdParameter] = None
+    tile_param: Optional[TileParameter] = None
+    window_data_param: Optional[WindowDataParameter] = None
 
 
 @dataclass

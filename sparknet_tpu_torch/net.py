@@ -12,14 +12,21 @@ shared params stored once under the owning layer.  ``apply`` hands
 each layer its own key, ``fold_in(rng, layer index)`` (``utils.rngs``),
 as the JAX net does; layers that draw nothing ignore it.
 
-``SPARKNET_FUSION=1`` plans the JAX net's LRN + max-pool fusion
-(``_plan_fusion``, the same gate): in the TRAIN phase an
-ACROSS_CHANNELS LRN whose only consumer is a ``fusable`` 3x3/2 MAX pool
-runs as ``cuda_plp.lrn_maxpool`` at the LRN's slot (K7 forward, K8
-backward on the card), the pool layer is skipped and the LRN's top is
-absent from the blob map.  The horizontal-conv fusion (``_plan_hconv``)
-is not ported: it fires on groups of three or more sibling convolutions,
-which AlexNet and CaffeNet do not have.
+Two plans of the JAX net, under its switches:
+
+- ``SPARKNET_FUSION=1``, the LRN + max-pool fusion (``_plan_fusion``):
+  in the TRAIN phase an ACROSS_CHANNELS LRN whose only consumer is a
+  ``fusable`` 3x3/2 MAX pool runs as ``cuda_plp.lrn_maxpool`` at the
+  LRN's slot (K7 forward, K8 backward on the card), the pool layer is
+  skipped and the LRN's top is absent from the blob map.
+- The horizontal-conv fusion (``_plan_hconv``, on unless
+  ``SPARKNET_HFUSE=0``; groups of at least ``SPARKNET_HFUSE_MIN``,
+  default 3): sibling convolutions that read the same bottom with the
+  same geometry and bias term (GoogLeNet's Inception branches) run as
+  one ``F.conv2d`` over their concatenated weights at the first
+  member's slot, its output split back into the members' tops.
+  Parameters stay per layer, so checkpoints and the blob map are
+  unchanged.
 """
 
 from __future__ import annotations
@@ -29,10 +36,10 @@ import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from sparknet_tpu_torch.config.schema import NetParameter, NetState
+from sparknet_tpu_torch.config.schema import LRNParameter, NetParameter, NetState
 from sparknet_tpu_torch.graph import filter_net, toposort_check
-from sparknet_tpu_torch.config.schema import LRNParameter
 from sparknet_tpu_torch.ops import common, data_layers, losses, vision  # noqa: F401
 from sparknet_tpu_torch.ops import cuda_plp, fillers
 from sparknet_tpu_torch.ops.base import BlobDef, Layer, create_layer
@@ -56,6 +63,12 @@ class NetOutputs:
     blobs: Dict[str, torch.Tensor]
     loss: torch.Tensor
     stats: Stats
+
+
+def _device_of(batch, params) -> torch.device:
+    """The device a net runs on: its batch's, else its parameters'."""
+    tensors = list(batch.values()) + [b for bl in params.values() for b in bl]
+    return tensors[0].device if tensors else torch.device("cpu")
 
 
 class TorchNet:
@@ -157,6 +170,7 @@ class TorchNet:
             b for b in self.feed_blobs if not (b in seen or seen.add(b))
         ]
         self._plan_fusion()
+        self._plan_hconv()
 
     def _plan_fusion(self) -> None:
         """Fuse ``LRN -> Pooling`` pairs into ``cuda_plp.lrn_maxpool``
@@ -200,6 +214,68 @@ class TorchNet:
                 int(lp.local_size), float(lp.alpha), float(lp.beta),
                 float(lp.k)))
             self._plp_skip.add(i + 1)
+
+    def _plan_hconv(self) -> None:
+        """Group sibling convolutions (JAX ``net.py`` ``_plan_hconv``): key
+        (bottom, geometry, bias term), ``group == 1``, no loss weight, at
+        least ``SPARKNET_HFUSE_MIN`` members.  A group is dropped when
+        running every member at the leader's slot would change what a
+        layer reads: (a) a layer in the fused span rewrites the shared
+        bottom in place; (b) a member's top is produced or read by a
+        layer between the leader and that member's own slot (legal top
+        rebinding, ``graph.py``).  Layers at or after a member's slot are
+        unaffected: production only moves earlier."""
+        self._hconv_groups: Dict[int, dict] = {}
+        self._hconv_skip: set = set()
+        if os.environ.get("SPARKNET_HFUSE", "1") == "0":
+            return
+        min_members = int(os.environ.get("SPARKNET_HFUSE_MIN", "3"))
+        groups: Dict[tuple, List[int]] = {}
+        for li, layer in enumerate(self.layers):
+            lp = layer.lp
+            if lp.type != "Convolution" or len(lp.bottom) != 1:
+                continue
+            cp = lp.convolution_param
+            if max(1, cp.group) != 1 or any(self._loss_weights[layer.name]):
+                continue
+            key = (lp.bottom[0], layer._geometry(), bool(cp.bias_term))
+            groups.setdefault(key, []).append(li)
+        for (bottom, geom, bias), lis in groups.items():
+            if len(lis) < min_members:
+                continue
+            if any(bottom in self.layers[mid].lp.top
+                   for mid in range(lis[0], lis[-1] + 1)):
+                continue  # hazard (a)
+            if any(self.layers[li].lp.top[0] in lm.lp.top
+                   or self.layers[li].lp.top[0] in lm.lp.bottom
+                   for li in lis[1:] for lm in self.layers[lis[0]:li]):
+                continue  # hazard (b)
+            self._hconv_groups[lis[0]] = {
+                "lis": lis, "geom": geom, "bias": bias,
+                # each member's own num_output, not blob_shapes[top]: that
+                # holds the last binding of a possibly rebound name
+                "sizes": [self.layers[li].lp.convolution_param.num_output
+                          for li in lis],
+            }
+            self._hconv_skip.update(lis[1:])
+
+    @property
+    def hconv_groups(self) -> List[List[str]]:
+        """The fused sibling-conv groups, as lists of member layer names."""
+        return [[self.layers[li].name for li in g["lis"]]
+                for g in self._hconv_groups.values()]
+
+    def _apply_hconv(self, group, x, params, blobs) -> None:
+        """Run one fused sibling-conv group; write every member's top."""
+        _, stride, pad, dil = group["geom"]
+        members = [self.layers[li] for li in group["lis"]]
+        gathered = [self._gather_blobs(m.name, params, {}) for m in members]
+        y = F.conv2d(x, torch.cat([g[0] for g in gathered]), None, stride, pad,
+                     dil)
+        if group["bias"]:
+            y = y + torch.cat([g[1] for g in gathered])[None, :, None, None]
+        for m, part in zip(members, torch.split(y, group["sizes"], dim=1)):
+            blobs[m.lp.top[0]] = part
 
     def param_multipliers(self) -> Tuple[Dict[str, List[float]], Dict[str, List[float]]]:
         """Per-blob (lr_mult, decay_mult) dicts matching ``init()``'s params
@@ -278,7 +354,11 @@ class TorchNet:
         loss = None
         for li, layer in enumerate(self.layers):
             lp = layer.lp
-            if li in self._plp_skip:
+            if li in self._hconv_skip or li in self._plp_skip:
+                continue
+            if li in self._hconv_groups:
+                self._apply_hconv(self._hconv_groups[li], blobs[lp.bottom[0]],
+                                  params, blobs)
                 continue
             if li in self._plp_fused:
                 pool_top, hp = self._plp_fused[li]
@@ -292,6 +372,9 @@ class TorchNet:
                 tops, updated = layer.apply(
                     lblobs, [blobs[b] for b in lp.bottom], lrng, train
                 )
+                if not lp.bottom:  # DummyData draws on the host
+                    dev = _device_of(batch, params)
+                    tops = [t.to(dev) for t in tops]
                 if updated is not None:
                     for ref, arr in zip(self._blob_refs[layer.name], updated):
                         if ref.collection == "stats":

@@ -73,17 +73,10 @@ class Layer:
 
 LAYER_REGISTRY: Dict[str, Type[Layer]] = {}
 
-# layer types of the JAX package that later slices bring
+# layer types of the JAX package that later slices bring: the file-backed
+# data layers (A.8) and the attention layer (A.9)
 _NOT_YET_PORTED = frozenset((
-    "AbsVal", "ArgMax", "Attention", "BatchNorm", "BatchReindex", "Bias",
-    "BNLL", "Concat",
-    "ContrastiveLoss", "Deconvolution", "DummyData",
-    "ELU", "Eltwise", "Embed", "EuclideanLoss", "Exp", "Filter", "Flatten",
-    "HDF5Data", "HDF5Output", "HingeLoss", "Im2col", "ImageData",
-    "InfogainLoss", "Input", "Log", "MemoryData", "MultinomialLogisticLoss",
-    "MVN", "Power", "PReLU", "Python", "Reduction", "Reshape", "Scale",
-    "Sigmoid", "SigmoidCrossEntropyLoss", "Silence", "Slice", "Softmax",
-    "SPP", "Split", "TanH", "Threshold", "Tile", "WindowData",
+    "Attention", "HDF5Data", "HDF5Output", "ImageData", "WindowData",
 ))
 
 

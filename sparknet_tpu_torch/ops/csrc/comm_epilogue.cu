@@ -4,8 +4,11 @@
 //   sparknet_comm_encode            <- _encode_kernel (:83)
 //   sparknet_comm_apply_barriered   <- _apply_barriered_kernel (:164)
 //   sparknet_comm_apply_correction  <- _apply_correction_kernel (:224)
-// One call per comm chunk, as on the TPU.  Where Pallas hands each leaf
-// of the chunk in as its own ref, here a table of per-leaf records
+// One call per comm chunk, as on the TPU, for a chunk of at most
+// MAX_LEAVES leaves; the wrapper (ops/cuda_comm.py) cuts a larger chunk
+// into consecutive groups of MAX_LEAVES and makes one call a group.
+// Where Pallas hands each leaf of the chunk in as its own ref, here a
+// table of per-leaf records
 // (pointers, elements per worker, quantization mode, where the leaf's
 // tiles start) rides in as the kernel's parameter block
 // (__grid_constant__, read in place from the constant bank), so a launch

@@ -18,10 +18,17 @@ per comm chunk of ``parallel/comm.py``:
 K9 and K10 split every worker's slice of a leaf into tiles, one block
 each (the tile map of ``csrc/comm_epilogue.cu``): an int8 encode is two
 device launches (the tiles' max |delta|, then the quantize), a bf16 or
-fp32 encode and a barriered apply one; K11 is one.  ``LAUNCHES`` counts
-wrapper calls, one per chunk, whatever the device launches.  The encode
-also takes a scratch array of the tile map's size and per-slice ticket
-counters, zeroed for each call (one fill kernel).
+fp32 encode and a barriered apply one; K11 is one.  The encode also
+takes a scratch array of the tile map's size and per-slice ticket
+counters, zeroed for each launch (one fill kernel).
+
+A launch takes at most ``MAX_LEAVES`` (32) leaves: the leaf table rides
+in the kernel's parameter block, which holds 4 KiB.  A chunk of more
+leaves (ResNet-50's 320 comm leaves cut into 4 chunks leave one of over
+100) is launched over consecutive groups of at most 32 of its leaves,
+the outputs concatenated in leaf order: every leaf's arithmetic is its
+own, so the result is the one launch's bit for bit.  ``LAUNCHES`` counts
+these launches: ``ceil(leaves / 32)`` a chunk.
 
 Leaves are worker-stacked ``(W, ...)`` float32 tensors, means unstacked.
 Routing is by the tensors' device and nothing else: CPU tensors take the
@@ -53,7 +60,7 @@ LAUNCHES = {"comm_encode": 0, "comm_apply_barriered": 0,
 
 MODES = {"fp32": 0, "bf16": 1, "int8": 2}
 QDTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
-MAX_LEAVES = 32  # the kernels' leaf table (csrc/comm_epilogue.cu)
+MAX_LEAVES = 32  # the leaves of one launch's table (csrc/comm_epilogue.cu)
 INV127 = 1.0 / 127.0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -93,11 +100,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def _check(what: str, leaves: Sequence[torch.Tensor], *groups) -> int:
     """Validate a CUDA chunk; returns W.  ``groups`` are (name, tensors,
     stacked) triples that must line up with ``leaves``."""
-    if not 1 <= len(leaves) <= MAX_LEAVES:
-        raise ValueError(
-            f"{what}: a chunk of {len(leaves)} leaves (the kernel takes 1.."
-            f"{MAX_LEAVES})"
-        )
+    if not leaves:
+        raise ValueError(f"{what}: an empty chunk")
     dev = leaves[0].device
     w = leaves[0].shape[0]
     for name, ts, stacked in (("leaves", leaves, True),) + groups:
@@ -124,6 +128,19 @@ def _check(what: str, leaves: Sequence[torch.Tensor], *groups) -> int:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _groups(n: int):
+    """The launches of a chunk of ``n`` leaves: consecutive slices of at
+    most ``MAX_LEAVES``."""
+    return [slice(i, min(i + MAX_LEAVES, n)) for i in range(0, n, MAX_LEAVES)]
+
+
+def _per_group(launch, n: int, *columns):
+    """Run ``launch`` over each leaf group of a chunk and concatenate its
+    tuple outputs in leaf order; ``columns`` are the per-leaf inputs."""
+    outs = [launch(*(c[g] for c in columns)) for g in _groups(n)]
+    return tuple(sum((o[i] for o in outs), ()) for i in range(len(outs[0])))
 
 
 # ----------------------------------------------------------------------
@@ -177,8 +194,9 @@ def _combine_parts(parts: torch.Tensor) -> torch.Tensor:
 
 def encode(leaves, anchors, resids, modes, with_err: bool):
     """Delta encode of a comm chunk (K9): see ``encode_reference`` for
-    the contract.  One wrapper call for the whole chunk: two device
-    launches if a leaf is int8, else one."""
+    the contract.  On the card, one launch a group of at most
+    ``MAX_LEAVES`` leaves: two device launches if a leaf of the group is
+    int8, else one."""
     modes = tuple(modes)
     if leaves[0].device.type == "cpu":
         return encode_reference(leaves, anchors, resids, modes, with_err)
@@ -186,6 +204,21 @@ def encode(leaves, anchors, resids, modes, with_err: bool):
                ("resids", resids, True))
     if len(modes) != len(leaves) or any(m not in MODES for m in modes):
         raise ValueError(f"comm encode: modes {modes} for {len(leaves)} leaves")
+
+    def launch(xs, as_, rs, ms):
+        q, s, nr, parts = _encode_launch(xs, as_, rs, ms, w, with_err)
+        return q, s, nr, (parts,)
+
+    qs, scales, new_resids, parts = _per_group(
+        launch, len(leaves), leaves, anchors, resids, modes)
+    return qs, scales, new_resids, (
+        _combine_parts(torch.cat(parts, dim=1)) if with_err else None
+    )
+
+
+def _encode_launch(leaves, anchors, resids, modes, w, with_err):
+    """One K9 launch over at most ``MAX_LEAVES`` leaves; the readout
+    stays per leaf, (W, leaves, 3)."""
     dev = leaves[0].device
     qs = tuple(torch.empty(x.shape, dtype=QDTYPES[m], device=dev)
                for x, m in zip(leaves, modes))
@@ -213,9 +246,7 @@ def encode(leaves, anchors, resids, modes, with_err: bool):
                 counters.data_ptr(), _stream(leaves[0]))
     _build.raise_on(rc, "comm encode")
     LAUNCHES["comm_encode"] += 1
-    return qs, scales, new_resids, (
-        _combine_parts(parts) if with_err else None
-    )
+    return qs, scales, new_resids, parts
 
 
 # ----------------------------------------------------------------------
@@ -236,7 +267,8 @@ def apply_barriered_reference(leaves, anchors, means, resids, alive, denom0):
 
 
 def apply_barriered(leaves, anchors, means, resids, alive, denom0):
-    """Barriered consensus apply of a comm chunk (K10).  ``alive`` is the
+    """Barriered consensus apply of a comm chunk (K10), one launch a
+    group of at most ``MAX_LEAVES`` leaves.  ``alive`` is the
     (W,) float mask, ``denom0`` the survivor count (a 0-dim float32
     tensor on the leaves' device: read by the kernel, never by the host)."""
     if leaves[0].device.type == "cpu":
@@ -252,23 +284,27 @@ def apply_barriered(leaves, anchors, means, resids, alive, denom0):
                 f"{leaves[0].device}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}"
             )
-    new_leaves = tuple(torch.empty_like(x) for x in leaves)
-    new_resids = tuple(torch.empty_like(r) for r in resids)
-    table = (_Leaf * len(leaves))(*(
-        _Leaf(x.data_ptr(), a.data_ptr(), r.data_ptr(), m.data_ptr(), None,
-              None, nx.data_ptr(), nr.data_ptr(), x[0].numel(), 0, 0)
-        for x, a, m, r, nx, nr in zip(leaves, anchors, means, resids,
-                                      new_leaves, new_resids)
-    ))
     alive = alive.contiguous()
-    fn = _build.kernel("comm_epilogue", "sparknet_comm_apply_barriered",
-                       (_P, _I, _I, _P, _P, _P))
-    with torch.cuda.device(leaves[0].device):
-        rc = fn(table, len(leaves), w, alive.data_ptr(), denom0.data_ptr(),
-                _stream(leaves[0]))
-    _build.raise_on(rc, "comm apply_barriered")
-    LAUNCHES["comm_apply_barriered"] += 1
-    return new_leaves, new_resids
+
+    def launch(xs, as_, ms, rs):
+        new_leaves = tuple(torch.empty_like(x) for x in xs)
+        new_resids = tuple(torch.empty_like(r) for r in rs)
+        table = (_Leaf * len(xs))(*(
+            _Leaf(x.data_ptr(), a.data_ptr(), r.data_ptr(), m.data_ptr(),
+                  None, None, nx.data_ptr(), nr.data_ptr(), x[0].numel(), 0, 0)
+            for x, a, m, r, nx, nr in zip(xs, as_, ms, rs, new_leaves,
+                                          new_resids)
+        ))
+        fn = _build.kernel("comm_epilogue", "sparknet_comm_apply_barriered",
+                           (_P, _I, _I, _P, _P, _P))
+        with torch.cuda.device(xs[0].device):
+            rc = fn(table, len(xs), w, alive.data_ptr(), denom0.data_ptr(),
+                    _stream(xs[0]))
+        _build.raise_on(rc, "comm apply_barriered")
+        LAUNCHES["comm_apply_barriered"] += 1
+        return new_leaves, new_resids
+
+    return _per_group(launch, len(leaves), leaves, anchors, means, resids)
 
 
 # ----------------------------------------------------------------------
@@ -291,7 +327,8 @@ def apply_correction_reference(leaves, anchors, qs, scales, means, modes):
 
 
 def apply_correction(leaves, anchors, qs, scales, means, modes):
-    """Overlap correction of a comm chunk (K11)."""
+    """Overlap correction of a comm chunk (K11), one launch a group of at
+    most ``MAX_LEAVES`` leaves."""
     modes = tuple(modes)
     if leaves[0].device.type == "cpu":
         return apply_correction_reference(leaves, anchors, qs, scales, means,
@@ -311,22 +348,27 @@ def apply_correction(leaves, anchors, qs, scales, means, modes):
                 or s.device != q.device or not s.is_contiguous()):
             raise ValueError("comm apply_correction: scales must be "
                              "contiguous (W,) float32 on the leaves' device")
-    new_leaves = tuple(torch.empty_like(x) for x in leaves)
-    new_anchors = tuple(torch.empty_like(a) for a in anchors)
-    table = (_Leaf * len(leaves))(*(
-        _Leaf(x.data_ptr(), a.data_ptr(), None, m.data_ptr(), q.data_ptr(),
-              s.data_ptr(), nx.data_ptr(), na.data_ptr(),
-              x[0].numel(), 0, MODES[mode])
-        for x, a, q, s, m, nx, na, mode in zip(
-            leaves, anchors, qs, scales, means, new_leaves, new_anchors, modes)
-    ))
-    fn = _build.kernel("comm_epilogue", "sparknet_comm_apply_correction",
-                       (_P, _I, _I, _P))
-    with torch.cuda.device(leaves[0].device):
-        rc = fn(table, len(leaves), w, _stream(leaves[0]))
-    _build.raise_on(rc, "comm apply_correction")
-    LAUNCHES["comm_apply_correction"] += 1
-    return new_leaves, new_anchors
+
+    def launch(xs, as_, qs_, ss, ms, modes_):
+        new_leaves = tuple(torch.empty_like(x) for x in xs)
+        new_anchors = tuple(torch.empty_like(a) for a in as_)
+        table = (_Leaf * len(xs))(*(
+            _Leaf(x.data_ptr(), a.data_ptr(), None, m.data_ptr(),
+                  q.data_ptr(), s.data_ptr(), nx.data_ptr(), na.data_ptr(),
+                  x[0].numel(), 0, MODES[mode])
+            for x, a, q, s, m, nx, na, mode in zip(
+                xs, as_, qs_, ss, ms, new_leaves, new_anchors, modes_)
+        ))
+        fn = _build.kernel("comm_epilogue", "sparknet_comm_apply_correction",
+                           (_P, _I, _I, _P))
+        with torch.cuda.device(xs[0].device):
+            rc = fn(table, len(xs), w, _stream(xs[0]))
+        _build.raise_on(rc, "comm apply_correction")
+        LAUNCHES["comm_apply_correction"] += 1
+        return new_leaves, new_anchors
+
+    return _per_group(launch, len(leaves), leaves, anchors, qs, scales,
+                      means, modes)
 
 
 def chunk_bytes(stage: str, leaves: Sequence[torch.Tensor],

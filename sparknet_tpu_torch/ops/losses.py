@@ -1,17 +1,21 @@
-"""Loss and evaluation layers: SoftmaxWithLoss and Accuracy.
+"""Loss and evaluation layers.
 
-The port of those two layers of ``sparknet_tpu/ops/losses.py``, with
-the reference's normalization semantics (``loss_layer.cpp``,
-``softmax_loss_layer.cpp``): default VALID (divide by the non-ignored
-count), legacy ``normalize: false`` means BATCH_SIZE, FULL divides by
-outer*inner, NONE by 1.
+The port of ``sparknet_tpu/ops/losses.py``, with the reference's
+normalization semantics (``loss_layer.cpp``, ``softmax_loss_layer.cpp``):
+default VALID (divide by the non-ignored count), legacy ``normalize:
+false`` means BATCH_SIZE, FULL divides by outer*inner, NONE by 1.  The
+other losses normalize by the batch size, as the reference does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sparknet_tpu_torch.config.schema import AccuracyParameter, LossParameter
+from sparknet_tpu_torch.config.schema import (
+    AccuracyParameter,
+    ContrastiveLossParameter,
+    LossParameter,
+)
 from sparknet_tpu_torch.ops.base import Layer, register
 
 
@@ -74,6 +78,118 @@ class SoftmaxWithLoss(Layer):
         if len(self.lp.top) > 1:
             tops.append(torch.exp(logp))
         return tops, None
+
+
+class _Loss(Layer):
+    IS_LOSS = True
+
+    def out_shapes(self, bottom_shapes):
+        return [()]
+
+
+@register
+class SigmoidCrossEntropyLoss(_Loss):
+    """Stable sigmoid cross-entropy summed over every element / the batch
+    size (``sigmoid_cross_entropy_loss_layer.cpp``)."""
+
+    TYPE = "SigmoidCrossEntropyLoss"
+
+    def apply(self, blobs, bottoms, rng, train):
+        x, t = bottoms[0], bottoms[1]
+        per = torch.relu(x) - x * t + torch.log1p(torch.exp(-torch.abs(x)))
+        return [per.sum() / x.shape[0]], None
+
+
+@register
+class EuclideanLoss(_Loss):
+    """0.5 * ||a - b||^2 / N (``euclidean_loss_layer.cpp``)."""
+
+    TYPE = "EuclideanLoss"
+
+    def apply(self, blobs, bottoms, rng, train):
+        d = bottoms[0] - bottoms[1]
+        return [0.5 * (d * d).sum() / d.shape[0]], None
+
+
+def _labels(label: torch.Tensor, n: int) -> torch.Tensor:
+    return label.to(torch.int64).reshape(n)
+
+
+@register
+class HingeLoss(_Loss):
+    """One-vs-all hinge loss, L1 or L2 (``hinge_loss_layer.cpp``)."""
+
+    TYPE = "HingeLoss"
+
+    def apply(self, blobs, bottoms, rng, train):
+        x = bottoms[0]
+        n = x.shape[0]
+        flat = x.reshape(n, -1)
+        hot = torch.zeros_like(flat, dtype=torch.bool)
+        hot.scatter_(1, _labels(bottoms[1], n)[:, None], True)
+        sign = torch.where(hot, -1.0, 1.0).to(flat.dtype)
+        margins = torch.relu(1.0 + sign * flat)
+        p = self.lp.hinge_loss_param
+        if p and p.norm.upper() == "L2":
+            return [(margins * margins).sum() / n], None
+        return [margins.sum() / n], None
+
+
+@register
+class MultinomialLogisticLoss(_Loss):
+    """NLL of already-normalized probabilities
+    (``multinomial_logistic_loss_layer.cpp``)."""
+
+    TYPE = "MultinomialLogisticLoss"
+
+    def apply(self, blobs, bottoms, rng, train):
+        prob = bottoms[0]
+        n = prob.shape[0]
+        picked = torch.gather(prob.reshape(n, -1), 1,
+                              _labels(bottoms[1], n)[:, None])
+        return [-torch.log(torch.clamp_min(picked, 1e-20)).sum() / n], None
+
+
+@register
+class InfogainLoss(_Loss):
+    """NLL weighted by an infogain matrix H, fed as a third bottom
+    (``infogain_loss_layer.cpp``; the file-sourced H is loaded into a
+    bottom by whoever builds the batch)."""
+
+    TYPE = "InfogainLoss"
+
+    def apply(self, blobs, bottoms, rng, train):
+        if len(bottoms) < 3:
+            raise ValueError(
+                f"InfogainLoss {self.name!r}: infogain matrix must be a bottom"
+            )
+        prob = bottoms[0]
+        n = prob.shape[0]
+        h = bottoms[2].reshape(tuple(bottoms[2].shape[-2:]))
+        rows = h[_labels(bottoms[1], n)]  # (n, K)
+        logp = torch.log(torch.clamp_min(prob.reshape(n, -1), 1e-20))
+        return [-(rows * logp).sum() / n], None
+
+
+@register
+class ContrastiveLoss(_Loss):
+    """Siamese contrastive loss (``contrastive_loss_layer.cpp``), with the
+    ``legacy_version`` switch between margin - d^2 and (margin - d)^2."""
+
+    TYPE = "ContrastiveLoss"
+
+    def apply(self, blobs, bottoms, rng, train):
+        p = self.lp.contrastive_loss_param or ContrastiveLossParameter()
+        a, b, y = bottoms[0], bottoms[1], bottoms[2].reshape(-1)
+        diff = a - b
+        d2 = (diff * diff).sum(dim=1)
+        if p.legacy_version:
+            mismatch = torch.relu(p.margin - d2)
+        else:
+            d = torch.sqrt(torch.clamp_min(d2, 1e-12))
+            mismatch = torch.relu(p.margin - d) ** 2
+        per = y * d2 + (1.0 - y) * mismatch
+        return [per.sum() / (2.0 * a.shape[0])], None
 
 
 @register

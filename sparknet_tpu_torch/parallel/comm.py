@@ -232,7 +232,8 @@ class CommPlane:
             )
 
     # ------------------------------------------------------------------
-    # the three epilogue programs, one kernel launch per comm chunk
+    # the three epilogue programs, one wrapper call per comm chunk (one
+    # kernel launch per MAX_LEAVES leaves of it, ops/cuda_comm.py)
     def _encode_all(self, leaves, with_err: bool):
         qs, scales, new_resids, errs = [], [], [], []
         for sl in self._chunk_slices:

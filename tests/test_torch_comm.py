@@ -10,6 +10,10 @@ Two layers:
   residuals, params and anchors are compared with ``array_equal`` (NaN
   positions must match; bf16 NaN payloads are not compared).  The
   readout's max is exact, its sums rtol 1e-5 (summed in another order).
+- a chunk of more leaves than one launch takes (33-131; ResNet-50's
+  last chunk holds over 100) through the wrapper's per-group launches,
+  bit for bit against one chain over the chunk, and ResNet-50's chunk
+  slices against the JAX plane's.
 - ``ParameterAveragingTrainer`` against the JAX trainer on the
   ``tests/test_parallel.py`` net at dp=4 for 3 rounds from carried init:
   none/fp32 within rtol 2e-5, atol 1e-6 (``test_comm.py:92``), bf16/int8
@@ -25,6 +29,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from sparknet_tpu import config as jconfig
 from sparknet_tpu import models as jmodels
 from sparknet_tpu.ops import pallas_comm
 from sparknet_tpu.parallel import (
@@ -242,6 +247,97 @@ def test_cpu_wrappers_launch_nothing():
     x = _leaves(0)
     cuda_comm.encode(_t(x), _t(x), _t(x), ("int8",) * 3, True)
     assert cuda_comm.LAUNCHES == before
+
+
+# ----------------------------------------------------------------------
+# chunks of more leaves than one launch takes (ResNet-50's)
+# ----------------------------------------------------------------------
+def _many_leaves(n, seed):
+    """``n`` worker-stacked leaves of 1-3 small dims (shapes from ``n``,
+    values from ``seed``)."""
+    shapes = np.random.RandomState(n)
+    shapes = [(W,) + tuple(shapes.randint(1, 6, shapes.randint(1, 4)))
+              for _ in range(n)]
+    rs = np.random.RandomState(seed)
+    return [torch.from_numpy(rs.randn(*s).astype(np.float32)) for s in shapes]
+
+
+@pytest.mark.parametrize("n", [33, 70, 131])
+def test_leaf_groups_of_a_large_chunk_equal_one_chain_bitwise(n):
+    """A chunk of ``n`` > MAX_LEAVES leaves, run as the card runs it —
+    one launch a group of at most 32 consecutive leaves, outputs
+    concatenated in leaf order (``cuda_comm._per_group``, each group
+    taking the plain version here) — equals the unfused chain over the
+    whole chunk bit for bit: q, scales, residuals, the error readout,
+    both applies.  ``ceil(n / 32)`` launches."""
+    x, a, r = (_many_leaves(n, s) for s in (1, 2, 3))
+    means = [t[0] for t in _many_leaves(n, 4)]
+    modes = tuple(("int8", "bf16", "fp32")[i % 3] for i in range(n))
+    groups = cuda_comm._groups(n)
+    assert len(groups) == -(-n // cuda_comm.MAX_LEAVES)
+    assert [g.start for g in groups] == list(range(0, n, 32))
+
+    def launch(*cols):
+        q, s, nr, err = cuda_comm.encode_reference(*cols, True)
+        return q, s, nr, (err,)
+
+    got = cuda_comm._per_group(launch, n, x, a, r, modes)
+    want = cuda_comm.encode_reference(x, a, r, modes, True)
+    for g, w in zip(got[0] + got[1] + got[2], want[0] + want[1] + want[2]):
+        if g.dtype == torch.bfloat16:
+            g, w = g.view(torch.int16), w.view(torch.int16)
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    # the readout: per group, combined over the groups as the wrapper does
+    err = torch.stack([e for e in got[3]])  # (groups, W, 3)
+    combined = torch.stack([err[..., 0].amax(0), err[..., 1].sum(0),
+                            err[..., 2].sum(0)], dim=1)
+    assert torch.equal(combined[:, 0], want[3][:, 0])
+    np.testing.assert_allclose(combined[:, 1:], want[3][:, 1:], rtol=1e-5)
+    alive, d0 = torch.tensor([1.0, 0.0, 1.0, 1.0]), torch.tensor(3.0)
+    got = cuda_comm._per_group(
+        lambda *c: cuda_comm.apply_barriered_reference(*c, alive, d0), n,
+        x, a, means, r)
+    want = cuda_comm.apply_barriered_reference(x, a, means, r, alive, d0)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, w)
+    q, s = cuda_comm.encode_reference(x, a, r, modes, False)[:2]
+    got = cuda_comm._per_group(cuda_comm.apply_correction_reference, n,
+                               x, a, q, s, means, modes)
+    want = cuda_comm.apply_correction_reference(x, a, q, s, means, modes)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, w)
+
+
+def test_resnet50_chunks_equal_jax():
+    """The comm plane's chunking of ResNet-50's 320 comm leaves (161
+    learnable, then 159 BatchNorm stat blobs) at W=2 equals the JAX
+    plane's: byte-balanced ``min(4, leaves)`` slices, the last one well
+    over 32 leaves (the stats are small and come last)."""
+    from sparknet_tpu.solver import TrainState as JTrainState
+
+    netp = tmodels.load_model("resnet50", batch=2, image=224)
+    tsolver = TSolver(tconfig.parse_solver_prototxt("base_lr: 0.1"),
+                      net_param=netp, device="cpu")
+    meta = {c: {k: [torch.empty((2,) + s, device="meta") for s in v]
+                for k, v in tsolver.net.blob_layout(c).items()}
+            for c in ("params", "stats")}
+    state = TrainState(meta["params"], meta["stats"], None, None)
+    leaves, chunks = TTrainer(tsolver, 2, compress="int8")._comm.plan(state)
+    assert len(leaves) == 320
+    jsolver = JSolver(jconfig.parse_solver_prototxt("base_lr: 0.1"),
+                      net_param=jmodels.load_model("resnet50", batch=2,
+                                                   image=224))
+    jt = JTrainer(jsolver, make_mesh({"dp": 2}, devices=jax.devices()[:2]),
+                  compress="int8")
+    shapes = {c: {k: [jax.ShapeDtypeStruct(tuple(t.shape), jnp.float32)
+                      for t in v] for k, v in meta[c].items()}
+              for c in ("params", "stats")}
+    jt._comm._setup(JTrainState(shapes["params"], shapes["stats"], None, None))
+    assert chunks == jt._comm._chunk_slices
+    assert len(chunks) == 4 and chunks[-1].stop - chunks[-1].start > 32
+    groups = sum(-(-(sl.stop - sl.start) // cuda_comm.MAX_LEAVES)
+                 for sl in chunks)
+    assert groups > len(chunks)
 
 
 # ----------------------------------------------------------------------

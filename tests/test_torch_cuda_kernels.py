@@ -842,6 +842,37 @@ def test_comm_encode_calls_agree_and_leave_the_counters_zero(dev):
             _same_bits(g, w)
 
 
+@pytest.mark.parametrize("n", [33, 64, 131])
+def test_comm_kernels_take_a_chunk_of_any_leaf_count(dev, n):
+    """A chunk of ``n`` > 32 leaves (ResNet-50's last chunk holds 267):
+    K9 in every mode with the readout, K10 with a masked worker and K11,
+    one launch a group of at most MAX_LEAVES leaves, each bitwise equal
+    to its plain version over the whole chunk."""
+    rs = np.random.RandomState(n)
+    shapes = [tuple(rs.randint(1, 70, rs.randint(1, 3))) for _ in range(n)]
+    x = _comm_leaves(dev, shapes, 2, 1, 1e-2)
+    a = _comm_leaves(dev, shapes, 2, 2, 1e-2)
+    r = _comm_leaves(dev, shapes, 2, 3, 1e-5)
+    means = [t[0].contiguous() for t in _comm_leaves(dev, shapes, 2, 4, 1e-2)]
+    groups = -(-n // tcc.MAX_LEAVES)
+    modes = tuple(("int8", "bf16", "fp32")[i % 3] for i in range(n))
+    tcc.reset_launch_counts()
+    _check_encode(x, a, r, modes)
+    assert tcc.LAUNCHES["comm_encode"] == 2 * groups
+    al = torch.tensor([1.0, 0.0], device=dev)
+    got = tcc.apply_barriered(x, a, means, r, al, al.sum())
+    want = tcc.apply_barriered_reference(x, a, means, r, al, al.sum())
+    q, s = tcc.encode_reference(x, a, r, modes, False)[:2]
+    got_c = tcc.apply_correction(x, a, q, s, means, modes)
+    want_c = tcc.apply_correction_reference(x, a, q, s, means, modes)
+    torch.cuda.synchronize()
+    for g, w in zip(got[0] + got[1] + got_c[0] + got_c[1],
+                    want[0] + want[1] + want_c[0] + want_c[1]):
+        _same_bits(g, w)
+    assert tcc.LAUNCHES["comm_apply_barriered"] == groups
+    assert tcc.LAUNCHES["comm_apply_correction"] == groups
+
+
 def test_comm_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = _chunk(dev, ((4, 8),), 0)
     with pytest.raises(TypeError, match="float32"):

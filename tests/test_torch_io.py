@@ -8,7 +8,9 @@ a shape without data), modern / V1 / V0 weight files, the net glue
 (``net_blobs`` / ``apply_blobs`` with legacy 4-D right-alignment), HDF5
 weights and solver state, and a JAX-written LM ``.caffemodel`` served by
 the port's ``GenerationEngine``.  Also: every JAX layer type is either
-registered in the port or listed as not yet ported.
+registered in the port or listed as not yet ported (5 left: Attention
+and the file-backed data layers), and ResNet-50's weights with its
+BatchNorm stats in both packages' bytes.
 """
 
 import os
@@ -215,6 +217,51 @@ def test_net_blobs_and_weight_file_equal_jax(tmp_path):
         assert f.read() == g.read()
 
 
+def test_resnet50_caffemodel_with_bn_stats_round_trips_both_ways(tmp_path):
+    """ResNet-50's weights file — 161 learnable blobs and the 159
+    BatchNorm stat blobs, in layer order — written by each package is
+    the other's bytes, and each package reads the other's file back to
+    the same params and stats."""
+    from sparknet_tpu_torch import models as tmodels
+    from sparknet_tpu import models as jmodels
+
+    kw = dict(batch=1, image=64, classes=10)
+    tnet = TorchNet(tmodels.load_model("resnet50", **kw), phase="TRAIN")
+    jnet = JaxNet(jmodels.load_model("resnet50", **kw), phase="TRAIN")
+    tp, ts = tnet.init(0)
+    rs = np.random.RandomState(6)
+    ts = {k: [torch.from_numpy(rs.rand(*t.shape).astype(np.float32))
+              for t in v] for k, v in ts.items()}
+    host = {c: {k: [t.numpy() for t in v] for k, v in d.items()}
+            for c, d in (("params", tp), ("stats", ts))}
+    blobs = tcm.net_blobs(tnet, tp, ts)
+    want = jcm.net_blobs(jnet, host["params"], host["stats"])
+    assert list(blobs) == list(want)
+    assert sum(len(v) for v in blobs.values()) == 161 + 159
+    a, b = str(tmp_path / "t.caffemodel"), str(tmp_path / "j.caffemodel")
+    tcm.save_weights(blobs, a, net_name=tnet.name)
+    jcm.save_weights(want, b, net_name=jnet.name)
+    with open(a, "rb") as f, open(b, "rb") as g:
+        assert f.read() == g.read()
+    zp = {k: [torch.zeros_like(t) for t in v] for k, v in tp.items()}
+    zs = {k: [torch.zeros_like(t) for t in v] for k, v in ts.items()}
+    params, stats = tcm.apply_blobs(tnet, zp, zs, tcm.load_weights(b),
+                                    strict=True)
+    for got, src in ((params, tp), (stats, ts)):
+        for k in src:
+            for x, y in zip(got[k], src[k]):
+                assert torch.equal(x, y)
+    jp, js = jcm.apply_blobs(jnet, {k: [np.zeros_like(x) for x in v]
+                                    for k, v in host["params"].items()},
+                             {k: [np.zeros_like(x) for x in v]
+                              for k, v in host["stats"].items()},
+                             jcm.load_weights(a))
+    for got, src in ((jp, host["params"]), (js, host["stats"])):
+        for k in src:
+            for x, y in zip(got[k], src[k]):
+                assert np.array_equal(np.asarray(x), y)
+
+
 def test_apply_blobs_legacy_right_align_and_errors():
     _, _, _, tnet, tp, ts = _nets()
     rng = np.random.RandomState(5)
@@ -290,12 +337,14 @@ def test_every_jax_layer_type_is_ported_or_listed():
 
     assert set(jax_types) - set(port_types) - set(_NOT_YET_PORTED) == set()
     assert not set(port_types) & set(_NOT_YET_PORTED)
-    assert {"BatchReindex", "Filter"} <= set(_NOT_YET_PORTED)
+    assert set(_NOT_YET_PORTED) == {"Attention", "HDF5Data", "HDF5Output",
+                                    "ImageData", "WindowData"}
+    assert {"BatchReindex", "Filter"} <= set(port_types)
 
 
 @pytest.mark.parametrize("type_,exc,match", [
-    ("BatchReindex", NotImplementedError, "not yet ported"),
-    ("Filter", NotImplementedError, "not yet ported"),
+    ("Attention", NotImplementedError, "not yet ported"),
+    ("ImageData", NotImplementedError, "not yet ported"),
     ("NoSuchLayer", ValueError, "unknown layer type"),
 ])
 def test_create_layer_refuses_unported_and_unknown(type_, exc, match):

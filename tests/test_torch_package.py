@@ -86,7 +86,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "runtime/__init__.py", "runtime/_build.py", "io/lmdb.py",
                 "io/leveldb.py", "data/source.py", "ops/data_layers.py",
                 "apps/imagenet_create_db_app.py",
-                "apps/imagenet_run_db_app.py", "apps/cifar_db_app.py"):
+                "apps/imagenet_run_db_app.py", "apps/cifar_db_app.py",
+                "models/dsl.py", "ops/common.py", "ops/losses.py",
+                "ops/vision.py", "config/schema.py"):
         assert os.path.join("sparknet_tpu_torch", mod) in rel
     for path in files:
         for mod in _imported_modules(path):
@@ -124,9 +126,12 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Solver(tconfig.parse_solver_prototxt("base_lr: 0.1"),
                net=models.build_transformer_lm(dim=32, depth=1, heads=2))
-    # the ImageNet slice: the app, before it writes any data
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        imagenet_app.main(["--workers", "2", "--tau", "2", "--rounds", "1"])
+    # the ImageNet slice: the app, before it writes any data, with
+    # AlexNet and with the deep nets
+    for model in ("alexnet", "resnet50", "googlenet"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            imagenet_app.main(["--model", model, "--workers", "2", "--tau",
+                               "2", "--rounds", "1"])
     # the DB slice: both training apps before they read or write a DB,
     # and cli test before it reads the net
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -181,8 +186,9 @@ def test_cli_refuses_what_is_not_yet_ported(argv, what):
 
 @pytest.mark.parametrize(
     "text",
-    ['layer { name: "c" type: "Concat" bottom: "x" top: "y" }',
-     'layer { name: "b" type: "BatchNorm" batch_norm_param { eps: 0.001 } }'],
+    ['layer { name: "h" type: "HDF5Output" bottom: "x" }',
+     'layer { name: "a" type: "Attention" bottom: "x" top: "y" '
+     'attention_param { num_heads: 1 } }'],
     ids=["layer_type", "layer_param"],
 )
 def test_net_refuses_layers_not_yet_ported(text):
@@ -195,9 +201,13 @@ def test_net_refuses_layers_not_yet_ported(text):
 
 
 def test_zoo_refuses_models_not_yet_ported():
-    for name in ("googlenet", "resnet50"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            models.load_model(name)
+    """Every zoo model of the JAX package is ported now: the deep nets
+    load, and only an unknown name is refused."""
+    for name, net in (("googlenet", "GoogLeNet"), ("resnet50", "ResNet-50"),
+                      ("lenet", "LeNet")):
+        assert models.load_model(name).name == net
+    with pytest.raises(KeyError, match="unknown model"):
+        models.load_model("inception_v3")
     assert models.load_model("cifar10_full").name == "CIFAR10_full"
     assert models.load_model("alexnet").name == "AlexNet"
     assert models.load_model("caffenet", batch=2).name == "CaffeNet"
