@@ -213,9 +213,42 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ResNet-50's default and int8 rounds (wall, device busy share,
    launches, peak memory, top kernels, K5-K11's share).
 
-The second-to-last line is ``{"kernels": [...]}`` (K1-K11, with
-launches summed over every phase's main-path runs); the last line is
-``{"ok": true, "device": {...}}``.
+13. Image serving: ``cli serve`` in process (``ServeServer`` on a
+   loopback port) on CaffeNet at full width (the zoo's ``caffenet``
+   taken to its deploy view, 1,000 classes, 3x227x227, buckets 1, 4, 16
+   and 64), seeded weights written with ``io/caffemodel.save_weights``.
+   First K5 in bfloat16 against its plain version (float32 math on the
+   widened input, one round-to-nearest-even narrowing) at CaffeNet's two
+   LRN inputs at the top bucket, (64, 96, 55, 55) and (64, 256, 27, 27),
+   random and tied, and an odd shape: bit-equal, as float32 there; timed
+   beside the plain version and ``F.local_response_norm`` in bf16.  Then
+   ``--replicas 2 --watch DIR``: 16 concurrent clients ``POST
+   /predict`` bodies of 1, 3, 16 and 64 images (launch counts reset just
+   before, read just after): every prob within 1e-4 of a CPU
+   ``InferenceEngine`` on the same weights and each row within 1e-4 of
+   its top prob, each replica's shape count 4, K5 launched twice per
+   forward; images/s and p50/p99 latency; one forward per bucket
+   profiled.  Delivery on that fleet, under mirrored live traffic: a
+   seeded solver's state published with a passing verdict is canaried
+   and promoted to both replicas (each then equal bit for bit to a
+   fresh engine on the published file, under
+   ``deterministic_algorithms()``, forwards outside the counted legs);
+   a publish with fc8 x 50 rolls back and is quarantined; a snapshot
+   with no verdict is rejected; K5 launched twice per forward of every
+   engine (served, mirrored, warmed).  ``--queue 2``: a third client
+   gets 429 with Retry-After, K5 twice per forward.  ``--dtype
+   bfloat16``: the 64 images in one request, top-1 equal to the fp32
+   engine's on every row whose top-2 margin exceeds 5% of the top prob,
+   max |prob difference| printed and, against the row's top prob, over
+   the fp32 limit (the limit tells the dtypes apart), K5 (bf16) twice
+   per forward.  ``serve --generate --replicas 2`` at the CLI model:
+   phase 3's 4 prompts stream phase 3's tokens, K1 and K2 launched.
+
+A failed run prints cuDNN's error log (kept in the temporary
+directory) and the tensors of the port's innermost frame on the failing
+stack.  The second-to-last line is ``{"kernels": [...]}`` (K1-K11 and K5 in
+bf16, with launches summed over every phase's main-path runs); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -237,6 +270,17 @@ import numpy as np
 # (lm_app and cli train run deterministic algorithms, which need it)
 if os.environ.get("CUBLAS_WORKSPACE_CONFIG") not in (":4096:8", ":16:8"):
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+# cuDNN's error log (errors only; CUDNN_LOGLEVEL_DBG for cuDNN 9,
+# CUDNN_LOGERR_DBG for 8), read back if the run fails: one fresh process
+# once failed its first convolution ("GET was unable to find an
+# engine"), cause unknown (ROADMAP.md §C), and this is what to keep
+# when it recurs
+CUDNN_ERROR_LOG = os.environ.get("CUDNN_LOGDEST_DBG")
+if CUDNN_ERROR_LOG is None:
+    CUDNN_ERROR_LOG = os.path.join(
+        tempfile.gettempdir(), f"chip_smoke_cudnn_{os.getpid()}.log")
+    os.environ.update(CUDNN_LOGLEVEL_DBG="1", CUDNN_LOGERR_DBG="1",
+                      CUDNN_LOGDEST_DBG=CUDNN_ERROR_LOG)
 
 import torch  # noqa: E402
 
@@ -3327,11 +3371,555 @@ def deep_nets_end_to_end(dev, card):
     return total
 
 
+# ----------------------------------------------------------------------
+# phase 13: image serving — /predict on CaffeNet at full width, the
+# replica fleet with its canary, train-to-serve delivery, and the
+# generation fleet
+
+PREDICT_SIZES = (1, 3, 16, 64)  # images a request, cycled over the clients
+PREDICT_CLIENTS = 16
+PREDICT_POOL = 64  # distinct seeded images; each request takes a slice
+# the tolerance of serve --weights: the card's prob against the CPU's
+PREDICT_ATOL = 1e-4
+# and, since a seeded CaffeNet's probs sit near 1e-3 (1,000 classes),
+# each row's max |prob - CPU| against that row's largest CPU prob: the
+# card read 7.9e-9 absolute (under 1e-5 of a row's top prob, which is at
+# least 1e-3), the whole net in bf16 7.0e-5 (over 1e-2 of it); the limit
+# lies between, and the bf16 leg must exceed it
+PREDICT_RTOL = 1e-4
+# bf16 vs fp32 on the same weights: top-1 must agree on every row whose
+# fp32 top-2 margin exceeds this share of the top prob (~13 bf16 ulps)
+BF16_MARGIN = 0.05
+LRN_BF16_SHAPES = ((PREDICT_POOL, 96, 55, 55), (PREDICT_POOL, 256, 27, 27))
+SERVE_QUEUE_SMALL = 2
+DELIVERY_TIMEOUT_S = 240.0
+
+
+def check_lrn_bf16(dev, card):
+    """K5 in bfloat16 against its plain version (float32 math on the
+    widened input, one round-to-nearest-even narrowing) at CaffeNet's two
+    LRN inputs at the top bucket, random and tied, and an odd shape:
+    bit-equal, as float32 at the same shapes is.  Returns
+    its kernels-line record (launches filled in by the /predict bf16
+    leg), timed over both LRNs beside the plain version and
+    ``F.local_response_norm`` in bf16 (never called by the port)."""
+    import torch.nn.functional as F
+
+    from sparknet_tpu_torch.ops import cuda_lrn as cl
+
+    gen = torch.Generator().manual_seed(13)
+    worst = 0.0
+    for shape, ties in [(s, t) for s in LRN_BF16_SHAPES + ((3, 7, 5, 9),)
+                        for t in (False, True)]:
+        x = (_tie_input(dev, shape, 7) if ties
+             else torch.randn(*shape, generator=gen).to(dev) * 3)
+        xb = x.to(torch.bfloat16)
+        y = cl.lrn_fwd(xb, *LRN_HP)
+        y32 = cl.lrn_fwd(x, *LRN_HP)
+        torch.cuda.synchronize()
+        check(y.dtype == torch.bfloat16, f"K5 bf16 {shape}: output {y.dtype}")
+        want = cl.lrn_fwd_bf16_reference(xb, *LRN_HP)
+        diff = float((y.float() - want.float()).abs().max())
+        check(bool(torch.equal(y, want)),
+              f"K5 bf16 {shape}: y differs from the plain version's bits "
+              f"(max |diff| {diff:.3e})")
+        check(bool(torch.equal(y32, cl.lrn_across_reference(x, *LRN_HP))),
+              f"K5 fp32 {shape}: y differs from the plain version's bits")
+        worst = max(worst, diff)
+        print(f"K5 bf16 lrn {shape}{' ties' if ties else ''}: max_abs_err "
+              f"{diff:.3e}, bit-equal; fp32 bit-equal")
+    xs = [(torch.randn(*s, generator=gen) * 3).to(dev).to(torch.bfloat16)
+          for s in LRN_BF16_SHAPES]
+    n, alpha, beta, k = LRN_HP
+
+    def each(fn):
+        return lambda: [fn(v) for v in xs]
+
+    elems = sum(v.numel() for v in xs)
+    nbytes = 2 * 2 * elems  # bf16 in, bf16 out
+    b, by = bound_ms(nbytes, (n + 7) * elems)
+    rec = dict(name="lrn_fwd_bf16", route="cuda",
+               source="sparknet_tpu_torch/ops/csrc/lrn.cu",
+               replaces="sparknet_tpu/ops/pallas_lrn.py:64",
+               max_abs_err=worst, bound_ms=b, bound_by=by,
+               shape=" + ".join(str(s) for s in LRN_BF16_SHAPES) + " bf16",
+               ms=device_ms(each(lambda v: cl.lrn_fwd(v, *LRN_HP))),
+               plain_ms=device_ms(each(
+                   lambda v: cl.lrn_fwd_bf16_reference(v, *LRN_HP))),
+               library_ms=device_ms(each(lambda v: F.local_response_norm(
+                   v, n, alpha=alpha, beta=beta, k=k))))
+    f32 = [v.float() for v in xs]
+    f32_ms = device_ms(lambda: [cl.lrn_fwd(v, *LRN_HP) for v in f32])
+    print(f"[{card}] K5 lrn_fwd_bf16 [{rec['shape']}, both LRNs]: kernel "
+          f"{rec['ms']:.4f} ms on device, plain {rec['plain_ms']:.4f} ms, "
+          f"F.local_response_norm (bf16) {rec['library_ms']:.4f} ms, bound "
+          f"{b * 1e3:.3f} us ({by}, {nbytes} bytes) -> {b / rec['ms']:.1%} "
+          f"of the bound; K5 fp32 on the same inputs {f32_ms:.4f} ms")
+    return rec
+
+
+def _post(host, port, path, body: bytes, timeout=600.0):
+    """One POST; (status, headers, parsed JSON body, seconds)."""
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    t0 = time.perf_counter()
+    conn.request("POST", path, body=body,
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    dt = time.perf_counter() - t0
+    conn.close()
+    return resp.status, dict(resp.getheaders()), json.loads(data), dt
+
+
+def _cli_server(dev, argv):
+    """``cli serve`` in process (``ServeServer`` on a loopback port 0);
+    returns (server, delivery, host, port)."""
+    from sparknet_tpu_torch.tools import cli
+
+    got = {}
+    argv = ["serve", "--port", "0", "--device", dev.type] + argv
+    check(cli.main(argv, result=got) == 0,
+          f"cli serve {argv}")
+    srv = got["server"]
+    srv.start()
+    host, port = srv.address
+    return srv, got["delivery"], host, port
+
+
+def _predict_body(pool, off, n):
+    # integer pixel values in [-128, 128): what a client sends after
+    # mean subtraction, and short in JSON
+    return json.dumps({"data": pool[off:off + n].astype(np.int16).tolist()}
+                      ).encode()
+
+
+class _EngineForwards:
+    """Counts ``InferenceEngine.run_padded`` calls of every engine in the
+    process while entered: the batchers' served batches, the canary's
+    mirror, and the standby and promoted engines' warmups alike (each
+    forward of CaffeNet's deploy view launches K5 twice)."""
+
+    def __enter__(self):
+        from sparknet_tpu_torch.serve.engine import InferenceEngine
+
+        self.n, self._lock = 0, threading.Lock()
+        self._run = run = InferenceEngine.run_padded
+
+        def counted(engine, x):
+            with self._lock:
+                self.n += 1
+            return run(engine, x)
+
+        InferenceEngine.run_padded = counted
+        return self
+
+    def __exit__(self, *exc):
+        from sparknet_tpu_torch.serve.engine import InferenceEngine
+
+        InferenceEngine.run_padded = self._run
+
+
+def _row_rel_err(got, want):
+    """The largest over rows of max |got - want| / max |want| in that
+    row."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want).max(1) / np.abs(want).max(1)).max())
+
+
+def image_serving_end_to_end(dev, card, root, seeded_tokens):
+    """Phase 13; returns the main-path launches of K1, K2 and K5 (the bf16
+    leg's K5 launches as ``lrn_fwd_bf16``)."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.io import caffemodel, checkpoint
+    from sparknet_tpu_torch.net import TorchNet
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+    from sparknet_tpu_torch.ops import cuda_lrn as cl
+    from sparknet_tpu_torch.serve import InferenceEngine, publish_snapshot
+    from sparknet_tpu_torch.solver import Solver
+    from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+
+    launches = {}
+    t0 = time.perf_counter()
+    netp = models.load_model("caffenet")
+    net = TorchNet(models.deploy_variant(netp), "TEST")
+    params, stats = net.init(0)
+    weights = f"{root}/caffenet_seed0.caffemodel"
+    caffemodel.save_weights(caffemodel.net_blobs(net, params, stats), weights,
+                            net_name="CaffeNet")
+    del params, stats
+    pool = np.random.RandomState(13).randint(
+        -128, 128, (PREDICT_POOL, 3, 227, 227)).astype(np.float32)
+    cpu = InferenceEngine(netp, weights=weights, buckets=(PREDICT_POOL,),
+                          device="cpu")
+    ref = cpu.run_padded(pool)
+    print(f"seeded CaffeNet weights ({os.path.getsize(weights)} B) and the "
+          f"CPU engine's prob for {PREDICT_POOL} images in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # --- 13.2: /predict on a 2-replica fleet (with the delivery watcher
+    # idle on an empty directory), 16 concurrent clients
+    watch = f"{root}/publish"
+    os.makedirs(watch)
+    t0 = time.perf_counter()
+    srv, delivery, host, port = _cli_server(dev, [
+        "--net", "caffenet", "--weights", weights, "--replicas", "2",
+        "--watch", watch, "--canary_frac", "0.5", "--decision_requests", "4"])
+    pool_ = srv.router.pool
+    print(f"cli serve --replicas 2 --watch: fleet warmed in "
+          f"{time.perf_counter() - t0:.2f} s")
+    reqs = []
+    for i in range(PREDICT_CLIENTS):
+        n = PREDICT_SIZES[i % len(PREDICT_SIZES)]
+        off = (7 * i) % (PREDICT_POOL - n + 1)
+        reqs.append((off, n, _predict_body(pool, off, n)))
+    results = [None] * len(reqs)
+
+    def client(i):
+        results[i] = _post(host, port, "/predict", reqs[i][2])
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(reqs))]
+    cl.reset_launch_counts()
+    with _EngineForwards() as fwd:
+        t_start = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t_start
+    torch.cuda.synchronize()
+    k5, forwards = cl.LAUNCHES["lrn_fwd"], fwd.n
+    check(all(not t.is_alive() for t in threads), "a /predict client hung")
+    worst = worst_rel = 0.0
+    for (off, n, _), r in zip(reqs, results):
+        check(r is not None and r[0] == 200, f"/predict failed: {r and r[:3]}")
+        out = np.asarray(r[2]["outputs"], np.float32)
+        check(out.shape == (n, 1000) and r[2]["batched"] == n,
+              f"/predict shape {out.shape} for {n} images")
+        check(bool(np.isfinite(out).all()), "non-finite prob")
+        worst = max(worst, float(np.abs(out - ref[off:off + n]).max()))
+        worst_rel = max(worst_rel, _row_rel_err(out, ref[off:off + n]))
+    images = sum(n for _, n, _ in reqs)
+    lat = sorted(r[3] for r in results)
+    shapes = [rep.engine.jit_cache_size() for rep in pool_.replicas]
+    print(f"/predict: {len(reqs)} clients, {images} images, {forwards} "
+          f"forwards on {len(pool_.replicas)} replicas, K5 launches {k5}; "
+          f"max |prob - CPU| {worst:.3e} (limit {PREDICT_ATOL}), "
+          f"{worst_rel:.3e} of the row's top prob (limit {PREDICT_RTOL}); "
+          f"shapes per replica {shapes}")
+    print(f"[{card}] /predict under {len(reqs)} concurrent clients "
+          f"(JSON bodies of 1-64 images of 3x227x227): {images / wall:.1f} "
+          f"images/s over {wall:.3f} s wall; latency p50 "
+          f"{lat[len(lat) // 2] * 1e3:.1f} ms, p99 "
+          f"{lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3:.1f} ms")
+    check(worst <= PREDICT_ATOL, f"/predict differs from the CPU by {worst}")
+    check(worst_rel <= PREDICT_RTOL, f"/predict differs from the CPU by "
+          f"{worst_rel:.3e} of a row's top prob")
+    check(shapes == [4, 4], f"shapes per replica {shapes}, not 4 each")
+    check(forwards > 0 and k5 == 2 * forwards,
+          f"K5 launches {k5} for {forwards} forwards")
+    launches["lrn_fwd"] = k5
+
+    # --- 13.6 (part): one forward per bucket, profiled, on replica 0
+    where_predict_time_goes(pool_.replicas[0].engine, card)
+
+    # --- 13.4: delivery under mirrored live traffic
+    solver = Solver(models.load_model_solver("caffenet"), device="cpu")
+    state = solver.init_state(seed=1)
+    x1 = _predict_body(pool, 0, 1)
+
+    def drive(pred, what):
+        # until the decision is recorded and the controller idle again:
+        # no standby warmup, mirror or promote forward is then in flight
+        def done():
+            return pred() and delivery.phase == "idle"
+
+        deadline = time.perf_counter() + DELIVERY_TIMEOUT_S
+        while not done() and time.perf_counter() < deadline:
+            st = _post(host, port, "/predict", x1)[0]
+            check(st == 200, f"/predict during delivery: {st}")
+            time.sleep(0.02)
+        check(done(), f"delivery: {what} not reached: {delivery.status()}")
+
+    def delivery_launches(fwd, leg):
+        # K5 twice a forward of every engine: the replicas' served
+        # requests, the canary's mirrored ones, the standby's and the
+        # promoted engines' warmups
+        torch.cuda.synchronize()
+        k5 = cl.LAUNCHES["lrn_fwd"]
+        print(f"delivery ({leg}): {fwd.n} forwards, K5 launches {k5}")
+        check(fwd.n > 0 and k5 == 2 * fwd.n,
+              f"delivery ({leg}): K5 launches {k5} for {fwd.n} forwards")
+        launches["lrn_fwd"] += k5
+
+    t0 = time.perf_counter()
+    cl.reset_launch_counts()
+    with _EngineForwards() as fwd:
+        good = publish_snapshot(solver, state, watch,
+                                {"passing": True, "reason": "seeded"})
+        drive(lambda: delivery.promotions == 1, "the promote")
+    delivery_launches(fwd, "promote")
+    d = delivery.last_decision
+    check(d["action"] == "promoted" and d["replicas_swapped"] == 2,
+          f"delivery: {d}")
+    check(pool_.incumbent_id == "published_iter_0",
+          f"incumbent {pool_.incumbent_id}")
+    print(f"delivery: published_iter_0 promoted in "
+          f"{time.perf_counter() - t0:.2f} s (max divergence "
+          f"{d['window']['max_divergence']:.3e} over "
+          f"{d['window']['mirrored']} mirrored)")
+    # promote bit identity: each replica's engine equals a fresh engine
+    # loaded from the published file, under deterministic algorithms
+    # (the check's own forwards are no main-path launches)
+    with deterministic_algorithms():
+        fresh = InferenceEngine(netp, weights=good[0], device=dev)
+        want = fresh.run_padded(pool)
+        for rep in pool_.replicas:
+            check(np.array_equal(rep.engine.run_padded(pool), want),
+                  f"replica {rep.index} after promote differs from a fresh "
+                  "engine on the published weights")
+    del fresh
+    torch.cuda.synchronize()
+    cl.reset_launch_counts()
+    # a perturbed publish (fc8 x50: finite, far off) rolls back, then a
+    # snapshot with no verdict in its manifest is rejected at verify
+    params = {k: list(v) for k, v in state.params.items()}
+    params["fc8"] = [params["fc8"][0] * 50.0, params["fc8"][1]]
+    bad = state._replace(params=params, iter=torch.tensor(1))
+    with _EngineForwards() as fwd:
+        incumbent = _post(host, port, "/predict", x1)[2]["outputs"]
+        t0 = time.perf_counter()
+        bad_paths = publish_snapshot(solver, bad, watch,
+                                     {"passing": True, "reason": "seeded x50"})
+        drive(lambda: delivery.rollbacks == 1, "the rollback")
+        rollback_s = time.perf_counter() - t0
+        d = delivery.last_decision
+        after = _post(host, port, "/predict", x1)[2]["outputs"]
+        checkpoint.snapshot(solver, state._replace(iter=torch.tensor(2)),
+                            f"{watch}/published")
+        drive(lambda: delivery.rejected == 1
+              and delivery.last_decision["action"] == "rejected",
+              "the rejection")
+    check(d["action"] == "rolled_back" and "divergence" in d["why"]
+          and d["quarantined"], f"delivery: {d}")
+    check(all(not os.path.exists(p) for p in bad_paths),
+          "the condemned publish was not quarantined")
+    check(pool_.incumbent_id == "published_iter_0", "the incumbent moved")
+    check(np.allclose(after, incumbent, rtol=0, atol=1e-6),
+          "the incumbent's answers changed after the rollback")
+    print(f"delivery: published_iter_1 rolled back in {rollback_s:.2f} s "
+          f"({d['why']}), quarantined "
+          f"{[os.path.basename(q) for q in d['quarantined']]}")
+    check(delivery.last_decision["action"] == "rejected"
+          and "verdict" in delivery.last_decision["why"],
+          f"delivery: {delivery.last_decision}")
+    print("delivery: published_iter_2 (no verdict) rejected")
+    delivery_launches(fwd, "rollback and rejection")
+    srv.shutdown()
+    del solver, state, bad, params
+
+    # --- 13.2: a full queue sheds with 429
+    srv, _, host, port = _cli_server(dev, [
+        "--net", "caffenet", "--weights", weights, "--buckets", "1,4",
+        "--queue", str(SERVE_QUEUE_SMALL), "--max_wait_ms", "3000"])
+    parked = [None] * SERVE_QUEUE_SMALL
+    threads = [threading.Thread(
+        target=lambda i=i: parked.__setitem__(i, _post(host, port,
+                                                       "/predict", x1)))
+        for i in range(SERVE_QUEUE_SMALL)]
+    cl.reset_launch_counts()
+    with _EngineForwards() as fwd:
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + 30
+        while (srv.batcher.queue_depth() < SERVE_QUEUE_SMALL
+               and time.perf_counter() < deadline):
+            time.sleep(0.005)
+        status, headers, body, _ = _post(host, port, "/predict", x1)
+        for t in threads:
+            t.join(120)
+    torch.cuda.synchronize()
+    k5, forwards = cl.LAUNCHES["lrn_fwd"], fwd.n
+    launches["lrn_fwd"] += k5
+    srv.shutdown()
+    check(forwards > 0 and k5 == 2 * forwards,
+          f"--queue leg: K5 launches {k5} for {forwards} forwards")
+    check(status == 429 and headers.get("Retry-After") == "1",
+          f"the extra client got {status} {headers}")
+    check(all(p is not None and p[0] == 200 for p in parked),
+          "the parked requests were not served")
+    print(f"--queue {SERVE_QUEUE_SMALL}: the extra client got 429 "
+          f"(Retry-After {headers.get('Retry-After')}, {body}); the "
+          f"{SERVE_QUEUE_SMALL} queued ones 200")
+
+    # --- 13.3: --dtype bfloat16, one request of the whole pool
+    srv, _, host, port = _cli_server(dev, [
+        "--net", "caffenet", "--weights", weights, "--dtype", "bfloat16"])
+    cl.reset_launch_counts()
+    with _EngineForwards() as fwd:
+        status, _, body, dt = _post(host, port, "/predict",
+                                    _predict_body(pool, 0, PREDICT_POOL))
+    torch.cuda.synchronize()
+    k5_bf16, forwards = cl.LAUNCHES["lrn_fwd"], fwd.n
+    srv.shutdown()
+    check(status == 200, f"/predict bf16: {status}")
+    bf = np.asarray(body["outputs"], np.float32)
+    check(np.array_equal(bf, torch.from_numpy(bf).to(torch.bfloat16)
+                         .float().numpy()),
+          "/predict bf16 returned values bf16 cannot hold")
+    # the fp32 engine on the same (seed-0) weights, on the card
+    fp32 = InferenceEngine(netp, weights=weights, buckets=(PREDICT_POOL,),
+                           device=dev).run_padded(pool)
+    s32 = np.sort(fp32, axis=1)
+    wide = (s32[:, -1] - s32[:, -2]) > BF16_MARGIN * s32[:, -1]
+    agree = bf.argmax(1) == fp32.argmax(1)
+    dprob = float(np.abs(bf - fp32).max())
+    drel = _row_rel_err(bf, fp32)
+    print(f"[{card}] /predict --dtype bfloat16, {PREDICT_POOL} images in "
+          f"{dt * 1e3:.1f} ms: max |prob bf16 - fp32| {dprob:.3e}, "
+          f"{drel:.3e} of the row's top prob; top-1 "
+          f"agrees on {int(agree.sum())} of {PREDICT_POOL} rows, and on "
+          f"{int((agree & wide).sum())} of the {int(wide.sum())} whose fp32 "
+          f"top-2 margin exceeds {BF16_MARGIN:.0%} of the top prob; "
+          f"K5 launches {k5_bf16} for {forwards} forwards")
+    check(bool(wide.any()), "no row's top-2 margin exceeds the bound")
+    check(bool(agree[wide].all()), "bf16 top-1 differs on a wide-margin row")
+    # the fp32 /predict limit tells bf16 serving from fp32 serving
+    check(drel > PREDICT_RTOL, f"bf16 lies within the fp32 limit "
+          f"({drel:.3e} <= {PREDICT_RTOL}): is the net computing in bf16?")
+    check(forwards > 0 and k5_bf16 == 2 * forwards,
+          f"bf16 leg: K5 launches {k5_bf16} for {forwards} forwards")
+    launches["lrn_fwd_bf16"] = k5_bf16
+
+    # --- 13.5: cli serve --generate --replicas 2, 4 streams
+    srv, _, host, port = _cli_server(dev, ["--generate", "--replicas", "2"])
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 256, size=n).tolist() for n in PROMPT_LENS]
+    got = [None] * len(prompts)
+    threads = [threading.Thread(target=_stream, args=(host, port, p, got, i))
+               for i, p in enumerate(prompts)]
+    ca.reset_launch_counts()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    torch.cuda.synchronize()
+    gen = dict(ca.LAUNCHES)
+    per_replica = [int(r.batcher.m_ttft.count) for r in srv.router.pool.replicas]
+    srv.shutdown()
+    tokens = []
+    for r in got:
+        check(r is not None and r["status"] == 200, f"stream failed: {r}")
+        check(r["events"][-1]["event"] == "done", f"stream ended {r['events'][-1]}")
+        tokens.append(r["events"][-1]["tokens"])
+    same = sum(a == b for a, b in zip(tokens, seeded_tokens))
+    print(f"generate fleet: streams per replica {per_replica}, launches "
+          f"{gen}; {same} of {len(prompts)} streams equal the single "
+          "engine's (phase 3)")
+    check(same == len(prompts), "the fleet streamed other tokens")
+    check(gen["flash_fwd"] >= len(prompts) * CLI_MODEL["depth"]
+          and gen["decode_attention"] > 0, f"generate fleet launches {gen}")
+    for name in ("flash_fwd", "decode_attention"):
+        launches[name] = gen[name]
+    return launches
+
+
+def where_predict_time_goes(engine, card, iters: int = 10):
+    """Per bucket: the wall time of one served forward (the H2D copy of
+    the padded batch, the net, the D2H copy of prob), the device's busy
+    share of it, its launches, and the top device rows
+    (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for b in engine.buckets:
+        x = np.zeros((b,) + engine.item_shape, np.float32)
+        fn = lambda x=x: engine.run_padded(x)  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        wall_ms = (time.perf_counter() - t0) / iters * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = sorted(
+            ((e.self_device_time_total / iters / 1e3, e.count // iters, e.key)
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0),
+            reverse=True,
+        )
+        busy = sum(r[0] for r in rows)
+        check(busy > 0, f"bucket {b}: the profiler saw no device time")
+        k5 = sum(r[0] for r in rows if "lrn_fwd_kernel" in r[2])
+        # launches and copies from the raw device events, per forward
+        evs = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        copies = sum(n.startswith("Memcpy") for n in evs) / iters
+        print(f"[{card}] CaffeNet forward at bucket {b}: {wall_ms:.3f} ms "
+              f"wall, {busy:.3f} ms device busy ({busy / wall_ms:.1%}), "
+              f"{len(evs) / iters - copies:g} kernel launches and {copies:g} "
+              f"copies a forward, {len(rows)} kinds; K5 {k5:.4f} ms "
+              f"({k5 / busy:.1%} of device)")
+        for ms, count, key in rows[:6 if b == engine.max_bucket else 3]:
+            print(f"    {ms:.4f} ms ({ms / busy:.1%} of device, {count} "
+                  f"launches)  {key[:90]}")
+
+
+def cudnn_failure_report(exc: BaseException) -> None:
+    """On a failed run: cuDNN's version and flags, the device's free
+    memory, the tensors of the port's innermost frame on the failing
+    stack (a convolution's input and weight), and the tail of cuDNN's
+    error log."""
+    print(f"chip_smoke failed: {type(exc).__name__}: {str(exc)[:400]}",
+          file=sys.stderr)
+    cudnn = torch.backends.cudnn
+    free, total = torch.cuda.mem_get_info()
+    print(f"cuDNN {cudnn.version()}, benchmark {cudnn.benchmark}, "
+          f"deterministic {cudnn.deterministic}; device memory free "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB, allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", file=sys.stderr)
+    frame, tb = None, exc.__traceback__
+    while tb is not None:
+        if "sparknet_tpu_torch" in tb.tb_frame.f_code.co_filename:
+            frame = tb.tb_frame
+        tb = tb.tb_next
+    if frame is not None:
+        layer = frame.f_locals.get("self")
+        lp = getattr(layer, "lp", None)
+        print(f"innermost port frame: {frame.f_code.co_filename}:"
+              f"{frame.f_lineno} {frame.f_code.co_name}"
+              + (f" (layer {lp.name!r}, {lp.type})" if lp is not None else ""),
+              file=sys.stderr)
+        for name, v in frame.f_locals.items():
+            for i, t in enumerate(v if isinstance(v, (list, tuple)) else [v]):
+                if isinstance(t, torch.Tensor):
+                    print(f"  {name}[{i}]: {tuple(t.shape)} {t.dtype} on "
+                          f"{t.device}, strides {t.stride()}", file=sys.stderr)
+    if os.path.exists(CUDNN_ERROR_LOG):
+        with open(CUDNN_ERROR_LOG, errors="replace") as f:
+            lines = f.readlines()
+        print(f"cuDNN error log {CUDNN_ERROR_LOG}: {len(lines)} lines; the "
+              "last 60:", file=sys.stderr)
+        sys.stderr.writelines(lines[-60:])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script runs on the card",
               file=sys.stderr)
         return 2
+    try:
+        return run_all()
+    except BaseException as e:
+        cudnn_failure_report(e)
+        raise
+
+
+def run_all() -> int:
     from sparknet_tpu_torch.ops import _build
     from sparknet_tpu_torch.utils.devices import card_name_and_power_limit
 
@@ -3361,7 +3949,7 @@ def main() -> int:
     kernels += check_bwd_kernels(dev)
     time_wide_head(dev)
     comm_kernels = check_comm_kernels(dev)
-    lrn_kernels = check_lrn_kernels(dev, card)
+    lrn_kernels = check_lrn_kernels(dev, card) + [check_lrn_bf16(dev, card)]
     seeded = {}
     launches = serve_end_to_end(dev, card, out=seeded)
     for leg in (lm_train_end_to_end, train_end_to_end,
@@ -3382,10 +3970,19 @@ def main() -> int:
         determinism_cost(dev, card, root, db_round)
     for name, n in deep_nets_end_to_end(dev, card).items():
         launches[name] = launches.get(name, 0) + n
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as root:
+        for name, n in image_serving_end_to_end(dev, card, root,
+                                                seeded["tokens"]).items():
+            launches[name] = launches.get(name, 0) + n
     kernels += comm_kernels + lrn_kernels
     for r in kernels:
         r["launches"] = launches[r["name"]]
         check(r["launches"] > 0, f"{r['name']} never ran on the main path")
+    n_err = 0
+    if os.path.exists(CUDNN_ERROR_LOG):
+        with open(CUDNN_ERROR_LOG, errors="replace") as f:
+            n_err = sum(1 for _ in f)
+    print(f"cuDNN error log: {n_err} lines over the run")
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

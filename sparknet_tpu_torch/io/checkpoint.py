@@ -96,6 +96,12 @@ def _atomic(write_fn, path: str) -> None:
             os.unlink(tmp)
 
 
+def crc32_bytes(data: bytes) -> int:
+    """The framework's one checksum convention (manifest ``crc32``
+    fields, chunk-cache sidecars): masked ``zlib.crc32``."""
+    return zlib.crc32(data) & 0xFFFFFFFF
+
+
 def crc32_file(path: str) -> Tuple[int, int]:
     """Streaming (crc32, size) of a file: the manifest's masked
     ``zlib.crc32``."""
@@ -157,12 +163,21 @@ def read_manifest(mpath: str) -> dict:
     evidence of corruption."""
     with open(mpath, "rb") as f:
         raw = f.read()
+    return parse_manifest(raw, label=mpath)
+
+
+def parse_manifest(raw, label: str = "<manifest>") -> dict:
+    """Manifest bytes/text -> dict, raising ``SnapshotCorrupt`` on
+    garbage (the delivery watcher feeds this bytes fetched through an
+    object store / chunk cache rather than a local path)."""
     try:
-        manifest = json.loads(raw.decode("utf-8"))
+        if isinstance(raw, bytes):
+            raw = raw.decode("utf-8")
+        manifest = json.loads(raw)
         if not isinstance(manifest["files"], dict):
             raise TypeError("'files' is not a mapping")
     except (ValueError, KeyError, TypeError) as e:
-        raise SnapshotCorrupt(f"{mpath}: unreadable manifest: {e}") from e
+        raise SnapshotCorrupt(f"{label}: unreadable manifest: {e}") from e
     return manifest
 
 
@@ -179,6 +194,27 @@ def verify_file_entry(path: str, want: dict) -> None:
     if crc != int(want["crc32"]):
         raise SnapshotCorrupt(
             f"{path}: CRC32 mismatch ({crc:#x} vs manifest "
+            f"{int(want['crc32']):#x})"
+        )
+
+
+def verify_bytes_entry(name: str, data: bytes, manifest: dict) -> None:
+    """CRC32/size-check fetched BYTES against the manifest's entry for
+    ``name`` — the delivery watcher's verify, where the file arrived
+    through an object store and never touched the local disk under its
+    published name."""
+    want = manifest["files"].get(os.path.basename(name))
+    if want is None:
+        raise SnapshotCorrupt(f"{name}: not listed in the manifest")
+    if len(data) != int(want["size"]):
+        raise SnapshotCorrupt(
+            f"{name}: truncated ({len(data)} bytes, manifest says "
+            f"{want['size']})"
+        )
+    crc = crc32_bytes(data)
+    if crc != int(want["crc32"]):
+        raise SnapshotCorrupt(
+            f"{name}: CRC32 mismatch ({crc:#x} vs manifest "
             f"{int(want['crc32']):#x})"
         )
 

@@ -27,6 +27,14 @@ Two plans of the JAX net, under its switches:
   member's slot, its output split back into the members' tops.
   Parameters stay per layer, so checkpoints and the blob map are
   unchanged.
+
+``compute_dtype`` (JAX ``JaxNet(compute_dtype=...)``, e.g.
+``"bfloat16"``) runs the layers in that dtype: parameters stay float32
+master copies cast at each use, loss layers (``IS_LOSS``) take their
+bottoms in float32, ``MIXED_PRECISION_EXEMPT`` layers are left alone,
+host-fed blobs keep their dtype (labels never round through bf16) and
+stat blobs are written back at their master dtype.  None keeps the
+reference numerics.
 """
 
 from __future__ import annotations
@@ -65,6 +73,24 @@ class NetOutputs:
     stats: Stats
 
 
+def _compute_dtype(dtype) -> Optional[torch.dtype]:
+    """``None``, a ``torch.dtype`` or its name (``"bfloat16"``) -> the
+    floating dtype layers compute in (None: the reference numerics)."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        out = dtype
+    else:
+        out = getattr(torch, str(dtype), None)
+    if out is not None and (not isinstance(out, torch.dtype)
+                            or not out.is_floating_point):
+        raise ValueError(f"compute_dtype {dtype!r}: expected a float dtype")
+    return out
+
+
+def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype`` when it is floating (index tensors as they are)."""
+    return t.to(dtype) if t.is_floating_point() else t
+
+
 def _device_of(batch, params) -> torch.device:
     """The device a net runs on: its batch's, else its parameters'."""
     tensors = list(batch.values()) + [b for bl in params.values() for b in bl]
@@ -80,7 +106,9 @@ class TorchNet:
         net_param: NetParameter,
         phase: str = "TRAIN",
         feed_shapes: Optional[Dict[str, Sequence[int]]] = None,
+        compute_dtype=None,
     ):
+        self.compute_dtype = _compute_dtype(compute_dtype)
         self.phase = phase.upper()
         state = NetState(phase=self.phase)
         self.net_param = filter_net(net_param, state)
@@ -270,6 +298,10 @@ class TorchNet:
         _, stride, pad, dil = group["geom"]
         members = [self.layers[li] for li in group["lis"]]
         gathered = [self._gather_blobs(m.name, params, {}) for m in members]
+        cd = self.compute_dtype
+        if cd is not None:
+            x = _cast(x, cd)
+            gathered = [[_cast(b, cd) for b in g] for g in gathered]
         y = F.conv2d(x, torch.cat([g[0] for g in gathered]), None, stride, pad,
                      dil)
         if group["bias"]:
@@ -352,6 +384,7 @@ class TorchNet:
             blobs[b] = batch[b]
         new_stats: Stats = {k: list(v) for k, v in stats.items()}
         loss = None
+        cd = self.compute_dtype
         for li, layer in enumerate(self.layers):
             lp = layer.lp
             if li in self._hconv_skip or li in self._plp_skip:
@@ -362,26 +395,41 @@ class TorchNet:
                 continue
             if li in self._plp_fused:
                 pool_top, hp = self._plp_fused[li]
-                blobs[pool_top] = cuda_plp.lrn_maxpool(blobs[lp.bottom[0]], *hp)
+                x = blobs[lp.bottom[0]]
+                if cd is not None:
+                    x = _cast(x, cd)
+                blobs[pool_top] = cuda_plp.lrn_maxpool(x, *hp)
                 continue
             if isinstance(layer, data_layers._HostFed):
+                # host blobs keep their dtype: labels never round
+                # through a low-precision compute dtype
                 tops = [blobs[t] for t in lp.top]
             else:
                 lblobs = self._gather_blobs(layer.name, params, new_stats)
+                bottoms = [blobs[b] for b in lp.bottom]
+                if cd is not None:
+                    if layer.IS_LOSS:
+                        # losses compute in float32 (stable log/exp)
+                        bottoms = [_cast(b, torch.float32) for b in bottoms]
+                    elif not layer.MIXED_PRECISION_EXEMPT:
+                        lblobs = [_cast(b, cd) for b in lblobs]
+                        bottoms = [_cast(b, cd) for b in bottoms]
                 lrng = rngs.fold_in(rng, li) if rng is not None else None
-                tops, updated = layer.apply(
-                    lblobs, [blobs[b] for b in lp.bottom], lrng, train
-                )
+                tops, updated = layer.apply(lblobs, bottoms, lrng, train)
                 if not lp.bottom:  # DummyData draws on the host
                     dev = _device_of(batch, params)
                     tops = [t.to(dev) for t in tops]
                 if updated is not None:
                     for ref, arr in zip(self._blob_refs[layer.name], updated):
                         if ref.collection == "stats":
-                            new_stats[ref.owner][ref.index] = arr
+                            # stat blobs stay at their master dtype
+                            cur = new_stats[ref.owner][ref.index]
+                            new_stats[ref.owner][ref.index] = arr.to(cur.dtype)
             for w, top in zip(self._loss_weights[layer.name], tops):
                 if w:
                     term = w * top.sum()
+                    if cd is not None:
+                        term = term.float()  # the loss sums in float32
                     loss = term if loss is None else loss + term
             for name, top in zip(lp.top, tops):
                 blobs[name] = top

@@ -207,11 +207,13 @@ class MetricFamily:
                 self._children[key] = child
         return child
 
-    def samples(self) -> List[Tuple[str, float]]:
+    def children(self) -> List[object]:
         with self._lock:
-            children = list(self._children.values())
+            return list(self._children.values())
+
+    def samples(self) -> List[Tuple[str, float]]:
         out: List[Tuple[str, float]] = []
-        for child in children:
+        for child in self.children():
             out.extend(child.samples())
         return out
 
@@ -256,6 +258,12 @@ class MetricsRegistry:
                 MetricFamily(Histogram, name, help, labels, buckets=buckets)
             )
         return self.register(Histogram(name, help, buckets=buckets))
+
+    def get(self, name: str) -> Optional[object]:
+        """The registered metric ``name``, or None (get-or-create for a
+        watcher re-attached to a registry that already has its series)."""
+        with self._lock:
+            return self._metrics.get(name)
 
     def render(self) -> str:
         """Prometheus text exposition format, version 0.0.4."""

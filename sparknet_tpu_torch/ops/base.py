@@ -38,6 +38,10 @@ class Layer:
     TYPE: str = ""
     # loss layers get an implicit loss_weight of 1 on their first top
     IS_LOSS: bool = False
+    # layers that consume index-valued bottoms (labels, embedding ids,
+    # gather indices): a net with a compute dtype never casts their
+    # inputs or blobs to it — bf16 holds integers exactly only up to 256
+    MIXED_PRECISION_EXEMPT: bool = False
 
     def __init__(self, lp: LayerParameter, phase: str):
         self.lp = lp

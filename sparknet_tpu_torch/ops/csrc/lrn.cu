@@ -1,8 +1,9 @@
-// Cross-channel LRN (Caffe ACROSS_CHANNELS), float32, for Hopper (sm_90a).
+// Cross-channel LRN (Caffe ACROSS_CHANNELS) for Hopper (sm_90a): the
+// forward in float32 and bfloat16, the backward in float32.
 //
 // Replaces the two Pallas kernels of sparknet_tpu/ops/pallas_lrn.py
 // (pallas_call at :89 in _call):
-//   sparknet_lrn_fwd_f32 <- _fwd_kernel (:64)
+//   sparknet_lrn_fwd_f32, sparknet_lrn_fwd_bf16 <- _fwd_kernel (:64)
 //   sparknet_lrn_bwd_f32 <- _bwd_kernel (:70)
 // With S the centred window sum over channels (Caffe's pre-pad
 // pre = (n-1)/2, post = n-1-pre):
@@ -45,8 +46,17 @@
 // the JAX package's _fast_negpow: rsqrtf(sqrtf(s)) and products when
 // q = 4 beta is an integer in 1..8, powf(s, -beta) otherwise (q = 0).
 // Built without --use_fast_math.
+//
+// bfloat16 forward: as the TPU kernel does (pallas_lrn.py:65-67: fp32
+// math, output in the input's dtype), each x is widened to float32 as
+// it is loaded (exact), the scale and y run the float32 operations above,
+// and y is narrowed once, round-to-nearest-even, at the store.  So the
+// bf16 kernel equals the float32 kernel on the widened input, narrowed.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "lrn_common.cuh"
 
@@ -57,6 +67,21 @@ namespace {
 // loads a group ahead, and the blocks an SM should hold.
 constexpr int K5_THREADS = 256, K5_G = 4, K5_MB = 4;
 
+// K5's element access: loads widen to float32, stores narrow from it
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+template <typename T>
+__device__ __forceinline__ float load_channel_t(const T* p, int c, int C,
+                                                long long plane) {
+  return (c >= 0 && c < C) ? ld(p + c * plane) : 0.f;
+}
+
 // Forward (K5).  The positions of all N images are one index, each
 // thread one position (consecutive threads, consecutive positions), as
 // in K6.  At the top of each group of K5_G steps the thread issues the
@@ -65,10 +90,11 @@ constexpr int K5_THREADS = 256, K5_G = 4, K5_MB = 4;
 // the squares' register (channels c-D .. c+D), x itself into a register
 // of D + 1 (channels c .. c+D), whose bottom is the x of y[c].  FAST
 // fixes Caffe's default window and power at compile time
-// (lrn_common.cuh).
-template <int D, bool FAST>
+// (lrn_common.cuh).  T is the element type of x and y (float or
+// __nv_bfloat16); the window and the arithmetic are float32 either way.
+template <typename T, int D, bool FAST>
 __global__ void __launch_bounds__(K5_THREADS, K5_MB) lrn_fwd_kernel(
-    const float* __restrict__ x, float* __restrict__ y, int C, int L,
+    const T* __restrict__ x, T* __restrict__ y, int C, int L,
     long long NL, int chunk, LrnParams hp) {
   constexpr int G = K5_G;
   const long long q =
@@ -78,8 +104,8 @@ __global__ void __launch_bounds__(K5_THREADS, K5_MB) lrn_fwd_kernel(
   const int c1 = min(C, c0 + chunk);
   const long long plane = static_cast<long long>(L);
   const long long at = (q / L) * C * plane + q % L;
-  const float* xp = x + at;
-  float* yp = y + at;
+  const T* xp = x + at;
+  T* yp = y + at;
 
   float xr[D + 1];      // x at channels c .. c+D
   float sr[2 * D + 1];  // the squares of x at channels c-D .. c+D
@@ -88,7 +114,7 @@ __global__ void __launch_bounds__(K5_THREADS, K5_MB) lrn_fwd_kernel(
 #pragma unroll
   for (int m = 0; m <= 2 * D; ++m) sr[m] = 0.f;
   for (int cc = c0 - D; cc < c0 + D; ++cc) {
-    const float v = load_channel(xp, cc, C, plane);
+    const float v = load_channel_t(xp, cc, C, plane);
     shift_in<D + 1>(xr, v);
     shift_in<2 * D + 1>(sr, __fmul_rn(v, v));
   }
@@ -97,12 +123,14 @@ __global__ void __launch_bounds__(K5_THREADS, K5_MB) lrn_fwd_kernel(
   float xn[G];
   auto fetch = [&](int cg) {
     if (cg + G + D <= C) {
-      const float* xq = xp + (cg + D) * plane;
+      const T* xq = xp + (cg + D) * plane;
 #pragma unroll
-      for (int s = 0; s < G; ++s) xn[s] = __ldg(xq + s * plane);
+      for (int s = 0; s < G; ++s) xn[s] = ld(xq + s * plane);
     } else {
 #pragma unroll
-      for (int s = 0; s < G; ++s) xn[s] = load_channel(xp, cg + s + D, C, plane);
+      for (int s = 0; s < G; ++s) {
+        xn[s] = load_channel_t(xp, cg + s + D, C, plane);
+      }
     }
   };
   fetch(c0);
@@ -117,7 +145,7 @@ __global__ void __launch_bounds__(K5_THREADS, K5_MB) lrn_fwd_kernel(
       shift_in<2 * D + 1>(sr, __fmul_rn(xc[s], xc[s]));
       if (cg + s < c1) {
         const float scale = lrn_scale_sq_t<D, FAST>(sr, hp);
-        yp[(cg + s) * plane] = __fmul_rn(xr[0], negpow_t<FAST>(scale, hp));
+        st(yp + (cg + s) * plane, __fmul_rn(xr[0], negpow_t<FAST>(scale, hp)));
       }
     }
   }
@@ -226,9 +254,11 @@ __global__ void __launch_bounds__(K6_THREADS, K6_MB) lrn_bwd_kernel(
   }
 }
 
-template <int D>
-cudaError_t launch(const float* x, const float* dy, float* out, int N, int C,
-                   int L, int chunk, const LrnParams& hp, cudaStream_t s) {
+// the forward (dy == nullptr: K5, element type T) or the backward (K6,
+// float32) at window reach D
+template <typename T, int D>
+cudaError_t launch(const T* x, const float* dy, T* out, int N, int C, int L,
+                   int chunk, const LrnParams& hp, cudaStream_t s) {
   const int nchunks = (C + chunk - 1) / chunk;
   const long long NL = static_cast<long long>(N) * L;
   const int threads = dy == nullptr ? K5_THREADS : K6_THREADS;
@@ -237,22 +267,29 @@ cudaError_t launch(const float* x, const float* dy, float* out, int N, int C,
   if constexpr (D == 2) {  // the FAST kernels exist for D = 2 alone
     fast = lrn_fast(D, hp);
     if (fast && dy == nullptr) {
-      lrn_fwd_kernel<D, true><<<grid, threads, 0, s>>>(x, out, C, L, NL, chunk, hp);
+      lrn_fwd_kernel<T, D, true><<<grid, threads, 0, s>>>(x, out, C, L, NL,
+                                                          chunk, hp);
     } else if (fast) {
-      lrn_bwd_kernel<D, true><<<grid, threads, 0, s>>>(x, dy, out, C, L, NL,
-                                                       chunk, hp);
+      if constexpr (std::is_same_v<T, float>) {
+        lrn_bwd_kernel<D, true><<<grid, threads, 0, s>>>(x, dy, out, C, L, NL,
+                                                         chunk, hp);
+      }
     }
   }
   if (!fast && dy == nullptr) {
-    lrn_fwd_kernel<D, false><<<grid, threads, 0, s>>>(x, out, C, L, NL, chunk, hp);
+    lrn_fwd_kernel<T, D, false><<<grid, threads, 0, s>>>(x, out, C, L, NL,
+                                                         chunk, hp);
   } else if (!fast) {
-    lrn_bwd_kernel<D, false><<<grid, threads, 0, s>>>(x, dy, out, C, L, NL,
-                                                      chunk, hp);
+    if constexpr (std::is_same_v<T, float>) {
+      lrn_bwd_kernel<D, false><<<grid, threads, 0, s>>>(x, dy, out, C, L, NL,
+                                                        chunk, hp);
+    }
   }
   return cudaGetLastError();
 }
 
-int dispatch(const float* x, const float* dy, float* out, int N, int C, int L,
+template <typename T>
+int dispatch(const T* x, const float* dy, T* out, int N, int C, int L,
              int chunk, int pre, int post, float k, float alpha_n,
              float coef, int q, float neg_beta, void* stream) {
   if (N < 1 || C < 1 || L < 1 || chunk < 1 || N > 65535 ||
@@ -265,7 +302,7 @@ int dispatch(const float* x, const float* dy, float* out, int N, int C, int L,
   switch (post) {  // post = max(pre, post): the window's reach
 #define LRN_CASE(DD) \
   case DD:           \
-    return static_cast<int>(launch<DD>(x, dy, out, N, C, L, chunk, hp, s));
+    return static_cast<int>(launch<T, DD>(x, dy, out, N, C, L, chunk, hp, s));
     LRN_CASE(0) LRN_CASE(1) LRN_CASE(2) LRN_CASE(3)
     LRN_CASE(4) LRN_CASE(5) LRN_CASE(6) LRN_CASE(7)
 #undef LRN_CASE
@@ -283,8 +320,20 @@ extern "C" int sparknet_lrn_fwd_f32(const float* x, float* y, int N, int C,
                                     int L, int chunk, int pre, int post,
                                     float k, float alpha_n, int q,
                                     float neg_beta, void* stream) {
-  return dispatch(x, nullptr, y, N, C, L, chunk, pre, post, k, alpha_n, 0.f,
-                  q, neg_beta, stream);
+  return dispatch<float>(x, nullptr, y, N, C, L, chunk, pre, post, k,
+                         alpha_n, 0.f, q, neg_beta, stream);
+}
+
+// x, y (N, C, H*W) contiguous bfloat16 (the bits, as uint16); float32
+// arithmetic, y rounded to nearest even once.  Arguments as above.
+extern "C" int sparknet_lrn_fwd_bf16(const void* x, void* y, int N, int C,
+                                     int L, int chunk, int pre, int post,
+                                     float k, float alpha_n, int q,
+                                     float neg_beta, void* stream) {
+  return dispatch<__nv_bfloat16>(
+      static_cast<const __nv_bfloat16*>(x), nullptr,
+      static_cast<__nv_bfloat16*>(y), N, C, L, chunk, pre, post, k, alpha_n,
+      0.f, q, neg_beta, stream);
 }
 
 // x, dy, dx (N, C, H*W) contiguous float32; coef = 2 alpha beta / n.
@@ -293,6 +342,6 @@ extern "C" int sparknet_lrn_bwd_f32(const float* x, const float* dy, float* dx,
                                     int post, float k, float alpha_n,
                                     float coef, int q, float neg_beta,
                                     void* stream) {
-  return dispatch(x, dy, dx, N, C, L, chunk, pre, post, k, alpha_n, coef, q,
-                  neg_beta, stream);
+  return dispatch<float>(x, dy, dx, N, C, L, chunk, pre, post, k, alpha_n,
+                         coef, q, neg_beta, stream);
 }

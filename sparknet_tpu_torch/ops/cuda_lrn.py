@@ -19,9 +19,13 @@ Here that form is the plain version (``lrn_across_reference``,
 ``lrn_across_bwd_reference``), and a plain version may not carry the
 path on the card, so the variable has nothing left to choose: on a CUDA
 tensor every ACROSS_CHANNELS LRN runs K5 forward and K6 backward, on a
-CPU tensor the plain version.  A CUDA tensor the kernels do not take
-(not float32, not a contiguous NCHW tensor, a window wider than 15)
-raises; nothing falls back.  ``LAUNCHES`` counts kernel launches.
+CPU tensor the plain version.  K5 takes float32 and bfloat16 (the TPU
+kernel's any float dtype with float32 math, ``pallas_lrn.py:65-67``: the
+bf16 plain version is the float32 one on the widened input, narrowed
+once), K6 float32 only.  A CUDA tensor the kernels do not take (another
+dtype, not a contiguous NCHW tensor, a window wider than 15) raises;
+nothing falls back.  ``LAUNCHES`` counts kernel launches (K5's in
+either dtype under ``lrn_fwd``).
 
 The plain version sums each window in the Pallas order (centre, then the
 post side d = 1.., then the pre side d = 1..; ``pallas_lrn.py:50-61``)
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +47,8 @@ import torch.nn.functional as F
 from sparknet_tpu_torch.ops import _build
 
 LAUNCHES = {"lrn_fwd": 0, "lrn_bwd": 0}
+# serving replicas launch from their own threads: count under a lock
+_COUNT_LOCK = threading.Lock()
 
 # channels per grid row of the kernels (csrc/lrn.cu, csrc/lrn_pool.cu);
 # K5 takes FWD_CHUNK and K6 BWD_CHUNK, chosen with tools/lrn_tiles.py
@@ -114,6 +121,12 @@ def lrn_across_reference(x, n: int, alpha: float, beta: float, k: float):
     return x * p
 
 
+def lrn_fwd_bf16_reference(x, n: int, alpha: float, beta: float, k: float):
+    """Plain version of K5 in bfloat16: float32 math on the widened
+    input, the output narrowed once (round to nearest even)."""
+    return lrn_across_reference(x.float(), n, alpha, beta, k).to(torch.bfloat16)
+
+
 def lrn_across_bwd_reference(x, dy, n: int, alpha: float, beta: float,
                              k: float):
     """Plain version of K6: ``dx`` for the output cotangent ``dy``, Caffe's
@@ -124,15 +137,17 @@ def lrn_across_bwd_reference(x, dy, n: int, alpha: float, beta: float,
     return p * dy - (2.0 * alpha * beta / n) * x * inner
 
 
-def check_cuda(what: str, *tensors) -> None:
+def check_cuda(what: str, *tensors, dtypes=(torch.float32,)) -> None:
     """Raise on a tensor the kernels do not take: they take contiguous
-    float32 NCHW tensors on one device."""
+    NCHW tensors of one of ``dtypes`` (float32 unless a kernel says
+    otherwise) on one device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{what}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: the kernel takes float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            raise TypeError(f"{what}: the kernel takes {names}, got {t.dtype}")
         if t.dim() != 4:
             raise ValueError(
                 f"{what}: the kernel takes NCHW tensors, got shape "
@@ -160,21 +175,26 @@ def stream(t: torch.Tensor) -> int:
 
 
 def lrn_fwd(x, n: int, alpha: float, beta: float, k: float):
-    """The LRN forward: K5 on a CUDA tensor, its plain version on a CPU
-    tensor."""
+    """The LRN forward: K5 on a CUDA tensor (float32 or bfloat16, the
+    output in the input's dtype), its plain version on a CPU tensor."""
     if x.device.type == "cpu":
+        if x.dtype == torch.bfloat16:
+            return lrn_fwd_bf16_reference(x, n, alpha, beta, k)
         return lrn_across_reference(x, n, alpha, beta, k)
-    check_cuda("lrn_fwd", x)
+    check_cuda("lrn_fwd", x, dtypes=(torch.float32, torch.bfloat16))
     pre, post, kk, an, _, q, nb = hp_args("lrn_fwd", n, alpha, beta, k)
     N, C, H, W = x.shape
     y = torch.empty_like(x)
-    fn = _build.kernel("lrn", "sparknet_lrn_fwd_f32",
+    entry = ("sparknet_lrn_fwd_bf16" if x.dtype == torch.bfloat16
+             else "sparknet_lrn_fwd_f32")
+    fn = _build.kernel("lrn", entry,
                 (_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _F, _P))
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), y.data_ptr(), N, C, H * W, FWD_CHUNK, pre, post,
                 kk, an, q, nb, stream(x))
     _build.raise_on(rc, "lrn_fwd")
-    LAUNCHES["lrn_fwd"] += 1
+    with _COUNT_LOCK:
+        LAUNCHES["lrn_fwd"] += 1
     return y
 
 
@@ -197,7 +217,8 @@ def lrn_bwd(x, dy, n: int, alpha: float, beta: float, k: float):
         rc = fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), N, C, H * W,
                 BWD_CHUNK, pre, post, kk, an, coef, q, nb, stream(x))
     _build.raise_on(rc, "lrn_bwd")
-    LAUNCHES["lrn_bwd"] += 1
+    with _COUNT_LOCK:
+        LAUNCHES["lrn_bwd"] += 1
     return dx
 
 

@@ -1,10 +1,19 @@
-"""Continuous batching for autoregressive generation.
+"""Micro-batching for ``/predict`` and continuous batching for generation.
 
-The port of the generation half of ``sparknet_tpu/serve/batcher.py``:
-``QueueFull`` (the 429 load-shedding signal), ``GenStream`` (one
-client stream's event queue) and ``StreamBatcher`` (iteration-level
-continuous batching over a ``GenerationEngine``).  The image
-micro-batcher (``MicroBatcher``) comes with the ``/predict`` slice.
+The port of ``sparknet_tpu/serve/batcher.py``: ``QueueFull`` (the 429
+load-shedding signal), ``MicroBatcher`` (a bounded admission queue whose
+worker coalesces concurrent requests into the largest ready bucket of an
+``InferenceEngine`` under a max-wait deadline, then demuxes each
+request's rows), ``GenStream`` (one client stream's event queue) and
+``StreamBatcher`` (iteration-level continuous batching over a
+``GenerationEngine``).
+
+A request carries n >= 1 items; the worker packs whole requests until
+the next one would overflow the max bucket (requests never split, so
+demux is a contiguous row slice per request).  Pad rows are zeros and
+their outputs are dropped.  The deadline is the latency/occupancy dial:
+0 ships every request alone, a few ms lets concurrent requests share
+one forward pass.
 """
 
 from __future__ import annotations
@@ -15,6 +24,8 @@ import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
+
 from sparknet_tpu_torch.obs import reqtrace as _reqtrace
 from sparknet_tpu_torch.obs.metrics import MetricsRegistry
 from sparknet_tpu_torch.obs.trace import span
@@ -22,6 +33,252 @@ from sparknet_tpu_torch.obs.trace import span
 
 class QueueFull(RuntimeError):
     """Admission queue at capacity — shed load (HTTP 429)."""
+
+
+class _Request:
+    __slots__ = ("x", "n", "done", "result", "error", "t_submit")
+
+    def __init__(self, x: np.ndarray):
+        self.x = x
+        self.n = x.shape[0]
+        self.done = threading.Event()
+        self.result: Optional[np.ndarray] = None
+        self.error: Optional[BaseException] = None
+        self.t_submit = time.perf_counter()
+
+
+class MicroBatcher:
+    """Bounded queue + worker thread that batches requests through an
+    ``InferenceEngine``.
+
+    Parameters
+    ----------
+    engine:
+        A (preferably warmed) InferenceEngine.
+    max_queue:
+        Admission bound in REQUESTS; ``submit`` past it raises
+        ``QueueFull``.
+    max_wait_ms:
+        How long the worker holds an underfull batch open for
+        stragglers once it has at least one request.
+    metrics:
+        Optional MetricsRegistry; serving metrics are registered on it.
+    """
+
+    def __init__(
+        self,
+        engine,
+        max_queue: int = 256,
+        max_wait_ms: float = 2.0,
+        metrics: Optional[MetricsRegistry] = None,
+    ):
+        self.engine = engine
+        self.max_queue = int(max_queue)
+        self.max_wait_s = float(max_wait_ms) / 1e3
+        self._q: deque = deque()
+        self._lock = threading.Lock()
+        self._nonempty = threading.Condition(self._lock)
+        self._running = True
+        self._draining = False
+
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        m = self.metrics
+        self.m_requests = m.counter(
+            "serve_requests_total", "requests admitted to the queue"
+        )
+        self.m_shed = m.counter(
+            "serve_requests_shed_total", "requests rejected: queue full"
+        )
+        self.m_images = m.counter(
+            "serve_images_total", "items that completed inference"
+        )
+        self.m_batches = m.counter(
+            "serve_batches_total", "forward passes dispatched"
+        )
+        self.m_errors = m.counter(
+            "serve_request_errors_total", "requests finished with an error"
+        )
+        self.m_queue_depth = m.gauge(
+            "serve_queue_depth", "requests waiting for a batch",
+            fn=lambda: len(self._q),
+        )
+        self.m_occupancy = m.histogram(
+            "serve_batch_occupancy",
+            "real items / bucket size per dispatched batch",
+            buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0),
+        )
+        self.m_batch_items = m.histogram(
+            "serve_batch_items", "real items per dispatched batch",
+            buckets=tuple(float(b) for b in engine.buckets),
+        )
+        self.m_latency = m.histogram(
+            "serve_request_latency_seconds",
+            "submit-to-result latency per request",
+        )
+        self.m_jit_cache = m.gauge(
+            "serve_jit_cache_size",
+            "input shapes the forward has run (constant after warmup "
+            "iff no new shape ran)",
+            # read through self.engine, not the constructor argument: a
+            # hot engine swap (serve/fleet.py) must re-point the gauge
+            fn=lambda: self.engine.jit_cache_size(),
+        )
+
+        self._worker = threading.Thread(
+            target=self._loop, name="microbatcher", daemon=True
+        )
+        self._worker.start()
+
+    # ------------------------------------------------------------------
+    # Client side
+    # ------------------------------------------------------------------
+    def submit(self, x: np.ndarray, timeout: Optional[float] = 60.0):
+        """Block until the request's rows come back (or raise).  ``x``
+        is (n, *item_shape) or a single unbatched item."""
+        x = np.asarray(x, np.float32)
+        if x.ndim == len(self.engine.item_shape):
+            x = x[None]
+        if tuple(x.shape[1:]) != self.engine.item_shape:
+            raise ValueError(
+                f"item shape {tuple(x.shape[1:])} != net input "
+                f"{self.engine.item_shape}"
+            )
+        req = _Request(x)
+        with self._lock:
+            if not self._running or self._draining:
+                raise RuntimeError("batcher is stopped or draining")
+            if len(self._q) >= self.max_queue:
+                self.m_shed.inc()
+                raise QueueFull(
+                    f"admission queue at capacity ({self.max_queue})"
+                )
+            self._q.append(req)
+            self.m_requests.inc()
+            self._nonempty.notify()
+        if not req.done.wait(timeout):
+            # cancel: if still queued, pull it out so the worker never
+            # burns a forward pass (and a queue slot) on a request
+            # nobody is waiting for; if already taken into a batch it
+            # completes as normal work
+            with self._lock:
+                try:
+                    self._q.remove(req)
+                except ValueError:
+                    pass
+            raise TimeoutError(f"request not served within {timeout}s")
+        if req.error is not None:
+            raise req.error
+        return req.result
+
+    # ------------------------------------------------------------------
+    # Worker side
+    # ------------------------------------------------------------------
+    def _take_batch(self) -> List[_Request]:
+        """Wait for >=1 request, then hold the batch open up to
+        max_wait_s (or until the max bucket fills) and take whole
+        requests in FIFO order."""
+        max_items = self.engine.max_bucket
+        with self._nonempty:
+            while self._running and not self._q:
+                self._nonempty.wait(timeout=0.05)
+            if not self._q:
+                return []
+            deadline = time.perf_counter() + self.max_wait_s
+            while True:
+                queued = sum(r.n for r in self._q)
+                if queued >= max_items:
+                    break
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                self._nonempty.wait(timeout=min(remaining, 0.05))
+            taken: List[_Request] = []
+            items = 0
+            while self._q and items + self._q[0].n <= max_items:
+                req = self._q.popleft()
+                taken.append(req)
+                items += req.n
+            if not taken and self._q:
+                # single request larger than the max bucket: take it
+                # alone — engine.infer chunks it
+                taken.append(self._q.popleft())
+            return taken
+
+    def _serve_batch(self, taken: List[_Request]) -> None:
+        items = sum(r.n for r in taken)
+        # ONE engine read per batch: a hot engine swap (serve/fleet.py
+        # Replica.swap_engine) lands between batches, never inside one —
+        # this batch's pad/run/demux all see the same engine
+        eng = self.engine
+        try:
+            x = (
+                taken[0].x
+                if len(taken) == 1
+                else np.concatenate([r.x for r in taken], axis=0)
+            )
+            if items <= eng.max_bucket:
+                padded, n = eng.pad_to_bucket(x)
+                out = eng.run_padded(padded)[:n]
+                bucket = padded.shape[0]
+            else:  # oversized single request: chunked single-shot path
+                out = eng.infer(x)
+                bucket = eng.max_bucket
+            self.m_batches.inc()
+            self.m_batch_items.observe(items)
+            self.m_occupancy.observe(min(1.0, items / bucket))
+            off = 0
+            now = time.perf_counter()
+            for r in taken:
+                r.result = out[off : off + r.n]
+                off += r.n
+                self.m_images.inc(r.n)
+                self.m_latency.observe(now - r.t_submit)
+                r.done.set()
+        except BaseException as e:  # noqa: BLE001 — delivered to callers
+            for r in taken:
+                if not r.done.is_set():
+                    r.error = e
+                    self.m_errors.inc()
+                    r.done.set()
+
+    def _loop(self) -> None:
+        while True:
+            with self._lock:
+                if not self._running and not self._q:
+                    return
+            taken = self._take_batch()
+            if taken:
+                self._serve_batch(taken)
+
+    # ------------------------------------------------------------------
+    # Lifecycle
+    # ------------------------------------------------------------------
+    def drain(self) -> None:
+        """Stop admitting; keep serving what is queued (SIGTERM path)."""
+        with self._lock:
+            self._draining = True
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def queue_depth(self) -> int:
+        return len(self._q)
+
+    def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
+        """Shut the worker down; with ``drain`` the queue empties first,
+        otherwise queued requests fail with a stopped error."""
+        with self._lock:
+            self._draining = True
+            if not drain:
+                while self._q:
+                    req = self._q.popleft()
+                    req.error = RuntimeError("batcher stopped")
+                    req.done.set()
+            self._running = False
+            self._nonempty.notify_all()
+        self._worker.join(timeout)
+
 
 
 # ----------------------------------------------------------------------
@@ -113,9 +370,13 @@ class StreamBatcher:
         engine,
         max_queue: int = 64,
         metrics: Optional[MetricsRegistry] = None,
+        replica: Optional[int] = None,
     ):
         self.engine = engine
         self.max_queue = int(max_queue)
+        # fleet replica index (None standalone) — rides every request
+        # span so the profiler can attribute per-replica skew
+        self.replica = replica
         self._q: deque = deque()
         self._lock = threading.Lock()
         self._nonempty = threading.Condition(self._lock)
@@ -197,11 +458,13 @@ class StreamBatcher:
         with self._lock:
             if not self._running or self._draining:
                 self.m_shed.labels("draining").inc()
-                _reqtrace.note_shed("draining", rid=rid)
+                _reqtrace.note_shed("draining", rid=rid,
+                                    replica=self.replica)
                 raise RuntimeError("batcher is stopped or draining")
             if len(self._q) >= self.max_queue:
                 self.m_shed.labels("queue_full").inc()
-                _reqtrace.note_shed("queue_full", rid=rid)
+                _reqtrace.note_shed("queue_full", rid=rid,
+                                    replica=self.replica)
                 raise QueueFull(
                     f"stream queue at capacity ({self.max_queue})"
                 )
@@ -209,7 +472,8 @@ class StreamBatcher:
                 blocks = eng.reserve(len(prompt), max_new, rid=rid)
             except QueueFull:  # KVBudgetExceeded included
                 self.m_shed.labels("kv_reserve").inc()
-                _reqtrace.note_shed("kv_reserve", rid=rid)
+                _reqtrace.note_shed("kv_reserve", rid=rid,
+                                    replica=self.replica)
                 raise
             st = GenStream(prompt, max_new, eng, blocks, rid=rid)
             if rid is not None:
@@ -217,6 +481,8 @@ class StreamBatcher:
                 # thread; the worker closes them (queue_wait at slot
                 # admit, request at the terminal event)
                 args = {"req": rid}
+                if self.replica is not None:
+                    args["replica"] = self.replica
                 st._sp_request = span("request", cat="req", **args)
                 st._sp_request.__enter__()
                 st._sp_queue = span("queue_wait", cat="req", **args)

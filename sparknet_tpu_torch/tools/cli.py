@@ -1,13 +1,15 @@
-"""Command-line entry point of the port: ``serve --generate``, ``train``,
-``test``.
+"""Command-line entry point of the port: ``serve``, ``train``, ``test``.
 
-The port of the ``serve --generate``, ``train`` and ``test``
-subcommands of ``sparknet_tpu/tools/cli.py``, with the same flags and
-defaults plus ``--device`` (default ``cuda``; ``--device=cpu`` runs the
-plain versions of the kernels on the CPU)::
+The port of the ``serve``, ``train`` and ``test`` subcommands of
+``sparknet_tpu/tools/cli.py``, with the same flags and defaults plus
+``--device`` (default ``cuda``; ``--device=cpu`` runs the plain versions
+of the kernels on the CPU)::
 
+    python -m sparknet_tpu_torch.tools.cli serve --net caffenet \
+        [--weights W.caffemodel] [--buckets 1,4,16,64] [--dtype bfloat16] \
+        [--replicas N] [--watch PUBLISH_DIR] [--port 8361]
     python -m sparknet_tpu_torch.tools.cli serve --generate [--port 8361] \
-        [--weights LM.caffemodel]
+        [--weights LM.caffemodel] [--replicas N]
     python -m sparknet_tpu_torch.tools.cli train --solver S.prototxt \
         [--data CIFAR_DIR] [--snapshot F.solverstate.npz | --resume | \
          --weights F.caffemodel] [--tau 10] [--max_iter N]
@@ -15,6 +17,11 @@ plain versions of the kernels on the CPU)::
     python -m sparknet_tpu_torch.tools.cli test --model NET.prototxt \
         [--weights F.caffemodel] [--data DIR|LMDB|LEVELDB|DB] [--iterations 50]
 
+``serve`` answers ``POST /predict`` on a deploy net (a zoo name or a
+prototxt; a train/test net is taken to its deploy view), or ``POST
+/generate`` with ``--generate``; ``--replicas`` serves a fleet behind a
+load-shedding router, ``--watch`` canaries, promotes or rolls back the
+snapshots published into a directory (``serve/publish.py``).
 ``train --lm`` hands the rest of the line to ``apps/lm_app.py``.
 ``test`` is ``caffe test``: a zero-rate solver over the prototxt, the
 weights loaded, the TEST net scored over ``--iterations`` batches that
@@ -25,12 +32,12 @@ output.
 solver (``{snapshot_prefix}_iter_N.*``, ``io/checkpoint.py``), on
 SIGHUP and on SIGINT (then stops), and runs deterministic algorithms
 so that a resumed run repeats the uninterrupted one bit for bit.
-``serve`` without ``--generate`` (``/predict``), ``--replicas``,
-``--watch``, and ``train``'s ``--devices`` > 1, ``--journal``,
-``--health``, ``--publish_to``, ``--obs``, the chunk cache,
-``--shuffle_epochs`` > 1 and an object-store ``--data``, and the other
-subcommands (``time``, ``device_query``, the converters), come with
-later slices; the flags raise "not yet ported" here.
+``train``'s ``--devices`` > 1, ``--journal``, ``--health``,
+``--publish_to`` (which implies ``--health``), ``--obs``, the chunk
+cache, ``--shuffle_epochs`` > 1 and an object-store ``--data``, and the
+other subcommands (``classify``, ``time``, ``device_query``, the
+converters, ...), come with later slices; the flags raise "not yet
+ported" here.
 """
 
 from __future__ import annotations
@@ -42,58 +49,157 @@ from typing import List, Optional
 import numpy as np
 
 
-def _not_yet_ported(what: str):
-    raise SystemExit(f"serve: {what} is not yet ported to sparknet_tpu_torch")
-
-
 def cmd_serve(args) -> int:
-    """``serve --generate``: a TransformerLM served with prefill/decode
-    split greedy decoding over a paged KV arena, continuous batching
-    and chunked-NDJSON ``POST /generate``, on the card unless
-    ``--device=cpu``."""
-    if not args.generate:
-        _not_yet_ported("serve without --generate (/predict, --net/--weights)")
-    if args.replicas > 1:
-        _not_yet_ported("--replicas (the serving fleet)")
-    if args.watch:
-        _not_yet_ported("--watch (train-to-serve delivery)")
-
-    from sparknet_tpu_torch.models.transformer_lm import TransformerLM
-    from sparknet_tpu_torch.serve import GenerationEngine, ServeServer
-
-    lm = TransformerLM(
-        dim=args.lm_dim, depth=args.lm_depth, heads=args.lm_heads,
-        seq_len=args.lm_seq_len,
+    """``serve --net D.prototxt|zoo-name [--weights W] [--buckets
+    1,4,16,64] [--max_wait_ms 2] [--queue 256] [--dtype bfloat16]
+    [--replicas N] [--watch PUBLISH_DIR]``: the ``/predict`` front end
+    (``serve/``) — a deploy net run at fixed batch buckets, dynamic
+    micro-batching, ``/healthz`` and ``/metrics``, SIGTERM drain.
+    ``--replicas N`` serves a fleet (``serve/fleet.py``): N
+    shared-nothing replicas behind a load-shedding router; ``--watch``
+    adds the delivery controller (``serve/delivery.py``), which canaries
+    the snapshots published there and promotes or rolls them back with
+    no restart.  ``--generate`` serves a TransformerLM instead: greedy
+    decode over a paged KV arena with continuous batching, tokens
+    streamed on chunked-NDJSON ``POST /generate``; the fleet and delivery
+    flags compose with it.  On the card unless ``--device=cpu``."""
+    from sparknet_tpu_torch import config, models
+    from sparknet_tpu_torch.serve import (
+        DeliveryController,
+        GenerationEngine,
+        InferenceEngine,
+        ReplicaPool,
+        Router,
+        ServeServer,
     )
-    gen_buckets = [
-        int(b) for b in args.prefill_buckets.split(",") if b.strip()
-    ]
-    engine = GenerationEngine(
-        lm,
-        weights=args.weights,
-        prefill_buckets=gen_buckets,
-        max_streams=args.max_streams,
-        kv_blocks=args.kv_blocks,
-        kv_block_size=args.kv_block_size,
-        device=args.device,
-    )
-    n = engine.warmup()
-    print(
-        "serve: warmed %d shapes (prefill buckets %s + decode + score) "
-        "on %s, %d decode slots, %d x %d KV blocks — POST /generate "
-        "streams NDJSON"
-        % (
-            n, engine.buckets, engine.device, args.max_streams,
-            args.kv_blocks, args.kv_block_size,
+    from sparknet_tpu_torch.utils.devices import resolve_device
+
+    device = resolve_device(args.device)  # no card: raises, before any build
+    if args.generate:
+        from sparknet_tpu_torch.models.transformer_lm import TransformerLM
+
+        gen_buckets = [
+            int(b) for b in args.prefill_buckets.split(",") if b.strip()
+        ]
+
+        def make_engine(weights=None, device=device):
+            # a module of its own per engine: the engine loads its
+            # weights into the module, so replicas share nothing
+            lm = TransformerLM(
+                dim=args.lm_dim, depth=args.lm_depth, heads=args.lm_heads,
+                seq_len=args.lm_seq_len,
+            )
+            return GenerationEngine(
+                lm,
+                weights=weights if weights is not None else args.weights,
+                prefill_buckets=gen_buckets,
+                max_streams=args.max_streams,
+                kv_blocks=args.kv_blocks,
+                kv_block_size=args.kv_block_size,
+                device=device,
+            )
+
+    else:
+        if not args.net:
+            print("serve: --net is required without --generate",
+                  file=sys.stderr)
+            return 2
+        netp = (
+            config.load_net_prototxt(args.net)
+            if args.net.endswith(".prototxt")
+            else models.load_model(args.net)
         )
-    )
-    server = ServeServer(
-        engine,
-        host=args.host,
-        port=args.port,
-        max_queue=args.queue,
-        verbose=args.verbose,
-    )
+        buckets = [int(b) for b in args.buckets.split(",") if b.strip()]
+
+        def make_engine(weights=None, device=device):
+            return InferenceEngine(
+                netp,
+                weights=weights if weights is not None else args.weights,
+                buckets=buckets,
+                output_blob=args.output_blob,
+                compute_dtype=args.dtype or None,
+                device=device,
+            )
+
+    delivery = None
+    if args.replicas > 1 or args.watch:
+        pool = ReplicaPool(
+            make_engine,
+            replicas=args.replicas,
+            max_queue=args.queue,
+            max_wait_ms=args.max_wait_ms,
+            stream=args.generate,
+        )
+        router = Router(
+            pool, max_inflight=args.queue, canary_frac=args.canary_frac,
+        )
+        if args.generate:
+            print(
+                "serve: generation fleet of %d replica(s) warmed on %s "
+                "(prefill buckets %s, %d decode slots, %d x %d KV blocks "
+                "each) — POST /generate streams NDJSON"
+                % (
+                    len(pool.replicas), device, gen_buckets,
+                    args.max_streams, args.kv_blocks, args.kv_block_size,
+                )
+            )
+        else:
+            print(
+                "serve: fleet of %d replica(s) warmed on %s (%d bucket "
+                "shapes each: %s), input %s"
+                % (
+                    len(pool.replicas), device, len(buckets), buckets,
+                    pool.item_shape,
+                )
+            )
+        if args.watch:
+            delivery = DeliveryController(
+                pool, router, args.watch,
+                cache_dir=args.cache_dir,
+                decision_requests=args.decision_requests,
+                divergence_max=args.divergence_max,
+                echo=print,
+            ).start()
+            print(f"serve: delivery watcher on {args.watch}")
+        server = ServeServer(
+            router=router,
+            delivery=delivery,
+            host=args.host,
+            port=args.port,
+            verbose=args.verbose,
+        )
+    else:
+        engine = make_engine()
+        n = engine.warmup()
+        if args.generate:
+            print(
+                "serve: warmed %d shapes (prefill buckets %s + decode + "
+                "score) on %s, %d decode slots, %d x %d KV blocks — POST "
+                "/generate streams NDJSON"
+                % (
+                    n, engine.buckets, engine.device, args.max_streams,
+                    args.kv_blocks, args.kv_block_size,
+                )
+            )
+        else:
+            print(
+                f"serve: warmed {n} bucket shapes {engine.buckets} on "
+                f"{engine.device} for input {engine.item_shape}, output "
+                f"blob {engine.output_blob!r}"
+            )
+        server = ServeServer(
+            engine,
+            host=args.host,
+            port=args.port,
+            max_queue=args.queue,
+            max_wait_ms=args.max_wait_ms,
+            verbose=args.verbose,
+        )
+    if args.result is not None:
+        # in-process callers (tests, chip_smoke) drive the server
+        # themselves: start() / shutdown() instead of the signal loop
+        args.result.update(server=server, delivery=delivery)
+        return 0
     return server.run()
 
 
@@ -102,7 +208,8 @@ _TRAIN_NOT_YET_PORTED = (
     ("--devices", lambda a: a.devices > 1, " > 1 (allreduce data parallelism)"),
     ("--journal", lambda a: a.journal, ""),
     ("--health", lambda a: a.health, ""),
-    ("--publish_to", lambda a: a.publish_to, ""),
+    ("--publish_to", lambda a: a.publish_to,
+     " (it implies --health, the training health sentry)"),
     ("--obs", lambda a: a.obs, ""),
     ("--cache_dir", lambda a: a.cache_dir or a.cache_bytes != "0",
      " / --cache_bytes (the chunk cache)"),
@@ -395,26 +502,54 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
 
     p = sub.add_parser("serve")
     p.add_argument("--net", default=None,
-                   help="deploy prototxt or zoo model name (the /predict "
-                   "engine; not yet ported)")
+                   help="deploy prototxt or zoo model name (required "
+                   "unless --generate)")
     p.add_argument("--weights", default=None,
-                   help="--generate: the LM's .caffemodel / .caffemodel.h5 "
-                   "(an lm_app snapshot's model file); omitted = the "
-                   "seeded init")
+                   help=".caffemodel / .caffemodel.h5 (snapshot output ok; "
+                   "--generate: the LM's, an lm_app snapshot's model "
+                   "file); omitted = the seeded init")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8361)
+    p.add_argument("--buckets", default="1,4,16,64",
+                   help="comma-separated batch-size buckets, each run "
+                   "once at warm-up")
+    p.add_argument("--max_wait_ms", type=float, default=2.0,
+                   help="micro-batch coalescing deadline")
     p.add_argument("--queue", type=int, default=256,
                    help="admission queue bound (overflow -> 429)")
+    p.add_argument("--output_blob", default=None,
+                   help="blob to serve (default: prob, else last top)")
+    p.add_argument("--dtype", default=None,
+                   help="compute dtype, e.g. bfloat16 (default f32)")
     p.add_argument("--verbose", action="store_true",
                    help="log each HTTP request")
     p.add_argument("--replicas", type=int, default=1,
-                   help="N>1: a serving fleet (not yet ported)")
+                   help="N>1: a serving FLEET (serve/fleet.py) — N "
+                   "shared-nothing engine replicas behind a router "
+                   "that load-balances by in-flight depth and sheds "
+                   "(429) at a fleet-wide admission bound (--queue)")
     p.add_argument("--watch", default=None, metavar="PUBLISH_DIR",
-                   help="train-to-serve delivery watcher (not yet ported)")
+                   help="watch this publish location (local dir or "
+                   "object-store url) for published snapshots: "
+                   "CRC+verdict verify, warm a standby off-path, canary "
+                   "live traffic, promote or roll back with no restart "
+                   "(serve/delivery.py)")
+    p.add_argument("--canary_frac", type=float, default=0.125,
+                   help="fraction of live traffic mirrored to a canary "
+                   "during a delivery decision window")
+    p.add_argument("--decision_requests", type=int, default=32,
+                   help="mirrored requests per canary decision window")
+    p.add_argument("--divergence_max", type=float, default=0.25,
+                   help="max |canary - incumbent| output divergence "
+                   "before the canary rolls back")
+    p.add_argument("--cache_dir", default=None,
+                   help="chunk-cache root for the delivery watcher's "
+                   "verified snapshot staging (default: a temp dir)")
     p.add_argument("--generate", action="store_true",
                    help="serve a TransformerLM for token streaming: "
                    "chunked-NDJSON POST /generate, continuous batching "
-                   "over a paged KV arena")
+                   "over a paged KV arena; composes with "
+                   "--replicas/--watch")
     p.add_argument("--lm_dim", type=int, default=256,
                    help="--generate: TransformerLM embedding dim")
     p.add_argument("--lm_depth", type=int, default=4,
@@ -436,8 +571,8 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
                    help="--generate: positions per KV block")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) "
-                   "or cpu (the plain attention versions)")
-    p.set_defaults(fn=cmd_serve)
+                   "or cpu (the plain kernel versions)")
+    p.set_defaults(fn=cmd_serve, result=None)
 
     args = parser.parse_args(argv)
     if result is not None:

@@ -975,6 +975,27 @@ def test_lrn_fwd_is_bit_equal_to_plain(dev, shape, n, beta):
     assert torch.equal(y, tcl.lrn_across_reference(x, n, 1e-4, beta, 1.0))
 
 
+@pytest.mark.parametrize("shape", [(64, 96, 55, 55), (64, 256, 27, 27),
+                                   (3, 7, 5, 9)],
+                         ids=["norm1", "norm2", "odd"])
+@pytest.mark.parametrize("ties", [False, True])
+def test_lrn_fwd_bf16_matches_plain(dev, shape, ties):
+    """K5 in bfloat16 (CaffeNet's two LRN inputs at the top serving
+    bucket, and an odd shape): float32 math on the widened input, one
+    round-to-nearest-even narrowing at the store, the plain version's
+    operations, so y equals its bits; K6 refuses bf16."""
+    x = (_tie_input(dev, shape, 5) if ties else _rand(dev, *shape, seed=29))
+    xb = x.to(torch.bfloat16)
+    before = tcl.LAUNCHES["lrn_fwd"]
+    y = tcl.lrn_fwd(xb, 5, 1e-4, 0.75, 1.0)
+    torch.cuda.synchronize()
+    assert tcl.LAUNCHES["lrn_fwd"] == before + 1
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y, tcl.lrn_fwd_bf16_reference(xb, 5, 1e-4, 0.75, 1.0))
+    with pytest.raises(TypeError, match="bfloat16"):
+        tcl.lrn_bwd(xb, xb, 5, 1e-4, 0.75, 1.0)
+
+
 def _tie_input(dev, shape, seed):
     """x constant along channels over a period-2 spatial pattern of small
     integers: windows tie between columns 0 and 2, rows 0 and 2, and

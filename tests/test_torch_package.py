@@ -110,6 +110,11 @@ def test_entry_points_default_to_the_card():
         cli.main(["serve", "--generate", "--lm_dim", "32", "--lm_depth",
                   "1", "--lm_heads", "2", "--lm_seq_len", "16",
                   "--prefill_buckets", "8"])
+    # the image-serving slice: /predict, the fleet and the watcher
+    for extra in ([], ["--replicas", "2"], ["--watch", "/pub"],
+                  ["--dtype", "bfloat16"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["serve", "--net", "caffenet"] + extra)
     # the training slice: the app, and the solver the trainer runs on
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cifar_app.main(["--workers", "2", "--tau", "2", "--rounds", "1",
@@ -149,10 +154,9 @@ _CIFAR = ["--device", "cpu", "--workers", "2", "--tau", "2", "--rounds", "1"]
 @pytest.mark.parametrize(
     "argv,what",
     [
-        (["serve"], "/predict"),
-        (["serve", "--weights", "w.caffemodel"], "--weights"),
-        (["serve", "--generate", "--replicas", "2"], "--replicas"),
-        (["serve", "--generate", "--watch", "/pub"], "--watch"),
+        (["train", "--solver", "s.prototxt"] + flag, flag[0])
+        for flag in (["--publish_to", "/pub"], ["--devices", "2"],
+                     ["--journal"], ["--health"])
     ] + [
         (["cifar_app"] + _CIFAR + flag, flag[0])
         for flag in (["--elastic"], ["--slices", "2"],
