@@ -244,6 +244,43 @@ Phases (any failure ends the run with a non-zero exit and no result):
    per forward.  ``serve --generate --replicas 2`` at the CLI model:
    phase 3's 4 prompts stream phase 3's tokens, K1 and K2 launched.
 
+14. Training health and crash-consistent recovery (about 120 s).  The
+   kill-anywhere sweep: ``runtime.recover`` (cifar10_quick, W=2, tau=2,
+   batch 8, int8, the audit on) in process, an uninterrupted 4-round
+   control, then a raising kill at each of the six points at round 2
+   and a resume: every resumed ``state_digest`` equals the control's,
+   one round replayed; a real subprocess SIGKILLed at ``execute:2`` and
+   resumed with ``--resume`` too; the ``--no_journal`` resume differs;
+   K9/K10 launch the chunk arithmetic a round.  Full-width resume:
+   ``imagenet_run_db_app`` (CaffeNet, phase 11's DB, W=2, tau 4, batch
+   32, int8, ``--journal --health warn --snapshot_every 1``, 4 rounds)
+   as a subprocess, SIGKILLed once the ledger (scanned with the port's
+   ``journal.scan``) holds round 2's intent, then resumed: its final
+   snapshot equals the uninterrupted in-process run's bit for bit
+   (params, every worker's momentum, residuals), and that run with
+   ``--health`` equals it without; the audit's cost a round (device ms
+   and launches of one iteration's audit at CaffeNet's size, times W x
+   tau, and the rounds' wall) and a commit's fsync wall.  The in-round
+   mask at the serving width (the LM of phase 7, int8): worker 1's
+   round-1 window poisoned with NaN (a float ``poison`` factor on its
+   loss) equals the same round with ``live_mask=[1, 0]`` and worker 1's
+   history zeroed, bit for bit; K10's rejoin branch leaves its residual
+   zero; the sentry's verdict names worker 1 and ``warn`` continues;
+   every worker poisoned under ``rollback`` restores the newest
+   snapshot and the next round trains; ``halt`` raises ``SentryHalt``
+   and leaves a flight bundle ``load_bundle`` reads; under ``bf16
+   --overlap_avg`` the masked round takes K10 and leaves nothing for
+   K11.  Elastic over slices: ``cifar_app`` (cifar10_full, W=4, tau
+   10, batch 100, ``--slices 2 --cross_slice_every 2 --compress int8
+   --elastic --rejoin_after 2``, 8 rounds) with a SIGTERM in round 1:
+   slice 1 leaves, dies (K10's ``alive`` [1, 1, 0, 0] in the cross round
+   while it is dead) and is readmitted; intra rounds launch no comm
+   kernel, cross rounds K9 + K10 by the arithmetic; the final smoothed
+   loss within LOSS_BAND of phase 5's uncompressed leg.  ``cli train
+   --solver`` (cifar10_full) ``--health warn --publish_to DIR``: the
+   publish carries its CRC manifest and a passing verdict, and the
+   port's delivery reader stages it.
+
 A failed run prints cuDNN's error log (kept in the temporary
 directory) and the tensors of the port's innermost frame on the failing
 stack.  The second-to-last line is ``{"kernels": [...]}`` (K1-K11 and K5 in
@@ -258,6 +295,8 @@ import json
 import os
 import re
 import shutil
+import signal
+import subprocess
 import sys
 import tempfile
 import threading
@@ -865,6 +904,7 @@ def where_time_goes(engine, card, iters: int = 15):
 # ----------------------------------------------------------------------
 CIFAR_W, CIFAR_TAU, CIFAR_BATCH = 4, 10, 100
 TRAIN_ROUNDS = 8  # per training leg of phase 5
+TRAIN_LOSSES: dict = {}  # phase 5's final smoothed losses, by leg
 
 
 def _cifar_trainer(dev, compress="int8", overlap=False, metrics=None):
@@ -1229,6 +1269,7 @@ def train_end_to_end(dev, card):
               f"|diff| {worst:.3e} of the update")
         for k, v in launches.items():
             total[k] += v
+    TRAIN_LOSSES.update(losses)
     for leg in ("int8", "bf16+overlap"):
         gap = abs(losses[leg] - losses["none"])
         print(f"loss band: {leg} {losses[leg]:.6f} vs none {losses['none']:.6f}: "
@@ -3316,7 +3357,7 @@ def deep_nets_end_to_end(dev, card):
         MinibatchSampler({"data": x, "label": y.astype(np.float32)},
                          IMNET_TAU, seed=w).next_window()
         for w, (x, y) in enumerate(train_parts)]).items()}
-    local, _ = tr._local(st, batch)
+    local, _, _ = tr._local(st, batch)
     avg = tr._average(local, torch.ones(IMNET_W, device=dev))
     n_stats = 0
     for k, blobs in avg.stats.items():
@@ -3869,6 +3910,625 @@ def where_predict_time_goes(engine, card, iters: int = 10):
                   f"launches)  {key[:90]}")
 
 
+# ----------------------------------------------------------------------
+# phase 14: training health and crash-consistent recovery — the kill
+# sweep, the full-width DB resume, the in-round mask at the serving
+# width, elastic membership over slices, and a verdict-carrying publish
+# ----------------------------------------------------------------------
+SWEEP_ROUNDS, SWEEP_KILL_ROUND = 4, 2
+FT_DB_ROUNDS = 4
+ELASTIC_ROUNDS = 8
+KILL_POLL_S = 0.02
+
+
+def _comm_groups(plane) -> int:
+    """Launches one encode (or apply) of every chunk takes."""
+    from sparknet_tpu_torch.ops import cuda_comm as cc
+
+    return sum(-(-(sl.stop - sl.start) // cc.MAX_LEAVES)
+               for sl in plane.chunk_slices)
+
+
+def _subprocess_env():
+    return dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+
+
+def kill_sweep(dev, card, root):
+    """The kill-anywhere sweep of ``runtime.recover`` (module doc, phase
+    14).  Returns its comm launches."""
+    from sparknet_tpu_torch.ops import cuda_comm as cc
+    from sparknet_tpu_torch.runtime import recover
+    from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+
+    def kill():
+        raise recover.SimulatedKill()
+
+    points = [p for p in recover.KILL_POINTS if p != "stale_boundary"]
+    t0 = time.perf_counter()
+    with deterministic_algorithms():
+        ctx = recover.RecoverContext(f"{root}/sweep", device=dev)
+        cc.reset_launch_counts()
+        control = recover.run_driver(ctx, SWEEP_ROUNDS,
+                                     run_dir=f"{root}/sweep/control")
+        torch.cuda.synchronize()
+        groups = _comm_groups(ctx.trainer._comm)
+        launches = dict(cc.LAUNCHES)
+        want = dict(comm_encode=groups * SWEEP_ROUNDS,
+                    comm_apply_barriered=groups * SWEEP_ROUNDS,
+                    comm_apply_correction=0)
+        check(launches == want, f"sweep control launches {launches}, "
+              f"expected {want} ({groups} a round)")
+        for p in points:
+            d = f"{root}/sweep/{p}"
+            try:
+                recover.run_driver(ctx, SWEEP_ROUNDS, run_dir=d,
+                                   kill_at=(p, SWEEP_KILL_ROUND), kill=kill)
+                check(False, f"kill point {p} never fired")
+            except recover.SimulatedKill:
+                pass
+            res = recover.run_driver(ctx, SWEEP_ROUNDS, run_dir=d, resume=True)
+            check(res["final_digest"] == control["final_digest"],
+                  f"kill at {p}:{SWEEP_KILL_ROUND}: the resumed digest differs")
+            check(res["rounds_executed"] == [2, 3],
+                  f"kill at {p}: resumed rounds {res['rounds_executed']}")
+            print(f"kill sweep {p}:{SWEEP_KILL_ROUND}: resumed at round "
+                  f"{res['start_round']} (in flight "
+                  f"{res['resume_info']['in_flight_round']}, torn bytes "
+                  f"{res['journal_truncated_bytes']}), digest equal, restore "
+                  f"{res['restore_s']} s")
+        d = f"{root}/sweep/no_journal"
+        try:
+            recover.run_driver(ctx, SWEEP_ROUNDS, run_dir=d, journal=False,
+                               kill_at=("execute", SWEEP_KILL_ROUND), kill=kill)
+        except recover.SimulatedKill:
+            pass
+        nj = recover.run_driver(ctx, SWEEP_ROUNDS, run_dir=d, journal=False,
+                                resume=True)
+        check(nj["final_digest"] != control["final_digest"],
+              "--no_journal resume equals the control: the zero is vacuous")
+        total = dict(cc.LAUNCHES)
+    # a real SIGKILL: the recover driver as a process, then --resume
+    base = [sys.executable, "-m", "sparknet_tpu_torch.runtime.recover",
+            "--workdir", f"{root}/sweep_proc", "--rounds", str(SWEEP_ROUNDS),
+            "--device", dev.type]
+    killed = subprocess.run(base + ["--kill_at", f"execute:{SWEEP_KILL_ROUND}"],
+                            env=_subprocess_env(), capture_output=True,
+                            text=True, timeout=300)
+    check(killed.returncode == -signal.SIGKILL,
+          f"the SIGKILL leg exited {killed.returncode}: {killed.stderr[-800:]}")
+    done = subprocess.run(base + ["--resume"], env=_subprocess_env(),
+                          capture_output=True, text=True, timeout=300)
+    check(done.returncode == 0, f"the resumed process exited "
+          f"{done.returncode}: {done.stderr[-800:]}")
+    rec = json.loads(done.stdout.strip().splitlines()[-1])
+    check(rec["final_digest"] == control["final_digest"]
+          and rec["rounds_executed"] == [2, 3],
+          f"SIGKILL at execute:{SWEEP_KILL_ROUND} + --resume: digest "
+          f"{rec['final_digest'][:12]} vs {control['final_digest'][:12]}, "
+          f"rounds {rec['rounds_executed']}")
+    print(f"[{card}] kill sweep: 6 points + a real SIGKILL at execute:2, each "
+          f"resumed to the control's digest {control['final_digest'][:16]}; "
+          f"--no_journal differs ({nj['final_digest'][:16]}); K9/K10 "
+          f"{groups} a round; control round ms {control['round_ms']}; sweep "
+          f"wall {time.perf_counter() - t0:.2f} s")
+    return total
+
+
+def _journal_rounds(path):
+    from sparknet_tpu_torch.io import journal
+
+    recs, _ = journal.scan(path)
+    return [(r["kind"], int(r["round"])) for r in recs]
+
+
+def _restored_snapshot(solver, prefix, it):
+    """The snapshot at ``iter`` under ``prefix``, restored: the state and
+    its jobstate's arrays."""
+    from sparknet_tpu_torch.io import checkpoint
+
+    path = f"{prefix}_iter_{it}.solverstate.npz"
+    return checkpoint.restore(solver, path), checkpoint.load_job_state(path)
+
+
+def _same_jobstate(a, b, what):
+    for k in ("workers", "comm"):
+        fa, fb = a.get(k), b.get(k)
+        check((fa is None) == (fb is None), f"{what}: jobstate {k} missing")
+        if fa is None:
+            continue
+        sub = "history" if k == "workers" else "resid"
+        for i in fa[sub]:
+            check(np.array_equal(np.asarray(fa[sub][i]), np.asarray(fb[sub][i])),
+                  f"{what}: jobstate {k}/{sub}/{i} differs")
+
+
+def audit_cost(dev, card, solver):
+    """Device ms and launches of one iteration's audit at ``solver``'s
+    params, on tensors the size of one worker's params: ``health.pack``,
+    and the audit's own grad norm where ClipGradients (which would share
+    it) is off."""
+    from torch.autograd import DeviceType
+
+    from sparknet_tpu_torch.obs import health
+
+    params, _ = solver.net.init(0, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    grads = {k: [torch.randn(t.shape, generator=gen, device=dev) for t in v]
+             for k, v in params.items()}
+    new = {k: [p - 1e-3 * g for p, g in zip(params[k], grads[k])]
+           for k in params}
+    loss = torch.tensor(1.0, device=dev)
+    gnorm = torch.tensor(1.0, device=dev)
+    clipped = solver.param.clip_gradients > 0
+
+    def one():
+        return health.pack(grads, params, new, loss,
+                           gnorm if clipped else health.grad_norm(grads))
+
+    ms = device_ms(one)
+    one()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        one()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    nparams = sum(t.numel() for v in params.values() for t in v)
+    print(f"[{card}] audit, one iteration at {nparams} params: {ms:.4f} device "
+          f"ms, {n} kernel launches (profiler)")
+    return ms, n
+
+
+def journal_cost(card, root, n: int = 20):
+    """Median wall of an intent (no fsync) and of a commit (fsync) on
+    the run's disk."""
+    from sparknet_tpu_torch.io.journal import RunJournal
+
+    walls = {"intent": [], "commit": []}
+    with RunJournal(f"{root}/cost.journal") as jr:
+        for r in range(n):
+            for kind in ("intent", "commit"):
+                t0 = time.perf_counter()
+                (jr.begin_round if kind == "intent" else jr.commit_round)(
+                    r, iter=r, snapshot="x_iter_1.solverstate.npz")
+                walls[kind].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    print(f"[{card}] journal: intent {med['intent']:.4f} ms, commit (fsync) "
+          f"{med['commit']:.4f} ms wall, median of {n}")
+    return med
+
+
+def audit_ab(dev, card, runs):
+    """One CaffeNet DB round with the audit off (the plain run's trainer)
+    and on (the health run's, its sentry reading the stats), warm, on one
+    seeded batch: wall, device-busy ms and launches of each."""
+    from torch.autograd import DeviceType
+
+    from sparknet_tpu_torch.obs.health import HealthSentry
+    from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batch = {"data": torch.randn((DB_W, DB_TAU, DB_BATCH, 3, DB_CROP, DB_CROP),
+                                 generator=gen, device=dev),
+             "label": torch.randint(0, DB_CLASSES, (DB_W, DB_TAU, DB_BATCH),
+                                    generator=gen, device=dev).float()}
+    sentry = HealthSentry()
+    out = {}
+    with deterministic_algorithms():
+        for leg in ("plain", "health"):
+            tr, st = runs[leg]["trainer"], runs[leg]["state"]
+
+            def one():
+                got = tr.round(st, batch)
+                if tr.solver.audit:
+                    sentry.observe(0, got[1], got[2])
+
+            wall, busy, rows = _timed(one, card, f"CaffeNet round, {leg}")
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                one()
+                torch.cuda.synchronize()
+            n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+            out[leg] = (wall, busy, n)
+    (w0, b0, n0), (w1, b1, n1) = out["plain"], out["health"]
+    print(f"[{card}] CaffeNet DB round, audit off / on (warm, one batch): wall "
+          f"{w0:.3f} / {w1:.3f} ms, device busy {b0:.3f} / {b1:.3f} ms "
+          f"(+{b1 - b0:.3f}), launches {n0} / {n1} (+{n1 - n0})")
+    return out
+
+
+def db_kill_resume(dev, card, root):
+    """The full-width resume of phase 14 on phase 11's record DB.  Returns
+    the in-process runs' launches."""
+    from sparknet_tpu_torch.apps import imagenet_run_db_app
+    from sparknet_tpu_torch.ops import cuda_comm as cc
+    from sparknet_tpu_torch.ops import cuda_lrn as cl
+    from sparknet_tpu_torch.parallel import first_worker
+
+    db_dir = f"{root}/db"
+    common = ["--db_dir", db_dir, "--model", "caffenet", "--tau", str(DB_TAU),
+              "--test_every", "100", "--seed", "0", "--compress", "int8",
+              "--journal"]
+    t0 = time.perf_counter()
+    runs = {}
+    for mod in (cl, cc):
+        mod.reset_launch_counts()
+    # the uninterrupted runs keep no snapshots (a CaffeNet job state is
+    # ~1.5 GB to write): the resumed run's last snapshot is held to the
+    # in-memory state of the health leg
+    for leg, extra in (("plain", []), ("health", ["--health", "warn"])):
+        r = {}
+        check(imagenet_run_db_app.main(
+            common + extra + ["--device", dev.type, "--rounds", str(FT_DB_ROUNDS),
+                              "--snapshot_prefix", f"{root}/ft_{leg}/caffenet"],
+            r) == 0, f"imagenet_run_db {leg}: failed")
+        runs[leg] = r
+    torch.cuda.synchronize()
+    launches = {**cl.LAUNCHES, **cc.LAUNCHES}
+    _same_bits(tuple(runs["health"]["state"]), tuple(runs["plain"]["state"]),
+               "imagenet_run_db --health vs without: final state")
+    rs = {k: np.array(v["round_seconds"][1:]) * 1e3 for k, v in runs.items()}
+    print(f"[{card}] CaffeNet DB int8 4 rounds: --health equals the plain run "
+          f"bit for bit; round wall mean {rs['health'].mean():.2f} ms with the "
+          f"audit and sentry (run second), {rs['plain'].mean():.2f} ms without "
+          f"(run first; rounds 1..3 each)")
+    sentry = runs["health"]["sentry"]
+    check(sentry.rounds_observed == FT_DB_ROUNDS and sentry.anomalies == 0,
+          f"DB sentry: {sentry.state_dict()}")
+    ams, alaunch = audit_cost(dev, card, runs["health"]["trainer"].solver)
+    per_round = DB_W * DB_TAU
+    print(f"[{card}] audit per CaffeNet round (W={DB_W} x tau={DB_TAU} "
+          f"iterations): {ams * per_round:.3f} device ms, "
+          f"{alaunch * per_round} launches")
+    jc = journal_cost(card, root)
+
+    # the killed process: SIGKILL once round 2's intent lands
+    prefix = f"{root}/ft_kill/caffenet"
+    ledger = f"{prefix}_run.journal"
+    argv = [sys.executable, "-m", "sparknet_tpu_torch.apps.imagenet_run_db_app"]
+    out_path = f"{root}/ft_kill.log"
+    with open(out_path, "wb") as out:  # a file: a full pipe would stall it
+        proc = subprocess.Popen(
+            argv + common + ["--health", "warn", "--snapshot_every", "1",
+                             "--device", dev.type, "--rounds",
+                             str(FT_DB_ROUNDS), "--snapshot_prefix", prefix],
+            env=_subprocess_env(), stdout=out, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 300
+        while ("intent", 2) not in _journal_rounds(ledger):
+            if proc.poll() is not None:
+                with open(out_path, errors="replace") as f:
+                    check(False, f"the DB process ended before round 2 "
+                          f"({proc.returncode}): {f.read()[-800:]}")
+            check(time.monotonic() < deadline, "round 2's intent never landed")
+            time.sleep(KILL_POLL_S)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    recs = _journal_rounds(ledger)
+    committed = [r for k, r in recs if k == "commit"]
+    start = (committed[-1] + 1) if committed else 0
+    replayed = 2 if start == 2 else None
+    done = subprocess.run(
+        argv + common + ["--health", "warn", "--snapshot_every", "1",
+                         "--device", dev.type, "--rounds",
+                         str(FT_DB_ROUNDS - start), "--snapshot_prefix", prefix,
+                         "--resume"],
+        env=_subprocess_env(), capture_output=True, text=True, timeout=600)
+    check(done.returncode == 0, f"the resumed DB process exited "
+          f"{done.returncode}: {done.stderr[-800:]}")
+    ctl = runs["health"]
+    trainer = ctl["trainer"]
+    (b, jb) = _restored_snapshot(trainer.solver, prefix, FT_DB_ROUNDS * DB_TAU)
+    _same_bits(tuple(first_worker(ctl["state"])), tuple(b),
+               "SIGKILLed + resumed DB run: final snapshot")
+    _same_jobstate(trainer.export_job_state(ctl["state"], None), jb,
+                   "SIGKILLed + resumed DB run")
+    want_ema = ctl["sentry"].export_state()["ema"]
+    check(jb["sentry"]["ema"] == want_ema,
+          f"resumed sentry EMA {jb['sentry']['ema']} vs {want_ema}")
+    # last: its rounds move the trainers' carried residuals
+    audit_ab(dev, card, runs)
+    print(f"[{card}] CaffeNet DB run SIGKILLed after round 2's intent "
+          f"(ledger {recs[-3:]}), resumed at round {start}: round 2 "
+          f"{'replayed' if replayed is not None else 'had committed'}; final "
+          f"snapshot (params, every worker's momentum, residuals, sentry EMA) "
+          f"bit-identical to the uninterrupted run; wall "
+          f"{time.perf_counter() - t0:.2f} s")
+    return launches, ams, alaunch, jc
+
+
+def _poisoned_lm(dev, extra=()):
+    """lm_app's model, solver (audit on) and trainer at the serving width;
+    the net's loss takes a float ``poison`` factor from the batch, so a
+    worker's window can carry NaN."""
+    from sparknet_tpu_torch.apps import lm_app
+    from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
+
+    args = lm_app._parser().parse_args(_lm_argv(dev) + list(extra))
+    lm, solver = lm_app.build_lm_solver(args, dev)
+    solver.audit = True
+    plain = lm.loss_fn
+
+    def loss_fn(params, stats, batch, train=True, rng=None):
+        loss, aux = plain(params, stats, batch, train, rng=rng)
+        p = batch.get("poison")
+        return (loss if p is None else loss * p), aux
+
+    lm.loss_fn = loss_fn
+    return lm, solver, ParameterAveragingTrainer(
+        solver, LM_W, compress=args.compress, overlap_avg=args.overlap_avg)
+
+
+def _lm_round_batch(dev, r, poison=()):
+    host = _lm_batch(r)
+    factor = np.ones((LM_W, LM_TAU), np.float32)
+    for w in poison:
+        factor[w] = np.nan
+    host["poison"] = factor
+    return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
+def lm_mask_end_to_end(dev, card, root):
+    """The in-round mask at the serving width (module doc, phase 14).
+    Returns the launches."""
+    from sparknet_tpu_torch.io import checkpoint
+    from sparknet_tpu_torch.obs import flight, health
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+    from sparknet_tpu_torch.ops import cuda_comm as cc
+    from sparknet_tpu_torch.parallel import first_worker
+    from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+    from sparknet_tpu_torch.utils.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    total = dict.fromkeys(list(cc.LAUNCHES) + list(ca.LAUNCHES), 0)
+
+    def add():
+        torch.cuda.synchronize()
+        for d in (cc.LAUNCHES, ca.LAUNCHES):
+            for k, v in d.items():
+                total[k] += v
+        cc.reset_launch_counts()
+        ca.reset_launch_counts()
+
+    cc.reset_launch_counts()
+    ca.reset_launch_counts()
+    with deterministic_algorithms():
+        _, solver, ta = _poisoned_lm(dev, ["--compress", "int8"])
+        _, _, tb = _poisoned_lm(dev, ["--compress", "int8"])
+        ams, alaunch = audit_cost(dev, card, solver)
+        print(f"[{card}] audit per LM round (W={LM_W} x tau={LM_TAU} "
+              f"iterations): {ams * LM_W * LM_TAU:.3f} device ms, "
+              f"{alaunch * LM_W * LM_TAU} launches")
+        init = solver.init_state(0)
+        sa, sb = ta.broadcast_state(init), tb.broadcast_state(init)
+        sa = ta.round(sa, _lm_round_batch(dev, 0))[0]
+        sb = tb.round(sb, _lm_round_batch(dev, 0))[0]
+        sentry = health.HealthSentry(policy="warn")
+        sa, _ = sentry.guarded_round(ta, sa, _lm_round_batch(dev, 1, [1]),
+                                     round_index=1)
+        v = sentry.verdicts[-1]
+        check(v.masked_workers == [1] and v.action == "masked"
+              and not sentry.halted,
+              f"masked verdict {v.as_dict()}")
+        sb, _, _ = tb.round(sb, _lm_round_batch(dev, 1), live_mask=[1.0, 0.0])
+        hb = tuple(h.clone() for h in tree_leaves(sb.history))
+        for h in hb:
+            h[1].zero_()
+        _same_bits(tuple(tree_leaves(sa.params)) + tuple(tree_leaves(sa.stats)),
+                   tuple(tree_leaves(sb.params)) + tuple(tree_leaves(sb.stats)),
+                   "NaN-masked LM round vs live_mask=[1, 0]: params")
+        _same_bits(tuple(tree_leaves(sa.history)), hb,
+                   "NaN-masked LM round vs live_mask=[1, 0]: history")
+        for r_a, r_b in zip(ta._comm._resid, tb._comm._resid):
+            check(not bool(r_a[1].any()), "K10's rejoin left worker 1's residual")
+            check(torch.equal(r_a, r_b), "masked vs live_mask residuals differ")
+        print(f"[{card}] LM (dim 256, int8): worker 1's NaN window masked; the "
+              f"round equals live_mask=[1, 0] with its history zeroed, bit for "
+              f"bit; K10 reset its residual; verdict {v.as_dict()['action']} "
+              f"masked {v.masked_workers}, nonfinite {v.nonfinite_total}")
+        add()
+
+        # rollback: every worker poisoned, the newest snapshot restored
+        prefix = f"{root}/lm_rb/lm"
+        checkpoint.snapshot(solver, first_worker(sa), prefix, fmt="BINARYPROTO")
+        rb = health.HealthSentry(policy="rollback",
+                                 restore_fn=health.make_restore_fn(
+                                     solver, prefix, trainer=ta))
+        sr, _ = rb.guarded_round(ta, sa, _lm_round_batch(dev, 2, [0, 1]),
+                                 round_index=2)
+        check(rb.rollbacks == 1 and rb.verdicts[-1].action == "rollback",
+              f"rollback: {rb.state_dict()}")
+        _same_bits(tuple(tree_leaves(first_worker(sr.params))),
+                   tuple(tree_leaves(first_worker(sa.params))),
+                   "rollback: restored params")
+        sr, losses = rb.guarded_round(ta, sr, _lm_round_batch(dev, 3),
+                                      round_index=3)
+        check(bool(torch.isfinite(losses).all())
+              and all(bool(torch.isfinite(t).all())
+                      for t in tree_leaves(sr.params)),
+              "the round after the rollback is not finite")
+        add()
+
+        # halt: SentryHalt and a flight bundle
+        bundle = f"{root}/lm_halt.json"
+        rec = flight.install(flight.FlightRecorder(bundle))
+        try:
+            halted = False
+            try:
+                health.HealthSentry(policy="halt").guarded_round(
+                    ta, sr, _lm_round_batch(dev, 4, [0, 1]), round_index=4)
+            except health.SentryHalt:
+                halted = True
+        finally:
+            flight.uninstall(rec)
+        loaded = flight.load_bundle(bundle)
+        check(halted and loaded["reason"] == "sentry_halt"
+              and loaded["verdicts"][-1]["action"] == "halt",
+              f"halt: raised {halted}, bundle {loaded.get('reason')}")
+        add()
+
+        # bf16 overlap: the masked round takes K10, leaves nothing pending
+        _, _, tc = _poisoned_lm(dev, ["--compress", "bf16", "--overlap_avg"])
+        sc = tc.round(tc.broadcast_state(init), _lm_round_batch(dev, 0))[0]
+        check(tc._comm.has_pending, "the overlapped round left no average")
+        add()
+        sc, _, st = tc.round(sc, _lm_round_batch(dev, 1, [1]))
+        torch.cuda.synchronize()
+        masked_launch = dict(cc.LAUNCHES)
+        groups = _comm_groups(tc._comm)
+        check(st["masked"].tolist() == [0.0, 1.0] and not tc._comm.has_pending
+              and masked_launch == dict(comm_encode=groups,
+                                        comm_apply_barriered=groups,
+                                        comm_apply_correction=groups),
+              f"bf16 overlap masked round: launches {masked_launch} "
+              f"({groups} a stage; K11 lands round 0's average), pending "
+              f"{tc._comm.has_pending}")
+        tc.finalize(sc)
+        torch.cuda.synchronize()
+        check(cc.LAUNCHES["comm_apply_correction"] == groups,
+              "finalize after the masked round launched K11")
+        add()
+    print(f"[{card}] LM mask legs: rollback restored and trained on, halt left "
+          f"{bundle} ({loaded['dump_index']} dump), bf16 overlap masked round "
+          f"{masked_launch}; wall {time.perf_counter() - t0:.2f} s")
+    return total
+
+
+def elastic_end_to_end(dev, card):
+    """``cifar_app`` with elastic membership over two slices (module doc,
+    phase 14).  Returns the launches."""
+    from sparknet_tpu_torch.apps import cifar_app
+    from sparknet_tpu_torch.ops import cuda_comm as cc
+    from sparknet_tpu_torch.parallel import LOSS_BAND, ParameterAveragingTrainer
+
+    plain_round = ParameterAveragingTrainer.round
+    plain_k10 = cc.apply_barriered
+    per_round, alive_at = [], {}
+    current = {"r": None}
+
+    def round_(self, state, batches, live_mask=None, round_index=None):
+        current["r"] = round_index
+        if round_index == 1:
+            os.kill(os.getpid(), signal.SIGTERM)  # the preemption notice
+        before = dict(cc.LAUNCHES)
+        out = plain_round(self, state, batches, live_mask=live_mask,
+                          round_index=round_index)
+        torch.cuda.synchronize()
+        per_round.append({k: cc.LAUNCHES[k] - before[k] for k in before})
+        return out
+
+    def k10(leaves, anchors, means, resids, alive, denom0):
+        alive_at.setdefault(current["r"], alive.tolist())
+        return plain_k10(leaves, anchors, means, resids, alive, denom0)
+
+    r = {}
+    t0 = time.perf_counter()
+    cc.reset_launch_counts()
+    ParameterAveragingTrainer.round = round_
+    cc.apply_barriered = k10
+    try:
+        rc = cifar_app.main(
+            ["--device", dev.type, "--workers", str(CIFAR_W), "--tau",
+             str(CIFAR_TAU), "--batch", str(CIFAR_BATCH), "--rounds",
+             str(ELASTIC_ROUNDS), "--slices", "2", "--cross_slice_every", "2",
+             "--compress", "int8", "--elastic", "--rejoin_after", "2"], r)
+    finally:
+        ParameterAveragingTrainer.round = plain_round
+        cc.apply_barriered = plain_k10
+    torch.cuda.synchronize()
+    check(rc == 0, f"elastic cifar_app exited {rc}")
+    masks = [m.tolist() for m in r["masks"]]
+    ctl = r["membership"]
+    epochs = [(e, rr, k, list(ws)) for e, rr, k, ws in ctl.transitions]
+    print(f"[{card}] elastic cifar10_full: masks {masks}; view epochs "
+          f"{epochs}; K10 alive by cross round {alive_at}")
+    check([k for _, _, k, _ in epochs] == ["leave", "death", "join_request",
+                                           "rejoin"], f"views {epochs}")
+    check(alive_at.get(3) == [1.0, 1.0, 0.0, 0.0],
+          f"K10's alive while slice 1 is dead: {alive_at.get(3)}")
+    check(masks[-1] == [1.0] * CIFAR_W, "slice 1 never rejoined")
+    groups = _comm_groups(r["trainer"]._comm)
+    for i, d in enumerate(per_round):
+        cross = (i + 1) % 2 == 0
+        want = dict(comm_encode=groups if cross else 0,
+                    comm_apply_barriered=groups if cross else 0,
+                    comm_apply_correction=0)
+        check(d == want, f"elastic round {i}: launches {d}, expected {want}")
+    gap = abs(r["smoothed_loss"] - TRAIN_LOSSES["none"])
+    print(f"[{card}] elastic: intra rounds launched no comm kernel, cross "
+          f"rounds {groups} K9 + {groups} K10; final smoothed loss "
+          f"{r['smoothed_loss']:.6f} vs phase 5's uncompressed "
+          f"{TRAIN_LOSSES['none']:.6f}: gap {gap:.6f} (limit {LOSS_BAND}); "
+          f"wall {time.perf_counter() - t0:.2f} s")
+    check(gap <= LOSS_BAND, f"the elastic leg leaves the loss band: {gap}")
+    return dict(cc.LAUNCHES)
+
+
+def publish_end_to_end(dev, card, root):
+    """``cli train --solver`` cifar10_full ``--health warn --publish_to``:
+    the publish carries a passing verdict on its CRC manifest, and the
+    delivery watcher's reader (``serve/delivery.py``) lists, verifies
+    and stages it."""
+    from sparknet_tpu_torch.io import checkpoint
+    from sparknet_tpu_torch.obs.metrics import MetricsRegistry
+    from sparknet_tpu_torch.serve import delivery
+    from sparknet_tpu_torch.tools import cli
+
+    class _Pool:  # the reader needs only the pool's registry
+        registry = MetricsRegistry()
+
+    cifar = f"{root}/cifar"
+    solver = _cifar_solver_file(root, cifar)
+    pub = f"{root}/published"
+    r = {}
+    check(cli.main(["train", f"--solver={solver}", f"--data={cifar}",
+                    f"--tau={CLI_TRAIN_TAU}", f"--device={dev.type}",
+                    f"--max_iter={CLI_TRAIN_SNAPSHOT}", "--health", "warn",
+                    f"--publish_to={pub}"], r) == 0,
+          "cli train --publish_to failed")
+    model, state = r["published"]
+    manifest = checkpoint.read_manifest(checkpoint.manifest_path_for(state))
+    checkpoint.verify_snapshot(state)
+    check(manifest["verdict"]["passing"], f"verdict {manifest['verdict']}")
+    reader = delivery.DeliveryController(_Pool(), None, pub,
+                                         cache_dir=f"{root}/delivery_cache")
+    found = reader._list_manifests()
+    check(len(found) == 1, f"the reader lists {found}")
+    staged = reader._verify_and_stage(*found[0])
+    with open(staged, "rb") as a, open(model, "rb") as b:
+        check(a.read() == b.read(), "the staged weights differ from the publish")
+    print(f"[{card}] cli train --publish_to: {os.path.basename(model)} with "
+          f"verdict {manifest['verdict']['reason']!r} (sentry observed "
+          f"{r['sentry'].rounds_observed} windows), CRC manifest verified, "
+          f"staged by the delivery reader")
+    return model, manifest
+
+
+def fault_tolerance_end_to_end(dev, card, root):
+    """Phase 14 (see the module doc).  Returns the launches of its main
+    paths."""
+    t0 = time.perf_counter()
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    add(kill_sweep(dev, card, root))
+    db_launch, *_ = db_kill_resume(dev, card, root)
+    add(db_launch)
+    add(lm_mask_end_to_end(dev, card, root))
+    add(elastic_end_to_end(dev, card))
+    publish_end_to_end(dev, card, root)
+    print(f"[{card}] phase 14 wall {time.perf_counter() - t0:.2f} s; launches "
+          f"{launches}")
+    return launches
+
+
 def cudnn_failure_report(exc: BaseException) -> None:
     """On a failed run: cuDNN's version and flags, the device's free
     memory, the tensors of the port's innermost frame on the failing
@@ -3968,6 +4628,8 @@ def run_all() -> int:
         for name, n in db_launches.items():
             launches[name] = launches.get(name, 0) + n
         determinism_cost(dev, card, root, db_round)
+        for name, n in fault_tolerance_end_to_end(dev, card, root).items():
+            launches[name] = launches.get(name, 0) + n
     for name, n in deep_nets_end_to_end(dev, card).items():
         launches[name] = launches.get(name, 0) + n
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as root:

@@ -13,9 +13,15 @@ Run (on the card; ``--device cpu`` runs the plain versions on the CPU)::
         --compress int8 [--data DIR] [--rounds 50]
 
 CIFAR-format data is synthesized (5,000 train / 1,000 test) when
-``--data`` is omitted.  ``--elastic``, ``--slices`` /
-``--cross_slice_every``, ``--stale_bound``, ``--health``, ``--journal``
-and ``--obs`` / ``--profile`` are not yet ported and exit saying so.
+``--data`` is omitted.  ``--health`` (this app keeps no snapshots, so
+``rollback`` degrades to ``halt``), ``--flight_recorder``, ``--journal``
+(progress-only commits, ``durable=False``), ``--slices`` /
+``--cross_slice_every`` and ``--elastic --rejoin_after N`` (the
+membership controller: a SIGTERM marks this process's slice,
+``$SPARKNET_SLICE_ID`` or the last, leaving; a departed slice rejoins
+from the survivor consensus with its momentum zeroed) are the JAX app's.
+``--stale_bound`` > 0 and ``--obs`` / ``--profile`` are not yet ported
+and exit saying so.
 """
 
 from __future__ import annotations
@@ -30,16 +36,10 @@ import torch
 
 TAU = 10  # reference: syncInterval = 10, CifarApp.scala:119
 
-# flags of the JAX app that later slices bring: (flag, takes a value)
-_NOT_YET_PORTED = (
-    ("--elastic", False), ("--slices", True), ("--cross_slice_every", True),
-    ("--stale_bound", True), ("--health", False), ("--journal", False),
-    ("--obs", False), ("--profile", False),
-)
-
-
 def _parser() -> argparse.ArgumentParser:
-    from sparknet_tpu_torch.parallel import comm
+    from sparknet_tpu_torch import obs
+    from sparknet_tpu_torch.io import journal
+    from sparknet_tpu_torch.parallel import comm, hierarchy
 
     p = argparse.ArgumentParser(prog="sparknet_tpu_torch.apps.cifar_app")
     p.add_argument("--data", default=None, help="CIFAR binary dir")
@@ -56,28 +56,29 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) or "
                    "cpu (the kernels' plain versions)")
+    obs.add_cli_args(p)  # --health / --flight_recorder (+ refused ones)
     comm.add_cli_args(p)  # --compress / --overlap_avg
-    for flag, takes_value in _NOT_YET_PORTED:
-        if takes_value:
-            p.add_argument(flag, default=None, help="not yet ported")
-        else:
-            p.add_argument(flag, action="store_true", help="not yet ported")
+    hierarchy.add_cli_args(p)  # --slices / --cross_slice_every / --elastic
+    journal.add_cli_args(p)  # --journal / --no_journal / ...
     return p
 
 
 def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int:
-    """Train; returns the exit code.  ``result``, when given, receives the
-    final state, the trainer, the metrics, the last accuracy and smoothed
-    loss, and each round's wall seconds (from the round's start to its
-    losses on the host) — for in-process callers that check the run."""
+    """Train; returns the exit code (1 when the sentry halts).
+    ``result``, when given, receives the final state, the trainer, the
+    metrics, the sentry and the membership controller, the last accuracy
+    and smoothed loss, each round's wall seconds (from the round's start
+    to its losses on the host) and live mask (``masks``, None without
+    ``--elastic``) — for in-process callers that check the run."""
     args = _parser().parse_args(argv)
-    for flag, _ in _NOT_YET_PORTED:
-        if getattr(args, flag.lstrip("-")) not in (None, False):
-            raise SystemExit(
-                f"cifar_app: {flag} is not yet ported to sparknet_tpu_torch"
-            )
+    from sparknet_tpu_torch import obs
+    from sparknet_tpu_torch.parallel import hierarchy
+
+    obs.check_args(args, "cifar_app")
+    hierarchy.check_args(args, "cifar_app")
 
     from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.apps.guards import RoundGuards
     from sparknet_tpu_torch.apps.scores import primary_accuracy
     from sparknet_tpu_torch.data import (
         CifarLoader,
@@ -85,6 +86,7 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         RoundFeed,
         stack_windows,
     )
+    from sparknet_tpu_torch.obs.health import SentryHalt
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
     from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
     from sparknet_tpu_torch.solver import Solver
@@ -130,10 +132,12 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
 
         solver = Solver(models.load_model_solver("cifar10_full"), device=device)
         metrics = TrainingMetrics()
-        trainer = ParameterAveragingTrainer(
-            solver, n_workers, compress=args.compress,
-            overlap_avg=args.overlap_avg, metrics=metrics,
-        )
+        # this app keeps no snapshots: rollback degrades to halt, and the
+        # journal's commits mark in-memory progress only
+        guards = RoundGuards.from_args(
+            args, solver, n_workers, app="cifar_app", log=log,
+            metrics=metrics, journal_path="cifar_run.journal")
+        trainer = guards.trainer
         state = trainer.init_state(seed=args.seed)
         test_batches, test_counts = ParameterAveragingTrainer.pad_partitions(
             test_parts
@@ -154,29 +158,44 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             lambda r: stack_windows([s.next_window() for s in samplers]),
             device, pipelined=not args.serial_feed, num_rounds=args.rounds,
         )
-        round_seconds = []
+        round_seconds, masks = [], []
+        code, acc = 0, float("nan")
         try:
-            for r in range(args.rounds):
-                if r % args.test_every == 0:  # test before train, CifarApp.scala:101
-                    # land any in-flight overlapped average before scoring
-                    state = trainer.finalize(state)
-                    log.log(f"round {r}, accuracy {evaluate():.4f}")
-                t0 = time.perf_counter()
-                state, _ = trainer.round(state, feed.next_round(r), round_index=r)
-                # reading the smoothed loss waits for the round's losses
-                loss = solver.smoothed_loss
-                round_seconds.append(time.perf_counter() - t0)
-                log.log(f"round {r} trained, smoothed_loss {loss:.4f}")
+            with guards.signals():
+                for r in range(args.rounds):
+                    if r % args.test_every == 0:  # test before train, CifarApp.scala:101
+                        # land any in-flight overlapped average before scoring
+                        state = trainer.finalize(state)
+                        log.log(f"round {r}, accuracy {evaluate():.4f}")
+                    t0 = time.perf_counter()
+                    guards.begin(r, iter=r * args.tau, cursor=r)
+                    state, mask = guards.boundary(state, r)
+                    masks.append(mask)
+                    if mask is not None and not mask.any():
+                        log.log(f"round {r}: no live workers in the membership "
+                                "view; stopping")
+                        break
+                    state, _ = guards.round(state, feed.next_round(r), mask, r)
+                    # reading the smoothed loss waits for the round's losses
+                    loss = solver.smoothed_loss
+                    round_seconds.append(time.perf_counter() - t0)
+                    log.log(f"round {r} trained, smoothed_loss {loss:.4f}")
+                    guards.commit(r, iter=(r + 1) * args.tau, durable=False)
             state = trainer.finalize(state)  # the last round's average lands
             acc = evaluate()
             log.log(f"final accuracy {acc:.4f}")
+        except SentryHalt as e:
+            log.log(f"training halted by the health sentry: {e}")
+            code = 1
         finally:
             feed.stop()
+            guards.close()
         if result is not None:
             result.update(state=state, trainer=trainer, accuracy=acc,
                           smoothed_loss=solver.smoothed_loss, metrics=metrics,
-                          round_seconds=round_seconds)
-        return 0
+                          round_seconds=round_seconds, sentry=guards.sentry,
+                          membership=guards.membership, masks=masks)
+        return code
 
 
 if __name__ == "__main__":

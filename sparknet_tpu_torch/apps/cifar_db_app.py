@@ -14,9 +14,12 @@ Run (on the card; ``--device cpu`` runs the plain versions on the CPU)::
     python -m sparknet_tpu_torch.apps.cifar_db_app --workers 2 --rounds 6
 
 CIFAR-format data is synthesized (4,000 train / 500 test) when
-``--data`` is omitted.  ``--elastic``, ``--slices`` /
-``--cross_slice_every``, ``--health``, ``--journal``, ``--obs`` and
-``--profile`` are not yet ported and exit saying so.
+``--data`` is omitted.  ``--health`` (rollback degrades to halt: no
+snapshots), ``--flight_recorder``, ``--journal`` (progress-only
+commits), ``--slices`` / ``--cross_slice_every`` are the JAX app's;
+``--elastic`` only logs that membership is wired in ``cifar_app`` and
+``lm_app``.  ``--stale_bound`` > 0, ``--obs`` and ``--profile`` are not
+yet ported and exit saying so.
 """
 
 from __future__ import annotations
@@ -28,14 +31,6 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-
-# flags of the JAX app that later slices bring: (flag, takes a value)
-_NOT_YET_PORTED = (
-    ("--elastic", False), ("--slices", True), ("--cross_slice_every", True),
-    ("--health", False), ("--journal", False), ("--obs", False),
-    ("--profile", False),
-)
-
 
 def create_dbs(data_dir: str, out_dir: str, n_workers: int, seed: int = 0):
     """Phase 1: the train set dealt into per-worker DBs, the test DB and
@@ -61,7 +56,9 @@ def create_dbs(data_dir: str, out_dir: str, n_workers: int, seed: int = 0):
 
 
 def _parser() -> argparse.ArgumentParser:
-    from sparknet_tpu_torch.parallel import comm
+    from sparknet_tpu_torch import obs
+    from sparknet_tpu_torch.io import journal
+    from sparknet_tpu_torch.parallel import comm, hierarchy
 
     p = argparse.ArgumentParser(prog="sparknet_tpu_torch.apps.cifar_db_app")
     p.add_argument("--data", default=None, help="CIFAR binary dir")
@@ -78,32 +75,32 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) or "
                    "cpu (the kernels' plain versions)")
+    obs.add_cli_args(p)  # --health / --flight_recorder (+ refused ones)
     comm.add_cli_args(p)  # --compress / --overlap_avg
-    for flag, takes_value in _NOT_YET_PORTED:
-        if takes_value:
-            p.add_argument(flag, default=None, help="not yet ported")
-        else:
-            p.add_argument(flag, action="store_true", help="not yet ported")
+    hierarchy.add_cli_args(p)  # --slices / --cross_slice_every / --elastic
+    journal.add_cli_args(p)  # --journal / --no_journal / ...
     return p
 
 
 def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int:
-    """Create the DBs and train; returns the exit code.  ``result``, when
-    given, receives the final state, the trainer, each round's
+    """Create the DBs and train; returns the exit code (1 when the sentry
+    halts).  ``result``, when given, receives the final state, the
+    trainer, the sentry, each round's
     per-worker losses (``losses``: (rounds, W, tau)), the smoothed loss
     after each round (``smoothed``), the test scores and the accuracy."""
     args = _parser().parse_args(argv)
-    for flag, _ in _NOT_YET_PORTED:
-        if getattr(args, flag.lstrip("-")) not in (None, False):
-            raise SystemExit(
-                f"cifar_db: {flag} is not yet ported to sparknet_tpu_torch"
-            )
+    from sparknet_tpu_torch import obs
+    from sparknet_tpu_torch.parallel import hierarchy
+
+    obs.check_args(args, "cifar_db")
+    hierarchy.check_args(args, "cifar_db")
 
     from sparknet_tpu_torch import models, runtime
+    from sparknet_tpu_torch.apps.guards import RoundGuards
+    from sparknet_tpu_torch.obs.health import SentryHalt
     from sparknet_tpu_torch.data import CifarLoader, RoundFeed, stack_windows
     from sparknet_tpu_torch.io import load_mean_image
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
-    from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
     from sparknet_tpu_torch.solver import Solver
     from sparknet_tpu_torch.utils.devices import resolve_device
     from sparknet_tpu_torch.utils.trainlog import TrainingLog
@@ -123,7 +120,9 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
 
         mean = load_mean_image(mean_path)
         common = dict(batch_size=args.batch, shape=(3, 32, 32), mean=mean)
-        pipes, feed = [], None
+        pipes, feed, guards = [], None, None
+        code, scores, acc, state, trainer = 0, {}, float("nan"), None, None
+        round_losses, smoothed = [], []
         try:
             for w, p in enumerate(shard_paths):
                 pipes.append(runtime.DataPipeline(p, train=True,
@@ -134,10 +133,13 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             solver = Solver(models.load_model_solver("cifar10_full"),
                             device=device)
             metrics = TrainingMetrics()
-            trainer = ParameterAveragingTrainer(
-                solver, args.workers, compress=args.compress,
-                overlap_avg=args.overlap_avg, metrics=metrics,
-            )
+            # no snapshots: rollback degrades to halt, commits are
+            # progress marks
+            guards = RoundGuards.from_args(
+                args, solver, args.workers, app="cifar_db", log=log,
+                metrics=metrics, journal_path="cifar_db_run.journal",
+                wire_membership=False)
+            trainer = guards.trainer
             state = trainer.init_state(seed=args.seed)
             log.log(f"nets ready ({args.workers} workers on {device})")
 
@@ -155,13 +157,13 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
 
             feed = RoundFeed(assemble, device, pipelined=not args.serial_feed,
                              num_rounds=args.rounds)
-            round_losses, smoothed = [], []
             for r in range(args.rounds):
-                state, losses = trainer.round(state, feed.next_round(r),
-                                              round_index=r)
+                guards.begin(r, iter=r * args.tau, cursor=r)
+                state, losses = guards.round(state, feed.next_round(r), None, r)
                 round_losses.append(losses.detach().cpu().numpy())
                 smoothed.append(solver.smoothed_loss)
                 log.log(f"round {r} trained, smoothed_loss {smoothed[-1]:.4f}")
+                guards.commit(r, iter=(r + 1) * args.tau, durable=False)
             state = trainer.finalize(state)  # the last round's average lands
             # eval from the test DB: two batches a worker
             nb = 2
@@ -177,19 +179,25 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
                         for k, v in test.items()})
             acc = scores.get("accuracy", 0.0) / (args.workers * nb)
             log.log(f"final accuracy {acc:.4f}")
+        except SentryHalt as e:
+            log.log(f"training halted by the health sentry: {e}")
+            code = 1
         finally:
             if feed is not None:
                 feed.stop()
             for p in pipes:
                 p.close()
+            if guards is not None:
+                guards.close()
     if result is not None:
         result.update(
             state=state, trainer=trainer, metrics=metrics, scores=scores,
+            sentry=guards.sentry,
             accuracy=acc, smoothed=smoothed,
             losses=(np.stack(round_losses) if round_losses
                     else np.zeros((0, args.workers, args.tau), np.float32)),
         )
-    return 0
+    return code
 
 
 if __name__ == "__main__":

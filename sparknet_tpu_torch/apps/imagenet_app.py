@@ -33,10 +33,13 @@ Run (on the card; ``--device cpu`` runs the kernels' plain versions)::
 synthesized when ``--data`` is omitted, with the JAX app's scaled-down
 defaults (full 64, crop 56, at most 4 classes unless given).
 ``train(...)`` is the training half on in-memory uint8 partitions,
-which ``main`` calls after the data stage.  Object-store data,
+which ``main`` calls after the data stage.  ``--health`` (this app
+keeps no snapshots, so rollback degrades to halt), ``--flight_recorder``,
+``--journal`` (progress-only commits, ``durable=False``), ``--slices`` /
+``--cross_slice_every`` are the JAX app's; ``--elastic`` only logs that
+membership is wired in ``cifar_app`` and ``lm_app``.  Object-store data,
 ``--cache_dir``/``--cache_bytes``, ``--shuffle_epochs``, multi-host,
-``--health``, ``--journal``, ``--obs``/``--profile``,
-``--slices``/``--cross_slice_every``/``--elastic`` are not yet ported
+``--stale_bound`` > 0 and ``--obs``/``--profile`` are not yet ported
 and exit saying so.
 """
 
@@ -58,9 +61,6 @@ CROP_SIZE = 227  # croppedHeight/croppedWidth, ImageNetApp.scala:25-26
 # flags of the JAX app that later slices bring: (flag, takes a value)
 _NOT_YET_PORTED = (
     ("--cache_dir", True), ("--cache_bytes", True), ("--shuffle_epochs", True),
-    ("--health", False), ("--journal", False), ("--obs", False),
-    ("--profile", False), ("--slices", True), ("--cross_slice_every", True),
-    ("--elastic", False),
 )
 
 # one worker's partition: (images (nb, B, 3, H, W) uint8, labels (nb, B))
@@ -68,7 +68,9 @@ Partition = Tuple[np.ndarray, np.ndarray]
 
 
 def _parser() -> argparse.ArgumentParser:
-    from sparknet_tpu_torch.parallel import comm
+    from sparknet_tpu_torch import obs
+    from sparknet_tpu_torch.io import journal
+    from sparknet_tpu_torch.parallel import comm, hierarchy
 
     p = argparse.ArgumentParser(prog="sparknet_tpu_torch.apps.imagenet_app")
     p.add_argument("--data", default=None,
@@ -98,7 +100,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) or "
                    "cpu (the kernels' plain versions)")
+    obs.add_cli_args(p)  # --health / --flight_recorder (+ refused ones)
     comm.add_cli_args(p)  # --compress / --overlap_avg
+    hierarchy.add_cli_args(p)  # --slices / --cross_slice_every / --elastic
+    journal.add_cli_args(p)  # --journal / --no_journal / ...
     for flag, takes_value in _NOT_YET_PORTED:
         if takes_value:
             p.add_argument(flag, default=None, help="not yet ported")
@@ -117,7 +122,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             raise SystemExit(
                 f"imagenet_app: {flag} is not yet ported to sparknet_tpu_torch"
             )
+    from sparknet_tpu_torch import obs
     from sparknet_tpu_torch.models import available_models
+    from sparknet_tpu_torch.parallel import hierarchy
+
+    obs.check_args(args, "imagenet_app")
+    hierarchy.check_args(args, "imagenet_app")
 
     if args.model not in available_models():
         raise SystemExit(
@@ -229,10 +239,11 @@ def train(args, train_parts: Sequence[Partition],
     test-then-train every ``--test_every`` rounds (ImageNetApp.scala:118),
     ``--rounds`` rounds of tau local steps and an average, then the final
     test, under ``solver_param`` (default: the model's zoo solver).
-    Returns the final accuracy.  ``result``
-    receives the state, the trainer, the metrics, the per-round losses
-    (``losses``: (rounds, W, tau)), each round's wall seconds and the
-    accuracies."""
+    Returns the final accuracy; a sentry halt raises ``SentryHalt``.
+    ``result`` receives the state, the trainer, the metrics, the sentry,
+    the per-round losses (``losses``: (rounds, W, tau)), each round's
+    wall seconds and the accuracies."""
+    from sparknet_tpu_torch.apps.guards import RoundGuards
     from sparknet_tpu_torch.apps.scores import primary_accuracy
     from sparknet_tpu_torch.data import MinibatchSampler, RoundFeed, stack_windows
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
@@ -262,10 +273,11 @@ def train(args, train_parts: Sequence[Partition],
     num_test = int(np.asarray(test_counts).sum())
     solver = build_solver(args, mean, device, solver_param)
     metrics = TrainingMetrics()
-    trainer = ParameterAveragingTrainer(
-        solver, n_workers, compress=args.compress,
-        overlap_avg=args.overlap_avg, metrics=metrics,
-    )
+    # no snapshots: rollback degrades to halt, commits are progress marks
+    guards = RoundGuards.from_args(
+        args, solver, n_workers, app="imagenet_app", log=log, metrics=metrics,
+        journal_path="imagenet_run.journal", wire_membership=False)
+    trainer = guards.trainer
     state = trainer.init_state(seed=args.seed)
     test_on_dev = {k: torch.from_numpy(v).to(device)
                    for k, v in test_batches.items()}
@@ -294,31 +306,36 @@ def train(args, train_parts: Sequence[Partition],
                 log.log(f"{accuracies[-1] * 100:.2f}% accuracy", i=r)
             log.log("training", i=r)
             t0 = time.perf_counter()
-            state, losses = trainer.round(state, feed.next_round(r),
-                                          round_index=r)
+            guards.begin(r, iter=r * args.tau, cursor=r)
+            state, losses = guards.round(state, feed.next_round(r), None, r)
             round_losses.append(losses.detach().cpu().numpy())
             round_seconds.append(time.perf_counter() - t0)
             log.log(f"trained, smoothed_loss {solver.smoothed_loss:.4f}", i=r)
+            guards.commit(r, iter=(r + 1) * args.tau, durable=False)
         state = trainer.finalize(state)  # the last round's average lands
         acc = evaluate()
         accuracies.append(acc)
         log.log(f"final accuracy {acc * 100:.2f}%")
     finally:
         feed.stop()
+        guards.close()
     if result is not None:
         result.update(state=state, trainer=trainer, metrics=metrics,
-                      losses=np.stack(round_losses), round_seconds=round_seconds,
+                      sentry=guards.sentry, losses=np.stack(round_losses),
+                      round_seconds=round_seconds,
                       accuracies=accuracies, smoothed_loss=solver.smoothed_loss)
     return acc
 
 
 def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int:
     """Synthesize (without ``--data``) and load the shards, compute the
-    mean, then ``train``; returns the exit code.  ``result`` receives
+    mean, then ``train``; returns the exit code (1 when the sentry
+    halts).  ``result`` receives
     what ``train`` puts there and the mean image."""
     args = parse_args(argv)
 
     from sparknet_tpu_torch.data import write_synthetic_imagenet
+    from sparknet_tpu_torch.obs.health import SentryHalt
     from sparknet_tpu_torch.utils.devices import resolve_device
     from sparknet_tpu_torch.utils.trainlog import TrainingLog
 
@@ -346,7 +363,12 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         log.log(f"num workers: {n_workers}")
         train_parts, test_parts, mean = data_stage(args, n_workers, log,
                                                    data_dir)
-        acc = train(args, train_parts, test_parts, mean, device, log, result)
+        try:
+            acc = train(args, train_parts, test_parts, mean, device, log,
+                        result)
+        except SentryHalt as e:
+            log.log(f"training halted by the health sentry: {e}")
+            return 1
         print(f"final accuracy {acc * 100:.2f}%")
     if result is not None:
         result["mean"] = mean

@@ -31,10 +31,20 @@ Run (on the card; ``--device cpu`` runs the kernels' plain versions)::
     python -m sparknet_tpu_torch.apps.imagenet_run_db_app --db_dir DB_DIR \\
         --rounds 20 [--warm_start weights.caffemodel]
 
+Training health and crash consistency, as in the JAX app: ``--health``
+(the audit, the in-round worker mask and the sentry; rollback restores
+through the snapshot prefix), ``--flight_recorder``, ``--journal`` (the
+round ledger ``{prefix}_run.journal``: each ``--snapshot_every``
+boundary commits with its snapshot ref, and a ``--resume`` that finds
+the ledger rewinds to the last committed boundary, replaying only the
+round in flight), ``--slices`` / ``--cross_slice_every`` (the two-tier
+schedule).  ``--elastic`` only logs that membership is wired in
+``cifar_app`` and ``lm_app``, as the JAX app does.  The jobstate
+carries the sentry's state.
+
 An object-store ``--db_dir``, ``--cache_dir``/``--cache_bytes``,
-``--shuffle_epochs`` > 1, ``--health``, ``--journal``, ``--obs``,
-``--profile``, ``--slices``, ``--cross_slice_every`` and ``--elastic``
-are not yet ported and exit saying so.
+``--shuffle_epochs`` > 1, ``--stale_bound`` > 0, ``--obs`` and
+``--profile`` are not yet ported and exit saying so.
 """
 
 from __future__ import annotations
@@ -52,15 +62,13 @@ TAU = 50  # syncInterval, ImageNetRunDBApp.scala:104
 _MODELS = ("caffenet", "alexnet")
 
 # flags of the JAX app that later slices bring: (flag, takes a value)
-_NOT_YET_PORTED = (
-    ("--cache_dir", True), ("--cache_bytes", True), ("--health", False),
-    ("--journal", False), ("--obs", False), ("--profile", False),
-    ("--slices", True), ("--cross_slice_every", True), ("--elastic", False),
-)
+_NOT_YET_PORTED = (("--cache_dir", True), ("--cache_bytes", True))
 
 
 def _parser() -> argparse.ArgumentParser:
-    from sparknet_tpu_torch.parallel import comm
+    from sparknet_tpu_torch import obs
+    from sparknet_tpu_torch.io import journal
+    from sparknet_tpu_torch.parallel import comm, hierarchy
 
     p = argparse.ArgumentParser(
         prog="sparknet_tpu_torch.apps.imagenet_run_db_app")
@@ -91,7 +99,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) or "
                    "cpu (the kernels' plain versions)")
+    obs.add_cli_args(p)  # --health / --flight_recorder (+ refused ones)
     comm.add_cli_args(p)  # --compress / --overlap_avg
+    hierarchy.add_cli_args(p)  # --slices / --cross_slice_every / --elastic
+    journal.add_cli_args(p)  # --journal / --no_journal / ...
     for flag, takes_value in _NOT_YET_PORTED:
         if takes_value:
             p.add_argument(flag, default=None, help="not yet ported")
@@ -193,6 +204,11 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
 
     if args.resume and not checkpoint.find_snapshots(prefix):
         raise SystemExit(f"--resume: no {prefix}_iter_*.solverstate*")
+    from sparknet_tpu_torch import obs
+    from sparknet_tpu_torch.parallel import hierarchy
+
+    obs.check_args(args, "imagenet_run_db")
+    hierarchy.check_args(args, "imagenet_run_db")
 
     from sparknet_tpu_torch.utils.devices import (
         deterministic_algorithms,
@@ -209,14 +225,14 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
 
 
 def _train(args, info, prefix, device, result) -> int:
+    from sparknet_tpu_torch.apps.guards import RoundGuards
     from sparknet_tpu_torch.apps.scores import primary_accuracy
     from sparknet_tpu_torch.data import RoundFeed, stack_windows
     from sparknet_tpu_torch.io import checkpoint
+    from sparknet_tpu_torch.io.journal import default_journal_path
+    from sparknet_tpu_torch.obs.health import SentryHalt
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
-    from sparknet_tpu_torch.parallel import (
-        ParameterAveragingTrainer,
-        first_worker,
-    )
+    from sparknet_tpu_torch.parallel import first_worker
     from sparknet_tpu_torch.utils.trainlog import TrainingLog
 
     n_workers = int(info["workers"])
@@ -225,23 +241,39 @@ def _train(args, info, prefix, device, result) -> int:
     train_batch = int(info["train_batch"])
     counts = np.asarray(info["test_batches"], np.int32)
     num_test_mbs = int(counts.sum())
+    code = 0
     with TrainingLog(tag="imagenet_run_db") as log:
         log.log(f"testPartitionSizes = {info['test_batches']}")
         solver = build_solver(args.model, info, crop, device)
         metrics = TrainingMetrics()
-        trainer = ParameterAveragingTrainer(
-            solver, n_workers, compress=args.compress,
-            overlap_avg=args.overlap_avg, metrics=metrics,
-        )
-        state, start_round, used = None, 0, None
+        guards = RoundGuards.from_args(
+            args, solver, n_workers, app="imagenet_run_db", log=log,
+            metrics=metrics, journal_path=default_journal_path(prefix),
+            resuming=args.resume, wire_membership=False, restore_prefix=prefix)
+        trainer, jr = guards.trainer, guards.journal
+        state, start_round, used, replayed = None, 0, None, None
         if args.resume:
             # CRC-verified, newest-valid-wins: a corrupt newest snapshot
-            # is quarantined and the scan falls back to an older one
+            # is quarantined and the scan falls back to an older one; with
+            # a ledger, snapshots past the last commit are ignored
             try:
-                state, start_round, used, js = trainer.resume_newest(
-                    prefix, args.tau, metrics=metrics)
+                if jr is not None and jr.last_committed_round is not None:
+                    st, used, js, jinfo = \
+                        checkpoint.restore_newest_valid_journaled(
+                            solver, prefix, jr, metrics=metrics)
+                    state, start_round, js = trainer.resume_from(
+                        st, used, js, args.tau)
+                    replayed = jinfo["in_flight_round"]
+                    if replayed is not None:
+                        metrics.recover_replayed.inc()
+                        log.log("journal: round %d was in flight at the crash "
+                                "— re-executing it" % replayed)
+                else:
+                    state, start_round, used, js = trainer.resume_newest(
+                        prefix, args.tau, metrics=metrics)
             except checkpoint.SnapshotCorrupt as e:
                 raise SystemExit(f"--resume: {e}")
+            guards.restore_job(js)
             cursor = js.get("cursor") or {}
             if "round" in cursor and (
                     int(cursor["round"]) != start_round
@@ -269,6 +301,8 @@ def _train(args, info, prefix, device, result) -> int:
             args.db_dir, info, crop, not args.no_mirror, args.seed,
             start=start_round * args.tau * train_batch)
         feed = None
+        round_seconds, round_losses, smoothed = [], [], []
+        accuracies, snapshots = [], []
         try:
             # pad-and-mask the heterogeneous test partitions (infoFile)
             nb_max = int(counts.max())
@@ -302,8 +336,6 @@ def _train(args, info, prefix, device, result) -> int:
 
             feed = RoundFeed(assemble, device, pipelined=not args.serial_feed,
                              num_rounds=args.rounds, start_round=start_round)
-            round_seconds, round_losses, smoothed = [], [], []
-            accuracies, snapshots = [], []
             for r in range(start_round, start_round + args.rounds):
                 if r % args.test_every == 0:
                     # land any in-flight overlapped average before scoring
@@ -312,41 +344,52 @@ def _train(args, info, prefix, device, result) -> int:
                     log.log(f"{accuracies[-1] * 100:.2f}% accuracy", i=r)
                 log.log("training", i=r)
                 t0 = time.perf_counter()
-                state, losses = trainer.round(state, feed.next_round(r),
-                                              round_index=r)
+                # write-ahead intent: a restart knows round r was in flight
+                guards.begin(r, iter=r * args.tau, cursor=r)
+                state, losses = guards.round(state, feed.next_round(r), None, r)
                 round_losses.append(losses.detach().cpu().numpy())
                 round_seconds.append(time.perf_counter() - t0)
                 smoothed.append(solver.smoothed_loss)
                 log.log(f"trained, smoothed_loss {smoothed[-1]:.4f}", i=r)
                 if args.snapshot_every and (r + 1) % args.snapshot_every == 0:
+                    extra = trainer.export_job_state(state, {"round": r + 1})
+                    extra.update(guards.job_extra())
                     model_path, state_path = checkpoint.snapshot(
                         solver, first_worker(state), prefix,
-                        fmt="BINARYPROTO", metrics=metrics,
-                        extra_state=trainer.export_job_state(
-                            state, {"round": r + 1}),
+                        fmt="BINARYPROTO", metrics=metrics, extra_state=extra,
                     )
                     snapshots.append(state_path)
+                    # the durable boundary: the commit carries the snapshot
+                    guards.commit(r, iter=(r + 1) * args.tau,
+                                  snapshot=os.path.basename(state_path))
                     log.log(f"snapshot -> {model_path}", i=r)
             state = trainer.finalize(state)  # the last round's average lands
             acc = evaluate()
             accuracies.append(acc)
             log.log(f"final accuracy {acc * 100:.2f}%")
             print(f"final accuracy {acc * 100:.2f}%")
+        except SentryHalt as e:
+            # no snapshot of the condemned weights: the newest one on
+            # disk predates the anomaly and stays the restore point
+            log.log(f"training halted by the health sentry: {e}")
+            code = 1
         finally:
             if feed is not None:
                 feed.stop()
             for p in pipes + test_pipes:
                 p.close()
+            guards.close()
     if result is not None:
         result.update(
             state=state, trainer=trainer, metrics=metrics,
-            start_round=start_round, resumed_from=used, smoothed=smoothed,
+            sentry=guards.sentry, start_round=start_round, resumed_from=used,
+            replayed_round=replayed, smoothed=smoothed,
             losses=(np.stack(round_losses) if round_losses
                     else np.zeros((0, n_workers, args.tau), np.float32)),
             round_seconds=round_seconds, accuracies=accuracies,
             snapshots=snapshots,
         )
-    return 0
+    return code
 
 
 if __name__ == "__main__":

@@ -27,14 +27,25 @@ bit.  Every run trains inside ``utils.devices.deterministic_algorithms``,
 so an uninterrupted and a resumed run on the card take the same
 algorithms; torch's flags come back when ``main`` returns.
 
-``--sp`` > 1, ``--cache_dir``, ``--cache_bytes``, ``--elastic``,
-``--slices``, ``--health``, ``--journal``, ``--obs`` and ``--profile``
-are not yet ported and exit saying so.
+Training health and crash consistency, as in the JAX app: ``--health
+[warn|halt|rollback]`` (the numerics audit, the in-round worker mask and
+the divergence sentry; rollback restores through the snapshot prefix),
+``--flight_recorder``, ``--journal`` (the round ledger beside the
+snapshots: a journal-guided ``--resume`` rewinds to the last committed
+boundary and replays only the round that was in flight), ``--slices``
+/ ``--cross_slice_every`` (the two-tier schedule) and ``--elastic
+--rejoin_after N`` (membership views drive the live mask; a SIGTERM
+marks this process's slice leaving).  The jobstate carries the sentry
+and the membership view too.
+
+``--sp`` > 1, ``--cache_dir``, ``--cache_bytes``, ``--stale_bound`` > 0,
+``--obs`` and ``--profile`` are not yet ported and exit saying so.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import tempfile
 import time
 from typing import List, Optional
@@ -45,16 +56,7 @@ import torch
 TAU = 4
 
 # flags of the JAX app that later slices bring: (flag, takes a value)
-_NOT_YET_PORTED = (
-    ("--cache_dir", True), ("--cache_bytes", True),
-    ("--elastic", False), ("--slices", True), ("--health", False),
-    ("--journal", False), ("--obs", False), ("--profile", False),
-)
-_REFUSAL_DETAIL = {
-    "--journal": (" (the run ledger that guides --resume and commits each "
-                  "--snapshot_prefix/--snapshot_every boundary; they work "
-                  "without it)"),
-}
+_NOT_YET_PORTED = (("--cache_dir", True), ("--cache_bytes", True))
 
 
 def add_lm_model_args(parser) -> None:
@@ -94,7 +96,9 @@ def build_lm_solver(args, device):
 
 
 def _parser() -> argparse.ArgumentParser:
-    from sparknet_tpu_torch.parallel import comm
+    from sparknet_tpu_torch import obs
+    from sparknet_tpu_torch.io import journal
+    from sparknet_tpu_torch.parallel import comm, hierarchy
 
     p = argparse.ArgumentParser(prog="sparknet_tpu_torch.apps.lm_app")
     p.add_argument("--corpus", default=None,
@@ -120,14 +124,20 @@ def _parser() -> argparse.ArgumentParser:
                    help="snapshot path prefix; with --snapshot_every, every "
                    "k-th round boundary publishes a full-job-state snapshot "
                    "(worker 0's params and momentum, every worker's momentum, "
-                   "the comm residuals, the loss window and the text cursor)")
+                   "the comm residuals, the sentry, the membership view, the "
+                   "loss window and the text cursor) that the journal's "
+                   "commit references")
     p.add_argument("--snapshot_every", type=int, default=0)
     p.add_argument("--resume", action="store_true",
-                   help="resume from the newest valid snapshot under "
-                   "--snapshot_prefix and continue bit for bit (windows "
-                   "never skip or replay)")
+                   help="resume from --snapshot_prefix (journal-guided when a "
+                   "ledger is there): rewind to the last committed round, "
+                   "restore the full job state and continue bit for bit "
+                   "(windows never skip or replay)")
     add_lm_model_args(p)
+    obs.add_cli_args(p)  # --health / --flight_recorder (+ refused ones)
     comm.add_cli_args(p)  # --compress / --overlap_avg
+    hierarchy.add_cli_args(p)  # --slices / --cross_slice_every / --elastic
+    journal.add_cli_args(p)  # --journal / --no_journal / ...
     for flag, takes_value in _NOT_YET_PORTED:
         if takes_value:
             p.add_argument(flag, default=None, help="not yet ported")
@@ -136,14 +146,49 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
+def resume_lm_job(solver, trainer, prefix, jr, sampler=None, tau: int = TAU,
+                  metrics=None):
+    """The journal-guided full-job-state resume (``runtime/recover.py``'s
+    recipe): rewind to the last COMMITTED boundary, broadcast its
+    consensus, put back every worker's momentum, the comm residuals and
+    the loss window, and check the text cursor against the corpus.
+    Without a journal the newest valid snapshot is the target.  Returns
+    ``(state, start_round, job_state, info, used)``; state None means
+    nothing to restore (a ledger with no commit starts at round 0)."""
+    from sparknet_tpu_torch.io import checkpoint
+
+    info, js = None, None
+    if jr is not None:
+        if jr.last_committed_round is None:
+            # never consume a snapshot the ledger does not vouch for
+            return None, 0, None, jr.reconcile(), None
+        st, used, js, info = checkpoint.restore_newest_valid_journaled(
+            solver, prefix, jr, metrics=metrics)
+    else:
+        try:
+            st, used = checkpoint.restore_newest_valid(solver, prefix,
+                                                       metrics=metrics)
+        except FileNotFoundError:
+            return None, 0, None, None, None
+    state, start_round, js = trainer.resume_from(st, used, js, tau)
+    if info is not None:
+        start_round = info["resume_round"]
+    cursor = js.get("cursor")
+    if sampler is not None and isinstance(cursor, dict) and "text_iter" in cursor:
+        sampler.verify_cursor(cursor)
+    return state, start_round, js, info, used
+
+
 def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int:
-    """Train; returns the exit code.  ``result``, when given, receives the
-    LM, the final state, the trainer, the metrics, the smoothed loss,
-    the first round this run trained (``start_round``), each of its
-    rounds' per-worker losses (``losses``: (rounds, W, tau)), smoothed
-    loss after the round (``smoothed``) and wall seconds (from the
-    round's start to its losses on the host), and the snapshots it wrote
-    (``snapshots``, solverstate paths)."""
+    """Train; returns the exit code (1 when the sentry halts).
+    ``result``, when given, receives the LM, the final state, the
+    trainer, the metrics, the sentry and the membership controller, the
+    smoothed loss, the first round this run trained (``start_round``),
+    each of its rounds' per-worker losses (``losses``: (rounds, W, tau)),
+    smoothed loss after the round (``smoothed``) and wall seconds (from
+    the round's start to its losses on the host), the snapshots it wrote
+    (``snapshots``, solverstate paths) and the journal's reconcile
+    decision on a resume (``resume_info``)."""
     args = _parser().parse_args(argv)
     if args.sp > 1:
         raise SystemExit(
@@ -152,10 +197,14 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         )
     for flag, _ in _NOT_YET_PORTED:
         if getattr(args, flag.lstrip("-")) not in (None, False):
-            what = _REFUSAL_DETAIL.get(flag, "")
             raise SystemExit(
-                f"lm_app: {flag}{what} is not yet ported to sparknet_tpu_torch"
+                f"lm_app: {flag} is not yet ported to sparknet_tpu_torch"
             )
+    from sparknet_tpu_torch import obs
+    from sparknet_tpu_torch.parallel import hierarchy
+
+    obs.check_args(args, "lm_app")
+    hierarchy.check_args(args, "lm_app")
     if args.resume and not args.snapshot_prefix:
         raise SystemExit("lm_app: --resume needs --snapshot_prefix")
     if args.overlap_avg and args.snapshot_prefix and args.snapshot_every:
@@ -171,6 +220,7 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
 
     device = resolve_device(args.device)
 
+    from sparknet_tpu_torch.apps.guards import RoundGuards
     from sparknet_tpu_torch.data import (
         RoundFeed,
         TextWindowSampler,
@@ -179,21 +229,24 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         write_synthetic_corpus,
     )
     from sparknet_tpu_torch.io import checkpoint
+    from sparknet_tpu_torch.io.journal import default_journal_path
+    from sparknet_tpu_torch.obs.health import SentryHalt
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
     from sparknet_tpu_torch.obs.trace import span
-    from sparknet_tpu_torch.parallel import (
-        ParameterAveragingTrainer,
-        first_worker,
-    )
+    from sparknet_tpu_torch.parallel import first_worker
     from sparknet_tpu_torch.utils.trainlog import TrainingLog
 
     n_workers = args.workers or (
         torch.cuda.device_count() if device.type == "cuda" else 1
     )
     prefix = args.snapshot_prefix
-    if args.resume and not checkpoint.find_snapshots(prefix):
+    journal_path = args.journal_path or (
+        default_journal_path(prefix) if prefix else "lm_run.journal")
+    if args.resume and not checkpoint.find_snapshots(prefix) and not (
+            args.journal is not False and os.path.exists(journal_path)):
         # a typo'd prefix must not silently retrain the whole run
-        raise SystemExit(f"lm_app: --resume found no snapshots under {prefix!r}")
+        raise SystemExit(f"lm_app: --resume found no ledger and no snapshots "
+                         f"under {prefix!r}")
     # on every run, before the first CUDA op: an uninterrupted and a
     # resumed run take the same (deterministic) algorithms
     with deterministic_algorithms(), \
@@ -222,10 +275,11 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         log.log(f"attention path: {path}")
         metrics = TrainingMetrics()
         metrics.kernel_path.labels("attention").set(1.0 if lm.on_kernel else 0.0)
-        trainer = ParameterAveragingTrainer(
-            solver, n_workers, compress=args.compress,
-            overlap_avg=args.overlap_avg, metrics=metrics,
-        )
+        guards = RoundGuards.from_args(
+            args, solver, n_workers, app="lm_app", log=log, metrics=metrics,
+            journal_path=journal_path, resuming=args.resume,
+            restore_prefix=prefix)
+        trainer, jr = guards.trainer, guards.journal
 
         # one joined corpus stream, one cursor per dp worker
         base = TextWindowSampler(docs, args.seq_len, args.batch,
@@ -233,18 +287,24 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         samplers = [base.for_worker(w) for w in range(n_workers)]
         tokens_per_round = n_workers * args.tau * args.batch * args.seq_len
 
-        state, start_round = None, 0
+        state, start_round, info = None, 0, None
         if args.resume:
-            # the newest snapshot that verifies, with its job state put
-            # back; the text cursor must fit this corpus
-            state, start_round, used, js = trainer.resume_newest(
-                prefix, args.tau, metrics=metrics)
-            cursor = js.get("cursor")
-            if isinstance(cursor, dict) and "text_iter" in cursor:
-                samplers[0].verify_cursor(cursor)
-            log.log(f"resumed from {used} at round {start_round} "
-                    f"(iter {start_round * args.tau})")
+            state, start_round, js, info, used = resume_lm_job(
+                solver, trainer, prefix, jr, sampler=samplers[0],
+                tau=args.tau, metrics=metrics)
+            if state is not None:
+                guards.restore_job(js)
+                log.log(f"resumed from {used} at round {start_round} "
+                        f"(iter {start_round * args.tau})")
+                if info is not None and info.get("in_flight_round") is not None:
+                    metrics.recover_replayed.inc()
+                    log.log("journal: round %d was in flight at the crash — "
+                            "it re-executes" % info["in_flight_round"])
+            else:
+                log.log("journal: no committed round — starting fresh at "
+                        "round 0")
         if state is None:
+            trainer.reset_comm_state()
             state = trainer.init_state(seed=args.seed)
 
         def assemble(r):
@@ -257,47 +317,74 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             the job state a resume puts back."""
             extra = trainer.export_job_state(
                 state, samplers[0].cursor_for_iter((r + 1) * args.tau))
+            extra.update(guards.job_extra())
             _, state_path = checkpoint.snapshot(
                 solver, first_worker(state), prefix, fmt="BINARYPROTO",
                 extra_state=extra, metrics=metrics,
             )
             snapshots.append(state_path)
             log.log(f"snapshotted round {r} to {state_path}")
+            return state_path
 
         n_rounds = max(0, args.rounds - start_round)
         feed = RoundFeed(assemble, device, pipelined=not args.serial_feed,
                          num_rounds=n_rounds, start_round=start_round)
         round_seconds, round_losses, smoothed, snapshots = [], [], [], []
+        code, loss = 0, float("nan")
         try:
-            for r in range(start_round, args.rounds):
-                t0 = time.perf_counter()
-                state, losses = trainer.round(state, feed.next_round(r),
-                                              round_index=r)
-                round_losses.append(losses.detach().cpu().numpy())
-                round_seconds.append(time.perf_counter() - t0)
-                metrics.lm_tokens.inc(tokens_per_round)
-                smoothed.append(solver.smoothed_loss)
-                if r % max(1, args.log_every) == 0 or r == args.rounds - 1:
-                    log.log(f"round {r} smoothed_loss {smoothed[-1]:.4f}")
-                if prefix and args.snapshot_every and \
-                        (r + 1) % args.snapshot_every == 0:
-                    snapshot(r)
+            with guards.signals():
+                for r in range(start_round, args.rounds):
+                    t0 = time.perf_counter()
+                    guards.begin(r, iter=r * args.tau,
+                                 cursor=samplers[0].cursor_for_iter(r * args.tau))
+                    state, mask = guards.boundary(state, r)
+                    if mask is not None and not mask.any():
+                        log.log(f"round {r}: no live workers in the membership "
+                                "view; stopping")
+                        break
+                    state, losses = guards.round(state, feed.next_round(r),
+                                                 mask, r)
+                    round_losses.append(losses.detach().cpu().numpy())
+                    round_seconds.append(time.perf_counter() - t0)
+                    # a departed worker trains no tokens this round
+                    frac = 1.0 if mask is None else float(mask.sum()) / n_workers
+                    metrics.lm_tokens.inc(int(tokens_per_round * frac))
+                    smoothed.append(solver.smoothed_loss)
+                    if r % max(1, args.log_every) == 0 or r == args.rounds - 1:
+                        log.log(f"round {r} smoothed_loss {smoothed[-1]:.4f}")
+                    if prefix and args.snapshot_every and \
+                            (r + 1) % args.snapshot_every == 0:
+                        state_path = snapshot(r)
+                        guards.commit(r, iter=(r + 1) * args.tau,
+                                      snapshot=os.path.basename(state_path))
+                    elif not prefix:
+                        # progress-only ledger: with a prefix, a round
+                        # without a snapshot stays uncommitted, so a
+                        # resume re-executes it instead of skipping it
+                        guards.commit(r, iter=(r + 1) * args.tau,
+                                      durable=False)
             state = trainer.finalize(state)  # the last round's average lands
             loss = solver.smoothed_loss
             log.log(f"final smoothed_loss {loss:.4f}")
+        except SentryHalt as e:
+            log.log(f"training halted by the health sentry: {e}")
+            code = 1
         finally:
             feed.stop()
+            guards.close()
         if result is not None:
             W = n_workers
             result.update(
                 lm=lm, state=state, trainer=trainer, metrics=metrics,
+                sentry=guards.sentry, membership=guards.membership,
                 smoothed_loss=loss, start_round=start_round,
                 losses=(np.stack(round_losses) if round_losses
                         else np.zeros((0, W, args.tau), np.float32)),
                 smoothed=smoothed, round_seconds=round_seconds,
                 tokens_per_round=tokens_per_round, snapshots=snapshots,
+                resume_info=info,
             )
-        return 0
+        return code
 
 
 if __name__ == "__main__":

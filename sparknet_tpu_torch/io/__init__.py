@@ -2,11 +2,11 @@
 the mean image, HDF5 snapshots, the checkpoint layer (snapshot, verify,
 restore, quarantine, job state) and Caffe's dataset stores with the
 Datum codec (``io/lmdb.py``, ``io/leveldb.py``: pure-Python readers and
-writers, and one-time importers into the runtime's record DB).
+writers, and one-time importers into the runtime's record DB), and the
+run journal (``io/journal.py``).
 
-The JAX package's run journal (``io/journal.py``) and the prototxt
-binary codec (``io/protobin.py``, ``io/proto_fields.py``) are not yet
-ported."""
+The prototxt binary codec (``io/protobin.py``, ``io/proto_fields.py``)
+is not yet ported."""
 
 from sparknet_tpu_torch.io.caffemodel import (
     load_mean_image,

@@ -30,10 +30,11 @@ I/O error leaves the files as they are.
 
 Full job state: ``snapshot(..., extra_state=...)`` writes the training loop's
 state the TrainState never carried (comm-plane residuals, per-worker
-momentum, data cursors) as ``{prefix}_iter_{N}.jobstate.npz`` under the
-same manifest; ``load_job_state`` reads it back.  The journal-guided
-resume (``restore_newest_valid_journaled``) needs the run journal
-(``io/journal.py``), which is not yet ported.
+momentum, data cursors, the sentry's and the membership controller's
+state) as ``{prefix}_iter_{N}.jobstate.npz`` under the same manifest;
+``load_job_state`` reads it back.  ``restore_newest_valid_journaled``
+is the journal-guided resume: it rewinds to the run journal's last
+committed boundary (``io/journal.py``).
 
 The port keeps no process-wide metrics object: the functions that
 count (``snapshot``, ``restore``, ``restore_newest_valid``,
@@ -556,8 +557,21 @@ def restore_newest_valid(solver, prefix: str, seed: int = 0,
     candidates = find_snapshots(prefix)
     if not candidates:
         raise FileNotFoundError(f"no {prefix}_iter_*.solverstate* snapshots")
+    return _restore_first_valid(solver, list(reversed(candidates)), seed,
+                                quarantine, "restore_newest_valid", prefix,
+                                metrics)
+
+
+def _restore_first_valid(solver, ordered, seed: int, quarantine: bool,
+                         label: str, prefix: str, metrics=None):
+    """Restore the first of ``ordered`` state paths that verifies — the
+    one fallback/quarantine loop behind the plain and the journal-guided
+    resume.  Only evidence of file corruption quarantines: a failed
+    manifest check, or (manifest-less snapshots) a truncated or garbage
+    container.  A solver mismatch or transient I/O leaves the snapshot
+    intact."""
     failures = []
-    for state_path in reversed(candidates):
+    for state_path in ordered:
         try:
             return restore(solver, state_path, seed=seed,
                            metrics=metrics), state_path
@@ -565,36 +579,74 @@ def restore_newest_valid(solver, prefix: str, seed: int = 0,
             raise  # missing h5py: an environment problem, not corruption
         except Exception as e:  # noqa: BLE001 — classified below
             failures.append(f"{state_path}: {e}")
-            # only evidence of file corruption quarantines: a failed
-            # manifest check, or (manifest-less snapshots) a truncated
-            # or garbage container.  A solver mismatch or transient I/O
-            # leaves the snapshot intact.
             is_corrupt = isinstance(
                 e, (SnapshotCorrupt, zipfile.BadZipFile, EOFError)
             )
             _log.warning(
-                "restore_newest_valid: skipping %s (%s)%s", state_path, e,
+                "%s: skipping %s (%s)%s", label, state_path, e,
                 "; quarantining" if (quarantine and is_corrupt)
                 else "; left intact",
             )
             if quarantine and is_corrupt:
                 _quarantine(state_path, metrics)
     raise SnapshotCorrupt(
-        "restore_newest_valid: no valid snapshot under prefix %r; all %d "
-        "candidates failed:\n%s"
-        % (prefix, len(candidates), "\n".join(failures))
+        "%s: no valid snapshot under prefix %r; all %d candidates failed:\n%s"
+        % (label, prefix, len(ordered), "\n".join(failures))
     )
 
 
 def restore_newest_valid_journaled(solver, prefix: str, journal, seed: int = 0,
-                                   quarantine: bool = True):
-    """The journal-guided resume of the JAX package: it needs the run
-    journal (``io/journal.py``), which is not yet ported."""
-    raise NotImplementedError(
-        "restore_newest_valid_journaled needs the run journal (io/journal.py), "
-        "which is not yet ported to sparknet_tpu_torch; use "
-        "restore_newest_valid"
+                                   quarantine: bool = True, metrics=None):
+    """Journal-guided resume: reconcile the run ledger
+    (``io/journal.RunJournal``) with the snapshots on disk and rewind to
+    the last COMMITTED round boundary.
+
+    - The ledger's newest committed snapshot ref is the target; if it
+      fails verification it is quarantined and the scan falls back to
+      the next-older candidate.
+    - A snapshot NEWER than the committed boundary (published for a
+      round whose commit never landed) is ignored: its round re-executes.
+    - A ledger with no commits raises ``FileNotFoundError`` (start fresh
+      at round 0); commits whose snapshots are gone raise
+      ``SnapshotCorrupt``, never a quiet fresh start.
+
+    Returns ``(state, state_path, job_state, info)``: ``job_state`` the
+    ``.jobstate.npz`` companion (None for plain snapshots), ``info``
+    ``journal.reconcile()``."""
+    info = journal.reconcile()
+    if info["last_committed_round"] is None:
+        raise FileNotFoundError(
+            f"journal {journal.path}: no committed round — nothing to "
+            "resume (start fresh at round 0)"
+        )
+    commit_iter = info["commit_iter"]
+    candidates = find_snapshots(prefix)
+    if commit_iter is not None:
+        eligible = [p for p in candidates if _snapshot_iter(p) <= commit_iter]
+        if len(eligible) < len(candidates):
+            _log.warning(
+                "journaled resume: ignoring %d snapshot(s) beyond the "
+                "committed boundary (iter %d); their rounds re-execute",
+                len(candidates) - len(eligible), commit_iter,
+            )
+        candidates = eligible
+    if not candidates:
+        raise SnapshotCorrupt(
+            f"journaled resume: no snapshot at or before the committed "
+            f"boundary under {prefix!r} (journal says round "
+            f"{info['last_committed_round']} committed)"
+        )
+    # the exact committed ref first, then newest-first
+    ref = info["snapshot"]
+    ordered = sorted(candidates, key=_snapshot_iter)
+    if ref is not None:
+        exact = [p for p in ordered if os.path.basename(p) == ref]
+        ordered = [p for p in ordered if os.path.basename(p) != ref] + exact
+    state, state_path = _restore_first_valid(
+        solver, list(reversed(ordered)), seed, quarantine,
+        "journaled resume", prefix, metrics,
     )
+    return state, state_path, load_job_state(state_path), info
 
 
 def load_weights_into_state(solver, state, model_path: str):

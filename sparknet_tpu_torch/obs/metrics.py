@@ -346,3 +346,77 @@ class TrainingMetrics:
             "sparknet_snapshots_quarantined_total",
             "corrupt snapshots renamed *.corrupt by restore_newest_valid",
         )
+        # numerics audit and divergence sentry (obs/health.py, --health)
+        self.grad_norm = r.gauge(
+            "sparknet_grad_norm",
+            "global L2 norm of the last audited iteration's raw "
+            "gradients (pre-clip)",
+        )
+        self.nonfinite = r.counter(
+            "sparknet_nonfinite_total",
+            "non-finite values seen by the numerics audit "
+            "(grads + params + loss)",
+        )
+        self.update_ratio = r.gauge(
+            "sparknet_update_ratio",
+            "per-param-group update/param L2 ratio of the last audited "
+            "iteration",
+            labels=("group",),
+        )
+        self.health_anomalies = r.counter(
+            "sparknet_health_anomalies_total",
+            "divergence-sentry anomaly verdicts, by kind",
+            labels=("kind",),
+        )
+        self.health_rollbacks = r.counter(
+            "sparknet_health_rollbacks_total",
+            "sentry-triggered rollbacks to a verified snapshot",
+        )
+        # elastic membership (runtime/membership.py, --elastic)
+        self.membership_epoch = r.gauge(
+            "sparknet_membership_epoch",
+            "current membership view epoch (bumps once per roster "
+            "change applied at a round boundary)",
+        )
+        self.membership_workers = r.gauge(
+            "sparknet_membership_workers",
+            "dp workers per membership state (live carry mask weight; "
+            "leaving/dead/joining are excluded from the average)",
+            labels=("state",),
+        )
+        self.membership_transitions = r.counter(
+            "sparknet_membership_transitions_total",
+            "membership state transitions applied at round boundaries, "
+            "by kind (leave/late/death/join_request/rejoin)",
+            labels=("kind",),
+        )
+        # two-tier averaging (parallel/hierarchy.py, --slices)
+        self.hierarchy_rounds = r.counter(
+            "sparknet_hierarchy_rounds_total",
+            "averaging rounds by tier: intra = within-slice average "
+            "only, cross = the every-K-rounds global average",
+            labels=("tier",),
+        )
+        self.hierarchy_bytes = r.counter(
+            "sparknet_hierarchy_bytes_total",
+            "modeled collective payload bytes by tier (ring factor x "
+            "payload)",
+            labels=("tier",),
+        )
+        # the run journal (io/journal.py, --journal)
+        self.journal_records = r.counter(
+            "sparknet_journal_records_total",
+            "run-journal records appended, by kind (intent = round "
+            "write-ahead, commit = durable round boundary)",
+            labels=("kind",),
+        )
+        self.journal_truncated = r.counter(
+            "sparknet_journal_truncated_total",
+            "torn journal tails truncated on open (a kill landed "
+            "mid-append; the partial frame failed its CRC)",
+        )
+        self.recover_replayed = r.counter(
+            "sparknet_recover_replayed_rounds_total",
+            "rounds re-executed after a journal-guided resume (the "
+            "in-flight round whose commit never landed)",
+        )

@@ -1,8 +1,8 @@
 """Spans: Chrome trace-event JSON + a structured JSONL log.
 
 The port's own copy of ``sparknet_tpu/obs/trace.py``, cut to the sinks
-the serving slice has: an installed ``Tracer`` and a span observer (the
-request profiler).  A ``Tracer`` collects complete events (``ph: "X"``)
+the port has: an installed ``Tracer``, a span observer (the request
+profiler) and the flight recorder's ring (``obs/flight.py``).  A ``Tracer`` collects complete events (``ph: "X"``)
 from ``span()`` and instant events (``ph: "i"``) from ``instant()``,
 each stamped with the OS thread id, so the batcher worker and the HTTP
 handler threads show as separate tracks in Perfetto.
@@ -142,6 +142,9 @@ _tracer: Optional[Tracer] = None
 # args) with perf_counter times; the request profiler installs itself
 # here (obs/reqtrace.py); None = off
 _span_observer = None
+# the flight recorder's ring (obs/flight.py): every span and instant
+# lands there too while one is installed, tracer or not
+_flight = None
 
 
 def install_tracer(tracer: Tracer) -> Tracer:
@@ -154,6 +157,13 @@ def uninstall_tracer() -> Optional[Tracer]:
     global _tracer
     t, _tracer = _tracer, None
     return t
+
+
+def set_flight(recorder) -> None:
+    """Point span()/instant() at a flight recorder's ring (None
+    detaches; obs/flight.py's install/uninstall own the lifecycle)."""
+    global _flight
+    _flight = recorder
 
 
 def set_span_observer(fn) -> None:
@@ -196,6 +206,17 @@ class _Span:
                 self.name, self.cat,
                 (self._t0 - t._t0) * 1e6, (t1 - self._t0) * 1e6, self.args,
             )
+        f = _flight
+        if f is not None:
+            rec = {
+                "kind": "span", "name": self.name, "cat": self.cat,
+                "t_s": round(time.time(), 3),
+                "dur_ms": round((t1 - self._t0) * 1e3, 4),
+                "thread": threading.current_thread().name,
+            }
+            if self.args:
+                rec["args"] = self.args
+            f.record_event(rec)
         so = _span_observer
         if so is not None:
             so(
@@ -207,14 +228,25 @@ class _Span:
 
 def span(name: str, cat: str = "phase", **args):
     """Context manager timing one piece of work; near-free when no
-    tracer and no observer is installed."""
-    if _tracer is None and _span_observer is None:
+    tracer, no observer and no flight recorder is installed."""
+    if _tracer is None and _span_observer is None and _flight is None:
         return _NULL_SPAN
     return _Span(name, cat, args or None)
 
 
 def instant(name: str, cat: str = "event", **args) -> None:
-    """Record a tagged point event (no-op when tracing is off)."""
+    """Record a tagged point event (no-op when tracing and flight
+    recording are off)."""
     t = _tracer
     if t is not None:
         t.instant(name, cat, args or None)
+    f = _flight
+    if f is not None:
+        rec = {
+            "kind": "instant", "name": name, "cat": cat,
+            "t_s": round(time.time(), 3),
+            "thread": threading.current_thread().name,
+        }
+        if args:
+            rec["args"] = args
+        f.record_event(rec)

@@ -24,7 +24,11 @@ their plain versions.  The mean over workers is plain PyTorch, as it was
 plain XLA.  Masking: a dead worker (``live == 0``) contributes exactly
 zero to every chunk through ``where()``, its slot receives ``anchor +
 mean``, and its residual resets; a round with a dead worker takes the
-barriered apply even when overlap is on.
+barriered apply even when overlap is on.  With the trainer's in-round
+worker mask armed, a worker whose window went non-finite (``bad``)
+folds into ``alive`` before K9/K10 the same way, its momentum history
+is zeroed, and a round with such a worker takes K10 too: the overlap
+decision reads one (W,) verdict a round, the JAX package's budget.
 
 Bytes accounting (``sparknet_collective_bytes_total``): a ring all-reduce
 moves about twice the payload per worker, so each round charges ``2 x``
@@ -118,6 +122,14 @@ def _dequant(q, scale, mode: str):
     return q
 
 
+def _join_stats(a, b):
+    """An overlapped round's two audit segments as one window: leaves
+    with a window axis ((W, s, ...)) concatenate along it."""
+    if isinstance(a, dict):
+        return {k: _join_stats(a[k], b[k]) for k in a}
+    return torch.cat([a, b], dim=1)
+
+
 def _record_event(t: torch.Tensor) -> Optional["torch.cuda.Event"]:
     """An event after the work queued so far on ``t``'s stream (None on
     the CPU, where every op has finished when it returns)."""
@@ -133,7 +145,7 @@ class CommPlane:
     engine behind ``ParameterAveragingTrainer``: params and stat blobs
     in ``DEFAULT_CHUNKS`` chunks, ``DEFAULT_OVERLAP_STEPS`` steps
     overlapped.  ``local`` is the trainer's per-worker step function
-    ``(state, batches) -> (state, losses)``."""
+    ``(state, batches) -> (state, losses, audit stats or None)``."""
 
     def __init__(
         self,
@@ -254,7 +266,14 @@ class CommPlane:
                                    allv[..., 2].sum()])
         return qs, scales, new_resids, err_out
 
-    def _apply_barriered_all(self, leaves, means, alive, denom0):
+    def _apply_barriered_all(self, leaves, means, alive, bad, denom0):
+        """K10 over every chunk.  ``bad`` is already folded into
+        ``alive``, which is how the mask reaches K10; the argument is
+        unused here and kept only so the signature matches the JAX
+        package's (whose fused apply passes None for it too).  The
+        caller does the masked worker's history reset
+        (``_zero_bad_history``)."""
+        del bad
         new_leaves, new_resids = [], []
         for sl in self._chunk_slices:
             nl, nr = cuda_comm.apply_barriered(
@@ -277,6 +296,15 @@ class CommPlane:
             new_anchors.extend(na)
         self._count_launches("apply", leaves)
         return new_leaves, new_anchors
+
+    @staticmethod
+    def _zero_bad_history(history, bad, denom0):
+        """An audit-masked worker's momentum still holds the poisoned
+        window: zero it when it rejoins the survivor mean (``bad`` false
+        keeps the original bits)."""
+        from sparknet_tpu_torch.parallel.trainers import zero_rows
+
+        return zero_rows(history, bad & (denom0 > 0))
 
     # ------------------------------------------------------------------
     def reset(self) -> None:
@@ -438,33 +466,39 @@ class CommPlane:
                 "snr_db": round(snr_db, 3)}
 
     def round(self, state: TrainState, batches: Dict[str, torch.Tensor],
-              live: torch.Tensor, live_host):
+              live: torch.Tensor, live_host, mask=None):
         """One comm-plane averaging round; ``live`` is the placed (W,)
-        mask, ``live_host`` its host value.  Returns ``(state, losses)``."""
+        mask, ``live_host`` its host value, ``mask(live, stats) ->
+        (alive, bad)`` the trainer's in-round worker mask.  Returns
+        ``(state, losses, stats)``."""
         if self._chunk_slices is None:
             self._setup(state)
         self.flush_quant_error()
         tau = next(iter(batches.values())).shape[1]
-        alive = live
 
         if self._pending is not None:
             # overlapped steady state: the first overlapped steps of THIS
             # round run while round r-1's means are in flight, then the
             # correction lands and the window finishes
             s = min(DEFAULT_OVERLAP_STEPS, tau)
-            state, losses = self._local(state, {k: v[:, :s] for k, v in batches.items()})
+            state, losses, stats = self._local(
+                state, {k: v[:, :s] for k, v in batches.items()})
             self._join_pending()
             state = self._apply_pending_correction(state, "correction")
             if tau - s > 0:
-                state, l2 = self._local(
+                state, l2, st2 = self._local(
                     state, {k: v[:, s:] for k, v in batches.items()}
                 )
                 losses = torch.cat([losses, l2], dim=1)
+                if stats is not None:
+                    # per-iteration leaves join along the window
+                    stats = _join_stats(stats, st2)
         else:
             # first round, or barriered steady state: the round-entry
             # params are the broadcast anchor
             self._anchor = self._comm_leaves(state)
-            state, losses = self._local(state, batches)
+            state, losses, stats = self._local(state, batches)
+        alive, bad = (live, None) if mask is None else mask(live, stats)
 
         leaves = self._comm_leaves(state)
         with_err = self.metrics is not None
@@ -477,9 +511,13 @@ class CommPlane:
             )
             self._pending_err = err
 
-        # overlap only when every worker is live: a dead worker forces the
-        # strict barriered apply (consensus overwrite, residual reset)
+        # overlap only when every worker is live and finite: a dead or
+        # masked worker forces the strict barriered apply (consensus
+        # overwrite, residual reset, momentum zeroing).  The verdict is
+        # one (W,) read a round, and only an overlapped plane reads it.
         all_alive = bool(np.all(np.asarray(live_host) > 0))
+        if all_alive and bad is not None and self.overlap:
+            all_alive = not bool(bad.any())
         encoded = _record_event(leaves[0])
         outs, denom0 = self._dispatch_chunks(q, scales, alive)
         holder: dict = {}
@@ -499,11 +537,16 @@ class CommPlane:
                 raise holder["error"]
             with span("dequantize", stage="barriered"):
                 new_leaves, self._resid = self._apply_barriered_all(
-                    leaves, holder["means"], alive, holder["denom0"]
+                    leaves, holder["means"], alive, bad, holder["denom0"]
                 )
-                state = self._rebuild(state, new_leaves)
+                history = state.history
+                if bad is not None:
+                    history = self._zero_bad_history(history, bad,
+                                                      holder["denom0"])
+                state = self._rebuild(state._replace(history=history),
+                                      new_leaves)
             self._anchor = None  # re-seeded from the next round's entry
-        return state, losses
+        return state, losses, stats
 
     def finalize(self, state: TrainState) -> TrainState:
         """Land the in-flight overlapped average into ``state``."""

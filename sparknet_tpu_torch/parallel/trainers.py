@@ -12,9 +12,19 @@ A round runs the workers one after another on views of the stacked
 leaves, and the JAX package's ``psum`` over ``dp`` becomes a masked
 mean over the leading axis with the same ``where()`` (not multiply)
 semantics and the same survivor count ``denom0``.  ``compress`` /
-``overlap_avg`` engage the comm plane (``parallel/comm.py``).  Data
-parallelism across cards over NCCL, the two-tier hierarchy and the
-numerics audit are not ported here (ROADMAP).
+``overlap_avg`` engage the comm plane (``parallel/comm.py``).
+
+With the solver's audit on (``solver.audit``, read each round)
+``round`` also returns the per-worker stats tree, and the in-round
+worker mask is armed: a worker whose window produced a non-finite grad
+or param leaves that round's average (``alive = live x ok``, a device
+tensor throughout), its slot receives the survivor mean and its
+momentum history is zeroed; with no finite worker each keeps its own
+params.  ``hierarchy`` (``parallel/
+hierarchy.py``) declares the two-tier schedule: a non-cross round
+averages each slice's live workers only (a masked mean per slice
+group, no comm kernel), a cross round is the global round above.
+Data parallelism across cards over NCCL is not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -25,8 +35,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from sparknet_tpu_torch import obs
+from sparknet_tpu_torch.obs import health as _health
 from sparknet_tpu_torch.obs.metrics import TrainingMetrics
 from sparknet_tpu_torch.obs.trace import span
+from sparknet_tpu_torch.parallel.hierarchy import HierarchySpec
 from sparknet_tpu_torch.solver import Solver, TrainState
 from sparknet_tpu_torch.utils import rngs
 from sparknet_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
@@ -78,6 +91,15 @@ def restore_worker_history(state: TrainState, workers_fragment) -> TrainState:
     ]))
 
 
+def zero_rows(tree, rows: torch.Tensor):
+    """``tree`` with the workers where ``rows`` (W,) is true zeroed;
+    ``where()``, so false rows keep their exact bits."""
+    def zero(h):
+        return torch.where(_bshape(rows, h.dim()), torch.zeros_like(h), h)
+
+    return tree_map(zero, tree)
+
+
 def _bshape(t: torch.Tensor, ndim: int) -> torch.Tensor:
     return t.reshape((-1,) + (1,) * (ndim - 1))
 
@@ -101,10 +123,14 @@ class ParameterAveragingTrainer:
         compress: str = "none",
         overlap_avg: bool = False,
         metrics: Optional[TrainingMetrics] = None,
+        hierarchy: Optional[HierarchySpec] = None,
     ):
         """Params and stat blobs are averaged; ``metrics`` receives the
         training series (rounds, iters, collective bytes, the comm plane's
-        kernel launches and quantization error); None records nothing."""
+        kernel launches and quantization error, the hierarchy's tiers);
+        None records nothing.  The solver's audit arms the in-round
+        worker mask; ``hierarchy`` is the two-tier schedule (a flat spec
+        is bit-identical to none)."""
         from sparknet_tpu_torch.parallel import comm as _comm
 
         if num_workers < 1:
@@ -113,11 +139,21 @@ class ParameterAveragingTrainer:
             raise ValueError(
                 f"compress={compress!r}: expected one of {_comm.COMPRESS_MODES}"
             )
+        if hierarchy is not None and hierarchy.num_workers != num_workers:
+            raise ValueError(
+                f"hierarchy spec covers {hierarchy.num_workers} workers, "
+                f"trainer has {num_workers}"
+            )
         self.solver = solver
         self.device = solver.device
         self.num_workers = int(num_workers)
         self.compress = compress
         self.metrics = metrics
+        self.hierarchy = hierarchy
+        self._two_tier = hierarchy is not None and not hierarchy.is_flat()
+        # the schedule's round counter when round() gets no round_index
+        self._auto_round = 0
+        self._slice_index = None  # (per-slice indices, slice ids, inverse)
         self._comm = None
         if compress != "none" or overlap_avg:
             self._comm = _comm.CommPlane(
@@ -186,10 +222,8 @@ class ParameterAveragingTrainer:
     def resume_newest(self, prefix: str, tau: int, metrics=None):
         """Resume from the newest snapshot under ``prefix`` that verifies
         (``io/checkpoint.restore_newest_valid``: corrupt ones are
-        quarantined): broadcast its consensus, then put back what
-        ``export_job_state`` saved.  Returns ``(state, start_round,
-        state_path, job_state)``, start_round being ``iter // tau``;
-        state None when there is no snapshot."""
+        quarantined).  Returns ``(state, start_round, state_path,
+        job_state)``; state None when there is no snapshot."""
         from sparknet_tpu_torch.io import checkpoint
 
         try:
@@ -197,8 +231,20 @@ class ParameterAveragingTrainer:
                 self.solver, prefix, metrics=metrics)
         except FileNotFoundError:
             return None, 0, None, {}
+        state, start_round, js = self.resume_from(st, used, None, tau)
+        return state, start_round, used, js
+
+    def resume_from(self, st: TrainState, used: str, js, tau: int):
+        """Broadcast a restored snapshot's consensus ``st``, then put back
+        what ``export_job_state`` saved in its jobstate ``js`` (read from
+        ``used`` when None).  Returns ``(state, start_round, job_state)``,
+        start_round being ``iter // tau``."""
+        from sparknet_tpu_torch.io import checkpoint
+
         state = self.broadcast_state(st)  # resets the comm plane
-        js = checkpoint.load_job_state(used) or {}
+        if js is None:
+            js = checkpoint.load_job_state(used)
+        js = js or {}
         if "comm" in js:
             self.restore_comm_state(js["comm"])
         if "workers" in js:
@@ -206,7 +252,7 @@ class ParameterAveragingTrainer:
             state = restore_worker_history(state, js["workers"])
         if "loss_window" in js.get("solver", {}):
             self.solver.restore_loss_window(js["solver"]["loss_window"])
-        return state, int(st.iter) // max(1, tau), used, js
+        return state, int(st.iter) // max(1, tau), js
 
     def _place_live(self, live_mask) -> torch.Tensor:
         """The (W,) float32 live mask on the device, cached per value."""
@@ -227,36 +273,106 @@ class ParameterAveragingTrainer:
         self._live_cache[key] = placed
         return placed
 
+    def reset_comm_state(self) -> None:
+        """Drop carried comm state (a fresh run on a reused trainer)."""
+        if self._comm is not None:
+            self._comm.reset()
+
     def _local(self, state: TrainState, batches: Dict[str, torch.Tensor]):
         """Every worker's local steps, no averaging: ``batches[blob]`` is
-        (W, steps, ...).  Returns ``(state, losses (W, steps))``.  Worker
+        (W, steps, ...).  Returns ``(state, losses (W, steps), stats)``,
+        ``stats`` the audit's tree (leaves (W, steps)) or None.  Worker
         ``w`` steps under ``fold_in(train_key(0), w)``, as the JAX round
         folds its worker index into ``default_train_key(0)``, so stacked
         workers draw independently."""
         root = rngs.train_key(0)
         with span("execute"):
-            outs, losses = [], []
+            outs, losses, packed = [], [], []
             for w in range(self.num_workers):
-                st, l = self.solver._step_tau(
+                st, l, pk = self.solver._run_tau(
                     worker_state(state, w), {k: v[w] for k, v in batches.items()},
                     rngs.fold_in(root, w),
                 )
                 outs.append(st)
                 losses.append(l)
-            return stack_states(outs), torch.stack(losses)
+                packed.append(pk)
+            stats = None
+            if self.solver.audit:
+                stats = _health.unpack(torch.stack(packed),
+                                       self.solver.audit_groups())
+            return stack_states(outs), torch.stack(losses), stats
 
-    def _average(self, state: TrainState, live: torch.Tensor) -> TrainState:
+    def _mask(self, live: torch.Tensor, stats):
+        """``(alive, bad)``: the in-round mask folds each worker's
+        non-finite verdict (a (W,) device tensor) into ``live``; ``bad``
+        is None with the audit off."""
+        if not self.solver.audit:
+            return live, None
+        bad = _health.bad_workers(stats)
+        ok = torch.where(bad, 0.0, 1.0).to(live.dtype)
+        stats["masked"] = 1.0 - ok
+        return live * ok, bad
+
+    def _average(self, state: TrainState, alive: torch.Tensor,
+                 bad=None) -> TrainState:
         """The fused round's epilogue: a masked mean of params and stats
-        over live workers, written to every slot; history stays local."""
-        denom0 = live.sum()
+        over alive workers, written to every slot; history stays local.
+        With the audit on (``bad`` given) a round with no finite
+        worker keeps each one's own params, and a masked worker that
+        rejoins the mean gets its history zeroed."""
+        denom0 = alive.sum()
         denom = torch.clamp_min(denom0, 1.0)
 
         def wmean(x):
-            m = masked_mean(x, live, denom)
-            return m.unsqueeze(0).expand_as(x).contiguous()
+            m = masked_mean(x, alive, denom)
+            m = m.unsqueeze(0).expand_as(x)
+            if bad is not None:
+                return torch.where(denom0 > 0, m, x)
+            return m.contiguous()
 
+        history = state.history
+        if bad is not None:
+            history = zero_rows(history, bad & (denom0 > 0))
         return TrainState(tree_map(wmean, state.params),
-                          tree_map(wmean, state.stats), state.history, state.iter)
+                          tree_map(wmean, state.stats), history, state.iter)
+
+    def _slice_average(self, state: TrainState, alive: torch.Tensor,
+                       bad=None) -> TrainState:
+        """The intra-slice epilogue: each slice's masked mean over its own
+        alive workers, written to that slice's slots; a slice with no
+        alive worker keeps its params (the JAX intra-slice program)."""
+        if self._slice_index is None:  # placed once: no copy a round
+            dev = alive.device
+            order = [w for members in self.hierarchy.slices for w in members]
+            self._slice_index = (
+                [torch.tensor(m, device=dev) for m in self.hierarchy.slices],
+                torch.tensor(self.hierarchy.slice_ids(), device=dev),
+                None if order == list(range(self.num_workers))
+                else torch.tensor(np.argsort(order), device=dev),
+            )
+        slice_idx, sid, inv = self._slice_index
+        groups, d0s = [], []
+        for idx in slice_idx:
+            a = alive.index_select(0, idx)
+            denom0 = a.sum()
+            groups.append((idx, a, denom0, torch.clamp_min(denom0, 1.0)))
+            d0s.append(denom0)
+
+        def smean(x):
+            parts = []
+            for idx, a, denom0, denom in groups:
+                xs = x.index_select(0, idx)
+                m = masked_mean(xs, a, denom).unsqueeze(0).expand_as(xs)
+                parts.append(torch.where(denom0 > 0, m, xs))
+            y = torch.cat(parts)
+            return y if inv is None else y.index_select(0, inv)
+
+        history = state.history
+        if bad is not None:
+            have = torch.stack(d0s).index_select(0, sid) > 0
+            history = zero_rows(history, bad & have)
+        return TrainState(tree_map(smean, state.params),
+                          tree_map(smean, state.stats), history, state.iter)
 
     def round(
         self,
@@ -266,31 +382,57 @@ class ParameterAveragingTrainer:
         round_index: Optional[int] = None,
     ):
         """One averaging round: ``batches[blob]`` is (W, tau, ...) on the
-        device, worker-major.  Returns ``(state, losses (W, tau))``.
+        device, worker-major.  Returns ``(state, losses (W, tau))``, or
+        ``(state, losses, stats)`` with the audit on (leaves (W, tau),
+        plus ``masked`` (W,), the workers the in-round mask took out).
 
         ``live_mask`` (W,) of 0/1 marks the workers that survive this
         round: dead workers are excluded from the mean and receive it.
-        ``round_index`` is accepted for the JAX signature (it drives the
-        two-tier schedule there, which is not ported)."""
-        del round_index
+        ``round_index`` is the absolute round, which decides the two-tier
+        schedule's tier (the trainer counts its own calls when none is
+        given)."""
+        r = self._auto_round if round_index is None else int(round_index)
+        self._auto_round = r + 1
+        intra = self._two_tier and not self.hierarchy.is_cross_round(r)
         if live_mask is None:
             live_mask = np.ones((self.num_workers,), np.float32)
+        stats = None
         with span("average"):
             live = self._place_live(live_mask)
-            if self._comm is not None:
-                state, losses = self._comm.round(state, batches, live, live_mask)
+            if intra:
+                # an overlapped cross-slice average in flight lands at
+                # this boundary, before the slice-local mean
+                if self._comm is not None:
+                    state = self._comm.finalize(state)
+                state, losses, stats = self._local(state, batches)
+                alive, bad = self._mask(live, stats)
+                state = self._slice_average(state, alive, bad)
+            elif self._comm is not None:
+                state, losses, stats = self._comm.round(
+                    state, batches, live, live_mask, self._mask)
             else:
-                state, losses = self._local(state, batches)
-                state = self._average(state, live)
-                if self.metrics is not None:
-                    self.metrics.collective_bytes.labels("none").inc(
-                        self._payload_bytes(state)
-                    )
+                state, losses, stats = self._local(state, batches)
+                alive, bad = self._mask(live, stats)
+                state = self._average(state, alive, bad)
+            if self.metrics is not None and (intra or self._comm is None):
+                self.metrics.collective_bytes.labels("none").inc(
+                    self._payload_bytes(state)
+                )
+            if self.metrics is not None and self.hierarchy is not None:
+                tier = "intra" if intra else "cross"
+                payload = self._payload_bytes(state)
+                if not intra and self._comm is not None:
+                    payload = self._comm.payload_bytes_per_round or payload
+                self.metrics.hierarchy_rounds.labels(tier).inc()
+                self.metrics.hierarchy_bytes.labels(tier).inc(payload)
             # recorded lazily: smoothed_loss pulls the losses on read
             self.solver.note_losses(losses)
         if self.metrics is not None:
             self.metrics.rounds.inc()
             self.metrics.iters.inc(losses.shape[-1])
+        obs.report_healthy()
+        if self.solver.audit:
+            return state, losses, stats
         return state, losses
 
     def _payload_bytes(self, state) -> int:

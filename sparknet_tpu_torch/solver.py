@@ -9,7 +9,10 @@ The port of ``sparknet_tpu/solver.py`` (reference: ``sgd_solver.cpp``,
 smoothed loss and ``test_and_store_result``.  Where the JAX solver
 scans a jitted step, this one loops eagerly: gradients from
 ``torch.autograd``, updates out of place (a new tensor per blob), so a
-state handed in is never modified.  The numerics audit and ``debug_info`` are not ported.
+state handed in is never modified.  ``audit=True`` adds the numerics
+audit (``obs/health.py``): each window then also returns its stats
+tree, read from values the update produced, so a trajectory is bit for
+bit the same with the audit on or off.  ``debug_info`` is not ported.
 
 Randomness follows the JAX solver's key structure (``utils.rngs``):
 ``_step_tau`` takes a key, each iteration folds in its ``iter``, the
@@ -41,6 +44,7 @@ from sparknet_tpu_torch.config.schema import (
     solver_method,
 )
 from sparknet_tpu_torch.net import Params, Stats, TorchNet
+from sparknet_tpu_torch.obs import health as _health
 from sparknet_tpu_torch.obs.trace import span
 from sparknet_tpu_torch.utils import rngs
 from sparknet_tpu_torch.utils.devices import resolve_device
@@ -147,6 +151,8 @@ class Solver:
     batch, train)``, ``param_multipliers()`` and ``feed_blobs``
     (``models.transformer_lm.TransformerLMNet`` is one); the update
     rules and the trainers are generic over its params dict.
+    ``audit`` turns on the numerics audit (and a trainer's in-round
+    worker mask, which reads it each round).
     ``train_transform`` / ``test_transform`` are the per-phase batch
     preprocessing of JAX ``Solver`` (``data/transforms.py``)."""
 
@@ -158,12 +164,15 @@ class Solver:
         net=None,
         train_transform=None,
         test_transform=None,
+        audit: bool = False,
     ):
         if param.debug_info:
             raise NotImplementedError(
                 "solver debug_info is not yet ported to sparknet_tpu_torch"
             )
         self.device = resolve_device(device)
+        self.audit = bool(audit)
+        self._audit_groups: List[str] = []
         self.train_transform = train_transform
         self.test_transform = test_transform
         self.param = param
@@ -241,11 +250,21 @@ class Solver:
 
     @torch.no_grad()
     def _apply_update(self, params, history, grads, it: int):
+        """``(new_params, new_history, grad_norm)``; ``grad_norm``, the raw
+        global L2 ClipGradients reduces (sgd_solver.cpp:84-100), is
+        computed once when clipping or the audit needs it (else None):
+        with clipping in ClipGradients' own sum of squares, for the audit
+        alone in one multi-tensor pass."""
         p = self.param
+        grad_norm = None
         if p.clip_gradients > 0:
-            # ClipGradients on the raw accumulated grads (sgd_solver.cpp:84-100)
             sumsq = sum((g * g).sum() for g in tree_leaves(grads))
-            norm = torch.sqrt(sumsq)
+            grad_norm = torch.sqrt(sumsq)
+        elif self.audit:
+            grad_norm = _health.grad_norm(grads)
+        if p.clip_gradients > 0:
+            # ClipGradients on the raw accumulated grads
+            norm = grad_norm
             scale = torch.where(norm > p.clip_gradients,
                                 p.clip_gradients / norm, torch.ones_like(norm))
             grads = tree_map(lambda g: g * scale, grads)
@@ -277,32 +296,56 @@ class Solver:
                 for h, v in zip(new_hist, new_h if two else (new_h,)):
                     h[key].append(v)
                 new_params[key].append(w - update)  # Net::Update
-        return new_params, (tuple(new_hist) if two else new_hist[0])
+        return new_params, (tuple(new_hist) if two else new_hist[0]), grad_norm
 
     def _one_iter(self, st: TrainState, batch, rng: int):
+        """One iteration: ``(state, loss, packed audit stats or None)``."""
         grads, loss, new_stats = self._grads(
             st.params, st.stats, batch, rngs.fold_in(rng, int(st.iter))
         )
-        new_params, new_history = self._apply_update(
+        new_params, new_history, grad_norm = self._apply_update(
             st.params, st.history, grads, int(st.iter)
         )
-        return TrainState(new_params, new_stats, new_history, st.iter + 1), loss
+        packed = None
+        if self.audit:
+            self._audit_groups = list(new_params.keys())
+            with torch.no_grad():
+                packed = _health.pack(grads, st.params, new_params, loss,
+                                      grad_norm)
+        new_st = TrainState(new_params, new_stats, new_history, st.iter + 1)
+        return new_st, loss, packed
+
+    def audit_groups(self) -> List[str]:
+        """The param groups of the audit's stats, in packed order (the
+        params dict's, recorded by the last audited iteration)."""
+        return self._audit_groups
+
+    def _run_tau(self, state: TrainState, batches, rng):
+        """tau iterations: ``(state, losses (tau,), packed (tau, n) or
+        None)``."""
+        tau = next(iter(batches.values())).shape[0]
+        losses, packed = [], []
+        for t in range(tau):
+            state, loss, pk = self._one_iter(
+                state, {k: v[t] for k, v in batches.items()}, rng
+            )
+            losses.append(loss)
+            packed.append(pk)
+        return (state, torch.stack(losses),
+                torch.stack(packed) if self.audit else None)
 
     def _step_tau(self, state: TrainState, batches: Dict[str, torch.Tensor],
                   rng: Optional[int] = None):
         """tau iterations over ``batches`` (every blob stacked on axis 0)
         under the key ``rng`` (default ``rngs.train_key(0)``, as JAX's
-        ``default_train_key(0)``).  Returns ``(state, losses (tau,))``;
-        ``losses`` stays on the device."""
+        ``default_train_key(0)``).  Returns ``(state, losses (tau,))``, or
+        ``(state, losses, stats)`` with the audit on (stats leaves
+        (tau,)); everything stays on the device."""
         rng = rngs.train_key(0) if rng is None else rng
-        tau = next(iter(batches.values())).shape[0]
-        losses = []
-        for t in range(tau):
-            state, loss = self._one_iter(
-                state, {k: v[t] for k, v in batches.items()}, rng
-            )
-            losses.append(loss)
-        return state, torch.stack(losses)
+        state, losses, packed = self._run_tau(state, batches, rng)
+        if self.audit:
+            return state, losses, _health.unpack(packed, self.audit_groups())
+        return state, losses
 
     def _to_device(self, batches) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device) for k, v in batches.items()}
@@ -313,9 +356,9 @@ class Solver:
         tau)`` analog, ccaffe.cpp:230-233).  Returns ``(state, per-iter
         losses (tau,))``; the losses feed ``smoothed_loss``."""
         with span("execute"):
-            state, losses = self._step_tau(state, self._to_device(batches), rng)
-        self.note_losses(losses)
-        return state, losses
+            out = self._step_tau(state, self._to_device(batches), rng)
+        self.note_losses(out[1])
+        return out
 
     def step_repeat(self, state: TrainState, batch, tau: int,
                     rng: Optional[int] = None):
@@ -324,13 +367,17 @@ class Solver:
         Returns ``(state, losses (tau,))``."""
         rng = rngs.train_key(0) if rng is None else rng
         batch = self._to_device(batch)
-        losses = []
+        losses, packed = [], []
         with span("execute"):
             for _ in range(int(tau)):
-                state, loss = self._one_iter(state, batch, rng)
+                state, loss, pk = self._one_iter(state, batch, rng)
                 losses.append(loss)
+                packed.append(pk)
         losses = torch.stack(losses)
         self.note_losses(losses)
+        if self.audit:
+            return state, losses, _health.unpack(torch.stack(packed),
+                                                 self.audit_groups())
         return state, losses
 
     # ------------------------------------------------------------------

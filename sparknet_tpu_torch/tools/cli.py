@@ -43,6 +43,7 @@ ported" here.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import List, Optional
 
@@ -206,11 +207,6 @@ def cmd_serve(args) -> int:
 # train flags of the JAX CLI that later slices bring: (flag, refused when)
 _TRAIN_NOT_YET_PORTED = (
     ("--devices", lambda a: a.devices > 1, " > 1 (allreduce data parallelism)"),
-    ("--journal", lambda a: a.journal, ""),
-    ("--health", lambda a: a.health, ""),
-    ("--publish_to", lambda a: a.publish_to,
-     " (it implies --health, the training health sentry)"),
-    ("--obs", lambda a: a.obs, ""),
     ("--cache_dir", lambda a: a.cache_dir or a.cache_bytes != "0",
      " / --cache_bytes (the chunk cache)"),
     ("--shuffle_epochs", lambda a: a.shuffle_epochs > 1, " > 1"),
@@ -221,14 +217,25 @@ _TRAIN_NOT_YET_PORTED = (
 def cmd_train(args) -> int:
     """``train --solver``: one solver steps tau iterations a window,
     with snapshots every ``solver_param.snapshot`` iterations, on SIGHUP
-    and on a STOP signal (the JAX ``cli train``, one device)."""
+    and on a STOP signal (the JAX ``cli train``, one device).
+    ``--journal`` brackets each window with the round ledger (a commit
+    rides each published snapshot; a resume that finds the ledger is
+    journal-guided), ``--health`` guards each window with the sentry,
+    and ``--publish_to DIR`` (implying ``--health warn``) publishes the
+    final state with the sentry's verdict (``serve/publish.py``)."""
     if args.solver is None:
         raise SystemExit("train: --solver is required without --lm")
+    from sparknet_tpu_torch import obs
+
+    obs.check_args(args, "train")
     for flag, refused, what in _TRAIN_NOT_YET_PORTED:
         if refused(args):
             raise SystemExit(
                 f"train: {flag}{what} is not yet ported to sparknet_tpu_torch"
             )
+    # a publish carries the sentry's verdict: an unaudited run has none
+    if args.publish_to and not args.health and not args.health_policy:
+        args.health = "warn"
     # pure argument conflicts fail BEFORE any model/device setup
     if args.resume and (args.snapshot or args.weights):
         print(
@@ -259,31 +266,77 @@ def cmd_train(args) -> int:
 
 
 def _train_solver(args, device) -> int:
-    from sparknet_tpu_torch import config
-    from sparknet_tpu_torch.data import CifarLoader, MinibatchSampler, RoundFeed
-    from sparknet_tpu_torch.data.source import synthetic_batches
-    from sparknet_tpu_torch.io import checkpoint
+    from sparknet_tpu_torch import config, obs
+    from sparknet_tpu_torch.io import journal as journal_mod
+    from sparknet_tpu_torch.obs import flight
+    from sparknet_tpu_torch.obs import health as health_mod
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
     from sparknet_tpu_torch.solver import Solver
-    from sparknet_tpu_torch.utils.signals import SignalHandler, SolverAction
-    from sparknet_tpu_torch.utils.trainlog import TrainingLog
 
     solver_param = config.load_solver_prototxt(args.solver)
     solver = Solver(solver_param, device=device)
     metrics = TrainingMetrics()
     # one prefix rule for writing snapshots and for --resume's scan
     prefix = solver_param.snapshot_prefix or "snapshot"
+    # the round ledger beside the snapshots; a --resume that finds one
+    # consumes it (the auto rule)
+    jr = journal_mod.journal_from_args(
+        args, journal_mod.default_journal_path(prefix), resuming=args.resume,
+        metrics=metrics)
+    if jr is not None:
+        print(f"run journal: {jr.path} (fsync={jr.fsync})")
+    # the sentry turns the solver's audit on and guards every window;
+    # rollback restores through the same prefix
+    sentry = health_mod.sentry_from_args(args, solver, echo=print,
+                                         metrics=metrics)
+    if sentry is not None:
+        sentry.restore_fn = health_mod.make_restore_fn(solver, prefix,
+                                                       metrics=metrics)
+    recorder = obs.flight_from_args(args, metrics=metrics)
+    try:
+        return _train_loop(args, solver, solver_param, metrics, prefix, jr,
+                           sentry)
+    finally:
+        if jr is not None:
+            jr.close()
+        if recorder is not None:
+            flight.uninstall(recorder)
+        if sentry is not None:
+            obs.set_sentry(None)
+
+
+def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
+    from sparknet_tpu_torch.data import CifarLoader, MinibatchSampler, RoundFeed
+    from sparknet_tpu_torch.data.source import synthetic_batches
+    from sparknet_tpu_torch.io import checkpoint
+    from sparknet_tpu_torch.obs.health import SentryHalt
+    from sparknet_tpu_torch.utils.signals import SignalHandler, SolverAction
+    from sparknet_tpu_torch.utils.trainlog import TrainingLog
+
     job_state = None
     if args.resume:
         # newest CRC-valid snapshot; corrupt ones are quarantined and the
-        # scan falls back (io/checkpoint.restore_newest_valid)
+        # scan falls back (io/checkpoint.restore_newest_valid).  With a
+        # ledger: the last COMMITTED boundary (snapshots past it belong
+        # to rounds that re-execute)
         try:
-            state, used = checkpoint.restore_newest_valid(
-                solver, prefix, metrics=metrics)
+            if jr is not None and jr.last_committed_round is not None:
+                state, used, job_state, jinfo = \
+                    checkpoint.restore_newest_valid_journaled(
+                        solver, prefix, jr, metrics=metrics)
+                if jinfo["in_flight_round"] is not None:
+                    metrics.recover_replayed.inc()
+                    print("journal: round %d was in flight at the crash — "
+                          "it re-executes" % jinfo["in_flight_round"])
+            else:
+                state, used = checkpoint.restore_newest_valid(
+                    solver, prefix, metrics=metrics)
+                job_state = checkpoint.load_job_state(used)
         except (FileNotFoundError, checkpoint.SnapshotCorrupt) as e:
             print(f"train: --resume: {e}", file=sys.stderr)
             return 1
-        job_state = checkpoint.load_job_state(used)
+        if job_state and sentry is not None and "sentry" in job_state:
+            sentry.load_state(job_state["sentry"])
         print(f"resumed from {used} at iter {int(state.iter)}")
     elif args.snapshot:
         state = checkpoint.restore(solver, args.snapshot, metrics=metrics)
@@ -337,17 +390,43 @@ def _train_solver(args, device) -> int:
 
     def job_extra():
         # loop state a TrainState restore would reset
-        return {"cursor": {"iter": it, "round": it // args.tau},
-                "solver": {"loss_window": solver.export_loss_window()}}
+        extra = {"cursor": {"iter": it, "round": it // args.tau},
+                 "solver": {"loss_window": solver.export_loss_window()}}
+        if sentry is not None:
+            extra["sentry"] = sentry.export_state()
+        return extra
 
-    def snapshot():
+    # a journaled async boundary commits once its publish is confirmed
+    # (the next save/wait joins the writer): (round, iter) awaiting it
+    async_pending = None
+
+    def commit_async_published():
+        nonlocal async_pending
+        if jr is None or async_pending is None or ckpt is None:
+            return
+        done = ckpt.last_paths
+        if done:
+            pr, pit = async_pending
+            async_pending = None
+            jr.commit_round(pr, iter=pit, snapshot=os.path.basename(done[1]))
+
+    def snapshot(abs_r):
+        nonlocal async_pending
         if ckpt is not None:
+            # publish and commit the previous write BEFORE the next save
+            ckpt.wait()
+            commit_async_published()
             ckpt.save(solver, state, prefix, extra_state=job_extra())
+            async_pending = (abs_r, it)
             log.log(f"async snapshot started at iter {it}")
         else:
             paths = checkpoint.snapshot(solver, state, prefix,
                                         extra_state=job_extra(),
                                         metrics=metrics)
+            if jr is not None:
+                # the durable boundary: the commit carries the snapshot
+                jr.commit_round(abs_r, iter=it,
+                                snapshot=os.path.basename(paths[1]))
             log.log(f"snapshotted to {paths[0]}")
 
     feed = RoundFeed(assemble, solver.device, pipelined=not args.serial_feed,
@@ -359,7 +438,16 @@ def _train_solver(args, device) -> int:
     ) as handler:
         try:
             while it < max_iter:
-                state, _ = solver.step(state, feed.next_round(r))
+                abs_r = it // args.tau
+                if jr is not None:
+                    # write-ahead intent: restart knows this window was
+                    # in flight whatever happens next
+                    jr.begin_round(abs_r, iter=it, cursor=abs_r)
+                if sentry is not None:
+                    state, _ = sentry.guarded_step(
+                        solver, state, feed.next_round(r), round_index=abs_r)
+                else:
+                    state, _ = solver.step(state, feed.next_round(r))
                 r += 1
                 it += args.tau
                 # SolverParameter.display: reading smoothed_loss waits for
@@ -372,21 +460,42 @@ def _train_solver(args, device) -> int:
                     snap_every and it % snap_every < args.tau
                     and it >= snap_every
                 ):
-                    snapshot()
+                    snapshot(abs_r)
                 if action == SolverAction.STOP:
                     log.log("stop requested; snapshotting and exiting")
-                    snapshot()
+                    snapshot(abs_r)
                     break
+        except SentryHalt as e:
+            # no snapshot of the weights the sentry just condemned
+            log.log(f"training halted by the health sentry: {e}")
+            return 1
         finally:
             feed.stop()
             if ckpt is not None:
                 paths = ckpt.wait()
+                commit_async_published()
                 ckpt.close()
                 if paths:
                     log.log(f"final async snapshot: {paths[0]}")
+    published = None
+    if args.publish_to:
+        # train-to-serve delivery: the final state publishes only with a
+        # passing sentry verdict on its CRC manifest
+        from sparknet_tpu_torch.serve import publish as publish_mod
+
+        verdict = publish_mod.verdict_from_sentry(sentry)
+        try:
+            published = publish_mod.publish_snapshot(
+                solver, state, args.publish_to, verdict)
+        except publish_mod.PublishRefused as e:
+            print(f"train: {e}", file=sys.stderr)
+            return 1
+        print(f"published verified snapshot {published[0]} -> "
+              f"{args.publish_to} (verdict: {verdict['reason']})")
     if args.result is not None:
         args.result.update(state=state, solver=solver, metrics=metrics,
-                           smoothed_loss=solver.smoothed_loss)
+                           smoothed_loss=solver.smoothed_loss, sentry=sentry,
+                           published=published)
     return 0
 
 
@@ -475,14 +584,20 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     from sparknet_tpu_torch.parallel import comm as _comm
 
     _comm.add_cli_args(p)  # --compress / --overlap_avg (refused here)
+    from sparknet_tpu_torch import obs as _obs
+    from sparknet_tpu_torch.io import journal as _journal
+
+    _obs.add_cli_args(p)  # --health / --flight_recorder (+ refused ones)
+    _journal.add_cli_args(p)  # --journal / --no_journal / ...
+    p.add_argument("--publish_to", default=None, metavar="DIR",
+                   help="publish the final state with the sentry's verdict "
+                   "on its CRC manifest (implies --health warn); cli serve "
+                   "--watch DIR delivers it")
     p.add_argument("--devices", type=int, default=1, help="not yet ported")
     p.add_argument("--cache_dir", default=None, help="not yet ported")
     p.add_argument("--cache_bytes", default="0", help="not yet ported")
     p.add_argument("--shuffle_epochs", type=int, default=0,
                    help="not yet ported")
-    p.add_argument("--publish_to", default=None, help="not yet ported")
-    for flag in ("--journal", "--health", "--obs"):
-        p.add_argument(flag, action="store_true", help="not yet ported")
     p.set_defaults(fn=cmd_train, result=None)
 
     p = sub.add_parser("test")

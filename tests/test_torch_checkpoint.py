@@ -286,9 +286,16 @@ def test_crash_before_publish_leaves_no_file(tmp_path):
 
 
 def test_journaled_resume_is_not_yet_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tck.restore_newest_valid_journaled(_tsolver(), str(tmp_path / "ck"),
-                                           journal=None)
+    """The journal-guided resume is ported now (its cases are in
+    tests/test_torch_journal.py): a ledger with no commit means start
+    fresh, as FileNotFoundError."""
+    from sparknet_tpu_torch.io.journal import RunJournal
+
+    with RunJournal(str(tmp_path / "ck_run.journal"), fsync="never") as jr:
+        jr.begin_round(0, iter=0)
+        with pytest.raises(FileNotFoundError, match="no committed round"):
+            tck.restore_newest_valid_journaled(_tsolver(), str(tmp_path / "ck"),
+                                               jr)
 
 
 # ---------------------------------------------------------------------------

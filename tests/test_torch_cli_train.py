@@ -277,9 +277,9 @@ def test_weights_warm_start(tmp_path):
 
 @pytest.mark.parametrize("flags,what", [
     (["--devices=2"], "--devices"),
-    (["--journal"], "--journal"),
-    (["--health"], "--health"),
-    (["--publish_to=/tmp/pub"], "--publish_to"),
+    (["--trace_out=/tmp/t.json"], "--trace_out"),
+    (["--profile"], "--profile"),
+    (["--slo"], "--slo"),
     (["--obs"], "--obs"),
     (["--cache_dir=/tmp/c"], "--cache_dir"),
     (["--cache_bytes=8G"], "--cache_dir"),

@@ -339,8 +339,9 @@ def test_cifar_db_app_matches_the_jax_app(tmp_path):
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("flag", [
     ["--cache_dir", "/c"], ["--cache_bytes", "8G"], ["--shuffle_epochs", "2"],
-    ["--health"], ["--journal"], ["--obs"], ["--profile"], ["--slices", "2"],
-    ["--cross_slice_every", "2"], ["--elastic"], ["--model", "googlenet"],
+    ["--stale_bound", "2"], ["--trace_out", "/t"], ["--obs"], ["--profile"],
+    ["--obs_port", "1"], ["--profile_out", "/p"], ["--slo"],
+    ["--model", "googlenet"],
     ["--db_dir", "gs://bucket/dbs"]])
 def test_run_db_app_refuses_what_is_not_yet_ported(flag):
     with pytest.raises(SystemExit, match="not yet ported") as e:
@@ -351,8 +352,8 @@ def test_run_db_app_refuses_what_is_not_yet_ported(flag):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--elastic"], ["--slices", "2"], ["--cross_slice_every", "2"],
-    ["--health"], ["--journal"], ["--obs"], ["--profile"]])
+    ["--stale_bound", "1"], ["--trace_out", "/t"], ["--obs_port", "1"],
+    ["--profile_out", "/p"], ["--slo"], ["--obs"], ["--profile"]])
 def test_cifar_db_app_refuses_what_is_not_yet_ported(flag):
     with pytest.raises(SystemExit, match="not yet ported") as e:
         cifar_db_app.main(["--device", "cpu"] + flag)

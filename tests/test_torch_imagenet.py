@@ -531,7 +531,8 @@ def test_imagenet_app_runs_full_alexnet_on_the_cpu(monkeypatch, fusion, extra):
 
 
 @pytest.mark.parametrize("flag", [["--cache_dir", "/c"], ["--shuffle_epochs", "2"],
-                                  ["--health"], ["--journal"], ["--elastic"],
+                                  ["--stale_bound", "1"], ["--trace_out", "/t"],
+                                  ["--slo"],
                                   ["--model", "vgg16"], ["--data", "gs://b/i"]])
 def test_imagenet_app_refuses_what_is_not_yet_ported(flag):
     """Every flag of a later slice exits saying so; a model outside the

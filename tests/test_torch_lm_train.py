@@ -249,11 +249,11 @@ def test_lm_app_end_to_end_on_the_cpu():
 
 @pytest.mark.parametrize(
     "flag",
-    [["--sp", "2"], ["--snapshot_prefix", "/tmp/x", "--journal"],
-     ["--snapshot_every", "2", "--journal"], ["--resume", "--journal"],
+    [["--sp", "2"], ["--stale_bound", "1"], ["--trace_out", "/t"],
+     ["--obs_port", "1"],
      ["--cache_dir", "/tmp/c"], ["--cache_bytes", "1G"],
-     ["--elastic"], ["--slices", "2"], ["--health"], ["--journal"], ["--obs"],
-     ["--profile"]],
+     ["--slo"], ["--ship_to", "http://h:1"], ["--host_id", "h"],
+     ["--profile_out", "/p"], ["--obs"], ["--profile"]],
 )
 def test_lm_app_refuses_what_is_not_yet_ported(flag):
     with pytest.raises(SystemExit, match="not yet ported") as e:

@@ -155,25 +155,26 @@ _CIFAR = ["--device", "cpu", "--workers", "2", "--tau", "2", "--rounds", "1"]
     "argv,what",
     [
         (["train", "--solver", "s.prototxt"] + flag, flag[0])
-        for flag in (["--publish_to", "/pub"], ["--devices", "2"],
-                     ["--journal"], ["--health"])
+        for flag in (["--trace_out", "/t"], ["--devices", "2"],
+                     ["--profile_out", "/p"], ["--slo"])
     ] + [
         (["cifar_app"] + _CIFAR + flag, flag[0])
-        for flag in (["--elastic"], ["--slices", "2"],
-                     ["--cross_slice_every", "2"], ["--stale_bound", "1"],
-                     ["--health"], ["--journal"], ["--obs"], ["--profile"])
+        for flag in (["--trace_out", "/t"], ["--obs_port", "1"],
+                     ["--profile_out", "/p"], ["--stale_bound", "1"],
+                     ["--slo"], ["--ship_to", "http://h:1"], ["--obs"],
+                     ["--profile"])
     ] + [
         (["imagenet_app", "--device", "cpu"] + flag, flag[0])
-        for flag in (["--obs"], ["--profile"], ["--slices", "2"],
-                     ["--cross_slice_every", "2"], ["--cache_bytes", "8G"])
+        for flag in (["--obs"], ["--profile"], ["--stale_bound", "1"],
+                     ["--host_id", "h"], ["--cache_bytes", "8G"])
     ] + [
         (["imagenet_run_db_app", "--device", "cpu", "--db_dir", "/d"] + flag,
          flag[0])
-        for flag in (["--journal"], ["--health"], ["--elastic"],
+        for flag in (["--trace_out", "/t"], ["--stale_bound", "1"], ["--slo"],
                      ["--cache_dir", "/c"], ["--shuffle_epochs", "3"])
     ] + [
         (["cifar_db_app", "--device", "cpu"] + flag, flag[0])
-        for flag in (["--journal"], ["--obs"], ["--slices", "2"])
+        for flag in (["--trace_out", "/t"], ["--obs"], ["--stale_bound", "1"])
     ],
 )
 def test_cli_refuses_what_is_not_yet_ported(argv, what):

@@ -1,14 +1,16 @@
 """The tile-sweep tools build each variant from the kernel's own source
 with its constants replaced: every variant's replacement must land (a
 constant that is not found would time the source's own shape under the
-variant's name).  The sweeps themselves run only on the card."""
+variant's name).  The sweeps themselves run only on the card, as does
+the audit's timing."""
 
 import re
 
 import pytest
 
 from sparknet_tpu_torch.ops import _build
-from sparknet_tpu_torch.tools import comm_tiles, decode_tiles, lrn_tiles
+from sparknet_tpu_torch.tools import (audit_cost, comm_tiles, decode_tiles,
+                                      lrn_tiles)
 
 
 @pytest.mark.parametrize("kernel,variant", [
@@ -43,3 +45,15 @@ def test_decode_tiles_variants_replace_the_kernels_constants(variant):
     # built only for the timed head dims
     assert "FLASH_HEAD_DIMS(LAUNCH)" not in src
     assert "LAUNCH(64) LAUNCH(256)" in src
+
+
+@pytest.mark.parametrize("model", ["caffenet", "lm"])
+def test_audit_cost_measures_only_on_the_card(model):
+    """Without a card the audit's timing raises at its solver, before
+    any weights are made; it never falls back to the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        audit_cost.measure(model)
