@@ -281,6 +281,46 @@ Phases (any failure ends the run with a non-zero exit and no result):
    publish carries its CRC manifest and a passing verdict, and the
    port's delivery reader stages it.
 
+15. The training data plane (about 120 s).  One
+   ``http.server.ThreadingHTTPServer`` on loopback serves phase 11's
+   temporary directory, counting bytes and requests by path
+   (``HTTPStore`` lists its autoindex hrefs).  (a) ``imagenet_run_db_app``
+   with CaffeNet at full width on phase 11's DB, warm-started from its
+   seeded ``.caffemodel``, W=2, tau 4, batch 32, 4 rounds, ``--seed 1
+   --shuffle_epochs 2`` (seed 1 deals the two train DBs [0, 1] then [1,
+   0]; both tables printed): from ``--db_dir http://...`` with a fresh
+   ``--cache_dir``, again over the now-warm cache, and from the local
+   directory, equal bit for bit (params, momentum stacks, every smoothed
+   loss and loss, the accuracies); the cold run fetches the DB's bytes
+   once, the warm run none (``cache_bytes{src="miss"}`` 0, hits > 0);
+   K5/K6 by the arithmetic.  Then ``--compress int8 --snapshot_every 2``
+   over the warm cache, 4 rounds straight through against the round-2
+   snapshot alone ``--resume``d to round 4 across the epoch boundary:
+   bit-identical, residuals included, K9/K10 once per chunk a round.
+   (b) ``lm_app`` at the serving width, W=2, tau 4, batch 8, 4 rounds,
+   ``--corpus http://.../corpus --cache_dir`` against the same corpus
+   from ``file://``: bit for bit, K1/K3/K4 depth x W x tau x rounds
+   launches each.  (c) ``cli train --solver`` cifar10_full (batch 100,
+   tau 10, 60 iterations) on phase 10's CIFAR binaries from
+   ``--data http://... --cache_dir --shuffle_epochs 2`` against the local
+   directory: bit for bit.  (d) A ``RoundFeed`` on the card whose
+   ``assemble`` blocks once, in round 1, 2 s past ``stall_timeout_s=1``:
+   ``PrefetchStall``, ``feed_stalls`` 1, and after ``restart(1)`` rounds
+   0-3 equal an unstalled feed's bit for bit.  (e) ``featurizer_app
+   --model caffenet --blob fc7`` on phase 11's seeded weights and its
+   val LMDB (records at 227), card against ``--device cpu`` within 1e-4
+   of the largest feature, K5 twice a batch; where h5py imports, its
+   ``.h5`` output and ``cli train --solver`` on a cifar10_full-shaped net
+   whose data layers are ``HDF5Data`` and that taps ``ip1`` through
+   ``HDF5Output`` (2 windows), the tap's file within 1e-4 of a CPU run
+   (h5py is printed yes/no; no skips only these).  (f) Where Pillow
+   imports: ``imagenet_app`` over HTTP JPEG shards with ``--cache_dir
+   --shuffle_epochs 2`` at phase 9's small size against the local
+   shards, both under ``deterministic_algorithms()``: bit for bit; an
+   ``ImageData`` and a ``WindowData`` net (each with an ACROSS LRN)
+   through the featurizer, card against CPU, K5 once a batch.  Launch
+   counts are reset before each leg and read after it.
+
 A failed run prints cuDNN's error log (kept in the temporary
 directory) and the tensors of the port's innermost frame on the failing
 stack.  The second-to-last line is ``{"kernels": [...]}`` (K1-K11 and K5 in
@@ -4529,6 +4569,632 @@ def fault_tolerance_end_to_end(dev, card, root):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 15: the training data plane — object-store roots through the
+# chunk cache, --shuffle_epochs, the feed's stall watchdog, the
+# featurizer and the file-backed sources
+# ----------------------------------------------------------------------
+
+PLANE_ROUNDS, PLANE_EPOCHS = 4, 2
+# the DB legs' seed: shuffle.permutation(2, 1, e) deals the two train DBs
+# [0, 1] in epoch 0 and [1, 0] in epoch 1, so the epoch boundary moves
+# every worker to the other DB (seed 0, phase 11's, deals [1, 0] twice)
+PLANE_SEED = 1
+# cli train: 50 minibatches of 100, tau 10, so 5 windows an epoch; 6
+# windows cross into the second epoch's order
+PLANE_CLI_ITERS = 60
+# the featurizer on the card against --device cpu: the largest gap over
+# the largest feature magnitude (as cli test's scores, CLI_TEST_RTOL)
+FEAT_RTOL = 1e-4
+STALL_S, STALL_TIMEOUT_S = 2.0, 1.0
+
+
+class _PlaneServer:
+    """A ThreadingHTTPServer on loopback serving ``root``: its bytes and
+    GET requests counted by path (the autoindex lists each directory,
+    so ``HTTPStore`` lists the hrefs)."""
+
+    def __init__(self, root):
+        import http.server
+        import urllib.parse
+
+        self.bytes, self.gets = {}, {}
+        lock = threading.Lock()
+        srv_self = self
+
+        class Handler(http.server.SimpleHTTPRequestHandler):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, directory=root, **kw)
+
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                name = urllib.parse.unquote(self.path.lstrip("/"))
+                path = os.path.join(root, name)
+                with lock:
+                    srv_self.gets[name] = srv_self.gets.get(name, 0) + 1
+                    if os.path.isfile(path):
+                        srv_self.bytes[name] = (srv_self.bytes.get(name, 0)
+                                                + os.path.getsize(path))
+                return super().do_GET()
+
+        self.srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True, name="plane-http")
+        self.thread.start()
+
+    def fetched(self, under, suffix=""):
+        return sum(n for k, n in self.bytes.items()
+                   if k.startswith(under) and k.endswith(suffix))
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(5.0)
+        check(not self.thread.is_alive(), "the phase-15 HTTP server did not stop")
+
+
+def _kernel_counts():
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+    from sparknet_tpu_torch.ops import cuda_comm as cc
+    from sparknet_tpu_torch.ops import cuda_lrn as cl
+    from sparknet_tpu_torch.ops import cuda_plp as cp
+
+    return (ca, cl, cp, cc)
+
+
+def _reset_counts():
+    for mod in _kernel_counts():
+        mod.reset_launch_counts()
+
+
+def _read_counts():
+    torch.cuda.synchronize()
+    out = {}
+    for mod in _kernel_counts():
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def _dir_bytes(d, suffix):
+    return sum(os.path.getsize(os.path.join(d, n)) for n in os.listdir(d)
+               if n.endswith(suffix))
+
+
+def _plane_db_run(dev, db, rounds, *extra):
+    """One imagenet_run_db_app run (CaffeNet at full width, phase 11's
+    shapes, PLANE_SEED, --shuffle_epochs PLANE_EPOCHS); its result with
+    the launches and the wall."""
+    from sparknet_tpu_torch.apps import imagenet_run_db_app
+
+    r = {}
+    _reset_counts()
+    t0 = time.perf_counter()
+    check(imagenet_run_db_app.main(
+        ["--db_dir", db, "--model", "caffenet", "--device", dev.type,
+         "--tau", str(DB_TAU), "--rounds", str(rounds), "--test_every",
+         str(DB_TEST_EVERY), "--seed", str(PLANE_SEED), "--shuffle_epochs",
+         str(PLANE_EPOCHS), *extra], r) == 0,
+        f"imagenet_run_db over {db} {extra} failed")
+    r["launches"] = _read_counts()
+    r["wall"] = time.perf_counter() - t0
+    return r
+
+
+def _db_launches(rounds, first_round, chunks=0):
+    """K5/K6 (and K9/K10) launches of a DB run training rounds
+    [first_round, first_round + rounds): two LRNs a step, tests at the
+    rounds DB_TEST_EVERY divides and at the end."""
+    steps = DB_W * DB_TAU * rounds
+    n_tests = len([r for r in range(first_round, first_round + rounds)
+                   if r % DB_TEST_EVERY == 0]) + 1
+    return dict(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0,
+                decode_attention=0,
+                lrn_fwd=2 * steps + 2 * n_tests * sum(DB_VAL_BATCHES),
+                lrn_bwd=2 * steps, lrn_pool_fwd=0, lrn_pool_bwd=0,
+                comm_encode=chunks * rounds,
+                comm_apply_barriered=chunks * rounds, comm_apply_correction=0)
+
+
+def _same_db_run(a, b, what):
+    _same_bits(a["state"], b["state"], f"{what}: final state")
+    check(a["smoothed"] == b["smoothed"],
+          f"{what}: smoothed {a['smoothed']} vs {b['smoothed']}")
+    check(np.array_equal(a["losses"], b["losses"]), f"{what}: losses differ")
+    check(a["accuracies"] == b["accuracies"],
+          f"{what}: accuracies {a['accuracies']} vs {b['accuracies']}")
+
+
+def db_over_http(dev, card, root, srv):
+    """(a) imagenet_run_db_app from an HTTP --db_dir: cold cache, warm
+    cache and the local directory bit-identical; the warm run fetches 0
+    DB bytes; an int8 run resumed across the epoch boundary equals the
+    same run straight through.  Returns the launches."""
+    from sparknet_tpu_torch.data import shuffle
+
+    e0 = shuffle.permutation(DB_W, PLANE_SEED, 0)
+    e1 = shuffle.permutation(DB_W, PLANE_SEED, 1)
+    print(f"--shuffle_epochs {PLANE_EPOCHS}, --seed {PLANE_SEED}: worker -> "
+          f"train DB {e0} in epoch 0, {e1} in epoch 1")
+    check(e0 != e1, "the shuffle seed does not re-deal the DBs")
+    db_dir, url = f"{root}/db", f"{srv.url}/db"
+    warm = f"{root}/caffenet_seed1.caffemodel"
+    cache = f"{root}/plane/cache"
+    db_bytes = _dir_bytes(db_dir, ".sndb")
+    cold = _plane_db_run(dev, url, PLANE_ROUNDS, "--warm_start", warm,
+                         "--cache_dir", cache)
+    cold_bytes = srv.fetched("db/", ".sndb")
+    warm_run = _plane_db_run(dev, url, PLANE_ROUNDS, "--warm_start", warm,
+                             "--cache_dir", cache)
+    warm_bytes = srv.fetched("db/", ".sndb") - cold_bytes
+    local = _plane_db_run(dev, db_dir, PLANE_ROUNDS, "--warm_start", warm)
+    want = _db_launches(PLANE_ROUNDS, 0)
+    for name, r in (("cold cache", cold), ("warm cache", warm_run),
+                    ("local", local)):
+        check(r["launches"] == want,
+              f"imagenet_run_db {name}: launches {r['launches']}, want {want}")
+    for name, r in (("cold cache", cold), ("warm cache", warm_run)):
+        _same_db_run(local, r, f"imagenet_run_db over HTTP ({name}) vs local")
+    tm = warm_run["metrics"]
+    check(cold_bytes == db_bytes,
+          f"the cold run fetched {cold_bytes} DB bytes of {db_bytes}")
+    check(warm_bytes == 0 and tm.cache_bytes.labels("miss").value == 0
+          and tm.cache_hits.value > 0,
+          f"the warm run fetched {warm_bytes} DB bytes, cache misses "
+          f"{tm.cache_misses.value}, hits {tm.cache_hits.value}")
+    print(f"[{card}] imagenet_run_db CaffeNet from {url} (W={DB_W}, tau "
+          f"{DB_TAU}, batch {DB_BATCH}, {PLANE_ROUNDS} rounds, "
+          f"--shuffle_epochs {PLANE_EPOCHS}): cold cache, warm cache and the "
+          f"local directory equal bit for bit (final params, momentum "
+          f"stacks, every smoothed loss {[round(x, 6) for x in local['smoothed']]}, "
+          f"final accuracy {local['accuracies'][-1] * 100:.2f}%); the cold run "
+          f"fetched {cold_bytes} B of DB files ({db_bytes} B on disk), the "
+          f"warm run {warm_bytes} B (cache hits {tm.cache_hits.value:.0f}, "
+          f"misses {tm.cache_misses.value:.0f}); wall cold {cold['wall']:.2f} s, "
+          f"warm {warm_run['wall']:.2f} s, local {local['wall']:.2f} s; "
+          f"launches each {local['launches']}")
+    launches = {}
+    for r in (cold, warm_run, local):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    # int8 over the warm cache, snapshots every DB_SNAP_EVERY rounds;
+    # the run stopped after its round-DB_SNAP_EVERY snapshot (that
+    # snapshot alone, in a prefix of its own) resumed across the epoch
+    # boundary to PLANE_ROUNDS
+    pa, pb = f"{root}/plane/a", f"{root}/plane/b"
+    c = ("--compress", "int8", "--cache_dir", cache, "--snapshot_every",
+         str(DB_SNAP_EVERY))
+    straight = _plane_db_run(dev, url, PLANE_ROUNDS, *c, "--warm_start", warm,
+                             "--snapshot_prefix", f"{pa}/caffenet")
+    os.makedirs(pb)
+    it = DB_SNAP_EVERY * DB_TAU
+    for n in os.listdir(pa):
+        if n.startswith(f"caffenet_iter_{it}."):
+            shutil.copy(os.path.join(pa, n), os.path.join(pb, n))
+    resumed = _plane_db_run(dev, url, PLANE_ROUNDS - DB_SNAP_EVERY, *c,
+                            "--snapshot_prefix", f"{pb}/caffenet", "--resume")
+    check(resumed["start_round"] == DB_SNAP_EVERY,
+          f"the int8 run resumed at round {resumed['start_round']}")
+    _same_bits(straight["state"], resumed["state"],
+               "imagenet_run_db int8 resumed across the epoch boundary")
+    check(np.array_equal(straight["losses"][DB_SNAP_EVERY:], resumed["losses"])
+          and straight["smoothed"][DB_SNAP_EVERY:] == resumed["smoothed"]
+          and straight["accuracies"][-1] == resumed["accuracies"][-1],
+          "imagenet_run_db int8: the resumed rounds' losses or accuracy differ")
+    ea = straight["trainer"].export_comm_state()
+    er = resumed["trainer"].export_comm_state()
+    check(all(np.array_equal(ea["resid"][k], er["resid"][k])
+              for k in ea["resid"]), "imagenet_run_db int8: residuals differ")
+    chunks = len(resumed["trainer"]._comm.chunk_slices)
+    want = _db_launches(PLANE_ROUNDS - DB_SNAP_EVERY, DB_SNAP_EVERY, chunks)
+    check(chunks == 3 and resumed["launches"] == want,
+          f"imagenet_run_db int8 resumed: {chunks} chunks, launches "
+          f"{resumed['launches']}, want {want}")
+    print(f"[{card}] imagenet_run_db --compress int8 over the warm cache: "
+          f"{PLANE_ROUNDS} rounds straight through vs the round-"
+          f"{DB_SNAP_EVERY} snapshot --resume'd into epoch 1: params, "
+          f"momentum stacks, residuals, losses and accuracy equal bit for "
+          f"bit; wall {straight['wall']:.2f} s + {resumed['wall']:.2f} s; "
+          f"the resumed run's launches {resumed['launches']}")
+    for k, v in resumed["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    shutil.rmtree(f"{root}/plane")  # ~2 GB of CaffeNet snapshots
+    return launches
+
+
+def lm_over_http(dev, card, root, srv):
+    """(b) lm_app from an HTTP --corpus through the cache equals the same
+    corpus read from file://, bit for bit; K1/K3/K4 launch depth x W x
+    tau x rounds times each run."""
+    from sparknet_tpu_torch.apps import lm_app
+    from sparknet_tpu_torch.data import write_synthetic_corpus
+
+    corpus = f"{root}/corpus"
+    write_synthetic_corpus(corpus, seed=0)
+    m = LM_MODEL
+    argv = ["--device", dev.type, "--workers", str(LM_W), "--tau", str(LM_TAU),
+            "--batch", str(LM_BATCH), "--rounds", str(PLANE_ROUNDS),
+            "--dim", str(m["dim"]), "--depth", str(m["depth"]),
+            "--heads", str(m["heads"]), "--seq_len", str(m["seq_len"]),
+            "--base_lr", str(LM_LR)]
+    n = m["depth"] * LM_W * LM_TAU * PLANE_ROUNDS
+    runs, launches = {}, {}
+    for name, extra in (("http", ["--corpus", f"{srv.url}/corpus",
+                                  "--cache_dir", f"{root}/lm_cache"]),
+                        ("file", ["--corpus", "file://" + corpus])):
+        r = {}
+        _reset_counts()
+        t0 = time.perf_counter()
+        check(lm_app.main(argv + extra, r) == 0, f"lm_app over {name} failed")
+        got = _read_counts()
+        r["wall"] = time.perf_counter() - t0
+        check(got["flash_fwd"] == got["flash_bwd_dq"] == got["flash_bwd_dkv"]
+              == n, f"lm_app over {name}: launches {got}, want {n} each")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        runs[name] = r
+    a, b = runs["http"], runs["file"]
+    _same_bits(a["state"], b["state"], "lm_app over HTTP vs file://: state")
+    check(np.array_equal(a["losses"], b["losses"]) and a["smoothed"] == b["smoothed"],
+          "lm_app over HTTP vs file://: losses differ")
+    print(f"[{card}] lm_app (dim {m['dim']}, depth {m['depth']}, W={LM_W}, tau "
+          f"{LM_TAU}, batch {LM_BATCH}, {PLANE_ROUNDS} rounds) from "
+          f"{srv.url}/corpus ({srv.fetched('corpus/', '.txt')} B fetched "
+          f"through the cache) equals file:// bit for bit (smoothed "
+          f"{[round(x, 6) for x in a['smoothed']]}); wall {a['wall']:.2f} s vs "
+          f"{b['wall']:.2f} s; K1/K3/K4 {n} launches each run")
+    shutil.rmtree(f"{root}/lm_cache")
+    return launches
+
+
+def cli_over_http(dev, card, root, srv):
+    """(c) cli train --solver cifar10_full, --data from HTTP through the
+    cache with --shuffle_epochs 2, equals the local directory bit for
+    bit."""
+    from sparknet_tpu_torch.models import ZOO_DIR
+    from sparknet_tpu_torch.tools import cli
+
+    cifar = f"{root}/cifar"  # phase 10's synthesized CIFAR binaries
+    net = os.path.join(ZOO_DIR, "cifar10_full_train_test.prototxt")
+    runs = {}
+    for name, data in (("http", f"{srv.url}/cifar"), ("local", cifar)):
+        solver = f"{root}/plane_cli_{name}.prototxt"
+        with open(solver, "w") as f:
+            f.write(f'net: "{net}"\nbase_lr: 0.001\nmomentum: 0.9\n'
+                    'weight_decay: 0.004\nlr_policy: "fixed"\n'
+                    f'display: {CLI_TRAIN_TAU}\n'
+                    f'snapshot_prefix: "{root}/plane_cli_{name}/c"\n')
+        extra = ([f"--cache_dir={root}/plane_cli_cache"] if name == "http"
+                 else [])
+        r = {}
+        t0 = time.perf_counter()
+        check(cli.main(["train", f"--solver={solver}", f"--data={data}",
+                        f"--tau={CLI_TRAIN_TAU}", f"--max_iter={PLANE_CLI_ITERS}",
+                        f"--shuffle_epochs={PLANE_EPOCHS}",
+                        f"--device={dev.type}"] + extra, r) == 0,
+              f"cli train over {name} failed")
+        torch.cuda.synchronize()
+        r["wall"] = time.perf_counter() - t0
+        runs[name] = r
+    a, b = runs["http"], runs["local"]
+    _same_bits(a["state"], b["state"], "cli train over HTTP vs local: state")
+    check(a["smoothed_loss"] == b["smoothed_loss"]
+          and np.isfinite(a["smoothed_loss"]),
+          f"cli train smoothed {a['smoothed_loss']} vs {b['smoothed_loss']}")
+    fetched = srv.fetched("cifar/", ".bin")
+    check(fetched == _dir_bytes(cifar, ".bin"),
+          f"cli train fetched {fetched} B of CIFAR binaries")
+    print(f"[{card}] cli train --solver cifar10_full (batch 100, tau "
+          f"{CLI_TRAIN_TAU}, {PLANE_CLI_ITERS} iterations, --shuffle_epochs "
+          f"{PLANE_EPOCHS}) from {srv.url}/cifar ({fetched} B staged through "
+          f"the cache) equals the local directory bit for bit (smoothed loss "
+          f"{a['smoothed_loss']:.6f}); wall {a['wall']:.2f} s vs "
+          f"{b['wall']:.2f} s")
+    shutil.rmtree(f"{root}/plane_cli_cache")
+
+
+def feed_stall_on_card(dev, card):
+    """(d) A RoundFeed on the card whose assemble blocks once, in round
+    1, past stall_timeout_s: PrefetchStall, feed_stalls 1, and after
+    restart(1) rounds 0-3 equal an unstalled feed's bit for bit."""
+    from sparknet_tpu_torch import obs
+    from sparknet_tpu_torch.data import PrefetchStall, RoundFeed
+    from sparknet_tpu_torch.obs.metrics import TrainingMetrics
+
+    def batch(r):
+        rs = np.random.RandomState(1000 + r)
+        return {"data": rs.randint(0, 256, (DB_W, 2, 3, 64, 64)).astype(np.uint8),
+                "label": rs.randint(0, 10, (DB_W, 2)).astype(np.float32)}
+
+    stalled = threading.Event()
+
+    def stalling(r):
+        if r == 1 and not stalled.is_set():
+            stalled.set()
+            time.sleep(STALL_S)
+        return batch(r)
+
+    tm = TrainingMetrics()
+    with obs.installed_metrics(tm):
+        feed = RoundFeed(stalling, dev, num_rounds=4,
+                         stall_timeout_s=STALL_TIMEOUT_S)
+        clean = RoundFeed(batch, dev, num_rounds=4)
+        got = [feed.next_round(0)]
+        t0 = time.perf_counter()
+        raised = False
+        try:
+            feed.next_round(1)
+        except PrefetchStall:
+            raised = True
+        waited = time.perf_counter() - t0
+        check(raised, "the stalled feed raised no PrefetchStall")
+        check(tm.feed_stalls.value == 1,
+              f"feed_stalls {tm.feed_stalls.value}, want 1")
+        exited = feed.restart(1)
+        got += [feed.next_round(r) for r in range(1, 4)]
+        want = [clean.next_round(r) for r in range(4)]
+        check(feed.stop() and clean.stop(), "a feed's producer did not stop")
+    obs.report_healthy()
+    for r, (g, w) in enumerate(zip(got, want)):
+        for k in w:
+            check(g[k].device.type == "cuda" and torch.equal(g[k].cpu(), w[k].cpu()),
+                  f"round {r}'s {k} after the restart differs")
+    print(f"[{card}] RoundFeed on the card, stall_timeout_s "
+          f"{STALL_TIMEOUT_S}: assemble blocked {STALL_S} s in round 1, "
+          f"PrefetchStall after {waited:.3f} s, feed_stalls "
+          f"{tm.feed_stalls.value:.0f}, the stalled producer "
+          f"{'reaped' if exited else 'still in assemble'} at restart(1); "
+          "rounds 0-3 equal an unstalled feed's bit for bit")
+
+
+def _features_close(got, want, what):
+    gap = float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1e-30)
+    check(got.shape == want.shape and np.isfinite(got).all() and gap <= FEAT_RTOL,
+          f"{what}: {got.shape} vs {want.shape}, relative gap {gap:.3e}")
+    return gap
+
+
+def _featurize(dev, argv, what):
+    """featurizer_app on the CPU and on the card: (card result, CPU
+    result, card launches, relative gap)."""
+    from sparknet_tpu_torch.apps import featurizer_app
+
+    cpu, card_r = {}, {}
+    check(featurizer_app.main(argv + ["--device", "cpu"], cpu) == 0,
+          f"{what} on the CPU failed")
+    _reset_counts()
+    t0 = time.perf_counter()
+    check(featurizer_app.main(argv + ["--device", dev.type], card_r) == 0,
+          f"{what} on the card failed")
+    launches = _read_counts()
+    card_r["wall"] = time.perf_counter() - t0
+    gap = _features_close(card_r["features"], cpu["features"], what)
+    return card_r, cpu, launches, gap
+
+
+def featurizer_end_to_end(dev, card, root):
+    """(e) featurizer_app with CaffeNet at full width (fc7) on phase 11's
+    seeded weights and val LMDB, card vs CPU; where h5py imports, its
+    .h5 output and cli train on an HDF5Data net with an HDF5Output tap."""
+    batches = 1
+    out = f"{root}/feats.npz"
+    argv = ["--model", "caffenet", "--blob", "fc7", "--weights",
+            f"{root}/caffenet_seed1.caffemodel", "--data", f"{root}/val_lmdb",
+            "--batches", str(batches), "--out", out]
+    r, _, launches, gap = _featurize(dev, argv, "featurizer_app caffenet fc7")
+    check(launches["lrn_fwd"] == 2 * batches and launches["lrn_bwd"] == 0,
+          f"featurizer launches {launches}")
+    check(np.array_equal(np.load(out)["features"], r["features"]),
+          "the featurizer's .npz differs from its features")
+    print(f"[{card}] featurizer_app --model caffenet --blob fc7 (phase 11's "
+          f"weights and val LMDB, the builder's batch): features "
+          f"{r['features'].shape}, "
+          f"within {gap:.3e} of --device cpu (relative), {r['wall']:.2f} s, "
+          f"K5 {launches['lrn_fwd']} launches")
+    try:
+        import h5py  # noqa: F401  (HDF5 outputs and the HDF5Data layer)
+        have_h5py = True
+    except ImportError:
+        have_h5py = False
+    print(f"h5py on this machine: {'yes' if have_h5py else 'no'}"
+          + ("" if have_h5py else " — the featurizer's .h5 output and the "
+             "HDF5Data/HDF5Output cli train leg are skipped"))
+    if have_h5py:
+        hdf5_end_to_end(dev, card, root, argv)
+    return launches
+
+
+def hdf5_end_to_end(dev, card, root, feat_argv):
+    """The featurizer's .h5 output, and cli train --solver on a
+    cifar10_full-shaped net whose train source is HDF5Data and that taps
+    ip1 through HDF5Output: 2 windows, the file within FEAT_RTOL of a CPU
+    run."""
+    import h5py
+
+    from sparknet_tpu_torch.apps import featurizer_app
+    from sparknet_tpu_torch.models import ZOO_DIR
+    from sparknet_tpu_torch.tools import cli
+
+    h5 = f"{root}/feats.h5"
+    r = {}
+    check(featurizer_app.main(feat_argv[:-1] + [h5, "--device", dev.type], r)
+          == 0, "featurizer_app --out .h5 failed")
+    with h5py.File(h5, "r") as f:
+        check(np.array_equal(f["fc7"][()], r["features"]),
+              "the featurizer's .h5 dataset differs from its features")
+    rs = np.random.RandomState(7)
+    with h5py.File(f"{root}/cifar_h5.h5", "w") as f:
+        f["data"] = rs.randn(200, 3, 32, 32).astype(np.float32)
+        f["label"] = rs.randint(0, 10, 200).astype(np.float32)
+    with open(os.path.join(ZOO_DIR, "cifar10_full_train_test.prototxt")) as f:
+        text = f.read()
+    files = {}
+    host = ('type: "HostData"', 'java_data_param { shape { dim: 100 dim: 3 '
+            'dim: 32 dim: 32 } shape { dim: 100 } }')
+    check(text.count(host[1]) == 2, "cifar10_full's data layers moved")
+    for name in ("cpu", "card"):
+        net = f"{root}/cifar_h5_{name}.prototxt"
+        tap = f"{root}/ip1_{name}.h5"
+        with open(net, "w") as f:
+            f.write(text.replace(host[0], 'type: "HDF5Data"').replace(
+                host[1], f'hdf5_data_param {{ source: "{root}/cifar_h5.h5" '
+                'batch_size: 100 }')
+                + f'layer {{ name: "tap" type: "HDF5Output" bottom: "ip1" '
+                f'hdf5_output_param {{ file_name: "{tap}" }} }}\n')
+        solver = f"{root}/cifar_h5_{name}_solver.prototxt"
+        with open(solver, "w") as f:
+            f.write(f'net: "{net}"\nbase_lr: 0.001\nmomentum: 0.9\n'
+                    f'lr_policy: "fixed"\nsnapshot_prefix: "{root}/h5_{name}"\n')
+        res = {}
+        check(cli.main(["train", f"--solver={solver}", "--tau=10",
+                        "--max_iter=20", f"--device={dev.type if name == 'card' else 'cpu'}"],
+                       res) == 0, f"cli train on the HDF5Data net ({name}) failed")
+        check(res["hdf5_outputs"] == [tap], f"HDF5Output wrote {res['hdf5_outputs']}")
+        with h5py.File(tap, "r") as f:
+            files[name] = f["ip1"][()]
+    gap = _features_close(files["card"], files["cpu"], "HDF5Output's ip1")
+    print(f"[{card}] cli train --solver on a cifar10_full-shaped HDF5Data net, "
+          f"2 windows of 10: HDF5Output's ip1 {files['card'].shape} within "
+          f"{gap:.3e} of the CPU run (relative)")
+
+
+def pillow_sources_end_to_end(dev, card, root, srv):
+    """(f) imagenet_app over HTTP JPEG shards (--cache_dir,
+    --shuffle_epochs 2, phase 9's small size) against the local shards,
+    and ImageData and WindowData nets through the featurizer, card vs
+    CPU."""
+    from PIL import Image
+
+    from sparknet_tpu_torch.apps import imagenet_app
+    from sparknet_tpu_torch.data import write_synthetic_imagenet
+    from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+
+    jpeg = f"{root}/jpeg"
+    write_synthetic_imagenet(jpeg, num_shards=2, images_per_shard=4 * 3,
+                             classes=4, seed=0)
+    write_synthetic_imagenet(jpeg, num_shards=2, images_per_shard=4 * 2,
+                             classes=4, labels_file="val.txt",
+                             shard_prefix="val.", seed=1)
+    argv = ["--device", dev.type, "--workers", "2", "--tau", "2", "--rounds",
+            "2", "--full_size", "72", "--crop", "67", "--train_batch", "4",
+            "--test_batch", "4", "--classes", "4", "--test_every", "1",
+            "--shuffle_epochs", "2"]
+    runs = {}
+    for name, extra in (("http", ["--data", f"{srv.url}/jpeg", "--cache_dir",
+                                  f"{root}/jpeg_cache"]),
+                        ("local", ["--data", jpeg])):
+        r = {}
+        _reset_counts()
+        with deterministic_algorithms():  # so that the two runs compare
+            check(imagenet_app.main(argv + extra, r) == 0,
+                  f"imagenet_app over {name} JPEG shards failed")
+        r["launches"] = _read_counts()
+        runs[name] = r
+    a, b = runs["http"], runs["local"]
+    _same_bits(a["state"], b["state"], "imagenet_app over HTTP vs local: state")
+    check(np.array_equal(a["losses"], b["losses"])
+          and a["launches"] == b["launches"] and a["launches"]["lrn_fwd"] > 0,
+          f"imagenet_app over HTTP vs local: launches {a['launches']} vs "
+          f"{b['launches']}")
+    print(f"[{card}] imagenet_app (AlexNet, full 72, crop 67, W=2, tau 2, 2 "
+          f"rounds, --shuffle_epochs 2) from {srv.url}/jpeg "
+          f"({srv.fetched('jpeg/', '.tar')} B of shards through the cache) "
+          f"equals the local shards bit for bit; losses "
+          f"{a['losses'].mean(axis=(1, 2)).round(4).tolist()}; launches "
+          f"{a['launches']}")
+    launches = dict(a["launches"])
+
+    # an ImageData and a WindowData net, an ACROSS LRN in each (K5)
+    imgs = f"{root}/imgs"
+    os.makedirs(imgs)
+    rs = np.random.RandomState(5)
+    lines, windows = [], []
+    for i in range(8):
+        arr = rs.randint(0, 256, (40, 48, 3)).astype(np.uint8)
+        Image.fromarray(arr).save(f"{imgs}/im{i}.png")
+        lines.append(f"im{i}.png {i % 3}")
+        windows.append(f"# {i}\n{imgs}/im{i}.png\n3\n40\n48\n2\n"
+                       f"{1 + i % 3} 0.8 4 4 30 30\n0 0.1 20 10 46 38")
+    with open(f"{imgs}/list.txt", "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(f"{imgs}/windows.txt", "w") as f:
+        f.write("\n".join(windows) + "\n")
+    trunk = ('layer { name: "conv" type: "Convolution" bottom: "data" '
+             'top: "conv" convolution_param { num_output: 32 kernel_size: 3 '
+             'weight_filler { type: "gaussian" std: 0.01 } } }\n'
+             'layer { name: "norm" type: "LRN" bottom: "conv" top: "norm" '
+             'lrn_param { local_size: 5 alpha: 0.0001 beta: 0.75 } }\n'
+             'layer { name: "ip" type: "InnerProduct" bottom: "norm" '
+             'top: "feat" inner_product_param { num_output: 16 '
+             'weight_filler { type: "xavier" } } }\n')
+    sources = {
+        "ImageData": (f'layer {{ name: "data" type: "ImageData" top: "data" '
+                      f'top: "label" transform_param {{ crop_size: 27 '
+                      f'mean_value: 100 }} image_data_param {{ source: '
+                      f'"{imgs}/list.txt" root_folder: "{imgs}/" batch_size: 4 '
+                      f'new_height: 32 new_width: 32 }} }}\n'),
+        "WindowData": (f'layer {{ name: "data" type: "WindowData" top: "data" '
+                       f'top: "label" transform_param {{ crop_size: 27 '
+                       f'mean_value: 100 }} window_data_param {{ source: '
+                       f'"{imgs}/windows.txt" batch_size: 4 fg_fraction: 0.5 '
+                       f'context_pad: 2 }} }}\n'),
+    }
+    for kind, head in sources.items():
+        model = f"{imgs}/{kind}.prototxt"
+        with open(model, "w") as f:
+            f.write(f'name: "{kind}"\n' + head + trunk)
+        r, _, got, gap = _featurize(dev, ["--model", model, "--blob", "feat",
+                                          "--batches", "2"],
+                                    f"featurizer_app on a {kind} net")
+        check(got["lrn_fwd"] == 2, f"{kind} featurizer: launches {got}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"[{card}] featurizer_app on a {kind} net (2 batches of 4 at "
+              f"27x27, an ACROSS LRN): features {r['features'].shape} within "
+              f"{gap:.3e} of --device cpu (relative), K5 {got['lrn_fwd']} "
+              f"launches")
+    shutil.rmtree(f"{root}/jpeg_cache")
+    return launches
+
+
+def data_plane_end_to_end(dev, card, root):
+    """Phase 15 (see the module doc): one loopback HTTP server over the
+    phase's temporary directory for every leg.  Returns the launches of
+    its main paths."""
+    t0 = time.perf_counter()
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    try:
+        import PIL  # noqa: F401  (JPEG shards, ImageData, WindowData)
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    print(f"Pillow on this machine: {'yes' if have_pil else 'no'}"
+          + ("" if have_pil else " — leg (f) is skipped"))
+    srv = _PlaneServer(root)
+    try:
+        add(db_over_http(dev, card, root, srv))
+        add(lm_over_http(dev, card, root, srv))
+        cli_over_http(dev, card, root, srv)
+        feed_stall_on_card(dev, card)
+        add(featurizer_end_to_end(dev, card, root))
+        if have_pil:
+            add(pillow_sources_end_to_end(dev, card, root, srv))
+    finally:
+        srv.close()
+    print(f"[{card}] phase 15 wall {time.perf_counter() - t0:.2f} s; HTTP "
+          f"requests {sum(srv.gets.values())}, bytes served "
+          f"{sum(srv.bytes.values())}; launches {launches}")
+    return launches
+
+
 def cudnn_failure_report(exc: BaseException) -> None:
     """On a failed run: cuDNN's version and flags, the device's free
     memory, the tensors of the port's innermost frame on the failing
@@ -4629,6 +5295,8 @@ def run_all() -> int:
             launches[name] = launches.get(name, 0) + n
         determinism_cost(dev, card, root, db_round)
         for name, n in fault_tolerance_end_to_end(dev, card, root).items():
+            launches[name] = launches.get(name, 0) + n
+        for name, n in data_plane_end_to_end(dev, card, root).items():
             launches[name] = launches.get(name, 0) + n
     for name, n in deep_nets_end_to_end(dev, card).items():
         launches[name] = launches.get(name, 0) + n

@@ -29,7 +29,15 @@ Run (on the card; ``--device cpu`` runs the kernels' plain versions)::
         --workers 2 --tau 4 --train_batch 32 --test_batch 16 \\
         --full_size 256 --crop 227 [--data DIR]
 
-``DIR`` holds tar shards and ``train.txt``/``val.txt``; JPEG shards are
+``DIR`` holds tar shards and ``train.txt``/``val.txt``: a directory or
+an object-store URL (``gs://``, ``s3://``, ``http(s)://``, ``file://``).
+``--cache_dir`` fronts the store with the host-local chunk cache
+(``--cache_bytes`` its LRU budget): epoch 1 fills it, later epochs read
+local disk, and the mean image is written next to it.
+``--shuffle_epochs N`` splits ``--rounds`` into N epochs and re-deals
+shard ownership between them (``data/shuffle.py``, pure in the seed and
+the epoch); each epoch's partitions are reloaded on the feed's producer
+thread and its samplers re-seeded by the epoch.  JPEG shards are
 synthesized when ``--data`` is omitted, with the JAX app's scaled-down
 defaults (full 64, crop 56, at most 4 classes unless given).
 ``train(...)`` is the training half on in-memory uint8 partitions,
@@ -37,8 +45,7 @@ which ``main`` calls after the data stage.  ``--health`` (this app
 keeps no snapshots, so rollback degrades to halt), ``--flight_recorder``,
 ``--journal`` (progress-only commits, ``durable=False``), ``--slices`` /
 ``--cross_slice_every`` are the JAX app's; ``--elastic`` only logs that
-membership is wired in ``cifar_app`` and ``lm_app``.  Object-store data,
-``--cache_dir``/``--cache_bytes``, ``--shuffle_epochs``, multi-host,
+membership is wired in ``cifar_app`` and ``lm_app``.  Multi-host,
 ``--stale_bound`` > 0 and ``--obs``/``--profile`` are not yet ported
 and exit saying so.
 """
@@ -58,11 +65,6 @@ TAU = 50  # reference: syncInterval = 50, ImageNetApp.scala:155
 FULL_SIZE = 256  # fullHeight/fullWidth, ImageNetApp.scala:23-24
 CROP_SIZE = 227  # croppedHeight/croppedWidth, ImageNetApp.scala:25-26
 
-# flags of the JAX app that later slices bring: (flag, takes a value)
-_NOT_YET_PORTED = (
-    ("--cache_dir", True), ("--cache_bytes", True), ("--shuffle_epochs", True),
-)
-
 # one worker's partition: (images (nb, B, 3, H, W) uint8, labels (nb, B))
 Partition = Tuple[np.ndarray, np.ndarray]
 
@@ -74,7 +76,8 @@ def _parser() -> argparse.ArgumentParser:
 
     p = argparse.ArgumentParser(prog="sparknet_tpu_torch.apps.imagenet_app")
     p.add_argument("--data", default=None,
-                   help="local dir with tar shards + train.txt/val.txt")
+                   help="tar shards + train.txt/val.txt: a directory or a "
+                   "gs://|s3://|http(s)://|file:// url")
     p.add_argument("--train_prefix", default="train.")
     p.add_argument("--test_prefix", default="val.")
     p.add_argument("--train_labels", default="train.txt")
@@ -97,6 +100,18 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--serial_feed", action="store_true",
                    help="assemble and copy each round's batch on the "
                    "training thread instead of the producer thread")
+    p.add_argument("--cache_dir", default=None,
+                   help="front an object-store --data with the host-local "
+                   "content-addressed chunk cache rooted here: epoch 1 fills "
+                   "it, later epochs read local disk")
+    p.add_argument("--cache_bytes", default="0",
+                   help="chunk-cache LRU byte budget, e.g. 512M / 8G "
+                   "(0 = unbounded)")
+    p.add_argument("--shuffle_epochs", type=int, default=0,
+                   help="split --rounds into N epochs and reshuffle "
+                   "shard->worker ownership between them (seeded "
+                   "shuffle-by-assignment; with --cache_dir the repeat reads "
+                   "hit the local cache); 0/1 = one fixed assignment")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) or "
                    "cpu (the kernels' plain versions)")
@@ -104,11 +119,6 @@ def _parser() -> argparse.ArgumentParser:
     comm.add_cli_args(p)  # --compress / --overlap_avg
     hierarchy.add_cli_args(p)  # --slices / --cross_slice_every / --elastic
     journal.add_cli_args(p)  # --journal / --no_journal / ...
-    for flag, takes_value in _NOT_YET_PORTED:
-        if takes_value:
-            p.add_argument(flag, default=None, help="not yet ported")
-        else:
-            p.add_argument(flag, action="store_true", help="not yet ported")
     return p
 
 
@@ -117,11 +127,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     scaled-down synthetic defaults when ``--data`` is omitted, the
     reference constants otherwise."""
     args = _parser().parse_args(argv)
-    for flag, _ in _NOT_YET_PORTED:
-        if getattr(args, flag.lstrip("-")) not in (None, False):
-            raise SystemExit(
-                f"imagenet_app: {flag} is not yet ported to sparknet_tpu_torch"
-            )
     from sparknet_tpu_torch import obs
     from sparknet_tpu_torch.models import available_models
     from sparknet_tpu_torch.parallel import hierarchy
@@ -133,11 +138,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         raise SystemExit(
             f"imagenet_app: unknown --model {args.model} (have "
             f"{', '.join(available_models())})"
-        )
-    if args.data is not None and "://" in args.data:
-        raise SystemExit(
-            "imagenet_app: object-store --data is not yet ported to "
-            "sparknet_tpu_torch; give a local directory"
         )
     if args.data is None:  # scaled-down defaults so the demo fits one host
         args.train_batch = args.train_batch or 8
@@ -156,14 +156,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def load_partitions(loader, prefix: str, labels_file: str, n_workers: int,
-                    batch: int, size: int) -> List[Partition]:
-    """Deal the shards round-robin over the workers and pack each
-    partition into uint8 minibatches at ``size`` x ``size``."""
+                    batch: int, size: int, epoch: Optional[int] = None,
+                    shuffle_seed: int = 0) -> List[Partition]:
+    """Deal the shards over the workers (round-robin, or epoch
+    ``epoch``'s seeded assignment) and pack each partition into uint8
+    minibatches at ``size`` x ``size``."""
     from sparknet_tpu_torch.data import ScaleAndConvert
 
     conv = ScaleAndConvert(batch, size, size)
     out = []
-    for part in loader.partitions(prefix, labels_file, num_parts=n_workers):
+    for part in loader.partitions(prefix, labels_file, num_parts=n_workers,
+                                  epoch=epoch, shuffle_seed=shuffle_seed):
         mbs = list(conv.make_minibatches(part))
         if not mbs:
             out.append((np.zeros((0, batch, 3, size, size), np.uint8),
@@ -174,20 +177,35 @@ def load_partitions(loader, prefix: str, labels_file: str, n_workers: int,
 
 
 def data_stage(args, n_workers: int, log, data_dir: str):
-    """Load and partition the train and test shards, compute the mean
+    """Load and partition the train and test shards (the train shards
+    as epoch 0 deals them under ``--shuffle_epochs``), compute the mean
     image over the train partitions and save it as ``mean.binaryproto``
-    in ``data_dir``.  Returns ``(train_parts, test_parts, mean)``."""
+    in ``data_dir`` (next to the chunk cache, or in a temporary
+    directory, when ``data_dir`` is an object store).  Returns
+    ``(train_parts, test_parts, mean, reload)``: ``reload(epoch)`` loads
+    that epoch's train partitions."""
     from sparknet_tpu_torch.data import (
         ImageNetLoader,
         compute_mean,
+        object_store,
         reduce_mean_sums,
     )
+    from sparknet_tpu_torch.data.chunk_cache import parse_bytes
     from sparknet_tpu_torch.io import save_mean_image
 
-    loader = ImageNetLoader(data_dir)
+    loader = ImageNetLoader(data_dir, cache_dir=args.cache_dir,
+                            cache_bytes=parse_bytes(args.cache_bytes))
+    if loader.cache is not None:
+        log.log(f"chunk cache at {loader.cache.root} "
+                f"(budget {loader.cache.byte_budget or 'unbounded'} bytes)")
+
+    def reload(epoch):
+        return load_partitions(loader, args.train_prefix, args.train_labels,
+                               n_workers, args.train_batch, args.full_size,
+                               epoch=epoch, shuffle_seed=args.seed)
+
     log.log("loading train data")
-    train_parts = load_partitions(loader, args.train_prefix, args.train_labels,
-                                  n_workers, args.train_batch, args.full_size)
+    train_parts = reload(0 if args.shuffle_epochs > 1 else None)
     log.log("loading test data")
     test_parts = load_partitions(loader, args.test_prefix, args.test_labels,
                                  n_workers, args.test_batch, args.full_size)
@@ -198,10 +216,15 @@ def data_stage(args, n_workers: int, log, data_dir: str):
         compute_mean(zip(x, y), return_sum=True) for x, y in train_parts
         if len(x)
     ])
-    mean_path = os.path.join(data_dir, "mean.binaryproto")
+    mean_dir = data_dir
+    if object_store.is_object_store_url(data_dir):
+        # a bucket or HTTP root is not writable from here
+        mean_dir = (loader.cache.root if loader.cache is not None
+                    else tempfile.mkdtemp(prefix="imagenet_mean_"))
+    mean_path = os.path.join(mean_dir, "mean.binaryproto")
     save_mean_image(mean, mean_path)
     log.log(f"mean image -> {mean_path}")
-    return train_parts, test_parts, mean
+    return train_parts, test_parts, mean, reload
 
 
 def build_solver(args, mean: np.ndarray, device, solver_param=None):
@@ -234,11 +257,16 @@ def build_solver(args, mean: np.ndarray, device, solver_param=None):
 
 def train(args, train_parts: Sequence[Partition],
           test_parts: Sequence[Partition], mean: np.ndarray, device, log,
-          result: Optional[dict] = None, solver_param=None) -> float:
+          result: Optional[dict] = None, solver_param=None,
+          reload=None, metrics=None) -> float:
     """The averaging loop on in-memory uint8 partitions (one per worker):
     test-then-train every ``--test_every`` rounds (ImageNetApp.scala:118),
     ``--rounds`` rounds of tau local steps and an average, then the final
     test, under ``solver_param`` (default: the model's zoo solver).
+    Under ``--shuffle_epochs`` > 1, ``reload(epoch)`` gives each later
+    epoch's partitions (``data_stage``), loaded on the feed's producer
+    thread at the epoch's first round; each epoch's samplers are seeded
+    ``seed + worker + 7919 * epoch``, as in the JAX app.
     Returns the final accuracy; a sentry halt raises ``SentryHalt``.
     ``result`` receives the state, the trainer, the metrics, the sentry,
     the per-round losses (``losses``: (rounds, W, tau)), each round's
@@ -261,18 +289,28 @@ def train(args, train_parts: Sequence[Partition],
             f"{[len(x) for x, _ in test_parts]} (fewer val shards than "
             "workers? reduce --workers or add shards)"
         )
-    # per-worker samplers: a contiguous random window of tau per round
-    samplers = [
-        MinibatchSampler({"data": x, "label": y.astype(np.float32)},
-                         num_sampled_batches=args.tau, seed=args.seed + w)
-        for w, (x, y) in enumerate(train_parts)
-    ]
+    # per-worker samplers: a contiguous random window of tau per round,
+    # seeded by the worker and (a reshuffled epoch draws afresh) the epoch
+    def build_samplers(parts, epoch=0):
+        return [
+            MinibatchSampler({"data": x, "label": y.astype(np.float32)},
+                             num_sampled_batches=args.tau,
+                             seed=args.seed + w + 7919 * epoch)
+            for w, (x, y) in enumerate(parts)
+        ]
+
+    shuffle = args.shuffle_epochs > 1
+    if shuffle and reload is None:
+        raise ValueError("imagenet_app.train: --shuffle_epochs needs reload")
+    rounds_per_epoch = -(-args.rounds // args.shuffle_epochs) if shuffle else 0
+    epoch_state = {"epoch": 0, "samplers": build_samplers(train_parts)}
     test_batches, test_counts = ParameterAveragingTrainer.pad_partitions(
         [{"data": x, "label": y.astype(np.float32)} for x, y in test_parts]
     )
     num_test = int(np.asarray(test_counts).sum())
     solver = build_solver(args, mean, device, solver_param)
-    metrics = TrainingMetrics()
+    if metrics is None:
+        metrics = TrainingMetrics()
     # no snapshots: rollback degrades to halt, commits are progress marks
     guards = RoundGuards.from_args(
         args, solver, n_workers, app="imagenet_app", log=log, metrics=metrics,
@@ -293,10 +331,26 @@ def train(args, train_parts: Sequence[Partition],
                     i=r)
         return primary_accuracy(scores) / max(1, num_test)
 
-    feed = RoundFeed(
-        lambda r: stack_windows([s.next_window() for s in samplers]),
-        device, pipelined=not args.serial_feed, num_rounds=args.rounds,
-    )
+    def draw_windows(r):
+        # on the feed's producer thread, once a round in order: at an
+        # epoch's first round the shard assignment re-deals and the
+        # partitions reload (through the chunk cache, local reads)
+        if shuffle:
+            e = min(r // rounds_per_epoch, args.shuffle_epochs - 1)
+            if e != epoch_state["epoch"]:
+                parts = reload(e)
+                if min(len(x) for x, _ in parts) < args.tau:
+                    raise RuntimeError(
+                        f"epoch {e}: a worker's reshuffled partition has "
+                        f"fewer than tau={args.tau} minibatches; sizes "
+                        f"{[len(x) for x, _ in parts]}")
+                epoch_state.update(epoch=e, samplers=build_samplers(parts, e))
+                log.log(f"epoch {e}: shard ownership reshuffled "
+                        "(shuffle-by-assignment)", i=r)
+        return stack_windows([s.next_window() for s in epoch_state["samplers"]])
+
+    feed = RoundFeed(draw_windows, device, pipelined=not args.serial_feed,
+                     num_rounds=args.rounds)
     round_seconds, round_losses, accuracies = [], [], []
     try:
         for r in range(args.rounds):
@@ -339,11 +393,16 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     from sparknet_tpu_torch.utils.devices import resolve_device
     from sparknet_tpu_torch.utils.trainlog import TrainingLog
 
+    from sparknet_tpu_torch import obs
+    from sparknet_tpu_torch.obs.metrics import TrainingMetrics
+
     device = resolve_device(args.device)
     n_workers = args.workers or (
         torch.cuda.device_count() if device.type == "cuda" else 1
     )
+    metrics = TrainingMetrics()
     with tempfile.TemporaryDirectory(prefix="imagenet_synth_") as synth, \
+            obs.installed_metrics(metrics), \
             TrainingLog(tag="imagenet") as log:
         data_dir = args.data
         if data_dir is None:
@@ -361,11 +420,11 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             )
             log.log(f"synthesized JPEG tar shards in {data_dir}")
         log.log(f"num workers: {n_workers}")
-        train_parts, test_parts, mean = data_stage(args, n_workers, log,
-                                                   data_dir)
+        train_parts, test_parts, mean, reload = data_stage(
+            args, n_workers, log, data_dir)
         try:
             acc = train(args, train_parts, test_parts, mean, device, log,
-                        result)
+                        result, reload=reload, metrics=metrics)
         except SentryHalt as e:
             log.log(f"training halted by the health sentry: {e}")
             return 1

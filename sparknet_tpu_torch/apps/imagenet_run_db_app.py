@@ -42,9 +42,18 @@ schedule).  ``--elastic`` only logs that membership is wired in
 ``cifar_app`` and ``lm_app``, as the JAX app does.  The jobstate
 carries the sentry's state.
 
-An object-store ``--db_dir``, ``--cache_dir``/``--cache_bytes``,
-``--shuffle_epochs`` > 1, ``--stale_bound`` > 0, ``--obs`` and
-``--profile`` are not yet ported and exit saying so.
+``--db_dir`` may be an object-store URL (``gs://``, ``s3://``,
+``http(s)://``, ``file://``): the DB files are staged through the chunk
+cache (``--cache_dir``, ``--cache_bytes``) to verified local paths, so a
+restarted run re-verifies local bytes instead of downloading them again.
+As in the JAX app, a remote ``--db_dir`` with ``--snapshot_every`` or
+``--resume`` needs a stable ``--cache_dir`` or ``--snapshot_prefix``.
+``--shuffle_epochs N`` splits ``--rounds`` into N epochs and permutes
+which worker reads which train DB between them
+(``shuffle.permutation(W, seed, epoch)``, keyed by the absolute round);
+each DB is still read tau batches a round, so a resumed run's readers
+open where the uninterrupted run's would be.  ``--stale_bound`` > 0,
+``--obs`` and ``--profile`` are not yet ported and exit saying so.
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import tempfile
 import time
 from typing import List, Optional
 
@@ -60,9 +70,6 @@ import torch
 
 TAU = 50  # syncInterval, ImageNetRunDBApp.scala:104
 _MODELS = ("caffenet", "alexnet")
-
-# flags of the JAX app that later slices bring: (flag, takes a value)
-_NOT_YET_PORTED = (("--cache_dir", True), ("--cache_bytes", True))
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -73,7 +80,8 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sparknet_tpu_torch.apps.imagenet_run_db_app")
     p.add_argument("--db_dir", required=True,
-                   help="the directory imagenet_create_db_app wrote")
+                   help="what imagenet_create_db_app wrote: a directory or "
+                   "a gs://|s3://|http(s)://|file:// url")
     p.add_argument("--model", default="caffenet", help="caffenet | alexnet")
     p.add_argument("--rounds", type=int, default=10,
                    help="rounds this invocation runs")
@@ -92,7 +100,16 @@ def _parser() -> argparse.ArgumentParser:
                    help="continue from the newest valid snapshot")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--shuffle_epochs", type=int, default=0,
-                   help="not yet ported above 1")
+                   help="split --rounds into N epochs and re-permute which "
+                   "worker reads which train DB between them (seeded "
+                   "shuffle-by-assignment; no bytes move); 0/1 = fixed")
+    p.add_argument("--cache_dir", default=None,
+                   help="when --db_dir is an object-store url, stage the DB "
+                   "files through the chunk cache rooted here (default: a "
+                   "temporary directory)")
+    p.add_argument("--cache_bytes", default="0",
+                   help="chunk-cache LRU byte budget, e.g. 512M / 8G "
+                   "(0 = unbounded)")
     p.add_argument("--serial_feed", action="store_true",
                    help="assemble and copy each round's batch on the "
                    "training thread instead of the producer thread")
@@ -103,31 +120,24 @@ def _parser() -> argparse.ArgumentParser:
     comm.add_cli_args(p)  # --compress / --overlap_avg
     hierarchy.add_cli_args(p)  # --slices / --cross_slice_every / --elastic
     journal.add_cli_args(p)  # --journal / --no_journal / ...
-    for flag, takes_value in _NOT_YET_PORTED:
-        if takes_value:
-            p.add_argument(flag, default=None, help="not yet ported")
-        else:
-            p.add_argument(flag, action="store_true", help="not yet ported")
     return p
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     """The app's arguments, refusing what is not yet ported."""
+    from sparknet_tpu_torch.data import object_store
+
     args = _parser().parse_args(argv)
-    for flag, _ in _NOT_YET_PORTED:
-        if getattr(args, flag.lstrip("-")) not in (None, False):
-            raise SystemExit(
-                f"imagenet_run_db: {flag} is not yet ported to "
-                "sparknet_tpu_torch"
-            )
-    if args.shuffle_epochs > 1:
-        raise SystemExit("imagenet_run_db: --shuffle_epochs > 1 is not yet "
-                         "ported to sparknet_tpu_torch")
-    if "://" in args.db_dir:
+    if (object_store.is_object_store_url(args.db_dir)
+            and args.cache_dir is None and args.snapshot_prefix is None
+            and (args.resume or args.snapshot_every)):
+        # snapshots would land in a fresh temporary cache directory that
+        # the next invocation cannot find
         raise SystemExit(
-            "imagenet_run_db: an object-store --db_dir is not yet ported to "
-            "sparknet_tpu_torch; give a local directory"
-        )
+            "imagenet_run_db: a remote --db_dir with --snapshot_every/"
+            "--resume needs a stable --cache_dir or an explicit "
+            "--snapshot_prefix (snapshots in a temp-dir cache would be "
+            "unfindable on restart)")
     if args.model not in _MODELS:
         raise SystemExit(
             f"imagenet_run_db: --model {args.model} is not yet ported to "
@@ -161,26 +171,47 @@ def build_solver(model: str, info: dict, crop: int, device):
                   device=device)
 
 
+def db_files(db_dir: str, cache_dir: Optional[str] = None, cache_bytes=0,
+             log=None):
+    """``name -> local path`` of the DB directory's files.  An object
+    store's files are staged through a ``ChunkCache`` rooted at
+    ``cache_dir`` (a temporary directory when None): CRC-verified,
+    pinned local paths.  Returns ``(path_of, cache root or None)``."""
+    from sparknet_tpu_torch.data import chunk_cache, object_store
+
+    if not object_store.is_object_store_url(db_dir):
+        return (lambda name: os.path.join(db_dir, name)), None
+    root = cache_dir or tempfile.mkdtemp(prefix="sparknet_db_cache_")
+    store = object_store.open_store(db_dir)
+    cache = chunk_cache.ChunkCache(
+        root, byte_budget=chunk_cache.parse_bytes(cache_bytes))
+    if log is not None:
+        log.log(f"staging {db_dir} through chunk cache {root}")
+    return (lambda name: cache.local_path(store, name)), root
+
+
 def open_pipes(db_dir: str, info: dict, crop: int, mirror: bool, seed: int,
-               start: int = 0, native: bool = True):
+               start: int = 0, native: bool = True, path_of=None):
     """Per-worker train pipelines (random crop + mirror, seeded
     ``seed + w``, opened at record sequence ``start``) and test pipelines
-    (centre crop, seeded ``seed``) over the DB directory."""
+    (centre crop, seeded ``seed``) over the DB directory (its files found
+    through ``path_of``, ``db_files``'s, when given)."""
     from sparknet_tpu_torch import runtime
     from sparknet_tpu_torch.io import load_mean_image
 
+    path_of = path_of or db_files(db_dir)[0]
     full = int(info["full_size"])
-    mean = load_mean_image(os.path.join(db_dir, "imagenet_mean.binaryproto"))
+    mean = load_mean_image(path_of("imagenet_mean.binaryproto"))
     common = dict(shape=(3, full, full), crop=crop, mean=mean, native=native)
     pipes, test_pipes = [], []
     try:
         for w in range(int(info["workers"])):
             pipes.append(runtime.DataPipeline(
-                os.path.join(db_dir, f"ilsvrc12_train_db_{w}.sndb"),
+                path_of(f"ilsvrc12_train_db_{w}.sndb"),
                 batch_size=int(info["train_batch"]), mirror=mirror,
                 train=True, seed=seed + w, start=start, **common))
             test_pipes.append(runtime.DataPipeline(
-                os.path.join(db_dir, f"ilsvrc12_val_db_{w}.sndb"),
+                path_of(f"ilsvrc12_val_db_{w}.sndb"),
                 batch_size=int(info["test_batch"]), train=False, seed=seed,
                 **common))
     except BaseException:
@@ -199,12 +230,10 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     snapshot a resumed run started from (``resumed_from``) and the
     snapshots written (solverstate paths)."""
     args = parse_args(argv)
-    prefix = args.snapshot_prefix or os.path.join(args.db_dir, "imagenet_db")
-    from sparknet_tpu_torch.io import checkpoint
-
-    if args.resume and not checkpoint.find_snapshots(prefix):
-        raise SystemExit(f"--resume: no {prefix}_iter_*.solverstate*")
     from sparknet_tpu_torch import obs
+    from sparknet_tpu_torch.data import object_store
+    from sparknet_tpu_torch.io import checkpoint
+    from sparknet_tpu_torch.obs.metrics import TrainingMetrics
     from sparknet_tpu_torch.parallel import hierarchy
 
     obs.check_args(args, "imagenet_run_db")
@@ -216,36 +245,44 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     )
 
     device = resolve_device(args.device)
-    with open(os.path.join(args.db_dir, "imagenet_db_info.json")) as f:
-        info = json.load(f)
+    metrics = TrainingMetrics()
     # on every run, before the first CUDA op: an uninterrupted and a
     # resumed run take the same (deterministic) algorithms
-    with deterministic_algorithms():
-        return _train(args, info, prefix, device, result)
+    with deterministic_algorithms(), obs.installed_metrics(metrics):
+        return _train(args, device, metrics, result)
 
 
-def _train(args, info, prefix, device, result) -> int:
+def _train(args, device, metrics, result) -> int:
     from sparknet_tpu_torch.apps.guards import RoundGuards
     from sparknet_tpu_torch.apps.scores import primary_accuracy
-    from sparknet_tpu_torch.data import RoundFeed, stack_windows
+    from sparknet_tpu_torch.data import RoundFeed, shuffle, stack_windows
     from sparknet_tpu_torch.io import checkpoint
     from sparknet_tpu_torch.io.journal import default_journal_path
     from sparknet_tpu_torch.obs.health import SentryHalt
-    from sparknet_tpu_torch.obs.metrics import TrainingMetrics
     from sparknet_tpu_torch.parallel import first_worker
     from sparknet_tpu_torch.utils.trainlog import TrainingLog
 
-    n_workers = int(info["workers"])
-    full = int(info["full_size"])
-    crop = args.crop or (227 if full >= 256 else (full * 7) // 8)
-    train_batch = int(info["train_batch"])
-    counts = np.asarray(info["test_batches"], np.int32)
-    num_test_mbs = int(counts.sum())
     code = 0
     with TrainingLog(tag="imagenet_run_db") as log:
+        # an object-store --db_dir stages its files through the chunk
+        # cache to verified local paths, and its default snapshot prefix
+        # lies in the cache
+        path_of, cache_root = db_files(args.db_dir, args.cache_dir,
+                                       args.cache_bytes, log)
+        prefix = args.snapshot_prefix or os.path.join(
+            cache_root or args.db_dir, "imagenet_db")
+        if args.resume and not checkpoint.find_snapshots(prefix):
+            raise SystemExit(f"--resume: no {prefix}_iter_*.solverstate*")
+        with open(path_of("imagenet_db_info.json")) as f:
+            info = json.load(f)
+        n_workers = int(info["workers"])
+        full = int(info["full_size"])
+        crop = args.crop or (227 if full >= 256 else (full * 7) // 8)
+        train_batch = int(info["train_batch"])
+        counts = np.asarray(info["test_batches"], np.int32)
+        num_test_mbs = int(counts.sum())
         log.log(f"testPartitionSizes = {info['test_batches']}")
         solver = build_solver(args.model, info, crop, device)
-        metrics = TrainingMetrics()
         guards = RoundGuards.from_args(
             args, solver, n_workers, app="imagenet_run_db", log=log,
             metrics=metrics, journal_path=default_journal_path(prefix),
@@ -299,7 +336,7 @@ def _train(args, info, prefix, device, result) -> int:
         # next: the rounds before start_round consumed tau batches each
         pipes, test_pipes = open_pipes(
             args.db_dir, info, crop, not args.no_mirror, args.seed,
-            start=start_round * args.tau * train_batch)
+            start=start_round * args.tau * train_batch, path_of=path_of)
         feed = None
         round_seconds, round_losses, smoothed = [], [], []
         accuracies, snapshots = [], []
@@ -324,9 +361,24 @@ def _train(args, info, prefix, device, result) -> int:
                                                        counts=counts)
                 return primary_accuracy(scores) / max(1, num_test_mbs)
 
+            # --shuffle_epochs: worker w reads train DB order[w] in the
+            # epoch, a seeded permutation keyed by the absolute round, so a
+            # resumed run re-derives the table; every DB still yields tau
+            # batches a round
+            shuffled = args.shuffle_epochs > 1
+            rounds_per_epoch = (-(-args.rounds // args.shuffle_epochs)
+                                if shuffled else 0)
+
+            def pipe_order(r):
+                if not shuffled:
+                    return range(n_workers)
+                e = min(r // rounds_per_epoch, args.shuffle_epochs - 1)
+                return shuffle.permutation(n_workers, args.seed, e)
+
             def assemble(r):
                 windows = []
-                for pipe in pipes:
+                for p in pipe_order(r):
+                    pipe = pipes[p]
                     batches = [pipe.next() for _ in range(args.tau)]
                     windows.append({
                         "data": np.stack([b[0] for b in batches]),

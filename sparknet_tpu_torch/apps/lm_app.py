@@ -13,8 +13,13 @@ Run (on the card; ``--device cpu`` runs the plain versions on the CPU)::
     python -m sparknet_tpu_torch.apps.lm_app --dim 256 --depth 4 \\
         --heads 4 --seq_len 256 [--corpus DIR] [--rounds 40]
 
-A seeded synthetic corpus is written to a temporary directory when
-``--corpus`` is omitted.
+``--corpus`` is a directory or an object-store URL (``gs://``,
+``s3://``, ``http(s)://``, ``file://``) whose ``*.txt`` documents are
+fetched through the chunk cache (``--cache_dir``, ``--cache_bytes``; a
+temporary cache by default).  When it is omitted a seeded synthetic
+corpus is written to a temporary directory and read back through the
+cache over ``file://``, as the JAX app does: the LM's data path is the
+verified-fetch path.
 
 Snapshots: with ``--snapshot_prefix P --snapshot_every k`` every k-th
 round boundary publishes worker 0's consensus params and momentum
@@ -38,8 +43,8 @@ boundary and replays only the round that was in flight), ``--slices``
 marks this process's slice leaving).  The jobstate carries the sentry
 and the membership view too.
 
-``--sp`` > 1, ``--cache_dir``, ``--cache_bytes``, ``--stale_bound`` > 0,
-``--obs`` and ``--profile`` are not yet ported and exit saying so.
+``--sp`` > 1, ``--stale_bound`` > 0, ``--obs`` and ``--profile`` are
+not yet ported and exit saying so.
 """
 
 from __future__ import annotations
@@ -54,9 +59,6 @@ import numpy as np
 import torch
 
 TAU = 4
-
-# flags of the JAX app that later slices bring: (flag, takes a value)
-_NOT_YET_PORTED = (("--cache_dir", True), ("--cache_bytes", True))
 
 
 def add_lm_model_args(parser) -> None:
@@ -102,8 +104,16 @@ def _parser() -> argparse.ArgumentParser:
 
     p = argparse.ArgumentParser(prog="sparknet_tpu_torch.apps.lm_app")
     p.add_argument("--corpus", default=None,
-                   help="local directory of *.txt documents; omitted = a "
-                   "seeded synthetic corpus")
+                   help="text corpus root: a directory or an object-store "
+                   "URL (gs:// s3:// http(s):// file://) of *.txt documents, "
+                   "fetched through the chunk cache; omitted = a seeded "
+                   "synthetic corpus read through a file:// cache")
+    p.add_argument("--cache_dir", default=None,
+                   help="chunk-cache root for the corpus; a STABLE path makes "
+                   "re-runs I/O-free (default: a temporary directory)")
+    p.add_argument("--cache_bytes", default="0",
+                   help="chunk-cache LRU byte budget, e.g. 512M / 8G "
+                   "(0 = unbounded)")
     p.add_argument("--workers", type=int, default=0,
                    help="dp workers stacked on the device (0 = the device "
                    "count)")
@@ -138,11 +148,6 @@ def _parser() -> argparse.ArgumentParser:
     comm.add_cli_args(p)  # --compress / --overlap_avg
     hierarchy.add_cli_args(p)  # --slices / --cross_slice_every / --elastic
     journal.add_cli_args(p)  # --journal / --no_journal / ...
-    for flag, takes_value in _NOT_YET_PORTED:
-        if takes_value:
-            p.add_argument(flag, default=None, help="not yet ported")
-        else:
-            p.add_argument(flag, action="store_true", help="not yet ported")
     return p
 
 
@@ -195,11 +200,6 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             "lm_app: --sp > 1 (the sequence-parallel ring) is not yet "
             "ported to sparknet_tpu_torch"
         )
-    for flag, _ in _NOT_YET_PORTED:
-        if getattr(args, flag.lstrip("-")) not in (None, False):
-            raise SystemExit(
-                f"lm_app: {flag} is not yet ported to sparknet_tpu_torch"
-            )
     from sparknet_tpu_torch import obs
     from sparknet_tpu_torch.parallel import hierarchy
 
@@ -249,15 +249,20 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
                          f"under {prefix!r}")
     # on every run, before the first CUDA op: an uninterrupted and a
     # resumed run take the same (deterministic) algorithms
-    with deterministic_algorithms(), \
+    metrics = TrainingMetrics()
+    with deterministic_algorithms(), obs.installed_metrics(metrics), \
             tempfile.TemporaryDirectory(prefix="lm_synth_corpus_") as synth, \
             TrainingLog(tag="lm") as log:
         corpus = args.corpus
         if corpus is None:
-            corpus = synth
-            write_synthetic_corpus(corpus, seed=args.seed)
-            log.log(f"synthesized corpus in {corpus}")
-        docs = load_corpus(corpus)
+            write_synthetic_corpus(synth, seed=args.seed)
+            # even the synthetic corpus goes through the object store and
+            # the chunk cache: the LM's data path is the verified fetch
+            corpus = "file://" + os.path.abspath(synth)
+            log.log(f"synthesized corpus at {corpus}")
+        docs = load_corpus(
+            corpus, cache_dir=args.cache_dir or os.path.join(synth, ".cache"),
+            cache_bytes=args.cache_bytes)
         log.log(f"corpus: {len(docs)} documents, "
                 f"{sum(len(d) for d in docs)} bytes")
         lm, solver = build_lm_solver(args, device)
@@ -273,7 +278,6 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         else:
             path = "plain versions of the flash kernels (CPU tensors)"
         log.log(f"attention path: {path}")
-        metrics = TrainingMetrics()
         metrics.kernel_path.labels("attention").set(1.0 if lm.on_kernel else 0.0)
         guards = RoundGuards.from_args(
             args, solver, n_workers, app="lm_app", log=log, metrics=metrics,

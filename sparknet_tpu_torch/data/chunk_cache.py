@@ -1,7 +1,10 @@
 """Host-local content-addressed chunk cache in front of the object stores.
 
-The port of ``sparknet_tpu/data/chunk_cache.py`` (stdlib only); the
-serving delivery watcher stages verified snapshots through it.
+The port of ``sparknet_tpu/data/chunk_cache.py`` (stdlib only).  The
+training data plane reads object-store roots through it (the ImageNet
+loader, the DB app's staged DB files, text corpora, ``cli train``'s
+staged CIFAR directory), and the serving delivery watcher stages
+verified snapshots through it.
 
 SparkNet kept minibatch RDDs **resident** across iterations (PAPER.md
 L7) so an epoch cost one pass over the network, ever.  The framework
@@ -9,7 +12,7 @@ deliberately streams tar shards "with no staging"
 (``data/object_store.py``) — correct for a single pass, but a
 multi-epoch run re-downloads every worker's partition every epoch:
 network cost O(workers x epochs) where the reference paid O(1).
-This module is the byte half of the fix (the shuffle plan is the
+This module is the byte half of the fix (``data/shuffle.py`` is the
 metadata half): a bounded, host-local,
 content-addressed cache that fronts any ``ObjectStore``, so epoch 2+
 reads the local disk and the network cost of a run is flat in epochs.
@@ -43,9 +46,11 @@ Bit-identity contract: cached bytes are the exact bytes the store
 streamed (tested), so ``RoundFeed``-fed training trajectories are
 byte-identical with the cache on or off.
 
-Telemetry: the per-cache ``stats()`` counters (hits, misses,
-evictions, bytes), ``cache_read``/``cache_fetch`` spans (cat ``cache``)
-on the tracer, and a ``cache_quarantine`` instant per corrupt entry.
+Telemetry: ``sparknet_cache_{hits,misses,evictions,bytes}_total``
+through the TrainingMetrics the app installed (``obs.training_metrics``),
+the per-cache ``stats`` counters, ``cache_read``/``cache_fetch`` spans
+(cat ``cache``) on the tracer, and a ``cache_quarantine`` instant per
+corrupt entry.
 """
 
 from __future__ import annotations
@@ -274,6 +279,7 @@ class ChunkCache:
     def _evict_to_budget(self, keep: Optional[str] = None) -> None:
         if self.byte_budget <= 0:
             return
+        tm = obs.training_metrics()
         with self._lock:
             if self._approx_bytes <= self.byte_budget:
                 return  # cheap common case: no directory scan
@@ -295,6 +301,8 @@ class ChunkCache:
                     pass
             total -= size
             self._count("evictions")
+            if tm is not None:
+                tm.cache_evictions.inc()
         with self._lock:
             self._approx_bytes = total  # resync to the authoritative scan
 
@@ -359,6 +367,7 @@ class ChunkCache:
         url = url if url is not None else getattr(store, "url", "")
         key = self.key_for(url, name)
         chunk_path, _meta_path = self._paths(key)
+        tm = obs.training_metrics()
         # per-KEY serialization: two readers of the same chunk never
         # double-fetch in-process, while a miss on one chunk (network-
         # bound, possibly seconds) never blocks a hit on another.  A
@@ -379,6 +388,9 @@ class ChunkCache:
                         data = self._verify(chunk_path, _meta_path)
                         self._count("hits")
                         self._count("bytes_from_cache", len(data))
+                        if tm is not None:
+                            tm.cache_hits.inc()
+                            tm.cache_bytes.labels("hit").inc(len(data))
                         try:  # LRU recency rides the filesystem mtime
                             os.utime(chunk_path)
                         except OSError:
@@ -390,7 +402,12 @@ class ChunkCache:
                         # the corruption
                         self._quarantine(key, name)
                 self._count("misses")
-                return self._fetch(store, name, url, key)
+                if tm is not None:
+                    tm.cache_misses.inc()
+                data, path = self._fetch(store, name, url, key)
+                if tm is not None:
+                    tm.cache_bytes.labels("miss").inc(len(data))
+                return data, path
 
 
 def _read_with_info(store, name: str):

@@ -4,10 +4,13 @@ and the streaming mean image.
 
 The port's own copy of ``sparknet_tpu/data/imagenet.py`` (numpy, tarfile
 and PIL only; reference: ``ImageNetLoader.scala:25-86``,
-``ScaleAndConvert.scala:16-91``, ``ComputeMean.scala:40-76``), cut to a
-local root: an object-store URL (``gs://``, ``s3://``, ``http(s)://``,
-``file://``) and its chunk cache, and the cross-epoch shuffle
-(``partitions(epoch=...)``), are not yet ported and raise saying so.
+``ScaleAndConvert.scala:16-91``, ``ComputeMean.scala:40-76``).  The root
+is a local directory or an object-store URL (``gs://``, ``s3://``,
+``http(s)://``, ``file://``, ``data/object_store.py``); with
+``cache_dir`` the store is fronted by the host-local chunk cache
+(``data/chunk_cache.py``), so epoch 1 fills it and later epochs read
+local disk.  ``partitions(epoch=...)`` deals the shards through the
+cross-epoch shuffle (``data/shuffle.py``).
 
 Minibatches stay uint8 at full size; the crop, mirror and mean
 subtraction run on the device (``data/transforms.py``).  PIL is imported
@@ -31,28 +34,35 @@ __all__ = [
     "write_synthetic_imagenet",
 ]
 
-_URL_SCHEMES = ("gs://", "s3://", "http://", "https://", "file://")
-
-
 class ImageNetLoader:
-    """Lists the data shards under a local root and streams
-    ``(jpeg_bytes, label)`` pairs out of tar shards or loose image files;
-    ``prefix`` filtering matches the reference's ListObjects-with-prefix
-    (``ImageNetApp.scala:60-63``)."""
+    """Lists the data shards under a root (a directory or an object-store
+    URL) and streams ``(jpeg_bytes, label)`` pairs out of tar shards or
+    loose image files; ``prefix`` filtering matches the reference's
+    ListObjects-with-prefix (``ImageNetApp.scala:60-63``).  With
+    ``cache_dir`` an object store's bytes are read through a
+    ``ChunkCache`` of ``cache_bytes`` (0 = unbounded), ``self.cache``."""
 
     IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
 
-    def __init__(self, root: str):
-        if root.startswith(_URL_SCHEMES):
-            raise NotImplementedError(
-                f"ImageNetLoader: object-store roots ({root!r}) are not yet "
-                "ported to sparknet_tpu_torch; give a local directory"
-            )
+    def __init__(self, root: str, cache_dir: Optional[str] = None,
+                 cache_bytes: int = 0):
+        from sparknet_tpu_torch.data import chunk_cache, object_store
+
         self.root = root
+        self._store = (object_store.open_store(root)
+                       if object_store.is_object_store_url(root) else None)
+        self.cache = None
+        if self._store is not None and cache_dir:
+            self.cache = chunk_cache.ChunkCache(cache_dir,
+                                                byte_budget=cache_bytes)
+            self._store = chunk_cache.CachingStore(self._store, self.cache)
 
     def list_shards(self, prefix: str = "") -> List[str]:
         """All tar shards (or loose images) whose path relative to root
         starts with ``prefix``, sorted."""
+        if self._store is not None:
+            return [n for n in self._store.list(prefix)
+                    if n.endswith(".tar") or n.lower().endswith(self.IMAGE_EXTS)]
         out: List[str] = []
         for dirpath, _, files in os.walk(self.root):
             for fname in files:
@@ -68,8 +78,11 @@ class ImageNetLoader:
     def load_labels(self, labels_path: str) -> Dict[str, int]:
         """``train.txt``-format lines ("<path> <label>") as a
         basename -> label map (ImageNetLoader.scala:41-54)."""
-        with open(os.path.join(self.root, labels_path), "r") as f:
-            lines = f.read().splitlines()
+        if self._store is not None:
+            lines = self._store.read(labels_path).decode().splitlines()
+        else:
+            with open(os.path.join(self.root, labels_path), "r") as f:
+                lines = f.read().splitlines()
         labels: Dict[str, int] = {}
         for line in lines:
             parts = line.split()
@@ -82,9 +95,17 @@ class ImageNetLoader:
         self, shard_path: str, labels: Dict[str, int]
     ) -> Iterator[Tuple[bytes, int]]:
         """Stream ``(image_bytes, label)`` out of one shard, keyed into the
-        label map by basename; files absent from the map are dropped."""
+        label map by basename; files absent from the map are dropped.  An
+        object store's tar shard is decoded as a stream
+        (``TarArchiveInputStream(getObjectContent)``)."""
         if shard_path.endswith(".tar"):
-            with tarfile.open(shard_path, "r") as tar:
+            if self._store is not None:
+                stream = self._store.open(shard_path)
+                tar = tarfile.open(fileobj=stream, mode="r|*")
+            else:
+                stream = None
+                tar = tarfile.open(shard_path, "r")
+            with tar:
                 for entry in tar:
                     if not entry.isfile():
                         continue
@@ -95,11 +116,16 @@ class ImageNetLoader:
                     if f is None:
                         continue
                     yield f.read(), labels[name]
+            if stream is not None:
+                stream.close()
         else:
             name = os.path.basename(shard_path)
             if name in labels:
-                with open(shard_path, "rb") as f:
-                    yield f.read(), labels[name]
+                if self._store is not None:
+                    yield self._store.read(shard_path), labels[name]
+                else:
+                    with open(shard_path, "rb") as f:
+                        yield f.read(), labels[name]
 
     def partitions(
         self,
@@ -107,14 +133,14 @@ class ImageNetLoader:
         labels_path: str,
         num_parts: Optional[int] = None,
         epoch: Optional[int] = None,
+        shuffle_seed: int = 0,
     ) -> List[Iterator[Tuple[bytes, int]]]:
-        """Shards dealt round-robin (``shards[worker::n]``) into
-        ``num_parts`` lazy partitions (default one per shard)."""
-        if epoch is not None:
-            raise NotImplementedError(
-                "ImageNetLoader.partitions: the cross-epoch shuffle "
-                "(epoch=) is not yet ported to sparknet_tpu_torch"
-            )
+        """Shards dealt into ``num_parts`` lazy partitions (default one
+        per shard): round-robin (``shards[worker::n]``) with
+        ``epoch=None``, else the seeded assignment of
+        ``shuffle.assign(shards, n, shuffle_seed, epoch)``, pure in
+        ``(shuffle_seed, epoch)``: a reshuffle between epochs moves only
+        the table, and through a chunk cache repeat reads stay local."""
         shards = self.list_shards(prefix)
         if not shards:
             raise FileNotFoundError(
@@ -122,7 +148,13 @@ class ImageNetLoader:
             )
         labels = self.load_labels(labels_path)
         n = num_parts or len(shards)
-        assignment = [shards[w::n] for w in range(n)]
+        if epoch is None:
+            assignment = [shards[w::n] for w in range(n)]
+        else:
+            from sparknet_tpu_torch.data import shuffle
+
+            assignment = shuffle.assign(shards, n, seed=shuffle_seed,
+                                        epoch=epoch)
 
         def part(worker: int) -> Iterator[Tuple[bytes, int]]:
             for shard in assignment[worker]:

@@ -2,27 +2,41 @@
 
 The port of ``stack_windows`` and ``RoundFeed``
 (``sparknet_tpu/data/round_feed.py:80,107``).  Round r+1's worker-stacked
-tau-deep batch dict is assembled on a producer thread and copied to the
-device from there — from pinned host memory, ``non_blocking``, on a
-side stream — while round r trains; the consumer's stream waits on the
+tau-deep batch dict is assembled on the ``Prefetcher``'s producer thread
+(``data/prefetch.py``: its bounded queue and stall watchdog) and copied
+to the device from there — from pinned host memory, ``non_blocking``, on
+a side stream — while round r trains; the consumer's stream waits on the
 copy's event before it reads the batch.  ``pipelined=False`` assembles
 and copies on the caller's thread with identical results.
 
+With ``stall_timeout_s`` a producer silent that long raises
+``PrefetchStall`` on the consumer (``sparknet_feed_stalls_total`` counts
+it); ``restart(r)`` reaps that producer and respawns one from round r,
+the JAX package's recovery pattern.  Each round handed over sets
+``sparknet_feed_queue_depth`` to the rounds still buffered.
+
 Determinism contract: ``assemble`` is called exactly once per round, in
-round order, from a single thread, so a stateful sampler draws the same
-windows either way (and the same as the JAX package's feed for the
-same seed: the samplers are numpy-seeded).
+round order, from a single thread (a restart calls it again from round
+r on), so a stateful sampler draws the same windows either way (and the
+same as the JAX package's feed for the same seed: the samplers are
+numpy-seeded).
 """
 
 from __future__ import annotations
 
-import queue
-import threading
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from sparknet_tpu_torch import obs
+from sparknet_tpu_torch.data.prefetch import (  # noqa: F401 (re-exported)
+    PREFETCH_COUNT,
+    Prefetcher,
+    PrefetchStall,
+    consume,
+    place_batch,
+)
 from sparknet_tpu_torch.obs.trace import span
 
 Assemble = Callable[[int], Dict[str, np.ndarray]]
@@ -45,8 +59,9 @@ class RoundFeed:
     ``assemble(r)`` builds round ``r``'s host batch dict (numpy);
     ``next_round(r)`` returns it as tensors on ``device``.  Rounds are
     consumed consecutively from ``start_round`` (a resumed run's first
-    absolute round), ``num_rounds`` of them; ``stop()`` ends the
-    producer (idempotent)."""
+    absolute round), ``num_rounds`` of them; on a ``PrefetchStall`` the
+    consumer calls ``restart(r)`` and asks again; ``stop()`` ends the
+    producer (idempotent, reports whether its thread died)."""
 
     def __init__(
         self,
@@ -55,101 +70,84 @@ class RoundFeed:
         pipelined: bool = True,
         num_rounds: Optional[int] = None,
         start_round: int = 0,
+        stall_timeout_s: Optional[float] = None,
     ):
         self._assemble = assemble
         self._device = torch.device(device)
         self._pipelined = bool(pipelined)
         self._next_r = int(start_round)
         self._end = None if num_rounds is None else self._next_r + int(num_rounds)
-        # two rounds in flight ahead of the consumer (PREFETCH_COUNT - 1
-        # of the JAX feed)
-        self._q: "queue.Queue" = queue.Queue(maxsize=2)
-        self._stop = threading.Event()
-        self._thread: Optional[threading.Thread] = None
+        self._stall_timeout_s = stall_timeout_s
         self._copy_stream = None
+        self._pf: Optional[Prefetcher] = None
         if self._pipelined:
             if self._device.type == "cuda":
                 self._copy_stream = torch.cuda.Stream(self._device)
-            self._thread = threading.Thread(
-                target=self._produce, args=(self._next_r,),
-                name="round-feed", daemon=True,
-            )
-            self._thread.start()
-
-    def _place(self, host: Dict[str, np.ndarray]):
-        """Host dict -> (device dict, event the consumer must wait on)."""
-        if self._device.type == "cpu":
-            return {k: torch.from_numpy(np.ascontiguousarray(v))
-                    for k, v in host.items()}, None
-        stream = self._copy_stream or torch.cuda.current_stream(self._device)
-        with torch.cuda.stream(stream):
-            dev = {
-                k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-                .to(self._device, non_blocking=True)
-                for k, v in host.items()
-            }
-            ev = torch.cuda.Event()
-            ev.record(stream)
-        return dev, ev
+            self._spawn(self._next_r)
 
     def _produce_one(self, r: int):
         with span("assemble", round=r):
             host = self._assemble(r)
         nbytes = int(sum(v.nbytes for v in host.values()))
         with span("h2d", round=r, nbytes=nbytes):
-            return self._place(host)
+            return place_batch(host, self._device, self._copy_stream)
 
-    def _produce(self, r: int) -> None:
-        while not self._stop.is_set() and (self._end is None or r < self._end):
-            try:
-                item = ("ok", self._produce_one(r))
-            except BaseException as e:  # handed to the consumer
-                item = ("error", e)
-            while not self._stop.is_set():
-                try:
-                    self._q.put(item, timeout=0.1)
-                    break
-                except queue.Full:
-                    continue
-            if item[0] == "error":
-                return
-            r += 1
+    def _spawn(self, start_r: int) -> None:
+        # the round cursor is local to this producer generation: a thread
+        # that outlives stop() (wedged inside assemble past the reap
+        # timeout) bumps its own cursor, never the respawned one's
+        cur = [start_r]
+
+        def produce():
+            r = cur[0]
+            if self._end is not None and r >= self._end:
+                return None
+            item = self._produce_one(r)
+            cur[0] += 1
+            return item
+
+        # two rounds in flight ahead of the consumer (PREFETCH_COUNT - 1,
+        # as the JAX feed)
+        self._pf = Prefetcher(produce, depth=PREFETCH_COUNT - 1,
+                              stall_timeout_s=self._stall_timeout_s)
 
     def next_round(self, r: int) -> Dict[str, torch.Tensor]:
         """The device batch for absolute round ``r`` (consecutive rounds
-        only).  Raises ``StopIteration`` past ``num_rounds``."""
+        only; ``restart`` rewinds).  Raises ``PrefetchStall`` when the
+        producer goes silent past ``stall_timeout_s`` and
+        ``StopIteration`` past ``num_rounds``."""
         if r != self._next_r:
             raise ValueError(
                 f"RoundFeed is at round {self._next_r}, asked for {r} "
-                "(rounds are consumed in order)"
+                "(rounds are consumed in order; use restart() to rewind)"
             )
         if self._end is not None and r >= self._end:
             raise StopIteration
         if self._pipelined:
-            kind, payload = self._q.get()
-            if kind == "error":
-                raise payload
-            dev, ev = payload
+            dev, ev = next(self._pf)
         else:
             dev, ev = self._produce_one(r)
-        if ev is not None:
-            cur = torch.cuda.current_stream(self._device)
-            cur.wait_event(ev)
-            for t in dev.values():
-                t.record_stream(cur)  # allocated on the copy stream
+        tm = obs.training_metrics()
+        if tm is not None:
+            tm.feed_queue_depth.set(
+                self._pf.qsize() if self._pf is not None else 0)
         self._next_r = r + 1
-        return dev
+        return consume(dev, ev, self._device)
+
+    def restart(self, r: int) -> bool:
+        """Reap the current producer and respawn one from absolute round
+        ``r`` (the recovery after a ``PrefetchStall``).  Returns whether
+        the old producer's thread died."""
+        exited = True
+        if self._pf is not None:
+            exited = self._pf.stop()
+        self._next_r = r
+        if self._pipelined:
+            self._spawn(r)
+        return exited
 
     def stop(self, timeout: float = 5.0) -> bool:
         """Stop and reap the producer; returns whether it exited."""
-        self._stop.set()
-        th = self._thread
-        if th is None:
+        if self._pf is None:
             return True
-        while True:  # unblock a producer parked on a full queue
-            try:
-                self._q.get_nowait()
-            except queue.Empty:
-                break
-        th.join(timeout)
-        return not th.is_alive()
+        return self._pf.stop(timeout)

@@ -6,9 +6,9 @@ hashlib there too):
 - **ByteTokenizer** — byte-level tokenization (vocab = 256, the
   tokenizer IS the identity over utf-8 bytes).
 - **write_synthetic_corpus / load_corpus** — a seeded synthetic corpus
-  of ``doc_NNNN.txt`` files, and the documents of a plain local
-  directory (name-sorted).  Object-store URLs (fetched through the
-  chunk cache in the JAX package) are not yet ported and raise.
+  of ``doc_NNNN.txt`` files, and the documents (name-sorted) of a local
+  directory or of an object-store URL, fetched through the chunk
+  cache.
 - **TextWindowSampler** — windows drawn as a pure function of ``(seed,
   worker, absolute iter)`` via sha256-stable seeding, so the cursor IS
   the absolute iteration index; the windows are bit-identical to the
@@ -20,14 +20,12 @@ from __future__ import annotations
 import copy
 import hashlib
 import os
-from typing import Dict, List, Sequence, Union
+import tempfile
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
 DOC_SEP = b"\n"
-
-_URL_SCHEMES = ("gs://", "s3://", "http://", "https://", "file://")
-
 
 class ByteTokenizer:
     """Byte-level tokenizer: token ids ARE byte values (vocab 256)."""
@@ -77,14 +75,31 @@ def write_synthetic_corpus(
     return paths
 
 
-def load_corpus(root: str, suffix: str = ".txt") -> List[bytes]:
-    """Documents (as bytes, name-sorted) in the local directory
-    ``root``."""
-    if root.startswith(_URL_SCHEMES):
-        raise NotImplementedError(
-            f"corpus {root!r}: object-store corpora (the chunk cache) are "
-            "not yet ported to sparknet_tpu_torch; pass a local directory"
+def load_corpus(root: str, cache_dir: Optional[str] = None, cache_bytes=0,
+                suffix: str = ".txt") -> List[bytes]:
+    """Documents (as bytes, name-sorted) under ``root``.
+
+    An object-store URL (gs:// s3:// http(s):// file://) lists through
+    ``object_store.open_store`` and fetches every document through a
+    ``ChunkCache``: CRC-verified local entries, refetched only when
+    missing, evicted or corrupt.  A stable ``cache_dir`` makes re-runs
+    I/O-free after the first pass; the default is a fresh temporary
+    directory (verified fetches, no reuse across runs).  A local path
+    reads the files directly."""
+    from sparknet_tpu_torch.data import object_store
+
+    if object_store.is_object_store_url(root):
+        from sparknet_tpu_torch.data import chunk_cache
+
+        store = object_store.open_store(root)
+        cache = chunk_cache.ChunkCache(
+            cache_dir or tempfile.mkdtemp(prefix="sparknet_text_cache_"),
+            byte_budget=chunk_cache.parse_bytes(cache_bytes),
         )
+        names = sorted(n for n in store.list("") if n.endswith(suffix))
+        if not names:
+            raise FileNotFoundError(f"no {suffix} objects under {root!r}")
+        return [cache.get(store, n) for n in names]
     names = sorted(n for n in os.listdir(root) if n.endswith(suffix))
     if not names:
         raise FileNotFoundError(f"no {suffix} files under {root!r}")

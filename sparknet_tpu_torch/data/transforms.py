@@ -11,14 +11,20 @@ mean subtraction run there, on the solver's device, before the forward.
   (data_transformer.cpp:49-58), optional scale.
 - ``test_transform``: the centre crop at ``(H - crop) // 2``, the mean
   subtracted, no mirror.
+- ``finish_host_crops``: the device-side finish of the native reader's
+  ``u8_output`` mode (``runtime.DataPipeline(u8_output=True)``): uint8
+  crop windows arrive with their ``h_off``/``w_off``/``flip``; the mean
+  over each source window is subtracted, the scale applied and the
+  mirror taken on the device.
+- ``from_transform_param``: the phase's closure from a layer's
+  ``TransformationParameter`` (crop, mirror, scale, mean_file or
+  mean_value), with the no-crop branches.
 
 The offsets and flips are drawn from ``utils.rngs.generator(key)`` on the
 CPU and copied over (a few hundred bytes), so one key gives one crop on
 any device.  The bits cannot equal JAX's ``jax.random``; ``crop_batch``
 takes explicit offsets and flips, so the arithmetic is held to JAX's
-``_crop_one`` in the tests.  ``finish_host_crops`` and
-``from_transform_param`` are not ported: no layer on the ported paths
-uses them.
+``_crop_one`` in the tests.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ from sparknet_tpu_torch.utils import rngs
 
 Batch = Dict[str, torch.Tensor]
 
-__all__ = ["crop_batch", "test_transform", "train_transform"]
+__all__ = ["crop_batch", "finish_host_crops", "from_transform_param",
+           "test_transform", "train_transform"]
 
 
 def _placed_mean(mean: Optional[np.ndarray]):
@@ -140,3 +147,102 @@ def test_transform(
         return new
 
     return fn
+
+
+def finish_host_crops(
+    mean: Optional[np.ndarray],
+    scale: float = 1.0,
+    data_key: str = "data",
+) -> Callable[[Batch, Optional[int]], Batch]:
+    """The device-side finish for the native reader's ``u8_output``
+    mode: the host shipped uint8 crop windows and their geometry
+    (``h_off``/``w_off``/``flip`` batch keys); this subtracts the mean
+    over each image's source window of the full mean image
+    (data_transformer.cpp:49-58), or a per-channel mean, scales and
+    mirrors, and drops the geometry keys.  The key argument is ignored:
+    the randomness was drawn on the host."""
+    mean_on = _placed_mean(mean)
+
+    def fn(batch: Batch, rng=None) -> Batch:
+        x = batch[data_key].to(torch.float32)
+        n, _, crop_h, crop_w = x.shape
+        m = mean_on(x.device)
+        if m is not None:
+            if m.dim() == 1 or tuple(m.shape[-2:]) == (1, 1):
+                x = x - m.reshape(-1, 1, 1)
+            else:
+                dev = x.device
+                h_offs = batch["h_off"].to(dev, torch.int64)
+                w_offs = batch["w_off"].to(dev, torch.int64)
+                rows = (h_offs[:, None] + torch.arange(crop_h, device=dev))
+                cols = (w_offs[:, None] + torch.arange(crop_w, device=dev))
+                win = m.permute(1, 2, 0)[rows[:, :, None], cols[:, None, :]]
+                x = x - win.permute(0, 3, 1, 2)
+        if scale != 1.0:
+            x = x * scale
+        flips = batch["flip"].to(x.device).to(torch.bool)
+        x = torch.where(flips.reshape(n, 1, 1, 1), x.flip(-1), x)
+        new = {k: v for k, v in batch.items()
+               if k not in ("h_off", "w_off", "flip")}
+        new[data_key] = x
+        return new
+
+    return fn
+
+
+def from_transform_param(
+    tp,
+    mean: Optional[np.ndarray] = None,
+    phase: str = "TRAIN",
+    data_key: str = "data",
+):
+    """The phase's transform closure from a layer's
+    ``TransformationParameter``, the mean resolved as ``DataTransformer``
+    does (mean_file, else mean_value as a ``(C, 1, 1)`` mean;
+    data_transformer.cpp:19-47).  None when the config is the identity.
+    TRAIN: ``(batch, key) -> batch``; TEST: ``(batch) -> batch``.
+    Without a crop only the mean, the scale and (TRAIN) a per-image
+    mirror drawn from the key apply."""
+    if mean is None:
+        if tp.mean_file:
+            from sparknet_tpu_torch.io.caffemodel import load_mean_image
+
+            mean = load_mean_image(tp.mean_file)
+        elif tp.mean_value:
+            mean = np.asarray(tp.mean_value, np.float32)[:, None, None]
+    crop = int(tp.crop_size)
+    if crop <= 0 and mean is None and tp.scale == 1.0 and not tp.mirror:
+        return None
+    if crop > 0:
+        if phase == "TRAIN":
+            return train_transform(mean, crop, mirror=tp.mirror,
+                                   scale=tp.scale, data_key=data_key)
+        return test_transform(mean, crop, scale=tp.scale, data_key=data_key)
+    mean_on = _placed_mean(mean)
+
+    def finish(batch: Batch):
+        x = batch[data_key].to(torch.float32)
+        m = mean_on(x.device)
+        if m is not None:
+            x = x - m
+        if tp.scale != 1.0:
+            x = x * tp.scale
+        return x
+
+    def no_crop_train(batch: Batch, rng: int) -> Batch:
+        x = finish(batch)
+        if tp.mirror:
+            gen = rngs.generator(rng)
+            flip = (torch.rand((x.shape[0],), generator=gen) < 0.5).to(x.device)
+            x = torch.where(flip.reshape((-1,) + (1,) * (x.dim() - 1)),
+                            x.flip(-1), x)
+        new = dict(batch)
+        new[data_key] = x
+        return new
+
+    def no_crop_test(batch: Batch) -> Batch:
+        new = dict(batch)
+        new[data_key] = finish(batch)
+        return new
+
+    return no_crop_train if phase == "TRAIN" else no_crop_test

@@ -18,11 +18,15 @@ Layout matches Caffe so files interchange conceptually:
 
 File naming follows the reference: ``{prefix}_iter_{N}.caffemodel.h5`` and
 ``{prefix}_iter_{N}.solverstate.h5`` (``solver.cpp:459-476``).
+
+- ``HDF5Output`` layer files (``hdf5_output_layer.cpp``): one dataset per
+  tapped blob, named by the blob (``write_hdf5_output``;
+  ``write_net_outputs`` writes every HDF5Output layer of a net).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 
@@ -80,3 +84,29 @@ def load_state_hdf5(path: str):
         g = f["history"]
         leaves = [np.asarray(g[str(i)]) for i in range(len(g))]
     return it, step, leaves
+
+
+def write_hdf5_output(path: str, blobs: Dict[str, np.ndarray]) -> None:
+    """HDF5Output's host-side writer: one dataset per blob name
+    (``hdf5_output_layer.cpp`` writes its bottoms under their names)."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        for name, arr in blobs.items():
+            f.create_dataset(name, data=np.asarray(arr))
+
+
+def write_net_outputs(net) -> List[str]:
+    """Write each ``HDF5Output`` layer of ``net`` that has run to its
+    ``hdf5_output_param.file_name``: the bottoms of its last forward.
+    Returns the paths written."""
+    from sparknet_tpu_torch.ops.data_layers import HDF5Output
+
+    paths = []
+    for layer in net.layers:
+        if isinstance(layer, HDF5Output) and layer.tapped:
+            path = layer.lp.hdf5_output_param.file_name
+            write_hdf5_output(path, {k: t.cpu().numpy()
+                                     for k, t in layer.tapped.items()})
+            paths.append(path)
+    return paths

@@ -5,8 +5,9 @@ and ``builders.py`` its builders (CaffeNet, GoogLeNet, ResNet-50 and the
 CaffeNet variants, on the DSL of ``dsl.py``).  ``load_model(name)``
 returns the NetParameter (a builder model takes ``batch``/``image``/
 ``classes`` overrides), ``load_model_solver(name)`` the solver with the
-net embedded; ``build_transformer_lm(**kw)`` the LM as a Solver net.
-``deploy_variant`` of the JAX package is not yet ported.
+net embedded; ``build_transformer_lm(**kw)`` the LM as a Solver net;
+``deploy_variant(netp)`` a train/test net's deploy view (the serving
+engine builds its net from it, ``serve/engine.py``).
 """
 
 from __future__ import annotations

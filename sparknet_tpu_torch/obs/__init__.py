@@ -8,8 +8,15 @@ re-exported as the JAX package's ``obs`` does.  The state hooks below
 what the JAX package's ``/healthz`` sidecar reads; the sidecar itself
 (``--obs``) and the round profiler (``--profile``) are not ported.
 ``obs.health`` is imported on demand: it pulls torch.
+
+``set_training_metrics`` installs a run's ``TrainingMetrics`` where the
+data plane reads it (``training_metrics()``, the JAX package's hook):
+the chunk cache, the retry layer and the prefetch watchdog count into
+it.  The trainer and the comm plane record into the object they are
+handed.
 """
 
+import contextlib
 from typing import Optional
 
 from sparknet_tpu_torch.obs import flight  # noqa: F401
@@ -21,6 +28,31 @@ _unhealthy_reason: Optional[str] = None
 # their exported state
 _sentry = None
 _membership = None
+_training_metrics = None
+
+
+def set_training_metrics(metrics):
+    """Install the run's TrainingMetrics for the data plane (None
+    clears); returns the one it replaces."""
+    global _training_metrics
+    prev, _training_metrics = _training_metrics, metrics
+    return prev
+
+
+def training_metrics():
+    """The installed TrainingMetrics, or None."""
+    return _training_metrics
+
+
+@contextlib.contextmanager
+def installed_metrics(metrics):
+    """``set_training_metrics(metrics)`` for the block, the previous one
+    put back after it."""
+    prev = set_training_metrics(metrics)
+    try:
+        yield metrics
+    finally:
+        set_training_metrics(prev)
 
 
 def set_sentry(sentry) -> None:
@@ -48,7 +80,7 @@ def membership_state() -> Optional[dict]:
 
 
 def report_unhealthy(reason: str) -> None:
-    """Mark the run unhealthy (a sentry halt)."""
+    """Mark the run unhealthy (a sentry halt, a feed stall)."""
     global _unhealthy_reason
     _unhealthy_reason = reason
 

@@ -7,8 +7,9 @@ or without a ``Tracer``), every ``HealthSentry`` verdict and its metric
 samples (loss and grad norm a round).  ``dump(reason)`` writes the
 bundle atomically; it fires on an uncaught exception (chained
 ``sys.excepthook``), on SIGTERM (chained handler, and any SIGTERM a
-``utils.signals.SignalHandler`` fields) and on a sentry halt or
-rollback (``obs/health.py``).  Repeated dumps overwrite the same path
+``utils.signals.SignalHandler`` fields), on a feed's ``PrefetchStall``
+(``data/prefetch.py``) and on a sentry halt or rollback
+(``obs/health.py``).  Repeated dumps overwrite the same path
 (``dump_index`` counts them).  Bundles are the JAX package's: each
 package's ``load_bundle`` reads the other's.
 """

@@ -281,11 +281,11 @@ class MetricsRegistry:
 
 class TrainingMetrics:
     """The training series of the averaging trainer, its comm plane and
-    the checkpoint layer (``io/checkpoint.py``), under the JAX package's
-    names (``sparknet_tpu/obs/__init__.py``),
+    the checkpoint layer (``io/checkpoint.py``) and the data plane, under
+    the JAX package's names (``sparknet_tpu/obs/__init__.py``),
     registered on ``registry`` (a fresh one by default).  The trainer
-    and the comm plane record into the object they are handed; there is
-    no process-wide instance."""
+    and the comm plane record into the object they are handed; the data
+    plane into the one ``obs.set_training_metrics`` installed."""
 
     def __init__(self, registry: Optional[MetricsRegistry] = None):
         self.registry = registry if registry is not None else MetricsRegistry()
@@ -335,6 +335,41 @@ class TrainingMetrics:
             "(10*log10(|delta|^2/|err|^2); 300 when the error is 0), by "
             "compression mode",
             labels=("compress",),
+        )
+        # the data plane (data/prefetch.py, data/round_feed.py,
+        # utils/retry.py, data/chunk_cache.py): it reads this object
+        # through obs.training_metrics() once the app installs it
+        self.feed_queue_depth = r.gauge(
+            "sparknet_feed_queue_depth",
+            "device batches ready in the round-feed prefetch queue",
+        )
+        self.feed_stalls = r.counter(
+            "sparknet_feed_stalls_total",
+            "PrefetchStall watchdog fires (producer silent past timeout)",
+        )
+        self.retries = r.counter(
+            "sparknet_io_retries_total",
+            "retry_call attempts that failed and were rescheduled",
+        )
+        self.cache_hits = r.counter(
+            "sparknet_cache_hits_total",
+            "chunk-cache reads served from verified local entries",
+        )
+        self.cache_misses = r.counter(
+            "sparknet_cache_misses_total",
+            "chunk-cache reads that fetched from the backing object "
+            "store (cold, evicted, stale-etag, or quarantined entries)",
+        )
+        self.cache_evictions = r.counter(
+            "sparknet_cache_evictions_total",
+            "chunk-cache entries LRU-evicted at the byte budget",
+        )
+        self.cache_bytes = r.counter(
+            "sparknet_cache_bytes_total",
+            "bytes served through the chunk cache, by source "
+            "(hit = local disk, miss = network fetch); an I/O-flat "
+            "multi-epoch run's miss series goes flat after epoch 1",
+            labels=("src",),
         )
         self.snapshots = r.counter(
             "sparknet_snapshots_total", "checkpoints written"

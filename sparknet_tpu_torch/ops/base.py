@@ -77,11 +77,9 @@ class Layer:
 
 LAYER_REGISTRY: Dict[str, Type[Layer]] = {}
 
-# layer types of the JAX package that later slices bring: the file-backed
-# data layers (A.8) and the attention layer (A.9)
-_NOT_YET_PORTED = frozenset((
-    "Attention", "HDF5Data", "HDF5Output", "ImageData", "WindowData",
-))
+# layer types of the JAX package that later slices bring: the attention
+# layer (A.9)
+_NOT_YET_PORTED = frozenset(("Attention",))
 
 
 def register(cls: Type[Layer]) -> Type[Layer]:

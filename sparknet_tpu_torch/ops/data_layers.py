@@ -1,18 +1,24 @@
 """Data layers: ``HostData`` (and its ``JavaData`` alias), ``Input``,
-``Data``, ``MemoryData`` and ``DummyData``.
+``Data``, ``ImageData``, ``WindowData``, ``HDF5Data``, ``MemoryData``,
+``DummyData`` and the ``HDF5Output`` sink.
 
-The port of those layers of ``sparknet_tpu/ops/data_layers.py``: the
-host input pipeline pushes ready batches and a host-fed layer binds
-them to its top names (the reference's JavaData/RDDLayer, inverted from
-pull to push).  ``Data`` is fed from its DB by the host
-(``runtime.DataPipeline``, ``data/source.py``).  ``DummyData`` fills its
-tops from its fillers with the JAX package's threefry draws
-(``utils/jax_prng.py``).  The file-backed ``ImageData``, ``WindowData``,
-``HDF5Data`` and ``HDF5Output`` are not yet ported (``ops/base.py``).
+The port of ``sparknet_tpu/ops/data_layers.py``: the host input pipeline
+pushes ready batches and a host-fed layer binds them to its top names
+(the reference's JavaData/RDDLayer, inverted from pull to push).
+``Data`` is fed from its DB by the host (``runtime.DataPipeline``),
+``ImageData`` from its listfile (``data/transformer.py``), ``WindowData``
+by the R-CNN window sampler (``data/windows.py``) and ``HDF5Data`` from
+its ``.h5`` files (h5py), all through ``data/source.py``; the
+file-backed layers resolve their shapes from their sources as the JAX
+layers do.  ``DummyData`` fills its tops from its fillers with the JAX
+package's threefry draws (``utils/jax_prng.py``).  ``HDF5Output`` keeps
+the bottoms of the last forward that ran it; ``io/hdf5.py
+write_net_outputs`` writes them to its ``file_name``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -20,6 +26,23 @@ import numpy as np
 from sparknet_tpu_torch.ops import fillers
 from sparknet_tpu_torch.ops.base import Layer, Shape, register
 from sparknet_tpu_torch.utils import jax_prng
+
+
+def hdf5_source_files(source: str) -> List[str]:
+    """An HDF5 source's ``.h5`` file list: a single ``.h5``/``.hdf5``
+    path, or (the reference convention) a text listfile of paths, a
+    relative entry resolved against the listfile's directory."""
+    if source.endswith((".h5", ".hdf5")):
+        return [source]
+    base = os.path.dirname(os.path.abspath(source))
+    out = []
+    with open(source) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                out.append(line if os.path.isabs(line)
+                           else os.path.join(base, line))
+    return out
 
 
 class _HostFed(Layer):
@@ -90,6 +113,99 @@ class Input(_HostFed):
 
 
 @register
+class ImageData(_HostFed):
+    """Listfile-fed image data (``image_data_layer.cpp``: ``source`` holds
+    "<relpath> <label>" lines).  Shapes: the crop (``transform_param``,
+    else the legacy ``image_data_param.crop_size``), else
+    new_height/new_width, else the first listed image's size (the
+    reference's first-image probe)."""
+
+    TYPE = "ImageData"
+
+    def declared_shapes(self):
+        p = self.lp.image_data_param
+        if not (p and p.source and p.batch_size):
+            return None
+        channels = 3 if p.is_color else 1
+        if bool(p.new_height) != bool(p.new_width):
+            raise ValueError(
+                "ImageData: new_height and new_width must be set together")
+        tp = self.lp.transform_param
+        crop = int(tp.crop_size) if tp and tp.crop_size else int(p.crop_size)
+        if crop:
+            h = w = crop
+        elif p.new_height and p.new_width:
+            h, w = int(p.new_height), int(p.new_width)
+        else:
+            if not os.path.isfile(p.source):
+                return None
+            try:
+                from PIL import Image
+
+                with open(p.source) as f:
+                    first = next(ln for ln in (x.strip() for x in f) if ln)
+                name = first.rsplit(None, 1)[0]
+                with Image.open(os.path.join(p.root_folder, name)) as im:
+                    w, h = im.size
+            except Exception:  # unreadable: the net then asks for feed_shapes
+                return None
+        return [(p.batch_size, channels, h, w), (p.batch_size,)]
+
+
+@register
+class WindowData(_HostFed):
+    """R-CNN region-sampling data (``window_data_layer.cpp``); its batches
+    come from ``data/windows.py WindowSampler`` through
+    ``data/source.py``."""
+
+    TYPE = "WindowData"
+
+    def declared_shapes(self):
+        p = self.lp.window_data_param
+        if not (p and p.batch_size):
+            return None
+        from sparknet_tpu_torch.data.windows import (
+            effective_window_params,
+            read_window_file_header,
+        )
+
+        crop = effective_window_params(self.lp)[0]
+        if not crop:
+            return None
+        channels = 3
+        if p.source and os.path.isfile(p.source):
+            try:
+                channels = read_window_file_header(p.source)[0]
+            except Exception:  # 3 channels; the sampler reports file errors
+                pass
+        return [(p.batch_size, channels, crop, crop), (p.batch_size,)]
+
+
+@register
+class HDF5Data(_HostFed):
+    """HDF5-file-fed data (``hdf5_data_layer.cpp``): ``source`` lists
+    ``.h5`` files whose datasets are named by this layer's tops.  Shapes
+    come from the first listed file (``LoadHDF5FileData``)."""
+
+    TYPE = "HDF5Data"
+
+    def declared_shapes(self):
+        p = self.lp.hdf5_data_param
+        if not (p and p.source and p.batch_size):
+            return None
+        if not os.path.isfile(p.source):
+            return None
+        files = hdf5_source_files(p.source)
+        if not files:
+            return None
+        import h5py
+
+        with h5py.File(files[0], "r") as h:
+            return [(p.batch_size,) + tuple(h[t].shape[1:])
+                    for t in self.lp.top]
+
+
+@register
 class MemoryData(_HostFed):
     """In-memory batches (``memory_data_layer.cpp``): data and label tops
     shaped by ``memory_data_param``."""
@@ -145,3 +261,25 @@ class DummyData(Layer):
                       else (p.data_filler[-1] if p.data_filler else None))
             tops.append(fillers.fill(jax_prng.fold_in(base, i), shape, filler))
         return tops, None
+
+
+@register
+class HDF5Output(Layer):
+    """Sink layer (``hdf5_output_layer.cpp``): no tops.  Each forward
+    that runs it keeps its bottoms, detached, as ``tapped`` ({bottom
+    name: tensor}); ``io/hdf5.py write_net_outputs`` writes the last
+    forward's to ``hdf5_output_param.file_name``, one dataset a blob."""
+
+    TYPE = "HDF5Output"
+
+    def __init__(self, lp, phase):
+        super().__init__(lp, phase)
+        self.tapped = {}
+
+    def out_shapes(self, bottom_shapes):
+        return []
+
+    def apply(self, blobs, bottoms, rng, train):
+        self.tapped = {name: b.detach()
+                       for name, b in zip(self.lp.bottom, bottoms)}
+        return [], None

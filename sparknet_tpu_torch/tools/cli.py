@@ -31,13 +31,16 @@ output.
 ``train --solver`` snapshots every ``snapshot`` iterations of the
 solver (``{snapshot_prefix}_iter_N.*``, ``io/checkpoint.py``), on
 SIGHUP and on SIGINT (then stops), and runs deterministic algorithms
-so that a resumed run repeats the uninterrupted one bit for bit.
-``train``'s ``--devices`` > 1, ``--journal``, ``--health``,
-``--publish_to`` (which implies ``--health``), ``--obs``, the chunk
-cache, ``--shuffle_epochs`` > 1 and an object-store ``--data``, and the
-other subcommands (``classify``, ``time``, ``device_query``, the
-converters, ...), come with later slices; the flags raise "not yet
-ported" here.
+so that a resumed run repeats the uninterrupted one bit for bit.  Its
+``--data`` is a CIFAR directory or an object-store URL (``gs://``,
+``s3://``, ``http(s)://``, ``file://``) whose ``*.bin`` files are staged
+through the chunk cache (``--cache_dir``, ``--cache_bytes``);
+``--shuffle_epochs`` >= 2 draws the windows as epoch passes whose
+minibatch order re-permutes each epoch; the net's ``HDF5Output`` layers
+write their files after the last window.  ``train``'s ``--devices`` > 1,
+``--obs`` and the other subcommands (``classify``, ``time``,
+``device_query``, the converters, ...) come with later slices; the
+flags raise "not yet ported" here.
 """
 
 from __future__ import annotations
@@ -207,11 +210,39 @@ def cmd_serve(args) -> int:
 # train flags of the JAX CLI that later slices bring: (flag, refused when)
 _TRAIN_NOT_YET_PORTED = (
     ("--devices", lambda a: a.devices > 1, " > 1 (allreduce data parallelism)"),
-    ("--cache_dir", lambda a: a.cache_dir or a.cache_bytes != "0",
-     " / --cache_bytes (the chunk cache)"),
-    ("--shuffle_epochs", lambda a: a.shuffle_epochs > 1, " > 1"),
-    ("--data", lambda a: a.data and "://" in a.data, " from an object store"),
 )
+
+
+def _stage_cached_dir(url: str, cache_dir, cache_bytes) -> str:
+    """An object-store root as a local directory view whose files are
+    chunk-cache entries (verified, refetched when corrupt): every
+    ``*.bin`` object is pulled through the cache and its verified path
+    symlinked under ``<cache>/views/<key>/``, so the CIFAR loader reads
+    ordinary local files and the network is touched once."""
+    import tempfile
+
+    from sparknet_tpu_torch.data import chunk_cache, object_store
+
+    store = object_store.open_store(url)
+    cache = chunk_cache.ChunkCache(
+        cache_dir or tempfile.mkdtemp(prefix="sparknet_cache_"),
+        byte_budget=chunk_cache.parse_bytes(cache_bytes),
+    )
+    view = os.path.join(cache.root, "views",
+                        chunk_cache.ChunkCache.key_for(store.url, ""))
+    os.makedirs(view, exist_ok=True)
+    names = [n for n in store.list("") if n.endswith(".bin")]
+    if not names:
+        raise SystemExit(f"train: no *.bin objects under {url!r}")
+    for name in names:
+        path = cache.local_path(store, name)
+        link = os.path.join(view, name)
+        # object names may carry path separators (recursive listings)
+        os.makedirs(os.path.dirname(link) or view, exist_ok=True)
+        if os.path.islink(link) or os.path.exists(link):
+            os.unlink(link)
+        os.symlink(path, link)
+    return view
 
 
 def cmd_train(args) -> int:
@@ -294,8 +325,9 @@ def _train_solver(args, device) -> int:
                                                        metrics=metrics)
     recorder = obs.flight_from_args(args, metrics=metrics)
     try:
-        return _train_loop(args, solver, solver_param, metrics, prefix, jr,
-                           sentry)
+        with obs.installed_metrics(metrics):  # the data plane counts too
+            return _train_loop(args, solver, solver_param, metrics, prefix,
+                               jr, sentry)
     finally:
         if jr is not None:
             jr.close()
@@ -308,7 +340,7 @@ def _train_solver(args, device) -> int:
 def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
     from sparknet_tpu_torch.data import CifarLoader, MinibatchSampler, RoundFeed
     from sparknet_tpu_torch.data.source import synthetic_batches
-    from sparknet_tpu_torch.io import checkpoint
+    from sparknet_tpu_torch.io import checkpoint, hdf5
     from sparknet_tpu_torch.obs.health import SentryHalt
     from sparknet_tpu_torch.utils.signals import SignalHandler, SolverAction
     from sparknet_tpu_torch.utils.trainlog import TrainingLog
@@ -368,14 +400,45 @@ def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
             return 1
     sampler = None
     if args.data:
-        loader = CifarLoader(args.data)
+        from sparknet_tpu_torch.data import object_store
+
+        data_dir = args.data
+        if object_store.is_object_store_url(args.data):
+            # the CIFAR binaries staged through the chunk cache: verified
+            # local files, refetched only when missing or corrupt
+            data_dir = _stage_cached_dir(args.data, args.cache_dir,
+                                         args.cache_bytes)
+            print(f"staged {args.data} -> {data_dir} (chunk cache)")
+        loader = CifarLoader(data_dir)
         x, y = loader.minibatches(
             solver.net.blob_shapes[solver.net.feed_blobs[0]][0]
         )
         sampler = MinibatchSampler({"data": x, "label": y},
                                    num_sampled_batches=args.tau, seed=args.seed)
-        for _ in range(rounds_done):
-            sampler.next_window()
+        if args.shuffle_epochs <= 1:
+            for _ in range(rounds_done):
+                sampler.next_window()
+
+    # --shuffle_epochs: the windows are epoch passes over the minibatches
+    # whose order re-permutes each epoch (shuffle-by-assignment over
+    # indices), keyed by the absolute window, so a resumed run continues
+    # the uninterrupted run's schedule mid-epoch
+    epoch_draw = None
+    if sampler is not None and args.shuffle_epochs > 1:
+        from sparknet_tpu_torch.data import shuffle
+
+        windows_per_epoch = max(1, sampler.total // args.tau)
+        perm_memo = {}
+
+        def epoch_draw(r):
+            abs_r = rounds_done + r
+            e = abs_r // windows_per_epoch
+            if e not in perm_memo:
+                perm_memo.clear()  # one epoch's table at a time
+                perm_memo[e] = shuffle.permutation(sampler.total, args.seed, e)
+            pos = (abs_r % windows_per_epoch) * args.tau
+            idx = perm_memo[e][pos:pos + args.tau]
+            return {k: v[idx] for k, v in sampler.batches.items()}
 
     effects = {"stop": SolverAction.STOP, "snapshot": SolverAction.SNAPSHOT,
                "none": SolverAction.NONE}
@@ -385,6 +448,8 @@ def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
             if args.async_snapshot else None)
 
     def assemble(r):
+        if epoch_draw is not None:
+            return epoch_draw(r)
         return (sampler.next_window() if sampler
                 else synthetic_batches(solver.net, args.tau))
 
@@ -477,6 +542,10 @@ def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
                 ckpt.close()
                 if paths:
                     log.log(f"final async snapshot: {paths[0]}")
+    # HDF5Output layers: the bottoms of the last forward, one file a layer
+    hdf5_outputs = hdf5.write_net_outputs(solver.net)
+    for path in hdf5_outputs:
+        print(f"HDF5Output -> {path}")
     published = None
     if args.publish_to:
         # train-to-serve delivery: the final state publishes only with a
@@ -495,7 +564,7 @@ def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
     if args.result is not None:
         args.result.update(state=state, solver=solver, metrics=metrics,
                            smoothed_loss=solver.smoothed_loss, sentry=sentry,
-                           published=published)
+                           published=published, hdf5_outputs=hdf5_outputs)
     return 0
 
 
@@ -566,7 +635,9 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
                    "quarantined and skipped)")
     p.add_argument("--weights", default=None,
                    help="warm start from a .caffemodel / .caffemodel.h5")
-    p.add_argument("--data", default=None, help="CIFAR binary directory")
+    p.add_argument("--data", default=None,
+                   help="CIFAR binary dir, or a gs://|s3://|http(s)://|file:// "
+                   "url staged through the chunk cache")
     p.add_argument("--tau", type=int, default=10)
     p.add_argument("--max_iter", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)
@@ -594,10 +665,19 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
                    "on its CRC manifest (implies --health warn); cli serve "
                    "--watch DIR delivers it")
     p.add_argument("--devices", type=int, default=1, help="not yet ported")
-    p.add_argument("--cache_dir", default=None, help="not yet ported")
-    p.add_argument("--cache_bytes", default="0", help="not yet ported")
+    p.add_argument("--cache_dir", default=None,
+                   help="chunk-cache root for an object-store --data "
+                   "(default: a temp dir)")
+    p.add_argument("--cache_bytes", default="0",
+                   help="chunk-cache LRU byte budget, e.g. 512M / 8G "
+                   "(0 = unbounded)")
     p.add_argument("--shuffle_epochs", type=int, default=0,
-                   help="not yet ported")
+                   help="with a value >= 2, draw training windows as "
+                   "deterministic epoch passes whose minibatch ORDER "
+                   "re-permutes each epoch (seeded shuffle-by-assignment); "
+                   "resume-aware via the absolute window.  0/1 = the random "
+                   "windows.  Unlike the apps, the value does not split the "
+                   "run: an epoch here is one data pass (total/tau windows)")
     p.set_defaults(fn=cmd_train, result=None)
 
     p = sub.add_parser("test")

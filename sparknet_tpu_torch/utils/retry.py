@@ -191,9 +191,12 @@ def retry_call(
                 delay = max(delay, min(hint, policy.cap_s))
             if slept + delay > policy.budget_s:
                 break
-            # telemetry: every scheduled retry tags the trace (a no-op
-            # when no tracer is installed); the caller's on_retry still
-            # observes afterwards, unchanged
+            # telemetry: every scheduled retry ticks the counter and
+            # tags the trace (no-ops when obs is off); the caller's
+            # on_retry still observes afterwards, unchanged
+            tm = obs.training_metrics()
+            if tm is not None:
+                tm.retries.inc()
             obs.instant(
                 "retry", cat="io", attempt=attempt,
                 delay_ms=round(delay * 1e3, 2), error=type(e).__name__,

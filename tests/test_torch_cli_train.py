@@ -9,7 +9,9 @@
   conflicts with ``--snapshot``/``--weights``, falls back past a corrupt
   snapshot, and fails cleanly with none.
 - SIGHUP snapshots, SIGINT snapshots and stops; ``--weights`` warm-starts.
-- The flags of later slices refuse, saying "not yet ported".
+- The flags of later slices refuse, saying "not yet ported" (the chunk
+  cache, ``--shuffle_epochs`` and object-store ``--data`` run now:
+  ``tests/test_torch_data_plane.py``).
 """
 
 import os
@@ -281,10 +283,6 @@ def test_weights_warm_start(tmp_path):
     (["--profile"], "--profile"),
     (["--slo"], "--slo"),
     (["--obs"], "--obs"),
-    (["--cache_dir=/tmp/c"], "--cache_dir"),
-    (["--cache_bytes=8G"], "--cache_dir"),
-    (["--shuffle_epochs=2"], "--shuffle_epochs"),
-    (["--data=gs://bucket/cifar"], "--data"),
 ])
 def test_train_refuses_what_is_not_yet_ported(tmp_path, flags, what):
     with pytest.raises(SystemExit, match="not yet ported") as e:

@@ -20,6 +20,8 @@ across by ``interop.lm_params_from_jax``:
   flags not yet ported refusing.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -251,7 +253,6 @@ def test_lm_app_end_to_end_on_the_cpu():
     "flag",
     [["--sp", "2"], ["--stale_bound", "1"], ["--trace_out", "/t"],
      ["--obs_port", "1"],
-     ["--cache_dir", "/tmp/c"], ["--cache_bytes", "1G"],
      ["--slo"], ["--ship_to", "http://h:1"], ["--host_id", "h"],
      ["--profile_out", "/p"], ["--obs"], ["--profile"]],
 )
@@ -268,6 +269,8 @@ def test_cli_train_lm_dispatch(tmp_path):
                     + APP) == 0
     with pytest.raises(SystemExit, match="not yet ported"):
         cli.main(["train", "--solver", "solver.prototxt", "--devices", "2"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["train", "--lm", "--rounds", "1", "--corpus",
-                  "file://" + str(corpus)] + APP)
+    # an object-store corpus is read through the chunk cache
+    assert cli.main(["train", "--lm", "--rounds", "1", "--corpus",
+                     "file://" + str(corpus), "--cache_dir",
+                     str(tmp_path / "cache")] + APP) == 0
+    assert os.listdir(tmp_path / "cache" / "objects")

@@ -292,8 +292,8 @@ def test_cli_test_reads_the_nets_data_source(scored, tmp_path):
     assert np.array_equal(out["label"].reshape(-1), labels[:20].astype(np.float32))
     for lp in netp.layer:
         if lp.type == "Data":
-            lp.type = "ImageData"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+            lp.type = "ImageData"  # no image_data_param source: none
+    with pytest.raises(ValueError, match="no data source"):
         resolve_batches(net, netp, None, 2, phase="TEST")
     with pytest.raises(ValueError, match="no data source"):
         resolve_batches(net, None, None, 2, phase="TEST")

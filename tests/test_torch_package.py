@@ -88,7 +88,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "apps/imagenet_create_db_app.py",
                 "apps/imagenet_run_db_app.py", "apps/cifar_db_app.py",
                 "models/dsl.py", "ops/common.py", "ops/losses.py",
-                "ops/vision.py", "config/schema.py"):
+                "ops/vision.py", "config/schema.py", "data/shuffle.py",
+                "data/prefetch.py", "data/transformer.py", "data/windows.py",
+                "data/object_store.py", "data/chunk_cache.py",
+                "apps/featurizer_app.py"):
         assert os.path.join("sparknet_tpu_torch", mod) in rel
     for path in files:
         for mod in _imported_modules(path):
@@ -145,6 +148,11 @@ def test_entry_points_default_to_the_card():
         cifar_db_app.main(["--rounds", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["test", "--model", "/nonexistent.prototxt"])
+    # the data plane's featurizer, before it builds the net
+    from sparknet_tpu_torch.apps import featurizer_app
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        featurizer_app.main(["--model", "caffenet", "--blob", "fc7"])
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -166,12 +174,11 @@ _CIFAR = ["--device", "cpu", "--workers", "2", "--tau", "2", "--rounds", "1"]
     ] + [
         (["imagenet_app", "--device", "cpu"] + flag, flag[0])
         for flag in (["--obs"], ["--profile"], ["--stale_bound", "1"],
-                     ["--host_id", "h"], ["--cache_bytes", "8G"])
+                     ["--host_id", "h"])
     ] + [
         (["imagenet_run_db_app", "--device", "cpu", "--db_dir", "/d"] + flag,
          flag[0])
-        for flag in (["--trace_out", "/t"], ["--stale_bound", "1"], ["--slo"],
-                     ["--cache_dir", "/c"], ["--shuffle_epochs", "3"])
+        for flag in (["--trace_out", "/t"], ["--stale_bound", "1"], ["--slo"])
     ] + [
         (["cifar_db_app", "--device", "cpu"] + flag, flag[0])
         for flag in (["--trace_out", "/t"], ["--obs"], ["--stale_bound", "1"])
@@ -191,10 +198,9 @@ def test_cli_refuses_what_is_not_yet_ported(argv, what):
 
 @pytest.mark.parametrize(
     "text",
-    ['layer { name: "h" type: "HDF5Output" bottom: "x" }',
-     'layer { name: "a" type: "Attention" bottom: "x" top: "y" '
+    ['layer { name: "a" type: "Attention" bottom: "x" top: "y" '
      'attention_param { num_heads: 1 } }'],
-    ids=["layer_type", "layer_param"],
+    ids=["layer_param"],
 )
 def test_net_refuses_layers_not_yet_ported(text):
     from sparknet_tpu_torch.net import TorchNet

@@ -92,8 +92,9 @@ def test_tokenizer_matches_jax():
 def test_loading_refuses_what_it_cannot_take(tmp_path):
     with pytest.raises(FileNotFoundError):
         ttext.load_corpus(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttext.load_corpus("file://" + str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="no .txt objects"):
+        ttext.load_corpus("file://" + str(tmp_path),
+                          cache_dir=str(tmp_path / "cache"))
     with pytest.raises(ValueError, match="seq_len"):
         ttext.TextWindowSampler([b"tiny"], 128, 2)
     with pytest.raises(ValueError, match="empty"):
