@@ -244,14 +244,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
    per forward.  ``serve --generate --replicas 2`` at the CLI model:
    phase 3's 4 prompts stream phase 3's tokens, K1 and K2 launched.
 
-14. Training health and crash-consistent recovery (about 120 s).  The
-   kill-anywhere sweep: ``runtime.recover`` (cifar10_quick, W=2, tau=2,
-   batch 8, int8, the audit on) in process, an uninterrupted 4-round
-   control, then a raising kill at each of the six points at round 2
-   and a resume: every resumed ``state_digest`` equals the control's,
-   one round replayed; a real subprocess SIGKILLed at ``execute:2`` and
-   resumed with ``--resume`` too; the ``--no_journal`` resume differs;
-   K9/K10 launch the chunk arithmetic a round.  Full-width resume:
+14. Training health and crash-consistent recovery (about 100 s; the
+   kill-anywhere sweep of ``runtime.recover`` runs in phase 16, through
+   ``chaos.run_kill_sweep``).  Full-width resume:
    ``imagenet_run_db_app`` (CaffeNet, phase 11's DB, W=2, tau 4, batch
    32, int8, ``--journal --health warn --snapshot_every 1``, 4 rounds)
    as a subprocess, SIGKILLed once the ledger (scanned with the port's
@@ -321,6 +316,48 @@ Phases (any failure ends the run with a non-zero exit and no result):
    through the featurizer, card against CPU, K5 once a batch.  Launch
    counts are reset before each leg and read after it.
 
+16. Bounded staleness, the round profiler, ``cli time`` and the chaos
+   harness (about 150 s), in phase 11's temporary directory.  (a) The
+   stale trainer at CaffeNet's full width (60,965,224 parameters, crop
+   227, 1,000 classes, phase 11's seeded weights), W=4, tau 4, batch 32,
+   4 boundaries on seeded batches made on the card, under
+   ``deterministic_algorithms()``: ``stale_bound=0`` equals
+   ``ParameterAveragingTrainer`` bit for bit (params, stats, history,
+   iter, every loss); then ``stale_bound=2``, discount 0.5, worker 3
+   never arriving by itself and worker 1 missing boundary 1, flat and
+   two-tier (2 slices of 2, cross every 2nd round): at each boundary the
+   lags, the forced set, the weights and the ledger equal the JAX rules
+   restated on host integers, an absent worker's replica is bit-unchanged,
+   and each arrived worker's params lie within 1e-6 (of the largest
+   magnitude) of a float64 weighted mean of its group's arrived
+   post-window replicas; K5 and K6 launch 2 x tau x the windows run (an
+   absent worker's window is not run).  (b) ``imagenet_run_db_app
+   --stale_bound 2 --journal`` (phase 11's DB, 4 rounds) within 1e-5 of
+   the ``--stale_bound 0`` run, its journal carrying ``worker_rounds``
+   on every record.  (c) ``chaos.run_kill_sweep`` on the card: recover
+   processes (cifar10_quick, W=2, tau 2, batch 8, int8, the audit on),
+   all at once, SIGKILLed at each synchronous point of round 2 and
+   resumed, the ``--no_journal`` and journal-off controls, and the
+   ``--stale_bound 2`` leg SIGKILLed at ``stale_boundary:2``; each resumes
+   to its control's digest, which equals an in-process control whose
+   K9/K10 launches match the chunk arithmetic.  (d) ``imagenet_run_db_app
+   --compress int8 --profile --profile_out`` (W=2, tau 4, batch 32, 4
+   rounds): the phases assemble, h2d, execute, quantize, allreduce,
+   dequantize and average, the h2d hidden fraction, per-worker execute ms
+   from CUDA events, achieved FLOP/s (``utils/flops.train_flops``) and
+   MFU against 67 TFLOP/s; a run whose round-2 assembly of worker 1
+   sleeps 0.4 s under ``worker_timer``, named by the straggler verdict at
+   round 2 and no other; ``imagenet_app --model alexnet --compress bf16
+   --overlap_avg --profile`` (3 rounds): the comm hidden fraction, K11 3
+   a round.  (e) ``cli time --model caffenet --iterations 10 --batch
+   32``: the whole table, K5 and K6 launched.  (f) ``chaos.run_chaos``
+   on the card with the default plan less ``collector_outage``: every
+   injected fault survived, the NaN flagged at round 2, the straggler
+   named at worker 3, round 1, the final loss in the baseline's band,
+   the decode replica kill's resumed tokens equal to the undisturbed
+   run's (K1, K2), the corrupt publish never canaried, the recovery
+   latency printed.
+
 A failed run prints cuDNN's error log (kept in the temporary
 directory) and the tensors of the port's innermost frame on the failing
 stack.  The second-to-last line is ``{"kernels": [...]}`` (K1-K11 and K5 in
@@ -330,6 +367,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import json
 import os
@@ -3973,87 +4011,6 @@ def _subprocess_env():
     return dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
 
 
-def kill_sweep(dev, card, root):
-    """The kill-anywhere sweep of ``runtime.recover`` (module doc, phase
-    14).  Returns its comm launches."""
-    from sparknet_tpu_torch.ops import cuda_comm as cc
-    from sparknet_tpu_torch.runtime import recover
-    from sparknet_tpu_torch.utils.devices import deterministic_algorithms
-
-    def kill():
-        raise recover.SimulatedKill()
-
-    points = [p for p in recover.KILL_POINTS if p != "stale_boundary"]
-    t0 = time.perf_counter()
-    with deterministic_algorithms():
-        ctx = recover.RecoverContext(f"{root}/sweep", device=dev)
-        cc.reset_launch_counts()
-        control = recover.run_driver(ctx, SWEEP_ROUNDS,
-                                     run_dir=f"{root}/sweep/control")
-        torch.cuda.synchronize()
-        groups = _comm_groups(ctx.trainer._comm)
-        launches = dict(cc.LAUNCHES)
-        want = dict(comm_encode=groups * SWEEP_ROUNDS,
-                    comm_apply_barriered=groups * SWEEP_ROUNDS,
-                    comm_apply_correction=0)
-        check(launches == want, f"sweep control launches {launches}, "
-              f"expected {want} ({groups} a round)")
-        for p in points:
-            d = f"{root}/sweep/{p}"
-            try:
-                recover.run_driver(ctx, SWEEP_ROUNDS, run_dir=d,
-                                   kill_at=(p, SWEEP_KILL_ROUND), kill=kill)
-                check(False, f"kill point {p} never fired")
-            except recover.SimulatedKill:
-                pass
-            res = recover.run_driver(ctx, SWEEP_ROUNDS, run_dir=d, resume=True)
-            check(res["final_digest"] == control["final_digest"],
-                  f"kill at {p}:{SWEEP_KILL_ROUND}: the resumed digest differs")
-            check(res["rounds_executed"] == [2, 3],
-                  f"kill at {p}: resumed rounds {res['rounds_executed']}")
-            print(f"kill sweep {p}:{SWEEP_KILL_ROUND}: resumed at round "
-                  f"{res['start_round']} (in flight "
-                  f"{res['resume_info']['in_flight_round']}, torn bytes "
-                  f"{res['journal_truncated_bytes']}), digest equal, restore "
-                  f"{res['restore_s']} s")
-        d = f"{root}/sweep/no_journal"
-        try:
-            recover.run_driver(ctx, SWEEP_ROUNDS, run_dir=d, journal=False,
-                               kill_at=("execute", SWEEP_KILL_ROUND), kill=kill)
-        except recover.SimulatedKill:
-            pass
-        nj = recover.run_driver(ctx, SWEEP_ROUNDS, run_dir=d, journal=False,
-                                resume=True)
-        check(nj["final_digest"] != control["final_digest"],
-              "--no_journal resume equals the control: the zero is vacuous")
-        total = dict(cc.LAUNCHES)
-    # a real SIGKILL: the recover driver as a process, then --resume
-    base = [sys.executable, "-m", "sparknet_tpu_torch.runtime.recover",
-            "--workdir", f"{root}/sweep_proc", "--rounds", str(SWEEP_ROUNDS),
-            "--device", dev.type]
-    killed = subprocess.run(base + ["--kill_at", f"execute:{SWEEP_KILL_ROUND}"],
-                            env=_subprocess_env(), capture_output=True,
-                            text=True, timeout=300)
-    check(killed.returncode == -signal.SIGKILL,
-          f"the SIGKILL leg exited {killed.returncode}: {killed.stderr[-800:]}")
-    done = subprocess.run(base + ["--resume"], env=_subprocess_env(),
-                          capture_output=True, text=True, timeout=300)
-    check(done.returncode == 0, f"the resumed process exited "
-          f"{done.returncode}: {done.stderr[-800:]}")
-    rec = json.loads(done.stdout.strip().splitlines()[-1])
-    check(rec["final_digest"] == control["final_digest"]
-          and rec["rounds_executed"] == [2, 3],
-          f"SIGKILL at execute:{SWEEP_KILL_ROUND} + --resume: digest "
-          f"{rec['final_digest'][:12]} vs {control['final_digest'][:12]}, "
-          f"rounds {rec['rounds_executed']}")
-    print(f"[{card}] kill sweep: 6 points + a real SIGKILL at execute:2, each "
-          f"resumed to the control's digest {control['final_digest'][:16]}; "
-          f"--no_journal differs ({nj['final_digest'][:16]}); K9/K10 "
-          f"{groups} a round; control round ms {control['round_ms']}; sweep "
-          f"wall {time.perf_counter() - t0:.2f} s")
-    return total
-
-
 def _journal_rounds(path):
     from sparknet_tpu_torch.io import journal
 
@@ -4558,7 +4515,6 @@ def fault_tolerance_end_to_end(dev, card, root):
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
 
-    add(kill_sweep(dev, card, root))
     db_launch, *_ = db_kill_resume(dev, card, root)
     add(db_launch)
     add(lm_mask_end_to_end(dev, card, root))
@@ -5195,6 +5151,523 @@ def data_plane_end_to_end(dev, card, root):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 16: bounded staleness through the trainer, the DB app and the
+# recover driver's kill sweep; the round profiler on the card; cli time;
+# the chaos harness
+# ----------------------------------------------------------------------
+STALE_W, STALE_TAU, STALE_BOUNDARIES = 4, 4, 4
+STALE_B, STALE_DISCOUNT = 2, 0.5
+# an arrived worker's params against a float64 weighted mean of the
+# arrived post-window replicas, relative to the largest magnitude
+STALE_MEAN_RTOL = 1e-6
+# the DB app's --stale_bound 2 run against its --stale_bound 0 run (the
+# JAX package pins allclose: Σw·θ/Σw is not the masked mean's bits)
+STALE_DB_RTOL = 1e-5
+PROF_ROUNDS = 4
+STRAGGLER_ROUND, STRAGGLER_WORKER, STRAGGLER_S = 2, 1, 0.4
+OVERLAP_PROF_ROUNDS = 3
+TIME_ITERS = 10
+SWEEP_JOBS = 11  # recover runs at a time: every independent one at once
+
+
+def _stale_arrivals(b: int) -> np.ndarray:
+    """Worker 3 never arrives by itself; worker 1 misses boundary 1."""
+    arr = np.ones((STALE_W,), bool)
+    arr[3] = False
+    if b == 1:
+        arr[1] = False
+    return arr
+
+
+def _stale_rules(worker_rounds, b, arrived, slices):
+    """The JAX package's arrival rules (``parallel/stale.py``), restated
+    on host integers: the lag, the forced set (live and lagging by the
+    bound), slices arriving together, weights ``discount ** lag``, and
+    the ledger after the fold."""
+    wr = [int(v) for v in worker_rounds]
+    lag = [max(b - v, 0) for v in wr]
+    forced = [bool(lag[w] >= STALE_B and not arrived[w]) for w in range(len(wr))]
+    eff = [bool(arrived[w] or forced[w]) for w in range(len(wr))]
+    if slices is not None:
+        for members in slices:
+            ok = all(eff[w] for w in members)
+            for w in members:
+                eff[w] = ok
+        forced = [f and e for f, e in zip(forced, eff)]
+    weights = [float(np.float32(STALE_DISCOUNT ** lag[w])) if eff[w] else 0.0
+               for w in range(len(wr))]
+    return dict(lag=lag, arrived=eff, forced=forced, weights=weights,
+                worker_rounds=[v + int(e) for v, e in zip(wr, eff)])
+
+
+def _stale_batches(dev, worker_rounds):
+    """The mixed-round window of a boundary, made on the card: worker w's
+    rows from round ``worker_rounds[w]``'s seeded batch."""
+    per_round = {}
+    for r in sorted(set(int(v) for v in worker_rounds)):
+        g = torch.Generator(device=dev).manual_seed(1000 + r)
+        per_round[r] = (
+            torch.randn((STALE_W, STALE_TAU, DB_BATCH, 3, DB_CROP, DB_CROP),
+                        generator=g, device=dev),
+            torch.randint(0, DB_CLASSES, (STALE_W, STALE_TAU, DB_BATCH),
+                          generator=g, device=dev).float())
+    return {"data": torch.stack([per_round[int(r)][0][w]
+                                 for w, r in enumerate(worker_rounds)]),
+            "label": torch.stack([per_round[int(r)][1][w]
+                                  for w, r in enumerate(worker_rounds)])}
+
+
+def _weighted_mean_gap(post, after, weights, eff, groups) -> float:
+    """The largest gap of an arrived worker's params from the float64
+    weighted mean of its group's arrived post-window replicas, over the
+    mean's largest magnitude."""
+    from sparknet_tpu_torch.utils.tree import tree_leaves
+
+    worst = 0.0
+    for p, a in zip(tree_leaves(post.params), tree_leaves(after.params)):
+        for members in groups:
+            arrived = [w for w in members if eff[w]]
+            if not arrived:
+                continue
+            num = sum(weights[w] * p[w].double() for w in arrived)
+            mean = num / sum(weights[w] for w in arrived)
+            scale = max(float(mean.abs().max()), 1e-30)
+            for w in arrived:
+                worst = max(worst, float((a[w].double() - mean).abs().max())
+                            / scale)
+    return worst
+
+
+def stale_trainer_end_to_end(dev, card, warm):
+    """(a): the stale trainer at CaffeNet's full width (W=4, tau 4,
+    batch 32, crop 227, 1,000 classes, warm-started from phase 11's
+    weights) under deterministic algorithms: B=0 against the
+    synchronous trainer bit for bit; B=2 with the seeded arrival
+    schedule, flat and two-tier (2 slices of 2, cross every 2nd).
+    Returns K5/K6's launches."""
+    from sparknet_tpu_torch.apps import imagenet_run_db_app
+    from sparknet_tpu_torch.io import checkpoint
+    from sparknet_tpu_torch.ops import cuda_lrn as cl
+    from sparknet_tpu_torch.parallel import HierarchySpec, ParameterAveragingTrainer
+    from sparknet_tpu_torch.parallel.stale import BoundedStalenessTrainer
+    from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+    from sparknet_tpu_torch.utils.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    total = {}
+    with deterministic_algorithms():
+        solver = imagenet_run_db_app.build_solver(
+            "caffenet", {"classes": DB_CLASSES, "train_batch": DB_BATCH,
+                         "test_batch": DB_TEST_BATCH}, DB_CROP, dev)
+        st0 = checkpoint.load_weights_into_state(solver, solver.init_state(0),
+                                                 warm)
+        n_params = sum(t.numel() for t in tree_leaves(st0.params))
+        check(n_params == 60965224, f"CaffeNet has {n_params} parameters")
+        # B=0 is the synchronous round, bit for bit
+        runs = {}
+        for name, tr in (("sync", ParameterAveragingTrainer(solver, STALE_W)),
+                         ("stale_bound=0", BoundedStalenessTrainer(
+                             solver, STALE_W, stale_bound=0))):
+            st, losses = tr.broadcast_state(st0), []
+            for r in range(STALE_BOUNDARIES):
+                st, l = tr.round(st, _stale_batches(dev, [r] * STALE_W),
+                                 round_index=r)
+                losses.append(l)
+            runs[name] = (st, torch.stack(losses))
+        (s1, l1), (s2, l2) = runs["sync"], runs["stale_bound=0"]
+        _same_bits(s1, s2, "stale_bound=0 vs the synchronous trainer")
+        check(torch.equal(l1, l2), "stale_bound=0: a loss differs from sync")
+        print(f"[{card}] stale trainer, CaffeNet ({n_params} params) W="
+              f"{STALE_W} tau {STALE_TAU} batch {DB_BATCH}, {STALE_BOUNDARIES} "
+              f"boundaries: stale_bound=0 equals ParameterAveragingTrainer bit "
+              f"for bit (params, stats, history, iter, every loss)")
+        del runs, s1, s2
+        for label, spec in (("flat", None),
+                            ("two-tier", HierarchySpec.grouped(STALE_W, 2, 2))):
+            tr = BoundedStalenessTrainer(solver, STALE_W, stale_bound=STALE_B,
+                                         discount=STALE_DISCOUNT, hierarchy=spec)
+            cap, orig = {}, tr._weighted_mean
+
+            def hook(st, w, keep, bad, groups, orig=orig):
+                cap["post"] = st  # the arrived windows, before the mean
+                return orig(st, w, keep, bad, groups)
+
+            tr._weighted_mean = hook
+            state = tr.broadcast_state(st0)
+            windows, gaps, readout = 0, [], []
+            cl.reset_launch_counts()
+            for b in range(STALE_BOUNDARIES):
+                arrived = _stale_arrivals(b)
+                want = _stale_rules(tr.worker_rounds, b, arrived,
+                                    spec.slices if spec else None)
+                before = [x.clone() for x in tree_leaves(tuple(state))]
+                cap.clear()
+                state, _ = tr.round(state, _stale_batches(dev, tr.worker_rounds),
+                                    arrived=arrived, round_index=b)
+                lb = tr.last_boundary
+                got = dict(lag=lb["lag"], arrived=lb["arrived"],
+                           forced=lb["forced"], weights=lb["weights"],
+                           worker_rounds=[int(v) for v in tr.worker_rounds])
+                check(got == want, f"stale {label} boundary {b}: {got} vs the "
+                      f"JAX rules' {want}")
+                eff = want["arrived"]
+                after = tree_leaves(tuple(state))
+                for w in range(STALE_W):
+                    if not eff[w]:
+                        check(all(torch.equal(x[w], y[w])
+                                  for x, y in zip(before, after)),
+                              f"stale {label} boundary {b}: absent worker {w}'s "
+                              "replica changed")
+                gap = 0.0
+                if any(eff):
+                    groups = (spec.slices if lb["tier"] == "intra"
+                              else [tuple(range(STALE_W))])
+                    gap = _weighted_mean_gap(cap["post"], state, want["weights"],
+                                             eff, groups)
+                    check(gap <= STALE_MEAN_RTOL, f"stale {label} boundary {b}: "
+                          f"weighted mean off by {gap:.3e}")
+                windows += sum(eff)
+                gaps.append(gap)
+                readout.append(f"b{b} {lb['tier']} arrived "
+                               f"{''.join('1' if e else '0' for e in eff)} lag "
+                               f"{lb['lag']} forced {sum(lb['forced'])}")
+                del before, after
+            torch.cuda.synchronize()
+            launches = dict(cl.LAUNCHES)
+            want_l = 2 * STALE_TAU * windows
+            check(launches["lrn_fwd"] == want_l and launches["lrn_bwd"] == want_l,
+                  f"stale {label}: LRN launches {launches}, expected {want_l} "
+                  f"each ({windows} windows run)")
+            for k in ("lrn_fwd", "lrn_bwd"):
+                total[k] = total.get(k, 0) + launches[k]
+            print(f"[{card}] stale trainer {label}, stale_bound {STALE_B}, "
+                  f"discount {STALE_DISCOUNT}: {'; '.join(readout)}; ledger "
+                  f"{[int(v) for v in tr.worker_rounds]} as the JAX rules give; "
+                  f"absent replicas bit-unchanged; weighted-mean gap "
+                  f"{max(gaps):.3e} (limit {STALE_MEAN_RTOL}); K5 and K6 "
+                  f"{want_l} launches each = 2 x tau x {windows} windows run "
+                  f"(a run of every window would take "
+                  f"{2 * STALE_TAU * STALE_W * STALE_BOUNDARIES})")
+    print(f"[{card}] (a) wall {time.perf_counter() - t0:.2f} s")
+    return total
+
+
+def stale_db_end_to_end(dev, card, root, warm):
+    """(b): imagenet_run_db_app --stale_bound 2 --journal against the
+    same run at --stale_bound 0.  Returns the stale run's K5/K6
+    launches."""
+    from sparknet_tpu_torch.apps import imagenet_run_db_app
+    from sparknet_tpu_torch.io.journal import default_journal_path, scan
+    from sparknet_tpu_torch.ops import cuda_lrn as cl
+    from sparknet_tpu_torch.utils.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    db_dir = f"{root}/db"
+    runs = {}
+    for bound in (0, 2):
+        prefix = f"{root}/p16_stale{bound}/caffenet"
+        res = {}
+        cl.reset_launch_counts()
+        check(imagenet_run_db_app.main(_db_argv(
+            dev, db_dir, prefix, DB_ROUNDS, "--stale_bound", str(bound),
+            "--journal", "--warm_start", warm), res) == 0,
+            f"imagenet_run_db --stale_bound {bound} failed")
+        torch.cuda.synchronize()
+        launches = dict(cl.LAUNCHES)
+        runs[bound] = (res, scan(default_journal_path(prefix))[0])
+    # every window runs (every worker arrives), as at --stale_bound 0
+    steps = DB_W * DB_TAU * DB_ROUNDS
+    check(launches["lrn_bwd"] == 2 * steps,
+          f"--stale_bound 2: K6 launches {launches}, expected {2 * steps}")
+    (r0, j0), (r2, j2) = runs[0], runs[2]
+    gap = 0.0
+    for a, b in zip(tree_leaves(r0["state"].params), tree_leaves(r2["state"].params)):
+        scale = max(1.0, float(a.abs().max()))
+        gap = max(gap, float((a.double() - b.double()).abs().max()) / scale)
+    check(gap <= STALE_DB_RTOL, f"--stale_bound 2 vs 0: params {gap:.3e} apart")
+    check(j2 and all(r.get("worker_rounds") for r in j2),
+          "--stale_bound 2: a journal record lacks worker_rounds")
+    commits = [r["worker_rounds"] for r in j2 if r["kind"] == "commit"]
+    # the app commits at its snapshots
+    check(commits == [[k] * DB_W for k in range(DB_SNAP_EVERY, DB_ROUNDS + 1,
+                                                DB_SNAP_EVERY)],
+          f"--stale_bound 2: committed ledgers {commits}")
+    check(not any("worker_rounds" in r for r in j0),
+          "--stale_bound 0 journaled a ledger")
+    print(f"[{card}] imagenet_run_db_app --stale_bound 2 --journal, CaffeNet "
+          f"W={DB_W} {DB_ROUNDS} rounds: final params {gap:.3e} of the "
+          f"--stale_bound 0 run's (limit {STALE_DB_RTOL}); {len(j2)} journal "
+          f"records, each with worker_rounds (commits {commits}); launches "
+          f"{launches}; wall {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+def kill_sweep(dev, card, root):
+    """(c): ``chaos.run_kill_sweep`` on the card — every synchronous kill
+    point, the --no_journal and journal-off controls and the stale leg
+    SIGKILLed at stale_boundary:2, each a recover process SIGKILLed and
+    resumed — with phase 14's checks: every point resumed at round 2 to
+    the control's digest, which equals an in-process control whose comm
+    launches are counted.  Returns those launches."""
+    from sparknet_tpu_torch.ops import cuda_comm as cc
+    from sparknet_tpu_torch.runtime import chaos, recover
+    from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+
+    t0 = time.perf_counter()
+    with deterministic_algorithms():
+        ctx = recover.RecoverContext(f"{root}/sweep", device=dev)
+        cc.reset_launch_counts()
+        control = recover.run_driver(ctx, SWEEP_ROUNDS,
+                                     run_dir=f"{root}/sweep/control")
+        torch.cuda.synchronize()
+        groups = _comm_groups(ctx.trainer._comm)
+        launches = dict(cc.LAUNCHES)
+    want = dict(comm_encode=groups * SWEEP_ROUNDS,
+                comm_apply_barriered=groups * SWEEP_ROUNDS,
+                comm_apply_correction=0)
+    check(launches == want, f"sweep control launches {launches}, expected "
+          f"{want} ({groups} a round)")
+    rep = chaos.run_kill_sweep(workdir=f"{root}/sweep_proc", rounds=SWEEP_ROUNDS,
+                               kill_round=SWEEP_KILL_ROUND, device=dev.type,
+                               jobs=SWEEP_JOBS, timeout_s=600.0)
+    check(rep["control_digest"] == control["final_digest"],
+          "the recover process's control differs from the in-process one")
+    for row in rep["killpoints"]:
+        check(row["survived"] and row["killed"]
+              and row["rounds_executed"] == [2, 3],
+              f"kill sweep {row['kill_at']}: {row}")
+        print(f"kill sweep {row['kill_at']}: SIGKILLed, resumed at round "
+              f"{row['start_round']} (torn bytes "
+              f"{row['journal_truncated_bytes']}), digest equal, restore "
+              f"{row['recovery_latency_s']} s")
+    check(len(rep["killpoints"]) == len(recover.KILL_POINTS) - 1,
+          f"{len(rep['killpoints'])} sync kill points swept")
+    check(rep["no_journal_diverged"],
+          "--no_journal resume equals the control: the zero is vacuous")
+    check(rep["journal_bit_neutral"], "the journal-off control differs")
+    st = rep["stale"]
+    check(st["survived"] and st["killed"]
+          and st["resumed_worker_rounds"] == [SWEEP_KILL_ROUND, 0],
+          f"kill sweep {st['kill_at']}: {st}")
+    print(f"[{card}] run_kill_sweep ({SWEEP_JOBS} recover processes at a "
+          f"time): {rep['killpoints_survived']} kill points SIGKILLed at round "
+          f"{SWEEP_KILL_ROUND}, each resumed to the control's digest "
+          f"{control['final_digest'][:16]}; --no_journal differs; journal-off "
+          f"equal; stale_boundary:{SWEEP_KILL_ROUND} resumed from ledger "
+          f"{st['resumed_worker_rounds']} replaying {st['replayed_rounds']} "
+          f"round(s) to the stale control's digest (restore "
+          f"{st['recovery_latency_s']} s); K9/K10 {groups} a round in the "
+          f"control; control round ms {rep['control_round_ms']}; journal "
+          f"overhead {rep['journal_overhead_pct']}%; sweep wall "
+          f"{time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+@contextlib.contextmanager
+def _slept(timer, seconds):
+    with timer:
+        time.sleep(seconds)
+        yield
+
+
+def profiler_end_to_end(dev, card, root, warm):
+    """(d): the round profiler on the card — the int8 DB run's phases,
+    hidden fractions, per-worker execute times (CUDA events), achieved
+    FLOP/s and MFU; the straggler run; the AlexNet bf16 overlap run's
+    comm hidden fraction.  Returns K9-K11's launches."""
+    from sparknet_tpu_torch.apps import imagenet_app, imagenet_run_db_app
+    from sparknet_tpu_torch.obs import profile as prof_mod
+    from sparknet_tpu_torch.ops import cuda_comm as cc
+    from sparknet_tpu_torch.ops import cuda_lrn as cl
+    from sparknet_tpu_torch.ops import cuda_plp as cp
+
+    t0 = time.perf_counter()
+    db_dir = f"{root}/db"
+    out = f"{root}/p16_profile.json"
+    cc.reset_launch_counts()
+    res = {}
+    check(imagenet_run_db_app.main(_db_argv(
+        dev, db_dir, f"{root}/p16_prof/caffenet", PROF_ROUNDS, "--compress",
+        "int8", "--profile", "--profile_out", out, "--warm_start", warm,
+        "--snapshot_every", "0"),
+        res) == 0, "imagenet_run_db --profile failed")
+    torch.cuda.synchronize()
+    total = dict(cc.LAUNCHES)
+    with open(out) as f:
+        s = json.load(f)
+    check(s["rounds"] == PROF_ROUNDS, f"profile: {s['rounds']} rounds")
+    phases = ("assemble", "h2d", "execute", "quantize", "allreduce",
+              "dequantize", "average")
+    for ph in phases:
+        check(ph in s["phases"] and s["phases"][ph]["p50_ms"] > 0,
+              f"profile: phase {ph} missing or 0: {s['phases'].get(ph)}")
+    ex = s["worker_execute_ms"]
+    check(ex is not None and len(ex["p50"]) == DB_W and min(ex["p50"]) > 0,
+          f"profile: per-worker execute ms {ex}")
+    check(s["achieved_flops_per_s"] > 0 and s["mfu"] is not None,
+          f"profile: achieved {s.get('achieved_flops_per_s')}, mfu {s.get('mfu')}")
+    print(f"[{card}] imagenet_run_db --compress int8 --profile (CaffeNet W="
+          f"{DB_W} tau {DB_TAU} batch {DB_BATCH}, {PROF_ROUNDS} rounds): phase "
+          f"p50 ms " + ", ".join(f"{ph} {s['phases'][ph]['p50_ms']}"
+                                 for ph in s["phases"])
+          + f"; h2d hidden fraction {s['hidden_frac_h2d']}; per-worker execute "
+          f"ms (CUDA events) p50 {ex['p50']} max {ex['max']}; round ms "
+          f"{s['round_ms']}; train_flops {s['flops_per_round']:.4e} a round; "
+          f"achieved {s['achieved_flops_per_s'] / 1e12:.3f} TFLOP/s; MFU "
+          f"{s['mfu']} of the card's float32 peak {s['peak_flops']} FLOP/s; "
+          f"straggler rounds {s['straggler_rounds']}")
+    # the straggler: round 2's assembly of worker 1 sleeps under worker_timer
+    orig = prof_mod.worker_timer
+
+    def slow(r, w, n, phase="assemble"):
+        t = orig(r, w, n, phase)
+        return (_slept(t, STRAGGLER_S) if (r, w) == (STRAGGLER_ROUND,
+                                                     STRAGGLER_WORKER) else t)
+
+    prof_mod.worker_timer = slow
+    res2 = {}
+    try:
+        check(imagenet_run_db_app.main(_db_argv(
+            dev, db_dir, f"{root}/p16_strag/caffenet", PROF_ROUNDS, "--profile",
+            "--warm_start", warm, "--snapshot_every", "0"), res2) == 0,
+            "the straggler run failed")
+    finally:
+        prof_mod.worker_timer = orig
+    s2 = res2["profile"]
+    check(s2["straggler_rounds"] == 1
+          and s2["last_straggler_worker"] == STRAGGLER_WORKER
+          and s2["last_straggler_round"] == STRAGGLER_ROUND,
+          f"straggler verdict: {s2['straggler_rounds']} round(s), last worker "
+          f"{s2['last_straggler_worker']} at round {s2['last_straggler_round']}")
+    print(f"[{card}] straggler run: worker {STRAGGLER_WORKER}'s round-"
+          f"{STRAGGLER_ROUND} assembly slept {STRAGGLER_S} s; the verdict named "
+          f"worker {s2['last_straggler_worker']} at round "
+          f"{s2['last_straggler_round']} and no other round (worker skew "
+          f"{s2['worker_skew']})")
+    # AlexNet, bf16 payload, overlapped average
+    train_parts, test_parts, mean = _imnet_partitions()
+    with _env({"SPARKNET_FUSION": "0"}):
+        result, log = {}, _Log()
+        for mod in (cl, cp, cc):
+            mod.reset_launch_counts()
+        imagenet_app.train(_imnet_args(dev, (
+            "--compress", "bf16", "--overlap_avg", "--rounds",
+            str(OVERLAP_PROF_ROUNDS), "--profile")), train_parts, test_parts,
+            mean, dev, log, result)
+        torch.cuda.synchronize()
+        launches = dict(cc.LAUNCHES)
+    s3 = result["profile"]
+    check(launches["comm_apply_correction"] == 3 * OVERLAP_PROF_ROUNDS,
+          f"AlexNet overlap --profile: K11 launches {launches}")
+    check(s3["hidden_frac_comm"] is not None,
+          "AlexNet overlap --profile: no comm hidden fraction")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    print(f"[{card}] imagenet_app --model alexnet --compress bf16 --overlap_avg "
+          f"--profile, {OVERLAP_PROF_ROUNDS} rounds: comm hidden fraction "
+          f"{s3['hidden_frac_comm']}; h2d {s3['hidden_frac_h2d']}; phase p50 ms "
+          + ", ".join(f"{ph} {v['p50_ms']}" for ph, v in s3["phases"].items())
+          + f"; launches {launches}; (d) wall {time.perf_counter() - t0:.2f} s")
+    return total
+
+
+def cli_time_end_to_end(dev, card):
+    """(e): ``cli time --model caffenet --iterations 10 --batch 32``.
+    Returns K5/K6's launches."""
+    from sparknet_tpu_torch.ops import cuda_lrn as cl
+    from sparknet_tpu_torch.tools import cli
+
+    t0 = time.perf_counter()
+    cl.reset_launch_counts()
+    res = {}
+    check(cli.main(["time", "--model", "caffenet", "--iterations",
+                    str(TIME_ITERS), "--batch", str(DB_BATCH), "--device",
+                    dev.type], result=res) == 0, "cli time failed")
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cl.LAUNCHES.items() if k in ("lrn_fwd", "lrn_bwd")}
+    p = res["profile"]
+    check(launches["lrn_fwd"] > 0 and launches["lrn_bwd"] > 0,
+          f"cli time: LRN launches {launches}")
+    check({"norm1", "norm2"} <= set(p["layers"]), "cli time: no norm rows")
+    for name, row in p["layers"].items():
+        check(row["forward_ms"] > 0, f"cli time: {name} forward 0")
+    print(f"[{card}] cli time --model caffenet --iterations {TIME_ITERS} --batch "
+          f"{DB_BATCH}: whole-net forward {p['total_forward_ms']:.3f} ms, "
+          f"forward+backward {p['total_fwdbwd_ms']:.3f} ms; K5/K6 launches "
+          f"{launches}; {time.perf_counter() - t0:.2f} s with the seeded init")
+    return launches
+
+
+def chaos_end_to_end(dev, card, root):
+    """(f): ``run_chaos`` on the card, the default plan less
+    collector_outage.  Returns the kernels' launches."""
+    import dataclasses
+
+    from sparknet_tpu_torch.runtime import chaos
+
+    t0 = time.perf_counter()
+    plan = dataclasses.replace(chaos.FaultPlan.default(),
+                               collector_outage_round=None)
+    _reset_counts()
+    rep = chaos.run_chaos(plan, workdir=f"{root}/chaos", device=dev.type)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    for kind, v in rep["faults"].items():
+        check(v["injected"] >= 1 and v["survived"] == v["injected"],
+              f"chaos: {kind} {v}")
+    check(rep["nan_detected_round"] == plan.nan_round,
+          f"chaos: NaN flagged at {rep['nan_detected_round']}")
+    check(rep["straggler_detected_worker"] == plan.straggler_worker
+          and rep["straggler_detected_round"] == plan.straggler_round,
+          f"chaos: straggler {rep['straggler_detected_worker']} at "
+          f"{rep['straggler_detected_round']}")
+    check(rep["loss_band_ok"], f"chaos: final loss {rep['final_loss']} vs "
+          f"baseline {rep['baseline_final_loss']} +/- {rep['loss_band']}")
+    dt = rep["decode_tokens"]
+    check(dt["resumed"] == dt["expected"] == dt["after"] and dt["expected"],
+          f"chaos: decode tokens {dt}")
+    check(launches.get("flash_fwd", 0) > 0 and launches.get("decode_attention", 0) > 0,
+          f"chaos: attention launches {launches}")
+    print(f"[{card}] run_chaos (default plan less collector_outage, W="
+          f"{plan.workers}, {plan.rounds} rounds): {rep['faults_survived']} of "
+          f"{rep['faults_injected']} injected faults survived "
+          f"({len(rep['faults'])} kinds); NaN flagged at round "
+          f"{rep['nan_detected_round']}; straggler worker "
+          f"{rep['straggler_detected_worker']} at round "
+          f"{rep['straggler_detected_round']}; final loss {rep['final_loss']} "
+          f"vs baseline {rep['baseline_final_loss']} (band {rep['loss_band']}); "
+          f"decode kill resumed {len(dt['resumed'])} tokens identical; recovery "
+          f"latency {rep['recovery_latency_s']} s; slow slice saved "
+          f"{rep['slow_slice']['wallclock_saved_s']} s of "
+          f"{rep['slow_slice']['tail_injected_s']}; launches {launches}; wall "
+          f"{time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+def staleness_profile_chaos_end_to_end(dev, card, root):
+    """Phase 16 (see the module doc): runs in phase 11's temporary
+    directory (its record DBs and seeded CaffeNet weights).  Returns the
+    launches of its main paths."""
+    t0 = time.perf_counter()
+    warm = f"{root}/caffenet_seed1.caffemodel"
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    add(stale_trainer_end_to_end(dev, card, warm))
+    add(stale_db_end_to_end(dev, card, root, warm))
+    add(kill_sweep(dev, card, root))
+    add(profiler_end_to_end(dev, card, root, warm))
+    add(cli_time_end_to_end(dev, card))
+    add(chaos_end_to_end(dev, card, root))
+    print(f"[{card}] phase 16 wall {time.perf_counter() - t0:.2f} s; launches "
+          f"{launches}")
+    return launches
+
+
 def cudnn_failure_report(exc: BaseException) -> None:
     """On a failed run: cuDNN's version and flags, the device's free
     memory, the tensors of the port's innermost frame on the failing
@@ -5297,6 +5770,9 @@ def run_all() -> int:
         for name, n in fault_tolerance_end_to_end(dev, card, root).items():
             launches[name] = launches.get(name, 0) + n
         for name, n in data_plane_end_to_end(dev, card, root).items():
+            launches[name] = launches.get(name, 0) + n
+        for name, n in staleness_profile_chaos_end_to_end(dev, card,
+                                                          root).items():
             launches[name] = launches.get(name, 0) + n
     for name, n in deep_nets_end_to_end(dev, card).items():
         launches[name] = launches.get(name, 0) + n

@@ -20,8 +20,12 @@ CIFAR-format data is synthesized (5,000 train / 1,000 test) when
 membership controller: a SIGTERM marks this process's slice,
 ``$SPARKNET_SLICE_ID`` or the last, leaving; a departed slice rejoins
 from the survivor consensus with its momentum zeroed) are the JAX app's.
-``--stale_bound`` > 0 and ``--obs`` / ``--profile`` are not yet ported
-and exit saying so.
+``--stale_bound B --stale_discount D`` averages through the
+bounded-staleness trainer (``parallel/stale.py``; this app feeds every
+worker each round, so every boundary sees the full arrival set) and
+``--profile`` / ``--profile_out`` install the round profiler (the
+window draws are timed per worker).  ``--obs`` is not yet ported and
+exits saying so.
 """
 
 from __future__ import annotations
@@ -72,10 +76,8 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     ``--elastic``) — for in-process callers that check the run."""
     args = _parser().parse_args(argv)
     from sparknet_tpu_torch import obs
-    from sparknet_tpu_torch.parallel import hierarchy
 
     obs.check_args(args, "cifar_app")
-    hierarchy.check_args(args, "cifar_app")
 
     from sparknet_tpu_torch import models
     from sparknet_tpu_torch.apps.guards import RoundGuards
@@ -86,6 +88,7 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         RoundFeed,
         stack_windows,
     )
+    from sparknet_tpu_torch.obs import profile
     from sparknet_tpu_torch.obs.health import SentryHalt
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
     from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
@@ -154,8 +157,11 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
                 log.log(f"test output {name} = {scores[name] / num_test_batches:.4f}")
             return primary_accuracy(scores) / num_test_batches
 
+        # --profile: each worker's window draw timed (the straggler
+        # verdict's assemble attribution); a plain list otherwise
         feed = RoundFeed(
-            lambda r: stack_windows([s.next_window() for s in samplers]),
+            lambda r: stack_windows(profile.timed_worker_windows(
+                r, [s.next_window for s in samplers])),
             device, pipelined=not args.serial_feed, num_rounds=args.rounds,
         )
         round_seconds, masks = [], []
@@ -194,7 +200,8 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             result.update(state=state, trainer=trainer, accuracy=acc,
                           smoothed_loss=solver.smoothed_loss, metrics=metrics,
                           round_seconds=round_seconds, sentry=guards.sentry,
-                          membership=guards.membership, masks=masks)
+                          membership=guards.membership, masks=masks,
+                          profile=guards.profile_summary)
         return code
 
 

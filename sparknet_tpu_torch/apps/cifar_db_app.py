@@ -18,8 +18,10 @@ CIFAR-format data is synthesized (4,000 train / 500 test) when
 snapshots), ``--flight_recorder``, ``--journal`` (progress-only
 commits), ``--slices`` / ``--cross_slice_every`` are the JAX app's;
 ``--elastic`` only logs that membership is wired in ``cifar_app`` and
-``lm_app``.  ``--stale_bound`` > 0, ``--obs`` and ``--profile`` are not
-yet ported and exit saying so.
+``lm_app``.  ``--stale_bound`` / ``--stale_discount`` (the
+bounded-staleness trainer) and ``--profile`` / ``--profile_out`` (each
+worker's DB pull timed) are the JAX app's; ``--obs`` is not yet ported
+and exits saying so.
 """
 
 from __future__ import annotations
@@ -90,15 +92,14 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     after each round (``smoothed``), the test scores and the accuracy."""
     args = _parser().parse_args(argv)
     from sparknet_tpu_torch import obs
-    from sparknet_tpu_torch.parallel import hierarchy
 
     obs.check_args(args, "cifar_db")
-    hierarchy.check_args(args, "cifar_db")
 
     from sparknet_tpu_torch import models, runtime
     from sparknet_tpu_torch.apps.guards import RoundGuards
     from sparknet_tpu_torch.obs.health import SentryHalt
     from sparknet_tpu_torch.data import CifarLoader, RoundFeed, stack_windows
+    from sparknet_tpu_torch.obs import profile
     from sparknet_tpu_torch.io import load_mean_image
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
     from sparknet_tpu_torch.solver import Solver
@@ -146,9 +147,11 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             def assemble(r):
                 # the reader threads' batches + the worker stack, on the
                 # feed's producer: round r+1's reads overlap round r
+                # (--profile: each worker's DB pull timed)
                 windows = []
-                for p in train_pipes:
-                    batches = [p.next() for _ in range(args.tau)]
+                for w, p in enumerate(train_pipes):
+                    with profile.worker_timer(r, w, len(train_pipes)):
+                        batches = [p.next() for _ in range(args.tau)]
                     windows.append({
                         "data": np.stack([b[0] for b in batches]),
                         "label": np.stack([b[1] for b in batches]),
@@ -192,7 +195,7 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     if result is not None:
         result.update(
             state=state, trainer=trainer, metrics=metrics, scores=scores,
-            sentry=guards.sentry,
+            sentry=guards.sentry, profile=guards.profile_summary,
             accuracy=acc, smoothed=smoothed,
             losses=(np.stack(round_losses) if round_losses
                     else np.zeros((0, args.workers, args.tau), np.float32)),

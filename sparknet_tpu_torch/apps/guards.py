@@ -5,8 +5,11 @@ around each round: the divergence sentry (``--health``, built before
 the trainer, whose audit it turns on), the two-tier spec (``--slices``,
 ``--cross_slice_every``), the elastic membership controller
 (``--elastic``, in the apps that wire it), the run journal
-(``--journal``) and the flight recorder (``--flight_recorder``).  The
-loop calls ``begin`` (the write-ahead intent), ``boundary`` (membership
+(``--journal``; under ``--stale_bound`` each intent and commit carries
+the trainer's ``worker_rounds``), the flight recorder
+(``--flight_recorder``) and the round profiler (``--profile``,
+``--profile_out``: its summary prints and is written at ``close``).
+The loop calls ``begin`` (the write-ahead intent), ``boundary`` (membership
 views and readmission, the round's live mask), ``round`` (the trainer's
 round, under the sentry when there is one) and ``commit``, inside
 ``signals()`` (the SIGTERM preemption hooks), and ``close`` at the end.
@@ -24,8 +27,12 @@ class RoundGuards:
     off."""
 
     def __init__(self, trainer, sentry=None, spec=None, membership=None,
-                 auto_rejoin=None, journal=None, recorder=None, log=None):
+                 auto_rejoin=None, journal=None, recorder=None, log=None,
+                 profiler=None, profile_out=None):
         self.trainer = trainer
+        self.profiler = profiler
+        self.profile_out = profile_out
+        self.profile_summary = None
         self.sentry = sentry
         self.spec = spec
         self.membership = membership
@@ -50,7 +57,6 @@ class RoundGuards:
         from sparknet_tpu_torch.parallel import hierarchy
 
         obs.check_args(args, app)
-        hierarchy.check_args(args, app)
         sentry = health.sentry_from_args(args, solver, echo=log.log,
                                          metrics=metrics)
         spec = hierarchy.spec_from_args(args, n_workers)
@@ -84,8 +90,9 @@ class RoundGuards:
         if jr is not None:
             log.log(f"run journal: {jr.path} (fsync={jr.fsync})")
         recorder = obs.flight_from_args(args, metrics=metrics)
+        profiler = obs.profile_from_args(args, echo=log.log)
         return cls(trainer, sentry, spec, membership, auto_rejoin, jr,
-                   recorder, log)
+                   recorder, log, profiler, getattr(args, "profile_out", None))
 
     # ------------------------------------------------------------------
     def signals(self):
@@ -102,10 +109,19 @@ class RoundGuards:
     def view_epoch(self) -> int:
         return self.membership.view.epoch if self.membership is not None else 0
 
+    def _stale_meta(self) -> dict:
+        """A bounded-staleness trainer's worker-round vector (versioned
+        into every journal record), else nothing."""
+        if getattr(self.trainer, "stale_bound", 0) > 0:
+            return {"worker_rounds": [int(v) for v in self.trainer.worker_rounds],
+                    "stale_bound": self.trainer.stale_bound}
+        return {}
+
     def begin(self, r: int, **meta) -> None:
         """Round ``r``'s write-ahead intent (with the view epoch)."""
         if self.journal is not None:
-            self.journal.begin_round(r, view_epoch=self.view_epoch(), **meta)
+            self.journal.begin_round(r, view_epoch=self.view_epoch(),
+                                     **self._stale_meta(), **meta)
 
     def boundary(self, state, r: int):
         """Apply the membership events at round ``r``'s boundary and
@@ -132,8 +148,9 @@ class RoundGuards:
                                   round_index=r)
 
     def commit(self, r: int, **meta) -> None:
+        """Round ``r``'s commit (with the folded worker-round vector)."""
         if self.journal is not None:
-            self.journal.commit_round(r, **meta)
+            self.journal.commit_round(r, **self._stale_meta(), **meta)
 
     def job_extra(self) -> dict:
         """The sentry's and the membership's jobstate sections."""
@@ -167,3 +184,8 @@ class RoundGuards:
             self.journal.close()
         if self.recorder is not None:
             flight.uninstall(self.recorder)
+        if self.profiler is not None:
+            self.profile_summary = obs.close_profile(
+                self.profiler, self.profile_out,
+                echo=None if self._log is None else self._log.log)
+            self.profiler = None

@@ -45,9 +45,10 @@ which ``main`` calls after the data stage.  ``--health`` (this app
 keeps no snapshots, so rollback degrades to halt), ``--flight_recorder``,
 ``--journal`` (progress-only commits, ``durable=False``), ``--slices`` /
 ``--cross_slice_every`` are the JAX app's; ``--elastic`` only logs that
-membership is wired in ``cifar_app`` and ``lm_app``.  Multi-host,
-``--stale_bound`` > 0 and ``--obs``/``--profile`` are not yet ported
-and exit saying so.
+membership is wired in ``cifar_app`` and ``lm_app``.
+``--stale_bound`` / ``--stale_discount`` and ``--profile`` /
+``--profile_out`` (the window draws timed per worker) are the JAX
+app's.  Multi-host and ``--obs`` are not yet ported and exit saying so.
 """
 
 from __future__ import annotations
@@ -129,10 +130,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     args = _parser().parse_args(argv)
     from sparknet_tpu_torch import obs
     from sparknet_tpu_torch.models import available_models
-    from sparknet_tpu_torch.parallel import hierarchy
 
     obs.check_args(args, "imagenet_app")
-    hierarchy.check_args(args, "imagenet_app")
 
     if args.model not in available_models():
         raise SystemExit(
@@ -274,6 +273,7 @@ def train(args, train_parts: Sequence[Partition],
     from sparknet_tpu_torch.apps.guards import RoundGuards
     from sparknet_tpu_torch.apps.scores import primary_accuracy
     from sparknet_tpu_torch.data import MinibatchSampler, RoundFeed, stack_windows
+    from sparknet_tpu_torch.obs import profile
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
     from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
 
@@ -347,7 +347,9 @@ def train(args, train_parts: Sequence[Partition],
                 epoch_state.update(epoch=e, samplers=build_samplers(parts, e))
                 log.log(f"epoch {e}: shard ownership reshuffled "
                         "(shuffle-by-assignment)", i=r)
-        return stack_windows([s.next_window() for s in epoch_state["samplers"]])
+        # --profile: each worker's window draw timed
+        return stack_windows(profile.timed_worker_windows(
+            r, [s.next_window for s in epoch_state["samplers"]]))
 
     feed = RoundFeed(draw_windows, device, pipelined=not args.serial_feed,
                      num_rounds=args.rounds)
@@ -376,6 +378,7 @@ def train(args, train_parts: Sequence[Partition],
     if result is not None:
         result.update(state=state, trainer=trainer, metrics=metrics,
                       sentry=guards.sentry, losses=np.stack(round_losses),
+                      profile=guards.profile_summary,
                       round_seconds=round_seconds,
                       accuracies=accuracies, smoothed_loss=solver.smoothed_loss)
     return acc

@@ -52,8 +52,12 @@ As in the JAX app, a remote ``--db_dir`` with ``--snapshot_every`` or
 which worker reads which train DB between them
 (``shuffle.permutation(W, seed, epoch)``, keyed by the absolute round);
 each DB is still read tau batches a round, so a resumed run's readers
-open where the uninterrupted run's would be.  ``--stale_bound`` > 0,
-``--obs`` and ``--profile`` are not yet ported and exit saying so.
+open where the uninterrupted run's would be.  ``--stale_bound`` /
+``--stale_discount`` run the bounded-staleness trainer (its snapshots
+carry the ledger and every worker's replica, its journal records
+``worker_rounds``) and ``--profile`` / ``--profile_out`` the round
+profiler (each worker's DB pull timed); ``--obs`` is not yet ported
+and exits saying so.
 """
 
 from __future__ import annotations
@@ -234,10 +238,8 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     from sparknet_tpu_torch.data import object_store
     from sparknet_tpu_torch.io import checkpoint
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
-    from sparknet_tpu_torch.parallel import hierarchy
 
     obs.check_args(args, "imagenet_run_db")
-    hierarchy.check_args(args, "imagenet_run_db")
 
     from sparknet_tpu_torch.utils.devices import (
         deterministic_algorithms,
@@ -256,6 +258,7 @@ def _train(args, device, metrics, result) -> int:
     from sparknet_tpu_torch.apps.guards import RoundGuards
     from sparknet_tpu_torch.apps.scores import primary_accuracy
     from sparknet_tpu_torch.data import RoundFeed, shuffle, stack_windows
+    from sparknet_tpu_torch.obs import profile
     from sparknet_tpu_torch.io import checkpoint
     from sparknet_tpu_torch.io.journal import default_journal_path
     from sparknet_tpu_torch.obs.health import SentryHalt
@@ -376,10 +379,12 @@ def _train(args, device, metrics, result) -> int:
                 return shuffle.permutation(n_workers, args.seed, e)
 
             def assemble(r):
+                # (--profile: each worker's DB pull timed)
                 windows = []
-                for p in pipe_order(r):
+                for w, p in enumerate(pipe_order(r)):
                     pipe = pipes[p]
-                    batches = [pipe.next() for _ in range(args.tau)]
+                    with profile.worker_timer(r, w, n_workers):
+                        batches = [pipe.next() for _ in range(args.tau)]
                     windows.append({
                         "data": np.stack([b[0] for b in batches]),
                         "label": np.stack([b[1] for b in batches]),
@@ -434,6 +439,7 @@ def _train(args, device, metrics, result) -> int:
     if result is not None:
         result.update(
             state=state, trainer=trainer, metrics=metrics,
+            profile=guards.profile_summary,
             sentry=guards.sentry, start_round=start_round, resumed_from=used,
             replayed_round=replayed, smoothed=smoothed,
             losses=(np.stack(round_losses) if round_losses

@@ -43,8 +43,10 @@ boundary and replays only the round that was in flight), ``--slices``
 marks this process's slice leaving).  The jobstate carries the sentry
 and the membership view too.
 
-``--sp`` > 1, ``--stale_bound`` > 0, ``--obs`` and ``--profile`` are
-not yet ported and exit saying so.
+``--stale_bound`` / ``--stale_discount`` (the bounded-staleness
+trainer) and ``--profile`` / ``--profile_out`` (the window draws timed
+per worker) are the JAX app's.  ``--sp`` > 1 and ``--obs`` are not yet
+ported and exit saying so.
 """
 
 from __future__ import annotations
@@ -201,10 +203,8 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             "ported to sparknet_tpu_torch"
         )
     from sparknet_tpu_torch import obs
-    from sparknet_tpu_torch.parallel import hierarchy
 
     obs.check_args(args, "lm_app")
-    hierarchy.check_args(args, "lm_app")
     if args.resume and not args.snapshot_prefix:
         raise SystemExit("lm_app: --resume needs --snapshot_prefix")
     if args.overlap_avg and args.snapshot_prefix and args.snapshot_every:
@@ -230,6 +230,7 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     )
     from sparknet_tpu_torch.io import checkpoint
     from sparknet_tpu_torch.io.journal import default_journal_path
+    from sparknet_tpu_torch.obs import profile
     from sparknet_tpu_torch.obs.health import SentryHalt
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
     from sparknet_tpu_torch.obs.trace import span
@@ -313,7 +314,10 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
 
         def assemble(r):
             with span("sample_text", cat="data", round=r):
-                windows = [s.window_for_round(r, args.tau) for s in samplers]
+                # (--profile: each worker's draw timed)
+                windows = profile.timed_worker_windows(
+                    r, [lambda s=s: s.window_for_round(r, args.tau)
+                        for s in samplers])
             return stack_windows(windows)
 
         def snapshot(r):
@@ -381,7 +385,7 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             result.update(
                 lm=lm, state=state, trainer=trainer, metrics=metrics,
                 sentry=guards.sentry, membership=guards.membership,
-                smoothed_loss=loss, start_round=start_round,
+                profile=guards.profile_summary, smoothed_loss=loss, start_round=start_round,
                 losses=(np.stack(round_losses) if round_losses
                         else np.zeros((0, W, args.tau), np.float32)),
                 smoothed=smoothed, round_seconds=round_seconds,

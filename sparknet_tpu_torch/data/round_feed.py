@@ -13,7 +13,8 @@ With ``stall_timeout_s`` a producer silent that long raises
 ``PrefetchStall`` on the consumer (``sparknet_feed_stalls_total`` counts
 it); ``restart(r)`` reaps that producer and respawns one from round r,
 the JAX package's recovery pattern.  Each round handed over sets
-``sparknet_feed_queue_depth`` to the rounds still buffered.
+``sparknet_feed_queue_depth`` to the rounds still buffered and tells
+the round profiler (``--profile``) which absolute round is consumed.
 
 Determinism contract: ``assemble`` is called exactly once per round, in
 round order, from a single thread (a restart calls it again from round
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from sparknet_tpu_torch import obs
+from sparknet_tpu_torch.obs import profile as obs_profile
 from sparknet_tpu_torch.data.prefetch import (  # noqa: F401 (re-exported)
     PREFETCH_COUNT,
     Prefetcher,
@@ -131,6 +133,9 @@ class RoundFeed:
         if tm is not None:
             tm.feed_queue_depth.set(
                 self._pf.qsize() if self._pf is not None else 0)
+        # the profiler keys its record by the absolute round the consumer
+        # is about to train on (a resume's replay re-keys correctly)
+        obs_profile.note_consumed_round(r)
         self._next_r = r + 1
         return consume(dev, ev, self._device)
 

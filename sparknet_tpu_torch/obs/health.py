@@ -362,13 +362,22 @@ class HealthSentry:
         return z > self.z_threshold  # strictly above flags
 
     def _zscore(self, loss: float) -> float:
-        if self._ema is None or self._seen < self.warmup_rounds:
+        return self._zscore_at(loss, (self._ema, self._emvar, self._seen))
+
+    def _zscore_at(self, loss: float, lens) -> float:
+        """The z-score of ``loss`` against an EMA lens ``(ema, emvar,
+        seen)``: the live one, or a past round's from ``_ema_ring``
+        (a bounded-staleness arrival is judged at its own round)."""
+        if lens is None:
+            return 0.0
+        ema, emvar, seen = lens
+        if ema is None or seen < self.warmup_rounds:
             return 0.0
         # variance floor at 5% of the loss scale: a near-constant loss
         # collapses the EMA variance and raw z would flag noise
-        sigma = math.sqrt(max(0.0, self._emvar))
-        denom = max(sigma, 0.05 * abs(self._ema) + 1e-8)
-        return (loss - self._ema) / denom
+        sigma = math.sqrt(max(0.0, emvar))
+        denom = max(sigma, 0.05 * abs(ema) + 1e-8)
+        return (loss - ema) / denom
 
     def _update_ema(self, loss: float) -> None:
         if not math.isfinite(loss):
@@ -389,15 +398,44 @@ class HealthSentry:
         self._seen = 0
 
     # ------------------------------------------------------------------
-    def observe(self, round_index: int, losses, stats) -> HealthVerdict:
+    def observe(self, round_index: int, losses, stats, *, arrived=None,
+                worker_rounds=None) -> HealthVerdict:
         """Classify one round from its losses and audit stats tree: one
-        device-to-host copy of both (``stats_to_host``)."""
+        device-to-host copy of both (``stats_to_host``).
+
+        Bounded-staleness boundaries (``parallel/stale.py``) pass
+        ``arrived`` (W bools: whose window folded in; the others' losses
+        and stats are zeroed and must not drag the EMA) and
+        ``worker_rounds`` (W ints: the absolute round each folded window
+        belongs to).  The round's loss is the mean over the current
+        round's arrivals; each stale arrival is judged against the EMA
+        lens at its own round (``_ema_ring``), so a lagging worker's
+        legitimately higher loss trips no spike and a divergent one
+        still does."""
         from sparknet_tpu_torch import obs as _obs
         from sparknet_tpu_torch.obs import flight as _flight
 
-        host, (loss_arr,) = stats_to_host(stats, losses)
+        host, (loss_arr,) = stats_to_host(stats if stats is not None else {},
+                                          losses)
         loss_arr = np.asarray(loss_arr, np.float64)
-        loss = float(np.mean(loss_arr)) if loss_arr.size else float("nan")
+        stale_z = 0.0
+        if (arrived is not None and loss_arr.ndim >= 2
+                and np.asarray(arrived).reshape(-1).shape[0]
+                == loss_arr.shape[0]):
+            arr_mask = np.asarray(arrived, bool).reshape(-1)
+            wr = (None if worker_rounds is None
+                  else np.asarray(worker_rounds, np.int64).reshape(-1))
+            fresh = arr_mask if wr is None else arr_mask & (wr >= round_index)
+            base = fresh if fresh.any() else arr_mask
+            sel = loss_arr[base] if base.any() else loss_arr[arr_mask]
+            loss = float(np.mean(sel)) if sel.size else float("nan")
+            if wr is not None:
+                for w in np.nonzero(arr_mask & (wr < round_index))[0]:
+                    zw = self._zscore_at(float(np.mean(loss_arr[w])),
+                                         self._ema_ring.get(int(wr[w])))
+                    stale_z = max(stale_z, zw)
+        else:
+            loss = float(np.mean(loss_arr)) if loss_arr.size else float("nan")
 
         def total(name) -> int:
             return int(np.sum(np.asarray(host.get(name, 0))))
@@ -422,7 +460,9 @@ class HealthSentry:
             reasons.append("nonfinite")
         if self._cooldown > 0:
             self._cooldown -= 1
-        elif self._spike(z):
+        elif self._spike(z) or self._spike(stale_z):
+            # z: the current round's arrivals against the live EMA;
+            # stale_z: each stale arrival against its own round's lens
             reasons.append("loss_spike")
         v = HealthVerdict(
             round_index, loss, z, self._last_scalar(host, "grad_norm"),

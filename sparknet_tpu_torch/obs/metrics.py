@@ -455,3 +455,74 @@ class TrainingMetrics:
             "rounds re-executed after a journal-guided resume (the "
             "in-flight round whose commit never landed)",
         )
+        self.faults = r.counter(
+            "sparknet_faults_total",
+            "chaos-injected faults observed, by kind",
+            labels=("kind",),
+        )
+        # round-anatomy profiler series (obs/profile.py, --profile)
+        self.hidden_fraction = r.gauge(
+            "sparknet_hidden_fraction",
+            "measured fraction of overlap-capable work hidden under "
+            "consumer execute last round: kind=h2d (RoundFeed producer "
+            "assemble+H2D) or kind=comm (CommPlane chunked allreduce)",
+            labels=("kind",),
+        )
+        self.worker_skew = r.gauge(
+            "sparknet_worker_skew",
+            "last round's per-worker attributed-time max/median ratio "
+            "(1.0 = homogeneous workers)",
+        )
+        self.straggler_worker = r.gauge(
+            "sparknet_straggler_worker",
+            "dp index of the worker the profiler called a straggler "
+            "last round (-1 = none)",
+        )
+        self.straggler_rounds = r.counter(
+            "sparknet_straggler_rounds_total",
+            "rounds whose straggler verdict fired (skew past threshold)",
+        )
+        self.achieved_flops = r.gauge(
+            "sparknet_achieved_flops",
+            "modeled achieved FLOP/s last round (analytic utils/flops.py "
+            "count / measured round wall)",
+        )
+        self.mfu = r.gauge(
+            "sparknet_mfu",
+            "model FLOP utilization vs the card's peak for the round's "
+            "precision (0 when the peak is unknown, e.g. CPU)",
+        )
+        # bounded-staleness averaging series (parallel/stale.py,
+        # --stale_bound): zero on the synchronous round
+        self.staleness = r.gauge(
+            "sparknet_staleness",
+            "per-worker staleness at the last averaging boundary "
+            "(boundary index minus the worker's own round; 0 on the "
+            "synchronous path, bounded by --stale_bound otherwise)",
+            labels=("worker",),
+        )
+        self.stale_arrivals = r.counter(
+            "sparknet_stale_arrivals_total",
+            "boundary fold-ins per worker (the arrival mask: the "
+            "worker's finished tau-window entered this boundary's "
+            "staleness-weighted mean)",
+            labels=("worker",),
+        )
+        self.stale_skipped = r.counter(
+            "sparknet_stale_skipped_total",
+            "boundaries a worker sat out (window still in flight; its "
+            "contribution folds in at a later boundary instead of "
+            "stalling this one)",
+            labels=("worker",),
+        )
+        self.stale_forced_waits = r.counter(
+            "sparknet_stale_forced_waits_total",
+            "arrivals forced by the staleness bound (a live worker hit "
+            "lag B and the boundary blocked for it — the bounded "
+            "synchronous cost; ~0 is the stale bench's win condition)",
+        )
+        self.stale_boundaries_skipped = r.counter(
+            "sparknet_stale_boundaries_skipped_total",
+            "averaging boundaries skipped outright because no worker "
+            "had arrived (state untouched, no collective dispatched)",
+        )

@@ -1,8 +1,10 @@
 """Spans: Chrome trace-event JSON + a structured JSONL log.
 
 The port's own copy of ``sparknet_tpu/obs/trace.py``, cut to the sinks
-the port has: an installed ``Tracer``, a span observer (the request
-profiler) and the flight recorder's ring (``obs/flight.py``).  A ``Tracer`` collects complete events (``ph: "X"``)
+the port has: an installed ``Tracer``, a span observer (the round
+profiler, the request profiler, or both chained) and the flight
+recorder's ring (``obs/flight.py``).  A ``Tracer`` collects complete
+events (``ph: "X"``)
 from ``span()`` and instant events (``ph: "i"``) from ``instant()``,
 each stamped with the OS thread id, so the batcher worker and the HTTP
 handler threads show as separate tracks in Perfetto.
@@ -139,8 +141,9 @@ class Tracer:
 
 _tracer: Optional[Tracer] = None
 # observes EVERY completed span: fn(name, cat, t0_s, t1_s, thread_name,
-# args) with perf_counter times; the request profiler installs itself
-# here (obs/reqtrace.py); None = off
+# args) with perf_counter times; the round profiler (obs/profile.py)
+# and the request profiler (obs/reqtrace.py) install themselves here,
+# the request profiler chaining one already installed; None = off
 _span_observer = None
 # the flight recorder's ring (obs/flight.py): every span and instant
 # lands there too while one is installed, tracer or not
@@ -167,8 +170,8 @@ def set_flight(recorder) -> None:
 
 
 def set_span_observer(fn) -> None:
-    """Point span() completions at a profiler (obs/reqtrace.py owns the
-    install/uninstall lifecycle)."""
+    """Point span() completions at a profiler (the install/uninstall
+    lifecycle is obs/profile.py's and obs/reqtrace.py's)."""
     global _span_observer
     _span_observer = fn
 

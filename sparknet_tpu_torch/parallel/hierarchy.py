@@ -88,7 +88,7 @@ class HierarchySpec:
 def add_cli_args(parser) -> None:
     """``--slices`` / ``--cross_slice_every`` / ``--rejoin_after`` /
     ``--stale_bound`` / ``--stale_discount`` / ``--elastic``, the JAX
-    parser's flags (``--stale_bound`` > 0 is refused: not yet ported)."""
+    parser's flags."""
     parser.add_argument(
         "--slices", type=int, default=1,
         help="group the dp workers into N contiguous slices for two-tier "
@@ -108,7 +108,10 @@ def add_cli_args(parser) -> None:
     )
     parser.add_argument(
         "--stale_bound", type=int, default=0,
-        help="bounded-staleness averaging (not yet ported: only 0)",
+        help="bounded-staleness averaging (parallel/stale.py): workers "
+        "run ahead up to B rounds and each boundary averages whoever "
+        "arrived, weighted by --stale_discount ** lag; a live worker at "
+        "lag B is forced in.  0 = the synchronous round (bit-identical)",
     )
     parser.add_argument(
         "--stale_discount", type=float, default=0.5,
@@ -123,15 +126,6 @@ def add_cli_args(parser) -> None:
     )
 
 
-def check_args(args, app: str) -> None:
-    """Refuse what the JAX parser takes and the port does not run."""
-    if int(getattr(args, "stale_bound", 0) or 0) > 0:
-        raise SystemExit(
-            f"{app}: --stale_bound > 0 (parallel/stale.py) is not yet "
-            "ported to sparknet_tpu_torch"
-        )
-
-
 def spec_from_args(args, num_workers: int) -> Optional[HierarchySpec]:
     """The spec the CLI flags describe, or None for the flat default."""
     slices = int(getattr(args, "slices", 1) or 1)
@@ -141,15 +135,32 @@ def spec_from_args(args, num_workers: int) -> Optional[HierarchySpec]:
     return HierarchySpec.grouped(num_workers, max(1, slices), max(1, every))
 
 
+def stale_kwargs_from_args(args) -> dict:
+    """``BoundedStalenessTrainer`` kwargs from the CLI flags, or an empty
+    dict when ``--stale_bound`` stays at the synchronous 0."""
+    bound = int(getattr(args, "stale_bound", 0) or 0)
+    if bound <= 0:
+        return {}
+    return {"stale_bound": bound,
+            "discount": float(getattr(args, "stale_discount", 0.5) or 0.5)}
+
+
 def averaging_trainer_from_args(args, solver, num_workers: int, **extra):
-    """The ``ParameterAveragingTrainer`` the CLI flags describe: the comm
-    flags and the hierarchy folded in from ``args``; ``extra`` overrides
-    (pass ``hierarchy=spec`` when the app built the spec already, and
-    ``metrics``)."""
+    """The round-averaging trainer the CLI flags describe: the
+    ``ParameterAveragingTrainer``, or with ``--stale_bound > 0`` the
+    ``BoundedStalenessTrainer`` around it (the same round surface; it
+    refuses compress/overlap).  The comm flags and the hierarchy are
+    folded in from ``args``; ``extra`` overrides (pass ``hierarchy=spec``
+    when the app built the spec already, and ``metrics``)."""
     from sparknet_tpu_torch.parallel.trainers import ParameterAveragingTrainer
 
     kw = {"compress": getattr(args, "compress", "none"),
           "overlap_avg": bool(getattr(args, "overlap_avg", False))}
     kw.update(extra)
     kw.setdefault("hierarchy", spec_from_args(args, num_workers))
+    stale = stale_kwargs_from_args(args)
+    if stale:
+        from sparknet_tpu_torch.parallel.stale import BoundedStalenessTrainer
+
+        return BoundedStalenessTrainer(solver, num_workers, **kw, **stale)
     return ParameterAveragingTrainer(solver, num_workers, **kw)

@@ -37,6 +37,7 @@ import torch
 
 from sparknet_tpu_torch import obs
 from sparknet_tpu_torch.obs import health as _health
+from sparknet_tpu_torch.obs import profile as _profile
 from sparknet_tpu_torch.obs.metrics import TrainingMetrics
 from sparknet_tpu_torch.obs.trace import span
 from sparknet_tpu_torch.parallel.hierarchy import HierarchySpec
@@ -162,6 +163,8 @@ class ParameterAveragingTrainer:
             )
         self._fused_payload_bytes: Optional[int] = None
         self._live_cache: "OrderedDict[bytes, torch.Tensor]" = OrderedDict()
+        # the round's per-worker execute timer (--profile only)
+        self._window_timer = None
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0) -> TrainState:
@@ -278,26 +281,48 @@ class ParameterAveragingTrainer:
         if self._comm is not None:
             self._comm.reset()
 
-    def _local(self, state: TrainState, batches: Dict[str, torch.Tensor]):
+    def _local(self, state: TrainState, batches: Dict[str, torch.Tensor],
+                run=None):
         """Every worker's local steps, no averaging: ``batches[blob]`` is
         (W, steps, ...).  Returns ``(state, losses (W, steps), stats)``,
         ``stats`` the audit's tree (leaves (W, steps)) or None.  Worker
         ``w`` steps under ``fold_in(train_key(0), w)``, as the JAX round
         folds its worker index into ``default_train_key(0)``, so stacked
-        workers draw independently."""
+        workers draw independently.  ``run`` (W bools, None = all) names
+        the workers whose windows run: the others keep their state, and
+        their losses and audit rows read 0."""
         root = rngs.train_key(0)
+        # --profile: a CUDA event pair around each worker's window (an
+        # overlapped round runs each window in two pieces: one timer)
+        timer = self._window_timer or _profile.worker_window_timer(
+            self.device, self.num_workers)
+        self._window_timer = timer
         with span("execute"):
             outs, losses, packed = [], [], []
             for w in range(self.num_workers):
+                if run is not None and not run[w]:
+                    outs.append(worker_state(state, w))
+                    losses.append(None)
+                    packed.append(None)
+                    continue
+                if timer is not None:
+                    timer.start(w)
                 st, l, pk = self.solver._run_tau(
                     worker_state(state, w), {k: v[w] for k, v in batches.items()},
                     rngs.fold_in(root, w),
                 )
+                if timer is not None:
+                    timer.stop(w)
                 outs.append(st)
                 losses.append(l)
                 packed.append(pk)
+            ran = next(i for i, l in enumerate(losses) if l is not None)
+            losses = [torch.zeros_like(losses[ran]) if l is None else l
+                      for l in losses]
             stats = None
             if self.solver.audit:
+                packed = [torch.zeros_like(packed[ran]) if p is None else p
+                          for p in packed]
                 stats = _health.unpack(torch.stack(packed),
                                        self.solver.audit_groups())
             return stack_states(outs), torch.stack(losses), stats
@@ -430,10 +455,22 @@ class ParameterAveragingTrainer:
         if self.metrics is not None:
             self.metrics.rounds.inc()
             self.metrics.iters.inc(losses.shape[-1])
+        self._observe_profile(losses, state)
         obs.report_healthy()
         if self.solver.audit:
             return state, losses, stats
         return state, losses
+
+    def _observe_profile(self, losses, state) -> None:
+        """--profile: the modeled work once, then the round's record
+        (outside the average span, so the timer's wait never inflates
+        it)."""
+        timer, self._window_timer = self._window_timer, None
+        prof = _profile.active()
+        if prof is None:
+            return
+        _profile.note_trainer_work(prof, self, int(losses.shape[-1]), state)
+        prof.observe_round(losses, worker_timer=timer)
 
     def _payload_bytes(self, state) -> int:
         if self._fused_payload_bytes is None:

@@ -25,18 +25,30 @@ be:
     snapshot_mid_write  the solverstate's temporary file written, its
                         publish rename not yet done
     journal_mid_append  half the commit record written (a torn tail)
+    stale_boundary      (--stale_bound > 0) after the stale boundary
+                        folded its arrivals, before the snapshot and the
+                        commit of the advanced worker-round vector
 
 — and a resumed run's ``state_digest`` (params, stats, history, iter,
-EF residuals, sentry EMA) equals an uninterrupted control's.  With
-``--no_journal`` a resume takes the plain newest snapshot and resets the
-residuals and the sentry, so its digest differs.
+EF residuals, sentry EMA, the worker-round ledger) equals an
+uninterrupted control's.  With ``--no_journal`` a resume takes the plain
+newest snapshot and resets the residuals and the sentry, so its digest
+differs.
+
+``--stale_bound B`` runs the bounded-staleness leg
+(``parallel/stale.py``, no compression): the last worker never arrives
+by itself, so each boundary's arrival set is a pure function of the
+journaled ``worker_rounds`` (the bound forces the straggler in every
+B-th boundary); every intent and commit record carries the vector, each
+worker trains on the window of its own next round (``stale_window``)
+and the snapshots carry every worker's replica.
 
     python -m sparknet_tpu_torch.runtime.recover --workdir D --rounds 4 \\
-        [--kill_at execute:2] [--resume] [--no_journal] [--device cpu]
+        [--kill_at execute:2] [--resume] [--no_journal] [--stale_bound 2] \\
+        [--device cpu]
 
 prints one JSON line.  ``RecoverContext`` and ``run_driver(kill=<a
-raiser>)`` are the in-process pieces.  The bounded-staleness leg
-(``--stale_bound``, the ``stale_boundary`` point) is not yet ported.
+raiser>)`` are the in-process pieces.
 """
 
 from __future__ import annotations
@@ -59,12 +71,11 @@ KILL_POINTS = (
     "average",
     "snapshot_mid_write",
     "journal_mid_append",
-    "stale_boundary",  # bounded-staleness runs only: not yet ported
+    # bounded-staleness runs only (--stale_bound > 0): the arrival set
+    # folded and the ledger advanced in memory, neither the snapshot nor
+    # the commit landed; a resume replays from the journaled vector
+    "stale_boundary",
 )
-
-_STALE_REFUSAL = ("bounded staleness (--stale_bound, the stale_boundary kill "
-                  "point, parallel/stale.py) is not yet ported to "
-                  "sparknet_tpu_torch")
 
 
 class SimulatedKill(BaseException):
@@ -87,17 +98,17 @@ def parse_kill_at(value: Optional[str]) -> Tuple[Optional[str], int]:
 
 class RecoverContext:
     """Data, solver (audit on) and trainer (int8 delta averaging, so real
-    error-feedback state is carried), built once and reused across
-    control, crash and resume runs."""
+    error-feedback state is carried; with ``stale_bound`` > 0 the
+    bounded-staleness trainer, uncompressed), built once and reused
+    across control, crash and resume runs."""
 
     def __init__(self, workdir: str, workers: int = 2, tau: int = 2,
                  batch: int = 8, seed: int = 7, compress: str = "int8",
                  stale_bound: int = 0, device=None, metrics=None):
-        if stale_bound > 0:
-            raise NotImplementedError(_STALE_REFUSAL)
         from sparknet_tpu_torch import config as cfg, models
         from sparknet_tpu_torch.data import CifarLoader
         from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
+        from sparknet_tpu_torch.parallel.stale import BoundedStalenessTrainer
         from sparknet_tpu_torch.solver import Solver
 
         self.workdir = workdir
@@ -105,7 +116,11 @@ class RecoverContext:
         self.tau = tau
         self.batch = batch
         self.seed = seed
-        self.stale_bound = 0
+        self.stale_bound = int(stale_bound)
+        if self.stale_bound > 0:
+            # stale boundaries do not compose with the comm plane's
+            # residuals: the stale leg carries the ledger and replicas
+            compress = "none"
         self.compress = compress
         self.metrics = metrics
         os.makedirs(workdir, exist_ok=True)
@@ -122,8 +137,18 @@ class RecoverContext:
         self.solver = Solver(models.load_model_solver("cifar10_quick"),
                              net_param=netp, audit=True, device=device)
         self.device = self.solver.device
-        self.trainer = ParameterAveragingTrainer(
-            self.solver, workers, compress=compress, metrics=metrics)
+        if self.stale_bound > 0:
+            self.trainer = BoundedStalenessTrainer(
+                self.solver, workers, stale_bound=self.stale_bound,
+                metrics=metrics)
+            # the deterministic straggler: the last worker never arrives
+            # by itself, so every boundary's arrival set is a function of
+            # the journaled worker-round vector
+            self.straggler = workers - 1
+        else:
+            self.trainer = ParameterAveragingTrainer(
+                self.solver, workers, compress=compress, metrics=metrics)
+            self.straggler = None
         self.prefix = os.path.join(workdir, "recover_ckpt")
 
     def batch_for(self, r: int) -> Dict[str, np.ndarray]:
@@ -144,11 +169,21 @@ class RecoverContext:
 
         return HealthSentry(policy="warn", metrics=self.metrics)
 
+    def arrival_for(self) -> np.ndarray:
+        """The boundary's self-arrival set (the same every round: the
+        straggler folds in when the bound forces it)."""
+        arr = np.ones((self.workers,), bool)
+        if self.straggler is not None:
+            arr[self.straggler] = False
+        return arr
 
-def state_digest(state, comm_state=None, sentry_state=None) -> str:
+
+def state_digest(state, comm_state=None, sentry_state=None,
+                 stale_state=None) -> str:
     """sha256 over the full job state: every TrainState leaf (params,
-    stats, history, iter), the EF residuals and the sentry's EMA
-    scalars.  Equal digests == bit-identical runs."""
+    stats, history, iter), the EF residuals, the sentry's EMA scalars and
+    (stale runs) the worker-round ledger.  Equal digests == bit-identical
+    runs."""
     from sparknet_tpu_torch.utils.tree import tree_leaves
 
     h = hashlib.sha256()
@@ -165,6 +200,12 @@ def state_digest(state, comm_state=None, sentry_state=None) -> str:
         h.update(json.dumps({k: sentry_state.get(k)
                              for k in ("ema", "emvar", "seen", "cooldown")},
                             sort_keys=True).encode())
+    if stale_state is not None:
+        h.update(json.dumps({
+            "boundary": int(np.asarray(stale_state["boundary"])),
+            "worker_rounds": [int(v) for v in np.asarray(
+                stale_state["worker_rounds"]).reshape(-1)],
+        }, sort_keys=True).encode())
     return h.hexdigest()
 
 
@@ -186,12 +227,19 @@ def run_driver(ctx: RecoverContext, rounds: int, *, journal: bool = True,
         restore_worker_history,
     )
     from sparknet_tpu_torch.parallel.hierarchy import HierarchySpec
+    from sparknet_tpu_torch.parallel.stale import (
+        export_worker_replicas,
+        restore_worker_replicas,
+        stale_window,
+    )
     from sparknet_tpu_torch.runtime import membership as membership_mod
 
     kill = kill or sigkill_self
     kp, kr = kill_at or (None, -1)
-    if kp == "stale_boundary":
-        raise NotImplementedError(_STALE_REFUSAL)
+    stale = ctx.stale_bound > 0
+    if kp == "stale_boundary" and not stale:
+        raise ValueError("kill_at stale_boundary needs a --stale_bound > 0 "
+                         "context")
 
     def maybe_kill(phase: str, r: int) -> None:
         if kp == phase and r == kr:
@@ -247,9 +295,18 @@ def run_driver(ctx: RecoverContext, rounds: int, *, journal: bool = True,
                         # every worker's momentum (the consensus snapshot
                         # carries worker 0's)
                         state = restore_worker_history(state, js["workers"])
+                    if stale and "stale" in js:
+                        # stale replicas diverge between boundaries: the
+                        # full per-worker stacks replace the consensus,
+                        # and the ledger resumes where it was
+                        state = restore_worker_replicas(
+                            state, js["stale"]["replicas"])
+                        trainer.load_stale_state(js["stale"]["ledger"])
             restore_s = time.perf_counter() - t0
         if state is None:
             trainer.reset_comm_state()
+            if stale:
+                trainer.reset_stale_state()
             state = trainer.init_state(seed=ctx.seed)
 
         rounds_executed: List[int] = []
@@ -258,19 +315,42 @@ def run_driver(ctx: RecoverContext, rounds: int, *, journal: bool = True,
         for r in range(start_round, rounds):
             t_r = time.perf_counter()
             view = membership.advance(r)
+            meta = {}
+            if stale:
+                # the journal versions every worker's round vector: the
+                # intent what each was about to fold, the commit what it
+                # folded
+                meta = {"worker_rounds": [int(v) for v in trainer.worker_rounds],
+                        "stale_bound": ctx.stale_bound}
             if jr is not None:
                 # the write-ahead intent: what restart needs to know
                 jr.begin_round(r, iter=r * ctx.tau, view_epoch=view.epoch,
-                               cursor=r, rng="default_train_key(0)")
-            host = ctx.batch_for(r)
+                               cursor=r, rng="default_train_key(0)", **meta)
+            if stale:
+                # each worker trains on the window of its own next round
+                host = stale_window(ctx.batch_for, trainer.worker_rounds)
+            else:
+                host = ctx.batch_for(r)
             maybe_kill("assemble", r)
             placed = {k: torch.from_numpy(v).to(ctx.device)
                       for k, v in host.items()}
             maybe_kill("h2d", r)
-            state, losses, stats = trainer.round(state, placed, round_index=r)
+            if stale:
+                state, losses, stats = trainer.round(
+                    state, placed, arrived=ctx.arrival_for(), round_index=r)
+            else:
+                state, losses, stats = trainer.round(state, placed,
+                                                     round_index=r)
             rounds_executed.append(r)
             maybe_kill("execute", r)
-            sentry.observe(r, losses, stats)
+            if stale:
+                maybe_kill("stale_boundary", r)
+                lb = trainer.last_boundary
+                sentry.observe(r, losses, stats, arrived=lb["arrived"],
+                               worker_rounds=[lb["boundary"] - l
+                                              for l in lb["lag"]])
+            else:
+                sentry.observe(r, losses, stats)
             maybe_kill("average", r)
             # the durable boundary: the full job state beside params,
             # then the commit record that references it
@@ -283,6 +363,10 @@ def run_driver(ctx: RecoverContext, rounds: int, *, journal: bool = True,
             comm_state = trainer.export_comm_state()
             if comm_state is not None:
                 extra["comm"] = comm_state
+            if stale:
+                # the consensus snapshot under-determines a stale fleet
+                extra["stale"] = {"ledger": trainer.export_stale_state(),
+                                  "replicas": export_worker_replicas(state)}
             if kp == "snapshot_mid_write" and r == kr:
                 # the kill lands with the solverstate's temporary file
                 # written and unpublished: restore must never see it
@@ -298,18 +382,25 @@ def run_driver(ctx: RecoverContext, rounds: int, *, journal: bool = True,
             if jr is not None:
                 if kp == "journal_mid_append" and r == kr:
                     jr.crash_hook = kill
+                commit_meta = dict(meta)
+                if stale:  # the post-fold vector the boundary owns
+                    commit_meta["worker_rounds"] = [
+                        int(v) for v in trainer.worker_rounds]
                 jr.commit_round(r, iter=(r + 1) * ctx.tau,
-                                snapshot=os.path.basename(state_path))
+                                snapshot=os.path.basename(state_path),
+                                **commit_meta)
             round_ms.append((time.perf_counter() - t_r) * 1e3)
 
         final_comm = trainer.export_comm_state()
         final_sentry = sentry.export_state()
+        final_stale = trainer.export_stale_state() if stale else None
         return {
             "rounds": rounds,
             "start_round": start_round,
             "rounds_executed": rounds_executed,
             "final_iter": int(state.iter.reshape(-1)[0]),
-            "final_digest": state_digest(state, final_comm, final_sentry),
+            "final_digest": state_digest(state, final_comm, final_sentry,
+                                         final_stale),
             "final_loss": (float(losses.double().mean())
                            if losses is not None else None),
             "sentry_ema": final_sentry["ema"],
@@ -318,8 +409,9 @@ def run_driver(ctx: RecoverContext, rounds: int, *, journal: bool = True,
             "journal_truncated_bytes": jr.truncated_bytes if jr is not None else 0,
             "resumed_from": resumed_from,
             "resume_info": info,
-            "stale_bound": 0,
-            "worker_rounds": None,
+            "stale_bound": ctx.stale_bound,
+            "worker_rounds": ([int(v) for v in trainer.worker_rounds]
+                              if stale else None),
             "restore_s": round(restore_s, 4) if restore_s is not None else None,
             "round_ms": [round(m, 2) for m in round_ms],
         }
@@ -341,7 +433,10 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=7)
     p.add_argument("--compress", default="int8")
     p.add_argument("--stale_bound", type=int, default=0,
-                   help="bounded-staleness driver leg (not yet ported: 0)")
+                   help="run the bounded-staleness driver leg: the last "
+                   "worker never arrives by itself (the bound forces it), "
+                   "the journal versions the worker-round vector, snapshots "
+                   "carry every worker's replica.  0 = the synchronous driver")
     p.add_argument("--kill_at", default=None, metavar="PHASE:ROUND",
                    help="SIGKILL self at this point of this round (points: "
                    f"{', '.join(KILL_POINTS)})")
@@ -353,11 +448,7 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) or cpu")
     args = p.parse_args(argv)
-    if args.stale_bound > 0:
-        raise SystemExit(f"recover: {_STALE_REFUSAL}")
     kill_at = parse_kill_at(args.kill_at)
-    if kill_at[0] == "stale_boundary":
-        raise SystemExit(f"recover: {_STALE_REFUSAL}")
     from sparknet_tpu_torch.utils.devices import (
         deterministic_algorithms,
         resolve_device,
@@ -368,7 +459,8 @@ def main(argv=None) -> int:
     with deterministic_algorithms():
         ctx = RecoverContext(args.workdir, workers=args.workers, tau=args.tau,
                              batch=args.batch, seed=args.seed,
-                             compress=args.compress, device=device)
+                             compress=args.compress,
+                             stale_bound=args.stale_bound, device=device)
         rec = run_driver(ctx, args.rounds, journal=args.journal,
                          resume=args.resume, kill_at=kill_at, fsync=args.fsync)
     print(json.dumps(rec))

@@ -45,6 +45,7 @@ from sparknet_tpu_torch.config.schema import (
 )
 from sparknet_tpu_torch.net import Params, Stats, TorchNet
 from sparknet_tpu_torch.obs import health as _health
+from sparknet_tpu_torch.obs import profile as _profile
 from sparknet_tpu_torch.obs.trace import span
 from sparknet_tpu_torch.utils import rngs
 from sparknet_tpu_torch.utils.devices import resolve_device
@@ -358,6 +359,7 @@ class Solver:
         with span("execute"):
             out = self._step_tau(state, self._to_device(batches), rng)
         self.note_losses(out[1])
+        _profile.observe_round_if_active(out[1])  # --profile round mark
         return out
 
     def step_repeat(self, state: TrainState, batch, tau: int,

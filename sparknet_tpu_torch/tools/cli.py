@@ -1,6 +1,7 @@
-"""Command-line entry point of the port: ``serve``, ``train``, ``test``.
+"""Command-line entry point of the port: ``serve``, ``train``, ``test``,
+``time``.
 
-The port of the ``serve``, ``train`` and ``test`` subcommands of
+The port of the ``serve``, ``train``, ``test`` and ``time`` subcommands of
 ``sparknet_tpu/tools/cli.py``, with the same flags and defaults plus
 ``--device`` (default ``cuda``; ``--device=cpu`` runs the plain versions
 of the kernels on the CPU)::
@@ -16,6 +17,8 @@ of the kernels on the CPU)::
     python -m sparknet_tpu_torch.tools.cli train --lm [--dim 256 ...]
     python -m sparknet_tpu_torch.tools.cli test --model NET.prototxt \
         [--weights F.caffemodel] [--data DIR|LMDB|LEVELDB|DB] [--iterations 50]
+    python -m sparknet_tpu_torch.tools.cli time --model caffenet \
+        [--iterations 10] [--batch 32]
 
 ``serve`` answers ``POST /predict`` on a deploy net (a zoo name or a
 prototxt; a train/test net is taken to its deploy view), or ``POST
@@ -37,10 +40,13 @@ so that a resumed run repeats the uninterrupted one bit for bit.  Its
 through the chunk cache (``--cache_dir``, ``--cache_bytes``);
 ``--shuffle_epochs`` >= 2 draws the windows as epoch passes whose
 minibatch order re-permutes each epoch; the net's ``HDF5Output`` layers
-write their files after the last window.  ``train``'s ``--devices`` > 1,
-``--obs`` and the other subcommands (``classify``, ``time``,
-``device_query``, the converters, ...) come with later slices; the
-flags raise "not yet ported" here.
+write their files after the last window; ``--profile`` /
+``--profile_out`` profile each window as a round (``obs/profile.py``).
+``time --model M --iterations N [--batch B]`` prints ``caffe time``'s
+per-layer table (``utils/profiler.py``).  ``train``'s ``--devices`` > 1,
+``--obs`` and the other subcommands (``classify``, ``device_query``, the
+converters, ...) come with later slices; the flags raise "not yet
+ported" here.
 """
 
 from __future__ import annotations
@@ -324,11 +330,17 @@ def _train_solver(args, device) -> int:
         sentry.restore_fn = health_mod.make_restore_fn(solver, prefix,
                                                        metrics=metrics)
     recorder = obs.flight_from_args(args, metrics=metrics)
+    # --profile: each window is one profiled round (Solver.step marks it)
+    profiler = obs.profile_from_args(args, echo=print)
     try:
         with obs.installed_metrics(metrics):  # the data plane counts too
             return _train_loop(args, solver, solver_param, metrics, prefix,
                                jr, sentry)
     finally:
+        if profiler is not None:
+            summary = obs.close_profile(profiler, args.profile_out, echo=print)
+            if args.result is not None:
+                args.result.update(profile=summary)
         if jr is not None:
             jr.close()
         if recorder is not None:
@@ -568,6 +580,38 @@ def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
     return 0
 
 
+def cmd_time(args) -> int:
+    """``time --model M --iterations N``: ``caffe time``'s table for the
+    TRAIN net of a prototxt or zoo name (seeded weights, random batches
+    of the net's feed shapes; ``--batch`` resizes them), on the card
+    unless ``--device=cpu`` (``utils/profiler.py``)."""
+    import torch
+
+    from sparknet_tpu_torch import config, models
+    from sparknet_tpu_torch.data.source import synthetic_batches
+    from sparknet_tpu_torch.net import TorchNet
+    from sparknet_tpu_torch.utils.devices import resolve_device
+    from sparknet_tpu_torch.utils.profiler import format_profile, profile_net
+
+    device = resolve_device(args.device)
+    netp = (config.load_net_prototxt(args.model) if os.path.exists(args.model)
+            else models.load_model(args.model))
+    net = TorchNet(netp, phase="TRAIN")
+    if args.batch:
+        shapes = [(args.batch,) + tuple(net.blob_shapes[b][1:])
+                  for b in net.feed_blobs]
+        net = TorchNet(config.replace_data_layers(netp, shapes, shapes),
+                       phase="TRAIN")
+    params, stats = net.init(0, device=device)
+    batch = {k: torch.from_numpy(v[0]).to(device)
+             for k, v in synthetic_batches(net, 1).items()}
+    result = profile_net(net, params, stats, batch, iterations=args.iterations)
+    print(format_profile(result))
+    if args.result is not None:
+        args.result.update(profile=result, net=net)
+    return 0
+
+
 def cmd_test(args) -> int:
     """``test``: score the TEST net of ``--model`` (a prototxt) with
     ``--weights`` over ``--iterations`` real batches, on the card unless
@@ -694,6 +738,16 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) or cpu")
     p.set_defaults(fn=cmd_test, result=None)
+
+    p = sub.add_parser("time")
+    p.add_argument("--model", required=True,
+                   help="net prototxt or zoo model name")
+    p.add_argument("--iterations", type=int, default=10)
+    p.add_argument("--batch", type=int, default=0,
+                   help="the feed blobs' batch size (0 = the net's own)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a CUDA device) or cpu")
+    p.set_defaults(fn=cmd_time, result=None)
 
     p = sub.add_parser("serve")
     p.add_argument("--net", default=None,

@@ -280,7 +280,6 @@ def test_weights_warm_start(tmp_path):
 @pytest.mark.parametrize("flags,what", [
     (["--devices=2"], "--devices"),
     (["--trace_out=/tmp/t.json"], "--trace_out"),
-    (["--profile"], "--profile"),
     (["--slo"], "--slo"),
     (["--obs"], "--obs"),
 ])
@@ -288,6 +287,29 @@ def test_train_refuses_what_is_not_yet_ported(tmp_path, flags, what):
     with pytest.raises(SystemExit, match="not yet ported") as e:
         _train(_solver_file(tmp_path, "n"), *flags)
     assert what in str(e.value)
+
+
+@pytest.mark.parametrize("flag", ["--profile", "--profile_out"])
+def test_train_profile_profiles_each_window(tmp_path, capsys, flag):
+    """``--profile`` / ``--profile_out``: each tau-window of the solver
+    is a profiled round (``Solver.step`` marks it), the summary table
+    prints at the end, and ``--profile_out`` writes it as JSON."""
+    import json
+
+    from sparknet_tpu_torch.obs import profile
+
+    out = tmp_path / "p.json"
+    flags = [flag] if flag == "--profile" else [flag, str(out)]
+    r = {}
+    assert _train(_solver_file(tmp_path, "p"), "--max_iter=6", *flags,
+                  result=r) == 0
+    assert profile.active() is None
+    s = r["profile"]
+    assert s["rounds"] == 3 and "execute" in s["phases"]
+    assert s["phases"]["execute"]["count"] == 3
+    assert "profile: round anatomy over 3 round(s)" in capsys.readouterr().out
+    if flag == "--profile_out":
+        assert json.loads(out.read_text())["rounds"] == 3
 
 
 def test_train_refuses_the_comm_plane(tmp_path, capsys):

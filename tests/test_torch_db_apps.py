@@ -338,8 +338,7 @@ def test_cifar_db_app_matches_the_jax_app(tmp_path):
 # refusals
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("flag", [
-    ["--stale_bound", "2"], ["--trace_out", "/t"], ["--obs"], ["--profile"],
-    ["--obs_port", "1"], ["--profile_out", "/p"], ["--slo"],
+    ["--trace_out", "/t"], ["--obs"], ["--obs_port", "1"], ["--slo"],
     ["--model", "googlenet"]])
 def test_run_db_app_refuses_what_is_not_yet_ported(flag):
     """(The chunk cache, ``--shuffle_epochs`` and an object-store
@@ -351,8 +350,7 @@ def test_run_db_app_refuses_what_is_not_yet_ported(flag):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--stale_bound", "1"], ["--trace_out", "/t"], ["--obs_port", "1"],
-    ["--profile_out", "/p"], ["--slo"], ["--obs"], ["--profile"]])
+    ["--trace_out", "/t"], ["--obs_port", "1"], ["--slo"], ["--obs"]])
 def test_cifar_db_app_refuses_what_is_not_yet_ported(flag):
     with pytest.raises(SystemExit, match="not yet ported") as e:
         cifar_db_app.main(["--device", "cpu"] + flag)
@@ -371,3 +369,112 @@ def test_run_db_app_refuses_overlap_with_snapshots(flag):
 def test_create_db_app_refuses_object_store_data():
     with pytest.raises(SystemExit, match="not yet ported"):
         imagenet_create_db_app.main(["--data", "gs://bucket/imagenet"])
+
+
+# ----------------------------------------------------------------------
+# --stale_bound and --profile / --profile_out
+# ----------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def stale_and_sync(db_pair, tmp_path_factory):
+    """The narrow CaffeNet DB run, 3 rounds, journaled: synchronous with
+    ``--profile_out``, then ``--stale_bound 2`` with ``--profile``, then
+    the stale run as 2 rounds + ``--resume`` for 1."""
+    _, db_dir = db_pair
+    d = tmp_path_factory.mktemp("stale")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        load = tmodels.load_model
+        mp.setattr(tmodels, "load_model", lambda name, **kw: (
+            narrow(load(name, **kw), 0.0) if name == "caffenet"
+            else load(name, **kw)))
+        out = {"profile_out": str(d / "p.json")}
+        out["sync"] = _run(db_dir, str(d / "sync" / "s"), 3, "--journal",
+                           "--profile_out", out["profile_out"])
+        st = ["--stale_bound", "2", "--journal"]
+        out["stale"] = _run(db_dir, str(d / "stale" / "s"), 3, *st, "--profile")
+        out["first"] = _run(db_dir, str(d / "res" / "s"), 2, *st)
+        out["resumed"] = _run(db_dir, str(d / "res" / "s"), 1, "--resume", *st)
+        out["dir"] = d
+    torch.set_num_threads(n)
+    return out
+
+
+def test_run_db_app_stale_bound_trains_as_the_jax_app(stale_and_sync):
+    """Every worker arrives at every boundary (the app models no
+    straggler), so the staleness-weighted mean is the synchronous mean
+    up to rounding: allclose, not bitwise, as the JAX package pins."""
+    from sparknet_tpu_torch.parallel.stale import BoundedStalenessTrainer
+
+    sync, stale = stale_and_sync["sync"], stale_and_sync["stale"]
+    tr = stale["trainer"]
+    assert isinstance(tr, BoundedStalenessTrainer) and tr.stale_bound == 2
+    assert list(tr.worker_rounds) == [3] * W
+    assert tr.last_boundary["forced"] == [False] * W
+    for a, b in zip(tree_leaves(sync["state"].params),
+                    tree_leaves(stale["state"].params)):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_run_db_app_stale_journal_and_resume_carry_the_ledger(stale_and_sync):
+    from sparknet_tpu_torch.io.journal import scan
+
+    recs, torn = scan(str(stale_and_sync["dir"] / "stale" / "s_run.journal"))
+    assert torn == 0 and recs
+    assert all(r["worker_rounds"] and r["stale_bound"] == 2 for r in recs)
+    assert [r["worker_rounds"] for r in recs if r["kind"] == "commit"] == \
+        [[k] * W for k in (1, 2, 3)]
+    sync_recs, _ = scan(str(stale_and_sync["dir"] / "sync" / "s_run.journal"))
+    assert not any("worker_rounds" in r for r in sync_recs)
+    # the snapshot's jobstate carries the ledger and every replica: the
+    # resumed run continues the ledger and ends on the straight run's bits
+    resumed = stale_and_sync["resumed"]
+    assert resumed["start_round"] == 2
+    assert list(resumed["trainer"].worker_rounds) == [3] * W
+    _same_state(stale_and_sync["stale"]["state"], resumed["state"])
+
+
+@pytest.mark.parametrize("which", ["profile", "profile_out"])
+def test_run_db_app_profile_summarizes_the_rounds(stale_and_sync, which):
+    """``--profile`` prints the round anatomy at the end; ``--profile_out``
+    also writes it: every worker's DB pull timed (assemble), the feed's
+    h2d, the trainer's execute and average, per-worker execute times."""
+    import json
+
+    if which == "profile_out":
+        s = json.load(open(stale_and_sync["profile_out"]))
+    else:
+        s = stale_and_sync["stale"]["profile"]
+    assert s["rounds"] == 3
+    assert {"assemble", "h2d", "execute", "average"} <= set(s["phases"])
+    assert len(s["worker_execute_ms"]["p50"]) == W
+    assert s["flops_per_round"] > 0 and s["mfu"] is None
+
+
+@pytest.mark.parametrize("flag", [["--stale_bound", "1"], ["--profile"],
+                                  ["--profile_out"]])
+def test_cifar_db_app_runs_stale_and_profile(tmp_path, flag):
+    import json
+
+    data = str(tmp_path / "cifar")
+    CifarLoader.write_synthetic(data, num_train=1000, num_test=400)
+    base = ["--device", "cpu", "--data", data, "--db_dir", str(tmp_path / "t"),
+            "--workers", str(W), "--rounds", "2", "--tau", str(TAU),
+            "--seed", "2"]
+    if flag == ["--profile_out"]:
+        flag = flag + [str(tmp_path / "p.json")]
+    sync, got = {}, {}
+    assert cifar_db_app.main(base, sync) == 0
+    assert cifar_db_app.main(base + flag, got) == 0
+    if flag[0] == "--stale_bound":
+        assert list(got["trainer"].worker_rounds) == [2] * W
+        for a, b in zip(tree_leaves(sync["state"].params),
+                        tree_leaves(got["state"].params)):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5,
+                                       atol=1e-6)
+    else:
+        s = got["profile"]
+        assert s["rounds"] == 2 and "assemble" in s["phases"]
+        assert s["worker_skew"] is not None
+        if flag[0] == "--profile_out":
+            assert json.load(open(flag[1]))["rounds"] == 2

@@ -95,13 +95,37 @@ def test_entry_point_takes_the_jax_flag_surface(monkeypatch, app):
 
 
 def test_refusals_name_the_flag():
+    """What is still refused names the flag (``--stale_bound`` and
+    ``--profile`` run now: ``test_stale_and_profile_flags_run``)."""
     for main, argv in ((cifar_app.main, ["--device", "cpu"]),
                        (lm_app.main, ["--device", "cpu"])):
-        for flag in (["--stale_bound", "2"], ["--trace_out", "t.json"],
-                     ["--profile"]):
+        for flag in (["--trace_out", "t.json"], ["--obs"]):
             with pytest.raises(SystemExit, match="not yet ported") as e:
                 main(argv + flag)
             assert flag[0] in str(e.value)
+
+
+def test_stale_and_profile_flags_run(tmp_path):
+    """``lm_app --stale_bound 2 --stale_discount 0.25 --profile``: the
+    bounded-staleness trainer with the JAX flags' values (every worker
+    arrives, so the run stays within 1e-5 of the synchronous one), and
+    the profiler's summary at the end."""
+    from sparknet_tpu_torch.parallel.stale import BoundedStalenessTrainer
+
+    # the comm plane assumes synchronous boundaries: uncompressed
+    argv = [a if a != "int8" else "none" for a in LM] + ["--rounds", "2"]
+    sync, stale = {}, {}
+    assert lm_app.main(argv, result=sync) == 0
+    assert lm_app.main(argv + ["--stale_bound", "2", "--stale_discount",
+                               "0.25", "--profile"], result=stale) == 0
+    tr = stale["trainer"]
+    assert isinstance(tr, BoundedStalenessTrainer)
+    assert (tr.stale_bound, tr.discount) == (2, 0.25)
+    assert list(tr.worker_rounds) == [2] * tr.num_workers
+    for a, b in zip(tree_leaves(sync["state"].params),
+                    tree_leaves(stale["state"].params)):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5, atol=1e-6)
+    assert stale["profile"]["rounds"] == 2
 
 
 # ----------------------------------------------------------------------

@@ -520,7 +520,7 @@ def test_imagenet_app_runs_full_alexnet_on_the_cpu(monkeypatch, fusion, extra):
         assert not tr._comm.has_pending
 
 
-@pytest.mark.parametrize("flag", [["--stale_bound", "1"], ["--trace_out", "/t"],
+@pytest.mark.parametrize("flag", [["--trace_out", "/t"],
                                   ["--slo"], ["--model", "vgg16"]])
 def test_imagenet_app_refuses_what_is_not_yet_ported(flag):
     """Every flag of a later slice exits saying so; a model outside the
@@ -530,3 +530,26 @@ def test_imagenet_app_refuses_what_is_not_yet_ported(flag):
     match = "unknown --model" if flag[0] == "--model" else "not yet ported"
     with pytest.raises(SystemExit, match=match):
         imagenet_app.main(["--device", "cpu"] + flag)
+
+
+def test_imagenet_app_stale_bound_trains_as_the_jax_app():
+    """``--stale_bound 1`` (once refused here): the bounded-staleness
+    trainer at AlexNet's full width; every worker arrives each round, so
+    the run stays within 1e-5 of the synchronous one (the JAX package
+    pins allclose), and ``--profile`` rides along."""
+    argv = ["--device", "cpu", "--workers", "2", "--tau", "1", "--rounds", "1",
+            "--full_size", "72", "--crop", "67", "--train_batch", "2",
+            "--test_batch", "2", "--test_every", "10"]
+    sync, stale = {}, {}
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # under the parallel run's load
+    try:
+        imagenet_app.main(argv, sync)
+        imagenet_app.main(argv + ["--stale_bound", "1", "--profile"], stale)
+    finally:
+        torch.set_num_threads(n)
+    assert list(stale["trainer"].worker_rounds) == [1, 1]
+    assert stale["profile"]["rounds"] == 1
+    for a, b in zip(tree_leaves(sync["state"].params),
+                    tree_leaves(stale["state"].params)):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5, atol=1e-6)

@@ -251,15 +251,49 @@ def test_lm_app_end_to_end_on_the_cpu():
 
 @pytest.mark.parametrize(
     "flag",
-    [["--sp", "2"], ["--stale_bound", "1"], ["--trace_out", "/t"],
-     ["--obs_port", "1"],
-     ["--slo"], ["--ship_to", "http://h:1"], ["--host_id", "h"],
-     ["--profile_out", "/p"], ["--obs"], ["--profile"]],
+    [["--sp", "2"], ["--trace_out", "/t"], ["--obs_port", "1"],
+     ["--slo"], ["--ship_to", "http://h:1"], ["--host_id", "h"], ["--obs"]],
 )
 def test_lm_app_refuses_what_is_not_yet_ported(flag):
     with pytest.raises(SystemExit, match="not yet ported") as e:
         lm_app.main(APP + ["--rounds", "1"] + flag)
     assert flag[0] in str(e.value)
+
+
+@pytest.fixture(scope="module")
+def lm_sync_run():
+    """The synchronous 2-round run the stale case is held to."""
+    sync = {}
+    assert lm_app.main(APP + ["--rounds", "2"], result=sync) == 0
+    return sync
+
+
+@pytest.mark.parametrize("flag", [["--stale_bound", "2"], ["--profile_out"],
+                                  ["--profile"]])
+def test_lm_app_runs_stale_and_profile(tmp_path, flag, lm_sync_run):
+    """``--stale_bound 2``: the bounded-staleness trainer (every worker
+    arrives: within 1e-5 of the synchronous run, as the JAX app);
+    ``--profile`` / ``--profile_out``: each worker's text draw timed and
+    the summary at the end (JSON for ``--profile_out``)."""
+    import json
+
+    if flag == ["--profile_out"]:
+        flag = flag + [str(tmp_path / "p.json")]
+    sync, got = lm_sync_run, {}
+    assert lm_app.main(APP + ["--rounds", "2"] + flag, result=got) == 0
+    if flag[0] == "--stale_bound":
+        assert list(got["trainer"].worker_rounds) == [2, 2]
+        for a, b in zip(tree_leaves(sync["state"].params),
+                        tree_leaves(got["state"].params)):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5,
+                                       atol=1e-6)
+    else:
+        s = got["profile"]
+        assert s["rounds"] == 2
+        assert {"assemble", "execute", "average"} <= set(s["phases"])
+        assert s["worker_skew"] is not None
+        if flag[0] == "--profile_out":
+            assert json.load(open(flag[1])) == json.loads(json.dumps(s))
 
 
 def test_cli_train_lm_dispatch(tmp_path):

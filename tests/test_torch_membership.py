@@ -171,8 +171,12 @@ def test_cli_surface_matches_jax(argv):
     if ts is not None:
         assert (ts.slices, ts.cross_slice_every) == \
             (js.slices, js.cross_slice_every)
-    with pytest.raises(SystemExit, match="--stale_bound"):
-        thierarchy.check_args(tp.parse_args(["--stale_bound", "1"]), "app")
+    # --stale_bound takes the JAX stale kwargs (tests/test_torch_stale.py
+    # runs the trainer they build)
+    for argv in (["--stale_bound", "1"], ["--stale_bound", "3",
+                                          "--stale_discount", "0.25"]):
+        assert thierarchy.stale_kwargs_from_args(tp.parse_args(argv)) == \
+            jhierarchy.stale_kwargs_from_args(jp.parse_args(argv))
 
 
 # ----------------------------------------------------------------------

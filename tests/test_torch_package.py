@@ -91,7 +91,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "ops/vision.py", "config/schema.py", "data/shuffle.py",
                 "data/prefetch.py", "data/transformer.py", "data/windows.py",
                 "data/object_store.py", "data/chunk_cache.py",
-                "apps/featurizer_app.py"):
+                "apps/featurizer_app.py", "parallel/stale.py",
+                "obs/profile.py", "utils/profiler.py", "utils/timers.py",
+                "utils/flops.py", "runtime/chaos.py"):
         assert os.path.join("sparknet_tpu_torch", mod) in rel
     for path in files:
         for mod in _imported_modules(path):
@@ -163,25 +165,21 @@ _CIFAR = ["--device", "cpu", "--workers", "2", "--tau", "2", "--rounds", "1"]
     "argv,what",
     [
         (["train", "--solver", "s.prototxt"] + flag, flag[0])
-        for flag in (["--trace_out", "/t"], ["--devices", "2"],
-                     ["--profile_out", "/p"], ["--slo"])
+        for flag in (["--trace_out", "/t"], ["--devices", "2"], ["--slo"])
     ] + [
         (["cifar_app"] + _CIFAR + flag, flag[0])
         for flag in (["--trace_out", "/t"], ["--obs_port", "1"],
-                     ["--profile_out", "/p"], ["--stale_bound", "1"],
-                     ["--slo"], ["--ship_to", "http://h:1"], ["--obs"],
-                     ["--profile"])
+                     ["--slo"], ["--ship_to", "http://h:1"], ["--obs"])
     ] + [
         (["imagenet_app", "--device", "cpu"] + flag, flag[0])
-        for flag in (["--obs"], ["--profile"], ["--stale_bound", "1"],
-                     ["--host_id", "h"])
+        for flag in (["--obs"], ["--host_id", "h"])
     ] + [
         (["imagenet_run_db_app", "--device", "cpu", "--db_dir", "/d"] + flag,
          flag[0])
-        for flag in (["--trace_out", "/t"], ["--stale_bound", "1"], ["--slo"])
+        for flag in (["--trace_out", "/t"], ["--slo"])
     ] + [
         (["cifar_db_app", "--device", "cpu"] + flag, flag[0])
-        for flag in (["--trace_out", "/t"], ["--obs"], ["--stale_bound", "1"])
+        for flag in (["--trace_out", "/t"], ["--obs"])
     ],
 )
 def test_cli_refuses_what_is_not_yet_ported(argv, what):
@@ -194,6 +192,51 @@ def test_cli_refuses_what_is_not_yet_ported(argv, what):
     with pytest.raises(SystemExit, match="not yet ported") as e:
         main(argv)
     assert what in str(e.value)
+
+
+@pytest.mark.parametrize("app,flag", [
+    ("cifar_app", ["--profile_out"]), ("cifar_app", ["--stale_bound", "1"]),
+    ("cifar_app", ["--profile"]), ("imagenet_app", ["--profile"]),
+    ("imagenet_app", ["--stale_bound", "1"]),
+])
+def test_entry_points_run_what_this_slice_ports(tmp_path, app, flag):
+    """``--stale_bound`` builds the bounded-staleness trainer (every
+    worker arrives each round: the ledger counts every round), and
+    ``--profile`` / ``--profile_out`` end the run with the profiler's
+    summary (written as JSON for ``--profile_out``)."""
+    import json
+
+    from sparknet_tpu_torch.parallel.stale import BoundedStalenessTrainer
+
+    from sparknet_tpu_torch.data import CifarLoader
+
+    if flag == ["--profile_out"]:
+        flag = flag + [str(tmp_path / "p.json")]
+    data = str(tmp_path / "cifar")
+    CifarLoader.write_synthetic(data, num_train=200, num_test=20)
+    argv = {"cifar_app": _CIFAR + ["--batch", "10", "--test_every", "10",
+                                   "--data", data],
+            "imagenet_app": ["--device", "cpu", "--workers", "2", "--tau", "1",
+                             "--rounds", "1", "--train_batch", "2",
+                             "--test_batch", "2"]}[app]
+    mod = {"cifar_app": cifar_app, "imagenet_app": imagenet_app}[app]
+    res = {}
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # small nets under the parallel run's load
+    try:
+        mod.main(argv + flag, result=res)
+    finally:
+        torch.set_num_threads(n)
+    if flag[0] == "--stale_bound":
+        tr = res["trainer"]
+        assert isinstance(tr, BoundedStalenessTrainer) and tr.stale_bound == 1
+        assert list(tr.worker_rounds) == [1, 1]
+        assert res["profile"] is None
+    else:
+        assert res["profile"]["rounds"] == 1
+        assert "execute" in res["profile"]["phases"]
+        if flag[0] == "--profile_out":
+            assert json.load(open(flag[1]))["rounds"] == 1
 
 
 @pytest.mark.parametrize(
@@ -331,3 +374,21 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, alone):
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_slice_entry_points_default_to_the_card(tmp_path):
+    """``run_chaos`` and ``cli time`` take the card unless asked for the
+    CPU; without one they raise before writing anything."""
+    if torch.cuda.is_available():
+        return
+    import dataclasses
+
+    from sparknet_tpu_torch.runtime import chaos
+
+    plan = dataclasses.replace(chaos.FaultPlan.default(),
+                               collector_outage_round=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chaos.run_chaos(plan, workdir=str(tmp_path / "c"))
+    assert not os.path.exists(str(tmp_path / "c"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["time", "--model", "cifar10_quick"])

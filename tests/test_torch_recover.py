@@ -9,6 +9,13 @@ sentry EMA) equals the control's with at most one replayed round.  The
 ``--no_journal`` resume differs.  The jobstate carries the comm
 residuals, the sentry and the membership view.  One subprocess is
 SIGKILLed at ``execute:2`` and resumed.
+
+The bounded-staleness leg (``--stale_bound 2``: the last worker never
+arrives by itself) is killed at ``stale_boundary:2`` in process and at
+``stale_boundary:1`` by a real SIGKILL; both resume to the stale
+control's digest, and the journal carries ``worker_rounds`` on every
+record.  The stale driver's ledger equals the JAX driver's rules for the
+same schedule.
 """
 
 import json
@@ -23,7 +30,7 @@ from sparknet_tpu_torch.io.journal import scan
 from sparknet_tpu_torch.runtime import recover
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-POINTS = [p for p in recover.KILL_POINTS if p != "stale_boundary"]
+POINTS = list(recover.KILL_POINTS)
 
 
 @pytest.fixture(scope="module")
@@ -38,12 +45,27 @@ def control(ctx, tmp_path_factory):
                               run_dir=str(tmp_path_factory.mktemp("control")))
 
 
+@pytest.fixture(scope="module")
+def stale_ctx(tmp_path_factory):
+    return recover.RecoverContext(str(tmp_path_factory.mktemp("rcs")),
+                                  stale_bound=2, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def stale_control(stale_ctx, tmp_path_factory):
+    return recover.run_driver(stale_ctx, 4,
+                              run_dir=str(tmp_path_factory.mktemp("scontrol")))
+
+
 def _kill():
     raise recover.SimulatedKill()
 
 
 @pytest.mark.parametrize("point", POINTS)
-def test_each_kill_point_resumes_to_the_control(ctx, control, tmp_path, point):
+def test_each_kill_point_resumes_to_the_control(ctx, control, stale_ctx,
+                                                request, tmp_path, point):
+    if point == "stale_boundary":  # the stale driver's own point
+        ctx, control = stale_ctx, request.getfixturevalue("stale_control")
     d = str(tmp_path / point)
     with pytest.raises(recover.SimulatedKill):
         recover.run_driver(ctx, 4, run_dir=d, kill_at=(point, 2), kill=_kill)
@@ -82,12 +104,39 @@ def test_jobstate_carries_comm_sentry_and_membership(ctx, tmp_path):
     assert rec["final_iter"] == 4
 
 
-def test_stale_bound_is_not_yet_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        recover.RecoverContext(str(tmp_path), stale_bound=1, device="cpu")
-    with pytest.raises(SystemExit, match="not yet ported"):
-        recover.main(["--workdir", str(tmp_path), "--device", "cpu",
-                      "--kill_at", "stale_boundary:1"])
+def test_stale_driver_ledger_and_journal(stale_ctx, stale_control, ctx,
+                                         tmp_path):
+    """The stale leg: the straggler (worker 1 of 2) folds in only when
+    the bound forces it (every 2nd boundary), as the JAX driver's rules
+    give; every record of the journal carries the worker-round vector
+    (the intent the pre-fold one, the commit the post-fold one); the
+    synchronous context refuses the stale point."""
+    assert stale_ctx.trainer.stale_bound == 2 and stale_ctx.compress == "none"
+    assert stale_control["worker_rounds"] == [4, 2]
+    d = str(tmp_path / "sj")
+    recover.run_driver(stale_ctx, 4, run_dir=d)
+    recs, torn = scan(os.path.join(d, "recover_ckpt_run.journal"))
+    assert torn == 0 and all("worker_rounds" in r for r in recs)
+    commits = [r["worker_rounds"] for r in recs if r["kind"] == "commit"]
+    intents = [r["worker_rounds"] for r in recs if r["kind"] == "intent"]
+    assert commits == [[1, 0], [2, 0], [3, 1], [4, 2]]
+    assert intents == [[0, 0]] + commits[:-1]
+    # the JAX driver journals the same vectors for the same schedule
+    from sparknet_tpu.io.journal import scan as jscan
+    from sparknet_tpu.runtime import recover as jrecover
+
+    jctx = jrecover.RecoverContext(str(tmp_path / "jrc"), stale_bound=2)
+    jrec = jrecover.run_driver(jctx, 4, run_dir=str(tmp_path / "jsj"))
+    jrecs, _ = jscan(str(tmp_path / "jsj" / "recover_ckpt_run.journal"))
+    assert [(r["kind"], r["worker_rounds"]) for r in jrecs] == \
+        [(r["kind"], r["worker_rounds"]) for r in recs]
+    assert jrec["worker_rounds"] == stale_control["worker_rounds"]
+    js = checkpoint.load_job_state(
+        checkpoint.find_snapshots(os.path.join(d, "recover_ckpt"))[-1])
+    assert set(js["stale"]) == {"ledger", "replicas"}
+    with pytest.raises(ValueError):
+        recover.run_driver(ctx, 2, run_dir=str(tmp_path / "x"),
+                           kill_at=("stale_boundary", 1), kill=_kill)
     with pytest.raises(ValueError):
         recover.parse_kill_at("nowhere:1")
 
@@ -107,3 +156,23 @@ def test_subprocess_sigkill_and_resume(tmp_path, control):
     rec = json.loads(done.stdout.strip().splitlines()[-1])
     assert rec["rounds_executed"] == [2, 3]
     assert rec["final_digest"] == control["final_digest"]
+
+
+def test_subprocess_sigkill_at_stale_boundary(tmp_path, stale_control):
+    """The stale leg under a real SIGKILL at ``stale_boundary:1``: the
+    resume replays round 1 from the journaled vector (at most the bound)
+    and ends at the stale control's digest."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    base = [sys.executable, "-m", "sparknet_tpu_torch.runtime.recover",
+            "--workdir", str(tmp_path), "--rounds", "4", "--device", "cpu",
+            "--stale_bound", "2"]
+    killed = subprocess.run(base + ["--kill_at", "stale_boundary:1"], env=env,
+                            capture_output=True, text=True, timeout=300)
+    assert killed.returncode == -9, killed.stderr[-2000:]
+    done = subprocess.run(base + ["--resume"], env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert done.returncode == 0, done.stderr[-2000:]
+    rec = json.loads(done.stdout.strip().splitlines()[-1])
+    assert rec["rounds_executed"] == [1, 2, 3]
+    assert rec["resume_info"]["worker_rounds"] == [1, 0]
+    assert rec["final_digest"] == stale_control["final_digest"]
