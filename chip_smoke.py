@@ -134,12 +134,11 @@ Phases (any failure ends the run with a non-zero exit and no result):
    0 and within 2e-3 in every round (a second run of the default leg
    shows how far two runs of one program drift apart); the default leg's
    first round on the card against the same round on the CPU, after one
-   local step and after tau, and both against the same round on the CPU
-   in float64; one round of the default, fused, int8 and bf16+overlap
-   legs profiled (the comm rounds with K9-K11's shares).  Where Pillow
-   imports,
-   ``imagenet_app.main`` also runs on synthesized JPEG shards at a small
-   size, driving the data stage.
+   local step and after two (``IMNET_CPU_STEPS``), and both against the
+   same round on the CPU in float64; one round of the default, fused,
+   int8 and bf16+overlap legs profiled (the comm rounds with K9-K11's
+   shares).  Where Pillow imports, ``imagenet_app.main`` also runs on
+   synthesized JPEG shards at a small size, driving the data stage.
 
 10. Weights and snapshots.  ``apps.lm_app`` at the serving width (W=2,
    tau 4, batch 8, lr 0.01), in two legs — no compression and
@@ -159,8 +158,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
    bit-identical.  Then one LM round and one ``cli train`` window with
    deterministic algorithms on and off (toggled here through
    ``utils.devices.deterministic_algorithms``, the block the apps train
-   in), twice each: wall and device-busy time (after phase 11, with its
-   CaffeNet round).  The phases before 10 run with torch's default
+   in), once each, warm: wall and device-busy time (after phase 11,
+   with its CaffeNet round).  The phases before 10 run with torch's default
    settings: each app call puts them back on its way out.
 
 11. The two-phase ImageNet DB path.  Where Pillow imports,
@@ -248,7 +247,7 @@ Phases (any failure ends the run with a non-zero exit and no result):
    kill-anywhere sweep of ``runtime.recover`` runs in phase 16, through
    ``chaos.run_kill_sweep``).  Full-width resume:
    ``imagenet_run_db_app`` (CaffeNet, phase 11's DB, W=2, tau 4, batch
-   32, int8, ``--journal --health warn --snapshot_every 1``, 4 rounds)
+   32, int8, ``--journal --health warn --snapshot_every 2``, 4 rounds)
    as a subprocess, SIGKILLed once the ledger (scanned with the port's
    ``journal.scan``) holds round 2's intent, then resumed: its final
    snapshot equals the uninterrupted in-process run's bit for bit
@@ -358,17 +357,55 @@ Phases (any failure ends the run with a non-zero exit and no result):
    run's (K1, K2), the corrupt publish never canaried, the recovery
    latency printed.
 
-A failed run prints cuDNN's error log (kept in the temporary
-directory) and the tensors of the port's innermost frame on the failing
-stack.  The second-to-last line is ``{"kernels": [...]}`` (K1-K11 and K5 in
-bf16, with launches summed over every phase's main-path runs); the last
-line is ``{"ok": true, "device": {...}}``.
+17. bf16 training through the Solver (about 60 s, the kernels' part with
+   phase 8's checks, the rest in phase 11's temporary directory).  (a)
+   K6, K7 and K8 in bfloat16 against their plain versions (the float32
+   ones on the widened inputs, narrowed once), bit for bit, at AlexNet's
+   two LRN inputs (batch 32, random and tied) and an odd shape, and K5
+   and K6 so at CaffeNet's two at batch 256, where (b) runs them; each
+   timed over both sandwiches beside its plain version, the PyTorch call
+   for the same function in bf16 (the autograd backward of
+   ``F.local_response_norm``, alone and with ``F.max_pool2d``; never
+   called by the port) and the float32 kernel, its bound at 2-byte I/O.
+   (b) ``bench.py``'s training protocol: CaffeNet at full width (1,000
+   classes, crop 227, batch 256), ``Solver(compute_dtype="bfloat16")``
+   and float32, ``step_repeat`` tau 20 on one seeded batch: images/s,
+   device time and busy share (``torch.profiler`` over a window of 5
+   iterations), peak memory; masters
+   and history float32; K5 and K6 launch 40 times in bf16 (none in
+   float32), 40 in float32 in the float32 window; the first iteration's
+   loss within 2e-2 of float32's.  (c) AlexNet under ``SPARKNET_FUSION=1``
+   through the averaging trainer (W=2, tau 4, batch 32, 3 rounds on
+   seeded batches made on the card), bf16 and float32: K7 and K8 48
+   launches each in the dtype of the leg, the bf16 smoothed losses
+   within ``LOSS_BAND`` of float32's; then one more round of each leg
+   under ``torch.profiler`` (wall, device busy, K7 and K8).  (d) The JAX
+   slow test's
+   evidence (cifar10_full, batch 25, 200 iterations, tau 20) held to its
+   asserts; the tails' gap printed beside its docstring's 5%.  (e)
+   ``imagenet_run_db_app --model googlenet --profile`` on phase 11's DB
+   (W=2, tau 4, 2 rounds): finite losses, K5 44 and K6 32 launches, each
+   worker's window's device time.  (f) ``debug_info_pass`` on one
+   cifar10_quick window on the card and the CPU from one init: the same
+   57 lines, values within 1e-3.
+
+Before its last lines the script prints its wall seconds by function
+(callees included), for a slice that must cut depth to stay inside the
+time limit.  A failed run prints cuDNN's error log
+(kept in the temporary directory) and the tensors of the port's
+innermost frame on the failing stack.  The second-to-last line is
+``{"kernels": [...]}`` (K1-K11, K5 in bf16 and K6-K8 in bf16, with
+launches summed over every phase's main-path runs; bf16 launches are
+counted apart from float32 ones); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import http.client
+import inspect
 import json
 import os
 import re
@@ -1912,6 +1949,9 @@ IMNET_FULL, IMNET_CROP, IMNET_ROUNDS, IMNET_TEST_EVERY = 256, 227, 4, 2
 # AlexNet's LRN inputs at the training batch: norm1 over conv1, norm2
 # over conv2 (alexnet_train_val.prototxt, crop 227)
 ALEXNET_LRN = ((IMNET_BATCH, 96, 55, 55), (IMNET_BATCH, 256, 27, 27))
+# the bf16 LRN kernels' counts in a float32 run's launches
+NO_BF16 = dict.fromkeys(("lrn_fwd_bf16", "lrn_bwd_bf16", "lrn_pool_fwd_bf16",
+                         "lrn_pool_bwd_bf16"), 0)
 # GoogLeNet's LRN inputs at crop 227 (phase 12): norm1 after pool1 and
 # norm2 after conv2, both 57x57 (odd: under SPARKNET_FUSION=1 the
 # training net's conv2/norm2 -> pool2 runs K7/K8)
@@ -1933,12 +1973,16 @@ FUSED_LOSS_RTOL = 1e-4
 FUSED_DRIFT_RTOL = 2e-3
 # the default leg's first round on the card vs the CPU, of each blob's
 # update: 1% after one local step, where only summation order and
-# rsqrt's rounding differ; 5% after tau = 4, where a net whose loss
+# rsqrt's rounding differ; 5% after several, where a net whose loss
 # falls fast flips ReLU units and pooling maxima near their ties on one
-# device and not the other (2.0e-2 measured on the H100, and two runs of
-# the default leg on the card drift 2e-4 apart in the loss by round 2)
+# device and not the other (2.0e-2 measured on the H100 after tau = 4,
+# and two runs of the default leg on the card drift 2e-4 apart in the
+# loss by round 2).  The round of several steps runs IMNET_CPU_STEPS of
+# them: the CPU's float32 and float64 runs of AlexNet at batch 32 take
+# most of phase 9, about 15 s a local step
 IMNET_CPU_TOL = 1e-2
 IMNET_CPU_ROUND_TOL = 5e-2
+IMNET_CPU_STEPS = 2
 # the comm-plane legs (int8: K9 + K10 each round; the overlapped average
 # with an fp32 and a bf16 payload: K9 + K11): cut to 2 rounds, testing at
 # round 0
@@ -2241,10 +2285,11 @@ def _imnet_first_round_matches_cpu(dev, parts, mean):
     """Round 0 of the default leg on the card and on the CPU from one
     init and one set of windows (the same crops and dropout masks: both
     drawn on the CPU from the same keys), once with one local step and
-    once with tau: each parameter blob's difference relative to the
-    largest entry of its update on the CPU.  The round also runs on the
-    CPU in float64 (params, momentum and the transformed batch cast), the
-    referee of the card's float32 and the CPU's.  Returns ``{steps:
+    once with ``IMNET_CPU_STEPS``: each parameter blob's difference
+    relative to the largest entry of its update on the CPU.  The round
+    also runs on the CPU in float64 (params, momentum and the transformed
+    batch cast), the referee of the card's float32 and the CPU's.
+    Returns ``{steps:
     (worst, the three worst blobs, max |loss diff|)}`` and ``{("float64",
     steps): (card, cpu)}``: each side's worst blob's distance from the
     float64 run relative to its update, with the other side's there."""
@@ -2258,7 +2303,7 @@ def _imnet_first_round_matches_cpu(dev, parts, mean):
                          IMNET_TAU, seed=w).next_window()
         for w, (x, y) in enumerate(parts)])
     init, out = None, {}
-    for steps in (1, IMNET_TAU):
+    for steps in (1, IMNET_CPU_STEPS):
         runs = []
         for d, f64 in ((dev, False), (torch.device("cpu"), False),
                        (torch.device("cpu"), True)):
@@ -2343,9 +2388,9 @@ def imagenet_train_end_to_end(dev, card):
         n_tests = len(range(0, rounds, IMNET_TEST_EVERY)) + 1  # + the final
         steps = IMNET_W * IMNET_TAU * rounds
         if fused:
-            return dict(lrn_fwd=2 * n_tests * n_test, lrn_bwd=0,
+            return dict(NO_BF16, lrn_fwd=2 * n_tests * n_test, lrn_bwd=0,
                         lrn_pool_fwd=2 * steps, lrn_pool_bwd=2 * steps)
-        return dict(lrn_fwd=2 * steps + 2 * n_tests * n_test,
+        return dict(NO_BF16, lrn_fwd=2 * steps + 2 * n_tests * n_test,
                     lrn_bwd=2 * steps, lrn_pool_fwd=0, lrn_pool_bwd=0)
 
     expect = {
@@ -2433,12 +2478,12 @@ def imagenet_train_end_to_end(dev, card):
         check(float(gap.max()) <= LOSS_BAND,
               f"AlexNet {leg} leaves the loss band of {base}: {gap}")
     vs_cpu = _imnet_first_round_matches_cpu(dev, train_parts, mean)
-    for steps in (1, IMNET_TAU):
+    for steps in (1, IMNET_CPU_STEPS):
         worst, top, gap = vs_cpu[steps]
         print(f"AlexNet first round ({steps} local step(s)) on the card vs the "
               f"CPU: worst |diff| {worst:.3e} of the update, losses {gap:.3e}; "
               + ", ".join(f"{n} {r:.3e}" for r, n in top))
-    for steps in (1, IMNET_TAU):
+    for steps in (1, IMNET_CPU_STEPS):
         (card_gap, cpu_at, name), (cpu_card_at, cpu_gap, cpu_name) = \
             vs_cpu["float64", steps]
         print(f"AlexNet first round ({steps} local step(s)) against float64 on "
@@ -2452,7 +2497,8 @@ def imagenet_train_end_to_end(dev, card):
                                            ("bf16+overlap", "0", "bf16", True)):
         where_imnet_time_goes(dev, card, leg, fusion, compress, train_parts,
                               mean, overlap)
-    for steps, limit in ((1, IMNET_CPU_TOL), (IMNET_TAU, IMNET_CPU_ROUND_TOL)):
+    for steps, limit in ((1, IMNET_CPU_TOL),
+                         (IMNET_CPU_STEPS, IMNET_CPU_ROUND_TOL)):
         check(vs_cpu[steps][0] <= limit,
               f"AlexNet first round ({steps} steps) on the card vs the CPU: "
               f"{vs_cpu[steps][0]:.3e} of the update (limit {limit})")
@@ -2474,7 +2520,6 @@ def where_imnet_time_goes(dev, card, leg, fusion, compress, parts, mean,
     one: the previous round's average lands (K11) after its first local
     step.  ``env`` is set while the net is built (``SPARKNET_FUSION`` is
     ``fusion``).  Returns ``(wall ms, device busy ms, launches)``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from sparknet_tpu_torch.apps import imagenet_app
@@ -2502,16 +2547,11 @@ def where_imnet_time_goes(dev, card, leg, fusion, compress, parts, mean,
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated(dev) - held
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         st, _ = tr.round(st, batch)
         torch.cuda.synchronize()
     tr.finalize(st)  # joins an overlapped round's comm thread
-    rows = sorted(
-        ((e.self_device_time_total / 1e3, e.count, e.key)
-         for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-        reverse=True,
-    )
+    rows = _kernel_rows(prof)
     busy = sum(r[0] for r in rows)
     check(busy > 0, f"{model} round ({leg}): the profiler saw no device time")
     share = {tag: sum(r[0] for r in rows if re.search(kern, r[2]))
@@ -2714,10 +2754,24 @@ def cli_train_end_to_end(dev, card, root):
           f"{ra['smoothed_loss']:.6f})")
 
 
+def _kernel_rows(prof):
+    """``[(device ms, launches, name)]`` of each kind of device work in a
+    CUDA-only profile, the costliest first: no CPU op is recorded, so
+    the profile parses a fraction of the events a CPU+CUDA one would."""
+    from torch.autograd import DeviceType
+
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by.get(e.name, (0.0, 0))
+            by[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return sorted(((ms, n, k) for k, (ms, n) in by.items() if ms > 0),
+                  reverse=True)
+
+
 def _timed(fn, card, what):
     """(wall ms, device-busy ms, {kernel: device ms}) of one call: a warm
     call, a timed call, a profiled call."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2726,11 +2780,10 @@ def _timed(fn, card, what):
     fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    rows = {k: ms for ms, _, k in _kernel_rows(prof)}
     busy = sum(rows.values())
     check(busy > 0, f"{what}: the profiler saw no device time")
     return wall, busy, rows
@@ -2740,7 +2793,7 @@ def determinism_cost(dev, card, root, db_round=None):
     """One LM round (the lm_app legs' trainer), one cli train window
     (cifar10_full, tau 10, batch 100) and, given ``db_round``, one
     CaffeNet DB round (phase 11) with deterministic algorithms on and
-    off, alternated twice: wall and device-busy time."""
+    then off, each warm: wall and device-busy time."""
     from sparknet_tpu_torch import config
     from sparknet_tpu_torch.data import CifarLoader
     from sparknet_tpu_torch.solver import Solver
@@ -2767,7 +2820,7 @@ def determinism_cost(dev, card, root, db_round=None):
     if db_round is not None:
         programs.append(("CaffeNet DB round", db_round))
     rows = {}
-    for on in (True, False, True, False):
+    for on in (True, False):
         with deterministic_algorithms(on):
             for what, fn in programs:
                 rows.setdefault((what, on), []).append(_timed(fn, card, what))
@@ -2778,7 +2831,7 @@ def determinism_cost(dev, card, root, db_round=None):
                                   for w, b, _ in r)
         print(f"[{card}] determinism cost, {what}: deterministic {fmt(det)}; "
               f"default {fmt(nondet)}")
-        on, off = det[-1][2], nondet[-1][2]  # the second of each
+        on, off = det[-1][2], nondet[-1][2]
         grew = sorted(((on.get(k, 0.0) - off.get(k, 0.0), k)
                        for k in set(on) | set(off)), reverse=True)
         for d, k in grew[:4]:
@@ -3067,7 +3120,7 @@ def db_end_to_end(dev, card, root):
     steps = DB_W * DB_TAU * resumed_rounds
     n_tests = len([r for r in range(DB_SNAP_EVERY, DB_ROUNDS)
                    if r % DB_TEST_EVERY == 0]) + 1
-    lrn = dict(lrn_fwd=2 * steps + 2 * n_tests * sum(DB_VAL_BATCHES),
+    lrn = dict(NO_BF16, lrn_fwd=2 * steps + 2 * n_tests * sum(DB_VAL_BATCHES),
                lrn_bwd=2 * steps, lrn_pool_fwd=0, lrn_pool_bwd=0)
     total, walls = {}, {}
     for compress in ("none", "int8"):
@@ -3226,8 +3279,8 @@ def _deep_launches(model, leg, rounds, n_test, groups):
     finalize) once per leaf group of at most 32 a round."""
     launches = dict.fromkeys(("lrn_fwd", "lrn_bwd", "lrn_pool_fwd",
                               "lrn_pool_bwd", "comm_encode",
-                              "comm_apply_barriered", "comm_apply_correction"),
-                             0)
+                              "comm_apply_barriered", "comm_apply_correction",
+                              *NO_BF16), 0)
     steps = IMNET_W * IMNET_TAU * rounds
     n_tests = len(range(0, rounds, IMNET_TEST_EVERY)) + 1
     if model == "googlenet":
@@ -3879,7 +3932,9 @@ def image_serving_end_to_end(dev, card, root, seeded_tokens):
         status, _, body, dt = _post(host, port, "/predict",
                                     _predict_body(pool, 0, PREDICT_POOL))
     torch.cuda.synchronize()
-    k5_bf16, forwards = cl.LAUNCHES["lrn_fwd"], fwd.n
+    k5_bf16, forwards = cl.LAUNCHES["lrn_fwd_bf16"], fwd.n
+    check(cl.LAUNCHES["lrn_fwd"] == 0,
+          f"/predict bf16: {cl.LAUNCHES['lrn_fwd']} float32 K5 launches")
     srv.shutdown()
     check(status == 200, f"/predict bf16: {status}")
     bf = np.asarray(body["outputs"], np.float32)
@@ -3995,6 +4050,10 @@ def where_predict_time_goes(engine, card, iters: int = 10):
 # ----------------------------------------------------------------------
 SWEEP_ROUNDS, SWEEP_KILL_ROUND = 4, 2
 FT_DB_ROUNDS = 4
+# the killed DB process snapshots after rounds 1 and 3 (a CaffeNet job
+# state is ~1.5 GB, ~3 s to write): round 2's intent lands after round
+# 1's snapshot and commit, so the resumed run restores round 1's
+FT_SNAP_EVERY = 2
 ELASTIC_ROUNDS = 8
 KILL_POLL_S = 0.02
 
@@ -4186,9 +4245,10 @@ def db_kill_resume(dev, card, root):
     out_path = f"{root}/ft_kill.log"
     with open(out_path, "wb") as out:  # a file: a full pipe would stall it
         proc = subprocess.Popen(
-            argv + common + ["--health", "warn", "--snapshot_every", "1",
-                             "--device", dev.type, "--rounds",
-                             str(FT_DB_ROUNDS), "--snapshot_prefix", prefix],
+            argv + common + ["--health", "warn", "--snapshot_every",
+                             str(FT_SNAP_EVERY), "--device", dev.type,
+                             "--rounds", str(FT_DB_ROUNDS),
+                             "--snapshot_prefix", prefix],
             env=_subprocess_env(), stdout=out, stderr=subprocess.STDOUT)
     try:
         deadline = time.monotonic() + 300
@@ -4210,8 +4270,8 @@ def db_kill_resume(dev, card, root):
     start = (committed[-1] + 1) if committed else 0
     replayed = 2 if start == 2 else None
     done = subprocess.run(
-        argv + common + ["--health", "warn", "--snapshot_every", "1",
-                         "--device", dev.type, "--rounds",
+        argv + common + ["--health", "warn", "--snapshot_every",
+                         str(FT_SNAP_EVERY), "--device", dev.type, "--rounds",
                          str(FT_DB_ROUNDS - start), "--snapshot_prefix", prefix,
                          "--resume"],
         env=_subprocess_env(), capture_output=True, text=True, timeout=600)
@@ -4646,7 +4706,7 @@ def _db_launches(rounds, first_round, chunks=0):
     steps = DB_W * DB_TAU * rounds
     n_tests = len([r for r in range(first_round, first_round + rounds)
                    if r % DB_TEST_EVERY == 0]) + 1
-    return dict(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0,
+    return dict(NO_BF16, flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0,
                 decode_attention=0,
                 lrn_fwd=2 * steps + 2 * n_tests * sum(DB_VAL_BATCHES),
                 lrn_bwd=2 * steps, lrn_pool_fwd=0, lrn_pool_bwd=0,
@@ -5668,6 +5728,529 @@ def staleness_profile_chaos_end_to_end(dev, card, root):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 17: bf16 training through the Solver — K6, K7 and K8 in bf16,
+# bench.py's protocol, the fused AlexNet round, the cifar10_full curve,
+# GoogLeNet through the DB app, and debug_info
+# ----------------------------------------------------------------------
+# the bf16 kernels' cases: AlexNet's two LRN inputs at the training batch
+# (random and tied) and an odd shape
+BF16_TRAIN_LRN = ALEXNET_LRN + ((3, 7, 11, 13),)
+# bench.py's training protocol (bench.py:379-415): CaffeNet at full
+# width, one seeded host batch, step_repeat tau 20; the device time is
+# read from a shorter window under torch.profiler
+BENCH_BATCH, BENCH_TAU, BENCH_PROFILED_TAU = 256, 20, 5
+# CaffeNet's two LRN inputs at that batch: where (b) launches K5 and K6
+# in bf16, held bit for bit too (K7 and K8 run at AlexNet's batch 32)
+BENCH_LRN = ((BENCH_BATCH, 96, 55, 55), (BENCH_BATCH, 256, 27, 27))
+# the first iteration's loss in bf16 against float32 (the same weights
+# and batch; CaffeNet's loss at init is ~ln 1000 = 6.9): relative, bf16
+# keeps 8 bits (2^-8 = 0.4%) and the loss sums through eight layers
+BENCH_LOSS_RTOL = 2e-2
+# the fused AlexNet legs (W=2, tau 4, batch 32, 3 rounds)
+BF16_IMNET_ROUNDS = 3
+# the cifar10_full curve of the JAX slow test
+# (tests/test_solver.py:329): batch 25, 200 iterations, tau 20.  Its
+# asserts: both runs learn (tail window < 0.8 of the head window), the
+# bf16 tail below 1.25 x float32's + 0.05, and each window of the first
+# half within 10% of float32's.  Its docstring's "tail windows within
+# 5%" is not among them: on this synthetic data both runs overfit and
+# their tails part (on the CPU, float32 0.167 and bf16 0.052); the gap
+# is printed beside 5%
+CURVE_BATCH, CURVE_ITERS, CURVE_TAU = 25, 200, 20
+CURVE_LEARN, CURVE_TAIL, CURVE_TAIL_ABS, CURVE_HALF_RTOL = 0.8, 1.25, 0.05, 0.10
+CURVE_DOC_RTOL = 0.05
+# GoogLeNet through imagenet_run_db_app on phase 11's DB
+GOOGLENET_DB_ROUNDS = 2
+# debug_info's values on the card against the CPU run of the same
+# window: relative, float32 on both sides summed in other orders
+# (convolutions through cuDNN, TF32 off), each a mean of |x| over a blob
+DEBUG_RTOL = 1e-3
+
+
+def check_lrn_bf16_train(dev, card):
+    """K6, K7 and K8 in bfloat16 against their plain versions (the float32
+    ones on the widened inputs, narrowed once), bit for bit, at
+    ``BF16_TRAIN_LRN`` random and tied, and K5 and K6 so at ``BENCH_LRN``;
+    then each timed over both AlexNet sandwiches beside its plain version
+    and the PyTorch call for the same function in bf16, with its bound at
+    2-byte I/O.  Returns the three kernels-line records (launches filled
+    in by the training legs)."""
+    import torch.nn.functional as F
+
+    from sparknet_tpu_torch.ops import cuda_lrn as cl
+    from sparknet_tpu_torch.ops import cuda_plp as cp
+
+    gen = torch.Generator().manual_seed(17)
+    bf = torch.bfloat16
+    err = dict.fromkeys(("lrn_bwd_bf16", "lrn_pool_fwd_bf16",
+                         "lrn_pool_bwd_bf16"), 0.0)
+    for shape, ties in [(s, t) for s in BF16_TRAIN_LRN for t in (False, True)]:
+        x = (_tie_input(dev, shape, 8) if ties
+             else torch.randn(*shape, generator=gen).to(dev) * 3).to(bf)
+        dy = torch.randn(*shape, generator=gen).to(dev).to(bf)
+        dp = torch.randn(shape[0], shape[1], *cp.pooled_hw(*shape[2:]),
+                         generator=gen).to(dev).to(bf)
+        got = {"lrn_bwd_bf16": cl.lrn_bwd(x, dy, *LRN_HP),
+               "lrn_pool_fwd_bf16": cp.lrn_pool_fwd(x, *LRN_HP),
+               "lrn_pool_bwd_bf16": cp.lrn_pool_bwd(x, dp, *LRN_HP)}
+        want = {"lrn_bwd_bf16": cl.lrn_bwd_bf16_reference(x, dy, *LRN_HP),
+                "lrn_pool_fwd_bf16": cp.lrn_maxpool_bf16_reference(x, *LRN_HP),
+                "lrn_pool_bwd_bf16": cp.lrn_maxpool_bwd_bf16_reference(
+                    x, dp, *LRN_HP)}
+        torch.cuda.synchronize()
+        for name in got:
+            check(got[name].dtype == bf, f"{name} {shape}: {got[name].dtype}")
+            diff = float((got[name].float() - want[name].float()).abs().max())
+            check(bool(torch.equal(got[name], want[name])),
+                  f"{name} {shape}{' ties' if ties else ''}: differs from "
+                  f"the plain version's bits (max |diff| {diff:.3e})")
+            err[name] = max(err[name], diff)
+        print(f"K6/K7/K8 bf16 {shape}{' ties' if ties else ''}: bit-equal "
+              "to the plain versions")
+    dgen = torch.Generator(device=dev).manual_seed(18)
+    for shape, ties in [(s, t) for s in BENCH_LRN for t in (False, True)]:
+        x = (_tie_input(dev, shape, 9) if ties else
+             torch.randn(shape, generator=dgen, device=dev) * 3).to(bf)
+        dy = torch.randn(shape, generator=dgen, device=dev).to(bf)
+        y, dx = cl.lrn_fwd(x, *LRN_HP), cl.lrn_bwd(x, dy, *LRN_HP)
+        torch.cuda.synchronize()
+        for name, got, want in (
+                ("lrn_fwd_bf16", y, cl.lrn_fwd_bf16_reference(x, *LRN_HP)),
+                ("lrn_bwd_bf16", dx,
+                 cl.lrn_bwd_bf16_reference(x, dy, *LRN_HP))):
+            check(got.dtype == bf and bool(torch.equal(got, want)),
+                  f"{name} {shape}{' ties' if ties else ''}: differs from the "
+                  "plain version's bits (max |diff| "
+                  f"{float((got.float() - want.float()).abs().max()):.3e})")
+        print(f"K5/K6 bf16 {shape}{' ties' if ties else ''}: bit-equal to the "
+              "plain versions")
+        del x, dy, y, dx
+
+    xs = [(torch.randn(*s, generator=gen) * 3).to(dev).to(bf)
+          for s in ALEXNET_LRN]
+    dys = [torch.randn(*s, generator=gen).to(dev).to(bf) for s in ALEXNET_LRN]
+    dps = [torch.randn(s[0], s[1], *cp.pooled_hw(*s[2:]), generator=gen)
+           .to(dev).to(bf) for s in ALEXNET_LRN]
+    xg = [x.clone().requires_grad_(True) for x in xs]
+    n, alpha, beta, k = LRN_HP
+
+    def lib_lrn(v):
+        return F.local_response_norm(v, n, alpha=alpha, beta=beta, k=k)
+
+    def lib_pool(v):
+        return F.max_pool2d(lib_lrn(v), 3, 2)
+
+    def each(fn):
+        return lambda: [fn(i) for i in range(len(xs))]
+
+    def lib_bwd(fwd, cot):
+        return each(lambda i: torch.autograd.grad(fwd(xg[i]), xg[i], cot[i]))
+
+    elems = [x.numel() for x in xs]
+    pel = [d.numel() for d in dps]
+    # bytes at 2-byte I/O: each input read once, each output written
+    # once; operations as phase 8 counts them (float32 math)
+    cases = {
+        "lrn_bwd_bf16": ("K6", "sparknet_tpu_torch/ops/csrc/lrn.cu",
+                         "sparknet_tpu/ops/pallas_lrn.py:70",
+                         each(lambda i: cl.lrn_bwd(xs[i], dys[i], *LRN_HP)),
+                         each(lambda i: cl.lrn_bwd_bf16_reference(
+                             xs[i], dys[i], *LRN_HP)),
+                         lib_bwd(lib_lrn, dys), each(lambda i: lib_lrn(xg[i])),
+                         sum(3 * 2 * e for e in elems),
+                         sum((3 * n + 16) * e for e in elems)),
+        "lrn_pool_fwd_bf16": ("K7", "sparknet_tpu_torch/ops/csrc/lrn_pool.cu",
+                              "sparknet_tpu/ops/pallas_plp.py:148",
+                              each(lambda i: cp.lrn_pool_fwd(xs[i], *LRN_HP)),
+                              each(lambda i: cp.lrn_maxpool_bf16_reference(
+                                  xs[i], *LRN_HP)),
+                              each(lambda i: lib_pool(xs[i])), None,
+                              sum(2 * e for e in elems) + sum(2 * p for p in pel),
+                              sum((n + 7) * e for e in elems)
+                              + sum(8 * p for p in pel)),
+        "lrn_pool_bwd_bf16": ("K8", "sparknet_tpu_torch/ops/csrc/lrn_pool.cu",
+                              "sparknet_tpu/ops/pallas_plp.py:166",
+                              each(lambda i: cp.lrn_pool_bwd(xs[i], dps[i],
+                                                             *LRN_HP)),
+                              each(lambda i: cp.lrn_maxpool_bwd_bf16_reference(
+                                  xs[i], dps[i], *LRN_HP)),
+                              lib_bwd(lib_pool, dps),
+                              each(lambda i: lib_pool(xg[i])),
+                              sum(2 * 2 * e for e in elems)
+                              + sum(2 * p for p in pel),
+                              sum((3 * n + 16) * e for e in elems)
+                              + sum(16 * p for p in pel)),
+    }
+    f32 = {"lrn_bwd_bf16": each(lambda i: cl.lrn_bwd(
+               xs[i].float(), dys[i].float(), *LRN_HP)),
+           "lrn_pool_fwd_bf16": each(lambda i: cp.lrn_pool_fwd(
+               xs[i].float(), *LRN_HP)),
+           "lrn_pool_bwd_bf16": each(lambda i: cp.lrn_pool_bwd(
+               xs[i].float(), dps[i].float(), *LRN_HP))}
+    shape = " + ".join(str(s) for s in ALEXNET_LRN) + " bf16"
+    checked = {"lrn_bwd_bf16": "; bit-equal also at "
+               + " + ".join(str(s) for s in BENCH_LRN)}
+    records = []
+    for name, (tag, src, replaces, kern, plain, lib, lib_fwd, nbytes,
+               ops) in cases.items():
+        b, by = bound_ms(nbytes, ops)
+        library = device_ms(lib) - (device_ms(lib_fwd) if lib_fwd else 0.0)
+        rec = dict(name=name, route="cuda", source=src, replaces=replaces,
+                   max_abs_err=err[name], bound_ms=b, bound_by=by,
+                   library_ms=library, shape=shape + checked.get(name, ""),
+                   ms=device_ms(kern),
+                   plain_ms=device_ms(plain))
+        f32_ms = device_ms(f32[name])
+        print(f"[{card}] {tag} {name} [{shape}, both sandwiches]: kernel "
+              f"{rec['ms']:.4f} ms on device, plain {rec['plain_ms']:.4f} ms, "
+              f"library (bf16) {library:.4f} ms, bound {b * 1e3:.3f} us ({by}, "
+              f"{nbytes} bytes) -> {b / rec['ms']:.1%} of the bound; the "
+              f"float32 kernel on the widened inputs {f32_ms:.4f} ms")
+        records.append(rec)
+    return records
+
+
+def _bench_solver(dev, dtype):
+    from sparknet_tpu_torch import config, models
+    from sparknet_tpu_torch.solver import Solver
+
+    shapes = [(BENCH_BATCH, 3, 227, 227), (BENCH_BATCH,)]
+    netp = config.replace_data_layers(models.load_model("caffenet"), shapes,
+                                      shapes)
+    return Solver(models.load_model_solver("caffenet"), net_param=netp,
+                  device=dev, compute_dtype=dtype)
+
+
+def bench_protocol_end_to_end(dev, card):
+    """(b) bench.py's training protocol on the card: CaffeNet at full
+    width (1,000 classes, crop 227, batch 256), ``step_repeat`` tau 20 on
+    one seeded batch, in bf16 and in float32.  Prints images/s, device
+    time and busy share (``torch.profiler``) and peak memory; checks the
+    masters stay float32, K5 and K6 launch in bf16 twice an iteration
+    (CaffeNet's two LRNs) and the first iteration's bf16 loss lies within
+    ``BENCH_LOSS_RTOL`` of float32's.  Returns the bf16 window's
+    launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparknet_tpu_torch.utils.tree import tree_leaves
+
+    rs = np.random.RandomState(0)  # bench.py's _host_batch
+    batch = {"data": rs.randn(BENCH_BATCH, 3, 227, 227).astype(np.float32),
+             "label": rs.randint(0, 1000, BENCH_BATCH).astype(np.float32)}
+    first, counts = {}, {}
+    for dtype in ("bfloat16", None):
+        label = dtype or "float32"
+        solver = _bench_solver(dev, dtype)
+        state = solver.init_state(seed=0)
+        state, losses = solver.step_repeat(state, batch, tau=BENCH_TAU)  # warm
+        first[label] = float(losses[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts()
+        t0 = time.perf_counter()
+        state, losses = solver.step_repeat(state, batch, tau=BENCH_TAU)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[label] = _read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(all(t.dtype == torch.float32 for t in tree_leaves(state.params))
+              and all(t.dtype == torch.float32
+                      for t in tree_leaves(state.history)),
+              f"{label}: masters or history left float32")
+        check(bool(torch.isfinite(losses).all()), f"{label}: loss not finite")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = solver.step_repeat(state, batch, tau=BENCH_PROFILED_TAU)
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        busy /= BENCH_PROFILED_TAU  # device ms an iteration
+        check(busy > 0, f"{label}: the profiler saw no device time")
+        print(f"[{card}] bench protocol CaffeNet batch {BENCH_BATCH} "
+              f"{label}: {BENCH_BATCH * BENCH_TAU / wall:.1f} images/s "
+              f"({wall * 1e3 / BENCH_TAU:.3f} ms an iteration, wall), device "
+              f"{busy:.3f} ms an iteration (profiled window of "
+              f"{BENCH_PROFILED_TAU}, busy "
+              f"{busy * BENCH_TAU / (wall * 1e3):.1%} "
+              f"of the timed window's wall an iteration), peak "
+              f"memory {peak / 2**30:.2f} GiB, losses {float(losses[0]):.4f} "
+              f"-> {float(losses[-1]):.4f}")
+        del solver, state
+    bf, f32 = counts["bfloat16"], counts["float32"]
+    check(bf["lrn_fwd_bf16"] == bf["lrn_bwd_bf16"] == 2 * BENCH_TAU
+          and bf["lrn_fwd"] == bf["lrn_bwd"] == 0,
+          f"bench bf16 window: launches {bf}")
+    check(f32["lrn_fwd"] == f32["lrn_bwd"] == 2 * BENCH_TAU
+          and f32["lrn_fwd_bf16"] == f32["lrn_bwd_bf16"] == 0,
+          f"bench float32 window: launches {f32}")
+    gap = abs(first["bfloat16"] - first["float32"]) / first["float32"]
+    print(f"[{card}] bench protocol first-iteration loss: bf16 "
+          f"{first['bfloat16']:.5f}, float32 {first['float32']:.5f} "
+          f"({gap:.2e} relative, band {BENCH_LOSS_RTOL})")
+    check(gap <= BENCH_LOSS_RTOL, "bf16 first loss outside its band")
+    return {k: v for k, v in bf.items() if k.endswith("_bf16")}
+
+
+def _alexnet_fused_leg(dev, dtype):
+    """AlexNet under SPARKNET_FUSION=1 through the averaging trainer,
+    W=2, tau 4, batch 32, crop 227, ``BF16_IMNET_ROUNDS`` rounds on
+    seeded batches made on the card, then one more round under
+    ``torch.profiler``.  Returns the smoothed loss after each counted
+    round, their launches and the profiled round's (wall ms, device
+    busy ms, kernel launches, K7 ms, K8 ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparknet_tpu_torch import config, models
+    from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
+    from sparknet_tpu_torch.solver import Solver
+
+    shapes = [(IMNET_BATCH, 3, IMNET_CROP, IMNET_CROP), (IMNET_BATCH,)]
+    netp = config.replace_data_layers(models.load_model("alexnet"), shapes,
+                                      shapes)
+    before = os.environ.get("SPARKNET_FUSION")
+    os.environ["SPARKNET_FUSION"] = "1"  # read when the net is built
+    try:
+        solver = Solver(models.load_model_solver("alexnet"), net_param=netp,
+                        device=dev, compute_dtype=dtype)
+    finally:
+        if before is None:
+            del os.environ["SPARKNET_FUSION"]
+        else:
+            os.environ["SPARKNET_FUSION"] = before
+    check(len(solver.net._plp_fused) == 2, "AlexNet: both sandwiches fused")
+    trainer = ParameterAveragingTrainer(solver, IMNET_W)
+    state = trainer.init_state(seed=0)
+    smoothed = []
+
+    def batches(r):
+        g = torch.Generator(device=dev).manual_seed(1700 + r)
+        return {"data": torch.randn((IMNET_W, IMNET_TAU, IMNET_BATCH, 3,
+                                     IMNET_CROP, IMNET_CROP), generator=g,
+                                    device=dev),
+                "label": torch.randint(0, 1000, (IMNET_W, IMNET_TAU,
+                                                 IMNET_BATCH),
+                                       generator=g, device=dev).float()}
+
+    _reset_counts()
+    for r in range(BF16_IMNET_ROUNDS):
+        state, _ = trainer.round(state, batches(r))
+        smoothed.append(solver.smoothed_loss)
+    launches = _read_counts()
+    extra = batches(BF16_IMNET_ROUNDS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.round(state, extra)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(r[0] for r in rows)
+    check(busy > 0, "AlexNet fused round: the profiler saw no device time")
+    k7, k8 = (sum(r[0] for r in rows if kern in r[2])
+              for kern in ("lrn_pool_fwd_kernel", "lrn_pool_bwd_kernel"))
+    return smoothed, launches, (wall, busy, sum(r[1] for r in rows), k7, k8)
+
+
+def alexnet_fused_bf16_end_to_end(dev, card):
+    """(c) the fused AlexNet round in bf16 and float32: K7 and K8 launch
+    in bf16 once a sandwich a step, and the bf16 leg's smoothed losses lie
+    within ``LOSS_BAND`` of the float32 leg's.  Returns the bf16 leg's
+    launches."""
+    from sparknet_tpu_torch.parallel.comm import LOSS_BAND
+
+    steps = IMNET_W * IMNET_TAU * BF16_IMNET_ROUNDS
+    legs = {}
+    for dtype in ("bfloat16", None):
+        t0 = time.perf_counter()
+        legs[dtype or "float32"] = _alexnet_fused_leg(dev, dtype)
+        print(f"[{card}] AlexNet fused {dtype or 'float32'} leg (W={IMNET_W}, "
+              f"tau {IMNET_TAU}, batch {IMNET_BATCH}, {BF16_IMNET_ROUNDS} "
+              f"rounds): {time.perf_counter() - t0:.2f} s wall, smoothed "
+              f"losses {legs[dtype or 'float32'][0]}")
+    for label, (_, _, (wall, busy, n, k7, k8)) in legs.items():
+        print(f"[{card}] AlexNet fused {label} round (profiled): {wall:.3f} ms "
+              f"wall, {busy:.3f} ms device busy ({busy / wall:.1%}), {n} "
+              f"kernel launches; K7 {k7:.4f} ms, K8 {k8:.4f} ms")
+    (s16, l16, _), (s32, l32, _) = legs["bfloat16"], legs["float32"]
+    check(l16["lrn_pool_fwd_bf16"] == 2 * steps
+          and l16["lrn_pool_bwd_bf16"] == 2 * steps
+          and l16["lrn_pool_fwd"] == l16["lrn_pool_bwd"] == 0
+          and l16["lrn_fwd"] == l16["lrn_bwd"] == 0,
+          f"AlexNet fused bf16: launches {l16}")
+    check(l32["lrn_pool_fwd"] == 2 * steps and l32["lrn_pool_bwd"] == 2 * steps
+          and l32["lrn_pool_fwd_bf16"] == 0,
+          f"AlexNet fused float32: launches {l32}")
+    gap = max(abs(a - b) for a, b in zip(s16, s32))
+    check(all(np.isfinite(s16)) and gap <= LOSS_BAND,
+          f"AlexNet fused bf16 smoothed losses {s16} vs float32 {s32}")
+    print(f"[{card}] AlexNet fused bf16 vs float32: max smoothed-loss gap "
+          f"{gap:.4f} (LOSS_BAND {LOSS_BAND}); K7/K8 bf16 launches "
+          f"{l16['lrn_pool_fwd_bf16']}/{l16['lrn_pool_bwd_bf16']}")
+    return {k: v for k, v in l16.items() if k.endswith("_bf16")}
+
+
+def cifar_curve_end_to_end(dev, card, root):
+    """(d) the JAX slow test's evidence on the card: cifar10_full, batch
+    25, 200 iterations, tau 20, bf16 and float32 from one init on the
+    same synthesized CIFAR minibatches, held to the test's asserts
+    (``CURVE_*``); the tails' relative gap printed beside its
+    docstring's 5%."""
+    from sparknet_tpu_torch import config, models
+    from sparknet_tpu_torch.data import CifarLoader
+    from sparknet_tpu_torch.solver import Solver
+    from sparknet_tpu_torch.utils import rngs
+
+    d = f"{root}/cifar_curve"
+    CifarLoader.write_synthetic(d, num_train=CURVE_BATCH * 10,
+                                num_test=CURVE_BATCH)
+    x, y = CifarLoader(d, seed=0).minibatches(CURVE_BATCH, train=True)
+    shapes = [(CURVE_BATCH, 3, 32, 32), (CURVE_BATCH,)]
+    curves = {}
+    for dtype in (None, "bfloat16"):
+        netp = config.replace_data_layers(models.load_model("cifar10_full"),
+                                          shapes, shapes)
+        solver = Solver(models.load_model_solver("cifar10_full"),
+                        net_param=netp, device=dev, compute_dtype=dtype)
+        st = solver.init_state(seed=0)
+        losses = []
+        t0 = time.perf_counter()
+        for r in range(CURVE_ITERS // CURVE_TAU):
+            idx = [(r * CURVE_TAU + t) % len(x) for t in range(CURVE_TAU)]
+            st, ls = solver.step(st, {"data": np.stack([x[i] for i in idx]),
+                                      "label": np.stack([y[i] for i in idx])},
+                                 rng=rngs.train_key(r))
+            losses.append(ls)
+        curves[dtype or "float32"] = torch.cat(losses).float().cpu().numpy()
+        print(f"[{card}] cifar10_full {dtype or 'float32'} curve: "
+              f"{time.perf_counter() - t0:.2f} s for {CURVE_ITERS} iterations")
+    f32, b16 = curves["float32"], curves["bfloat16"]
+    head32, tail32 = f32[:CURVE_TAU].mean(), f32[-CURVE_TAU:].mean()
+    head16, tail16 = b16[:CURVE_TAU].mean(), b16[-CURVE_TAU:].mean()
+    gap = abs(tail16 - tail32) / tail32
+    half = [abs(b16[w * CURVE_TAU:(w + 1) * CURVE_TAU].mean()
+                - f32[w * CURVE_TAU:(w + 1) * CURVE_TAU].mean())
+            / f32[w * CURVE_TAU:(w + 1) * CURVE_TAU].mean()
+            for w in range(CURVE_ITERS // CURVE_TAU // 2)]
+    print(f"[{card}] cifar10_full curve: float32 head {head32:.4f} tail "
+          f"{tail32:.4f}, bf16 head {head16:.4f} tail {tail16:.4f}; tails "
+          f"{gap:.2%} apart ({'within' if gap <= CURVE_DOC_RTOL else 'outside'}"
+          f" {CURVE_DOC_RTOL:.0%}); first-half windows at most "
+          f"{max(half):.2%} apart (limit {CURVE_HALF_RTOL:.0%})")
+    check(tail32 < CURVE_LEARN * head32 and tail16 < CURVE_LEARN * head16,
+          "cifar10_full: a run did not learn")
+    check(tail16 < CURVE_TAIL * tail32 + CURVE_TAIL_ABS,
+          "cifar10_full: the bf16 tail is worse than float32's")
+    check(max(half) < CURVE_HALF_RTOL,
+          "cifar10_full: a first-half window of bf16 is off float32's")
+
+
+def googlenet_db_end_to_end(dev, card, root):
+    """(e) GoogLeNet through ``imagenet_run_db_app --model googlenet`` on
+    phase 11's CaffeNet DB (1,000 classes, crop 227), W=2, tau 4, 2
+    rounds, profiled: finite losses, K5 and K6 launched twice a step
+    (GoogLeNet's two LRNs, K5 also in the tests), each worker's window's
+    device time printed.  Returns the launches."""
+    from sparknet_tpu_torch.apps import imagenet_run_db_app
+
+    r = {}
+    _reset_counts()
+    t0 = time.perf_counter()
+    check(imagenet_run_db_app.main(
+        ["--db_dir", f"{root}/db", "--model", "googlenet", "--device",
+         dev.type, "--tau", str(DB_TAU), "--rounds", str(GOOGLENET_DB_ROUNDS),
+         "--test_every", str(DB_TEST_EVERY), "--profile"], r) == 0,
+        "imagenet_run_db --model googlenet failed")
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    want = _db_launches(GOOGLENET_DB_ROUNDS, 0)
+    check(bool(np.isfinite(np.asarray(r["losses"], np.float64)).all()),
+          f"GoogLeNet DB losses {r['losses']}")
+    check(launches["lrn_fwd"] == want["lrn_fwd"]
+          and launches["lrn_bwd"] == want["lrn_bwd"],
+          f"GoogLeNet DB launches {launches}, expected K5 {want['lrn_fwd']} "
+          f"and K6 {want['lrn_bwd']}")
+    prof = r.get("profile") or {}
+    print(f"[{card}] imagenet_run_db_app --model googlenet (W={DB_W}, tau "
+          f"{DB_TAU}, batch {DB_BATCH}, {GOOGLENET_DB_ROUNDS} rounds): {wall:.2f} "
+          f"s wall; worker window device ms {prof.get('worker_execute_ms')}; "
+          f"K5 {launches['lrn_fwd']}, K6 {launches['lrn_bwd']}; final "
+          f"accuracy {r['accuracies'][-1] if r.get('accuracies') else None}")
+    return {k: launches[k] for k in ("lrn_fwd", "lrn_bwd")}
+
+
+def debug_info_end_to_end(dev, card):
+    """(f) ``debug_info`` on one cifar10_quick window on the card and on
+    the CPU from the same weights and batch: the same lines in the same
+    order, every value within ``DEBUG_RTOL``."""
+    from sparknet_tpu_torch import config, models
+    from sparknet_tpu_torch.solver import Solver, TrainState
+    from sparknet_tpu_torch.utils.tree import tree_map
+
+    shapes = [(8, 3, 32, 32), (8,)]
+    netp = config.replace_data_layers(models.load_model("cifar10_quick"),
+                                      shapes, shapes)
+    sp = models.load_model_solver("cifar10_quick")
+    sp.debug_info = True
+    rs = np.random.RandomState(17)
+    batch = {"data": rs.randn(2, 8, 3, 32, 32).astype(np.float32),
+             "label": rs.randint(0, 10, (2, 8)).astype(np.float32)}
+    lines = {}
+    cpu = Solver(sp, net_param=netp, device="cpu")
+    init = cpu.init_state(seed=0)
+    for where in ("cpu", dev):
+        solver = cpu if where == "cpu" else Solver(sp, net_param=netp,
+                                                   device=dev)
+        st = TrainState(*(tree_map(lambda t: t.to(where), f)
+                          for f in init[:3]), init.iter)
+        out = []
+        solver.debug_info_pass(st, {k: v[0] for k, v in batch.items()},
+                               log=out.append)
+        lines[str(where)] = out
+    got, want = lines[str(dev)], lines["cpu"]
+    heads = [(line.rpartition(": ")[0].split(" data:")[0]) for line in got]
+    check(heads == [line.rpartition(": ")[0].split(" data:")[0]
+                    for line in want] and len(got) > 20,
+          "debug_info: the card's lines differ from the CPU's")
+    worst = 0.0
+    for a, b in zip(got, want):
+        va = [float(v) for v in re.findall(r": ([-\d.e+]+)", a)]
+        vb = [float(v) for v in re.findall(r": ([-\d.e+]+)", b)]
+        for p, q in zip(va, vb):
+            rel = abs(p - q) / max(abs(q), 1e-12)
+            worst = max(worst, rel)
+    print(f"[{card}] debug_info on cifar10_quick: {len(got)} lines, the "
+          f"CPU's names in its order; values within {worst:.2e} relative "
+          f"(limit {DEBUG_RTOL})")
+    check(worst <= DEBUG_RTOL, "debug_info values off the CPU's")
+
+
+def bf16_training_end_to_end(dev, card, root):
+    """Phase 17 (see the module doc): (a) runs before training, as the
+    kernels' checks do; the rest in phase 11's temporary directory.
+    Returns the launches of its main paths."""
+    t0 = time.perf_counter()
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    add(bench_protocol_end_to_end(dev, card))
+    add(alexnet_fused_bf16_end_to_end(dev, card))
+    cifar_curve_end_to_end(dev, card, root)
+    add(googlenet_db_end_to_end(dev, card, root))
+    debug_info_end_to_end(dev, card)
+    print(f"[{card}] phase 17 wall {time.perf_counter() - t0:.2f} s; launches "
+          f"{launches}")
+    return launches
+
+
 def cudnn_failure_report(exc: BaseException) -> None:
     """On a failed run: cuDNN's version and flags, the device's free
     memory, the tensors of the port's innermost frame on the failing
@@ -5706,11 +6289,42 @@ def cudnn_failure_report(exc: BaseException) -> None:
         sys.stderr.writelines(lines[-60:])
 
 
+# wall seconds and calls of each function of this script, callees
+# included (``tally_functions``), printed by ``run_all`` at the end: what
+# a slice that must cut depth reads first
+WALLS = {}
+_WALLS_LOCK = threading.Lock()
+
+
+def tally_functions() -> None:
+    """Wrap every function of this script so that each call adds its
+    wall time to ``WALLS``."""
+    me = sys.modules[__name__]
+    for name, fn in list(vars(me).items()):
+        if (inspect.isfunction(fn) and fn.__module__ == __name__
+                and name not in ("main", "run_all", "tally_functions")):
+            setattr(me, name, _tallied(fn))
+
+
+def _tallied(fn):
+    @functools.wraps(fn)
+    def tallied(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            with _WALLS_LOCK:
+                wall, n = WALLS.get(fn.__name__, (0.0, 0))
+                WALLS[fn.__name__] = (wall + time.perf_counter() - t, n + 1)
+    return tallied
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script runs on the card",
               file=sys.stderr)
         return 2
+    tally_functions()
     try:
         return run_all()
     except BaseException as e:
@@ -5726,7 +6340,7 @@ def run_all() -> int:
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s: "
           + ", ".join(p.name for p in libs.values()))
@@ -5749,6 +6363,7 @@ def run_all() -> int:
     time_wide_head(dev)
     comm_kernels = check_comm_kernels(dev)
     lrn_kernels = check_lrn_kernels(dev, card) + [check_lrn_bf16(dev, card)]
+    lrn_kernels += check_lrn_bf16_train(dev, card)
     seeded = {}
     launches = serve_end_to_end(dev, card, out=seeded)
     for leg in (lm_train_end_to_end, train_end_to_end,
@@ -5774,12 +6389,19 @@ def run_all() -> int:
         for name, n in staleness_profile_chaos_end_to_end(dev, card,
                                                           root).items():
             launches[name] = launches.get(name, 0) + n
+        for name, n in bf16_training_end_to_end(dev, card, root).items():
+            launches[name] = launches.get(name, 0) + n
     for name, n in deep_nets_end_to_end(dev, card).items():
         launches[name] = launches.get(name, 0) + n
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as root:
         for name, n in image_serving_end_to_end(dev, card, root,
                                                 seeded["tokens"]).items():
             launches[name] = launches.get(name, 0) + n
+    slow = sorted(((w, n, k) for k, (w, n) in WALLS.items() if w >= 1.0),
+                  reverse=True)
+    print(f"[{card}] wall seconds by function ({time.perf_counter() - start:.2f}"
+          " s in all; callees included; calls): "
+          + ", ".join(f"{k} {w:.2f} ({n})" for w, n, k in slow))
     kernels += comm_kernels + lrn_kernels
     for r in kernels:
         r["launches"] = launches[r["name"]]

@@ -12,6 +12,13 @@ masked test partitions.  On the card every LRN forward runs K5 and
 every LRN backward K6 (``ops/cuda_lrn.py``); ``--compress`` routes the
 average through K9/K10 (``ops/cuda_comm.py``).
 
+``--model`` is any zoo name with a zoo solver (``models.load_model`` and
+``load_model_solver``; a builder model, CaffeNet, GoogLeNet or
+ResNet-50, is built with the DB's ``classes``, as the JAX app builds
+it) or the path of a solver prototxt whose ``net`` names its net (the
+file ``cli train --solver`` takes; a relative net path resolves beside
+the solver file).
+
 Snapshots: ``--snapshot_every k`` publishes worker 0's consensus every
 k rounds (``{prefix}_iter_N.caffemodel`` / ``.solverstate.npz``, the
 JAX package's files) with a ``.jobstate.npz`` (every worker's momentum,
@@ -73,7 +80,6 @@ import numpy as np
 import torch
 
 TAU = 50  # syncInterval, ImageNetRunDBApp.scala:104
-_MODELS = ("caffenet", "alexnet")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -86,7 +92,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--db_dir", required=True,
                    help="what imagenet_create_db_app wrote: a directory or "
                    "a gs://|s3://|http(s)://|file:// url")
-    p.add_argument("--model", default="caffenet", help="caffenet | alexnet")
+    p.add_argument("--model", default="caffenet",
+                   help="a zoo model with a zoo solver (caffenet, alexnet, "
+                   "googlenet, resnet50, ...) or a solver .prototxt path")
     p.add_argument("--rounds", type=int, default=10,
                    help="rounds this invocation runs")
     p.add_argument("--tau", type=int, default=0, help="0 = reference (50)")
@@ -142,11 +150,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             "--resume needs a stable --cache_dir or an explicit "
             "--snapshot_prefix (snapshots in a temp-dir cache would be "
             "unfindable on restart)")
-    if args.model not in _MODELS:
-        raise SystemExit(
-            f"imagenet_run_db: --model {args.model} is not yet ported to "
-            f"sparknet_tpu_torch (have {', '.join(_MODELS)})"
-        )
+    if not args.model.endswith(".prototxt"):
+        from sparknet_tpu_torch import models
+
+        have = sorted(set(models.available_models())
+                      & set(models.solver_models()))
+        if args.model not in have:
+            raise SystemExit(
+                f"imagenet_run_db: --model {args.model}: expected a solver "
+                f".prototxt path or a zoo model with a solver ({', '.join(have)})")
     if args.overlap_avg and (args.snapshot_every or args.resume):
         # after an overlapped average the workers' params are not one
         # consensus, and a snapshot keeps worker 0's (as lm_app refuses)
@@ -160,18 +172,39 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return args
 
 
-def build_solver(model: str, info: dict, crop: int, device):
-    """The model's solver at the DB's batch shapes, cropped
-    (``replaceDataLayers``); the host pipelines transform the batches."""
+def solver_param(model: str):
+    """``--model``'s solver: a zoo model's, or the solver prototxt."""
     from sparknet_tpu_torch import config, models
+
+    if model.endswith(".prototxt"):
+        return config.load_solver_prototxt(model)
+    return models.load_model_solver(model)
+
+
+def build_net(model: str, info: dict, crop: int):
+    """``--model``'s net at the DB's batch shapes, cropped
+    (``replaceDataLayers``; the host pipelines transform the batches): a
+    builder model with the DB's ``classes``, as the JAX app builds it, a
+    prototxt zoo model as it is, or the net a solver prototxt names."""
+    from sparknet_tpu_torch import config, models
+    from sparknet_tpu_torch.models.builders import BUILDERS
+
+    if model.endswith(".prototxt"):
+        netp = config.resolve_solver_net(solver_param(model))
+    elif model in BUILDERS:  # prototxt-backed models take no kwargs
+        netp = models.load_model(model, classes=int(info["classes"]))
+    else:
+        netp = models.load_model(model)
+    tb, vb = int(info["train_batch"]), int(info["test_batch"])
+    return config.replace_data_layers(
+        netp, [(tb, 3, crop, crop), (tb,)], [(vb, 3, crop, crop), (vb,)])
+
+
+def build_solver(model: str, info: dict, crop: int, device):
+    """The model's solver over ``build_net``'s net."""
     from sparknet_tpu_torch.solver import Solver
 
-    netp = (models.load_model(model, classes=int(info["classes"]))
-            if model == "caffenet" else models.load_model(model))
-    tb, vb = int(info["train_batch"]), int(info["test_batch"])
-    netp = config.replace_data_layers(
-        netp, [(tb, 3, crop, crop), (tb,)], [(vb, 3, crop, crop), (vb,)])
-    return Solver(models.load_model_solver(model), net_param=netp,
+    return Solver(solver_param(model), net_param=build_net(model, info, crop),
                   device=device)
 
 

@@ -55,6 +55,11 @@ def available_models() -> List[str]:
     return sorted(set(_NET_FILES) | set(BUILDERS))
 
 
+def solver_models() -> List[str]:
+    """Every model ``load_model_solver`` has a zoo solver for."""
+    return sorted(_SOLVER_FILES)
+
+
 def build_transformer_lm(**kwargs):
     """The zoo's sequence model: the decoder-only transformer LM as a
     Solver net (``models/transformer_lm.TransformerLMNet``) — not a

@@ -293,7 +293,7 @@ class TorchNet:
         return [[self.layers[li].name for li in g["lis"]]
                 for g in self._hconv_groups.values()]
 
-    def _apply_hconv(self, group, x, params, blobs) -> None:
+    def _apply_hconv(self, group, x, params, blobs, on_top=None) -> None:
         """Run one fused sibling-conv group; write every member's top."""
         _, stride, pad, dil = group["geom"]
         members = [self.layers[li] for li in group["lis"]]
@@ -307,6 +307,8 @@ class TorchNet:
         if group["bias"]:
             y = y + torch.cat([g[1] for g in gathered])[None, :, None, None]
         for m, part in zip(members, torch.split(y, group["sizes"], dim=1)):
+            if on_top is not None:
+                part = on_top(m.lp.top[0], part)
             blobs[m.lp.top[0]] = part
 
     def param_multipliers(self) -> Tuple[Dict[str, List[float]], Dict[str, List[float]]]:
@@ -372,10 +374,16 @@ class TorchNet:
         batch: Dict[str, torch.Tensor],
         train: Optional[bool] = None,
         rng: Optional[int] = None,
+        on_top=None,
     ) -> NetOutputs:
         """Run the net: every named blob (the ``getData`` analog), the
         weighted total loss, and the updated stats.  ``rng`` is the key
-        the layers' keys are folded from (None: no layer may draw)."""
+        the layers' keys are folded from (None: no layer may draw).
+        ``on_top(name, tensor)``, when given, sees every top a layer
+        binds, in order (a rebound name once a binding; fed blobs not),
+        and returns the tensor to bind in its place: the solver's
+        ``debug_info_pass`` hooks the activation gradients there, where
+        the JAX net adds its zero taps (``perturb``)."""
         train = (self.phase == "TRAIN") if train is None else train
         blobs: Dict[str, torch.Tensor] = {}
         for b in self.feed_blobs:
@@ -391,14 +399,15 @@ class TorchNet:
                 continue
             if li in self._hconv_groups:
                 self._apply_hconv(self._hconv_groups[li], blobs[lp.bottom[0]],
-                                  params, blobs)
+                                  params, blobs, on_top)
                 continue
             if li in self._plp_fused:
                 pool_top, hp = self._plp_fused[li]
                 x = blobs[lp.bottom[0]]
                 if cd is not None:
                     x = _cast(x, cd)
-                blobs[pool_top] = cuda_plp.lrn_maxpool(x, *hp)
+                y = cuda_plp.lrn_maxpool(x, *hp)
+                blobs[pool_top] = y if on_top is None else on_top(pool_top, y)
                 continue
             if isinstance(layer, data_layers._HostFed):
                 # host blobs keep their dtype: labels never round
@@ -425,6 +434,9 @@ class TorchNet:
                             # stat blobs stay at their master dtype
                             cur = new_stats[ref.owner][ref.index]
                             new_stats[ref.owner][ref.index] = arr.to(cur.dtype)
+            if on_top is not None and not isinstance(layer,
+                                                     data_layers._HostFed):
+                tops = [on_top(name, top) for name, top in zip(lp.top, tops)]
             for w, top in zip(self._loss_weights[layer.name], tops):
                 if w:
                     term = w * top.sum()

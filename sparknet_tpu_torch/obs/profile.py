@@ -640,7 +640,8 @@ def note_trainer_work(prof: RoundProfiler, trainer, tau: int, state) -> None:
     analytic FLOPs (``utils/flops.train_flops``) of all workers' windows
     (None for a net that is not a prototxt ``TorchNet``),
     the collective payload bytes (the comm plane's, else the fused
-    round's) and the device the peak is read for."""
+    round's) and the device and dtype the peak is read for (the net's
+    compute dtype: a bf16 round's MFU reads against the bf16 peak)."""
     noted = getattr(prof, "_work_noted_by", None)
     if noted is not None and noted[0]() is trainer and noted[1] == tau:
         return
@@ -662,9 +663,10 @@ def note_trainer_work(prof: RoundProfiler, trainer, tau: int, state) -> None:
     else:
         payload = trainer._payload_bytes(state)
         compress = "none"
+    dtype = getattr(net, "compute_dtype", None) or torch.float32
     prof.note_round_work(flops_per_round=flops, comm_bytes_per_round=payload,
                          compress=compress, num_workers=trainer.num_workers,
-                         device=trainer.device)
+                         device=trainer.device, dtype=dtype)
 
 
 def state() -> Optional[dict]:

@@ -4,9 +4,10 @@ Every ``csrc/*.cu`` is one shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds), compiled for ``sm_90a``
 into ``build/sparknet_tpu_torch/`` at the root of the checkout, which
 ``.gitignore`` lists.  A library's file name carries a hash of its
-source, the shared ``csrc/*.cuh`` headers and the compiler flags, so
-an edited kernel is rebuilt at its
-next use and an unchanged one is loaded as it is.  The first use builds
+source, the ``csrc`` files it includes (headers, and a ``.cu`` that
+another includes, as ``lrn_pool_bf16.cu`` does) and the compiler flags,
+so an edited kernel is rebuilt at its next use and an unchanged one is
+loaded as it is.  The first use builds
 every stale source at once, one ``nvcc`` each, all started together;
 each build's compiler output (``-Xptxas -v``: registers, shared memory,
 spills) is kept beside the library as ``<name>-<hash>.log``.
@@ -22,12 +23,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from functools import lru_cache
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sparknet_tpu_torch"
@@ -45,11 +47,25 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(SRC_DIR.glob("*.cu"))}
 
 
+def includes(src: Path) -> List[Path]:
+    """The ``csrc`` files ``src`` includes (``#include "..."``), directly
+    or through one another."""
+    found, todo = set(), [src]
+    while todo:
+        for inc in re.findall(r'^\s*#include\s+"([^"]+)"', todo.pop().read_text(),
+                              re.M):
+            p = SRC_DIR / inc
+            if p not in found:
+                found.add(p)
+                todo.append(p)
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives (keyed by
-    the source, the shared ``csrc/*.cuh`` headers and the flags)."""
+    the source, the ``csrc`` files it includes and the flags)."""
     src = sources()[name]
-    headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
+    headers = b"".join(p.read_bytes() for p in includes(src))
     digest = hashlib.sha256(
         src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]

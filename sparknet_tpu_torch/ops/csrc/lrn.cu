@@ -1,10 +1,10 @@
 // Cross-channel LRN (Caffe ACROSS_CHANNELS) for Hopper (sm_90a): the
-// forward in float32 and bfloat16, the backward in float32.
+// forward and the backward, each in float32 and bfloat16.
 //
 // Replaces the two Pallas kernels of sparknet_tpu/ops/pallas_lrn.py
 // (pallas_call at :89 in _call):
 //   sparknet_lrn_fwd_f32, sparknet_lrn_fwd_bf16 <- _fwd_kernel (:64)
-//   sparknet_lrn_bwd_f32 <- _bwd_kernel (:70)
+//   sparknet_lrn_bwd_f32, sparknet_lrn_bwd_bf16 <- _bwd_kernel (:70)
 // With S the centred window sum over channels (Caffe's pre-pad
 // pre = (n-1)/2, post = n-1-pre):
 //   forward   scale = k + (alpha/n) S(x^2),  y = x scale^-beta
@@ -47,16 +47,16 @@
 // q = 4 beta is an integer in 1..8, powf(s, -beta) otherwise (q = 0).
 // Built without --use_fast_math.
 //
-// bfloat16 forward: as the TPU kernel does (pallas_lrn.py:65-67: fp32
-// math, output in the input's dtype), each x is widened to float32 as
-// it is loaded (exact), the scale and y run the float32 operations above,
-// and y is narrowed once, round-to-nearest-even, at the store.  So the
-// bf16 kernel equals the float32 kernel on the widened input, narrowed.
+// bfloat16: as the TPU kernels do (pallas_lrn.py:65-77: fp32 math, the
+// output in the input's dtype), each x (backward: and dy) is widened to
+// float32 as it is loaded (exact), the scale, y and dx run the float32
+// operations above, and the output is narrowed once, round-to-nearest-
+// even, at the store (lrn_common.cuh's ld/st).  So a bf16 kernel equals
+// the float32 kernel on the widened inputs, narrowed.  Its bound is half
+// the float32 kernel's bytes: 4 bytes an element forward, 6 backward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #include "lrn_common.cuh"
 
@@ -66,21 +66,6 @@ namespace {
 // alternatives (PERF.md §6): threads a block, the channels of x a thread
 // loads a group ahead, and the blocks an SM should hold.
 constexpr int K5_THREADS = 256, K5_G = 4, K5_MB = 4;
-
-// K5's element access: loads widen to float32, stores narrow from it
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-template <typename T>
-__device__ __forceinline__ float load_channel_t(const T* p, int c, int C,
-                                                long long plane) {
-  return (c >= 0 && c < C) ? ld(p + c * plane) : 0.f;
-}
 
 // Forward (K5).  The positions of all N images are one index, each
 // thread one position (consecutive threads, consecutive positions), as
@@ -114,7 +99,7 @@ __global__ void __launch_bounds__(K5_THREADS, K5_MB) lrn_fwd_kernel(
 #pragma unroll
   for (int m = 0; m <= 2 * D; ++m) sr[m] = 0.f;
   for (int cc = c0 - D; cc < c0 + D; ++cc) {
-    const float v = load_channel_t(xp, cc, C, plane);
+    const float v = load_channel(xp, cc, C, plane);
     shift_in<D + 1>(xr, v);
     shift_in<2 * D + 1>(sr, __fmul_rn(v, v));
   }
@@ -129,7 +114,7 @@ __global__ void __launch_bounds__(K5_THREADS, K5_MB) lrn_fwd_kernel(
     } else {
 #pragma unroll
       for (int s = 0; s < G; ++s) {
-        xn[s] = load_channel_t(xp, cg + s + D, C, plane);
+        xn[s] = load_channel(xp, cg + s + D, C, plane);
       }
     }
   };
@@ -165,12 +150,13 @@ constexpr int K6_THREADS = 384, K6_G = 4, K6_MB = 2;
 // dy, then computes the current group from registers, so ~2 K6_G loads
 // are in flight across the group's arithmetic (Little's law: the HBM
 // latency times its rate over the threads an SM holds).  FAST fixes
-// Caffe's default window and power at compile time (lrn_common.cuh).
-template <int D, bool FAST>
+// Caffe's default window and power at compile time (lrn_common.cuh).  T
+// is the element type of x, dy and dx (float or __nv_bfloat16); the
+// registers and the arithmetic are float32 either way.
+template <typename T, int D, bool FAST>
 __global__ void __launch_bounds__(K6_THREADS, K6_MB) lrn_bwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ dy,
-    float* __restrict__ dx, int C, int L, long long NL, int chunk,
-    LrnParams hp) {
+    const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
+    int C, int L, long long NL, int chunk, LrnParams hp) {
   constexpr int G = K6_G;
   const int c0 = blockIdx.y * chunk;
   const int c1 = min(C, c0 + chunk);
@@ -179,9 +165,9 @@ __global__ void __launch_bounds__(K6_THREADS, K6_MB) lrn_bwd_kernel(
       static_cast<long long>(blockIdx.x) * K6_THREADS + threadIdx.x;
   const bool ok = q < NL;
   const long long at = ok ? (q / L) * C * plane + q % L : 0;
-  const float* xp = x + at;
-  const float* dyp = dy + at;
-  float* dxp = dx + at;
+  const T* xp = x + at;
+  const T* dyp = dy + at;
+  T* dxp = dx + at;
 
   float xr[2 * D + 1];  // x at channels j-D .. j+D (j: the term's channel)
   float sr[2 * D + 1];  // their squares, each formed once
@@ -207,19 +193,19 @@ __global__ void __launch_bounds__(K6_THREADS, K6_MB) lrn_bwd_kernel(
   float xn[G], gn[G];
   auto fetch = [&](int jg) {
     if (jg >= 0 && jg + G + D <= C) {
-      const float* xq = xp + (jg + D) * plane;
-      const float* gq = dyp + jg * plane;
+      const T* xq = xp + (jg + D) * plane;
+      const T* gq = dyp + jg * plane;
 #pragma unroll
       for (int s = 0; s < G; ++s) {
-        xn[s] = __ldg(xq + s * plane);
-        gn[s] = __ldg(gq + s * plane);
+        xn[s] = ld(xq + s * plane);
+        gn[s] = ld(gq + s * plane);
       }
     } else {
 #pragma unroll
       for (int s = 0; s < G; ++s) {
         const int j = jg + s;
         xn[s] = load_channel(xp, j + D, C, plane);
-        gn[s] = j >= 0 && j < C ? __ldg(dyp + j * plane) : 0.f;
+        gn[s] = j >= 0 && j < C ? ld(dyp + j * plane) : 0.f;
       }
     }
   };
@@ -247,17 +233,17 @@ __global__ void __launch_bounds__(K6_THREADS, K6_MB) lrn_bwd_kernel(
       shift_in<2 * D + 1>(tr, t);
       shift_in<D + 1>(pa, __fmul_rn(pw, g));
       if (c >= c0 && c < c1 && ok) {
-        dxp[(jg - D) * plane + s * plane] =
-            lrn_dx(pa[0], xr[0], window_sum_t<D, FAST>(tr, hp), hp);
+        st(dxp + (jg - D) * plane + s * plane,
+           lrn_dx(pa[0], xr[0], window_sum_t<D, FAST>(tr, hp), hp));
       }
     }
   }
 }
 
-// the forward (dy == nullptr: K5, element type T) or the backward (K6,
-// float32) at window reach D
+// the forward (dy == nullptr: K5) or the backward (K6), element type T,
+// at window reach D
 template <typename T, int D>
-cudaError_t launch(const T* x, const float* dy, T* out, int N, int C, int L,
+cudaError_t launch(const T* x, const T* dy, T* out, int N, int C, int L,
                    int chunk, const LrnParams& hp, cudaStream_t s) {
   const int nchunks = (C + chunk - 1) / chunk;
   const long long NL = static_cast<long long>(N) * L;
@@ -270,26 +256,22 @@ cudaError_t launch(const T* x, const float* dy, T* out, int N, int C, int L,
       lrn_fwd_kernel<T, D, true><<<grid, threads, 0, s>>>(x, out, C, L, NL,
                                                           chunk, hp);
     } else if (fast) {
-      if constexpr (std::is_same_v<T, float>) {
-        lrn_bwd_kernel<D, true><<<grid, threads, 0, s>>>(x, dy, out, C, L, NL,
-                                                         chunk, hp);
-      }
+      lrn_bwd_kernel<T, D, true><<<grid, threads, 0, s>>>(x, dy, out, C, L,
+                                                          NL, chunk, hp);
     }
   }
   if (!fast && dy == nullptr) {
     lrn_fwd_kernel<T, D, false><<<grid, threads, 0, s>>>(x, out, C, L, NL,
                                                          chunk, hp);
   } else if (!fast) {
-    if constexpr (std::is_same_v<T, float>) {
-      lrn_bwd_kernel<D, false><<<grid, threads, 0, s>>>(x, dy, out, C, L, NL,
-                                                        chunk, hp);
-    }
+    lrn_bwd_kernel<T, D, false><<<grid, threads, 0, s>>>(x, dy, out, C, L,
+                                                         NL, chunk, hp);
   }
   return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const T* x, const float* dy, T* out, int N, int C, int L,
+int dispatch(const T* x, const T* dy, T* out, int N, int C, int L,
              int chunk, int pre, int post, float k, float alpha_n,
              float coef, int q, float neg_beta, void* stream) {
   if (N < 1 || C < 1 || L < 1 || chunk < 1 || N > 65535 ||
@@ -344,4 +326,18 @@ extern "C" int sparknet_lrn_bwd_f32(const float* x, const float* dy, float* dx,
                                     void* stream) {
   return dispatch<float>(x, dy, dx, N, C, L, chunk, pre, post, k, alpha_n,
                          coef, q, neg_beta, stream);
+}
+
+// x, dy, dx (N, C, H*W) contiguous bfloat16 (the bits, as uint16);
+// float32 arithmetic, dx rounded to nearest even once.  Arguments as
+// above.
+extern "C" int sparknet_lrn_bwd_bf16(const void* x, const void* dy, void* dx,
+                                     int N, int C, int L, int chunk, int pre,
+                                     int post, float k, float alpha_n,
+                                     float coef, int q, float neg_beta,
+                                     void* stream) {
+  return dispatch<__nv_bfloat16>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(dy), static_cast<__nv_bfloat16*>(dx),
+      N, C, L, chunk, pre, post, k, alpha_n, coef, q, neg_beta, stream);
 }

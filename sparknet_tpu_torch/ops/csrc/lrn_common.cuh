@@ -6,9 +6,18 @@
 // arithmetic repeats the plain version's (ops/cuda_lrn.py) one rounding
 // at a time: every product, sum and quotient is an explicitly rounded
 // intrinsic, so no pair is contracted into an FMA.
+//
+// Each kernel takes float32 or bfloat16 tensors (its element type T).
+// The window and every operation stay float32 either way: ld() widens an
+// element as it is loaded (exact), st() narrows a result once, round to
+// nearest even, as it is stored.  So a bf16 kernel equals the float32
+// kernel on the widened input with its output narrowed, which is the
+// TPU kernels' contract (pallas_lrn.py:65-77, pallas_plp.py:148-234:
+// float32 math, the output in the input's dtype).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // the largest window reach max(pre, post) the kernels are built for:
@@ -32,10 +41,21 @@ __device__ __forceinline__ void shift_in(float (&r)[M], float v) {
   r[M - 1] = v;
 }
 
+// element access: loads widen to float32, stores narrow from it
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // channel c of a position (zero outside [0, C), as the Pallas kernel pads)
-__device__ __forceinline__ float load_channel(const float* p, int c, int C,
+template <typename T>
+__device__ __forceinline__ float load_channel(const T* p, int c, int C,
                                               long long plane) {
-  return (c >= 0 && c < C) ? __ldg(p + c * plane) : 0.f;
+  return (c >= 0 && c < C) ? ld(p + c * plane) : 0.f;
 }
 
 // the centred window sum of r (centre r[D]) in the Pallas order: centre,

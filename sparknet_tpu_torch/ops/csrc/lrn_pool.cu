@@ -1,10 +1,12 @@
-// Fused cross-channel LRN + 3x3/2 max pool, float32, for Hopper (sm_90a):
+// Fused cross-channel LRN + 3x3/2 max pool, float32 and bfloat16, for
+// Hopper (sm_90a):
 // maxpool_3x3_s2(lrn_across(x)) on NCHW with odd H, W >= 3 (pallas_plp
 // .fusable), pooled to ((H-3)/2+1, (W-3)/2+1).
 //
 // Replaces the two Pallas kernels of sparknet_tpu/ops/pallas_plp.py:
-//   sparknet_lrn_pool_fwd_f32 <- _fwd_kernel (:148, pallas_call at :288)
-//   sparknet_lrn_pool_bwd_f32 <- _bwd_kernel (:166, pallas_call at :322)
+//   sparknet_lrn_pool_fwd_f32, _bf16 <- _fwd_kernel (:148, pallas_call at :288)
+//   sparknet_lrn_pool_bwd_f32, _bf16 <- _bwd_kernel (:166, pallas_call at :322)
+// (the _bf16 entries built from lrn_pool_bf16.cu, a library of their own)
 //
 // Forward (K7).  One block per (tile of pooled outputs, image, channel
 // chunk): whole pooled rows, as many as a block holds (AlexNet's 27-wide
@@ -58,8 +60,24 @@
 // matrix product).  Built
 // without --use_fast_math; every operation of the LRN is an explicitly
 // rounded intrinsic, as in lrn.cu.
+//
+// bfloat16 (both kernels are templates on the element type T of x, dy
+// and the output): x and dy are widened to float32 as they are loaded,
+// y, the routing and dx run on float32 values, as the TPU kernels do
+// (pallas_plp.py:148-234: the inputs widened, the output in the input's
+// dtype), and the output is narrowed once at the store.  K8 routes by
+// the first maximum of the float32 y it recomputes, never of a narrowed
+// y.  The staging in shared memory stays float32: K7 stages a bf16 box
+// element by element with plain loads (cp.async moves 4, 8 or 16 bytes,
+// not a 2-byte element, and widening happens on the way in), K8 stores
+// each thread's next x into its own slot.  So a bf16 kernel equals the
+// float32 kernel on the widened inputs with its output narrowed; its
+// bytes are half the float32 kernel's, its loads are not a group ahead.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "lrn_common.cuh"
 
@@ -179,11 +197,13 @@ void k7_tile(int PH, int PW, int W, int* tph, int* tpw) {
 // So every thread works after every barrier, y never reaches device
 // memory, and a tile recomputes one input row (column) of its
 // neighbour's.  FAST fixes Caffe's default window and power at compile
-// time (lrn_common.cuh).
-template <int D, bool FAST, class S, int MB>
+// time (lrn_common.cuh).  T is the element type of x and out; a bf16 box
+// is staged by plain loads, at no offset past 16 bytes (the file's head).
+template <typename T, int D, bool FAST, class S, int MB>
 __global__ void __launch_bounds__(S::NT, MB) lrn_pool_fwd_kernel(
-    const float* __restrict__ x, float* __restrict__ out, int C, int H, int W,
+    const T* __restrict__ x, T* __restrict__ out, int C, int H, int W,
     int PH, int PW, int tph, int tpw, int chunk, int nchunks, LrnParams hp) {
+  constexpr bool ASYNC = std::is_same_v<T, float>;  // staged by cp.async
   constexpr int G = S::G, NT = S::NT, PPT = S::PPT, IPT = S::IPT;
   constexpr int NB = S::NB, XS = S::XS;
   extern __shared__ float4 k7_smem[];
@@ -201,13 +221,16 @@ __global__ void __launch_bounds__(S::NT, MB) lrn_pool_fwd_kernel(
   const long long plane = static_cast<long long>(H) * W;
   const long long pplane = static_cast<long long>(PH) * PW;
   // the box's top-left x of channel 0; channel c's is c planes on
-  const float* xbox = x + static_cast<long long>(n) * C * plane +
-                      static_cast<long long>(2 * u0) * W + 2 * v0;
-  float* obox = out + static_cast<long long>(n) * C * pplane +
-                static_cast<long long>(u0) * PW + v0;
-  const int mis0 = misalign(xbox);
-  // the float offset past 16 bytes of row r of channel c's box
+  const T* xbox = x + static_cast<long long>(n) * C * plane +
+                  static_cast<long long>(2 * u0) * W + 2 * v0;
+  T* obox = out + static_cast<long long>(n) * C * pplane +
+            static_cast<long long>(u0) * PW + v0;
+  int mis0 = 0;
+  if constexpr (ASYNC) mis0 = misalign(xbox);
+  // the float offset past 16 bytes of row r of channel c's box (0 for a
+  // bf16 box, staged element by element)
   auto row_off = [&](int c, int r) {
+    if constexpr (!ASYNC) return 0;
     return static_cast<int>((mis0 + c * plane + static_cast<long long>(r) * W)
                             & 3);
   };
@@ -230,30 +253,38 @@ __global__ void __launch_bounds__(S::NT, MB) lrn_pool_fwd_kernel(
   }
   // (c * plane) & 3 of each channel: its offset past 16 bytes, less
   // channel 0's
-  const int plane4 = static_cast<int>(plane & 3);
+  const int plane4 = ASYNC ? static_cast<int>(plane & 3) : 0;
   auto fetch = [&](int c, int buf) {
 #pragma unroll
     for (int s = 0; s < G; ++s) {
       const int cc = c + s;
       const bool in = cc >= 0 && cc < C;
       const int ci = in ? cc : 0;
-      const float* src = xbox + ci * plane;
+      const T* src = xbox + ci * plane;
       float* dst = xs + (buf * G + s) * XS;
-      const int coff = (ci * plane4) & 3;
+      if constexpr (!ASYNC) {  // widened on the way in; visible after
+        for (int i = t; i < bh * bw; i += NT) {  // the group's barrier
+          const int r = i / bw, col = i % bw;
+          dst[r * rs + col] =
+              in ? ld(src + static_cast<long long>(r) * W + col) : 0.f;
+        }
+      } else {
+        const int coff = (ci * plane4) & 3;
 #pragma unroll
-      for (int m = 0; m < FPT; ++m) {
-        const int off = (f_off[m] + coff) & 3;
-        const int e0 = f_k4[m] - off;  // the row index of the chunk's first float
-        if (e0 >= bw) continue;
-        const float* a = src + f_src[m] - off;  // on 16 bytes
-        float* d = dst + f_dst[m];
-        if (e0 >= 0 && e0 + 4 <= bw) {
-          cp_async16(d, a, in);
-        } else {
+        for (int m = 0; m < FPT; ++m) {
+          const int off = (f_off[m] + coff) & 3;
+          const int e0 = f_k4[m] - off;  // the row index of the chunk's first float
+          if (e0 >= bw) continue;
+          const float* a = src + f_src[m] - off;  // on 16 bytes
+          float* d = dst + f_dst[m];
+          if (e0 >= 0 && e0 + 4 <= bw) {
+            cp_async16(d, a, in);
+          } else {
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const bool ok = in && e0 + k >= 0 && e0 + k < bw;
-            cp_async4(d + k, ok ? a + k : x, ok);
+            for (int k = 0; k < 4; ++k) {
+              const bool ok = in && e0 + k >= 0 && e0 + k < bw;
+              cp_async4(d + k, ok ? a + k : x, ok);
+            }
           }
         }
       }
@@ -290,7 +321,8 @@ __global__ void __launch_bounds__(S::NT, MB) lrn_pool_fwd_kernel(
       for (int b = 0; b < 3; ++b) {
         rm[b] = max_nan(max_nan(w[b], w[bw + b]), w[2 * bw + b]);
       }
-      obox[(g0 + s) * pplane + it_o[k]] = max_nan(max_nan(rm[0], rm[1]), rm[2]);
+      st(obox + (g0 + s) * pplane + it_o[k],
+         max_nan(max_nan(rm[0], rm[1]), rm[2]));
     }
   };
 
@@ -307,7 +339,7 @@ __global__ void __launch_bounds__(S::NT, MB) lrn_pool_fwd_kernel(
 #pragma unroll
     for (int m = 0; m < 2 * D + G; ++m) xr[p][m] = 0.f;
     if (e < bh * bw) {
-      const float* xp = xbox + static_cast<long long>(r) * W + e % bw;
+      const T* xp = xbox + static_cast<long long>(r) * W + e % bw;
 #pragma unroll
       for (int m = 0; m < 2 * D; ++m) {
         xr[p][G + m] = load_channel(xp, c0 - D + m, C, plane);
@@ -412,12 +444,13 @@ __device__ __forceinline__ int chosen_column(const float* w, int bw) {
 //      routed to it, for every channel of the group, forms the LRN
 //      backward term g x p / scale, and writes dx D channels later.
 // y, the column choices and the routed sums live in shared memory, one
-// plane per channel of the group.
-template <int D, class S, int MB>
+// plane per channel of the group, float32 whatever T, the element type
+// of x, dy and dx, is.
+template <typename T, int D, class S, int MB>
 __global__ void __launch_bounds__(S::NT, MB) lrn_pool_bwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ dy,
-    float* __restrict__ dx, int C, int H, int W, int PH, int PW, int chunk,
-    int nchunks, LrnParams hp) {
+    const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
+    int C, int H, int W, int PH, int PW, int chunk, int nchunks,
+    LrnParams hp) {
   constexpr int G = K8_G, TH = S::TH, TW = S::TW, NT = S::NT;
   constexpr int BW = S::BW, BHh = S::BH, WR = S::WR, WC = S::WC;
   extern __shared__ float smem[];
@@ -444,9 +477,9 @@ __global__ void __launch_bounds__(S::NT, MB) lrn_pool_bwd_kernel(
   const long long pplane = static_cast<long long>(PH) * PW;
   const long long at =
       static_cast<long long>(n) * C * plane + static_cast<long long>(h) * W + w;
-  const float* xp = x + at;
-  float* dxp = dx + at;
-  const float* dyimg = dy + static_cast<long long>(n) * C * pplane;
+  const T* xp = x + at;
+  T* dxp = dx + at;
+  const T* dyimg = dy + static_cast<long long>(n) * C * pplane;
   // the window-rows holding row h, in the order their gradients add: an
   // even row is row 0 of window-row h/2 and row 2 of h/2 - 1, an odd row
   // row 1 of (h-1)/2 (indices relative to u0)
@@ -478,10 +511,10 @@ __global__ void __launch_bounds__(S::NT, MB) lrn_pool_bwd_kernel(
       const int cu = u0 + r / TW, cw = w0 + r % TW;
       const int j = g0 + s;
       if (!live(j) || cu < 0 || cu >= PH || cw >= W) continue;
-      const float* dyc = dyimg + j * pplane + static_cast<long long>(cu) * PW;
+      const T* dyc = dyimg + j * pplane + static_cast<long long>(cu) * PW;
       const int v = cw / 2;  // even cw: window v's b = 0; odd: b = 1
-      if (v < PW) dyv[k][0] = __ldg(dyc + v);
-      if (cw % 2 == 0 && v >= 1) dyv[k][1] = __ldg(dyc + v - 1);
+      if (v < PW) dyv[k][0] = ld(dyc + v);
+      if (cw % 2 == 0 && v >= 1) dyv[k][1] = ld(dyc + v - 1);
     }
   };
 
@@ -494,13 +527,18 @@ __global__ void __launch_bounds__(S::NT, MB) lrn_pool_bwd_kernel(
   for (int m = 0; m <= 2 * D; ++m) tr[m] = 0.f;
 #pragma unroll
   for (int m = 0; m <= D; ++m) pa[m] = 0.f;
-  // x of channels c .. c + G - 1 at this position, a group ahead
+  // x of channels c .. c + G - 1 at this position, a group ahead (bf16:
+  // loaded and widened into the thread's own slots, which only it reads)
   auto fetch_x = [&](int c) {
     if (!lrn_thread) return;
 #pragma unroll
     for (int s = 0; s < G; ++s) {
       const bool in = c + s >= 0 && c + s < C;
-      cp_async4(xs + s * NT, in ? xp + (c + s) * plane : x, in);
+      if constexpr (std::is_same_v<T, float>) {
+        cp_async4(xs + s * NT, in ? xp + (c + s) * plane : x, in);
+      } else {
+        xs[s * NT] = in ? ld(xp + (c + s) * plane) : 0.f;
+      }
     }
     cp_async_commit();
   };
@@ -601,34 +639,34 @@ __global__ void __launch_bounds__(S::NT, MB) lrn_pool_bwd_kernel(
         const int c = j - D;
         if (c >= c0 && c < c1) {
           // x of channel c is xr[s]
-          dxp[c * plane] = lrn_dx(pa[0], xr[s], window_sum<D>(tr, hp), hp);
+          st(dxp + c * plane, lrn_dx(pa[0], xr[s], window_sum<D>(tr, hp), hp));
         }
       }
     }
   }
 }
 
-template <int D, class S, int MB>
-cudaError_t launch_bwd(const float* x, const float* dy, float* dx, int N,
-                       int C, int H, int W, int PH, int PW, int chunk,
-                       int nchunks, const LrnParams& hp, cudaStream_t s) {
+template <typename T, int D, class S, int MB>
+cudaError_t launch_bwd(const T* x, const T* dy, T* dx, int N, int C, int H,
+                       int W, int PH, int PW, int chunk, int nchunks,
+                       const LrnParams& hp, cudaStream_t s) {
   static bool configured = false;
   if (!configured && S::SMEM > 48 * 1024) {  // above 48 KB: the opt-in
     const cudaError_t e = cudaFuncSetAttribute(
-        lrn_pool_bwd_kernel<D, S, MB>,
+        lrn_pool_bwd_kernel<T, D, S, MB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(S::SMEM));
     if (e != cudaSuccess) return e;
   }
   configured = true;
   dim3 grid((W + S::TW - 1) / S::TW, (H + S::TH - 1) / S::TH, N * nchunks);
-  lrn_pool_bwd_kernel<D, S, MB><<<grid, S::NT, S::SMEM, s>>>(
+  lrn_pool_bwd_kernel<T, D, S, MB><<<grid, S::NT, S::SMEM, s>>>(
       x, dy, dx, C, H, W, PH, PW, chunk, nchunks, hp);
   return cudaGetLastError();
 }
 
-template <int D, bool FAST, class S, int MB>
-cudaError_t launch_fwd_as(const float* x, float* out, int N, int C, int H,
-                          int W, int PH, int PW, int chunk, int nchunks,
+template <typename T, int D, bool FAST, class S, int MB>
+cudaError_t launch_fwd_as(const T* x, T* out, int N, int C, int H, int W,
+                          int PH, int PW, int chunk, int nchunks,
                           const LrnParams& hp, cudaStream_t s) {
   int tph, tpw;
   k7_tile<S>(PH, PW, W, &tph, &tpw);
@@ -636,60 +674,60 @@ cudaError_t launch_fwd_as(const float* x, float* out, int N, int C, int H,
   static bool configured = false;
   if (!configured && S::SMEM > 48 * 1024) {  // above 48 KB: the opt-in
     const cudaError_t e = cudaFuncSetAttribute(
-        lrn_pool_fwd_kernel<D, FAST, S, MB>,
+        lrn_pool_fwd_kernel<T, D, FAST, S, MB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(S::SMEM));
     if (e != cudaSuccess) return e;
   }
   configured = true;
   dim3 grid((PW + tpw - 1) / tpw, (PH + tph - 1) / tph, N * nchunks);
-  lrn_pool_fwd_kernel<D, FAST, S, MB><<<grid, S::NT, S::SMEM, s>>>(
+  lrn_pool_fwd_kernel<T, D, FAST, S, MB><<<grid, S::NT, S::SMEM, s>>>(
       x, out, C, H, W, PH, PW, tph, tpw, chunk, nchunks, hp);
   return cudaGetLastError();
 }
 
-template <int D, class S, int MB>
-cudaError_t launch_fwd(const float* x, float* out, int N, int C, int H, int W,
-                       int PH, int PW, int chunk, int nchunks,
-                       const LrnParams& hp, cudaStream_t s) {
+template <typename T, int D, class S, int MB>
+cudaError_t launch_fwd(const T* x, T* out, int N, int C, int H, int W, int PH,
+                       int PW, int chunk, int nchunks, const LrnParams& hp,
+                       cudaStream_t s) {
   if constexpr (D == 2) {  // the FAST kernel exists for D = 2 alone
     if (lrn_fast(D, hp)) {
-      return launch_fwd_as<D, true, S, MB>(x, out, N, C, H, W, PH, PW, chunk,
-                                           nchunks, hp, s);
+      return launch_fwd_as<T, D, true, S, MB>(x, out, N, C, H, W, PH, PW,
+                                              chunk, nchunks, hp, s);
     }
   }
-  return launch_fwd_as<D, false, S, MB>(x, out, N, C, H, W, PH, PW, chunk,
-                                        nchunks, hp, s);
+  return launch_fwd_as<T, D, false, S, MB>(x, out, N, C, H, W, PH, PW, chunk,
+                                           nchunks, hp, s);
 }
 
-template <int D>
-cudaError_t launch(const float* x, const float* dy, float* out, int N, int C,
-                   int H, int W, int chunk, const LrnParams& hp,
-                   cudaStream_t s) {
+template <typename T, int D>
+cudaError_t launch(const T* x, const T* dy, T* out, int N, int C, int H,
+                   int W, int chunk, const LrnParams& hp, cudaStream_t s) {
   const int PH = (H - 3) / 2 + 1, PW = (W - 3) / 2 + 1;
   const int nchunks = (C + chunk - 1) / chunk;
   if (dy == nullptr && W <= K7_NARROW) {
-    return launch_fwd<D,
+    return launch_fwd<T, D,
                       K7Shape<K7_G_NARROW, K7_NT_NARROW, K7_PPT_NARROW,
                               K7_IPT_NARROW>,
                       K7_MB_NARROW>(x, out, N, C, H, W, PH, PW, chunk, nchunks,
                                     hp, s);
   } else if (dy == nullptr) {
-    return launch_fwd<D,
+    return launch_fwd<T, D,
                       K7Shape<K7_G_WIDE, K7_NT_WIDE, K7_PPT_WIDE, K7_IPT_WIDE>,
                       K7_MB_WIDE>(x, out, N, C, H, W, PH, PW, chunk, nchunks,
                                   hp, s);
   } else if (W <= K8_NARROW) {
-    return launch_bwd<D, K8Shape<K8_TH_NARROW, K8_TW_NARROW>, K8_MB_NARROW>(
+    return launch_bwd<T, D, K8Shape<K8_TH_NARROW, K8_TW_NARROW>, K8_MB_NARROW>(
         x, dy, out, N, C, H, W, PH, PW, chunk, nchunks, hp, s);
   } else {
-    return launch_bwd<D, K8Shape<K8_TH_WIDE, K8_TW_WIDE>, K8_MB_WIDE>(
+    return launch_bwd<T, D, K8Shape<K8_TH_WIDE, K8_TW_WIDE>, K8_MB_WIDE>(
         x, dy, out, N, C, H, W, PH, PW, chunk, nchunks, hp, s);
   }
 }
 
-int dispatch(const float* x, const float* dy, float* out, int N, int C, int H,
-             int W, int chunk, int pre, int post, float k, float alpha_n,
-             float coef, int q, float neg_beta, void* stream) {
+template <typename T>
+int dispatch(const T* x, const T* dy, T* out, int N, int C, int H, int W,
+             int chunk, int pre, int post, float k, float alpha_n, float coef,
+             int q, float neg_beta, void* stream) {
   if (N < 1 || C < 1 || H < 3 || W < 3 || H % 2 == 0 || W % 2 == 0 ||
       chunk < 1 ||
       static_cast<long long>(N) * ((C + chunk - 1) / chunk) > 65535 ||
@@ -702,7 +740,7 @@ int dispatch(const float* x, const float* dy, float* out, int N, int C, int H,
 #define LRN_CASE(DD)                                                       \
   case DD:                                                                 \
     return static_cast<int>(                                               \
-        launch<DD>(x, dy, out, N, C, H, W, chunk, hp, s));
+        launch<T, DD>(x, dy, out, N, C, H, W, chunk, hp, s));
     LRN_CASE(0) LRN_CASE(1) LRN_CASE(2) LRN_CASE(3)
     LRN_CASE(4) LRN_CASE(5) LRN_CASE(6) LRN_CASE(7)
 #undef LRN_CASE
@@ -713,6 +751,11 @@ int dispatch(const float* x, const float* dy, float* out, int N, int C, int H,
 
 }  // namespace
 
+// Each element type is a library of its own: this file's entries are the
+// float32 ones, lrn_pool_bf16.cu defines LRN_POOL_BF16 and includes this
+// file for the bfloat16 ones.  Either instantiates K7 and K8 at every
+// window reach and tile shape, so the two builds run in parallel.
+#ifndef LRN_POOL_BF16
 // x (N, C, H, W) contiguous float32, H and W odd >= 3; out (N, C, PH, PW).
 // alpha_n = alpha/n, q = 4 beta when an integer in 1..8 (else 0: powf),
 // neg_beta = -beta.  Returns the cudaError_t of the launch.
@@ -721,8 +764,8 @@ extern "C" int sparknet_lrn_pool_fwd_f32(const float* x, float* out, int N,
                                          int pre, int post, float k,
                                          float alpha_n, int q, float neg_beta,
                                          void* stream) {
-  return dispatch(x, nullptr, out, N, C, H, W, chunk, pre, post, k, alpha_n,
-                  0.f, q, neg_beta, stream);
+  return dispatch<float>(x, nullptr, out, N, C, H, W, chunk, pre, post, k,
+                         alpha_n, 0.f, q, neg_beta, stream);
 }
 
 // x, dx (N, C, H, W), dy (N, C, PH, PW), contiguous float32; coef =
@@ -736,3 +779,30 @@ extern "C" int sparknet_lrn_pool_bwd_f32(const float* x, const float* dy,
   return dispatch(x, dy, dx, N, C, H, W, chunk, pre, post, k, alpha_n, coef,
                   q, neg_beta, stream);
 }
+
+#else
+// The same two in bfloat16 (the bits, as uint16): float32 arithmetic, the
+// output rounded to nearest even once.  Arguments as above.
+extern "C" int sparknet_lrn_pool_fwd_bf16(const void* x, void* out, int N,
+                                          int C, int H, int W, int chunk,
+                                          int pre, int post, float k,
+                                          float alpha_n, int q,
+                                          float neg_beta, void* stream) {
+  return dispatch(static_cast<const __nv_bfloat16*>(x),
+                  static_cast<const __nv_bfloat16*>(nullptr),
+                  static_cast<__nv_bfloat16*>(out), N, C, H, W, chunk, pre,
+                  post, k, alpha_n, 0.f, q, neg_beta, stream);
+}
+
+extern "C" int sparknet_lrn_pool_bwd_bf16(const void* x, const void* dy,
+                                          void* dx, int N, int C, int H,
+                                          int W, int chunk, int pre, int post,
+                                          float k, float alpha_n, float coef,
+                                          int q, float neg_beta,
+                                          void* stream) {
+  return dispatch(static_cast<const __nv_bfloat16*>(x),
+                  static_cast<const __nv_bfloat16*>(dy),
+                  static_cast<__nv_bfloat16*>(dx), N, C, H, W, chunk, pre,
+                  post, k, alpha_n, coef, q, neg_beta, stream);
+}
+#endif  // LRN_POOL_BF16

@@ -19,13 +19,13 @@ Here that form is the plain version (``lrn_across_reference``,
 ``lrn_across_bwd_reference``), and a plain version may not carry the
 path on the card, so the variable has nothing left to choose: on a CUDA
 tensor every ACROSS_CHANNELS LRN runs K5 forward and K6 backward, on a
-CPU tensor the plain version.  K5 takes float32 and bfloat16 (the TPU
-kernel's any float dtype with float32 math, ``pallas_lrn.py:65-67``: the
-bf16 plain version is the float32 one on the widened input, narrowed
-once), K6 float32 only.  A CUDA tensor the kernels do not take (another
-dtype, not a contiguous NCHW tensor, a window wider than 15) raises;
-nothing falls back.  ``LAUNCHES`` counts kernel launches (K5's in
-either dtype under ``lrn_fwd``).
+CPU tensor the plain version.  Both take float32 and bfloat16 (the TPU
+kernels' any float dtype with float32 math, ``pallas_lrn.py:65-77``: a
+bf16 plain version is the float32 one on the widened inputs, narrowed
+once).  A CUDA tensor the kernels do not take (another dtype, x and dy
+of two dtypes, not a contiguous NCHW tensor, a window wider than 15)
+raises; nothing falls back.  ``LAUNCHES`` counts each kernel's launches,
+the bfloat16 ones under the kernel's name with ``_bf16`` after it.
 
 The plain version sums each window in the Pallas order (centre, then the
 post side d = 1.., then the pre side d = 1..; ``pallas_lrn.py:50-61``)
@@ -46,7 +46,7 @@ import torch.nn.functional as F
 
 from sparknet_tpu_torch.ops import _build
 
-LAUNCHES = {"lrn_fwd": 0, "lrn_bwd": 0}
+LAUNCHES = {"lrn_fwd": 0, "lrn_bwd": 0, "lrn_fwd_bf16": 0, "lrn_bwd_bf16": 0}
 # serving replicas launch from their own threads: count under a lock
 _COUNT_LOCK = threading.Lock()
 
@@ -65,6 +65,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def count_launch(counts: dict, name: str, dtype: torch.dtype) -> None:
+    """One launch of kernel ``name`` in ``dtype`` into ``counts`` (this
+    module's ``LAUNCHES`` or ``cuda_plp``'s), under the lock."""
+    with _COUNT_LOCK:
+        counts[name + ("_bf16" if dtype == torch.bfloat16 else "")] += 1
 
 
 def negpow_q(beta: float) -> int:
@@ -137,17 +144,26 @@ def lrn_across_bwd_reference(x, dy, n: int, alpha: float, beta: float,
     return p * dy - (2.0 * alpha * beta / n) * x * inner
 
 
-def check_cuda(what: str, *tensors, dtypes=(torch.float32,)) -> None:
+def lrn_bwd_bf16_reference(x, dy, n: int, alpha: float, beta: float,
+                           k: float):
+    """Plain version of K6 in bfloat16: float32 math on the widened
+    inputs, dx narrowed once (round to nearest even)."""
+    return lrn_across_bwd_reference(x.float(), dy.float(), n, alpha, beta,
+                                    k).to(torch.bfloat16)
+
+
+def check_cuda(what: str, *tensors) -> None:
     """Raise on a tensor the kernels do not take: they take contiguous
-    NCHW tensors of one of ``dtypes`` (float32 unless a kernel says
-    otherwise) on one device."""
-    dev = tensors[0].device
+    NCHW float32 or bfloat16 tensors, all of one dtype, on one device."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{what}: tensors on {t.device} and {dev}")
-        if t.dtype not in dtypes:
-            names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
-            raise TypeError(f"{what}: the kernel takes {names}, got {t.dtype}")
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{what}: the kernel takes float32 or bfloat16, "
+                            f"got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: tensors of {t.dtype} and {dtype}")
         if t.dim() != 4:
             raise ValueError(
                 f"{what}: the kernel takes NCHW tensors, got shape "
@@ -181,7 +197,7 @@ def lrn_fwd(x, n: int, alpha: float, beta: float, k: float):
         if x.dtype == torch.bfloat16:
             return lrn_fwd_bf16_reference(x, n, alpha, beta, k)
         return lrn_across_reference(x, n, alpha, beta, k)
-    check_cuda("lrn_fwd", x, dtypes=(torch.float32, torch.bfloat16))
+    check_cuda("lrn_fwd", x)
     pre, post, kk, an, _, q, nb = hp_args("lrn_fwd", n, alpha, beta, k)
     N, C, H, W = x.shape
     y = torch.empty_like(x)
@@ -193,15 +209,16 @@ def lrn_fwd(x, n: int, alpha: float, beta: float, k: float):
         rc = fn(x.data_ptr(), y.data_ptr(), N, C, H * W, FWD_CHUNK, pre, post,
                 kk, an, q, nb, stream(x))
     _build.raise_on(rc, "lrn_fwd")
-    with _COUNT_LOCK:
-        LAUNCHES["lrn_fwd"] += 1
+    count_launch(LAUNCHES, "lrn_fwd", x.dtype)
     return y
 
 
 def lrn_bwd(x, dy, n: int, alpha: float, beta: float, k: float):
-    """The LRN backward: K6 on CUDA tensors, its plain version on CPU
-    tensors."""
+    """The LRN backward: K6 on CUDA tensors (float32 or bfloat16, dx in
+    their dtype), its plain version on CPU tensors."""
     if x.device.type == "cpu":
+        if x.dtype == torch.bfloat16:
+            return lrn_bwd_bf16_reference(x, dy, n, alpha, beta, k)
         return lrn_across_bwd_reference(x, dy, n, alpha, beta, k)
     check_cuda("lrn_bwd", x, dy)
     if dy.shape != x.shape:
@@ -211,14 +228,15 @@ def lrn_bwd(x, dy, n: int, alpha: float, beta: float, k: float):
     pre, post, kk, an, coef, q, nb = hp_args("lrn_bwd", n, alpha, beta, k)
     N, C, H, W = x.shape
     dx = torch.empty_like(x)
-    fn = _build.kernel("lrn", "sparknet_lrn_bwd_f32",
+    entry = ("sparknet_lrn_bwd_bf16" if x.dtype == torch.bfloat16
+             else "sparknet_lrn_bwd_f32")
+    fn = _build.kernel("lrn", entry,
                 (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _F, _P))
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), N, C, H * W,
                 BWD_CHUNK, pre, post, kk, an, coef, q, nb, stream(x))
     _build.raise_on(rc, "lrn_bwd")
-    with _COUNT_LOCK:
-        LAUNCHES["lrn_bwd"] += 1
+    count_launch(LAUNCHES, "lrn_bwd", x.dtype)
     return dx
 
 
@@ -240,5 +258,6 @@ class _LRNAcross(torch.autograd.Function):
 
 def lrn_across_channels(x, n: int, alpha: float, beta: float, k: float):
     """Caffe ACROSS_CHANNELS LRN on an NCHW tensor, differentiable: K5/K6
-    on the card, the plain version on the CPU."""
+    on the card, the plain version on the CPU; float32 or bfloat16, the
+    output and the gradient in ``x``'s dtype."""
     return _LRNAcross.apply(x, int(n), float(alpha), float(beta), float(k))

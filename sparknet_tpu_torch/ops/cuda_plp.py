@@ -4,7 +4,8 @@ PyTorch version.
 The port of ``sparknet_tpu/ops/pallas_plp.py``: ``lrn_maxpool(x, n,
 alpha, beta, k)`` is ``maxpool_3x3_s2(lrn_across(x))`` on NCHW, for the
 AlexNet sandwich ``normK -> poolK``.  Two CUDA kernels, written by hand
-for ``sm_90a`` (``csrc/lrn_pool.cu``, built by ``_build.py``), replace
+for ``sm_90a`` (``csrc/lrn_pool.cu``; its bf16 instantiations built from
+``csrc/lrn_pool_bf16.cu``, by ``_build.py``), replace
 its two Pallas kernels:
 
 - ``lrn_pool_fwd`` (K7, ``_fwd_kernel``): the LRN output of each pooled
@@ -21,10 +22,18 @@ value, then to the first ROW of that column equal to the column max.
 The plain version (``lrn_maxpool_reference``,
 ``lrn_maxpool_bwd_reference``) implements that rule explicitly.
 
+Both kernels take float32 and bfloat16: in bf16 the inputs are widened,
+y, the routing and dx are float32 (routing by the first maximum of the
+float32 y, as the TPU kernel routes) and the output is narrowed once, so
+a bf16 plain version is the float32 one on the widened inputs, narrowed
+(``lrn_maxpool_bf16_reference``, ``lrn_maxpool_bwd_bf16_reference``).
+
 ``fusable`` is the JAX package's geometry gate: MAX 3x3/2 pad 0 over an
 odd H and W >= 3 after an ACROSS_CHANNELS LRN of odd size.  The wrappers
 raise on anything else, and on a CUDA tensor the kernels do not take;
-CPU tensors take the plain version.  ``LAUNCHES`` counts kernel launches.
+CPU tensors take the plain version.  ``LAUNCHES`` counts each kernel's
+launches, the bfloat16 ones under the kernel's name with ``_bf16`` after
+it.
 """
 
 from __future__ import annotations
@@ -35,7 +44,8 @@ import torch
 
 from sparknet_tpu_torch.ops import _build, cuda_lrn
 
-LAUNCHES = {"lrn_pool_fwd": 0, "lrn_pool_bwd": 0}
+LAUNCHES = {"lrn_pool_fwd": 0, "lrn_pool_bwd": 0, "lrn_pool_fwd_bf16": 0,
+            "lrn_pool_bwd_bf16": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -129,31 +139,56 @@ def lrn_maxpool_bwd_reference(x, dy, n: int, alpha: float, beta: float,
                                              alpha, beta, k)
 
 
+def lrn_maxpool_bf16_reference(x, n: int, alpha: float, beta: float,
+                               k: float):
+    """Plain version of K7 in bfloat16: the float32 plain version on the
+    widened input, the pooled output narrowed once."""
+    return lrn_maxpool_reference(x.float(), n, alpha, beta, k).to(
+        torch.bfloat16)
+
+
+def lrn_maxpool_bwd_bf16_reference(x, dy, n: int, alpha: float, beta: float,
+                                   k: float):
+    """Plain version of K8 in bfloat16: the float32 plain version (routed
+    by the float32 y) on the widened inputs, dx narrowed once."""
+    return lrn_maxpool_bwd_reference(x.float(), dy.float(), n, alpha, beta,
+                                     k).to(torch.bfloat16)
+
+
+def _kernel(name: str, x, argtypes):
+    """The C entry of kernel ``name`` for ``x``'s dtype: the float32 one
+    of ``csrc/lrn_pool.cu`` or the bfloat16 one of ``lrn_pool_bf16.cu``."""
+    if x.dtype == torch.bfloat16:
+        return _build.kernel("lrn_pool_bf16", f"sparknet_{name}_bf16", argtypes)
+    return _build.kernel("lrn_pool", f"sparknet_{name}_f32", argtypes)
+
+
 def lrn_pool_fwd(x, n: int, alpha: float, beta: float, k: float):
-    """The fused forward: K7 on a CUDA tensor, its plain version on a CPU
-    tensor."""
+    """The fused forward: K7 on a CUDA tensor (float32 or bfloat16, the
+    output in its dtype), its plain version on a CPU tensor."""
     _check_geometry("lrn_pool_fwd", x, n)
     if x.device.type == "cpu":
+        if x.dtype == torch.bfloat16:
+            return lrn_maxpool_bf16_reference(x, n, alpha, beta, k)
         return lrn_maxpool_reference(x, n, alpha, beta, k)
     cuda_lrn.check_cuda("lrn_pool_fwd", x)
     pre, post, kk, an, _, q, nb = cuda_lrn.hp_args("lrn_pool_fwd", n, alpha,
                                                    beta, k)
     N, C, H, W = x.shape
     out = torch.empty((N, C) + pooled_hw(H, W), dtype=x.dtype, device=x.device)
-    fn = _build.kernel("lrn_pool", "sparknet_lrn_pool_fwd_f32",
-                         (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _F,
-                          _P))
+    fn = _kernel("lrn_pool_fwd", x,
+                 (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _F, _P))
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), out.data_ptr(), N, C, H, W, cuda_lrn.CHUNK, pre,
                 post, kk, an, q, nb, cuda_lrn.stream(x))
     _build.raise_on(rc, "lrn_pool_fwd")
-    LAUNCHES["lrn_pool_fwd"] += 1
+    cuda_lrn.count_launch(LAUNCHES, "lrn_pool_fwd", x.dtype)
     return out
 
 
 def lrn_pool_bwd(x, dy, n: int, alpha: float, beta: float, k: float):
-    """The fused backward: K8 on CUDA tensors, its plain version on CPU
-    tensors."""
+    """The fused backward: K8 on CUDA tensors (float32 or bfloat16, dx
+    in their dtype), its plain version on CPU tensors."""
     _check_geometry("lrn_pool_bwd", x, n)
     N, C, H, W = x.shape
     if tuple(dy.shape) != (N, C) + pooled_hw(H, W):
@@ -161,20 +196,22 @@ def lrn_pool_bwd(x, dy, n: int, alpha: float, beta: float, k: float):
             f"lrn_pool_bwd: dy {tuple(dy.shape)} for x {tuple(x.shape)}"
         )
     if x.device.type == "cpu":
+        if x.dtype == torch.bfloat16:
+            return lrn_maxpool_bwd_bf16_reference(x, dy, n, alpha, beta, k)
         return lrn_maxpool_bwd_reference(x, dy, n, alpha, beta, k)
     cuda_lrn.check_cuda("lrn_pool_bwd", x, dy)
     pre, post, kk, an, coef, q, nb = cuda_lrn.hp_args("lrn_pool_bwd", n,
                                                       alpha, beta, k)
     dx = torch.empty_like(x)
-    fn = _build.kernel("lrn_pool", "sparknet_lrn_pool_bwd_f32",
-                         (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-                          _I, _F, _P))
+    fn = _kernel("lrn_pool_bwd", x,
+                 (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _F,
+                  _P))
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), N, C, H, W,
                 cuda_lrn.CHUNK, pre, post, kk, an, coef, q, nb,
                 cuda_lrn.stream(x))
     _build.raise_on(rc, "lrn_pool_bwd")
-    LAUNCHES["lrn_pool_bwd"] += 1
+    cuda_lrn.count_launch(LAUNCHES, "lrn_pool_bwd", x.dtype)
     return dx
 
 
@@ -197,5 +234,6 @@ class _LRNMaxPool(torch.autograd.Function):
 
 def lrn_maxpool(x, n: int, alpha: float, beta: float, k: float):
     """``maxpool_3x3_s2(lrn_across_channels(x))`` on NCHW, fused and
-    differentiable: K7/K8 on the card, the plain version on the CPU."""
+    differentiable: K7/K8 on the card, the plain version on the CPU;
+    float32 or bfloat16, the output and the gradient in ``x``'s dtype."""
     return _LRNMaxPool.apply(x, int(n), float(alpha), float(beta), float(k))

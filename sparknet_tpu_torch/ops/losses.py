@@ -195,9 +195,13 @@ class ContrastiveLoss(_Loss):
 @register
 class Accuracy(Layer):
     """Top-k accuracy with ignore_label (reference: ``accuracy_layer.cpp``);
-    ties go to the lower class index, as ``lax.top_k`` orders them."""
+    ties go to the lower class index, as ``lax.top_k`` orders them.
+    Exempt from a net's compute dtype: its label bottom is an index, and
+    bf16 holds integers exactly only up to 256 (the JAX net casts it, so
+    a bf16 TEST view there scores class 999 as 1000)."""
 
     TYPE = "Accuracy"
+    MIXED_PRECISION_EXEMPT = True
 
     def out_shapes(self, bottom_shapes):
         return [()]

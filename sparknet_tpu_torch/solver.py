@@ -12,7 +12,12 @@ scans a jitted step, this one loops eagerly: gradients from
 state handed in is never modified.  ``audit=True`` adds the numerics
 audit (``obs/health.py``): each window then also returns its stats
 tree, read from values the update produced, so a trajectory is bit for
-bit the same with the audit on or off.  ``debug_info`` is not ported.
+bit the same with the audit on or off.  ``compute_dtype`` (e.g.
+``"bfloat16"``) runs the TRAIN net and its TEST view in that dtype, as
+JAX ``Solver(compute_dtype=...)`` does: the casts sit inside the graph
+(``TorchNet``), so parameters, history, gradients and the update stay
+float32.  ``param.debug_info`` logs the reference's ``[Forward]`` /
+``[Backward]`` / ``[Update]`` lines once a window (``debug_info_pass``).
 
 Randomness follows the JAX solver's key structure (``utils.rngs``):
 ``_step_tau`` takes a key, each iteration folds in its ``iter``, the
@@ -153,7 +158,9 @@ class Solver:
     (``models.transformer_lm.TransformerLMNet`` is one); the update
     rules and the trainers are generic over its params dict.
     ``audit`` turns on the numerics audit (and a trainer's in-round
-    worker mask, which reads it each round).
+    worker mask, which reads it each round).  ``compute_dtype`` (None,
+    a ``torch.dtype`` or its name) is the dtype the prototxt net's
+    layers compute in; the master copies stay float32.
     ``train_transform`` / ``test_transform`` are the per-phase batch
     preprocessing of JAX ``Solver`` (``data/transforms.py``)."""
 
@@ -166,12 +173,10 @@ class Solver:
         train_transform=None,
         test_transform=None,
         audit: bool = False,
+        compute_dtype=None,
     ):
-        if param.debug_info:
-            raise NotImplementedError(
-                "solver debug_info is not yet ported to sparknet_tpu_torch"
-            )
         self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype
         self.audit = bool(audit)
         self._audit_groups: List[str] = []
         self.train_transform = train_transform
@@ -186,7 +191,8 @@ class Solver:
         else:
             netp = net_param if net_param is not None else resolve_solver_net(param)
             self.net_param = netp
-            self.net = TorchNet(netp, phase="TRAIN")
+            self.net = TorchNet(netp, phase="TRAIN",
+                                compute_dtype=compute_dtype)
         self._test_net: Optional[TorchNet] = None
         self._lr_mults, self._decay_mults = self.net.param_multipliers()
         self._loss_window = collections.deque(maxlen=max(1, param.average_loss))
@@ -205,7 +211,8 @@ class Solver:
                     "prototxt TEST view — score through the net's own "
                     "forward/loss_fn instead"
                 )
-            self._test_net = TorchNet(self.net_param, phase="TEST")
+            self._test_net = TorchNet(self.net_param, phase="TEST",
+                                      compute_dtype=self.compute_dtype)
         return self._test_net
 
     def init_state(self, seed: int = 0) -> TrainState:
@@ -355,7 +362,12 @@ class Solver:
         """Run tau iterations, tau being the leading axis of every entry
         of ``batches`` (numpy arrays or tensors; the ``solver_step(state,
         tau)`` analog, ccaffe.cpp:230-233).  Returns ``(state, per-iter
-        losses (tau,))``; the losses feed ``smoothed_loss``."""
+        losses (tau,))``; the losses feed ``smoothed_loss``.  With
+        ``param.debug_info`` the window's first batch is traced first
+        (``debug_info_pass``)."""
+        if self.param.debug_info:
+            self.debug_info_pass(state, {k: v[0] for k, v in batches.items()},
+                                 rng=rng)
         with span("execute"):
             out = self._step_tau(state, self._to_device(batches), rng)
         self.note_losses(out[1])
@@ -381,6 +393,84 @@ class Solver:
             return state, losses, _health.unpack(torch.stack(packed),
                                                  self.audit_groups())
         return state, losses
+
+    # ------------------------------------------------------------------
+    # debug_info (reference: net.cpp:648-735, gated by
+    # SolverParameter.debug_info): per-blob mean |x| tracing
+    # ------------------------------------------------------------------
+    def debug_info_pass(self, state: TrainState, batch, rng=None, log=None):
+        """Log every blob's data and diff mean absolute value in the
+        reference's ``[Forward]`` / ``[Backward]`` / ``[Update]`` lines,
+        in the JAX solver's order and with its names (``log``: a callable
+        taking a line, default stderr).  One forward and one backward,
+        outside the window, under the window's key ``rng`` as JAX's: the
+        activation gradients come from hooks on every top the forward
+        binds (``TorchNet.apply(on_top=)``; a fused-away intermediate is
+        absent from the blob map and skipped, as in JAX), the parameter
+        gradients from the same backward.  The parameters are not
+        updated; ``[Update]`` reports their data and diff, as JAX's."""
+        import sys
+
+        log = log or (lambda line: print(line, file=sys.stderr))
+        rng = rngs.train_key(0) if rng is None else rng
+        net = self.net
+        batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+
+        def asum(t) -> float:
+            return float(t.detach().float().abs().mean())
+
+        # every binding of a blob name is bound as an identity view with
+        # a hook (a node of its own, so an aliased top, a Split's, sees
+        # only its own consumers' gradient); a rebound name's diff sums
+        # its bindings', as the JAX pass's one zero tap added at each
+        # binding does
+        diffs: Dict[str, torch.Tensor] = {}
+
+        def add(name, g):
+            diffs[name] = g if name not in diffs else diffs[name] + g
+
+        def hook(name, t):
+            if not t.requires_grad:
+                return t
+            v = t.view_as(t)
+            v.register_hook(lambda g: add(name, g.float()))
+            return v
+
+        leaves = tree_leaves(state.params)
+        req = [p.detach().requires_grad_(True) for p in leaves]
+        out = net.apply(tree_unflatten(state.params, req), state.stats, batch,
+                        train=True, rng=rng, on_top=hook)
+        grads = torch.autograd.grad(out.loss, req, allow_unused=True)
+        grads = tree_unflatten(state.params, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(req, grads)])
+        for b in net.feed_blobs:
+            log(f"    [Forward] Input {b} data: {asum(batch[b]):.6g}")
+        for layer in net.layers:
+            for top in layer.lp.top:
+                if top not in out.blobs:
+                    continue  # fused-away intermediate (SPARKNET_FUSION)
+                log(f"    [Forward] Layer {layer.name}, top blob {top} "
+                    f"data: {asum(out.blobs[top]):.6g}")
+            for pi, blob in enumerate(state.params.get(layer.name, [])):
+                log(f"    [Forward] Layer {layer.name}, param blob {pi} "
+                    f"data: {asum(blob):.6g}")
+        taps = {name for name in net.blob_shapes
+                if name not in net.feed_blobs and name in out.blobs}
+        for layer in reversed(net.layers):
+            for bot in layer.lp.bottom:
+                if bot in taps:
+                    g = diffs.get(bot)
+                    log(f"    [Backward] Layer {layer.name}, bottom blob "
+                        f"{bot} diff: {0.0 if g is None else asum(g):.6g}")
+            for pi, g in enumerate(grads.get(layer.name, [])):
+                log(f"    [Backward] Layer {layer.name}, param blob {pi} "
+                    f"diff: {asum(g):.6g}")
+        for layer in net.layers:
+            for pi, blob in enumerate(state.params.get(layer.name, [])):
+                log(f"    [Update] Layer {layer.name}, param {pi} "
+                    f"data: {asum(blob):.6g}; "
+                    f"diff: {asum(grads[layer.name][pi]):.6g}")
 
     # ------------------------------------------------------------------
     # Smoothed loss (solver.cpp:225-234)

@@ -983,17 +983,79 @@ def test_lrn_fwd_bf16_matches_plain(dev, shape, ties):
     """K5 in bfloat16 (CaffeNet's two LRN inputs at the top serving
     bucket, and an odd shape): float32 math on the widened input, one
     round-to-nearest-even narrowing at the store, the plain version's
-    operations, so y equals its bits; K6 refuses bf16."""
+    operations, so y equals its bits; the launch counts as a bf16 one."""
     x = (_tie_input(dev, shape, 5) if ties else _rand(dev, *shape, seed=29))
     xb = x.to(torch.bfloat16)
-    before = tcl.LAUNCHES["lrn_fwd"]
+    before = dict(tcl.LAUNCHES)
     y = tcl.lrn_fwd(xb, 5, 1e-4, 0.75, 1.0)
     torch.cuda.synchronize()
-    assert tcl.LAUNCHES["lrn_fwd"] == before + 1
+    assert tcl.LAUNCHES == dict(before, lrn_fwd_bf16=before["lrn_fwd_bf16"] + 1)
     assert y.dtype == torch.bfloat16
     assert torch.equal(y, tcl.lrn_fwd_bf16_reference(xb, 5, 1e-4, 0.75, 1.0))
+
+
+# bf16 cases of K6, K7 and K8: AlexNet's two LRN inputs at the training
+# batch and an odd shape
+BF16_LRN_SHAPES = [(32, 96, 55, 55), (32, 256, 27, 27), (3, 7, 11, 13)]
+
+
+@pytest.mark.parametrize("shape", BF16_LRN_SHAPES,
+                         ids=["norm1", "norm2", "odd"])
+@pytest.mark.parametrize("ties", [False, True])
+def test_lrn_bf16_kernels_are_bit_equal_to_plain(dev, shape, ties):
+    """K6, K7 and K8 in bfloat16: the inputs widened as they load, the
+    float32 operations of the float32 kernels (K8 routing by the float32
+    y), each output narrowed once, so each equals its plain version (the
+    float32 one on the widened inputs, narrowed) bit for bit; every
+    launch counts as a bf16 one."""
+    x = (_tie_input(dev, shape, 32) if ties
+         else _rand(dev, *shape, seed=32) * 3).to(torch.bfloat16)
+    dy = _rand(dev, *shape, seed=33).to(torch.bfloat16)
+    ph, pw = tcp.pooled_hw(shape[2], shape[3])
+    dp = _rand(dev, shape[0], shape[1], ph, pw, seed=34).to(torch.bfloat16)
+    hp = (5, 1e-4, 0.75, 1.0)
+    before = dict(tcl.LAUNCHES), dict(tcp.LAUNCHES)
+    dx = tcl.lrn_bwd(x, dy, *hp)
+    y = tcp.lrn_pool_fwd(x, *hp)
+    dxp = tcp.lrn_pool_bwd(x, dp, *hp)
+    torch.cuda.synchronize()
+    assert (dx.dtype, y.dtype, dxp.dtype) == (torch.bfloat16,) * 3
+    assert torch.equal(dx, tcl.lrn_bwd_bf16_reference(x, dy, *hp))
+    assert torch.equal(y, tcp.lrn_maxpool_bf16_reference(x, *hp))
+    assert torch.equal(dxp, tcp.lrn_maxpool_bwd_bf16_reference(x, dp, *hp))
+    assert tcl.LAUNCHES == dict(before[0],
+                                lrn_bwd_bf16=before[0]["lrn_bwd_bf16"] + 1)
+    assert tcp.LAUNCHES == dict(
+        before[1], lrn_pool_fwd_bf16=before[1]["lrn_pool_fwd_bf16"] + 1,
+        lrn_pool_bwd_bf16=before[1]["lrn_pool_bwd_bf16"] + 1)
+
+
+@pytest.mark.parametrize("n,beta", [(3, 0.75), (5, 0.6)])
+def test_lrn_bf16_kernels_at_other_lrn_settings(dev, n, beta):
+    """The general (not FAST) bf16 instantiations, on a plane of each of
+    K7's tile kinds: bit-equal to the plain versions."""
+    hp = (n, 1e-4, beta, 1.0)
+    for shape in ((2, 16, 27, 27), (2, 24, 55, 55)):
+        x = _rand(dev, *shape, seed=35).to(torch.bfloat16)
+        dy = _rand(dev, *shape, seed=36).to(torch.bfloat16)
+        ph, pw = tcp.pooled_hw(shape[2], shape[3])
+        dp = _rand(dev, shape[0], shape[1], ph, pw, seed=37).to(torch.bfloat16)
+        dx = tcl.lrn_bwd(x, dy, *hp)
+        y = tcp.lrn_pool_fwd(x, *hp)
+        dxp = tcp.lrn_pool_bwd(x, dp, *hp)
+        torch.cuda.synchronize()
+        assert torch.equal(dx, tcl.lrn_bwd_bf16_reference(x, dy, *hp))
+        assert torch.equal(y, tcp.lrn_maxpool_bf16_reference(x, *hp))
+        assert torch.equal(dxp, tcp.lrn_maxpool_bwd_bf16_reference(x, dp, *hp))
+
+
+def test_lrn_wrappers_refuse_mixed_dtypes(dev):
+    x = _rand(dev, 2, 8, 9, 9)
     with pytest.raises(TypeError, match="bfloat16"):
-        tcl.lrn_bwd(xb, xb, 5, 1e-4, 0.75, 1.0)
+        tcl.lrn_bwd(x.to(torch.bfloat16), x, 5, 1e-4, 0.75, 1.0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tcp.lrn_pool_bwd(x.to(torch.bfloat16), _rand(dev, 2, 8, 4, 4), 5,
+                         1e-4, 0.75, 1.0)
 
 
 def _tie_input(dev, shape, seed):

@@ -27,6 +27,7 @@ package's, on the CPU.
 - Refusals: every flag of a later slice exits saying "not yet ported".
 """
 
+import dataclasses
 import json
 import os
 
@@ -53,6 +54,7 @@ from sparknet_tpu_torch.apps import imagenet_run_db_app
 from sparknet_tpu_torch.data import CifarLoader
 from sparknet_tpu_torch.io import caffemodel as tcaffemodel
 from sparknet_tpu_torch.io import checkpoint as tcheckpoint
+from sparknet_tpu_torch.models import builders as tbuilders
 from sparknet_tpu_torch.net import TorchNet
 from sparknet_tpu_torch.utils.tree import tree_leaves
 
@@ -338,8 +340,7 @@ def test_cifar_db_app_matches_the_jax_app(tmp_path):
 # refusals
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("flag", [
-    ["--trace_out", "/t"], ["--obs"], ["--obs_port", "1"], ["--slo"],
-    ["--model", "googlenet"]])
+    ["--trace_out", "/t"], ["--obs"], ["--obs_port", "1"], ["--slo"]])
 def test_run_db_app_refuses_what_is_not_yet_ported(flag):
     """(The chunk cache, ``--shuffle_epochs`` and an object-store
     ``--db_dir`` run now: ``tests/test_torch_data_plane.py``.)"""
@@ -355,6 +356,120 @@ def test_cifar_db_app_refuses_what_is_not_yet_ported(flag):
     with pytest.raises(SystemExit, match="not yet ported") as e:
         cifar_db_app.main(["--device", "cpu"] + flag)
     assert flag[0] in str(e.value)
+
+
+# ----------------------------------------------------------------------
+# --model: any zoo model with a solver, or a solver prototxt
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("name", sorted(tbuilders.BUILDERS))
+def test_run_db_app_builds_each_builder_as_the_jax_app(name):
+    """Every builder model's net at a DB's shapes, with the DB's
+    ``classes``, is the JAX app's net parameter field for field (no
+    training); the names with a zoo solver build their solvers too."""
+    info = {"classes": 7, "train_batch": 8, "test_batch": 4}
+    got = imagenet_run_db_app.build_net(name, info, 56)
+    want = jconfig.replace_data_layers(
+        jmodels.load_model(name, classes=7), [(8, 3, 56, 56), (8,)],
+        [(4, 3, 56, 56), (4,)])
+    _same_fields(dataclasses.asdict(got), dataclasses.asdict(want), name)
+    if name in tmodels.solver_models():
+        solver = imagenet_run_db_app.build_solver(name, info, 56, "cpu")
+        _same_fields(dataclasses.asdict(solver.param),
+                     dataclasses.asdict(jmodels.load_model_solver(name)), name)
+
+
+def _same_fields(port, jax_, where):
+    """The port's message (as nested dicts) equals the JAX one on every
+    field of the port's schema; a field only the JAX schema has (its
+    legacy ``layers``) holds its empty default."""
+    if isinstance(port, dict):
+        for k in set(jax_) - set(port):
+            assert jax_[k] in (None, [], "", 0, False), f"{where}.{k}"
+        for k in port:
+            _same_fields(port[k], jax_[k], f"{where}.{k}")
+    elif isinstance(port, list):
+        assert len(port) == len(jax_), where
+        for i, (a, b) in enumerate(zip(port, jax_)):
+            _same_fields(a, b, f"{where}[{i}]")
+    else:
+        assert port == jax_, where
+
+
+@pytest.mark.parametrize("model", ["flickr_style", "nonesuch", "x.caffemodel"])
+def test_run_db_app_refuses_a_model_without_a_solver(model):
+    with pytest.raises(SystemExit, match="expected a solver .prototxt"):
+        imagenet_run_db_app.main(["--db_dir", "/nonexistent", "--device",
+                                  "cpu", "--model", model])
+
+
+# a small net for the DB's 56 x 56 crops and 4 classes, trained from a
+# solver prototxt whose net path is relative to the solver file
+PROTO_NET = """
+name: "db_small"
+layer { name: "data" type: "HostData" top: "data" top: "label"
+  java_data_param { shape { dim: 8 dim: 3 dim: 56 dim: 56 } shape { dim: 8 } } }
+layer { name: "conv1" type: "Convolution" bottom: "data" top: "conv1"
+  convolution_param { num_output: 8 kernel_size: 11 stride: 4
+    weight_filler { type: "gaussian" std: 0.01 }
+    bias_filler { type: "constant" value: 0 } } }
+layer { name: "relu1" type: "ReLU" bottom: "conv1" top: "conv1" }
+layer { name: "pool1" type: "Pooling" bottom: "conv1" top: "pool1"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+layer { name: "norm1" type: "LRN" bottom: "pool1" top: "norm1"
+  lrn_param { local_size: 5 alpha: 0.0001 beta: 0.75 } }
+layer { name: "fc" type: "InnerProduct" bottom: "norm1" top: "fc"
+  inner_product_param { num_output: 4 weight_filler { type: "gaussian" std: 0.01 } } }
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "fc" bottom: "label" top: "loss" }
+layer { name: "accuracy" type: "Accuracy" bottom: "fc" bottom: "label"
+  top: "accuracy" include { phase: TEST } }
+"""
+PROTO_SOLVER = """net: "db_small.prototxt"
+base_lr: 0.01 lr_policy: "fixed" momentum: 0.9 weight_decay: 0.0005
+"""
+
+
+def test_run_db_app_trains_a_solver_prototxt_as_the_jax_trainer(db_pair,
+                                                               tmp_path):
+    """``--model PATH/solver.prototxt``: one round from the seed's init on
+    the DB, against the JAX trainer with the same solver and net on the
+    JAX reader's batches (the JAX app names zoo models only; its
+    ``build`` path is the trainer's): losses and params within 1e-5."""
+    _, db_dir = db_pair
+    (tmp_path / "db_small.prototxt").write_text(PROTO_NET)
+    (tmp_path / "solver.prototxt").write_text(PROTO_SOLVER)
+    result = {}
+    assert imagenet_run_db_app.main(
+        ["--db_dir", db_dir, "--device", "cpu", "--tau", str(TAU), "--rounds",
+         "1", "--seed", "5", "--model", str(tmp_path / "solver.prototxt")],
+        result) == 0
+    with open(os.path.join(db_dir, "imagenet_db_info.json")) as f:
+        info = json.load(f)
+    crop = 56
+    jnetp = jconfig.replace_data_layers(
+        jconfig.parse_net_prototxt(PROTO_NET), [(8, 3, crop, crop), (8,)],
+        [(4, 3, crop, crop), (4,)])
+    jsolver = JSolver(jconfig.parse_solver_prototxt(
+        PROTO_SOLVER.split("\n", 1)[1]), net_param=jnetp)
+    mesh = make_mesh({"dp": W}, devices=jax.devices()[:W])
+    jt = JTrainer(jsolver, mesh)
+    jstate = jt.init_state(seed=5)
+    train, test = _jax_pipes(db_dir, info, crop, seed=5)
+    try:
+        windows = []
+        for p in train:
+            bs = [p.next() for _ in range(TAU)]
+            windows.append({"data": np.stack([b[0] for b in bs]),
+                            "label": np.stack([b[1] for b in bs])})
+    finally:
+        for p in train + test:
+            p.close()
+    batch = {k: np.stack([x[k] for x in windows]) for k in windows[0]}
+    jstate, jl = jt.round(jstate, shard_leading(batch, mesh))
+    np.testing.assert_allclose(result["losses"][0], np.asarray(jl), **TOL)
+    for k, blobs in result["state"].params.items():
+        for i, t in enumerate(blobs):
+            np.testing.assert_allclose(t.numpy(), np.asarray(jstate.params[k][i]),
+                                       err_msg=f"{k}[{i}]", **TOL)
 
 
 @pytest.mark.parametrize("flag", [["--snapshot_every", "1"], ["--resume"]])

@@ -145,6 +145,35 @@ def test_fillers_equal_jax(fields, exact):
         assert int(_ulps(got, want).max()) <= NORMAL_ULPS
 
 
+@pytest.mark.parametrize("fields,exact", [FILLER_CASES[i] for i in (1, 5, 6)])
+def test_kept_large_draws_equal_fresh_ones(monkeypatch, fields, exact):
+    """Draws of ``KEEP_MIN_ELEMS`` elements or more are kept for the next
+    call with the same key, shape and filler (within ``KEEP_BYTES``,
+    least recently used out first): each call returns the draw a fresh
+    one gives, in a copy of its own, and the JAX filler's values."""
+    shape = (8, 3, 5, 5)
+    monkeypatch.setattr(tfillers, "_kept", type(tfillers._kept)())
+    monkeypatch.setattr(tfillers, "KEEP_BYTES", 3 * 600 * 4)
+    keys = [_key_chain(c) for c in CHAINS[:2]] + [
+        (jax.random.PRNGKey(s), jax_prng.prng_key(s)) for s in (5, 6)]
+    fresh = [tfillers.fill(tk, shape, TFiller(**fields)) for _, tk in keys]
+    monkeypatch.setattr(tfillers, "KEEP_MIN_ELEMS", 600)
+    for _ in range(2):
+        for (jk, tk), want in zip(keys, fresh):
+            got = tfillers.fill(tk, shape, TFiller(**fields))
+            assert torch.equal(got, want)
+            got.zero_()  # the caller's copy: the kept draw stays
+            jwant = np.asarray(jfillers.fill(jk, shape, JFiller(**fields)))
+            if exact:
+                np.testing.assert_array_equal(want.numpy(), jwant)
+            else:
+                assert int(_ulps(want.numpy(), jwant).max()) <= NORMAL_ULPS
+        assert len(tfillers._kept) == 3  # the budget holds three
+    monkeypatch.setattr(tfillers, "KEEP_MIN_ELEMS", 601)  # below it: fresh
+    tfillers.fill(keys[0][1], shape, TFiller(**fields))
+    assert len(tfillers._kept) == 3
+
+
 def _assert_params_equal_jax(jparams, tparams):
     assert sorted(jparams) == sorted(tparams)
     for name in jparams:

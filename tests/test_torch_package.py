@@ -345,7 +345,7 @@ def test_kernel_build_plan_is_keyed_by_source():
     module compiled nothing."""
     srcs = _build.sources()
     assert set(srcs) == {"flash_fwd", "flash_bwd", "decode_attention",
-                         "comm_epilogue", "lrn", "lrn_pool"}
+                         "comm_epilogue", "lrn", "lrn_pool", "lrn_pool_bf16"}
     for name in srcs:
         p = _build.library_path(name)
         assert p == _build.library_path(name)
@@ -357,6 +357,26 @@ def test_kernel_build_plan_is_keyed_by_source():
     )
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "build/" in f.read().split()
+
+
+def test_a_library_is_keyed_by_the_sources_it_includes(tmp_path, monkeypatch):
+    """``lrn_pool_bf16.cu`` includes ``lrn_pool.cu``: an edit of the
+    included file moves the including library's key too, and an edit of
+    a source no library includes moves no other library's key."""
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.SRC_DIR, src)
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    assert [p.name for p in _build.includes(src / "lrn_pool_bf16.cu")] == [
+        "lrn_common.cuh", "lrn_pool.cu"]
+    keys = {n: _build.library_path(n) for n in _build.sources()}
+    (src / "lrn_pool.cu").write_text((src / "lrn_pool.cu").read_text() + "\n")
+    moved = {n for n in keys if _build.library_path(n) != keys[n]}
+    assert moved == {"lrn_pool", "lrn_pool_bf16"}
+    keys = {n: _build.library_path(n) for n in _build.sources()}
+    (src / "comm_epilogue.cu").write_text(
+        (src / "comm_epilogue.cu").read_text() + "\n")
+    assert {n for n in keys if _build.library_path(n) != keys[n]} == {
+        "comm_epilogue"}
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -321,6 +321,35 @@ def test_profiled_training_round_end_to_end():
     assert metrics.achieved_flops.value > 0
 
 
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+def test_trainer_work_reads_the_peak_of_the_compute_dtype(monkeypatch, dtype):
+    """The trainer hands the profiler its solver's compute dtype, so a
+    bf16 round's MFU reads against the bf16 peak (989 TFLOP/s on an
+    H100), an fp32 round's against the fp32 one."""
+    from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
+    from sparknet_tpu_torch.solver import Solver
+
+    netp = tconfig.replace_data_layers(models.load_model("cifar10_quick"),
+                                       [(2, 3, 32, 32), (2,)])
+    solver = Solver(models.load_model_solver("cifar10_quick"), net_param=netp,
+                    device="cpu", compute_dtype=dtype)
+    trainer = ParameterAveragingTrainer(solver, 2)
+    asked = []
+
+    def peak(device=None, dtype=torch.float32):
+        asked.append((torch.device(device).type, dtype))
+        return 0.0
+
+    monkeypatch.setattr(tprofile, "device_peak_flops", peak)
+    prof = tprofile.RoundProfiler()
+    tprofile.note_trainer_work(prof, trainer, 1, trainer.init_state(seed=0))
+    want = torch.bfloat16 if dtype else torch.float32
+    assert asked == [("cpu", want)]
+    # the H100 table has both peaks
+    assert dict(tprofile._PEAKS)["H100 SXM"] == {torch.float32: 67e12,
+                                                torch.bfloat16: 989e12}
+
+
 def test_app_profile_out_writes_the_summary(tmp_path):
     """``cifar_app --profile_out``: the feed keys the rounds, the draws
     and windows are timed per worker, the summary JSON lands."""

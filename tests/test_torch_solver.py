@@ -170,3 +170,101 @@ def test_test_and_store_result_matches():
     got = ts.test_and_store_result(tstate, {k: torch.from_numpy(v) for k, v in b.items()})
     assert set(got) == set(want) == {"loss"}
     assert got["loss"] == pytest.approx(want["loss"], rel=1e-6)
+
+
+# ----------------------------------------------------------------------
+# debug_info: the reference's [Forward] / [Backward] / [Update] lines
+# ----------------------------------------------------------------------
+def _debug_lines(lines):
+    """``(text before the value, value)`` of each line; an [Update] line
+    carries two values."""
+    out = []
+    for line in lines:
+        head, _, rest = line.rpartition(": ")
+        if "; diff" in head:  # [Update] ... data: A; diff: B
+            data_head, _, data = head.rpartition(": ")
+            out.append((data_head + "; diff", (float(data.split(";")[0]),
+                                               float(rest))))
+        else:
+            out.append((head, (float(rest),)))
+    return out
+
+
+def test_step_logs_debug_info_once_a_window(capsys):
+    """``step`` with ``debug_info`` traces the window's first batch once,
+    before the window, as the JAX solver's ``step`` does; the window's
+    trajectory is the one without it."""
+    from sparknet_tpu_torch import models as tmodels
+
+    shapes = [(4, 3, 32, 32), (4,)]
+    netp = tconfig.replace_data_layers(tmodels.load_model("cifar10_quick"),
+                                       shapes, shapes)
+    solvers = [tsolver.Solver(tconfig.parse_solver_prototxt(
+        f"base_lr: 0.01 momentum: 0.9 debug_info: {flag}"), net_param=netp,
+        device="cpu") for flag in ("true", "false")]
+    state = solvers[0].init_state(0)
+    rs = np.random.RandomState(11)
+    batch = {"data": rs.randn(2, 4, 3, 32, 32).astype(np.float32),
+             "label": rs.randint(0, 10, (2, 4)).astype(np.float32)}
+    ref_state, ref_losses = solvers[1].step(state, batch)
+    assert capsys.readouterr().err == ""
+    got_state, losses = solvers[0].step(state, batch)
+    err = capsys.readouterr().err.splitlines()
+    n_params = sum(len(v) for v in state.params.values())
+    assert sum("[Update]" in line for line in err) == n_params
+    assert sum("[Forward] Input" in line for line in err) == 2
+    assert torch.equal(losses, ref_losses)
+    for a, b in zip(tree_leaves(got_state.params), tree_leaves(ref_state.params)):
+        assert torch.equal(a, b)
+
+
+LRN_POOL_NET = """
+name: "lrn_pool"
+layer { name: "data" type: "HostData" top: "data" top: "label"
+  java_data_param { shape { dim: 2 dim: 3 dim: 11 dim: 11 } shape { dim: 2 } } }
+layer { name: "conv1" type: "Convolution" bottom: "data" top: "conv1"
+  convolution_param { num_output: 6 kernel_size: 3 pad: 1
+    weight_filler { type: "gaussian" std: 0.3 } } }
+layer { name: "relu1" type: "ReLU" bottom: "conv1" top: "conv1" }
+layer { name: "norm1" type: "LRN" bottom: "conv1" top: "norm1"
+  lrn_param { local_size: 5 alpha: 0.01 beta: 0.75 } }
+layer { name: "pool1" type: "Pooling" bottom: "norm1" top: "pool1"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+layer { name: "ip1" type: "InnerProduct" bottom: "pool1" top: "ip1"
+  inner_product_param { num_output: 3 weight_filler { type: "gaussian" std: 0.1 } } }
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip1" bottom: "label" top: "loss" }
+"""
+
+
+@pytest.mark.parametrize("fusion", ["0", "1"])
+def test_debug_info_lines_match_jax(monkeypatch, fusion):
+    """``debug_info_pass`` logs the JAX pass's lines: the same names in
+    the same order, every value within 1e-5 relative (float32 sums in
+    another order).  The ReLU is in place, so conv1's diff sums its two
+    bindings', as the JAX zero taps do.  Under ``SPARKNET_FUSION=1`` the
+    LRN's top is fused away and neither package logs it (the JAX fused
+    kernel in interpret mode)."""
+    monkeypatch.setenv("SPARKNET_FUSION", fusion)
+    text = "base_lr: 0.01 debug_info: true"
+    js = jsolver.Solver(jconfig.parse_solver_prototxt(text),
+                        net_param=jconfig.parse_net_prototxt(LRN_POOL_NET))
+    ts = tsolver.Solver(tconfig.parse_solver_prototxt(text),
+                        net_param=tconfig.parse_net_prototxt(LRN_POOL_NET),
+                        device="cpu")
+    assert bool(ts.net._plp_fused) == bool(js.net._plp_fused) == (fusion == "1")
+    jstate = js.init_state(0)
+    tparams, tstats = interop.net_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jstate.params), ts.net)
+    tstate = tsolver.TrainState(tparams, tstats, None, torch.tensor(0))
+    rs = np.random.RandomState(3)
+    batch = {"data": rs.randn(2, 3, 11, 11).astype(np.float32),
+             "label": np.array([0, 2], np.float32)}
+    want, got = [], []
+    js.debug_info_pass(jstate, {k: jax.numpy.asarray(v) for k, v in batch.items()},
+                       rng=jsolver.default_train_key(0), log=want.append)
+    ts.debug_info_pass(tstate, batch, log=got.append)
+    assert any("blob norm1 diff" in line for line in got) == (fusion == "0")
+    w, g = _debug_lines(want), _debug_lines(got)
+    assert [h for h, _ in g] == [h for h, _ in w]
+    for (head, gv), (_, wv) in zip(g, w):
+        np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=1e-9, err_msg=head)
