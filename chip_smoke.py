@@ -388,6 +388,29 @@ Phases (any failure ends the run with a non-zero exit and no result):
    worker's window's device time.  (f) ``debug_info_pass`` on one
    cifar10_quick window on the card and the CPU from one init: the same
    57 lines, values within 1e-3.
+18. The sequence ring and SparkNet's loop across processes.  (a)
+   ``ring_self_attention`` over a stacked sp=4 ring (B=2, T=4096, H=4,
+   D=64) and an sp=2 ring at head dim 256 (T=1024, H=2), causal and
+   not, forward and q/k/v gradients: sp^2 launches each of K1, K3 and
+   K4 at absolute offsets, held to the same ring on the plain versions
+   (``KERNEL_ATOL`` or 2e-5 of the largest magnitude) and to sp=1
+   ``flash_attention`` (``LM_TOL``); K3's ``dlse`` nonzero; the causal
+   ring's fully masked (shard, step) pairs printed; the ring's time
+   beside sp=1's, and each one's device-busy share and K1/K3/K4 time
+   under ``torch.profiler``.  (b) ``lm_app --sp 2`` at the CLI width (W=2, tau 4,
+   batch 8, 2 rounds): depth x W x tau x rounds x sp^2 = 256 launches
+   each of K1, K3 and K4, losses and params within ``LM_TOL`` of the
+   sp=1 leg.  (c) A two-layer ``Attention`` net (E=256, causal): its
+   gradients on the card within 1e-4 of the CPU's.  (d) Two ranks on
+   the one card joined over gloo (asked for explicitly), one
+   cifar10_full worker a rank (tau 10, batch 100, 2 rounds,
+   deterministic), default and ``--compress int8``: bit for bit the
+   one-process W=2 run, K9/K10 by the chunk arithmetic in each rank,
+   the bytes that crossed the group and the host-staging ms printed.
+   (e) ``tools/launch.py --nprocs 2 --backend gloo cifar`` on the card:
+   only rank 0 logs, smoothed losses within ``LOSS_BAND`` of one
+   process's.  (f) (d)'s rounds with the dp group over NCCL at world
+   size 1: the bits of the run with no group.
 
 Before its last lines the script prints its wall seconds by function
 (callees included), for a slice that must cut depth to stay inside the
@@ -6251,6 +6274,392 @@ def bf16_training_end_to_end(dev, card, root):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 18: the sequence ring on K1/K3/K4, lm_app --sp, the Attention
+# layer, and SparkNet's averaging loop across processes
+# ----------------------------------------------------------------------
+# (B, T, H, D, sp) of the stacked rings held to their plain versions
+RING_SHAPES = ((2, 4096, 4, 64, 4), (2, 1024, 2, 256, 2))
+# the ring against sp=1 flash_attention at the same T: float32 partials
+# merged online in another order than one kernel's tiles
+RING_SP1_TOL = LM_TOL
+LM_SP, LM_SP_ROUNDS = 2, 2
+# the Attention-layer net's gradients, card against CPU, relative to
+# the largest gradient of each blob
+ATTN_NET_TOL = 1e-4
+ATTN_NET = """
+layer { name: "d" type: "HostData" top: "x"
+  java_data_param { shape { dim: 2 dim: 256 dim: 256 } } }
+layer { name: "attn1" type: "Attention" bottom: "x" top: "h"
+  attention_param { num_heads: 4 causal: true } }
+layer { name: "attn2" type: "Attention" bottom: "h" top: "y"
+  attention_param { num_heads: 4 causal: true } }
+layer { name: "red" type: "Reduction" bottom: "y" top: "loss"
+  loss_weight: 1.0 reduction_param { operation: SUMSQ axis: 0 } }
+"""
+MP_ROUNDS = 2
+MP_TIMEOUT_S = 300
+
+
+def _ring_run(fn, q, k, v, do):
+    """``fn``'s output and q/k/v gradients under the cotangent ``do``."""
+    ts = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*ts)
+    out.backward(do)
+    return [out.detach()] + [t.grad for t in ts]
+
+
+def _plain_flash_step(q, k, v, q_offset, k_offset, causal=False):
+    """``flash_attention_step`` on the plain version (dense, under
+    autograd), for the ring on the card without its kernels."""
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+
+    o, lse = ca._flash_core_reference(q, k, v, q_offset, k_offset, causal)
+    return o.permute(0, 2, 1, 3), lse
+
+
+PROFILE_TRIES = 3
+
+
+def _profiled_window(fn, n: int = 3):
+    """``(wall ms, device-busy ms, {kernel: device ms})`` of one call, each
+    the mean over ``n`` calls after a warm one, the device's from a
+    CUDA-only ``torch.profiler`` window over ``n`` calls.  CUPTI can hand
+    back a short window with no device activity at all; such a window is
+    profiled again, up to ``PROFILE_TRIES`` times, then None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = {k: ms / n for ms, _, k in _kernel_rows(prof)}
+        if rows:
+            return wall, sum(rows.values()), rows
+    return None
+
+
+def check_ring_kernels(dev, card):
+    """(a) ``ring_self_attention`` over stacked rings on K1/K3/K4, forward
+    and q/k/v grads, causal and not: against the same ring on the plain
+    versions and against sp=1 ``flash_attention``; K3's dlse nonzero."""
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+    from sparknet_tpu_torch.parallel import mesh as pm
+    from sparknet_tpu_torch.parallel.ring_attention import (
+        masked_pairs, ring_self_attention)
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    real_dq, real_step = ca.flash_bwd_dq, ca.flash_attention_step
+    for b, t, h, d, sp in RING_SHAPES:
+        q, k, v, do = (torch.randn(b, t, h, d, device=dev, generator=gen)
+                       for _ in range(4))
+        mesh = pm.make_mesh({"sp": sp}, workers_per_process=sp, device=dev)
+        for causal in (True, False):
+            fn = ring_self_attention(mesh, "sp", causal=causal)
+            norms = []
+
+            def dq_spy(*a, **kw):
+                norms.append(float(a[6].norm()))  # dlse
+                return real_dq(*a, **kw)
+
+            ca.reset_launch_counts()
+            ca.flash_bwd_dq = dq_spy
+            try:
+                got = _ring_run(fn, q, k, v, do)
+            finally:
+                ca.flash_bwd_dq = real_dq
+            torch.cuda.synchronize()
+            n = dict(ca.LAUNCHES)
+            check(n["flash_fwd"] == n["flash_bwd_dq"] == n["flash_bwd_dkv"]
+                  == sp * sp, f"ring sp={sp}: launches {n}, expected {sp * sp}"
+                  " each of K1/K3/K4")
+            ca.flash_attention_step = _plain_flash_step
+            try:
+                plain = _ring_run(fn, q, k, v, do)
+            finally:
+                ca.flash_attention_step = real_step
+            sp1 = _ring_run(lambda q_, k_, v_, c=causal: ca.flash_attention(
+                q_, k_, v_, causal=c), q, k, v, do)
+            names = ("out", "dq", "dk", "dv")
+            e_plain = {nm: max_err(g, p) for nm, g, p in zip(names, got, plain)}
+            lim = {nm: max(KERNEL_ATOL, BWD_RTOL * float(p.abs().max()))
+                   for nm, p in zip(names, plain)}
+            e_sp1 = {nm: max_err(g, s) for nm, g, s in zip(names, got, sp1)}
+            what = f"ring sp={sp} B={b} T={t} H={h} D={d} causal={causal}"
+            print(f"{what}: vs plain ring " + ", ".join(
+                f"{nm} {e_plain[nm]:.3e} (limit {lim[nm]:.1e})" for nm in names)
+                + "; vs sp=1 flash_attention " + ", ".join(
+                f"{nm} {e_sp1[nm]:.3e}" for nm in names)
+                + f" (limit {RING_SP1_TOL}); K3 dlse norm max {max(norms):.4e}")
+            for nm in names:
+                check(e_plain[nm] <= lim[nm], f"{what}: {nm} vs the plain ring "
+                      f"{e_plain[nm]:.3e} > {lim[nm]:.1e}")
+                check(e_sp1[nm] <= RING_SP1_TOL, f"{what}: {nm} vs sp=1 "
+                      f"{e_sp1[nm]:.3e} > {RING_SP1_TOL}")
+            check(max(norms) > 0, f"{what}: K3 saw no nonzero dlse")
+            if causal:
+                pairs = masked_pairs(sp, True)
+                print(f"{what}: {len(pairs)} fully masked (query shard, ring "
+                      f"step) pairs, computed not skipped: {pairs}")
+            ring_ms = time_ms(lambda: _ring_run(fn, q, k, v, do), iters=5,
+                              warm=2)
+            sp1_ms = time_ms(lambda c=causal: _ring_run(
+                lambda q_, k_, v_: ca.flash_attention(q_, k_, v_, causal=c),
+                q, k, v, do), iters=5, warm=2)
+            print(f"[{card}] {what}: forward+backward {ring_ms:.4f} ms the "
+                  f"ring ({sp * sp} steps), {sp1_ms:.4f} ms sp=1 "
+                  "flash_attention (CUDA events; a reading, not a claim)")
+            # where the ring's time goes: a window of calls of each under
+            # the profiler, the device's busy share and K1/K3/K4's part
+            for leg, call in (("ring", lambda: _ring_run(fn, q, k, v, do)),
+                              ("sp=1", lambda c=causal: _ring_run(
+                                  lambda q_, k_, v_: ca.flash_attention(
+                                      q_, k_, v_, causal=c), q, k, v, do))):
+                got = _profiled_window(call)
+                if got is None:
+                    print(f"[{card}] {what} {leg}: the profiler recorded no "
+                          f"device work in {PROFILE_TRIES} windows; device "
+                          "busy not measured")
+                    continue
+                wall, busy, rows = got
+                kern = sum(ms for name, ms in rows.items() if any(
+                    s in name for s in ("flash_fwd_kernel",
+                                        "flash_bwd_dq_kernel",
+                                        "flash_bwd_dkv_kernel")))
+                top = sorted(rows.items(), key=lambda r: -r[1])[:3]
+                print(f"[{card}] {what} {leg}: {wall:.3f} ms wall, {busy:.3f} "
+                      f"ms device busy ({busy / wall:.1%}), K1/K3/K4 "
+                      f"{kern:.3f} ms ({kern / busy:.1%} of busy), "
+                      f"{len(rows)} kinds of device work; top "
+                      + "; ".join(f"{ms:.3f} ms {name[:60]}"
+                                  for name, ms in top))
+
+
+def lm_sp_end_to_end(dev, card):
+    """(b) ``lm_app --sp 2`` at the CLI width against the sp=1 flash leg
+    of the same seed; K1/K3/K4 launch depth x W x tau x rounds x sp^2
+    each.  Returns the sp leg's launches."""
+    from sparknet_tpu_torch.apps import lm_app
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+    from sparknet_tpu_torch.utils.tree import tree_leaves
+
+    argv = _lm_argv(dev)
+    argv[argv.index("--rounds") + 1] = str(LM_SP_ROUNDS)
+    res = {}
+    for sp in (1, LM_SP):
+        res[sp] = {}
+        ca.reset_launch_counts()
+        rc = lm_app.main(argv + ["--sp", str(sp)], res[sp])
+        torch.cuda.synchronize()
+        res[sp]["launches"] = dict(ca.LAUNCHES)
+        check(rc == 0, f"lm_app --sp {sp} exited {rc}")
+    n = LM_MODEL["depth"] * LM_W * LM_TAU * LM_SP_ROUNDS * LM_SP * LM_SP
+    got = res[LM_SP]["launches"]
+    loss_gap = float(np.abs(res[1]["losses"] - res[LM_SP]["losses"]).max())
+    param_gap = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(res[1]["state"].params),
+        tree_leaves(res[LM_SP]["state"].params)))
+    ring_bytes = res[LM_SP]["metrics"].lm_ring_bytes.value
+    print(f"lm_app --sp {LM_SP} (dim {LM_MODEL['dim']}, depth "
+          f"{LM_MODEL['depth']}, W={LM_W}, tau {LM_TAU}, {LM_SP_ROUNDS} rounds):"
+          f" launches {got} (expected {n} each = depth x W x tau x rounds x "
+          f"sp^2), per-round mean loss "
+          f"{res[LM_SP]['losses'].mean(axis=(1, 2)).round(4).tolist()}; vs "
+          f"sp=1: losses {loss_gap:.3e}, params {param_gap:.3e} (limit "
+          f"{LM_TOL}); sparknet_lm_ring_hop_bytes_total {ring_bytes:.0f}")
+    for sp in (1, LM_SP):
+        rs = np.array(res[sp]["round_seconds"][1:])
+        print(f"[{card}] lm_app --sp {sp}: round {rs.mean() * 1e3:.2f} ms "
+              f"(round 1), {res[sp]['tokens_per_round'] / rs.mean():.1f} "
+              "tokens/s")
+    check(got == dict(flash_fwd=n, flash_bwd_dq=n, flash_bwd_dkv=n,
+                      decode_attention=0), f"lm_app --sp: launches {got}")
+    check(bool(np.isfinite(res[LM_SP]["losses"]).all()), "lm --sp: NaN loss")
+    check(loss_gap <= LM_TOL and param_gap <= LM_TOL,
+          f"lm_app --sp {LM_SP} left the sp=1 trajectory: losses {loss_gap}, "
+          f"params {param_gap}")
+    check(ring_bytes == res[LM_SP]["lm"].ring_hop_bytes_per_iter(LM_BATCH)
+          * LM_TAU * LM_W * LM_SP_ROUNDS, "ring hop bytes counter")
+    return got
+
+
+def attention_layer_end_to_end(dev, card):
+    """(c) A two-layer ``Attention`` net (E=256, 4 heads, causal): its
+    forward and gradients on the card (K1/K3/K4) against the CPU
+    (``blockwise_attention``) from one init.  Returns the launches."""
+    from sparknet_tpu_torch import config
+    from sparknet_tpu_torch.net import TorchNet
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+
+    x = torch.from_numpy(np.random.RandomState(18).randn(2, 256, 256)
+                         .astype(np.float32) * 0.5)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        net = TorchNet(config.parse_net_prototxt(ATTN_NET), phase="TRAIN")
+        params, stats = net.init(0, device=d)
+        leaves = [b.requires_grad_() for k in sorted(params)
+                  for b in params[k]]
+        ca.reset_launch_counts()
+        loss = net.loss_fn(params, stats, {"x": x.to(d)})[0]
+        loss.backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(ca.LAUNCHES)
+        runs[d.type] = (float(loss.detach()), [b.grad.cpu() for b in leaves])
+    worst = max(float((g - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+                for g, c in zip(runs["cuda"][1], runs["cpu"][1]))
+    print(f"Attention-layer net (2 layers, E=256, 4 heads, causal, B=2, "
+          f"T=256): loss card {runs['cuda'][0]:.6f} cpu {runs['cpu'][0]:.6f};"
+          f" gradients within {worst:.3e} of each blob's largest (limit "
+          f"{ATTN_NET_TOL}); launches {launches}")
+    check(launches == dict(flash_fwd=2, flash_bwd_dq=2, flash_bwd_dkv=2,
+                           decode_attention=0),
+          f"the Attention net's launches {launches}")
+    check(worst <= ATTN_NET_TOL, f"Attention net card vs CPU: {worst:.3e}")
+    return launches
+
+
+def _mp_specs(compress_modes):
+    return [dict(net="cifar10_full", workers=2, tau=CIFAR_TAU,
+                 batch=CIFAR_BATCH, rounds=MP_ROUNDS, deterministic=True,
+                 compress=c) for c in compress_modes]
+
+
+def _same_as_stacked(ranks, ref, what):
+    for r in ranks:
+        lo, hi = r["rows"]
+        for got, want in zip(r["all_rows"], ref["all_rows"]):
+            check(np.array_equal(got, want[lo:hi]),
+                  f"{what}: rank rows {lo}:{hi} differ from the stacked run "
+                  f"(max {np.abs(got - want[lo:hi]).max():.3e})")
+        check(np.array_equal(r["losses"], np.stack(ref["losses"])),
+              f"{what}: losses differ from the stacked run")
+
+
+def multiprocess_end_to_end(dev, card):
+    """(d) Two ranks on the one card over gloo, one averaging worker a
+    rank (cifar10_full, tau 10, batch 100, 2 rounds, deterministic),
+    default and int8, bit for bit against the one-process W=2 stacked
+    run (made in the process that then runs (f)); (f) the same rounds with the dp group over NCCL at world size
+    1.  Returns the ranks' K9/K10 launches."""
+    from sparknet_tpu_torch.utils import procs
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    specs = _mp_specs(("none", "int8"))
+    launches = {"comm_encode": 0, "comm_apply_barriered": 0}
+    # (f), and the reference: one process runs both W stacked with no
+    # group, then joins NCCL at world size 1 and runs them over the group
+    nccl, ref, logs = procs.run_averaging_processes(
+        specs, repo, nprocs=1, device="cuda", timeout=MP_TIMEOUT_S,
+        stacked_first=True)
+    print("NCCL at world size 1: " + "; ".join(
+        ln for o in logs for ln in o.splitlines() if "joined" in ln))
+    check("over nccl" in logs[0], "the world-size-1 rank did not join NCCL")
+    for spec, ranks, r in zip(specs, nccl, ref):
+        _same_as_stacked(ranks, r, f"NCCL world 1, W=2, {spec['compress']}")
+        for k in launches:
+            launches[k] += ranks[0]["launches"][k]
+    print(f"[{card}] NCCL at world size 1, W=2 stacked, dp group over NCCL: "
+          f"bit for bit the run with no group (none and int8); bytes a round "
+          f"{nccl[1][0]['group_bytes']}")
+    got, _, logs = procs.run_averaging_processes(
+        specs, repo, nprocs=2, device="cuda:0", backend="gloo",
+        timeout=MP_TIMEOUT_S)
+    joined = [ln for o in logs for ln in o.splitlines() if "joined" in ln]
+    print("two ranks on one card: " + "; ".join(joined))
+    check(all("over gloo" in ln for ln in joined) and len(joined) == 2,
+          f"the ranks did not join over gloo: {joined}")
+    for spec, ranks, r in zip(specs, got, ref):
+        what = f"2 ranks x 1 worker, {spec['compress']}"
+        _same_as_stacked(ranks, r, what)
+        chunks = ranks[0]["chunks"]
+        want = chunks * MP_ROUNDS if spec["compress"] != "none" else 0
+        for rk in ranks:
+            n = rk["launches"]
+            check(n["comm_encode"] == want and n["comm_apply_barriered"] == want
+                  and n["comm_apply_correction"] == 0,
+                  f"{what}: rank launches {n}, expected {want} K9 and K10 "
+                  f"({chunks} chunks x {MP_ROUNDS} rounds)")
+            for k in launches:
+                launches[k] += n[k]
+        print(f"[{card}] {what}: bit for bit the one-process W=2 run; K9/K10 "
+              f"{[rk['launches']['comm_encode'] for rk in ranks]}/"
+              f"{[rk['launches']['comm_apply_barriered'] for rk in ranks]} a "
+              f"rank; bytes that crossed the group a round "
+              f"{ranks[0]['group_bytes']}; host staging "
+              f"{[round(rk['staging_ms'], 3) for rk in ranks]} ms over "
+              f"{MP_ROUNDS} rounds ({ranks[0]['staging_bytes']} bytes a rank); "
+              f"round wall {[round(s * 1e3, 2) for s in ranks[0]['round_s']]}"
+              f" ms vs stacked {[round(s * 1e3, 2) for s in r['round_s']]} ms")
+    return launches
+
+
+def launch_end_to_end(dev, card):
+    """(e) ``tools/launch.py --nprocs 2 --backend gloo cifar`` on the card,
+    2 rounds: finite losses, only rank 0 logging, the smoothed losses
+    within LOSS_BAND of the one-process W=2 leg's."""
+    import io
+
+    from sparknet_tpu_torch.apps import cifar_app
+    from sparknet_tpu_torch.parallel import LOSS_BAND
+
+    app = ["--device", "cuda:0", "--workers", "2", "--rounds", str(MP_ROUNDS),
+           "--tau", str(CIFAR_TAU), "--batch", str(CIFAR_BATCH)]
+    pat = re.compile(r"round (\d+) trained, smoothed_loss (\S+)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as d:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "sparknet_tpu_torch.tools.launch",
+             "--nprocs", "2", "--backend", "gloo", "--coordinator",
+             f"file://{d}/store", "cifar", *app], capture_output=True,
+            text=True, timeout=MP_TIMEOUT_S, env=_subprocess_env(), cwd=d)
+        wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"launch exited {out.returncode}:\n"
+          f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    text = out.stdout
+    two = {int(r): float(v) for r, v in pat.findall(text)}
+    host1 = [ln for ln in text.splitlines()
+             if re.match(r"\[host 1\] \d+\.\d+", ln)]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cifar_app.main(["--device", "cuda", "--workers", "2", "--rounds",
+                             str(MP_ROUNDS), "--tau", str(CIFAR_TAU),
+                             "--batch", str(CIFAR_BATCH)])
+    one = {int(r): float(v) for r, v in pat.findall(buf.getvalue())}
+    gaps = [abs(two[r] - one[r]) for r in sorted(one)]
+    print(f"[{card}] launch --nprocs 2 --backend gloo cifar (W=2, tau "
+          f"{CIFAR_TAU}, {MP_ROUNDS} rounds, {wall:.1f} s wall): "
+          + " ".join(ln for ln in text.splitlines() if "joined over" in ln)
+          + f"; smoothed losses {two} vs one process {one}: gaps "
+          f"{[round(g, 5) for g in gaps]} (band {LOSS_BAND}); rank 1 log "
+          f"lines echoed: {len(host1)}")
+    check(rc == 0 and sorted(two) == sorted(one) == list(range(MP_ROUNDS)),
+          f"launch/one-process rounds {two} {one}")
+    check(all(np.isfinite(v) for v in two.values()), "launch: non-finite loss")
+    check(not host1, f"rank 1 echoed its log: {host1[:3]}")
+    check(max(gaps) <= LOSS_BAND, f"launch vs one process: gaps {gaps}")
+
+
+def multiprocess_ring_end_to_end(dev, card):
+    """Phase 18; returns the main-path launches of (b)-(d) and (f)."""
+    check_ring_kernels(dev, card)
+    launches = dict(lm_sp_end_to_end(dev, card))
+    for got in (attention_layer_end_to_end(dev, card),
+                multiprocess_end_to_end(dev, card)):
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+    launch_end_to_end(dev, card)
+    return launches
+
+
 def cudnn_failure_report(exc: BaseException) -> None:
     """On a failed run: cuDNN's version and flags, the device's free
     memory, the tensors of the port's innermost frame on the failing
@@ -6397,6 +6806,8 @@ def run_all() -> int:
         for name, n in image_serving_end_to_end(dev, card, root,
                                                 seeded["tokens"]).items():
             launches[name] = launches.get(name, 0) + n
+    for name, n in multiprocess_ring_end_to_end(dev, card).items():
+        launches[name] = launches.get(name, 0) + n
     slow = sorted(((w, n, k) for k, (w, n) in WALLS.items() if w >= 1.0),
                   reverse=True)
     print(f"[{card}] wall seconds by function ({time.perf_counter() - start:.2f}"

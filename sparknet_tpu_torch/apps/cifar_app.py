@@ -26,6 +26,16 @@ worker each round, so every boundary sees the full arrival set) and
 ``--profile`` / ``--profile_out`` install the round profiler (the
 window draws are timed per worker).  ``--obs`` is not yet ported and
 exits saying so.
+
+Across processes (``tools/launch.py``, or any caller that joined through
+``parallel.mesh.initialize_distributed`` first) the app runs the JAX
+app's multi-process mode: ``--workers`` must equal the global worker
+count (processes x the workers each stacks), every process computes the
+same partitioning and keeps only its own block of workers (its
+partitions, its samplers seeded by global worker index, its test rows),
+the average reduces over the dp group, and only rank 0 echoes its log.
+``--stale_bound``, ``--elastic``, ``--slices``, ``--journal``,
+``--overlap_avg`` and ``--profile`` stay single-process (refused).
 """
 
 from __future__ import annotations
@@ -96,12 +106,23 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     from sparknet_tpu_torch.utils.devices import resolve_device
     from sparknet_tpu_torch.utils.trainlog import TrainingLog
 
-    device = resolve_device(args.device)
-    n_workers = args.workers or (
-        torch.cuda.device_count() if device.type == "cuda" else 1
-    )
+    from sparknet_tpu_torch.parallel import mesh as mesh_mod
+
+    distributed = mesh_mod.process_count() > 1
+    if distributed:
+        device = mesh_mod.app_device(args.device, "cifar_app")
+        n_workers, mesh = mesh_mod.app_mesh(args, "cifar_app")
+        mine = mesh_mod.local_worker_slice(mesh)
+    else:
+        device = resolve_device(args.device)
+        n_workers = args.workers or (
+            torch.cuda.device_count() if device.type == "cuda" else 1
+        )
+        mesh, mine = None, slice(0, n_workers)
+    rank = mesh_mod.process_index()
     with tempfile.TemporaryDirectory(prefix="cifar_synth_") as synth, \
-            TrainingLog(tag="cifar") as log:
+            TrainingLog(tag="cifar" if rank == 0 else f"cifar_p{rank}",
+                        echo=rank == 0) as log:
         data_dir = args.data
         if data_dir is None:
             data_dir = synth
@@ -118,12 +139,14 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             )
         # contiguous near-equal partitions; each worker's window sampler
         # draws tau from its own partition
+        # (across processes: this process's block of them)
         samplers = [
             MinibatchSampler({"data": xs, "label": ys},
                              num_sampled_batches=args.tau, seed=args.seed + w)
             for w, (xs, ys) in enumerate(
                 zip(np.array_split(x, n_workers), np.array_split(y, n_workers))
             )
+            if mine.start <= w < mine.stop
         ]
         xt, yt = loader.minibatches(args.batch, train=False)
         test_parts = [
@@ -139,13 +162,13 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         # journal's commits mark in-memory progress only
         guards = RoundGuards.from_args(
             args, solver, n_workers, app="cifar_app", log=log,
-            metrics=metrics, journal_path="cifar_run.journal")
+            metrics=metrics, journal_path="cifar_run.journal", mesh=mesh)
         trainer = guards.trainer
         state = trainer.init_state(seed=args.seed)
         test_batches, test_counts = ParameterAveragingTrainer.pad_partitions(
             test_parts
         )
-        test_on_dev = {k: torch.from_numpy(v).to(device)
+        test_on_dev = {k: torch.from_numpy(v[mine]).to(device)
                        for k, v in test_batches.items()}
         log.log("finished setting up nets and weights")
 

@@ -45,12 +45,14 @@ class RoundGuards:
     def from_args(cls, args, solver, n_workers: int, *, app: str, log,
                   metrics, journal_path: Optional[str], resuming: bool = False,
                   wire_membership: bool = True,
-                  restore_prefix: Optional[str] = None) -> "RoundGuards":
+                  restore_prefix: Optional[str] = None,
+                  mesh=None) -> "RoundGuards":
         """The sentry (restoring from ``restore_prefix`` on rollback; none
         degrades rollback to halt), the spec, the trainer, the membership
         controller (``wire_membership``; otherwise ``--elastic`` only
         logs, as the JAX app does), the journal at ``journal_path`` and
-        the flight recorder."""
+        the flight recorder.  ``mesh`` (``parallel/mesh.py``) places the
+        workers over processes (the trainer's ``mesh``)."""
         from sparknet_tpu_torch import obs
         from sparknet_tpu_torch.io import journal as journal_mod
         from sparknet_tpu_torch.obs import health
@@ -60,8 +62,9 @@ class RoundGuards:
         sentry = health.sentry_from_args(args, solver, echo=log.log,
                                          metrics=metrics)
         spec = hierarchy.spec_from_args(args, n_workers)
+        extra = {} if mesh is None else {"mesh": mesh}
         trainer = hierarchy.averaging_trainer_from_args(
-            args, solver, n_workers, hierarchy=spec, metrics=metrics)
+            args, solver, n_workers, hierarchy=spec, metrics=metrics, **extra)
         if sentry is not None and restore_prefix:
             sentry.restore_fn = health.make_restore_fn(
                 solver, restore_prefix, trainer=trainer, metrics=metrics)

@@ -48,7 +48,18 @@ keeps no snapshots, so rollback degrades to halt), ``--flight_recorder``,
 membership is wired in ``cifar_app`` and ``lm_app``.
 ``--stale_bound`` / ``--stale_discount`` and ``--profile`` /
 ``--profile_out`` (the window draws timed per worker) are the JAX
-app's.  Multi-host and ``--obs`` are not yet ported and exit saying so.
+app's.  ``--obs`` is not yet ported and exits saying so.
+
+Across processes (``tools/launch.py``, or a caller joined through
+``parallel.mesh.initialize_distributed``) the app runs the JAX app's
+multi-process mode: ``--workers`` is the global worker count, each
+process materializes only its own workers' partitions (the other
+partitions stay unread), the minibatch counts, the mean image's
+per-partition sums and the per-worker test counts are gathered over
+the process group (``all_gather``), each process's samplers are seeded
+by global worker index, the average reduces over the dp group, and only
+rank 0 echoes its log.  ``--stale_bound``, ``--slices``, ``--journal``,
+``--overlap_avg`` and ``--profile`` stay single-process (refused).
 """
 
 from __future__ import annotations
@@ -156,16 +167,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def load_partitions(loader, prefix: str, labels_file: str, n_workers: int,
                     batch: int, size: int, epoch: Optional[int] = None,
-                    shuffle_seed: int = 0) -> List[Partition]:
+                    shuffle_seed: int = 0,
+                    keep: Optional[slice] = None) -> List[Partition]:
     """Deal the shards over the workers (round-robin, or epoch
     ``epoch``'s seeded assignment) and pack each partition into uint8
-    minibatches at ``size`` x ``size``."""
+    minibatches at ``size`` x ``size``; ``keep`` (a block of workers)
+    materializes only those partitions."""
     from sparknet_tpu_torch.data import ScaleAndConvert
 
     conv = ScaleAndConvert(batch, size, size)
     out = []
-    for part in loader.partitions(prefix, labels_file, num_parts=n_workers,
-                                  epoch=epoch, shuffle_seed=shuffle_seed):
+    parts = loader.partitions(prefix, labels_file, num_parts=n_workers,
+                              epoch=epoch, shuffle_seed=shuffle_seed)
+    for part in (parts if keep is None else parts[keep]):
         mbs = list(conv.make_minibatches(part))
         if not mbs:
             out.append((np.zeros((0, batch, 3, size, size), np.uint8),
@@ -175,14 +189,18 @@ def load_partitions(loader, prefix: str, labels_file: str, n_workers: int,
     return out
 
 
-def data_stage(args, n_workers: int, log, data_dir: str):
+def data_stage(args, n_workers: int, log, data_dir: str,
+               keep: Optional[slice] = None):
     """Load and partition the train and test shards (the train shards
     as epoch 0 deals them under ``--shuffle_epochs``), compute the mean
     image over the train partitions and save it as ``mean.binaryproto``
     in ``data_dir`` (next to the chunk cache, or in a temporary
     directory, when ``data_dir`` is an object store).  Returns
     ``(train_parts, test_parts, mean, reload)``: ``reload(epoch)`` loads
-    that epoch's train partitions."""
+    that epoch's train partitions.  ``keep`` (across processes: this
+    process's block of workers) materializes only those partitions; the
+    counts and the mean's per-partition sums are gathered over the
+    processes, so every process logs and saves what one process would."""
     from sparknet_tpu_torch.data import (
         ImageNetLoader,
         compute_mean,
@@ -201,19 +219,34 @@ def data_stage(args, n_workers: int, log, data_dir: str):
     def reload(epoch):
         return load_partitions(loader, args.train_prefix, args.train_labels,
                                n_workers, args.train_batch, args.full_size,
-                               epoch=epoch, shuffle_seed=args.seed)
+                               epoch=epoch, shuffle_seed=args.seed, keep=keep)
+
+    def gathered(local: list) -> list:
+        """Every process's per-partition values, in worker order."""
+        if keep is None:
+            return local
+        from sparknet_tpu_torch.parallel import mesh
+
+        return [v for part in mesh.all_gather_objects(local) for v in part]
 
     log.log("loading train data")
     train_parts = reload(0 if args.shuffle_epochs > 1 else None)
     log.log("loading test data")
     test_parts = load_partitions(loader, args.test_prefix, args.test_labels,
-                                 n_workers, args.test_batch, args.full_size)
-    log.log(f"numTrainMinibatches = {sum(len(x) for x, _ in train_parts)}")
-    log.log(f"numTestMinibatches = {sum(len(x) for x, _ in test_parts)}")
+                                 n_workers, args.test_batch, args.full_size,
+                                 keep=keep)
+    log.log("numTrainMinibatches = "
+            f"{sum(gathered([len(x) for x, _ in train_parts]))}")
+    log.log("numTestMinibatches = "
+            f"{sum(gathered([len(x) for x, _ in test_parts]))}")
     log.log("computing mean image")
+    # the cross-process ComputeMean reduce: every partition's (sum,
+    # count), gathered in worker order, reduced as one process would
     mean = reduce_mean_sums([
-        compute_mean(zip(x, y), return_sum=True) for x, y in train_parts
-        if len(x)
+        sc for sc in gathered([
+            compute_mean(zip(x, y), return_sum=True) if len(x) else None
+            for x, y in train_parts])
+        if sc is not None
     ])
     mean_dir = data_dir
     if object_store.is_object_store_url(data_dir):
@@ -257,7 +290,7 @@ def build_solver(args, mean: np.ndarray, device, solver_param=None):
 def train(args, train_parts: Sequence[Partition],
           test_parts: Sequence[Partition], mean: np.ndarray, device, log,
           result: Optional[dict] = None, solver_param=None,
-          reload=None, metrics=None) -> float:
+          reload=None, metrics=None, mesh=None) -> float:
     """The averaging loop on in-memory uint8 partitions (one per worker):
     test-then-train every ``--test_every`` rounds (ImageNetApp.scala:118),
     ``--rounds`` rounds of tau local steps and an average, then the final
@@ -269,7 +302,8 @@ def train(args, train_parts: Sequence[Partition],
     Returns the final accuracy; a sentry halt raises ``SentryHalt``.
     ``result`` receives the state, the trainer, the metrics, the sentry,
     the per-round losses (``losses``: (rounds, W, tau)), each round's
-    wall seconds and the accuracies."""
+    wall seconds and the accuracies.  With ``mesh`` (across processes)
+    the partitions are this process's block of the mesh's workers."""
     from sparknet_tpu_torch.apps.guards import RoundGuards
     from sparknet_tpu_torch.apps.scores import primary_accuracy
     from sparknet_tpu_torch.data import MinibatchSampler, RoundFeed, stack_windows
@@ -277,7 +311,8 @@ def train(args, train_parts: Sequence[Partition],
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
     from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
 
-    n_workers = len(train_parts)
+    n_workers = len(train_parts) if mesh is None else mesh.shape["dp"]
+    first = 0 if mesh is None else mesh.coords["dp"].start
     if min(len(x) for x, _ in train_parts) < args.tau:
         raise SystemExit(
             f"every worker needs >= tau={args.tau} train minibatches; "
@@ -295,7 +330,7 @@ def train(args, train_parts: Sequence[Partition],
         return [
             MinibatchSampler({"data": x, "label": y.astype(np.float32)},
                              num_sampled_batches=args.tau,
-                             seed=args.seed + w + 7919 * epoch)
+                             seed=args.seed + first + w + 7919 * epoch)
             for w, (x, y) in enumerate(parts)
         ]
 
@@ -307,6 +342,11 @@ def train(args, train_parts: Sequence[Partition],
     test_batches, test_counts = ParameterAveragingTrainer.pad_partitions(
         [{"data": x, "label": y.astype(np.float32)} for x, y in test_parts]
     )
+    if mesh is not None:
+        from sparknet_tpu_torch.parallel import mesh as mesh_mod
+
+        test_counts = np.concatenate(mesh_mod.all_gather_objects(
+            np.asarray(test_counts)))
     num_test = int(np.asarray(test_counts).sum())
     solver = build_solver(args, mean, device, solver_param)
     if metrics is None:
@@ -314,7 +354,8 @@ def train(args, train_parts: Sequence[Partition],
     # no snapshots: rollback degrades to halt, commits are progress marks
     guards = RoundGuards.from_args(
         args, solver, n_workers, app="imagenet_app", log=log, metrics=metrics,
-        journal_path="imagenet_run.journal", wire_membership=False)
+        journal_path="imagenet_run.journal", wire_membership=False,
+        mesh=mesh)
     trainer = guards.trainer
     state = trainer.init_state(seed=args.seed)
     test_on_dev = {k: torch.from_numpy(v).to(device)
@@ -399,14 +440,24 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     from sparknet_tpu_torch import obs
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
 
-    device = resolve_device(args.device)
-    n_workers = args.workers or (
-        torch.cuda.device_count() if device.type == "cuda" else 1
-    )
+    from sparknet_tpu_torch.parallel import mesh as mesh_mod
+
+    if mesh_mod.process_count() > 1:
+        device = mesh_mod.app_device(args.device, "imagenet_app")
+        n_workers, mesh = mesh_mod.app_mesh(args, "imagenet_app")
+        keep = mesh_mod.local_worker_slice(mesh)
+    else:
+        device = resolve_device(args.device)
+        n_workers = args.workers or (
+            torch.cuda.device_count() if device.type == "cuda" else 1
+        )
+        mesh = keep = None
+    rank = mesh_mod.process_index()
     metrics = TrainingMetrics()
     with tempfile.TemporaryDirectory(prefix="imagenet_synth_") as synth, \
             obs.installed_metrics(metrics), \
-            TrainingLog(tag="imagenet") as log:
+            TrainingLog(tag="imagenet" if rank == 0 else f"imagenet_p{rank}",
+                        echo=rank == 0) as log:
         data_dir = args.data
         if data_dir is None:
             data_dir = synth
@@ -424,14 +475,15 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             log.log(f"synthesized JPEG tar shards in {data_dir}")
         log.log(f"num workers: {n_workers}")
         train_parts, test_parts, mean, reload = data_stage(
-            args, n_workers, log, data_dir)
+            args, n_workers, log, data_dir, keep=keep)
         try:
             acc = train(args, train_parts, test_parts, mean, device, log,
-                        result, reload=reload, metrics=metrics)
+                        result, reload=reload, metrics=metrics, mesh=mesh)
         except SentryHalt as e:
             log.log(f"training halted by the health sentry: {e}")
             return 1
-        print(f"final accuracy {acc * 100:.2f}%")
+        if rank == 0:
+            print(f"final accuracy {acc * 100:.2f}%")
     if result is not None:
         result["mean"] = mean
     return 0

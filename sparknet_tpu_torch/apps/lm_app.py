@@ -1,11 +1,17 @@
 """LMApp — the byte-level transformer LM trained on the averaging stack.
 
-The port of ``sparknet_tpu/apps/lm_app.py`` at sp=1: a decoder-only
-transformer (``models/transformer_lm.py``) trained by the same
+The port of ``sparknet_tpu/apps/lm_app.py``: a decoder-only transformer
+(``models/transformer_lm.py``) trained by the same
 ``ParameterAveragingTrainer`` and ``RoundFeed`` as ``cifar_app``, the W
 dp workers stacked on one device.  Every attention forward runs the
 flash kernel (K1) and every attention backward the dq and dk/dv kernels
 (K3, K4); ``--dense_attention`` trains with ``mha_reference`` instead.
+``--sp N`` cuts each worker's sequence into N shards and runs every
+layer's attention through the sequence ring stacked on the worker's
+device (``parallel/ring_attention.py``: N^2 partial steps a layer at
+absolute offsets, merged online); the trajectory follows the sp=1 run
+up to float associativity, as in the JAX app, and
+``sparknet_lm_ring_hop_bytes_total`` counts the modeled ring bytes.
 Windows are drawn per worker by absolute iteration (``data/text.py``).
 
 Run (on the card; ``--device cpu`` runs the plain versions on the CPU)::
@@ -45,8 +51,9 @@ and the membership view too.
 
 ``--stale_bound`` / ``--stale_discount`` (the bounded-staleness
 trainer) and ``--profile`` / ``--profile_out`` (the window draws timed
-per worker) are the JAX app's.  ``--sp`` > 1 and ``--obs`` are not yet
-ported and exit saying so.
+per worker) are the JAX app's.  ``--obs``, and a run across processes
+(``--sp`` over a process group among it), are not yet ported and exit
+saying so.
 """
 
 from __future__ import annotations
@@ -78,15 +85,16 @@ def add_lm_model_args(parser) -> None:
     )
 
 
-def build_lm_solver(args, device):
-    """(TransformerLMNet, Solver) from parsed args, on ``device``."""
+def build_lm_solver(args, device, sp: int = 1):
+    """(TransformerLMNet, Solver) from parsed args, on ``device``, at
+    ring width ``sp``."""
     from sparknet_tpu_torch import models
     from sparknet_tpu_torch.config import parse_solver_prototxt
     from sparknet_tpu_torch.solver import Solver
 
     lm = models.build_transformer_lm(
         dim=args.dim, depth=args.depth, heads=args.heads,
-        seq_len=args.seq_len,
+        seq_len=args.seq_len, sp_size=sp,
         attention="dense" if args.dense_attention else "auto",
     )
     solver_param = parse_solver_prototxt(
@@ -120,7 +128,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="dp workers stacked on the device (0 = the device "
                    "count)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel ring width (only 1 is ported)")
+                   help="sequence-parallel ring width: each dp worker's "
+                   "sequence cuts into --sp shards and attention runs the "
+                   "ring construction stacked on the worker's device "
+                   "(parallel/ring_attention.py); seq_len %% sp == 0")
     p.add_argument("--rounds", type=int, default=40)
     p.add_argument("--tau", type=int, default=TAU)
     p.add_argument("--batch", type=int, default=8)
@@ -197,10 +208,14 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     (``snapshots``, solverstate paths) and the journal's reconcile
     decision on a resume (``resume_info``)."""
     args = _parser().parse_args(argv)
-    if args.sp > 1:
+    from sparknet_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh_mod.refuse_multiprocess("lm_app", "--sp over a process group")
+    sp = max(1, args.sp)
+    if args.seq_len % sp:
         raise SystemExit(
-            "lm_app: --sp > 1 (the sequence-parallel ring) is not yet "
-            "ported to sparknet_tpu_torch"
+            f"lm: --seq_len {args.seq_len} must divide by --sp {sp} "
+            "(the ring rotates equal sequence shards)"
         )
     from sparknet_tpu_torch import obs
 
@@ -266,13 +281,22 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             cache_bytes=args.cache_bytes)
         log.log(f"corpus: {len(docs)} documents, "
                 f"{sum(len(d) for d in docs)} bytes")
-        lm, solver = build_lm_solver(args, device)
+        lm, solver = build_lm_solver(args, device, sp)
+        log.log(f"mesh: dp={n_workers} sp={sp} ({n_workers} worker(s) "
+                f"stacked on {device}, each ring of {sp} shard(s) on its "
+                "worker's device)")
         log.log(
             f"model: dim={args.dim} depth={args.depth} heads={args.heads} "
             f"seq_len={args.seq_len} ({lm.num_params()} params), attention "
             f"{lm.attention}; {n_workers} workers on {device}"
         )
-        if not lm.on_kernel:
+        if sp > 1:
+            path = (f"the {sp}-shard sequence ring: "
+                    + ("flash kernels (K1 forward, K3/K4 backward) each step"
+                       if lm.on_kernel and torch.device(device).type == "cuda"
+                       else "plain versions of the flash kernels each step"
+                       if lm.on_kernel else "the dense recurrence"))
+        elif not lm.on_kernel:
             path = "dense mha_reference (--dense_attention)"
         elif torch.device(device).type == "cuda":
             path = "flash kernels (K1 forward, K3/K4 backward)"
@@ -291,6 +315,8 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
                                  seed=args.seed, worker=0)
         samplers = [base.for_worker(w) for w in range(n_workers)]
         tokens_per_round = n_workers * args.tau * args.batch * args.seq_len
+        ring_bytes_per_round = (
+            lm.ring_hop_bytes_per_iter(args.batch) * args.tau * n_workers)
 
         state, start_round, info = None, 0, None
         if args.resume:
@@ -357,6 +383,9 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
                     # a departed worker trains no tokens this round
                     frac = 1.0 if mask is None else float(mask.sum()) / n_workers
                     metrics.lm_tokens.inc(int(tokens_per_round * frac))
+                    if ring_bytes_per_round:
+                        metrics.lm_ring_bytes.inc(
+                            int(ring_bytes_per_round * frac))
                     smoothed.append(solver.smoothed_loss)
                     if r % max(1, args.log_every) == 0 or r == args.rounds - 1:
                         log.log(f"round {r} smoothed_loss {smoothed[-1]:.4f}")

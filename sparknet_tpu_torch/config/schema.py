@@ -484,7 +484,7 @@ class InputParameter(Message):
 @dataclass
 class AttentionParameter(Message):
     """Multi-head attention config (an extension with no reference
-    equivalent; its layer is not yet ported)."""
+    equivalent; the ``Attention`` layer of ``ops/attention.py``)."""
 
     num_heads: int = 1
     head_dim: int = 0

@@ -25,8 +25,14 @@ forward, K3/K4 backward) for prefill and every training step, the
 decode kernel (K2) for one new position, over the paged arena or a
 gathered context — on CUDA tensors; on CPU tensors
 their plain versions.  ``attention="dense"`` trains with
-``ops.attention.mha_reference`` instead.  The sequence-parallel ring is
-not yet ported: both views refuse ``sp_size > 1``.
+``ops.attention.mha_reference`` instead.  ``TransformerLMNet(sp_size=n)``
+trains through the sequence ring (``parallel/ring_attention.py``) stacked
+on the worker's device: each layer's attention cuts the sequence into
+``n`` shards and runs ``n^2`` partial steps at absolute offsets (K1
+forward, K3/K4 backward with a nonzero ``dlse``; the dense recurrence
+under ``attention="dense"``), the same function as sp=1 up to float
+associativity.  The serving module stays sp=1, as the JAX model's
+generation seams do.
 """
 
 from __future__ import annotations
@@ -60,14 +66,15 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _check_geometry(dim: int, heads: int, sp_size: int) -> None:
+def _check_geometry(dim: int, heads: int, sp_size: int, seq_len: int) -> None:
     if dim % heads:
         raise ValueError(f"dim={dim} not divisible by heads={heads}")
-    if sp_size != 1:
+    if sp_size < 1:
+        raise ValueError(f"sp_size must be >= 1, got {sp_size}")
+    if seq_len % sp_size:
         raise ValueError(
-            "the port serves and trains the sp=1 model only; the "
-            "sequence-parallel ring (parallel/ring_attention.py) is not "
-            "yet ported"
+            f"seq_len={seq_len} not divisible by sp={sp_size} — the "
+            "ring shards the sequence evenly (pad or pick a multiple)"
         )
 
 
@@ -203,6 +210,17 @@ def _dense_causal(q, k, v):
     return mha_reference(q, k, v, causal=True)
 
 
+def _ring_causal(sp: int, use_flash: bool):
+    """One layer's causal attention through the stacked ``sp``-shard
+    sequence ring."""
+    from sparknet_tpu_torch.parallel.ring_attention import ring_attention
+
+    def attend(q, k, v):
+        return ring_attention(q, k, v, sp, causal=True, use_flash=use_flash)
+
+    return attend
+
+
 class _LayerNorm(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
@@ -262,7 +280,10 @@ class TransformerLM(nn.Module):
         sp_size: int = 1,
     ):
         super().__init__()
-        _check_geometry(dim, heads, sp_size)
+        _check_geometry(dim, heads, sp_size, seq_len)
+        if sp_size != 1:
+            raise ValueError("generation serves the sp=1 dense model only "
+                             "(the ring is a training-time construct)")
         self.vocab = int(vocab)
         self.dim = int(dim)
         self.depth = int(depth)
@@ -461,7 +482,7 @@ class TransformerLMNet:
         attention: str = "auto",
         name: str = "TransformerLM",
     ):
-        _check_geometry(dim, heads, sp_size)
+        _check_geometry(dim, heads, sp_size, seq_len)
         if attention not in ("auto", "flash", "dense"):
             raise ValueError(
                 f"attention={attention!r}: expected 'auto' or 'flash' (the "
@@ -475,7 +496,8 @@ class TransformerLMNet:
         self.head_dim = self.dim // self.heads
         self.seq_len = int(seq_len)
         self.mlp_ratio = int(mlp_ratio)
-        self.sp_size = 1
+        self.sp_size = int(sp_size)
+        self.local_seq = self.seq_len // self.sp_size
         self.attention = attention
         self.name = name
         self.feed_blobs = ("tokens", "targets")
@@ -505,6 +527,26 @@ class TransformerLMNet:
     def num_params(self) -> int:
         return _count(self._group_blobs)
 
+    def with_sp(self, sp_size: int) -> "TransformerLMNet":
+        """The same architecture at another ring width: the same seed
+        gives the same params, which is how the sp=1 and sp=n legs share
+        a start point."""
+        return TransformerLMNet(
+            vocab=self.vocab, dim=self.dim, depth=self.depth,
+            heads=self.heads, seq_len=self.seq_len, mlp_ratio=self.mlp_ratio,
+            sp_size=sp_size, attention=self.attention, name=self.name)
+
+    def ring_hop_bytes_per_iter(self, batch: int) -> int:
+        """Modeled ring-exchange bytes of one forward+backward iteration
+        of one worker (the JAX model's): K and V shards pass ``sp - 1``
+        hops a shard a layer, the backward mirroring the forward; 0 at
+        sp=1.  The stacked ring reads them in place on the device, so
+        this is what a ring over devices would carry."""
+        from sparknet_tpu_torch.parallel.ring_attention import ring_hop_bytes
+
+        return ring_hop_bytes(batch, self.local_seq, self.dim, self.sp_size,
+                              self.depth)
+
     def forward_logits(self, params: Params, tokens):
         """(B, seq_len) int tokens -> (B, seq_len, vocab) f32 logits."""
         if tokens.shape[1] != self.seq_len:
@@ -512,7 +554,12 @@ class TransformerLMNet:
                 f"tokens have T={tokens.shape[1]}, model expects "
                 f"T={self.seq_len}"
             )
-        attend = _dense_causal if self.attention == "dense" else _flash_causal
+        if self.sp_size > 1:
+            attend = _ring_causal(self.sp_size, self.attention != "dense")
+        elif self.attention == "dense":
+            attend = _dense_causal
+        else:
+            attend = _flash_causal
         return causal_forward(params, tokens.long(), self.heads, attend)[0]
 
     def loss_fn(self, params: Params, stats: Params, batch, train: bool = True,

@@ -48,7 +48,8 @@ import torch.nn.functional as F
 
 from sparknet_tpu_torch.config.schema import LRNParameter, NetParameter, NetState
 from sparknet_tpu_torch.graph import filter_net, toposort_check
-from sparknet_tpu_torch.ops import common, data_layers, losses, vision  # noqa: F401
+from sparknet_tpu_torch.ops import (  # noqa: F401
+    attention, common, data_layers, losses, vision)
 from sparknet_tpu_torch.ops import cuda_plp, fillers
 from sparknet_tpu_torch.ops.base import BlobDef, Layer, create_layer
 from sparknet_tpu_torch.utils import jax_prng, rngs

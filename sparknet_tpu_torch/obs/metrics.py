@@ -329,6 +329,11 @@ class TrainingMetrics:
             "tokens trained by the transformer-LM workload (workers x "
             "tau x batch x seq_len per round)",
         )
+        self.lm_ring_bytes = r.counter(
+            "sparknet_lm_ring_hop_bytes_total",
+            "modeled sequence-ring exchange bytes (K and V shards, "
+            "forward and backward) of the LM's --sp rounds",
+        )
         self.quant_snr_db = r.gauge(
             "sparknet_quant_snr_db",
             "last round's delta-vs-quantization-error SNR in dB "

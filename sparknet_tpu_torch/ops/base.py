@@ -77,9 +77,8 @@ class Layer:
 
 LAYER_REGISTRY: Dict[str, Type[Layer]] = {}
 
-# layer types of the JAX package that later slices bring: the attention
-# layer (A.9)
-_NOT_YET_PORTED = frozenset(("Attention",))
+# layer types of the JAX package that later slices bring: none left
+_NOT_YET_PORTED = frozenset()
 
 
 def register(cls: Type[Layer]) -> Type[Layer]:

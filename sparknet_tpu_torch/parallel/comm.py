@@ -37,6 +37,17 @@ bf16 = 2 B/elem, fp32 = 4 B/elem).  With the workers on one card the
 mean is a local reduction; the counter models what an interconnect
 would carry.  ``SPARKNET_COMM_COST_MS_PER_MB`` adds a modeled wire time
 (a sleep per chunk) for A/B runs.
+
+Across processes (a trainer over a mesh whose dp axis spans processes:
+``group`` and ``rows``, this process's workers): each rank runs K9 on
+its own workers, the encoded payloads (bf16, or int8 plus the per-worker
+scales; fp32 stats as they are) cross the group, the masked mean runs
+over the gathered (W, ...) stack, and K10 applies it to the rank's own
+rows — K10's arithmetic is per worker, reading the mean and the global
+survivor count — so K9-K11 keep the bits of the stacked run.  There the
+counter charges the bytes that actually reached this rank from the
+others.  The overlapped round stays single-process (the trainer
+refuses it).
 """
 
 from __future__ import annotations
@@ -153,6 +164,8 @@ class CommPlane:
         compress: str = "fp32",
         overlap: bool = False,
         metrics: Optional[TrainingMetrics] = None,
+        group=None,
+        rows: Optional[slice] = None,
     ):
         if compress not in COMPRESS_MODES:
             raise ValueError(
@@ -164,6 +177,10 @@ class CommPlane:
         self.cost_ms_per_mb = _cost_ms_per_mb_default()
         self.metrics = metrics
         self._local = local
+        # the dp group across processes and this process's workers
+        self.group = group
+        self.rows = rows
+        self.last_group_bytes = 0
         # carried state (device, worker-stacked): the anchor deltas are
         # measured against, the error-feedback residuals, the chunking
         self._anchor: Optional[list] = None
@@ -400,6 +417,23 @@ class CommPlane:
             means.append(contrib.sum(dim=0) / denom)
         return means, denom0
 
+    def _gather_payload(self, q, scales, alive):
+        """Every rank's encoded rows, int8 scales and survivor mask, as
+        the stacked run's (W, ...) tensors (the group's crossing)."""
+        from sparknet_tpu_torch.parallel import mesh as _mesh
+
+        int8 = [i for i, m in enumerate(self._modes) if m == "int8"]
+        q_all, nq = _mesh.all_gather_leaves(list(q), self.group)
+        sc, ns = _mesh.all_gather_leaves([scales[i] for i in int8], self.group)
+        w = q_all[0].shape[0]
+        zero = torch.zeros((w,), dtype=torch.float32, device=alive.device)
+        scales_all = [zero] * len(scales)
+        for i, t in zip(int8, sc):
+            scales_all[i] = t
+        alive_all = _mesh.all_gather_rows(alive, self.group)
+        self.last_group_bytes = nq + ns
+        return q_all, scales_all, alive_all
+
     def _dispatch_chunks(self, q, scales, alive):
         """Queue every chunk's mean from the calling thread, right behind
         this round's encode and before the next round's local steps; an
@@ -498,16 +532,24 @@ class CommPlane:
             # params are the broadcast anchor
             self._anchor = self._comm_leaves(state)
             state, losses, stats = self._local(state, batches)
-        alive, bad = (live, None) if mask is None else mask(live, stats)
+        if mask is not None:
+            alive, bad = mask(live, stats)
+        else:
+            alive, bad = (live if self.rows is None else live[self.rows]), None
 
         leaves = self._comm_leaves(state)
         with_err = self.metrics is not None
         with span("quantize", compress=self.compress):
             q, scales, new_resid, err = self._encode_all(leaves, with_err)
         self._resid = new_resid
+        alive_local = alive
+        if self.group is not None:
+            with span("allgather", compress=self.compress):
+                q, scales, alive = self._gather_payload(q, scales, alive)
         if self.metrics is not None:
             self.metrics.collective_bytes.labels(self.compress).inc(
-                self._payload_bytes_per_round
+                self.last_group_bytes if self.group is not None
+                else self._payload_bytes_per_round
             )
             self._pending_err = err
 
@@ -537,7 +579,8 @@ class CommPlane:
                 raise holder["error"]
             with span("dequantize", stage="barriered"):
                 new_leaves, self._resid = self._apply_barriered_all(
-                    leaves, holder["means"], alive, bad, holder["denom0"]
+                    leaves, holder["means"], alive_local, bad,
+                    holder["denom0"]
                 )
                 history = state.history
                 if bad is not None:

@@ -1,4 +1,5 @@
-"""SparkNet's parameter-averaging trainer, with the W workers on one device.
+"""SparkNet's parameter-averaging trainer: W workers stacked on a device,
+over one process or several.
 
 The port of ``ParameterAveragingTrainer`` (``sparknet_tpu/parallel/
 trainers.py:214``): every worker keeps its own replica of params and
@@ -24,7 +25,23 @@ params.  ``hierarchy`` (``parallel/
 hierarchy.py``) declares the two-tier schedule: a non-cross round
 averages each slice's live workers only (a masked mean per slice
 group, no comm kernel), a cross round is the global round above.
-Data parallelism across cards over NCCL is not ported (ROADMAP).
+
+Across processes (``mesh=``, a ``parallel/mesh.py`` mesh whose ``dp``
+axis spans processes): each process stacks only its own block of
+workers (``local_worker_slice``) on its device, and the average reduces
+over the mesh's dp group.  The reduction gathers every rank's
+contributions — params and stats as one flat buffer a rank, the
+survivor mask, then the round's losses and audit rows — and runs the
+same masked mean over the gathered (W, ...) stack, so a run of W workers
+over P processes gives the bits of the one-process stacked run of the
+same W on the same device type, for any W (an ``all_reduce(SUM)``
+would give them only for one worker on each of two ranks).  The
+survivor count ``denom0`` is the gathered mask's sum, and the audit's
+in-round mask folds each rank's verdicts into it the same way.  Under
+gloo a CUDA payload crosses through host copies (``mesh.STAGING``);
+``last_group_bytes`` is what reached this rank from the others in the
+last round.  The two-tier schedule, the overlapped comm plane and the
+bounded-staleness trainer stay single-process (refused).
 """
 
 from __future__ import annotations
@@ -40,7 +57,9 @@ from sparknet_tpu_torch.obs import health as _health
 from sparknet_tpu_torch.obs import profile as _profile
 from sparknet_tpu_torch.obs.metrics import TrainingMetrics
 from sparknet_tpu_torch.obs.trace import span
+from sparknet_tpu_torch.parallel import mesh as _mesh
 from sparknet_tpu_torch.parallel.hierarchy import HierarchySpec
+from sparknet_tpu_torch.parallel.mesh import local_worker_slice
 from sparknet_tpu_torch.solver import Solver, TrainState
 from sparknet_tpu_torch.utils import rngs
 from sparknet_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
@@ -112,6 +131,14 @@ def masked_mean(x: torch.Tensor, alive: torch.Tensor,
     return contrib.sum(dim=0) / denom
 
 
+def gather_rows(tree, group):
+    """Each leaf's rows of every rank, in rank order (``mesh.
+    all_gather_rows``); ``tree`` unchanged without a group."""
+    if group is None:
+        return tree
+    return tree_map(lambda x: _mesh.all_gather_rows(x, group), tree)
+
+
 class ParameterAveragingTrainer:
     """tau-step local SGD + parameter averaging over ``num_workers``."""
 
@@ -125,13 +152,18 @@ class ParameterAveragingTrainer:
         overlap_avg: bool = False,
         metrics: Optional[TrainingMetrics] = None,
         hierarchy: Optional[HierarchySpec] = None,
+        mesh=None,
+        axis: str = "dp",
     ):
         """Params and stat blobs are averaged; ``metrics`` receives the
         training series (rounds, iters, collective bytes, the comm plane's
         kernel launches and quantization error, the hierarchy's tiers);
         None records nothing.  The solver's audit arms the in-round
         worker mask; ``hierarchy`` is the two-tier schedule (a flat spec
-        is bit-identical to none)."""
+        is bit-identical to none).  ``mesh`` (``parallel/mesh.py``)
+        places the workers: ``num_workers`` is its ``axis`` size, this
+        process stacks its own block of them, and the average reduces
+        over the axis's group when it has one."""
         from sparknet_tpu_torch.parallel import comm as _comm
 
         if num_workers < 1:
@@ -148,6 +180,33 @@ class ParameterAveragingTrainer:
         self.solver = solver
         self.device = solver.device
         self.num_workers = int(num_workers)
+        self.mesh = mesh
+        self.group = None
+        self.rows = slice(0, self.num_workers)
+        if mesh is not None:
+            if mesh.shape.get(axis) != self.num_workers:
+                raise ValueError(
+                    f"mesh axis {axis!r} has {mesh.shape.get(axis)} workers, "
+                    f"trainer has {num_workers}"
+                )
+            self.group = mesh.group(axis)
+            self.rows = local_worker_slice(mesh, axis)
+        if self.group is not None:
+            if overlap_avg:
+                # the comm thread's collectives would race the round's
+                # program order across ranks (JAX comm.py refuses alike)
+                raise ValueError(
+                    "overlap_avg needs a single-process runtime (the "
+                    "cross-process program order must be deterministic); "
+                    "use barriered compression instead"
+                )
+            if hierarchy is not None and not hierarchy.is_flat():
+                raise NotImplementedError(
+                    "two-tier averaging across processes is not yet ported"
+                )
+        self.local_workers = self.rows.stop - self.rows.start
+        # bytes that reached this rank from the other ranks last round
+        self.last_group_bytes = 0
         self.compress = compress
         self.metrics = metrics
         self.hierarchy = hierarchy
@@ -159,7 +218,7 @@ class ParameterAveragingTrainer:
         if compress != "none" or overlap_avg:
             self._comm = _comm.CommPlane(
                 self._local, compress=compress, overlap=overlap_avg,
-                metrics=metrics,
+                metrics=metrics, group=self.group, rows=self.rows,
             )
         self._fused_payload_bytes: Optional[int] = None
         self._live_cache: "OrderedDict[bytes, torch.Tensor]" = OrderedDict()
@@ -175,10 +234,11 @@ class ParameterAveragingTrainer:
     def broadcast_state(self, st: TrainState) -> TrainState:
         """Place a single-replica TrainState on every worker slot (an
         init, or weights carried in) on the solver's device; resets the
-        comm plane's carried state."""
+        comm plane's carried state.  Across processes the slots are this
+        process's own workers."""
         if self._comm is not None:
             self._comm.reset()
-        n = self.num_workers
+        n = self.local_workers
 
         def rep(x):
             x = torch.as_tensor(x)
@@ -299,20 +359,21 @@ class ParameterAveragingTrainer:
         self._window_timer = timer
         with span("execute"):
             outs, losses, packed = [], [], []
-            for w in range(self.num_workers):
+            for i in range(self.local_workers):
+                w = self.rows.start + i  # the global worker index
                 if run is not None and not run[w]:
-                    outs.append(worker_state(state, w))
+                    outs.append(worker_state(state, i))
                     losses.append(None)
                     packed.append(None)
                     continue
                 if timer is not None:
-                    timer.start(w)
+                    timer.start(i)
                 st, l, pk = self.solver._run_tau(
-                    worker_state(state, w), {k: v[w] for k, v in batches.items()},
+                    worker_state(state, i), {k: v[i] for k, v in batches.items()},
                     rngs.fold_in(root, w),
                 )
                 if timer is not None:
-                    timer.stop(w)
+                    timer.stop(i)
                 outs.append(st)
                 losses.append(l)
                 packed.append(pk)
@@ -328,9 +389,11 @@ class ParameterAveragingTrainer:
             return stack_states(outs), torch.stack(losses), stats
 
     def _mask(self, live: torch.Tensor, stats):
-        """``(alive, bad)``: the in-round mask folds each worker's
-        non-finite verdict (a (W,) device tensor) into ``live``; ``bad``
-        is None with the audit off."""
+        """``(alive, bad)`` of this process's workers: the in-round mask
+        folds each worker's non-finite verdict (a device tensor) into
+        its rows of the (W,) ``live``; ``bad`` is None with the audit
+        off."""
+        live = live[self.rows]
         if not self.solver.audit:
             return live, None
         bad = _health.bad_workers(stats)
@@ -344,22 +407,33 @@ class ParameterAveragingTrainer:
         over alive workers, written to every slot; history stays local.
         With the audit on (``bad`` given) a round with no finite
         worker keeps each one's own params, and a masked worker that
-        rejoins the mean gets its history zeroed."""
+        rejoins the mean gets its history zeroed.  Across processes
+        ``alive`` and ``bad`` are this process's rows: the mean runs
+        over the gathered stack and lands on them."""
+        leaves = tree_leaves(state.params) + tree_leaves(state.stats)
+        full = leaves
+        if self.group is not None:
+            alive = _mesh.all_gather_rows(alive, self.group)
+            full, nbytes = _mesh.all_gather_leaves(leaves, self.group)
+            self.last_group_bytes += nbytes
         denom0 = alive.sum()
         denom = torch.clamp_min(denom0, 1.0)
 
-        def wmean(x):
-            m = masked_mean(x, alive, denom)
+        def wmean(x_full, x):
+            m = masked_mean(x_full, alive, denom)
             m = m.unsqueeze(0).expand_as(x)
             if bad is not None:
                 return torch.where(denom0 > 0, m, x)
             return m.contiguous()
 
+        out = [wmean(a, b) for a, b in zip(full, leaves)]
+        n = len(tree_leaves(state.params))
         history = state.history
         if bad is not None:
             history = zero_rows(history, bad & (denom0 > 0))
-        return TrainState(tree_map(wmean, state.params),
-                          tree_map(wmean, state.stats), history, state.iter)
+        return TrainState(tree_unflatten(state.params, out[:n]),
+                          tree_unflatten(state.stats, out[n:]), history,
+                          state.iter)
 
     def _slice_average(self, state: TrainState, alive: torch.Tensor,
                        bad=None) -> TrainState:
@@ -422,6 +496,7 @@ class ParameterAveragingTrainer:
         if live_mask is None:
             live_mask = np.ones((self.num_workers,), np.float32)
         stats = None
+        self.last_group_bytes = 0
         with span("average"):
             live = self._place_live(live_mask)
             if intra:
@@ -439,9 +514,16 @@ class ParameterAveragingTrainer:
                 state, losses, stats = self._local(state, batches)
                 alive, bad = self._mask(live, stats)
                 state = self._average(state, alive, bad)
+            if self.group is not None:
+                # every rank reads every worker's losses and audit rows,
+                # as the one-process run does
+                losses = _mesh.all_gather_rows(losses, self.group)
+                if stats is not None:
+                    stats = gather_rows(stats, self.group)
             if self.metrics is not None and (intra or self._comm is None):
                 self.metrics.collective_bytes.labels("none").inc(
-                    self._payload_bytes(state)
+                    self.last_group_bytes if self.group is not None
+                    else self._payload_bytes(state)
                 )
             if self.metrics is not None and self.hierarchy is not None:
                 tier = "intra" if intra else "cross"
@@ -490,19 +572,35 @@ class ParameterAveragingTrainer:
     def test_and_store_result(self, state: TrainState,
                               batches: Dict[str, torch.Tensor],
                               counts=None) -> Dict[str, float]:
-        """Distributed eval: ``batches[blob]`` is (W, nb, ...); the scores
-        summed over every worker's first ``counts[w]`` batches (the
-        reference's per-partition full pass, CifarApp.scala:103-115)."""
+        """Distributed eval: ``batches[blob]`` is (W, nb, ...) — this
+        process's workers' rows across processes; the scores summed over
+        every worker's first ``counts[w]`` batches (the reference's
+        per-partition full pass, CifarApp.scala:103-115).  ``counts``
+        is (W,) or this process's rows of it; across processes every
+        worker's scores are gathered and summed in worker order, as the
+        one-process run sums them."""
         nb = next(iter(batches.values())).shape[1]
         if counts is None:
-            counts = np.full((self.num_workers,), nb, np.int64)
+            counts = np.full((self.local_workers,), nb, np.int64)
+        counts = np.asarray(counts)
+        if counts.shape[0] == self.num_workers:
+            counts = counts[self.rows]
+        per_worker = []
+        for i in range(self.local_workers):
+            st = worker_state(state, i)
+            per_worker.append(self.solver._forward_test(
+                st.params, st.stats, {k: v[i] for k, v in batches.items()},
+                count=int(counts[i]),
+            ))
+        if self.group is not None:
+            keys = sorted(per_worker[0])
+            rows = torch.stack([torch.stack([torch.as_tensor(
+                s[k], dtype=torch.float32, device=self.device) for k in keys])
+                for s in per_worker])
+            rows = _mesh.all_gather_rows(rows, self.group)
+            per_worker = [dict(zip(keys, r.unbind(0))) for r in rows.unbind(0)]
         total: Dict[str, torch.Tensor] = {}
-        for w in range(self.num_workers):
-            st = worker_state(state, w)
-            scores = self.solver._forward_test(
-                st.params, st.stats, {k: v[w] for k, v in batches.items()},
-                count=int(counts[w]),
-            )
+        for scores in per_worker:
             for k, v in scores.items():
                 total[k] = v if k not in total else total[k] + v
         return {k: float(v) for k, v in total.items()}

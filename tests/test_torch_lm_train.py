@@ -121,8 +121,10 @@ def test_net_protocol_matches_jax_and_the_serving_module():
                                module.forward_logits(toks), rtol=0, atol=0)
     with pytest.raises(ValueError, match="attention"):
         TransformerLMNet(**GEOM, attention="ring")
-    with pytest.raises(ValueError, match="not yet ported"):
-        TransformerLMNet(**GEOM, sp_size=2)
+    # the sequence ring is ported: sp=2 builds, a ragged split refuses
+    assert TransformerLMNet(**GEOM, sp_size=2).local_seq == GEOM["seq_len"] // 2
+    with pytest.raises(ValueError, match="not divisible by sp"):
+        TransformerLMNet(**GEOM, sp_size=3)
     with pytest.raises(ValueError, match="shape"):
         lm_params_from_jax(_jax_params(jlm), TransformerLMNet(**dict(GEOM, dim=64)))
 
@@ -254,7 +256,14 @@ def test_lm_app_end_to_end_on_the_cpu():
     [["--sp", "2"], ["--trace_out", "/t"], ["--obs_port", "1"],
      ["--slo"], ["--ship_to", "http://h:1"], ["--host_id", "h"], ["--obs"]],
 )
-def test_lm_app_refuses_what_is_not_yet_ported(flag):
+def test_lm_app_refuses_what_is_not_yet_ported(flag, monkeypatch):
+    """``--sp`` runs in one process (``tests/test_torch_lm_sp.py``): what
+    is refused is a run across processes, the ring over a process group
+    among it."""
+    if flag[0] == "--sp":
+        from sparknet_tpu_torch.parallel import mesh
+
+        monkeypatch.setattr(mesh, "process_count", lambda: 2)
     with pytest.raises(SystemExit, match="not yet ported") as e:
         lm_app.main(APP + ["--rounds", "1"] + flag)
     assert flag[0] in str(e.value)

@@ -242,16 +242,22 @@ def test_entry_points_run_what_this_slice_ports(tmp_path, app, flag):
 @pytest.mark.parametrize(
     "text",
     ['layer { name: "a" type: "Attention" bottom: "x" top: "y" '
-     'attention_param { num_heads: 1 } }'],
+     'attention_param { num_heads: 2 } }'],
     ids=["layer_param"],
 )
 def test_net_refuses_layers_not_yet_ported(text):
+    """No layer type is left unported: the ``Attention`` layer, the last
+    one refused, builds from its prototxt and runs on (B, T, E)."""
     from sparknet_tpu_torch.net import TorchNet
 
     head = ('layer { name: "in" type: "HostData" top: "x" '
-            'java_data_param { shape { dim: 2 dim: 3 } } } ')
-    with pytest.raises((NotImplementedError, ValueError), match="not yet ported"):
-        TorchNet(tconfig.parse_net_prototxt(head + text))
+            'java_data_param { shape { dim: 2 dim: 5 dim: 4 } } } ')
+    net = TorchNet(tconfig.parse_net_prototxt(head + text))
+    params, stats = net.init(0)
+    x = torch.from_numpy(np.random.RandomState(1).randn(2, 5, 4)
+                         .astype(np.float32))
+    y = net.forward(params, stats, {"x": x})["y"]
+    assert tuple(y.shape) == (2, 5, 4) and torch.isfinite(y).all()
 
 
 def test_zoo_refuses_models_not_yet_ported():
