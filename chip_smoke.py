@@ -6660,6 +6660,480 @@ def multiprocess_ring_end_to_end(dev, card):
     return launches
 
 
+# phase 19: Caffe's all-reduce data parallelism and the LM's sp ring
+# across processes, two ranks sharing the card over gloo
+P19_RANK_BATCH = 16  # CaffeNet images a rank in (a): a global batch of 32
+P19_IMAGE, P19_RESNET_IMAGE = 227, 224  # the nets' full input widths
+P19_TAU, P19_WINDOWS = 2, 2  # (a): 2 windows of 2 iterations
+P19_RESNET_BATCH = 8  # ResNet-50 images a rank in (b): a global batch of 16
+P19_LM_ROUNDS = 2
+# the JAX AllReduceTrainer test's tolerances (tests/test_parallel.py:
+# losses rtol 1e-5; params rtol 2e-4, atol 2e-6)
+P19_LOSS_RTOL, P19_RTOL, P19_ATOL = 1e-5, 2e-4, 2e-6
+# (b): ResNet-50's float32 step is ill-conditioned (BatchNorm's
+# E[x^2] - mean^2 over few rows: a CPU rehearsal at 64 px put the
+# one-process float32 step's second loss 0.4% from float64's, and the
+# two-rank step 0.08% from it), so both float32 runs are held to a
+# float64 one-process step: the ranks' update within twice the
+# one-process float32 update's distance from it, or 1e-5 of its norm
+P19_F64_FACTOR, P19_F64_FLOOR = 2.0, 1e-5
+P19_TIMEOUT_S = 600
+
+# The phase's rank script: joins the two ranks on cuda:0 over gloo once,
+# then runs (a) cli train --devices 2 on CaffeNet, (e) the same cut at
+# its first window and --resume'd, (b) ResNet-50 under AllReduceTrainer
+# and (c) lm_app --sp 2, each with the launch counts reset just before
+# and read just after; saves what the parent compares (argv: pid,
+# store, the config as JSON, the output prefix).
+P19_WORKER = r"""
+import hashlib
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+pid, address, cfg, out = int(sys.argv[1]), sys.argv[2], json.loads(
+    sys.argv[3]), sys.argv[4]
+from sparknet_tpu_torch import models
+from sparknet_tpu_torch.apps import lm_app
+from sparknet_tpu_torch.ops import cuda_attention, cuda_lrn
+from sparknet_tpu_torch.parallel import AllReduceTrainer, make_mesh, mesh
+from sparknet_tpu_torch.solver import Solver
+from sparknet_tpu_torch.tools import cli
+from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+from sparknet_tpu_torch.utils.tree import tree_leaves
+
+dev = mesh.initialize_distributed(address, 2, pid, backend="gloo",
+                                  device="cuda:0")
+print(f"joined rank {pid} of 2 on {dev} over {mesh.joined_backend()}",
+      flush=True)
+meta = {}
+
+
+def digest(tree):
+    h = hashlib.sha256()
+    for x in tree_leaves(tree):
+        h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def leg(name, fn):
+    cuda_lrn.reset_launch_counts()
+    cuda_attention.reset_launch_counts()
+    mesh.reset_staging()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arrays, info = fn()
+    torch.cuda.synchronize()
+    info.update(wall_s=time.perf_counter() - t0,
+                launches={**cuda_lrn.LAUNCHES, **cuda_attention.LAUNCHES},
+                staging=dict(mesh.STAGING))
+    meta[name] = info
+    if pid == 0 and arrays:
+        np.savez(f"{out}.{name}.npz", **arrays)
+
+
+def flat(tree):
+    return {f"p{i}": x.detach().cpu().numpy()
+            for i, x in enumerate(tree_leaves(tree))}
+
+
+def train(solver_file, *extra):
+    res = {}
+    rc = cli.main(["train", f"--solver={solver_file}", "--devices=2",
+                   "--device=cuda", f"--tau={cfg['tau']}", *extra], res)
+    assert rc == 0, rc
+    return res
+
+
+def caffenet():
+    res = train(cfg["caffenet"], f"--max_iter={cfg['iters']}")
+    st, solver = res["state"], res["solver"]
+    return flat(st.params), dict(
+        digests=mesh.all_gather_objects(digest(st)),
+        smoothed=res["smoothed_loss"], iters=int(st.iter),
+        grad_bytes_per_iter=solver.grad_reduce_bytes / int(st.iter))
+
+
+def resumed():
+    # a kill after the first window leaves on disk what (a) wrote at its
+    # end: that snapshot alone, under (e)'s prefix
+    if pid == 0:
+        import glob
+        import os
+        import shutil
+
+        os.makedirs(os.path.dirname(cfg["prefix_e"]), exist_ok=True)
+        for f in glob.glob(f"{cfg['prefix_a']}_iter_{cfg['tau']}.*"):
+            shutil.copy(f, os.path.dirname(cfg["prefix_e"]))
+    res = train(cfg["caffenet_e"], f"--max_iter={cfg['iters']}", "--resume")
+    return {}, dict(digests=mesh.all_gather_objects(digest(res["state"])),
+                    iters=int(res["state"].iter))
+
+
+def resnet():
+    param = models.load_model_solver("resnet50")
+    param.base_lr = cfg["resnet_lr"]
+    solver = Solver(param, net_param=models.load_model(
+        "resnet50", batch=2 * cfg["resnet_batch"], image=cfg["resnet_image"]),
+        device=dev)
+    tr = AllReduceTrainer(solver, make_mesh({"dp": 2}, workers_per_process=1))
+    window = {k: np.load(cfg["resnet_window"])[k] for k in ("data", "label")}
+    with deterministic_algorithms():
+        st = tr.init_state(0)
+        st, losses = tr.step(st, window)
+    return ({**flat(st.params), **{f"s{i}": v for i, v in
+                                   enumerate(flat(st.stats).values())}},
+            dict(digests=mesh.all_gather_objects(digest(st)),
+                 losses=losses.cpu().tolist(),
+                 grad_bytes_per_iter=solver.grad_reduce_bytes / 2))
+
+
+def lm():
+    res = {}
+    assert lm_app.main(cfg["lm_argv"], result=res) == 0
+    return ({k: v for k, v in flat(res["state"].params).items()},
+            dict(digests=mesh.all_gather_objects(digest(res["state"])),
+                 losses=res["losses"].tolist(),
+                 round_s=res["round_seconds"],
+                 grad_bytes_per_iter=res["trainer"].solver.grad_reduce_bytes
+                 / (cfg["lm_rounds"] * cfg["lm_tau"])))
+
+
+for name, fn in (("a", caffenet), ("e", resumed), ("b", resnet), ("c", lm)):
+    leg(name, fn)
+    print(f"leg {name}: {meta[name]['wall_s']:.2f} s", flush=True)
+with open(f"{out}.rank{pid}.json", "w") as f:
+    json.dump(meta, f)
+mesh.shutdown()
+print(f"P19_OK p{pid}", flush=True)
+"""
+
+# (d): NCCL at world size 1: the plain Solver's two iterations of
+# cifar10_full first, then AllReduceTrainer over the joined group
+P19_NCCL_WORKER = r"""
+import hashlib
+import json
+import sys
+
+import numpy as np
+import torch
+
+pid, address = int(sys.argv[1]), sys.argv[2]
+from sparknet_tpu_torch import models
+from sparknet_tpu_torch.data.source import synthetic_batches
+from sparknet_tpu_torch.parallel import AllReduceTrainer, make_mesh, mesh
+from sparknet_tpu_torch.solver import Solver
+from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+from sparknet_tpu_torch.utils.tree import tree_leaves
+
+
+def digest(tree):
+    h = hashlib.sha256()
+    for x in tree_leaves(tree):
+        h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run(group):
+    solver = Solver(models.load_model_solver("cifar10_full"), device="cuda")
+    step = solver if not group else AllReduceTrainer(
+        solver, make_mesh({"dp": 1}, workers_per_process=1))
+    window = synthetic_batches(solver.net, 2)
+    with deterministic_algorithms():
+        st = solver.init_state(0)
+        st, losses = step.step(st, window)
+    return digest(st), losses.cpu().tolist(), solver.grad_reduce_bytes
+
+
+plain = run(False)
+mesh.initialize_distributed(address, 1, 0, device="cuda")
+assert mesh.joined_backend() == "nccl", mesh.joined_backend()
+joined = run(True)
+mesh.shutdown()
+print("NCCL_W1 " + json.dumps({"plain": plain, "joined": joined}), flush=True)
+print(f"P19_NCCL_OK p{pid}", flush=True)
+"""
+
+
+def _p19_files(root):
+    """The rank script's inputs: CaffeNet at full width as per-rank and
+    global solver files (the printer writes the zoo model's net inline),
+    and ResNet-50's seeded window of the global batch."""
+    from sparknet_tpu_torch import config, models
+
+    def solver_file(name, batch):
+        param = models.load_model_solver("caffenet")
+        param.net_param = config.replace_data_layers(
+            models.load_model("caffenet", image=P19_IMAGE),
+            [(batch, 3, P19_IMAGE, P19_IMAGE), (batch,)])
+        param.snapshot = P19_TAU
+        param.snapshot_prefix = f"{root}/{name}/caffenet"
+        param.display = P19_TAU
+        path = f"{root}/{name}.prototxt"
+        with open(path, "w") as f:
+            f.write(config.dumps(param))
+        return path
+
+    rng = np.random.RandomState(19)
+    g = 2 * P19_RESNET_BATCH
+    window = f"{root}/resnet_window.npz"
+    np.savez(window, data=rng.randn(P19_TAU, g, 3, P19_RESNET_IMAGE,
+                                    P19_RESNET_IMAGE).astype(
+        np.float32), label=rng.randint(0, 1000, (P19_TAU, g)).astype(
+        np.float32))
+    lm_argv = _lm_argv(torch.device("cuda"))
+    lm_argv[lm_argv.index("--workers") + 1] = "1"
+    lm_argv[lm_argv.index("--rounds") + 1] = str(P19_LM_ROUNDS)
+    return dict(
+        caffenet=solver_file("a", P19_RANK_BATCH),
+        caffenet_e=solver_file("e", P19_RANK_BATCH),
+        caffenet_one=solver_file("one", 2 * P19_RANK_BATCH),
+        prefix_a=f"{root}/a/caffenet", prefix_e=f"{root}/e/caffenet",
+        tau=P19_TAU, iters=P19_TAU * P19_WINDOWS,
+        resnet_lr=DEEP_LR["resnet50"], resnet_batch=P19_RESNET_BATCH,
+        resnet_image=P19_RESNET_IMAGE,
+        resnet_window=window, lm_argv=lm_argv + ["--sp", "2"],
+        lm_rounds=P19_LM_ROUNDS, lm_tau=LM_TAU)
+
+
+def _p19_resnet_step(dev, cfg, dtype):
+    """(b)'s one-process reference: ResNet-50's two iterations on the
+    global batch in ``dtype`` under deterministic algorithms.  Returns
+    the initial params and stats, the losses and the final ones, as
+    float64 numpy."""
+    from sparknet_tpu_torch.models import load_model, load_model_solver
+    from sparknet_tpu_torch.solver import Solver
+    from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+    from sparknet_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    param = load_model_solver("resnet50")
+    param.base_lr = cfg["resnet_lr"]
+    solver = Solver(param, net_param=load_model(
+        "resnet50", batch=2 * cfg["resnet_batch"], image=cfg["resnet_image"]),
+        device=dev)
+    win = np.load(cfg["resnet_window"])
+    window = {k: win[k].astype(np.float64 if dtype == torch.float64
+                                else np.float32) for k in ("data", "label")}
+    with deterministic_algorithms():
+        st = tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                      solver.init_state(0))
+
+        def host(s):
+            return [np.float64(x.cpu().numpy())
+                    for x in tree_leaves(s.params) + tree_leaves(s.stats)]
+
+        init = host(st)
+        st, losses = solver.step(st, window)
+    return init, losses.cpu().tolist(), host(st)
+
+
+def _p19_gap(got, want) -> float:
+    """The largest |got - want| beyond the JAX test's allowance, over
+    blobs (0 when every element lies within rtol/atol)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        excess = np.abs(a - b) - (P19_ATOL + P19_RTOL * np.abs(b))
+        worst = max(worst, float(excess.max()))
+    return max(worst, 0.0)
+
+
+def _p19_params(z):
+    return [z[k] for k in sorted((k for k in z if k.startswith("p")),
+                                 key=lambda k: int(k[1:]))]
+
+
+def allreduce_end_to_end(dev, card):
+    """Phase 19: all-reduce DP and the LM across processes.  Two ranks
+    share the card over gloo (their backend printed): (a) ``cli train
+    --devices 2`` on CaffeNet at full width (16 images a rank, 2 windows
+    of tau 2) against the one-process run on the scaled batch of 32;
+    (e) the same cut at its first window and ``--resume``d, to the bit;
+    (b) ResNet-50 (8 images a rank, lr 0.002) under AllReduceTrainer for
+    2 iterations under deterministic algorithms against the one-process
+    global-batch step; (c) ``lm_app --sp 2`` at phase 18 (b)'s width as
+    2 ranks against the one-process ``--sp 2``; every leg's ranks
+    bit-identical.  (d) AllReduceTrainer over NCCL at world size 1, bit
+    for bit the plain Solver.  Returns the ranks' main-path launches."""
+    import io
+
+    from sparknet_tpu_torch.apps import lm_app
+    from sparknet_tpu_torch.models import load_model, load_model_solver
+    from sparknet_tpu_torch.solver import Solver
+    from sparknet_tpu_torch.tools import cli
+    from sparknet_tpu_torch.utils import procs
+    from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+    from sparknet_tpu_torch.utils.tree import tree_leaves
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p19_") as root:
+        cfg = _p19_files(root)
+        out = f"{root}/p19"
+        t0 = time.perf_counter()
+        logs = procs.run_worker_processes(
+            P19_WORKER, "P19_OK", repo, nprocs=2,
+            args=[json.dumps(cfg), out], timeout=P19_TIMEOUT_S, workdir=root,
+            env_extra={"SPARKNET_LOG_DIR": root})
+        ranks_wall = time.perf_counter() - t0
+        joined = [ln for o in logs for ln in o.splitlines() if "joined" in ln]
+        print(f"[{card}] phase 19 ranks ({ranks_wall:.1f} s): "
+              + "; ".join(joined))
+        check(len(joined) == 2 and all("over gloo" in ln for ln in joined),
+              f"the ranks did not join over gloo: {joined}")
+        meta = []
+        for pid in range(2):
+            with open(f"{out}.rank{pid}.json") as f:
+                meta.append(json.load(f))
+        for name in "aebc":
+            dig = [set(m[name]["digests"]) for m in meta]
+            check(all(len(d) == 1 for d in dig) and dig[0] == dig[1],
+                  f"leg {name}: the ranks' states differ: {dig}")
+            for pid, m in enumerate(meta):
+                for k, n in m[name]["launches"].items():
+                    launches[k] = launches.get(k, 0) + n
+        # (d) runs beside this process's references: its own process,
+        # the card's work is small
+        nccl = {}
+        d_thread = threading.Thread(target=lambda: nccl.update(
+            logs=procs.run_worker_processes(
+                P19_NCCL_WORKER, "P19_NCCL_OK", repo, nprocs=1, timeout=300,
+                workdir=root, env_extra={"SPARKNET_LOG_DIR": root})),
+            daemon=True)
+        d_thread.start()
+        walls = {}
+        # (a) against one process on the scaled batch
+        t0 = time.perf_counter()
+        one = {}
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["train", f"--solver={cfg['caffenet_one']}",
+                           "--device=cuda", f"--tau={P19_TAU}",
+                           f"--max_iter={cfg['iters']}"], one)
+        check(rc == 0, f"cli train --devices 1 exited {rc}")
+        walls["a"] = time.perf_counter() - t0
+        a = dict(np.load(f"{out}.a.npz"))
+        gap = _p19_gap(_p19_params(a), [x.cpu().numpy() for x in
+                                        tree_leaves(one["state"].params)])
+        ma = [m["a"] for m in meta]
+        lgap = abs(ma[0]["smoothed"] - one["smoothed_loss"]) / abs(
+            one["smoothed_loss"])
+        n_lrn = 2 * cfg["iters"]  # CaffeNet's two LRNs an iteration
+        for pid, m in enumerate(ma):
+            st = m["staging"]
+            print(f"[{card}] (a) rank {pid}: cli train --devices 2, CaffeNet "
+                  f"{P19_RANK_BATCH} a rank, {cfg['iters']} iterations: "
+                  f"{m['wall_s']:.2f} s; K5/K6 {m['launches']['lrn_fwd']}/"
+                  f"{m['launches']['lrn_bwd']} (expected {n_lrn} each); grad "
+                  f"bytes a rank an iteration {m['grad_bytes_per_iter']:.0f}; "
+                  f"host staging {st['ms'] / cfg['iters']:.2f} ms an iteration"
+                  f" ({st['bytes']} bytes over the leg, state broadcast "
+                  "included)")
+            check(m["launches"]["lrn_fwd"] == n_lrn
+                  and m["launches"]["lrn_bwd"] == n_lrn,
+                  f"(a) rank {pid}: K5/K6 launches {m['launches']}")
+        print(f"[{card}] (a) vs one process on the batch of "
+              f"{2 * P19_RANK_BATCH}: smoothed loss {ma[0]['smoothed']:.6f} "
+              f"vs {one['smoothed_loss']:.6f} (rel {lgap:.2e}, limit "
+              f"{P19_LOSS_RTOL}); params beyond rtol {P19_RTOL} / atol "
+              f"{P19_ATOL}: {gap:.3e}")
+        check(lgap <= P19_LOSS_RTOL and gap == 0.0,
+              f"(a) left the one-process run: loss {lgap}, params {gap}")
+        # (e) the resumed run's bits are the uninterrupted run's
+        check(meta[0]["e"]["digests"][0] == meta[0]["a"]["digests"][0]
+              and meta[0]["e"]["iters"] == cfg["iters"],
+              "(e) --resume left the uninterrupted run's bits")
+        print(f"[{card}] (e) killed after iteration {P19_TAU} (its snapshot "
+              f"alone left) and --resume'd to {cfg['iters']}: bit for bit (a)"
+              f" ({meta[0]['e']['wall_s']:.2f} s)")
+        # (b) ResNet-50 against the one-process global-batch step, both
+        # held to the same step in float64
+        b = dict(np.load(f"{out}.b.npz"))
+        n_par = len(_p19_params(b))
+        ranks_b = _p19_params(b) + [b[f"s{i}"] for i in range(
+            sum(1 for k in b if k.startswith("s")))]
+        t0 = time.perf_counter()
+        one_b = {}
+        for dtype in (torch.float32, torch.float64):
+            one_b[dtype] = _p19_resnet_step(dev, cfg, dtype)
+        walls["b"] = time.perf_counter() - t0
+        init, l64, want = one_b[torch.float64]
+        _, l32, got32 = one_b[torch.float32]
+
+        def far(xs):
+            """The update's distance from float64's, over its norm."""
+            num = sum(float(((np.float64(x) - w) ** 2).sum())
+                      for x, w in zip(xs, want))
+            den = sum(float(((w - i) ** 2).sum()) for w, i in zip(want, init))
+            return float(np.sqrt(num / den))
+
+        mb = meta[0]["b"]
+        far_ranks, far_one = far(ranks_b), far(got32)
+        far_p = (far(ranks_b[:n_par] + want[n_par:]),
+                 far(got32[:n_par] + want[n_par:]))
+        limit = max(P19_F64_FACTOR * far_one, P19_F64_FLOOR)
+        print(f"[{card}] (b) ResNet-50 under AllReduceTrainer, "
+              f"{P19_RESNET_BATCH} a rank, 2 iterations: {mb['wall_s']:.2f} s;"
+              f" losses {mb['losses']}, one process float32 {l32}, float64 "
+              f"{l64}; the update's distance from float64's: ranks "
+              f"{far_ranks:.3e} (params {far_p[0]:.3e}), one process "
+              f"{far_one:.3e} (params {far_p[1]:.3e}), limit {limit:.3e}; "
+              f"grad bytes a rank an iteration {mb['grad_bytes_per_iter']:.0f};"
+              f" host staging {mb['staging']['ms'] / 2:.2f} ms an iteration")
+        check(far_ranks <= limit and all(np.isfinite(mb["losses"])),
+              f"(b) the ranks' step is {far_ranks:.3e} from float64's, the "
+              f"one-process float32 step {far_one:.3e}")
+        # (c) lm_app --sp 2 as two ranks against one process
+        t0 = time.perf_counter()
+        res = {}
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = lm_app.main(cfg["lm_argv"], res)
+        check(rc == 0, f"lm_app --sp 2 exited {rc}")
+        walls["c"] = time.perf_counter() - t0
+        c = dict(np.load(f"{out}.c.npz"))
+        mc = meta[0]["c"]
+        c_loss = float(np.abs(np.array(mc["losses"]) - res["losses"]).max())
+        c_par = max(float(np.abs(x - y.cpu().numpy()).max()) for x, y in zip(
+            _p19_params(c), tree_leaves(res["state"].params)))
+        n_att = LM_MODEL["depth"] * LM_TAU * P19_LM_ROUNDS * 2
+        for pid, m in enumerate(meta):
+            got = m["c"]["launches"]
+            print(f"[{card}] (c) rank {pid}: lm_app --sp 2 (dim "
+                  f"{LM_MODEL['dim']}, depth {LM_MODEL['depth']}, tau "
+                  f"{LM_TAU}, {P19_LM_ROUNDS} rounds): {m['c']['wall_s']:.2f}"
+                  f" s, rounds {[round(x * 1e3, 1) for x in m['c']['round_s']]}"
+                  f" ms; K1/K3/K4 {got['flash_fwd']}/{got['flash_bwd_dq']}/"
+                  f"{got['flash_bwd_dkv']} (expected {n_att} each); grad bytes"
+                  f" a rank an iteration {m['c']['grad_bytes_per_iter']:.0f}; "
+                  f"host staging {m['c']['staging']['ms']:.1f} ms over the leg")
+            check(got["flash_fwd"] == got["flash_bwd_dq"]
+                  == got["flash_bwd_dkv"] == n_att,
+                  f"(c) rank {pid}: launches {got}")
+        print(f"[{card}] (c) vs one process --sp 2: losses {c_loss:.3e}, "
+              f"params {c_par:.3e} (limit {LM_TOL})")
+        check(c_loss <= LM_TOL and c_par <= LM_TOL,
+              f"(c) left the one-process ring: {c_loss}, {c_par}")
+        # (d) NCCL at world size 1
+        t0 = time.perf_counter()
+        d_thread.join(timeout=P19_TIMEOUT_S)
+        check("logs" in nccl, "(d) the NCCL world-1 rank did not finish")
+        walls["d (after the references)"] = time.perf_counter() - t0
+        d = json.loads(next(ln for ln in nccl["logs"][0].splitlines()
+                            if ln.startswith("NCCL_W1 "))[len("NCCL_W1 "):])
+        print(f"[{card}] (d) AllReduceTrainer over NCCL at world size 1: "
+              f"losses {d['joined'][1]} vs the plain Solver {d['plain'][1]}; "
+              f"grad bytes summed {d['joined'][2]}")
+        check(d["joined"][:2] == d["plain"][:2] and d["joined"][2] > 0,
+              f"(d) NCCL world 1 left the plain Solver's bits: {d}")
+        print(f"[{card}] phase 19 walls: the ranks {ranks_wall:.1f} s, the "
+              "one-process references "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    return launches
+
+
 def cudnn_failure_report(exc: BaseException) -> None:
     """On a failed run: cuDNN's version and flags, the device's free
     memory, the tensors of the port's innermost frame on the failing
@@ -6807,6 +7281,8 @@ def run_all() -> int:
                                                 seeded["tokens"]).items():
             launches[name] = launches.get(name, 0) + n
     for name, n in multiprocess_ring_end_to_end(dev, card).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in allreduce_end_to_end(dev, card).items():
         launches[name] = launches.get(name, 0) + n
     slow = sorted(((w, n, k) for k, (w, n) in WALLS.items() if w >= 1.0),
                   reverse=True)

@@ -51,9 +51,24 @@ and the membership view too.
 
 ``--stale_bound`` / ``--stale_discount`` (the bounded-staleness
 trainer) and ``--profile`` / ``--profile_out`` (the window draws timed
-per worker) are the JAX app's.  ``--obs``, and a run across processes
-(``--sp`` over a process group among it), are not yet ported and exit
+per worker) are the JAX app's.  ``--obs`` is not yet ported and exits
 saying so.
+
+Across processes (``tools/launch.py ... lm``, or any caller that joined
+through ``parallel.mesh.initialize_distributed`` first) the mesh is
+``{"dp": W, "sp": sp}`` in the JAX app's device order: rank ``d * sp +
+s`` holds dp worker ``d``'s sequence shard ``s`` (one slot a rank; at
+sp=1 each rank stacks ``--devices_per_host`` workers, as ``cifar_app``
+does).  Each rank draws its workers' windows and keeps its shard's
+positions (JAX ``lm_batch_spec``, ``P("dp", None, None, "sp")``); the
+sequence ring runs over the sp group (K1/K3/K4 at absolute offsets), the
+Solver sums the partial grads over it (``grad_groups``), and the average
+reduces over the dp group.  Only rank 0 echoes its log and writes
+snapshots; ``--resume`` restores on every rank the snapshot rank 0
+chose.  The flags ``parallel/mesh.py`` keeps single-process
+(``--stale_bound``, ``--elastic``, ``--slices``, ``--journal``,
+``--overlap_avg``, ``--profile``) exit saying so, and so does
+``--compress`` with snapshots.
 """
 
 from __future__ import annotations
@@ -66,6 +81,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 TAU = 4
 
@@ -85,16 +101,17 @@ def add_lm_model_args(parser) -> None:
     )
 
 
-def build_lm_solver(args, device, sp: int = 1):
+def build_lm_solver(args, device, sp: int = 1, sp_group=None):
     """(TransformerLMNet, Solver) from parsed args, on ``device``, at
-    ring width ``sp``."""
+    ring width ``sp`` (over the process group ``sp_group`` when given:
+    the Solver then sums its grads over that group)."""
     from sparknet_tpu_torch import models
     from sparknet_tpu_torch.config import parse_solver_prototxt
     from sparknet_tpu_torch.solver import Solver
 
     lm = models.build_transformer_lm(
         dim=args.dim, depth=args.depth, heads=args.heads,
-        seq_len=args.seq_len, sp_size=sp,
+        seq_len=args.seq_len, sp_size=sp, sp_group=sp_group,
         attention="dense" if args.dense_attention else "auto",
     )
     solver_param = parse_solver_prototxt(
@@ -104,7 +121,8 @@ def build_lm_solver(args, device, sp: int = 1):
         f"weight_decay: {args.weight_decay} "
         "average_loss: 20"
     )
-    return lm, Solver(solver_param, net=lm, device=device)
+    return lm, Solver(solver_param, net=lm, device=device,
+                      grad_groups=() if sp_group is None else (sp_group,))
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -165,18 +183,29 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def resume_lm_job(solver, trainer, prefix, jr, sampler=None, tau: int = TAU,
-                  metrics=None):
+                  metrics=None, group=None):
     """The journal-guided full-job-state resume (``runtime/recover.py``'s
     recipe): rewind to the last COMMITTED boundary, broadcast its
     consensus, put back every worker's momentum, the comm residuals and
     the loss window, and check the text cursor against the corpus.
-    Without a journal the newest valid snapshot is the target.  Returns
+    Without a journal the newest valid snapshot is the target; with a
+    process ``group`` its rank 0 chooses it and every rank restores it.
+    Returns
     ``(state, start_round, job_state, info, used)``; state None means
     nothing to restore (a ledger with no commit starts at round 0)."""
     from sparknet_tpu_torch.io import checkpoint
 
     info, js = None, None
-    if jr is not None:
+    if group is not None:
+        # across processes: rank 0's choice, restored on every rank
+        from sparknet_tpu_torch.parallel.trainers import restore_newest_agreed
+
+        try:
+            st, used = restore_newest_agreed(solver, prefix, group,
+                                             metrics=metrics)
+        except FileNotFoundError:
+            return None, 0, None, None, None
+    elif jr is not None:
         if jr.last_committed_round is None:
             # never consume a snapshot the ledger does not vouch for
             return None, 0, None, jr.reconcile(), None
@@ -197,6 +226,32 @@ def resume_lm_job(solver, trainer, prefix, jr, sampler=None, tau: int = TAU,
     return state, start_round, js, info, used
 
 
+def _process_mesh(args, sp: int):
+    """The mesh of a joined world: ``{"dp": W}`` stacking
+    ``local_device_count()`` workers a rank at sp=1 (``mesh.app_mesh``),
+    else ``{"dp": W, "sp": sp}`` one slot a rank, rank ``d * sp + s``
+    holding worker ``d``'s shard ``s``.  The flags that stay
+    single-process exit naming themselves."""
+    from sparknet_tpu_torch.parallel import mesh as mesh_mod
+
+    if sp == 1:
+        return mesh_mod.app_mesh(args, "lm_app")[1]
+    mesh_mod.refuse_single_process_flags(args, "lm_app")
+    p = mesh_mod.process_count()
+    per = mesh_mod.local_device_count()
+    if per != 1:
+        raise SystemExit(
+            f"lm_app: --sp {sp} across processes holds one sequence shard a "
+            f"rank; stacking {per} slots a rank (--devices_per_host) is not "
+            "yet ported to sparknet_tpu_torch")
+    w = args.workers or p // sp
+    if w * sp != p:
+        raise SystemExit(
+            f"lm_app: --sp {sp} across {p} processes (one shard a rank) "
+            f"needs --workers x --sp = {p}, got {w} x {sp}")
+    return mesh_mod.make_mesh({"dp": w, "sp": sp}, workers_per_process=1)
+
+
 def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int:
     """Train; returns the exit code (1 when the sentry halts).
     ``result``, when given, receives the LM, the final state, the
@@ -210,13 +265,22 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     args = _parser().parse_args(argv)
     from sparknet_tpu_torch.parallel import mesh as mesh_mod
 
-    mesh_mod.refuse_multiprocess("lm_app", "--sp over a process group")
     sp = max(1, args.sp)
     if args.seq_len % sp:
         raise SystemExit(
             f"lm: --seq_len {args.seq_len} must divide by --sp {sp} "
             "(the ring rotates equal sequence shards)"
         )
+    distributed = mesh_mod.process_count() > 1
+    mesh = None
+    if distributed:
+        mesh = _process_mesh(args, sp)
+        if args.compress != "none" and args.snapshot_prefix and \
+                args.snapshot_every:
+            raise SystemExit(
+                "lm_app: --compress with snapshots across processes is not "
+                "yet ported to sparknet_tpu_torch (the residuals would need "
+                "gathering)")
     from sparknet_tpu_torch import obs
 
     obs.check_args(args, "lm_app")
@@ -233,7 +297,9 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         resolve_device,
     )
 
-    device = resolve_device(args.device)
+    device = (mesh_mod.app_device(args.device, "lm_app") if distributed
+              else resolve_device(args.device))
+    rank = mesh_mod.process_index()
 
     from sparknet_tpu_torch.apps.guards import RoundGuards
     from sparknet_tpu_torch.data import (
@@ -252,14 +318,28 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     from sparknet_tpu_torch.parallel import first_worker
     from sparknet_tpu_torch.utils.trainlog import TrainingLog
 
-    n_workers = args.workers or (
-        torch.cuda.device_count() if device.type == "cuda" else 1
-    )
+    if mesh is not None:
+        n_workers = mesh.shape["dp"]
+        mine = mesh.coords["dp"]
+    else:
+        n_workers = args.workers or (
+            torch.cuda.device_count() if device.type == "cuda" else 1
+        )
+        mine = slice(0, n_workers)
     prefix = args.snapshot_prefix
-    journal_path = args.journal_path or (
+    # across processes there is no run journal (--journal is refused, and
+    # no rank consumes a ledger left by a one-process run)
+    journal_path = None if distributed else args.journal_path or (
         default_journal_path(prefix) if prefix else "lm_run.journal")
-    if args.resume and not checkpoint.find_snapshots(prefix) and not (
-            args.journal is not False and os.path.exists(journal_path)):
+    def nothing_to_resume():
+        return not checkpoint.find_snapshots(prefix) and not (
+            journal_path and args.journal is not False
+            and os.path.exists(journal_path))
+
+    # across processes rank 0 looks (it wrote the snapshots; another rank
+    # may start this run before its last write lands)
+    if args.resume and (mesh_mod.on_rank0(nothing_to_resume) if distributed
+                        else nothing_to_resume()):
         # a typo'd prefix must not silently retrain the whole run
         raise SystemExit(f"lm_app: --resume found no ledger and no snapshots "
                          f"under {prefix!r}")
@@ -268,7 +348,8 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     metrics = TrainingMetrics()
     with deterministic_algorithms(), obs.installed_metrics(metrics), \
             tempfile.TemporaryDirectory(prefix="lm_synth_corpus_") as synth, \
-            TrainingLog(tag="lm") as log:
+            TrainingLog(tag="lm" if rank == 0 else f"lm_p{rank}",
+                        echo=rank == 0) as log:
         corpus = args.corpus
         if corpus is None:
             write_synthetic_corpus(synth, seed=args.seed)
@@ -281,17 +362,27 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             cache_bytes=args.cache_bytes)
         log.log(f"corpus: {len(docs)} documents, "
                 f"{sum(len(d) for d in docs)} bytes")
-        lm, solver = build_lm_solver(args, device, sp)
-        log.log(f"mesh: dp={n_workers} sp={sp} ({n_workers} worker(s) "
-                f"stacked on {device}, each ring of {sp} shard(s) on its "
-                "worker's device)")
+        sp_group = mesh.group("sp") if mesh is not None and sp > 1 else None
+        lm, solver = build_lm_solver(args, device, sp, sp_group)
+        if mesh is not None:
+            log.log(f"mesh: dp={n_workers} sp={sp} over "
+                    f"{mesh.process_count} processes (rank {rank}: dp "
+                    f"worker(s) {mine.start}..{mine.stop - 1}, sequence "
+                    f"shard {mesh.coords.get('sp', slice(0, 1)).start} of "
+                    f"{sp}) over {mesh_mod.joined_backend()}")
+        else:
+            log.log(f"mesh: dp={n_workers} sp={sp} ({n_workers} worker(s) "
+                    f"stacked on {device}, each ring of {sp} shard(s) on "
+                    "its worker's device)")
         log.log(
             f"model: dim={args.dim} depth={args.depth} heads={args.heads} "
             f"seq_len={args.seq_len} ({lm.num_params()} params), attention "
             f"{lm.attention}; {n_workers} workers on {device}"
         )
         if sp > 1:
-            path = (f"the {sp}-shard sequence ring: "
+            path = (f"the {sp}-shard sequence ring"
+                    + (" over the sp process group: " if sp_group is not None
+                       else ": ")
                     + ("flash kernels (K1 forward, K3/K4 backward) each step"
                        if lm.on_kernel and torch.device(device).type == "cuda"
                        else "plain versions of the flash kernels each step"
@@ -307,13 +398,21 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         guards = RoundGuards.from_args(
             args, solver, n_workers, app="lm_app", log=log, metrics=metrics,
             journal_path=journal_path, resuming=args.resume,
-            restore_prefix=prefix)
+            restore_prefix=prefix, mesh=mesh)
         trainer, jr = guards.trainer, guards.journal
 
-        # one joined corpus stream, one cursor per dp worker
+        # one joined corpus stream, one cursor per dp worker (across
+        # processes: this rank's workers)
         base = TextWindowSampler(docs, args.seq_len, args.batch,
                                  seed=args.seed, worker=0)
-        samplers = [base.for_worker(w) for w in range(n_workers)]
+        samplers = [base.for_worker(w) for w in range(mine.start, mine.stop)]
+        # this rank's sequence shard of every window (P("dp", None, None,
+        # "sp")); the whole sequence when the ring stays in the process
+        seq = slice(None)
+        if sp_group is not None:
+            t_local = args.seq_len // sp
+            s_idx = mesh.coords["sp"].start
+            seq = slice(s_idx * t_local, (s_idx + 1) * t_local)
         tokens_per_round = n_workers * args.tau * args.batch * args.seq_len
         ring_bytes_per_round = (
             lm.ring_hop_bytes_per_iter(args.batch) * args.tau * n_workers)
@@ -321,8 +420,9 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         state, start_round, info = None, 0, None
         if args.resume:
             state, start_round, js, info, used = resume_lm_job(
-                solver, trainer, prefix, jr, sampler=samplers[0],
-                tau=args.tau, metrics=metrics)
+                solver, trainer, prefix, jr, sampler=base,
+                tau=args.tau, metrics=metrics,
+                group=dist.group.WORLD if distributed else None)
             if state is not None:
                 guards.restore_job(js)
                 log.log(f"resumed from {used} at round {start_round} "
@@ -344,14 +444,20 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
                 windows = profile.timed_worker_windows(
                     r, [lambda s=s: s.window_for_round(r, args.tau)
                         for s in samplers])
-            return stack_windows(windows)
+            stacked = stack_windows(windows)
+            return {k: np.ascontiguousarray(v[..., seq])
+                    for k, v in stacked.items()}
 
         def snapshot(r):
             """Publish the round-``r`` boundary: worker 0's consensus plus
-            the job state a resume puts back."""
+            the job state a resume puts back (every rank gathers it, rank
+            0 writes it)."""
             extra = trainer.export_job_state(
-                state, samplers[0].cursor_for_iter((r + 1) * args.tau))
+                state, base.cursor_for_iter((r + 1) * args.tau))
             extra.update(guards.job_extra())
+            if rank != 0:
+                log.log(f"round {r}: snapshot written by rank 0")
+                return None
             _, state_path = checkpoint.snapshot(
                 solver, first_worker(state), prefix, fmt="BINARYPROTO",
                 extra_state=extra, metrics=metrics,
@@ -370,7 +476,7 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
                 for r in range(start_round, args.rounds):
                     t0 = time.perf_counter()
                     guards.begin(r, iter=r * args.tau,
-                                 cursor=samplers[0].cursor_for_iter(r * args.tau))
+                                 cursor=base.cursor_for_iter(r * args.tau))
                     state, mask = guards.boundary(state, r)
                     if mask is not None and not mask.any():
                         log.log(f"round {r}: no live workers in the membership "
@@ -392,8 +498,10 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
                     if prefix and args.snapshot_every and \
                             (r + 1) % args.snapshot_every == 0:
                         state_path = snapshot(r)
-                        guards.commit(r, iter=(r + 1) * args.tau,
-                                      snapshot=os.path.basename(state_path))
+                        if state_path is not None:
+                            guards.commit(r, iter=(r + 1) * args.tau,
+                                          snapshot=os.path.basename(
+                                              state_path))
                     elif not prefix:
                         # progress-only ledger: with a prefix, a round
                         # without a snapshot stays uncommitted, so a

@@ -6,7 +6,7 @@ Own copy of ``sparknet_tpu/config``: typed dataclasses
 
 import os
 
-from sparknet_tpu_torch.config.prototext import ParseError, parse, parse_file
+from sparknet_tpu_torch.config.prototext import ParseError, dumps, parse, parse_file
 from sparknet_tpu_torch.config.schema import (
     BlobShape,
     JavaDataParameter,
@@ -23,6 +23,7 @@ __all__ = [
     "NetState",
     "ParseError",
     "SolverParameter",
+    "dumps",
     "load_net_prototxt",
     "load_solver_prototxt",
     "parse_net_prototxt",

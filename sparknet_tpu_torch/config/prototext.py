@@ -9,8 +9,10 @@ proto2 text format the reference's configs use::
     scalar    := number | 'true' | 'false' | quoted-string | ENUM_IDENT
 
 Repeated fields accumulate across occurrences.  Unknown fields raise
-(catches typos) unless ``permissive=True``.  The V0/V1 legacy upgrades
-and the printer are not ported.
+(catches typos) unless ``permissive=True``.  ``dumps`` is the printer
+(its output round-trips through ``parse``: a net built in Python is
+written as a file a solver names).  The V0/V1 legacy upgrades are not
+ported.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Any, Dict, List, Tuple, Type
 
 from sparknet_tpu_torch.config.schema import Message
 
-__all__ = ["parse", "parse_file", "ParseError"]
+__all__ = ["dumps", "parse", "parse_file", "ParseError"]
 
 
 class ParseError(ValueError):
@@ -217,3 +219,85 @@ def parse(text: str, cls: Type[Message], permissive: bool = False) -> Message:
 def parse_file(path: str, cls: Type[Message], permissive: bool = False) -> Message:
     with open(path, "r") as f:
         return parse(f.read(), cls, permissive)
+
+
+# ---------------------------------------------------------------------------
+# Printer
+# ---------------------------------------------------------------------------
+
+_ENUMISH_FIELDS = {
+    # fields whose string values print unquoted (proto enums)
+    ("NetStateRule", "phase"),
+    ("NetState", "phase"),
+    ("LayerParameter", "phase"),
+    ("ParamSpec", "share_mode"),
+    ("FillerParameter", "variance_norm"),
+    ("LossParameter", "normalization"),
+    ("ConvolutionParameter", "engine"),
+    ("PoolingParameter", "pool"),
+    ("PoolingParameter", "engine"),
+    ("EltwiseParameter", "operation"),
+    ("LRNParameter", "norm_region"),
+    ("LRNParameter", "engine"),
+    ("ReductionParameter", "operation"),
+    ("HingeLossParameter", "norm"),
+    ("DataParameter", "backend"),
+    ("SoftmaxParameter", "engine"),
+    ("ReLUParameter", "engine"),
+    ("SigmoidParameter", "engine"),
+    ("TanHParameter", "engine"),
+    ("SPPParameter", "pool"),
+    ("SPPParameter", "engine"),
+    ("SolverParameter", "snapshot_format"),
+    ("SolverParameter", "solver_mode"),
+    ("SolverParameter", "solver_type"),
+}
+
+
+def _fmt_scalar(cls_name: str, fname: str, v: Any) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, float):
+        return repr(v)
+    if isinstance(v, int):
+        return str(v)
+    if (cls_name, fname) in _ENUMISH_FIELDS:
+        return str(v)
+    return '"' + str(v).replace("\\", "\\\\").replace('"', '\\"') + '"'
+
+
+def dumps(msg: Message, indent: int = 0) -> str:
+    """Print a message as prototxt (round-trips through :func:`parse`)."""
+    cls = type(msg)
+    if cls not in _TYPE_CACHE:
+        _TYPE_CACHE[cls] = _field_types(cls)
+    ftypes = _TYPE_CACHE[cls]
+    pad = "  " * indent
+    lines = []
+    for f in dataclasses.fields(msg):
+        v = getattr(msg, f.name)
+        kind, _ = ftypes[f.name]
+        default = (
+            f.default_factory()
+            if f.default_factory is not dataclasses.MISSING
+            else f.default
+        )
+        if kind in ("scalar", "list") and (v == default or v is None):
+            continue
+        if kind in ("msg", "msglist") and not v:
+            continue
+        if kind == "scalar":
+            lines.append(f"{pad}{f.name}: {_fmt_scalar(cls.__name__, f.name, v)}")
+        elif kind == "list":
+            for item in v:
+                lines.append(
+                    f"{pad}{f.name}: {_fmt_scalar(cls.__name__, f.name, item)}"
+                )
+        elif kind == "msg":
+            body = dumps(v, indent + 1)
+            lines.append(f"{pad}{f.name} {{\n{body}{pad}}}")
+        else:
+            for item in v:
+                body = dumps(item, indent + 1)
+                lines.append(f"{pad}{f.name} {{\n{body}{pad}}}")
+    return "".join(line + "\n" for line in lines)

@@ -34,12 +34,19 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from sparknet_tpu_torch.utils import rngs
+from sparknet_tpu_torch.utils import dp, rngs
 
 Batch = Dict[str, torch.Tensor]
 
 __all__ = ["crop_batch", "finish_host_crops", "from_transform_param",
            "test_transform", "train_transform"]
+
+
+def _draw(shape, draw) -> torch.Tensor:
+    """``draw(shape)``, or under a data-parallel step this rank's rows of
+    the draw for the global batch (``utils/dp.py``)."""
+    shard = dp.current()
+    return draw(tuple(shape)) if shard is None else shard.draw(shape, draw)
 
 
 def _placed_mean(mean: Optional[np.ndarray]):
@@ -99,17 +106,22 @@ def train_transform(
     (``imageNetTrainPreprocessing``, ImageNetApp.scala:166-180): per image
     a crop offset in ``[0, H - crop]`` and ``[0, W - crop]`` and, with
     ``mirror``, a fair coin for the flip, drawn in that order from the
-    key's CPU generator."""
+    key's CPU generator (for the global batch under a data-parallel
+    step, ``utils/dp.py``, each rank keeping its rows)."""
     mean_on = _placed_mean(mean)
 
     def fn(batch: Batch, rng: int) -> Batch:
         imgs = batch[data_key]
         n, _, h, w = imgs.shape
         gen = rngs.generator(rng)
-        h_offs = torch.randint(0, h - crop + 1, (n,), generator=gen)
-        w_offs = torch.randint(0, w - crop + 1, (n,), generator=gen)
-        flips = (torch.rand((n,), generator=gen) < 0.5 if mirror
-                 else torch.zeros((n,), dtype=torch.bool))
+        # in this order from one generator: under a data-parallel step
+        # each is the global batch's draw cut to this rank's rows
+        h_offs = _draw((n,), lambda s: torch.randint(0, h - crop + 1, s,
+                                                     generator=gen))
+        w_offs = _draw((n,), lambda s: torch.randint(0, w - crop + 1, s,
+                                                     generator=gen))
+        flips = (_draw((n,), lambda s: torch.rand(s, generator=gen)) < 0.5
+                 if mirror else torch.zeros((n,), dtype=torch.bool))
         new = dict(batch)
         new[data_key] = crop_batch(imgs, mean_on(imgs.device),
                                    h_offs, w_offs, flips, crop, scale)
@@ -233,7 +245,9 @@ def from_transform_param(
         x = finish(batch)
         if tp.mirror:
             gen = rngs.generator(rng)
-            flip = (torch.rand((x.shape[0],), generator=gen) < 0.5).to(x.device)
+            flip = _draw((x.shape[0],), lambda shape: torch.rand(
+                shape, generator=gen)) < 0.5
+            flip = flip.to(x.device)
             x = torch.where(flip.reshape((-1,) + (1,) * (x.dim() - 1)),
                             x.flip(-1), x)
         new = dict(batch)

@@ -296,7 +296,9 @@ def attention_layer(
     block_size: int = 512,
     top=None,
 ):
-    """Multi-head attention (an extension; its layer is not yet ported)."""
+    """Multi-head self-attention over a (B, T, E) bottom (an extension
+    layer, ``ops/attention.py`` ``Attention``: the flash kernels K1 and
+    K3/K4 on the card)."""
     return LayerParameter(
         name=name,
         type="Attention",

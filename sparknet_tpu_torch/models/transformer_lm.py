@@ -31,8 +31,14 @@ on the worker's device: each layer's attention cuts the sequence into
 ``n`` shards and runs ``n^2`` partial steps at absolute offsets (K1
 forward, K3/K4 backward with a nonzero ``dlse``; the dense recurrence
 under ``attention="dense"``), the same function as sp=1 up to float
-associativity.  The serving module stays sp=1, as the JAX model's
-generation seams do.
+associativity.  ``sp_group`` puts the ring over a process group
+instead: each rank holds one sequence shard (``local_seq`` positions,
+offset by its rank in the group, as JAX's ``axis_index``), KV rotates
+between the ranks, and the loss has a global value and a local
+gradient (JAX ``transformer_lm.py:282-313``: the shard sums cross the
+group detached, so each rank's grads are its share and the Solver's
+``grad_groups`` sum them).  The serving module stays sp=1, as the JAX
+model's generation seams do.
 """
 
 from __future__ import annotations
@@ -171,17 +177,19 @@ def multipliers(plan: Plan):
 
 
 def causal_forward(params: Params, tokens, heads: int, attend,
-                   keep_kv: bool = False):
+                   keep_kv: bool = False, pos_offset: int = 0):
     """The causal forward over a ``{group: [blob]}`` params dict — the
-    one body of both views.  ``tokens`` (B, T) int64, T <= the position
-    table; ``attend(q, k, v)`` is one layer's causal attention on
-    (B, T, H, D).  Returns ``(logits (B, T, V), [k], [v])``, the per-layer
-    K/V lists filled only with ``keep_kv``."""
+    one body of both views.  ``tokens`` (B, T) int64 at positions
+    ``pos_offset .. pos_offset + T - 1`` of the position table;
+    ``attend(q, k, v)`` is one layer's causal attention on (B, T, H, D).
+    Returns ``(logits (B, T, V), [k], [v])``, the per-layer K/V lists
+    filled only with ``keep_kv``."""
     B, T = tokens.shape
     tok, pos = params["embed"]
     E = tok.shape[1]
     D = E // heads
-    x = (tok[tokens] + pos[torch.arange(T, device=tokens.device)]).float()
+    x = (tok[tokens] + pos[pos_offset + torch.arange(
+        T, device=tokens.device)]).float()
     ks, vs = [], []
     i = 0
     while f"block{i}_attn" in params:
@@ -210,13 +218,14 @@ def _dense_causal(q, k, v):
     return mha_reference(q, k, v, causal=True)
 
 
-def _ring_causal(sp: int, use_flash: bool):
-    """One layer's causal attention through the stacked ``sp``-shard
-    sequence ring."""
+def _ring_causal(ring, use_flash: bool):
+    """One layer's causal attention through the sequence ring: stacked
+    (``ring`` the shard count) or over a process group (``ring`` the
+    group, this rank holding one shard)."""
     from sparknet_tpu_torch.parallel.ring_attention import ring_attention
 
     def attend(q, k, v):
-        return ring_attention(q, k, v, sp, causal=True, use_flash=use_flash)
+        return ring_attention(q, k, v, ring, causal=True, use_flash=use_flash)
 
     return attend
 
@@ -468,7 +477,10 @@ class TransformerLMNet:
     ``attention``: ``"auto"`` and ``"flash"`` run the kernel wrappers
     (K1 forward, K3/K4 backward on CUDA tensors, their plain versions on
     CPU tensors), ``"dense"`` (``--dense_attention``) runs
-    ``mha_reference`` under autograd."""
+    ``mha_reference`` under autograd.  ``sp_group`` (a
+    ``torch.distributed`` group of ``sp_size`` ranks) runs the ring over
+    processes: the net then takes this rank's (B, seq_len / sp_size)
+    shard of every batch."""
 
     def __init__(
         self,
@@ -481,8 +493,19 @@ class TransformerLMNet:
         sp_size: int = 1,
         attention: str = "auto",
         name: str = "TransformerLM",
+        sp_group=None,
     ):
         _check_geometry(dim, heads, sp_size, seq_len)
+        self.sp_group = sp_group
+        self.sp_index = 0
+        if sp_group is not None:
+            import torch.distributed as dist
+
+            if dist.get_world_size(sp_group) != sp_size:
+                raise ValueError(
+                    f"sp_group has {dist.get_world_size(sp_group)} ranks, "
+                    f"the ring {sp_size} shards (one shard a rank)")
+            self.sp_index = dist.get_rank(sp_group)
         if attention not in ("auto", "flash", "dense"):
             raise ValueError(
                 f"attention={attention!r}: expected 'auto' or 'flash' (the "
@@ -527,14 +550,15 @@ class TransformerLMNet:
     def num_params(self) -> int:
         return _count(self._group_blobs)
 
-    def with_sp(self, sp_size: int) -> "TransformerLMNet":
-        """The same architecture at another ring width: the same seed
-        gives the same params, which is how the sp=1 and sp=n legs share
-        a start point."""
+    def with_sp(self, sp_size: int, sp_group=None) -> "TransformerLMNet":
+        """The same architecture at another ring width (over ``sp_group``
+        when given): the same seed gives the same params, which is how
+        the sp=1 and sp=n legs share a start point."""
         return TransformerLMNet(
             vocab=self.vocab, dim=self.dim, depth=self.depth,
             heads=self.heads, seq_len=self.seq_len, mlp_ratio=self.mlp_ratio,
-            sp_size=sp_size, attention=self.attention, name=self.name)
+            sp_size=sp_size, attention=self.attention, name=self.name,
+            sp_group=sp_group)
 
     def ring_hop_bytes_per_iter(self, batch: int) -> int:
         """Modeled ring-exchange bytes of one forward+backward iteration
@@ -548,30 +572,48 @@ class TransformerLMNet:
                               self.depth)
 
     def forward_logits(self, params: Params, tokens):
-        """(B, seq_len) int tokens -> (B, seq_len, vocab) f32 logits."""
-        if tokens.shape[1] != self.seq_len:
+        """(B, T) int tokens -> (B, T, vocab) f32 logits, T the sequence
+        (``seq_len``), or this rank's shard of it (``local_seq``) over an
+        sp group."""
+        want = self.local_seq if self.sp_group is not None else self.seq_len
+        if tokens.shape[1] != want:
             raise ValueError(
                 f"tokens have T={tokens.shape[1]}, model expects "
-                f"T={self.seq_len}"
-            )
-        if self.sp_size > 1:
+                f"T={want} (seq_len={self.seq_len}, sp={self.sp_size}"
+                + (", one shard a rank)" if self.sp_group is not None
+                   else ")"))
+        if self.sp_group is not None:
+            attend = _ring_causal(self.sp_group, self.attention != "dense")
+        elif self.sp_size > 1:
             attend = _ring_causal(self.sp_size, self.attention != "dense")
         elif self.attention == "dense":
             attend = _dense_causal
         else:
             attend = _flash_causal
-        return causal_forward(params, tokens.long(), self.heads, attend)[0]
+        return causal_forward(params, tokens.long(), self.heads, attend,
+                              pos_offset=self.sp_index * want)[0]
 
     def loss_fn(self, params: Params, stats: Params, batch, train: bool = True,
                 rng=None):
-        """Next-token cross-entropy averaged over B*T; ``(loss,
+        """Next-token cross-entropy averaged over the global B*T; ``(loss,
         ({"logits": logits}, stats))`` — the Solver's grad contract (the
-        LM draws nothing: ``rng`` is ignored)."""
+        LM draws nothing: ``rng`` is ignored).  Over an sp group the
+        shards' sums cross the group detached: every rank reports the
+        same global loss, bit for bit, while its gradient is its own
+        shard's share."""
         logits = self.forward_logits(params, batch["tokens"])
         tgt = batch["targets"].long()
         logp = torch.log_softmax(logits, dim=-1)
         nll = -logp.gather(-1, tgt[..., None])[..., 0]
-        loss = nll.sum() / float(tgt.shape[0] * tgt.shape[1])
+        local = nll.sum()
+        count = tgt.shape[0] * tgt.shape[1]
+        if self.sp_group is not None:
+            from sparknet_tpu_torch.parallel import mesh
+
+            count *= self.sp_size
+            total = mesh.all_reduce_sum(local.detach().clone(), self.sp_group)
+            local = total + (local - local.detach())
+        loss = local / float(count)
         return loss, ({"logits": logits}, stats)
 
     def forward(self, params: Params, stats: Params, batch):

@@ -591,7 +591,8 @@ class HealthSentry:
 
     def guarded_step(self, stepper, state, batches, *, rng=None,
                      round_index: Optional[int] = None):
-        """One ``Solver.step`` window under the sentry."""
+        """One ``Solver.step`` (or ``AllReduceTrainer.step``) window under
+        the sentry."""
         r = self.rounds_observed if round_index is None else round_index
         state, losses, stats = stepper.step(state, batches, rng=rng)
         v = self.observe(r, losses, stats)
@@ -622,10 +623,17 @@ def sentry_from_args(args, solver, restore_fn=None, echo=None, metrics=None):
 def make_restore_fn(solver, prefix: str, trainer=None, metrics=None):
     """A ``restore_fn`` for rollback: the newest VERIFIED snapshot under
     ``prefix`` (corrupt ones quarantined), broadcast onto the trainer's
-    workers, or as it is for a single-replica solver."""
+    workers, or as it is for a single-replica solver.  An
+    ``AllReduceTrainer`` restores on every rank of its group the
+    snapshot its rank 0 chose (``restore_newest``), replicated through
+    ``shard_state``; the sentry's verdict, read from the global loss and
+    grad norm, is the same on every rank, so all ranks roll back
+    together."""
     from sparknet_tpu_torch.io import checkpoint
 
     def restore():
+        if hasattr(trainer, "restore_newest"):
+            return trainer.restore_newest(prefix, metrics=metrics)
         st, used = checkpoint.restore_newest_valid(solver, prefix,
                                                    metrics=metrics)
         if trainer is not None:

@@ -8,6 +8,15 @@ BatchNorm keeps the JAX layer's formula to the op: the biased variance
 ``E[x^2] - mean^2``, the three stat blobs ``[mean_sum, var_sum,
 factor]`` decayed by ``moving_average_fraction``, the ``m / (m - 1)``
 correction and ``1 / factor`` (0 -> 1) under global stats.
+
+Under a data-parallel step (``utils/dp.py``: a ``BatchShard`` active)
+the layers that reduce over the batch or draw for it compute the
+global batch's quantity from this rank's rows: BatchNorm's moments and
+their backward cross the group (``_ShardedBatchNorm``), a dropout mask
+is drawn for the global batch and cut to the rank's rows, a Reshape or
+Reduction that names the batch axis reads the global batch, and the
+layers that move rows between batch positions (``BatchReindex``, and
+``Concat``/``Slice``/``Tile`` on axis 0) refuse.
 """
 
 from __future__ import annotations
@@ -31,7 +40,16 @@ from sparknet_tpu_torch.config.schema import (
     ScaleParameter,
 )
 from sparknet_tpu_torch.ops.base import BlobDef, Layer, register
-from sparknet_tpu_torch.utils import rngs
+from sparknet_tpu_torch.utils import dp, rngs
+
+
+def _refuse_batch_axis(layer, axis: int) -> None:
+    """A layer that moves rows between batch positions (axis 0) has no
+    rank-local form under a data-parallel step: refuse it there."""
+    if axis == 0 and dp.current() is not None:
+        raise NotImplementedError(
+            f"{layer.TYPE} {layer.name!r} along the batch axis under "
+            "data-parallel ranks is not yet ported to sparknet_tpu_torch")
 
 
 def _mults(lp, i, default_lr=1.0, default_decay=1.0):
@@ -211,13 +229,20 @@ def inverted_dropout(x, rng, ratio: float, train: bool, where: str):
     units are scaled by ``1/(1-ratio)``; test, or ``ratio == 0``, is the
     identity.  The mask is drawn on the CPU from ``rngs.generator(rng)``
     and copied to ``x``'s device, so one key gives one mask on any
-    device."""
+    device.  Under a data-parallel step the mask is drawn for the
+    global batch and cut to this rank's rows."""
     if not train or ratio == 0.0:
         return x
     if rng is None:
         raise ValueError(f"dropout in {where!r} needs an rng in train")
     keep = 1.0 - ratio
-    mask = torch.rand(tuple(x.shape), generator=rngs.generator(rng)) < keep
+    gen = rngs.generator(rng)
+    shard = dp.current()
+    if shard is None:
+        mask = torch.rand(tuple(x.shape), generator=gen) < keep
+    else:
+        mask = shard.draw(tuple(x.shape), lambda shape: torch.rand(
+            shape, generator=gen)) < keep
     return torch.where(mask.to(x.device, non_blocking=True), x / keep,
                        torch.zeros_like(x))
 
@@ -276,6 +301,48 @@ class ELU(_Neuron):
 # ---------------------------------------------------------------------------
 
 
+class _ShardedBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the global batch, this rank holding
+    its rows: the per-channel ``sum(x)``, ``sum(x*x)`` and the row count
+    cross the group in one buffer, and the backward's ``sum(dy)`` and
+    ``sum(dy * x_hat)`` in another, so ``dx`` is the global batch's
+    gradient at this rank's rows.  The sums run in float32 (float64 for
+    a float64 input).  Returns ``(y, mean, var, m)``, ``m`` the global
+    count (a 0-dim tensor)."""
+
+    @staticmethod
+    def forward(ctx, x, eps, shard):
+        axes = (0,) + tuple(range(2, x.dim()))
+        acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+        xa = x.to(acc)
+        local = x.numel() // x.shape[1]
+        sums = shard.sum(torch.cat([xa.sum(dim=axes), (xa * xa).sum(dim=axes),
+                                    xa.new_tensor([float(local)])]))
+        c = x.shape[1]
+        m = sums[-1]
+        mean = sums[:c] / m
+        var = sums[c:2 * c] / m - mean * mean  # biased
+        std = torch.sqrt(_channel_view(var, x.dim()) + eps)
+        x_hat = (xa - _channel_view(mean, x.dim())) / std
+        ctx.save_for_backward(x_hat, std, m)
+        ctx.shard, ctx.axes = shard, axes
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
+        ctx.mark_non_differentiable(mean, var, m)
+        return x_hat.to(x.dtype), mean, var, m
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar, _dm):
+        x_hat, std, m = ctx.saved_tensors
+        dya = dy.to(x_hat.dtype)
+        c = x_hat.shape[1]
+        sums = ctx.shard.sum(torch.cat([dya.sum(dim=ctx.axes),
+                                        (dya * x_hat).sum(dim=ctx.axes)]))
+        nd = x_hat.dim()
+        dx = (dya - _channel_view(sums[:c] / m, nd)
+              - x_hat * _channel_view(sums[c:] / m, nd)) / std
+        return dx.to(dy.dtype), None, None
+
+
 @register
 class BatchNorm(_Neuron):
     """Caffe batch norm: normalizes only (a Scale layer carries the
@@ -313,12 +380,19 @@ class BatchNorm(_Neuron):
         m = 1
         for a in axes:
             m *= x.shape[a]
-        mean = x.mean(dim=axes)
-        var = (x * x).mean(dim=axes) - mean * mean  # biased
-        y = (x - _channel_view(mean, x.dim())) / torch.sqrt(
-            _channel_view(var, x.dim()) + p.eps)
+        shard = dp.current()
+        if shard is not None:
+            y, mean, var, m = _ShardedBatchNorm.apply(x, p.eps, shard)
+        else:
+            mean = x.mean(dim=axes)
+            var = (x * x).mean(dim=axes) - mean * mean  # biased
+            y = (x - _channel_view(mean, x.dim())) / torch.sqrt(
+                _channel_view(var, x.dim()) + p.eps)
         lam = p.moving_average_fraction
-        bias_corr = m / max(1.0, m - 1.0)
+        if shard is not None:  # m: the global count, a tensor
+            bias_corr = m / torch.clamp_min(m - 1.0, 1.0)
+        else:
+            bias_corr = m / max(1.0, m - 1.0)
         new_blobs = [
             lam * blobs[0] + mean,
             lam * blobs[1] + bias_corr * var,
@@ -449,7 +523,9 @@ class Concat(Layer):
         return [tuple(out)]
 
     def apply(self, blobs, bottoms, rng, train):
-        return [torch.cat(bottoms, dim=self._axis(bottoms[0].dim()))], None
+        axis = self._axis(bottoms[0].dim())
+        _refuse_batch_axis(self, axis)
+        return [torch.cat(bottoms, dim=axis)], None
 
 
 @register
@@ -483,6 +559,7 @@ class Slice(Layer):
 
     def apply(self, blobs, bottoms, rng, train):
         axis, bounds = self._splits(tuple(bottoms[0].shape))
+        _refuse_batch_axis(self, axis)
         return [bottoms[0].narrow(axis, lo, hi - lo)
                 for lo, hi in zip(bounds[:-1], bounds[1:])], None
 
@@ -528,11 +605,18 @@ class Reshape(Layer):
 
     TYPE = "Reshape"
 
-    def out_shapes(self, bottom_shapes):
+    def out_shapes(self, bottom_shapes, shard=None):
         p = self.lp.reshape_param
         s = list(bottom_shapes[0])
         dims = list(p.shape.dim) if p and p.shape else []
         axis = (p.axis if p else 0) % (len(s) + 1)
+        if shard is not None and axis == 0 and dims and dims[0] > 0:
+            # a declared batch is the global one: this rank's share
+            if dims[0] % shard.size:
+                raise ValueError(
+                    f"Reshape {self.name!r}: declared batch {dims[0]} does "
+                    f"not split over {shard.size} data-parallel ranks")
+            dims[0] //= shard.size
         num_axes = p.num_axes if p else -1
         end = len(s) if num_axes == -1 else axis + num_axes
         window = s[axis:end]
@@ -556,7 +640,8 @@ class Reshape(Layer):
 
     def apply(self, blobs, bottoms, rng, train):
         x = bottoms[0]
-        return [x.reshape(self.out_shapes([tuple(x.shape)])[0])], None
+        return [x.reshape(self.out_shapes([tuple(x.shape)],
+                                          dp.current())[0])], None
 
 
 @register
@@ -609,13 +694,16 @@ class Tile(Layer):
         x = bottoms[0]
         reps = [1] * x.dim()
         reps[p.axis % x.dim()] = p.tiles
+        _refuse_batch_axis(self, p.axis % x.dim())
         return [x.repeat(reps)], None
 
 
 @register
 class Reduction(Layer):
     """Reduce the trailing axes from ``axis`` (``reduction_layer.cpp``):
-    SUM | ASUM | SUMSQ | MEAN, scaled by coeff."""
+    SUM | ASUM | SUMSQ | MEAN, scaled by coeff.  With ``axis`` 0 under a
+    data-parallel step the top is this rank's share of the global value
+    (a MEAN divides by the global count), as a loss layer's is."""
 
     TYPE = "Reduction"
 
@@ -636,7 +724,12 @@ class Reduction(Layer):
         elif op == "SUMSQ":
             y = (x * x).sum(dim=axes)
         elif op == "MEAN":
-            y = x.mean(dim=axes)
+            shard = dp.current()
+            if shard is not None and axes[0] == 0:
+                # the mean over the global batch; this rank's share
+                y = x.sum(dim=axes) / float(shard.global_rows(x.numel()))
+            else:
+                y = x.mean(dim=axes)
         else:
             raise ValueError(f"unknown reduction {p.operation!r}")
         return [p.coeff * y], None
@@ -720,6 +813,7 @@ class BatchReindex(Layer):
         return [(bottom_shapes[1][0],) + tuple(bottom_shapes[0][1:])]
 
     def apply(self, blobs, bottoms, rng, train):
+        _refuse_batch_axis(self, 0)
         return [bottoms[0][bottoms[1].reshape(-1).to(torch.int64)]], None
 
 

@@ -25,7 +25,7 @@ import numpy as np
 
 from sparknet_tpu_torch.ops import fillers
 from sparknet_tpu_torch.ops.base import Layer, Shape, register
-from sparknet_tpu_torch.utils import jax_prng
+from sparknet_tpu_torch.utils import dp, jax_prng
 
 
 def hdf5_source_files(source: str) -> List[str]:
@@ -235,7 +235,9 @@ class DummyData(Layer):
     """Filler-generated data (``dummy_data_layer.cpp``): top ``i`` is
     filled from ``fold_in(base, i)``, ``base`` the layer's key (constant
     fillers refill identically every step; random ones draw per step).
-    The draws run on the host; the net moves the tops to its device."""
+    The draws run on the host; the net moves the tops to its device.
+    Under a data-parallel step the declared batch is the global one and
+    each rank keeps its rows of the same draw."""
 
     TYPE = "DummyData"
 
@@ -260,6 +262,17 @@ class DummyData(Layer):
             filler = (p.data_filler[i] if i < len(p.data_filler)
                       else (p.data_filler[-1] if p.data_filler else None))
             tops.append(fillers.fill(jax_prng.fold_in(base, i), shape, filler))
+        shard = dp.current()
+        if shard is not None:
+            # the declared batch is the global one: this rank's rows of
+            # the global draw
+            for i, t in enumerate(tops):
+                if t.dim() == 0 or t.shape[0] % shard.size:
+                    raise ValueError(
+                        f"DummyData {self.name!r}: top {i} of shape "
+                        f"{tuple(t.shape)} does not split over "
+                        f"{shard.size} data-parallel ranks")
+                tops[i] = t[shard.rows(t.shape[0] // shard.size)]
         return tops, None
 
 

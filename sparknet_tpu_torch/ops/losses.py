@@ -5,6 +5,13 @@ normalization semantics (``loss_layer.cpp``, ``softmax_loss_layer.cpp``):
 default VALID (divide by the non-ignored count), legacy ``normalize:
 false`` means BATCH_SIZE, FULL divides by outer*inner, NONE by 1.  The
 other losses normalize by the batch size, as the reference does.
+
+Under a data-parallel step (``utils/dp.py``) every normalizer counts the
+global batch — ``VALID``'s non-ignored count crosses the group, since
+ignored rows can fall unevenly over the ranks — so each rank's loss is
+its own rows' sum over the global normalizer: the ranks' losses and
+gradients add up to the global batch's.  ``Accuracy`` there reports the
+global value on every rank.
 """
 
 from __future__ import annotations
@@ -17,12 +24,20 @@ from sparknet_tpu_torch.config.schema import (
     LossParameter,
 )
 from sparknet_tpu_torch.ops.base import Layer, register
+from sparknet_tpu_torch.utils import dp
 
 
 def _normalization(p: LossParameter) -> str:
     if p.normalize is not None and p.normalization == "VALID":
         return "VALID" if p.normalize else "BATCH_SIZE"
     return p.normalization.upper()
+
+
+def _global_batch(n: int) -> int:
+    """The batch a normalizer counts: ``n``, or the global batch under a
+    data-parallel step."""
+    shard = dp.current()
+    return n if shard is None else shard.global_rows(n)
 
 
 def _normalizer(norm: str, outer: int, inner: int, valid_count, device):
@@ -62,18 +77,23 @@ class SoftmaxWithLoss(Layer):
         picked = torch.gather(
             moved, -1, lab.clamp(0, moved.shape[-1] - 1)[..., None]
         )[..., 0]
-        if p.ignore_label is not None:
-            valid = lab != p.ignore_label
-            picked = torch.where(valid, picked, torch.zeros_like(picked))
-            valid_count = valid.sum()
-        else:
-            valid_count = torch.tensor(picked.numel(), device=logits.device)
         outer = 1
         for d in logits.shape[:axis]:
             outer *= d
         inner = picked.numel() // max(1, outer)
-        norm = _normalizer(_normalization(p), outer, inner, valid_count,
-                           logits.device)
+        norm_kind = _normalization(p)
+        shard = dp.current()
+        if p.ignore_label is not None:
+            valid = lab != p.ignore_label
+            picked = torch.where(valid, picked, torch.zeros_like(picked))
+            valid_count = valid.sum()
+            if shard is not None and norm_kind == "VALID":
+                valid_count = shard.sum(valid_count.to(torch.float32))
+        else:
+            valid_count = torch.tensor(_global_batch(outer) * inner,
+                                       device=logits.device)
+        norm = _normalizer(norm_kind, _global_batch(outer), inner,
+                           valid_count, logits.device)
         tops = [-picked.sum() / norm]
         if len(self.lp.top) > 1:
             tops.append(torch.exp(logp))
@@ -97,7 +117,7 @@ class SigmoidCrossEntropyLoss(_Loss):
     def apply(self, blobs, bottoms, rng, train):
         x, t = bottoms[0], bottoms[1]
         per = torch.relu(x) - x * t + torch.log1p(torch.exp(-torch.abs(x)))
-        return [per.sum() / x.shape[0]], None
+        return [per.sum() / _global_batch(x.shape[0])], None
 
 
 @register
@@ -108,7 +128,7 @@ class EuclideanLoss(_Loss):
 
     def apply(self, blobs, bottoms, rng, train):
         d = bottoms[0] - bottoms[1]
-        return [0.5 * (d * d).sum() / d.shape[0]], None
+        return [0.5 * (d * d).sum() / _global_batch(d.shape[0])], None
 
 
 def _labels(label: torch.Tensor, n: int) -> torch.Tensor:
@@ -131,8 +151,8 @@ class HingeLoss(_Loss):
         margins = torch.relu(1.0 + sign * flat)
         p = self.lp.hinge_loss_param
         if p and p.norm.upper() == "L2":
-            return [(margins * margins).sum() / n], None
-        return [margins.sum() / n], None
+            return [(margins * margins).sum() / _global_batch(n)], None
+        return [margins.sum() / _global_batch(n)], None
 
 
 @register
@@ -147,7 +167,8 @@ class MultinomialLogisticLoss(_Loss):
         n = prob.shape[0]
         picked = torch.gather(prob.reshape(n, -1), 1,
                               _labels(bottoms[1], n)[:, None])
-        return [-torch.log(torch.clamp_min(picked, 1e-20)).sum() / n], None
+        return [-torch.log(torch.clamp_min(picked, 1e-20)).sum()
+                / _global_batch(n)], None
 
 
 @register
@@ -168,7 +189,7 @@ class InfogainLoss(_Loss):
         h = bottoms[2].reshape(tuple(bottoms[2].shape[-2:]))
         rows = h[_labels(bottoms[1], n)]  # (n, K)
         logp = torch.log(torch.clamp_min(prob.reshape(n, -1), 1e-20))
-        return [-(rows * logp).sum() / n], None
+        return [-(rows * logp).sum() / _global_batch(n)], None
 
 
 @register
@@ -189,7 +210,7 @@ class ContrastiveLoss(_Loss):
             d = torch.sqrt(torch.clamp_min(d2, 1e-12))
             mismatch = torch.relu(p.margin - d) ** 2
         per = y * d2 + (1.0 - y) * mismatch
-        return [per.sum() / (2.0 * a.shape[0])], None
+        return [per.sum() / (2.0 * _global_batch(a.shape[0]))], None
 
 
 @register
@@ -218,6 +239,13 @@ class Accuracy(Layer):
         else:
             topk = torch.topk(moved, k, dim=-1, sorted=True).indices
         hit = (topk == lab[..., None]).any(dim=-1).to(torch.float32)
+        shard = dp.current()
+        if shard is not None:
+            # the global accuracy: hits and the count cross the group
+            valid = (torch.ones_like(hit) if p.ignore_label is None
+                     else (lab != p.ignore_label).to(torch.float32))
+            sums = shard.sum(torch.stack([(hit * valid).sum(), valid.sum()]))
+            return [sums[0] / sums[1].clamp_min(1.0)], None
         if p.ignore_label is not None:
             valid = (lab != p.ignore_label).to(torch.float32)
             return [(hit * valid).sum() / valid.sum().clamp_min(1.0)], None

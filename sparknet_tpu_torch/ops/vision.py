@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from sparknet_tpu_torch.config.schema import FillerParameter, LRNParameter
 from sparknet_tpu_torch.ops import cuda_lrn
 from sparknet_tpu_torch.ops.base import BlobDef, Layer, register
-from sparknet_tpu_torch.utils import rngs
+from sparknet_tpu_torch.utils import dp, rngs
 
 
 def _pair(lst, h_val, w_val, default):
@@ -241,8 +241,16 @@ def stochastic_pool(x, kernel, stride, pad, out_hw, rng, train):
     if rng is None:
         raise ValueError("stochastic pooling needs an rng in train mode")
     n, c, k, oh, ow = patches.shape
-    g = torch.rand((n, c, 1, oh, ow), generator=rngs.generator(rng),
-                   dtype=x.dtype).to(x.device)
+    gen = rngs.generator(rng)
+
+    def draw(shape):
+        return torch.rand(shape, generator=gen, dtype=x.dtype)
+
+    # under a data-parallel step: the global batch's draw, this rank's rows
+    shard = dp.current()
+    shape = (n, c, 1, oh, ow)
+    g = (draw(shape) if shard is None else shard.draw(shape, draw)).to(
+        x.device)
     idx = (torch.cumsum(prob, dim=2) < g).sum(dim=2, keepdim=True)
     return torch.gather(patches, 2, idx.clamp(0, k - 1))[:, :, 0]
 

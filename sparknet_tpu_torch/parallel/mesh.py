@@ -126,11 +126,17 @@ def app_mesh(args, app: str) -> Tuple[int, "ProcessMesh"]:
             f"({p} processes x {per} each = {p * per}; the launcher's "
             "--devices_per_host sets the second)"
         )
+    refuse_single_process_flags(args, app)
+    return n, make_mesh({"dp": n}, workers_per_process=per)
+
+
+def refuse_single_process_flags(args, app: str) -> None:
+    """Exit naming the first of ``_SINGLE_PROCESS_FLAGS`` that ``args``
+    turns on."""
     for attr, on, flag in _SINGLE_PROCESS_FLAGS:
         if on(getattr(args, attr, None)):
             raise SystemExit(f"{app}: {flag} across processes is not yet "
                              "ported to sparknet_tpu_torch")
-    return n, make_mesh({"dp": n}, workers_per_process=per)
 
 
 def joined_device() -> Optional[torch.device]:
@@ -427,6 +433,98 @@ def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
                       dtype=src.dtype, device=src.device)
     _GATHER(out, src, group=group)
     return _to_device(out, t.device) if src.device != t.device else out
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group`` IN PLACE and returned (on ``t``'s
+    device); a CUDA payload under gloo crosses through a host copy.
+    ``all_reduce(SUM)`` leaves the same bits on every rank, under NCCL
+    and gloo alike: each element is reduced once and handed round."""
+    if _staged(t, group):
+        h = _to_host(t)
+        dist.all_reduce(h, op=dist.ReduceOp.SUM, group=group)
+        t.copy_(_to_device(h, t.device))
+        return t
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def _object_device(group) -> torch.device:
+    """The device an object collective stages through: the card under
+    NCCL (it moves CUDA tensors only), the CPU under gloo."""
+    if group_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def broadcast_object(obj, group=None, src: int = 0):
+    """Rank ``src``'s picklable ``obj`` (of ``group``, WORLD by
+    default) on every rank: the decisions one rank makes for all, such
+    as the snapshot a resume restores."""
+    box = [obj]
+    dist.broadcast_object_list(
+        box, src=dist.get_global_rank(group or dist.group.WORLD, src),
+        group=group, device=_object_device(group or dist.group.WORLD))
+    return box[0]
+
+
+def on_rank0(fn, group=None):
+    """``fn()`` run on the group's rank 0 alone, its value (or the
+    exception it raised) on every rank, so no rank waits in a
+    collective for one that failed.  The value must be picklable and
+    small (a path, a dict of host numbers)."""
+    g = group or dist.group.WORLD
+    out = None
+    if dist.get_rank(g) == 0:
+        try:
+            out = (True, fn())
+        except Exception as e:  # handed to every rank, raised there
+            out = (False, e)
+    ok, value = broadcast_object(out, g)
+    if not ok:
+        raise value
+    return value
+
+
+def broadcast_leaves(leaves: Sequence[torch.Tensor], group, src: int = 0
+                     ) -> List[torch.Tensor]:
+    """The group rank ``src``'s values of ``leaves`` (same shapes on every
+    rank), each on its own leaf's device: the leaves of one dtype and
+    device cross as one flat buffer, host-staged under gloo."""
+    out: List[Optional[torch.Tensor]] = [None] * len(leaves)
+    groups: Dict[Tuple[torch.dtype, torch.device], List[int]] = {}
+    for i, x in enumerate(leaves):
+        groups.setdefault((x.dtype, x.device), []).append(i)
+    root = dist.get_global_rank(group, src)
+    for (_, dev), idx in groups.items():
+        flat = torch.cat([leaves[i].reshape(-1) for i in idx])
+        if _staged(flat, group):
+            h = _to_host(flat)
+            dist.broadcast(h, src=root, group=group)
+            flat = _to_device(h, dev)
+        elif dev.type == "cpu" and group_backend(group) == "nccl":
+            # NCCL moves CUDA tensors only (the iteration counter)
+            d = flat.to(_object_device(group))
+            dist.broadcast(d, src=root, group=group)
+            flat = d.cpu()
+        else:
+            dist.broadcast(flat, src=root, group=group)
+        off = 0
+        for i in idx:
+            k = leaves[i].numel()
+            out[i] = flat[off:off + k].view_as(leaves[i])
+            off += k
+    return out
+
+
+def agree_max(values: Sequence[int], group=None) -> List[int]:
+    """The elementwise max over ``group``'s ranks of a few small ints
+    (the signal flags every rank acts on together)."""
+    g = group or dist.group.WORLD
+    t = torch.tensor(list(values), dtype=torch.int64,
+                     device=_object_device(g))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g)
+    return [int(v) for v in t.tolist()]
 
 
 def all_gather_objects(obj, group=None) -> list:

@@ -1,5 +1,7 @@
-"""SparkNet's parameter-averaging trainer: W workers stacked on a device,
-over one process or several.
+"""The two data-parallel training modes: SparkNet's parameter averaging
+(W workers stacked on a device, over one process or several) and
+Caffe's synchronous gradient all-reduce on the global batch
+(``AllReduceTrainer``, one rank a block of the batch's rows).
 
 The port of ``ParameterAveragingTrainer`` (``sparknet_tpu/parallel/
 trainers.py:214``): every worker keeps its own replica of params and
@@ -46,6 +48,7 @@ bounded-staleness trainer stay single-process (refused).
 
 from __future__ import annotations
 
+import types
 from collections import OrderedDict
 from typing import Dict, List, Optional
 
@@ -61,7 +64,7 @@ from sparknet_tpu_torch.parallel import mesh as _mesh
 from sparknet_tpu_torch.parallel.hierarchy import HierarchySpec
 from sparknet_tpu_torch.parallel.mesh import local_worker_slice
 from sparknet_tpu_torch.solver import Solver, TrainState
-from sparknet_tpu_torch.utils import rngs
+from sparknet_tpu_torch.utils import dp, rngs
 from sparknet_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -271,10 +274,19 @@ class ParameterAveragingTrainer:
         """The ``.jobstate.npz`` fragment a snapshot of ``state`` carries
         beside worker 0's consensus (``io/checkpoint.snapshot``'s
         ``extra_state``): the data ``cursor``, every worker's momentum,
-        the loss window and, on the comm plane, its residuals."""
+        the loss window and, on the comm plane, its residuals.  Across
+        processes every rank calls it (the momentum rows are gathered)."""
+        hist_state = state
+        if self.group is not None:
+            # every worker's momentum: the ranks' rows gathered (a
+            # collective, so every rank calls this; rank 0 writes)
+            leaves, _ = _mesh.all_gather_leaves(tree_leaves(state.history),
+                                                self.group)
+            hist_state = state._replace(
+                history=tree_unflatten(state.history, leaves))
         extra = {
             "cursor": cursor,
-            "workers": export_worker_history(state),
+            "workers": export_worker_history(hist_state),
             "solver": {"loss_window": self.solver.export_loss_window()},
         }
         comm_state = self.export_comm_state()
@@ -312,7 +324,11 @@ class ParameterAveragingTrainer:
             self.restore_comm_state(js["comm"])
         if "workers" in js:
             # the consensus snapshot carries worker 0's history only
-            state = restore_worker_history(state, js["workers"])
+            frag = js["workers"]
+            if self.group is not None:  # every worker's: keep this rank's
+                frag = {"history": {k: np.asarray(v)[self.rows]
+                                    for k, v in frag["history"].items()}}
+            state = restore_worker_history(state, frag)
         if "loss_window" in js.get("solver", {}):
             self.solver.restore_loss_window(js["solver"]["loss_window"])
         return state, int(st.iter) // max(1, tau), js
@@ -623,3 +639,172 @@ class ParameterAveragingTrainer:
                 out[w, : len(p[k])] = p[k]
             stacked[k] = out
         return stacked, counts
+
+
+def restore_newest_agreed(solver, prefix: str, group=None, metrics=None):
+    """``(state, used)``: the newest snapshot under ``prefix`` that
+    verifies (``io/checkpoint.restore_newest_valid``), chosen by the
+    group's rank 0 alone — the scan quarantines corrupt files, so one
+    rank makes it — and restored from that path on every other rank;
+    ``FileNotFoundError`` on every rank when there is none."""
+    from sparknet_tpu_torch.io import checkpoint
+
+    held = {}
+
+    def newest():
+        held["state"], used = checkpoint.restore_newest_valid(
+            solver, prefix, metrics=metrics)
+        return used
+
+    if group is None:
+        used = newest()
+    else:
+        used = _mesh.on_rank0(newest, group)
+    st = held.get("state")
+    if st is None:
+        st = checkpoint.restore(solver, used, metrics=metrics)
+    return st, used
+
+
+class AllReduceTrainer:
+    """Synchronous gradient all-reduce data parallelism on the global batch
+    (Caffe's P2PSync, ``caffe train --gpu=0,..,N-1``): the port of JAX
+    ``AllReduceTrainer`` (``sparknet_tpu/parallel/trainers.py:944``).
+
+    The JAX trainer jits the solver's window over a dp mesh with the
+    batch sharded on its dim 1, so each step is the step of the global
+    batch.  Here each process of the mesh's ``dp_axis`` group holds
+    its block of the global batch's rows (``local_rows``): the solver's
+    ``batch_shard`` (``utils/dp.py``) makes BatchNorm, dropout, the crop
+    and mirror draws and every loss normalizer global, and its
+    ``grad_groups`` sum the grads over the group each iteration, so
+    every rank holds the same bits after every iteration.  In one
+    process (no mesh, or a dp axis inside it) ``step`` is ``solver.step``
+    on the whole global batch, which is what GSPMD computes; a group of
+    one rank (NCCL at world size 1) sums over itself, to the bit.
+    ``mp_axis`` (the tensor-parallel placement) is not yet ported.
+
+    The trainer sets the solver's ``grad_groups`` and ``batch_shard``:
+    the solver belongs to it from then on."""
+
+    def __init__(self, solver: Solver, mesh=None, dp_axis: str = "dp",
+                 mp_axis: Optional[str] = None):
+        if mp_axis is not None:
+            raise NotImplementedError(
+                "AllReduceTrainer(mp_axis=...): the tensor-parallel placement "
+                "(large blobs' output channels over mp, with activation "
+                "collectives) is not yet ported to sparknet_tpu_torch")
+        self.solver = solver
+        self.mesh = mesh
+        self.dp_axis = dp_axis
+        self.group = None
+        self.parts, self.index = 1, 0
+        if mesh is not None:
+            if dp_axis not in mesh.shape:
+                raise ValueError(f"dp_axis {dp_axis!r} is not a mesh axis "
+                                 f"{mesh.axis_names}")
+            self.group = mesh.group(dp_axis)
+        if self.group is not None:
+            import torch.distributed as dist
+
+            n, me = dist.get_world_size(self.group), dist.get_rank(self.group)
+            mine = mesh.coords[dp_axis]
+            m = mine.stop - mine.start
+            if n * m != mesh.shape[dp_axis] or mine.start != me * m:
+                raise ValueError(
+                    f"AllReduceTrainer: process {mesh.process_index} holds "
+                    f"slots {mine.start}..{mine.stop - 1} of the "
+                    f"{mesh.shape[dp_axis]}-way {dp_axis!r} axis, not an "
+                    f"equal block in rank order of its {n}-process group")
+            self.parts, self.index = n, me
+            solver.grad_groups = (self.group,)
+            solver.batch_shard = (dp.BatchShard(self.group, n, me) if n > 1
+                                  else None)
+
+    @property
+    def is_root(self) -> bool:
+        """Whether this rank writes for the group (snapshots, logs)."""
+        return self.index == 0
+
+    def local_rows(self, batches):
+        """This rank's rows of a ``(tau, global_B, ...)`` window (the JAX
+        trainer's ``batch_sharding``): the ``index``-th of ``parts``
+        equal blocks of dim 1, views of numpy arrays or tensors."""
+        if self.parts == 1:
+            return batches
+        out = {}
+        for k, v in batches.items():
+            g = v.shape[1]
+            if g % self.parts:
+                raise ValueError(
+                    f"AllReduceTrainer: {k!r} has a global batch of {g}, "
+                    f"not divisible over {self.parts} data-parallel ranks")
+            b = g // self.parts
+            out[k] = v[:, self.index * b:(self.index + 1) * b]
+        return out
+
+    def init_state(self, seed: int = 0) -> TrainState:
+        """The solver's seeded init, the same on every rank (host draws),
+        placed as ``shard_state`` places a state."""
+        return self.shard_state(self.solver.init_state(seed))
+
+    def shard_state(self, state: TrainState) -> TrainState:
+        """A single-replica state on the solver's device, replicated from
+        the group's rank 0 — the resume and warm-start entry
+        (``Solver::Restore`` before ``P2PSync::Run``)."""
+        dev = self.solver.device
+
+        def place(x):
+            x = torch.as_tensor(x)
+            return x if x.dtype == torch.int64 else x.to(dev)
+
+        state = TrainState(*(tree_map(place, f) for f in state))
+        if self.group is None:
+            return state
+        leaves = tree_leaves(state)
+        return tree_unflatten(state, _mesh.broadcast_leaves(leaves, self.group))
+
+    def step(self, state: TrainState, batches, rng=None):
+        """tau synchronous steps on the global batch (``batches[blob]``:
+        ``(tau, global_B, ...)``); returns ``(state, losses)``, or
+        ``(state, losses, stats)`` with the solver's audit on.  The
+        losses (and the audit's stats) are the global batch's, the same
+        bits on every rank."""
+        return self.step_rows(state, self.local_rows(batches), rng)
+
+    def step_rows(self, state: TrainState, rows, rng=None):
+        """``step`` on a window already cut to this rank's rows
+        (``local_rows``): the feed that copies only its own rows to the
+        device calls this."""
+        solver = self.solver
+        rng = rngs.train_key(0) if rng is None else rng
+        if solver.param.debug_info:
+            solver.debug_info_pass(state, {k: v[0] for k, v in rows.items()},
+                                   rng=rng)
+        with span("execute"):
+            out = solver._step_tau(state, solver._to_device(rows), rng)
+            solver.note_losses(out[1])
+        tm = obs.training_metrics()
+        if tm is not None:
+            tm.rounds.inc()
+            tm.iters.inc(int(out[1].shape[0]))
+        _profile.observe_round_if_active(out[1])
+        obs.report_healthy()
+        return out
+
+    @property
+    def rows_stepper(self):
+        """An object whose ``step`` is ``step_rows``: what a window loop
+        (or the sentry's ``guarded_step``) drives when its feed copies
+        only this rank's rows."""
+        return types.SimpleNamespace(step=self.step_rows)
+
+    def restore_newest(self, prefix: str, metrics=None):
+        """``(state, used)``: the newest snapshot under ``prefix`` that
+        verifies, chosen by the group's rank 0 (the scan quarantines
+        corrupt files, so one rank makes it), restored on every rank and
+        replicated from rank 0; raises ``FileNotFoundError`` on every
+        rank when there is none."""
+        st, used = restore_newest_agreed(self.solver, prefix, self.group,
+                                         metrics=metrics)
+        return self.shard_state(st), used

@@ -26,6 +26,20 @@ from the iteration key.  ``train_transform(batch, key)`` and
 ``test_transform(batch)`` (``data/transforms.py``) run on the device
 before each micro-batch's forward and each test forward.
 
+Across processes (JAX ``grad_reduce_axes`` / ``_reduce_grads``):
+``grad_groups`` names the ``torch.distributed`` groups over which each
+rank's gradients are partial — the sp group of the LM's sequence ring,
+the dp group of ``AllReduceTrainer`` — and an iteration sums its grads
+over each, between ``_grads`` and ``_apply_update``, as one flat buffer
+a dtype a group (``mesh.all_reduce_sum``: ``all_reduce(SUM)``, the same
+bits on every rank, so every rank's params, history and loss stay
+bit-identical, and clipping and the audit read the summed grads).  With
+``batch_shard`` (``utils/dp.py``) the forward runs on this rank's rows of
+a global batch: the shard is active around each micro-batch's transform
+and forward, and the loss, this rank's share of the global loss, rides
+the shard group's buffer, so the loss each rank reports is the global
+one.
+
 Semantics of the reference: momentum ``v = m*v + local_lr*(grad +
 decay*w); w -= v`` (decay inside the gradient, before momentum),
 clip_gradients on the raw accumulated grads before normalization.
@@ -52,7 +66,7 @@ from sparknet_tpu_torch.net import Params, Stats, TorchNet
 from sparknet_tpu_torch.obs import health as _health
 from sparknet_tpu_torch.obs import profile as _profile
 from sparknet_tpu_torch.obs.trace import span
-from sparknet_tpu_torch.utils import rngs
+from sparknet_tpu_torch.utils import dp, rngs
 from sparknet_tpu_torch.utils.devices import resolve_device
 from sparknet_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -162,7 +176,11 @@ class Solver:
     a ``torch.dtype`` or its name) is the dtype the prototxt net's
     layers compute in; the master copies stay float32.
     ``train_transform`` / ``test_transform`` are the per-phase batch
-    preprocessing of JAX ``Solver`` (``data/transforms.py``)."""
+    preprocessing of JAX ``Solver`` (``data/transforms.py``).
+    ``grad_groups`` are the process groups each iteration's grads sum
+    over (``grad_reduce_bytes`` counts what this rank sent into them);
+    ``batch_shard``, set by ``AllReduceTrainer``, is this rank's place in
+    a global batch."""
 
     def __init__(
         self,
@@ -174,8 +192,12 @@ class Solver:
         test_transform=None,
         audit: bool = False,
         compute_dtype=None,
+        grad_groups=(),
     ):
         self.device = resolve_device(device)
+        self.grad_groups = tuple(grad_groups or ())
+        self.batch_shard: Optional[dp.BatchShard] = None
+        self.grad_reduce_bytes = 0
         self.compute_dtype = compute_dtype
         self.audit = bool(audit)
         self._audit_groups: List[str] = []
@@ -242,19 +264,51 @@ class Solver:
         ]
         acc, losses = None, []
         for mb, mrng in micro:
-            if self.train_transform is not None:
-                mb = self.train_transform(mb, rngs.fold_in(mrng, 0x7F))
-            req = [p.detach().requires_grad_(True) for p in leaves]
-            loss, (_, stats) = self.net.loss_fn(
-                tree_unflatten(params, req), stats, mb, True, rng=mrng
-            )
-            gs = torch.autograd.grad(loss, req, allow_unused=True)
+            with dp.active(self.batch_shard):
+                if self.train_transform is not None:
+                    mb = self.train_transform(mb, rngs.fold_in(mrng, 0x7F))
+                req = [p.detach().requires_grad_(True) for p in leaves]
+                loss, (_, stats) = self.net.loss_fn(
+                    tree_unflatten(params, req), stats, mb, True, rng=mrng
+                )
+                gs = torch.autograd.grad(loss, req, allow_unused=True)
             gs = [torch.zeros_like(p) if g is None else g for p, g in zip(req, gs)]
             acc = gs if acc is None else [a + g for a, g in zip(acc, gs)]
             losses.append(loss.detach())
         loss = losses[0] if n == 1 else torch.stack(losses).mean()
         stats = tree_map(lambda s: s.detach(), stats)
+        if self.grad_groups:
+            acc, loss = self._reduce_grads(acc, loss)
         return tree_unflatten(params, acc), loss, stats
+
+    @torch.no_grad()
+    def _reduce_grads(self, grads: List[torch.Tensor], loss: torch.Tensor):
+        """Sum the partial ``grads`` over each of ``grad_groups``: one flat
+        buffer a dtype a group.  The loss joins the batch shard's group's
+        buffer (its rows' share of the global loss); a loss that is
+        global already (the LM's sp ring) stays as it is."""
+        shard_group = (self.batch_shard.group if self.batch_shard is not None
+                       else None)
+        from sparknet_tpu_torch.parallel import mesh
+
+        for group in self.grad_groups:
+            items = list(grads) + ([loss] if group is shard_group else [])
+            by_dtype: Dict[torch.dtype, List[int]] = {}
+            for i, t in enumerate(items):
+                by_dtype.setdefault(t.dtype, []).append(i)
+            for idx in by_dtype.values():
+                flat = torch.cat([items[i].reshape(-1) for i in idx])
+                self.grad_reduce_bytes += flat.numel() * flat.element_size()
+                flat = mesh.all_reduce_sum(flat, group)
+                off = 0
+                for i in idx:
+                    k = items[i].numel()
+                    items[i] = flat[off:off + k].view_as(items[i])
+                    off += k
+            grads = items[:len(grads)]
+            if group is shard_group:
+                loss = items[-1]
+        return grads, loss
 
     @torch.no_grad()
     def _apply_update(self, params, history, grads, it: int):
@@ -438,9 +492,10 @@ class Solver:
 
         leaves = tree_leaves(state.params)
         req = [p.detach().requires_grad_(True) for p in leaves]
-        out = net.apply(tree_unflatten(state.params, req), state.stats, batch,
-                        train=True, rng=rng, on_top=hook)
-        grads = torch.autograd.grad(out.loss, req, allow_unused=True)
+        with dp.active(self.batch_shard):
+            out = net.apply(tree_unflatten(state.params, req), state.stats,
+                            batch, train=True, rng=rng, on_top=hook)
+            grads = torch.autograd.grad(out.loss, req, allow_unused=True)
         grads = tree_unflatten(state.params, [
             torch.zeros_like(p) if g is None else g
             for p, g in zip(req, grads)])

@@ -43,10 +43,16 @@ minibatch order re-permutes each epoch; the net's ``HDF5Output`` layers
 write their files after the last window; ``--profile`` /
 ``--profile_out`` profile each window as a round (``obs/profile.py``).
 ``time --model M --iterations N [--batch B]`` prints ``caffe time``'s
-per-layer table (``utils/profiler.py``).  ``train``'s ``--devices`` > 1,
-``--obs`` and the other subcommands (``classify``, ``device_query``, the
-converters, ...) come with later slices; the flags raise "not yet
-ported" here.
+per-layer table (``utils/profiler.py``).  ``train --devices N`` is
+Caffe's own multi-GPU training (``caffe train --gpu=0,..,N-1``):
+synchronous gradient all-reduce on the global batch
+(``parallel.AllReduceTrainer``), the TRAIN data layers' batch scaled by
+N, one rank a card; outside a joined world it spawns the N ranks
+through ``tools/launch.py`` (``--backend gloo`` lets them share fewer
+cards, or run on the CPU), and only rank 0 logs, writes snapshots,
+commits the journal and publishes.  ``--obs`` and the other subcommands
+(``classify``, ``device_query``, the converters, ...) come with later
+slices; the flags raise "not yet ported" here.
 """
 
 from __future__ import annotations
@@ -213,9 +219,10 @@ def cmd_serve(args) -> int:
     return server.run()
 
 
-# train flags of the JAX CLI that later slices bring: (flag, refused when)
-_TRAIN_NOT_YET_PORTED = (
-    ("--devices", lambda a: a.devices > 1, " > 1 (allreduce data parallelism)"),
+# train flags that stay one-process under --devices > 1: (flag, is it on)
+_DEVICES_NOT_YET_PORTED = (
+    ("--profile", lambda a: bool(a.profile)),
+    ("--profile_out", lambda a: bool(a.profile_out)),
 )
 
 
@@ -265,11 +272,12 @@ def cmd_train(args) -> int:
     from sparknet_tpu_torch import obs
 
     obs.check_args(args, "train")
-    for flag, refused, what in _TRAIN_NOT_YET_PORTED:
-        if refused(args):
-            raise SystemExit(
-                f"train: {flag}{what} is not yet ported to sparknet_tpu_torch"
-            )
+    if args.devices > 1:
+        for flag, on in _DEVICES_NOT_YET_PORTED:
+            if on(args):
+                raise SystemExit(
+                    f"train: {flag} with --devices > 1 (across processes) is "
+                    "not yet ported to sparknet_tpu_torch")
     # a publish carries the sentry's verdict: an unaudited run has none
     if args.publish_to and not args.health and not args.health_policy:
         args.health = "warn"
@@ -290,16 +298,107 @@ def cmd_train(args) -> int:
         )
         return 1
 
+    from sparknet_tpu_torch.parallel import mesh as mesh_mod
     from sparknet_tpu_torch.utils.devices import (
         deterministic_algorithms,
         resolve_device,
     )
 
-    device = resolve_device(args.device)
+    if args.devices > 1:
+        if mesh_mod.process_count() == 1:
+            return _spawn_devices(args)
+        if mesh_mod.process_count() != args.devices:
+            print(f"train: --devices={args.devices} inside a joined world of "
+                  f"{mesh_mod.process_count()} processes: they must be equal",
+                  file=sys.stderr)
+            return 1
+        device = mesh_mod.app_device(args.device, "train")
+    else:
+        device = resolve_device(args.device)
     # on every run, resumed or not, before the first CUDA op: both take
     # the same algorithms
     with deterministic_algorithms():
         return _train_solver(args, device)
+
+
+def _allreduce_net(args):
+    """The net of ``train --devices N`` (JAX ``tools/cli.py:151-185``):
+    the TRAIN data layers' declared batch scaled by N, the TEST view's
+    kept (caffe's ``--gpu`` multiplies the training batch only,
+    docs/multigpu.md); None, with the JAX message, when the TRAIN view
+    declares no shapes or the net writes HDF5Output files."""
+    from sparknet_tpu_torch import config
+
+    n = args.devices
+    netp0 = config.resolve_solver_net(config.load_solver_prototxt(args.solver))
+    train_shapes = _declared_feed_shapes(netp0, "TRAIN")
+    test_shapes = _declared_feed_shapes(netp0, "TEST") or train_shapes
+    if train_shapes is None:
+        print("train: --devices needs data layers with declared shapes "
+              "(HostData/Input/MemoryData)", file=sys.stderr)
+        return None
+    if any(lp.type == "HDF5Output" for lp in netp0.layer):
+        raise SystemExit("train: HDF5Output with --devices > 1 (each rank "
+                         "holds its rows) is not yet ported to "
+                         "sparknet_tpu_torch")
+    scaled = [(s[0] * n,) + tuple(s[1:]) for s in train_shapes]
+    return config.replace_data_layers(netp0, scaled, test_shapes)
+
+
+def _declared_feed_shapes(netp, phase):
+    """Declared data-layer shapes of one phase view, from the config (no
+    net build): the first host-fed layer that states its shapes, or
+    None (JAX ``tools/cli.py`` ``_declared_feed_shapes``)."""
+    from sparknet_tpu_torch.config.schema import NetState
+    from sparknet_tpu_torch.graph import filter_net
+    from sparknet_tpu_torch.ops import data_layers as dl
+    from sparknet_tpu_torch.ops.base import create_layer
+
+    for lp in filter_net(netp, NetState(phase=phase)).layer:
+        try:
+            layer = create_layer(lp, phase)
+        except Exception:
+            continue
+        if isinstance(layer, dl._HostFed):
+            shapes = layer.declared_shapes()
+            if shapes:
+                return [tuple(s) for s in shapes]
+    return None
+
+
+def _spawn_devices(args) -> int:
+    """``train --devices N`` outside a joined world: N local ranks through
+    ``tools/launch.py``'s ``spawn_local``, rank i on ``cuda:i``.  With
+    fewer cards than N it exits, as the JAX CLI does when jax sees too
+    few devices, unless ``--backend gloo`` is passed: the ranks then
+    share ``cuda:0`` over gloo, and say so.  CPU ranks join over gloo."""
+    import argparse as _argparse
+
+    import torch
+
+    from sparknet_tpu_torch.tools import launch
+
+    n = args.devices
+    argv = list(args.argv)
+    on_cards = torch.device(args.device).type == "cuda"
+    cards = torch.cuda.device_count() if on_cards else n
+    if cards < n and args.backend != "gloo":
+        print(f"train: --devices={n} but torch sees {cards} device(s) "
+              "(--backend gloo shares them)", file=sys.stderr)
+        return 1
+    if _allreduce_net(args) is None:
+        return 1
+    if cards < n:
+        argv += ["--device", "cuda:0"]  # the last --device wins
+        print(f"train: {n} ranks share cuda:0 over gloo (--backend gloo)")
+    print(f"train: spawning {n} ranks (allreduce data parallelism)")
+    sys.stdout.flush()
+    # no deadline: the ranks train until they end (a rank that fails
+    # still ends the wait, its peers killed)
+    return launch.spawn_local(_argparse.Namespace(
+        app="train", nprocs=n, coordinator=args.coordinator,
+        devices_per_host=1, backend=args.backend, timeout=float("inf"),
+    ), argv)
 
 
 def _train_solver(args, device) -> int:
@@ -311,31 +410,50 @@ def _train_solver(args, device) -> int:
     from sparknet_tpu_torch.solver import Solver
 
     solver_param = config.load_solver_prototxt(args.solver)
-    solver = Solver(solver_param, device=device)
+    trainer = None
+    if args.devices > 1:
+        from sparknet_tpu_torch.parallel import AllReduceTrainer, make_mesh
+
+        netp = _allreduce_net(args)
+        if netp is None:
+            return 1
+        solver = Solver(solver_param, net_param=netp, device=device)
+        trainer = AllReduceTrainer(
+            solver, make_mesh({"dp": args.devices}, workers_per_process=1))
+    else:
+        solver = Solver(solver_param, device=device)
+    root = trainer is None or trainer.is_root
+    say = print if root else (lambda *a, **k: None)
+    if trainer is not None:
+        from sparknet_tpu_torch.parallel import mesh as mesh_mod
+
+        say(f"allreduce data-parallel over {args.devices} devices "
+            f"({mesh_mod.joined_backend()}, {device} a rank)")
     metrics = TrainingMetrics()
     # one prefix rule for writing snapshots and for --resume's scan
     prefix = solver_param.snapshot_prefix or "snapshot"
-    # the round ledger beside the snapshots; a --resume that finds one
-    # consumes it (the auto rule)
+    # the round ledger beside the snapshots (rank 0's); a --resume that
+    # finds one consumes it (the auto rule)
     jr = journal_mod.journal_from_args(
         args, journal_mod.default_journal_path(prefix), resuming=args.resume,
-        metrics=metrics)
+        metrics=metrics) if root else None
     if jr is not None:
-        print(f"run journal: {jr.path} (fsync={jr.fsync})")
+        say(f"run journal: {jr.path} (fsync={jr.fsync})")
     # the sentry turns the solver's audit on and guards every window;
-    # rollback restores through the same prefix
-    sentry = health_mod.sentry_from_args(args, solver, echo=print,
+    # rollback restores through the same prefix (every rank: the verdict
+    # reads the global loss and grad norm, so they roll back together)
+    sentry = health_mod.sentry_from_args(args, solver, echo=say,
                                          metrics=metrics)
     if sentry is not None:
-        sentry.restore_fn = health_mod.make_restore_fn(solver, prefix,
-                                                       metrics=metrics)
-    recorder = obs.flight_from_args(args, metrics=metrics)
+        sentry.restore_fn = health_mod.make_restore_fn(
+            solver, prefix, trainer=trainer, metrics=metrics)
+    recorder = obs.flight_from_args(args, metrics=metrics) if root else None
     # --profile: each window is one profiled round (Solver.step marks it)
     profiler = obs.profile_from_args(args, echo=print)
     try:
         with obs.installed_metrics(metrics):  # the data plane counts too
             return _train_loop(args, solver, solver_param, metrics, prefix,
-                               jr, sentry)
+                               jr, sentry, trainer, say)
     finally:
         if profiler is not None:
             summary = obs.close_profile(profiler, args.profile_out, echo=print)
@@ -349,23 +467,29 @@ def _train_solver(args, device) -> int:
             obs.set_sentry(None)
 
 
-def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
+def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry,
+                trainer=None, say=print) -> int:
     from sparknet_tpu_torch.data import CifarLoader, MinibatchSampler, RoundFeed
     from sparknet_tpu_torch.data.source import synthetic_batches
     from sparknet_tpu_torch.io import checkpoint, hdf5
     from sparknet_tpu_torch.obs.health import SentryHalt
+    from sparknet_tpu_torch.parallel import mesh as mesh_mod
     from sparknet_tpu_torch.utils.signals import SignalHandler, SolverAction
     from sparknet_tpu_torch.utils.trainlog import TrainingLog
 
+    group = None if trainer is None else trainer.group
     job_state = None
     if args.resume:
         # newest CRC-valid snapshot; corrupt ones are quarantined and the
         # scan falls back (io/checkpoint.restore_newest_valid).  With a
         # ledger: the last COMMITTED boundary (snapshots past it belong
-        # to rounds that re-execute)
-        try:
+        # to rounds that re-execute).  Across ranks rank 0 chooses (it
+        # holds the ledger) and every rank restores its choice
+        held = {}
+
+        def newest():
             if jr is not None and jr.last_committed_round is not None:
-                state, used, job_state, jinfo = \
+                st, used, js, jinfo = \
                     checkpoint.restore_newest_valid_journaled(
                         solver, prefix, jr, metrics=metrics)
                 if jinfo["in_flight_round"] is not None:
@@ -373,25 +497,37 @@ def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
                     print("journal: round %d was in flight at the crash — "
                           "it re-executes" % jinfo["in_flight_round"])
             else:
-                state, used = checkpoint.restore_newest_valid(
+                st, used = checkpoint.restore_newest_valid(
                     solver, prefix, metrics=metrics)
-                job_state = checkpoint.load_job_state(used)
+                js = checkpoint.load_job_state(used)
+            held["state"] = st
+            return used, js
+
+        try:
+            used, job_state = (newest() if group is None
+                               else mesh_mod.on_rank0(newest, group))
+            state = held.get("state")
+            if state is None:
+                state = checkpoint.restore(solver, used, metrics=metrics)
         except (FileNotFoundError, checkpoint.SnapshotCorrupt) as e:
             print(f"train: --resume: {e}", file=sys.stderr)
             return 1
         if job_state and sentry is not None and "sentry" in job_state:
             sentry.load_state(job_state["sentry"])
-        print(f"resumed from {used} at iter {int(state.iter)}")
+        say(f"resumed from {used} at iter {int(state.iter)}")
     elif args.snapshot:
         state = checkpoint.restore(solver, args.snapshot, metrics=metrics)
         job_state = checkpoint.load_job_state(args.snapshot)
-        print(f"resumed from {args.snapshot} at iter {int(state.iter)}")
+        say(f"resumed from {args.snapshot} at iter {int(state.iter)}")
     else:
         state = solver.init_state(seed=args.seed)
         if args.weights:
             state = checkpoint.load_weights_into_state(solver, state,
                                                        args.weights)
-            print(f"warm-started weights from {args.weights}")
+            say(f"warm-started weights from {args.weights}")
+    if trainer is not None:
+        # rank 0's state on every rank (the resume / warm-start entry)
+        state = trainer.shard_state(state)
     if job_state and "loss_window" in job_state.get("solver", {}):
         solver.restore_loss_window(job_state["solver"]["loss_window"])
 
@@ -420,7 +556,7 @@ def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
             # local files, refetched only when missing or corrupt
             data_dir = _stage_cached_dir(args.data, args.cache_dir,
                                          args.cache_bytes)
-            print(f"staged {args.data} -> {data_dir} (chunk cache)")
+            say(f"staged {args.data} -> {data_dir} (chunk cache)")
         loader = CifarLoader(data_dir)
         x, y = loader.minibatches(
             solver.net.blob_shapes[solver.net.feed_blobs[0]][0]
@@ -457,13 +593,18 @@ def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
     max_iter = args.max_iter or solver_param.max_iter or 1000
     snap_every = solver_param.snapshot
     ckpt = (checkpoint.AsyncCheckpointer(metrics=metrics)
-            if args.async_snapshot else None)
+            if args.async_snapshot and (trainer is None or trainer.is_root)
+            else None)
 
     def assemble(r):
+        # every rank draws the same global window (one seed); under
+        # --devices each copies only its own rows to its device
         if epoch_draw is not None:
-            return epoch_draw(r)
-        return (sampler.next_window() if sampler
-                else synthetic_batches(solver.net, args.tau))
+            window = epoch_draw(r)
+        else:
+            window = (sampler.next_window() if sampler
+                      else synthetic_batches(solver.net, args.tau))
+        return window if trainer is None else trainer.local_rows(window)
 
     def job_extra():
         # loop state a TrainState restore would reset
@@ -489,6 +630,10 @@ def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
 
     def snapshot(abs_r):
         nonlocal async_pending
+        if not (trainer is None or trainer.is_root):
+            # every rank holds the same bits: rank 0 writes them
+            log.log(f"snapshot at iter {it} written by rank 0")
+            return
         if ckpt is not None:
             # publish and commit the previous write BEFORE the next save
             ckpt.wait()
@@ -508,8 +653,12 @@ def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
 
     feed = RoundFeed(assemble, solver.device, pipelined=not args.serial_feed,
                      num_rounds=max(0, -(-(max_iter - it) // args.tau)))
+    # the window's stepper: the solver, or the trainer on this rank's rows
+    stepper = solver if trainer is None else trainer.rows_stepper
+    rank = mesh_mod.process_index()
     r = 0
-    with TrainingLog(tag="train") as log, SignalHandler(
+    with TrainingLog(tag="train" if rank == 0 else f"train_p{rank}",
+                     echo=rank == 0) as log, SignalHandler(
         sigint_effect=effects[args.sigint_effect],
         sighup_effect=effects[args.sighup_effect],
     ) as handler:
@@ -522,9 +671,9 @@ def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
                     jr.begin_round(abs_r, iter=it, cursor=abs_r)
                 if sentry is not None:
                     state, _ = sentry.guarded_step(
-                        solver, state, feed.next_round(r), round_index=abs_r)
+                        stepper, state, feed.next_round(r), round_index=abs_r)
                 else:
-                    state, _ = solver.step(state, feed.next_round(r))
+                    state, _ = stepper.step(state, feed.next_round(r))
                 r += 1
                 it += args.tau
                 # SolverParameter.display: reading smoothed_loss waits for
@@ -533,6 +682,18 @@ def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
                 if it % disp < args.tau:
                     log.log(f"iter {it} smoothed_loss {solver.smoothed_loss:.4f}")
                 action = handler.get_action()
+                if group is not None:
+                    # a signal to any rank is acted on by all, at the same
+                    # window: no rank leaves a collective early
+                    stop, snap = mesh_mod.agree_max(
+                        [action == SolverAction.STOP,
+                         action == SolverAction.SNAPSHOT], group)
+                    action = (SolverAction.STOP if stop else
+                              SolverAction.SNAPSHOT if snap
+                              else SolverAction.NONE)
+                    if action != SolverAction.NONE:
+                        log.log(f"iter {it}: {action.name.lower()} agreed "
+                                f"over {trainer.parts} ranks")
                 if action == SolverAction.SNAPSHOT or (
                     snap_every and it % snap_every < args.tau
                     and it >= snap_every
@@ -559,7 +720,7 @@ def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
     for path in hdf5_outputs:
         print(f"HDF5Output -> {path}")
     published = None
-    if args.publish_to:
+    if args.publish_to and (trainer is None or trainer.is_root):
         # train-to-serve delivery: the final state publishes only with a
         # passing sentry verdict on its CRC manifest
         from sparknet_tpu_torch.serve import publish as publish_mod
@@ -576,7 +737,8 @@ def _train_loop(args, solver, solver_param, metrics, prefix, jr, sentry) -> int:
     if args.result is not None:
         args.result.update(state=state, solver=solver, metrics=metrics,
                            smoothed_loss=solver.smoothed_loss, sentry=sentry,
-                           published=published, hdf5_outputs=hdf5_outputs)
+                           published=published, hdf5_outputs=hdf5_outputs,
+                           trainer=trainer)
     return 0
 
 
@@ -708,7 +870,18 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
                    help="publish the final state with the sentry's verdict "
                    "on its CRC manifest (implies --health warn); cli serve "
                    "--watch DIR delivers it")
-    p.add_argument("--devices", type=int, default=1, help="not yet ported")
+    p.add_argument("--devices", type=int, default=1,
+                   help="N > 1: synchronous gradient all-reduce on the "
+                   "global batch over N ranks, one card each (caffe train "
+                   "--gpu=0,..,N-1); the TRAIN batch scales by N.  Spawns "
+                   "the ranks unless this process is one of a joined world")
+    p.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                   help="--devices: the ranks' collective backend (default "
+                   "NCCL on cards, gloo on the CPU); gloo lets N ranks share "
+                   "fewer cards")
+    p.add_argument("--coordinator", default=None,
+                   help="--devices: host:port or file:// store the spawned "
+                   "ranks join through (default: a probed loopback port)")
     p.add_argument("--cache_dir", default=None,
                    help="chunk-cache root for an object-store --data "
                    "(default: a temp dir)")
@@ -824,6 +997,7 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     p.set_defaults(fn=cmd_serve, result=None)
 
     args = parser.parse_args(argv)
+    args.argv = argv[1:]  # the subcommand's own arguments
     if result is not None:
         args.result = result
     return args.fn(args)

@@ -26,9 +26,12 @@ of its own, gloo for CPU ranks, and ranks that share a card refuse to
 join unless ``--backend gloo`` says so.  Each local rank takes
 ``cuda:<rank>`` unless the app's ``--device`` pins a card;
 ``--devices_per_host`` is the number of workers each process stacks on
-its device (the app's ``--workers`` must be ``nprocs x`` that).  Only
-``cifar`` and ``imagenet`` have a multi-process mode, as in the JAX
-package; the other apps refuse a world above one process.  The
+its device (the app's ``--workers`` must be ``nprocs x`` that).
+``cifar``, ``imagenet`` and ``lm`` (its dp x sp mesh, one sequence shard
+a rank at ``--sp`` > 1) have a multi-process mode, as in the JAX
+package, and so does ``train`` (``cli train --devices N``, which spawns
+its ranks through ``spawn_local``: synchronous gradient all-reduce on the
+global batch); the other apps refuse a world above one process.  The
 simulated-slice flags (``--slices``, ``--preempt_slice``,
 ``--preempt_at``, ``--relaunch_after``) and ``--fleet_collector`` are not
 yet ported.
@@ -48,9 +51,10 @@ APPS = {
     "imagenet_run_db": "sparknet_tpu_torch.apps.imagenet_run_db_app",
     "featurizer": "sparknet_tpu_torch.apps.featurizer_app",
     "lm": "sparknet_tpu_torch.apps.lm_app",
+    "train": "sparknet_tpu_torch.tools.cli",  # ``cli train``'s arguments
 }
 # the apps whose JAX counterparts run across processes
-MULTIPROCESS_APPS = ("cifar", "imagenet")
+MULTIPROCESS_APPS = ("cifar", "imagenet", "lm", "train")
 # the JAX launcher's lifecycle actions (tools/provision.py, not ported)
 PROVISION_ACTIONS = ("provision", "describe", "run", "ssh", "teardown")
 # (flag, default): the JAX launcher's flags of later work
@@ -67,13 +71,28 @@ def requested_device(app_argv) -> str:
     return p.parse_known_args(list(app_argv))[0].device
 
 
-def refuse_world(app: str, num_processes) -> None:
-    if (num_processes or 1) > 1 and app not in MULTIPROCESS_APPS:
+def _app_int(app_argv, flag: str, default: int) -> int:
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument(flag, type=int, default=default)
+    return getattr(p.parse_known_args(list(app_argv))[0], flag.lstrip("-"))
+
+
+def refuse_world(app: str, num_processes, app_argv=(),
+                 devices_per_host: int = 1) -> None:
+    n = num_processes or 1
+    if n > 1 and app not in MULTIPROCESS_APPS:
         raise SystemExit(
             f"launch: {app} across {num_processes} processes is not yet "
             "ported to sparknet_tpu_torch (its JAX counterpart has no "
             f"multi-process mode; these do: {', '.join(MULTIPROCESS_APPS)})"
         )
+    sp = _app_int(app_argv, "--sp", 1) if app == "lm" else 1
+    if n > 1 and sp > 1 and devices_per_host > 1:
+        raise SystemExit(
+            f"launch: lm across {n} processes with --sp {sp} holds one "
+            "sequence shard a rank; stacking --devices_per_host "
+            f"{devices_per_host} slots a rank is not yet ported to "
+            "sparknet_tpu_torch")
 
 
 def run_app(app: str, app_argv, coordinator=None, num_processes=None,
@@ -87,7 +106,8 @@ def run_app(app: str, app_argv, coordinator=None, num_processes=None,
 
     world = num_processes if num_processes is not None else int(
         os.environ.get("WORLD_SIZE", "1"))
-    refuse_world(app, world)
+    refuse_world(app, world, app_argv,
+                 int(os.environ.get("SPARKNET_LOCAL_WORKERS", "1")))
     joined = False
     if coordinator or num_processes is not None or "MASTER_ADDR" in os.environ:
         mesh.initialize_distributed(coordinator, num_processes, process_id,
@@ -99,7 +119,8 @@ def run_app(app: str, app_argv, coordinator=None, num_processes=None,
                   f"{mesh.joined_backend()}", flush=True)
     try:
         mod = importlib.import_module(APPS[app])
-        return int(mod.main(list(app_argv)) or 0)
+        argv = (["train"] if app == "train" else []) + list(app_argv)
+        return int(mod.main(argv) or 0)
     finally:
         if joined:
             mesh.shutdown()
@@ -116,7 +137,7 @@ def spawn_local(args, app_argv) -> int:
     on its own, else 1 when children were killed at the timeout."""
     from sparknet_tpu_torch.utils import procs
 
-    refuse_world(args.app, args.nprocs)
+    refuse_world(args.app, args.nprocs, app_argv, args.devices_per_host)
     coordinator = args.coordinator or f"127.0.0.1:{procs.free_port()}"
     repo = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))

@@ -11,7 +11,8 @@
 - SIGHUP snapshots, SIGINT snapshots and stops; ``--weights`` warm-starts.
 - The flags of later slices refuse, saying "not yet ported" (the chunk
   cache, ``--shuffle_epochs`` and object-store ``--data`` run now:
-  ``tests/test_torch_data_plane.py``).
+  ``tests/test_torch_data_plane.py``; ``--devices`` runs now, without
+  ``--profile``: ``tests/test_torch_cli_devices.py``).
 """
 
 import os
@@ -278,7 +279,7 @@ def test_weights_warm_start(tmp_path):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--devices=2"], "--devices"),
+    (["--devices=2", "--profile"], "--devices"),
     (["--trace_out=/tmp/t.json"], "--trace_out"),
     (["--slo"], "--slo"),
     (["--obs"], "--obs"),

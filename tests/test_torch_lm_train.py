@@ -257,13 +257,15 @@ def test_lm_app_end_to_end_on_the_cpu():
      ["--slo"], ["--ship_to", "http://h:1"], ["--host_id", "h"], ["--obs"]],
 )
 def test_lm_app_refuses_what_is_not_yet_ported(flag, monkeypatch):
-    """``--sp`` runs in one process (``tests/test_torch_lm_sp.py``): what
-    is refused is a run across processes, the ring over a process group
-    among it."""
+    """``--sp`` runs in one process (``tests/test_torch_lm_sp.py``) and
+    across processes one sequence shard a rank
+    (``tests/test_torch_lm_multiprocess.py``): what is refused is a rank
+    stacking several slots of the sp ring."""
     if flag[0] == "--sp":
         from sparknet_tpu_torch.parallel import mesh
 
         monkeypatch.setattr(mesh, "process_count", lambda: 2)
+        monkeypatch.setenv("SPARKNET_LOCAL_WORKERS", "2")
     with pytest.raises(SystemExit, match="not yet ported") as e:
         lm_app.main(APP + ["--rounds", "1"] + flag)
     assert flag[0] in str(e.value)
@@ -311,7 +313,8 @@ def test_cli_train_lm_dispatch(tmp_path):
     assert cli.main(["train", "--lm", "--rounds", "1", "--corpus", str(corpus)]
                     + APP) == 0
     with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["train", "--solver", "solver.prototxt", "--devices", "2"])
+        cli.main(["train", "--solver", "solver.prototxt", "--devices", "2",
+                  "--profile"])
     # an object-store corpus is read through the chunk cache
     assert cli.main(["train", "--lm", "--rounds", "1", "--corpus",
                      "file://" + str(corpus), "--cache_dir",

@@ -229,7 +229,8 @@ def test_imagenet_app_across_two_ranks(tmp_path):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--nprocs", "2", "lm", "--device", "cpu"], "lm across 2 processes"),
+    (["--nprocs", "2", "--devices_per_host", "2", "lm", "--device", "cpu",
+      "--sp", "2"], "lm across 2 processes"),
     (["--nprocs", "2", "featurizer"], "featurizer across 2 processes"),
     (["--slices", "2", "cifar"], "--slices"),
     (["--preempt_slice", "0", "cifar"], "--preempt_slice"),

@@ -165,7 +165,8 @@ _CIFAR = ["--device", "cpu", "--workers", "2", "--tau", "2", "--rounds", "1"]
     "argv,what",
     [
         (["train", "--solver", "s.prototxt"] + flag, flag[0])
-        for flag in (["--trace_out", "/t"], ["--devices", "2"], ["--slo"])
+        for flag in (["--trace_out", "/t"], ["--devices", "2", "--profile"],
+                     ["--slo"])
     ] + [
         (["cifar_app"] + _CIFAR + flag, flag[0])
         for flag in (["--trace_out", "/t"], ["--obs_port", "1"],
