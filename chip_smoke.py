@@ -411,6 +411,36 @@ Phases (any failure ends the run with a non-zero exit and no result):
    only rank 0 logs, smoothed losses within ``LOSS_BAND`` of one
    process's.  (f) (d)'s rounds with the dp group over NCCL at world
    size 1: the bits of the run with no group.
+19. Caffe's all-reduce data parallelism and the LM's dp x sp mesh
+   across processes, two ranks sharing the card over gloo
+   (``allreduce_end_to_end``): ``cli train --devices 2`` on CaffeNet, a
+   ResNet-50 step under ``AllReduceTrainer``, ``lm_app --sp 2`` as two
+   ranks, a resume, and NCCL at world size 1.
+20. SparkNet's failure and straggler machinery across processes
+   (``averaging_machinery_across_processes``): cifar10_full W=4 as two
+   ranks on the card over gloo (two workers a rank, tau 10, batch 100,
+   3 rounds, deterministic), each leg bit for bit the one-process
+   stacked run of the same W (rows, losses, live masks, view epochs,
+   rosters, tiers): (a) ``--compress int8 --slices 2
+   --cross_slice_every 2`` (0 B reach a rank on the intra rounds, the
+   other rank's int8 rows on the cross round; K9/K10 3 a rank), (b)
+   ``--elastic --rejoin_after 1 --compress int8`` with a SIGTERM that
+   rank 1 alone sends itself at round 1 (epochs 0, 1, 2, 4 on both
+   ranks; K9/K10 12 a rank), (c) ``--stale_bound 2``, (d) ``--journal
+   --profile --profile_out`` (rank 0's ledger equals the stacked run's,
+   rank 1 keeps none; a W-row worker table, written by rank 0); (e)
+   ``tools/launch.py --nprocs 2 --slices 2 --preempt_slice 1
+   --preempt_at --relaunch_after cifar --elastic``: the lifecycle lines,
+   the notice agreed (the leave in rank 0's log), rank 1 killed and
+   relaunched, rank 0 stopping with ``mesh.PeerLost`` naming rank 1, no
+   hang until the launcher's deadline; (f) the real entry point,
+   ``tools/launch.py --nprocs 2 --devices_per_host 2 cifar --slices 2
+   --cross_slice_every 2 --compress int8 --elastic`` (2 rounds),
+   observed (``utils/procs.observed_launch``): every rank's rows, losses,
+   masks, smoothed loss and accuracy bit for bit a one-process
+   ``cifar_app --workers 4`` run of the same flags.  (e) and (f) run
+   beside (a)-(d), so (a)-(d)'s round walls come from a shared card.
+   (a)-(d)'s and (f)'s K9/K10 launches join the kernels line.
 
 Before its last lines the script prints its wall seconds by function
 (callees included), for a slice that must cut depth to stay inside the
@@ -7134,6 +7164,263 @@ def allreduce_end_to_end(dev, card):
     return launches
 
 
+# phase 20: SparkNet's failure and straggler machinery across processes,
+# two ranks sharing the card over gloo, W=4 (two cifar10_full workers a
+# rank); legs (a)-(d) held to the one-process stacked run bit for bit
+P20_W, P20_ROUNDS = 4, 3
+P20_LEGS = {
+    "a": dict(compress="int8", slices=2, cross_slice_every=2),
+    "b": dict(compress="int8", slices=2, elastic=True, preempt=[1, 1],
+              rounds=P20_ROUNDS + 1),  # the rejoin lands at round 3
+    "c": dict(stale_bound=2),
+    "d": dict(journal=True, profile=True),
+}
+# (e): SIGTERM to slice 1 once the ranks train (their set-up took ~20 s
+# alone on the card's host; (e) runs beside (a)-(d)), the hard kill 2 s
+# later; the survivors' group timeout, and the launcher's deadline past
+# which a hang would show
+P20_PREEMPT_AT_S, P20_RELAUNCH_AFTER_S = 35.0, 2.0
+P20_LAUNCH_TIMEOUT_S = 180
+P20_TIMEOUT_S = 600
+# (f): the real entry point with (a)'s and (b)'s flags, 2 rounds (an
+# intra round, then a cross round)
+P20_APP = ["cifar", "--device", "cuda:0", "--workers", str(P20_W), "--tau",
+           str(CIFAR_TAU), "--batch", str(CIFAR_BATCH), "--rounds", "2",
+           "--test_every", "1000000", "--slices", "2", "--cross_slice_every",
+           "2", "--compress", "int8", "--elastic"]
+
+
+def _p20_spec(leg):
+    return {"net": "cifar10_full", "workers": P20_W, "tau": CIFAR_TAU,
+            "batch": CIFAR_BATCH, "rounds": P20_ROUNDS,
+            "deterministic": True, **P20_LEGS[leg]}
+
+
+def _p20_same(ranks, ref, what):
+    _same_as_stacked(ranks, ref, what)
+    for r in ranks:
+        for key in ("masks", "epochs", "states", "transitions", "tiers"):
+            check(r[key] == ref[key], f"{what}: {key} {r[key]} differ from "
+                  f"the stacked run's {ref[key]}")
+
+
+def machinery_legs(dev, card):
+    """(a)-(d): each leg over two ranks on the card, held to the stacked
+    run; the bytes that crossed the group, against the prediction, and
+    K9/K10 by the chunk arithmetic in each rank.  Returns the ranks'
+    K9/K10 launches."""
+    from sparknet_tpu_torch.utils import procs
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    legs = sorted(P20_LEGS)
+    t0 = time.perf_counter()
+    got, ref, logs = procs.run_averaging_processes(
+        [_p20_spec(leg) for leg in legs], repo, nprocs=2, device="cuda:0",
+        backend="gloo", timeout=P20_TIMEOUT_S, stacked_first=True)
+    wall = time.perf_counter() - t0
+    joined = [ln for o in logs for ln in o.splitlines() if "joined" in ln]
+    check(len(joined) == 2 and all("over gloo" in ln for ln in joined),
+          f"the ranks did not join over gloo: {joined}")
+    launches = {"comm_encode": 0, "comm_apply_barriered": 0}
+    run = dict(zip(legs, zip(got, ref)))
+    nparam = sum(p.size for p in run["a"][0][0]["params"])
+    nleaf = len(run["a"][0][0]["params"])
+    other = P20_W // 2  # the other rank's rows
+    want = {"none": other * 4 * nparam, "int8": other * (nparam + 4 * nleaf)}
+    print(f"[{card}] phase 20 (a)-(d): cifar10_full W={P20_W} as 2 ranks x 2 "
+          f"on the card over gloo, tau {CIFAR_TAU}, batch {CIFAR_BATCH}, "
+          f"{nparam} params in {nleaf} leaves; {wall:.2f} s wall with the "
+          "stacked references")
+    for leg in legs:
+        ranks, r = run[leg]
+        what = f"phase 20 ({leg}) {P20_LEGS[leg]}"
+        _p20_same(ranks, r, what)
+        spec = procs._spec(_p20_spec(leg))
+        cross = [i for i, t in enumerate(ranks[0]["tiers"]) if t == "cross"]
+        mode = spec["compress"]
+        for rk in ranks:
+            gb = rk["group_bytes"]
+            for i, t in enumerate(rk["tiers"]):
+                exp = 0 if t == "intra" else want[mode]
+                check(gb[i] == exp, f"{what}: round {i} ({t}) moved {gb[i]} "
+                      f"B to rank {rk['rows']}, expected {exp}")
+            n = rk["launches"]
+            k = rk["chunks"] * len(cross) if mode != "none" else 0
+            check(n["comm_encode"] == k and n["comm_apply_barriered"] == k
+                  and n["comm_apply_correction"] == 0,
+                  f"{what}: launches {n}, expected {k} K9 and K10")
+            for name in launches:
+                launches[name] += n[name]
+        print(f"[{card}] ({leg}) bit for bit the stacked run ({len(gb)} rounds,"
+              f" tiers {ranks[0]['tiers']}); bytes to a rank a round "
+              f"{ranks[0]['group_bytes']} (predicted {want['int8']} int8, "
+              f"{want['none']} none on a cross round, 0 on a rank-aligned "
+              f"intra round); K9/K10 a rank "
+              f"{[rk['launches']['comm_encode'] for rk in ranks]}/"
+              f"{[rk['launches']['comm_apply_barriered'] for rk in ranks]}; "
+              f"round wall {[round(x * 1e3, 2) for x in ranks[0]['round_s']]}"
+              f" ms vs stacked {[round(x * 1e3, 2) for x in r['round_s']]} ms"
+              " (host clock; (e) and (f) train on the card meanwhile)")
+    ranks, r = run["b"]
+    check(ranks[0]["epochs"] == [0, 1, 2, 4] and [
+        t[2] for t in ranks[0]["transitions"]] == [
+        "leave", "death", "join_request", "rejoin"],
+        f"(b) views {ranks[0]['epochs']} {ranks[0]['transitions']}")
+    print(f"[{card}] (b) SIGTERM to rank 1 alone at round 1: masks "
+          f"{ranks[0]['masks']}, epochs {ranks[0]['epochs']} on both ranks")
+    ranks, r = run["d"]
+    check(ranks[0]["journal"] == r["journal"] and ranks[1]["journal"] is None
+          and len(r["journal"]) == 2 * P20_ROUNDS,
+          f"(d) journal: rank 0 {ranks[0]['journal']}, rank 1 "
+          f"{ranks[1]['journal']}, stacked {r['journal']}")
+    prof = [rk["profile"] for rk in ranks]
+    check(all(len(p["execute_ms_p50"]) == P20_W for p in prof)
+          and [p["written"] for p in prof] == [True, False]
+          and prof[0]["execute_ms_p50"] == prof[1]["execute_ms_p50"],
+          f"(d) profile {prof}")
+    print(f"[{card}] (d) journal: {len(r['journal'])} records, rank 0's equal "
+          f"the stacked run's, rank 1 none; profile: each worker's execute "
+          f"p50 {prof[0]['execute_ms_p50']} ms (CUDA events, gathered), "
+          f"FLOPs a round {prof[0]['flops_per_round']}, written by rank 0")
+    return launches
+
+
+def preemption_end_to_end(dev, card):
+    """(e) ``launch --nprocs 2 --slices 2 --preempt_slice 1`` over the
+    card (gloo, ``--elastic``): the SIGTERM is a notice the ranks agree
+    on (the leave shows in rank 0's log), the launcher kills and reaps
+    rank 1 and relaunches it; rank 0 stops in its next collective with
+    ``PeerLost`` naming rank 1 inside its group timeout
+    (``mesh.JOIN_TIMEOUT_S``), and nothing hangs until the launcher's
+    deadline."""
+    app = ["--device", "cuda:0", "--workers", "2", "--rounds", "100000",
+           "--tau", str(CIFAR_TAU), "--batch", str(CIFAR_BATCH),
+           "--test_every", "1000000", "--slices", "2", "--elastic",
+           "--rejoin_after", "1"]
+    env = _subprocess_env()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_preempt_") as d:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "sparknet_tpu_torch.tools.launch",
+             "--nprocs", "2", "--backend", "gloo", "--coordinator",
+             f"file://{d}/store", "--slices", "2", "--preempt_slice", "1",
+             "--preempt_at", str(P20_PREEMPT_AT_S), "--relaunch_after",
+             str(P20_RELAUNCH_AFTER_S), "--timeout",
+             str(P20_LAUNCH_TIMEOUT_S), "cifar", *app],
+            capture_output=True, text=True, timeout=P20_LAUNCH_TIMEOUT_S + 60,
+            env=env, cwd=d)
+        wall = time.perf_counter() - t0
+    text = out.stdout
+    life = [ln for ln in text.splitlines() if ln.startswith("launch:")]
+    lost = [ln for ln in text.splitlines()
+            if ln.startswith("[host 0]") and "PeerLost" in ln]
+    leave = [ln for ln in text.splitlines() if "membership: epoch" in ln]
+    trained = re.findall(r"\[host 0\] .*round (\d+) trained", text)
+    print(f"[{card}] (e) launch --slices 2 --preempt_slice 1 --preempt_at "
+          f"{P20_PREEMPT_AT_S} --relaunch_after {P20_RELAUNCH_AFTER_S} cifar "
+          f"--elastic: rc {out.returncode} after {wall:.2f} s (deadline "
+          f"{P20_LAUNCH_TIMEOUT_S} s); {len(trained)} rounds trained on rank "
+          f"0; lifecycle {life}; membership {leave[:4]}; rank 0: "
+          f"{lost[-1][:400] if lost else None}")
+    check(any("slice 1 preempted (SIGTERM to host(s) [1])" in ln
+              for ln in life), f"(e) no preemption line: {life}")
+    check(any("slice 1 relaunched" in ln or "slice 1 relaunch skipped" in ln
+              for ln in life), f"(e) no relaunch line: {life}")
+    check(any("leave [1]" in ln for ln in leave),
+          f"(e) the SIGTERM was not an agreed notice: {leave[:4]}")
+    check(lost and "lost rank 1 (pid" in lost[-1],
+          f"(e) rank 0 did not stop naming rank 1:\n{text[-3000:]}")
+    check(out.returncode != 0 and wall < P20_LAUNCH_TIMEOUT_S,
+          f"(e) rc {out.returncode} after {wall:.1f} s")
+
+
+def launched_app_bits(dev, card):
+    """(f) ``launch --nprocs 2 --devices_per_host 2 --backend gloo cifar
+    --slices 2 --cross_slice_every 2 --compress int8 --elastic`` on the
+    card against ``cifar_app --workers 4`` in one process with the same
+    flags, both observed (``utils/procs.observed_launch``: the real
+    launcher, children's environment and app, each process saving what
+    it computed): every rank's rows of the final params and stats, every
+    round's losses and live masks, the smoothed loss and the accuracy,
+    bit for bit.  Returns the ranks' K9/K10 launches."""
+    from sparknet_tpu_torch.utils import procs
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launched_") as d:
+        t0 = time.perf_counter()
+        runs = {}
+        for name, launcher in (
+                ("one", []),
+                ("launched", ["--nprocs", "2", "--devices_per_host", "2",
+                              "--backend", "gloo", "--coordinator",
+                              f"file://{d}/store", "--timeout",
+                              str(P20_LAUNCH_TIMEOUT_S)])):
+            done, ranks = procs.observed_launch(
+                [*launcher, *P20_APP], os.path.join(d, name), repo,
+                timeout=P20_LAUNCH_TIMEOUT_S + 60)
+            check(done.returncode == 0 and len(ranks) == (2 if launcher
+                                                          else 1),
+                  f"(f) {name} run: rc {done.returncode}, {len(ranks)} "
+                  f"rank(s) saved\n{done.stdout[-2000:]}{done.stderr[-2000:]}")
+            runs[name] = ranks
+        wall = time.perf_counter() - t0
+    (one,), ranks = runs["one"], runs["launched"]
+    for r in ranks:
+        lo, hi = r["rows"]
+        check(len(r["leaves"]) == len(one["leaves"]) > 0 and all(
+            np.array_equal(got, want[lo:hi])
+            for got, want in zip(r["leaves"], one["leaves"])),
+            f"(f) rank rows {lo}:{hi} differ from the one-process run")
+        check(np.array_equal(r["losses"], one["losses"]),
+              f"(f) rank rows {lo}:{hi}: losses differ")
+        for key in ("masks", "smoothed_loss", "accuracy"):
+            check(r[key] == one[key], f"(f) {key}: {r[key]} vs {one[key]}")
+        check(np.isfinite(r["losses"]).all(), "(f) non-finite losses")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ("comm_encode", "comm_apply_barriered")}
+    print(f"[{card}] (f) launch --nprocs 2 --devices_per_host 2 "
+          f"{' '.join(P20_APP)}: bit for bit the one-process run (rows, "
+          f"losses {one['losses'].shape}, masks, smoothed loss "
+          f"{one['smoothed_loss']!r}, accuracy {one['accuracy']!r}); K9/K10 a "
+          f"rank {[r['launches']['comm_encode'] for r in ranks]}/"
+          f"{[r['launches']['comm_apply_barriered'] for r in ranks]}; "
+          f"{wall:.2f} s wall for both runs")
+    return launches
+
+
+def averaging_machinery_across_processes(dev, card):
+    """Phase 20; returns the main-path K9/K10 launches of (a)-(d) and
+    (f).  (e) and (f) run beside (a)-(d), each on a thread: (e)'s ranks
+    train cifar10_full on the card until the preemption, and (f) is two
+    more runs of it, so (a)-(d)'s round walls come from a card shared
+    with them; the bits do not depend on the card's load."""
+    t0 = time.perf_counter()
+    failed, got = [], {}
+
+    def beside(fn):
+        try:
+            got[fn.__name__] = fn(dev, card)
+        except BaseException as e:  # re-raised below, on this thread
+            failed.append(e)
+
+    threads = [threading.Thread(target=beside, args=(fn,),
+                                name=f"phase20-{fn.__name__}")
+               for fn in (preemption_end_to_end, launched_app_bits)]
+    for t in threads:
+        t.start()
+    try:
+        launches = machinery_legs(dev, card)
+    finally:
+        for t in threads:
+            t.join()
+    if failed:
+        raise failed[0]
+    for name, n in got["launched_app_bits"].items():
+        launches[name] += n
+    print(f"[{card}] phase 20 wall {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def cudnn_failure_report(exc: BaseException) -> None:
     """On a failed run: cuDNN's version and flags, the device's free
     memory, the tensors of the port's innermost frame on the failing
@@ -7283,6 +7570,8 @@ def run_all() -> int:
     for name, n in multiprocess_ring_end_to_end(dev, card).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in allreduce_end_to_end(dev, card).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in averaging_machinery_across_processes(dev, card).items():
         launches[name] = launches.get(name, 0) + n
     slow = sorted(((w, n, k) for k, (w, n) in WALLS.items() if w >= 1.0),
                   reverse=True)

@@ -34,8 +34,15 @@ count (processes x the workers each stacks), every process computes the
 same partitioning and keeps only its own block of workers (its
 partitions, its samplers seeded by global worker index, its test rows),
 the average reduces over the dp group, and only rank 0 echoes its log.
-``--stale_bound``, ``--elastic``, ``--slices``, ``--journal``,
-``--overlap_avg`` and ``--profile`` stay single-process (refused).
+The failure and straggler machinery runs there too: ``--slices`` /
+``--cross_slice_every`` (a slice whose workers span ranks averages over
+a group of its own), ``--elastic`` (each rank's SIGTERM marks
+``$SPARKNET_SLICE_ID``, the launcher's slice of the process; the ranks
+agree on the events at every boundary, so they share one view),
+``--stale_bound``, ``--journal`` (rank 0 writes the one ledger) and
+``--profile`` / ``--profile_out`` (every rank's workers gathered into one
+table, written by rank 0).  ``--overlap_avg`` stays single-process
+(refused, as in JAX).
 """
 
 from __future__ import annotations

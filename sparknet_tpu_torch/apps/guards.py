@@ -13,6 +13,15 @@ The loop calls ``begin`` (the write-ahead intent), ``boundary`` (membership
 views and readmission, the round's live mask), ``round`` (the trainer's
 round, under the sentry when there is one) and ``commit``, inside
 ``signals()`` (the SIGTERM preemption hooks), and ``close`` at the end.
+
+Across processes (a trainer over a mesh whose dp axis spans them) every
+rank builds the same guards: the membership events are agreed over the
+dp group at each boundary before the view advances (``MembershipController.
+agree_events``), the journal has one writer, rank 0 (each JAX process
+opens the same path; the port keeps one ledger a run and rank 0
+decides a resume from it), and the profiler's per-worker table is
+gathered from every rank, rank 0 alone printing it and writing
+``--profile_out``.
 """
 
 from __future__ import annotations
@@ -87,15 +96,22 @@ class RoundGuards:
                 log.log("--elastic: the membership controller is wired in "
                         "cifar_app and lm_app (this app applies the "
                         "--slices/--cross_slice_every schedule)")
+        # across processes rank 0 alone keeps the ledger and writes the
+        # profile summary
+        root = trainer.group is None or mesh.process_index == 0
         jr = (journal_mod.journal_from_args(args, journal_path,
                                             resuming=resuming, metrics=metrics)
-              if journal_path else None)
+              if journal_path and root else None)
         if jr is not None:
-            log.log(f"run journal: {jr.path} (fsync={jr.fsync})")
+            log.log(f"run journal: {jr.path} (fsync={jr.fsync}"
+                    + ("" if trainer.group is None else
+                       f"; rank 0 writes it for all {mesh.process_count}")
+                    + ")")
         recorder = obs.flight_from_args(args, metrics=metrics)
         profiler = obs.profile_from_args(args, echo=log.log)
         return cls(trainer, sentry, spec, membership, auto_rejoin, jr,
-                   recorder, log, profiler, getattr(args, "profile_out", None))
+                   recorder, log, profiler,
+                   getattr(args, "profile_out", None) if root else None)
 
     # ------------------------------------------------------------------
     def signals(self):
@@ -134,7 +150,11 @@ class RoundGuards:
             return state, None
         from sparknet_tpu_torch.runtime import membership as mm
 
-        self.membership.advance(r)
+        group = getattr(self.trainer, "group", None)
+        # across processes a notice reached only some ranks: agree first
+        events = (None if group is None
+                  else self.membership.agree_events(group))
+        self.membership.advance(r, events=events)
         self.auto_rejoin.on_round(r)
         if self.membership.pending_joiners():
             state, _ = mm.readmit_from_survivors(

@@ -58,8 +58,11 @@ partitions stay unread), the minibatch counts, the mean image's
 per-partition sums and the per-worker test counts are gathered over
 the process group (``all_gather``), each process's samplers are seeded
 by global worker index, the average reduces over the dp group, and only
-rank 0 echoes its log.  ``--stale_bound``, ``--slices``, ``--journal``,
-``--overlap_avg`` and ``--profile`` stay single-process (refused).
+rank 0 echoes its log.  ``--stale_bound``, ``--slices`` /
+``--cross_slice_every``, ``--journal`` (rank 0 writes the ledger) and
+``--profile`` / ``--profile_out`` (every rank's workers in one table,
+written by rank 0) run across processes as in one; ``--overlap_avg``
+stays single-process (refused, as in JAX).
 """
 
 from __future__ import annotations

@@ -65,10 +65,15 @@ sequence ring runs over the sp group (K1/K3/K4 at absolute offsets), the
 Solver sums the partial grads over it (``grad_groups``), and the average
 reduces over the dp group.  Only rank 0 echoes its log and writes
 snapshots; ``--resume`` restores on every rank the snapshot rank 0
-chose.  The flags ``parallel/mesh.py`` keeps single-process
-(``--stale_bound``, ``--elastic``, ``--slices``, ``--journal``,
-``--overlap_avg``, ``--profile``) exit saying so, and so does
-``--compress`` with snapshots.
+chose.  At sp=1 the averaging machinery runs across processes as in one:
+``--stale_bound``, ``--elastic`` (the membership events agreed over the
+dp group each boundary), ``--slices`` / ``--cross_slice_every`` (a
+group a slice that spans ranks), ``--journal`` (rank 0 writes the one
+ledger, and a journal-guided ``--resume`` is decided there) and
+``--profile`` / ``--profile_out`` (every rank's workers in one table,
+written by rank 0).  ``--overlap_avg`` exits saying it stays
+single-process (as in JAX), and so does ``--compress`` with snapshots;
+at ``--sp`` > 1 across processes the averaging flags above exit too.
 """
 
 from __future__ import annotations
@@ -197,14 +202,33 @@ def resume_lm_job(solver, trainer, prefix, jr, sampler=None, tau: int = TAU,
 
     info, js = None, None
     if group is not None:
-        # across processes: rank 0's choice, restored on every rank
-        from sparknet_tpu_torch.parallel.trainers import restore_newest_agreed
+        # across processes: rank 0's choice (it holds the ledger),
+        # restored on every rank
+        from sparknet_tpu_torch.parallel import mesh as _mesh
+
+        held = {}
+
+        def choose():
+            if jr is not None:
+                if jr.last_committed_round is None:
+                    return None, jr.reconcile()
+                held["state"], used, held["js"], info = \
+                    checkpoint.restore_newest_valid_journaled(
+                        solver, prefix, jr, metrics=metrics)
+                return used, info
+            held["state"], used = checkpoint.restore_newest_valid(
+                solver, prefix, metrics=metrics)
+            return used, None
 
         try:
-            st, used = restore_newest_agreed(solver, prefix, group,
-                                             metrics=metrics)
+            used, info = _mesh.on_rank0(choose, group)
         except FileNotFoundError:
             return None, 0, None, None, None
+        if used is None:
+            return None, 0, None, info, None
+        st, js = held.get("state"), held.get("js")
+        if st is None:
+            st = checkpoint.restore(solver, used, metrics=metrics)
     elif jr is not None:
         if jr.last_committed_round is None:
             # never consume a snapshot the ledger does not vouch for
@@ -226,6 +250,19 @@ def resume_lm_job(solver, trainer, prefix, jr, sampler=None, tau: int = TAU,
     return state, start_round, js, info, used
 
 
+# the averaging flags an sp ring across processes still refuses: each
+# rank holds one shard of one worker, so a worker's state spans an sp
+# group, which the membership, tiers and profiler do not yet span
+_SP_PROCESS_REFUSED = (
+    ("stale_bound", lambda v: bool(v), "--stale_bound"),
+    ("elastic", lambda v: bool(v), "--elastic"),
+    ("slices", lambda v: (v or 1) > 1, "--slices"),
+    ("journal", lambda v: v is True, "--journal"),
+    ("profile", lambda v: bool(v), "--profile"),
+    ("profile_out", lambda v: bool(v), "--profile_out"),
+)
+
+
 def _process_mesh(args, sp: int):
     """The mesh of a joined world: ``{"dp": W}`` stacking
     ``local_device_count()`` workers a rank at sp=1 (``mesh.app_mesh``),
@@ -237,6 +274,12 @@ def _process_mesh(args, sp: int):
     if sp == 1:
         return mesh_mod.app_mesh(args, "lm_app")[1]
     mesh_mod.refuse_single_process_flags(args, "lm_app")
+    for attr, on, flag in _SP_PROCESS_REFUSED:
+        if on(getattr(args, attr, None)):
+            raise SystemExit(
+                f"lm_app: {flag} with --sp {sp} across processes (one "
+                "sequence shard a rank) is not yet ported to "
+                "sparknet_tpu_torch")
     p = mesh_mod.process_count()
     per = mesh_mod.local_device_count()
     if per != 1:
@@ -327,9 +370,8 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         )
         mine = slice(0, n_workers)
     prefix = args.snapshot_prefix
-    # across processes there is no run journal (--journal is refused, and
-    # no rank consumes a ledger left by a one-process run)
-    journal_path = None if distributed else args.journal_path or (
+    # across processes rank 0 alone opens it (RoundGuards)
+    journal_path = args.journal_path or (
         default_journal_path(prefix) if prefix else "lm_run.journal")
     def nothing_to_resume():
         return not checkpoint.find_snapshots(prefix) and not (

@@ -25,6 +25,12 @@ The port of ``sparknet_tpu/obs/profile.py`` (``--profile``).
   ``utils/flops.py`` over the measured round wall, against the card's
   published peak for the round's precision (``device_peak_flops``).
 
+Across processes each rank times its own workers; ``observe_round``
+gathers every rank's per-worker rows over the trainer's dp group, so
+the skew, the straggler verdict and ``sparknet_straggler_worker`` name
+a global worker, and the round's FLOPs count all W workers against the
+peaks of the distinct cards the ranks hold.
+
 Inactive, every hook is one module-global read.
 """
 
@@ -253,9 +259,11 @@ class RoundProfiler:
                         comm_bytes_per_round: Optional[float] = None,
                         compress: Optional[str] = None,
                         num_workers: Optional[int] = None,
-                        device=None, dtype=torch.float32) -> None:
+                        device=None, dtype=torch.float32,
+                        cards: int = 1) -> None:
         """Static per-round work sizes (the trainer's hook, set once);
-        ``device`` and ``dtype`` pick the peak MFU is measured against."""
+        ``device`` and ``dtype`` pick the peak MFU is measured against,
+        times the ``cards`` the round's workers ran on."""
         if flops_per_round is not None:
             self.flops_per_round = float(flops_per_round)
         if comm_bytes_per_round is not None:
@@ -265,12 +273,15 @@ class RoundProfiler:
         if num_workers is not None:
             self.num_workers = int(num_workers)
         if device is not None:
-            self._peak_flops = device_peak_flops(device, dtype)
+            self._peak_flops = device_peak_flops(device, dtype) * int(cards)
 
-    def observe_round(self, losses=None, worker_timer=None) -> Optional[dict]:
+    def observe_round(self, losses=None, worker_timer=None,
+                      group=None) -> Optional[dict]:
         """Finalize the round that just completed: fold the phases,
         compute the hidden fractions, read the per-worker execute timer
-        and export the verdict.  The trainer calls this once a round."""
+        and export the verdict.  The trainer calls this once a round;
+        across processes (``group``, the dp group) every rank calls it
+        and the per-worker rows of every rank are gathered."""
         probe = None
         if self.probe_workers and worker_timer is not None:
             probe = worker_timer.seconds()
@@ -318,6 +329,9 @@ class RoundProfiler:
             self._last_finalize_t = probe_end
         if probe is not None:
             wt = dict(wt, execute_probe=probe)
+        if group is not None:
+            wt = gather_worker_times(wt, group)
+            probe = wt.get("execute_probe")
         worker = self._worker_verdict(r, wt)
         rec = {
             "round": int(r),
@@ -618,6 +632,27 @@ def timed_worker_windows(r: int, draws) -> list:
     return out
 
 
+def gather_worker_times(wt: Dict[str, np.ndarray], group) -> Dict[str, np.ndarray]:
+    """Every rank's per-worker arrays of each phase, concatenated in rank
+    order (the global worker order): a phase a rank did not time reads
+    0 for its workers."""
+    from sparknet_tpu_torch.parallel import mesh as _mesh
+
+    n = max((a.shape[0] for a in wt.values()), default=0)
+    parts = _mesh.all_gather_objects((n, {k: np.asarray(v, np.float64)
+                                          for k, v in wt.items()}), group)
+    phases = sorted({k for _, d in parts for k in d})
+
+    def rows(d, k, m):
+        out = np.zeros((m,), np.float64)
+        a = d.get(k, out)[:m]
+        out[:a.shape[0]] = a
+        return out
+
+    return {k: np.concatenate([rows(d, k, m) for m, d in parts])
+            for k in phases}
+
+
 def worker_window_timer(device, num_workers: int) -> Optional[WorkerWindowTimer]:
     """The trainer's per-worker execute timer for this round, or None
     when no profiler (or one without the worker probe) is installed."""
@@ -664,9 +699,18 @@ def note_trainer_work(prof: RoundProfiler, trainer, tau: int, state) -> None:
         payload = trainer._payload_bytes(state)
         compress = "none"
     dtype = getattr(net, "compute_dtype", None) or torch.float32
+    cards = 1
+    if getattr(trainer, "group", None) is not None:
+        # the distinct cards of the dp group (two ranks may share one)
+        import socket
+
+        from sparknet_tpu_torch.parallel import mesh as _mesh
+
+        cards = len(set(_mesh.all_gather_objects(
+            (socket.gethostname(), str(trainer.device)), trainer.group)))
     prof.note_round_work(flops_per_round=flops, comm_bytes_per_round=payload,
                          compress=compress, num_workers=trainer.num_workers,
-                         device=trainer.device, dtype=dtype)
+                         device=trainer.device, dtype=dtype, cards=cards)
 
 
 def state() -> Optional[dict]:

@@ -27,14 +27,26 @@ collectives below move a CUDA payload through explicit host copies
 when the group's backend is gloo (``STAGING`` counts their bytes and
 milliseconds); under NCCL the payload stays on the card.  A failed join
 raises (a store timeout), it never continues as one process.
+
+A group of fixed world size cannot lose a member: a collective whose
+peer died (a hard-killed process, a preempted slice's host) fails on
+the survivors with ``PeerLost``, which names the ranks whose processes
+are gone (the peers on this host are checked by pid; a backend error
+with none of them gone names no rank) and the backend's own error,
+within the group's timeout (``JOIN_TIMEOUT_S``); a relaunched process
+does not re-enter it
+(``tools/launch.py``).  ``slice_groups`` gives the two-tier schedule a
+group for each slice of workers whose slots span processes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import inspect
 import os
+import socket
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -44,6 +56,8 @@ import torch.distributed as dist
 
 # seconds a join, or a collective, waits for its peers before it raises
 JOIN_TIMEOUT_S = 300.0
+# seconds a failed collective waits for a peer's exit to show in /proc
+_EXIT_GRACE_S = 2.0
 
 # what this process joined with: device, backend, shared card
 _JOINED: Dict[str, object] = {}
@@ -89,15 +103,11 @@ def refuse_multiprocess(app: str, also: Optional[str] = None) -> None:
 
 
 # the flags of an averaging app that stay single-process: (attribute,
-# is it on, the flag as the message names it)
+# is it on, the flag as the message names it).  The overlapped comm
+# thread's collectives would race the round's program order across
+# ranks, so JAX refuses it too.
 _SINGLE_PROCESS_FLAGS = (
-    ("stale_bound", lambda v: bool(v), "--stale_bound"),
-    ("elastic", lambda v: bool(v), "--elastic"),
-    ("slices", lambda v: (v or 1) > 1, "--slices"),
-    ("journal", lambda v: v is True, "--journal"),
     ("overlap_avg", lambda v: bool(v), "--overlap_avg"),
-    ("profile", lambda v: bool(v), "--profile"),
-    ("profile_out", lambda v: bool(v), "--profile_out"),
 )
 
 
@@ -254,7 +264,74 @@ def initialize_distributed(
         timeout=datetime.timedelta(seconds=JOIN_TIMEOUT_S), **kwargs,
     )
     _JOINED.update(device=dev, backend=chosen, shared=shared)
+    # who the peers are, for the error a lost one raises
+    peers = [None] * world
+    dist.all_gather_object(peers, (socket.gethostname(), os.getpid()))
+    _JOINED["peers"] = peers
     return dev
+
+
+class PeerLost(RuntimeError):
+    """A collective failed because a peer of its fixed-size group is
+    gone: the survivors stop, naming it."""
+
+
+def _pid_gone(pid: int) -> bool:
+    """Whether process ``pid`` of this host has exited (a zombie not yet
+    reaped counts as exited)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] in ("Z", "X")
+    except (OSError, IndexError):
+        return True
+
+
+def _local_peers() -> List[int]:
+    """The other ranks of this host (their pids were gathered at the
+    join)."""
+    if not dist.is_initialized():
+        return []
+    host = socket.gethostname()
+    return [r for r, peer in enumerate(_JOINED.get("peers") or ())
+            if peer and peer[0] == host and r != process_index()]
+
+
+def lost_peers() -> List[int]:
+    """The ranks of this host whose processes have exited."""
+    peers = _JOINED.get("peers") or ()
+    return [r for r in _local_peers() if _pid_gone(peers[r][1])]
+
+
+@contextlib.contextmanager
+def _guarded(what: str):
+    """Raise a backend failure inside a collective as ``PeerLost``,
+    naming the peers whose processes are gone."""
+    try:
+        yield
+    except PeerLost:
+        raise
+    except RuntimeError as e:  # gloo's transport errors, DistBackendError
+        gone = lost_peers()
+        # a killed peer's sockets close before its exit shows in /proc:
+        # give a peer of this host that moment before ruling it out
+        deadline = time.monotonic() + _EXIT_GRACE_S
+        while not gone and _local_peers() and time.monotonic() < deadline:
+            time.sleep(0.05)
+            gone = lost_peers()
+        backend_fault = isinstance(e, getattr(dist, "DistBackendError", ()))
+        if not (gone or backend_fault):
+            raise  # not a lost peer that this rank can see
+        peers = _JOINED.get("peers") or ()
+        who = (", ".join(f"rank {r} (pid {peers[r][1]})" for r in gone)
+               if gone else "a peer (no process of this host is gone: "
+               "another host's)")
+        raise PeerLost(
+            f"{what}: lost {who} of the {process_count()}-process group, "
+            f"seen from rank {process_index()}; a torch.distributed group "
+            "of fixed world size cannot continue without it, and a "
+            f"relaunched process does not re-enter it ({type(e).__name__}: "
+            f"{str(e).strip().splitlines()[0] if str(e).strip() else ''})"
+        ) from e
 
 
 def shutdown() -> None:
@@ -375,12 +452,69 @@ def _axis_group(sets: List[Tuple[int, ...]], me: int, p: int):
         return None
     if len(crossing) == 1 and len(crossing[0]) == p:
         return dist.group.WORLD
-    mine = None
-    for s in crossing:  # every rank creates every group, in one order
-        g = dist.new_group(list(s))
-        if me in s:
-            mine = g
-    return mine
+    groups = _new_groups(crossing, p)
+    return next((groups[s] for s in crossing if me in s), None)
+
+
+def _new_groups(sets: Sequence[Tuple[int, ...]], p: int) -> Dict:
+    """A group for each set of two or more processes (WORLD for the set
+    of all ``p``).  Every rank must call this with the same sets: each
+    rank creates every group, in one order (a rank that skips a
+    ``new_group`` call hangs its peers)."""
+    out: Dict[Tuple[int, ...], object] = {}
+    for s in sets:
+        if len(s) > 1 and s not in out:
+            out[s] = (dist.group.WORLD if len(s) == p
+                      else dist.new_group(list(s)))
+    return out
+
+
+@dataclasses.dataclass
+class SliceGroup:
+    """One slice of workers laid over the mesh's processes: its workers
+    (global indices along the axis), the processes whose slots hold
+    them, this process's rows of it (local indices), each process's
+    count of them (rank order), and the group over those processes
+    (None when one process holds the whole slice)."""
+
+    workers: Tuple[int, ...]
+    ranks: Tuple[int, ...]
+    local: Tuple[int, ...]
+    counts: Tuple[int, ...]
+    group: Optional[object]
+
+
+def slice_groups(mesh: Optional["ProcessMesh"],
+                 slices: Sequence[Sequence[int]],
+                 axis: str = "dp") -> List[SliceGroup]:
+    """Every slice of ``slices`` (worker indices along ``axis``, whose
+    slots the mesh lays out in process order) with a group when its
+    slots span processes; without a mesh one process holds them all.
+    Every rank calls this with the same slices: each slice's group is
+    created on every rank, in slice order."""
+    if mesh is None:
+        return [SliceGroup(tuple(m), (0,), tuple(m), (len(m),), None)
+                for m in slices]
+    if tuple(mesh.shape) != (axis,):
+        raise ValueError(f"slice groups need a one-axis {axis!r} mesh, "
+                         f"got {mesh.shape}")
+    wpp = mesh.workers_per_process
+    mine = mesh.coords[axis]
+    sets = []
+    for members in slices:
+        sets.append(tuple(sorted({int(w) // wpp for w in members})))
+    groups = (_new_groups(sets, mesh.process_count)
+              if dist.is_initialized() else {})
+    out = []
+    for members, ranks in zip(slices, sets):
+        ws = tuple(int(w) for w in members)
+        out.append(SliceGroup(
+            workers=ws, ranks=ranks,
+            local=tuple(w - mine.start for w in ws
+                        if mine.start <= w < mine.stop),
+            counts=tuple(sum(1 for w in ws if w // wpp == r) for r in ranks),
+            group=groups.get(ranks)))
+    return out
 
 
 def local_worker_slice(mesh: ProcessMesh, axis: str = "dp") -> slice:
@@ -431,7 +565,8 @@ def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     src = _to_host(t) if _staged(t, group) else t.contiguous()
     out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
-    _GATHER(out, src, group=group)
+    with _guarded("all_gather"):
+        _GATHER(out, src, group=group)
     return _to_device(out, t.device) if src.device != t.device else out
 
 
@@ -442,10 +577,12 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     and gloo alike: each element is reduced once and handed round."""
     if _staged(t, group):
         h = _to_host(t)
-        dist.all_reduce(h, op=dist.ReduceOp.SUM, group=group)
+        with _guarded("all_reduce"):
+            dist.all_reduce(h, op=dist.ReduceOp.SUM, group=group)
         t.copy_(_to_device(h, t.device))
         return t
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    with _guarded("all_reduce"):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
 
@@ -462,9 +599,10 @@ def broadcast_object(obj, group=None, src: int = 0):
     default) on every rank: the decisions one rank makes for all, such
     as the snapshot a resume restores."""
     box = [obj]
-    dist.broadcast_object_list(
-        box, src=dist.get_global_rank(group or dist.group.WORLD, src),
-        group=group, device=_object_device(group or dist.group.WORLD))
+    with _guarded("broadcast"):
+        dist.broadcast_object_list(
+            box, src=dist.get_global_rank(group or dist.group.WORLD, src),
+            group=group, device=_object_device(group or dist.group.WORLD))
     return box[0]
 
 
@@ -498,17 +636,18 @@ def broadcast_leaves(leaves: Sequence[torch.Tensor], group, src: int = 0
     root = dist.get_global_rank(group, src)
     for (_, dev), idx in groups.items():
         flat = torch.cat([leaves[i].reshape(-1) for i in idx])
-        if _staged(flat, group):
-            h = _to_host(flat)
-            dist.broadcast(h, src=root, group=group)
-            flat = _to_device(h, dev)
-        elif dev.type == "cpu" and group_backend(group) == "nccl":
-            # NCCL moves CUDA tensors only (the iteration counter)
-            d = flat.to(_object_device(group))
-            dist.broadcast(d, src=root, group=group)
-            flat = d.cpu()
-        else:
-            dist.broadcast(flat, src=root, group=group)
+        with _guarded("broadcast"):
+            if _staged(flat, group):
+                h = _to_host(flat)
+                dist.broadcast(h, src=root, group=group)
+                flat = _to_device(h, dev)
+            elif dev.type == "cpu" and group_backend(group) == "nccl":
+                # NCCL moves CUDA tensors only (the iteration counter)
+                d = flat.to(_object_device(group))
+                dist.broadcast(d, src=root, group=group)
+                flat = d.cpu()
+            else:
+                dist.broadcast(flat, src=root, group=group)
         off = 0
         for i in idx:
             k = leaves[i].numel()
@@ -523,7 +662,8 @@ def agree_max(values: Sequence[int], group=None) -> List[int]:
     g = group or dist.group.WORLD
     t = torch.tensor(list(values), dtype=torch.int64,
                      device=_object_device(g))
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g)
+    with _guarded("agree_max"):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g)
     return [int(v) for v in t.tolist()]
 
 
@@ -532,7 +672,8 @@ def all_gather_objects(obj, group=None) -> list:
     counts, partition sizes)."""
     n = dist.get_world_size(group)
     out = [None] * n
-    dist.all_gather_object(out, obj, group=group)
+    with _guarded("all_gather_object"):
+        dist.all_gather_object(out, obj, group=group)
     return out
 
 

@@ -31,6 +31,13 @@ a window that would be discarded wholesale is not run at all, which
 leaves every output equal (each worker's window draws from
 ``fold_in(train_key(0), w)`` alone) and launches nothing for it.
 
+Across processes (``mesh=``, as ``ParameterAveragingTrainer`` takes
+it) each process runs its own workers' windows; the arrival sets, the
+lags, the forced waits and the ``discount ** lag`` weights are host
+arrays computed from the same inputs on every rank, and each group's
+weighted mean runs over the params and stats gathered from every rank
+of the dp group, so a boundary gives the stacked run's bits.
+
 The comm plane's delta-quantized and overlapped collectives assume a
 synchronous boundary, so ``compress``/``overlap_avg`` are refused with
 ``B > 0``.  Drivers journal ``worker_rounds`` beside each round
@@ -49,14 +56,16 @@ import torch
 from sparknet_tpu_torch import obs
 from sparknet_tpu_torch.obs import health as _health
 from sparknet_tpu_torch.obs.trace import span
+from sparknet_tpu_torch.parallel import mesh as _mesh
 from sparknet_tpu_torch.parallel.hierarchy import HierarchySpec
 from sparknet_tpu_torch.parallel.trainers import (
     ParameterAveragingTrainer,
     _bshape,
+    gather_rows,
     zero_rows,
 )
 from sparknet_tpu_torch.solver import TrainState
-from sparknet_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+from sparknet_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
 # the weighted mean's denominator guard: an all-absent boundary never
 # divides (it is skipped), an all-masked-by-audit one reaches Σw == 0
@@ -122,7 +131,8 @@ class BoundedStalenessTrainer(ParameterAveragingTrainer):
     def __init__(self, solver, num_workers: int, *, stale_bound: int = 0,
                  discount: float = 0.5, compress: str = "none",
                  overlap_avg: bool = False, metrics=None,
-                 hierarchy: Optional[HierarchySpec] = None):
+                 hierarchy: Optional[HierarchySpec] = None, mesh=None,
+                 axis: str = "dp"):
         if stale_bound < 0:
             raise ValueError(f"stale_bound={stale_bound}: must be >= 0")
         if not (0.0 < discount <= 1.0):
@@ -136,7 +146,7 @@ class BoundedStalenessTrainer(ParameterAveragingTrainer):
                 "compress='none'")
         super().__init__(solver, num_workers, compress=compress,
                          overlap_avg=overlap_avg, metrics=metrics,
-                         hierarchy=hierarchy)
+                         hierarchy=hierarchy, mesh=mesh, axis=axis)
         self.stale_bound = int(stale_bound)
         self.discount = float(discount)
         self.worker_rounds = np.zeros((self.num_workers,), np.int64)
@@ -179,6 +189,13 @@ class BoundedStalenessTrainer(ParameterAveragingTrainer):
         ``stale`` block: the ledger and every worker's replica."""
         extra = super().export_job_state(state, cursor)
         if self.stale_bound > 0:
+            if self.group is not None:  # every rank's rows (collectives)
+                leaves, _ = _mesh.all_gather_leaves(
+                    tree_leaves(tuple(state)[:3]), self.group)
+                iters = np.concatenate(_mesh.all_gather_objects(
+                    state.iter.numpy(), self.group))
+                state = TrainState(*tree_unflatten(tuple(state)[:3], leaves),
+                                   torch.from_numpy(iters))
             extra["stale"] = {"ledger": self.export_stale_state(),
                               "replicas": export_worker_replicas(state)}
         return extra
@@ -188,7 +205,11 @@ class BoundedStalenessTrainer(ParameterAveragingTrainer):
         replace the broadcast consensus and the ledger resumes."""
         state, start_round, js = super().resume_from(st, used, js, tau)
         if self.stale_bound > 0 and "stale" in js:
-            state = restore_worker_replicas(state, js["stale"]["replicas"])
+            replicas = js["stale"]["replicas"]
+            if self.group is not None:  # every worker's: keep this rank's
+                replicas = {k: np.asarray(v)[self.rows]
+                            for k, v in replicas.items()}
+            state = restore_worker_replicas(state, replicas)
             self.load_stale_state(js["stale"]["ledger"])
         return state, start_round, js
 
@@ -280,9 +301,15 @@ class BoundedStalenessTrainer(ParameterAveragingTrainer):
             return state, losses
         self.worker_rounds[eff] += 1
 
+        self.last_group_bytes = 0
         with span("average"):
             state, losses, stats = self._fold(state, batches, eff, weights,
                                               intra, audit)
+            if self.group is not None:
+                # every rank reads every worker's losses and audit rows
+                losses = _mesh.all_gather_rows(losses, self.group)
+                if stats is not None:
+                    stats = gather_rows(stats, self.group)
             self.solver.note_losses(losses)
         tm = self.metrics
         if tm is not None:
@@ -291,7 +318,9 @@ class BoundedStalenessTrainer(ParameterAveragingTrainer):
             if self.hierarchy is not None:
                 tier = self.last_boundary["tier"]
                 tm.hierarchy_rounds.labels(tier).inc()
-                tm.hierarchy_bytes.labels(tier).inc(self._payload_bytes(state))
+                tm.hierarchy_bytes.labels(tier).inc(
+                    self.last_group_bytes if self.group is not None
+                    else self._payload_bytes(state))
         self._emit_metrics()
         self._observe_profile(losses, state)
         obs.report_healthy()
@@ -301,7 +330,8 @@ class BoundedStalenessTrainer(ParameterAveragingTrainer):
 
     def _fold(self, state, batches, eff, weights, intra: bool, audit: bool):
         """Run the arrived workers' windows (only theirs), then the
-        weighted mean; returns ``(state, losses (W, tau), stats)``."""
+        weighted mean; returns ``(state, losses, stats)`` (this process's
+        rows of the losses and stats across processes)."""
         state, losses, stats = self._local(state, batches, run=eff)
         dev = losses.device
         keep = torch.from_numpy(eff.copy()).to(dev)
@@ -312,11 +342,11 @@ class BoundedStalenessTrainer(ParameterAveragingTrainer):
             # an absent one never reads as bad (its stats are zero)
             bad = _health.bad_workers(stats)
             ok = torch.where(bad, 0.0, 1.0).to(w.dtype)
+            stats["masked"] = (1.0 - ok) * keep[self.rows].to(w.dtype)
+            if self.group is not None:
+                ok = _mesh.all_gather_rows(ok, self.group)
             w = w * ok
-            stats["masked"] = (1.0 - ok) * keep.to(w.dtype)
-        groups = (self.hierarchy.slices if intra
-                  else [tuple(range(self.num_workers))])
-        return self._weighted_mean(state, w, keep, bad, groups), losses, stats
+        return self._weighted_mean(state, w, keep, bad, intra), losses, stats
 
     @staticmethod
     def _wmean(x, w, denom):
@@ -327,38 +357,83 @@ class BoundedStalenessTrainer(ParameterAveragingTrainer):
         return contrib.sum(dim=0) / denom.to(x.dtype)
 
     def _weighted_mean(self, state: TrainState, w, keep, bad,
-                       groups) -> TrainState:
-        """Each group's weighted mean over its own arrivals (``groups``:
-        every worker on a cross boundary, each slice on an intra one),
-        adopted by the group's arrived workers; absent workers keep their
-        own replica, and a group with no finite arrival keeps each
-        own."""
-        parts = []
-        adopt = torch.zeros((self.num_workers,), dtype=torch.bool,
-                            device=w.device)
-        for members in groups:
-            idx = torch.tensor(members, device=w.device)
-            ws = w.index_select(0, idx)
+                       intra: bool) -> TrainState:
+        """Each group's weighted mean over its own arrivals (every worker
+        on a cross boundary, each slice on an intra one), adopted by the
+        group's arrived workers; absent workers keep their own replica,
+        and a group with no finite arrival keeps each own.  ``w`` and
+        ``keep`` cover every worker, ``bad`` is this process's rows.
+        Across processes a group's rows held by other ranks are gathered
+        first, in worker order: a cross boundary's over the dp group, an
+        intra one's over the slice's own group (``mesh.slice_groups``;
+        a slice held by one rank gathers nothing), so a boundary gives
+        the stacked run's bits and ``last_group_bytes`` counts what
+        reached this rank."""
+        dev = w.device
+        leaves = tree_leaves(state.params) + tree_leaves(state.stats)
+        out = [x.clone() for x in leaves]
+        adopted = torch.zeros((self.local_workers,), dtype=torch.bool,
+                              device=dev)
+        for members, local, gather in self._mean_groups(intra, dev):
+            ws = w.index_select(0, members)
             d0 = ws.sum()
-            parts.append((idx, ws, torch.clamp_min(d0, _DENOM_EPS)))
-            adopt = adopt.index_copy(
-                0, idx, keep.index_select(0, idx) & (d0 > 0))
-
-        def gwmean(x):
-            y = x.clone()
-            for idx, ws, denom in parts:
-                m = self._wmean(x.index_select(0, idx), ws, denom)
-                y.index_copy_(0, idx, m.unsqueeze(0).expand(
-                    (len(idx),) + tuple(m.shape)).contiguous())
-            return torch.where(_bshape(adopt, x.dim()), y, x)
-
+            denom = torch.clamp_min(d0, _DENOM_EPS)
+            adopt = keep.index_select(0, members) & (d0 > 0)
+            xs = [x.index_select(0, local) for x in leaves]
+            if gather is not None:
+                xs = gather(xs)
+            # this rank's rows of the group, in the group's worker order
+            mine = adopt.index_select(0, members.new_tensor(
+                [i for i, m in enumerate(members.tolist())
+                 if self.rows.start <= m < self.rows.stop]))
+            for y, x in zip(out, xs):
+                m = self._wmean(x, ws, denom)
+                own = y.index_select(0, local)
+                y.index_copy_(0, local, torch.where(
+                    _bshape(mine, own.dim()),
+                    m.unsqueeze(0).expand_as(own), own))
+            adopted.index_copy_(0, local, mine)
         history = state.history
         if bad is not None:
             # a masked arrival adopts the survivor mean; its momentum
             # still holds the poisoned window
-            history = zero_rows(history, bad & adopt)
-        return TrainState(tree_map(gwmean, state.params),
-                          tree_map(gwmean, state.stats), history, state.iter)
+            history = zero_rows(history, bad & adopted)
+        n = len(tree_leaves(state.params))
+        return TrainState(tree_unflatten(state.params, out[:n]),
+                          tree_unflatten(state.stats, out[n:]), history,
+                          state.iter)
+
+    def _mean_groups(self, intra: bool, dev):
+        """``(members, local, gather)`` for each group of this boundary
+        that holds a row of this process: the group's workers (global
+        indices), this process's rows of them (local indices) and the
+        gather that turns those rows into the group's, or None when this
+        process holds the whole group."""
+        W = self.num_workers
+        if self.group is None:
+            groups = self.hierarchy.slices if intra else [tuple(range(W))]
+            for g in groups:
+                idx = torch.tensor(g, device=dev)
+                yield idx, idx, None
+            return
+        if not intra:
+            local = torch.arange(self.local_workers, device=dev)
+
+            def everyone(xs):
+                full, nbytes = _mesh.all_gather_leaves(xs, self.group)
+                self.last_group_bytes += nbytes
+                return full
+
+            yield torch.arange(W, device=dev), local, everyone
+            return
+        for sg, (idx, keep) in zip(self._slice_groups,
+                                   self._slice_places(dev)):
+            if not sg.local:
+                continue
+            yield (torch.tensor(sg.workers, device=dev), idx,
+                   None if sg.group is None
+                   else lambda xs, sg=sg, keep=keep: self._gather_slice(
+                       sg, keep, xs))
 
     def _emit_metrics(self) -> None:
         """The boundary readout on the trainer's metrics: the per-worker

@@ -25,8 +25,8 @@ tensor throughout), its slot receives the survivor mean and its
 momentum history is zeroed; with no finite worker each keeps its own
 params.  ``hierarchy`` (``parallel/
 hierarchy.py``) declares the two-tier schedule: a non-cross round
-averages each slice's live workers only (a masked mean per slice
-group, no comm kernel), a cross round is the global round above.
+averages each slice's live workers only (a masked mean per slice, no
+comm kernel), a cross round is the global round above.
 
 Across processes (``mesh=``, a ``parallel/mesh.py`` mesh whose ``dp``
 axis spans processes): each process stacks only its own block of
@@ -42,8 +42,12 @@ survivor count ``denom0`` is the gathered mask's sum, and the audit's
 in-round mask folds each rank's verdicts into it the same way.  Under
 gloo a CUDA payload crosses through host copies (``mesh.STAGING``);
 ``last_group_bytes`` is what reached this rank from the others in the
-last round.  The two-tier schedule, the overlapped comm plane and the
-bounded-staleness trainer stay single-process (refused).
+last round.  The two-tier schedule runs across processes too: each
+slice whose workers span processes gets a group of its own
+(``mesh.slice_groups``), an intra-slice round gathers that slice's
+rows over it and runs the same masked mean (a slice inside one process
+moves nothing), and a cross round is the global round above.  The
+overlapped comm plane stays single-process (refused, as in JAX).
 """
 
 from __future__ import annotations
@@ -203,10 +207,6 @@ class ParameterAveragingTrainer:
                     "cross-process program order must be deterministic); "
                     "use barriered compression instead"
                 )
-            if hierarchy is not None and not hierarchy.is_flat():
-                raise NotImplementedError(
-                    "two-tier averaging across processes is not yet ported"
-                )
         self.local_workers = self.rows.stop - self.rows.start
         # bytes that reached this rank from the other ranks last round
         self.last_group_bytes = 0
@@ -216,7 +216,14 @@ class ParameterAveragingTrainer:
         self._two_tier = hierarchy is not None and not hierarchy.is_flat()
         # the schedule's round counter when round() gets no round_index
         self._auto_round = 0
-        self._slice_index = None  # (per-slice indices, slice ids, inverse)
+        # each slice's processes, this process's rows of it and its group
+        # (one across processes, created on every rank in slice order)
+        self._slice_groups = None
+        self._slice_index = None  # (local rows, gathered rows kept) a slice
+        if self._two_tier:
+            self._slice_groups = _mesh.slice_groups(
+                mesh if self.group is not None else None, hierarchy.slices,
+                axis)
         self._comm = None
         if compress != "none" or overlap_avg:
             self._comm = _comm.CommPlane(
@@ -227,6 +234,8 @@ class ParameterAveragingTrainer:
         self._live_cache: "OrderedDict[bytes, torch.Tensor]" = OrderedDict()
         # the round's per-worker execute timer (--profile only)
         self._window_timer = None
+        # an audit row of zeros, for a worker that sits out a boundary
+        self._idle_packed = None
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0) -> TrainState:
@@ -371,7 +380,7 @@ class ParameterAveragingTrainer:
         # --profile: a CUDA event pair around each worker's window (an
         # overlapped round runs each window in two pieces: one timer)
         timer = self._window_timer or _profile.worker_window_timer(
-            self.device, self.num_workers)
+            self.device, self.local_workers)
         self._window_timer = timer
         with span("execute"):
             outs, losses, packed = [], [], []
@@ -393,13 +402,27 @@ class ParameterAveragingTrainer:
                 outs.append(st)
                 losses.append(l)
                 packed.append(pk)
-            ran = next(i for i, l in enumerate(losses) if l is not None)
-            losses = [torch.zeros_like(losses[ran]) if l is None else l
-                      for l in losses]
+            ran = next((i for i, l in enumerate(losses) if l is not None),
+                       None)
+            if ran is not None:
+                zl = torch.zeros_like(losses[ran])
+                if packed[ran] is not None:
+                    self._idle_packed = torch.zeros_like(packed[ran])
+            else:
+                # across processes every worker of this rank may sit out
+                # a boundary: its rows read 0, shaped like a window's
+                tau = int(next(iter(batches.values())).shape[1])
+                zl = torch.zeros((tau,), dtype=torch.float32,
+                                 device=self.device)
+            losses = [zl if l is None else l for l in losses]
             stats = None
             if self.solver.audit:
-                packed = [torch.zeros_like(packed[ran]) if p is None else p
-                          for p in packed]
+                zp = self._idle_packed
+                if zp is None:
+                    raise RuntimeError(
+                        "no worker of this process has run a window yet: "
+                        "the audit rows of the idle ones have no shape")
+                packed = [zp if p is None else p for p in packed]
                 stats = _health.unpack(torch.stack(packed),
                                        self.solver.audit_groups())
             return stack_states(outs), torch.stack(losses), stats
@@ -455,39 +478,68 @@ class ParameterAveragingTrainer:
                        bad=None) -> TrainState:
         """The intra-slice epilogue: each slice's masked mean over its own
         alive workers, written to that slice's slots; a slice with no
-        alive worker keeps its params (the JAX intra-slice program)."""
-        if self._slice_index is None:  # placed once: no copy a round
-            dev = alive.device
-            order = [w for members in self.hierarchy.slices for w in members]
-            self._slice_index = (
-                [torch.tensor(m, device=dev) for m in self.hierarchy.slices],
-                torch.tensor(self.hierarchy.slice_ids(), device=dev),
-                None if order == list(range(self.num_workers))
-                else torch.tensor(np.argsort(order), device=dev),
-            )
-        slice_idx, sid, inv = self._slice_index
-        groups, d0s = [], []
-        for idx in slice_idx:
+        alive worker keeps its params (the JAX intra-slice program).
+        ``alive`` and ``bad`` are this process's rows.  A slice whose
+        workers span processes gathers its rows over its group (each
+        process's rows of it, padded to the largest count so the shapes
+        agree) and runs the same masked mean over the slice's rows in
+        worker order, which gives the stacked run's bits;
+        ``last_group_bytes`` counts what reached this rank."""
+        dev = alive.device
+        params = tree_leaves(state.params)
+        leaves = params + tree_leaves(state.stats)
+        out = [x.clone() for x in leaves]
+        have = torch.zeros((self.local_workers,), dtype=torch.bool,
+                           device=dev)
+        for sg, (idx, keep) in zip(self._slice_groups,
+                                   self._slice_places(dev)):
+            if not sg.local:
+                continue
+            xs = [x.index_select(0, idx) for x in leaves]
             a = alive.index_select(0, idx)
+            mine = xs
+            if sg.group is not None:
+                *xs, a = self._gather_slice(sg, keep, xs + [a])
             denom0 = a.sum()
-            groups.append((idx, a, denom0, torch.clamp_min(denom0, 1.0)))
-            d0s.append(denom0)
-
-        def smean(x):
-            parts = []
-            for idx, a, denom0, denom in groups:
-                xs = x.index_select(0, idx)
-                m = masked_mean(xs, a, denom).unsqueeze(0).expand_as(xs)
-                parts.append(torch.where(denom0 > 0, m, xs))
-            y = torch.cat(parts)
-            return y if inv is None else y.index_select(0, inv)
-
+            denom = torch.clamp_min(denom0, 1.0)
+            for y, x, own in zip(out, xs, mine):
+                m = masked_mean(x, a, denom).unsqueeze(0).expand_as(own)
+                y.index_copy_(0, idx, torch.where(denom0 > 0, m, own))
+            have.index_copy_(0, idx, (denom0 > 0).expand(len(sg.local)))
         history = state.history
         if bad is not None:
-            have = torch.stack(d0s).index_select(0, sid) > 0
             history = zero_rows(history, bad & have)
-        return TrainState(tree_map(smean, state.params),
-                          tree_map(smean, state.stats), history, state.iter)
+        n = len(params)
+        return TrainState(tree_unflatten(state.params, out[:n]),
+                          tree_unflatten(state.stats, out[n:]), history,
+                          state.iter)
+
+    def _slice_places(self, dev):
+        """``(local rows, gathered rows kept)`` for each slice: this
+        process's rows of it, and which rows of its group's padded
+        gather are real (None for a slice one process holds); placed
+        once, so a round copies nothing."""
+        if self._slice_index is None:
+            self._slice_index = [
+                (torch.tensor(sg.local, device=dev),
+                 None if sg.group is None else torch.tensor(
+                     [i * max(sg.counts) + j for i, c in enumerate(sg.counts)
+                      for j in range(c)], device=dev))
+                for sg in self._slice_groups]
+        return self._slice_index
+
+    def _gather_slice(self, sg, keep, xs):
+        """The slice's rows of every process of its group, in worker
+        order: ``xs`` (this rank's rows of each leaf) padded to the
+        group's largest count, gathered as one buffer, then cut back to
+        each process's own count (``keep``)."""
+        pad = max(sg.counts) - len(sg.local)
+        if pad:
+            xs = [torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+                  for x in xs]
+        full, nbytes = _mesh.all_gather_leaves(list(xs), sg.group)
+        self.last_group_bytes += nbytes
+        return [f.index_select(0, keep) for f in full]
 
     def round(
         self,
@@ -546,6 +598,10 @@ class ParameterAveragingTrainer:
                 payload = self._payload_bytes(state)
                 if not intra and self._comm is not None:
                     payload = self._comm.payload_bytes_per_round or payload
+                if self.group is not None:  # what crossed to this rank
+                    payload = (self._comm.last_group_bytes
+                               if not intra and self._comm is not None
+                               else self.last_group_bytes)
                 self.metrics.hierarchy_rounds.labels(tier).inc()
                 self.metrics.hierarchy_bytes.labels(tier).inc(payload)
             # recorded lazily: smoothed_loss pulls the losses on read
@@ -568,7 +624,7 @@ class ParameterAveragingTrainer:
         if prof is None:
             return
         _profile.note_trainer_work(prof, self, int(losses.shape[-1]), state)
-        prof.observe_round(losses, worker_timer=timer)
+        prof.observe_round(losses, worker_timer=timer, group=self.group)
 
     def _payload_bytes(self, state) -> int:
         if self._fused_payload_bytes is None:
@@ -781,14 +837,23 @@ class AllReduceTrainer:
         if solver.param.debug_info:
             solver.debug_info_pass(state, {k: v[0] for k, v in rows.items()},
                                    rng=rng)
+        # --profile: this rank's window timed, one worker a rank
+        timer = _profile.worker_window_timer(solver.device, 1)
         with span("execute"):
+            if timer is not None:
+                timer.start(0)
             out = solver._step_tau(state, solver._to_device(rows), rng)
+            if timer is not None:
+                timer.stop(0)
             solver.note_losses(out[1])
         tm = obs.training_metrics()
         if tm is not None:
             tm.rounds.inc()
             tm.iters.inc(int(out[1].shape[0]))
-        _profile.observe_round_if_active(out[1])
+        prof = _profile.active()
+        if prof is not None:
+            # every rank's window time in one table (JAX trainers.py:1052)
+            prof.observe_round(out[1], worker_timer=timer, group=self.group)
         obs.report_healthy()
         return out
 

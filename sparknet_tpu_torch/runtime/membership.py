@@ -20,6 +20,16 @@ fixed when the trainer is built; the roster behind them is not.  One
   rows of the stacked state, zeroes their momentum, and ``admit()``
   flips them live at a new epoch.
 
+Across processes every rank keeps its own controller, and a notice
+reaches only some of them (a SIGTERM lands on the preempted slice's
+processes alone).  So each rank drains its queued events at every round
+boundary and the group agrees on them (``agree_events``: one
+``mesh.agree_max`` over per-worker flags of each kind) before
+``advance``: every rank then applies the same events, in a canonical
+order (preempt, late, dead, join; one event a slice), and computes the
+same view and epoch.  Readmission from the survivors takes the first
+live worker's params from the rank that holds it (``broadcast``).
+
 ``metrics`` (a ``TrainingMetrics``) receives ``sparknet_membership_*``;
 ``obs.set_membership`` exports ``state_dict()``.  ``ingest_fleet_view``
 turns a fleet collector's per-host verdicts into events (the collector,
@@ -205,13 +215,45 @@ class MembershipController:
     def pending_joiners(self) -> Tuple[int, ...]:
         return self._view.workers_in(JOINING)
 
-    def advance(self, round_index: int) -> MembershipView:
-        """Apply every queued event at this boundary; bump the epoch once
-        if anything changed.  Demotions, deaths and leave-completions
-        first, then joins, for workers already dead BEFORE this boundary
-        only (a join racing its own leave waits a boundary)."""
+    _KINDS = ("preempt", "late", "dead", "join")
+
+    def agree_events(self, group=None) -> List[Tuple[str, Tuple[int, ...]]]:
+        """Drain this rank's queued events and agree them over ``group``
+        (every rank of it calls this at the same boundary): a worker
+        flagged for a kind on any rank is flagged on all.  Returns the
+        events every rank passes to ``advance``, one a slice for each
+        kind, in ``_KINDS`` order.  An event queued after the drain (a
+        signal mid-call) waits for the next boundary."""
+        from sparknet_tpu_torch.parallel import mesh as _mesh
+
+        events, self._events = self._events, []
+        W = self.num_workers
+        flags = np.zeros((len(self._KINDS), W), np.int64)
+        for kind, ws in events:
+            flags[self._KINDS.index(kind), list(ws)] = 1
+        agreed = np.asarray(_mesh.agree_max(flags.reshape(-1).tolist(), group),
+                            np.int64).reshape(flags.shape)
+        out = []
+        for k, kind in enumerate(self._KINDS):
+            for members in self.spec.slices:
+                ws = tuple(w for w in members if agreed[k, w])
+                if ws:
+                    out.append((kind, ws))
+        return out
+
+    def advance(self, round_index: int,
+                events: Optional[Sequence[Tuple[str, Tuple[int, ...]]]] = None
+                ) -> MembershipView:
+        """Apply every queued event (or ``events``, the boundary's agreed
+        ones across processes, ``agree_events``) at this boundary; bump
+        the epoch once if anything changed.  Demotions, deaths and
+        leave-completions first, then joins, for workers already dead
+        BEFORE this boundary only (a join racing its own leave waits a
+        boundary)."""
         with self._lock:
-            events, self._events = self._events, []
+            if events is None:
+                events, self._events = self._events, []
+            events = list(events)
             dead_before = {w for w, s in enumerate(self._states) if s == DEAD}
             changed: List[Tuple[str, Tuple[int, ...]]] = []
 
@@ -413,16 +455,40 @@ def consensus_state(state, live_mask):
     return type(state)(*(tree_map(lambda x: x[w], f) for f in state))
 
 
+def survivor_consensus(trainer, state, live_mask):
+    """``consensus_state`` of a trainer's state: across processes the
+    first live worker's row, broadcast over the dp group from the rank
+    that holds it (every rank calls this)."""
+    if getattr(trainer, "group", None) is None:
+        return consensus_state(state, live_mask)
+    from sparknet_tpu_torch.parallel import mesh as _mesh
+    from sparknet_tpu_torch.utils.tree import tree_leaves, tree_unflatten
+
+    live = np.flatnonzero(np.asarray(live_mask, np.float32).reshape(-1) > 0)
+    w = int(live[0]) if live.size else 0
+    rows = _mesh.all_gather_objects((trainer.rows.start, trainer.rows.stop),
+                                    trainer.group)
+    src = next(i for i, (lo, hi) in enumerate(rows) if lo <= w < hi)
+    mine = trainer.rows
+    local = w - mine.start if mine.start <= w < mine.stop else 0
+    one = type(state)(*(tree_map(lambda x: x[local], f) for f in state))
+    leaves = _mesh.broadcast_leaves(tree_leaves(one), trainer.group, src=src)
+    return tree_unflatten(one, leaves)
+
+
 def readmit_state(trainer, state, restored, workers):
     """Merge ``restored`` (a single-replica state) into the rows of
     ``workers``: their params and stats come from it (placed through
     ``trainer.broadcast_state``, which resets the comm plane, as in the
     JAX package), their momentum is zeroed, every other row is
-    untouched."""
+    untouched.  Across processes ``state`` holds this process's rows
+    (``trainer.rows``)."""
     full = trainer.broadcast_state(restored)
-    n = trainer.num_workers
-    row = np.zeros((n,), bool)
+    rows = getattr(trainer, "rows", slice(0, trainer.num_workers))
+    row = np.zeros((trainer.num_workers,), bool)
     row[list(workers)] = True
+    row = row[rows]
+    n = row.shape[0]
     placed: Dict[str, torch.Tensor] = {}  # the row mask, once a device
 
     def rows_for(x):
@@ -481,7 +547,7 @@ def readmit_from_survivors(trainer, state, controller, round_index, echo=None):
     workers = controller.pending_joiners()
     if not workers:
         return state, None
-    restored = consensus_state(state, controller.live_mask())
+    restored = survivor_consensus(trainer, state, controller.live_mask())
     state = readmit_state(trainer, state, restored, workers)
     view = controller.admit(round_index)
     if echo is not None:

@@ -50,7 +50,8 @@ synchronous gradient all-reduce on the global batch
 N, one rank a card; outside a joined world it spawns the N ranks
 through ``tools/launch.py`` (``--backend gloo`` lets them share fewer
 cards, or run on the CPU), and only rank 0 logs, writes snapshots,
-commits the journal and publishes.  ``--obs`` and the other subcommands
+commits the journal, publishes and writes the ``--profile`` summary
+(each rank profiles its own windows).  ``--obs`` and the other subcommands
 (``classify``, ``device_query``, the converters, ...) come with later
 slices; the flags raise "not yet ported" here.
 """
@@ -219,13 +220,6 @@ def cmd_serve(args) -> int:
     return server.run()
 
 
-# train flags that stay one-process under --devices > 1: (flag, is it on)
-_DEVICES_NOT_YET_PORTED = (
-    ("--profile", lambda a: bool(a.profile)),
-    ("--profile_out", lambda a: bool(a.profile_out)),
-)
-
-
 def _stage_cached_dir(url: str, cache_dir, cache_bytes) -> str:
     """An object-store root as a local directory view whose files are
     chunk-cache entries (verified, refetched when corrupt): every
@@ -272,12 +266,6 @@ def cmd_train(args) -> int:
     from sparknet_tpu_torch import obs
 
     obs.check_args(args, "train")
-    if args.devices > 1:
-        for flag, on in _DEVICES_NOT_YET_PORTED:
-            if on(args):
-                raise SystemExit(
-                    f"train: {flag} with --devices > 1 (across processes) is "
-                    "not yet ported to sparknet_tpu_torch")
     # a publish carries the sentry's verdict: an unaudited run has none
     if args.publish_to and not args.health and not args.health_policy:
         args.health = "warn"
@@ -448,15 +436,18 @@ def _train_solver(args, device) -> int:
         sentry.restore_fn = health_mod.make_restore_fn(
             solver, prefix, trainer=trainer, metrics=metrics)
     recorder = obs.flight_from_args(args, metrics=metrics) if root else None
-    # --profile: each window is one profiled round (Solver.step marks it)
-    profiler = obs.profile_from_args(args, echo=print)
+    # --profile: each window is one profiled round (Solver.step and
+    # AllReduceTrainer.step mark it); under --devices every rank profiles
+    # its own steps and rank 0 alone prints and writes the summary
+    profiler = obs.profile_from_args(args, echo=say)
     try:
         with obs.installed_metrics(metrics):  # the data plane counts too
             return _train_loop(args, solver, solver_param, metrics, prefix,
                                jr, sentry, trainer, say)
     finally:
         if profiler is not None:
-            summary = obs.close_profile(profiler, args.profile_out, echo=print)
+            summary = obs.close_profile(
+                profiler, args.profile_out if root else None, echo=say)
             if args.result is not None:
                 args.result.update(profile=summary)
         if jr is not None:

@@ -31,10 +31,22 @@ its device (the app's ``--workers`` must be ``nprocs x`` that).
 a rank at ``--sp`` > 1) have a multi-process mode, as in the JAX
 package, and so does ``train`` (``cli train --devices N``, which spawns
 its ranks through ``spawn_local``: synchronous gradient all-reduce on the
-global batch); the other apps refuse a world above one process.  The
-simulated-slice flags (``--slices``, ``--preempt_slice``,
-``--preempt_at``, ``--relaunch_after``) and ``--fleet_collector`` are not
-yet ported.
+global batch); the other apps refuse a world above one process.
+
+Slices of processes (``--slices N``, contiguous blocks of ``--nprocs``:
+``proc_slice_members``): each child learns its slice through
+``$SPARKNET_SLICE_ID``, which an ``--elastic`` app's SIGTERM hook marks
+leaving.  ``--preempt_slice S --preempt_at T`` sends SIGTERM to every
+live process of slice S after T seconds (the orchestrator's preemption
+notice); ``--relaunch_after R`` seconds later any victim still running
+is killed and reaped, and the same ``--process_id``s are spawned again
+with ``$SPARKNET_RELAUNCHED=1`` (skipped once the run's deadline has
+passed).  A preempted incarnation's exit code is not a failure.  A
+``torch.distributed`` group has a fixed world size and takes no new
+member, so a relaunched process exits at once, saying so, and the
+survivors of a hard-killed peer fail in their next collective with
+``mesh.PeerLost`` naming it (within the group's timeout,
+``mesh.JOIN_TIMEOUT_S``).  ``--fleet_collector`` is not yet ported.
 """
 
 from __future__ import annotations
@@ -58,9 +70,18 @@ MULTIPROCESS_APPS = ("cifar", "imagenet", "lm", "train")
 # the JAX launcher's lifecycle actions (tools/provision.py, not ported)
 PROVISION_ACTIONS = ("provision", "describe", "run", "ssh", "teardown")
 # (flag, default): the JAX launcher's flags of later work
-_NOT_YET_PORTED = (("slices", 1), ("preempt_slice", None),
-                   ("preempt_at", None), ("relaunch_after", None),
-                   ("fleet_collector", None))
+_NOT_YET_PORTED = (("fleet_collector", None),)
+# the exit code of a run refused before any child spawned
+USAGE_RC = 2
+
+
+def proc_slice_members(nprocs: int, slices: int):
+    """Contiguous process -> slice grouping, the simulated-pod topology
+    rule (``HierarchySpec.grouped`` over the processes; more slices than
+    processes clamps)."""
+    from sparknet_tpu_torch.parallel.hierarchy import HierarchySpec
+
+    return HierarchySpec.grouped(nprocs, max(1, slices)).slices
 
 
 def requested_device(app_argv) -> str:
@@ -108,6 +129,12 @@ def run_app(app: str, app_argv, coordinator=None, num_processes=None,
         os.environ.get("WORLD_SIZE", "1"))
     refuse_world(app, world, app_argv,
                  int(os.environ.get("SPARKNET_LOCAL_WORKERS", "1")))
+    if world > 1 and os.environ.get("SPARKNET_RELAUNCHED") == "1":
+        raise SystemExit(
+            f"launch: process_id {process_id} was relaunched "
+            "(SPARKNET_RELAUNCHED=1), but a torch.distributed group of fixed "
+            f"world size {world} takes no new member: it cannot re-enter the "
+            "run (its survivors stop with mesh.PeerLost)")
     joined = False
     if coordinator or num_processes is not None or "MASTER_ADDR" in os.environ:
         mesh.initialize_distributed(coordinator, num_processes, process_id,
@@ -129,15 +156,32 @@ def run_app(app: str, app_argv, coordinator=None, num_processes=None,
 def spawn_local(args, app_argv) -> int:
     """N OS processes on this machine, joined through ``--coordinator``
     (a ``file://`` store or ``host:port``; a probed loopback port by
-    default), spawned and reaped by ``utils.procs.reap_processes``:
+    default), spawned and reaped through ``utils.procs.Children``:
     every child's pipe is drained concurrently, and a child that fails
-    ends the wait and has its peers killed rather than left in a
-    collective.  Each child's lines are printed after it, prefixed
-    ``[host <pid>]``.  Returns the code of the first child that failed
-    on its own, else 1 when children were killed at the timeout."""
+    (not a deliberately preempted one) ends the wait and has its peers
+    killed rather than left in a collective.  Each child learns its
+    slice (``$SPARKNET_SLICE_ID``); ``--preempt_slice`` runs the slice's
+    preemption and relaunch on a thread while the wait goes on over the
+    growing list.  Each child's lines are printed after it, prefixed
+    ``[host <pid>]``.  Returns ``USAGE_RC`` for a ``--preempt_slice`` out
+    of range (before any spawn), else the code of the first child that
+    failed on its own, else 1 when children were killed at the timeout
+    or after a failed peer, else 0."""
+    import signal
+    import subprocess
+    import threading
+    import time
+
     from sparknet_tpu_torch.utils import procs
 
     refuse_world(args.app, args.nprocs, app_argv, args.devices_per_host)
+    slices = proc_slice_members(args.nprocs, getattr(args, "slices", 1))
+    slice_of = {pid: i for i, members in enumerate(slices) for pid in members}
+    preempt = getattr(args, "preempt_slice", None)
+    if preempt is not None and not 0 <= preempt < len(slices):
+        print(f"launch: --preempt_slice={preempt} out of range (have "
+              f"{len(slices)} slice(s))", file=sys.stderr)
+        return USAGE_RC
     coordinator = args.coordinator or f"127.0.0.1:{procs.free_port()}"
     repo = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -148,21 +192,97 @@ def spawn_local(args, app_argv) -> int:
         "SPARKNET_LOCAL_WORKERS": str(args.devices_per_host),
     }
     tail = [f"--backend={args.backend}"] if args.backend else []
-    cmds = [[sys.executable, "-m", "sparknet_tpu_torch.tools.launch",
-             f"--coordinator={coordinator}", f"--num_processes={args.nprocs}",
-             f"--process_id={pid}", *tail, args.app, *app_argv]
-            for pid in range(args.nprocs)]
-    envs = [{**env_base, "LOCAL_RANK": str(pid)} for pid in range(args.nprocs)]
-    results, killed, timed_out = procs.reap_processes(cmds, envs, args.timeout)
-    for pid, (rc, out) in sorted(results.items()):
-        sys.stdout.write("".join(f"[host {pid}] {line}\n"
-                                 for line in out.splitlines()))
+    kids = procs.Children()
+    # set once the wait has ended: the preemption thread spawns nothing
+    # after it (the lock orders its check against the last kill)
+    stopping = threading.Event()
+    spawn_lock = threading.Lock()
+
+    def spawn(pid: int, relaunched: bool = False):
+        env = {**env_base, "LOCAL_RANK": str(pid),
+               "SPARKNET_SLICE_ID": str(slice_of[pid])}
+        if relaunched:
+            env["SPARKNET_RELAUNCHED"] = "1"
+        kids.spawn(pid, [
+            sys.executable, "-m", "sparknet_tpu_torch.tools.launch",
+            f"--coordinator={coordinator}", f"--num_processes={args.nprocs}",
+            f"--process_id={pid}", *tail, args.app, *app_argv], env)
+
+    deadline = time.time() + args.timeout
+
+    def say(line: str) -> None:
+        print(line, flush=True)
+
+    def do_preempt():
+        members = slices[preempt]
+        time.sleep(args.preempt_at or 0.0)
+        victims = [e for e in kids.snapshot()
+                   if e["pid"] in members and e["proc"].poll() is None]
+        if stopping.is_set() or not victims:
+            # the run ended (or failed) first: there is nothing to
+            # preempt, and a relaunch would start the app from scratch
+            say(f"launch: slice {preempt} preemption skipped (no live "
+                "process in the slice)")
+            return
+        for e in victims:
+            kids.forgiven.add(id(e["proc"]))
+            e["proc"].send_signal(signal.SIGTERM)
+        say(f"launch: slice {preempt} preempted (SIGTERM to host(s) "
+            f"{sorted(e['pid'] for e in victims)})")
+        if args.relaunch_after is None:
+            return
+        time.sleep(args.relaunch_after)
+        if stopping.is_set() or time.time() >= deadline:
+            say(f"launch: slice {preempt} relaunch skipped (the run "
+                "ended or its deadline passed)")
+            return
+        # escalation: a victim that took the SIGTERM as a notice and
+        # kept running (an --elastic child does) is killed and reaped
+        # before its replacement takes the same --process_id
+        for e in victims:
+            if e["proc"].poll() is None:
+                e["proc"].kill()
+        for e in victims:
+            try:
+                e["proc"].wait(timeout=30)
+            except subprocess.TimeoutExpired:  # the final wait reaps it
+                pass
+        with spawn_lock:
+            if stopping.is_set():
+                say(f"launch: slice {preempt} relaunch skipped (the run "
+                    "ended while its victims were reaped)")
+                return
+            for pid in members:
+                spawn(pid, relaunched=True)
+        say(f"launch: slice {preempt} relaunched (host(s) {sorted(members)})")
+
+    for pid in range(args.nprocs):
+        spawn(pid)
+    thread = None
+    if preempt is not None:
+        thread = threading.Thread(target=do_preempt, name="launch-preempt",
+                                  daemon=True)
+        thread.start()
+    killed, timed_out = [], True
+    try:
+        killed, timed_out = kids.wait(
+            deadline, busy=lambda: thread is not None and thread.is_alive())
+    finally:
+        with spawn_lock:
+            stopping.set()
+        killed = sorted(set(killed) | set(kids.kill_all()))
+    if thread is not None:
+        thread.join(timeout=5)
+    for e in kids.snapshot():
+        sys.stdout.write("".join(f"[host {e['pid']}] {line.rstrip(chr(10))}\n"
+                                 for line in e["buf"]))
     if killed:
         why = f"the {args.timeout} s timeout" if timed_out else "a failed peer"
         sys.stdout.write(f"launch: killed host(s) {killed} after {why}\n")
     sys.stdout.flush()
-    failed = [rc for pid, (rc, _) in sorted(results.items())
-              if rc != 0 and pid not in killed]
+    failed = [e["proc"].returncode for e in kids.snapshot()
+              if e["proc"].returncode != 0 and id(e["proc"]) not in kids.killed
+              and id(e["proc"]) not in kids.forgiven]
     return failed[0] if failed else (1 if killed else 0)
 
 
@@ -195,10 +315,20 @@ def main(argv=None) -> int:
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
     parser.add_argument("--timeout", type=int, default=1200)
-    parser.add_argument("--slices", type=int, default=1)
-    parser.add_argument("--preempt_slice", type=int, default=None)
+    parser.add_argument(
+        "--slices", type=int, default=1,
+        help="group the spawned processes into N contiguous slices; each "
+        "child gets its slice in $SPARKNET_SLICE_ID")
+    parser.add_argument(
+        "--preempt_slice", type=int, default=None,
+        help="SIGTERM every live process of this slice at --preempt_at "
+        "seconds (a preemption notice)")
     parser.add_argument("--preempt_at", type=float, default=None)
-    parser.add_argument("--relaunch_after", type=float, default=None)
+    parser.add_argument(
+        "--relaunch_after", type=float, default=None,
+        help="seconds after the preemption: kill and reap the victims "
+        "still running, then spawn the same --process_ids again with "
+        "$SPARKNET_RELAUNCHED=1")
     parser.add_argument("--fleet_collector", nargs="?", default=None,
                         const="127.0.0.1:0")
     parser.add_argument("app", choices=sorted(APPS))
@@ -209,6 +339,9 @@ def main(argv=None) -> int:
         if getattr(args, attr) != default:
             raise SystemExit(f"launch: --{attr} is not yet ported to "
                              "sparknet_tpu_torch")
+    if args.preempt_slice is not None and not args.nprocs:
+        raise SystemExit("launch: --preempt_slice needs --nprocs (the "
+                         "launcher spawns the slice it preempts)")
     app_argv = [a for a in args.app_argv if a != "--"]
     if args.nprocs:
         return spawn_local(args, app_argv)

@@ -4,8 +4,8 @@ The port of ``sparknet_tpu/utils/procs.py``, shared by the tests
 (``tests/test_torch_multiprocess.py``) and ``chip_smoke.py``, so the
 bring-up scaffolding — a file store, spawn, reap with every pipe
 drained concurrently, clean-up — and the workers themselves have one
-copy; the launcher (``tools/launch.py``) spawns its ranks through the
-same ``reap_processes``.
+copy; the launcher (``tools/launch.py``) spawns, preempts and relaunches
+its ranks through the same ``Children``.
 
 A worker is a script run as ``python worker.py <pid> <address> [args]``:
 ``address`` is a ``file://`` store (no port to race for, which is what
@@ -18,10 +18,14 @@ over the mesh's dp group and print ``<marker> p<pid>``.
 ``run_averaging_spec`` is the round both sides run: a worker over its
 process's block of workers, the caller over all W stacked on one device
 — the reference a cross-process run is held to bit for bit.
+``observed_launch`` runs the real launcher and app, each process saving
+what its ``cifar_app`` computed, so a launched run can be held to a
+one-process run of the same flags.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import socket
@@ -62,7 +66,18 @@ DEFAULT_SPEC = {
     "seed": 0,
     "deterministic": False,  # inside utils.devices.deterministic_algorithms
     "init": None,  # an .npz of {"<layer>/<i>": blob} weights to start from
+    # the averaging machinery, through the apps' RoundGuards (a spec
+    # that sets any of these runs ``run_machinery_spec``)
+    "slices": 1,  # --slices
+    "cross_slice_every": 1,  # --cross_slice_every
+    "stale_bound": 0,  # --stale_bound (every worker arrives each round)
+    "elastic": False,  # --elastic --rejoin_after 1
+    "preempt": None,  # [round, slice]: a SIGTERM notice at that boundary
+    "journal": False,  # --journal (the records, rank 0's ledger)
+    "profile": False,  # --profile --profile_out
 }
+_MACHINERY = ("slices", "cross_slice_every", "stale_bound", "elastic",
+              "preempt", "journal", "profile")
 
 
 def _spec(spec: Optional[dict]) -> dict:
@@ -115,14 +130,21 @@ def averaging_batches(spec: dict, r: int) -> Dict[str, np.ndarray]:
     return out
 
 
-def run_averaging_spec(spec: Optional[dict], device, mesh=None) -> dict:
+def run_averaging_spec(spec: Optional[dict], device, mesh=None,
+                       workdir: Optional[str] = None) -> dict:
     """Run the spec's rounds over ``mesh`` (this process's block of the
     W workers; None: all W stacked here).  Returns the params of this
     process's first worker (the consensus; host numpy, in leaf order),
     every round's (W, tau) losses, the bytes that reached this rank
     from the others a round, the host-staging ms, the K9/K10 launches
-    and the wall seconds of each round."""
+    and the wall seconds of each round.  A spec that asks for the
+    averaging machinery runs ``run_machinery_spec`` (files under
+    ``workdir``)."""
     import torch
+
+    spec = _spec(spec)
+    if any(spec[k] != DEFAULT_SPEC[k] for k in _MACHINERY):
+        return run_machinery_spec(spec, device, mesh, workdir)
 
     from sparknet_tpu_torch.ops import cuda_comm
     from sparknet_tpu_torch.parallel import mesh as mesh_mod
@@ -174,6 +196,167 @@ def run_averaging_spec(spec: Optional[dict], device, mesh=None) -> dict:
     return out
 
 
+class _Log:
+    """The ``log`` a ``RoundGuards`` writes to: lines kept, not printed."""
+
+    def __init__(self):
+        self.lines: List[str] = []
+
+    def log(self, message: str, i: int = -1) -> None:
+        self.lines.append(str(message))
+
+
+def run_machinery_spec(spec: dict, device, mesh=None,
+                       workdir: Optional[str] = None) -> dict:
+    """The spec's rounds through the apps' round loop (``apps/guards.
+    RoundGuards`` built from the flags the spec names, as ``cifar_app``
+    builds it): the membership boundary, the journal's intent and
+    commit, the trainer's round (two-tier, bounded-staleness or flat)
+    and the profiler.  A ``preempt`` notice reaches the stacked run as
+    ``note_preempt`` and a joined run as a SIGTERM that each process
+    whose slice (that of its first worker, ``$SPARKNET_SLICE_ID``) is
+    the preempted one sends itself.  Returns ``run_averaging_spec``'s
+    keys plus each round's live mask, view epoch, roster and tier, the
+    bytes that reached this rank by tier, the journal's records (rank 0
+    of a joined run; ``t_s`` dropped), the profile's per-worker table
+    and the K9/K10 launches."""
+    import argparse
+    import signal
+
+    import torch
+
+    from sparknet_tpu_torch.apps.guards import RoundGuards
+    from sparknet_tpu_torch.io import journal as journal_mod
+    from sparknet_tpu_torch.obs import profile as profile_mod
+    from sparknet_tpu_torch.obs.metrics import TrainingMetrics
+    from sparknet_tpu_torch.ops import cuda_comm
+    from sparknet_tpu_torch.parallel import mesh as mesh_mod
+    from sparknet_tpu_torch.parallel.hierarchy import HierarchySpec
+    from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+    from sparknet_tpu_torch.utils.tree import tree_leaves
+
+    device = torch.device(device)
+    joined = mesh is not None and mesh.group("dp") is not None
+    tag = f"p{mesh_mod.process_index()}" if joined else "stacked"
+    workdir = workdir or tempfile.mkdtemp(prefix="machinery_")
+    W = spec["workers"]
+    args = argparse.Namespace(
+        compress=spec["compress"], overlap_avg=False, slices=spec["slices"],
+        cross_slice_every=spec["cross_slice_every"],
+        stale_bound=spec["stale_bound"], stale_discount=0.5,
+        elastic=bool(spec["elastic"]), rejoin_after=1,
+        journal=True if spec["journal"] else None, journal_path=None,
+        journal_fsync="never", profile=bool(spec["profile"]),
+        profile_out=None)
+    rows = slice(0, W) if mesh is None else mesh.coords["dp"]
+    groups = HierarchySpec.grouped(W, max(1, spec["slices"])).slices
+    my_slice = next(i for i, g in enumerate(groups) if rows.start in g)
+    os.environ["SPARKNET_SLICE_ID"] = str(my_slice)
+    out: dict = {"losses": [], "group_bytes": [], "round_s": [], "masks": [],
+                 "epochs": [], "states": [], "tiers": [], "tier_bytes": []}
+    # one ledger (and one profile file) a spec and a run of it
+    key = hashlib.sha1(json.dumps(spec, sort_keys=True).encode()).hexdigest()
+    tag = f"{tag}.{key[:12]}"
+    jpath = os.path.join(workdir, f"run.{tag}.journal")
+    if spec["profile"]:
+        args.profile_out = os.path.join(workdir, f"profile.{tag}.json")
+    log = _Log()
+    metrics = TrainingMetrics()
+    with deterministic_algorithms(bool(spec["deterministic"])):
+        solver = averaging_solver(spec, device)
+        guards = RoundGuards.from_args(
+            args, solver, W, app="harness", log=log, metrics=metrics,
+            journal_path=jpath, mesh=mesh)
+        trainer = guards.trainer
+        if spec["init"]:
+            state = trainer.broadcast_state(_carried_state(spec["init"],
+                                                           solver))
+        else:
+            state = trainer.init_state(seed=spec["seed"])
+        cuda_comm.reset_launch_counts()
+        mesh_mod.reset_staging()
+        hb = metrics.hierarchy_bytes
+        try:
+            with guards.signals():
+                for r in range(spec["rounds"]):
+                    host = averaging_batches(spec, r)
+                    # each worker's window drawn (and timed) on its own
+                    windows = profile_mod.timed_worker_windows(r, [
+                        lambda w=w: {k: v[w] for k, v in host.items()}
+                        for w in range(rows.start, rows.stop)])
+                    batches = {k: torch.from_numpy(np.ascontiguousarray(
+                        np.stack([win[k] for win in windows]))).to(device)
+                        for k in host}
+                    pre = spec["preempt"]
+                    if pre is not None and pre[0] == r:
+                        if not joined:
+                            guards.membership.note_preempt(slice_index=pre[1])
+                        elif my_slice == pre[1]:
+                            os.kill(os.getpid(), signal.SIGTERM)
+                    before = (hb.labels("intra").value,
+                              hb.labels("cross").value)
+                    t0 = time.perf_counter()
+                    guards.begin(r, iter=r * spec["tau"], cursor=r)
+                    state, mask = guards.boundary(state, r)
+                    state, losses = guards.round(state, batches, mask, r)
+                    out["losses"].append(losses.detach().cpu().numpy())
+                    out["round_s"].append(time.perf_counter() - t0)
+                    guards.commit(r, iter=(r + 1) * spec["tau"],
+                                  durable=False)
+                    intra = (trainer._two_tier
+                             and not trainer.hierarchy.is_cross_round(r))
+                    plane = trainer._comm
+                    out["group_bytes"].append(
+                        plane.last_group_bytes if plane is not None
+                        and not intra else trainer.last_group_bytes)
+                    out["masks"].append(None if mask is None
+                                        else [float(v) for v in mask])
+                    view = (guards.membership.view
+                            if guards.membership is not None else None)
+                    out["epochs"].append(None if view is None else view.epoch)
+                    out["states"].append(None if view is None
+                                         else list(view.states))
+                    out["tiers"].append("intra" if intra else "cross")
+                    out["tier_bytes"].append(
+                        [hb.labels("intra").value - before[0],
+                         hb.labels("cross").value - before[1]])
+        finally:
+            guards.close()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        out["params"] = [x[0].detach().cpu().numpy()
+                         for x in tree_leaves(state.params)]
+        out["all_rows"] = [x.detach().cpu().numpy()
+                           for x in tree_leaves(state.params)]
+        out["staging_ms"] = float(mesh_mod.STAGING["ms"])
+        out["staging_bytes"] = int(mesh_mod.STAGING["bytes"])
+        out["launches"] = dict(cuda_comm.LAUNCHES)
+        out["chunks"] = (len(trainer._comm.chunk_slices)
+                         if trainer._comm is not None else 0)
+        out["rows"] = (rows.start, rows.stop)
+        out["transitions"] = ([] if guards.membership is None else
+                              [[e, r, k, list(ws)] for e, r, k, ws in
+                               guards.membership.transitions])
+        out["journal"] = None
+        if spec["journal"] and os.path.exists(jpath):
+            recs, _ = journal_mod.scan(jpath)
+            out["journal"] = [{k: v for k, v in rec.items() if k != "t_s"}
+                              for rec in recs]
+        out["profile"] = None
+        summary = guards.profile_summary
+        if summary is not None:
+            out["profile"] = {
+                "rounds": summary["rounds"],
+                "execute_ms_p50": summary["worker_execute_ms"]["p50"]
+                if summary.get("worker_execute_ms") else None,
+                "last_straggler_worker": summary["last_straggler_worker"],
+                "flops_per_round": summary["flops_per_round"],
+                "written": (args.profile_out is not None
+                            and os.path.exists(args.profile_out)),
+            }
+    return out
+
+
 def save_weights(path: str, params) -> None:
     """``{layer: [blob]}`` weights (any package's) as the ``init`` file of
     a spec."""
@@ -199,6 +382,11 @@ def _carried_state(path: str, solver):
                       torch.tensor(0))
 
 
+# what ``run_machinery_spec`` adds to a result
+_MACHINERY_KEYS = ("masks", "epochs", "states", "tiers", "tier_bytes",
+                   "transitions", "journal", "profile")
+
+
 def save_result(path: str, res: dict) -> None:
     """A worker's ``run_averaging_spec`` result as one ``.npz``."""
     arrays = {f"param{i}": p for i, p in enumerate(res["params"])}
@@ -206,6 +394,7 @@ def save_result(path: str, res: dict) -> None:
     arrays["losses"] = np.stack(res["losses"])
     meta = {k: res[k] for k in ("group_bytes", "round_s", "staging_ms",
                                 "staging_bytes", "launches", "chunks", "rows")}
+    meta.update({k: res[k] for k in _MACHINERY_KEYS if k in res})
     arrays["meta"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
     np.savez(path, **arrays)
 
@@ -230,6 +419,7 @@ def load_result(path: str) -> dict:
 _AVERAGING_WORKER = r"""
 import argparse
 import json
+import os
 import sys
 
 ap = argparse.ArgumentParser()
@@ -251,7 +441,7 @@ specs = [procs._spec(s) for s in json.loads(a.spec)]
 if a.stacked_first:
     for i, spec in enumerate(specs):
         procs.save_result(f"{a.out}.stacked.{i}.npz", procs.run_averaging_spec(
-            spec, resolve_device(a.device)))
+            spec, resolve_device(a.device), workdir=os.path.dirname(a.out)))
 dev = mesh.initialize_distributed(a.address, a.nprocs, a.pid,
                                   backend=a.backend, device=a.device)
 print(f"joined rank {a.pid} of {a.nprocs} on {dev} over "
@@ -259,7 +449,8 @@ print(f"joined rank {a.pid} of {a.nprocs} on {dev} over "
 for i, spec in enumerate(specs):
     m = mesh.make_mesh({"dp": spec["workers"]},
                        workers_per_process=spec["workers"] // a.nprocs)
-    res = procs.run_averaging_spec(spec, dev, mesh=m)
+    res = procs.run_averaging_spec(spec, dev, mesh=m,
+                                   workdir=os.path.dirname(a.out))
     procs.save_result(f"{a.out}.{i}.npz", res)
     print(f"spec {i}: rows={res['rows']} group_bytes={res['group_bytes']} "
           f"staging_ms={res['staging_ms']:.3f} launches={res['launches']}",
@@ -380,6 +571,109 @@ def fleet_ship_worker(marker: str) -> str:
     )
 
 
+# The observed launch: ``python observer.py OUT <launch argv>`` runs
+# ``tools/launch.main`` on the argv as given.  Each process the launcher
+# spawns runs this same script on the launcher's own child argv, so the
+# launcher, the children's environment, the join and the app are the
+# real ones; only the interpreter's entry differs.  Each ``cifar_app``
+# run saves to ``OUT/rank<r>.npz``: its rows of the final params and
+# stats, every round's losses (all W workers), and the live masks,
+# smoothed loss, accuracy and K9/K10 launches (exact, as JSON).  The app runs under
+# ``deterministic_algorithms`` so that two runs can be held bit for bit.
+_OBSERVED_LAUNCH = r"""
+import json
+import os
+import sys
+
+import numpy as np
+
+from sparknet_tpu_torch.apps import cifar_app, guards
+from sparknet_tpu_torch.ops import cuda_comm
+from sparknet_tpu_torch.tools import launch
+from sparknet_tpu_torch.utils import procs
+from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+from sparknet_tpu_torch.utils.tree import tree_leaves
+
+out, argv = sys.argv[1], sys.argv[2:]
+spawn, app_main = procs.Children.spawn, cifar_app.main
+guarded_round = guards.RoundGuards.round
+losses = []
+
+
+def observed_spawn(self, pid, cmd, env):
+    i = cmd.index("-m")  # [python, -m, sparknet_tpu_torch.tools.launch, ...]
+    return spawn(self, pid, [*cmd[:i], os.path.abspath(__file__), out,
+                             *cmd[i + 2:]], env)
+
+
+def observed_round(self, *a, **k):
+    res = guarded_round(self, *a, **k)
+    losses.append(res[1].detach().cpu().numpy())
+    return res
+
+
+def observed_main(app_argv, result=None):
+    from sparknet_tpu_torch.parallel import mesh
+
+    r = {}
+    with deterministic_algorithms():
+        code = app_main(app_argv, result=r)
+    state, rows = r["state"], r["trainer"].rows
+    leaves = tree_leaves(state.params) + tree_leaves(state.stats)
+    meta = {"rows": [rows.start, rows.stop], "code": code,
+            "launches": dict(cuda_comm.LAUNCHES),
+            "smoothed_loss": float(r["smoothed_loss"]),
+            "accuracy": float(r["accuracy"]),
+            "masks": [None if m is None else [float(v) for v in m]
+                      for m in r["masks"]]}
+    np.savez(os.path.join(out, f"rank{mesh.process_index()}.npz"),
+             losses=np.stack(losses),
+             meta=np.frombuffer(json.dumps(meta).encode(), np.uint8),
+             **{f"leaf{i}": x.detach().cpu().numpy()
+                for i, x in enumerate(leaves)})
+    return code
+
+
+procs.Children.spawn = observed_spawn
+guards.RoundGuards.round = observed_round
+cifar_app.main = observed_main
+raise SystemExit(launch.main(argv))
+"""
+
+
+def observed_launch(launch_argv: Sequence[str], out_dir: str, repo_root: str,
+                    env_extra: Optional[Dict[str, str]] = None,
+                    timeout: float = 600.0, cwd: Optional[str] = None):
+    """Run ``tools/launch`` on ``launch_argv`` (``cifar`` and its
+    arguments, after ``--nprocs N`` and the launcher's other flags for a
+    joined run; without them one process) with every ``cifar_app`` run
+    observed.  Returns the finished process (stdout and stderr) and each
+    rank's saved run in rank order: ``rows``, ``losses`` (rounds, W,
+    tau), ``leaves`` (this rank's rows of every param and stat leaf),
+    ``masks``, ``smoothed_loss``, ``accuracy``, ``code``, ``launches``
+    (``ops.cuda_comm.LAUNCHES``)."""
+    os.makedirs(out_dir, exist_ok=True)
+    script = os.path.join(out_dir, "observer.py")
+    with open(script, "w") as f:
+        f.write(_OBSERVED_LAUNCH)
+    done = subprocess.run(
+        [sys.executable, script, out_dir, *launch_argv], capture_output=True,
+        text=True, timeout=timeout, env=repo_env(repo_root, env_extra),
+        cwd=cwd or out_dir)
+    ranks = []
+    for r in range(len(os.listdir(out_dir))):
+        path = os.path.join(out_dir, f"rank{r}.npz")
+        if not os.path.exists(path):
+            break
+        z = np.load(path)
+        run = json.loads(bytes(z["meta"]).decode())
+        run["losses"] = z["losses"]
+        run["leaves"] = [z[f"leaf{i}"] for i in
+                         range(sum(k.startswith("leaf") for k in z.files))]
+        ranks.append(run)
+    return done, ranks
+
+
 def free_port() -> int:
     """A loopback port free at the time of the probe."""
     with socket.socket() as s:
@@ -399,6 +693,84 @@ def repo_env(repo_root: str, env_extra: Optional[Dict[str, str]] = None
     }
 
 
+class Children:
+    """Spawned processes whose pipes are drained as they run (stdout and
+    stderr together, each on its own thread, so a full pipe never stalls
+    a rank inside a collective).  The list may grow while it is waited
+    on (a relaunched slice); ``forgiven`` holds the children whose
+    nonzero exit was the caller's doing (a deliberate preemption)."""
+
+    def __init__(self):
+        self.entries: List[dict] = []  # pid, proc, buf, thread
+        self.forgiven: set = set()  # id() of each forgiven Popen
+        self.killed: set = set()  # id() of each Popen this object killed
+        self._lock = threading.Lock()
+
+    def spawn(self, pid: int, cmd: Sequence[str], env: Dict[str, str]):
+        p = subprocess.Popen(list(cmd), env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        buf: List[str] = []
+        t = threading.Thread(target=lambda: buf.extend(p.stdout),
+                             name=f"procs-drain-p{pid}", daemon=True)
+        t.start()
+        with self._lock:
+            self.entries.append({"pid": pid, "proc": p, "buf": buf,
+                                 "thread": t})
+        return p
+
+    def snapshot(self) -> List[dict]:
+        with self._lock:
+            return list(self.entries)
+
+    def failed(self) -> List[dict]:
+        """The children that exited nonzero and were not forgiven."""
+        return [e for e in self.snapshot()
+                if e["proc"].poll() not in (None, 0)
+                and id(e["proc"]) not in self.forgiven]
+
+    def running(self) -> List[dict]:
+        return [e for e in self.snapshot() if e["proc"].poll() is None]
+
+    def wait(self, deadline: float, busy=lambda: False) -> Tuple[List[int], bool]:
+        """Wait until every child has exited and ``busy()`` is false (a
+        lifecycle thread that may still spawn), a child fails (not
+        forgiven: its peers would sit in a collective, so they are
+        killed), or ``deadline`` passes (everything left is killed).
+        Returns ``(killed pids, timed_out)``."""
+        timed_out = True
+        try:
+            while time.time() < deadline:
+                if self.failed():
+                    timed_out = False
+                    break  # a rank failed: do not wait out its peers
+                if not self.running() and not busy():
+                    timed_out = False
+                    break
+                time.sleep(0.05)
+        finally:
+            killed = self.kill_all()
+            for e in self.snapshot():
+                e["thread"].join(timeout=30)
+        return killed, timed_out
+
+    def kill_all(self) -> List[int]:
+        killed = []
+        for e in self.snapshot():
+            if e["proc"].poll() is None:
+                e["proc"].kill()
+                self.killed.add(id(e["proc"]))
+                killed.append(e["pid"])
+        for e in self.snapshot():
+            try:
+                e["proc"].wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+        return killed
+
+    def output(self, e: dict) -> str:
+        return "".join(e["buf"])
+
+
 def reap_processes(cmds: Sequence[Sequence[str]],
                    envs: Sequence[Dict[str, str]], timeout: float
                    ) -> Tuple[Dict[int, Tuple[int, str]], List[int], bool]:
@@ -407,43 +779,16 @@ def reap_processes(cmds: Sequence[Sequence[str]],
     timed_out)``: each rank's ``(exit code, output)``, the ranks this
     call killed, and whether the deadline passed.
 
-    Each process is reaped on its own thread (its pipe drained as it
-    runs, so a full pipe never stalls a rank inside a collective); a
-    rank that fails ends the wait at once and its peers, which would sit
-    in a collective until their timeout, are killed."""
-    children = [subprocess.Popen(list(cmd), env=env, stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True)
-                for cmd, env in zip(cmds, envs)]
-    results: Dict[int, Tuple[int, str]] = {}
-
-    def reap(pid: int, p: subprocess.Popen) -> None:
-        out, _ = p.communicate()
-        results[pid] = (p.returncode, out)
-
-    threads = [threading.Thread(target=reap, args=(pid, p),
-                                name=f"procs-reap-p{pid}", daemon=True)
-               for pid, p in enumerate(children)]
-    for t in threads:
-        t.start()
-    deadline = time.time() + timeout
-    timed_out = True
-    killed: List[int] = []
-    try:
-        while time.time() < deadline:
-            if all(not t.is_alive() for t in threads):
-                timed_out = False
-                break
-            if any(rc != 0 for rc, _ in list(results.values())):
-                timed_out = False
-                break  # a rank failed: do not wait out its peers
-            time.sleep(0.05)
-    finally:
-        for pid, p in enumerate(children):
-            if p.poll() is None:
-                p.kill()
-                killed.append(pid)
-        for t in threads:
-            t.join(timeout=30)
+    Each process is reaped on its own thread (``Children``: its pipe
+    drained as it runs); a rank that fails ends the wait at once and its
+    peers, which would sit in a collective until their timeout, are
+    killed."""
+    kids = Children()
+    for pid, (cmd, env) in enumerate(zip(cmds, envs)):
+        kids.spawn(pid, cmd, env)
+    killed, timed_out = kids.wait(time.time() + timeout)
+    results = {e["pid"]: (e["proc"].returncode, kids.output(e))
+               for e in kids.snapshot()}
     return results, killed, timed_out
 
 

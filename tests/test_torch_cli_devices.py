@@ -7,8 +7,8 @@ draws the same global window and keeps its rows, and the
 ``AllReduceTrainer`` steps on the global batch.
 
 - The JAX refusal messages: no declared shapes, ``--compress``, too few
-  devices without ``--backend gloo``; ``--profile`` with ``--devices`` is
-  not yet ported.
+  devices without ``--backend gloo`` (``--profile`` with ``--devices``
+  runs: ``test_torch_launch_slices.py``).
 - ``--devices 2 --backend gloo --device cpu`` on a CIFAR-format set, a
   BatchNorm + Dropout net: its snapshot at iteration 8 against the
   one-process ``--devices 1`` run on the scaled batch (the JAX test's
@@ -205,8 +205,6 @@ def test_devices_refusals(tmp_path, cifar_dir, capsys):
     assert cli.main(["train", f"--solver={nodecl}", "--devices=2",
                      "--device=cpu"]) == 1
     assert "needs data layers with declared shapes" in capsys.readouterr().err
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(argv + ["--device=cpu", "--profile"])
 
 
 def _log_text(d, suffix):

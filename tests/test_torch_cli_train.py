@@ -11,8 +11,10 @@
 - SIGHUP snapshots, SIGINT snapshots and stops; ``--weights`` warm-starts.
 - The flags of later slices refuse, saying "not yet ported" (the chunk
   cache, ``--shuffle_epochs`` and object-store ``--data`` run now:
-  ``tests/test_torch_data_plane.py``; ``--devices`` runs now, without
-  ``--profile``: ``tests/test_torch_cli_devices.py``).
+  ``tests/test_torch_data_plane.py``; ``--devices`` runs now, with
+  ``--profile`` too: ``tests/test_torch_cli_devices.py`` and
+  ``tests/test_torch_launch_slices.py``; ``HDF5Output`` with
+  ``--devices`` refuses).
 """
 
 import os
@@ -279,14 +281,21 @@ def test_weights_warm_start(tmp_path):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--devices=2", "--profile"], "--devices"),
+    # --profile with --devices runs now; HDF5Output with --devices stays
+    (["--devices=2"], "--devices"),
     (["--trace_out=/tmp/t.json"], "--trace_out"),
     (["--slo"], "--slo"),
     (["--obs"], "--obs"),
 ])
 def test_train_refuses_what_is_not_yet_ported(tmp_path, flags, what):
+    net = None
+    if "--devices=2" in flags:
+        net = tmp_path / "h5.prototxt"
+        net.write_text(TOY_NET + 'layer { name: "out" type: "HDF5Output" '
+                       'bottom: "logits" bottom: "label" '
+                       'hdf5_output_param { file_name: "o.h5" } }\n')
     with pytest.raises(SystemExit, match="not yet ported") as e:
-        _train(_solver_file(tmp_path, "n"), *flags)
+        _train(_solver_file(tmp_path, "n", net=net), *flags)
     assert what in str(e.value)
 
 

@@ -138,10 +138,14 @@ def test_app_mesh_refuses_single_process_flags(monkeypatch):
     args = argparse.Namespace(workers=3)
     with pytest.raises(SystemExit, match="--workers == all workers"):
         mesh.app_mesh(args, "cifar_app")
+    args = argparse.Namespace(workers=0, overlap_avg=True)
+    with pytest.raises(SystemExit, match="--overlap_avg across processes is "
+                       "not yet ported"):
+        mesh.app_mesh(args, "cifar_app")
+    # the averaging machinery runs across processes now
     for flag, value in (("stale_bound", 1), ("elastic", True), ("slices", 2),
-                        ("journal", True), ("overlap_avg", True),
-                        ("profile", True)):
+                        ("journal", True), ("profile", True),
+                        ("profile_out", "p.json")):
         args = argparse.Namespace(workers=0, **{flag: value})
-        with pytest.raises(SystemExit, match=f"--{flag} across processes is "
-                           "not yet ported"):
-            mesh.app_mesh(args, "cifar_app")
+        n, m = mesh.app_mesh(args, "cifar_app")
+        assert n == 2 and m.shape == {"dp": 2}

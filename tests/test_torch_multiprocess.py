@@ -232,8 +232,6 @@ def test_imagenet_app_across_two_ranks(tmp_path):
     (["--nprocs", "2", "--devices_per_host", "2", "lm", "--device", "cpu",
       "--sp", "2"], "lm across 2 processes"),
     (["--nprocs", "2", "featurizer"], "featurizer across 2 processes"),
-    (["--slices", "2", "cifar"], "--slices"),
-    (["--preempt_slice", "0", "cifar"], "--preempt_slice"),
     (["--fleet_collector", "127.0.0.1:0", "cifar"], "--fleet_collector"),
     (["provision", "--dry-run"], "provision"),
 ])

@@ -165,7 +165,7 @@ _CIFAR = ["--device", "cpu", "--workers", "2", "--tau", "2", "--rounds", "1"]
     "argv,what",
     [
         (["train", "--solver", "s.prototxt"] + flag, flag[0])
-        for flag in (["--trace_out", "/t"], ["--devices", "2", "--profile"],
+        for flag in (["--trace_out", "/t"], ["--ship_to", "http://h:1"],
                      ["--slo"])
     ] + [
         (["cifar_app"] + _CIFAR + flag, flag[0])
