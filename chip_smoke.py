@@ -350,8 +350,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
    --overlap_avg --profile`` (3 rounds): the comm hidden fraction, K11 3
    a round.  (e) ``cli time --model caffenet --iterations 10 --batch
    32``: the whole table, K5 and K6 launched.  (f) ``chaos.run_chaos``
-   on the card with the default plan less ``collector_outage``: every
-   injected fault survived, the NaN flagged at round 2, the straggler
+   on the card with the default plan (``collector_outage`` too: 0
+   events lost or dropped): every injected fault survived, the NaN flagged at round 2, the straggler
    named at worker 3, round 1, the final loss in the baseline's band,
    the decode replica kill's resumed tokens equal to the undisturbed
    run's (K1, K2), the corrupt publish never canaried, the recovery
@@ -441,6 +441,25 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ``cifar_app --workers 4`` run of the same flags.  (e) and (f) run
    beside (a)-(d), so (a)-(d)'s round walls come from a shared card.
    (a)-(d)'s and (f)'s K9/K10 launches join the kernels line.
+21. The run's telemetry plane (``telemetry_end_to_end``): (a)
+   ``cifar_app --compress int8`` at cifar10_full's width (W=4, tau 10,
+   batch 100, 3 rounds) with ``--obs --obs_port 0 --slo --trace_out
+   --fleet_collector 127.0.0.1:0 --profile``: ``/metrics``,
+   ``/healthz``, ``/query``, ``/slo`` and ``/signals`` scraped while the
+   run is alive, every round's phase spans in the trace (each span's
+   count its ``sparknet_phase_latency_seconds`` count), the collector's
+   ``/fleet`` with 1 live host at the last round, no event dropped, 3 K9
+   and 3 K10 launches a round, and the losses and final parameters bit
+   for bit the same run's without telemetry; (b) ``tools/launch.py
+   --nprocs 2 --devices_per_host 2 --fleet_collector 127.0.0.1:0 cifar
+   --compress int8``, two gloo ranks on ``cuda:0``: 2 hosts, 0 late, 0
+   dead, the merged ``sparknet_rounds_total`` the hosts' sum; (c) ``cli
+   serve --generate --obs --obs_port 0 --slo`` at its default LM width,
+   16 streams: ``/slo``'s ``serve-ttft-p99`` counts good + bad = 16,
+   ``/signals`` answers, K1 and K2 launch.  Each leg's round or stream
+   wall with and without telemetry and a scrape's latency print (host
+   clock, reported only).  (a)'s K9/K10 and (c)'s K1/K2 launches join
+   the kernels line.
 
 Before its last lines the script prints its wall seconds by function
 (callees included), for a slice that must cut depth to stay inside the
@@ -5713,15 +5732,12 @@ def cli_time_end_to_end(dev, card):
 
 
 def chaos_end_to_end(dev, card, root):
-    """(f): ``run_chaos`` on the card, the default plan less
-    collector_outage.  Returns the kernels' launches."""
-    import dataclasses
-
+    """(f): ``run_chaos`` on the card, the default plan (its
+    collector_outage included).  Returns the kernels' launches."""
     from sparknet_tpu_torch.runtime import chaos
 
     t0 = time.perf_counter()
-    plan = dataclasses.replace(chaos.FaultPlan.default(),
-                               collector_outage_round=None)
+    plan = chaos.FaultPlan.default()
     _reset_counts()
     rep = chaos.run_chaos(plan, workdir=f"{root}/chaos", device=dev.type)
     torch.cuda.synchronize()
@@ -5742,7 +5758,10 @@ def chaos_end_to_end(dev, card, root):
           f"chaos: decode tokens {dt}")
     check(launches.get("flash_fwd", 0) > 0 and launches.get("decode_attention", 0) > 0,
           f"chaos: attention launches {launches}")
-    print(f"[{card}] run_chaos (default plan less collector_outage, W="
+    co = rep["collector_outage"]
+    check(co["events_lost"] == co["events_dropped"] == 0
+          and co["push_failures"] > 0, f"chaos: collector outage {co}")
+    print(f"[{card}] run_chaos (default plan, W="
           f"{plan.workers}, {plan.rounds} rounds): {rep['faults_survived']} of "
           f"{rep['faults_injected']} injected faults survived "
           f"({len(rep['faults'])} kinds); NaN flagged at round "
@@ -5753,7 +5772,10 @@ def chaos_end_to_end(dev, card, root):
           f"decode kill resumed {len(dt['resumed'])} tokens identical; recovery "
           f"latency {rep['recovery_latency_s']} s; slow slice saved "
           f"{rep['slow_slice']['wallclock_saved_s']} s of "
-          f"{rep['slow_slice']['tail_injected_s']}; launches {launches}; wall "
+          f"{rep['slow_slice']['tail_injected_s']}; collector outage: "
+          f"{co['push_failures']} push failure(s), "
+          f"{co['events_replayed_after_resume']} events replayed, 0 lost; "
+          f"launches {launches}; wall "
           f"{time.perf_counter() - t0:.2f} s")
     return launches
 
@@ -7421,6 +7443,366 @@ def averaging_machinery_across_processes(dev, card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 21: the run's telemetry plane on the card — cifar_app with every
+# telemetry flag, a launched two-rank run under the launcher's fleet
+# collector, cli serve --generate under --slo
+# ----------------------------------------------------------------------
+P21_ROUNDS = 3
+P21_STREAMS = 16
+P21_PROMPT_LENS = (5, 23)
+P21_FLAGS = ["--obs", "--obs_port", "0", "--slo", "--fleet_collector",
+             "127.0.0.1:0", "--profile"]
+P21_LAUNCH_TIMEOUT_S = 180
+P21_SCRAPES = ("/metrics", "/healthz",
+               "/query?series=sparknet_rounds_total&range=300", "/slo",
+               "/signals")
+
+
+def _p21_app(dev):
+    return ["--device", dev.type, "--workers", str(CIFAR_W), "--tau",
+            str(CIFAR_TAU), "--batch", str(CIFAR_BATCH), "--rounds",
+            str(P21_ROUNDS), "--test_every", "1000000", "--compress", "int8",
+            "--seed", "0"]
+
+
+def _get(url):
+    """``(status, body, ms)`` of one GET, with a timeout."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=10) as r:
+        body = r.read().decode()
+        return r.status, body, (time.perf_counter() - t0) * 1e3
+
+
+def _sample(text, name):
+    m = re.search(r"^%s (\S+)$" % re.escape(name), text, re.M)
+    return None if m is None else float(m.group(1))
+
+
+def telemetry_cifar(dev, card):
+    """(a) ``cifar_app --compress int8`` at cifar10_full's width, W=4,
+    tau 10, batch 100, P21_ROUNDS rounds, with ``--obs --obs_port 0 --slo
+    --trace_out --fleet_collector 127.0.0.1:0 --profile``, and the same
+    run with no telemetry, both under ``deterministic_algorithms``.  At
+    the last round's commit (the run alive) the sidecar's endpoints are
+    scraped and the collector's ``/fleet`` read.  Returns K9/K10's
+    launches of the telemetry run."""
+    from sparknet_tpu_torch import obs
+    from sparknet_tpu_torch.apps import cifar_app, guards
+    from sparknet_tpu_torch.ops import cuda_comm as cc
+    from sparknet_tpu_torch.utils.devices import deterministic_algorithms
+    from sparknet_tpu_torch.utils.tree import tree_leaves
+
+    R = P21_ROUNDS
+    live, losses = {}, []
+    real_start = obs.start
+    real_commit, real_round = guards.RoundGuards.commit, guards.RoundGuards.round
+
+    def start(**kw):
+        run = real_start(**kw)
+        live["run"] = run
+        close = run.collector.close
+
+        def closing():  # the view after the shipper's final push
+            live["final_fleet"] = run.collector.fleet_view()
+            close()
+
+        run.collector.close = closing
+        return run
+
+    def commit(self, r, **meta):
+        real_commit(self, r, **meta)
+        if "run" in live and r == R - 1:
+            run = live["run"]
+            run.sampler.sample_once()
+            h, p = run.address
+            live["scrapes"] = {path: _get(f"http://{h}:{p}{path}")
+                               for path in P21_SCRAPES}
+            deadline = time.time() + 10  # the shipper pushes every 0.5 s
+            while True:
+                fleet = json.loads(_get(run.collector.url + "/fleet")[1])
+                rounds = [st["round"] for st in fleet["hosts"].values()]
+                if rounds == [R - 1] or time.time() > deadline:
+                    break
+                time.sleep(0.05)
+            live["fleet"] = fleet
+
+    def round_(self, *a, **k):
+        out = real_round(self, *a, **k)
+        losses[-1].append(out[1].detach().cpu().numpy())
+        return out
+
+    legs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as d:
+        trace = os.path.join(d, "trace.json")
+        for leg, extra in (("off", []), ("on", P21_FLAGS + ["--trace_out",
+                                                             trace])):
+            losses.append([])
+            guards.RoundGuards.round = round_
+            if leg == "on":
+                obs.start, guards.RoundGuards.commit = start, commit
+                cc.reset_launch_counts()
+            r = {}
+            try:
+                with deterministic_algorithms():
+                    rc = cifar_app.main(_p21_app(dev) + extra, result=r)
+                torch.cuda.synchronize()
+            finally:
+                obs.start = real_start
+                guards.RoundGuards.commit = real_commit
+                guards.RoundGuards.round = real_round
+            check(rc == 0, f"(a) cifar_app {leg} exited {rc}")
+            if leg == "on":
+                launches = dict(cc.LAUNCHES)
+            legs[leg] = r
+        with open(trace) as f:
+            spans = [e for e in json.load(f)["traceEvents"]
+                     if e.get("ph") == "X" and e.get("cat") == "phase"]
+    on, off = legs["on"], legs["off"]
+    # the telemetry changes nothing the run computes
+    check(all(np.array_equal(a, b) for a, b in zip(losses[0], losses[1]))
+          and len(losses[1]) == R, "(a) losses differ with telemetry on")
+    for name in ("params", "stats", "history"):
+        check(all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(getattr(on["state"], name)),
+            tree_leaves(getattr(off["state"], name)))),
+            f"(a) final {name} differ with telemetry on")
+    check(on["smoothed_loss"] == off["smoothed_loss"],
+          "(a) smoothed loss differs with telemetry on")
+    check(launches["comm_encode"] == 3 * R
+          and launches["comm_apply_barriered"] == 3 * R,
+          f"(a) K9/K10 launches {launches}, expected {3 * R} each")
+    # the phase spans of every round, each count its histogram's count
+    text = on["metrics"].registry.render()
+    counts = {}
+    for e in spans:
+        counts[e["name"]] = counts.get(e["name"], 0) + 1
+    hist = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r'^sparknet_phase_latency_seconds_count\{phase="(\w+)"\} (\S+)$',
+        text, re.M)}
+    check(hist == {k: float(v) for k, v in counts.items()},
+          f"(a) span counts {counts} vs the phase histogram {hist}")
+    want = dict(assemble=R, h2d=R, execute=R, average=R, quantize=R,
+                dequantize=R, allreduce=3 * R)
+    check(counts == want, f"(a) phase spans {counts}, expected {want}")
+    check(sorted(e["args"]["round"] for e in spans
+                 if e["name"] == "assemble") == list(range(R)),
+          "(a) a round's assemble span is missing")
+    for k in ("sparknet_rounds_total", "sparknet_ship_dropped_total"):
+        print(f"[{card}] (a) {k} = {_sample(text, k)}")
+    check(_sample(text, "sparknet_rounds_total") == R, "(a) rounds_total")
+    check(_sample(text, "sparknet_ship_dropped_total") == 0,
+          "(a) the shipper dropped events")
+    check(_sample(text, "sparknet_device_bytes") > 0,
+          "(a) sparknet_device_bytes read 0 on the card")
+    # the endpoints, scraped while the run was alive
+    sc = live["scrapes"]
+    check(all(code == 200 for code, _, _ in sc.values()),
+          f"(a) a scrape failed: { {k: v[0] for k, v in sc.items()} }")
+    check(_sample(sc["/metrics"][1], "sparknet_rounds_total") == R,
+          "(a) /metrics rounds_total")
+    health = json.loads(sc["/healthz"][1])
+    check(health["status"] == "ok" and "slo" in health and "profile" in health,
+          f"(a) /healthz {health}")
+    check(json.loads(sc["/query?series=sparknet_rounds_total&range=300"][1])
+          ["points"], "(a) /query has no points")
+    check({"train-round-time", "train-straggler-free"} <= {
+        row["name"] for row in json.loads(sc["/slo"][1])["slos"]},
+        "(a) /slo rows")
+    check("round_rate_per_s" in json.loads(sc["/signals"][1]),
+          "(a) /signals")
+    fleet, final = live["fleet"], live["final_fleet"]
+    (host,) = fleet["hosts"].values()
+    check(fleet["fleet"]["hosts_live"] == 1 and host["round"] == R - 1,
+          f"(a) /fleet at the last round: {fleet['fleet']}, round "
+          f"{host['round']}")
+    (end,) = final["hosts"].values()
+    check(end["state"] == "finished" and end["lost_events"] == 0
+          and end["reported_dropped_total"] == 0,
+          f"(a) the collector's view at the end: {end['state']}, lost "
+          f"{end['lost_events']}, dropped {end['reported_dropped_total']}")
+    walls = {leg: np.array(legs[leg]["round_seconds"][1:]) * 1e3
+             for leg in legs}
+    print(f"[{card}] (a) cifar_app --compress int8 {' '.join(P21_FLAGS)} "
+          f"--trace_out: {R} rounds, losses and final params bit for bit the "
+          f"run without telemetry, K9/K10 {launches['comm_encode']}/"
+          f"{launches['comm_apply_barriered']}, phase spans {counts} = the "
+          f"histogram's counts; /fleet: 1 live host at round {R - 1}, "
+          f"{end['received_events']} events shipped, 0 lost, 0 dropped")
+    print(f"[{card}] (a) round wall (host clock, mean of rounds 1..{R - 1}; "
+          f"reported, not claimed): telemetry off "
+          f"{walls['off'].mean():.2f} ms, on {walls['on'].mean():.2f} ms; "
+          "scrape latency " + ", ".join(
+              f"{k.split('?')[0]} {v[2]:.2f} ms" for k, v in sc.items()))
+    return {k: launches[k] for k in ("comm_encode", "comm_apply_barriered")}
+
+
+def telemetry_launch(dev, card):
+    """(b) ``tools/launch.py --nprocs 2 --devices_per_host 2
+    --fleet_collector 127.0.0.1:0 cifar --compress int8``, two gloo
+    ranks on ``cuda:0`` (2 rounds): the launcher's summary reads 2
+    hosts, 0 late, 0 dead (each finished: a clean exit sends the final
+    push), the merged ``sparknet_rounds_total`` is the sum of the
+    hosts', and each rank shipped its epilogue kernels' chunk counts
+    with ``kernel_path{kernel="epilogue"}`` 1."""
+    from sparknet_tpu_torch.tools import launch
+
+    seen = {}
+    summary = launch.print_fleet_summary
+
+    def capture(collector):
+        seen["view"] = collector.fleet_view()
+        summary(collector)
+
+    device = "cuda:0" if dev.type == "cuda" else "cpu"
+    launch.print_fleet_summary = capture
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as d:
+            rc = launch.main([
+                "--nprocs", "2", "--devices_per_host", "2", "--backend",
+                "gloo", "--coordinator", f"file://{d}/store", "--timeout",
+                str(P21_LAUNCH_TIMEOUT_S), "--fleet_collector", "127.0.0.1:0",
+                "cifar", "--device", device, "--workers", str(CIFAR_W),
+                "--tau", str(CIFAR_TAU), "--batch", str(CIFAR_BATCH),
+                "--rounds", "2", "--test_every", "1000000", "--compress",
+                "int8"])
+    finally:
+        launch.print_fleet_summary = summary
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"(b) the launch exited {rc}")
+    view = seen["view"]
+    f = view["fleet"]
+    check(f["hosts_total"] == 2 and f["hosts_late"] == 0
+          and f["hosts_dead"] == 0 and f["hosts_finished"] == 2,
+          f"(b) fleet summary {f}")
+    per_host = [st["counters"].get("sparknet_rounds_total", 0.0)
+                for st in view["hosts"].values()]
+    merged = f["counters"].get("sparknet_rounds_total")
+    check(merged == sum(per_host) == 4.0,
+          f"(b) merged rounds_total {merged} vs the hosts' {per_host}")
+    for h, st in view["hosts"].items():
+        enc = st["counters"].get(
+            'sparknet_kernel_fused_chunks_total{stage="encode"}', 0)
+        app = st["counters"].get(
+            'sparknet_kernel_fused_chunks_total{stage="apply"}', 0)
+        path = st["gauges"].get('sparknet_kernel_path{kernel="epilogue"}')
+        check(enc > 0 and app > 0 and path == 1.0 and st["lost_events"] == 0,
+              f"(b) {h}: epilogue chunks {enc}/{app}, kernel_path {path}, "
+              f"lost {st['lost_events']}")
+    print(f"[{card}] (b) launch --nprocs 2 --devices_per_host 2 "
+          f"--fleet_collector: 2 hosts, 0 late, 0 dead, 2 finished; merged "
+          f"rounds_total {merged} = {per_host}; each rank's K9/K10 chunks "
+          "shipped; " + f"{wall:.2f} s wall (host clock)")
+
+
+def telemetry_serve(dev, card):
+    """(c) ``cli serve --generate`` at its default LM width, with ``--obs
+    --obs_port 0 --slo`` and without, P21_STREAMS streams each: the
+    telemetry run's ``/slo`` row ``serve-ttft-p99`` counts good + bad =
+    P21_STREAMS, ``/signals`` answers, and K1 and K2 launched.  Returns
+    the telemetry run's K1/K2 launches."""
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+    from sparknet_tpu_torch.tools import cli
+
+    rs = np.random.RandomState(21)
+    # prompts of 5 and 23 tokens: with MAX_NEW new ones, 3 and 4 KV
+    # blocks a stream, so all 16 reservations fit the CLI's 64 blocks
+    prompts = [rs.randint(0, 256, size=P21_PROMPT_LENS[i % 2]).tolist()
+               for i in range(P21_STREAMS)]
+    walls = {}
+    for leg, flags in (("off", []), ("on", ["--obs", "--obs_port", "0",
+                                            "--slo"])):
+        r = {}
+        check(cli.main(["serve", "--generate", "--port", "0", "--device",
+                        dev.type] + flags, result=r) == 0, "(c) cli serve")
+        server, run = r["server"], r["obs"]
+        server.start()
+        try:
+            if leg == "on":
+                run.sampler.sample_once()  # the baseline sample
+                ca.reset_launch_counts()
+            t_base = time.time()
+            host, port = server.address
+            out = [None] * len(prompts)
+            threads = [threading.Thread(target=_stream,
+                                        args=(host, port, p, out, i))
+                       for i, p in enumerate(prompts)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+            walls[leg] = time.perf_counter() - t0
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            check(all(o is not None and o["status"] == 200
+                      and o["events"][-1]["event"] == "done" for o in out),
+                  f"(c) {leg}: a stream failed")
+            if leg != "on":
+                continue
+            launches = dict(ca.LAUNCHES)
+            # the next sample lands in a later 1 s bucket than the baseline
+            time.sleep(max(0.0, 1.05 - (time.time() - t_base)))
+            run.sampler.sample_once()
+            h, p = run.address
+            code, body, slo_ms = _get(f"http://{h}:{p}/slo")
+            row = {x["name"]: x for x in json.loads(body)["slos"]}[
+                "serve-ttft-p99"]
+            ev = run.sampler.evaluator
+            slo = next(x for x in ev.slos if x.name == "serve-ttft-p99")
+            bad, total = slo.indicator(ev.tsdb, 300.0, time.time())
+            sig = _get(f"http://{h}:{p}/signals")
+            check(code == 200 and row["status"] != "no_data"
+                  and total == P21_STREAMS and sig[0] == 200,
+                  f"(c) /slo serve-ttft-p99 {row}, good + bad {total}, "
+                  f"/signals {sig[0]}")
+            depth = CLI_MODEL["depth"]
+            check(launches["flash_fwd"] >= P21_STREAMS * depth
+                  and launches["decode_attention"] > 0,
+                  f"(c) K1/K2 launches {launches}")
+            print(f"[{card}] (c) cli serve --generate --obs --slo: "
+                  f"{P21_STREAMS} streams, /slo serve-ttft-p99 {row['status']}"
+                  f" (good {total - bad:.0f} + bad {bad:.0f} = {total:.0f}), "
+                  f"/slo {slo_ms:.2f} ms, /signals {sig[2]:.2f} ms; K1 "
+                  f"{launches['flash_fwd']}, K2 {launches['decode_attention']}")
+        finally:
+            server.shutdown()
+            run.close()
+    print(f"[{card}] (c) {P21_STREAMS} streams' wall (host clock; reported, "
+          f"not claimed): telemetry off {walls['off']:.3f} s, on "
+          f"{walls['on']:.3f} s")
+    return {k: launches[k] for k in ("flash_fwd", "decode_attention")}
+
+
+def telemetry_end_to_end(dev, card):
+    """Phase 21: (b)'s two ranks run on a thread beside (a) and (c), so
+    the walls (a) and (c) print come from a card shared with them.
+    Returns (a)'s K9/K10 and (c)'s K1/K2 launches."""
+    t0 = time.perf_counter()
+    failed = []
+
+    def beside():
+        try:
+            telemetry_launch(dev, card)
+        except BaseException as e:  # re-raised below, on this thread
+            failed.append(e)
+
+    thread = threading.Thread(target=beside, name="phase21-launch")
+    thread.start()
+    try:
+        launches = telemetry_cifar(dev, card)
+        launches.update(telemetry_serve(dev, card))
+    finally:
+        thread.join()
+    if failed:
+        raise failed[0]
+    print(f"[{card}] phase 21 wall {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def cudnn_failure_report(exc: BaseException) -> None:
     """On a failed run: cuDNN's version and flags, the device's free
     memory, the tensors of the port's innermost frame on the failing
@@ -7572,6 +7954,8 @@ def run_all() -> int:
     for name, n in allreduce_end_to_end(dev, card).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in averaging_machinery_across_processes(dev, card).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in telemetry_end_to_end(dev, card).items():
         launches[name] = launches.get(name, 0) + n
     slow = sorted(((w, n, k) for k, (w, n) in WALLS.items() if w >= 1.0),
                   reverse=True)

@@ -77,7 +77,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) or "
                    "cpu (the kernels' plain versions)")
-    obs.add_cli_args(p)  # --health / --flight_recorder (+ refused ones)
+    obs.add_cli_args(p)  # --obs / --trace_out / --slo / --health / ...
     comm.add_cli_args(p)  # --compress / --overlap_avg
     hierarchy.add_cli_args(p)  # --slices / --cross_slice_every / --elastic
     journal.add_cli_args(p)  # --journal / --no_journal / ...
@@ -92,11 +92,7 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     to its losses on the host) and live mask (``masks``, None without
     ``--elastic``) — for in-process callers that check the run."""
     args = _parser().parse_args(argv)
-    from sparknet_tpu_torch import obs
-
-    obs.check_args(args, "cifar_app")
-
-    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch import models, obs
     from sparknet_tpu_torch.apps.guards import RoundGuards
     from sparknet_tpu_torch.apps.scores import primary_accuracy
     from sparknet_tpu_torch.data import (
@@ -168,7 +164,7 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         # this app keeps no snapshots: rollback degrades to halt, and the
         # journal's commits mark in-memory progress only
         guards = RoundGuards.from_args(
-            args, solver, n_workers, app="cifar_app", log=log,
+            args, solver, n_workers, log=log,
             metrics=metrics, journal_path="cifar_run.journal", mesh=mesh)
         trainer = guards.trainer
         state = trainer.init_state(seed=args.seed)
@@ -187,6 +183,9 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
                 log.log(f"test output {name} = {scores[name] / num_test_batches:.4f}")
             return primary_accuracy(scores) / num_test_batches
 
+        # the run's telemetry (--obs, --trace_out, --slo, --ship_to,
+        # --fleet_collector, --profile, --flight_recorder)
+        run_obs = obs.start_from_args(args, echo=log.log, tm=metrics)
         # --profile: each worker's window draw timed (the straggler
         # verdict's assemble attribution); a plain list otherwise
         feed = RoundFeed(
@@ -226,12 +225,13 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         finally:
             feed.stop()
             guards.close()
+            run_obs.close()
         if result is not None:
             result.update(state=state, trainer=trainer, accuracy=acc,
                           smoothed_loss=solver.smoothed_loss, metrics=metrics,
                           round_seconds=round_seconds, sentry=guards.sentry,
                           membership=guards.membership, masks=masks,
-                          profile=guards.profile_summary)
+                          profile=run_obs.profile_summary)
         return code
 
 

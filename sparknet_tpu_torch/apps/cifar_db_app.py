@@ -77,7 +77,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) or "
                    "cpu (the kernels' plain versions)")
-    obs.add_cli_args(p)  # --health / --flight_recorder (+ refused ones)
+    obs.add_cli_args(p)  # --obs / --trace_out / --slo / --health / ...
     comm.add_cli_args(p)  # --compress / --overlap_avg
     hierarchy.add_cli_args(p)  # --slices / --cross_slice_every / --elastic
     journal.add_cli_args(p)  # --journal / --no_journal / ...
@@ -91,11 +91,7 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     per-worker losses (``losses``: (rounds, W, tau)), the smoothed loss
     after each round (``smoothed``), the test scores and the accuracy."""
     args = _parser().parse_args(argv)
-    from sparknet_tpu_torch import obs
-
-    obs.check_args(args, "cifar_db")
-
-    from sparknet_tpu_torch import models, runtime
+    from sparknet_tpu_torch import models, obs, runtime
     from sparknet_tpu_torch.apps.guards import RoundGuards
     from sparknet_tpu_torch.obs.health import SentryHalt
     from sparknet_tpu_torch.data import CifarLoader, RoundFeed, stack_windows
@@ -121,7 +117,7 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
 
         mean = load_mean_image(mean_path)
         common = dict(batch_size=args.batch, shape=(3, 32, 32), mean=mean)
-        pipes, feed, guards = [], None, None
+        pipes, feed, guards, run_obs = [], None, None, obs.ObsRun()
         code, scores, acc, state, trainer = 0, {}, float("nan"), None, None
         round_losses, smoothed = [], []
         try:
@@ -137,12 +133,13 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             # no snapshots: rollback degrades to halt, commits are
             # progress marks
             guards = RoundGuards.from_args(
-                args, solver, args.workers, app="cifar_db", log=log,
+                args, solver, args.workers, log=log,
                 metrics=metrics, journal_path="cifar_db_run.journal",
                 wire_membership=False)
             trainer = guards.trainer
             state = trainer.init_state(seed=args.seed)
             log.log(f"nets ready ({args.workers} workers on {device})")
+            run_obs = obs.start_from_args(args, echo=log.log, tm=metrics)
 
             def assemble(r):
                 # the reader threads' batches + the worker stack, on the
@@ -192,10 +189,11 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
                 p.close()
             if guards is not None:
                 guards.close()
+            run_obs.close()
     if result is not None:
         result.update(
             state=state, trainer=trainer, metrics=metrics, scores=scores,
-            sentry=guards.sentry, profile=guards.profile_summary,
+            sentry=guards.sentry, profile=run_obs.profile_summary,
             accuracy=acc, smoothed=smoothed,
             losses=(np.stack(round_losses) if round_losses
                     else np.zeros((0, args.workers, args.tau), np.float32)),

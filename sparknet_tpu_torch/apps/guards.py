@@ -6,22 +6,21 @@ the trainer, whose audit it turns on), the two-tier spec (``--slices``,
 ``--cross_slice_every``), the elastic membership controller
 (``--elastic``, in the apps that wire it), the run journal
 (``--journal``; under ``--stale_bound`` each intent and commit carries
-the trainer's ``worker_rounds``), the flight recorder
-(``--flight_recorder``) and the round profiler (``--profile``,
-``--profile_out``: its summary prints and is written at ``close``).
-The loop calls ``begin`` (the write-ahead intent), ``boundary`` (membership
-views and readmission, the round's live mask), ``round`` (the trainer's
-round, under the sentry when there is one) and ``commit``, inside
-``signals()`` (the SIGTERM preemption hooks), and ``close`` at the end.
+the trainer's ``worker_rounds``).  The run's telemetry (the flight
+recorder, the round profiler, the sidecar, the trace, the SLO and fleet
+planes) is ``obs.start_from_args``'s, which the app starts after these
+guards and closes in its ``finally``.  The loop calls ``begin`` (the
+write-ahead intent), ``boundary`` (membership views and readmission,
+the round's live mask), ``round`` (the trainer's round, under the
+sentry when there is one) and ``commit``, inside ``signals()`` (the
+SIGTERM preemption hooks), and ``close`` at the end.
 
 Across processes (a trainer over a mesh whose dp axis spans them) every
 rank builds the same guards: the membership events are agreed over the
 dp group at each boundary before the view advances (``MembershipController.
 agree_events``), the journal has one writer, rank 0 (each JAX process
 opens the same path; the port keeps one ledger a run and rank 0
-decides a resume from it), and the profiler's per-worker table is
-gathered from every rank, rank 0 alone printing it and writing
-``--profile_out``.
+decides a resume from it).
 """
 
 from __future__ import annotations
@@ -36,22 +35,17 @@ class RoundGuards:
     off."""
 
     def __init__(self, trainer, sentry=None, spec=None, membership=None,
-                 auto_rejoin=None, journal=None, recorder=None, log=None,
-                 profiler=None, profile_out=None):
+                 auto_rejoin=None, journal=None, log=None):
         self.trainer = trainer
-        self.profiler = profiler
-        self.profile_out = profile_out
-        self.profile_summary = None
         self.sentry = sentry
         self.spec = spec
         self.membership = membership
         self.auto_rejoin = auto_rejoin
         self.journal = journal
-        self.recorder = recorder
         self._log = log
 
     @classmethod
-    def from_args(cls, args, solver, n_workers: int, *, app: str, log,
+    def from_args(cls, args, solver, n_workers: int, *, log,
                   metrics, journal_path: Optional[str], resuming: bool = False,
                   wire_membership: bool = True,
                   restore_prefix: Optional[str] = None,
@@ -59,15 +53,14 @@ class RoundGuards:
         """The sentry (restoring from ``restore_prefix`` on rollback; none
         degrades rollback to halt), the spec, the trainer, the membership
         controller (``wire_membership``; otherwise ``--elastic`` only
-        logs, as the JAX app does), the journal at ``journal_path`` and
-        the flight recorder.  ``mesh`` (``parallel/mesh.py``) places the
-        workers over processes (the trainer's ``mesh``)."""
+        logs, as the JAX app does) and the journal at ``journal_path``.
+        ``mesh`` (``parallel/mesh.py``) places the workers over processes
+        (the trainer's ``mesh``)."""
         from sparknet_tpu_torch import obs
         from sparknet_tpu_torch.io import journal as journal_mod
         from sparknet_tpu_torch.obs import health
         from sparknet_tpu_torch.parallel import hierarchy
 
-        obs.check_args(args, app)
         sentry = health.sentry_from_args(args, solver, echo=log.log,
                                          metrics=metrics)
         spec = hierarchy.spec_from_args(args, n_workers)
@@ -96,8 +89,7 @@ class RoundGuards:
                 log.log("--elastic: the membership controller is wired in "
                         "cifar_app and lm_app (this app applies the "
                         "--slices/--cross_slice_every schedule)")
-        # across processes rank 0 alone keeps the ledger and writes the
-        # profile summary
+        # across processes rank 0 alone keeps the ledger
         root = trainer.group is None or mesh.process_index == 0
         jr = (journal_mod.journal_from_args(args, journal_path,
                                             resuming=resuming, metrics=metrics)
@@ -107,11 +99,7 @@ class RoundGuards:
                     + ("" if trainer.group is None else
                        f"; rank 0 writes it for all {mesh.process_count}")
                     + ")")
-        recorder = obs.flight_from_args(args, metrics=metrics)
-        profiler = obs.profile_from_args(args, echo=log.log)
-        return cls(trainer, sentry, spec, membership, auto_rejoin, jr,
-                   recorder, log, profiler,
-                   getattr(args, "profile_out", None) if root else None)
+        return cls(trainer, sentry, spec, membership, auto_rejoin, jr, log)
 
     # ------------------------------------------------------------------
     def signals(self):
@@ -196,7 +184,6 @@ class RoundGuards:
 
     def close(self) -> None:
         from sparknet_tpu_torch import obs
-        from sparknet_tpu_torch.obs import flight
 
         if self.membership is not None:
             self.membership.detach()
@@ -205,10 +192,3 @@ class RoundGuards:
             obs.set_sentry(None)
         if self.journal is not None:
             self.journal.close()
-        if self.recorder is not None:
-            flight.uninstall(self.recorder)
-        if self.profiler is not None:
-            self.profile_summary = obs.close_profile(
-                self.profiler, self.profile_out,
-                echo=None if self._log is None else self._log.log)
-            self.profiler = None

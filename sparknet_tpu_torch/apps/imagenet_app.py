@@ -130,7 +130,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) or "
                    "cpu (the kernels' plain versions)")
-    obs.add_cli_args(p)  # --health / --flight_recorder (+ refused ones)
+    obs.add_cli_args(p)  # --obs / --trace_out / --slo / --health / ...
     comm.add_cli_args(p)  # --compress / --overlap_avg
     hierarchy.add_cli_args(p)  # --slices / --cross_slice_every / --elastic
     journal.add_cli_args(p)  # --journal / --no_journal / ...
@@ -142,10 +142,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     scaled-down synthetic defaults when ``--data`` is omitted, the
     reference constants otherwise."""
     args = _parser().parse_args(argv)
-    from sparknet_tpu_torch import obs
     from sparknet_tpu_torch.models import available_models
-
-    obs.check_args(args, "imagenet_app")
 
     if args.model not in available_models():
         raise SystemExit(
@@ -307,6 +304,7 @@ def train(args, train_parts: Sequence[Partition],
     the per-round losses (``losses``: (rounds, W, tau)), each round's
     wall seconds and the accuracies.  With ``mesh`` (across processes)
     the partitions are this process's block of the mesh's workers."""
+    from sparknet_tpu_torch import obs
     from sparknet_tpu_torch.apps.guards import RoundGuards
     from sparknet_tpu_torch.apps.scores import primary_accuracy
     from sparknet_tpu_torch.data import MinibatchSampler, RoundFeed, stack_windows
@@ -356,7 +354,7 @@ def train(args, train_parts: Sequence[Partition],
         metrics = TrainingMetrics()
     # no snapshots: rollback degrades to halt, commits are progress marks
     guards = RoundGuards.from_args(
-        args, solver, n_workers, app="imagenet_app", log=log, metrics=metrics,
+        args, solver, n_workers, log=log, metrics=metrics,
         journal_path="imagenet_run.journal", wire_membership=False,
         mesh=mesh)
     trainer = guards.trainer
@@ -395,6 +393,8 @@ def train(args, train_parts: Sequence[Partition],
         return stack_windows(profile.timed_worker_windows(
             r, [s.next_window for s in epoch_state["samplers"]]))
 
+    # the run's telemetry (--obs, --trace_out, --slo, --ship_to, ...)
+    run_obs = obs.start_from_args(args, echo=log.log, tm=metrics)
     feed = RoundFeed(draw_windows, device, pipelined=not args.serial_feed,
                      num_rounds=args.rounds)
     round_seconds, round_losses, accuracies = [], [], []
@@ -419,10 +419,11 @@ def train(args, train_parts: Sequence[Partition],
     finally:
         feed.stop()
         guards.close()
+        run_obs.close()
     if result is not None:
         result.update(state=state, trainer=trainer, metrics=metrics,
                       sentry=guards.sentry, losses=np.stack(round_losses),
-                      profile=guards.profile_summary,
+                      profile=run_obs.profile_summary,
                       round_seconds=round_seconds,
                       accuracies=accuracies, smoothed_loss=solver.smoothed_loss)
     return acc

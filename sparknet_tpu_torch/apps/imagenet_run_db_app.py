@@ -128,7 +128,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) or "
                    "cpu (the kernels' plain versions)")
-    obs.add_cli_args(p)  # --health / --flight_recorder (+ refused ones)
+    obs.add_cli_args(p)  # --obs / --trace_out / --slo / --health / ...
     comm.add_cli_args(p)  # --compress / --overlap_avg
     hierarchy.add_cli_args(p)  # --slices / --cross_slice_every / --elastic
     journal.add_cli_args(p)  # --journal / --no_journal / ...
@@ -272,8 +272,6 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     from sparknet_tpu_torch.io import checkpoint
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
 
-    obs.check_args(args, "imagenet_run_db")
-
     from sparknet_tpu_torch.utils.devices import (
         deterministic_algorithms,
         resolve_device,
@@ -288,6 +286,7 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
 
 
 def _train(args, device, metrics, result) -> int:
+    from sparknet_tpu_torch import obs
     from sparknet_tpu_torch.apps.guards import RoundGuards
     from sparknet_tpu_torch.apps.scores import primary_accuracy
     from sparknet_tpu_torch.data import RoundFeed, shuffle, stack_windows
@@ -320,7 +319,7 @@ def _train(args, device, metrics, result) -> int:
         log.log(f"testPartitionSizes = {info['test_batches']}")
         solver = build_solver(args.model, info, crop, device)
         guards = RoundGuards.from_args(
-            args, solver, n_workers, app="imagenet_run_db", log=log,
+            args, solver, n_workers, log=log,
             metrics=metrics, journal_path=default_journal_path(prefix),
             resuming=args.resume, wire_membership=False, restore_prefix=prefix)
         trainer, jr = guards.trainer, guards.journal
@@ -373,7 +372,7 @@ def _train(args, device, metrics, result) -> int:
         pipes, test_pipes = open_pipes(
             args.db_dir, info, crop, not args.no_mirror, args.seed,
             start=start_round * args.tau * train_batch, path_of=path_of)
-        feed = None
+        feed, run_obs = None, obs.ObsRun()
         round_seconds, round_losses, smoothed = [], [], []
         accuracies, snapshots = [], []
         try:
@@ -424,6 +423,8 @@ def _train(args, device, metrics, result) -> int:
                     })
                 return stack_windows(windows)
 
+            # the run's telemetry (--obs, --trace_out, --slo, ...)
+            run_obs = obs.start_from_args(args, echo=log.log, tm=metrics)
             feed = RoundFeed(assemble, device, pipelined=not args.serial_feed,
                              num_rounds=args.rounds, start_round=start_round)
             for r in range(start_round, start_round + args.rounds):
@@ -469,10 +470,11 @@ def _train(args, device, metrics, result) -> int:
             for p in pipes + test_pipes:
                 p.close()
             guards.close()
+            run_obs.close()
     if result is not None:
         result.update(
             state=state, trainer=trainer, metrics=metrics,
-            profile=guards.profile_summary,
+            profile=run_obs.profile_summary,
             sentry=guards.sentry, start_round=start_round, resumed_from=used,
             replayed_round=replayed, smoothed=smoothed,
             losses=(np.stack(round_losses) if round_losses

@@ -180,7 +180,7 @@ def _parser() -> argparse.ArgumentParser:
                    "restore the full job state and continue bit for bit "
                    "(windows never skip or replay)")
     add_lm_model_args(p)
-    obs.add_cli_args(p)  # --health / --flight_recorder (+ refused ones)
+    obs.add_cli_args(p)  # --obs / --trace_out / --slo / --health / ...
     comm.add_cli_args(p)  # --compress / --overlap_avg
     hierarchy.add_cli_args(p)  # --slices / --cross_slice_every / --elastic
     journal.add_cli_args(p)  # --journal / --no_journal / ...
@@ -326,7 +326,6 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
                 "gathering)")
     from sparknet_tpu_torch import obs
 
-    obs.check_args(args, "lm_app")
     if args.resume and not args.snapshot_prefix:
         raise SystemExit("lm_app: --resume needs --snapshot_prefix")
     if args.overlap_avg and args.snapshot_prefix and args.snapshot_every:
@@ -438,7 +437,7 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         log.log(f"attention path: {path}")
         metrics.kernel_path.labels("attention").set(1.0 if lm.on_kernel else 0.0)
         guards = RoundGuards.from_args(
-            args, solver, n_workers, app="lm_app", log=log, metrics=metrics,
+            args, solver, n_workers, log=log, metrics=metrics,
             journal_path=journal_path, resuming=args.resume,
             restore_prefix=prefix, mesh=mesh)
         trainer, jr = guards.trainer, guards.journal
@@ -509,6 +508,8 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             return state_path
 
         n_rounds = max(0, args.rounds - start_round)
+        # the run's telemetry (--obs, --trace_out, --slo, --ship_to, ...)
+        run_obs = obs.start_from_args(args, echo=log.log, tm=metrics)
         feed = RoundFeed(assemble, device, pipelined=not args.serial_feed,
                          num_rounds=n_rounds, start_round=start_round)
         round_seconds, round_losses, smoothed, snapshots = [], [], [], []
@@ -559,12 +560,14 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
         finally:
             feed.stop()
             guards.close()
+            run_obs.close()
         if result is not None:
             W = n_workers
             result.update(
                 lm=lm, state=state, trainer=trainer, metrics=metrics,
                 sentry=guards.sentry, membership=guards.membership,
-                profile=guards.profile_summary, smoothed_loss=loss, start_round=start_round,
+                profile=run_obs.profile_summary, smoothed_loss=loss,
+                start_round=start_round,
                 losses=(np.stack(round_losses) if round_losses
                         else np.zeros((0, W, args.tau), np.float32)),
                 smoothed=smoothed, round_seconds=round_seconds,

@@ -1,12 +1,15 @@
 """Counters, gauges and histograms, rendered as Prometheus text.
 
-The port's own copy of ``sparknet_tpu/obs/metrics.py``, cut to what
-the serving slice registers and renders, plus ``TrainingMetrics``: the
-training series of the averaging trainer.  Stdlib only: each metric is
-a small lock-guarded accumulator, and ``MetricsRegistry.render()``
-emits the Prometheus text exposition format (``# HELP``/``# TYPE`` +
-samples).  Histograms keep cumulative buckets (the ``le`` convention)
-plus a bounded reservoir of recent observations for p50/p95/p99.
+The port's own copy of ``sparknet_tpu/obs/metrics.py``, plus
+``TrainingMetrics``: the training series of a run.  Stdlib only: each
+metric is a small lock-guarded accumulator, and
+``MetricsRegistry.render()`` emits the Prometheus text exposition format
+(``# HELP``/``# TYPE`` + samples); ``snapshot()`` is the shipper's read
+side (``obs/ship.py``), ``counter_deltas`` the increment between two
+reads.  Histograms keep cumulative buckets (the ``le`` convention) plus
+a bounded reservoir of recent observations for p50/p95/p99, and a
+timestamped ring of the same bound for the sliding-window quantile the
+SLO signals read (``window_quantile``).
 
 Labels: ``registry.counter(name, labels=("cause",))`` returns a
 family; ``family.labels("kv_reserve")`` returns the child for that
@@ -16,6 +19,8 @@ label value (created once, cached).
 from __future__ import annotations
 
 import threading
+import time
+from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 # default latency buckets (seconds): 1 ms .. 30 s, roughly log-spaced
@@ -121,6 +126,8 @@ class Histogram:
         self._ring: List[float] = []
         self._ring_cap = int(reservoir)
         self._ring_pos = 0
+        # (t_mono, v) pairs for the sliding time window, same bound
+        self._timed: deque = deque(maxlen=self._ring_cap)
 
     def observe(self, v: float) -> None:
         v = float(v)
@@ -138,6 +145,7 @@ class Histogram:
             else:
                 self._ring[self._ring_pos] = v
                 self._ring_pos = (self._ring_pos + 1) % self._ring_cap
+            self._timed.append((time.monotonic(), v))
 
     @property
     def count(self) -> int:
@@ -149,6 +157,10 @@ class Histogram:
         with self._lock:
             return self._sum
 
+    def mean(self) -> float:
+        with self._lock:
+            return self._sum / self._count if self._count else 0.0
+
     def quantile(self, q: float) -> float:
         """q in [0, 1], nearest rank over the reservoir (0.0 empty)."""
         with self._lock:
@@ -156,6 +168,31 @@ class Histogram:
         if not window:
             return 0.0
         return window[min(len(window) - 1, max(0, int(q * len(window))))]
+
+    def _drop_before(self, window_s: float, now: Optional[float]) -> None:
+        now = time.monotonic() if now is None else now
+        cutoff = now - float(window_s)
+        while self._timed and self._timed[0][0] < cutoff:
+            self._timed.popleft()
+
+    def window_quantile(self, q: float, window_s: float = 60.0,
+                        now: Optional[float] = None) -> float:
+        """Nearest-rank quantile over the observations of the last
+        ``window_s`` seconds only (0.0 when none); ``now`` overrides the
+        monotonic clock."""
+        with self._lock:
+            self._drop_before(window_s, now)
+            vals = sorted(v for _t, v in self._timed)
+        if not vals:
+            return 0.0
+        return vals[min(len(vals) - 1, max(0, int(q * len(vals))))]
+
+    def window_count(self, window_s: float = 60.0,
+                     now: Optional[float] = None) -> int:
+        """Observations inside the sliding time window."""
+        with self._lock:
+            self._drop_before(window_s, now)
+            return len(self._timed)
 
     def samples(self) -> List[Tuple[str, float]]:
         with self._lock:
@@ -265,6 +302,21 @@ class MetricsRegistry:
         with self._lock:
             return self._metrics.get(name)
 
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        """One read of every sample, keyed by the full sample name
+        (labels inline, ``m{kind="x"}``): ``{"counters": {...},
+        "gauges": {...}}``.  Histogram samples are cumulative and fold
+        under ``counters``."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        counters: Dict[str, float] = {}
+        gauges: Dict[str, float] = {}
+        for m in metrics:
+            target = counters if m.TYPE in ("counter", "histogram") else gauges
+            for name, value in m.samples():
+                target[name] = float(value)
+        return {"counters": counters, "gauges": gauges}
+
     def render(self) -> str:
         """Prometheus text exposition format, version 0.0.4."""
         with self._lock:
@@ -279,23 +331,113 @@ class MetricsRegistry:
         return "\n".join(lines) + "\n"
 
 
+def counter_deltas(prev: Dict[str, float], cur: Dict[str, float]
+                   ) -> Tuple[Dict[str, float], List[str]]:
+    """Counter increments between two ``snapshot()["counters"]`` reads,
+    with Prometheus reset semantics: a sample whose value dropped
+    restarted from zero, so its new value is the increment.  Returns
+    ``(deltas, reset_sample_names)``; zero deltas are left out, and a
+    sample missing from ``cur`` is ignored."""
+    deltas: Dict[str, float] = {}
+    resets: List[str] = []
+    for name, value in cur.items():
+        before = prev.get(name, 0.0)
+        if value < before:
+            resets.append(name)
+            d = value
+        else:
+            d = value - before
+        if d:
+            deltas[name] = d
+    return deltas, resets
+
+
+def _device_bytes() -> float:
+    """Bytes the caching allocator holds in tensors on the current card
+    (``torch.cuda.memory_allocated``); 0 without an initialized card."""
+    try:
+        import torch
+
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            return float(torch.cuda.memory_allocated())
+    except Exception:  # noqa: BLE001 — a scrape must not die on it
+        pass
+    return 0.0
+
+
+def _host_rss_bytes() -> float:
+    try:
+        import resource
+
+        return float(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)
+    except Exception:  # noqa: BLE001
+        return 0.0
+
+
 class TrainingMetrics:
     """The training series of the averaging trainer, its comm plane and
     the checkpoint layer (``io/checkpoint.py``) and the data plane, under
     the JAX package's names (``sparknet_tpu/obs/__init__.py``),
     registered on ``registry`` (a fresh one by default).  The trainer
     and the comm plane record into the object they are handed; the data
-    plane into the one ``obs.set_training_metrics`` installed."""
+    plane into the one ``obs.set_training_metrics`` installed.  The
+    JAX package's ``sparknet_jit_cache_size`` has no counterpart: the
+    port compiles no programs."""
 
     def __init__(self, registry: Optional[MetricsRegistry] = None):
         self.registry = registry if registry is not None else MetricsRegistry()
         r = self.registry
+        t0 = time.monotonic()
+        self.uptime = r.gauge(
+            "sparknet_uptime_seconds", "seconds since telemetry start",
+            fn=lambda: time.monotonic() - t0,
+        )
         self.rounds = r.counter(
             "sparknet_rounds_total",
             "training rounds completed (rate() gives rounds/s)",
         )
         self.iters = r.counter(
             "sparknet_iters_total", "solver iterations completed"
+        )
+        # fed by every cat="phase" span while telemetry is on
+        # (obs.start sets the trace layer's phase observer)
+        self.phase_latency = r.histogram(
+            "sparknet_phase_latency_seconds",
+            "wall seconds per round phase (assemble/h2d/execute/average/"
+            "quantize/allreduce/dequantize/snapshot/restore/verify — "
+            "the canonical phase set in analysis/registry.py)",
+            labels=("phase",),
+        )
+        self.device_bytes = r.gauge(
+            "sparknet_device_bytes",
+            "bytes the CUDA caching allocator holds in tensors on the "
+            "current card (torch.cuda.memory_allocated; 0 on the CPU)",
+            fn=_device_bytes,
+        )
+        self.host_rss = r.gauge(
+            "sparknet_host_rss_bytes", "peak resident set size",
+            fn=_host_rss_bytes,
+        )
+        # fleet-shipper series (obs/ship.py, --ship_to): zero until a
+        # run ships to a fleet collector
+        self.ship_events = r.counter(
+            "sparknet_ship_events_total",
+            "run-log events enqueued for shipping to the fleet "
+            "collector (includes later-dropped ones)",
+        )
+        self.ship_dropped = r.counter(
+            "sparknet_ship_dropped_total",
+            "buffered events dropped (oldest first) at the shipper's "
+            "bound while the collector was unreachable",
+        )
+        self.ship_pushes = r.counter(
+            "sparknet_ship_pushes_total",
+            "successful pushes to the fleet collector",
+        )
+        self.ship_push_failures = r.counter(
+            "sparknet_ship_push_failures_total",
+            "pushes that exhausted their retry budget (collector "
+            "unreachable; events stayed buffered)",
         )
         self.collective_bytes = r.counter(
             "sparknet_collective_bytes_total",
@@ -321,7 +463,8 @@ class TrainingMetrics:
             "sparknet_kernel_path",
             "1 when the op runs the port's hand-written kernel on this "
             "run, 0 when it runs a plain PyTorch reference, by kernel "
-            "family (kernel=attention: the LM's flash kernels)",
+            "family (kernel=attention: the LM's flash kernels; "
+            "kernel=epilogue: the comm plane's K9-K11)",
             labels=("kernel",),
         )
         self.lm_tokens = r.counter(

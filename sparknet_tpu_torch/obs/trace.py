@@ -1,13 +1,15 @@
 """Spans: Chrome trace-event JSON + a structured JSONL log.
 
-The port's own copy of ``sparknet_tpu/obs/trace.py``, cut to the sinks
-the port has: an installed ``Tracer``, a span observer (the round
-profiler, the request profiler, or both chained) and the flight
-recorder's ring (``obs/flight.py``).  A ``Tracer`` collects complete
-events (``ph: "X"``)
-from ``span()`` and instant events (``ph: "i"``) from ``instant()``,
-each stamped with the OS thread id, so the batcher worker and the HTTP
-handler threads show as separate tracks in Perfetto.
+The port's own copy of ``sparknet_tpu/obs/trace.py``.  Its sinks: an
+installed ``Tracer``, the phase observer (``cat="phase"`` spans into the
+run's ``sparknet_phase_latency_seconds``), a span observer (the round
+profiler, the request profiler, or both chained), the flight recorder's
+ring (``obs/flight.py``) and the fleet shipper's buffer (``obs/ship.py``,
+records stamped with wall time so the collector can clock-align hosts).
+A ``Tracer`` collects complete events (``ph: "X"``) from ``span()`` and
+instant events (``ph: "i"``) from ``instant()``, each stamped with the OS
+thread id, so the batcher worker and the HTTP handler threads show as
+separate tracks in Perfetto.
 
 Cost discipline: with no sink installed, ``span()`` returns one shared
 no-op object (two global reads); with tracing on, a span is two
@@ -148,6 +150,12 @@ _span_observer = None
 # the flight recorder's ring (obs/flight.py): every span and instant
 # lands there too while one is installed, tracer or not
 _flight = None
+# observes (name, dur_s) of cat="phase" spans into the run's phase
+# histogram while telemetry is on (obs.start; None = off)
+_phase_observer = None
+# the fleet shipper's buffer (obs/ship.py; None = off): spans and
+# instants feed it like the flight ring, stamped with wall time
+_ship = None
 
 
 def install_tracer(tracer: Tracer) -> Tracer:
@@ -160,6 +168,22 @@ def uninstall_tracer() -> Optional[Tracer]:
     global _tracer
     t, _tracer = _tracer, None
     return t
+
+
+def get_tracer() -> Optional[Tracer]:
+    return _tracer
+
+
+def set_phase_observer(fn) -> None:
+    global _phase_observer
+    _phase_observer = fn
+
+
+def set_ship(shipper) -> None:
+    """Point span()/instant() at a fleet shipper's buffer (None
+    detaches; the ObsRun owns the lifecycle)."""
+    global _ship
+    _ship = shipper
 
 
 def set_flight(recorder) -> None:
@@ -203,23 +227,40 @@ class _Span:
 
     def __exit__(self, *exc):
         t1 = time.perf_counter()
+        dur_s = t1 - self._t0
         t = _tracer
         if t is not None:
             t.complete(
                 self.name, self.cat,
-                (self._t0 - t._t0) * 1e6, (t1 - self._t0) * 1e6, self.args,
+                (self._t0 - t._t0) * 1e6, dur_s * 1e6, self.args,
             )
         f = _flight
         if f is not None:
             rec = {
                 "kind": "span", "name": self.name, "cat": self.cat,
                 "t_s": round(time.time(), 3),
-                "dur_ms": round((t1 - self._t0) * 1e3, 4),
+                "dur_ms": round(dur_s * 1e3, 4),
                 "thread": threading.current_thread().name,
             }
             if self.args:
                 rec["args"] = self.args
             f.record_event(rec)
+        sh = _ship
+        if sh is not None:
+            # the full-resolution wall START time: the collector
+            # subtracts the host's clock offset from it when merging
+            rec = {
+                "kind": "span", "name": self.name, "cat": self.cat,
+                "t_s": time.time() - dur_s,
+                "dur_ms": round(dur_s * 1e3, 4),
+                "thread": threading.current_thread().name,
+            }
+            if self.args:
+                rec["args"] = self.args
+            sh.record_event(rec)
+        po = _phase_observer
+        if po is not None and self.cat == "phase":
+            po(self.name, dur_s)
         so = _span_observer
         if so is not None:
             so(
@@ -230,9 +271,11 @@ class _Span:
 
 
 def span(name: str, cat: str = "phase", **args):
-    """Context manager timing one piece of work; near-free when no
-    tracer, no observer and no flight recorder is installed."""
-    if _tracer is None and _span_observer is None and _flight is None:
+    """Context manager timing one piece of work (``cat="phase"`` spans
+    also feed the phase histogram while telemetry is on); near-free when
+    no sink is installed."""
+    if (_tracer is None and _span_observer is None and _flight is None
+            and _phase_observer is None and _ship is None):
         return _NULL_SPAN
     return _Span(name, cat, args or None)
 
@@ -253,3 +296,21 @@ def instant(name: str, cat: str = "event", **args) -> None:
         if args:
             rec["args"] = args
         f.record_event(rec)
+    sh = _ship
+    if sh is not None:
+        rec = {
+            "kind": "instant", "name": name, "cat": cat,
+            "t_s": time.time(),
+            "thread": threading.current_thread().name,
+        }
+        if args:
+            rec["args"] = args
+        sh.record_event(rec)
+
+
+def jsonl_path_for(trace_out: str) -> str:
+    """``run.trace.json`` -> ``run.trace.jsonl`` (the structured run
+    log that rides along with every Chrome trace)."""
+    if trace_out.endswith(".json"):
+        return trace_out[: -len(".json")] + ".jsonl"
+    return trace_out + ".jsonl"

@@ -218,6 +218,11 @@ class CommPlane:
         slices.append(slice(start, len(leaves)))
         self._chunk_slices = [s for s in slices if s.stop > s.start]
         self._payload_bytes_per_round = _RING_FACTOR * total
+        if self.metrics is not None:
+            # the epilogue runs K9-K11 on the card, their plain versions
+            # on the CPU (ops/cuda_comm.py)
+            self.metrics.kernel_path.labels("epilogue").set(
+                1.0 if leaves[0].is_cuda else 0.0)
         self._resid = [torch.zeros_like(x) for x in leaves]
         if self._resid_restore is not None:
             restored, self._resid_restore = self._resid_restore, None

@@ -34,17 +34,18 @@ cifar10_quick run (W=4 workers stacked on one device, two-slice
 - **slow slice**: a synchronous control against ``stale_bound=4``
   (``parallel/stale.py``) under a slice that runs slow for a few
   rounds: the stale leg pays no forced wait and names a slow member as
-  the laggiest worker.
+  the laggiest worker;
+- **collector outage**: the fleet collector (``obs/fleet.py``) goes down
+  for a span of rounds; this process's shipper (``obs/ship.py``) keeps
+  training unblocked, buffers what it cannot push and replays it when
+  the collector returns (0 events lost, 0 dropped).
 
 ``run_kill_sweep`` is the real-SIGKILL sweep over every kill point of
 ``python -m sparknet_tpu_torch.runtime.recover``, with its
 ``--no_journal`` and journal-off controls and the stale leg.
 
 ``run_chaos`` and ``run_kill_sweep`` take an explicit ``device``
-(``"cuda"`` on the card, ``"cpu"`` in the tests).  The JAX plan's
-``collector_outage`` fault needs the fleet collector and shipper
-(``obs/fleet.py``, ``obs/ship.py``), which are not ported: a plan that
-sets ``collector_outage_round`` raises before anything runs.
+(``"cuda"`` on the card, ``"cpu"`` in the tests).
 """
 
 from __future__ import annotations
@@ -63,11 +64,6 @@ import torch
 from sparknet_tpu_torch import obs as _obs
 from sparknet_tpu_torch.obs import profile as _profile
 from sparknet_tpu_torch.utils import retry as _retry
-
-_COLLECTOR_REFUSAL = ("the collector_outage fault is not yet ported "
-                      "(obs/fleet.py, obs/ship.py): pass "
-                      "dataclasses.replace(plan, collector_outage_round=None)")
-
 
 @dataclasses.dataclass(frozen=True)
 class FaultPlan:
@@ -104,7 +100,8 @@ class FaultPlan:
     cache_corrupt_round: Optional[int] = 2
     # wipe the cache before this round's read
     cache_cold_round: Optional[int] = 5
-    # the fleet collector goes down at the end of this round (not ported)
+    # the fleet collector goes down at the end of this round and comes
+    # back collector_outage_rounds rounds later
     collector_outage_round: Optional[int] = 1
     collector_outage_rounds: int = 2
     # a serving replica is killed mid-traffic at the end of this round
@@ -224,6 +221,107 @@ def corrupt_file(path: str, seed: int = 0) -> None:
         orig = f.read(16)
         f.seek(off)
         f.write(bytes((b ^ 0xA5) for b in orig) or bytes([rng.randrange(256)]))
+
+
+# the longest a collector outage waits for its first failed push
+OUTAGE_BITE_TIMEOUT_S = 10.0
+
+
+class _CollectorOutage:
+    """The collector_outage fault: a live fleet collector and this
+    process's shipper, with the collector taken down for a planned span
+    of rounds.  ``on_round_end`` pauses and resumes it by absolute round
+    (once each: a replayed round cannot trip it again); ``finalize``
+    stops the shipper (its final flush) and judges survival: the
+    collector missed pushes while down, yet ended with every enqueued
+    event delivered (0 lost, 0 dropped) and some replayed after it came
+    back.  The pause holds until a push has failed (at most
+    ``OUTAGE_BITE_TIMEOUT_S``).  ``close`` puts back the ship hook a surrounding ``--ship_to``
+    run had installed."""
+
+    def __init__(self, plan: FaultPlan, counters: Dict, note):
+        from sparknet_tpu_torch.obs import trace as _trace
+        from sparknet_tpu_torch.obs.fleet import FleetCollector
+        from sparknet_tpu_torch.obs.ship import Shipper
+
+        self.plan = plan
+        self.counters = counters
+        self.note = note
+        self.collector = FleetCollector(port=0).start()
+        self.shipper = Shipper(self.collector.url, host="chaos-host",
+                               interval_s=0.1).start()
+        self._prev_ship = _trace._ship
+        _obs.set_ship(self.shipper)
+        self._down_at: Optional[int] = plan.collector_outage_round
+        self._up_at = plan.collector_outage_round + plan.collector_outage_rounds
+        self._received_at_pause: Optional[int] = None
+        self.summary: Optional[Dict] = None
+
+    def _host_state(self) -> Dict:
+        return self.collector.fleet_view()["hosts"].get("chaos-host", {})
+
+    def on_round_end(self, r: int) -> None:
+        if self._down_at is not None and r == self._down_at:
+            self._down_at = None
+            self._received_at_pause = self._host_state().get(
+                "received_events", 0)
+            failures = self.shipper.push_failures_total
+            self.collector.pause()
+            self.counters["collector_outage_injected"] = 1
+            _obs.fault("collector_outage", round=r,
+                       down_rounds=self.plan.collector_outage_rounds)
+            self.note("round %d: fleet collector DOWN for %d round(s) — "
+                      "shipper must buffer and replay"
+                      % (r, self.plan.collector_outage_rounds))
+            # the outage lasts until a push has failed (bounded): rounds
+            # on a card can outrun the shipper's flush interval, and an
+            # outage no push met would test nothing
+            deadline = time.monotonic() + OUTAGE_BITE_TIMEOUT_S
+            while (self.shipper.push_failures_total == failures
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+        elif self._up_at is not None and r >= self._up_at:
+            self._up_at = None
+            self.collector.resume()
+            self.note(f"round {r}: fleet collector back up")
+
+    def finalize(self) -> Dict:
+        if self._up_at is not None:  # the run ended while it was down
+            self._up_at = None
+            self.collector.resume()
+        failures = self.shipper.push_failures_total
+        self.shipper.stop()  # the final flush ships the buffered tail
+        st = self._host_state()
+        received = st.get("received_events", 0)
+        replayed = received - (self._received_at_pause or 0)
+        lost = st.get("lost_events", 0)
+        dropped = st.get("reported_dropped_total", 0)
+        if (self.counters.get("collector_outage_injected")
+                and failures > 0  # the outage really made pushes fail
+                and lost == 0 and dropped == 0 and replayed > 0):
+            self.counters["collector_outage_survived"] = 1
+            self.note("collector outage survived: %d push failure(s) while "
+                      "down, %d event(s) replayed after resume, 0 lost / 0 "
+                      "dropped" % (failures, replayed))
+            _obs.instant("recovered", kind="collector_outage",
+                         replayed=replayed)
+        self.summary = {
+            "push_failures": failures,
+            "events_replayed_after_resume": replayed,
+            "events_received": received,
+            "events_lost": lost,
+            "events_dropped": dropped,
+        }
+        return self.summary
+
+    def close(self) -> None:
+        from sparknet_tpu_torch.obs import trace as _trace
+
+        if _trace._ship is self.shipper:
+            _obs.set_ship(self._prev_ship)
+        if self.shipper.alive:
+            self.shipper.stop()
+        self.collector.close()
 
 
 _SERVE_TOY_DEPLOY = """
@@ -1039,6 +1137,8 @@ _FAULT_KINDS = {
     "straggler_injection": ("straggler_injected", "straggler_survived"),
     "cache_corruption": ("cache_corrupt_injected", "cache_corrupt_survived"),
     "cache_cold": ("cache_cold_injected", "cache_cold_survived"),
+    "collector_outage": ("collector_outage_injected",
+                         "collector_outage_survived"),
     "replica_death": ("replica_death_injected", "replica_death_survived"),
     "decode_replica_kill": ("decode_kill_injected", "decode_kill_survived"),
     "published_snapshot_corrupt": ("publish_corrupt_injected",
@@ -1072,8 +1172,6 @@ def run_chaos(plan: Optional[FaultPlan] = None, workdir: Optional[str] = None,
     from sparknet_tpu_torch.utils.signals import SignalHandler, SolverAction
 
     plan = plan or FaultPlan.default()
-    if plan.collector_outage_round is not None:
-        raise NotImplementedError(_COLLECTOR_REFUSAL)
     device = resolve_device(device)
     workdir = workdir or tempfile.mkdtemp(prefix="chaos_")
     os.makedirs(workdir, exist_ok=True)
@@ -1249,6 +1347,8 @@ def run_chaos(plan: Optional[FaultPlan] = None, workdir: Optional[str] = None,
                      % (r, w["worst_worker"], w["skew"]))
         if serve_faults is not None:
             serve_faults.on_round_end(r, solver, consensus)
+        if outage is not None:
+            outage.on_round_end(r)
         if (plan.driver_kill_round is not None and r == plan.driver_kill_round
                 and not counters.get("driver_kill_injected")):
             counters["driver_kill_summary"] = _driver_kill_scenario(
@@ -1286,6 +1386,11 @@ def run_chaos(plan: Optional[FaultPlan] = None, workdir: Optional[str] = None,
             or plan.decode_replica_kill_round is not None
             or plan.publish_corrupt_round is not None):
         serve_faults = _ServeFaults(plan, counters, note, workdir, device)
+    # collector_outage: the fleet collector and shipper live for the
+    # faulted run only (the baseline ran unshipped)
+    outage = None
+    if plan.collector_outage_round is not None:
+        outage = _CollectorOutage(plan, counters, note)
     t_preempt = None
     if membership_ctl is not None:
         membership_ctl.sigterm_marks(plan.slice_preempt_slice)
@@ -1357,6 +1462,11 @@ def run_chaos(plan: Optional[FaultPlan] = None, workdir: Optional[str] = None,
             _profile.uninstall(profiler)
         if serve_faults is not None:
             serve_faults.close()
+        if outage is not None:
+            try:
+                outage.finalize()
+            finally:
+                outage.close()
 
     final_loss = final_round_loss(losses)
     if counters.get("dead_worker_injected") and np.isfinite(final_loss):
@@ -1406,6 +1516,8 @@ def run_chaos(plan: Optional[FaultPlan] = None, workdir: Optional[str] = None,
         "straggler_detected_round": counters.get("straggler_detected_round"),
         "cache_corrupt_round": plan.cache_corrupt_round,
         "cache_cold_round": plan.cache_cold_round,
+        "collector_outage_round": plan.collector_outage_round,
+        "collector_outage": outage.summary if outage is not None else None,
         "replica_death_round": plan.replica_death_round,
         "decode_replica_kill_round": plan.decode_replica_kill_round,
         "decode_tokens": serve_faults.decode_tokens if serve_faults else None,

@@ -62,6 +62,7 @@ from sparknet_tpu_torch.config.schema import (
     SolverParameter,
     solver_method,
 )
+from sparknet_tpu_torch import obs as _obs
 from sparknet_tpu_torch.net import Params, Stats, TorchNet
 from sparknet_tpu_torch.obs import health as _health
 from sparknet_tpu_torch.obs import profile as _profile
@@ -425,7 +426,12 @@ class Solver:
         with span("execute"):
             out = self._step_tau(state, self._to_device(batches), rng)
         self.note_losses(out[1])
+        tm = _obs.training_metrics()
+        if tm is not None:  # a window is a round of the installed metrics
+            tm.rounds.inc()
+            tm.iters.inc(int(out[1].shape[0]))
         _profile.observe_round_if_active(out[1])  # --profile round mark
+        _obs.report_healthy()
         return out
 
     def step_repeat(self, state: TrainState, batch, tau: int,

@@ -79,8 +79,11 @@ def cmd_serve(args) -> int:
     no restart.  ``--generate`` serves a TransformerLM instead: greedy
     decode over a paged KV arena with continuous batching, tokens
     streamed on chunked-NDJSON ``POST /generate``; the fleet and delivery
-    flags compose with it.  On the card unless ``--device=cpu``."""
-    from sparknet_tpu_torch import config, models
+    flags compose with it.  The telemetry flags (``--obs``, ``--slo``,
+    ``--trace_out``, ``--ship_to``, ...) start on the server's registry,
+    so the sidecar, the SLO evaluator and the shipper read the engine's
+    and the fleet's series.  On the card unless ``--device=cpu``."""
+    from sparknet_tpu_torch import config, models, obs
     from sparknet_tpu_torch.serve import (
         DeliveryController,
         GenerationEngine,
@@ -212,12 +215,17 @@ def cmd_serve(args) -> int:
             max_wait_ms=args.max_wait_ms,
             verbose=args.verbose,
         )
+    run_obs = obs.start_from_args(args, registry=server.metrics)
     if args.result is not None:
         # in-process callers (tests, chip_smoke) drive the server
-        # themselves: start() / shutdown() instead of the signal loop
-        args.result.update(server=server, delivery=delivery)
+        # themselves: start() / shutdown() instead of the signal loop,
+        # then close the telemetry (``obs``)
+        args.result.update(server=server, delivery=delivery, obs=run_obs)
         return 0
-    return server.run()
+    try:
+        return server.run()
+    finally:
+        run_obs.close()
 
 
 def _stage_cached_dir(url: str, cache_dir, cache_bytes) -> str:
@@ -263,9 +271,6 @@ def cmd_train(args) -> int:
     final state with the sentry's verdict (``serve/publish.py``)."""
     if args.solver is None:
         raise SystemExit("train: --solver is required without --lm")
-    from sparknet_tpu_torch import obs
-
-    obs.check_args(args, "train")
     # a publish carries the sentry's verdict: an unaudited run has none
     if args.publish_to and not args.health and not args.health_policy:
         args.health = "warn"
@@ -392,7 +397,6 @@ def _spawn_devices(args) -> int:
 def _train_solver(args, device) -> int:
     from sparknet_tpu_torch import config, obs
     from sparknet_tpu_torch.io import journal as journal_mod
-    from sparknet_tpu_torch.obs import flight
     from sparknet_tpu_torch.obs import health as health_mod
     from sparknet_tpu_torch.obs.metrics import TrainingMetrics
     from sparknet_tpu_torch.solver import Solver
@@ -435,25 +439,22 @@ def _train_solver(args, device) -> int:
     if sentry is not None:
         sentry.restore_fn = health_mod.make_restore_fn(
             solver, prefix, trainer=trainer, metrics=metrics)
-    recorder = obs.flight_from_args(args, metrics=metrics) if root else None
-    # --profile: each window is one profiled round (Solver.step and
-    # AllReduceTrainer.step mark it); under --devices every rank profiles
-    # its own steps and rank 0 alone prints and writes the summary
-    profiler = obs.profile_from_args(args, echo=say)
+    # the run's telemetry, before the loop so restore spans are covered;
+    # under --devices every rank starts its own (its own trace file, its
+    # own sidecar port: pass --obs_port 0) and profiles its own steps
+    # (Solver.step and AllReduceTrainer.step mark each window a round),
+    # rank 0 alone printing and writing the profile summary
+    run_obs = obs.start_from_args(args, echo=say, tm=metrics)
     try:
         with obs.installed_metrics(metrics):  # the data plane counts too
             return _train_loop(args, solver, solver_param, metrics, prefix,
                                jr, sentry, trainer, say)
     finally:
-        if profiler is not None:
-            summary = obs.close_profile(
-                profiler, args.profile_out if root else None, echo=say)
-            if args.result is not None:
-                args.result.update(profile=summary)
+        run_obs.close()
+        if args.result is not None and run_obs.profiler is not None:
+            args.result.update(profile=run_obs.profile_summary)
         if jr is not None:
             jr.close()
-        if recorder is not None:
-            flight.uninstall(recorder)
         if sentry is not None:
             obs.set_sentry(None)
 
@@ -855,7 +856,7 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     from sparknet_tpu_torch import obs as _obs
     from sparknet_tpu_torch.io import journal as _journal
 
-    _obs.add_cli_args(p)  # --health / --flight_recorder (+ refused ones)
+    _obs.add_cli_args(p)  # --obs / --trace_out / --slo / --health / ...
     _journal.add_cli_args(p)  # --journal / --no_journal / ...
     p.add_argument("--publish_to", default=None, metavar="DIR",
                    help="publish the final state with the sentry's verdict "
@@ -985,6 +986,7 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) "
                    "or cpu (the plain kernel versions)")
+    _obs.add_cli_args(p)  # --obs / --slo / --ship_to: on the server's registry
     p.set_defaults(fn=cmd_serve, result=None)
 
     args = parser.parse_args(argv)

@@ -46,7 +46,14 @@ passed).  A preempted incarnation's exit code is not a failure.  A
 member, so a relaunched process exits at once, saying so, and the
 survivors of a hard-killed peer fail in their next collective with
 ``mesh.PeerLost`` naming it (within the group's timeout,
-``mesh.JOIN_TIMEOUT_S``).  ``--fleet_collector`` is not yet ported.
+``mesh.JOIN_TIMEOUT_S``).
+
+``--fleet_collector [HOST:PORT]`` starts the fleet collector
+(``obs/fleet.py``) in the launcher, appends ``--ship_to=<its url>`` to
+every child's app argv, gives child ``pid`` the fleet identity
+``$SPARKNET_HOST_ID=host<pid>`` (the same across a relaunch, so the
+collector sees the host come back with a new boot id) and prints the
+merged live/late/dead summary at the end.
 """
 
 from __future__ import annotations
@@ -69,8 +76,6 @@ APPS = {
 MULTIPROCESS_APPS = ("cifar", "imagenet", "lm", "train")
 # the JAX launcher's lifecycle actions (tools/provision.py, not ported)
 PROVISION_ACTIONS = ("provision", "describe", "run", "ssh", "teardown")
-# (flag, default): the JAX launcher's flags of later work
-_NOT_YET_PORTED = (("fleet_collector", None),)
 # the exit code of a run refused before any child spawned
 USAGE_RC = 2
 
@@ -154,6 +159,42 @@ def run_app(app: str, app_argv, coordinator=None, num_processes=None,
 
 
 def spawn_local(args, app_argv) -> int:
+    """``_spawn_local_procs`` under ``--fleet_collector``: the collector
+    runs in this process for the whole run and every child ships to it
+    (``--ship_to`` appended to each app argv); it is closed however the
+    run ends."""
+    collector = None
+    if getattr(args, "fleet_collector", None):
+        from sparknet_tpu_torch.obs.fleet import FleetCollector, parse_hostport
+
+        chost, cport = parse_hostport(args.fleet_collector)
+        collector = FleetCollector(host=chost, port=cport).start()
+        print(f"launch: fleet collector on {collector.url}/fleet", flush=True)
+        app_argv = list(app_argv) + [f"--ship_to={collector.url}"]
+    try:
+        return _spawn_local_procs(args, app_argv, collector)
+    finally:
+        if collector is not None:
+            collector.close()
+
+
+def print_fleet_summary(collector) -> None:
+    """The end-of-run fleet view: host counts by state (a host whose
+    shipper sent its final push on a clean exit reads ``finished``), the
+    round skew, and each host's state, round and push age."""
+    view = collector.fleet_view()
+    f = view["fleet"]
+    print("launch: fleet summary — %d host(s): %d live, %d late, %d dead, "
+          "%d finished; round skew %s"
+          % (f["hosts_total"], f["hosts_live"], f["hosts_late"],
+             f["hosts_dead"], f["hosts_finished"], f["round_skew"]))
+    for h, st in sorted(view["hosts"].items()):
+        print("launch:   %s is %s (round %s, last push %.1fs ago)"
+              % (h, st["state"], st["round"], st["last_push_age_s"]))
+    sys.stdout.flush()
+
+
+def _spawn_local_procs(args, app_argv, collector=None) -> int:
     """N OS processes on this machine, joined through ``--coordinator``
     (a ``file://`` store or ``host:port``; a probed loopback port by
     default), spawned and reaped through ``utils.procs.Children``:
@@ -201,6 +242,9 @@ def spawn_local(args, app_argv) -> int:
     def spawn(pid: int, relaunched: bool = False):
         env = {**env_base, "LOCAL_RANK": str(pid),
                "SPARKNET_SLICE_ID": str(slice_of[pid])}
+        if collector is not None:
+            # a stable fleet identity, the same across a relaunch
+            env["SPARKNET_HOST_ID"] = f"host{pid}"
         if relaunched:
             env["SPARKNET_RELAUNCHED"] = "1"
         kids.spawn(pid, [
@@ -280,6 +324,8 @@ def spawn_local(args, app_argv) -> int:
         why = f"the {args.timeout} s timeout" if timed_out else "a failed peer"
         sys.stdout.write(f"launch: killed host(s) {killed} after {why}\n")
     sys.stdout.flush()
+    if collector is not None:
+        print_fleet_summary(collector)
     failed = [e["proc"].returncode for e in kids.snapshot()
               if e["proc"].returncode != 0 and id(e["proc"]) not in kids.killed
               and id(e["proc"]) not in kids.forgiven]
@@ -329,16 +375,16 @@ def main(argv=None) -> int:
         help="seconds after the preemption: kill and reap the victims "
         "still running, then spawn the same --process_ids again with "
         "$SPARKNET_RELAUNCHED=1")
-    parser.add_argument("--fleet_collector", nargs="?", default=None,
-                        const="127.0.0.1:0")
+    parser.add_argument(
+        "--fleet_collector", nargs="?", default=None, const="127.0.0.1:0",
+        metavar="HOST:PORT",
+        help="start the fleet collector (obs/fleet.py) in the launcher and "
+        "ship every child's telemetry to it (appends --ship_to to each app "
+        "argv); prints the merged live/late/dead summary at the end")
     parser.add_argument("app", choices=sorted(APPS))
     parser.add_argument("app_argv", nargs=argparse.REMAINDER,
                         help="arguments passed through to the app")
     args = parser.parse_args(argv)
-    for attr, default in _NOT_YET_PORTED:
-        if getattr(args, attr) != default:
-            raise SystemExit(f"launch: --{attr} is not yet ported to "
-                             "sparknet_tpu_torch")
     if args.preempt_slice is not None and not args.nprocs:
         raise SystemExit("launch: --preempt_slice needs --nprocs (the "
                          "launcher spawns the slice it preempts)")

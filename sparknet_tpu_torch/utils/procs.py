@@ -225,6 +225,7 @@ def run_machinery_spec(spec: dict, device, mesh=None,
 
     import torch
 
+    from sparknet_tpu_torch import obs
     from sparknet_tpu_torch.apps.guards import RoundGuards
     from sparknet_tpu_torch.io import journal as journal_mod
     from sparknet_tpu_torch.obs import profile as profile_mod
@@ -265,7 +266,7 @@ def run_machinery_spec(spec: dict, device, mesh=None,
     with deterministic_algorithms(bool(spec["deterministic"])):
         solver = averaging_solver(spec, device)
         guards = RoundGuards.from_args(
-            args, solver, W, app="harness", log=log, metrics=metrics,
+            args, solver, W, log=log, metrics=metrics,
             journal_path=jpath, mesh=mesh)
         trainer = guards.trainer
         if spec["init"]:
@@ -273,6 +274,7 @@ def run_machinery_spec(spec: dict, device, mesh=None,
                                                            solver))
         else:
             state = trainer.init_state(seed=spec["seed"])
+        run_obs = obs.start_from_args(args, echo=log.log, tm=metrics)
         cuda_comm.reset_launch_counts()
         mesh_mod.reset_staging()
         hb = metrics.hierarchy_bytes
@@ -322,6 +324,7 @@ def run_machinery_spec(spec: dict, device, mesh=None,
                          hb.labels("cross").value - before[1]])
         finally:
             guards.close()
+            run_obs.close()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         out["params"] = [x[0].detach().cpu().numpy()
@@ -343,7 +346,7 @@ def run_machinery_spec(spec: dict, device, mesh=None,
             out["journal"] = [{k: v for k, v in rec.items() if k != "t_s"}
                               for rec in recs]
         out["profile"] = None
-        summary = guards.profile_summary
+        summary = run_obs.profile_summary
         if summary is not None:
             out["profile"] = {
                 "rounds": summary["rounds"],
@@ -486,6 +489,7 @@ from sparknet_tpu_torch.utils import procs
 dev = mesh.initialize_distributed(a.address, 2, a.pid, backend=a.backend,
                                   device=a.device)
 assert mesh.process_count() == 2, mesh.process_count()
+run_obs = procs.ship_from_env(a.pid)
 m = mesh.make_mesh({"dp": 4}, workers_per_process=2)
 assert mesh.local_worker_slice(m) == slice(2 * a.pid, 2 * a.pid + 2)
 res = procs.run_averaging_spec({"workers": 4}, dev, mesh=m)
@@ -493,6 +497,7 @@ assert res["losses"][0].shape == (4, 2), res["losses"][0].shape
 assert np.isfinite(res["losses"][0]).all(), res["losses"]
 for rows in res["all_rows"]:
     np.testing.assert_array_equal(rows[0], rows[1])
+run_obs.close()  # the final flush ships the run's tail
 mesh.shutdown()
 print(f"@MARKER@ p{a.pid} loss={float(res['losses'][0].mean()):.4f}")
 """
@@ -524,6 +529,7 @@ from sparknet_tpu_torch.utils import procs
 
 dev = mesh.initialize_distributed(a.address, 2, a.pid, backend=a.backend,
                                   device=a.device)
+run_obs = procs.ship_from_env(a.pid)
 m = mesh.make_mesh({"dp": 4}, workers_per_process=2)
 spec = procs._spec({"workers": 4, "tau": 10})
 TAU, ROUNDS = spec["tau"], 10
@@ -553,6 +559,7 @@ def timed(fn):
 avg = timed(lambda s: trainer.round(s, batches)[0])
 local = timed(lambda s: trainer._local(s, batches)[0])
 coll_ms = max(0.0, (avg - local) * 1e3)
+run_obs.close()
 mesh.shutdown()
 print(f"@MARKER@ p{a.pid} avg_ms={avg * 1e3:.3f} local_ms={local * 1e3:.3f} "
       f"collective_ms={coll_ms:.3f} tau={TAU}")
@@ -563,12 +570,81 @@ def timed_averaging_worker(marker: str) -> str:
     return _TIMED_AVERAGING_WORKER.replace("@MARKER@", marker)
 
 
+def ship_from_env(pid: int):
+    """The fleet-plane wiring of the averaging workers: with
+    ``$SPARKNET_SHIP_TO`` set, each process ships its metric deltas and
+    round spans there as ``$SPARKNET_HOST_ID`` (default ``proc<pid>``);
+    returns the ``ObsRun`` to close (an empty one otherwise)."""
+    from sparknet_tpu_torch import obs
+
+    if not os.environ.get("SPARKNET_SHIP_TO"):
+        return obs.ObsRun()
+    return obs.start(ship_to=os.environ["SPARKNET_SHIP_TO"],
+                     host_id=os.environ.get("SPARKNET_HOST_ID", f"proc{pid}"),
+                     echo=None)
+
+
+# The fleet-shipping worker: a single process (no collectives, so no
+# joined world) that steps the toy solver ``$SPARKNET_FLEET_ROUNDS``
+# rounds, each an ``execute`` span with ``round=r``, shipping to
+# ``$SPARKNET_SHIP_TO`` as ``$SPARKNET_HOST_ID``.  Seams:
+# ``$SPARKNET_FLEET_ROUND_S`` (the round's sleep), ``..._STRAGGLE_FROM``
+# and ``..._STRAGGLE_S`` (a straggler from that round on),
+# ``..._LINGER_S`` (keep heartbeating after the loop, a finished but
+# live host), and ``$SPARKNET_SHIP_CLOCK_SKEW_S`` (a skewed host clock
+# the collector's alignment must recover).
+_FLEET_SHIP_WORKER = r"""
+import os
+import sys
+import time
+
+import numpy as np
+
+pid = int(sys.argv[1])
+
+from sparknet_tpu_torch import obs
+from sparknet_tpu_torch.utils import procs
+
+rounds = int(os.environ.get("SPARKNET_FLEET_ROUNDS", "5"))
+round_s = float(os.environ.get("SPARKNET_FLEET_ROUND_S", "0.02"))
+straggle_from = int(os.environ.get("SPARKNET_FLEET_STRAGGLE_FROM", "-1"))
+straggle_s = float(os.environ.get("SPARKNET_FLEET_STRAGGLE_S", "0"))
+linger_s = float(os.environ.get("SPARKNET_FLEET_LINGER_S", "0"))
+
+run = obs.start(
+    ship_to=os.environ["SPARKNET_SHIP_TO"],
+    host_id=os.environ.get("SPARKNET_HOST_ID", f"host{pid}"),
+    echo=None,
+)
+solver = procs.averaging_solver(procs._spec({"tau": 1}), "cpu")
+state = solver.init_state(seed=pid)
+rng = np.random.RandomState(pid)
+
+
+def window():
+    return {
+        "x": rng.randn(1, 4, 6).astype(np.float32),
+        "label": rng.randint(0, 3, (1, 4)).astype(np.float32),
+    }
+
+
+for r in range(rounds):
+    with obs.span("execute", round=r):
+        state, losses = solver.step(state, window())
+    run.shipper.note_round(r)
+    time.sleep(round_s + (straggle_s if 0 <= straggle_from <= r else 0.0))
+print(f"@MARKER@ p{pid} rounds={rounds} loss={solver.smoothed_loss:.4f}")
+sys.stdout.flush()
+if linger_s:
+    # the loop is done; keep heartbeating (a finished but live host)
+    # until the harness kills the process or the linger runs out
+    time.sleep(linger_s)
+run.close()
+"""
+
+
 def fleet_ship_worker(marker: str) -> str:
-    """The JAX package's fleet-shipping worker needs ``obs/ship.py``."""
-    raise NotImplementedError(
-        "fleet_ship_worker is not yet ported: the fleet plane "
-        "(obs/ship.py, obs/fleet.py) comes with ROADMAP A.10"
-    )
+    return _FLEET_SHIP_WORKER.replace("@MARKER@", marker)
 
 
 # The observed launch: ``python observer.py OUT <launch argv>`` runs

@@ -9,9 +9,11 @@ After ``tests/test_chaos.py``:
   on the same inputs (no bleed between slots);
 - the feed delivers every round once, in order, across a watchdog
   rebuild;
-- the chaos smoke (marked ``chaos``): the default plan less the
-  ``collector_outage`` fault (not ported: it raises), on the CPU — every
-  fault injected and survived, the NaN flagged at round 2, the
+- the ``collector_outage`` fault against the JAX one on the same round
+  sequence: survived, 0 events lost or dropped;
+- the chaos smoke (marked ``chaos``): the default plan, on the CPU —
+  every fault injected and survived (``collector_outage`` too, 0
+  events lost), the NaN flagged at round 2, the
   straggler named at worker 3, round 1, the decode kill's resumed tokens
   equal to the undisturbed run's, the final loss in the baseline's band;
 - ``run_kill_sweep`` on the CPU with one synchronous kill point, the two
@@ -20,6 +22,7 @@ After ``tests/test_chaos.py``:
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import pytest
@@ -128,16 +131,44 @@ def test_feed_delivers_rounds_in_order_across_watchdog_rebuild():
     assert counters["watchdog_fires"] >= 1
 
 
-def test_collector_outage_is_refused_before_anything_runs(tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        chaos.run_chaos(workdir=str(tmp_path / "w"), device="cpu")
-    assert not os.path.exists(str(tmp_path / "w"))
+def test_collector_outage_is_refused_before_anything_runs():
+    """The ``collector_outage`` fault runs now (it was refused): a live
+    collector and shipper, the collector down for the plan's rounds,
+    the buffered events replayed when it is back; survived, 0 lost and
+    0 dropped, as the JAX fault on the same round sequence."""
+    from sparknet_tpu import obs as jobs
+    from sparknet_tpu_torch import obs
+
+    out = {}
+    for mod, o in ((jchaos, jobs), (chaos, obs)):
+        plan = mod.FaultPlan.default()
+        counters, notes = {}, []
+        fault = mod._CollectorOutage(plan, counters, notes.append)
+        try:
+            for r in range(plan.rounds):
+                for i in range(5):  # a round's spans, through the hook
+                    with o.span("execute", round=r, i=i):
+                        pass
+                fault.on_round_end(r)
+                time.sleep(0.25)  # a few flush intervals a round
+            summary = fault.finalize()
+        finally:
+            fault.close()
+        assert o.trace._ship is None  # the previous hook is back
+        out[mod.__name__] = (counters, summary)
+    (jc, js), (tc, ts) = out["sparknet_tpu.runtime.chaos"], \
+        out["sparknet_tpu_torch.runtime.chaos"]
+    assert tc == jc == {"collector_outage_injected": 1,
+                        "collector_outage_survived": 1}
+    assert ts["events_lost"] == js["events_lost"] == 0
+    assert ts["events_dropped"] == js["events_dropped"] == 0
+    assert ts["push_failures"] > 0 and ts["events_replayed_after_resume"] > 0
+    assert ts["events_received"] >= 5 * chaos.FaultPlan.default().rounds
 
 
 @pytest.mark.chaos
 def test_chaos_smoke_default_plan(tmp_path):
-    plan = dataclasses.replace(chaos.FaultPlan.default(),
-                               collector_outage_round=None)
+    plan = chaos.FaultPlan.default()
     rep = chaos.run_chaos(plan, workdir=str(tmp_path), device="cpu")
     assert rep["faults_injected"] > 0
     assert rep["faults_survived"] == rep["faults_injected"]
@@ -166,6 +197,9 @@ def test_chaos_smoke_default_plan(tmp_path):
     assert dk["journal_truncated_bytes"] > 0 and dk["replayed_rounds"] <= 1
     ss = rep["slow_slice"]
     assert ss["survived"] and ss["stale"]["forced_waits"] == 0
+    co = rep["collector_outage"]
+    assert co["events_lost"] == co["events_dropped"] == 0
+    assert co["push_failures"] > 0
     assert set(ss["stale"]["laggiest_by_slow_round"]) <= set(ss["workers"])
 
 

@@ -14,7 +14,8 @@
   ``tests/test_torch_data_plane.py``; ``--devices`` runs now, with
   ``--profile`` too: ``tests/test_torch_cli_devices.py`` and
   ``tests/test_torch_launch_slices.py``; ``HDF5Output`` with
-  ``--devices`` refuses).
+  ``--devices`` refuses); the telemetry flags ``--trace_out``, ``--slo``
+  and ``--obs`` run.
 """
 
 import os
@@ -287,13 +288,22 @@ def test_weights_warm_start(tmp_path):
     (["--slo"], "--slo"),
     (["--obs"], "--obs"),
 ])
-def test_train_refuses_what_is_not_yet_ported(tmp_path, flags, what):
-    net = None
-    if "--devices=2" in flags:
-        net = tmp_path / "h5.prototxt"
-        net.write_text(TOY_NET + 'layer { name: "out" type: "HDF5Output" '
-                       'bottom: "logits" bottom: "label" '
-                       'hdf5_output_param { file_name: "o.h5" } }\n')
+def test_train_refuses_what_is_not_yet_ported(tmp_path, monkeypatch, flags,
+                                              what):
+    """``HDF5Output`` with ``--devices`` still refuses; the telemetry
+    flags run now (``tests/test_torch_obs_apps.py`` ``flag_runs``)."""
+    if "--devices=2" not in flags:
+        from tests.test_torch_obs_apps import flag_runs
+
+        argv = [a for f in flags for a in f.split("=", 1)]
+        flag_runs(monkeypatch, tmp_path, cli.main,
+                  ["train", f"--solver={_solver_file(tmp_path, 'n')}",
+                   "--device=cpu", "--tau=2"] + argv)
+        return
+    net = tmp_path / "h5.prototxt"
+    net.write_text(TOY_NET + 'layer { name: "out" type: "HDF5Output" '
+                   'bottom: "logits" bottom: "label" '
+                   'hdf5_output_param { file_name: "o.h5" } }\n')
     with pytest.raises(SystemExit, match="not yet ported") as e:
         _train(_solver_file(tmp_path, "n", net=net), *flags)
     assert what in str(e.value)

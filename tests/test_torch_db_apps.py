@@ -24,7 +24,8 @@ package's, on the CPU.
   byte, and its round on the CPU (cifar10_full, W=2, tau=2, batch 100)
   matches the JAX trainer's on the JAX reader's batches (losses and
   params rtol 1e-5 / atol 1e-6, test scores rtol 1e-5).
-- Refusals: every flag of a later slice exits saying "not yet ported".
+- Refusals: every flag of a later slice exits saying "not yet ported";
+  the telemetry flags once refused run.
 """
 
 import dataclasses
@@ -341,21 +342,28 @@ def test_cifar_db_app_matches_the_jax_app(tmp_path):
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("flag", [
     ["--trace_out", "/t"], ["--obs"], ["--obs_port", "1"], ["--slo"]])
-def test_run_db_app_refuses_what_is_not_yet_ported(flag):
-    """(The chunk cache, ``--shuffle_epochs`` and an object-store
-    ``--db_dir`` run now: ``tests/test_torch_data_plane.py``.)"""
-    with pytest.raises(SystemExit, match="not yet ported") as e:
-        imagenet_run_db_app.main(["--db_dir", "/nonexistent", "--device",
-                                  "cpu"] + flag)
-    assert flag[0].lstrip("-").split("_")[0] in str(e.value)
+def test_run_db_app_refuses_what_is_not_yet_ported(flag, db_pair, tmp_path,
+                                                   monkeypatch):
+    """The telemetry flags once refused run now (``tests/
+    test_torch_obs_apps.py`` ``flag_runs``).  (The chunk cache,
+    ``--shuffle_epochs`` and an object-store ``--db_dir`` run too:
+    ``tests/test_torch_data_plane.py``.)"""
+    from tests.test_torch_obs_apps import flag_runs
+
+    flag_runs(monkeypatch, tmp_path, imagenet_run_db_app.main,
+              ["--db_dir", db_pair[1], "--device", "cpu",
+               "--snapshot_prefix", str(tmp_path / "s")] + flag)
 
 
 @pytest.mark.parametrize("flag", [
     ["--trace_out", "/t"], ["--obs_port", "1"], ["--slo"], ["--obs"]])
-def test_cifar_db_app_refuses_what_is_not_yet_ported(flag):
-    with pytest.raises(SystemExit, match="not yet ported") as e:
-        cifar_db_app.main(["--device", "cpu"] + flag)
-    assert flag[0] in str(e.value)
+def test_cifar_db_app_refuses_what_is_not_yet_ported(flag, tmp_path,
+                                                     monkeypatch):
+    """The telemetry flags once refused run now."""
+    from tests.test_torch_obs_apps import flag_runs
+
+    flag_runs(monkeypatch, tmp_path, cifar_db_app.main,
+              ["--device", "cpu", "--db_dir", str(tmp_path / "dbs")] + flag)
 
 
 # ----------------------------------------------------------------------

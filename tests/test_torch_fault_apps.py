@@ -3,8 +3,7 @@
 - Every training entry point (``lm_app``, ``cifar_app``,
   ``cifar_db_app``, ``imagenet_app``, ``imagenet_run_db_app``, ``cli
   train``) takes every option string of the JAX package's parser for
-  the same entry point; what the port does not run yet refuses with
-  "not yet ported", naming the flag.
+  the same entry point and runs it (the telemetry flags too).
 - ``lm_app`` and ``cli train`` resume through the run journal after a
   kill inside round 2, bit for bit against their own uninterrupted
   runs (the JAX package's app tests of this are red on jax 0.9).
@@ -94,15 +93,18 @@ def test_entry_point_takes_the_jax_flag_surface(monkeypatch, app):
         assert flag in port_opts
 
 
-def test_refusals_name_the_flag():
-    """What is still refused names the flag (``--stale_bound`` and
-    ``--profile`` run now: ``test_stale_and_profile_flags_run``)."""
-    for main, argv in ((cifar_app.main, ["--device", "cpu"]),
-                       (lm_app.main, ["--device", "cpu"])):
+def test_refusals_name_the_flag(tmp_path, monkeypatch):
+    """The flags this test once saw refused (``--trace_out``, ``--obs``)
+    run now: each entry point starts what they ask for (``tests/
+    test_torch_obs_apps.py`` ``flag_runs``).  (``--stale_bound`` and
+    ``--profile`` run too: ``test_stale_and_profile_flags_run``.)"""
+    from tests.test_torch_obs_apps import flag_runs
+
+    for main, argv in ((cifar_app.main, ["--device", "cpu", "--workers", "2",
+                                         "--tau", "1", "--rounds", "1"]),
+                       (lm_app.main, LM + ["--rounds", "1"])):
         for flag in (["--trace_out", "t.json"], ["--obs"]):
-            with pytest.raises(SystemExit, match="not yet ported") as e:
-                main(argv + flag)
-            assert flag[0] in str(e.value)
+            flag_runs(monkeypatch, tmp_path, main, argv + flag)
 
 
 def test_stale_and_profile_flags_run(tmp_path):

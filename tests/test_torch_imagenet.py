@@ -522,14 +522,22 @@ def test_imagenet_app_runs_full_alexnet_on_the_cpu(monkeypatch, fusion, extra):
 
 @pytest.mark.parametrize("flag", [["--trace_out", "/t"],
                                   ["--slo"], ["--model", "vgg16"]])
-def test_imagenet_app_refuses_what_is_not_yet_ported(flag):
-    """Every flag of a later slice exits saying so; a model outside the
-    zoo (GoogLeNet and ResNet-50 are in it now) exits naming the zoo.
-    (The chunk cache, ``--shuffle_epochs`` and object-store ``--data``
-    run now: ``tests/test_torch_data_plane.py``.)"""
-    match = "unknown --model" if flag[0] == "--model" else "not yet ported"
-    with pytest.raises(SystemExit, match=match):
-        imagenet_app.main(["--device", "cpu"] + flag)
+def test_imagenet_app_refuses_what_is_not_yet_ported(flag, tmp_path,
+                                                     monkeypatch):
+    """A model outside the zoo (GoogLeNet and ResNet-50 are in it now)
+    exits naming the zoo; the telemetry flags once refused here run now
+    (``tests/test_torch_obs_apps.py`` ``flag_runs``).  (The chunk cache,
+    ``--shuffle_epochs`` and object-store ``--data`` run too:
+    ``tests/test_torch_data_plane.py``.)"""
+    if flag[0] == "--model":
+        with pytest.raises(SystemExit, match="unknown --model"):
+            imagenet_app.main(["--device", "cpu"] + flag)
+        return
+    from tests.test_torch_obs_apps import flag_runs
+
+    flag_runs(monkeypatch, tmp_path, imagenet_app.main,
+              ["--device", "cpu", "--train_batch", "2", "--test_batch", "2",
+               "--tau", "1", "--rounds", "1"] + flag)
 
 
 def test_imagenet_app_stale_bound_trains_as_the_jax_app():

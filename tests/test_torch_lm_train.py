@@ -16,8 +16,8 @@ across by ``interop.lm_params_from_jax``:
   losses and params within 5e-4, the JAX package's LM associativity
   tolerance (``bench.py`` BENCH_LM_TOL);
 - the trainer and the comm plane over the depth-4 LM's 53 blobs;
-- ``lm_app.main`` and ``cli train --lm`` end to end on the CPU, and the
-  flags not yet ported refusing.
+- ``lm_app.main`` and ``cli train --lm`` end to end on the CPU, the
+  flags not yet ported refusing and the telemetry flags running.
 """
 
 import os
@@ -256,16 +256,23 @@ def test_lm_app_end_to_end_on_the_cpu():
     [["--sp", "2"], ["--trace_out", "/t"], ["--obs_port", "1"],
      ["--slo"], ["--ship_to", "http://h:1"], ["--host_id", "h"], ["--obs"]],
 )
-def test_lm_app_refuses_what_is_not_yet_ported(flag, monkeypatch):
+def test_lm_app_refuses_what_is_not_yet_ported(flag, monkeypatch, tmp_path):
     """``--sp`` runs in one process (``tests/test_torch_lm_sp.py``) and
     across processes one sequence shard a rank
     (``tests/test_torch_lm_multiprocess.py``): what is refused is a rank
-    stacking several slots of the sp ring."""
-    if flag[0] == "--sp":
-        from sparknet_tpu_torch.parallel import mesh
+    stacking several slots of the sp ring.  The telemetry flags once
+    refused here run now (``tests/test_torch_obs_apps.py``
+    ``flag_runs``)."""
+    if flag[0] != "--sp":
+        from tests.test_torch_obs_apps import flag_runs
 
-        monkeypatch.setattr(mesh, "process_count", lambda: 2)
-        monkeypatch.setenv("SPARKNET_LOCAL_WORKERS", "2")
+        flag_runs(monkeypatch, tmp_path, lm_app.main,
+                  APP + ["--rounds", "1"] + flag)
+        return
+    from sparknet_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "process_count", lambda: 2)
+    monkeypatch.setenv("SPARKNET_LOCAL_WORKERS", "2")
     with pytest.raises(SystemExit, match="not yet ported") as e:
         lm_app.main(APP + ["--rounds", "1"] + flag)
     assert flag[0] in str(e.value)

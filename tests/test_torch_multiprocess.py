@@ -14,11 +14,13 @@ process before it joins, is the reference.
   a rank) — the gather-then-reduce design gives bits for any W.
 - The survivor mask across ranks: a dead worker in the live mask, and a
   poisoned worker caught by the audit's in-round mask on another rank.
-- The harness's workers (``toy_averaging_worker``,
-  ``timed_averaging_worker``), and ``fleet_ship_worker`` refused.
+- The harness's workers (``toy_averaging_worker``, shipping each rank's
+  spans to a collector under ``$SPARKNET_SHIP_TO``, and
+  ``timed_averaging_worker``).
 - ``tools/launch.py --nprocs 2 cifar --device cpu``: the one-process
   run's numbers, only rank 0 logging; ``imagenet`` across two ranks at
-  a narrowed input against one process; the launcher's refusals.
+  a narrowed input against one process; the launcher's refusals, and
+  its ``--fleet_collector`` wiring.
 """
 
 import os
@@ -167,17 +169,32 @@ def test_a_failed_rank_ends_the_wait_and_its_peer_is_killed():
 
 
 def test_harness_workers(tmp_path):
-    outs = procs.run_two_process_round(
-        procs.toy_averaging_worker("TOY_OK"), "TOY_OK", REPO,
-        devices_per_process=2, timeout=300, workdir=str(tmp_path),
-        args=("--device", "cpu"))
+    from sparknet_tpu_torch.obs.fleet import FleetCollector
+
+    collector = FleetCollector(port=0).start()
+    try:
+        outs = procs.run_two_process_round(
+            procs.toy_averaging_worker("TOY_OK"), "TOY_OK", REPO,
+            devices_per_process=2, timeout=300, workdir=str(tmp_path),
+            args=("--device", "cpu"),
+            env_extra={"SPARKNET_SHIP_TO": collector.url,
+                       "SPARKNET_SHIP_INTERVAL_S": "0.1"})
+        # with $SPARKNET_SHIP_TO each rank shipped its round's spans
+        hosts = collector.fleet_view()["hosts"]
+    finally:
+        collector.close()
     assert all(re.search(r"TOY_OK p\d loss=\d", o) for o in outs)
+    assert sorted(hosts) == ["proc0", "proc1"]
+    for st in hosts.values():
+        assert st["state"] == "finished" and st["lost_events"] == 0
+        assert st["received_events"] > 0
     outs = procs.run_two_process_round(
         procs.timed_averaging_worker("TIMED_OK"), "TIMED_OK", REPO,
         timeout=300, workdir=str(tmp_path), args=("--device", "cpu"))
     assert all("collective_ms=" in o and "tau=10" in o for o in outs)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        procs.fleet_ship_worker("X")
+    # the fleet-shipping worker (run in tests/test_torch_obs_fleet.py)
+    src = procs.fleet_ship_worker("X")
+    assert "@MARKER@" not in src and 'print(f"X p{pid}' in src
 
 
 def _launch(tmp_path, *argv):
@@ -235,7 +252,25 @@ def test_imagenet_app_across_two_ranks(tmp_path):
     (["--fleet_collector", "127.0.0.1:0", "cifar"], "--fleet_collector"),
     (["provision", "--dry-run"], "provision"),
 ])
-def test_launch_refuses_what_is_not_yet_ported(argv, what):
+def test_launch_refuses_what_is_not_yet_ported(argv, what, monkeypatch,
+                                               capsys):
+    """What the launcher has not ported refuses, naming it;
+    ``--fleet_collector`` (once refused) runs: the children ship to the
+    launcher's collector (here fake children, which never push, so the
+    summary lists no host)."""
+    if what == "--fleet_collector":
+        from tests.test_torch_launch_slices import _fake_popen
+
+        spawned = _fake_popen(monkeypatch, life=0.2)
+        assert launch.main(["--nprocs", "2"] + argv) == 0
+        out = capsys.readouterr().out
+        assert "launch: fleet collector on http://127.0.0.1:" in out
+        assert "launch: fleet summary — 0 host(s)" in out
+        for pid, p in enumerate(spawned):
+            assert p.env["SPARKNET_HOST_ID"] == f"host{pid}"
+            assert any(a.startswith("--ship_to=http://127.0.0.1:")
+                       for a in p.cmd)
+        return
     with pytest.raises(SystemExit, match="not yet ported") as e:
         launch.main(argv)
     assert what in str(e.value)

@@ -8,7 +8,8 @@
   train --lm``, ``apps.imagenet_app``, the DB apps
   ``apps.imagenet_run_db_app`` and ``apps.cifar_db_app``, ``cli test``,
   the solver and trainer).
-- What a slice has not ported yet refuses, saying so.
+- What a slice has not ported yet refuses, saying so; the telemetry
+  flags once refused run.
 - The kernel wrappers take the plain version for CPU tensors, and only
   there: no kernel is launched and no library is built.
 - ``chip_smoke.py`` fails, printing no result, without a card and in a
@@ -93,7 +94,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "data/object_store.py", "data/chunk_cache.py",
                 "apps/featurizer_app.py", "parallel/stale.py",
                 "obs/profile.py", "utils/profiler.py", "utils/timers.py",
-                "utils/flops.py", "runtime/chaos.py"):
+                "utils/flops.py", "runtime/chaos.py", "obs/tsdb.py",
+                "obs/slo.py", "obs/ship.py", "obs/fleet.py",
+                "obs/exporter.py", "obs/__init__.py"):
         assert os.path.join("sparknet_tpu_torch", mod) in rel
     for path in files:
         for mod in _imported_modules(path):
@@ -183,16 +186,45 @@ _CIFAR = ["--device", "cpu", "--workers", "2", "--tau", "2", "--rounds", "1"]
         for flag in (["--trace_out", "/t"], ["--obs"])
     ],
 )
-def test_cli_refuses_what_is_not_yet_ported(argv, what):
+def test_cli_refuses_what_is_not_yet_ported(argv, what, tmp_path, monkeypatch):
+    """The telemetry flags these entry points once refused run now
+    (``tests/test_torch_obs_apps.py`` ``flag_runs``): each starts what
+    its flag asks for.  A stand-in ``--solver`` or ``--db_dir`` becomes
+    a small real one."""
+    from tests.test_torch_obs_apps import flag_runs
+
     main = cli.main
     apps = {"cifar_app": cifar_app, "imagenet_app": imagenet_app,
             "imagenet_run_db_app": imagenet_run_db_app,
             "cifar_db_app": cifar_db_app}
     if argv[0] in apps:
         main, argv = apps[argv[0]].main, argv[1:]
-    with pytest.raises(SystemExit, match="not yet ported") as e:
-        main(argv)
-    assert what in str(e.value)
+    if "s.prototxt" in argv:
+        argv = [_toy_solver(tmp_path) if a == "s.prototxt" else a
+                for a in argv] + ["--device", "cpu"]
+    if "/d" in argv:
+        from sparknet_tpu_torch.apps import imagenet_create_db_app
+
+        db = str(tmp_path / "db")
+        assert imagenet_create_db_app.main(["--out", db]) == 0
+        argv = [db if a == "/d" else a for a in argv]
+    assert what in argv
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # small nets under the parallel run's load
+    try:
+        flag_runs(monkeypatch, tmp_path, main, argv)
+    finally:
+        torch.set_num_threads(n)
+
+
+def _toy_solver(tmp_path) -> str:
+    from sparknet_tpu_torch.utils import procs
+
+    net = tmp_path / "toy.prototxt"
+    net.write_text(procs.TOY_NET)
+    solver = tmp_path / "s.prototxt"
+    solver.write_text(f'net: "{net}"\n{procs.TOY_SOLVER}\nmax_iter: 2\n')
+    return str(solver)
 
 
 @pytest.mark.parametrize("app,flag", [
@@ -408,14 +440,11 @@ def test_slice_entry_points_default_to_the_card(tmp_path):
     CPU; without one they raise before writing anything."""
     if torch.cuda.is_available():
         return
-    import dataclasses
-
     from sparknet_tpu_torch.runtime import chaos
 
-    plan = dataclasses.replace(chaos.FaultPlan.default(),
-                               collector_outage_round=None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        chaos.run_chaos(plan, workdir=str(tmp_path / "c"))
+        chaos.run_chaos(chaos.FaultPlan.default(),
+                        workdir=str(tmp_path / "c"))
     assert not os.path.exists(str(tmp_path / "c"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["time", "--model", "cifar10_quick"])

@@ -258,24 +258,34 @@ def test_profile_instant_rides_the_tracer(tmp_path):
 
 
 def test_profile_from_args_and_close_write_summary(tmp_path, capsys):
+    """``--profile`` / ``--profile_out`` through the run's one telemetry
+    entry (``obs.start_from_args``; ``ObsRun.close`` prints and writes
+    the summary and uninstalls the profiler)."""
     import argparse
 
     ap = argparse.ArgumentParser()
     obs.add_cli_args(ap)
-    assert obs.profile_from_args(ap.parse_args([])) is None
+    assert obs.start_from_args(ap.parse_args([])).profiler is None
     out = tmp_path / "anatomy.json"
-    p = obs.profile_from_args(ap.parse_args(["--profile_out", str(out)]),
-                              echo=print)
+    run = obs.start_from_args(ap.parse_args(["--profile_out", str(out)]),
+                              echo=print, rank=0)
+    p = run.profiler
     assert tprofile.active() is p  # --profile_out implies --profile
     p.note_consumed_round(0)
     p.on_span("execute", "phase", 0.0, 0.5, "c", None)
     p.observe_round()
-    summary = obs.close_profile(p, str(out), echo=print)
+    run.close()
+    summary = run.profile_summary
     assert tprofile.active() is None
     assert json.loads(out.read_text()) == json.loads(json.dumps(summary))
     text = capsys.readouterr().out
     assert "round-anatomy profiler on" in text
     assert "profile: round anatomy over 1 round(s)" in text
+    # across processes rank r > 0 profiles but writes no summary
+    run = obs.start_from_args(ap.parse_args(["--profile_out", str(out)]),
+                              echo=None, rank=1)
+    assert run.profiler is not None and run.profile_out is None
+    run.close()
 
 
 # ----------------------------------------------------------------------
