@@ -134,8 +134,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
    0 and within 2e-3 in every round (a second run of the default leg
    shows how far two runs of one program drift apart); the default leg's
    first round on the card against the same round on the CPU, after one
-   local step and after two (``IMNET_CPU_STEPS``), and both against the
-   same round on the CPU in float64; one round of the default, fused,
+   local step and after two (``IMNET_CPU_STEPS``), and after two both
+   against the same round on the CPU in float64; one round of the default, fused,
    int8 and bf16+overlap legs profiled (the comm rounds with K9-K11's
    shares).  Where Pillow imports, ``imagenet_app.main`` also runs on
    synthesized JPEG shards at a small size, driving the data stage.
@@ -331,7 +331,7 @@ Phases (any failure ends the run with a non-zero exit and no result):
    magnitude) of a float64 weighted mean of its group's arrived
    post-window replicas; K5 and K6 launch 2 x tau x the windows run (an
    absent worker's window is not run).  (b) ``imagenet_run_db_app
-   --stale_bound 2 --journal`` (phase 11's DB, 4 rounds) within 1e-5 of
+   --stale_bound 2 --journal`` (phase 11's DB, 2 rounds) within 1e-5 of
    the ``--stale_bound 0`` run, its journal carrying ``worker_rounds``
    on every record.  (c) ``chaos.run_kill_sweep`` on the card: recover
    processes (cifar10_quick, W=2, tau 2, batch 8, int8, the audit on),
@@ -460,6 +460,25 @@ Phases (any failure ends the run with a non-zero exit and no result):
    wall with and without telemetry and a scrape's latency print (host
    clock, reported only).  (a)'s K9/K10 and (c)'s K1/K2 launches join
    the kernels line.
+22. The host tools and the cli subcommands (``host_tools_end_to_end``):
+   (a) 64 seeded 256x256 JPEGs through ``convert_imageset`` into an LMDB
+   and a record DB, ``compute_image_mean`` on both (the two files
+   bit-equal), ``convert_mnist`` into an LMDB scored by ``cli test``
+   with the zoo LeNet on the card and on the CPU (within 1e-5); (b)
+   ``cli classify`` on the zoo CaffeNet's deploy view at full width
+   (227, 1,000 classes, seeded weights in a .caffemodel, (a)'s mean
+   center-cropped), 4 images plain and ``--oversample``, the card's
+   score vectors within 1e-4 of the CPU's and the top-1 classes equal,
+   K5 16 launches; (c) the same net as a V1 prototxt through
+   ``upgrade_net_proto_text``, classified on the card: (b)'s plain
+   scores bit for bit, K5 8; (d) ``cli detect`` with the zoo R-CNN over
+   128 windows of 4 images, batches of 32, context pad 16: K5 8, the
+   first batch within 1e-4 of a CPU ``Detector``'s; (e) ``fc_to_conv``
+   on CaffeNet's fc6 (6x6), fc7 and fc8: the 1x1 map the classifier's
+   fc8 at 227, a finite (1, 1000, 8, 8) map at 451 within 1e-4 of the
+   CPU's, K5 6; (f) ``cli device_query``'s line for the card.  Each
+   leg's wall, images/s, windows/s and records/s print (host clock);
+   the K5 launches join the kernels line.
 
 Before its last lines the script prints its wall seconds by function
 (callees included), for a slice that must cut depth to stay inside the
@@ -478,6 +497,7 @@ import contextlib
 import functools
 import http.client
 import inspect
+import io
 import json
 import os
 import re
@@ -2359,12 +2379,14 @@ def _imnet_first_round_matches_cpu(dev, parts, mean):
     drawn on the CPU from the same keys), once with one local step and
     once with ``IMNET_CPU_STEPS``: each parameter blob's difference
     relative to the largest entry of its update on the CPU.  The round
-    also runs on the CPU in float64 (params, momentum and the transformed
-    batch cast), the referee of the card's float32 and the CPU's.
-    Returns ``{steps:
-    (worst, the three worst blobs, max |loss diff|)}`` and ``{("float64",
-    steps): (card, cpu)}``: each side's worst blob's distance from the
-    float64 run relative to its update, with the other side's there."""
+    of ``IMNET_CPU_STEPS`` also runs on the CPU in float64 (params,
+    momentum and the transformed batch cast), the referee of the card's
+    float32 and the CPU's (ROADMAP C.3; the one-step round is not
+    refereed: its float64 run took a third of the phase's CPU time).
+    Returns ``{steps: (worst, the three worst blobs, max |loss diff|)}``
+    and ``{("float64", IMNET_CPU_STEPS): (card, cpu)}``: each side's
+    worst blob's distance from the float64 run relative to its update,
+    with the other side's there."""
     from sparknet_tpu_torch.apps import imagenet_app
     from sparknet_tpu_torch.data import MinibatchSampler, stack_windows
     from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
@@ -2378,7 +2400,7 @@ def _imnet_first_round_matches_cpu(dev, parts, mean):
     for steps in (1, IMNET_CPU_STEPS):
         runs = []
         for d, f64 in ((dev, False), (torch.device("cpu"), False),
-                       (torch.device("cpu"), True)):
+                       (torch.device("cpu"), True))[:3 if steps > 1 else 2]:
             solver = imagenet_app.build_solver(_imnet_args(d), mean, d)
             init = init if init is not None else solver.init_state(0)
             start = init
@@ -2400,14 +2422,17 @@ def _imnet_first_round_matches_cpu(dev, parts, mean):
                 g, c = runs[0][0][name][i].cpu(), runs[1][0][name][i]
                 size = max(float((c - p0.cpu()[None]).abs().max()), 1e-30)
                 rel.append((float((g - c).abs().max()) / size, f"{name}[{i}]"))
-                x = runs[2][0][name][i]
-                vs64.append((float((g.double() - x).abs().max()) / size,
-                             float((c.double() - x).abs().max()) / size,
-                             f"{name}[{i}]"))
+                if len(runs) > 2:
+                    x = runs[2][0][name][i]
+                    vs64.append((float((g.double() - x).abs().max()) / size,
+                                 float((c.double() - x).abs().max()) / size,
+                                 f"{name}[{i}]"))
         rel.sort(reverse=True)
         out[steps] = (rel[0][0], rel[:3],
                       float((runs[0][1] - runs[1][1]).abs().max()))
-        out["float64", steps] = (max(vs64), max(vs64, key=lambda r: r[1]))
+        if vs64:
+            out["float64", steps] = (max(vs64),
+                                     max(vs64, key=lambda r: r[1]))
     return out
 
 
@@ -2555,14 +2580,13 @@ def imagenet_train_end_to_end(dev, card):
         print(f"AlexNet first round ({steps} local step(s)) on the card vs the "
               f"CPU: worst |diff| {worst:.3e} of the update, losses {gap:.3e}; "
               + ", ".join(f"{n} {r:.3e}" for r, n in top))
-    for steps in (1, IMNET_CPU_STEPS):
-        (card_gap, cpu_at, name), (cpu_card_at, cpu_gap, cpu_name) = \
-            vs_cpu["float64", steps]
-        print(f"AlexNet first round ({steps} local step(s)) against float64 on "
-              f"the CPU, relative to the update: the card lies {card_gap:.3e} "
-              f"away at its worst blob {name} (the CPU's float32 there "
-              f"{cpu_at:.3e}); the CPU's float32 lies {cpu_gap:.3e} away at its "
-              f"worst blob {cpu_name} (the card there {cpu_card_at:.3e})")
+    (card_gap, cpu_at, name), (cpu_card_at, cpu_gap, cpu_name) = \
+        vs_cpu["float64", IMNET_CPU_STEPS]
+    print(f"AlexNet first round ({IMNET_CPU_STEPS} local steps) against "
+          f"float64 on the CPU, relative to the update: the card lies "
+          f"{card_gap:.3e} away at its worst blob {name} (the CPU's float32 "
+          f"there {cpu_at:.3e}); the CPU's float32 lies {cpu_gap:.3e} away at "
+          f"its worst blob {cpu_name} (the card there {cpu_card_at:.3e})")
     for leg, fusion, compress, overlap in (("default", "0", "none", False),
                                            ("fused", "1", "none", False),
                                            ("int8", "0", "int8", False),
@@ -5296,6 +5320,10 @@ STALE_MEAN_RTOL = 1e-6
 # the DB app's --stale_bound 2 run against its --stale_bound 0 run (the
 # JAX package pins allclose: Σw·θ/Σw is not the masked mean's bits)
 STALE_DB_RTOL = 1e-5
+# the stale DB legs' rounds: one snapshot interval, so each run writes
+# one 1.5 GB CaffeNet snapshot and commits one ledger (DB_ROUNDS would
+# write two a run for the same checks)
+STALE_DB_ROUNDS = DB_SNAP_EVERY
 PROF_ROUNDS = 4
 STRAGGLER_ROUND, STRAGGLER_WORKER, STRAGGLER_S = 2, 1, 0.4
 OVERLAP_PROF_ROUNDS = 3
@@ -5502,14 +5530,14 @@ def stale_db_end_to_end(dev, card, root, warm):
         res = {}
         cl.reset_launch_counts()
         check(imagenet_run_db_app.main(_db_argv(
-            dev, db_dir, prefix, DB_ROUNDS, "--stale_bound", str(bound),
+            dev, db_dir, prefix, STALE_DB_ROUNDS, "--stale_bound", str(bound),
             "--journal", "--warm_start", warm), res) == 0,
             f"imagenet_run_db --stale_bound {bound} failed")
         torch.cuda.synchronize()
         launches = dict(cl.LAUNCHES)
         runs[bound] = (res, scan(default_journal_path(prefix))[0])
     # every window runs (every worker arrives), as at --stale_bound 0
-    steps = DB_W * DB_TAU * DB_ROUNDS
+    steps = DB_W * DB_TAU * STALE_DB_ROUNDS
     check(launches["lrn_bwd"] == 2 * steps,
           f"--stale_bound 2: K6 launches {launches}, expected {2 * steps}")
     (r0, j0), (r2, j2) = runs[0], runs[2]
@@ -5522,13 +5550,13 @@ def stale_db_end_to_end(dev, card, root, warm):
           "--stale_bound 2: a journal record lacks worker_rounds")
     commits = [r["worker_rounds"] for r in j2 if r["kind"] == "commit"]
     # the app commits at its snapshots
-    check(commits == [[k] * DB_W for k in range(DB_SNAP_EVERY, DB_ROUNDS + 1,
+    check(commits == [[k] * DB_W for k in range(DB_SNAP_EVERY, STALE_DB_ROUNDS + 1,
                                                 DB_SNAP_EVERY)],
           f"--stale_bound 2: committed ledgers {commits}")
     check(not any("worker_rounds" in r for r in j0),
           "--stale_bound 0 journaled a ledger")
     print(f"[{card}] imagenet_run_db_app --stale_bound 2 --journal, CaffeNet "
-          f"W={DB_W} {DB_ROUNDS} rounds: final params {gap:.3e} of the "
+          f"W={DB_W} {STALE_DB_ROUNDS} rounds: final params {gap:.3e} of the "
           f"--stale_bound 0 run's (limit {STALE_DB_RTOL}); {len(j2)} journal "
           f"records, each with worker_rounds (commits {commits}); launches "
           f"{launches}; wall {time.perf_counter() - t0:.2f} s")
@@ -7803,6 +7831,419 @@ def telemetry_end_to_end(dev, card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 22: the host tools and the cli subcommands — the dataset
+# converters and the mean image, classify and detect on CaffeNet/R-CNN
+# at full width through K5, a legacy V1 net upgraded, net surgery, and
+# device_query
+# ----------------------------------------------------------------------
+
+P22_IMAGES = 64  # seeded JPEGs at P22_SIDE, the converters' input
+P22_SIDE = 256
+P22_CLASSIFY = 4  # images classified, plain and --oversample
+P22_DETECT_IMAGES, P22_WINDOWS = 4, 32  # 128 windows, 4 batches of 32
+P22_DETECT_BATCH = 32
+P22_CONTEXT_PAD = 16
+P22_MNIST_TEST = 200  # LeNet's TEST batch is 100: 2 iterations
+P22_SURGERY_IMAGE = 451  # fc_to_conv's dense map: (451 - 227) / 32 + 1 = 8
+P22_TOL = CLI_TEST_RTOL  # card vs CPU, relative to the largest |score|
+P22_SURGERY_TOL = 1e-4  # the 1x1 map vs the classifier (the JAX test's)
+_P22_V1_TYPES = {"Convolution": "CONVOLUTION", "ReLU": "RELU",
+                 "Pooling": "POOLING", "LRN": "LRN",
+                 "InnerProduct": "INNER_PRODUCT", "Dropout": "DROPOUT",
+                 "Softmax": "SOFTMAX"}
+
+
+def _p22_gap(got, want) -> float:
+    """max |got - want| relative to the largest |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape, f"shapes {got.shape} vs {want.shape}")
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                 1e-30)
+
+
+def _p22_jpegs(root):
+    """P22_IMAGES seeded 256x256 JPEGs (smooth gradients and noise, so
+    the decode does real work) and a ``<name> <label>`` listfile."""
+    from PIL import Image
+
+    rs = np.random.RandomState(22)
+    os.makedirs(f"{root}/jpg")
+    yy, xx = np.mgrid[0:P22_SIDE, 0:P22_SIDE]
+    lines = []
+    for i in range(P22_IMAGES):
+        base = (np.sin(xx / (7.0 + i)) + np.cos(yy / (5.0 + i % 9)))[..., None]
+        arr = 128 + 50 * base * rs.uniform(0.5, 1.0, 3) + rs.randn(
+            P22_SIDE, P22_SIDE, 3) * 20
+        Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+            f"{root}/jpg/img_{i:03d}.jpg", quality=90)
+        lines.append(f"img_{i:03d}.jpg {i % 10}")
+    with open(f"{root}/list.txt", "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return f"{root}/jpg", f"{root}/list.txt"
+
+
+def p22_dataset_tools(dev, card, root):
+    """(a): convert_imageset into an LMDB and a record DB, the two means
+    bit-equal; convert_mnist into an LMDB scored by ``cli test`` with the
+    zoo LeNet on the card and on the CPU.  Returns the mean's path."""
+    from sparknet_tpu_torch.data import mnist
+    from sparknet_tpu_torch.models import ZOO_DIR
+    from sparknet_tpu_torch.tools import cli
+
+    t0 = time.perf_counter()
+    jpg, listfile = _p22_jpegs(root)
+    rates, means = {}, {}
+    for backend, db in (("lmdb", f"{root}/img_lmdb"),
+                        ("sndb", f"{root}/img.sndb")):
+        r = {}
+        t = time.perf_counter()
+        check(cli.main(["convert_imageset", jpg, listfile, db, "--backend",
+                        backend], r) == 0, f"convert_imageset {backend}")
+        rates[backend] = r["records"] / (time.perf_counter() - t)
+        check(r["records"] == P22_IMAGES, f"convert_imageset {backend}: {r}")
+        m = {}
+        means[backend] = f"{root}/mean_{backend}.binaryproto"
+        check(cli.main(["compute_image_mean", db, means[backend]], m) == 0,
+              f"compute_image_mean {backend}")
+        check(m["records"] == P22_IMAGES
+              and m["mean"].shape == (3, P22_SIDE, P22_SIDE),
+              f"compute_image_mean {backend}: {m['records']} records, "
+              f"{m['mean'].shape}")
+    with open(means["lmdb"], "rb") as a, open(means["sndb"], "rb") as b:
+        check(a.read() == b.read(), "the LMDB's and the record DB's means "
+              "differ")
+
+    mn = f"{root}/mnist"
+    mnist.write_synthetic(mn, n_train=16, n_test=P22_MNIST_TEST, seed=22)
+    r = {}
+    t = time.perf_counter()
+    check(cli.main(["convert_mnist", f"{mn}/{mnist.TEST_IMAGES}",
+                    f"{mn}/{mnist.TEST_LABELS}", f"{root}/mnist_lmdb",
+                    "--backend", "lmdb"], r) == 0, "convert_mnist")
+    rates["mnist lmdb"] = r["records"] / (time.perf_counter() - t)
+    _reset_counts()
+    scores = {}
+    argv = ["test", "--model", os.path.join(ZOO_DIR,
+                                            "lenet_train_test.prototxt"),
+            "--data", f"{root}/mnist_lmdb", "--iterations",
+            str(P22_MNIST_TEST // 100)]
+    for d in (dev.type, "cpu"):
+        res = {}
+        check(cli.main(argv + ["--device", d], res) == 0, f"cli test {d}")
+        scores[d] = res["scores"]
+    launches = _read_counts()
+    gaps = {k: abs(scores[dev.type][k] - scores["cpu"][k])
+            / max(abs(scores["cpu"][k]), 1e-12) for k in scores["cpu"]}
+    check(set(gaps) == {"accuracy", "loss"}
+          and max(gaps.values()) <= 1e-5,
+          f"cli test LeNet: card {scores[dev.type]} vs CPU {scores['cpu']}")
+    check(not any(launches.values()), f"LeNet launched {launches}")
+    print(f"[{card}] (a) convert_imageset {P22_IMAGES} JPEGs "
+          f"{P22_SIDE}x{P22_SIDE}: lmdb {rates['lmdb']:.1f}, record DB "
+          f"{rates['sndb']:.1f} records/s; the two mean.binaryproto "
+          f"bit-equal; convert_mnist {rates['mnist lmdb']:.1f} records/s; "
+          f"cli test LeNet card {scores[dev.type]} vs CPU {scores['cpu']} "
+          f"(relative gaps {gaps}); K5 launches 0; wall "
+          f"{time.perf_counter() - t0:.2f} s")
+    return jpg, means["lmdb"]
+
+
+def _p22_weights(netp, path):
+    """Seeded weights of ``netp`` (TEST view) written as a .caffemodel;
+    returns the net."""
+    from sparknet_tpu_torch.io import caffemodel
+    from sparknet_tpu_torch.net import TorchNet
+
+    net = TorchNet(netp, phase="TEST")
+    params, stats = net.init(0)
+    caffemodel.save_weights(caffemodel.net_blobs(net, params, stats), path)
+    return net
+
+
+def _p22_v1(netp) -> str:
+    """A deploy net as a V1 prototxt: ``layers`` entries, enum type names,
+    ``blobs_lr``/``weight_decay``, the input as ``input``/``input_dim``."""
+    from sparknet_tpu_torch import config
+
+    (inp,) = [lp for lp in netp.layer if lp.type == "Input"]
+    lines = [f'name: "{netp.name}"', 'input: "data"'] + [
+        f"input_dim: {d}" for d in inp.input_param.shape[0].dim]
+    for lp in netp.layer:
+        if lp is inp:
+            continue
+        v1 = lp.copy()
+        v1.param = []
+        body = config.dumps(v1).replace(f'type: "{lp.type}"',
+                                        f"type: {_P22_V1_TYPES[lp.type]}")
+        if lp.param:
+            body += "".join(f"blobs_lr: {p.lr_mult}\n" for p in lp.param)
+            body += "".join(f"weight_decay: {p.decay_mult}\n"
+                            for p in lp.param)
+        lines.append("layers {\n" + body + "}")
+    return "\n".join(lines) + "\n"
+
+
+def p22_classify(dev, card, root, jpg, mean):
+    """(b) and (c): ``cli classify`` on the zoo CaffeNet (its deploy view,
+    seeded weights in a .caffemodel), 4 images plain and --oversample, on
+    the card and the CPU; then the same net as a V1 prototxt through
+    ``upgrade_net_proto_text``, classified on the card: (b)'s plain
+    scores bit for bit.  Returns (b)'s and (c)'s K5 launches and the
+    deploy net and its weights file."""
+    from sparknet_tpu_torch import config, models
+    from sparknet_tpu_torch.tools import cli
+
+    t0 = time.perf_counter()
+    deploy = models.deploy_variant(models.load_model("caffenet"))
+    weights = f"{root}/caffenet_p22.caffemodel"
+    net = _p22_weights(deploy, weights)
+    lrn = [lp for lp in net.net_param.layer if lp.type == "LRN"]
+    check([lp.lrn_param.norm_region for lp in lrn]
+          == ["ACROSS_CHANNELS"] * 2, "CaffeNet's LRNs")
+    with open(f"{root}/caffenet_deploy.prototxt", "w") as f:
+        f.write(config.dumps(deploy))
+    images = [f"{jpg}/img_{i:03d}.jpg" for i in range(P22_CLASSIFY)]
+    base = ["classify", "--model", f"{root}/caffenet_deploy.prototxt",
+            "--weights", weights, "--mean", mean] + images
+    runs, walls, launches = {}, {}, 0
+    for mode, extra in (("plain", []), ("oversample", ["--oversample"])):
+        for d in (dev.type, "cpu"):
+            res, out = {}, io.StringIO()
+            _reset_counts()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):  # 6 lines an image
+                check(cli.main(base + extra + ["--device", d], res) == 0,
+                      f"classify {mode} {d}")
+            got = _read_counts()
+            walls[mode, d] = time.perf_counter() - t
+            runs[mode, d] = res["scores"]
+            check(out.getvalue().count("---------- Prediction for ")
+                  == P22_CLASSIFY, f"classify {mode} {d}: {out.getvalue()}")
+            if d != "cpu":
+                launches += got["lrn_fwd"]
+                check(got["lrn_fwd"] == 2 * P22_CLASSIFY and got["lrn_bwd"]
+                      == 0 and got["lrn_pool_fwd"] == 0,
+                      f"classify {mode}: launches {got}")
+        gaps = [_p22_gap(a, b) for a, b in zip(runs[mode, dev.type],
+                                               runs[mode, "cpu"])]
+        tops = [(int(np.argmax(a)), int(np.argmax(b)))
+                for a, b in zip(runs[mode, dev.type], runs[mode, "cpu"])]
+        check(len(gaps) == P22_CLASSIFY and max(gaps) <= P22_TOL,
+              f"classify {mode}: card vs CPU gaps {gaps} (limit {P22_TOL})")
+        check(all(a == b for a, b in tops), f"classify {mode}: top-1 {tops}")
+        print(f"[{card}] (b) classify {mode}, CaffeNet 227, 1000 classes, "
+              f"{P22_CLASSIFY} images: card vs CPU {max(gaps):.3e} of the "
+              f"largest score (limit {P22_TOL}), top-1 {[a for a, _ in tops]} "
+              f"equal; {P22_CLASSIFY / walls[mode, dev.type]:.2f} images/s "
+              f"on the card ({walls[mode, dev.type]:.2f} s, weights load "
+              f"and net build included), CPU {walls[mode, 'cpu']:.2f} s")
+    check(launches == 4 * P22_CLASSIFY, f"(b) K5 launches {launches}")
+    print(f"[{card}] (b) K5 launches {launches}; wall "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    with open(f"{root}/caffenet_v1.prototxt", "w") as f:
+        f.write(_p22_v1(deploy))
+    check(cli.main(["upgrade_net_proto_text", f"{root}/caffenet_v1.prototxt",
+                    f"{root}/caffenet_upgraded.prototxt"]) == 0,
+          "upgrade_net_proto_text")
+    upgraded = config.load_net_prototxt(f"{root}/caffenet_upgraded.prototxt")
+    check(not upgraded.layers and [lp.type for lp in upgraded.layer]
+          == [lp.type for lp in deploy.layer if lp.type != "Input"],
+          "the upgraded CaffeNet's layers")
+    res = {}
+    _reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(cli.main(["classify", "--model",
+                        f"{root}/caffenet_upgraded.prototxt", "--weights",
+                        weights, "--mean", mean, "--device", dev.type]
+                       + images, res) == 0, "classify the upgraded net")
+    got = _read_counts()
+    same = all(np.array_equal(a, b)
+               for a, b in zip(res["scores"], runs["plain", dev.type]))
+    gap = max(_p22_gap(a, b)
+              for a, b in zip(res["scores"], runs["plain", dev.type]))
+    check(same, f"(c) the upgraded V1 net's scores differ from (b)'s by "
+          f"{gap:.3e}")
+    check(got["lrn_fwd"] == 2 * P22_CLASSIFY, f"(c) launches {got}")
+    print(f"[{card}] (c) V1 CaffeNet (layers, enum types, blobs_lr/"
+          f"weight_decay) through upgrade_net_proto_text: classify gives "
+          f"(b)'s plain scores bit for bit; K5 launches {got['lrn_fwd']}; "
+          f"wall {time.perf_counter() - t0:.2f} s")
+    return launches + got["lrn_fwd"], deploy, weights
+
+
+def p22_detect(dev, card, root, jpg, mean):
+    """(d): ``cli detect`` with the zoo R-CNN (one feed blob, built at
+    batch 10) scored in batches of 32 over 128 windows with context pad
+    16; the first batch against a CPU ``Detector``.  Returns K5's
+    launches."""
+    from sparknet_tpu_torch import config, models
+    from sparknet_tpu_torch.tools import cli
+    from sparknet_tpu_torch.tools.detector import Detector
+
+    t0 = time.perf_counter()
+    netp = models.load_model("rcnn_ilsvrc13")
+    weights = f"{root}/rcnn_p22.caffemodel"
+    net = _p22_weights(netp, weights)
+    check(list(net.feed_blobs) == ["data"]
+          and net.blob_shapes["data"][0] == 10, "R-CNN's one feed blob")
+    with open(f"{root}/rcnn.prototxt", "w") as f:
+        f.write(config.dumps(netp))
+    rs = np.random.RandomState(23)
+    rows, jobs = [], []
+    for k in range(P22_DETECT_IMAGES):
+        path = f"{jpg}/img_{k:03d}.jpg"
+        wins = []
+        rows.append(f"# {k}\n{path}\n3\n{P22_SIDE}\n{P22_SIDE}\n"
+                    f"{P22_WINDOWS}\n")
+        for _ in range(P22_WINDOWS):
+            x1, y1 = rs.randint(0, P22_SIDE - 40, 2)
+            x2 = rs.randint(x1 + 16, P22_SIDE)
+            y2 = rs.randint(y1 + 16, P22_SIDE)
+            rows.append(f"{rs.randint(1, 200)} 0.7 {x1} {y1} {x2} {y2}\n")
+            wins.append((int(y1), int(x1), int(y2) + 1, int(x2) + 1))
+        jobs.append((path, wins))
+    with open(f"{root}/windows.txt", "w") as f:
+        f.write("".join(rows))
+    res, out = {}, io.StringIO()
+    _reset_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):  # one line a window
+        check(cli.main(["detect", "--model", f"{root}/rcnn.prototxt",
+                        "--weights", weights, "--window_file",
+                        f"{root}/windows.txt", "--mean", mean, "--context_pad",
+                        str(P22_CONTEXT_PAD), "--batch", str(P22_DETECT_BATCH),
+                        "--device", dev.type], res) == 0, "cli detect")
+    launches = _read_counts()
+    wall = time.perf_counter() - t
+    n = P22_DETECT_IMAGES * P22_WINDOWS
+    check(len(out.getvalue().splitlines()) == n,
+          f"detect printed {len(out.getvalue().splitlines())} lines")
+    batches = -(-n // P22_DETECT_BATCH)
+    check(len(res["scores"]) == n
+          and all(s.shape == (200,) for s in res["scores"]),
+          f"detect: {len(res['scores'])} score vectors")
+    check(launches["lrn_fwd"] == 2 * batches and launches["lrn_bwd"] == 0,
+          f"detect: launches {launches}")
+    cpu = Detector(netp, weights=weights, mean=res["detector"].mean,
+                   context_pad=P22_CONTEXT_PAD, batch=P22_DETECT_BATCH,
+                   device="cpu")
+    first = cpu.detect_windows([(jobs[0][0], jobs[0][1][:P22_DETECT_BATCH])])
+    gap = max(_p22_gap(a, d["prediction"])
+              for a, d in zip(res["scores"], first))
+    check(len(first) == P22_DETECT_BATCH and gap <= P22_TOL,
+          f"detect: the first batch {gap:.3e} from the CPU's (limit "
+          f"{P22_TOL})")
+    print(f"[{card}] (d) detect, R-CNN 227, 200 classes, {n} windows over "
+          f"{P22_DETECT_IMAGES} images, batches of {P22_DETECT_BATCH}, "
+          f"context pad {P22_CONTEXT_PAD}: {n / wall:.1f} windows/s on the "
+          f"card ({wall:.2f} s, weights load and crops included); the first "
+          f"batch {gap:.3e} of the largest score from a CPU Detector's; K5 "
+          f"launches {launches['lrn_fwd']}; wall "
+          f"{time.perf_counter() - t0:.2f} s")
+    return launches["lrn_fwd"]
+
+
+def p22_surgery(dev, card, deploy, weights):
+    """(e): ``fc_to_conv`` on CaffeNet's fc6, fc7 and fc8 (fc6 a 6x6
+    convolution) on the card: at 227 the 1x1 map is the classifier's
+    fc8; at 451 a finite (1, 1000, 8, 8) map, within P22_TOL of the
+    CPU's.  Returns K5's launches."""
+    from sparknet_tpu_torch import config
+    from sparknet_tpu_torch.io import caffemodel
+    from sparknet_tpu_torch.net import TorchNet
+    from sparknet_tpu_torch.tools.net_surgery import fc_to_conv
+
+    t0 = time.perf_counter()
+    net = TorchNet(deploy, phase="TEST")
+    loaded = caffemodel.load_weights(weights)
+    maps, launches = {}, 0
+    for d in (dev, torch.device("cpu")):
+        params, stats = net.init(0, d)
+        params, stats = caffemodel.apply_blobs(net, params, stats, loaded)
+        conv_netp, conv_params = fc_to_conv(deploy, net.blob_shapes, params,
+                                            ["fc6", "fc7", "fc8"])
+        by = {lp.name: lp for lp in conv_netp.layer}
+        check(by["fc6"].convolution_param.kernel_size == [6]
+              and by["fc7"].convolution_param.kernel_size == [1],
+              "fc_to_conv: kernels")
+        check(conv_params["fc6"][0].data_ptr() == params["fc6"][0].data_ptr(),
+              "fc_to_conv copied fc6's weight")
+        rs = np.random.RandomState(24)
+        x = torch.from_numpy((rs.randn(1, 3, 227, 227) * 50).astype(
+            np.float32)).to(d)
+        xb = torch.from_numpy((rs.randn(1, 3, P22_SURGERY_IMAGE,
+                                        P22_SURGERY_IMAGE) * 50).astype(
+            np.float32)).to(d)
+        shape = [(1, 3, P22_SURGERY_IMAGE, P22_SURGERY_IMAGE)]
+        big = TorchNet(config.replace_data_layers(conv_netp, shape, shape),
+                       phase="TEST")
+        conv_net = TorchNet(conv_netp, phase="TEST")
+        _reset_counts()
+        with torch.inference_mode():
+            ref = net.forward(params, stats, {"data": x})["fc8"].cpu()
+            one = conv_net.forward(conv_params, stats, {"data": x})["fc8"].cpu()
+            dense = big.forward(conv_params, stats, {"data": xb})["fc8"].cpu()
+        got = _read_counts()
+        if d.type != "cpu":
+            launches = got["lrn_fwd"]
+            check(launches == 6 and got["lrn_bwd"] == 0,
+                  f"(e) launches {got}")
+        check(tuple(one.shape) == (1, 1000, 1, 1), f"(e) 1x1 map {one.shape}")
+        err = float((one[:, :, 0, 0] - ref).abs().max())
+        check(torch.allclose(one[:, :, 0, 0], ref, atol=P22_SURGERY_TOL,
+                             rtol=P22_SURGERY_TOL),
+              f"(e) the 1x1 map {err:.3e} from the classifier's fc8")
+        side = (P22_SURGERY_IMAGE - 227) // 32 + 1
+        check(tuple(dense.shape) == (1, 1000, side, side)
+              and bool(torch.isfinite(dense).all()),
+              f"(e) dense map {tuple(dense.shape)}")
+        maps[d.type] = (dense.numpy(), err)
+    gap = _p22_gap(maps[dev.type][0], maps["cpu"][0])
+    check(gap <= P22_TOL, f"(e) the {P22_SURGERY_IMAGE} map {gap:.3e} from "
+          f"the CPU's (limit {P22_TOL})")
+    print(f"[{card}] (e) fc_to_conv CaffeNet fc6 (6x6), fc7, fc8: the 1x1 map "
+          f"{maps[dev.type][1]:.3e} from the classifier's fc8 at 227; a "
+          f"(1, 1000, {side}, {side}) map at {P22_SURGERY_IMAGE} (norm1 "
+          f"{big.blob_shapes['norm1'][1:]}, norm2 {big.blob_shapes['norm2'][1:]}"
+          f"), {gap:.3e} of its largest entry from the CPU's; K5 launches "
+          f"{launches} (2 a forward: 227, its 1x1 map, {P22_SURGERY_IMAGE}); "
+          f"wall {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+def p22_device_query(card):
+    """(f): ``cli device_query``'s line for the card."""
+    from sparknet_tpu_torch.tools import cli
+
+    res = {}
+    check(cli.main(["device_query"], res) == 0, "device_query")
+    want = (f"device 0: platform=gpu kind={torch.cuda.get_device_name(0)} "
+            "process=0")
+    check(res["lines"][:1] == [want]
+          and len(res["lines"]) == torch.cuda.device_count(),
+          f"device_query: {res['lines']}")
+    print(f"[{card}] (f) {res['lines'][0]}")
+
+
+def host_tools_end_to_end(dev, card):
+    """Phase 22 (see the module doc).  Returns the K5 launches of its
+    main paths."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p22_") as root:
+        jpg, mean = p22_dataset_tools(dev, card, root)
+        n_bc, deploy, weights = p22_classify(dev, card, root, jpg, mean)
+        n_d = p22_detect(dev, card, root, jpg, mean)
+        n_e = p22_surgery(dev, card, deploy, weights)
+        p22_device_query(card)
+    print(f"[{card}] phase 22 wall {time.perf_counter() - t0:.2f} s; K5 "
+          f"launches (b)+(c) {n_bc}, (d) {n_d}, (e) {n_e}")
+    return {"lrn_fwd": n_bc + n_d + n_e}
+
+
+
 def cudnn_failure_report(exc: BaseException) -> None:
     """On a failed run: cuDNN's version and flags, the device's free
     memory, the tensors of the port's innermost frame on the failing
@@ -7956,6 +8397,8 @@ def run_all() -> int:
     for name, n in averaging_machinery_across_processes(dev, card).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in telemetry_end_to_end(dev, card).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in host_tools_end_to_end(dev, card).items():
         launches[name] = launches.get(name, 0) + n
     slow = sorted(((w, n, k) for k, (w, n) in WALLS.items() if w >= 1.0),
                   reverse=True)

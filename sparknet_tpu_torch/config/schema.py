@@ -1,13 +1,13 @@
 """Typed configuration schema compatible with Caffe's proto2 config language.
 
 The port's own copy of ``sparknet_tpu/config/schema.py``: every layer
-parameter message of the JAX package's schema (50), the net, solver and
-net-state messages.  Field names, defaults and enum literals match the
-reference schema, so its configs parse unchanged.  Not copied: the
-``BlobProto`` message and the V1 legacy fields (``LayerParameter.blobs``,
-``blobs_lr``, ``weight_decay``, ``NetParameter.layers``), which the port's
-parser does not upgrade — weights travel in ``.caffemodel`` files
-(``io/caffemodel.py``), never inside a prototxt.
+parameter message of the JAX package's schema (50), the net, solver,
+net-state and solver-state messages, ``BlobProto``, and the V1 legacy
+fields (``LayerParameter.blobs``, ``blobs_lr``, ``weight_decay``,
+``NetParameter.layers``) that the V0/V1 upgrades of
+``config/prototext.py`` and the binary codec of ``io/protobin.py`` fold
+into the modern messages.  Field names, defaults and enum literals match
+the reference schema, so its configs parse unchanged.
 """
 
 from __future__ import annotations
@@ -40,7 +40,23 @@ def _deep_copy(v):
 
 @dataclass
 class BlobShape(Message):
+    """N-D shape (reference: caffe.proto ``BlobShape``)."""
+
     dim: List[int] = field(default_factory=list)
+
+
+@dataclass
+class BlobProto(Message):
+    """Serialized tensor; used for weights and mean images."""
+
+    shape: Optional[BlobShape] = None
+    data: List[float] = field(default_factory=list)
+    diff: List[float] = field(default_factory=list)
+    # legacy 4-D dimensions
+    num: int = 0
+    channels: int = 0
+    height: int = 0
+    width: int = 0
 
 
 @dataclass
@@ -507,6 +523,7 @@ class LayerParameter(Message):
     phase: Optional[str] = None
     loss_weight: List[float] = field(default_factory=list)
     param: List[ParamSpec] = field(default_factory=list)
+    blobs: List[BlobProto] = field(default_factory=list)
     propagate_down: List[bool] = field(default_factory=list)
     include: List[NetStateRule] = field(default_factory=list)
     exclude: List[NetStateRule] = field(default_factory=list)
@@ -556,6 +573,10 @@ class LayerParameter(Message):
     threshold_param: Optional[ThresholdParameter] = None
     tile_param: Optional[TileParameter] = None
     window_data_param: Optional[WindowDataParameter] = None
+    # V1 legacy per-blob multipliers (upgraded into `param` on parse;
+    # reference: V1LayerParameter in caffe.proto:1045 + upgrade_proto.cpp)
+    blobs_lr: List[float] = field(default_factory=list)
+    weight_decay: List[float] = field(default_factory=list)
 
 
 @dataclass
@@ -570,6 +591,8 @@ class NetParameter(Message):
     state: Optional[NetState] = None
     debug_info: bool = False
     layer: List[LayerParameter] = field(default_factory=list)
+    # legacy V1 layers parse into the same list
+    layers: List[LayerParameter] = field(default_factory=list)
 
 
 @dataclass
@@ -581,6 +604,9 @@ class SolverParameter(Message):
     train_net: Optional[str] = None
     test_net: List[str] = field(default_factory=list)
     train_net_param: Optional[NetParameter] = None
+    test_net_param: List[NetParameter] = field(default_factory=list)
+    train_state: Optional[NetState] = None
+    test_state: List[NetState] = field(default_factory=list)
     test_iter: List[int] = field(default_factory=list)
     test_interval: int = 0
     test_compute_loss: bool = False
@@ -646,3 +672,13 @@ def solver_method(p: SolverParameter) -> str:
     if key not in _LEGACY_SOLVER_TYPES:
         raise ValueError(f"unrecognized solver type: {p.type!r}")
     return key
+
+
+@dataclass
+class SolverState(Message):
+    """Checkpointed solver progress (reference: caffe.proto:245-255)."""
+
+    iter: int = 0
+    learned_net: Optional[str] = None
+    history: List[BlobProto] = field(default_factory=list)
+    current_step: int = 0

@@ -5,8 +5,10 @@ Datum codec (``io/lmdb.py``, ``io/leveldb.py``: pure-Python readers and
 writers, and one-time importers into the runtime's record DB), and the
 run journal (``io/journal.py``).
 
-The prototxt binary codec (``io/protobin.py``, ``io/proto_fields.py``)
-is not yet ported."""
+``io/protobin.py`` is the binary codec of the config schema (binary
+``NetParameter`` and ``SolverParameter`` files, legacy V0/V1 nets
+upgraded on load, layer weight blobs carried through), driven by the
+field-number tables of ``io/proto_fields.py``."""
 
 from sparknet_tpu_torch.io.caffemodel import (
     load_mean_image,

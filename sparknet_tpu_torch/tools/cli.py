@@ -1,10 +1,11 @@
-"""Command-line entry point of the port: ``serve``, ``train``, ``test``,
-``time``.
+"""Command-line entry point of the port: the ``caffe`` binary's brew
+commands and the host tools.
 
-The port of the ``serve``, ``train``, ``test`` and ``time`` subcommands of
-``sparknet_tpu/tools/cli.py``, with the same flags and defaults plus
-``--device`` (default ``cuda``; ``--device=cpu`` runs the plain versions
-of the kernels on the CPU)::
+The port of every subcommand of ``sparknet_tpu/tools/cli.py``, with the
+same flags and defaults; ``serve``, ``train``, ``test``, ``time``,
+``classify``, ``detect`` and ``device_query`` also take ``--device``
+(default ``cuda``; ``--device=cpu`` runs the plain versions of the
+kernels on the CPU)::
 
     python -m sparknet_tpu_torch.tools.cli serve --net caffenet \
         [--weights W.caffemodel] [--buckets 1,4,16,64] [--dtype bfloat16] \
@@ -19,6 +20,20 @@ of the kernels on the CPU)::
         [--weights F.caffemodel] [--data DIR|LMDB|LEVELDB|DB] [--iterations 50]
     python -m sparknet_tpu_torch.tools.cli time --model caffenet \
         [--iterations 10] [--batch 32]
+    python -m sparknet_tpu_torch.tools.cli device_query
+    python -m sparknet_tpu_torch.tools.cli classify --model caffenet \
+        [--weights W.caffemodel] [--mean mean.binaryproto] [--oversample] IMG...
+    python -m sparknet_tpu_torch.tools.cli detect --model rcnn_ilsvrc13 \
+        --window_file WINDOWS.txt [--context_pad 16] [--batch 32]
+    python -m sparknet_tpu_torch.tools.cli convert_imageset ROOT LIST DB \
+        [--backend sndb|lmdb|leveldb] [--gray] [--shuffle] [--resize_width W]
+    python -m sparknet_tpu_torch.tools.cli convert_mnist IMAGES LABELS DB
+    python -m sparknet_tpu_torch.tools.cli compute_image_mean DB [OUT]
+    python -m sparknet_tpu_torch.tools.cli upgrade_net_proto_text IN OUT
+    python -m sparknet_tpu_torch.tools.cli upgrade_net_proto_binary IN OUT
+    python -m sparknet_tpu_torch.tools.cli upgrade_solver_proto_text IN OUT
+    python -m sparknet_tpu_torch.tools.cli parse_log LOG [--out PREFIX]
+    python -m sparknet_tpu_torch.tools.cli draw_net NET.prototxt OUT.dot
 
 ``serve`` answers ``POST /predict`` on a deploy net (a zoo name or a
 prototxt; a train/test net is taken to its deploy view), or ``POST
@@ -51,9 +66,13 @@ N, one rank a card; outside a joined world it spawns the N ranks
 through ``tools/launch.py`` (``--backend gloo`` lets them share fewer
 cards, or run on the CPU), and only rank 0 logs, writes snapshots,
 commits the journal, publishes and writes the ``--profile`` summary
-(each rank profiles its own windows).  ``--obs`` and the other subcommands
-(``classify``, ``device_query``, the converters, ...) come with later
-slices; the flags raise "not yet ported" here.
+(each rank profiles its own windows).
+``classify`` and ``detect`` run a deploy net's forward on the card
+(``tools/detector.py`` scores windows in fixed batches); their score
+vectors land in ``result["scores"]`` for a caller that passes
+``result``.  ``device_query`` prints one line a CUDA device.  The
+converters, ``compute_image_mean``, ``parse_log``, ``draw_net`` and the
+three upgrades touch no device, and write the JAX commands' bytes.
 """
 
 from __future__ import annotations
@@ -83,7 +102,7 @@ def cmd_serve(args) -> int:
     ``--trace_out``, ``--ship_to``, ...) start on the server's registry,
     so the sidecar, the SLO evaluator and the shipper read the engine's
     and the fleet's series.  On the card unless ``--device=cpu``."""
-    from sparknet_tpu_torch import config, models, obs
+    from sparknet_tpu_torch import obs
     from sparknet_tpu_torch.serve import (
         DeliveryController,
         GenerationEngine,
@@ -124,11 +143,7 @@ def cmd_serve(args) -> int:
             print("serve: --net is required without --generate",
                   file=sys.stderr)
             return 2
-        netp = (
-            config.load_net_prototxt(args.net)
-            if args.net.endswith(".prototxt")
-            else models.load_model(args.net)
-        )
+        netp = _load_net_arg(args.net)
         buckets = [int(b) for b in args.buckets.split(",") if b.strip()]
 
         def make_engine(weights=None, device=device):
@@ -803,9 +818,452 @@ def cmd_test(args) -> int:
     return 0
 
 
+def cmd_device_query(args) -> int:
+    """``device_query``: one line a CUDA device (``platform=gpu``, the
+    card's name, this process's rank); with no card it raises unless
+    ``--device=cpu``, which prints the CPU's line."""
+    import torch
+
+    from sparknet_tpu_torch.utils.devices import resolve_device
+
+    device = resolve_device(args.device)
+    rank = (torch.distributed.get_rank()
+            if torch.distributed.is_available()
+            and torch.distributed.is_initialized() else 0)
+    if device.type == "cpu":
+        lines = [f"device 0: platform=cpu kind=cpu process={rank}"]
+    else:
+        lines = [
+            f"device {i}: platform=gpu kind={torch.cuda.get_device_name(i)} "
+            f"process={rank}"
+            for i in range(torch.cuda.device_count())
+        ]
+    for line in lines:
+        print(line)
+    if args.result is not None:
+        args.result.update(lines=lines)
+    return 0
+
+
+def cmd_convert_imageset(args) -> int:
+    """``convert_imageset [--shuffle] [--gray] [--resize_width W
+    --resize_height H] [--backend sndb|lmdb|leveldb] ROOT LISTFILE DB``:
+    a DB of Datum records from an image tree and a ``<relpath> <label>``
+    listfile (reference: ``caffe/tools/convert_imageset.cpp``); the bytes
+    equal the JAX command's on the same images."""
+    from PIL import Image
+
+    entries = []
+    with open(args.listfile) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            name, label = line.rsplit(None, 1)
+            entries.append((name, int(label)))
+    if args.shuffle:  # FLAGS_shuffle
+        np.random.RandomState(args.seed).shuffle(entries)
+
+    images, labels = [], []
+    for name, label in entries:
+        img = Image.open(os.path.join(args.root, name))
+        img = img.convert("L" if args.gray else "RGB")
+        if args.resize_width and args.resize_height:
+            img = img.resize((args.resize_width, args.resize_height))
+        arr = np.asarray(img, np.uint8)
+        if arr.ndim == 2:
+            arr = arr[:, :, None]
+        images.append(np.ascontiguousarray(arr.transpose(2, 0, 1)))
+        labels.append(label)
+    if not images:
+        print("convert_imageset: empty listfile", file=sys.stderr)
+        return 1
+    shapes = {im.shape for im in images}
+    if args.check_size and len(shapes) > 1:
+        print(f"convert_imageset: sizes differ: {shapes}", file=sys.stderr)
+        return 1
+    if len(shapes) > 1:
+        raise SystemExit(
+            "images have differing sizes; pass --resize_width/--resize_height"
+        )
+    _write_backend_db(args.backend, args.db, np.stack(images), labels)
+    print(f"Processed {len(labels)} files.")
+    if args.result is not None:
+        args.result.update(records=len(labels))
+    return 0
+
+
+def _write_backend_db(backend: str, db: str, images, labels) -> None:
+    """One Datum-DB writer dispatch for every converter command."""
+    if backend == "lmdb":
+        from sparknet_tpu_torch.io import lmdb
+
+        lmdb.write_datum_lmdb(db, images, labels)
+    elif backend == "leveldb":
+        from sparknet_tpu_torch.io import leveldb
+
+        leveldb.write_datum_leveldb(db, images, labels)
+    else:
+        from sparknet_tpu_torch import runtime
+
+        runtime.write_datum_db(db, images, np.asarray(labels))
+
+
+def cmd_convert_mnist(args) -> int:
+    """``convert_mnist IMAGES LABELS DB [--backend B] [--pairs N]``: idx
+    files into a Datum DB (reference: ``examples/mnist/
+    convert_mnist_data.cpp``); ``--pairs N`` packs N random 2-channel
+    image pairs labelled same-class instead (``examples/siamese/
+    convert_mnist_siamese_data.cpp``)."""
+    from sparknet_tpu_torch.data import mnist
+
+    images = mnist.read_idx_images(args.images)
+    labels = mnist.read_idx_labels(args.labels)
+    if len(images) != len(labels):
+        print(
+            f"convert_mnist: {len(images)} images vs {len(labels)} labels",
+            file=sys.stderr,
+        )
+        return 1
+    if args.pairs:
+        images, labels = mnist.make_pairs(
+            images, labels, args.pairs, seed=args.seed
+        )
+    _write_backend_db(args.backend, args.db, images, labels)
+    print(f"Processed {len(labels)} records.")
+    if args.result is not None:
+        args.result.update(records=len(labels))
+    return 0
+
+
+def _load_net_arg(path: str):
+    """A prototxt path (legacy V0/V1 nets upgrade on load) or a zoo name."""
+    from sparknet_tpu_torch import config, models
+
+    return (config.load_net_prototxt(path) if path.endswith(".prototxt")
+            else models.load_model(path))
+
+
+def cmd_classify(args) -> int:
+    """``classify --model D.prototxt --weights W.caffemodel [--mean M]
+    [--labels L.txt] [--topk 5] [--oversample] IMAGE...``: single-image
+    inference with top-k class output (reference: ``examples/
+    cpp_classification/classification.cpp``), on the card unless
+    ``--device=cpu``.  The deploy net's input size drives the resize; a
+    train/test net is taken to its deploy view; the mean is a
+    binaryproto (center-cropped to the input) or comma-separated channel
+    values.  ``result["scores"]`` holds each image's score vector."""
+    import torch
+    from PIL import Image
+
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.data.transformer import oversample_chw
+    from sparknet_tpu_torch.io import caffemodel
+    from sparknet_tpu_torch.net import TorchNet
+    from sparknet_tpu_torch.utils.devices import resolve_device
+
+    device = resolve_device(args.device)  # no card: raises, before any build
+    netp = _load_net_arg(args.model)
+    net = TorchNet(netp, phase="TEST")
+    if len(net.feed_blobs) > 1:
+        # train/test config: derive the deploy view (Input data, losses
+        # -> prob) like the BVLC deploy.prototxts do
+        try:
+            netp = models.deploy_variant(netp)
+        except ValueError as e:
+            print(f"classify: {e}", file=sys.stderr)
+            return 1
+        net = TorchNet(netp, phase="TEST")
+        print("classify: derived deploy view from train/test config",
+              file=sys.stderr)
+    data_blob = net.feed_blobs[0]
+    _, c, h, w = net.blob_shapes[data_blob]
+    params, stats = net.init(0, device)
+    if args.weights:
+        params, stats = caffemodel.apply_blobs(
+            net, params, stats, caffemodel.load_weights(args.weights)
+        )
+
+    mean = _load_mean_arg(args.mean) if args.mean else None
+    if mean is not None:
+        if mean.ndim == 1:
+            mean = mean.reshape(-1, 1, 1)
+        elif mean.shape[1] < h or mean.shape[2] < w:
+            print(
+                f"classify: mean image {mean.shape[1]}x{mean.shape[2]} "
+                f"is smaller than the net input {h}x{w}",
+                file=sys.stderr,
+            )
+            return 1
+    labels = None
+    if args.labels:
+        with open(args.labels) as f:
+            labels = [l.strip() for l in f if l.strip()]
+
+    if mean is not None and (mean.shape[1] > h or mean.shape[2] > w):
+        # a larger mean image center-crops to the input (the reference
+        # resizes; the crop keeps exact mean semantics for the standard
+        # 256-mean/227-input case); (C,1,1) value means broadcast as-is
+        off_h = (mean.shape[1] - h) // 2
+        off_w = (mean.shape[2] - w) // 2
+        mean = mean[:, off_h:off_h + h, off_w:off_w + w]
+
+    # "prob" if the deploy net names one (the BVLC convention), else the
+    # last layer's top
+    score_blob = ("prob" if "prob" in net.blob_shapes
+                  else net.net_param.layer[-1].top[0])
+    all_scores = []
+    for path in args.images:
+        img = Image.open(path).convert("L" if c == 1 else "RGB")
+        if args.oversample:
+            # resize to the oversample source dims, then 10-crop at the
+            # net input size and score-average (classifier.py:47-93)
+            src = args.resize or max(256, h, w)
+            if src < h or src < w:
+                print(
+                    f"classify: --resize {src} is smaller than the net "
+                    f"input {h}x{w}; oversample crops need a larger "
+                    "source",
+                    file=sys.stderr,
+                )
+                return 1
+            img = img.resize((src, src), Image.BILINEAR)
+        else:
+            img = img.resize((w, h), Image.BILINEAR)
+        arr = np.asarray(img, np.float32)
+        if arr.ndim == 2:
+            arr = arr[:, :, None]
+        chw = arr.transpose(2, 0, 1)
+        if args.oversample:
+            crops = oversample_chw(chw, h, w)
+            if mean is not None:
+                crops = crops - mean[None]
+        else:
+            crops = (chw - mean if mean is not None else chw)[None]
+        with torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(crops, np.float32))
+            out = net.forward(params, stats, {data_blob: x.to(device)})[
+                score_blob].cpu().numpy()
+        # oversample: average the 10 crops' outputs (classifier.py:81-93)
+        scores = out.reshape(out.shape[0], -1).mean(axis=0)
+        # not a distribution yet (a deploy net ending at fc): softmax
+        if scores.min() < 0 or scores.sum() > 1.001:
+            e = np.exp(scores - scores.max())
+            scores = e / e.sum()
+        all_scores.append(scores)
+        top = np.argsort(scores)[::-1][: args.topk]
+        print(f"---------- Prediction for {path} ----------")
+        for i in top:
+            name = labels[i] if labels and i < len(labels) else f"class {i}"
+            print(f'{scores[i]:.4f} - "{name}"')
+    if args.result is not None:
+        args.result.update(scores=all_scores, images=list(args.images),
+                           net=net)
+    return 0
+
+
+def cmd_parse_log(args) -> int:
+    """``parse_log LOG [--out PREFIX]``: a training log (flat
+    ``training_log_*.txt`` or the ``--trace_out`` JSONL run log) into
+    train/test CSVs (the ``tools/extra/parse_log.py`` role)."""
+    from sparknet_tpu_torch.tools import parse_log as pl
+
+    train, test = pl.parse_log(args.log)
+    prefix = args.out or os.path.splitext(args.log)[0]
+    paths = pl.write_csvs(train, test, prefix)
+    print(
+        f"parsed {len(train)} train rows, {len(test)} test rows -> "
+        + ", ".join(paths)
+    )
+    return 0
+
+
+def cmd_upgrade_net_proto_text(args) -> int:
+    """``upgrade_net_proto_text IN OUT``: rewrite a legacy (V0/V1) net
+    prototxt in the modern format (reference:
+    ``caffe/tools/upgrade_net_proto_text.cpp``; the upgrade passes live
+    in ``config/prototext.py``)."""
+    from sparknet_tpu_torch import config
+    from sparknet_tpu_torch.config import prototext
+
+    netp = config.load_net_prototxt(args.input)  # upgrades on load
+    with open(args.output, "w") as f:
+        f.write(prototext.dumps(netp))
+    print(f"Wrote upgraded net to {args.output}")
+    return 0
+
+
+def cmd_upgrade_net_proto_binary(args) -> int:
+    """``upgrade_net_proto_binary IN OUT``: rewrite a legacy (V0/V1)
+    binary NetParameter in the modern binary format (reference:
+    ``caffe/tools/upgrade_net_proto_binary.cpp``; codec:
+    ``io/protobin.py``).  Layer weight blobs ride through the upgrade in
+    place, as upgrade_proto.cpp:21-80 copies them."""
+    from sparknet_tpu_torch.io import protobin
+
+    netp = protobin.load_net_binary(args.input)  # upgrades on load
+    protobin.save_net_binary(netp, args.output)
+    print(f"Wrote upgraded binary net to {args.output}")
+    return 0
+
+
+def cmd_upgrade_solver_proto_text(args) -> int:
+    """``upgrade_solver_proto_text IN OUT``: rewrite a legacy solver
+    prototxt (enum ``solver_type`` -> string ``type``) in the modern
+    format (reference: ``caffe/tools/upgrade_solver_proto_text.cpp``)."""
+    from sparknet_tpu_torch import config
+    from sparknet_tpu_torch.config import prototext
+    from sparknet_tpu_torch.config.schema import solver_method
+
+    sp = config.load_solver_prototxt(args.input)
+    if sp.solver_type is not None:
+        sp.type = solver_method(sp)
+        sp.solver_type = None
+    with open(args.output, "w") as f:
+        f.write(prototext.dumps(sp))
+    print(f"Wrote upgraded solver to {args.output}")
+    return 0
+
+
+def _load_mean_arg(arg: str):
+    """``--mean`` value -> array: a mean.binaryproto path gives the
+    (C, H, W) mean image; comma-separated values give per-channel (C,)
+    means.  Shared by ``classify`` and ``detect``."""
+    from sparknet_tpu_torch.io import caffemodel
+
+    if os.path.isfile(arg):
+        mean = np.asarray(caffemodel.load_mean_image(arg))
+        return mean[0] if mean.ndim == 4 else mean
+    return np.asarray([float(v) for v in arg.split(",")], np.float32)
+
+
+def cmd_detect(args) -> int:
+    """``detect --model M [--weights W] --window_file F [--context_pad P]
+    [--batch B]``: R-CNN-style windowed detection, every proposal window
+    of an R-CNN window file scored (reference: ``python/caffe/
+    detector.py`` over ``window_data_layer``-format files), on the card
+    unless ``--device=cpu``.  Prints one line a window: ``<image> <x1>
+    <y1> <x2> <y2> <top-class> <score>``; ``result["scores"]`` holds each
+    window's score vector."""
+    from sparknet_tpu_torch.data.windows import parse_window_file
+    from sparknet_tpu_torch.tools.detector import Detector
+    from sparknet_tpu_torch.utils.devices import resolve_device
+
+    device = resolve_device(args.device)  # no card: raises, before any build
+    netp = _load_net_arg(args.model)
+    mean = _load_mean_arg(args.mean) if args.mean else None
+    # Detector validates a too-small mean image itself
+    det = Detector(
+        netp,
+        weights=args.weights,
+        mean=mean,
+        context_pad=args.context_pad,
+        crop_mode=args.crop_mode,
+        batch=args.batch,
+        device=device,
+    )
+    images = parse_window_file(args.window_file, args.root_folder)
+    jobs = []
+    for im in images:
+        # window-file rows are (class, overlap, x1, y1, x2, y2),
+        # inclusive; Detector takes (ymin, xmin, ymax, xmax) max-exclusive
+        wins = [
+            (int(y1), int(x1), int(y2) + 1, int(x2) + 1)
+            for (_cls, _ov, x1, y1, x2, y2) in im.windows
+        ]
+        if wins:
+            jobs.append((im.path, wins))
+    dets = det.detect_windows(jobs)
+    for d in dets:
+        ymin, xmin, ymax, xmax = [int(v) for v in d["window"]]
+        top = int(np.argmax(d["prediction"]))
+        print(
+            f"{d['filename']} {xmin} {ymin} {xmax - 1} {ymax - 1} "
+            f"{top} {float(d['prediction'][top]):.4f}"
+        )
+    print(f"scored {len(dets)} windows over {len(jobs)} images",
+          file=sys.stderr)
+    if args.result is not None:
+        args.result.update(scores=[d["prediction"] for d in dets],
+                           detections=dets, detector=det)
+    return 0
+
+
+def cmd_draw_net(args) -> int:
+    """``draw_net NET OUT.dot``: a graphviz view of a net definition
+    (reference: ``caffe/python/caffe/draw.py`` via
+    ``python/draw_net.py``; the dot source is written directly, render
+    it with ``dot -Tpng OUT.dot -o OUT.png``)."""
+    from sparknet_tpu_torch import config
+    from sparknet_tpu_torch.tools import draw
+
+    netp = config.load_net_prototxt(args.input)
+    draw.draw_net_to_file(
+        netp, args.output, rankdir=args.rankdir,
+        label_edges=not args.no_edge_labels, phase=args.phase,
+    )
+    print(f"Drawing net to {args.output}")
+    return 0
+
+
+def cmd_compute_image_mean(args) -> int:
+    """``compute_image_mean DB [OUTPUT]``: the streaming mean image of a
+    Datum DB (LMDB, LevelDB or record DB), written as mean.binaryproto
+    (reference: ``caffe/tools/compute_image_mean.cpp``)."""
+    from sparknet_tpu_torch.io import caffemodel, lmdb
+
+    total = None
+    count = 0
+    if lmdb.is_lmdb(args.db):
+        it = (img for img, _ in lmdb.read_datum_lmdb(args.db))
+    elif os.path.isdir(args.db):
+        from sparknet_tpu_torch.io import leveldb
+
+        if not leveldb.is_leveldb(args.db):
+            print(
+                f"compute_image_mean: {args.db} is neither an LMDB, a "
+                "LevelDB, nor a record DB",
+                file=sys.stderr,
+            )
+            return 1
+        it = (img for img, _ in leveldb.read_datum_leveldb(args.db))
+    else:
+        from sparknet_tpu_torch import runtime
+        from sparknet_tpu_torch.data.source import _record_shape
+
+        c, h, w = _record_shape(args.db, args.channels, 0, 0)
+
+        def _iter_sndb():
+            with runtime.RecordDB(args.db) as db:
+                for i in range(len(db)):
+                    _, value = db.read(i)
+                    lw = len(value) - c * h * w  # 1- or 2-byte label
+                    yield np.frombuffer(value[lw:], np.uint8).reshape(c, h, w)
+
+        it = _iter_sndb()
+    for img in it:
+        s = img.astype(np.int64)
+        total = s if total is None else total + s
+        count += 1
+    if total is None:
+        print("compute_image_mean: empty db", file=sys.stderr)
+        return 1
+    mean = (total.astype(np.float64) / count).astype(np.float32)
+    caffemodel.save_mean_image(mean, args.output)
+    print(f"Number of items: {count}")
+    for ch in range(mean.shape[0]):
+        print(f"mean_value channel [{ch}]: {mean[ch].mean():.6g}")
+    if args.result is not None:
+        args.result.update(mean=mean, records=count)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int:
     """Run one subcommand; returns its exit code.  ``result``, when given,
-    receives ``train --solver``'s final state, solver and metrics."""
+    receives what the subcommand produced: ``train --solver``'s final
+    state, solver and metrics, ``test``'s scores, ``classify``'s and
+    ``detect``'s score vectors, a converter's record count,
+    ``compute_image_mean``'s mean, ``device_query``'s lines."""
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     if argv[:1] == ["train"] and "--lm" in argv:
         # the transformer-LM workload: the rest of the line goes to
@@ -988,6 +1446,105 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
                    "or cpu (the plain kernel versions)")
     _obs.add_cli_args(p)  # --obs / --slo / --ship_to: on the server's registry
     p.set_defaults(fn=cmd_serve, result=None)
+
+    _DEVICE_HELP = "cuda (default; raises without a CUDA device) or cpu"
+
+    p = sub.add_parser("device_query")
+    p.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    p.set_defaults(fn=cmd_device_query, result=None)
+
+    p = sub.add_parser("convert_imageset")
+    p.add_argument("root", help="image tree root")
+    p.add_argument("listfile", help='"<relpath> <label>" lines')
+    p.add_argument("db", help="output DB path")
+    p.add_argument("--gray", action="store_true")
+    p.add_argument("--shuffle", action="store_true")
+    p.add_argument(
+        "--backend", choices=["sndb", "lmdb", "leveldb"], default="sndb"
+    )
+    p.add_argument("--resize_width", type=int, default=0)
+    p.add_argument("--resize_height", type=int, default=0)
+    p.add_argument("--check_size", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_convert_imageset, result=None)
+
+    p = sub.add_parser("convert_mnist")
+    p.add_argument("images", help="idx3 image file (.gz ok)")
+    p.add_argument("labels", help="idx1 label file (.gz ok)")
+    p.add_argument("db", help="output DB path")
+    p.add_argument(
+        "--backend", choices=["sndb", "lmdb", "leveldb"], default="sndb"
+    )
+    p.add_argument("--pairs", type=int, default=0,
+                   help="write N siamese 2-channel pairs instead")
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_convert_mnist, result=None)
+
+    p = sub.add_parser("parse_log")
+    p.add_argument("log")
+    p.add_argument("--out", default=None, help="CSV prefix")
+    p.set_defaults(fn=cmd_parse_log, result=None)
+
+    p = sub.add_parser("classify")
+    p.add_argument("images", nargs="+")
+    p.add_argument("--model", required=True)
+    p.add_argument("--weights", default=None)
+    p.add_argument("--mean", default=None,
+                   help="mean.binaryproto path or comma-separated values")
+    p.add_argument("--labels", default=None, help="one class name per line")
+    p.add_argument("--topk", type=int, default=5)
+    p.add_argument(
+        "--oversample", action="store_true",
+        help="10-crop (corners+center and mirrors) score averaging "
+        "(classifier.py predict(oversample=True))",
+    )
+    p.add_argument(
+        "--resize", type=int, default=0,
+        help="oversample source size (default max(256, input))",
+    )
+    p.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    p.set_defaults(fn=cmd_classify, result=None)
+
+    for name, fn in (
+        ("upgrade_net_proto_text", cmd_upgrade_net_proto_text),
+        ("upgrade_net_proto_binary", cmd_upgrade_net_proto_binary),
+        ("upgrade_solver_proto_text", cmd_upgrade_solver_proto_text),
+    ):
+        p = sub.add_parser(name)
+        p.add_argument("input")
+        p.add_argument("output")
+        p.set_defaults(fn=fn, result=None)
+
+    p = sub.add_parser("detect")
+    p.add_argument("--model", required=True,
+                   help="deploy prototxt or zoo model name")
+    p.add_argument("--weights", default=None)
+    p.add_argument("--window_file", required=True,
+                   help="R-CNN window_data file of proposal windows")
+    p.add_argument("--root_folder", default="")
+    p.add_argument("--mean", default=None,
+                   help="mean.binaryproto path or comma-separated values")
+    p.add_argument("--context_pad", type=int, default=0)
+    p.add_argument("--crop_mode", default="warp", choices=["warp", "square"])
+    p.add_argument("--batch", type=int, default=32)
+    p.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    p.set_defaults(fn=cmd_detect, result=None)
+
+    p = sub.add_parser("draw_net")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("--rankdir", default="LR", choices=["LR", "TB", "BT", "RL"])
+    p.add_argument("--phase", default=None, choices=["TRAIN", "TEST"])
+    p.add_argument("--no_edge_labels", action="store_true")
+    p.set_defaults(fn=cmd_draw_net, result=None)
+
+    p = sub.add_parser("compute_image_mean")
+    p.add_argument("db")
+    p.add_argument("output", nargs="?", default="mean.binaryproto")
+    p.add_argument("--channels", type=int, default=3,
+                   help="record channels for raw DBs (1 for --gray sets; "
+                   "LMDB Datums carry their own shape)")
+    p.set_defaults(fn=cmd_compute_image_mean, result=None)
 
     args = parser.parse_args(argv)
     args.argv = argv[1:]  # the subcommand's own arguments

@@ -96,7 +96,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "obs/profile.py", "utils/profiler.py", "utils/timers.py",
                 "utils/flops.py", "runtime/chaos.py", "obs/tsdb.py",
                 "obs/slo.py", "obs/ship.py", "obs/fleet.py",
-                "obs/exporter.py", "obs/__init__.py"):
+                "obs/exporter.py", "obs/__init__.py", "io/protobin.py",
+                "io/proto_fields.py", "data/mnist.py", "tools/parse_log.py",
+                "tools/draw.py", "tools/net_surgery.py", "tools/detector.py",
+                "tools/prepare_imagenet.py"):
         assert os.path.join("sparknet_tpu_torch", mod) in rel
     for path in files:
         for mod in _imported_modules(path):
@@ -158,6 +161,13 @@ def test_entry_points_default_to_the_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         featurizer_app.main(["--model", "caffenet", "--blob", "fc7"])
+    # the inference commands, before they read the net or an image
+    for argv in (["device_query"],
+                 ["classify", "--model", "caffenet", "/nonexistent.jpg"],
+                 ["detect", "--model", "rcnn_ilsvrc13", "--window_file",
+                  "/nonexistent.txt"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
     assert resolve_device("cpu").type == "cpu"
 
 
