@@ -479,6 +479,28 @@ Phases (any failure ends the run with a non-zero exit and no result):
    CPU's, K5 6; (f) ``cli device_query``'s line for the card.  Each
    leg's wall, images/s, windows/s and records/s print (host clock);
    the K5 launches join the kernels line.
+23. The hot-path gate (``lint_and_sanitize_end_to_end``): (a) ``python
+   -m sparknet_tpu_torch.tools.lint --check --json`` over this tree, 0
+   new findings, the annotated sync sites counted (``--no-docs`` where
+   the checkout has no PERF.md for the docs leg); (b) the guard armed
+   (``analysis/sanitize.SyncRecorder``: ``set_sync_debug_mode("warn")``,
+   one locked ``showwarning`` hook for every thread, and the two waits
+   the mode does not see, ``torch.cuda.synchronize`` and
+   ``Event.synchronize``, wrapped), a deliberate ``.item()`` must be
+   reported; (c) the JAX sanitizer's loop: cifar10_quick, W=2, tau 2,
+   batch 8, ``--compress int8``, through ``RoundFeed`` and
+   ``ParameterAveragingTrainer``, 2 warm-up rounds and 6 steady rounds
+   under the guard with no sync of the harness's own: every recorded
+   sync's innermost frame of the port lies on a call the lint lists as
+   ``sync-ok``, each site's count a steady round printed, K9/K10 6 x the
+   chunks; (d) the JAX sanitizer's legs 3 (a flat jit cache) and 4
+   (tracer leaks) have no counterpart here, which it prints; (e) ``launch
+   run --num_hosts 2 --coordinator_host 127.0.0.1`` through a fake
+   ``gcloud`` (``utils/procs.write_fake_gcloud``) on a thread beside
+   (a)-(d): two gloo ranks on ``cuda:0`` started at once, each rank's
+   rows, losses, masks, smoothed loss and accuracy bit for bit the
+   one-process run of the same ``cifar --compress int8`` flags.  (c)'s
+   and (e)'s K9/K10 launches join the kernels line.
 
 Before its last lines the script prints its wall seconds by function
 (callees included), for a slice that must cut depth to stay inside the
@@ -508,6 +530,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 
 import numpy as np
 
@@ -8243,6 +8266,252 @@ def host_tools_end_to_end(dev, card):
     return {"lrn_fwd": n_bc + n_d + n_e}
 
 
+# ----------------------------------------------------------------------
+# phase 23: the hot-path gate on the card — the port's lint over the
+# tree, the sync sanitizer over steady int8 rounds (set_sync_debug_mode
+# armed, a control first), and `launch run` executed through a fake
+# gcloud against the stacked one-process run
+# ----------------------------------------------------------------------
+P23_W, P23_TAU, P23_BATCH = 2, 2, 8
+P23_WARM, P23_STEADY = 2, 6
+P23_TIMEOUT_S = 240
+# (e): each host's launcher line after `--`; two ranks share the card
+P23_APP = ["cifar", "--device", "cuda:0", "--workers", "2", "--tau", "2",
+           "--rounds", "2", "--test_every", "1000000", "--compress", "int8"]
+
+
+def p23_lint(card):
+    """(a) ``python -m sparknet_tpu_torch.tools.lint --check --json`` over
+    this tree: 0 new findings.  The registry audit's docs leg holds the
+    code to PERF.md's telemetry reference; a checkout that carries the
+    code without PERF.md runs the lint with ``--no-docs`` and says so
+    (tier-1's ``test_docs_reference_complete`` holds the docs on the
+    CPU).  Returns its annotated sites."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    docs = os.path.exists(os.path.join(repo, "PERF.md"))
+    out = subprocess.run(
+        [sys.executable, "-m", "sparknet_tpu_torch.tools.lint", "--check",
+         "--json", *([] if docs else ["--no-docs"])], capture_output=True,
+        text=True, timeout=300, cwd=repo, env={**os.environ, "PYTHONPATH": repo})
+    try:
+        rep = json.loads(out.stdout)
+    except ValueError:
+        rep = None
+    # the new findings go last: a failure's tail names them
+    new = "\n".join(f"{f['path']}:{f['line']} [{f['checker']}] {f['scope']}: "
+                    f"{f['message']}" for f in (rep or {}).get("new", [])[:40])
+    check(out.returncode == 0 and rep is not None and not rep["new"],
+          f"(a) lint --check: rc {out.returncode}, docs leg "
+          f"{'on' if docs else 'off'}\n{out.stderr[-2000:]}"
+          f"{'' if rep is not None else out.stdout[-2000:]}\nnew findings "
+          f"({len(rep['new']) if rep else '?'}):\n{new}")
+    syncs = [s for s in rep["suppressed"] if s["checker"] == "sync-in-hot-path"]
+    print(f"[{card}] (a) lint --check: 0 new findings, {len(rep['waived'])} "
+          f"waived, {len(syncs)} annotated sync site(s) "
+          f"({len(rep['suppressed'])} annotated sites in all); docs leg "
+          + ("over PERF.md and README.md" if docs else
+             "off: this checkout has no PERF.md"))
+    return rep["suppressed"]
+
+
+def p23_control(dev, card):
+    """(b) The guard armed: a deliberate ``.item()`` on the card must be
+    reported, so that (c)'s zero means no syncs, not no guard."""
+    from sparknet_tpu_torch.analysis import sanitize
+
+    x = torch.ones(4, device=dev)
+    with sanitize.SyncRecorder() as rec:
+        x.sum().item()
+    n = len(rec.snapshot())
+    check(n >= 1, "(b) set_sync_debug_mode('warn') did not report a "
+          "deliberate .item() on the card: the guard is not armed")
+    print(f"[{card}] (b) the armed guard reported the control .item() "
+          f"({n} sync warning(s))")
+
+
+def _p23_trainer(dev):
+    from sparknet_tpu_torch import config as tconfig
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.parallel import ParameterAveragingTrainer
+    from sparknet_tpu_torch.solver import Solver
+
+    shapes = [(P23_BATCH, 3, 32, 32), (P23_BATCH,)]
+    netp = tconfig.replace_data_layers(models.load_model("cifar10_quick"),
+                                       shapes, shapes)
+    solver = Solver(models.load_model_solver("cifar10_quick"),
+                    net_param=netp, device=dev)
+    return ParameterAveragingTrainer(solver, P23_W, compress="int8")
+
+
+def p23_steady(dev, card, suppressed):
+    """(c) The JAX sanitizer's loop: cifar10_quick, W=2, tau 2, batch 8,
+    ``--compress int8``, through ``RoundFeed`` (its producer thread) and
+    ``ParameterAveragingTrainer`` (the comm plane, K9/K10); 2 warm-up
+    rounds, then 6 steady rounds under the armed guard with no sync of
+    the harness's own.  Each sync the guard reports must lie on a call
+    the lint lists as ``sync-ok``; each site's count a steady round is
+    printed.  Returns the steady rounds' K9/K10 launches."""
+    from sparknet_tpu_torch.analysis import sanitize
+    from sparknet_tpu_torch.data import cifar, round_feed
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p23_") as d:
+        cifar.CifarLoader.write_synthetic(d, num_train=256, num_test=32,
+                                          seed=13)
+        xs, ys = cifar.CifarLoader(d).minibatches(P23_BATCH, train=True)
+
+    def window(r):
+        data = np.empty((P23_W, P23_TAU) + xs[0].shape, np.float32)
+        label = np.empty((P23_W, P23_TAU, P23_BATCH), np.float32)
+        for w in range(P23_W):
+            for t in range(P23_TAU):
+                i = (r * P23_W * P23_TAU + w * P23_TAU + t) % len(xs)
+                data[w, t], label[w, t] = xs[i], ys[i]
+        return {"data": data, "label": label}
+
+    trainer = _p23_trainer(dev)
+    feed = round_feed.RoundFeed(window, dev,
+                                num_rounds=P23_WARM + P23_STEADY)
+    try:
+        state = trainer.init_state(seed=0)
+        for r in range(P23_WARM):
+            state, losses = trainer.round(state, feed.next_round(r))
+        torch.cuda.synchronize()
+        _reset_counts()
+        with sanitize.SyncRecorder() as rec:
+            t0 = time.perf_counter()
+            for r in range(P23_WARM, P23_WARM + P23_STEADY):
+                state, losses = trainer.round(state, feed.next_round(r))
+            steady_s = time.perf_counter() - t0
+        launches = _read_counts()
+    finally:
+        feed.stop()
+    events = rec.snapshot()
+    ok, bad = sanitize.classify(events, suppressed)
+    chunks = len(trainer._comm.chunk_slices)
+    print(f"[{card}] (c) {P23_STEADY} steady int8 rounds under the armed "
+          f"guard in {steady_s * 1e3:.2f} ms (host clock, no sync of the "
+          f"harness's own): {len(events)} sync(s) reported, "
+          f"{sum(bad.values())} outside the annotated sites; by site, a "
+          "steady round: " + (", ".join(
+              f"{p}:{line} {scope} {n / P23_STEADY:g}"
+              for (p, line, scope), n in sorted(ok.items())) or "none"))
+    for site, n in sorted(bad.items()):
+        stack = next(st for _, st in events
+                     if (sanitize.innermost_port_frame(st) or site) == site)
+        print(f"  unannotated sync at {site[0]}:{site[1]} {site[2]} "
+              f"({n}x); its stack:\n" + "".join(
+                  traceback.format_list(stack[-12:])))
+    check(not bad, f"(c) {sum(bad.values())} sync(s) at unannotated sites: "
+          f"{sorted(bad)}")
+    check(np.isfinite(losses.detach().cpu().numpy()).all(),
+          "(c) non-finite losses")
+    want = P23_STEADY * chunks
+    for k in ("comm_encode", "comm_apply_barriered"):
+        check(launches[k] == want,
+              f"(c) {k}: {launches[k]} launches, want {want} "
+              f"({P23_STEADY} rounds x {chunks} chunks)")
+    print(f"[{card}] (c) K9/K10 {launches['comm_encode']}/"
+          f"{launches['comm_apply_barriered']} launches ({chunks} chunk(s) a "
+          "round); (d) the JAX sanitizer's legs 3 (a flat jit cache) and 4 "
+          "(tracer leaks) have no counterpart in a port that compiles no XLA "
+          "programs: not run")
+    return {k: launches[k] for k in ("comm_encode", "comm_apply_barriered")}
+
+
+def p23_run_plan(dev, card):
+    """(e) ``launch run --num_hosts 2 --coordinator_host 127.0.0.1
+    --remote_dir <this tree> -- --backend gloo cifar --device cuda:0 ...``
+    with a fake ``gcloud`` first on ``PATH`` that runs each host's ``ssh
+    --command`` line here (``utils/procs.write_fake_gcloud``): two ranks
+    on the card, started at once, each observed; every rank's rows,
+    losses, masks, smoothed loss and accuracy bit for bit the stacked
+    one-process run of the same flags.  The two runs go side by side.
+    Returns the ranks' K9/K10 launches."""
+    import concurrent.futures
+
+    from sparknet_tpu_torch.utils import procs
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p23e_") as d:
+        env = {"SPARKNET_LOG_DIR": os.path.join(d, "logs")}
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            run = pool.submit(
+                procs.observed_provision_run,
+                ["--num_hosts", "2", "--coordinator_host", "127.0.0.1",
+                 "--coordinator_port", str(procs.free_port()),
+                 "--remote_dir", repo, "--", "--backend", "gloo", *P23_APP],
+                os.path.join(d, "run"), repo, env, P23_TIMEOUT_S)
+            one = pool.submit(procs.observed_launch, P23_APP,
+                              os.path.join(d, "one"), repo, env,
+                              P23_TIMEOUT_S)
+            done, ranks, calls = run.result()
+            done1, (ref,) = one.result()
+        wall = time.perf_counter() - t0
+    check(done.returncode == 0 and len(ranks) == 2,
+          f"(e) launch run: rc {done.returncode}, {len(ranks)} rank(s) saved"
+          f"\n{done.stdout[-3000:]}{done.stderr[-2000:]}")
+    check(done1.returncode == 0, f"(e) the one-process run: rc "
+          f"{done1.returncode}\n{done1.stdout[-2000:]}{done1.stderr[-2000:]}")
+    ssh = [c for c in calls if "ssh" in c["argv"]]
+    starts = [c["start"] for c in ssh if "start" in c]
+    ends = [c["end"] for c in ssh if "end" in c]
+    check(len(starts) == len(ends) == 2 and max(starts) < min(ends),
+          f"(e) the two sessions did not run at once: {calls}")
+    for r in ranks:
+        lo, hi = r["rows"]
+        check(len(r["leaves"]) == len(ref["leaves"]) > 0 and all(
+            np.array_equal(got, want[lo:hi])
+            for got, want in zip(r["leaves"], ref["leaves"])),
+            f"(e) rank rows {lo}:{hi} differ from the one-process run")
+        check(np.array_equal(r["losses"], ref["losses"]),
+              f"(e) rank rows {lo}:{hi}: losses differ")
+        for key in ("masks", "smoothed_loss", "accuracy"):
+            check(r[key] == ref[key], f"(e) {key}: {r[key]} vs {ref[key]}")
+    check(np.isfinite(ref["losses"]).all(), "(e) non-finite losses")
+    check("[host 0] launch: 2 process(es) joined over gloo" in done.stdout,
+          f"(e) no join line from host 0:\n{done.stdout[-2000:]}")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ("comm_encode", "comm_apply_barriered")}
+    print(f"[{card}] (e) launch run --num_hosts 2 -- --backend gloo "
+          f"{' '.join(P23_APP)} through a fake gcloud: both sessions live at "
+          f"once, bit for bit the one-process run (rows, losses "
+          f"{ref['losses'].shape}, masks, smoothed loss "
+          f"{ref['smoothed_loss']!r}, accuracy {ref['accuracy']!r}); K9/K10 "
+          f"a rank {[r['launches']['comm_encode'] for r in ranks]}/"
+          f"{[r['launches']['comm_apply_barriered'] for r in ranks]}; "
+          f"{wall:.2f} s wall for both runs")
+    return launches
+
+
+def lint_and_sanitize_end_to_end(dev, card):
+    """Phase 23 (see the module doc): (e) runs on a thread beside
+    (a)-(d).  Returns the main-path K9/K10 launches of (c) and (e)."""
+    t0 = time.perf_counter()
+    failed, got = [], {}
+
+    def beside():
+        try:
+            got["e"] = p23_run_plan(dev, card)
+        except BaseException as e:  # re-raised below, on this thread
+            failed.append(e)
+
+    thread = threading.Thread(target=beside, name="phase23-run-plan")
+    thread.start()
+    try:
+        suppressed = p23_lint(card)
+        p23_control(dev, card)
+        launches = p23_steady(dev, card, suppressed)
+    finally:
+        thread.join()
+    if failed:
+        raise failed[0]
+    for name, n in got["e"].items():
+        launches[name] += n
+    print(f"[{card}] phase 23 wall {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 
 def cudnn_failure_report(exc: BaseException) -> None:
     """On a failed run: cuDNN's version and flags, the device's free
@@ -8399,6 +8668,8 @@ def run_all() -> int:
     for name, n in telemetry_end_to_end(dev, card).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in host_tools_end_to_end(dev, card).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in lint_and_sanitize_end_to_end(dev, card).items():
         launches[name] = launches.get(name, 0) + n
     slow = sorted(((w, n, k) for k, (w, n) in WALLS.items() if w >= 1.0),
                   reverse=True)

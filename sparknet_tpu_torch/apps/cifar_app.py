@@ -179,8 +179,10 @@ def main(argv: Optional[List[str]] = None, result: Optional[dict] = None) -> int
             scores = trainer.test_and_store_result(
                 state, test_on_dev, counts=test_counts
             )
+            at = log.elapsed()  # one stamp: one parse_log test row
             for name in sorted(scores):
-                log.log(f"test output {name} = {scores[name] / num_test_batches:.4f}")
+                log.log(f"test output {name} = {scores[name] / num_test_batches:.4f}",
+                        elapsed=at)
             return primary_accuracy(scores) / num_test_batches
 
         # the run's telemetry (--obs, --trace_out, --slo, --ship_to,

@@ -90,7 +90,7 @@ class RoundFeed:
     def _produce_one(self, r: int):
         with span("assemble", round=r):
             host = self._assemble(r)
-        nbytes = int(sum(v.nbytes for v in host.values()))
+        nbytes = sum(v.nbytes for v in host.values())
         with span("h2d", round=r, nbytes=nbytes):
             return place_batch(host, self._device, self._copy_stream)
 

@@ -138,6 +138,7 @@ class WorkerWindowTimer:
         """(W,) seconds; on the card waits for the last end event."""
         out = np.zeros((self.num_workers,), np.float64)
         if self.cuda and self._last_end is not None:
+            # sparknet: sync-ok(--profile only: the worker windows' events are the profiler's one deliberate per-round read, as the JAX execute probe)
             self._last_end.synchronize()
         for w, pairs in enumerate(self._pairs):
             for s, e in pairs:
@@ -334,7 +335,7 @@ class RoundProfiler:
             probe = wt.get("execute_probe")
         worker = self._worker_verdict(r, wt)
         rec = {
-            "round": int(r),
+            "round": r,
             "round_s": round_s,
             "phases_ms": {k: round(v * 1e3, 3) for k, v in sorted(phases.items())},
             "hidden_frac_h2d": hidden_h2d,

@@ -40,15 +40,23 @@ def _global_batch(n: int) -> int:
     return n if shard is None else shard.global_rows(n)
 
 
+def _scalar(value, dtype, device) -> torch.Tensor:
+    """A 0-d tensor filled on ``device``: ``torch.tensor(value,
+    device=...)`` copies from pageable host memory, which waits for the
+    card every iteration (the JAX package folds these constants into its
+    program)."""
+    return torch.full((), value, dtype=dtype, device=device)
+
+
 def _normalizer(norm: str, outer: int, inner: int, valid_count, device):
     if norm == "FULL":
-        return torch.tensor(float(outer * inner), device=device)
+        return _scalar(outer * inner, torch.float32, device)
     if norm == "VALID":
         return torch.clamp_min(valid_count.to(torch.float32), 1.0)
     if norm == "BATCH_SIZE":
-        return torch.tensor(float(outer), device=device)
+        return _scalar(outer, torch.float32, device)
     if norm == "NONE":
-        return torch.tensor(1.0, device=device)
+        return _scalar(1.0, torch.float32, device)
     raise ValueError(f"unknown loss normalization {norm!r}")
 
 
@@ -90,8 +98,8 @@ class SoftmaxWithLoss(Layer):
             if shard is not None and norm_kind == "VALID":
                 valid_count = shard.sum(valid_count.to(torch.float32))
         else:
-            valid_count = torch.tensor(_global_batch(outer) * inner,
-                                       device=logits.device)
+            valid_count = _scalar(_global_batch(outer) * inner, torch.int64,
+                                  logits.device)
         norm = _normalizer(norm_kind, _global_batch(outer), inner,
                            valid_count, logits.device)
         tops = [-picked.sum() / norm]

@@ -397,6 +397,7 @@ class CommPlane:
     def _join_pending(self) -> dict:
         """Wait for the paced chunk means; re-raise comm-thread errors."""
         p = self._pending
+        # sparknet: join-ok(bounded by the in-flight chunk means: _pace_chunks always terminates, storing errors instead of raising)
         p["thread"].join()
         holder = p["holder"]
         if holder.get("error") is not None:
@@ -460,12 +461,15 @@ class CommPlane:
         the cost-model sleep plus the wait for its mean."""
         try:
             if encoded is not None:
-                encoded.synchronize()  # the wire cannot carry a delta before it exists
+                # the wire cannot carry a delta before it exists
+                # sparknet: sync-ok(the wire wait: the comm thread parks until the encode lands — overlapped in overlap mode, the deliberate barrier otherwise)
+                encoded.synchronize()
             means: list = [None] * sum(sl.stop - sl.start for sl, *_ in outs)
             for sl, m, nbytes, ev in outs:
                 with span("allreduce", chunk=sl.start, nbytes=nbytes):
                     self._sleep_cost(nbytes)
                     if ev is not None:
+                        # sparknet: sync-ok(chunk landing: the span times the wire, not the dispatch — the comm thread's side of the overlap)
                         ev.synchronize()
                 means[sl] = list(m)
             holder["means"] = means
@@ -493,8 +497,10 @@ class CommPlane:
         pending, self._pending_err = self._pending_err, None
         if pending is None:
             return None
-        max_abs, delta_sq, err_sq = (float(v) for v in pending.tolist())
+        # sparknet: sync-ok(3-scalar readout queued with LAST round's encode, one round late by design: ready by now, read without stalling the dispatch)
+        max_abs, delta_sq, err_sq = pending.tolist()
         if err_sq > 0:
+            # sparknet: sync-ok(host floats read above — pure host math)
             snr_db = 10.0 * float(np.log10(max(delta_sq, 1e-45) / err_sq))
         else:
             snr_db = 300.0  # error underflowed to exactly 0
@@ -562,8 +568,10 @@ class CommPlane:
         # masked worker forces the strict barriered apply (consensus
         # overwrite, residual reset, momentum zeroing).  The verdict is
         # one (W,) read a round, and only an overlapped plane reads it.
+        # sparknet: sync-ok(live_host is the host-side mask, never a device tensor)
         all_alive = bool(np.all(np.asarray(live_host) > 0))
         if all_alive and bad is not None and self.overlap:
+            # sparknet: sync-ok(one tiny (W,) audit-verdict read, overlap with the audit only — the per-round D2H budget the host sentry pays)
             all_alive = not bool(bad.any())
         encoded = _record_event(leaves[0])
         outs, denom0 = self._dispatch_chunks(q, scales, alive)

@@ -48,6 +48,7 @@ import inspect
 import os
 import socket
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -335,9 +336,19 @@ def _guarded(what: str):
 
 
 def shutdown() -> None:
-    """Leave the joined runtime (a no-op when not joined)."""
+    """Leave the joined runtime (a no-op when not joined).  Every mesh
+    ``make_mesh`` built drops its groups here: a group object that
+    outlives the runtime until interpreter exit (a mesh held by a
+    script's globals) is destroyed during finalization, where gloo can
+    abort the process ("terminate called without an active
+    exception") after the run has finished."""
     if dist.is_initialized():
         dist.destroy_process_group()
+    for ref in _MESHES:
+        m = ref()
+        if m is not None:
+            m.groups = {axis: None for axis in m.groups}
+    _MESHES.clear()
     _JOINED.clear()
 
 
@@ -370,6 +381,10 @@ class ProcessMesh:
 
     def group(self, axis: str):
         return self.groups.get(axis)
+
+
+# the meshes built (weakly), whose groups ``shutdown`` drops
+_MESHES: List[weakref.ref] = []
 
 
 def mesh_shape(axes: Optional[Dict[str, int]], n_slots: int) -> Dict[str, int]:
@@ -435,7 +450,10 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
         groups[axis] = _axis_group(sets, me, p)
     if device is None:
         device = joined_device() or torch.device("cpu")
-    return ProcessMesh(shape, p, me, wpp, coords, groups, device)
+    mesh = ProcessMesh(shape, p, me, wpp, coords, groups, device)
+    _MESHES[:] = [r for r in _MESHES if r() is not None]
+    _MESHES.append(weakref.ref(mesh))
+    return mesh
 
 
 def _axis_group(sets: List[Tuple[int, ...]], me: int, p: int):

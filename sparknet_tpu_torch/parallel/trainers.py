@@ -344,6 +344,7 @@ class ParameterAveragingTrainer:
 
     def _place_live(self, live_mask) -> torch.Tensor:
         """The (W,) float32 live mask on the device, cached per value."""
+        # sparknet: sync-ok(live_mask is a host 0/1 array, never a device value; placement cached per mask)
         live = np.asarray(live_mask, np.float32).reshape(-1)
         if live.shape[0] != self.num_workers:
             raise ValueError(
@@ -558,7 +559,7 @@ class ParameterAveragingTrainer:
         ``round_index`` is the absolute round, which decides the two-tier
         schedule's tier (the trainer counts its own calls when none is
         given)."""
-        r = self._auto_round if round_index is None else int(round_index)
+        r = self._auto_round if round_index is None else round_index
         self._auto_round = r + 1
         intra = self._two_tier and not self.hierarchy.is_cross_round(r)
         if live_mask is None:

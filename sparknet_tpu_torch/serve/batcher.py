@@ -135,6 +135,7 @@ class MicroBatcher:
     def submit(self, x: np.ndarray, timeout: Optional[float] = 60.0):
         """Block until the request's rows come back (or raise).  ``x``
         is (n, *item_shape) or a single unbatched item."""
+        # sparknet: sync-ok(host request payload coerced once at the API edge)
         x = np.asarray(x, np.float32)
         if x.ndim == len(self.engine.item_shape):
             x = x[None]

@@ -215,13 +215,14 @@ class InferenceEngine:
             out = self.net.forward(
                 self.params, self.stats, {self.data_blob: xd}
             )[self.output_blob]
-            # the response rows ARE the product: the one D2H copy
+            # sparknet: sync-ok(serving D2H: the response rows ARE the product, the one D2H copy)
             out = out.cpu()
         return _host(out)
 
     def infer(self, x: np.ndarray) -> np.ndarray:
         """Single-shot inference for n items (any n >= 1): chunks by the
         max bucket, pads the tail, returns exactly n output rows."""
+        # sparknet: sync-ok(host request payload coerced once at the API edge)
         x = np.asarray(x, np.float32)
         if x.ndim == len(self.item_shape):  # single item without batch dim
             x = x[None]

@@ -850,6 +850,7 @@ class Router:
                         nonfinite = True
                         divergence = float("inf")
                     else:
+                        # sparknet: sync-ok(host numpy divergence reduction over already-materialized logprobs)
                         divergence = float(np.max(np.abs(
                             lps.astype(np.float64) - inc_lps
                         )))
@@ -859,6 +860,7 @@ class Router:
                     # both sides are host numpy arrays (serving
                     # responses are materialized by contract); the
                     # reductions below never touch a device buffer
+                    # sparknet: sync-ok(host numpy divergence reduction over already-materialized serving outputs)
                     delta = float(np.max(np.abs(
                         out.astype(np.float64)
                         - incumbent_out.astype(np.float64)

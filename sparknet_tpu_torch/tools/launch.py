@@ -16,10 +16,19 @@ Local (N processes on this machine; ``--device`` is the app's)::
     python -m sparknet_tpu_torch.tools.launch --nprocs 2 --backend gloo \\
         cifar --device cuda:0 --rounds 3               # two ranks, one card
 
-One process per real host (the same line on every host)::
+One process per real host (the same line on every host; the process is
+local rank 0 of 1 on its host unless ``LOCAL_RANK``/``LOCAL_WORLD_SIZE``
+say otherwise)::
 
     python -m sparknet_tpu_torch.tools.launch --coordinator 10.0.0.2:8476 \\
         --num_processes 4 --process_id $RANK imagenet --data /mnt/imagenet
+
+The cluster lifecycle actions come first and go to
+``tools/provision.py`` (Compute Engine GPU hosts through ``gcloud``;
+``run`` starts the line above on every host)::
+
+    python -m sparknet_tpu_torch.tools.launch provision|describe|run|ssh|teardown \\
+        [--dry-run] --name NAME --num_hosts N ... [-- APP ARGS]
 
 The backend rule (``parallel/mesh.py``): NCCL when every rank has a card
 of its own, gloo for CPU ranks, and ranks that share a card refuse to
@@ -74,8 +83,6 @@ APPS = {
 }
 # the apps whose JAX counterparts run across processes
 MULTIPROCESS_APPS = ("cifar", "imagenet", "lm", "train")
-# the JAX launcher's lifecycle actions (tools/provision.py, not ported)
-PROVISION_ACTIONS = ("provision", "describe", "run", "ssh", "teardown")
 # the exit code of a run refused before any child spawned
 USAGE_RC = 2
 
@@ -142,6 +149,11 @@ def run_app(app: str, app_argv, coordinator=None, num_processes=None,
             "run (its survivors stop with mesh.PeerLost)")
     joined = False
     if coordinator or num_processes is not None or "MASTER_ADDR" in os.environ:
+        if coordinator or num_processes is not None:
+            # one host of a real cluster: the only rank on its host,
+            # unless its environment (the local spawn's) says otherwise
+            os.environ.setdefault("LOCAL_RANK", "0")
+            os.environ.setdefault("LOCAL_WORLD_SIZE", "1")
         mesh.initialize_distributed(coordinator, num_processes, process_id,
                                     backend=backend,
                                     device=requested_device(app_argv))
@@ -289,7 +301,8 @@ def _spawn_local_procs(args, app_argv, collector=None) -> int:
         for e in victims:
             try:
                 e["proc"].wait(timeout=30)
-            except subprocess.TimeoutExpired:  # the final wait reaps it
+            # sparknet: except-ok(best-effort reap of a killed victim; the final wait owns reaping and rc accounting)
+            except subprocess.TimeoutExpired:
                 pass
         with spawn_lock:
             if stopping.is_set():
@@ -334,13 +347,18 @@ def _spawn_local_procs(args, app_argv, collector=None) -> int:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in PROVISION_ACTIONS:
-        raise SystemExit(f"launch: the cluster lifecycle action {argv[0]!r} "
-                         "(tools/provision.py) is not yet ported to "
-                         "sparknet_tpu_torch")
+    # cluster lifecycle actions (spark_ec2.py real_main action dispatch
+    # analog) live in tools/provision.py: `launch provision --dry-run ...`
+    from sparknet_tpu_torch.tools import provision
+
+    if argv and argv[0] in provision.ACTIONS:
+        return provision.main(argv[0], argv[1:])
     parser = argparse.ArgumentParser(
         prog="sparknet_tpu_torch.tools.launch",
-        description=__doc__.split("\n", 1)[0])
+        description=__doc__.split("\n", 1)[0],
+        epilog="cluster lifecycle actions (dispatched before app launch): "
+        "launch provision|describe|run|ssh|teardown [--dry-run] ... — see "
+        "`launch provision --help`")
     parser.add_argument(
         "--nprocs", type=int, default=0,
         help="spawn N local processes; 0 = this process IS one host of a "

@@ -20,7 +20,9 @@ process's block of workers, the caller over all W stacked on one device
 — the reference a cross-process run is held to bit for bit.
 ``observed_launch`` runs the real launcher and app, each process saving
 what its ``cifar_app`` computed, so a launched run can be held to a
-one-process run of the same flags.
+one-process run of the same flags; ``observed_provision_run`` does the
+same for ``launch run`` (``tools/provision.py``) through a fake
+``gcloud`` (``write_fake_gcloud``) that runs each host's line locally.
 """
 
 from __future__ import annotations
@@ -728,14 +730,138 @@ def observed_launch(launch_argv: Sequence[str], out_dir: str, repo_root: str,
     tau), ``leaves`` (this rank's rows of every param and stat leaf),
     ``masks``, ``smoothed_loss``, ``accuracy``, ``code``, ``launches``
     (``ops.cuda_comm.LAUNCHES``)."""
-    os.makedirs(out_dir, exist_ok=True)
-    script = os.path.join(out_dir, "observer.py")
-    with open(script, "w") as f:
-        f.write(_OBSERVED_LAUNCH)
+    script = _write_observer(out_dir)
     done = subprocess.run(
         [sys.executable, script, out_dir, *launch_argv], capture_output=True,
         text=True, timeout=timeout, env=repo_env(repo_root, env_extra),
         cwd=cwd or out_dir)
+    return done, _observed_ranks(out_dir)
+
+
+def _write_observer(out_dir: str) -> str:
+    os.makedirs(out_dir, exist_ok=True)
+    script = os.path.join(out_dir, "observer.py")
+    with open(script, "w") as f:
+        f.write(_OBSERVED_LAUNCH)
+    return script
+
+
+# A fake ``gcloud`` for ``tools/provision.py``: each call appends its
+# argv, pid and start time (and its end time, as a second record) to
+# ``$FAKE_GCLOUD_LOG`` as JSON lines; ``compute instances describe ...
+# --format=value(status)`` prints the next of ``$FAKE_GCLOUD_STATUS``
+# (comma-separated, per host, the last repeated); ``compute ssh HOST
+# --command CMD`` waits ``$FAKE_GCLOUD_SLEEP_<HOST>`` seconds (``-`` read
+# as ``_`` in HOST), then exits ``$FAKE_GCLOUD_RC_<HOST>`` when that is
+# set, else runs ``bash -c CMD`` here if CMD is a ``run`` line (it starts
+# the launcher); every other call (the deploy's ``rm -rf REMOTE`` among
+# them, which must never run on this machine) is only recorded, prints
+# nothing and exits 0.  Beside it a
+# ``python`` that runs this interpreter, or, for ``-m
+# sparknet_tpu_torch.tools.launch`` under ``$FAKE_GCLOUD_OBSERVE``, the
+# observer script there (``observed_provision_run``).
+_FAKE_GCLOUD = r"""#!@PYTHON@
+import json, os, subprocess, sys, time
+
+argv = sys.argv[1:]
+log = os.environ.get("FAKE_GCLOUD_LOG")
+
+
+def note(**rec):
+    if log:
+        with open(log, "a") as f:
+            f.write(json.dumps(dict(rec, argv=argv, pid=os.getpid())) + "\n")
+
+
+note(start=time.time())
+if "describe" in argv and "--format=value(status)" in argv:
+    host = argv[argv.index("describe") + 1]
+    seen = os.path.join(os.path.dirname(log or "."), f".status-{host}")
+    n = int(open(seen).read()) if os.path.exists(seen) else 0
+    with open(seen, "w") as f:
+        f.write(str(n + 1))
+    statuses = os.environ.get("FAKE_GCLOUD_STATUS", "RUNNING").split(",")
+    print(statuses[min(n, len(statuses) - 1)])
+    rc = 0
+elif "ssh" in argv and "--command" in argv:
+    host = argv[argv.index("ssh") + 1].replace("-", "_")
+    time.sleep(float(os.environ.get("FAKE_GCLOUD_SLEEP_" + host, "0")))
+    forced = os.environ.get("FAKE_GCLOUD_RC_" + host)
+    command = argv[argv.index("--command") + 1]
+    if forced is not None:
+        rc = int(forced)
+    elif "sparknet_tpu_torch.tools.launch" in command:
+        sys.stdout.flush()
+        rc = subprocess.call(["bash", "-c", command])
+    else:
+        rc = 0
+else:
+    rc = 0
+note(end=time.time(), rc=rc)
+sys.exit(rc)
+"""
+
+_FAKE_PYTHON = r"""#!/bin/bash
+if [ -n "$FAKE_GCLOUD_OBSERVE" ] && [ "$1" = "-m" ] &&
+   [ "$2" = "sparknet_tpu_torch.tools.launch" ]; then
+  shift 2
+  exec "@PYTHON@" "$FAKE_GCLOUD_OBSERVE/observer.py" "$FAKE_GCLOUD_OBSERVE" "$@"
+fi
+exec "@PYTHON@" "$@"
+"""
+
+
+def write_fake_gcloud(bin_dir: str) -> str:
+    """Write the fake ``gcloud`` and its ``python`` into ``bin_dir`` (to
+    go first on ``PATH``); returns ``bin_dir``."""
+    os.makedirs(bin_dir, exist_ok=True)
+    for name, src in (("gcloud", _FAKE_GCLOUD), ("python", _FAKE_PYTHON)):
+        path = os.path.join(bin_dir, name)
+        with open(path, "w") as f:
+            f.write(src.replace("@PYTHON@", sys.executable))
+        os.chmod(path, 0o755)
+    return bin_dir
+
+
+def fake_gcloud_env(bin_dir: str, log: str,
+                    env_extra: Optional[Dict[str, str]] = None
+                    ) -> Dict[str, str]:
+    """``env_extra`` with the fake ``gcloud`` first on ``PATH`` and its
+    log at ``log``."""
+    return {**(env_extra or {}), "FAKE_GCLOUD_LOG": log,
+            "PATH": bin_dir + os.pathsep + os.environ.get("PATH", "")}
+
+
+def fake_gcloud_calls(log: str) -> List[dict]:
+    """The fake ``gcloud``'s records, in the order written."""
+    if not os.path.exists(log):
+        return []
+    with open(log) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def observed_provision_run(run_argv: Sequence[str], out_dir: str,
+                           repo_root: str,
+                           env_extra: Optional[Dict[str, str]] = None,
+                           timeout: float = 600.0):
+    """``python -m sparknet_tpu_torch.tools.launch run <run_argv>``
+    through the fake ``gcloud``, each host's launcher observed as
+    ``observed_launch``'s (its ``cifar_app`` run saved).  Returns the
+    finished process, each rank's saved run in rank order, and the fake
+    ``gcloud``'s records."""
+    _write_observer(out_dir)
+    bin_dir = write_fake_gcloud(os.path.join(out_dir, "bin"))
+    log = os.path.join(out_dir, "gcloud.jsonl")
+    env = fake_gcloud_env(bin_dir, log, {**(env_extra or {}),
+                                         "FAKE_GCLOUD_OBSERVE": out_dir})
+    done = subprocess.run(
+        [sys.executable, "-m", "sparknet_tpu_torch.tools.launch", "run",
+         *run_argv], capture_output=True, text=True, timeout=timeout,
+        env=repo_env(repo_root, env), cwd=out_dir)
+    return done, _observed_ranks(out_dir), fake_gcloud_calls(log)
+
+
+def _observed_ranks(out_dir: str) -> List[dict]:
     ranks = []
     for r in range(len(os.listdir(out_dir))):
         path = os.path.join(out_dir, f"rank{r}.npz")
@@ -747,7 +873,7 @@ def observed_launch(launch_argv: Sequence[str], out_dir: str, repo_root: str,
         run["leaves"] = [z[f"leaf{i}"] for i in
                          range(sum(k.startswith("leaf") for k in z.files))]
         ranks.append(run)
-    return done, ranks
+    return ranks
 
 
 def free_port() -> int:

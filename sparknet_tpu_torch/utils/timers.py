@@ -68,6 +68,7 @@ class Timer(CPUTimer):
         if self._ev0 is not None:
             with torch.cuda.device(self._device):
                 self._ev1.record()
+            # sparknet: sync-ok(device-synchronized timer: the sync IS the contract, cudaEvent-style)
             self._ev1.synchronize()
             self._elapsed = self._ev0.elapsed_time(self._ev1) / 1e3
             self.has_run_at_least_once = True

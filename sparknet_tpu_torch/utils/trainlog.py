@@ -53,10 +53,19 @@ class TrainingLog:
         self._t0 = time.time()
         self._echo = echo
 
-    def log(self, message: str, i: int = -1):
+    def elapsed(self) -> float:
+        """Seconds since the log was opened."""
+        return time.time() - self._t0
+
+    def log(self, message: str, i: int = -1,
+            elapsed: Optional[float] = None):
         """Reference line formats (ImageNetApp.scala:47-53): with a round
-        index, ``<elapsed>, i = <i>: <message>``; else ``<elapsed>: <msg>``."""
-        elapsed = time.time() - self._t0
+        index, ``<elapsed>, i = <i>: <message>``; else ``<elapsed>: <msg>``.
+        ``elapsed`` stamps the line with that time instead of now: the
+        lines of one test pass share one stamp, which is what makes
+        ``parse_log`` merge them into one row."""
+        if elapsed is None:
+            elapsed = self.elapsed()
         if i >= 0:
             line = f"{elapsed:.3f}, i = {i}: {message}"
         else:

@@ -83,6 +83,7 @@ assert m2.coords == {"dp": slice(pid, pid + 1), "sp": slice(0, 2)}
 assert m2.group("sp") is None and m2.group("dp") is not None
 mesh.shutdown()
 assert mesh.process_count() == 1
+assert m.group("dp") is None and m2.group("dp") is None  # ended with it
 print(f"JOIN_OK p{pid}")
 """
 

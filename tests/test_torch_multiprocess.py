@@ -19,8 +19,9 @@ process before it joins, is the reference.
   ``timed_averaging_worker``).
 - ``tools/launch.py --nprocs 2 cifar --device cpu``: the one-process
   run's numbers, only rank 0 logging; ``imagenet`` across two ranks at
-  a narrowed input against one process; the launcher's refusals, and
-  its ``--fleet_collector`` wiring.
+  a narrowed input against one process; the launcher's refusals, its
+  ``--fleet_collector`` wiring, and its dispatch of the cluster
+  lifecycle actions to ``tools/provision.py``.
 """
 
 import os
@@ -250,7 +251,6 @@ def test_imagenet_app_across_two_ranks(tmp_path):
       "--sp", "2"], "lm across 2 processes"),
     (["--nprocs", "2", "featurizer"], "featurizer across 2 processes"),
     (["--fleet_collector", "127.0.0.1:0", "cifar"], "--fleet_collector"),
-    (["provision", "--dry-run"], "provision"),
 ])
 def test_launch_refuses_what_is_not_yet_ported(argv, what, monkeypatch,
                                                capsys):
@@ -274,3 +274,19 @@ def test_launch_refuses_what_is_not_yet_ported(argv, what, monkeypatch,
     with pytest.raises(SystemExit, match="not yet ported") as e:
         launch.main(argv)
     assert what in str(e.value)
+
+
+@pytest.mark.parametrize("action", ["provision", "describe", "run", "ssh",
+                                    "teardown"])
+def test_launch_dispatches_lifecycle_actions_to_the_plan(action, capsys):
+    """``launch <action> --dry-run ...`` (once refused) prints the
+    action's ``tools/provision.py`` plan and exits 0."""
+    from sparknet_tpu_torch.tools import provision
+
+    flags = ["--name", "gpu", "--num_hosts", "2", "--worker", "1"]
+    app = ["--", "cifar", "--rounds", "1"] if action == "run" else []
+    assert launch.main([action, "--dry-run", *flags, *app]) == 0
+    plan = provision.command_plan(action, provision.make_parser().parse_args(
+        flags), app[1:])
+    assert capsys.readouterr().out == provision.format_plan(plan) + "\n"
+    assert plan and all(cmd[0] == "gcloud" for cmd in plan)

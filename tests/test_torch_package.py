@@ -99,7 +99,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "obs/exporter.py", "obs/__init__.py", "io/protobin.py",
                 "io/proto_fields.py", "data/mnist.py", "tools/parse_log.py",
                 "tools/draw.py", "tools/net_surgery.py", "tools/detector.py",
-                "tools/prepare_imagenet.py"):
+                "tools/prepare_imagenet.py", "analysis/__init__.py",
+                "analysis/astutil.py", "analysis/donation_check.py",
+                "analysis/findings.py", "analysis/hotpaths.py",
+                "analysis/registry.py", "analysis/registry_audit.py",
+                "analysis/runner.py", "analysis/sanitize.py",
+                "analysis/sync_check.py", "analysis/thread_check.py",
+                "tools/lint.py", "tools/provision.py"):
         assert os.path.join("sparknet_tpu_torch", mod) in rel
     for path in files:
         for mod in _imported_modules(path):
